@@ -1,0 +1,87 @@
+"""Build the port's CUDA sources into shared libraries, at first use.
+
+Each `csrc/*.cu` file has a plain `extern "C"` interface and is compiled by
+`nvcc` alone (no PyTorch headers, so a build takes seconds) into the
+git-ignored `build/` directory at the repository root, then loaded with
+`ctypes`.  The library name carries a hash of the source and the flags, so
+an edited source is rebuilt and an unchanged one is reused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
+
+# sm_90a keeps Hopper-only instructions available; no fast math and no FMA
+# contraction, so the kernels round exactly as the plain PyTorch versions do
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+@dataclass
+class BuildResult:
+    path: Path
+    seconds: float  # 0.0 when an earlier build was reused
+    log: str  # nvcc/ptxas report (registers, shared memory, spills)
+    cached: bool
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
+
+
+def build(source: str) -> BuildResult:
+    """Compile `csrc/<source>` unless an identical build exists."""
+
+    src = CSRC / source
+    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"{src.stem}_{key}.so"
+    log_path = lib.with_suffix(".log")
+    if lib.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+        return BuildResult(lib, 0.0, log, True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        capture_output=True, text=True, timeout=600,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {src.name} (exit {proc.returncode}):\n{proc.stderr}")
+    log = proc.stdout + proc.stderr
+    log_path.write_text(log)
+    os.replace(tmp, lib)
+    return BuildResult(lib, seconds, log, False)
+
+
+@functools.lru_cache(maxsize=None)
+def load(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load `csrc/<source>`; one handle per process."""
+
+    return ctypes.CDLL(str(build(source).path))
+
+
+__all__ = ["BuildResult", "build", "load", "BUILD_DIR", "CSRC", "NVCC_FLAGS"]

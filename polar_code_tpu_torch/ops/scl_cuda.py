@@ -1,0 +1,155 @@
+"""SCL list decode on Hopper: wrapper of the CUDA kernel `csrc/scl_decode.cu`.
+
+Replaces the TPU kernel `polar_code_tpu/ops/scl_pallas.py` `_kernel_body`
+(wrapper `decode_scl_pallas`).  `decode_scl_cuda` has the JAX wrapper's
+contract: llr [B, N] float32 → {"best_path_bits" int8 [B, K],
+"best_path_info_llrs" float32 [B, K], "crc_pass" bool [B]}, with an optional
+forced plan int8 [B, K] (−1 free / 0 / 1).
+
+On a CUDA tensor it launches the kernel, or raises for a shape the kernel
+does not take; it runs the plain version (`ops/scl.py`) only for a tensor on
+the CPU.  Any batch size is taken: the last block is masked, since the retry
+batches after compaction are data-dependent.  `decode_scl_cuda.launches`
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import _build
+from .crc import check_matrix, crc_degree
+from .scl import decode_scl_batch
+from .scl_schedule import kernel_tables
+
+SOURCE = "scl_decode.cu"
+SUPPORTED_M = (1, 2, 4, 8)
+MAX_BLOCK_SMEM = 227 * 1024  # dynamic shared memory one block may use on an H100
+MAX_FRAMES_PER_BLOCK = 4  # warps (frames) per block
+
+
+def frame_bytes(N: int, K: int, M: int) -> int:
+    """Shared memory one frame's decode state takes, rounded to 16 bytes:
+    LLR rows and trace LLRs (float32), partial-sum rows and trace indices
+    (bytes)."""
+
+    raw = 4 * M * (N - 1) + 4 * K * M + M * (N - 1) + K * M
+    return (raw + 15) // 16 * 16
+
+
+def frames_per_block(N: int, K: int, M: int) -> int:
+    return max(1, min(MAX_FRAMES_PER_BLOCK, MAX_BLOCK_SMEM // frame_bytes(N, K, M)))
+
+
+def check_shape(N: int, K: int, M: int, crc: Optional[str], dtype: torch.dtype) -> None:
+    """Raise ValueError unless the kernel takes this decode."""
+
+    if dtype != torch.float32:
+        raise ValueError(f"the SCL kernel decodes float32 LLRs, not {dtype}")
+    if M not in SUPPORTED_M:
+        raise ValueError(f"the SCL kernel supports M in {SUPPORTED_M}, not {M}")
+    if N < 2 or N & (N - 1) or not 0 < K <= N:
+        raise ValueError(f"invalid code shape N={N} K={K}")
+    if crc is not None and crc_degree(crc) > 32:
+        raise ValueError("the SCL kernel supports CRCs of degree <= 32")
+    if frame_bytes(N, K, M) > MAX_BLOCK_SMEM:
+        raise ValueError(
+            f"SCL decode state for N={N} K={K} M={M} needs {frame_bytes(N, K, M)} "
+            f"bytes of shared memory per frame, more than a block has ({MAX_BLOCK_SMEM})"
+        )
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    lib.scl_decode_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.scl_decode_launch.restype = ctypes.c_int
+    lib.scl_error_string.argtypes = [ctypes.c_int]
+    lib.scl_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _device_tables(info_key: tuple, N: int, crc: Optional[str], device: torch.device):
+    """Schedule table int32 [5, N] and CRC check columns as 32-bit words [K]."""
+
+    info_np = np.asarray(info_key, np.int64)
+    sched = torch.as_tensor(kernel_tables(N, info_np), device=device)
+    K = len(info_key)
+    words = np.zeros(K, np.uint32)
+    if crc is not None:
+        Hc = np.asarray(check_matrix(crc, K), np.uint64)
+        weights = (np.uint64(1) << np.arange(Hc.shape[0], dtype=np.uint64))[:, None]
+        words = (Hc * weights).sum(axis=0).astype(np.uint32)
+    hcols = torch.as_tensor(words.view(np.int32), device=device)
+    return sched, hcols
+
+
+def decode_scl_cuda(
+    llr: torch.Tensor,
+    info_set,
+    M: int,
+    crc: Optional[str] = None,
+    *,
+    force_info_bits: Optional[torch.Tensor] = None,
+) -> dict:
+    """Fused SCL decode of a batch: the CRC-selected path's bits and info
+    LLRs, and the CRC pass flag."""
+
+    info_np = np.asarray(info_set, np.int64)
+    if llr.device.type == "cpu":
+        res = decode_scl_batch(
+            llr, info_np, M, crc, force_info_bits=force_info_bits, dtype=llr.dtype
+        )
+        return {
+            "best_path_bits": res.best_path_bits,
+            "best_path_info_llrs": res.best_path_info_llrs,
+            "crc_pass": res.crc_pass,
+        }
+    if llr.device.type != "cuda":
+        raise ValueError(f"decode_scl_cuda takes CUDA or CPU tensors, not {llr.device}")
+    if llr.dim() != 2 or not llr.is_contiguous():
+        raise ValueError("llr must be a contiguous [B, N] tensor")
+    B, N = int(llr.shape[0]), int(llr.shape[1])
+    K = int(info_np.size)
+    check_shape(N, K, M, crc, llr.dtype)
+    if force_info_bits is not None:
+        f = force_info_bits
+        if (f.device != llr.device or f.dtype != torch.int8 or tuple(f.shape) != (B, K)
+                or not f.is_contiguous()):
+            raise ValueError(f"force_info_bits must be a contiguous int8 [{B}, {K}] tensor on {llr.device}")
+
+    dev = llr.device
+    bits = torch.empty((B, K), dtype=torch.int8, device=dev)
+    llrs = torch.empty((B, K), dtype=torch.float32, device=dev)
+    passed = torch.empty((B,), dtype=torch.bool, device=dev)
+    if B == 0:
+        return {"best_path_bits": bits, "best_path_info_llrs": llrs, "crc_pass": passed}
+    sched, hcols = _device_tables(tuple(int(i) for i in info_np), N, crc, dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.scl_decode_launch(
+            llr.data_ptr(),
+            force_info_bits.data_ptr() if force_info_bits is not None else None,
+            hcols.data_ptr(), sched.data_ptr(),
+            bits.data_ptr(), llrs.data_ptr(), passed.data_ptr(),
+            B, N, int(math.log2(N)), K, M, int(crc is not None),
+            frame_bytes(N, K, M), frames_per_block(N, K, M), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"SCL kernel launch failed: {lib.scl_error_string(rc).decode()} ({rc})")
+    decode_scl_cuda.launches += 1
+    return {"best_path_bits": bits, "best_path_info_llrs": llrs, "crc_pass": passed}
+
+
+decode_scl_cuda.launches = 0
+
+
+__all__ = ["decode_scl_cuda", "check_shape", "frame_bytes", "SUPPORTED_M"]

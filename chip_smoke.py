@@ -1,39 +1,63 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's two paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
 Phases (each ends with one flushed line carrying the elapsed seconds):
 
 1. device: name, count, torch/CUDA versions, `nvidia-smi` name and power limit;
-2. build: the SCL kernel (`polar_code_tpu_torch/csrc/scl_decode.cu`) by nvcc,
-   with the build seconds and the `-Xptxas -v` registers, shared memory and
-   spills;
-3. the kernel against its plain PyTorch version at P(128,64): M ∈ {1,2,4,8},
-   CRC-24A on and off, with and without a random forced plan, B=4096 LLRs at
-   3, 5 and 7 dB, plus ragged B=1000 and B=1001 batches.  Bits and CRC pass must be
-   identical and info LLRs equal within 1e-6 relative; a frame whose two
+2. build: both kernels, one `nvcc` each, started together — the SCL kernel
+   K1 (`polar_code_tpu_torch/csrc/scl_decode.cu`) and the NMS LDPC kernel K2
+   (`csrc/nms_decode.cu`) — with the build seconds and the `-Xptxas -v`
+   registers, shared memory and spills;
+3. K1 against its plain PyTorch version at P(128,64): M ∈ {1,2,4,8}, CRC-24A
+   on and off, with and without a random forced plan, B=4096 LLRs at 3, 5
+   and 7 dB, plus ragged B=1000 and B=1001 batches.  Bits and CRC pass must
+   be identical and info LLRs equal within 1e-6 relative; a frame whose two
    ordered final path metrics lie within 1e-5 relative (a near-tie) is
    counted and printed instead of failing;
-4. the main path: the FER sweep CLI (`run_fer_sweep.main`) at M=8, 8 retries,
-   β from `checkpoints/beta_M8.npy`, 102400 frames at 4.0 and 5.0 dB on the
-   card.  Every SCL decode must go through the kernel (its launch counter
-   grows, the plain decoder runs 0 times on CUDA), and FER of both arms must
-   agree with the JAX package's `results/fer_M8.csv` at |z| < 3;
-5. times with CUDA events after a warm-up: the kernel and the plain version
-   per B=4096 M=8 CRC decode, and FER-step frames/s at 5 dB;
-6. a `kernels` JSON line, the `nvidia-smi` line, and the device JSON line last.
+   3b. the same at the one shape of the BER path that phase 3 does not
+   cover, run (c)'s NR polar code: N=128, K=88 (64 + CRC-24A), M=4, B=4096
+   LLRs of the NR polar chain (E=256, derated and deinterleaved to N) at
+   3.5 and 4.0 dB (runs (d)-(f) give K1 phase 3's P(128,64) at M 2 and 8,
+   with and without plans);
+   3c. the same at (N, K) ∈ {(256,128), (512,256), (1024,512), (2048,1024)},
+   M ∈ {2, 8}, CRC-24A, B=256, LLRs N(0, 2²) (the shapes of
+   `tests/test_fuzz_configs.py`), and K1's B=4096 M=8 time per N;
+4. the FER path: the FER sweep CLI (`run_fer_sweep.main`) at M=8, 8 retries,
+   β from `checkpoints/beta_M8.npy`, 102400 frames at 4.0 and 5.0 dB.  Every
+   SCL decode must go through K1 (its launch counter grows, the plain
+   decoder runs 0 times on CUDA), and FER of both arms must agree with the
+   JAX package's `results/fer_M8.csv` at |z| < 3;
+5. FER times with CUDA events after a warm-up: K1 and the plain version per
+   B=4096 M=8 CRC decode, FER-step frames/s at 5 dB, a profiler split;
+6. K2 against its plain PyTorch version: hard bits, iterations used and
+   parity flags identical in every frame — QC-IRA 4×8 Z=31 (E=248) and the
+   demo graph at Z=32 (E=384, derated), shared-min and two-min, B=4096 at
+   1.0, 2.5 and 4.0 dB; ragged B=1000 and B=1001; and QC-IRA 46×68 Z=383
+   (n=26044) at B=64, the all-zero codeword through AWGN, at a noise level
+   where most frames run all 20 iterations and one where most stop early;
+7. the BER path: the BER sweep CLI (`run_ber_sweep.main`), B=4096, seed 0,
+   the bits cap deciding, for (a) `nr_ldpc` QC-IRA 4×8 two-min at 2.0/2.5/
+   3.0 dB, (b) `nr_ldpc` demo Z=32 at 2.0 dB, (c) `nr_polar_scl` at 3.5/4.0
+   dB, (d) `polar_scl` M=8 at 5.0/5.5 dB, (e) adaptive M 2→8 at 5.0 dB and
+   (f) `dl_scl` M=8 at 5.0 dB, each held to the JAX package's committed
+   `results/ber_*.csv` or to its own bound; the kernels' counters grow and
+   the plain decoders run 0 times on CUDA;
+8. BER times: K2 and its plain version at the shapes of phase 6, their
+   bounds, BER-step frames/s for (a) at 2.5 dB and a profiler split;
+9. a `kernels` JSON line, the `nvidia-smi` line, and the device JSON line last.
 
 It exits non-zero, and prints no result line, when there is no CUDA device,
 when a phase fails, or when run without the rest of the repository.  It
-writes the sweep's outputs to a temporary directory; the kernel build lands
+writes the sweeps' outputs to a temporary directory; the kernel builds land
 in the git-ignored `build/`.
 """
 
 import faulthandler
 import sys
 
-HANG_BUDGET_S = 900  # a hung kernel ends the run with a traceback, not silence
+HANG_BUDGET_S = 1100  # a hung kernel ends the run with a traceback, not silence
 faulthandler.dump_traceback_later(HANG_BUDGET_S, exit=True)
 
 import json  # noqa: E402
@@ -42,6 +66,7 @@ import re  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
 import time  # noqa: E402
+from concurrent.futures import ThreadPoolExecutor  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -56,6 +81,23 @@ JAX_CSV = REPO / "results" / "fer_M8.csv"
 # every rate in that CSV times 204800 is a whole count: 204800 frames a point
 JAX_FRAMES_PER_POINT = 204800
 SWEEP_FRAMES = 102400
+NR_POLAR = (128, 88, 64, 256, 4)  # BER run (c): N, K (64 + CRC-24A), K_payload, E, M
+K1C_SHAPES = [(256, 128), (512, 256), (1024, 512), (2048, 1024)]
+# LDPC codes of the BER path: (name, base graph spec, Z, K_payload, E)
+IRA, DEMO = ("ira4x8", "ira4x8", 31, 100, 248), ("demo Z=32", "2", 32, 72, 384)
+BER_FRAMES = 40960  # a point of the BER runs: ten B=4096 chunks
+# two-min NMS on QC-IRA 46x68 has its threshold near 6.5 dB; shared-min only
+# stops when the channel's hard decisions already are the codeword
+BIG = (46, 68, 383)  # QC-IRA with BG1's block shape, lifted at the largest prime Z <= 384
+BIG_EBN0 = {True: (5.0, 7.0), False: (5.0, 15.0)}
+# float32 operations an iteration, (per edge, per check row).  Two-min: sub,
+# abs, sign, two min/compare, the sign-product multiply, two update
+# multiplies and the add, all per edge.  Shared min: sub, abs, sign, one min,
+# the sign-product multiply and the add per edge, and the one update
+# multiply per row.  The rate is the guide's float32 peak, 67e12, which
+# counts an FMA as two: none of these is an FMA, so the issue rate of them
+# is half that, and the bound is the lower, more lenient of the two.
+NMS_OPS = {False: (6, 1), True: (9, 0)}
 
 
 class SmokeFailure(RuntimeError):
@@ -80,15 +122,17 @@ def nvidia_smi_line():
 
 
 def ptxas_report(log):
-    """[(template M, registers, spill stores, spill loads, static smem)] per entry."""
+    """[(entry, registers, spill stores, spill loads, static smem)] per entry."""
 
     rows, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             tm = re.search(r"scl_decode_kernelILi(\d+)E", m.group(1))
-            cur = {"M": int(tm.group(1)) if tm else None, "regs": None,
-                   "spill_stores": None, "spill_loads": None, "smem": 0}
+            entry = (f"scl_decode_kernel<M={tm.group(1)}>" if tm
+                     else "nms_decode_kernel" if "nms_decode_kernel" in m.group(1) else m.group(1))
+            cur = {"entry": entry, "regs": None, "spill_stores": None, "spill_loads": None,
+                   "smem": 0}
             rows.append(cur)
             continue
         if cur is None:
@@ -117,6 +161,28 @@ def make_llrs(rng, B, snr_db, info_set):
     nv = 1.0 / (2.0 * (K / N) * 10 ** (snr_db / 10.0))
     y = 1.0 - 2.0 * code + rng.normal(0.0, math.sqrt(nv), code.shape)
     return (2.0 * y / nv).astype(np.float32), msg.numpy()
+
+
+def nr_polar_llrs(rng, B, snr_db, info_set):
+    """LLRs of BER run (c)'s NR polar chain, CRC-24A codewords interleaved
+    and rate-matched to E through BPSK + AWGN at the BER sweep's Es/N0, then
+    derated and deinterleaved back to N, as the decoder gets them (numpy
+    draws); and the sent info+CRC bits."""
+
+    import torch
+    from polar_code_tpu_torch.eval.run_ber_sweep import _noise_var
+    from polar_code_tpu_torch.nr.polar.interleaver import subblock_deinterleave
+    from polar_code_tpu_torch.nr.polar.rate_match import derate_match_polar
+    from polar_code_tpu_torch.nr.polar.scl_nr import encode_rate_matched_batch
+    from polar_code_tpu_torch.ops.crc import attach_crc_batch
+
+    n, _, kp, E, _ = NR_POLAR
+    payload = torch.from_numpy(rng.integers(0, 2, (B, kp)).astype(np.int8))
+    tx = encode_rate_matched_batch(payload, CRC, n, E, info_set).numpy()
+    nv = _noise_var(snr_db, kp, E)
+    llr = ((1.0 - 2.0 * tx + rng.normal(0.0, math.sqrt(nv), tx.shape)) * (2.0 / nv)).astype(np.float32)
+    internal = subblock_deinterleave(derate_match_polar(torch.from_numpy(llr), n), n)
+    return internal.contiguous(), attach_crc_batch(payload, CRC).numpy()
 
 
 def random_plan(rng, msg):
@@ -159,10 +225,10 @@ def cuda_time_ms(fn, reps, warmup=3):
     return start.elapsed_time(stop) / reps
 
 
-def profile_fer_steps(chunk, nv_c, nv_u, steps=5):
-    """Device time by kernel over a few FER steps (torch.profiler), and the
-    share of the steps' wall time the device was busy (kernel time summed;
-    kernels of one stream do not overlap)."""
+def profile_steps(step, label, steps=5):
+    """Device time by kernel over a few steps (torch.profiler), and the share
+    of the steps' wall time the device was busy (kernel time summed; kernels
+    of one stream do not overlap).  `step(i)` runs step i to its host sync."""
 
     import torch
     from torch.autograd import DeviceType
@@ -172,7 +238,7 @@ def profile_fer_steps(chunk, nv_c, nv_u, steps=5):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for i in range(steps):
-            torch.stack(list(chunk(2, 50, i, nv_c, nv_u).values())).tolist()
+            step(i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     rows = []  # device-side events only: a host op's row repeats its kernels' time
@@ -184,15 +250,15 @@ def profile_fer_steps(chunk, nv_c, nv_u, steps=5):
             rows.append((dev_us, e.count, e.key))
     busy = sum(r[0] for r in rows)
     if not rows:
-        print("  profiler: no device time recorded (not measured)")
+        print(f"  profiler ({label}): no device time recorded (not measured)")
         return
-    print(f"  profiler over {steps} FER steps: device busy {busy / wall_us:.3f} of "
+    print(f"  profiler over {steps} {label}: device busy {busy / wall_us:.3f} of "
           f"{wall_us / steps / 1e3:.3f} ms a step (host clock, profiler on)")
     for dev_us, count, key in sorted(rows, reverse=True)[:8]:
         print(f"    {dev_us / steps / 1e3:9.4f} ms a step  {count / steps:7.1f} calls  {key[:70]}")
 
 
-def scl_work(info_set, M, B):
+def scl_work(info_set, M, B, n=N, k=K):
     """(bytes, operations) one SCL decode of B frames needs at least.
 
     Bytes: LLRs in, bits + info LLRs + pass out, each once.  Operations
@@ -203,13 +269,81 @@ def scl_work(info_set, M, B):
 
     from polar_code_tpu_torch.ops.scl_schedule import schedule_tables
 
-    upd, _, frozen, *_ = schedule_tables(N, np.asarray(info_set))
-    widths = np.array([0] + [N >> l for l in range(1, upd.shape[1])])
+    upd, _, frozen, *_ = schedule_tables(n, np.asarray(info_set))
+    widths = np.array([0] + [n >> l for l in range(1, upd.shape[1])])
     fg = int(((upd == 1) * widths).sum()) * 4 + int(((upd == 2) * widths).sum()) * 2
     n_info = int((frozen == 0).sum())
-    per_frame = M * fg + M * N * 5 + M * n_info * 5 + n_info * (2 * M) ** 2
-    nbytes = B * (N * 4 + K + K * 4 + 1)
+    per_frame = M * fg + M * n * 5 + M * n_info * 5 + n_info * (2 * M) ** 2
+    nbytes = B * (n * 4 + k + k * 4 + 1)
     return nbytes, per_frame * B
+
+
+def nms_work(iters_used, n, edges, rows, self_exclude):
+    """(bytes, operations) one NMS decode needs at least: LLRs in, hard bits,
+    iteration count and pass flag out, each once; NMS_OPS operations an edge
+    and a check row for every iteration each frame actually ran."""
+
+    B = int(iters_used.numel())
+    nbytes = B * (4 * n + n + 4 + 1)
+    per_edge, per_row = NMS_OPS[self_exclude]
+    nops = int(iters_used.sum()) * (edges * per_edge + rows * per_row)
+    return nbytes, nops
+
+
+def bound(nbytes, nops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ldpc_code(spec, Z):
+    from polar_code_tpu_torch.nr.ldpc import build_h_matrix, load_base_graph
+    from polar_code_tpu_torch.nr.ldpc.qc_ira import make_qc_ira_bg, parse_ira_spec
+
+    bg = make_qc_ira_bg(*parse_ira_spec(spec), Z) if spec.startswith("ira") else load_base_graph(int(spec))
+    return bg, build_h_matrix(bg, Z)
+
+
+def ldpc_llrs(rng, code, B, ebno, dev):
+    """LLRs of CRC-24A LDPC codewords, rate-matched to E, through BPSK + AWGN
+    at the BER sweep's Es/N0, derated back to n (numpy draws)."""
+
+    import torch
+    from polar_code_tpu_torch.eval.run_ber_sweep import _noise_var
+    from polar_code_tpu_torch.nr.ldpc import derate_match_ldpc, encode_ldpc_batch, rate_match_ldpc
+    from polar_code_tpu_torch.ops.crc import attach_crc_batch
+
+    (_, _, _, kp, E), (bg, H) = code
+    payload = torch.from_numpy(rng.integers(0, 2, (B, kp)).astype(np.int8))
+    tx = rate_match_ldpc(encode_ldpc_batch(attach_crc_batch(payload, CRC), H), E).numpy()
+    nv = _noise_var(ebno, kp, E)
+    llr = ((1.0 - 2.0 * tx + rng.normal(0.0, math.sqrt(nv), tx.shape)) * (2.0 / nv)).astype(np.float32)
+    return derate_match_ldpc(torch.from_numpy(llr), H.shape[1]).to(dev).contiguous()
+
+
+def zero_codeword_llrs(rng, B, n, k, ebno, dev):
+    import torch
+
+    nv = 1.0 / (2.0 * (k / n) * 10 ** (ebno / 10.0))
+    llr = ((1.0 + rng.normal(0.0, math.sqrt(nv), (B, n))) * (2.0 / nv)).astype(np.float32)
+    return torch.from_numpy(llr).to(dev)
+
+
+def csv_rows(path):
+    """Rows of a BER CSV as dicts (`params` holds commas)."""
+
+    lines = Path(path).read_text().splitlines()
+    header = lines[0].split(",")
+    rows = []
+    for line in lines[1:]:
+        f = line.split(",")
+        vals = f[:6] + [",".join(f[6:-6])] + f[-6:]
+        rows.append(dict(zip(header, vals)))
+    return rows
+
+
+def fer_z(p1, n1, p2, n2):
+    se = math.sqrt(p1 * (1 - p1) / n1 + p2 * (1 - p2) / n2)
+    return (p1 - p2) / se if se > 0 else (0.0 if p1 == p2 else math.inf)
 
 
 def main():
@@ -220,18 +354,31 @@ def main():
         return 1
     sys.path.insert(0, str(REPO))
     from polar_code_tpu_torch import _build
-    from polar_code_tpu_torch.eval import run_fer_sweep
+    from polar_code_tpu_torch.channel import noise_var_coded, noise_var_uncoded
+    from polar_code_tpu_torch.eval import run_ber_sweep, run_fer_sweep
+    from polar_code_tpu_torch.interop import load_beta
+    from polar_code_tpu_torch.nr.ldpc import nms_cuda
+    from polar_code_tpu_torch.nr.ldpc.decode_nms import decode_ldpc_nms_batch
+    from polar_code_tpu_torch.nr.ldpc.nms_cuda import decode_ldpc_nms_cuda
     from polar_code_tpu_torch.ops import scl_cuda
     from polar_code_tpu_torch.ops.scl import decode_scl_batch
     from polar_code_tpu_torch.polar.construct import construct_info_set
-    from polar_code_tpu_torch.sim.pipeline import make_fer_chunk
-    from polar_code_tpu_torch.channel import noise_var_coded, noise_var_uncoded
-    from polar_code_tpu_torch.interop import load_beta
+    from polar_code_tpu_torch.sim.pipeline import make_ber_chunk, make_fer_chunk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     info_set = construct_info_set(N, K)
+
+    def reset_counts():
+        scl_cuda.decode_scl_cuda.launches = 0
+        decode_ldpc_nms_cuda.launches = 0
+        decode_scl_batch.cuda_calls = 0
+        decode_ldpc_nms_batch.cuda_calls = 0
+
+    def counts():
+        return (scl_cuda.decode_scl_cuda.launches, decode_ldpc_nms_cuda.launches,
+                decode_scl_batch.cuda_calls + decode_ldpc_nms_batch.cuda_calls)
 
     # ---- 1. device ----
     name = torch.cuda.get_device_name(0)
@@ -241,20 +388,23 @@ def main():
     print(f"nvidia-smi: {smi}")
     phase_done("1 device")
 
-    # ---- 2. build ----
-    built = _build.build(scl_cuda.SOURCE)
-    print(f"build: {built.path.name} in {built.seconds:.2f} s"
-          + (" (reused an identical earlier build)" if built.cached else ""))
-    for row in ptxas_report(built.log):
-        print(f"  ptxas M={row['M']}: {row['regs']} registers, {row['smem']} B static smem, "
-              f"spills {row['spill_stores']} B stores / {row['spill_loads']} B loads")
+    # ---- 2. build: one nvcc a source, all started together ----
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = dict(zip(("scl", "nms"), pool.map(_build.build, (scl_cuda.SOURCE, nms_cuda.SOURCE))))
+    for built in builds.values():
+        print(f"build: {built.path.name} in {built.seconds:.2f} s"
+              + (" (reused an identical earlier build)" if built.cached else ""))
+        for row in ptxas_report(built.log):
+            print(f"  ptxas {row['entry']}: {row['regs']} registers, {row['smem']} B static smem, "
+                  f"spills {row['spill_stores']} B stores / {row['spill_loads']} B loads")
     for M in scl_cuda.SUPPORTED_M:
         fb, fpb = scl_cuda.frame_bytes(N, K, M), scl_cuda.frames_per_block(N, K, M)
-        print(f"  dynamic smem M={M}: {fb} B per frame x {fpb} frames = {fb * fpb} B per block")
+        print(f"  K1 dynamic smem M={M}: {fb} B per frame x {fpb} frames = {fb * fpb} B per block")
     scl_cuda._library()
+    nms_cuda._library()
     phase_done("2 build")
 
-    # ---- 3. kernel against its plain version ----
+    # ---- 3. K1 against its plain version ----
     rng = np.random.default_rng(20261017)
     cases = [(M, crc, plan, snr, 4096)
              for M in scl_cuda.SUPPORTED_M for crc in (CRC, None)
@@ -263,13 +413,12 @@ def main():
     cases += [(8, CRC, True, 5.0, 1000), (4, CRC, False, 5.0, 1001)]
     max_abs_err = 0.0
     near_ties = []
-    for M, crc, use_plan, snr, B in cases:
-        llr_np, msg = make_llrs(rng, B, snr, info_set)
-        llr = torch.from_numpy(llr_np).to(dev)
-        plan = torch.from_numpy(random_plan(rng, msg)).to(dev) if use_plan else None
-        out = scl_cuda.decode_scl_cuda(llr, info_set, M, crc, force_info_bits=plan)
+
+    def compare_scl(llr, info, M, crc, plan, tag, msg=None, show=False):
+        nonlocal max_abs_err
+        out = scl_cuda.decode_scl_cuda(llr, info, M, crc, force_info_bits=plan)
         torch.cuda.synchronize()
-        ref = decode_scl_batch(llr, info_set, M, crc, force_info_bits=plan, dtype=torch.float32)
+        ref = decode_scl_batch(llr, info, M, crc, force_info_bits=plan, dtype=torch.float32)
         torch.cuda.synchronize()
         kb, rb = out["best_path_bits"].cpu().numpy(), ref.best_path_bits.cpu().numpy()
         kp, rp = out["crc_pass"].cpu().numpy(), ref.crc_pass.cpu().numpy()
@@ -278,7 +427,6 @@ def main():
         bad = np.any(kb != rb, axis=1) | (kp != rp) | ~np.all(llr_ok, axis=1)
         ties = near_tie_frames(ref.metrics.cpu().numpy())
         unexplained = bad & ~ties
-        tag = f"M={M} crc={'on' if crc else 'off'} plan={'on' if use_plan else 'off'} {snr} dB B={B}"
         if bad.any():
             for f in np.flatnonzero(bad):
                 near_ties.append(f"{tag} frame {f} (seed 20261017)")
@@ -287,18 +435,54 @@ def main():
               f"kernel disagrees with the plain version ({tag}): frames "
               f"{np.flatnonzero(unexplained)[:10].tolist()}")
         max_abs_err = max(max_abs_err, float(np.max(np.abs(kl - rl))) if kl.size else 0.0)
-        if snr == 5.0 and B == 4096:
-            print(f"  {tag}: {int(bad.sum())} frames differ; crc pass {int(kp.sum())}/{B}, "
-                  f"bit errors vs sent {int((kb != msg).sum())}", flush=True)
-    print(f"kernel vs plain: {len(cases)} cases, near-tie mismatches {len(near_ties)}, "
+        if show:
+            sent = f", bit errors vs sent {int((kb != msg).sum())}" if msg is not None else ""
+            print(f"  {tag}: {int(bad.sum())} frames differ; crc pass {int(kp.sum())}/{len(kp)}"
+                  f"{sent}", flush=True)
+
+    for M, crc, use_plan, snr, B in cases:
+        llr_np, msg = make_llrs(rng, B, snr, info_set)
+        llr = torch.from_numpy(llr_np).to(dev)
+        plan = torch.from_numpy(random_plan(rng, msg)).to(dev) if use_plan else None
+        tag = f"M={M} crc={'on' if crc else 'off'} plan={'on' if use_plan else 'off'} {snr} dB B={B}"
+        compare_scl(llr, info_set, M, crc, plan, tag, msg, show=(snr == 5.0 and B == 4096))
+    print(f"K1 vs plain: {len(cases)} cases, near-tie mismatches {len(near_ties)}, "
           f"max |info LLR diff| {max_abs_err:.3e}")
     for line in near_ties:
         print(f"  near-tie: {line}")
-    phase_done("3 kernel vs plain")
+    phase_done("3 K1 vs plain")
 
-    # ---- 4. the main path: the FER sweep CLI on the card ----
-    scl_cuda.decode_scl_cuda.launches = 0
-    decode_scl_batch.cuda_calls = 0
+    # ---- 3b. K1 at BER run (c)'s shape ----
+    n_r, k_r, _, _, m_r = NR_POLAR
+    info_r = construct_info_set(n_r, k_r)
+    ties_before = len(near_ties)
+    for snr in (3.5, 4.0):
+        llr_r, msg_r = nr_polar_llrs(rng, 4096, snr, info_r)
+        compare_scl(llr_r.to(dev), info_r, m_r, CRC, None,
+                    f"NR polar N={n_r} K={k_r} M={m_r} {snr} dB B=4096", msg_r, show=True)
+    print(f"K1 at NR polar: 2 cases, near-tie mismatches {len(near_ties) - ties_before}")
+    phase_done("3b K1 at NR polar")
+
+    # ---- 3c. K1 at N from 256 to 2048 ----
+    k1c_ms = {}
+    ties_before = len(near_ties)
+    for n_c, k_c in K1C_SHAPES:
+        info_c = construct_info_set(n_c, k_c)
+        for M in (2, 8):
+            llr = torch.from_numpy(
+                np.random.default_rng(n_c + M).normal(0.0, 2.0, (256, n_c)).astype(np.float32)).to(dev)
+            compare_scl(llr, info_c, M, CRC, None, f"N={n_c} K={k_c} M={M} B=256", show=True)
+        big = torch.from_numpy(np.random.default_rng(n_c).normal(0.0, 2.0, (4096, n_c))
+                               .astype(np.float32)).to(dev)
+        k1c_ms[n_c] = cuda_time_ms(lambda: scl_cuda.decode_scl_cuda(big, info_c, 8, CRC), reps=10)
+        print(f"  K1 N={n_c} K={k_c} B=4096 M=8 CRC: {k1c_ms[n_c]:.4f} ms a decode (10 launches); "
+              f"{scl_cuda.frame_bytes(n_c, k_c, 8)} B smem a frame, "
+              f"{scl_cuda.frames_per_block(n_c, k_c, 8)} frames a block", flush=True)
+    print(f"K1c: {2 * len(K1C_SHAPES)} cases, near-tie mismatches {len(near_ties) - ties_before}")
+    phase_done("3c K1 at N 256..2048")
+
+    # ---- 4. the FER path: the FER sweep CLI on the card ----
+    reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         rows = run_fer_sweep.main([
             "--M", "8", "--retries", "8", "--beta", str(REPO / "checkpoints" / "beta_M8.npy"),
@@ -308,13 +492,12 @@ def main():
         ])
         torch.cuda.synchronize()
         csv_text = Path(f"{tmp}/results/fer_M8.csv").read_text()
-    main_launches = scl_cuda.decode_scl_cuda.launches
-    plain_cuda = decode_scl_batch.cuda_calls
+    fer_launches, _, plain_cuda = counts()
     steps = 2 * SWEEP_FRAMES // 4096
-    print(f"main path: {main_launches} kernel launches over {steps} FER steps "
-          f"({main_launches / steps:.2f} a step), plain decoder on CUDA {plain_cuda} times")
-    check(main_launches >= steps, "the FER sweep did not go through the SCL kernel")
-    check(plain_cuda == 0, "the plain decoder ran on CUDA in the FER sweep")
+    print(f"FER path: {fer_launches} K1 launches over {steps} FER steps "
+          f"({fer_launches / steps:.2f} a step), plain decoders on CUDA {plain_cuda} times")
+    check(fer_launches >= steps, "the FER sweep did not go through the SCL kernel")
+    check(plain_cuda == 0, "a plain decoder ran on CUDA in the FER sweep")
     check(csv_text.splitlines()[0] == "snr_db,fer_scl,ber_scl,fer_dl,ber_dl", "CSV header")
     jax_rows = {}
     for line in JAX_CSV.read_text().splitlines()[1:]:
@@ -324,22 +507,19 @@ def main():
         for key in ("fer_scl", "fer_dl"):
             p1, p2 = row[key], jax_rows[row["snr_db"]][key]
             check(math.isfinite(p1) and 0.0 < p1 < 1.0, f"{key} at {row['snr_db']} dB is {p1}")
-            se = math.sqrt(p1 * (1 - p1) / SWEEP_FRAMES + p2 * (1 - p2) / JAX_FRAMES_PER_POINT)
-            z = (p1 - p2) / se
+            z = fer_z(p1, SWEEP_FRAMES, p2, JAX_FRAMES_PER_POINT)
             print(f"  {row['snr_db']:.1f} dB {key}: port {p1:.6e} ({SWEEP_FRAMES} frames) vs "
                   f"JAX {p2:.6e} ({JAX_FRAMES_PER_POINT} frames): z = {z:+.3f}")
             check(abs(z) < 3.0, f"{key} at {row['snr_db']} dB is off the JAX sweep (z={z:.2f})")
-    phase_done("4 main path")
+    phase_done("4 FER path")
 
-    # ---- 5. times ----
+    # ---- 5. FER times ----
     llr_np, _ = make_llrs(np.random.default_rng(5), 4096, 5.0, info_set)
     llr = torch.from_numpy(llr_np).to(dev)
     kernel_ms = cuda_time_ms(lambda: scl_cuda.decode_scl_cuda(llr, info_set, 8, CRC), reps=50)
     plain_ms = cuda_time_ms(
         lambda: decode_scl_batch(llr, info_set, 8, CRC, dtype=torch.float32), reps=20, warmup=2)
-    nbytes, nops = scl_work(info_set, 8, 4096)
-    bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S) * 1e3
-    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= nops / FP32_OPS_PER_S else "operations"
+    bound_ms, bound_by = bound(*scl_work(info_set, 8, 4096))
 
     beta = load_beta(str(REPO / "checkpoints" / "beta_M8.npy")).beta_matrix().detach()
     chunk = make_fer_chunk(N=N, K=K, crc_poly=CRC, info_set=info_set, M=8, retries=8,
@@ -356,33 +536,213 @@ def main():
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t) / reps
     step_launches = (scl_cuda.decode_scl_cuda.launches - before) / reps
-    print(f"times on {smi}:")
-    print(f"  SCL kernel, B=4096 M=8 CRC: {kernel_ms:.4f} ms a decode (50 launches)")
+    print(f"FER times on {smi}:")
+    print(f"  K1, B=4096 M=8 CRC: {kernel_ms:.4f} ms a decode (50 launches)")
     print(f"  plain version, same decode: {plain_ms:.4f} ms (20 calls)")
-    print(f"  bound: {bound_ms:.6f} ms ({bound_by}; {nbytes} B, {nops} float32 operations)")
+    print(f"  bound: {bound_ms:.6f} ms ({bound_by})")
     print(f"  FER step at 5 dB (M=8, 8 retries, B=4096): {step_s * 1e3:.3f} ms, "
-          f"{4096 / step_s:.0f} frames/s, {step_launches:.2f} kernel launches a step")
+          f"{4096 / step_s:.0f} frames/s, {step_launches:.2f} K1 launches a step")
     for M in (1, 2, 4):
         ms = cuda_time_ms(lambda M=M: scl_cuda.decode_scl_cuda(llr, info_set, M, CRC), reps=50)
-        print(f"  SCL kernel, B=4096 M={M} CRC: {ms:.4f} ms a decode (50 launches)")
+        print(f"  K1, B=4096 M={M} CRC: {ms:.4f} ms a decode (50 launches)")
     small = llr[:64].contiguous()  # about one retry step's failing frames at 5 dB
     ms = cuda_time_ms(lambda: scl_cuda.decode_scl_cuda(small, info_set, 8, CRC), reps=50)
-    print(f"  SCL kernel, B=64 M=8 CRC: {ms:.4f} ms a decode (50 launches)")
-    profile_fer_steps(chunk, nv_c, nv_u)
-    phase_done("5 times")
+    print(f"  K1, B=64 M=8 CRC: {ms:.4f} ms a decode (50 launches)")
+    profile_steps(lambda i: torch.stack(list(chunk(2, 50, i, nv_c, nv_u).values())).tolist(),
+                  "FER steps")
+    phase_done("5 FER times")
 
-    # ---- 6. result lines ----
+    # ---- 6. K2 against its plain version ----
+    codes = {c[0]: (c, ldpc_code(c[1], c[2])) for c in (IRA, DEMO)}
+    rng = np.random.default_rng(20261018)
+    nms_cases = []
+    nms_max_err = 0
+
+    def compare_nms(x, bg, Z, H, se, tag):
+        nonlocal nms_max_err
+        out = decode_ldpc_nms_cuda(x, bg, Z, 20, 0.8, self_exclude=se)
+        torch.cuda.synchronize()
+        ref = decode_ldpc_nms_batch(x, H, 20, 0.8, self_exclude=se)
+        torch.cuda.synchronize()
+        bad = ((out["hard"] != ref["hard"]).any(dim=1) | (out["iters_used"] != ref["iters_used"])
+               | (out["parity_ok"] != ref["parity_ok"])).cpu().numpy()
+        diffs = [(out[k].to(torch.int32) - ref[k].to(torch.int32)).abs().max() for k in ref]
+        nms_max_err = max([nms_max_err] + [int(d) for d in diffs])
+        it = ref["iters_used"].cpu().numpy()
+        print(f"  {tag}: {int(bad.sum())} frames differ; mean iterations {it.mean():.3f}, "
+              f"{int((it < 20).sum())}/{len(it)} stopped early, "
+              f"parity ok {int(ref['parity_ok'].sum())}", flush=True)
+        check(not bad.any(), f"K2 disagrees with the plain version ({tag}): frames "
+              f"{np.flatnonzero(bad)[:10].tolist()}")
+        nms_cases.append(tag)
+
+    for cname, (c, (bg, H)) in codes.items():
+        for se in (False, True):
+            for ebno in (1.0, 2.5, 4.0):
+                x = ldpc_llrs(rng, (c, (bg, H)), 4096, ebno, dev)
+                compare_nms(x, bg, c[2], H, se, f"{cname} {'two-min' if se else 'shared'} "
+                            f"{ebno} dB B=4096")
+    for B, (cname, se) in ((1000, (IRA[0], True)), (1001, (DEMO[0], False))):
+        c, (bg, H) = codes[cname]
+        x = ldpc_llrs(rng, (c, (bg, H)), B, 2.5, dev)
+        compare_nms(x, bg, c[2], H, se, f"{cname} {'two-min' if se else 'shared'} 2.5 dB B={B}")
+    big_bg, big_H = ldpc_code(f"ira{BIG[0]}x{BIG[1]}", BIG[2])
+    big_n, big_k = BIG[1] * BIG[2], (BIG[1] - BIG[0]) * BIG[2]
+    big_tag = f"ira{BIG[0]}x{BIG[1]} Z={BIG[2]}"
+    big_x = {}
+    for se in (True, False):
+        for ebno in BIG_EBN0[se]:
+            x = zero_codeword_llrs(rng, 64, big_n, big_k, ebno, dev)
+            big_x[se, ebno] = x
+            compare_nms(x, big_bg, BIG[2], big_H, se,
+                        f"{big_tag} {'two-min' if se else 'shared'} {ebno} dB B=64")
+    print(f"K2 vs plain: {len(nms_cases)} cases, every frame identical (max |diff| {nms_max_err})")
+    phase_done("6 K2 vs plain")
+
+    # ---- 7. the BER path: the BER sweep CLI on the card ----
+    reset_counts()
+    ber_runs = [
+        ("a", ["--scheme", "nr_ldpc", "--bg", "ira4x8", "--Z", "31", "--nms_exact",
+               "--K_payload", "100", "--K_crc", "24", "--E", "248", "--EbN0_lo", "2.0",
+               "--EbN0_hi", "3.0"], "ber_nr_ldpc_ira4x8.csv", 100),
+        ("b", ["--scheme", "nr_ldpc", "--bg", "2", "--Z", "32", "--K_payload", "72",
+               "--K_crc", "24", "--E", "384", "--EbN0_lo", "2.0", "--EbN0_hi", "2.0"],
+         "ber_nr_ldpc_Z32_E384.csv", 72),
+        ("c", ["--scheme", "nr_polar_scl", "--K_payload", "64", "--K_crc", "24", "--E", "256",
+               "--N", "128", "--M", "4", "--EbN0_lo", "3.5", "--EbN0_hi", "4.0"],
+         "ber_nr_polar_K88_E256_M4.csv", 64),
+        ("d", ["--scheme", "polar_scl", "--K_payload", "40", "--K_crc", "24", "--E", "128",
+               "--N", "128", "--M", "8", "--EbN0_lo", "5.0", "--EbN0_hi", "5.5"],
+         "ber_polar_scl_M8.csv", 40),
+        ("e", ["--scheme", "polar_scl", "--K_payload", "40", "--K_crc", "24", "--E", "128",
+               "--N", "128", "--M", "8", "--adaptive_from", "2", "--EbN0_lo", "5.0",
+               "--EbN0_hi", "5.0"], "ber_polar_scl_M8.csv", 40),
+        ("f", ["--scheme", "dl_scl", "--K_payload", "40", "--K_crc", "24", "--E", "128",
+               "--N", "128", "--M", "8", "--beta", str(REPO / "checkpoints" / "beta_M8.npy"),
+               "--EbN0_lo", "5.0", "--EbN0_hi", "5.0"], None, 40),
+    ]
+    with tempfile.TemporaryDirectory() as tmp:
+        for run_id, argv, ref_csv, kp in ber_runs:
+            before = counts()
+            rows = run_ber_sweep.main(argv + [
+                "--batch", "4096", "--seed", "0", "--err_cap", "1000000000",
+                "--bits_cap", str(BER_FRAMES * kp), "--out", f"{tmp}/ber_{run_id}.csv"])
+            torch.cuda.synchronize()
+            d_scl, d_nms, d_plain = (a - b for a, b in zip(counts(), before))
+            ldpc = argv[1] == "nr_ldpc"
+            print(f"BER run ({run_id}) {' '.join(argv[:2])}: K1 launches {d_scl}, "
+                  f"K2 launches {d_nms}, plain decoders on CUDA {d_plain}")
+            check((d_nms if ldpc else d_scl) > 0, f"BER run ({run_id}) did not launch its kernel")
+            check(d_plain == 0, f"a plain decoder ran on CUDA in BER run ({run_id})")
+            ref = {float(r["EbN0_dB"]): r for r in csv_rows(REPO / "results" / ref_csv)} if ref_csv else {}
+            for row in rows:
+                frames = row["bits_total"] // kp
+                check(frames == BER_FRAMES, f"BER run ({run_id}): {frames} frames, not {BER_FRAMES}")
+                fer, work, ber = row["fer"], row["avg_work"], row["ber"]
+                line = f"  ({run_id}) {row['EbN0_dB']:.1f} dB: FER {fer:.6e} BER {ber:.6e} avg_work {work:.6f}"
+                r = ref.get(row["EbN0_dB"])
+                if run_id == "e":
+                    r = ref[5.0]
+                if r is not None:
+                    n2 = int(r["bits_total"]) // kp
+                    z = fer_z(fer, frames, float(r["fer"]), n2)
+                    line += (f"; JAX FER {float(r['fer']):.6e} ({n2} frames) z = {z:+.3f}, "
+                             f"avg_work {float(r['avg_work']):.6f}")
+                print(line, flush=True)
+                check(math.isfinite(ber) and 0.0 <= ber <= 1.0, f"BER run ({run_id}): BER {ber}")
+                if run_id == "b":
+                    check(work == 20.0, f"(b) avg_work {work} is not 20.0")
+                    check(fer >= 0.99, f"(b) FER {fer} < 0.99")
+                    check(abs(ber / 0.13835 - 1.0) < 0.10, f"(b) BER {ber} is off 0.13835 by > 10%")
+                elif run_id == "f":
+                    check(0.0 <= work <= 8.0, f"(f) avg_work {work} outside [0, 8]")
+                else:
+                    check(abs(z) < 3.0, f"BER run ({run_id}) FER at {row['EbN0_dB']} dB is off "
+                          f"the JAX sweep (z={z:.2f})")
+                    if run_id == "a":
+                        rel = abs(work / float(r["avg_work"]) - 1.0)
+                        check(rel < 0.05, f"(a) avg_work {work} is {rel:.3f} off the JAX sweep's")
+                    if run_id == "e":
+                        check(0.0 < work < 1.0, f"(e) avg_work {work} outside (0, 1)")
+    ber_scl_launches, ber_nms_launches, ber_plain = counts()
+    print(f"BER path: K1 launches {ber_scl_launches}, K2 launches {ber_nms_launches}, "
+          f"plain decoders on CUDA {ber_plain}")
+    phase_done("7 BER path")
+
+    # ---- 8. BER times ----
+    print(f"BER times on {smi}:")
+    nms_times = {}
+    timed = [(cname, se, 2.5) for cname in codes for se in (True, False)]
+    for cname, se, ebno in timed:
+        c, (bg, H) = codes[cname]
+        x = ldpc_llrs(np.random.default_rng(8), (c, (bg, H)), 4096, ebno, dev)
+        ms = cuda_time_ms(lambda: decode_ldpc_nms_cuda(x, bg, c[2], 20, 0.8, self_exclude=se), reps=50)
+        pms = cuda_time_ms(lambda: decode_ldpc_nms_batch(x, H, 20, 0.8, self_exclude=se), reps=5, warmup=1)
+        iters = decode_ldpc_nms_cuda(x, bg, c[2], 20, 0.8, self_exclude=se)["iters_used"]
+        edges = int((bg.shifts >= 0).sum()) * c[2]
+        b_ms, b_by = bound(*nms_work(iters, H.shape[1], edges, H.shape[0], se))
+        nms_times[cname, se] = (ms, pms, b_ms, b_by)
+        print(f"  K2 {cname} {'two-min' if se else 'shared'} {ebno} dB B=4096: {ms:.4f} ms "
+              f"(50 launches); plain {pms:.4f} ms (5 calls); bound {b_ms:.6f} ms ({b_by}; "
+              f"mean iterations {iters.float().mean().item():.3f})")
+    big_edges = int((big_bg.shifts >= 0).sum()) * BIG[2]
+    for (se, ebno), x in big_x.items():
+        ms = cuda_time_ms(lambda: decode_ldpc_nms_cuda(x, big_bg, BIG[2], 20, 0.8, self_exclude=se),
+                          reps=20)
+        pms = cuda_time_ms(lambda: decode_ldpc_nms_batch(x, big_H, 20, 0.8, self_exclude=se),
+                           reps=2, warmup=1)
+        iters = decode_ldpc_nms_cuda(x, big_bg, BIG[2], 20, 0.8, self_exclude=se)["iters_used"]
+        b_ms, b_by = bound(*nms_work(iters, big_n, big_edges, big_H.shape[0], se))
+        print(f"  K2 {big_tag} {'two-min' if se else 'shared'} {ebno} dB B=64: {ms:.4f} ms "
+              f"(20 launches); plain {pms:.4f} ms (2 calls); bound {b_ms:.6f} ms ({b_by}; "
+              f"mean iterations {iters.float().mean().item():.3f})")
+
+    bg = codes[IRA[0]][1][0]
+    step = make_ber_chunk(
+        scheme="nr_ldpc", E=IRA[4], N=IRA[4], K_payload=IRA[3], K_crc=24, crc_poly=CRC,
+        info_set=None, M=4, retries=8, beta=None, ilv_mode="default", max_iter=20,
+        alpha=0.8, batch=4096, device=dev, ldpc_bg=bg, ldpc_Z=IRA[2], nms_exact=True)
+    nv = run_ber_sweep._noise_var(2.5, IRA[3], IRA[4])
+    for i in range(3):
+        torch.stack([v.to(torch.float64) for v in step(3, 1, i, nv).values()]).tolist()
+    reps = 20
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(reps):
+        torch.stack([v.to(torch.float64) for v in step(3, 1, 100 + i, nv).values()]).tolist()
+    torch.cuda.synchronize()
+    ber_step_s = (time.perf_counter() - t) / reps
+    print(f"  BER step (a) at 2.5 dB (nr_ldpc ira4x8 Z=31 two-min, B=4096): "
+          f"{ber_step_s * 1e3:.3f} ms, {4096 / ber_step_s:.0f} frames/s ({reps} steps)")
+    profile_steps(lambda i: torch.stack([v.to(torch.float64) for v in step(4, 1, i, nv).values()])
+                  .tolist(), "BER steps (a) 2.5 dB")
+    phase_done("8 BER times")
+
+    # ---- 9. result lines ----
+    nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by = nms_times[IRA[0], True]
     print(json.dumps({"kernels": [{
         "name": "scl_decode",
         "route": "cuda",
         "source": "polar_code_tpu_torch/csrc/scl_decode.cu",
         "replaces": "polar_code_tpu/ops/scl_pallas.py:293",
-        "launches": main_launches,
+        "launches": fer_launches + ber_scl_launches,
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "nms_decode",
+        "route": "cuda",
+        "source": "polar_code_tpu_torch/csrc/nms_decode.cu",
+        "replaces": "polar_code_tpu/nr/ldpc/nms_pallas.py:31",
+        "launches": ber_nms_launches,
+        "max_abs_err": float(nms_max_err),
+        "ms": nms_ms,
+        "plain_ms": nms_plain_ms,
+        "bound_ms": nms_bound_ms,
+        "bound_by": nms_bound_by,
         "library_ms": None,
     }]}))
     print(smi)

@@ -1,10 +1,11 @@
-"""Batched Monte-Carlo FER step (port of `polar_code_tpu/sim/pipeline.py:45` `make_fer_chunk`).
+"""Batched Monte-Carlo steps (port of `polar_code_tpu/sim/pipeline.py`):
+the FER step `make_fer_chunk` and the unified BER step `make_ber_chunk`.
 
     generators → payloads → CRC → encode → BPSK → AWGN → LLR → decode → counters
 
 One call simulates `batch` frames on the device and returns summed counters
-as device tensors, so the caller syncs with the host once per chunk.  The
-baseline SCL arm and the DL-SCL arm share the baseline decode.
+as device tensors, so the caller syncs with the host once per chunk.  In the
+FER step the baseline SCL arm and the DL-SCL arm share the baseline decode.
 """
 
 from __future__ import annotations
@@ -16,6 +17,14 @@ import torch
 
 from ..channel import awgn_llr, bpsk
 from ..dlscl.flip import decode_with_retries_batch
+from ..nr.ldpc.basegraphs import BaseGraph
+from ..nr.ldpc.builder import build_h_matrix
+from ..nr.ldpc.encode import encode_ldpc_batch
+from ..nr.ldpc.nms_cuda import decode_ldpc_nms_cuda
+from ..nr.ldpc.rate_match import derate_match_ldpc, rate_match_ldpc
+from ..nr.polar.scl_nr import decode_rate_matched_scl_batch, encode_rate_matched_batch
+from ..ops.adaptive import decode_scl_adaptive
+from ..ops.backend import make_scl_decoder
 from ..ops.crc import attach_crc_batch, crc_degree
 from ..ops.polar_transform import encode_batch
 from ..utils.seeding import make_generator
@@ -83,4 +92,123 @@ def make_fer_chunk(
     return chunk
 
 
-__all__ = ["make_fer_chunk"]
+BER_SCHEMES = ("polar_scl", "dl_scl", "nr_polar_scl", "nr_ldpc")
+
+
+def make_ber_chunk(
+    *,
+    scheme: str,
+    E: int,
+    N: int,
+    K_payload: int,
+    K_crc: int,
+    crc_poly: str,
+    info_set: Optional[np.ndarray],
+    M: int,
+    retries: int,
+    beta: Optional[torch.Tensor],
+    ilv_mode: str,
+    max_iter: int,
+    alpha: float,
+    batch: int,
+    device: torch.device,
+    dtype: torch.dtype = torch.float32,
+    ldpc_bg: Optional[BaseGraph] = None,
+    ldpc_Z: Optional[int] = None,
+    nms_exact: bool = False,
+    compact: int = 0,
+    adaptive_from: int = 0,
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Build the unified-BER-sweep step: (seed, point_idx, chunk_idx, σ²) →
+    dict of summed counters (0-d device tensors).
+
+    BER counts payload bits only; `work_sum` sums the DL-SCL flip attempts,
+    the LDPC iterations, or (adaptive) the re-decoded flags.  adaptive_from >
+    0 (polar_scl only) decodes at that list size first and re-decodes CRC
+    failures at M.  `nr_ldpc` takes the base graph and its lifting size Z;
+    its decode goes through the NMS kernel wrapper."""
+
+    if scheme not in BER_SCHEMES:
+        raise ValueError(f"Unsupported scheme: {scheme}")
+    if adaptive_from and scheme != "polar_scl":
+        raise ValueError("--adaptive_from is only supported for polar_scl")
+    if adaptive_from and K_crc == 0:
+        raise ValueError("adaptive decoding needs a CRC (K_crc > 0)")
+    if adaptive_from and adaptive_from >= M:
+        raise ValueError(
+            f"adaptive_from ({adaptive_from}) must be < M ({M}): the second "
+            "stage must use a strictly larger list than the first"
+        )
+    H = None
+    if scheme == "nr_ldpc":
+        if ldpc_bg is None or ldpc_Z is None:
+            raise ValueError("nr_ldpc needs the base graph and Z")
+        H = build_h_matrix(ldpc_bg, ldpc_Z)
+    info_np = np.asarray(info_set) if info_set is not None else None
+    if beta is not None:
+        beta = beta.to(device=device, dtype=dtype)
+    decode = None
+    if scheme == "polar_scl" and not adaptive_from:
+        # builds the routing once, and raises early for a shape the kernel does not take
+        decode = make_scl_decoder(info_np, M, crc_poly, device=device, dtype=dtype, N=N)
+
+    def chunk(seed: int, point_idx: int, chunk_idx: int, noise_var: float) -> Dict[str, torch.Tensor]:
+        def gen(stream: int) -> torch.Generator:
+            return make_generator(seed, point_idx, chunk_idx, stream, device=device)
+
+        payload = torch.randint(
+            0, 2, (batch, K_payload), generator=gen(_PAYLOAD), device=device,
+            dtype=torch.int8,
+        )
+        if scheme == "nr_polar_scl":
+            codeword = encode_rate_matched_batch(payload, crc_poly, N, E, info_np, ilv_mode)
+        else:
+            msg = attach_crc_batch(payload, crc_poly) if K_crc else payload
+            if scheme == "nr_ldpc":
+                codeword = rate_match_ldpc(encode_ldpc_batch(msg, H), E)
+            else:
+                codeword = encode_batch(msg, info_np, N)
+        llr = awgn_llr(gen(_NOISE), bpsk(codeword), noise_var, dtype=dtype)
+
+        work = None
+        if scheme == "polar_scl" and adaptive_from:
+            res = decode_scl_adaptive(llr, info_np, adaptive_from, M, crc_poly,
+                                      dtype=dtype, capacity=compact)
+            bits = res["best_path_bits"]
+            work = res["second_stage"]
+        elif scheme == "polar_scl":
+            bits = decode(llr)[0]
+        elif scheme == "dl_scl":
+            res = decode_with_retries_batch(
+                llr, info_np, M, retries, crc=crc_poly, beta=beta,
+                compact_capacity=compact,
+            )
+            bits = res["best_path_bits"]
+            work = res["attempts_used"]
+        elif scheme == "nr_polar_scl":
+            bits = decode_rate_matched_scl_batch(
+                llr, crc_poly, N, E, info_np, M, ilv_mode, dtype=dtype,
+            )["best_path_bits"]
+        else:  # nr_ldpc
+            internal = derate_match_ldpc(llr, int(H.shape[1])).contiguous()
+            res = decode_ldpc_nms_cuda(
+                internal, ldpc_bg, ldpc_Z, max_iter=max_iter, alpha=alpha,
+                self_exclude=nms_exact, H=H,
+            )
+            bits = res["hard"]
+            work = res["iters_used"]
+
+        frame_bit_errs = torch.sum(bits[:, :K_payload] != payload, dim=1)
+        return {
+            "bit_errors": torch.sum(frame_bit_errs),
+            "frame_errors": torch.sum(frame_bit_errs > 0),
+            "bits_total": torch.tensor(batch * K_payload, device=device),
+            "frames": torch.tensor(batch, device=device),
+            "work_sum": (torch.sum(work.to(torch.float32)) if work is not None
+                         else torch.zeros((), device=device)),
+        }
+
+    return chunk
+
+
+__all__ = ["make_fer_chunk", "make_ber_chunk", "BER_SCHEMES"]

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two paths on one NVIDIA card and check them.
+"""Drive the PyTorch/CUDA port's three paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
 Phases (each ends with one flushed line carrying the elapsed seconds):
 
 1. device: name, count, torch/CUDA versions, `nvidia-smi` name and power limit;
-2. build: both kernels, one `nvcc` each, started together — the SCL kernel
-   K1 (`polar_code_tpu_torch/csrc/scl_decode.cu`) and the NMS LDPC kernel K2
-   (`csrc/nms_decode.cu`) — with the build seconds and the `-Xptxas -v`
+2. build: the three kernels, one `nvcc` each, started together — the SCL
+   kernel K1 (`polar_code_tpu_torch/csrc/scl_decode.cu`), the NMS LDPC kernel
+   K2 (`csrc/nms_decode.cu`) and the PAC list-decode kernel K3
+   (`csrc/pac_decode.cu`) — with the build seconds and the `-Xptxas -v`
    registers, shared memory and spills;
 3. K1 against its plain PyTorch version at P(128,64): M ∈ {1,2,4,8}, CRC-24A
    on and off, with and without a random forced plan, B=4096 LLRs at 3, 5
@@ -46,7 +47,23 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    the plain decoders run 0 times on CUDA;
 8. BER times: K2 and its plain version at the shapes of phase 6, their
    bounds, BER-step frames/s for (a) at 2.5 dB and a profiler split;
-9. a `kernels` JSON line, the `nvidia-smi` line, and the device JSON line last.
+9. K3 against the JAX package and its plain version: every case of
+   `tests/golden/legacy_pac_decode.npz` (the JAX decoder's outputs, written
+   by `tests/golden/make_legacy_pac.py`) with 0 frames differing in
+   `extracted` and `crc_pass`; then against the plain version on the card,
+   B=4096 at 2.5 dB, for PAC(128,64)+CRC-16 L=8 and the simulator's
+   PAC(64,32) m=6 at L 1 and 32, and ragged B=1001 and B=1000 batches (L=16
+   and L=5).  No near-tie exemption: the PAC metric has no transcendentals;
+10. the legacy path: the port's `simulator.run`, `crc_polar_vs_uncoded.
+   simulate` and `crc_polar_ofdm_ls.simulate` at the golden file
+   `tests/golden/legacy_pac_drivers.json`'s configurations and seeds, their
+   results identical to the JAX drivers' recorded there (the OFDM channel MSE,
+   host float64, within 1e-12 relative); K3's counter grows and the plain
+   decoder runs 0 times on CUDA;
+11. K3 times with CUDA events: PAC(64,32), PAC(128,64) and PAC(256,128) with
+   CRC-16, gen 1011011, `dega`, 2.5 dB LLRs, L ∈ {1, 4, 8} and L=32 at N=64,
+   B=65536; the plain version at B=4096; the bounds; and the drivers' shapes;
+12. a `kernels` JSON line, the `nvidia-smi` line, and the device JSON line last.
 
 It exits non-zero, and prints no result line, when there is no CUDA device,
 when a phase fails, or when run without the rest of the repository.  It
@@ -60,6 +77,9 @@ import sys
 HANG_BUDGET_S = 1100  # a hung kernel ends the run with a traceback, not silence
 faulthandler.dump_traceback_later(HANG_BUDGET_S, exit=True)
 
+import contextlib  # noqa: E402
+import dataclasses  # noqa: E402
+import io  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import re  # noqa: E402
@@ -98,6 +118,12 @@ BIG_EBN0 = {True: (5.0, 7.0), False: (5.0, 15.0)}
 # counts an FMA as two: none of these is an FMA, so the issue rate of them
 # is half that, and the bound is the lower, more lenient of the two.
 NMS_OPS = {False: (6, 1), True: (9, 0)}
+GOLDEN = REPO / "tests" / "golden"
+PAC_GEN = [1, 0, 1, 1, 0, 1, 1]  # the legacy simulator's conv generator (m=6)
+PAC_CRC = (16, 0x1021)  # CRC-16 of the legacy drivers
+# PAC codes of phases 9 and 11: (N, payload K, CRC (len, poly) or None)
+PAC_CODES = {64: (64, 32, PAC_CRC), 128: (128, 64, PAC_CRC), 256: (256, 128, PAC_CRC)}
+PAC_BATCH = 65536  # frames a timed K3 call
 
 
 class SmokeFailure(RuntimeError):
@@ -129,7 +155,9 @@ def ptxas_report(log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             tm = re.search(r"scl_decode_kernelILi(\d+)E", m.group(1))
+            tp = re.search(r"pac_decode_kernelILi(\d+)E", m.group(1))
             entry = (f"scl_decode_kernel<M={tm.group(1)}>" if tm
+                     else f"pac_decode_kernel<LM={tp.group(1)}>" if tp
                      else "nms_decode_kernel" if "nms_decode_kernel" in m.group(1) else m.group(1))
             cur = {"entry": entry, "regs": None, "spill_stores": None, "spill_loads": None,
                    "smem": 0}
@@ -258,13 +286,21 @@ def profile_steps(step, label, steps=5):
         print(f"    {dev_us / steps / 1e3:9.4f} ms a step  {count / steps:7.1f} calls  {key[:70]}")
 
 
+def select_ops(L):
+    """Comparisons needed to pick the best L of 2L candidates in order: the
+    decision-tree bound ceil(log2((2L)! / L!)), 29 at L=8 (a rank count by
+    all pairs does (2L)² = 256)."""
+
+    return (math.factorial(2 * L) // math.factorial(L) - 1).bit_length()
+
+
 def scl_work(info_set, M, B, n=N, k=K):
     """(bytes, operations) one SCL decode of B frames needs at least.
 
     Bytes: LLRs in, bits + info LLRs + pass out, each once.  Operations
     (float32): f = 4 (two |·|, min, sign product) and g = 2 (multiply, add)
     per updated entry per path, the penalty and metric add (5) per path per
-    phase plus the second candidate's (5) at info phases, and (2M)² ranking
+    phase plus the second candidate's (5) at info phases, and `select_ops(M)`
     comparisons per info phase; transcendentals count as one operation."""
 
     from polar_code_tpu_torch.ops.scl_schedule import schedule_tables
@@ -273,7 +309,7 @@ def scl_work(info_set, M, B, n=N, k=K):
     widths = np.array([0] + [n >> l for l in range(1, upd.shape[1])])
     fg = int(((upd == 1) * widths).sum()) * 4 + int(((upd == 2) * widths).sum()) * 2
     n_info = int((frozen == 0).sum())
-    per_frame = M * fg + M * n * 5 + M * n_info * 5 + n_info * (2 * M) ** 2
+    per_frame = M * fg + M * n * 5 + M * n_info * 5 + n_info * select_ops(M)
     nbytes = B * (n * 4 + k + k * 4 + 1)
     return nbytes, per_frame * B
 
@@ -288,6 +324,52 @@ def nms_work(iters_used, n, edges, rows, self_exclude):
     per_edge, per_row = NMS_OPS[self_exclude]
     nops = int(iters_used.sum()) * (edges * per_edge + rows * per_row)
     return nbytes, nops
+
+
+def pac_mask(N, kp, profile="dega"):
+    from polar_code_tpu_torch.legacy.rate_profile import rateprofile
+
+    rp = rateprofile(N, kp, 2.0, 0)
+    rp.build_mask(profile)
+    return np.asarray(rp.modify_profile())
+
+
+def pac_llrs(rng, B, snr_db, code, gen, mask, dev):
+    """Float32 LLRs of PAC codewords (CRC'd payloads, the port's encoder on the
+    card) through BPSK + AWGN at Eb/N0 over the payload rate (numpy draws)."""
+
+    import torch
+    from polar_code_tpu_torch.legacy.crclib import crc
+    from polar_code_tpu_torch.legacy.pac import pac_encode_batch
+
+    n, k, crc_cfg = code
+    msgs = rng.integers(0, 2, (B, k)).astype(np.int8)
+    if crc_cfg:
+        msgs = np.concatenate([msgs, crc(*crc_cfg).crcCalc_batch(msgs)], axis=1)
+    x = pac_encode_batch(torch.from_numpy(msgs).to(dev), mask, gen, n).cpu().numpy()
+    nv = 1.0 / (2.0 * (k / n) * 10 ** (snr_db / 10.0))
+    y = 1.0 - 2.0 * x + rng.normal(0.0, math.sqrt(nv), x.shape)
+    return torch.from_numpy((2.0 * y / nv).astype(np.float32)).to(dev)
+
+
+def pac_work(mask, L, B):
+    """(bytes, operations) one PAC list decode of B frames needs at least.
+
+    Bytes: LLRs in, bits + pass flag out, each once.  Operations, per path:
+    f = 4 (two |·|, min, sign product) and g = 2 (multiply, add) per updated
+    entry, and per phase the metric's penalty add and the shift register's
+    parity; per info phase `select_ops(L)` comparisons of the candidates."""
+
+    from polar_code_tpu_torch.legacy.pac import bitrev_perm
+    from polar_code_tpu_torch.ops.scl_schedule import schedule_tables
+
+    n = int(mask.size)
+    upd, _, frozen, *_ = schedule_tables(n, np.flatnonzero(mask[bitrev_perm(n)] == 1))
+    widths = np.array([0] + [n >> l for l in range(1, upd.shape[1])])
+    fg = int(((upd == 1) * widths).sum()) * 4 + int(((upd == 2) * widths).sum()) * 2
+    n_info = int((frozen == 0).sum())
+    per_frame = L * fg + L * n * 2 + n_info * select_ops(L)
+    return B * (n * 4 + n_info + 1), per_frame * B
 
 
 def bound(nbytes, nops):
@@ -357,6 +439,9 @@ def main():
     from polar_code_tpu_torch.channel import noise_var_coded, noise_var_uncoded
     from polar_code_tpu_torch.eval import run_ber_sweep, run_fer_sweep
     from polar_code_tpu_torch.interop import load_beta
+    from polar_code_tpu_torch.legacy import crc_polar_ofdm_ls, crc_polar_vs_uncoded, pac_cuda, simulator
+    from polar_code_tpu_torch.legacy.pac import pac_list_decode_batch
+    from polar_code_tpu_torch.legacy.pac_cuda import pac_list_decode_cuda
     from polar_code_tpu_torch.nr.ldpc import nms_cuda
     from polar_code_tpu_torch.nr.ldpc.decode_nms import decode_ldpc_nms_batch
     from polar_code_tpu_torch.nr.ldpc.nms_cuda import decode_ldpc_nms_cuda
@@ -381,16 +466,17 @@ def main():
                 decode_scl_batch.cuda_calls + decode_ldpc_nms_batch.cuda_calls)
 
     # ---- 1. device ----
-    name = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi_line()
-    print(f"device: {name} x{count}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"device: {device_kind} x{count}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"nvidia-smi: {smi}")
     phase_done("1 device")
 
     # ---- 2. build: one nvcc a source, all started together ----
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = dict(zip(("scl", "nms"), pool.map(_build.build, (scl_cuda.SOURCE, nms_cuda.SOURCE))))
+    sources = {"scl": scl_cuda.SOURCE, "nms": nms_cuda.SOURCE, "pac": pac_cuda.SOURCE}
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        builds = dict(zip(sources, pool.map(_build.build, sources.values())))
     for built in builds.values():
         print(f"build: {built.path.name} in {built.seconds:.2f} s"
               + (" (reused an identical earlier build)" if built.cached else ""))
@@ -400,8 +486,15 @@ def main():
     for M in scl_cuda.SUPPORTED_M:
         fb, fpb = scl_cuda.frame_bytes(N, K, M), scl_cuda.frames_per_block(N, K, M)
         print(f"  K1 dynamic smem M={M}: {fb} B per frame x {fpb} frames = {fb * fpb} B per block")
+    for L in (1, 8, 16, 32):
+        for n_p, (_, k_p, crc_p) in PAC_CODES.items():
+            kp = k_p + (crc_p[0] if crc_p else 0)
+            fb, fpb = pac_cuda.frame_bytes(n_p, kp, L), pac_cuda.frames_per_block(n_p, kp, L)
+            print(f"  K3 dynamic smem N={n_p} Kp={kp} L={L}: {fb} B per frame x {fpb} frames "
+                  f"= {fb * fpb} B per block")
     scl_cuda._library()
     nms_cuda._library()
+    pac_cuda._library()
     phase_done("2 build")
 
     # ---- 3. K1 against its plain version ----
@@ -718,7 +811,143 @@ def main():
                   .tolist(), "BER steps (a) 2.5 dB")
     phase_done("8 BER times")
 
-    # ---- 9. result lines ----
+    # ---- 9. K3 against the JAX package's outputs and its plain version ----
+    pac_cases = 0
+    with np.load(GOLDEN / "legacy_pac_decode.npz") as golden:
+        for case in json.loads(str(golden["cases"])):
+            tag = case["name"]
+            mask = pac_mask(case["N"], case["K"] + case["crc_len"], case["profile"])
+            check(np.array_equal(mask, golden[f"{tag}/mask"]), f"{tag}: rate profile differs")
+            x = torch.from_numpy(golden[f"{tag}/llr"]).to(dev)
+            out = pac_list_decode_cuda(x, mask, case["gen"], case["L"], case["crc_len"],
+                                       case["crc_poly"])
+            torch.cuda.synchronize()
+            bad = (np.any(out["extracted"].cpu().numpy() != golden[f"{tag}/extracted"], axis=1)
+                   | (out["crc_pass"].cpu().numpy() != golden[f"{tag}/crc_pass"]))
+            print(f"  K3 vs JAX {tag} (N={case['N']} L={case['L']} B={x.shape[0]}): "
+                  f"{int(bad.sum())} frames differ", flush=True)
+            check(not bad.any(), f"K3 differs from the JAX decoder ({tag}): frames "
+                  f"{np.flatnonzero(bad)[:10].tolist()}")
+            pac_cases += 1
+    rng = np.random.default_rng(20261019)
+    pac_max_err = 0
+    sim_code = (64, 32, None)
+    plain_cases = [(PAC_CODES[128], 8, 4096), (sim_code, 1, 4096), (sim_code, 32, 4096),
+                   ((128, 64, PAC_CRC), 16, 1001), (sim_code, 5, 1000)]
+    for code, L, B in plain_cases:
+        n_p, k_p, crc_p = code
+        crc_len, crc_poly = crc_p or (0, 0)
+        mask = pac_mask(n_p, k_p + crc_len)
+        gen = PAC_GEN if L != 16 else [1]  # L=16 ragged: crc_polar_vs_uncoded's polar code
+        x = pac_llrs(rng, B, 2.5, code, gen, mask, dev)
+        out = pac_list_decode_cuda(x, mask, gen, L, crc_len, crc_poly)
+        torch.cuda.synchronize()
+        ref = pac_list_decode_batch(x, mask, gen, L, crc_len=crc_len, crc_poly=crc_poly)
+        torch.cuda.synchronize()
+        diff = (out["extracted"].to(torch.int32) - ref["extracted"].to(torch.int32)).abs()
+        bad = (diff.amax(dim=1) > 0) | (out["crc_pass"] != ref["crc_pass"])
+        pac_max_err = max(pac_max_err, int(diff.max()))
+        print(f"  K3 vs plain PAC({n_p},{k_p}) gen {''.join(map(str, gen))} L={L} CRC "
+              f"{'on' if crc_p else 'off'} 2.5 dB B={B}: {int(bad.sum())} frames differ; "
+              f"crc pass {int(ref['crc_pass'].sum())}", flush=True)
+        check(not bool(bad.any()), f"K3 differs from the plain version (PAC({n_p},{k_p}) L={L} B={B})")
+    print(f"K3: {pac_cases} JAX cases and {len(plain_cases)} plain-version cases, every frame identical")
+    phase_done("9 K3 vs JAX and plain")
+
+    # ---- 10. the legacy path: the three legacy drivers on the card ----
+    drivers = json.loads((GOLDEN / "legacy_pac_drivers.json").read_text())
+    pac_list_decode_cuda.launches = 0
+    pac_list_decode_batch.cuda_calls = 0
+    sim_ref = drivers["simulator"]
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(buf):
+        res = simulator.run(simulator.LegacySimConfig(snr_range=sim_ref["config"]["snr_range"],
+                                                      seed=sim_ref["config"]["seed"]), tmp)
+        sim_csv = next(Path(tmp).glob("*.csv")).read_text()
+    sim_s = time.perf_counter() - t
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("@")]
+    sim_frames = sum(int(re.search(r"\((\d+) frames\)", ln).group(1)) for ln in lines)
+    for ln in lines:
+        print(f"  simulator: {ln}")
+    print(f"  simulator: {sim_s:.3f} s for {sim_frames} frames ({sim_frames / sim_s:.0f} frames/s, "
+          f"host clock; the JAX driver on the CPU took {sim_ref['seconds']:.1f} s)")
+    check(lines == sim_ref["lines"] and res.ber == sim_ref["ber"] and res.fer == sim_ref["fer"]
+          and sim_csv == sim_ref["csv"], f"simulator results differ from the JAX driver's: "
+          f"{lines} {res.ber} vs {sim_ref['lines']} {sim_ref['ber']}")
+    unc_ref = drivers["crc_polar_vs_uncoded"]
+    t = time.perf_counter()
+    unc = crc_polar_vs_uncoded.simulate(crc_polar_vs_uncoded.SimulationConfig(
+        snr_points=tuple(unc_ref["config"]["snr_points"]), seed=unc_ref["config"]["seed"],
+        plot_results=False))
+    print(f"  crc_polar_vs_uncoded: {time.perf_counter() - t:.3f} s, host clock")
+    print("  crc_polar_vs_uncoded:\n    " + crc_polar_vs_uncoded._format_results(unc)
+          .replace("\n", "\n    "))
+    check([dataclasses.asdict(r) for r in unc] == unc_ref["results"],
+          "crc_polar_vs_uncoded results differ from the JAX driver's")
+    ofdm_ref = drivers["crc_polar_ofdm_ls"]
+    t = time.perf_counter()
+    ofdm = crc_polar_ofdm_ls.simulate(crc_polar_ofdm_ls.SimulationConfig(
+        snr_points=tuple(ofdm_ref["config"]["snr_points"]), seed=ofdm_ref["config"]["seed"],
+        plot_results=False))
+    print(f"  crc_polar_ofdm_ls: {time.perf_counter() - t:.3f} s, host clock")
+    print("  crc_polar_ofdm_ls:\n    " + crc_polar_ofdm_ls._format_results(ofdm)
+          .replace("\n", "\n    "))
+    check(len(ofdm) == len(ofdm_ref["results"]), "crc_polar_ofdm_ls: number of points")
+    for got, want in zip((dataclasses.asdict(r) for r in ofdm), ofdm_ref["results"]):
+        mse, want_mse = got.pop("avg_channel_mse"), want["avg_channel_mse"]
+        check(got == {k: v for k, v in want.items() if k != "avg_channel_mse"},
+              f"crc_polar_ofdm_ls results differ from the JAX driver's: {got} vs {want}")
+        check(abs(mse - want_mse) <= 1e-12 * abs(want_mse), f"OFDM channel MSE {mse} vs {want_mse}")
+    legacy_launches, legacy_plain = pac_list_decode_cuda.launches, pac_list_decode_batch.cuda_calls
+    print(f"legacy path: pac_list_decode_cuda.launches {legacy_launches}, "
+          f"pac_list_decode_batch.cuda_calls {legacy_plain}; the three drivers equal the JAX drivers")
+    check(legacy_launches > 0, "the legacy drivers did not go through the PAC kernel")
+    check(legacy_plain == 0, "the plain PAC decoder ran on CUDA in the legacy drivers")
+
+    def sim_batch(i):  # one simulator batch: 256 frames at 3.0 dB, stage 1 and stage 2
+        with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+            simulator.run(simulator.LegacySimConfig(snr_range=[3.0], max_frames=256, seed=i), tmp)
+
+    profile_steps(sim_batch, "simulator batches (256 frames, 3.0 dB)")
+    phase_done("10 legacy path")
+
+    # ---- 11. K3 times ----
+    print(f"K3 times on {smi} (CRC-16 0x1021, gen 1011011, dega, 2.5 dB):")
+    rng = np.random.default_rng(11)
+    for n_p, code in PAC_CODES.items():
+        kp = code[1] + PAC_CRC[0]
+        mask = pac_mask(n_p, kp)
+        x = pac_llrs(rng, PAC_BATCH, 2.5, code, PAC_GEN, mask, dev)
+        for L in (1, 4, 8) + ((32,) if n_p == 64 else ()):
+            ms = cuda_time_ms(lambda: pac_list_decode_cuda(x, mask, PAC_GEN, L, *PAC_CRC), reps=10)
+            b_ms, b_by = bound(*pac_work(mask, L, PAC_BATCH))
+            print(f"  K3 PAC({n_p},{code[1]}) L={L} B={PAC_BATCH}: {ms:.4f} ms "
+                  f"({PAC_BATCH / ms * 1e3:.0f} decodes/s, 10 launches); bound {b_ms:.6f} ms "
+                  f"({b_by})", flush=True)
+        small = x[:4096].contiguous()
+        for L in (1, 8):
+            ms = cuda_time_ms(lambda: pac_list_decode_cuda(small, mask, PAC_GEN, L, *PAC_CRC), reps=20)
+            pms = cuda_time_ms(lambda: pac_list_decode_batch(small, mask, PAC_GEN, L, crc_len=PAC_CRC[0],
+                                                             crc_poly=PAC_CRC[1]), reps=2, warmup=1)
+            b_ms, b_by = bound(*pac_work(mask, L, 4096))
+            print(f"  PAC({n_p},{code[1]}) L={L} B=4096: K3 {ms:.4f} ms (20 launches); plain "
+                  f"{pms:.4f} ms (2 calls); bound {b_ms:.6f} ms ({b_by})", flush=True)
+            if n_p == 128 and L == 8:
+                pac_ms, pac_plain_ms, pac_bound_ms, pac_bound_by = ms, pms, b_ms, b_by
+    # the drivers' own shapes: simulator stage 1 and 2, crc_polar_vs_uncoded
+    sim_mask = pac_mask(64, 32)
+    for L, B in ((1, 256), (32, 16)):
+        x = pac_llrs(rng, B, 3.0, sim_code, PAC_GEN, sim_mask, dev)
+        ms = cuda_time_ms(lambda: pac_list_decode_cuda(x, sim_mask, PAC_GEN, L), reps=50)
+        print(f"  simulator stage shape PAC(64,32) L={L} B={B}: {ms:.4f} ms (50 launches)")
+    unc_mask = pac_mask(128, 80)
+    x = pac_llrs(rng, 128, 2.0, (128, 64, PAC_CRC), [1], unc_mask, dev)
+    ms = cuda_time_ms(lambda: pac_list_decode_cuda(x, unc_mask, [1], 16, *PAC_CRC), reps=50)
+    print(f"  crc_polar_vs_uncoded shape P(128,64+16) L=16 B=128: {ms:.4f} ms (50 launches)")
+    phase_done("11 K3 times")
+
+    # ---- 12. result lines ----
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by = nms_times[IRA[0], True]
     print(json.dumps({"kernels": [{
         "name": "scl_decode",
@@ -744,9 +973,21 @@ def main():
         "bound_ms": nms_bound_ms,
         "bound_by": nms_bound_by,
         "library_ms": None,
+    }, {
+        "name": "pac_decode",
+        "route": "cuda",
+        "source": "polar_code_tpu_torch/csrc/pac_decode.cu",
+        "replaces": "polar_code_tpu/legacy/pac_pallas.py:59",
+        "launches": legacy_launches,
+        "max_abs_err": float(pac_max_err),
+        "ms": pac_ms,
+        "plain_ms": pac_plain_ms,
+        "bound_ms": pac_bound_ms,
+        "bound_by": pac_bound_by,
+        "library_ms": None,
     }]}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind, "count": count}}))
     return 0
 
 

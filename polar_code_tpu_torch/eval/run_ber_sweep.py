@@ -114,6 +114,8 @@ def run(args: argparse.Namespace) -> List[Dict[str, float]]:
         {
             "sweep": "ber", "scheme": args.scheme, "K_payload": args.K_payload,
             "K_crc": args.K_crc, "E": args.E, "N": N, "M": args.M,
+            "construction": args.construction, "crc_poly": args.crc_poly,
+            "adaptive_from": args.adaptive_from, "ilv_mode": args.ilv_mode,
             "retries": args.retries, "seed": args.seed, "batch": batch,
             "err_cap": args.err_cap, "bits_cap": args.bits_cap,
             "beta": args.beta or "", "bg": args.bg,

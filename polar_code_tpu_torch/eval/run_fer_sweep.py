@@ -62,7 +62,8 @@ def run_sweep(args: argparse.Namespace) -> List[Dict[str, float]]:
     state = SweepState(
         args.state,
         {
-            "sweep": "fer", "M": args.M, "frames": args.frames,
+            "sweep": "fer", "N": cfg.N, "K": cfg.K, "construction": args.construction,
+            "M": args.M, "frames": args.frames,
             "retries": args.retries, "seed": args.seed, "batch": batch,
             "beta": args.beta or "", "include_uncoded": bool(args.include_uncoded),
         },

@@ -113,6 +113,24 @@ def test_state_resume(tmp_path):
     assert json.loads(state.read_text())["config"]["seed"] == 1 and len(third) == 2
 
 
+@pytest.mark.parametrize("change", [("--construction", "polarization"), ("--crc_poly", "0x13"),
+                                    ("--adaptive_from", "1"), ("--ilv_mode", "nr")])
+def test_state_of_another_code_starts_over(tmp_path, change):
+    # each of these fields changes what a point measures, so a state file
+    # written without it must not feed its rows into this sweep
+    state = tmp_path / "state.json"
+    argv = ["--scheme", "polar_scl", *TOY[:12], "--EbN0_lo", "2.0", "--EbN0_hi", "2.0",
+            "--batch", "16", "--bits_cap", "64", "--state", str(state)]
+    _main(tmp_path, argv)
+    saved = json.loads(state.read_text())
+    saved["rows"]["2.0000"]["bit_errors"] = -1
+    state.write_text(json.dumps(saved))
+    assert _main(tmp_path, argv)[0][0]["bit_errors"] == -1  # the same sweep resumes
+    rows, _ = _main(tmp_path, argv + list(change))
+    assert rows[0]["bit_errors"] >= 0
+    assert str(json.loads(state.read_text())["config"][change[0][2:]]) == change[1]
+
+
 def test_bad_arguments_raise(tmp_path):
     with pytest.raises(ValueError, match="mismatch"):
         _main(tmp_path, ["--scheme", "nr_ldpc", "--K_payload", "9", "--K_crc", "4", "--E", "24",

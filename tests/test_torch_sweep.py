@@ -54,6 +54,26 @@ def test_state_resume_skips_finished_points(tmp_path, capsys):
     assert "resumed" not in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("change", [("--N", "256"), ("--K", "72"),
+                                    ("--construction", "polarization")])
+def test_state_of_another_code_starts_over(tmp_path, capsys, change):
+    # N, K and the construction change the code, so a state file written for
+    # another code must not feed its rows into this sweep
+    argv = ["--M", "2", "--frames", "128", "--batch", "128", "--snr_lo", "4.0",
+            "--snr_hi", "4.0", "--device", "cpu", "--out_dir", str(tmp_path / "out"),
+            "--plot_dir", str(tmp_path / "plots"), "--state", str(tmp_path / "state.json")]
+    run_fer_sweep.main(argv)
+    saved = json.loads((tmp_path / "state.json").read_text())
+    saved["rows"]["4.0000"]["fer_scl"] = -1.0
+    (tmp_path / "state.json").write_text(json.dumps(saved))
+    capsys.readouterr()
+    rows = run_fer_sweep.main(argv + list(change))
+    assert "resumed" not in capsys.readouterr().out
+    assert rows[0]["fer_scl"] >= 0.0
+    config = json.loads((tmp_path / "state.json").read_text())["config"]
+    assert str(config[change[0][2:]]) == change[1]
+
+
 def test_sweep_raises_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")

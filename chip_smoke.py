@@ -10,13 +10,19 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    kernel K1 (`polar_code_tpu_torch/csrc/scl_decode.cu`), the NMS LDPC kernel
    K2 (`csrc/nms_decode.cu`) and the PAC list-decode kernel K3
    (`csrc/pac_decode.cu`) — with the build seconds and the `-Xptxas -v`
-   registers, shared memory and spills;
+   registers, shared memory and spills; K1's shared memory a frame, levels
+   in global scratch and resident frames an SM for each shape it runs
+   (more than one at N=2048 M=8, or the phase fails);
 3. K1 against its plain PyTorch version at P(128,64): M ∈ {1,2,4,8}, CRC-24A
    on and off, with and without a random forced plan, B=4096 LLRs at 3, 5
    and 7 dB, plus ragged B=1000 and B=1001 batches.  Bits and CRC pass must
    be identical and info LLRs equal within 1e-6 relative; a frame whose two
    ordered final path metrics lie within 1e-5 relative (a near-tie) is
-   counted and printed instead of failing;
+   counted and printed instead of failing.  Then K1 against the JAX
+   package's float32 XLA decoder, under the same rule: every case of
+   `tests/golden/scl_f32_decode.npz` (written on the CPU by
+   `tests/golden/make_scl_f32.py`: P(128,64) at M ∈ {1,2,4,8}, CRC on and
+   off, plan on and off, 256 frames; P(2048,1024) M=8 CRC, 64 frames);
    3b. the same at the one shape of the BER path that phase 3 does not
    cover, run (c)'s NR polar code: N=128, K=88 (64 + CRC-24A), M=4, B=4096
    LLRs of the NR polar chain (E=256, derated and deinterleaved to N) at
@@ -24,12 +30,22 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    with and without plans);
    3c. the same at (N, K) ∈ {(256,128), (512,256), (1024,512), (2048,1024)},
    M ∈ {2, 8}, CRC-24A, B=256, LLRs N(0, 2²) (the shapes of
-   `tests/test_fuzz_configs.py`), and K1's B=4096 M=8 time per N;
+   `tests/test_fuzz_configs.py`), and K1's B=4096 M=8 time per N; then the
+   rest of the envelope on codeword LLRs at 1–4 dB a frame, B=256: N=64 at
+   M ∈ {1,2,4,8}, CRC on and off, plan on and off; N 256–2048
+   (`gaussian_bitrev`) with CRC off, with a plan, and at M 1 and 4; a ragged
+   B=1001 at N=2048;
+   3d. where K1's time goes, with CUDA events: at N 1024 and 2048 (B=4096,
+   M=8) each number of tree levels in global scratch, 0 to 5; at N=2048
+   M ∈ {1, 2, 4}; B ∈ {64, 1024, 4096, 16384} at N=128 and N=2048;
 4. the FER path: the FER sweep CLI (`run_fer_sweep.main`) at M=8, 8 retries,
-   β from `checkpoints/beta_M8.npy`, 102400 frames at 4.0 and 5.0 dB.  Every
-   SCL decode must go through K1 (its launch counter grows, the plain
-   decoder runs 0 times on CUDA), and FER of both arms must agree with the
-   JAX package's `results/fer_M8.csv` at |z| < 3;
+   β from `checkpoints/beta_M8.npy`, 102400 frames at 4.0 and 5.0 dB; and at
+   P(2048,1024) (`gaussian_bitrev`, β `checkpoints/n2048/beta_M8.npy`),
+   40960 frames at 1.5 dB.  Every SCL decode must go through K1 (its launch
+   counter grows, the plain decoder runs 0 times on CUDA), and FER of both
+   arms must agree with the JAX package's `results/fer_M8.csv` and
+   `results/n2048/fer_M8.csv` (frames per point from its
+   `sweep_state.json`) at |z| < 3;
 5. FER times with CUDA events after a warm-up: K1 and the plain version per
    B=4096 M=8 CRC decode, FER-step frames/s at 5 dB, a profiler split;
 6. K2 against its plain PyTorch version: hard bits, iterations used and
@@ -101,6 +117,8 @@ JAX_CSV = REPO / "results" / "fer_M8.csv"
 # every rate in that CSV times 204800 is a whole count: 204800 frames a point
 JAX_FRAMES_PER_POINT = 204800
 SWEEP_FRAMES = 102400
+# the FER path at P(2048,1024): results/n2048, about 500 errors at 1.5 dB
+N2048_FRAMES, N2048_SNR = 40960, 1.5
 NR_POLAR = (128, 88, 64, 256, 4)  # BER run (c): N, K (64 + CRC-24A), K_payload, E, M
 K1C_SHAPES = [(256, 128), (512, 256), (1024, 512), (2048, 1024)]
 # LDPC codes of the BER path: (name, base graph spec, Z, K_payload, E)
@@ -176,18 +194,21 @@ def ptxas_report(log):
     return rows
 
 
-def make_llrs(rng, B, snr_db, info_set):
-    """Real codewords through BPSK + AWGN, drawn with numpy (float32 LLRs)."""
+def make_llrs(rng, B, snr_db, info_set, n=N):
+    """Real CRC-24A codewords of the (n, len(info_set)) code through BPSK +
+    AWGN, drawn with numpy (float32 LLRs); `snr_db` a number or a [B, 1]
+    array of per-frame Eb/N0."""
 
     import torch
     from polar_code_tpu_torch.ops.crc import attach_crc_batch, crc_degree
     from polar_code_tpu_torch.ops.polar_transform import encode_batch
 
-    payload = torch.from_numpy(rng.integers(0, 2, (B, K - crc_degree(CRC))).astype(np.int8))
+    k = len(info_set)
+    payload = torch.from_numpy(rng.integers(0, 2, (B, k - crc_degree(CRC))).astype(np.int8))
     msg = attach_crc_batch(payload, CRC)
-    code = encode_batch(msg, info_set, N).numpy()
-    nv = 1.0 / (2.0 * (K / N) * 10 ** (snr_db / 10.0))
-    y = 1.0 - 2.0 * code + rng.normal(0.0, math.sqrt(nv), code.shape)
+    code = encode_batch(msg, info_set, n).numpy()
+    nv = 1.0 / (2.0 * (k / n) * 10 ** (np.asarray(snr_db) / 10.0))
+    y = 1.0 - 2.0 * code + rng.normal(0.0, 1.0, code.shape) * np.sqrt(nv)
     return (2.0 * y / nv).astype(np.float32), msg.numpy()
 
 
@@ -218,9 +239,9 @@ def random_plan(rng, msg):
     frames one flipped bit (the CRC cannot pass) and on odd frames one more
     sent bit (it can); the rest free."""
 
-    B = msg.shape[0]
-    idx = rng.integers(0, K, B)
-    pos = np.arange(K)[None, :]
+    B, k = msg.shape
+    idx = rng.integers(0, k, B)
+    pos = np.arange(k)[None, :]
     plan = np.where(pos < idx[:, None], msg, -1)
     last = np.where(np.arange(B)[:, None] % 2 == 0, 1 - msg, msg)
     plan = np.where(pos == idx[:, None], last, plan)
@@ -483,16 +504,22 @@ def main():
         for row in ptxas_report(built.log):
             print(f"  ptxas {row['entry']}: {row['regs']} registers, {row['smem']} B static smem, "
                   f"spills {row['spill_stores']} B stores / {row['spill_loads']} B loads")
-    for M in scl_cuda.SUPPORTED_M:
-        fb, fpb = scl_cuda.frame_bytes(N, K, M), scl_cuda.frames_per_block(N, K, M)
-        print(f"  K1 dynamic smem M={M}: {fb} B per frame x {fpb} frames = {fb * fpb} B per block")
+    scl_cuda._library()
+    k1_resident = {}
+    for n_s, k_s, M in ([(N, K, M) for M in scl_cuda.SUPPORTED_M]
+                        + [(n_c, k_c, M) for n_c, k_c in K1C_SHAPES for M in (1, 8)]):
+        g, fpb, k1_resident[n_s, M] = scl_cuda.launch_plan(n_s, k_s, M)
+        fb = scl_cuda.frame_bytes(n_s, k_s, M, g)
+        print(f"  K1 N={n_s} K={k_s} M={M}: levels 1..{g} in global scratch; dynamic smem "
+              f"{fb} B per frame x {fpb} frames = {fb * fpb} B per block; "
+              f"{k1_resident[n_s, M]} resident frames an SM (occupancy calculator)")
+    check(k1_resident[2048, 8] > 1, "K1 holds one frame an SM at N=2048 M=8")
     for L in (1, 8, 16, 32):
         for n_p, (_, k_p, crc_p) in PAC_CODES.items():
             kp = k_p + (crc_p[0] if crc_p else 0)
             fb, fpb = pac_cuda.frame_bytes(n_p, kp, L), pac_cuda.frames_per_block(n_p, kp, L)
             print(f"  K3 dynamic smem N={n_p} Kp={kp} L={L}: {fb} B per frame x {fpb} frames "
                   f"= {fb * fpb} B per block")
-    scl_cuda._library()
     nms_cuda._library()
     pac_cuda._library()
     phase_done("2 build")
@@ -507,27 +534,36 @@ def main():
     max_abs_err = 0.0
     near_ties = []
 
-    def compare_scl(llr, info, M, crc, plan, tag, msg=None, show=False):
+    def judge(out, rb, rp, rl, metrics, tag, against="the plain version"):
+        """Mismatched frames of K1's outputs against a reference's bits, pass
+        flags, info LLRs and final metrics; fails on one outside near-ties.
+        `max_abs_err` tracks the comparisons with the plain version."""
+
         nonlocal max_abs_err
+        kb, kp, kl = (out[k].cpu().numpy() for k in ("best_path_bits", "crc_pass",
+                                                      "best_path_info_llrs"))
+        llr_ok = np.abs(kl - rl) <= 1e-6 * np.maximum(np.abs(rl), 1e-30)
+        bad = np.any(kb != rb, axis=1) | (kp != rp) | ~np.all(llr_ok, axis=1)
+        ties = near_tie_frames(metrics)
+        unexplained = bad & ~ties
+        if bad.any():
+            for f in np.flatnonzero(bad):
+                near_ties.append(f"{tag} frame {f}")
+            print(f"  {tag}: {int(bad.sum())} mismatched frames, {int((bad & ties).sum())} near-ties")
+        check(not unexplained.any(),
+              f"kernel disagrees with {against} ({tag}): frames "
+              f"{np.flatnonzero(unexplained)[:10].tolist()}")
+        if against == "the plain version" and kl.size:
+            max_abs_err = max(max_abs_err, float(np.max(np.abs(kl - rl))))
+        return kb, kp, bad
+
+    def compare_scl(llr, info, M, crc, plan, tag, msg=None, show=False):
         out = scl_cuda.decode_scl_cuda(llr, info, M, crc, force_info_bits=plan)
         torch.cuda.synchronize()
         ref = decode_scl_batch(llr, info, M, crc, force_info_bits=plan, dtype=torch.float32)
         torch.cuda.synchronize()
-        kb, rb = out["best_path_bits"].cpu().numpy(), ref.best_path_bits.cpu().numpy()
-        kp, rp = out["crc_pass"].cpu().numpy(), ref.crc_pass.cpu().numpy()
-        kl, rl = out["best_path_info_llrs"].cpu().numpy(), ref.best_path_info_llrs.cpu().numpy()
-        llr_ok = np.abs(kl - rl) <= 1e-6 * np.maximum(np.abs(rl), 1e-30)
-        bad = np.any(kb != rb, axis=1) | (kp != rp) | ~np.all(llr_ok, axis=1)
-        ties = near_tie_frames(ref.metrics.cpu().numpy())
-        unexplained = bad & ~ties
-        if bad.any():
-            for f in np.flatnonzero(bad):
-                near_ties.append(f"{tag} frame {f} (seed 20261017)")
-            print(f"  {tag}: {int(bad.sum())} mismatched frames, {int((bad & ties).sum())} near-ties")
-        check(not unexplained.any(),
-              f"kernel disagrees with the plain version ({tag}): frames "
-              f"{np.flatnonzero(unexplained)[:10].tolist()}")
-        max_abs_err = max(max_abs_err, float(np.max(np.abs(kl - rl))) if kl.size else 0.0)
+        kb, kp, bad = judge(out, ref.best_path_bits.cpu().numpy(), ref.crc_pass.cpu().numpy(),
+                            ref.best_path_info_llrs.cpu().numpy(), ref.metrics.cpu().numpy(), tag)
         if show:
             sent = f", bit errors vs sent {int((kb != msg).sum())}" if msg is not None else ""
             print(f"  {tag}: {int(bad.sum())} frames differ; crc pass {int(kp.sum())}/{len(kp)}"
@@ -542,8 +578,27 @@ def main():
     print(f"K1 vs plain: {len(cases)} cases, near-tie mismatches {len(near_ties)}, "
           f"max |info LLR diff| {max_abs_err:.3e}")
     for line in near_ties:
-        print(f"  near-tie: {line}")
-    phase_done("3 K1 vs plain")
+        print(f"  near-tie: {line} (seed 20261017)")
+    # K1 against the JAX package's float32 XLA decoder, through the golden
+    # file that tests/golden/make_scl_f32.py wrote on the CPU
+    ties_before = len(near_ties)
+    with np.load(GOLDEN / "scl_f32_decode.npz") as gold:
+        f32_cases = json.loads(str(gold["cases"]))
+        for case in f32_cases:
+            tag, code = case["name"], case["code"]
+            x = torch.from_numpy(gold[f"{code}/llr"]).to(dev)
+            plan = torch.from_numpy(gold[f"{code}/plan"]).to(dev) if case["plan"] else None
+            out = scl_cuda.decode_scl_cuda(x, gold[f"{code}/info"], case["M"], case["crc"],
+                                           force_info_bits=plan)
+            torch.cuda.synchronize()
+            _, kp, bad = judge(out, gold[f"{tag}/bits"], gold[f"{tag}/crc_pass"],
+                               gold[f"{tag}/llrs"], gold[f"{tag}/metrics"], f"JAX f32 {tag}",
+                               against="the JAX float32 decoder")
+            print(f"  K1 vs JAX float32 {tag} (B={x.shape[0]}): {int(bad.sum())} frames differ; "
+                  f"crc pass {int(kp.sum())}", flush=True)
+    print(f"K1 vs JAX float32: {len(f32_cases)} cases, near-tie mismatches "
+          f"{len(near_ties) - ties_before}")
+    phase_done("3 K1 vs plain and JAX float32")
 
     # ---- 3b. K1 at BER run (c)'s shape ----
     n_r, k_r, _, _, m_r = NR_POLAR
@@ -568,11 +623,58 @@ def main():
         big = torch.from_numpy(np.random.default_rng(n_c).normal(0.0, 2.0, (4096, n_c))
                                .astype(np.float32)).to(dev)
         k1c_ms[n_c] = cuda_time_ms(lambda: scl_cuda.decode_scl_cuda(big, info_c, 8, CRC), reps=10)
+        g, fpb, per_sm = scl_cuda.launch_plan(n_c, k_c, 8)
         print(f"  K1 N={n_c} K={k_c} B=4096 M=8 CRC: {k1c_ms[n_c]:.4f} ms a decode (10 launches); "
-              f"{scl_cuda.frame_bytes(n_c, k_c, 8)} B smem a frame, "
-              f"{scl_cuda.frames_per_block(n_c, k_c, 8)} frames a block", flush=True)
+              f"{scl_cuda.frame_bytes(n_c, k_c, 8, g)} B smem a frame, {fpb} frames a block, "
+              f"{per_sm} an SM", flush=True)
     print(f"K1c: {2 * len(K1C_SHAPES)} cases, near-tie mismatches {len(near_ties) - ties_before}")
-    phase_done("3c K1 at N 256..2048")
+
+    # K1d: the rest of the envelope, B=256 codeword LLRs at 1-4 dB a frame
+    rng = np.random.default_rng(20261020)
+    d_cases = [(64, 32, M, crc, plan, 256) for M in scl_cuda.SUPPORTED_M
+               for crc in (CRC, None) for plan in (False, True)]
+    for n_c, k_c in K1C_SHAPES:
+        d_cases += [(n_c, k_c, 8, None, False, 256), (n_c, k_c, 8, CRC, True, 256),
+                    (n_c, k_c, 1, CRC, False, 256), (n_c, k_c, 4, CRC, False, 256)]
+    d_cases.append((2048, 1024, 8, CRC, True, 1001))  # ragged
+    ties_before = len(near_ties)
+    for n_c, k_c, M, crc, use_plan, B in d_cases:
+        # the construction the repository's N > 128 sweeps use
+        info_c = construct_info_set(n_c, k_c, method="gaussian_bitrev" if n_c > N else "gaussian")
+        llr_np, msg = make_llrs(rng, B, rng.uniform(1.0, 4.0, (B, 1)), info_c, n=n_c)
+        plan = torch.from_numpy(random_plan(rng, msg)).to(dev) if use_plan else None
+        compare_scl(torch.from_numpy(llr_np).to(dev), info_c, M, crc, plan,
+                    f"N={n_c} K={k_c} M={M} crc={'on' if crc else 'off'} "
+                    f"plan={'on' if use_plan else 'off'} B={B}", msg, show=True)
+    print(f"K1d: {len(d_cases)} cases, near-tie mismatches {len(near_ties) - ties_before}")
+    phase_done("3c K1 at N 64..2048")
+
+    # ---- 3d. where K1's time goes: levers of the kernel, CUDA events ----
+    print(f"K1 times on {smi} (M=8 CRC-24A unless stated):")
+    for n_c, k_c in ((1024, 512), (2048, 1024)):
+        info_c = np.asarray(construct_info_set(n_c, k_c), np.int64)
+        big = torch.from_numpy(np.random.default_rng(n_c).normal(0.0, 2.0, (4096, n_c))
+                               .astype(np.float32)).to(dev)
+        for g in range(6):  # tree levels in global scratch; `launch_plan` picks one
+            fpb, per_sm = scl_cuda._occupancy(n_c, k_c, 8, g)
+            ms = cuda_time_ms(lambda: scl_cuda._launch(big, info_c, 8, CRC, None, g, fpb),
+                              reps=5, warmup=1)
+            print(f"  N={n_c} B=4096 levels 1..{g} in global scratch: {ms:.4f} ms "
+                  f"({scl_cuda.frame_bytes(n_c, k_c, 8, g)} B smem a frame, "
+                  f"{per_sm} resident frames an SM)", flush=True)
+    for n_c, k_c in ((N, K), (2048, 1024)):
+        info_c = construct_info_set(n_c, k_c)
+        x = torch.from_numpy(np.random.default_rng(n_c + 1).normal(0.0, 2.0, (16384, n_c))
+                             .astype(np.float32)).to(dev)
+        for M in ((1, 2, 4) if n_c == 2048 else ()):  # phase 5 times them at N=128
+            xs = x[:4096].contiguous()
+            ms = cuda_time_ms(lambda: scl_cuda.decode_scl_cuda(xs, info_c, M, CRC), reps=5, warmup=1)
+            print(f"  N={n_c} B=4096 M={M}: {ms:.4f} ms", flush=True)
+        for B in (64, 1024, 4096, 16384):
+            xs = x[:B].contiguous()
+            ms = cuda_time_ms(lambda: scl_cuda.decode_scl_cuda(xs, info_c, 8, CRC), reps=5, warmup=1)
+            print(f"  N={n_c} B={B} M=8: {ms:.4f} ms ({B / ms * 1e3:.0f} frames/s)", flush=True)
+    phase_done("3d K1 levers")
 
     # ---- 4. the FER path: the FER sweep CLI on the card ----
     reset_counts()
@@ -604,6 +706,38 @@ def main():
             print(f"  {row['snr_db']:.1f} dB {key}: port {p1:.6e} ({SWEEP_FRAMES} frames) vs "
                   f"JAX {p2:.6e} ({JAX_FRAMES_PER_POINT} frames): z = {z:+.3f}")
             check(abs(z) < 3.0, f"{key} at {row['snr_db']} dB is off the JAX sweep (z={z:.2f})")
+
+    # the FER path at N=2048: the only path that gives K1 forced plans at large N
+    state = json.loads((REPO / "results" / "n2048" / "sweep_state.json").read_text())
+    jax_frames = math.ceil(state["config"]["frames"] / state["config"]["batch"]) * state["config"]["batch"]
+    jax_row = state["rows"][f"{N2048_SNR:.4f}"]
+    for key in ("fer_scl", "fer_dl"):  # the recorded rates are counts over jax_frames
+        check(abs(jax_row[key] * jax_frames - round(jax_row[key] * jax_frames)) < 1e-6,
+              f"results/n2048 {key} is not a count over {jax_frames} frames")
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = run_fer_sweep.main([
+            "--N", "2048", "--K", "1024", "--construction", "gaussian_bitrev",
+            "--M", "8", "--retries", "8",
+            "--beta", str(REPO / "checkpoints" / "n2048" / "beta_M8.npy"),
+            "--batch", "4096", "--frames", str(N2048_FRAMES),
+            "--snr_lo", str(N2048_SNR), "--snr_hi", str(N2048_SNR), "--snr_step", "1.0",
+            "--out_dir", f"{tmp}/results", "--plot_dir", f"{tmp}/plots",
+        ])
+        torch.cuda.synchronize()
+    fer2048_launches, _, plain_cuda = counts()
+    print(f"FER path N=2048: {fer2048_launches} K1 launches over {N2048_FRAMES // 4096} FER steps, "
+          f"plain decoders on CUDA {plain_cuda} times")
+    check(fer2048_launches >= N2048_FRAMES // 4096, "the N=2048 FER sweep did not go through K1")
+    check(plain_cuda == 0, "a plain decoder ran on CUDA in the N=2048 FER sweep")
+    check(len(rows) == 1, f"the N=2048 FER sweep gave {len(rows)} points")
+    for key in ("fer_scl", "fer_dl"):
+        p1, p2 = rows[0][key], jax_row[key]
+        check(math.isfinite(p1) and 0.0 < p1 < 1.0, f"N=2048 {key} is {p1}")
+        z = fer_z(p1, N2048_FRAMES, p2, jax_frames)
+        print(f"  N=2048 {N2048_SNR} dB {key}: port {p1:.6e} ({N2048_FRAMES} frames) vs "
+              f"JAX {p2:.6e} ({jax_frames} frames): z = {z:+.3f}")
+        check(abs(z) < 3.0, f"N=2048 {key} is off the JAX sweep (z={z:.2f})")
     phase_done("4 FER path")
 
     # ---- 5. FER times ----
@@ -954,7 +1088,7 @@ def main():
         "route": "cuda",
         "source": "polar_code_tpu_torch/csrc/scl_decode.cu",
         "replaces": "polar_code_tpu/ops/scl_pallas.py:293",
-        "launches": fer_launches + ber_scl_launches,
+        "launches": fer_launches + fer2048_launches + ber_scl_launches,
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -11,6 +11,13 @@ does not take; it runs the plain version (`ops/scl.py`) only for a tensor on
 the CPU.  Any batch size is taken: the last block is masked, since the retry
 batches after compaction are data-dependent.  `decode_scl_cuda.launches`
 counts kernel launches.
+
+Memory.  A frame keeps tree levels G+1..n of its M paths, and its trace
+indices, in shared memory; levels 1..G and the trace LLRs go to a global
+scratch allocated here for each call.  `launch_plan` asks the CUDA
+occupancy calculator for the smallest G at which an SM holds
+`FRAMES_PER_SM_TARGET` frames, and for the frames a block that hold the
+most.
 """
 
 from __future__ import annotations
@@ -26,25 +33,25 @@ import torch
 from .. import _build
 from .crc import check_matrix, crc_degree
 from .scl import decode_scl_batch
-from .scl_schedule import kernel_tables
+from .scl_schedule import phase_words
 
 SOURCE = "scl_decode.cu"
 SUPPORTED_M = (1, 2, 4, 8)
+# the north star's envelope, N up to 2048, is what the kernel is held to; in
+# it a frame's state fits a block once enough levels go to global scratch
+MAX_N = 2048
 MAX_BLOCK_SMEM = 227 * 1024  # dynamic shared memory one block may use on an H100
-MAX_FRAMES_PER_BLOCK = 4  # warps (frames) per block
+FRAMES_PER_SM_TARGET = 16
 
 
-def frame_bytes(N: int, K: int, M: int) -> int:
+def frame_bytes(N: int, K: int, M: int, global_levels: int = 0) -> int:
     """Shared memory one frame's decode state takes, rounded to 16 bytes:
-    LLR rows and trace LLRs (float32), partial-sum rows and trace indices
-    (bytes)."""
+    the LLR rows (float32) and partial-sum rows (bytes) of levels
+    global_levels+1..n, and the trace indices (bytes)."""
 
-    raw = 4 * M * (N - 1) + 4 * K * M + M * (N - 1) + K * M
+    row = (N >> global_levels) - 1
+    raw = 4 * M * row + M * row + K * M
     return (raw + 15) // 16 * 16
-
-
-def frames_per_block(N: int, K: int, M: int) -> int:
-    return max(1, min(MAX_FRAMES_PER_BLOCK, MAX_BLOCK_SMEM // frame_bytes(N, K, M)))
 
 
 def check_shape(N: int, K: int, M: int, crc: Optional[str], dtype: torch.dtype) -> None:
@@ -56,31 +63,59 @@ def check_shape(N: int, K: int, M: int, crc: Optional[str], dtype: torch.dtype) 
         raise ValueError(f"the SCL kernel supports M in {SUPPORTED_M}, not {M}")
     if N < 2 or N & (N - 1) or not 0 < K <= N:
         raise ValueError(f"invalid code shape N={N} K={K}")
+    if N > MAX_N:
+        raise ValueError(f"the SCL kernel takes N up to {MAX_N}, not {N}")
     if crc is not None and crc_degree(crc) > 32:
         raise ValueError("the SCL kernel supports CRCs of degree <= 32")
-    if frame_bytes(N, K, M) > MAX_BLOCK_SMEM:
-        raise ValueError(
-            f"SCL decode state for N={N} K={K} M={M} needs {frame_bytes(N, K, M)} "
-            f"bytes of shared memory per frame, more than a block has ({MAX_BLOCK_SMEM})"
-        )
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
-    lib.scl_decode_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.scl_decode_launch.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.scl_decode_launch.restype = ctypes.c_int
+    lib.scl_launch_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.scl_launch_plan.restype = ctypes.c_int
     lib.scl_error_string.argtypes = [ctypes.c_int]
     lib.scl_error_string.restype = ctypes.c_char_p
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _occupancy(N: int, K: int, M: int, G: int) -> tuple:
+    """(frames a block, frames an SM holds at once) with levels 1..G in
+    global scratch, by the CUDA occupancy calculator (shared memory,
+    registers, warps): the frames a block that let an SM hold the most."""
+
+    lib = _library()
+    fpb, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.scl_launch_plan(M, frame_bytes(N, K, M, G), MAX_BLOCK_SMEM,
+                             ctypes.byref(fpb), ctypes.byref(per_sm))
+    if rc != 0:
+        raise RuntimeError(f"SCL occupancy query failed: {lib.scl_error_string(rc).decode()} ({rc})")
+    return fpb.value, per_sm.value
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(N: int, K: int, M: int) -> tuple:
+    """(global levels G, frames a block, frames an SM holds at once) on the
+    current card: the smallest G at which an SM holds
+    `FRAMES_PER_SM_TARGET` frames (level n, the leaf, always stays in
+    shared memory)."""
+
+    for g in range(int(math.log2(N))):
+        fpb, per_sm = _occupancy(N, K, M, g)
+        if per_sm >= FRAMES_PER_SM_TARGET:
+            break
+    return g, fpb, per_sm
+
+
 @functools.lru_cache(maxsize=64)
 def _device_tables(info_key: tuple, N: int, crc: Optional[str], device: torch.device):
-    """Schedule table int32 [5, N] and CRC check columns as 32-bit words [K]."""
+    """Schedule words int32 [N] and CRC check columns as 32-bit words [K]."""
 
     info_np = np.asarray(info_key, np.int64)
-    sched = torch.as_tensor(kernel_tables(N, info_np), device=device)
+    sched = torch.as_tensor(phase_words(N, info_np), device=device)
     K = len(info_key)
     words = np.zeros(K, np.uint32)
     if crc is not None:
@@ -124,7 +159,16 @@ def decode_scl_cuda(
         if (f.device != llr.device or f.dtype != torch.int8 or tuple(f.shape) != (B, K)
                 or not f.is_contiguous()):
             raise ValueError(f"force_info_bits must be a contiguous int8 [{B}, {K}] tensor on {llr.device}")
+    G, fpb, _ = launch_plan(N, K, M)
+    return _launch(llr, info_np, M, crc, force_info_bits, G, fpb)
 
+
+def _launch(llr, info_np, M, crc, force_info_bits, G, fpb) -> dict:
+    """Launch the kernel on checked inputs, with levels 1..G in global
+    scratch and fpb frames a block (`chip_smoke.py` times other G here)."""
+
+    B, N = int(llr.shape[0]), int(llr.shape[1])
+    K = int(info_np.size)
     dev = llr.device
     bits = torch.empty((B, K), dtype=torch.int8, device=dev)
     llrs = torch.empty((B, K), dtype=torch.float32, device=dev)
@@ -132,6 +176,10 @@ def decode_scl_cuda(
     if B == 0:
         return {"best_path_bits": bits, "best_path_info_llrs": llrs, "crc_pass": passed}
     sched, hcols = _device_tables(tuple(int(i) for i in info_np), N, crc, dev)
+    row = N - (N >> G)  # entries of a path's levels 1..G
+    glob_llr = torch.empty((B, M, row), dtype=torch.float32, device=dev) if G else None
+    glob_bits = torch.empty((B, M, row), dtype=torch.uint8, device=dev) if G else None
+    trace_llr = torch.empty((B, K, M), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -139,9 +187,11 @@ def decode_scl_cuda(
             llr.data_ptr(),
             force_info_bits.data_ptr() if force_info_bits is not None else None,
             hcols.data_ptr(), sched.data_ptr(),
+            glob_llr.data_ptr() if G else None, glob_bits.data_ptr() if G else None,
+            trace_llr.data_ptr(),
             bits.data_ptr(), llrs.data_ptr(), passed.data_ptr(),
-            B, N, int(math.log2(N)), K, M, int(crc is not None),
-            frame_bytes(N, K, M), frames_per_block(N, K, M), stream,
+            B, N, int(math.log2(N)), K, M, G, int(crc is not None),
+            frame_bytes(N, K, M, G), fpb, stream,
         )
     if rc != 0:
         raise RuntimeError(f"SCL kernel launch failed: {lib.scl_error_string(rc).decode()} ({rc})")
@@ -152,4 +202,4 @@ def decode_scl_cuda(
 decode_scl_cuda.launches = 0
 
 
-__all__ = ["decode_scl_cuda", "check_shape", "frame_bytes", "SUPPORTED_M"]
+__all__ = ["decode_scl_cuda", "check_shape", "frame_bytes", "launch_plan", "SUPPORTED_M"]

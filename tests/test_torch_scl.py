@@ -32,7 +32,7 @@ from polar_code_tpu_torch.ops.scl_cuda import (
     decode_scl_cuda,
     frame_bytes,
 )
-from polar_code_tpu_torch.ops.scl_schedule import kernel_tables, schedule_tables
+from polar_code_tpu_torch.ops.scl_schedule import kernel_tables, phase_words, schedule_tables
 from polar_code_tpu_torch.polar.construct import construct_info_set
 
 CRC = "0x1864CFB"
@@ -180,7 +180,7 @@ def test_wrapper_runs_plain_version_on_cpu():
         (128, 64, 16, CRC, torch.float32, False),  # M above 8
         (128, 64, 8, CRC, torch.float64, False),  # the kernel is float32
         (96, 48, 8, CRC, torch.float32, False),  # N not a power of two
-        (4096, 2048, 8, CRC, torch.float32, False),  # state above a block's smem
+        (4096, 2048, 8, CRC, torch.float32, False),  # N above the kernel's envelope
         (128, 64, 8, "0x1" + "0" * 9 + "1", torch.float32, False),  # CRC degree 36
     ],
 )
@@ -194,7 +194,9 @@ def test_kernel_shape_gate(N, K, M, crc, dtype, ok):
 
 def test_kernel_tables_pack_the_schedule():
     info = construct_info_set(128, 64)
-    upd, store, frozen, _, llr_live, bit_live, glevel = schedule_tables(128, info)
+    (upd, store, frozen, _, llr_live, bit_live, glevel, gpar_need,
+     comb_need) = schedule_tables(128, info)
+    # the PAC kernel's [5, N] table
     packed = kernel_tables(128, info)
     assert packed.shape == (5, 128) and packed.dtype == np.int32
     np.testing.assert_array_equal(packed[0], glevel)
@@ -205,7 +207,22 @@ def test_kernel_tables_pack_the_schedule():
         for lv in range(1, 8):
             assert bool(packed[3, p] >> lv & 1) == bool(llr_live[p, lv])
             assert bool(packed[4, p] >> lv & 1) == bool(bit_live[p, lv])
-    assert frame_bytes(128, 64, 8) == 7648  # 4·8·127 + 4·64·8 + 8·127 + 64·8, to 16 B
+    # the SCL kernel's phase words
+    words = phase_words(128, info)
+    assert words.shape == (128,) and words.dtype == np.int32
+    np.testing.assert_array_equal(words & 31, glevel)
+    np.testing.assert_array_equal(words >> 5 & 31, packed[1])
+    np.testing.assert_array_equal(words >> 10 & 1, frozen)
+    np.testing.assert_array_equal(words >> 11 & 1, gpar_need)
+    assert not comb_need[:, 0].any()  # level 0 is no level: bit 11 is gpar_need's alone
+    for lv in range(1, 8):
+        np.testing.assert_array_equal(words >> (11 + lv) & 1, comb_need[:, lv])
+    assert (words >> 19 == 0).all()  # nothing above level 7's bit
+    assert frame_bytes(128, 64, 8) == 5600  # 4·8·127 + 8·127 + 64·8, to 16 B
+    # levels 1..2 in global scratch: 4·8·31 + 8·31 + 64·8
+    assert frame_bytes(128, 64, 8, global_levels=2) == 1760
+    # N=2048 M=8 with levels 1..4 in global scratch: 5·8·127 + 1024·8, to 16 B
+    assert frame_bytes(2048, 1024, 8, 4) == 13280
 
 
 # ---- on the card (marker `gpu`; skipped without a CUDA device) ----

@@ -12,7 +12,9 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    (`csrc/pac_decode.cu`) — with the build seconds and the `-Xptxas -v`
    registers, shared memory and spills; K1's shared memory a frame, levels
    in global scratch and resident frames an SM for each shape it runs
-   (more than one at N=2048 M=8, or the phase fails);
+   (more than one at N=2048 M=8, or the phase fails); and K3's for the
+   shapes of phases 9 and 11 (at least 4 frames an SM at N=1024 L=32, or
+   the phase fails);
 3. K1 against its plain PyTorch version at P(128,64): M ∈ {1,2,4,8}, CRC-24A
    on and off, with and without a random forced plan, B=4096 LLRs at 3, 5
    and 7 dB, plus ragged B=1000 and B=1001 batches.  Bits and CRC pass must
@@ -69,7 +71,10 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    `extracted` and `crc_pass`; then against the plain version on the card,
    B=4096 at 2.5 dB, for PAC(128,64)+CRC-16 L=8 and the simulator's
    PAC(64,32) m=6 at L 1 and 32, and ragged B=1001 and B=1000 batches (L=16
-   and L=5).  No near-tie exemption: the PAC metric has no transcendentals;
+   and L=5); then K3d, the rest of the envelope up to its L=32 corner:
+   PAC(256,128) and PAC(512,256) with CRC-16 at L=32 and 8, PAC(512,256)
+   with the CRC off, PAC(1024,512)+CRC-16 at L=32 and a ragged B=333 at
+   L=24.  No near-tie exemption: the PAC metric has no transcendentals;
 10. the legacy path: the port's `simulator.run`, `crc_polar_vs_uncoded.
    simulate` and `crc_polar_ofdm_ls.simulate` at the golden file
    `tests/golden/legacy_pac_drivers.json`'s configurations and seeds, their
@@ -77,8 +82,11 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    host float64, within 1e-12 relative); K3's counter grows and the plain
    decoder runs 0 times on CUDA;
 11. K3 times with CUDA events: PAC(64,32), PAC(128,64) and PAC(256,128) with
-   CRC-16, gen 1011011, `dega`, 2.5 dB LLRs, L ∈ {1, 4, 8} and L=32 at N=64,
-   B=65536; the plain version at B=4096; the bounds; and the drivers' shapes;
+   CRC-16, gen 1011011, `dega`, 2.5 dB LLRs, L ∈ {1, 4, 8, 32}, B=65536; the
+   plain version at B=4096; the bounds; PAC(1024,512) L=32 B=4096 at each
+   number of tree levels in global scratch, 0 to 9; the same time with one
+   payload bit (17 info phases) at N=128 and 1024, L=32; and the drivers'
+   shapes;
 12. a `kernels` JSON line, the `nvidia-smi` line, and the device JSON line last.
 
 It exits non-zero, and prints no result line, when there is no CUDA device,
@@ -514,12 +522,15 @@ def main():
               f"{fb} B per frame x {fpb} frames = {fb * fpb} B per block; "
               f"{k1_resident[n_s, M]} resident frames an SM (occupancy calculator)")
     check(k1_resident[2048, 8] > 1, "K1 holds one frame an SM at N=2048 M=8")
-    for L in (1, 8, 16, 32):
-        for n_p, (_, k_p, crc_p) in PAC_CODES.items():
-            kp = k_p + (crc_p[0] if crc_p else 0)
-            fb, fpb = pac_cuda.frame_bytes(n_p, kp, L), pac_cuda.frames_per_block(n_p, kp, L)
-            print(f"  K3 dynamic smem N={n_p} Kp={kp} L={L}: {fb} B per frame x {fpb} frames "
-                  f"= {fb * fpb} B per block")
+    k3_resident = {}
+    for n_p, kp, L in ([(n_p, k_p + crc_p[0], L) for n_p, (_, k_p, crc_p) in PAC_CODES.items()
+                        for L in (1, 8, 16, 32)] + [(512, 272, 8), (512, 272, 32), (1024, 528, 32)]):
+        g, fpb, k3_resident[n_p, L] = pac_cuda.launch_plan(n_p, kp, L)
+        fb = pac_cuda.frame_bytes(n_p, kp, L, g)
+        print(f"  K3 N={n_p} Kp={kp} L={L}: levels 1..{g} in global scratch; dynamic smem "
+              f"{fb} B per frame x {fpb} frames = {fb * fpb} B per block; "
+              f"{k3_resident[n_p, L]} resident frames an SM (occupancy calculator)")
+    check(k3_resident[1024, 32] >= 4, "K3 holds fewer than 4 frames an SM at N=1024 L=32")
     nms_cuda._library()
     pac_cuda._library()
     phase_done("2 build")
@@ -968,11 +979,12 @@ def main():
     sim_code = (64, 32, None)
     plain_cases = [(PAC_CODES[128], 8, 4096), (sim_code, 1, 4096), (sim_code, 32, 4096),
                    ((128, 64, PAC_CRC), 16, 1001), (sim_code, 5, 1000)]
-    for code, L, B in plain_cases:
+
+    def compare_pac(code, L, B, gen, tag):
+        nonlocal pac_max_err
         n_p, k_p, crc_p = code
         crc_len, crc_poly = crc_p or (0, 0)
         mask = pac_mask(n_p, k_p + crc_len)
-        gen = PAC_GEN if L != 16 else [1]  # L=16 ragged: crc_polar_vs_uncoded's polar code
         x = pac_llrs(rng, B, 2.5, code, gen, mask, dev)
         out = pac_list_decode_cuda(x, mask, gen, L, crc_len, crc_poly)
         torch.cuda.synchronize()
@@ -981,11 +993,23 @@ def main():
         diff = (out["extracted"].to(torch.int32) - ref["extracted"].to(torch.int32)).abs()
         bad = (diff.amax(dim=1) > 0) | (out["crc_pass"] != ref["crc_pass"])
         pac_max_err = max(pac_max_err, int(diff.max()))
-        print(f"  K3 vs plain PAC({n_p},{k_p}) gen {''.join(map(str, gen))} L={L} CRC "
+        print(f"  {tag} vs plain PAC({n_p},{k_p}) gen {''.join(map(str, gen))} L={L} CRC "
               f"{'on' if crc_p else 'off'} 2.5 dB B={B}: {int(bad.sum())} frames differ; "
               f"crc pass {int(ref['crc_pass'].sum())}", flush=True)
-        check(not bool(bad.any()), f"K3 differs from the plain version (PAC({n_p},{k_p}) L={L} B={B})")
-    print(f"K3: {pac_cases} JAX cases and {len(plain_cases)} plain-version cases, every frame identical")
+        check(not bool(bad.any()), f"{tag} differs from the plain version (PAC({n_p},{k_p}) L={L} B={B})")
+
+    for code, L, B in plain_cases:
+        # L=16 ragged: crc_polar_vs_uncoded's polar code
+        compare_pac(code, L, B, PAC_GEN if L != 16 else [1], "K3")
+    # K3d: the rest of the envelope, levels in global scratch, up to its
+    # L=32 corner (N=1024); small batches keep the plain version quick
+    k3d_cases = [((256, 128, PAC_CRC), 32, 512, PAC_GEN), ((512, 256, PAC_CRC), 8, 512, PAC_GEN),
+                 ((512, 256, PAC_CRC), 32, 256, PAC_GEN), ((512, 256, None), 8, 512, PAC_GEN),
+                 ((1024, 512, PAC_CRC), 32, 128, PAC_GEN), ((1024, 512, PAC_CRC), 24, 333, [1])]
+    for code, L, B, gen in k3d_cases:
+        compare_pac(code, L, B, gen, "K3d")
+    print(f"K3: {pac_cases} JAX cases, {len(plain_cases)} plain-version cases and "
+          f"{len(k3d_cases)} K3d cases, every frame identical")
     phase_done("9 K3 vs JAX and plain")
 
     # ---- 10. the legacy path: the three legacy drivers on the card ----
@@ -1053,7 +1077,7 @@ def main():
         kp = code[1] + PAC_CRC[0]
         mask = pac_mask(n_p, kp)
         x = pac_llrs(rng, PAC_BATCH, 2.5, code, PAC_GEN, mask, dev)
-        for L in (1, 4, 8) + ((32,) if n_p == 64 else ()):
+        for L in (1, 4, 8, 32):
             ms = cuda_time_ms(lambda: pac_list_decode_cuda(x, mask, PAC_GEN, L, *PAC_CRC), reps=10)
             b_ms, b_by = bound(*pac_work(mask, L, PAC_BATCH))
             print(f"  K3 PAC({n_p},{code[1]}) L={L} B={PAC_BATCH}: {ms:.4f} ms "
@@ -1069,6 +1093,30 @@ def main():
                   f"{pms:.4f} ms (2 calls); bound {b_ms:.6f} ms ({b_by})", flush=True)
             if n_p == 128 and L == 8:
                 pac_ms, pac_plain_ms, pac_bound_ms, pac_bound_by = ms, pms, b_ms, b_by
+    # the envelope's L=32 corner, and what its time depends on: the levels
+    # in global scratch, G (`pac_cuda._launch`), and the info phases (the
+    # same code with one payload bit: the f/g passes and the chain are the
+    # same, the forks — the rank, σ, trace and syndrome — fall from 528 to 17)
+    corner = (1024, 512, PAC_CRC)
+    mask = pac_mask(1024, 528)
+    x = pac_llrs(rng, 4096, 2.5, corner, PAC_GEN, mask, dev)
+    g_plan = pac_cuda.launch_plan(1024, 528, 32)[0]
+    for g in range(10):
+        per_sm = pac_cuda._occupancy(1024, 528, 32, g)[1]
+        plan = pac_cuda._plan(mask.astype(np.int8).tobytes(), tuple(PAC_GEN), 32, *PAC_CRC,
+                              torch.float32, dev, global_levels=g)
+        ms = cuda_time_ms(lambda: pac_cuda._launch(x, plan), reps=3, warmup=1)
+        print(f"  K3 PAC(1024,512) L=32 B=4096, levels 1..{g} in global scratch: {ms:.4f} ms "
+              f"({per_sm} frames an SM){' (the launch plan)' if g == g_plan else ''}", flush=True)
+    ms = cuda_time_ms(lambda: pac_list_decode_cuda(x, mask, PAC_GEN, 32, *PAC_CRC), reps=5)
+    b_ms, b_by = bound(*pac_work(mask, 32, 4096))
+    print(f"  K3 PAC(1024,512) L=32 B=4096: {ms:.4f} ms (5 launches); bound {b_ms:.6f} ms ({b_by})")
+    for n_p, B in ((128, 4096), (1024, 4096)):
+        for kp in (n_p // 2 + 16, 17):
+            mask = pac_mask(n_p, kp)
+            x = pac_llrs(rng, B, 2.5, (n_p, kp - 16, PAC_CRC), PAC_GEN, mask, dev)
+            ms = cuda_time_ms(lambda: pac_list_decode_cuda(x, mask, PAC_GEN, 32, *PAC_CRC), reps=5)
+            print(f"  K3 N={n_p} Kp={kp} (info phases) L=32 B={B}: {ms:.4f} ms (5 launches)")
     # the drivers' own shapes: simulator stage 1 and 2, crc_polar_vs_uncoded
     sim_mask = pac_mask(64, 32)
     for L, B in ((1, 256), (32, 16)):

@@ -1,10 +1,10 @@
 // Fused PAC list decode for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `polar_code_tpu/legacy/pac_pallas.py` `_kernel_body`
-// (built by `_build`, called by `pac_list_decode_pallas`).  It computes what
-// `polar_code_tpu_torch/legacy/pac.py` `pac_list_decode_batch` computes and
-// returns its fast-path subset: the selected path's bits in ascending-u order
-// and the CRC pass flag.
+// Replaces the TPU kernel `polar_code_tpu/legacy/pac_pallas.py:59`
+// `_kernel_body` (built by `_build`, called by `pac_list_decode_pallas`).
+// It computes what `polar_code_tpu_torch/legacy/pac.py`
+// `pac_list_decode_batch` computes and returns its fast-path subset: the
+// selected path's bits in ascending-u order and the CRC pass flag.
 //
 // The code: leaves are visited in bit-reversed u-order, which is the halves
 // butterfly on the bit-reversal-permuted channel LLRs (level 1 reads
@@ -13,40 +13,102 @@
 // partial sums carry edge bits.  The path metric is a hard-decision one: a
 // path adds |LLR| when its edge bit disagrees with the leaf's hard decision.
 //
-// Design: one warp decodes one frame, lane m holds path slot m (L <= 32); a
-// block holds a few frames.  Per-frame state lives in dynamic shared memory:
-//   Lr  float [L][N-1]  LLR rows, one active node per tree level
-//   Bt  u8    [L][N-1]  edge-bit partial-sum rows
-//   TI  u8    [Kp][L]   2·parent + v of each survivor at each info phase
-// and each path's shift register is a 32-bit mask in its lane's register
-// (bit t = state[t], mem = len(gen) - 1 <= 31).  Lanes split each level's
-// L·(N>>l) f/g entries.  At an info phase the 2L candidates are laid out as
-// [good×L, bad×L]: lane p holds good candidate p (metric pm) and bad candidate
-// L + p (pm + |leaf|).  Each candidate's rank in (metric, layout index) order
-// is counted with shuffles — the stable sort of the plain version — and ranks
-// < L survive.  Survivors are cloned in place, one column at a time, only on
-// the levels the static schedule says are still live.  Path histories are
-// not cloned: the trace is walked back at the end.  CRC check columns are
-// 32-bit words in phase order, so a candidate's syndrome is the XOR of the
-// words of its set bits.
+// What bounds it on this card.  Not bytes (N floats in, Kp + 1 bytes out a
+// frame) and not the arithmetic peak, but the serial phase chain: N phases,
+// each a few dependent passes over shared memory separated by warp
+// barriers, and at info phases the rank of 2L candidates.  So the time is a
+// frame's latency, hidden by keeping many frames (warps) on each SM.
 //
-// What bounds it on this card: neither bytes (N floats in, Kp + 1 bytes out
-// per frame) nor arithmetic peak, but the serial phase chain — N phases, each
-// a few dependent shared-memory passes separated by warp barriers — so
-// latency per frame, hidden by running many frames (warps) per SM.
+// What held the first design back.  It cloned the survivors in place at
+// every info phase, column by column, on every level the static schedule
+// still read: at PAC(128,64)+CRC-16 L=8 that clone moved 86,480 entries a
+// frame against 7,168 f/g entries, and 18.1 M against 327,680 at N=1024
+// L=32.  Each lane walked its path's whole trace for its CRC syndrome, and
+// lane 0 walked the trace again and wrote the Kp output bytes alone.  And a
+// frame's state, 5·L·(N−1) + Kp·L bytes, held an SM to one frame at N=1024
+// L=32.
+//
+// The lazy clone (the TPU kernel's default, `pac_pallas.py:23-28`; the SCL
+// kernel's, `scl_decode.cu`).  Path m always writes its own physical row m.
+// Each tree level has a path-origin map σ: σ_l[m] is the row that holds
+// path m's data for level l.  A level write resets its σ to identity; at a
+// fork survivor m takes its parent's maps, σ ← σ[parent].  Only two reads
+// can cross a fork, and only they read through σ, where the static schedule
+// says a fork did happen since the level's last write
+// (`scl_schedule.schedule_tables`):
+//   * the g update's parent-LLR read at level gl−1 (`gpar_need[p]`);
+//   * the partial-sum chain's left-bit reads at levels n..s+1
+//     (`comb_need[p]`).
+// Every other read is of the path's own row: an f reads the level the same
+// phase just wrote, and the g's left-bit read was stored by the previous
+// phase's chain with no fork between.  No write lands on a row that a σ
+// still points at: every path writes the same levels in the same phase, so
+// when level l is written, all L rows of level l are rewritten together, its
+// σ becomes identity for every path, and the reads of that step are of other
+// levels (the g's level gl−1, the chain's levels above s).  No row is copied
+// at a fork.
+//
+// σ lives in registers, by path: lane m holds path m's origin row at every
+// level, one field of b = log2(LM) bits a level (LM the list size rounded
+// up to a power of two), 32/b fields a word: fields 0..n−2 for LLR levels
+// 1..n−1 (level n is read only at its own leaf), fields n−1..2n−3 for bit
+// levels 2..n (level 1's bits are read only by the g of phase N/2, its own
+// row).  A fork is one shuffle a word from lane parent[m] (up to four words
+// at L=32); a read through σ is one field extract in lane m and one shuffle
+// from lane m to the lanes that handle path m's entries.  The SCL kernel's
+// byte-per-path word of one level serves M ≤ 8; at L=32 a level's map is
+// 160 bits, and a fork would permute 32 fields in every word, where here it
+// moves whole words.  `legacy/pac_cuda.py::SIGMA_FIELDS` bounds n by the
+// fields the words hold.  A phase's resets — the LLR levels its descent
+// writes and the bit level the previous phase's chain stored — are applied
+// together at the phase's start, one bitwise select a word with masks the
+// host builds for (n, LM): no read through σ falls between those writes and
+// that point.  At L=1 there is no σ, and the rank needs no count: the good
+// candidate always ranks first.
+//
+// Each path carries its CRC syndrome (the XOR of the 32-bit check columns,
+// in phase order, of its set bits) and its shift register in registers,
+// both gathered with the metric at a fork, so the selection needs no walk.
+// The selected path's trace is walked back once by one lane into a slot of
+// each trace row, and all lanes then write the output bytes in ascending-u
+// order.
+//
+// Layout.  One warp decodes one frame, lane m holds path slot m (L <= 32);
+// a block holds a few frames.  Levels G+1..n of each path live in dynamic
+// shared memory, with the trace; levels 1..G (the widest, read at a handful
+// of phases) live in a global scratch the wrapper allocates.  The wrapper
+// picks G with the occupancy calculator (`ops/scl_cuda.py::
+// smallest_global_levels`).  Per frame in shared memory:
+//   Ls float [L][(N>>G)-1]  LLR rows, one active node per level G+1..n−1
+//                           (and an unused entry for level n)
+//   Bs u8    [L][(N>>G)-1]  edge-bit partial-sum rows, levels G+1..n
+//   TI u8    [Kp][L]        2·parent + v of each survivor at each info phase
+// and in global memory, per frame:
+//   Lg float [L][N-(N>>G)]  LLR rows, levels 1..G
+//   Bg u8    [L][N-(N>>G)]  partial-sum rows, levels 1..G
+// A phase's schedule is one word (`scl_schedule.phase_words`), loaded a
+// phase ahead.  Lanes split each level's L·(N>>l) f/g entries down to level
+// n−1; lane m computes path m's leaf from its level-n−1 row and keeps it in
+// a register, and takes the partial-sum chain's first step the same way.
+// At an info phase the 2L candidates are laid out as [good×L, bad×L]: lane p
+// holds good candidate p (metric pm) and bad candidate L + p (pm + |leaf|).
+// Each candidate's rank in (metric, layout index) order is counted with
+// shuffles — the stable sort of the plain version — and ranks < L survive.
 //
 // The arithmetic is the plain version's, op for op, and none of it is
 // transcendental, so results are equal bit for bit: f = sign(a)·sign(b)·
 // min(|a|,|b|) with sign(0) = 0, g = b + (1−2c)·a, hard = (leaf < 0), and
-// single float32 adds to the metric (built with -fmad=false).  Dead paths
-// carry 3e38 and stay there, so, as the plain version's inf, they tie with
-// each other and are ordered by layout index.
+// single float32 adds to the metric (built with -fmad=false, no fast math).
+// Dead paths carry 3e38 and stay there, so, as the plain version's inf, they
+// tie with each other and are ordered by layout index.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define PAC_BIG 3.0e38f
 #define FULL_MASK 0xffffffffu
+#define MAX_FRAMES_PER_BLOCK 4  // warps a block at most; `plan` picks how many
+#define MAX_LEVELS 16             // n at most: the phase words take N up to 65536
 
 namespace {
 
@@ -62,86 +124,262 @@ __device__ __forceinline__ float g_update(float a, float b, uint8_t c) {
   return b + (1.f - 2.f * (float)c) * a;
 }
 
-// offset of level l (1..n) inside a path's compact row: N - (N >> (l-1))
-__device__ __forceinline__ int level_off(int N, int l) { return N - (N >> (l - 1)); }
-
-// LM: the list size rounded up to a power of two; it sizes the register
-// arrays of the in-place clone, and L <= LM is the list size itself.
+// The σ maps of the lane's path: field f of the packed words is the
+// physical row that holds the path's data for σ level f.
 template <int LM>
-__global__ void pac_decode_kernel(
+struct Sigma {
+  static constexpr int kBits = LM <= 2 ? 1 : LM == 4 ? 2 : LM == 8 ? 3 : LM == 16 ? 4 : 5;
+  static constexpr int kFields = 32 / kBits;  // fields a word
+  static constexpr int kWords = LM <= 2 ? 1 : LM == 4 ? 2 : LM <= 16 ? 3 : 4;
+  unsigned w[kWords];
+
+  // every field holding path m itself: the identity map
+  static __device__ __forceinline__ unsigned identity(int m) {
+    unsigned rep = 0;
+#pragma unroll
+    for (int j = 0; j < kFields; ++j) rep |= 1u << (kBits * j);
+    return (unsigned)(m & (LM - 1)) * rep;
+  }
+  __device__ __forceinline__ void init(unsigned id) {
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) w[k] = id;
+  }
+  __device__ __forceinline__ int get(int f) const {
+    const int k = f / kFields;
+    unsigned x = w[0];
+#pragma unroll
+    for (int j = 1; j < kWords; ++j)
+      if (k == j) x = w[j];
+    return (int)((x >> (kBits * (f - k * kFields))) & (LM - 1));
+  }
+  // the fields set in mask[k] back to the identity `id`
+  __device__ __forceinline__ void reset(const unsigned* mask, unsigned id) {
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) w[k] = (w[k] & ~mask[k]) | (id & mask[k]);
+  }
+  // σ ← σ[parent]: the lane takes its parent's maps
+  __device__ __forceinline__ void fork(int parent) {
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) w[k] = __shfl_sync(FULL_MASK, w[k], parent);
+  }
+};
+
+// The σ fields a level write resets, per word, built on the host for one
+// (n, LM) and passed by value, so that a phase indexes them with its
+// warp-uniform levels (constant-bank loads): llr[l] the fields of LLR levels
+// l..n−1, bit[l] the field of bit level l.
+struct ResetMasks {
+  unsigned llr[MAX_LEVELS + 1][4];
+  unsigned bit[MAX_LEVELS + 1][4];
+};
+
+template <int LM>
+ResetMasks reset_masks(int n) {
+  using S = Sigma<LM>;
+  ResetMasks r = {};
+  auto set = [&](unsigned* words, int f) {
+    words[f / S::kFields] |= ((1u << S::kBits) - 1u) << (S::kBits * (f % S::kFields));
+  };
+  for (int l = 1; l <= n; ++l) {
+    for (int lv = l; lv < n; ++lv) set(r.llr[l], lv - 1);
+    if (l >= 2) set(r.bit[l], n + l - 3);
+  }
+  return r;
+}
+
+// One f or g pass over a level of width half = 1 << lh, paths 0..L−1:
+// dst[m][e] = f or g of the parent level's src[r][e] and src[r][e + half],
+// r = σ(m) when `via` (`own` is then this lane's σ field of the parent
+// level, and path m's comes from lane m) and m otherwise; a g takes dst's
+// own partial sums as its left bits.  A pointer is a level's first entry
+// and a path's row is `stride` entries long.  Each call site passes
+// pointers that are all shared or all global, so that the inlined
+// shared-memory accesses compile to LDS/STS.  Every lane runs every
+// iteration (the shuffle needs the whole warp); lanes past the entries
+// store nothing.
+__device__ __forceinline__ void fg_pass(float* dst, const uint8_t* dbits, int dstride,
+                                        const float* src, int sstride, bool via, int own,
+                                        bool is_g, int lh, int L, int lane) {
+  const int half = 1 << lh;
+  const int total = L * half;
+  for (int t0 = 0; t0 < total; t0 += 32) {
+    const int t = t0 + lane;
+    const int m = (t < total ? t : total - 1) >> lh;
+    int r = m;
+    if (via) r = __shfl_sync(FULL_MASK, own, m);
+    if (t < total) {
+      const int e = t & (half - 1);
+      const float* row = src + r * sstride;
+      const float a = row[e], b = row[e + half];
+      const int o = m * dstride + e;
+      dst[o] = is_g ? g_update(a, b, dbits[o]) : f_minsum(a, b);
+    }
+  }
+}
+
+// Level 1 from the channel: the halves butterfly on the bit-reversal-
+// permuted LLRs, read as ch[brev(j)] (`rev_shift` = 32 − n).
+__device__ __forceinline__ void channel_pass(float* dst, const uint8_t* dbits, int dstride,
+                                             const float* ch, int rev_shift, bool is_g, int lh,
+                                             int L, int lane) {
+  const int half = 1 << lh;
+  const int total = L * half;
+  for (int t = lane; t < total; t += 32) {
+    const int m = t >> lh;
+    const int e = t & (half - 1);
+    const float a = ch[__brev(e) >> rev_shift], b = ch[__brev(e + half) >> rev_shift];
+    const int o = m * dstride + e;
+    dst[o] = is_g ? g_update(a, b, dbits[o]) : f_minsum(a, b);
+  }
+}
+
+// One step of the partial-sum chain, paths 0..L−1: the chain so far, sz =
+// 1 << lsz bits at the start of the store level's row st[m], becomes
+// [left[r] ^ cur, cur] in place, r as in fg_pass.
+__device__ __forceinline__ void chain_pass(uint8_t* st, int ststride, const uint8_t* left,
+                                           int lstride, bool via, int own, int lsz, int L,
+                                           int lane) {
+  const int sz = 1 << lsz;
+  const int total = L * sz;
+  for (int t0 = 0; t0 < total; t0 += 32) {
+    const int t = t0 + lane;
+    const int m = (t < total ? t : total - 1) >> lsz;
+    int r = m;
+    if (via) r = __shfl_sync(FULL_MASK, own, m);
+    if (t < total) {
+      const int e = t & (sz - 1);
+      const uint8_t x = left[r * lstride + e];
+      uint8_t* cur = st + m * ststride + e;
+      const uint8_t c = cur[0];
+      cur[sz] = c;
+      cur[0] = x ^ c;
+    }
+  }
+}
+
+// LM: the list size rounded up to a power of two; it sizes σ, and L <= LM
+// is the list size itself.
+template <int LM>
+__global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) pac_decode_kernel(
     const float* __restrict__ llr,        // [B, N] channel LLRs, natural order
     const uint32_t* __restrict__ hcols,   // [Kp] CRC check-matrix columns, phase order
-    const int* __restrict__ sched,        // [5, N] (see scl_schedule.kernel_tables)
-    const int* __restrict__ out_pos,      // [Kp] ascending-u position of each info phase
+    const int* __restrict__ sched,        // [N] phase words (scl_schedule.phase_words)
+    const int* __restrict__ phase_of,     // [Kp] info phase of each ascending-u output bit
+    float* glob_llr,                      // [B, L, N-(N>>G)], null when G == 0
+    uint8_t* glob_bits,                   // [B, L, N-(N>>G)], null when G == 0
     int8_t* __restrict__ out_bits,        // [B, Kp]
     uint8_t* __restrict__ out_pass,       // [B]
-    int B, int N, int n, int Kp, int L, unsigned mem_mask, unsigned tap_mask,
-    int use_crc, int frame_bytes, int frames_per_block) {
+    int B, int N, int n, int Kp, int L, int G, unsigned mem_mask, unsigned tap_mask,
+    int use_crc, int frame_bytes, int frames_per_block, const ResetMasks masks) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long frame = (long long)blockIdx.x * frames_per_block + warp;
   if (frame >= B) return;  // whole warp leaves; the kernel has no block barrier
 
-  const int S = N - 1;
+  const int SS = (N >> G) - 1;  // entries of a path's row in shared memory
+  const int SG = N - (N >> G);  // entries of a path's row in global memory
   unsigned char* base = smem + (size_t)warp * frame_bytes;
-  float* Lr = reinterpret_cast<float*>(base);
-  uint8_t* Bt = reinterpret_cast<uint8_t*>(Lr + L * S);
-  uint8_t* TI = Bt + L * S;
-
-  const int* glevel = sched;
-  const int* store_level = sched + N;
-  const int* frozen = sched + 2 * N;
-  const int* llr_live = sched + 3 * N;
-  const int* bit_live = sched + 4 * N;
+  float* Ls = reinterpret_cast<float*>(base);
+  uint8_t* Bs = reinterpret_cast<uint8_t*>(Ls + L * SS);
+  uint8_t* TI = Bs + L * SS;
+  float* Lg = glob_llr + frame * L * SG;  // unused when G == 0
+  uint8_t* Bg = glob_bits + frame * L * SG;
   const float* ch = llr + frame * N;
   const int rev_shift = 32 - n;  // __brev(j) >> rev_shift reverses j's n bits
+  // offset of level l (1..n) in a path's row: levels G+1..n in shared
+  // memory, levels 1..G in global memory
+  auto so = [&](int l) { return (N >> G) - (N >> (l - 1)); };
+  auto go = [&](int l) { return N - (N >> (l - 1)); };
 
-  for (int t = lane; t < L * S; t += 32) {
-    Lr[t] = 0.f;
-    Bt[t] = 0;
-  }
-  __syncwarp();
-
+  const unsigned sig_id = Sigma<LM>::identity(lane);
+  Sigma<LM> sig;  // lane m < L: σ of path m; field l−1: LLR level l, n+l−3: bit level l
+  sig.init(sig_id);
   float pm = (lane == 0) ? 0.f : PAC_BIG;  // lane m < L: metric of slot m
   unsigned reg = 0;                         // lane m < L: shift register of slot m
+  uint32_t syn = 0;                         // lane m < L: CRC syndrome of slot m
   int info_i = 0;
+  int word = sched[0];
+  int s_prev = 0;  // the previous phase's store level
   for (int p = 0; p < N; ++p) {
-    // ---- f/g updates down to the leaf ----
-    const int gl = glevel[p];
-    for (int l = (p == 0 ? 1 : gl); l <= n; ++l) {
-      const int lh = n - l;  // log2 of the level's width
-      const int half = 1 << lh;
+    // the phase's schedule word, and the check column its fork reads, are
+    // loaded a phase (a descent) ahead of their use
+    const int next_word = p + 1 < N ? sched[p + 1] : 0;
+    const int gl = word & 31;
+    const int is_frozen = word >> 10 & 1;
+    const uint32_t hc = (!is_frozen && use_crc) ? hcols[info_i] : 0u;
+    const int l0 = p == 0 ? 1 : gl;
+    if (LM > 1) {
+      // σ back to identity on the levels rewritten since the last fork: the
+      // bit level the previous phase's chain stored, and the LLR levels
+      // l0..n−1 this phase's descent writes.  Nothing reads their σ between
+      // the write and this reset: the descent reads level l0−1 through σ,
+      // the leaf level n−1 only at a g leaf (l0 = n), and the chain's reads
+      // come after this phase's fork.
+      unsigned r[Sigma<LM>::kWords];
+#pragma unroll
+      for (int k = 0; k < Sigma<LM>::kWords; ++k) r[k] = masks.llr[l0][k] | masks.bit[s_prev][k];
+      sig.reset(r, sig_id);
+    }
+
+    // ---- f/g updates down to level n−1 ----
+    for (int l = l0; l < n; ++l) {
       const bool is_g = (p != 0) && (l == gl);
-      const int o = level_off(N, l);
-      const int po = l > 1 ? level_off(N, l - 1) : 0;
-      for (int t = lane; t < L * half; t += 32) {
-        const int m = t >> lh;
-        const int e = t & (half - 1);
-        float a, b;
-        if (l == 1) {
-          a = ch[__brev(e) >> rev_shift];
-          b = ch[__brev(e + half) >> rev_shift];
-        } else {
-          a = Lr[m * S + po + e];
-          b = Lr[m * S + po + e + half];
-        }
-        Lr[m * S + o + e] = is_g ? g_update(a, b, Bt[m * S + o + e]) : f_minsum(a, b);
+      const bool via = LM > 1 && is_g && l > 1 && (word >> 11 & 1);
+      const int own = via ? sig.get(l - 2) : 0;
+      if (l == 1) {
+        if (G == 0)
+          channel_pass(Ls + so(1), Bs + so(1), SS, ch, rev_shift, is_g, n - 1, L, lane);
+        else
+          channel_pass(Lg + go(1), Bg + go(1), SG, ch, rev_shift, is_g, n - 1, L, lane);
+      } else if (l > G + 1) {
+        fg_pass(Ls + so(l), Bs + so(l), SS, Ls + so(l - 1), SS, via, own, is_g, n - l, L, lane);
+      } else {  // the few passes that touch global memory: generic pointers
+        const bool sh = l > G;
+        fg_pass(sh ? Ls + so(l) : Lg + go(l), sh ? Bs + so(l) : Bg + go(l), sh ? SS : SG,
+                Lg + go(l - 1), SG, via, own, is_g, n - l, L, lane);
       }
       __syncwarp();
     }
-    const float leaf = (lane < L) ? Lr[lane * S + N - 2] : 0.f;
+    // the leaf (level n): lane m computes it from its parent row, level
+    // n−1, and keeps it in a register; only its own phase reads it
+    const bool g_leaf = gl == n;  // a g at the leaf (odd phases)
+    float leaf = 0.f;
+    if (lane < L) {
+      float a, b;
+      if (n == 1) {
+        a = ch[0];
+        b = ch[1];
+      } else {
+        const int r = (LM > 1 && g_leaf && (word >> 11 & 1)) ? sig.get(n - 2) : lane;
+        const float* row = n - 1 > G ? Ls + so(n - 1) + r * SS : Lg + go(n - 1) + r * SG;
+        a = row[0];
+        b = row[1];
+      }
+      leaf = g_leaf ? g_update(a, b, Bs[lane * SS + so(n)]) : f_minsum(a, b);
+    }
     const int hard = leaf < 0.f;
     const int base_bit = __popc(reg & tap_mask) & 1;  // edge bit for v = 0
 
     // ---- leaf decision: extend every path, or fork and keep the best L ----
     int edge = 0;  // lane m < L: the edge bit the partial sums of slot m take
-    if (frozen[p]) {
+    if (is_frozen) {
       if (lane < L) {
         if (pm < PAC_BIG && base_bit != hard) pm = pm + fabsf(leaf);
         reg = (reg << 1) & mem_mask;
         edge = base_bit;
       }
+    } else if (LM == 1) {
+      // one path: its good candidate (index 0, metric pm) ranks before its
+      // bad one (pm + |leaf|), so the rank needs no count
+      if (lane == 0) {
+        const int v = base_bit ^ hard;
+        edge = hard;
+        reg = ((reg << 1) | (unsigned)v) & mem_mask;
+        syn = v ? syn ^ hc : syn;
+        TI[info_i] = (uint8_t)v;
+      }
+      ++info_i;
     } else {
       const float cg = pm;                                            // index lane
       const float cb = (pm < PAC_BIG) ? pm + fabsf(leaf) : PAC_BIG;   // index L + lane
@@ -166,75 +404,51 @@ __global__ void pac_decode_kernel(
       const int hp = __shfl_sync(FULL_MASK, hard, parent);
       const int bp = __shfl_sync(FULL_MASK, base_bit, parent);
       const unsigned rp = __shfl_sync(FULL_MASK, reg, parent);
+      const uint32_t sp = __shfl_sync(FULL_MASK, syn, parent);
       if (lane < L) {
         const int v = bp ^ hp ^ is_bad;  // good: edge == hard; bad: the other bit
         pm = is_bad ? pb : pg;
         edge = hp ^ is_bad;
         reg = ((rp << 1) | (unsigned)v) & mem_mask;
+        syn = v ? sp ^ hc : sp;
         TI[info_i * L + lane] = (uint8_t)((parent << 1) | v);
       }
-
-      // clone survivors in place on the live levels: each lane owns whole
-      // columns, reading all L sources before writing any slot
-      if (L > 1) {
-        int par[LM];
-#pragma unroll
-        for (int m = 0; m < LM; ++m) par[m] = __shfl_sync(FULL_MASK, parent, m);
-        const int lmask = llr_live[p];
-        const int bmask = bit_live[p];
-        for (int l = 1; l <= n; ++l) {
-          const int half = N >> l;
-          const int o = level_off(N, l);
-          if (lmask & (1 << l)) {
-            for (int e = lane; e < half; e += 32) {
-              float v[LM];
-#pragma unroll
-              for (int m = 0; m < LM; ++m)
-                if (m < L) v[m] = Lr[par[m] * S + o + e];
-#pragma unroll
-              for (int m = 0; m < LM; ++m)
-                if (m < L) Lr[m * S + o + e] = v[m];
-            }
-          }
-          if (bmask & (1 << l)) {
-            for (int e = lane; e < half; e += 32) {
-              uint8_t v[LM];
-#pragma unroll
-              for (int m = 0; m < LM; ++m)
-                if (m < L) v[m] = Bt[par[m] * S + o + e];
-#pragma unroll
-              for (int m = 0; m < LM; ++m)
-                if (m < L) Bt[m * S + o + e] = v[m];
-            }
-          }
-        }
-      }
+      if (LM > 1) sig.fork(parent);  // σ ← σ[parent] on every level
       ++info_i;
-      __syncwarp();
     }
 
     // ---- partial-sum chain: cur = [left ^ cur, cur] up to the store level,
     // built in place inside the store level's row ----
-    const int s = store_level[p];
+    const int s = word >> 5 & 31;
     if (s > 0) {
-      const int ot = level_off(N, s);
-      if (lane < L) Bt[lane * S + ot] = (uint8_t)edge;
-      __syncwarp();
-      int sz = 1;
-      for (int lv = n; lv > s; --lv) {
-        const int ol = level_off(N, lv);
-        const int lsz = __ffs(sz) - 1;
-        for (int t = lane; t < L * sz; t += 32) {
-          const int m = t >> lsz;
-          const int e = t & (sz - 1);
-          const uint8_t c = Bt[m * S + ot + e];
-          Bt[m * S + ot + e + sz] = c;
-          Bt[m * S + ot + e] = Bt[m * S + ol + e] ^ c;
+      // lane m takes the first step: at an even phase (s = n) the chain is
+      // the edge bit; at an odd one [left ^ edge, edge], left the level-n bit
+      const int cmask = word >> 11;  // bit l: level l's left bits through σ
+      if (lane < L) {
+        uint8_t* cur = s > G ? Bs + lane * SS + so(s) : Bg + lane * SG + go(s);
+        if (s == n) {
+          cur[0] = (uint8_t)edge;
+        } else {
+          const int r = (LM > 1 && (cmask >> n & 1)) ? sig.get(2 * n - 3) : lane;
+          const uint8_t left = Bs[r * SS + so(n)];
+          cur[1] = (uint8_t)edge;
+          cur[0] = (uint8_t)(left ^ edge);
         }
+      }
+      __syncwarp();
+      for (int lv = n - 1; lv > s; --lv) {
+        const bool via = LM > 1 && (cmask >> lv & 1);
+        const int own = via ? sig.get(n + lv - 3) : 0;
+        if (s > G)
+          chain_pass(Bs + so(s), SS, Bs + so(lv), SS, via, own, n - lv, L, lane);
+        else
+          chain_pass(Bg + go(s), SG, lv > G ? Bs + so(lv) : Bg + go(lv), lv > G ? SS : SG, via,
+                     own, n - lv, L, lane);
         __syncwarp();
-        sz <<= 1;
       }
     }
+    s_prev = s;
+    word = next_word;
   }
 
   // ---- final stable sort of the list, CRC selection, backtrack ----
@@ -243,66 +457,93 @@ __global__ void pac_decode_kernel(
     const float pj = __shfl_sync(FULL_MASK, pm, j);
     frank += (pj < pm) || (pj == pm && j < lane);
   }
-  bool ok = false;
-  if (use_crc && lane < L) {
-    uint32_t syn = 0;
-    int slot = lane;
-    for (int i = Kp - 1; i >= 0; --i) {
-      const int w = TI[i * L + slot];
-      if (w & 1) syn ^= hcols[i];
-      slot = w >> 1;
-    }
-    ok = (syn == 0u) && (pm < PAC_BIG);
-  }
+  const bool ok = use_crc && lane < L && syn == 0u && pm < PAC_BIG;
   const unsigned ok_ranks = __reduce_or_sync(FULL_MASK, ok ? (1u << frank) : 0u);
   const int sel_rank = ok_ranks ? __ffs(ok_ranks) - 1 : 0;
   const unsigned who = __ballot_sync(FULL_MASK, lane < L && frank == sel_rank);
+  __syncwarp();  // the last info phase's trace row is visible to lane 0
   if (lane == 0) {
+    // record the selected path's bit v in slot 0 of each trace row; row i
+    // is read before it is overwritten, and later steps read rows below i
     int slot = __ffs(who) - 1;
     for (int i = Kp - 1; i >= 0; --i) {
       const int w = TI[i * L + slot];
-      out_bits[frame * Kp + out_pos[i]] = (int8_t)(w & 1);
+      TI[i * L] = (uint8_t)(w & 1);
       slot = w >> 1;
     }
     out_pass[frame] = ok_ranks ? 1 : 0;
   }
+  __syncwarp();
+  for (int j = lane; j < Kp; j += 32) out_bits[frame * Kp + j] = (int8_t)TI[phase_of[j] * L];
 }
 
 template <int LM>
-int launch(const float* llr, const uint32_t* hcols, const int* sched, const int* out_pos,
-           int8_t* out_bits, uint8_t* out_pass, int B, int N, int n, int Kp, int L,
-           unsigned mem_mask, unsigned tap_mask, int use_crc, int frame_bytes,
-           int frames_per_block, cudaStream_t stream) {
+cudaError_t set_smem(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(pac_decode_kernel<LM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <int LM>
+int launch(const float* llr, const uint32_t* hcols, const int* sched, const int* phase_of,
+           float* glob_llr, uint8_t* glob_bits, int8_t* out_bits, uint8_t* out_pass, int B,
+           int N, int n, int Kp, int L, int G, unsigned mem_mask, unsigned tap_mask, int use_crc,
+           int frame_bytes, int frames_per_block, cudaStream_t stream) {
+  if (n > MAX_LEVELS || (LM > 1 && 2 * n - 2 > Sigma<LM>::kWords * Sigma<LM>::kFields))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)frame_bytes * frames_per_block;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        pac_decode_kernel<LM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = set_smem<LM>(smem);
+  if (err != cudaSuccess) return (int)err;
   const int blocks = (B + frames_per_block - 1) / frames_per_block;
   pac_decode_kernel<LM><<<blocks, 32 * frames_per_block, smem, stream>>>(
-      llr, hcols, sched, out_pos, out_bits, out_pass, B, N, n, Kp, L, mem_mask, tap_mask,
-      use_crc, frame_bytes, frames_per_block);
+      llr, hcols, sched, phase_of, glob_llr, glob_bits, out_bits, out_pass, B, N, n, Kp, L, G,
+      mem_mask, tap_mask, use_crc, frame_bytes, frames_per_block, reset_masks<LM>(n));
   return (int)cudaGetLastError();
+}
+
+// The frames a block (1..MAX_FRAMES_PER_BLOCK) that let an SM hold the most
+// frames at once, by the occupancy calculator (shared memory, registers and
+// warps all counted); ties go to more frames a block.
+template <int LM>
+int plan(int frame_bytes, int max_block_smem, int* frames_per_block, int* frames_per_sm) {
+  *frames_per_block = 1;
+  *frames_per_sm = 0;
+  for (int fpb = 1; fpb <= MAX_FRAMES_PER_BLOCK; ++fpb) {
+    const size_t smem = (size_t)frame_bytes * fpb;
+    if (smem > (size_t)max_block_smem) break;
+    cudaError_t err = set_smem<LM>(smem);
+    if (err != cudaSuccess) return (int)err;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pac_decode_kernel<LM>, 32 * fpb,
+                                                        smem);
+    if (err != cudaSuccess) return (int)err;
+    if (blocks * fpb >= *frames_per_sm) {
+      *frames_per_block = fpb;
+      *frames_per_sm = blocks * fpb;
+    }
+  }
+  return 0;
 }
 
 }  // namespace
 
 extern "C" int pac_decode_launch(const void* llr, const void* hcols, const void* sched,
-                                 const void* out_pos, void* out_bits, void* out_pass, int B,
-                                 int N, int n, int Kp, int L, unsigned mem_mask,
-                                 unsigned tap_mask, int use_crc, int frame_bytes,
-                                 int frames_per_block, void* stream) {
+                                 const void* phase_of, void* glob_llr, void* glob_bits,
+                                 void* out_bits, void* out_pass, int B, int N, int n, int Kp,
+                                 int L, int G, unsigned mem_mask, unsigned tap_mask, int use_crc,
+                                 int frame_bytes, int frames_per_block, void* stream) {
   auto* l = static_cast<const float*>(llr);
   auto* h = static_cast<const uint32_t*>(hcols);
   auto* s = static_cast<const int*>(sched);
-  auto* op = static_cast<const int*>(out_pos);
+  auto* ph = static_cast<const int*>(phase_of);
+  auto* gl = static_cast<float*>(glob_llr);
+  auto* gb = static_cast<uint8_t*>(glob_bits);
   auto* ob = static_cast<int8_t*>(out_bits);
   auto* pass = static_cast<uint8_t*>(out_pass);
   auto st = static_cast<cudaStream_t>(stream);
-#define PAC_LAUNCH(LM)                                                                   \
-  return launch<LM>(l, h, s, op, ob, pass, B, N, n, Kp, L, mem_mask, tap_mask, use_crc, \
-                    frame_bytes, frames_per_block, st)
+#define PAC_LAUNCH(LM)                                                                    \
+  return launch<LM>(l, h, s, ph, gl, gb, ob, pass, B, N, n, Kp, L, G, mem_mask, tap_mask, \
+                    use_crc, frame_bytes, frames_per_block, st)
   if (L < 1 || L > 32) return (int)cudaErrorInvalidValue;
   if (L == 1) PAC_LAUNCH(1);
   if (L <= 2) PAC_LAUNCH(2);
@@ -311,6 +552,17 @@ extern "C" int pac_decode_launch(const void* llr, const void* hcols, const void*
   if (L <= 16) PAC_LAUNCH(16);
   PAC_LAUNCH(32);
 #undef PAC_LAUNCH
+}
+
+extern "C" int pac_launch_plan(int L, int frame_bytes, int max_block_smem, int* frames_per_block,
+                               int* frames_per_sm) {
+  if (L < 1 || L > 32) return (int)cudaErrorInvalidValue;
+  if (L == 1) return plan<1>(frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+  if (L <= 2) return plan<2>(frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+  if (L <= 4) return plan<4>(frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+  if (L <= 8) return plan<8>(frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+  if (L <= 16) return plan<16>(frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+  return plan<32>(frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
 }
 
 extern "C" const char* pac_error_string(int code) {

@@ -9,9 +9,28 @@ ascending-u order (the first path that passes the CRC, else the best one),
 On a CUDA tensor it launches the kernel, or raises for a shape the kernel
 does not take; it runs the plain version (`legacy/pac.py`) only for a tensor
 on the CPU.  The kernel takes every list size from 1 to 32 (one path a lane
-of a warp) and any batch size: the last block is masked, since the adaptive
-second stage re-decodes a ragged set of failed frames.
-`pac_list_decode_cuda.launches` counts kernel launches.
+of a warp; the TPU kernel took power-of-two L <= 8) and any batch size: the
+last block is masked, since the adaptive second stage re-decodes a ragged
+set of failed frames.  `pac_list_decode_cuda.launches` counts kernel
+launches.
+
+The kernel's design (its source note has the whole of it): the TPU
+kernel's lazy clone — path m writes row m, per-level path-origin maps σ
+compose at forks and reset at level writes, and only the reads the phase
+words flag (`ops/scl_schedule.py::phase_words`) go through σ — so no row is
+copied at a fork.  σ is a few registers a lane, `SIGMA_FIELDS` levels at
+most.  Each path carries its CRC syndrome and shift register in registers.
+What bounds it is a frame's serial chain of phases, hidden by keeping many
+frames on an SM: a frame keeps tree levels G+1..n and its trace in shared
+memory, and levels 1..G go to a global scratch allocated here for each
+call, G by the occupancy calculator (`launch_plan`, the SCL kernel's
+policy `ops/scl_cuda.py::smallest_global_levels`).
+
+The envelope is the first design's: a frame's whole decode state,
+`frame_bytes(N, Kp, L)` with every level in shared memory, within one
+block's shared memory (N up to 1024 at L=32).  The kernel no longer keeps
+that state in shared memory; the bound stays, so that it takes no shape
+past the envelope's L=32 corner, which `chip_smoke.py` phase 9 checks.
 """
 
 from __future__ import annotations
@@ -25,26 +44,27 @@ import torch
 
 from .. import _build
 from ..ops.crc import check_matrix
-from ..ops.scl_schedule import kernel_tables
+from ..ops.scl_cuda import MAX_BLOCK_SMEM, smallest_global_levels
+from ..ops.scl_schedule import phase_words
 from .pac import bitrev_perm, pac_list_decode_batch
 
 SOURCE = "pac_decode.cu"
 MAX_L = 32  # one path a lane
 MAX_MEM = 31  # the shift register is a 32-bit mask
-MAX_BLOCK_SMEM = 227 * 1024  # dynamic shared memory one block may use on an H100
-MAX_FRAMES_PER_BLOCK = 4  # warps (frames) per block
+# σ levels (2n − 2 of them) a lane's registers hold, by the list size rounded
+# up to a power of two: 32 / log2(LM) fields a word, 1-4 words
+# (`Sigma` in `csrc/pac_decode.cu`); L=1 has no σ
+SIGMA_FIELDS = {2: 32, 4: 32, 8: 30, 16: 24, 32: 24}
 
 
-def frame_bytes(N: int, Kp: int, L: int) -> int:
+def frame_bytes(N: int, Kp: int, L: int, global_levels: int = 0) -> int:
     """Shared memory one frame's decode state takes, rounded to 16 bytes:
-    LLR rows (float32), edge-bit rows and the trace (bytes)."""
+    the LLR rows (float32) and edge-bit rows (bytes) of levels
+    global_levels+1..n, and the trace (bytes)."""
 
-    raw = 4 * L * (N - 1) + L * (N - 1) + Kp * L
+    row = (N >> global_levels) - 1
+    raw = 4 * L * row + L * row + Kp * L
     return (raw + 15) // 16 * 16
-
-
-def frames_per_block(N: int, Kp: int, L: int) -> int:
-    return max(1, min(MAX_FRAMES_PER_BLOCK, MAX_BLOCK_SMEM // frame_bytes(N, Kp, L)))
 
 
 def check_shape(N: int, Kp: int, L: int, gen, crc_len: int, dtype: torch.dtype) -> None:
@@ -65,28 +85,55 @@ def check_shape(N: int, Kp: int, L: int, gen, crc_len: int, dtype: torch.dtype) 
         raise ValueError(f"the PAC kernel supports CRCs of degree <= 32 inside Kp, not {crc_len}")
     if frame_bytes(N, Kp, L) > MAX_BLOCK_SMEM:
         raise ValueError(
-            f"PAC decode state for N={N} Kp={Kp} L={L} needs {frame_bytes(N, Kp, L)} bytes "
-            f"of shared memory per frame, more than a block has ({MAX_BLOCK_SMEM})"
+            f"PAC decode state for N={N} Kp={Kp} L={L} is {frame_bytes(N, Kp, L)} bytes a frame, "
+            f"outside the kernel's envelope ({MAX_BLOCK_SMEM})"
         )
+    n = int(math.log2(N))
+    if L > 1 and 2 * n - 2 > SIGMA_FIELDS[1 << (L - 1).bit_length()]:
+        raise ValueError(f"the PAC kernel's σ registers do not hold N={N} at L={L}")
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     lib.pac_decode_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_uint] * 2
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_uint] * 2
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     )
     lib.pac_decode_launch.restype = ctypes.c_int
+    lib.pac_launch_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.pac_launch_plan.restype = ctypes.c_int
     lib.pac_error_string.argtypes = [ctypes.c_int]
     lib.pac_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def host_tables(mask, crc_len: int, crc_poly: int):
-    """(schedule int32 [5, N], out_pos int32 [Kp], CRC check columns uint32 [Kp]).
+@functools.lru_cache(maxsize=None)
+def _occupancy(N: int, Kp: int, L: int, G: int) -> tuple:
+    """(frames a block, frames an SM holds at once) with levels 1..G in
+    global scratch, by the CUDA occupancy calculator."""
 
-    The schedule is `kernel_tables` fed with the info phases (the mask in
+    lib = _library()
+    fpb, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.pac_launch_plan(L, frame_bytes(N, Kp, L, G), MAX_BLOCK_SMEM,
+                             ctypes.byref(fpb), ctypes.byref(per_sm))
+    if rc != 0:
+        raise RuntimeError(f"PAC occupancy query failed: {lib.pac_error_string(rc).decode()} ({rc})")
+    return fpb.value, per_sm.value
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(N: int, Kp: int, L: int) -> tuple:
+    """(global levels G, frames a block, frames an SM holds at once) on the
+    current card."""
+
+    return smallest_global_levels(int(math.log2(N)), lambda g: _occupancy(N, Kp, L, g))
+
+
+def host_tables(mask, crc_len: int, crc_poly: int):
+    """(phase words int32 [N], out_pos int32 [Kp], CRC check columns uint32 [Kp]).
+
+    The phase words are `phase_words` fed with the info phases (the mask in
     bit-reversed order).  out_pos[i] is the ascending-u position of the i-th
     info phase's bit; the check columns are permuted to phase order, as
     `pac_pallas.py` permutes its check matrix."""
@@ -96,21 +143,41 @@ def host_tables(mask, crc_len: int, crc_poly: int):
     perm = bitrev_perm(N)
     info_phases = np.flatnonzero(mask[perm] == 1)
     Kp = int(info_phases.size)
-    sched = kernel_tables(N, info_phases)
+    words = phase_words(N, info_phases)
     out_pos = np.argsort(np.argsort(perm[info_phases])).astype(np.int32)
-    words = np.zeros(Kp, np.uint32)
+    cols = np.zeros(Kp, np.uint32)
     if crc_len > 0:
         Hc = np.asarray(check_matrix(hex((1 << crc_len) | crc_poly), Kp), np.uint64)
         weights = (np.uint64(1) << np.arange(Hc.shape[0], dtype=np.uint64))[:, None]
-        words = (Hc * weights).sum(axis=0).astype(np.uint32)[out_pos]
-    return sched, out_pos, words
+        cols = (Hc * weights).sum(axis=0).astype(np.uint32)[out_pos]
+    return words, out_pos, cols
 
 
 @functools.lru_cache(maxsize=64)
-def _device_tables(mask_key: tuple, crc_len: int, crc_poly: int, device: torch.device):
-    sched, out_pos, words = host_tables(np.asarray(mask_key), crc_len, crc_poly)
-    return (torch.as_tensor(sched, device=device), torch.as_tensor(out_pos, device=device),
-            torch.as_tensor(words.view(np.int32), device=device))
+def _plan(mask_key: bytes, gen: tuple, L: int, crc_len: int, crc_poly: int, dtype: torch.dtype,
+          device: torch.device, global_levels=None) -> tuple:
+    """What a launch needs besides its tensors, for one code and list size,
+    checked and cached (the legacy drivers launch small batches, where the
+    host's share of a call matters): (N, Kp, L, G, frames a block, phase
+    words, the info phase of each ascending-u output bit, check columns,
+    shift-register and tap masks, CRC flag, shared bytes a frame).
+    `global_levels` overrides the launch plan's G (`chip_smoke.py` times
+    other G)."""
+
+    mask = np.frombuffer(mask_key, np.int8)
+    N = int(mask.size)
+    Kp = int((mask == 1).sum())
+    check_shape(N, Kp, L, gen, crc_len, dtype)
+    G, fpb, _ = launch_plan(N, Kp, L)
+    if global_levels is not None:
+        G, fpb = global_levels, _occupancy(N, Kp, L, global_levels)[0]
+    words, out_pos, cols = host_tables(mask, crc_len, crc_poly)
+    tables = (torch.as_tensor(words, device=device),
+              torch.as_tensor(np.argsort(out_pos).astype(np.int32), device=device),
+              torch.as_tensor(cols.view(np.int32), device=device))
+    tap_mask = sum(1 << t for t, g in enumerate(gen[1:]) if g)
+    return (N, Kp, L, G, fpb, *tables, (1 << (len(gen) - 1)) - 1, tap_mask, int(crc_len > 0),
+            frame_bytes(N, Kp, L, G))
 
 
 def pac_list_decode_cuda(
@@ -119,7 +186,6 @@ def pac_list_decode_cuda(
     """Fused PAC list decode of a batch: the selected path's bits in
     ascending-u order, and the CRC pass flag."""
 
-    gen = [int(g) for g in gen]
     if llr.device.type == "cpu":
         res = pac_list_decode_batch(llr, mask, gen, L, crc_len=crc_len, crc_poly=crc_poly,
                                     dtype=llr.dtype)
@@ -128,29 +194,35 @@ def pac_list_decode_cuda(
         raise ValueError(f"pac_list_decode_cuda takes CUDA or CPU tensors, not {llr.device}")
     if llr.dim() != 2 or not llr.is_contiguous():
         raise ValueError("llr must be a contiguous [B, N] tensor")
-    mask = np.asarray(mask)
-    B, N = int(llr.shape[0]), int(llr.shape[1])
-    if mask.size != N:
-        raise ValueError(f"mask has {mask.size} entries for N={N}")
-    Kp = int((mask == 1).sum())
-    check_shape(N, Kp, L, gen, crc_len, llr.dtype)
+    mask = np.asarray(mask, np.int8)
+    if mask.size != int(llr.shape[1]):
+        raise ValueError(f"mask has {mask.size} entries for N={int(llr.shape[1])}")
+    plan = _plan(mask.tobytes(), tuple(int(g) for g in gen), L, crc_len, crc_poly, llr.dtype,
+                 llr.device)
+    return _launch(llr, plan)
 
+
+def _launch(llr, plan) -> dict:
+    """Launch the kernel on checked inputs (`_plan`)."""
+
+    N, Kp, L, G, fpb, sched, phase_of, hcols, mem_mask, tap_mask, use_crc, fbytes = plan
+    B = int(llr.shape[0])
     dev = llr.device
     bits = torch.empty((B, Kp), dtype=torch.int8, device=dev)
     passed = torch.empty((B,), dtype=torch.bool, device=dev)
     if B == 0:
         return {"extracted": bits, "crc_pass": passed}
-    sched, out_pos, hcols = _device_tables(tuple(int(x) for x in mask), crc_len, crc_poly, dev)
-    mem = len(gen) - 1
-    tap_mask = sum(1 << t for t, g in enumerate(gen[1:]) if g)
+    row = N - (N >> G)  # entries of a path's levels 1..G
+    glob_llr = torch.empty((B, L, row), dtype=torch.float32, device=dev) if G else None
+    glob_bits = torch.empty((B, L, row), dtype=torch.uint8, device=dev) if G else None
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.pac_decode_launch(
-            llr.data_ptr(), hcols.data_ptr(), sched.data_ptr(), out_pos.data_ptr(),
+            llr.data_ptr(), hcols.data_ptr(), sched.data_ptr(), phase_of.data_ptr(),
+            glob_llr.data_ptr() if G else None, glob_bits.data_ptr() if G else None,
             bits.data_ptr(), passed.data_ptr(),
-            B, N, int(math.log2(N)), Kp, L, (1 << mem) - 1, tap_mask, int(crc_len > 0),
-            frame_bytes(N, Kp, L), frames_per_block(N, Kp, L), stream,
+            B, N, int(math.log2(N)), Kp, L, G, mem_mask, tap_mask, use_crc, fbytes, fpb, stream,
         )
     if rc != 0:
         raise RuntimeError(f"PAC kernel launch failed: {lib.pac_error_string(rc).decode()} ({rc})")
@@ -161,4 +233,5 @@ def pac_list_decode_cuda(
 pac_list_decode_cuda.launches = 0
 
 
-__all__ = ["pac_list_decode_cuda", "check_shape", "frame_bytes", "host_tables", "MAX_L"]
+__all__ = ["pac_list_decode_cuda", "check_shape", "frame_bytes", "host_tables", "launch_plan",
+           "MAX_L", "SIGMA_FIELDS"]

@@ -16,8 +16,8 @@ Memory.  A frame keeps tree levels G+1..n of its M paths, and its trace
 indices, in shared memory; levels 1..G and the trace LLRs go to a global
 scratch allocated here for each call.  `launch_plan` asks the CUDA
 occupancy calculator for the smallest G at which an SM holds
-`FRAMES_PER_SM_TARGET` frames, and for the frames a block that hold the
-most.
+`FRAMES_PER_SM_TARGET` frames (`smallest_global_levels`, which the PAC
+kernel's wrapper shares), and for the frames a block that hold the most.
 """
 
 from __future__ import annotations
@@ -96,18 +96,30 @@ def _occupancy(N: int, K: int, M: int, G: int) -> tuple:
     return fpb.value, per_sm.value
 
 
+def smallest_global_levels(n: int, occupancy) -> tuple:
+    """(G, frames a block, frames an SM) for a decode kernel whose tree levels
+    1..G go to global scratch: the smallest G at which `occupancy(G)` — (frames
+    a block, frames an SM) by the CUDA occupancy calculator — puts
+    `FRAMES_PER_SM_TARGET` frames on an SM or, where no G does, the smallest G
+    that puts the most there.  Level n, the leaf, always stays in shared
+    memory.  The SCL and PAC kernels both take their G here."""
+
+    plans = []
+    for g in range(n):
+        fpb, per_sm = occupancy(g)
+        if per_sm >= FRAMES_PER_SM_TARGET:
+            return g, fpb, per_sm
+        plans.append((g, fpb, per_sm))
+    most = max(p[2] for p in plans)
+    return next(p for p in plans if p[2] == most)
+
+
 @functools.lru_cache(maxsize=None)
 def launch_plan(N: int, K: int, M: int) -> tuple:
     """(global levels G, frames a block, frames an SM holds at once) on the
-    current card: the smallest G at which an SM holds
-    `FRAMES_PER_SM_TARGET` frames (level n, the leaf, always stays in
-    shared memory)."""
+    current card, by `smallest_global_levels`."""
 
-    for g in range(int(math.log2(N))):
-        fpb, per_sm = _occupancy(N, K, M, g)
-        if per_sm >= FRAMES_PER_SM_TARGET:
-            break
-    return g, fpb, per_sm
+    return smallest_global_levels(int(math.log2(N)), lambda g: _occupancy(N, K, M, g))
 
 
 @functools.lru_cache(maxsize=64)
@@ -202,4 +214,5 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb) -> dict:
 decode_scl_cuda.launches = 0
 
 
-__all__ = ["decode_scl_cuda", "check_shape", "frame_bytes", "launch_plan", "SUPPORTED_M"]
+__all__ = ["decode_scl_cuda", "check_shape", "frame_bytes", "launch_plan", "smallest_global_levels",
+           "SUPPORTED_M"]

@@ -5,8 +5,7 @@ which tree levels each phase updates (f or g), where its partial-sum chain
 stores, which phases are frozen, which levels are still live at each
 phase's fork, and which reads can cross a fork.  The CUDA kernels read
 these tables instead of recomputing them per frame: `phase_words` packs
-them for the SCL kernel's lazy clone, `kernel_tables` for the PAC kernel's
-in-place clone.
+them for the lazy clone of the SCL kernel and of the PAC kernel.
 """
 
 from __future__ import annotations
@@ -132,26 +131,10 @@ def schedule_tables(N: int, info_np: np.ndarray):
     return upd, store, frozen, infoidx, llr_live, bit_live, glevel, gpar_need, comb_need
 
 
-def kernel_tables(N: int, info_np: np.ndarray) -> np.ndarray:
-    """Pack the schedule into the int32 [5, N] table the PAC kernel reads.
-
-    Rows: g-level, store level (0 = no store), frozen flag, LLR-live level
-    bitmask, bit-live level bitmask (bit l set = level l live)."""
-
-    _, store, frozen, _, llr_live, bit_live, glevel, _, _ = schedule_tables(N, info_np)
-    n = int(math.log2(N))
-    weights = (1 << np.arange(n + 1)).astype(np.int64)
-    return np.stack([
-        glevel,
-        np.argmax(store, axis=1),  # all-zero row (last phase) gives 0
-        frozen,
-        (llr_live.astype(np.int64) * weights).sum(axis=1),
-        (bit_live.astype(np.int64) * weights).sum(axis=1),
-    ]).astype(np.int32)
-
-
 def phase_words(N: int, info_np: np.ndarray) -> np.ndarray:
-    """Pack the schedule into the int32 [N] phase words the SCL kernel reads.
+    """Pack the schedule into the int32 [N] phase words the SCL and PAC
+    kernels read (the PAC kernel's info phases are its mask in bit-reversed
+    order).
 
     Bits 0-4: g-level; 5-9: store level (0 = no store); 10: frozen; 11:
     `gpar_need`; 11 + l for l = 1..n: `comb_need` at level l (the chain
@@ -171,4 +154,4 @@ def phase_words(N: int, info_np: np.ndarray) -> np.ndarray:
     return words.astype(np.int32)
 
 
-__all__ = ["schedule_tables", "kernel_tables", "phase_words"]
+__all__ = ["schedule_tables", "phase_words"]

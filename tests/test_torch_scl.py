@@ -32,7 +32,7 @@ from polar_code_tpu_torch.ops.scl_cuda import (
     decode_scl_cuda,
     frame_bytes,
 )
-from polar_code_tpu_torch.ops.scl_schedule import kernel_tables, phase_words, schedule_tables
+from polar_code_tpu_torch.ops.scl_schedule import phase_words, schedule_tables
 from polar_code_tpu_torch.polar.construct import construct_info_set
 
 CRC = "0x1864CFB"
@@ -194,26 +194,16 @@ def test_kernel_shape_gate(N, K, M, crc, dtype, ok):
 
 def test_kernel_tables_pack_the_schedule():
     info = construct_info_set(128, 64)
-    (upd, store, frozen, _, llr_live, bit_live, glevel, gpar_need,
-     comb_need) = schedule_tables(128, info)
-    # the PAC kernel's [5, N] table
-    packed = kernel_tables(128, info)
-    assert packed.shape == (5, 128) and packed.dtype == np.int32
-    np.testing.assert_array_equal(packed[0], glevel)
-    np.testing.assert_array_equal(packed[2], frozen)
-    for p in range(128):
-        levels = np.flatnonzero(store[p])
-        assert packed[1, p] == (levels[0] if levels.size else 0)
-        for lv in range(1, 8):
-            assert bool(packed[3, p] >> lv & 1) == bool(llr_live[p, lv])
-            assert bool(packed[4, p] >> lv & 1) == bool(bit_live[p, lv])
-    # the SCL kernel's phase words
+    _, store, frozen, _, _, _, glevel, gpar_need, comb_need = schedule_tables(128, info)
+    # the phase words both kernels read
     words = phase_words(128, info)
     assert words.shape == (128,) and words.dtype == np.int32
     np.testing.assert_array_equal(words & 31, glevel)
-    np.testing.assert_array_equal(words >> 5 & 31, packed[1])
     np.testing.assert_array_equal(words >> 10 & 1, frozen)
     np.testing.assert_array_equal(words >> 11 & 1, gpar_need)
+    for p in range(128):
+        levels = np.flatnonzero(store[p])
+        assert words[p] >> 5 & 31 == (levels[0] if levels.size else 0)
     assert not comb_need[:, 0].any()  # level 0 is no level: bit 11 is gpar_need's alone
     for lv in range(1, 8):
         np.testing.assert_array_equal(words >> (11 + lv) & 1, comb_need[:, lv])

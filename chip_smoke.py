@@ -10,11 +10,13 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    kernel K1 (`polar_code_tpu_torch/csrc/scl_decode.cu`), the NMS LDPC kernel
    K2 (`csrc/nms_decode.cu`) and the PAC list-decode kernel K3
    (`csrc/pac_decode.cu`) — with the build seconds and the `-Xptxas -v`
-   registers, shared memory and spills; K1's shared memory a frame, levels
-   in global scratch and resident frames an SM for each shape it runs
-   (more than one at N=2048 M=8, or the phase fails); and K3's for the
-   shapes of phases 9 and 11 (at least 4 frames an SM at N=1024 L=32, or
-   the phase fails);
+   registers, shared memory and spills; K2's launch plan (mode, edges in
+   registers, record words and where they live, bytes a frame, frames a
+   block and an SM, registers) for every K2 shape phases 6 and 8 run; K1's
+   shared memory a frame, levels in global scratch and resident frames an
+   SM for each shape it runs (more than one at N=2048 M=8, or the phase
+   fails); and K3's for the shapes of phases 9 and 11 (at least 4 frames an
+   SM at N=1024 L=32, or the phase fails);
 3. K1 against its plain PyTorch version at P(128,64): M ∈ {1,2,4,8}, CRC-24A
    on and off, with and without a random forced plan, B=4096 LLRs at 3, 5
    and 7 dB, plus ragged B=1000 and B=1001 batches.  Bits and CRC pass must
@@ -56,6 +58,12 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    1.0, 2.5 and 4.0 dB; ragged B=1000 and B=1001; and QC-IRA 46×68 Z=383
    (n=26044) at B=64, the all-zero codeword through AWGN, at a noise level
    where most frames run all 20 iterations and one where most stop early;
+   then K2d, the rest of the envelope (all-zero codewords at 0–12 dB a
+   frame unless named): the demo graph at Z=2 and Z=33, QC-IRA 4×8 at
+   Z=37, QC-IRA 3×6 at Z=1021, QC-IRA 2×42 Z=41 (rows of degree 41–42)
+   and a dense 2×40 graph at Z=8 (degree 40 a warp a frame), each in both
+   modes; integer LLRs in −3..3 (exact zeros and ties of |ext|) at QC-IRA
+   4×8 Z=31; `max_iter` 0 and 1; a ragged B=333;
 7. the BER path: the BER sweep CLI (`run_ber_sweep.main`), B=4096, seed 0,
    the bits cap deciding, for (a) `nr_ldpc` QC-IRA 4×8 two-min at 2.0/2.5/
    3.0 dB, (b) `nr_ldpc` demo Z=32 at 2.0 dB, (c) `nr_polar_scl` at 3.5/4.0
@@ -64,7 +72,10 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    `results/ber_*.csv` or to its own bound; the kernels' counters grow and
    the plain decoders run 0 times on CUDA;
 8. BER times: K2 and its plain version at the shapes of phase 6, their
-   bounds, BER-step frames/s for (a) at 2.5 dB and a profiler split;
+   bounds, and K2 alone at QC-IRA 4×8 Z=31 two-min B=65536 and B=1 (a
+   call's floor) and QC-IRA 46×68 Z=383 two-min B=1024
+   (`nms_timing_cases`, which `tools/time_nms_cuda.py` shares); BER-step
+   frames/s for (a) at 2.5 dB and a profiler split;
 9. K3 against the JAX package and its plain version: every case of
    `tests/golden/legacy_pac_decode.npz` (the JAX decoder's outputs, written
    by `tests/golden/make_legacy_pac.py`) with 0 frames differing in
@@ -136,6 +147,12 @@ BER_FRAMES = 40960  # a point of the BER runs: ten B=4096 chunks
 # stops when the channel's hard decisions already are the codeword
 BIG = (46, 68, 383)  # QC-IRA with BG1's block shape, lifted at the largest prime Z <= 384
 BIG_EBN0 = {True: (5.0, 7.0), False: (5.0, 15.0)}
+# K2d, the rest of K2's envelope: (base graph spec, Z, modes of min, B, max_iter)
+K2D = [("2", 2, (False, True), 1024, 20), ("2", 33, (False, True), 1024, 20),
+       ("ira4x8", 37, (False, True), 1024, 20), ("ira3x6", 1021, (False, True), 256, 20),
+       ("ira2x42", 41, (False, True), 1024, 20), ("ira4x8", 31, (False, True), 1024, 0),
+       ("ira4x8", 31, (False, True), 1024, 1), ("2", 33, (True,), 333, 20),
+       ("dense2x40", 8, (False, True), 1024, 20)]
 # float32 operations an iteration, (per edge, per check row).  Two-min: sub,
 # abs, sign, two min/compare, the sign-product multiply, two update
 # multiplies and the add, all per edge.  Shared min: sub, abs, sign, one min,
@@ -182,9 +199,11 @@ def ptxas_report(log):
         if m:
             tm = re.search(r"scl_decode_kernelILi(\d+)E", m.group(1))
             tp = re.search(r"pac_decode_kernelILi(\d+)E", m.group(1))
+            tn = re.search(r"nms_kernel_(warp|block|1024)ILi(\d+)ELb([01])E", m.group(1))
             entry = (f"scl_decode_kernel<M={tm.group(1)}>" if tm
                      else f"pac_decode_kernel<LM={tp.group(1)}>" if tp
-                     else "nms_decode_kernel" if "nms_decode_kernel" in m.group(1) else m.group(1))
+                     else f"nms_kernel<D={tn.group(2)}, {'two-min' if tn.group(3) == '1' else 'shared'}, "
+                          f"{tn.group(1)}>" if tn else m.group(1))
             cur = {"entry": entry, "regs": None, "spill_stores": None, "spill_loads": None,
                    "smem": 0}
             rows.append(cur)
@@ -406,11 +425,23 @@ def bound(nbytes, nops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def ldpc_code(spec, Z):
-    from polar_code_tpu_torch.nr.ldpc import build_h_matrix, load_base_graph
+def base_graph(spec, Z):
+    """"ira<m>x<n>" (QC-IRA), "dense<m>x<n>" (every block nonzero, shifts
+    i·(j+1) mod Z; rows of degree n) or a demo graph's number."""
+
+    from polar_code_tpu_torch.nr.ldpc import BaseGraph, load_base_graph
     from polar_code_tpu_torch.nr.ldpc.qc_ira import make_qc_ira_bg, parse_ira_spec
 
-    bg = make_qc_ira_bg(*parse_ira_spec(spec), Z) if spec.startswith("ira") else load_base_graph(int(spec))
+    if spec.startswith("dense"):
+        m, n = parse_ira_spec(spec[5:])
+        return BaseGraph(spec, m, n, (np.arange(m)[:, None] * np.arange(1, n + 1)[None]) % Z)
+    return make_qc_ira_bg(*parse_ira_spec(spec), Z) if spec.startswith("ira") else load_base_graph(int(spec))
+
+
+def ldpc_code(spec, Z):
+    from polar_code_tpu_torch.nr.ldpc import build_h_matrix
+
+    bg = base_graph(spec, Z)
     return bg, build_h_matrix(bg, Z)
 
 
@@ -437,6 +468,49 @@ def zero_codeword_llrs(rng, B, n, k, ebno, dev):
     nv = 1.0 / (2.0 * (k / n) * 10 ** (ebno / 10.0))
     llr = ((1.0 + rng.normal(0.0, math.sqrt(nv), (B, n))) * (2.0 / nv)).astype(np.float32)
     return torch.from_numpy(llr).to(dev)
+
+
+def spread_llrs(rng, B, n, k, dev):
+    """All-zero codeword LLRs through AWGN at an Eb/N0 drawn a frame from
+    0–12 dB (numpy draws), so frames stop at many iterations and some never
+    (shared min stops only where the channel's hard decisions are right)."""
+
+    import torch
+
+    ebno = rng.uniform(0.0, 12.0, (B, 1))
+    nv = 1.0 / (2.0 * (k / n) * 10 ** (ebno / 10.0))
+    llr = ((1.0 + rng.normal(0.0, 1.0, (B, n)) * np.sqrt(nv)) * (2.0 / nv)).astype(np.float32)
+    return torch.from_numpy(llr).to(dev)
+
+
+def nms_timing_cases(dev, codes, big_bg, big_H=None):
+    """K2's timed shapes with their LLRs (numpy draws, seeds 8 and 9), as
+    [(tag, llr, base graph, Z, self_exclude, H or None, reps)]: H is given
+    where the plain version is timed beside the kernel.  `codes` maps the
+    names of IRA and DEMO to (their tuple, (base graph, H))."""
+
+    cases = []
+    for cname, (c, (bg, H)) in codes.items():
+        x = ldpc_llrs(np.random.default_rng(8), (c, (bg, H)), 4096, 2.5, dev)
+        for se in (True, False):
+            cases.append((f"{cname} {'two-min' if se else 'shared'} 2.5 dB B=4096", x, bg, c[2], se,
+                          H, 50))
+    c, (bg, H) = codes[IRA[0]]
+    x = ldpc_llrs(np.random.default_rng(8), (c, (bg, H)), 65536, 2.5, dev)
+    cases.append((f"{IRA[0]} two-min 2.5 dB B=65536", x, bg, c[2], True, None, 10))
+    # one frame: a call's floor (the wrapper's host time, or a frame's latency)
+    cases.append((f"{IRA[0]} two-min 2.5 dB B=1", x[:1].contiguous(), bg, c[2], True, None, 50))
+    rng = np.random.default_rng(9)
+    big_n, big_k = BIG[1] * BIG[2], (BIG[1] - BIG[0]) * BIG[2]
+    tag = f"ira{BIG[0]}x{BIG[1]} Z={BIG[2]}"
+    for se in (True, False):
+        for ebno in BIG_EBN0[se]:
+            x = zero_codeword_llrs(rng, 64, big_n, big_k, ebno, dev)
+            cases.append((f"{tag} {'two-min' if se else 'shared'} {ebno} dB B=64", x, big_bg, BIG[2],
+                          se, big_H, 20))
+    x = zero_codeword_llrs(rng, 1024, big_n, big_k, BIG_EBN0[True][0], dev)
+    cases.append((f"{tag} two-min {BIG_EBN0[True][0]} dB B=1024", x, big_bg, BIG[2], True, None, 5))
+    return cases
 
 
 def csv_rows(path):
@@ -532,6 +606,22 @@ def main():
               f"{k3_resident[n_p, L]} resident frames an SM (occupancy calculator)")
     check(k3_resident[1024, 32] >= 4, "K3 holds fewer than 4 frames an SM at N=1024 L=32")
     nms_cuda._library()
+    where = {True: "shared memory", False: "global scratch"}
+    k2_shapes = [(IRA[1], IRA[2]), (DEMO[1], DEMO[2]), (f"ira{BIG[0]}x{BIG[1]}", BIG[2])]
+    for spec, Z in dict.fromkeys(k2_shapes + [(k[0], k[1]) for k in K2D]):
+        bg = base_graph(spec, Z)
+        for se in (True, False):
+            plan = nms_cuda.launch_plan(bg, Z, se, dev)
+            lay = plan.layout
+            mode = {nms_cuda.WARP: "a warp a frame", nms_cuda.BLOCK: "a block a frame",
+                    nms_cuda.BLOCK_1024: "a block a frame (64-register build)"}[plan.mode]
+            per_frame = lay.frame_bytes if plan.mode == nms_cuda.WARP else plan.smem
+            print(f"  K2 {spec} Z={Z} {'two-min' if se else 'shared'}: {mode}, {lay.D} edges in "
+                  f"registers, records of {lay.nw} words a row in {where[lay.records_in_smem]}; "
+                  f"{per_frame} B shared a frame, {plan.smem} B a block of {plan.frames_per_block} "
+                  f"frames ({plan.threads} threads, {plan.regs} registers); {plan.frames_per_sm} "
+                  f"frames an SM (occupancy calculator)")
+            check(plan.frames_per_sm >= 1, f"K2 cannot place a frame of {spec} Z={Z}")
     pac_cuda._library()
     phase_done("2 build")
 
@@ -796,11 +886,11 @@ def main():
     nms_cases = []
     nms_max_err = 0
 
-    def compare_nms(x, bg, Z, H, se, tag):
+    def compare_nms(x, bg, Z, H, se, tag, max_iter=20):
         nonlocal nms_max_err
-        out = decode_ldpc_nms_cuda(x, bg, Z, 20, 0.8, self_exclude=se)
+        out = decode_ldpc_nms_cuda(x, bg, Z, max_iter, 0.8, self_exclude=se)
         torch.cuda.synchronize()
-        ref = decode_ldpc_nms_batch(x, H, 20, 0.8, self_exclude=se)
+        ref = decode_ldpc_nms_batch(x, H, max_iter, 0.8, self_exclude=se)
         torch.cuda.synchronize()
         bad = ((out["hard"] != ref["hard"]).any(dim=1) | (out["iters_used"] != ref["iters_used"])
                | (out["parity_ok"] != ref["parity_ok"])).cpu().numpy()
@@ -808,7 +898,7 @@ def main():
         nms_max_err = max([nms_max_err] + [int(d) for d in diffs])
         it = ref["iters_used"].cpu().numpy()
         print(f"  {tag}: {int(bad.sum())} frames differ; mean iterations {it.mean():.3f}, "
-              f"{int((it < 20).sum())}/{len(it)} stopped early, "
+              f"{int((it < max_iter).sum())}/{len(it)} stopped early, "
               f"parity ok {int(ref['parity_ok'].sum())}", flush=True)
         check(not bad.any(), f"K2 disagrees with the plain version ({tag}): frames "
               f"{np.flatnonzero(bad)[:10].tolist()}")
@@ -827,14 +917,25 @@ def main():
     big_bg, big_H = ldpc_code(f"ira{BIG[0]}x{BIG[1]}", BIG[2])
     big_n, big_k = BIG[1] * BIG[2], (BIG[1] - BIG[0]) * BIG[2]
     big_tag = f"ira{BIG[0]}x{BIG[1]} Z={BIG[2]}"
-    big_x = {}
     for se in (True, False):
         for ebno in BIG_EBN0[se]:
             x = zero_codeword_llrs(rng, 64, big_n, big_k, ebno, dev)
-            big_x[se, ebno] = x
             compare_nms(x, big_bg, BIG[2], big_H, se,
                         f"{big_tag} {'two-min' if se else 'shared'} {ebno} dB B=64")
-    print(f"K2 vs plain: {len(nms_cases)} cases, every frame identical (max |diff| {nms_max_err})")
+    n_main = len(nms_cases)
+    for spec, Z, modes, B, max_iter in K2D:
+        bg, H = ldpc_code(spec, Z)
+        x = spread_llrs(rng, B, H.shape[1], H.shape[1] - H.shape[0], dev)
+        for se in modes:
+            compare_nms(x, bg, Z, H, se, f"K2d {spec} Z={Z} {'two-min' if se else 'shared'} "
+                        f"B={B} max_iter={max_iter}", max_iter)
+    bg, H = codes[IRA[0]][1]
+    x = torch.from_numpy(rng.integers(-3, 4, (1024, H.shape[1])).astype(np.float32)).to(dev)
+    for se in (False, True):
+        compare_nms(x, bg, IRA[2], H, se, f"K2d {IRA[0]} {'two-min' if se else 'shared'} "
+                    "integer LLRs B=1024")
+    print(f"K2 vs plain: {n_main} cases and {len(nms_cases) - n_main} K2d cases, every frame "
+          f"identical (max |diff| {nms_max_err})")
     phase_done("6 K2 vs plain")
 
     # ---- 7. the BER path: the BER sweep CLI on the card ----
@@ -910,30 +1011,22 @@ def main():
     # ---- 8. BER times ----
     print(f"BER times on {smi}:")
     nms_times = {}
-    timed = [(cname, se, 2.5) for cname in codes for se in (True, False)]
-    for cname, se, ebno in timed:
-        c, (bg, H) = codes[cname]
-        x = ldpc_llrs(np.random.default_rng(8), (c, (bg, H)), 4096, ebno, dev)
-        ms = cuda_time_ms(lambda: decode_ldpc_nms_cuda(x, bg, c[2], 20, 0.8, self_exclude=se), reps=50)
-        pms = cuda_time_ms(lambda: decode_ldpc_nms_batch(x, H, 20, 0.8, self_exclude=se), reps=5, warmup=1)
-        iters = decode_ldpc_nms_cuda(x, bg, c[2], 20, 0.8, self_exclude=se)["iters_used"]
-        edges = int((bg.shifts >= 0).sum()) * c[2]
-        b_ms, b_by = bound(*nms_work(iters, H.shape[1], edges, H.shape[0], se))
-        nms_times[cname, se] = (ms, pms, b_ms, b_by)
-        print(f"  K2 {cname} {'two-min' if se else 'shared'} {ebno} dB B=4096: {ms:.4f} ms "
-              f"(50 launches); plain {pms:.4f} ms (5 calls); bound {b_ms:.6f} ms ({b_by}; "
-              f"mean iterations {iters.float().mean().item():.3f})")
-    big_edges = int((big_bg.shifts >= 0).sum()) * BIG[2]
-    for (se, ebno), x in big_x.items():
-        ms = cuda_time_ms(lambda: decode_ldpc_nms_cuda(x, big_bg, BIG[2], 20, 0.8, self_exclude=se),
-                          reps=20)
-        pms = cuda_time_ms(lambda: decode_ldpc_nms_batch(x, big_H, 20, 0.8, self_exclude=se),
-                           reps=2, warmup=1)
-        iters = decode_ldpc_nms_cuda(x, big_bg, BIG[2], 20, 0.8, self_exclude=se)["iters_used"]
-        b_ms, b_by = bound(*nms_work(iters, big_n, big_edges, big_H.shape[0], se))
-        print(f"  K2 {big_tag} {'two-min' if se else 'shared'} {ebno} dB B=64: {ms:.4f} ms "
-              f"(20 launches); plain {pms:.4f} ms (2 calls); bound {b_ms:.6f} ms ({b_by}; "
-              f"mean iterations {iters.float().mean().item():.3f})")
+    for tag, x, bg, Z, se, H, reps in nms_timing_cases(dev, codes, big_bg, big_H):
+        run = lambda: decode_ldpc_nms_cuda(x, bg, Z, 20, 0.8, self_exclude=se)  # noqa: E731
+        ms = cuda_time_ms(run, reps=reps)
+        iters = run()["iters_used"]
+        edges = int((bg.shifts >= 0).sum()) * Z
+        b_ms, b_by = bound(*nms_work(iters, bg.n * Z, edges, bg.m * Z, se))
+        line = f"  K2 {tag}: {ms:.4f} ms ({reps} launches)"
+        pms = None
+        if H is not None:
+            big = H.shape[1] > 10000
+            pms = cuda_time_ms(lambda: decode_ldpc_nms_batch(x, H, 20, 0.8, self_exclude=se),
+                               reps=2 if big else 5, warmup=1)
+            line += f"; plain {pms:.4f} ms ({2 if big else 5} calls)"
+        print(f"{line}; bound {b_ms:.6f} ms ({b_by}; mean iterations "
+              f"{iters.float().mean().item():.3f})", flush=True)
+        nms_times[tag] = (ms, pms, b_ms, b_by)
 
     bg = codes[IRA[0]][1][0]
     step = make_ber_chunk(
@@ -1130,7 +1223,7 @@ def main():
     phase_done("11 K3 times")
 
     # ---- 12. result lines ----
-    nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by = nms_times[IRA[0], True]
+    nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by = nms_times[f"{IRA[0]} two-min 2.5 dB B=4096"]
     print(json.dumps({"kernels": [{
         "name": "scl_decode",
         "route": "cuda",

@@ -13,6 +13,8 @@
   equals the plain version.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,10 +33,13 @@ from polar_code_tpu_torch.nr.ldpc.builder import build_h_matrix
 from polar_code_tpu_torch.nr.ldpc.decode_nms import decode_ldpc_nms_batch
 from polar_code_tpu_torch.nr.ldpc.encode import encode_ldpc_batch, parity_solver_matrix
 from polar_code_tpu_torch.nr.ldpc.nms_cuda import (
+    BLOCK,
+    MAX_BLOCK_SMEM,
+    WARP,
     check_shape,
     decode_ldpc_nms_cuda,
-    edge_tables,
-    smem_plan,
+    host_tables,
+    kernel_layout,
 )
 from polar_code_tpu_torch.nr.ldpc.rate_match import derate_match_ldpc, rate_match_ldpc
 
@@ -211,19 +216,26 @@ def test_plain_decoder_stops_and_freezes():
 
 def test_kernel_tables_and_shape_gate():
     bg = qc_ira.make_qc_ira_bg(4, 8, 31)
-    row_ptr, cols, shifts = edge_tables(tuple(map(tuple, bg.shifts.tolist())), 31)
-    assert row_ptr.tolist() == [0, 5, 11, 17, 23] and cols.size == 23
-    assert (shifts >= 0).all() and (shifts < 31).all()
+    lay = kernel_layout(bg.shifts, 31, True)
+    rows, cols = host_tables(bg.shifts, 31, lay)
+    # a warp a frame: (first chunk, degree) a block-row, one 8-edge chunk each
+    assert lay.mode == WARP and rows.tolist() == [[0, 5], [1, 6], [2, 6], [3, 6]]
+    assert cols.shape == (4, 2, 32, 4) and int(cols.max()) < 4 * 248  # byte offsets
+    # the edge table of a block a frame: row_ptr, (4s, 4c*Z) an edge
+    row_ptr, edges = host_tables(bg.shifts, 31, dataclasses.replace(lay, mode=BLOCK))
+    assert row_ptr.tolist() == [0, 5, 11, 17, 23] and edges.shape == (23, 2)
+    assert (edges[:, 0] >= 0).all() and (edges[:, 0] < 4 * 31).all()
+    assert (edges[:, 1] % (4 * 31) == 0).all()
     # the demo graph's shifts reach 3, so at Z=2 they are reduced mod Z
-    _, _, s2 = edge_tables(tuple(map(tuple, basegraphs.load_base_graph(2).shifts.tolist())), 2)
-    assert s2.max() < 2
-    # ira4x8 Z=31 keeps its messages in shared memory, past the LLRs and
-    # tables; ira46x68 Z=383 two-min cannot (offset 0: global scratch)
-    tables_end = (4 * 248 + 4 * 5 + 8 * 23 + 15) // 16 * 16
-    assert smem_plan(248, 4, 23, 31, True) == (tables_end + 4 * 23 * 31, tables_end)
+    demo = basegraphs.load_base_graph(2)
+    _, e2 = host_tables(demo.shifts, 2, dataclasses.replace(kernel_layout(demo.shifts, 2, True),
+                                                            mode=BLOCK))
+    assert (e2[:, 0] >= 0).all() and (e2[:, 0] < 4 * 2).all()
+    # ira4x8 Z=31 keeps its records in shared memory, past each frame's
+    # LLRs; ira46x68 Z=383 two-min cannot (offset 0: global scratch)
+    assert lay.records_in_smem and lay.rec_offset == 4 * 248
     big = qc_ira.make_qc_ira_bg(46, 68, 383)
-    E = int((big.shifts >= 0).sum())
-    assert smem_plan(68 * 383, 46, E, 383, True)[1] == 0
+    assert kernel_layout(big.shifts, 383, True).rec_offset == 0
     check_shape(big, 383, 68 * 383, torch.float32, True)
     with pytest.raises(ValueError, match="float32"):
         check_shape(bg, 31, 248, torch.float64, False)
@@ -238,6 +250,20 @@ def test_kernel_tables_and_shape_gate():
     with pytest.raises(ValueError, match="shared memory"):
         check_shape(basegraphs.BaseGraph("wide", 1, 80, np.zeros((1, 80), np.int32)), 1000,
                     80_000, torch.float32, False)
+    # what the first design took, it still takes: Z 1..1024, a two-min row of
+    # degree above 32, and a frame whose LLRs and edge tables fill the block
+    # to the byte (8E + 4n + 4(mb+1) = MAX_BLOCK_SMEM), in both modes of min
+    for g, Z in [(demo, 1), (demo, 1024), (qc_ira.make_qc_ira_bg(2, 42, 41), 41),
+                 (qc_ira.make_qc_ira_bg(3, 6, 1021), 1021)]:
+        for se in (False, True):
+            check_shape(g, Z, g.n * Z, torch.float32, se)
+    full = basegraphs.BaseGraph("full", 1, 149, np.zeros((1, 149), np.int32))
+    assert 8 * 149 + 4 * 149 * 388 + 4 * 2 == MAX_BLOCK_SMEM
+    for se in (False, True):
+        check_shape(full, 388, 149 * 388, torch.float32, se)
+        with pytest.raises(ValueError, match="shared memory"):
+            check_shape(basegraphs.BaseGraph("over", 1, 150, np.zeros((1, 150), np.int32)), 388,
+                        150 * 388, torch.float32, se)
 
 
 # ---- on the card (marker `gpu`; skipped without a CUDA device) ----

@@ -49,7 +49,24 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    counter grows, the plain decoder runs 0 times on CUDA), and FER of both
    arms must agree with the JAX package's `results/fer_M8.csv` and
    `results/n2048/fer_M8.csv` (frames per point from its
-   `sweep_state.json`) at |z| < 3;
+   `sweep_state.json`) at |z| < 3; then the rest of the envelope, each run
+   held to its JAX CSV the same way: P(128,64) at M ∈ {1, 2, 4} (β
+   `checkpoints/beta_M{M}.npy`, 102400 frames at 4.0 and 5.0 dB, against
+   `results/fer_M{M}.csv`) and P(N, N/2) M=8 `gaussian_bitrev` for N ∈
+   {256, 512, 1024} (β `checkpoints/n<N>/beta_M8.npy`, 40960 frames at the
+   lowest point of `results/n<N>/fer_M8.csv`);
+   4b. the training path: the dataset CLI (`train/make_dataset.main`, B=4096)
+   at P(128,64) M=8 and M=1, 5.0 dB, 300000 frames, and P(1024,512)
+   `gaussian_bitrev` M=8, 1.75 dB, 409600 frames — frames/s, K1's launches
+   (at least one a chunk; the plain decoders 0 times on CUDA) and the
+   labelled and baseline-failure rates within |z| < 3 of the committed
+   shards' `meta` (`tests/golden/dataset_meta.json`), then a profiler split
+   of the oracle chunk; β training (`train/train_beta.train_beta`, 2 epochs
+   from the JAX trainer's initial parameters) against the JAX run in
+   `tests/golden/train_beta_jax.npz` (losses within `TRAIN_LOSS_RTOL`, β
+   within `TRAIN_BETA_ATOL`, accuracies identical up to argmax near-ties),
+   seconds an epoch; and `eval/opcount.main` on `checkpoints/beta_M4.npy` and
+   `checkpoints/n*/beta_M8.npy`, byte for byte the committed CSVs;
 5. FER times with CUDA events after a warm-up: K1 and the plain version per
    B=4096 M=8 CRC decode, FER-step frames/s at 5 dB, a profiler split;
 6. K2 against its plain PyTorch version: hard bits, iterations used and
@@ -138,6 +155,31 @@ JAX_FRAMES_PER_POINT = 204800
 SWEEP_FRAMES = 102400
 # the FER path at P(2048,1024): results/n2048, about 500 errors at 1.5 dB
 N2048_FRAMES, N2048_SNR = 40960, 1.5
+# the rest of the FER envelope: P(128,64) at M 1, 2, 4 (results/fer_M{M}.csv,
+# 204800 frames a point), and P(N, N/2) M=8 at the lowest point of
+# results/n<N>/fer_M8.csv, with the JAX frames a point: n1024 from its
+# sweep_state.json; n512's rates are whole counts over 2,097,152; n256 has no
+# state file, and 2,015,232 (--frames 2000000 at --batch 16384) is the
+# smallest count over which each of its rates is a whole count
+ENVELOPE_MS = (1, 2, 4)
+ENVELOPE_N = {256: (2.0, 2015232), 512: (1.75, 2097152), 1024: (1.5, None)}
+ENVELOPE_N_FRAMES = 40960
+# the training path: dataset shards generated on the card, held to the
+# committed shards' meta (tests/golden/dataset_meta.json):
+# (name, M, N, K, construction, Eb/N0, frames, committed shard)
+DATASETS = [
+    ("P(128,64) M=8 5.0 dB", 8, 128, 64, "gaussian", 5.0, 300000, "train_M8_snr5_seed0_part0.npz"),
+    ("P(128,64) M=1 5.0 dB", 1, 128, 64, "gaussian", 5.0, 300000, "train_M1_snr5_seed0_part0.npz"),
+    ("P(1024,512) M=8 1.75 dB", 8, 1024, 512, "gaussian_bitrev", 1.75, 409600,
+     "train_M8_n1024_snr1.75_seed0_part0.npz"),
+]
+# β training on the card against the JAX trainer's float32 run
+# (tests/golden/train_beta_jax.npz): relative on the losses, absolute on β.
+# The card gave 9.6e-8 and 4.5e-8 (cuBLAS sums in another order than XLA's
+# CPU dot), so the bounds are the CPU tests' 1e-6
+TRAIN_LOSS_RTOL, TRAIN_BETA_ATOL = 1e-6, 1e-6
+OPCOUNT = [("beta_M4.npy", "opcount_M4.csv")] + [
+    (f"n{n}/beta_M8.npy", f"n{n}/opcount_M8.csv") for n in (256, 512, 1024, 2048)]
 NR_POLAR = (128, 88, 64, 256, 4)  # BER run (c): N, K (64 + CRC-24A), K_payload, E, M
 K1C_SHAPES = [(256, 128), (512, 256), (1024, 512), (2048, 1024)]
 # LDPC codes of the BER path: (name, base graph spec, Z, K_payload, E)
@@ -526,9 +568,180 @@ def csv_rows(path):
     return rows
 
 
+def jax_fer_rows(path, frames):
+    """{Eb/N0: {"fer_scl", "fer_dl"}} of a JAX FER CSV, checked to be whole
+    counts over `frames`."""
+
+    lines = Path(path).read_text().splitlines()
+    header = lines[0].split(",")
+    rows = {}
+    for line in lines[1:]:
+        row = dict(zip(header, map(float, line.split(","))))
+        for key in ("fer_scl", "fer_dl"):  # 7 significant digits
+            c = row[key] * frames
+            check(abs(c - round(c)) <= 5e-7 * c + 1e-9, f"{path} {key} is not a count over {frames}")
+        rows[row["snr_db"]] = {"fer_scl": row["fer_scl"], "fer_dl": row["fer_dl"]}
+    return rows
+
+
 def fer_z(p1, n1, p2, n2):
     se = math.sqrt(p1 * (1 - p1) / n1 + p2 * (1 - p2) / n2)
     return (p1 - p2) / se if se > 0 else (0.0 if p1 == p2 else math.inf)
+
+
+def fer_envelope(reset_counts, counts):
+    """The FER sweep CLI over the rest of its envelope, each run held to its
+    JAX CSV at |z| < 3 and through K1; returns K1's launches."""
+
+    import torch
+
+    from polar_code_tpu_torch.eval import run_fer_sweep
+
+    state = json.loads((REPO / "results" / "n1024" / "sweep_state.json").read_text())
+    n1024_frames = math.ceil(state["config"]["frames"] / state["config"]["batch"]) * state["config"]["batch"]
+    envelope = [(f"P(128,64) M={M}", ["--M", str(M), "--snr_lo", "4.0", "--snr_hi", "5.0"],
+                 f"beta_M{M}.npy", f"fer_M{M}.csv", SWEEP_FRAMES, JAX_FRAMES_PER_POINT)
+                for M in ENVELOPE_MS]
+    envelope += [(f"P({n},{n // 2}) M=8", ["--M", "8", "--N", str(n), "--K", str(n // 2),
+                                          "--construction", "gaussian_bitrev",
+                                          "--snr_lo", str(snr), "--snr_hi", str(snr)],
+                  f"n{n}/beta_M8.npy", f"n{n}/fer_M8.csv", ENVELOPE_N_FRAMES, jax_frames or n1024_frames)
+                 for n, (snr, jax_frames) in ENVELOPE_N.items()]
+    env_launches = 0
+    for label, flags, beta_rel, csv_rel, frames, jax_frames in envelope:
+        ref = jax_fer_rows(REPO / "results" / csv_rel, jax_frames)
+        reset_counts()
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+            rows = run_fer_sweep.main(flags + [
+                "--retries", "8", "--beta", str(REPO / "checkpoints" / beta_rel), "--batch", "4096",
+                "--frames", str(frames), "--snr_step", "1.0",
+                "--out_dir", f"{tmp}/results", "--plot_dir", f"{tmp}/plots"])
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches, _, plain_cuda = counts()
+        env_launches += launches
+        steps = len(rows) * math.ceil(frames / 4096)
+        print(f"FER path {label}: {launches} K1 launches over {steps} FER steps, plain decoders on "
+              f"CUDA {plain_cuda} times, {len(rows) * frames / secs:.0f} frames/s")
+        check(launches >= steps, f"the {label} FER sweep did not go through K1")
+        check(plain_cuda == 0, f"a plain decoder ran on CUDA in the {label} FER sweep")
+        for row in rows:
+            for key in ("fer_scl", "fer_dl"):
+                p1, p2 = row[key], ref[row["snr_db"]][key]
+                check(math.isfinite(p1) and 0.0 < p1 < 1.0, f"{label} {key} at {row['snr_db']} dB is {p1}")
+                z = fer_z(p1, frames, p2, jax_frames)
+                print(f"  {label} {row['snr_db']} dB {key}: port {p1:.6e} ({frames} frames) vs "
+                      f"JAX {p2:.6e} ({jax_frames} frames): z = {z:+.3f}")
+                check(abs(z) < 3.0, f"{label} {key} at {row['snr_db']} dB is off the JAX sweep (z={z:.2f})")
+    return env_launches
+
+
+def training_path(reset_counts, counts):
+    """Phase 4b: dataset shards on the card held to the committed shards'
+    rates, β training held to the JAX trainer's golden run, and opcount held
+    to the committed CSVs; returns K1's launches."""
+
+    import torch
+
+    from polar_code_tpu_torch import config
+    from polar_code_tpu_torch.channel import noise_var_coded
+    from polar_code_tpu_torch.eval import opcount
+    from polar_code_tpu_torch.interop import off_diag_from_numpy
+    from polar_code_tpu_torch.polar.construct import construct_info_set
+    from polar_code_tpu_torch.train import make_dataset, train_beta
+    from polar_code_tpu_torch.utils.seeding import make_generator
+
+    metas = json.loads((GOLDEN / "dataset_meta.json").read_text())
+    train_launches = 0
+    for label, M, n, k, construction, snr, frames, shard_name in DATASETS:
+        ref = metas[shard_name]
+        reset_counts()
+        with tempfile.TemporaryDirectory() as tmp:
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                make_dataset.main([
+                    "--M", str(M), "--N", str(n), "--K", str(k), "--construction", construction,
+                    "--snr_db", str(snr), "--frames", str(frames), "--seed", "0", "--batch", "4096",
+                    "--out", f"{tmp}/d"])
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            print(out.getvalue(), end="")
+            # the generation loop's own rate: the CLI's last progress line
+            loop_rate = int(re.findall(r"([\d,]+) frames/s", out.getvalue())[-1].replace(",", ""))
+            with np.load(f"{tmp}/d_part0.npz") as f:
+                meta, x, y = json.loads(str(f["meta"])), f["abs_l0"], f["flip_idx"]
+        launches, _, plain_cuda = counts()
+        train_launches += launches
+        frames, k_bits = meta["frames"], meta["K"]
+        chunks = math.ceil(frames / 4096)
+        print(f"dataset {label}: {frames} frames in {secs:.3f} s, {frames / secs:.0f} frames/s with the "
+              f"shard's save, {loop_rate} frames/s without; {launches} K1 launches over {chunks} chunks, "
+              f"plain decoders on CUDA {plain_cuda} times")
+        check(launches >= chunks, f"dataset {label} did not go through K1")
+        check(plain_cuda == 0, f"a plain decoder ran on CUDA in dataset {label}")
+        check(meta["samples"] == y.size and x.shape == (y.size, k_bits) and x.dtype == np.float32
+              and y.dtype == np.int32, f"dataset {label}: shard schema")
+        check(bool(np.all(np.isfinite(x)) and np.all((y >= 0) & (y < k_bits))), f"dataset {label}: values")
+        for what, ours, theirs in (
+                ("labelled", meta["samples"], ref["samples"]),
+                ("baseline failures", meta["samples"] + meta["failures"], ref["samples"] + ref["failures"])):
+            p1, p2 = ours / frames, theirs / ref["frames"]
+            z = fer_z(p1, frames, p2, ref["frames"])
+            print(f"  {what}: port {ours}/{frames} = {p1:.6e} vs committed {theirs}/{ref['frames']} "
+                  f"= {p2:.6e}: z = {z:+.3f}")
+            check(abs(z) < 3.0, f"dataset {label}: {what} rate off the committed shard (z={z:.2f})")
+        # where a chunk's time goes: the oracle chunk the CLI runs, alone
+        cfg = config.get_config()
+        cfg.N, cfg.K = n, k
+        chunk = make_dataset.make_oracle_chunk(
+            cfg, construct_info_set(n, k, method=construction), M, 4096, 8, compact=4096,
+            device=torch.device("cuda"))
+        nv = noise_var_coded(snr, k, n)
+        profile_steps(lambda i: chunk(make_generator(7, i, device="cuda"), nv)["n_labeled"].item(),
+                      f"dataset chunks of {label}")
+
+    golden = np.load(GOLDEN / "train_beta_jax.npz")
+    a = json.loads(str(golden["args"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        shard = f"{tmp}/golden_part0.npz"
+        np.savez(shard, abs_l0=golden["x"], flip_idx=golden["y"], meta=str(golden["shard_meta"]))
+        args = train_beta.build_argparser().parse_args([
+            "--M", str(a["M"]), "--data", shard, "--epochs", str(a["epochs"]), "--lr", str(a["lr"]),
+            "--batch", str(a["batch"]), "--lambda_l2", str(a["lambda_l2"]), "--seed", str(a["seed"]),
+            "--val_frac", str(a["val_frac"]), "--checkpoint_dir", f"{tmp}/ckpt", "--log_dir", f"{tmp}/logs"])
+        hist = train_beta.train_beta(args, init=off_diag_from_numpy({"off_diag": golden["init_off_diag"]}))
+        got_csv = Path(f"{tmp}/logs/train_M{a['M']}.csv").read_text()
+        beta = np.load(f"{tmp}/ckpt/beta_M{a['M']}.npy")
+    got = np.array([[float(v) for v in line.split(",")] for line in got_csv.splitlines()[1:]])
+    ref_rows = golden["rows"]
+    check(got.shape == ref_rows.shape and got_csv.splitlines()[0] == str(golden["csv"]).splitlines()[0],
+          "β training: CSV shape")
+    loss_err = float(np.max(np.abs(got[:, [1, 3]] - ref_rows[:, [1, 3]]) / np.abs(ref_rows[:, [1, 3]])))
+    beta_err = float(np.max(np.abs(beta - golden["beta"])))
+    n_val = golden["y"].size - int(golden["y"].size * (1.0 - a["val_frac"]))
+    n_train = golden["y"].size - n_val
+    print(f"β training on the card ({golden['y'].size} samples, {a['epochs']} epochs, from the JAX init): "
+          f"losses within {loss_err:.3e} relative, β within {beta_err:.3e} absolute of the JAX run "
+          f"(bounds {TRAIN_LOSS_RTOL:g}, {TRAIN_BETA_ATOL:g})")
+    for row, ref_row, h in zip(got, ref_rows, hist):
+        print(f"  epoch {int(row[0])}: {h['seconds']:.4f} s; train_acc {row[2]:.6f} (JAX {ref_row[2]:.6f}), "
+              f"val_acc {row[4]:.6f} (JAX {ref_row[4]:.6f}); argmax near-ties {h['train_ties']} train, "
+              f"{h['val_ties']} val")
+        for col, total, ties in ((2, n_train, h["train_ties"]), (4, n_val, h["val_ties"])):
+            diff = abs(round(row[col] * total) - round(ref_row[col] * total))
+            check(diff <= ties, f"β training epoch {int(row[0])}: {diff} frames scored differently, "
+                                f"{ties} near-ties")
+    check(loss_err < TRAIN_LOSS_RTOL, f"β training losses off the JAX run ({loss_err:.3e})")
+    check(beta_err < TRAIN_BETA_ATOL, f"β off the JAX run ({beta_err:.3e})")
+
+    for beta_rel, csv_rel in OPCOUNT:
+        with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+            opcount.main(["--beta", str(REPO / "checkpoints" / beta_rel), "--report", f"{tmp}/op.csv"])
+            same = Path(f"{tmp}/op.csv").read_bytes() == (REPO / "results" / csv_rel).read_bytes()
+        print(f"opcount {beta_rel}: {'identical to' if same else 'DIFFERS from'} results/{csv_rel}")
+        check(same, f"opcount of {beta_rel} differs from results/{csv_rel}")
+    return train_launches
 
 
 def main():
@@ -839,7 +1052,15 @@ def main():
         print(f"  N=2048 {N2048_SNR} dB {key}: port {p1:.6e} ({N2048_FRAMES} frames) vs "
               f"JAX {p2:.6e} ({jax_frames} frames): z = {z:+.3f}")
         check(abs(z) < 3.0, f"N=2048 {key} is off the JAX sweep (z={z:.2f})")
+
+    # the rest of the FER envelope: P(128,64) at M 1, 2, 4, and P(N, N/2) M=8
+    # at N 256-1024, each held to its JAX CSV
+    env_launches = fer_envelope(reset_counts, counts)
     phase_done("4 FER path")
+
+    # ---- 4b. the training path: datasets, β training and opcount on the card ----
+    train_launches = training_path(reset_counts, counts)
+    phase_done("4b training path")
 
     # ---- 5. FER times ----
     llr_np, _ = make_llrs(np.random.default_rng(5), 4096, 5.0, info_set)
@@ -1229,7 +1450,7 @@ def main():
         "route": "cuda",
         "source": "polar_code_tpu_torch/csrc/scl_decode.cu",
         "replaces": "polar_code_tpu/ops/scl_pallas.py:293",
-        "launches": fer_launches + fer2048_launches + ber_scl_launches,
+        "launches": fer_launches + fer2048_launches + env_launches + train_launches + ber_scl_launches,
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -3,7 +3,10 @@
 `SymmetricBeta` is an `nn.Module`, as in the original reference:
 β = triu(off_diag, 1) + triu(off_diag, 1)ᵀ + I — symmetric with unit
 diagonal — and the forward is Q = |L0| @ β.  Only the strict upper
-triangle of `off_diag` affects the forward.
+triangle of `off_diag` affects the forward; the whole matrix (the unused
+lower triangle too) carries the L2 penalty in training, and
+`clamp_diagonal` zeroes the learnable diagonal (at init and after every
+optimizer step).
 """
 
 from __future__ import annotations
@@ -28,6 +31,13 @@ class SymmetricBeta(nn.Module):
         self.dim = dim
         off = (torch.rand((dim, dim), generator=generator) * 2.0 - 1.0) * init_range
         self.off_diag = nn.Parameter(off * (1.0 - torch.eye(dim)))
+
+    @torch.no_grad()
+    def clamp_diagonal(self) -> "SymmetricBeta":
+        """Zero the diagonal of `off_diag` in place; returns the module."""
+
+        self.off_diag.diagonal().zero_()
+        return self
 
     def beta_matrix(self) -> torch.Tensor:
         upper = torch.triu(self.off_diag, diagonal=1)

@@ -210,6 +210,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'polar_code_tpu.'))"
         " or m == 'polar_code_tpu']\n"
         "assert len(names) >= 20, names\n"
+        "new = {'polar_code_tpu_torch.train.make_dataset', 'polar_code_tpu_torch.train.train_beta',"
+        " 'polar_code_tpu_torch.eval.opcount'}\n"
+        "assert new <= set(names), sorted(new - set(names))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -222,6 +225,8 @@ def test_port_sources_and_chip_smoke_name_no_jax_import():
     from pathlib import Path
 
     files = sorted(Path("polar_code_tpu_torch").rglob("*.py")) + [Path("chip_smoke.py")]
+    for name in ("train/make_dataset.py", "train/train_beta.py", "eval/opcount.py"):
+        assert Path("polar_code_tpu_torch", name) in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):

@@ -88,6 +88,15 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    (f) `dl_scl` M=8 at 5.0 dB, each held to the JAX package's committed
    `results/ber_*.csv` or to its own bound; the kernels' counters grow and
    the plain decoders run 0 times on CUDA;
+   7b. the multi-process path: 2 ranks (`chip_smoke.py --rank-worker`,
+   torchrun's variables, gloo on localhost, both on cuda:0) build K1 and
+   K2 into a fresh directory (one `nvcc` a source across the ranks, the build lock)
+   and run the FER CLI at P(128,64) M=8, 8 retries, β `beta_M8.npy`, B=4096,
+   40960 frames at 4.0 and 5.0 dB with the frames split and with
+   `--snr_split`, and BER run (a) at 2.5 dB; every CSV byte-identical to
+   the one-process run's, only rank 0 writes, each rank's JSON line shows
+   K1 and K2 launched and the plain decoders 0 times; FER-step frames/s at
+   5.0 dB with 1, 2 and 4 ranks on the card (informative);
 8. BER times: K2 and its plain version at the shapes of phase 6, their
    bounds, and K2 alone at QC-IRA 4×8 Z=31 two-min B=65536 and B=1 (a
    call's floor) and QC-IRA 46×68 Z=383 two-min B=1024
@@ -134,6 +143,7 @@ import dataclasses  # noqa: E402
 import io  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
+import os  # noqa: E402
 import re  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
@@ -744,6 +754,233 @@ def training_path(reset_counts, counts):
     return train_launches
 
 
+# phase 7b, the multi-process path: ranks joined by gloo on localhost, all
+# on the one card; FER at P(128,64) M=8 (40960 frames at 4.0 and 5.0 dB),
+# BER run (a) at 2.5 dB, and the FER step timed at 5 dB over 409600 frames
+MP_SOURCES = ("scl_decode.cu", "nms_decode.cu")
+MP_TIMED_FRAMES = 409600
+RANK_TAG = "RANK_RESULT "
+
+
+def mp_fer_argv(out, frames, snr_lo, snr_hi):
+    return ["--M", "8", "--retries", "8", "--beta", str(REPO / "checkpoints" / "beta_M8.npy"),
+            "--batch", "4096", "--frames", str(frames), "--snr_lo", str(snr_lo),
+            "--snr_hi", str(snr_hi), "--snr_step", "1.0", "--out_dir", f"{out}/fer",
+            "--plot_dir", f"{out}/plots"]
+
+
+def mp_ber_argv(out):
+    return ["--scheme", "nr_ldpc", "--bg", "ira4x8", "--Z", "31", "--nms_exact", "--K_payload",
+            "100", "--K_crc", "24", "--E", "248", "--EbN0_lo", "2.5", "--EbN0_hi", "2.5",
+            "--batch", "4096", "--seed", "0", "--err_cap", "1000000000",
+            "--bits_cap", str(BER_FRAMES * 100), "--out", f"{out}/ber.csv"]
+
+
+def fer_rate(text):
+    """Frames/s of the FER CLI's throughput line (its sweep loop alone)."""
+
+    m = re.search(r"\((\d+) frames/s on (\d+) device\(s\)\)", text)
+    check(m is not None, "the FER sweep printed no throughput line")
+    return int(m.group(1)), int(m.group(2))
+
+
+def rank_worker(spec_path):
+    """One rank of phase 7b (`chip_smoke.py --rank-worker <spec.json>`, with
+    torchrun's variables set): build the path's kernels, all sources at once
+    (into the spec's build directory when it names one), run the spec's CLI
+    calls ("{rank}" in an argument becomes the rank) and the timed FER call,
+    and print one JSON line of this rank's launch counts, builds and rate."""
+
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from polar_code_tpu_torch import _build
+    from polar_code_tpu_torch.eval import run_ber_sweep, run_fer_sweep
+    from polar_code_tpu_torch.nr.ldpc.decode_nms import decode_ldpc_nms_batch
+    from polar_code_tpu_torch.nr.ldpc.nms_cuda import decode_ldpc_nms_cuda
+    from polar_code_tpu_torch.ops.scl import decode_scl_batch
+    from polar_code_tpu_torch.ops.scl_cuda import decode_scl_cuda
+    from polar_code_tpu_torch.parallel.mesh import maybe_distributed_init, process_index, sync_processes
+    from polar_code_tpu_torch.utils.cache import enable_compilation_cache
+    from polar_code_tpu_torch.utils.device import resolve_device
+
+    spec = json.loads(Path(spec_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if spec["build_dir"]:
+        enable_compilation_cache(spec["build_dir"])
+    maybe_distributed_init()
+    rank = process_index()
+    device = resolve_device(spec["device"])
+    builds = {}
+    if device.type == "cuda":
+        with ThreadPoolExecutor(max_workers=len(MP_SOURCES)) as pool:
+            for src, res in zip(MP_SOURCES, pool.map(_build.build, MP_SOURCES)):
+                builds[src] = {"nvcc": not res.cached, "seconds": round(res.seconds, 2)}
+    clis = {"fer": run_fer_sweep.main, "ber": run_ber_sweep.main}
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def run(cli, argv):
+        decode_scl_cuda.launches = decode_ldpc_nms_cuda.launches = 0
+        decode_scl_batch.cuda_calls = decode_ldpc_nms_batch.cuda_calls = 0
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            clis[cli]([a.replace("{rank}", str(rank)) for a in argv] + ["--device", spec["device"]])
+            sync()
+        counts = [decode_scl_cuda.launches, decode_ldpc_nms_cuda.launches,
+                  decode_scl_batch.cuda_calls + decode_ldpc_nms_batch.cuda_calls]
+        return counts, out.getvalue()
+
+    runs = {name: run(cli, argv)[0] for name, cli, argv in spec["runs"]}
+    sync_processes("timed", collective=True)
+    _, text = run("fer", spec["timed"])
+    fps, n_dev = fer_rate(text) if rank == 0 else (None, None)
+    print(RANK_TAG + json.dumps({
+        "rank": rank, "device": str(device), "builds": builds, "runs": runs,
+        "k1": sum(r[0] for r in runs.values()), "k2": sum(r[1] for r in runs.values()),
+        "plain": sum(r[2] for r in runs.values()), "fps": fps, "devices": n_dev,
+    }), flush=True)
+    return 0
+
+
+def launch_ranks(world, spec, tmp, timeout_s=300):
+    """Run `world` rank workers of `spec` (env init on a free localhost port);
+    returns their JSON lines in rank order.  Every worker is ended before
+    this returns."""
+
+    import socket
+
+    spec_path = Path(tmp) / f"spec_{world}.json"
+    spec_path.write_text(json.dumps(spec))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    try:
+        for rank in range(world):
+            env = dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--rank-worker", str(spec_path)],
+                env=env, cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        deadline = time.perf_counter() + timeout_s
+        outs = [p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith(RANK_TAG)]
+        check(p.returncode == 0 and len(lines) == 1,
+              f"rank {rank} of {world} failed (exit {p.returncode}):\n{out[-4000:]}")
+        results.append(json.loads(lines[0][len(RANK_TAG):]))
+    return results
+
+
+def multi_process_path(reset_counts, counts, device="cuda"):
+    """Phase 7b: the sweep CLIs as 2 ranks on the one card, their CSVs
+    byte-identical to the one-process runs, every rank through K1 and K2,
+    one nvcc a source across the ranks; FER-step frames/s at 1, 2 and 4 ranks.  Returns (K1, K2) launches of the
+    main-path runs (one-process and ranks)."""
+
+    import torch
+
+    from polar_code_tpu_torch.channel import awgn_llr, bpsk, noise_var_coded
+    from polar_code_tpu_torch.eval import run_ber_sweep, run_fer_sweep
+    from polar_code_tpu_torch.ops.crc import attach_crc_batch, crc_degree
+    from polar_code_tpu_torch.ops.polar_transform import encode_batch
+    from polar_code_tpu_torch.ops.scl_cuda import decode_scl_cuda
+    from polar_code_tpu_torch.polar.construct import construct_info_set
+    from polar_code_tpu_torch.utils.device import resolve_device
+    from polar_code_tpu_torch.utils.seeding import make_generator
+
+    dev = resolve_device(device)
+
+    # what every rank repeats: the whole chunk's draws, CRC and encode, at
+    # N=2048 B=4096, beside K1 on a rank's half of it (2 ranks)
+    info_big = construct_info_set(2048, 1024, method="gaussian_bitrev")
+    nv = noise_var_coded(1.5, 1024, 2048)
+    tag = iter(range(10**6))
+
+    def draw():
+        i = next(tag)
+        payload = torch.randint(0, 2, (4096, 1024 - crc_degree(CRC)), device=dev, dtype=torch.int8,
+                                generator=make_generator(0, 15, i, 0, device=dev))
+        code = encode_batch(attach_crc_batch(payload, CRC), info_big, 2048)
+        return awgn_llr(make_generator(0, 15, i, 1, device=dev), bpsk(code), nv)
+
+    draw_ms = cuda_time_ms(draw, reps=20)
+    half = draw()[:2048].contiguous()
+    half_ms = cuda_time_ms(lambda: decode_scl_cuda(half, info_big, 8, CRC), reps=10)
+    print(f"a rank's repeated chunk generation at P(2048,1024) B=4096 (draws, CRC, encode, "
+          f"AWGN): {draw_ms:.4f} ms; K1 on its half (B=2048, M=8): {half_ms:.4f} ms")
+
+    fer_frames = mp_fer_argv("{out}", BER_FRAMES, 4.0, 5.0)
+    timed = mp_fer_argv("{out}", MP_TIMED_FRAMES, 5.0, 5.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        one = f"{tmp}/one"
+        with contextlib.redirect_stdout(io.StringIO()):
+            run_fer_sweep.main([a.replace("{out}", one) for a in fer_frames] + ["--device", device])
+            run_ber_sweep.main(mp_ber_argv(one) + ["--device", device])
+        k1, k2, plain = counts()
+        print(f"one process: K1 launches {k1}, K2 launches {k2}, plain decoders on CUDA {plain}")
+        check(k1 > 0 and k2 > 0 and plain == 0, "the one-process runs missed a kernel")
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            run_fer_sweep.main([a.replace("{out}", f"{tmp}/one_timed") for a in timed]
+                               + ["--device", device])
+        rates = {1: fer_rate(out.getvalue())[0]}
+
+        ranks = f"{tmp}/rank{{rank}}"
+        res = launch_ranks(2, {
+            "build_dir": f"{tmp}/build", "device": device,
+            "runs": [["fer_frames", "fer", [a.replace("{out}", f"{ranks}/frames") for a in fer_frames]],
+                     ["fer_split", "fer", [a.replace("{out}", f"{ranks}/split") for a in fer_frames]
+                      + ["--snr_split"]],
+                     ["ber_frames", "ber", mp_ber_argv(f"{ranks}/frames")]],
+            "timed": [a.replace("{out}", f"{ranks}/timed") for a in timed],
+        }, tmp)
+        for r in res:
+            print(RANK_TAG + json.dumps(r))
+            check(r["k1"] > 0 and r["k2"] > 0, f"rank {r['rank']} did not launch K1 and K2")
+            if dev.type == "cuda":
+                check(r["plain"] == 0, f"a plain decoder ran on CUDA in rank {r['rank']}")
+        for src in MP_SOURCES if dev.type == "cuda" else ():
+            who = [r["rank"] for r in res if r["builds"][src]["nvcc"]]
+            print(f"build log: {src}: nvcc ran on rank(s) {who}; the other rank loaded its build")
+            check(len(who) == 1, f"{src} was compiled {len(who)} times by 2 ranks")
+        for name, rel, ref in (("FER frames", "frames/fer/fer_M8.csv", "fer/fer_M8.csv"),
+                               ("FER --snr_split", "split/fer/fer_M8.csv", "fer/fer_M8.csv"),
+                               ("BER (a) frames", "frames/ber.csv", "ber.csv")):
+            got = Path(f"{tmp}/rank0/{rel}").read_bytes()
+            same = got == Path(f"{one}/{ref}").read_bytes()
+            print(f"2 ranks, {name}: CSV {'byte-identical to' if same else 'DIFFERS from'} "
+                  f"the one-process run")
+            check(same, f"the 2-rank {name} CSV differs from the one-process CSV")
+            check(not Path(f"{tmp}/rank1/{rel}").exists(), f"rank 1 wrote {rel}")
+        rates[2] = res[0]["fps"]
+        check(res[0]["devices"] == 2, "the 2-rank FER sweep did not run on 2 devices")
+        k1 += sum(r["k1"] for r in res)
+        k2 += sum(r["k2"] for r in res)
+
+        res = launch_ranks(4, {
+            "build_dir": None, "device": device,
+            "runs": [["warm", "fer", [a.replace("{out}", f"{tmp}/w4_{{rank}}")
+                                      for a in mp_fer_argv("{out}", 16384, 5.0, 5.0)]]],
+            "timed": [a.replace("{out}", f"{tmp}/w4_{{rank}}") for a in timed],
+        }, tmp)
+        rates[4] = res[0]["fps"]
+    smi = nvidia_smi_line() if dev.type == "cuda" else "no card"
+    print(f"FER step (P(128,64) M=8, 8 retries, B=4096 over all ranks, 5.0 dB, "
+          f"{MP_TIMED_FRAMES} frames) on {smi}, ranks on one card: "
+          + ", ".join(f"{w} rank(s) {fps} frames/s" for w, fps in rates.items()))
+    return k1, k2
+
+
 def main():
     import torch
 
@@ -1229,6 +1466,10 @@ def main():
           f"plain decoders on CUDA {ber_plain}")
     phase_done("7 BER path")
 
+    # ---- 7b. the multi-process path: the sweep CLIs as ranks on the card ----
+    mp_scl_launches, mp_nms_launches = multi_process_path(reset_counts, counts)
+    phase_done("7b multi-process path")
+
     # ---- 8. BER times ----
     print(f"BER times on {smi}:")
     nms_times = {}
@@ -1450,7 +1691,8 @@ def main():
         "route": "cuda",
         "source": "polar_code_tpu_torch/csrc/scl_decode.cu",
         "replaces": "polar_code_tpu/ops/scl_pallas.py:293",
-        "launches": fer_launches + fer2048_launches + env_launches + train_launches + ber_scl_launches,
+        "launches": (fer_launches + fer2048_launches + env_launches + train_launches
+                     + ber_scl_launches + mp_scl_launches),
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -1462,7 +1704,7 @@ def main():
         "route": "cuda",
         "source": "polar_code_tpu_torch/csrc/nms_decode.cu",
         "replaces": "polar_code_tpu/nr/ldpc/nms_pallas.py:31",
-        "launches": ber_nms_launches,
+        "launches": ber_nms_launches + mp_nms_launches,
         "max_abs_err": float(nms_max_err),
         "ms": nms_ms,
         "plain_ms": nms_plain_ms,
@@ -1488,6 +1730,6 @@ def main():
 
 
 if __name__ == "__main__":
-    code = main()
+    code = rank_worker(sys.argv[2]) if sys.argv[1:2] == ["--rank-worker"] else main()
     faulthandler.cancel_dump_traceback_later()
     sys.exit(code)

@@ -2,14 +2,19 @@
 
 Each `csrc/*.cu` file has a plain `extern "C"` interface and is compiled by
 `nvcc` alone (no PyTorch headers, so a build takes seconds) into the
-git-ignored `build/` directory at the repository root, then loaded with
-`ctypes`.  The library name carries a hash of the source and the flags, so
-an edited source is rebuilt and an unchanged one is reused.
+build directory, then loaded with `ctypes`.  The directory is the
+git-ignored `build/` at the repository root unless
+`utils/cache.py::enable_compilation_cache` points `BUILD_DIR` elsewhere.
+The library name carries a hash of the source and the flags, so an edited
+source is rebuilt and an unchanged one is reused.  A file lock a library
+makes processes that start together (the ranks of a multi-process run) run
+`nvcc` once: the others wait and load its result.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -51,29 +56,33 @@ def _nvcc() -> str:
 
 
 def build(source: str) -> BuildResult:
-    """Compile `csrc/<source>` unless an identical build exists."""
+    """Compile `csrc/<source>` into `BUILD_DIR` unless an identical build
+    exists there.  Holds `<lib>.lock` over the check and the compile."""
 
     src = CSRC / source
     key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{src.stem}_{key}.so"
+    build_dir = Path(BUILD_DIR)
+    lib = build_dir / f"{src.stem}_{key}.so"
     log_path = lib.with_suffix(".log")
-    if lib.exists():
-        log = log_path.read_text() if log_path.exists() else ""
-        return BuildResult(lib, 0.0, log, True)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-        capture_output=True, text=True, timeout=600,
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {src.name} (exit {proc.returncode}):\n{proc.stderr}")
-    log = proc.stdout + proc.stderr
-    log_path.write_text(log)
-    os.replace(tmp, lib)
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(lib.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if lib.exists():
+            log = log_path.read_text() if log_path.exists() else ""
+            return BuildResult(lib, 0.0, log, True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            capture_output=True, text=True, timeout=600,
+        )
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed on {src.name} (exit {proc.returncode}):\n{proc.stderr}")
+        log = proc.stdout + proc.stderr
+        log_path.write_text(log)
+        os.replace(tmp, lib)
     return BuildResult(lib, seconds, log, False)
 
 

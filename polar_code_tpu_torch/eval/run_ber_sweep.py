@@ -16,6 +16,13 @@ The stopping rule is the JAX CLI's: simulate a chunk, add its counters, and
 go on while `bit_errors < err_cap` and `bits_total < bits_cap` (a cap may be
 overshot by at most one chunk).  Chunks are counted in order, one host sync
 a chunk.
+
+Launched as several processes (`torchrun --nproc-per-node=<cards> -m
+polar_code_tpu_torch.eval.run_ber_sweep ...`), the ranks split each chunk's
+frames and sum its counters before the stopping rule reads them, so every
+rank stops on the same chunk; with `--snr_split` they own whole points.
+Either way the CSV is byte-identical to a one-process run at the same
+`--batch` (rounded to a multiple of the ranks).  Only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -33,8 +40,17 @@ from ..dlscl.beta import beta_from_checkpoint
 from ..nr.ldpc import load_base_graph
 from ..nr.ldpc.nr_tables import load_base_graph_file
 from ..nr.ldpc.qc_ira import make_qc_ira_bg, parse_ira_spec
+from ..parallel.mesh import (
+    allreduce_counters,
+    is_coordinator,
+    maybe_distributed_init,
+    merge_point_rows,
+    sweep_split,
+    sync_processes,
+)
 from ..polar.construct import construct_info_set
 from ..sim.pipeline import BER_SCHEMES, make_ber_chunk
+from ..utils.cache import enable_compilation_cache
 from ..utils.device import resolve_device
 from ..utils.resume import SweepState
 from ..utils.seeding import seed_all
@@ -64,8 +80,11 @@ def _noise_var(EbN0_dB: float, payload_bits: int, coded_bits: int) -> float:
 
 
 def run(args: argparse.Namespace) -> List[Dict[str, float]]:
-    device = resolve_device(args.device)
     seed_all(args.seed)
+    enable_compilation_cache()
+    maybe_distributed_init()
+    coord = is_coordinator()
+    device = resolve_device(args.device)
 
     N = args.N if args.N is not None else args.E
     K_total = args.K_payload + args.K_crc
@@ -97,7 +116,10 @@ def run(args: argparse.Namespace) -> List[Dict[str, float]]:
 
     # the matrix as stored, as the JAX CLI's np.load reads it
     beta = torch.from_numpy(np.asarray(beta_from_checkpoint(args.beta))) if args.beta else None
-    batch = max(1, args.batch)  # one device: no rounding to a device count
+
+    # Eb/N0-point split: whole points a rank, rows merged bit-exactly below
+    split = sweep_split(args.snr_split, args.batch, args.state)
+    batch = split.batch
 
     chunk_fn = make_ber_chunk(
         scheme=args.scheme, E=args.E, N=N, K_payload=args.K_payload,
@@ -108,6 +130,7 @@ def run(args: argparse.Namespace) -> List[Dict[str, float]]:
         ldpc_Z=args.Z if args.scheme == "nr_ldpc" else None,
         nms_exact=args.nms_exact, compact=args.compact,
         adaptive_from=args.adaptive_from,
+        shard=split.shard,
     )
     state = SweepState(
         args.state,
@@ -123,11 +146,20 @@ def run(args: argparse.Namespace) -> List[Dict[str, float]]:
             "max_iter": args.max_iter, "alpha": args.alpha,
             "nms_exact": args.nms_exact,
         },
+        writer=coord,
     )
 
     EbN0_values = np.arange(args.EbN0_lo, args.EbN0_hi + 1e-12, args.EbN0_step)
+    # the columns every row of this sweep shares
+    meta = {
+        "scheme": args.scheme, "code": args.scheme, "N_or_E": args.E,
+        "K_payload": args.K_payload, "K_crc": args.K_crc,
+        "rate": args.K_payload / args.E, "params": params_label,
+    }
     rows: List[Dict[str, float]] = []
-    for point_idx, EbN0_dB in enumerate(EbN0_values):
+    rows_by_idx: Dict[int, Dict[str, float]] = {}
+    for point_idx in split.points(len(EbN0_values)):
+        EbN0_dB = EbN0_values[point_idx]
         cached = state.get(float(EbN0_dB))
         if cached is not None:
             rows.append(cached)
@@ -139,20 +171,18 @@ def run(args: argparse.Namespace) -> List[Dict[str, float]]:
             out = chunk_fn(args.seed, point_idx, chunk_idx, nv)
             chunk_idx += 1
             values = torch.stack([v.to(torch.float64) for v in out.values()]).tolist()
-            for k, v in zip(out, values):
-                acc[k] += v if k == "work_sum" else int(v)
+            chunk = {k: v if k == "work_sum" else int(v) for k, v in zip(out, values)}
+            if not split.snr_split:
+                # every rank must read the same totals to stop on the same chunk
+                chunk = allreduce_counters(chunk)
+            for k, v in chunk.items():
+                acc[k] += v
 
         ber = acc["bit_errors"] / acc["bits_total"] if acc["bits_total"] else float("nan")
         fer = acc["frame_errors"] / acc["frames"] if acc["frames"] else float("nan")
         avg_work = acc["work_sum"] / acc["frames"] if acc["frames"] else 0.0
         row = {
-            "scheme": args.scheme,
-            "code": args.scheme,
-            "N_or_E": args.E,
-            "K_payload": args.K_payload,
-            "K_crc": args.K_crc,
-            "rate": args.K_payload / args.E,
-            "params": params_label,
+            **meta,
             "EbN0_dB": float(EbN0_dB),
             "bits_total": acc["bits_total"],
             "bit_errors": acc["bit_errors"],
@@ -161,7 +191,15 @@ def run(args: argparse.Namespace) -> List[Dict[str, float]]:
             "avg_work": avg_work,
         }
         state.record(float(EbN0_dB), row)
+        rows_by_idx[point_idx] = row
         rows.append(row)
+
+    if split.snr_split:
+        # merge the numeric fields across ranks (a collective)
+        fields = ["EbN0_dB", "bits_total", "bit_errors", "ber", "fer", "avg_work"]
+        merged = merge_point_rows(rows_by_idx, len(EbN0_values), fields,
+                                  int_fields=("bits_total", "bit_errors"))
+        rows = [{**meta, **values} for values in merged]
     return rows
 
 
@@ -246,7 +284,10 @@ def parse_args(argv: Optional[Iterable[str]] = None) -> argparse.Namespace:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", type=str, required=True, help="CSV output path")
     parser.add_argument("--plot", type=str, help="Optional plot path")
-    parser.add_argument("--batch", type=int, default=2048, help="Frames per device chunk")
+    parser.add_argument(
+        "--batch", type=int, default=2048,
+        help="Frames per chunk over all ranks (rounded to a multiple of the ranks)",
+    )
     parser.add_argument(
         "--state", type=str, default=None,
         help="Optional JSON state file for checkpoint/resume of sweep points",
@@ -259,8 +300,9 @@ def parse_args(argv: Optional[Iterable[str]] = None) -> argparse.Namespace:
     )
     parser.add_argument(
         "--snr_split", action="store_true",
-        help="Multi-host point split of the JAX CLI; a no-op in a single "
-             "process, which is all this port runs so far",
+        help="Multi-host: assign whole Eb/N0 points to processes round-robin "
+             "(each on its local devices, no per-chunk DCN collectives); "
+             "rows are merged bit-exactly at the end. No-op single-process.",
     )
     parser.add_argument(
         "--device", type=str, default="cuda",
@@ -276,14 +318,16 @@ def parse_args(argv: Optional[Iterable[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[Iterable[str]] = None) -> List[Dict[str, float]]:
     args = parse_args(argv)
     rows = run(args)
-    out_path = Path(args.out)
-    out_path.parent.mkdir(parents=True, exist_ok=True)
-    write_csv(rows, out_path)
-    if args.plot:
-        if importlib.util.find_spec("matplotlib") is None:
-            print("Skipped BER plot: matplotlib is not installed")
-        else:
-            plot_rows(rows, Path(args.plot))
+    if is_coordinator():
+        out_path = Path(args.out)
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        write_csv(rows, out_path)
+        if args.plot:
+            if importlib.util.find_spec("matplotlib") is None:
+                print("Skipped BER plot: matplotlib is not installed")
+            else:
+                plot_rows(rows, Path(args.plot))
+    sync_processes("ber_sweep_end")
     return rows
 
 

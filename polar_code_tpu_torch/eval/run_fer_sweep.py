@@ -9,6 +9,13 @@ the CUDA kernel.
     python -m polar_code_tpu_torch.eval.run_fer_sweep --M 8 \
         --beta checkpoints/beta_M8.npy --frames 102400
 
+Launched as several processes (`torchrun --nproc-per-node=<cards> -m
+polar_code_tpu_torch.eval.run_fer_sweep ...`, one rank a card), the ranks
+split each chunk's frames and sum the counters once a point, or with
+`--snr_split` own whole points; either way the CSV is byte-identical to a
+one-process run at the same `--batch` (rounded to a multiple of the ranks).
+Only rank 0 prints and writes the CSV, plot and state.
+
 Frame counts are rounded up to a whole number of chunks; FER/BER are
 normalized by the frames actually simulated.
 """
@@ -28,16 +35,29 @@ from .. import config
 from ..channel import noise_var_coded, noise_var_uncoded
 from ..interop import load_beta
 from ..polar.construct import construct_info_set
+from ..parallel.mesh import (
+    allreduce_counters,
+    is_coordinator,
+    maybe_distributed_init,
+    merge_point_rows,
+    sweep_split,
+    sync_processes,
+)
 from ..sim.pipeline import make_fer_chunk
+from ..utils.cache import enable_compilation_cache
 from ..utils.device import resolve_device
 from ..utils.resume import SweepState
 from ..utils.seeding import seed_all
 
 
 def run_sweep(args: argparse.Namespace) -> List[Dict[str, float]]:
-    device = resolve_device(args.device)
     cfg = config.get_config()
     seed_all(args.seed)
+    enable_compilation_cache()
+    maybe_distributed_init()
+    coord = is_coordinator()
+    say = print if coord else (lambda *a, **k: None)
+    device = resolve_device(args.device)
 
     if args.N:
         cfg.N = args.N
@@ -52,12 +72,19 @@ def run_sweep(args: argparse.Namespace) -> List[Dict[str, float]]:
         else np.array([args.snr_lo])
     )
     beta = load_beta(args.beta).beta_matrix().detach() if args.beta else None
-    batch = min(args.batch, max(args.frames, 1))
+
+    # Eb/N0-point split: each rank simulates whole points on its own card and
+    # the rows are merged bit-exactly at the end; otherwise each chunk's
+    # frames are split over the ranks.  The draws of a chunk depend only on
+    # (seed, SNR tag, chunk), so both give the CSV of an unsplit run.
+    split = sweep_split(args.snr_split, min(args.batch, max(args.frames, 1)), args.state)
+    batch = split.batch
 
     chunk_fn = make_fer_chunk(
         N=cfg.N, K=cfg.K, crc_poly=cfg.crc_poly, info_set=info_set,
         M=args.M, retries=args.retries, beta=beta, batch=batch, device=device,
         include_uncoded=args.include_uncoded, compact=args.compact,
+        shard=split.shard,
     )
     state = SweepState(
         args.state,
@@ -67,15 +94,18 @@ def run_sweep(args: argparse.Namespace) -> List[Dict[str, float]]:
             "retries": args.retries, "seed": args.seed, "batch": batch,
             "beta": args.beta or "", "include_uncoded": bool(args.include_uncoded),
         },
+        writer=coord,
     )
 
     results: List[Dict[str, float]] = []
     t_start = time.perf_counter()
     frames_done = 0
-    for snr_db in snr_points:
+    rows_by_idx: Dict[int, Dict[str, float]] = {}
+    for point_idx in split.points(len(snr_points)):
+        snr_db = snr_points[point_idx]
         cached = state.get(float(snr_db))
         if cached is not None:
-            print(f"SNR={snr_db:.2f} dB -> resumed from state")
+            say(f"SNR={snr_db:.2f} dB -> resumed from state")
             results.append(cached)
             continue
         nv_c = noise_var_coded(float(snr_db), cfg.K, cfg.N)
@@ -92,6 +122,8 @@ def run_sweep(args: argparse.Namespace) -> List[Dict[str, float]]:
                 acc[k] = acc.get(k, 0) + v
             total_frames += batch
             chunk_idx += 1
+        if not split.snr_split:
+            acc = allreduce_counters(acc)
         frames_done += total_frames
 
         row = {
@@ -104,27 +136,39 @@ def run_sweep(args: argparse.Namespace) -> List[Dict[str, float]]:
         if args.include_uncoded:
             row["fer_uncoded"] = acc["uncoded_errors"] / total_frames
             row["ber_uncoded"] = acc["uncoded_bit_errors"] / acc["bits_uncoded"]
-            print(
+            say(
                 f"SNR={snr_db:.2f} dB -> Uncoded FER={row['fer_uncoded']:.3e}, "
                 f"BER={row['ber_uncoded']:.3e}; "
                 f"SCL FER={row['fer_scl']:.3e}, BER={row['ber_scl']:.3e}; "
                 f"DL FER={row['fer_dl']:.3e}, BER={row['ber_dl']:.3e}"
             )
         else:
-            print(
+            say(
                 f"SNR={snr_db:.2f} dB -> SCL FER={row['fer_scl']:.3e}, "
                 f"BER={row['ber_scl']:.3e}; "
                 f"DL FER={row['fer_dl']:.3e}, BER={row['ber_dl']:.3e}"
             )
         state.record(float(snr_db), row)
+        rows_by_idx[point_idx] = row
         results.append(row)
+
+    if split.snr_split:
+        # merge the rows of every rank (a collective: every rank takes part)
+        fields = ["snr_db", "fer_scl", "ber_scl", "fer_dl", "ber_dl"]
+        if args.include_uncoded:
+            fields += ["fer_uncoded", "ber_uncoded"]
+        results = merge_point_rows(rows_by_idx, len(snr_points), fields)
 
     elapsed = time.perf_counter() - t_start
     if elapsed > 0:
-        print(
+        say(
             f"Simulated {frames_done} frames in {elapsed:.2f}s "
-            f"({frames_done / elapsed:.0f} frames/s on 1 device(s))"
+            f"({frames_done / elapsed:.0f} frames/s on {split.devices} device(s))"
         )
+
+    if not coord:
+        sync_processes("fer_sweep_end")
+        return results
 
     output_dir = Path(args.out_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
@@ -146,16 +190,17 @@ def run_sweep(args: argparse.Namespace) -> List[Dict[str, float]]:
                 f"{row['ber_dl']:.6e}",
             ])
             f.write(",".join(values) + "\n")
-    print(f"Saved FER table to {csv_path}")
+    say(f"Saved FER table to {csv_path}")
 
     if importlib.util.find_spec("matplotlib") is None:
-        print("Skipped FER plot: matplotlib is not installed")
+        say("Skipped FER plot: matplotlib is not installed")
     else:
         plot_dir = Path(args.plot_dir)
         plot_dir.mkdir(parents=True, exist_ok=True)
         plot_path = plot_dir / f"fer_M{args.M}.png"
         _plot(results, plot_path, args.include_uncoded)
-        print(f"Saved FER plot to {plot_path}")
+        say(f"Saved FER plot to {plot_path}")
+    sync_processes("fer_sweep_end")
     return results
 
 
@@ -208,7 +253,7 @@ def build_argparser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--batch", type=int, default=4096,
-        help="Frames per device step",
+        help="Frames per step over all ranks (rounded to a multiple of the ranks)",
     )
     parser.add_argument(
         "--state", type=str, default=None,
@@ -223,8 +268,10 @@ def build_argparser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--snr_split", action="store_true",
-        help="Multi-host point split of the JAX CLI; a no-op in a single "
-             "process, which is all this port runs so far",
+        help="Multi-host: assign whole Eb/N0 points to processes round-robin "
+             "(each on its local devices, no per-chunk DCN collectives) "
+             "instead of sharding frames globally; rows are merged "
+             "bit-exactly at the end. No-op single-process.",
     )
     parser.add_argument(
         "--device", type=str, default="cuda",

@@ -6,11 +6,17 @@ the FER step `make_fer_chunk` and the unified BER step `make_ber_chunk`.
 One call simulates `batch` frames on the device and returns summed counters
 as device tensors, so the caller syncs with the host once per chunk.  In the
 FER step the baseline SCL arm and the DL-SCL arm share the baseline decode.
+
+`shard=(rank, world)` splits the frames over `world` processes, where the
+JAX package takes a mesh: every rank draws and encodes the whole chunk from
+the chunk's generators, keeps rows [rank·B/world, (rank+1)·B/world) and
+decodes only those, and the counters count those rows.  The sum of the
+ranks' counters is then the unsplit chunk's.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +33,7 @@ from ..ops.adaptive import decode_scl_adaptive
 from ..ops.backend import make_scl_decoder
 from ..ops.crc import attach_crc_batch, crc_degree
 from ..ops.polar_transform import encode_batch
+from ..parallel.mesh import shard_frames
 from ..utils.seeding import make_generator
 
 # generator streams of one chunk
@@ -47,11 +54,15 @@ def make_fer_chunk(
     include_uncoded: bool = False,
     dtype: torch.dtype = torch.float32,
     compact: int = 0,
+    shard: Tuple[int, int] = (0, 1),
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Build the FER-sweep step: (seed, snr_tag, chunk_idx, σ²_coded,
-    σ²_uncoded) → dict of summed counters (0-d device tensors)."""
+    σ²_uncoded) → dict of summed counters (0-d device tensors) over this
+    shard's rows."""
 
     payload_bits = K - crc_degree(crc_poly)
+    rank, world = shard
+    rows = batch // world  # shard_frames raises unless world divides batch
     info_np = np.asarray(info_set)
     if beta is not None:
         beta = beta.to(device=device, dtype=dtype)
@@ -67,7 +78,9 @@ def make_fer_chunk(
         )
         msg = attach_crc_batch(payload, crc_poly)
         code = encode_batch(msg, info_np, N)
-        llr = awgn_llr(gen(_NOISE), bpsk(code), noise_var_coded, dtype=dtype)
+        llr = shard_frames(awgn_llr(gen(_NOISE), bpsk(code), noise_var_coded, dtype=dtype),
+                           rank, world)
+        msg = shard_frames(msg, rank, world)
 
         dl = decode_with_retries_batch(
             llr, info_np, M, retries, crc=crc_poly, beta=beta,
@@ -78,15 +91,18 @@ def make_fer_chunk(
             "dl_errors": torch.sum(~dl["success"]),
             "scl_bit_errors": torch.sum(dl["baseline_bits"] != msg),
             "dl_bit_errors": torch.sum(dl["best_path_bits"] != msg),
-            "bits_coded": torch.tensor(batch * K, device=device),
+            "bits_coded": torch.tensor(rows * K, device=device),
             "retries_used": torch.sum(dl["attempts_used"]),
         }
         if include_uncoded:
-            unc_llr = awgn_llr(gen(_UNCODED_NOISE), bpsk(payload), noise_var_uncoded, dtype=dtype)
-            unc_errs = torch.sum((unc_llr < 0).to(torch.int8) != payload, dim=1)
+            unc_llr = shard_frames(
+                awgn_llr(gen(_UNCODED_NOISE), bpsk(payload), noise_var_uncoded, dtype=dtype),
+                rank, world)
+            sent = shard_frames(payload, rank, world)
+            unc_errs = torch.sum((unc_llr < 0).to(torch.int8) != sent, dim=1)
             out["uncoded_errors"] = torch.sum(unc_errs > 0)
             out["uncoded_bit_errors"] = torch.sum(unc_errs)
-            out["bits_uncoded"] = torch.tensor(batch * payload_bits, device=device)
+            out["bits_uncoded"] = torch.tensor(rows * payload_bits, device=device)
         return out
 
     return chunk
@@ -118,6 +134,7 @@ def make_ber_chunk(
     nms_exact: bool = False,
     compact: int = 0,
     adaptive_from: int = 0,
+    shard: Tuple[int, int] = (0, 1),
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Build the unified-BER-sweep step: (seed, point_idx, chunk_idx, σ²) →
     dict of summed counters (0-d device tensors).
@@ -126,7 +143,8 @@ def make_ber_chunk(
     the LDPC iterations, or (adaptive) the re-decoded flags.  adaptive_from >
     0 (polar_scl only) decodes at that list size first and re-decodes CRC
     failures at M.  `nr_ldpc` takes the base graph and its lifting size Z;
-    its decode goes through the NMS kernel wrapper."""
+    its decode goes through the NMS kernel wrapper.  The counters count
+    this shard's rows."""
 
     if scheme not in BER_SCHEMES:
         raise ValueError(f"Unsupported scheme: {scheme}")
@@ -139,6 +157,8 @@ def make_ber_chunk(
             f"adaptive_from ({adaptive_from}) must be < M ({M}): the second "
             "stage must use a strictly larger list than the first"
         )
+    rank, world = shard
+    rows = batch // world  # shard_frames raises unless world divides batch
     H = None
     if scheme == "nr_ldpc":
         if ldpc_bg is None or ldpc_Z is None:
@@ -168,7 +188,9 @@ def make_ber_chunk(
                 codeword = rate_match_ldpc(encode_ldpc_batch(msg, H), E)
             else:
                 codeword = encode_batch(msg, info_np, N)
-        llr = awgn_llr(gen(_NOISE), bpsk(codeword), noise_var, dtype=dtype)
+        llr = shard_frames(awgn_llr(gen(_NOISE), bpsk(codeword), noise_var, dtype=dtype),
+                           rank, world)
+        payload = shard_frames(payload, rank, world)
 
         work = None
         if scheme == "polar_scl" and adaptive_from:
@@ -202,8 +224,8 @@ def make_ber_chunk(
         return {
             "bit_errors": torch.sum(frame_bit_errs),
             "frame_errors": torch.sum(frame_bit_errs > 0),
-            "bits_total": torch.tensor(batch * K_payload, device=device),
-            "frames": torch.tensor(batch, device=device),
+            "bits_total": torch.tensor(rows * K_payload, device=device),
+            "frames": torch.tensor(rows, device=device),
             "work_sum": (torch.sum(work.to(torch.float32)) if work is not None
                          else torch.zeros((), device=device)),
         }

@@ -35,6 +35,7 @@ from ..ops.backend import auto_compact_capacity, make_scl_decoder, stable_partit
 from ..ops.crc import attach_crc_batch
 from ..ops.polar_transform import encode_batch
 from ..polar.construct import construct_info_set
+from ..utils.cache import enable_compilation_cache
 from ..utils.device import resolve_device
 from ..utils.seeding import make_generator, seed_all
 
@@ -123,6 +124,7 @@ def make_oracle_chunk(
 
 
 def generate_samples(args: argparse.Namespace) -> None:
+    enable_compilation_cache()
     device = resolve_device(args.device)
     cfg = config.get_config()
     if getattr(args, "N", None):

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..dlscl.beta import SymmetricBeta
+from ..utils.cache import enable_compilation_cache
 from ..utils.device import resolve_device
 from ..utils.seeding import make_generator, seed_all
 
@@ -104,6 +105,7 @@ def train_beta(args: argparse.Namespace, init: Optional[SymmetricBeta] = None) -
     relative (argmax near-ties) at the step that scored them, and `seconds`,
     the epoch's host-clock time up to its last host sync."""
 
+    enable_compilation_cache()
     device = resolve_device("cpu" if args.cpu else None)
     seed_all(args.seed)
     abs_l0, labels = _load_dataset(args.data)

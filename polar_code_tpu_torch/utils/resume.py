@@ -15,8 +15,12 @@ from typing import Dict, Optional
 class SweepState:
     """Per-point durable state for resumable sweeps."""
 
-    def __init__(self, path: Optional[str], config: Dict) -> None:
+    def __init__(self, path: Optional[str], config: Dict, *, writer: bool = True) -> None:
+        # multi-process: every rank reads the state (the skip decisions must
+        # agree, since the chunks hold collectives), only the coordinator
+        # writes it
         self.path = Path(path) if path else None
+        self.writer = writer
         self.config = config
         self.rows: Dict[str, Dict] = {}
         if self.path and self.path.exists():
@@ -36,7 +40,7 @@ class SweepState:
 
     def record(self, point: float, row: Dict) -> None:
         self.rows[self.key(point)] = row
-        if self.path:
+        if self.path and self.writer:
             self.path.parent.mkdir(parents=True, exist_ok=True)
             tmp = self.path.with_suffix(".tmp")
             tmp.write_text(json.dumps({"config": self.config, "rows": self.rows}))

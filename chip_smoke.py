@@ -10,7 +10,8 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    kernel K1 (`polar_code_tpu_torch/csrc/scl_decode.cu`), the NMS LDPC kernel
    K2 (`csrc/nms_decode.cu`) and the PAC list-decode kernel K3
    (`csrc/pac_decode.cu`) — with the build seconds and the `-Xptxas -v`
-   registers, shared memory and spills; K2's launch plan (mode, edges in
+   registers, shared memory and spills (K1 in its best-only and its
+   full-list instantiation); K2's launch plan (mode, edges in
    registers, record words and where they live, bytes a frame, frames a
    block and an SM, registers) for every K2 shape phases 6 and 8 run; K1's
    shared memory a frame, levels in global scratch and resident frames an
@@ -124,7 +125,29 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    number of tree levels in global scratch, 0 to 9; the same time with one
    payload bit (17 info phases) at N=128 and 1024, L=32; and the drivers'
    shapes;
-12. a `kernels` JSON line, the `nvidia-smi` line, and the device JSON line last.
+12. the scalar, reference-compatible surface on the card: (a) K1's full-list
+   output (`decode_scl_cuda(..., full=True)`) against the plain version —
+   candidates, validity and selected rank identical, metrics and info LLRs
+   within 1e-6 relative, outside near-ties — at P(128,64) M ∈ {1,2,4,8}, CRC
+   on and off, plan on and off, 5.0 dB, B=4096, a ragged B=1001,
+   P(1024,512) `gaussian_bitrev` M=8 at 1.75 dB B=1024 and P(2048,1024) M=8
+   B=256; (b) its metrics of all M paths against the JAX float32 decoder's
+   (every case of `tests/golden/scl_f32_decode.npz`); (c) the shapes of
+   `tests/test_fuzz_configs.py` at B=4096 — N 16–2048 through K1 (list and
+   best-only) against the plain version, N=4096 refused by K1's shape
+   check, and its PAC shapes through K3, every frame identical; (d) the
+   scalar entry points with their default device — `sc_decode`,
+   `decode_scl` (M 1 and 8) and `decode_with_retries` (M=2, 4 retries) on
+   the 12 frames of `tests/golden/ref_p128_k64.npz` against the reference's
+   outputs, `retry_with_flip`, `decode_ldpc_nms` (QC-IRA 4×8 Z=31, shared
+   and two-min), `decode_rate_matched_scl` (BER run (c)'s code) and
+   `PolarCode(64, 48, "dega", L).pac_list_crc_decoder` (CRC-16, L 1 and 4)
+   on 64 frames each, equal to the batch kernels on the same frames; K1, K2
+   and K3 launched once a decode and the plain decoders never on CUDA; the
+   systematic PolarCode decoder, `early_stop=False` and float64 raising on
+   the card; (e) `decode_scl`'s time a call and K1's full-list launch
+   beside its best-only launch;
+13. a `kernels` JSON line, the `nvidia-smi` line, and the device JSON line last.
 
 It exits non-zero, and prints no result line, when there is no CUDA device,
 when a phase fails, or when run without the rest of the repository.  It
@@ -249,10 +272,10 @@ def ptxas_report(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            tm = re.search(r"scl_decode_kernelILi(\d+)E", m.group(1))
+            tm = re.search(r"scl_decode_kernelILi(\d+)ELb([01])E", m.group(1))
             tp = re.search(r"pac_decode_kernelILi(\d+)E", m.group(1))
             tn = re.search(r"nms_kernel_(warp|block|1024)ILi(\d+)ELb([01])E", m.group(1))
-            entry = (f"scl_decode_kernel<M={tm.group(1)}>" if tm
+            entry = (f"scl_decode_kernel<M={tm.group(1)}{', list' if tm.group(2) == '1' else ''}>" if tm
                      else f"pac_decode_kernel<LM={tp.group(1)}>" if tp
                      else f"nms_kernel<D={tn.group(2)}, {'two-min' if tn.group(3) == '1' else 'shared'}, "
                           f"{tn.group(1)}>" if tn else m.group(1))
@@ -981,6 +1004,320 @@ def multi_process_path(reset_counts, counts, device="cuda"):
     return k1, k2
 
 
+# phase 12, the scalar surface: tests/test_fuzz_configs.py's shapes, (N, K,
+# M, CRC, LLR scale, seed) and PAC (N, Kp, L, gen, CRC length, CRC poly,
+# profile, seed), copied (this script imports nothing of the JAX package)
+FUZZ_CONFIGS = [
+    (16, 8, 2, "0x17", 2.0, 0), (16, 12, 4, "0x17", 4.0, 1), (32, 10, 1, None, 3.0, 2),
+    (32, 24, 8, "0x17", 1.5, 3), (64, 40, 4, "0x1864CFB", 2.5, 4), (64, 13, 2, "0x17", 6.0, 5),
+    (256, 140, 2, "0x17", 2.0, 6), (512, 280, 1, "0x1864CFB", 2.0, 7),
+    (2048, 1024, 2, "0x1864CFB", 2.0, 8), (2048, 1024, 4, "0x1864CFB", 2.0, 9),
+    (2048, 1024, 8, "0x1864CFB", 2.0, 10), (4096, 2048, 4, "0x1864CFB", 2.0, 11),
+    (4096, 2048, 8, "0x1864CFB", 2.0, 12),
+]
+FUZZ_PAC_CONFIGS = [
+    (16, 8, 2, (1, 1), 0, 0, "dega", 0), (32, 20, 4, (1, 0, 1, 1), 8, 0xA6, "pw", 1),
+    (32, 12, 1, (1, 1, 0, 1), 0, 0, "bh", 2), (64, 40, 8, (1, 0, 1, 1, 0, 1, 1), 12, 0xC06, "rm-polar", 3),
+]
+SCALAR_FRAMES = 64  # frames of the scalar NMS, NR polar and PolarCode calls
+SCALAR_BATCH = 4096  # frames of phase 12's P(128,64) list cases and fuzz shapes
+
+
+def judge_list(out, ref, tag, tie_metrics=None):
+    """Frames where K1's outputs differ from a reference's: under the plain
+    `SCLResult` names, the bits, pass flags, candidates, validity and
+    selected rank exactly, metrics and info LLRs within 1e-6 relative (+inf
+    where the reference has it); only the fields `ref` holds.  Fails on a
+    frame outside near-ties (`near_tie_frames` of the reference's metrics,
+    or of `tie_metrics`) and on a list whose selected candidate is not the
+    best path.  Returns (frames differing, of them near-ties, max |info LLR
+    diff|)."""
+
+    got = {f: v.cpu().numpy() for f, v in out.items()}
+    B = got["best_path_bits"].shape[0]
+    bad = np.zeros(B, bool)
+    err = 0.0
+    for f, want in ref.items():
+        have = got[f].reshape(B, -1)
+        want = np.asarray(want).reshape(B, -1)
+        if f in ("metrics", "info_llrs", "best_path_info_llrs"):
+            with np.errstate(invalid="ignore"):
+                diff = np.abs(have.astype(np.float64) - want)
+                ok = (have == want) | (diff <= 1e-6 * np.maximum(np.abs(want), 1e-30))
+            if f != "metrics":
+                err = max(err, float(diff.max()) if diff.size else 0.0)
+        else:
+            ok = have == want
+        bad |= ~np.all(ok, axis=1)
+    if "candidates" in got:
+        pick = np.take_along_axis(got["candidates"], got["best_index"].astype(np.int64)[:, None, None],
+                                  axis=1)[:, 0]
+        check(np.array_equal(pick, got["best_path_bits"]), f"{tag}: K1's list does not hold its best path")
+    ties = near_tie_frames(np.asarray(ref["metrics"] if tie_metrics is None else tie_metrics))
+    unexplained = bad & ~ties
+    if bad.any():
+        print(f"  {tag}: {int(bad.sum())} frames differ, {int((bad & ties).sum())} of them near-ties")
+    check(not unexplained.any(), f"K1's list differs ({tag}): frames {np.flatnonzero(unexplained)[:10].tolist()}")
+    return int(bad.sum()), int((bad & ties).sum()), err
+
+
+def plain_fields(res):
+    return {f: getattr(res, f).cpu().numpy() for f in
+            ("best_path_bits", "best_path_info_llrs", "crc_pass", "candidates", "metrics", "valid",
+             "info_llrs", "best_index")}
+
+
+def scalar_surface(dev, smi):
+    """Phase 12: K1's full-list output against the plain version and the JAX
+    float32 metrics; the fuzz shapes through K1 and K3; the scalar entry
+    points on the card against the golden reference vectors and the batch
+    kernels, with the kernels' launch counts; their times.  Returns the
+    kernels' launches of the scalar entry points' run (K1, K2, K3)."""
+
+    import torch
+
+    from polar_code_tpu_torch.dlscl.flip import decode_with_retries, retry_with_flip
+    from polar_code_tpu_torch.eval.run_ber_sweep import _noise_var
+    from polar_code_tpu_torch.legacy.crclib import crc as legacy_crc
+    from polar_code_tpu_torch.legacy.pac import pac_decode, pac_list_decode_batch
+    from polar_code_tpu_torch.legacy.pac_cuda import pac_list_decode_cuda
+    from polar_code_tpu_torch.legacy.polar_code import PolarCode
+    from polar_code_tpu_torch.legacy.rate_profile import rateprofile
+    from polar_code_tpu_torch.nr.ldpc import decode_ldpc_nms, decode_ldpc_nms_batch
+    from polar_code_tpu_torch.nr.ldpc.nms_cuda import decode_ldpc_nms_cuda
+    from polar_code_tpu_torch.nr.polar.scl_nr import (decode_rate_matched_scl,
+                                                      decode_rate_matched_scl_batch,
+                                                      encode_rate_matched_batch)
+    from polar_code_tpu_torch.ops.crc import check_crc
+    from polar_code_tpu_torch.ops.sc import sc_decode
+    from polar_code_tpu_torch.ops.scl import decode_scl_batch
+    from polar_code_tpu_torch.ops.scl_cuda import MAX_N, decode_scl_cuda
+    from polar_code_tpu_torch.polar.api import decode_scl
+    from polar_code_tpu_torch.polar.construct import construct_info_set
+
+    def k1_vs_plain(llr, info, M, crc, plan, tag):
+        out = decode_scl_cuda(llr, info, M, crc, force_info_bits=plan, full=True)
+        best = decode_scl_cuda(llr, info, M, crc, force_info_bits=plan)
+        torch.cuda.synchronize()
+        ref = plain_fields(decode_scl_batch(llr, info, M, crc, force_info_bits=plan, dtype=torch.float32))
+        res = judge_list(out, ref, tag)
+        best_ref = {f: ref[f] for f in ("best_path_bits", "best_path_info_llrs", "crc_pass")}
+        return res, judge_list(best, best_ref, tag + " best-only", ref["metrics"])
+
+    # ---- (a) K1's list output against the plain version ----
+    rng = np.random.default_rng(20261021)
+    info = construct_info_set(N, K)
+    cases = [(N, K, M, crc, plan, SCALAR_BATCH, 5.0, "gaussian") for M in (1, 2, 4, 8)
+             for crc in (CRC, None) for plan in (False, True)]
+    cases += [(N, K, 8, CRC, True, 1001, 5.0, "gaussian"),
+              (1024, 512, 8, CRC, False, 1024, 1.75, "gaussian_bitrev"),
+              (2048, 1024, 8, CRC, True, 256, 1.5, "gaussian_bitrev")]
+    ties = differ = 0
+    max_err = 0.0
+    for n_c, k_c, M, crc, use_plan, B, snr, method in cases:
+        info_c = construct_info_set(n_c, k_c, method=method)
+        llr_np, msg = make_llrs(rng, B, snr, info_c, n=n_c)
+        plan = torch.from_numpy(random_plan(rng, msg)).to(dev) if use_plan else None
+        tag = (f"list P({n_c},{k_c}) M={M} crc={'on' if crc else 'off'} plan={'on' if use_plan else 'off'} "
+               f"{snr} dB B={B}")
+        (d, t, e), _ = k1_vs_plain(torch.from_numpy(llr_np).to(dev), info_c, M, crc, plan, tag)
+        differ, ties, max_err = differ + d, ties + t, max(max_err, e)
+    print(f"K1 list vs plain: {len(cases)} cases, {differ} frames differ, all {ties} near-ties; "
+          f"max |info LLR diff| {max_err:.3e}")
+
+    # ---- (b) K1's list metrics against the JAX float32 decoder's ----
+    differ = ties = 0
+    with np.load(GOLDEN / "scl_f32_decode.npz") as gold:
+        f32_cases = json.loads(str(gold["cases"]))
+        for case in f32_cases:
+            tag, code = case["name"], case["code"]
+            x = torch.from_numpy(gold[f"{code}/llr"]).to(dev)
+            plan = torch.from_numpy(gold[f"{code}/plan"]).to(dev) if case["plan"] else None
+            out = decode_scl_cuda(x, gold[f"{code}/info"], case["M"], case["crc"], force_info_bits=plan,
+                                  full=True)
+            ref = {"best_path_bits": gold[f"{tag}/bits"], "best_path_info_llrs": gold[f"{tag}/llrs"],
+                   "crc_pass": gold[f"{tag}/crc_pass"], "metrics": gold[f"{tag}/metrics"]}
+            check(ref["metrics"].shape == tuple(out["metrics"].shape), f"{tag}: golden metrics shape")
+            d, t, _ = judge_list(out, ref, f"list vs JAX f32 {tag}")
+            differ, ties = differ + d, ties + t
+    print(f"K1 list vs JAX float32: {len(f32_cases)} cases (metrics of all M paths), {differ} frames "
+          f"differ, all {ties} near-ties")
+
+    # ---- (c) the fuzz shapes through K1 and K3, B=4096 ----
+    differ = ties = 0
+    for n_c, k_c, M, crc, scale, seed in FUZZ_CONFIGS:
+        info_c = construct_info_set(n_c, k_c)
+        llr = torch.from_numpy(np.random.default_rng(seed).normal(0, scale, (SCALAR_BATCH, n_c))
+                               .astype(np.float32)).to(dev)
+        tag = f"fuzz N={n_c} K={k_c} M={M} crc={crc} B={SCALAR_BATCH}"
+        if n_c > MAX_N:  # K1's envelope: its shape check refuses the decode
+            try:
+                decode_scl_cuda(llr, info_c, M, crc)
+            except ValueError as exc:
+                print(f"  {tag}: refused by K1's shape check: {exc}")
+                continue
+            check(False, f"{tag}: K1 took a shape outside its envelope")
+        (d, t, _), (db, tb, _) = k1_vs_plain(llr, info_c, M, crc, None, tag)
+        differ, ties = differ + d + db, ties + t + tb
+        print(f"  {tag}: list and best-only equal to the plain version outside "
+              f"{t + tb} near-tie frames", flush=True)
+    for n_p, kp, L, gen, crc_len, crc_poly, profile, seed in FUZZ_PAC_CONFIGS:
+        rp = rateprofile(n_p, kp, 2.0, 0)
+        rp.build_mask(profile)
+        mask = rp.modify_profile()
+        x = torch.from_numpy(np.random.default_rng(seed).normal(0, 3, (SCALAR_BATCH, n_p))
+                             .astype(np.float32)).to(dev)
+        out = pac_list_decode_cuda(x, mask, gen, L, crc_len, crc_poly)
+        ref = pac_list_decode_batch(x, mask, gen, L, crc_len=crc_len, crc_poly=crc_poly)
+        torch.cuda.synchronize()
+        bad = (torch.any(out["extracted"] != ref["extracted"], dim=1)
+               | (out["crc_pass"] != ref["crc_pass"])).cpu().numpy()
+        print(f"  fuzz PAC N={n_p} Kp={kp} L={L} {profile} B={SCALAR_BATCH}: {int(bad.sum())} frames differ")
+        check(not bad.any(), f"K3 differs from the plain version at fuzz PAC N={n_p} Kp={kp} L={L}")
+    print(f"fuzz shapes: {len(FUZZ_CONFIGS)} SCL shapes ({differ} frames differ, all {ties} near-ties; "
+          f"N=4096 refused by K1's shape check) and {len(FUZZ_PAC_CONFIGS)} PAC shapes, every frame "
+          f"identical")
+
+    # ---- (d) the scalar entry points on the card ----
+    golden = np.load(GOLDEN / "ref_p128_k64.npz")
+    g_info = golden["info_set"]
+    ira, (ira_bg, ira_H) = IRA, ldpc_code(IRA[1], IRA[2])
+    nms_llr = ldpc_llrs(rng, (ira, (ira_bg, ira_H)), SCALAR_FRAMES, 2.5, dev)
+    n_r, k_r, kp_r, e_r, m_r = NR_POLAR
+    info_r = construct_info_set(n_r, k_r)
+    payload = torch.from_numpy(rng.integers(0, 2, (SCALAR_FRAMES, kp_r)).astype(np.int8))
+    tx = encode_rate_matched_batch(payload, CRC, n_r, e_r, info_r).numpy()
+    nv = _noise_var(3.5, kp_r, e_r)
+    nr_llr = ((1.0 - 2.0 * tx + rng.normal(0.0, math.sqrt(nv), tx.shape)) * (2.0 / nv)).astype(np.float32)
+    crc16 = legacy_crc(*PAC_CRC)
+    pc = {L: PolarCode(64, 48, "dega", L, rateprofile(64, 48, 2.0, 0)) for L in (1, 4)}
+    msgs = rng.integers(0, 2, (SCALAR_FRAMES, 32)).astype(np.int8)
+    msgs = np.concatenate([msgs, crc16.crcCalc_batch(msgs)], axis=1)
+    codewords = np.stack([pc[1].encode(m, False) for m in msgs])
+    nv = 1.0 / (2.0 * 0.5 * 10 ** 0.3)
+    pc_llr = (2.0 * (1.0 - 2.0 * codewords + rng.normal(0.0, math.sqrt(nv), codewords.shape)) / nv
+              ).astype(np.float32)
+
+    check_raises = []
+    for what, call in (
+            ("PolarCode(device=cuda).pac_list_crc_decoder(issystematic=True)",
+             lambda: pc[4].pac_list_crc_decoder(pc_llr[0], True, True, crc16, 4)),
+            ("decode_ldpc_nms(early_stop=False) on the card",
+             lambda: decode_ldpc_nms(nms_llr[0].cpu().numpy(), ira_H, early_stop=False)),
+            ("decode_scl(dtype=float64) on the card",
+             lambda: decode_scl(golden["llrs"][0], g_info, 8, CRC, dtype=torch.float64))):
+        try:
+            call()
+        except ValueError as exc:
+            check_raises.append(f"  {what} raises: {exc}")
+            continue
+        check(False, f"{what} did not raise")
+    print("\n".join(check_raises))
+
+    k1_before, k2_before = decode_scl_cuda.launches, decode_ldpc_nms_cuda.launches
+    k3_before = pac_list_decode_cuda.launches
+    decode_scl_batch.cuda_calls = decode_ldpc_nms_batch.cuda_calls = pac_list_decode_batch.cuda_calls = 0
+    t = time.perf_counter()
+    sc_bits = np.stack([sc_decode(llr, g_info) for llr in golden["llrs"]])
+    scl = {M: [decode_scl(llr, g_info, M, CRC) for llr in golden["llrs"]] for M in (1, 8)}
+    dl = [decode_with_retries(llr, g_info, 2, 4, crc=CRC) for llr in golden["llrs"]]
+    flip_base = scl[8][0]["best_path_bits"]
+    flip = retry_with_flip(golden["llrs"][0], g_info, 8, flip_base, 10, CRC)
+    nms = {se: [decode_ldpc_nms(row, ira_H, self_exclude=se) for row in nms_llr.cpu().numpy()]
+           for se in (False, True)}
+    nr = [decode_rate_matched_scl(row, CRC, n_r, e_r, info_r, m_r) for row in nr_llr]
+    pac = {L: [pc[L].pac_list_crc_decoder(row, False, True, crc16, L) for row in pc_llr] for L in (1, 4)}
+    torch.cuda.synchronize()
+    scalar_s = time.perf_counter() - t
+    launches = (decode_scl_cuda.launches - k1_before, decode_ldpc_nms_cuda.launches - k2_before,
+                pac_list_decode_cuda.launches - k3_before)
+    plain = (decode_scl_batch.cuda_calls, decode_ldpc_nms_batch.cuda_calls,
+             pac_list_decode_batch.cuda_calls)
+    calls = (2 * len(golden["llrs"]) + sum(len(r["attempts"]) for r in dl) + 1 + SCALAR_FRAMES,
+             2 * SCALAR_FRAMES, 2 * SCALAR_FRAMES)
+    print(f"scalar entry points on the card: {scalar_s:.3f} s (host clock); K1/K2/K3 launches "
+          f"{launches} for {calls} decodes; plain decoders on CUDA {plain}")
+    check(launches == calls, f"the scalar entry points launched {launches}, not one a decode {calls}")
+    check(plain == (0, 0, 0), f"a plain decoder ran on CUDA under the scalar entry points: {plain}")
+
+    # the golden reference vectors
+    check(np.array_equal(sc_bits, golden["sc_bits"]), "sc_decode on the card differs from the golden SC bits")
+    for M in (1, 8):
+        bits = np.stack([r["best_path_bits"] for r in scl[M]])
+        check(np.array_equal(bits, golden[f"scl_m{M}_best"]), f"decode_scl M={M} differs from the golden bits")
+        for b, r in enumerate(scl[M]):
+            want = golden[f"scl_m{M}_metrics"][b]
+            want = want[np.isfinite(want)]
+            got = np.asarray(r["metrics"])
+            check(got.shape == want.shape and np.all(np.abs(got - want) <= 1e-5 * np.abs(want)),
+                  f"decode_scl M={M} frame {b} metrics {got} vs golden {want}")
+    dl_bad = []
+    for b, r in enumerate(dl):
+        same = (np.array_equal(r["best_path_bits"], golden["dl_m2_best"][b])
+                and r["success"] == bool(golden["dl_m2_success"][b])
+                and len(r["attempts"]) - 1 == int(golden["dl_m2_attempts"][b]))
+        if not same:
+            metrics = [a["metrics"] for a in r["attempts"]]
+            tie = any(near_tie_frames(np.asarray([m], np.float64))[0] for m in metrics if len(m) > 1)
+            print(f"  DL-SCL frame {b} differs from the golden run; near-tie {tie}; its attempts' metrics "
+                  f"{metrics}")
+            check(tie, f"DL-SCL frame {b} differs from the golden run outside a near-tie")
+            dl_bad.append(b)
+    print(f"  golden P(128,64): sc_decode 12/12 frames, decode_scl M=1 and M=8 bits and metrics "
+          f"(1e-5), decode_with_retries M=2 4 retries {12 - len(dl_bad)}/12 frames "
+          f"(attempts {[len(r['attempts']) - 1 for r in dl]}, success {sum(r['success'] for r in dl)})")
+    check(list(flip) == ["candidates", "metrics", "best_path_bits", "info_llrs", "best_path_info_llrs",
+                         "forced_info_bits", "flip_index"], f"retry_with_flip keys {list(flip)}")
+    for cand in flip["candidates"]:
+        check(np.array_equal(cand[:10], flip_base[:10]) and cand[10] == 1 - flip_base[10],
+              "retry_with_flip: a candidate does not honour the forced plan")
+    print(f"  retry_with_flip M=8 at index 10: {len(flip['candidates'])} candidates honour the plan, "
+          f"crc {'passes' if check_crc(flip['best_path_bits'], CRC) else 'fails'}")
+
+    # the scalar entry points against the batch kernels on the same frames
+    for se in (False, True):
+        ref = decode_ldpc_nms_cuda(nms_llr, ira_bg, IRA[2], self_exclude=se)
+        for f in ("hard", "iters_used", "parity_ok"):
+            got = np.asarray([r[f] for r in nms[se]])
+            check(np.array_equal(got, ref[f].cpu().numpy()), f"decode_ldpc_nms {f} differs from K2's batch "
+                  f"({'two-min' if se else 'shared'})")
+        print(f"  decode_ldpc_nms QC-IRA 4x8 Z=31 {'two-min' if se else 'shared'} 2.5 dB: {SCALAR_FRAMES} "
+              f"frames equal to K2's batch; parity {sum(r['parity_ok'] for r in nms[se])}, "
+              f"iterations {sum(r['iters_used'] for r in nms[se])}")
+    ref = decode_rate_matched_scl_batch(torch.from_numpy(nr_llr).to(dev), CRC, n_r, e_r, info_r, m_r)
+    for f in ("payload", "best_path_bits", "crc_pass"):
+        got = np.asarray([r[f] for r in nr])
+        check(np.array_equal(got, ref[f].cpu().numpy()), f"decode_rate_matched_scl {f} differs from the batch")
+    print(f"  decode_rate_matched_scl N={n_r} K={k_r} E={e_r} M={m_r} 3.5 dB: {SCALAR_FRAMES} frames equal "
+          f"to the batch; crc pass {sum(r['crc_pass'] for r in nr)}")
+    for L in (1, 4):
+        ref = pac_decode(torch.from_numpy(pc_llr).to(dev), pc[L].polarcode_mask, [1], L,
+                         crc_len=PAC_CRC[0], crc_poly=PAC_CRC[1])["extracted"].cpu().numpy()
+        got = np.stack(pac[L])
+        check(np.array_equal(got, ref), f"PolarCode L={L} differs from pac_decode on the batch")
+        print(f"  PolarCode(64, 48, dega, L={L}) CRC-16 3.0 dB: {SCALAR_FRAMES} frames equal to pac_decode "
+              f"on the batch; {int(np.all(got == msgs, axis=1).sum())} decoded the sent message")
+
+    # ---- (e) times ----
+    llr0 = golden["llrs"][0]
+    decode_scl(llr0, g_info, 8, CRC)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(200):
+        decode_scl(llr0, g_info, 8, CRC)
+    per_call_ms = (time.perf_counter() - t) / 200 * 1e3
+    llr_np, _ = make_llrs(np.random.default_rng(5), 4096, 5.0, info)
+    llr = torch.from_numpy(llr_np).to(dev)
+    best_ms = cuda_time_ms(lambda: decode_scl_cuda(llr, info, 8, CRC), reps=50)
+    list_ms = cuda_time_ms(lambda: decode_scl_cuda(llr, info, 8, CRC, full=True), reps=50)
+    best2_ms = cuda_time_ms(lambda: decode_scl_cuda(llr, info, 8, CRC), reps=50)
+    print(f"scalar times on {smi}:")
+    print(f"  decode_scl P(128,64) M=8 CRC, one frame: {per_call_ms:.4f} ms a call (200 calls, host clock)")
+    print(f"  K1 B=4096 M=8 CRC: best-only {best_ms:.4f} / {best2_ms:.4f} ms, full list {list_ms:.4f} ms "
+          f"(50 launches each, CUDA events)")
+    return launches
+
+
 def main():
     import torch
 
@@ -1684,7 +2021,11 @@ def main():
     print(f"  crc_polar_vs_uncoded shape P(128,64+16) L=16 B=128: {ms:.4f} ms (50 launches)")
     phase_done("11 K3 times")
 
-    # ---- 12. result lines ----
+    # ---- 12. the scalar surface on the card ----
+    scalar_k1, scalar_k2, scalar_k3 = scalar_surface(dev, smi)
+    phase_done("12 scalar surface")
+
+    # ---- 13. result lines ----
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by = nms_times[f"{IRA[0]} two-min 2.5 dB B=4096"]
     print(json.dumps({"kernels": [{
         "name": "scl_decode",
@@ -1692,7 +2033,7 @@ def main():
         "source": "polar_code_tpu_torch/csrc/scl_decode.cu",
         "replaces": "polar_code_tpu/ops/scl_pallas.py:293",
         "launches": (fer_launches + fer2048_launches + env_launches + train_launches
-                     + ber_scl_launches + mp_scl_launches),
+                     + ber_scl_launches + mp_scl_launches + scalar_k1),
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -1704,7 +2045,7 @@ def main():
         "route": "cuda",
         "source": "polar_code_tpu_torch/csrc/nms_decode.cu",
         "replaces": "polar_code_tpu/nr/ldpc/nms_pallas.py:31",
-        "launches": ber_nms_launches + mp_nms_launches,
+        "launches": ber_nms_launches + mp_nms_launches + scalar_k2,
         "max_abs_err": float(nms_max_err),
         "ms": nms_ms,
         "plain_ms": nms_plain_ms,
@@ -1716,7 +2057,7 @@ def main():
         "route": "cuda",
         "source": "polar_code_tpu_torch/csrc/pac_decode.cu",
         "replaces": "polar_code_tpu/legacy/pac_pallas.py:59",
-        "launches": legacy_launches,
+        "launches": legacy_launches + scalar_k3,
         "max_abs_err": float(pac_max_err),
         "ms": pac_ms,
         "plain_ms": pac_plain_ms,

@@ -77,6 +77,14 @@
 // path's trace is walked back by one lane, which records each info phase's
 // slot, and all lanes then write the outputs.
 //
+// The full list (the scalar API's output, `decode_scl_cuda(..., full=True)`):
+// the instantiation with LIST set also writes every path of the final list,
+// in the plain version's final stable (metric, slot) order — its bits, info
+// LLRs and metric (+inf for a path never reached) — and the selected rank.
+// Lane m < M walks its own path's trace back, reading TI/TL only, before
+// lane 0 rewrites slot 0 of the trace rows for the best path.  The sweeps
+// launch the instantiation without LIST, whose code is unchanged.
+//
 // The arithmetic is the plain version's, op for op, so results are equal bit
 // for bit: f = sign(a)·sign(b)·min(|a|,|b|), g = b + (1−2c)·a, penalty
 // max(x,0) + log1p(exp(−|x|)) with the accurate expf/log1pf (build without
@@ -180,7 +188,7 @@ __device__ __forceinline__ void chain_pass(uint8_t* st, int ststride, const uint
   }
 }
 
-template <int M>
+template <int M, bool LIST>
 __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, 8) scl_decode_kernel(
     const float* __restrict__ llr,        // [B, N]
     const int8_t* __restrict__ forced,    // [B, K] or null
@@ -192,6 +200,10 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, 8) scl_decode_kerne
     int8_t* __restrict__ out_bits,        // [B, K]
     float* __restrict__ out_llrs,         // [B, K]
     uint8_t* __restrict__ out_pass,       // [B]
+    int8_t* __restrict__ list_bits,       // [B, M, K], LIST only
+    float* __restrict__ list_llrs,        // [B, M, K], LIST only
+    float* __restrict__ list_metrics,     // [B, M], LIST only
+    int* __restrict__ list_best,          // [B], LIST only
     int B, int N, int n, int K, int G, int use_crc, int frame_bytes,
     int frames_per_block) {
   using SigT = typename Sigma<M>::T;
@@ -353,6 +365,22 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, 8) scl_decode_kerne
   const unsigned ok_ranks = __reduce_or_sync(FULL_MASK, ok ? (1u << frank) : 0u);
   const int sel_rank = ok_ranks ? __ffs(ok_ranks) - 1 : 0;
   const unsigned who = __ballot_sync(FULL_MASK, lane < M && frank == sel_rank);
+  if (LIST) {
+    // every path into row frank of the list, before the trace is rewritten
+    if (lane < M) {
+      const long long o = (frame * M + frank) * K;
+      int slot = lane;
+      for (int i = K - 1; i >= 0; --i) {
+        const int w = TI[i * M + slot];
+        list_bits[o + i] = (int8_t)(w & 1);
+        list_llrs[o + i] = TL[i * M + slot];
+        slot = w >> 1;
+      }
+      list_metrics[frame * M + frank] = pm < SCL_BIG ? pm : __int_as_float(0x7f800000);
+    }
+    if (lane == 0) list_best[frame] = sel_rank;
+    __syncwarp();
+  }
   if (lane == 0) {
     // record (slot << 1 | bit) of the selected path in slot 0 of each trace
     // row; row i is read before it is overwritten, and later steps read
@@ -373,31 +401,51 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, 8) scl_decode_kerne
   }
 }
 
-template <int M>
+template <int M, bool LIST>
 cudaError_t set_smem(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(scl_decode_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+  return cudaFuncSetAttribute(scl_decode_kernel<M, LIST>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+template <int M, bool LIST>
+int launch_as(const float* llr, const int8_t* forced, const uint32_t* hcols, const int* sched,
+              float* glob_llr, uint8_t* glob_bits, float* trace_llr, int8_t* out_bits,
+              float* out_llrs, uint8_t* out_pass, int8_t* list_bits, float* list_llrs,
+              float* list_metrics, int* list_best, int B, int N, int n, int K, int G,
+              int use_crc, int frame_bytes, int frames_per_block, cudaStream_t stream) {
+  const size_t smem = (size_t)frame_bytes * frames_per_block;
+  cudaError_t err = set_smem<M, LIST>(smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (B + frames_per_block - 1) / frames_per_block;
+  scl_decode_kernel<M, LIST><<<blocks, 32 * frames_per_block, smem, stream>>>(
+      llr, forced, hcols, sched, glob_llr, glob_bits, trace_llr, out_bits, out_llrs, out_pass,
+      list_bits, list_llrs, list_metrics, list_best, B, N, n, K, G, use_crc, frame_bytes,
+      frames_per_block);
+  return (int)cudaGetLastError();
+}
+
+// the list instantiation when the list outputs are given, else the sweeps' one
 template <int M>
 int launch(const float* llr, const int8_t* forced, const uint32_t* hcols, const int* sched,
            float* glob_llr, uint8_t* glob_bits, float* trace_llr, int8_t* out_bits,
-           float* out_llrs, uint8_t* out_pass, int B, int N, int n, int K, int G, int use_crc,
+           float* out_llrs, uint8_t* out_pass, int8_t* list_bits, float* list_llrs,
+           float* list_metrics, int* list_best, int B, int N, int n, int K, int G, int use_crc,
            int frame_bytes, int frames_per_block, cudaStream_t stream) {
-  const size_t smem = (size_t)frame_bytes * frames_per_block;
-  cudaError_t err = set_smem<M>(smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (B + frames_per_block - 1) / frames_per_block;
-  scl_decode_kernel<M><<<blocks, 32 * frames_per_block, smem, stream>>>(
-      llr, forced, hcols, sched, glob_llr, glob_bits, trace_llr, out_bits, out_llrs, out_pass,
-      B, N, n, K, G, use_crc, frame_bytes, frames_per_block);
-  return (int)cudaGetLastError();
+  if (list_bits)
+    return launch_as<M, true>(llr, forced, hcols, sched, glob_llr, glob_bits, trace_llr,
+                              out_bits, out_llrs, out_pass, list_bits, list_llrs, list_metrics,
+                              list_best, B, N, n, K, G, use_crc, frame_bytes, frames_per_block,
+                              stream);
+  return launch_as<M, false>(llr, forced, hcols, sched, glob_llr, glob_bits, trace_llr, out_bits,
+                             out_llrs, out_pass, nullptr, nullptr, nullptr, nullptr, B, N, n, K,
+                             G, use_crc, frame_bytes, frames_per_block, stream);
 }
 
 // The frames a block (1..MAX_FRAMES_PER_BLOCK) that let an SM hold the most
 // frames at once, by the occupancy calculator (shared memory, registers and
-// warps all counted); ties go to more frames a block.
+// warps all counted); ties go to more frames a block.  The list
+// instantiation runs on the same plan: it has the same launch bounds.
 template <int M>
 int plan(int frame_bytes, int max_block_smem, int* frames_per_block, int* frames_per_sm) {
   *frames_per_block = 1;
@@ -405,11 +453,11 @@ int plan(int frame_bytes, int max_block_smem, int* frames_per_block, int* frames
   for (int fpb = 1; fpb <= MAX_FRAMES_PER_BLOCK; ++fpb) {
     const size_t smem = (size_t)frame_bytes * fpb;
     if (smem > (size_t)max_block_smem) break;
-    cudaError_t err = set_smem<M>(smem);
+    cudaError_t err = set_smem<M, false>(smem);
     if (err != cudaSuccess) return (int)err;
     int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, scl_decode_kernel<M>, 32 * fpb,
-                                                        smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, scl_decode_kernel<M, false>,
+                                                        32 * fpb, smem);
     if (err != cudaSuccess) return (int)err;
     if (blocks * fpb >= *frames_per_sm) {
       *frames_per_block = fpb;
@@ -424,8 +472,10 @@ int plan(int frame_bytes, int max_block_smem, int* frames_per_block, int* frames
 extern "C" int scl_decode_launch(const void* llr, const void* forced, const void* hcols,
                                  const void* sched, void* glob_llr, void* glob_bits,
                                  void* trace_llr, void* out_bits, void* out_llrs, void* out_pass,
-                                 int B, int N, int n, int K, int M, int G, int use_crc,
-                                 int frame_bytes, int frames_per_block, void* stream) {
+                                 void* list_bits, void* list_llrs, void* list_metrics,
+                                 void* list_best, int B, int N, int n, int K, int M, int G,
+                                 int use_crc, int frame_bytes, int frames_per_block,
+                                 void* stream) {
   auto* l = static_cast<const float*>(llr);
   auto* f = static_cast<const int8_t*>(forced);
   auto* h = static_cast<const uint32_t*>(hcols);
@@ -436,12 +486,16 @@ extern "C" int scl_decode_launch(const void* llr, const void* forced, const void
   auto* ob = static_cast<int8_t*>(out_bits);
   auto* ol = static_cast<float*>(out_llrs);
   auto* op = static_cast<uint8_t*>(out_pass);
+  auto* lb = static_cast<int8_t*>(list_bits);
+  auto* ll = static_cast<float*>(list_llrs);
+  auto* lm = static_cast<float*>(list_metrics);
+  auto* li = static_cast<int*>(list_best);
   auto st = static_cast<cudaStream_t>(stream);
   switch (M) {
-    case 1: return launch<1>(l, f, h, s, gl, gb, tl, ob, ol, op, B, N, n, K, G, use_crc, frame_bytes, frames_per_block, st);
-    case 2: return launch<2>(l, f, h, s, gl, gb, tl, ob, ol, op, B, N, n, K, G, use_crc, frame_bytes, frames_per_block, st);
-    case 4: return launch<4>(l, f, h, s, gl, gb, tl, ob, ol, op, B, N, n, K, G, use_crc, frame_bytes, frames_per_block, st);
-    case 8: return launch<8>(l, f, h, s, gl, gb, tl, ob, ol, op, B, N, n, K, G, use_crc, frame_bytes, frames_per_block, st);
+    case 1: return launch<1>(l, f, h, s, gl, gb, tl, ob, ol, op, lb, ll, lm, li, B, N, n, K, G, use_crc, frame_bytes, frames_per_block, st);
+    case 2: return launch<2>(l, f, h, s, gl, gb, tl, ob, ol, op, lb, ll, lm, li, B, N, n, K, G, use_crc, frame_bytes, frames_per_block, st);
+    case 4: return launch<4>(l, f, h, s, gl, gb, tl, ob, ol, op, lb, ll, lm, li, B, N, n, K, G, use_crc, frame_bytes, frames_per_block, st);
+    case 8: return launch<8>(l, f, h, s, gl, gb, tl, ob, ol, op, lb, ll, lm, li, B, N, n, K, G, use_crc, frame_bytes, frames_per_block, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -6,6 +6,12 @@ SCL, and re-rank from the new best path's LLRs after every failed attempt,
 excluding already-tried indices, stopping on CRC pass.  The output is the
 last attempt's result whether or not it succeeded.
 
+`retry_with_flip` and `decode_with_retries` are the scalar host loop, with
+the reference-compatible signatures and return dict, over
+`polar/api.py::decode_scl` (one decode of one frame a call: on the card a
+launch of the SCL kernel with its full-list output, on the CPU the plain
+decoder in float64); they take `device` and `dtype` and pass them on.
+
 `decode_with_retries_batch` runs the baseline and then up to `retries`
 masked steps over the whole batch; with a compaction capacity it decodes,
 at each step, only the frames that still fail (gathered in index order,
@@ -15,12 +21,19 @@ independent, so both paths return exactly the same tensors.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..ops.backend import auto_compact_capacity, make_scl_decoder, stable_partition_perm
+from ..ops.crc import check_crc
+from ..polar import api as polar_api
+
+
+# ------------------------------------------------------------------
+# Scalar host API (reference-compatible)
+# ------------------------------------------------------------------
 
 
 def choose_flip_index(abs_l0: np.ndarray, beta: Optional[np.ndarray]) -> int:
@@ -38,6 +51,101 @@ def choose_flip_index(abs_l0: np.ndarray, beta: Optional[np.ndarray]) -> int:
         return int(np.argmin(abs_l0 @ beta))
     return int(np.argmin(abs_l0))
 
+
+def _force_vector(best_path_bits: np.ndarray, flip_index: int) -> np.ndarray:
+    forced = np.full(best_path_bits.size, -1, dtype=np.int8)
+    forced[:flip_index] = best_path_bits[:flip_index]
+    forced[flip_index] = 1 - best_path_bits[flip_index]
+    return forced
+
+
+def retry_with_flip(
+    llr_root: np.ndarray,
+    info_set: np.ndarray,
+    M: int,
+    best_path_bits: np.ndarray,
+    flip_index: int,
+    crc: Optional[str] = None,
+    *,
+    dtype: Optional[torch.dtype] = None,
+    device=None,
+) -> dict:
+    """Retry SCL decoding with the specified info bit flipped."""
+
+    best_path_bits = np.asarray(best_path_bits)
+    if best_path_bits.ndim != 1:
+        raise ValueError("best_path_bits must be 1D")
+    if flip_index < 0 or flip_index >= best_path_bits.size:
+        raise IndexError("flip_index out of range")
+    forced = _force_vector(best_path_bits, flip_index)
+    result = polar_api.decode_scl(llr_root, info_set, M, crc=crc, force_info_bits=forced,
+                                  dtype=dtype, device=device)
+    result["forced_info_bits"] = forced
+    result["flip_index"] = flip_index
+    return result
+
+
+def decode_with_retries(
+    llr_root: np.ndarray,
+    info_set: np.ndarray,
+    M: int,
+    retries: int,
+    *,
+    crc: Optional[str] = None,
+    beta: Optional[np.ndarray] = None,
+    dtype: Optional[torch.dtype] = None,
+    device=None,
+) -> dict:
+    """Baseline SCL followed by up to ``retries`` β-ranked flip attempts."""
+
+    attempts: List[dict] = []
+    baseline = polar_api.decode_scl(llr_root, info_set, M, crc=crc, dtype=dtype, device=device)
+    attempts.append({**baseline, "attempt_type": "baseline"})
+    best_output = baseline
+
+    def _passes(output: dict) -> bool:
+        bits = output.get("best_path_bits")
+        if bits is None:
+            return False
+        if crc is None:
+            return True
+        return check_crc(bits, crc)
+
+    if _passes(baseline) or retries <= 0:
+        return {**best_output, "attempts": attempts, "tried_indices": [], "success": _passes(best_output)}
+
+    reference_bits = baseline["best_path_bits"]
+    reference_llrs = baseline["best_path_info_llrs"]
+    if reference_bits is None or reference_llrs is None:
+        raise ValueError("Baseline decode did not produce candidate bits/LLRs")
+    abs_l0 = np.abs(np.asarray(reference_llrs, dtype=float))
+
+    tried: List[int] = []
+    while len(tried) < retries and len(tried) < abs_l0.size:
+        q = abs_l0 @ beta if beta is not None else abs_l0
+        order = np.argsort(q)
+        idx = next((int(i) for i in order if int(i) not in tried), None)
+        if idx is None:
+            break
+        tried.append(idx)
+        retry_result = retry_with_flip(llr_root, info_set, M, reference_bits, flip_index=idx,
+                                       crc=crc, dtype=dtype, device=device)
+        attempts.append({**retry_result, "attempt_type": "flip"})
+        best_output = retry_result
+        if retry_result.get("best_path_bits") is not None:
+            reference_bits = retry_result["best_path_bits"]
+        if retry_result.get("best_path_info_llrs") is not None:
+            reference_llrs = retry_result["best_path_info_llrs"]
+        abs_l0 = np.abs(np.asarray(reference_llrs, dtype=float))
+        if _passes(retry_result):
+            break
+
+    return {**best_output, "attempts": attempts, "tried_indices": tried, "success": _passes(best_output)}
+
+
+# ------------------------------------------------------------------
+# Batched device implementation
+# ------------------------------------------------------------------
 
 def _flip_plan(best_bits, best_llrs, tried, beta):
     """Forced plan for the next attempt of each frame and its flip index."""
@@ -138,4 +246,9 @@ def decode_with_retries_batch(
     }
 
 
-__all__ = ["choose_flip_index", "decode_with_retries_batch"]
+__all__ = [
+    "choose_flip_index",
+    "retry_with_flip",
+    "decode_with_retries",
+    "decode_with_retries_batch",
+]

@@ -21,6 +21,14 @@ The syndrome is a sum over each row's edges mod 2 rather than the JAX
 decoder's dense product with H: both count the same 0/1 terms exactly, and
 the edge form stays small at lifting sizes where the dense H has 10⁸
 entries.
+
+`decode_ldpc_nms` is the scalar reference-compatible API (one frame, a
+dense H).  On the CPU it runs this plain version in float64; on the card it
+goes through the kernel in float32, with the base graph and lifting size
+recovered from H (`builder.circulant_structure`): a Z×Z circulant block-row
+is a group of column-disjoint rows, so the kernel's block-row order gives
+the sequential row order's result, as the greedy layers here do.  The
+kernel always stops early, so `early_stop=False` raises on the card.
 """
 
 from __future__ import annotations
@@ -30,6 +38,9 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+
+from ...utils.device import resolve_device
+from .builder import circulant_structure
 
 
 def _layers_from_h(H: np.ndarray) -> Tuple[np.ndarray, np.ndarray, List[np.ndarray]]:
@@ -165,4 +176,42 @@ def decode_ldpc_nms_batch(
 decode_ldpc_nms_batch.cuda_calls = 0  # runs of the plain version on CUDA tensors
 
 
-__all__ = ["decode_ldpc_nms_batch"]
+def decode_ldpc_nms(
+    llr: np.ndarray,
+    H: np.ndarray,
+    max_iter: int = 20,
+    alpha: float = 0.8,
+    early_stop: bool = True,
+    self_exclude: bool = False,
+    *,
+    device=None,
+) -> dict:
+    """Scalar reference-compatible API (1D llr)."""
+
+    llr = np.asarray(llr, dtype=np.float64)
+    if llr.ndim != 1:
+        raise ValueError("llr must be 1D")
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        res = decode_ldpc_nms_batch(
+            torch.as_tensor(llr)[None], H, max_iter=max_iter, alpha=alpha,
+            early_stop=early_stop, self_exclude=self_exclude, dtype=torch.float64,
+        )
+    else:
+        if not early_stop:
+            raise ValueError("the NMS kernel always stops early; decode with early_stop=False "
+                             "on the CPU (device=\"cpu\")")
+        from .nms_cuda import decode_ldpc_nms_cuda
+
+        base_graph, Z = circulant_structure(H)
+        x = torch.as_tensor(llr, dtype=torch.float32, device=dev)[None]
+        res = decode_ldpc_nms_cuda(x, base_graph, Z, max_iter=max_iter, alpha=alpha,
+                                   self_exclude=self_exclude)
+    return {
+        "hard": res["hard"][0].cpu().numpy().astype(np.int8),
+        "iters_used": int(res["iters_used"][0]),
+        "parity_ok": bool(res["parity_ok"][0]),
+    }
+
+
+__all__ = ["decode_ldpc_nms", "decode_ldpc_nms_batch"]

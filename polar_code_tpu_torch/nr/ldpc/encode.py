@@ -5,6 +5,7 @@ With H = [H_sys | H_par], the parity satisfies H_par·p = H_sys·d (mod 2), so
 p = P·d with P = H_par⁻¹·H_sys, solved once on the host.  Encoding a batch
 is one float32 product mod 2 — exact, since the entries are 0/1 and the
 sums stay below 2²⁴ (integer products are not available on CUDA).
+`encode_ldpc` is the scalar reference-compatible form, host numpy.
 """
 
 from __future__ import annotations
@@ -73,4 +74,16 @@ def encode_ldpc_batch(payload: torch.Tensor, H: np.ndarray) -> torch.Tensor:
     return torch.cat([payload.to(torch.int8), parity.to(torch.int8)], dim=-1)
 
 
-__all__ = ["encode_ldpc_batch", "parity_solver_matrix"]
+def encode_ldpc(payload: np.ndarray, H: np.ndarray) -> np.ndarray:
+    """Scalar reference-compatible API (1D payload, host numpy)."""
+
+    payload = np.asarray(payload)
+    if payload.ndim != 1:
+        raise ValueError("payload must be 1D")
+    H = np.asarray(H)
+    P = parity_solver_matrix(H, payload.size)
+    parity = (P.astype(np.int32) @ payload.astype(np.int32)) % 2
+    return np.concatenate([payload.astype(np.int8), parity.astype(np.int8)])
+
+
+__all__ = ["encode_ldpc", "encode_ldpc_batch", "parity_solver_matrix"]

@@ -4,6 +4,9 @@ Host side (NumPy, copied): a generator matrix ``G [deg, Kp]`` with
 ``parity = G @ msg (mod 2)`` and a check matrix ``Hc = [G | I_deg]`` with
 ``syndrome = Hc @ (msg ‖ crc) (mod 2)``.
 
+Scalar host API (NumPy, copied): `attach_crc` and `check_crc` on one 1D
+message, the reference's signatures.
+
 Device side (torch): one matrix product of 0/1 values followed by ``mod 2``.
 The product runs in float32 because CUDA has no integer matmul; every entry
 is a count ≤ K < 2^24, so the float32 sums are exact integers.
@@ -95,11 +98,40 @@ def attach_crc_batch(msg_bits: torch.Tensor, poly: str) -> torch.Tensor:
     return torch.cat([msg_bits, parity.to(msg_bits.dtype)], dim=-1)
 
 
-def check_crc_batch(bits: torch.Tensor, poly: str) -> torch.Tensor:
-    """CRC pass/fail over the last axis.  Returns a bool tensor [...]."""
+def check_crc_batch(bits: torch.Tensor, poly: str, axis: int = -1) -> torch.Tensor:
+    """CRC pass/fail along `axis`.  Returns a bool tensor with `axis` removed."""
 
+    bits = bits.movedim(axis, -1)
     syndrome = _mod2_product(check_matrix(poly, int(bits.shape[-1])), bits)
     return torch.all(syndrome == 0.0, dim=-1)
+
+
+# ------------------------------------------------------------------
+# Scalar host API (reference-compatible signatures)
+# ------------------------------------------------------------------
+
+def attach_crc(msg_bits: np.ndarray, poly: str) -> np.ndarray:
+    """Append CRC parity bits (host, 1D; matches dl_scl_polar.polar.crc.attach_crc)."""
+
+    msg_bits = np.asarray(msg_bits)
+    if msg_bits.ndim != 1:
+        raise ValueError("msg_bits must be a 1D array")
+    msg_bits = (msg_bits.astype(np.int8) & 1)
+    G = generator_matrix(poly, msg_bits.size)
+    parity = (G.astype(np.int32) @ msg_bits.astype(np.int32)) % 2
+    return np.concatenate([msg_bits, parity.astype(np.int8)])
+
+
+def check_crc(msg_with_crc: np.ndarray, poly: str) -> bool:
+    """True iff the CRC checks out (host, 1D)."""
+
+    msg_with_crc = np.asarray(msg_with_crc)
+    if msg_with_crc.ndim != 1:
+        raise ValueError("msg_with_crc must be a 1D array")
+    bits = (msg_with_crc.astype(np.int8) & 1)
+    Hc = check_matrix(poly, bits.size)
+    syndrome = (Hc.astype(np.int32) @ bits.astype(np.int32)) % 2
+    return not syndrome.any()
 
 
 __all__ = [
@@ -109,4 +141,6 @@ __all__ = [
     "check_matrix",
     "attach_crc_batch",
     "check_crc_batch",
+    "attach_crc",
+    "check_crc",
 ]

@@ -4,7 +4,12 @@ Replaces the TPU kernel `polar_code_tpu/ops/scl_pallas.py` `_kernel_body`
 (wrapper `decode_scl_pallas`).  `decode_scl_cuda` has the JAX wrapper's
 contract: llr [B, N] float32 → {"best_path_bits" int8 [B, K],
 "best_path_info_llrs" float32 [B, K], "crc_pass" bool [B]}, with an optional
-forced plan int8 [B, K] (−1 free / 0 / 1).
+forced plan int8 [B, K] (−1 free / 0 / 1).  With `full=True` it also returns
+the whole final list, the fields of the plain `SCLResult` that the scalar API
+(`polar/api.py::decode_scl`) reads: "candidates" int8 [B, M, K], "metrics"
+float32 [B, M] (+inf for a path never reached), "valid" bool [B, M],
+"info_llrs" float32 [B, M, K] and "best_index" int32 [B], in the final
+stable (metric, slot) order; the kernel's LIST instantiation writes them.
 
 On a CUDA tensor it launches the kernel, or raises for a shape the kernel
 does not take; it runs the plain version (`ops/scl.py`) only for a tensor on
@@ -42,6 +47,11 @@ SUPPORTED_M = (1, 2, 4, 8)
 MAX_N = 2048
 MAX_BLOCK_SMEM = 227 * 1024  # dynamic shared memory one block may use on an H100
 FRAMES_PER_SM_TARGET = 16
+# the outputs of every launch, and those `full=True` adds (the plain
+# `SCLResult`'s names), in the order of the kernel's arguments; "valid" is
+# worked out from the metrics
+BEST_FIELDS = ("best_path_bits", "best_path_info_llrs", "crc_pass")
+LIST_FIELDS = ("candidates", "info_llrs", "metrics", "best_index", "valid")
 
 
 def frame_bytes(N: int, K: int, M: int, global_levels: int = 0) -> int:
@@ -72,7 +82,7 @@ def check_shape(N: int, K: int, M: int, crc: Optional[str], dtype: torch.dtype) 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
-    lib.scl_decode_launch.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.scl_decode_launch.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.scl_decode_launch.restype = ctypes.c_int
     lib.scl_launch_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
     lib.scl_launch_plan.restype = ctypes.c_int
@@ -145,20 +155,18 @@ def decode_scl_cuda(
     crc: Optional[str] = None,
     *,
     force_info_bits: Optional[torch.Tensor] = None,
+    full: bool = False,
 ) -> dict:
     """Fused SCL decode of a batch: the CRC-selected path's bits and info
-    LLRs, and the CRC pass flag."""
+    LLRs, and the CRC pass flag; with `full`, also the whole final list."""
 
     info_np = np.asarray(info_set, np.int64)
     if llr.device.type == "cpu":
         res = decode_scl_batch(
             llr, info_np, M, crc, force_info_bits=force_info_bits, dtype=llr.dtype
         )
-        return {
-            "best_path_bits": res.best_path_bits,
-            "best_path_info_llrs": res.best_path_info_llrs,
-            "crc_pass": res.crc_pass,
-        }
+        fields = BEST_FIELDS + (LIST_FIELDS if full else ())
+        return {f: getattr(res, f) for f in fields}
     if llr.device.type != "cuda":
         raise ValueError(f"decode_scl_cuda takes CUDA or CPU tensors, not {llr.device}")
     if llr.dim() != 2 or not llr.is_contiguous():
@@ -172,43 +180,51 @@ def decode_scl_cuda(
                 or not f.is_contiguous()):
             raise ValueError(f"force_info_bits must be a contiguous int8 [{B}, {K}] tensor on {llr.device}")
     G, fpb, _ = launch_plan(N, K, M)
-    return _launch(llr, info_np, M, crc, force_info_bits, G, fpb)
+    return _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full)
 
 
-def _launch(llr, info_np, M, crc, force_info_bits, G, fpb) -> dict:
+def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
     """Launch the kernel on checked inputs, with levels 1..G in global
-    scratch and fpb frames a block (`chip_smoke.py` times other G here)."""
+    scratch and fpb frames a block (`chip_smoke.py` times other G here);
+    `full` launches the list instantiation."""
 
     B, N = int(llr.shape[0]), int(llr.shape[1])
     K = int(info_np.size)
     dev = llr.device
-    bits = torch.empty((B, K), dtype=torch.int8, device=dev)
-    llrs = torch.empty((B, K), dtype=torch.float32, device=dev)
-    passed = torch.empty((B,), dtype=torch.bool, device=dev)
-    if B == 0:
-        return {"best_path_bits": bits, "best_path_info_llrs": llrs, "crc_pass": passed}
-    sched, hcols = _device_tables(tuple(int(i) for i in info_np), N, crc, dev)
-    row = N - (N >> G)  # entries of a path's levels 1..G
-    glob_llr = torch.empty((B, M, row), dtype=torch.float32, device=dev) if G else None
-    glob_bits = torch.empty((B, M, row), dtype=torch.uint8, device=dev) if G else None
-    trace_llr = torch.empty((B, K, M), dtype=torch.float32, device=dev)
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.scl_decode_launch(
-            llr.data_ptr(),
-            force_info_bits.data_ptr() if force_info_bits is not None else None,
-            hcols.data_ptr(), sched.data_ptr(),
-            glob_llr.data_ptr() if G else None, glob_bits.data_ptr() if G else None,
-            trace_llr.data_ptr(),
-            bits.data_ptr(), llrs.data_ptr(), passed.data_ptr(),
-            B, N, int(math.log2(N)), K, M, G, int(crc is not None),
-            frame_bytes(N, K, M, G), fpb, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"SCL kernel launch failed: {lib.scl_error_string(rc).decode()} ({rc})")
-    decode_scl_cuda.launches += 1
-    return {"best_path_bits": bits, "best_path_info_llrs": llrs, "crc_pass": passed}
+    out = {"best_path_bits": torch.empty((B, K), dtype=torch.int8, device=dev),
+           "best_path_info_llrs": torch.empty((B, K), dtype=torch.float32, device=dev),
+           "crc_pass": torch.empty((B,), dtype=torch.bool, device=dev)}
+    if full:
+        out.update(candidates=torch.empty((B, M, K), dtype=torch.int8, device=dev),
+                   info_llrs=torch.empty((B, M, K), dtype=torch.float32, device=dev),
+                   metrics=torch.empty((B, M), dtype=torch.float32, device=dev),
+                   best_index=torch.empty((B,), dtype=torch.int32, device=dev))
+    if B > 0:
+        sched, hcols = _device_tables(tuple(int(i) for i in info_np), N, crc, dev)
+        row = N - (N >> G)  # entries of a path's levels 1..G
+        glob_llr = torch.empty((B, M, row), dtype=torch.float32, device=dev) if G else None
+        glob_bits = torch.empty((B, M, row), dtype=torch.uint8, device=dev) if G else None
+        trace_llr = torch.empty((B, K, M), dtype=torch.float32, device=dev)
+        lists = [out[f].data_ptr() if full else None for f in LIST_FIELDS[:4]]
+        lib = _library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.scl_decode_launch(
+                llr.data_ptr(),
+                force_info_bits.data_ptr() if force_info_bits is not None else None,
+                hcols.data_ptr(), sched.data_ptr(),
+                glob_llr.data_ptr() if G else None, glob_bits.data_ptr() if G else None,
+                trace_llr.data_ptr(),
+                *(out[f].data_ptr() for f in BEST_FIELDS), *lists,
+                B, N, int(math.log2(N)), K, M, G, int(crc is not None),
+                frame_bytes(N, K, M, G), fpb, stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"SCL kernel launch failed: {lib.scl_error_string(rc).decode()} ({rc})")
+        decode_scl_cuda.launches += 1
+    if full:
+        out["valid"] = torch.isfinite(out["metrics"])
+    return out
 
 
 decode_scl_cuda.launches = 0

@@ -1,7 +1,9 @@
 """Device selection for the port's entry points.
 
 Entry points run on the card unless the caller asks for the CPU; a missing
-card is an error, never a silent move to the CPU.  With one process per
+card is an error, never a silent move to the CPU.  The scalar,
+reference-compatible entry points take their float type from the device
+(`scalar_dtype`).  With one process per
 card (`parallel/mesh.py`), "cuda" means this rank's own card,
 `cuda:{local rank % cards}`.
 """
@@ -40,4 +42,15 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     return dev
 
 
-__all__ = ["resolve_device"]
+def scalar_dtype(device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.dtype:
+    """The float type of a scalar entry point's decode: `dtype` when given;
+    else float64 on the CPU (the JAX package's x64 parity path) and float32
+    on the card (the kernels' type).  An explicit float64 on the card is
+    passed on, and the kernel's shape check raises for it."""
+
+    if dtype is not None:
+        return dtype
+    return torch.float64 if torch.device(device).type == "cpu" else torch.float32
+
+
+__all__ = ["resolve_device", "scalar_dtype"]

@@ -211,7 +211,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " or m == 'polar_code_tpu']\n"
         "assert len(names) >= 20, names\n"
         "new = {'polar_code_tpu_torch.train.make_dataset', 'polar_code_tpu_torch.train.train_beta',"
-        " 'polar_code_tpu_torch.eval.opcount'}\n"
+        " 'polar_code_tpu_torch.eval.opcount', 'polar_code_tpu_torch.polar.api',"
+        " 'polar_code_tpu_torch.legacy.polar_code', 'polar_code_tpu_torch.legacy.functions',"
+        " 'polar_code_tpu_torch.legacy.exceptions'}\n"
         "assert new <= set(names), sorted(new - set(names))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -133,9 +133,9 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    P(1024,512) `gaussian_bitrev` M=8 at 1.75 dB B=1024 and P(2048,1024) M=8
    B=256; (b) its metrics of all M paths against the JAX float32 decoder's
    (every case of `tests/golden/scl_f32_decode.npz`); (c) the shapes of
-   `tests/test_fuzz_configs.py` at B=4096 — N 16–2048 through K1 (list and
-   best-only) against the plain version, N=4096 refused by K1's shape
-   check, and its PAC shapes through K3, every frame identical; (d) the
+   `tests/test_fuzz_configs.py` at B=4096 — N 16–4096 through K1 (list and
+   best-only; B=256 at N=4096) against the plain version, and its PAC
+   shapes through K3, every frame identical; (d) the
    scalar entry points with their default device — `sc_decode`,
    `decode_scl` (M 1 and 8) and `decode_with_retries` (M=2, 4 retries) on
    the 12 frames of `tests/golden/ref_p128_k64.npz` against the reference's
@@ -144,10 +144,43 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    `PolarCode(64, 48, "dega", L).pac_list_crc_decoder` (CRC-16, L 1 and 4)
    on 64 frames each, equal to the batch kernels on the same frames; K1, K2
    and K3 launched once a decode and the plain decoders never on CUDA; the
-   systematic PolarCode decoder, `early_stop=False` and float64 raising on
-   the card; (e) `decode_scl`'s time a call and K1's full-list launch
-   beside its best-only launch;
-13. a `kernels` JSON line, the `nvidia-smi` line, and the device JSON line last.
+   systematic PolarCode decoder and `decode_ldpc_nms(early_stop=False)` on
+   one frame each equal to the plain version, and float64 raising on the
+   card; (e) `decode_scl`'s time a call and K1's full-list launch beside
+   its best-only launch;
+13. the wide envelope (`wide_envelope`): K1's launch plan at every new
+   shape; (a) K1's by-path instantiation against the plain version, list
+   and best-only, at P(128,64) CRC-24A M ∈ {3, 16, 32}, B=1001, CRC on and
+   off, plan on and off, and at P(1024,512) M=16 B=256; (b) K1 at N=4096
+   (M 1, 4, 8, 16) and N=8192 (M 1, 4, 8, 16, 32), 32 frames each, against
+   the plain version; (c) K1 against the JAX float32 decoder, every case of
+   `tests/golden/scl_f32_wide.npz` (written on the CPU by
+   `tests/golden/make_scl_f32_wide.py`: P(128,64) at M 3, 16, 32 and
+   P(4096,2048) M=8) — bits, info LLRs and the metrics of all M paths;
+   (a)–(c) under K1's near-tie rule; (d) the FER sweep CLI at P(128,64) M
+   16 and 32, 8 retries, β `beta_M8.npy`, 40960 frames at two points
+   (4.0 and 4.5 dB at M=16, 3.5 and 4.0 dB at M=32),
+   through K1's by-path instantiation alone, held to the JAX CLI's CSVs in
+   `tests/golden/fer_wide/` at |z| < 3; (e) the scalar calls that reach
+   the new instantiations — `decode_scl` at M=16 on the 12 golden frames,
+   the systematic `PolarCode(64, 48, "dega", L)` decoder at L 1, 4 and 32
+   with CRC-16 on and off, and `decode_ldpc_nms(early_stop=False)` on
+   QC-IRA 4×8 Z=31 shared and two-min, 64 frames each — each one launch of
+   its new instantiation and equal to the plain version on the card; and
+   K3's list launch (`pac_list_decode_cuda(..., full=True)`) on the
+   systematic decoder's frames, every list field (`extracted`, `crc_pass`,
+   `v_full`, `candidates`, `metrics`, `valid`, `best_index`) equal to the
+   plain version's; (f) times with CUDA events: K1 at P(128,64) B=4096 M
+   16 and 32 beside M=8, at P(4096,2048) and P(8192,4096) M=4 B=1024, K3's
+   list launch beside its best-only one at PAC(128,64)+CRC-16 L=8 B=4096
+   (and every list field there equal to the plain version's), and K2
+   without early stop beside early stop at QC-IRA 4×8 Z=31 two-min B=4096
+   (and its bits, iterations and parity there equal to the plain
+   version's);
+14. a `kernels` JSON line (one entry a kernel, and one for each new
+   instantiation with its launches on phase 13's paths; each `max_abs_err`
+   the largest difference from the plain version that the run measured),
+   the `nvidia-smi` line, and the device JSON line last.
 
 It exits non-zero, and prints no result line, when there is no CUDA device,
 when a phase fails, or when run without the rest of the repository.  It
@@ -273,10 +306,14 @@ def ptxas_report(log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             tm = re.search(r"scl_decode_kernelILi(\d+)ELb([01])E", m.group(1))
-            tp = re.search(r"pac_decode_kernelILi(\d+)E", m.group(1))
+            tw = re.search(r"scl_path_kernelILi(\d+)ELb([01])E", m.group(1))
+            tp = re.search(r"pac_decode_kernelILi(\d+)E(?:Lb([01])E)?", m.group(1))
             tn = re.search(r"nms_kernel_(warp|block|1024)ILi(\d+)ELb([01])E", m.group(1))
             entry = (f"scl_decode_kernel<M={tm.group(1)}{', list' if tm.group(2) == '1' else ''}>" if tm
-                     else f"pac_decode_kernel<LM={tp.group(1)}>" if tp
+                     else f"scl_path_kernel<LM={tw.group(1)}{', list' if tw.group(2) == '1' else ''}>"
+                     if tw
+                     else f"pac_decode_kernel<LM={tp.group(1)}{', list' if tp.group(2) == '1' else ''}>"
+                     if tp
                      else f"nms_kernel<D={tn.group(2)}, {'two-min' if tn.group(3) == '1' else 'shared'}, "
                           f"{tn.group(1)}>" if tn else m.group(1))
             cur = {"entry": entry, "regs": None, "spill_stores": None, "spill_loads": None,
@@ -1021,6 +1058,7 @@ FUZZ_PAC_CONFIGS = [
 ]
 SCALAR_FRAMES = 64  # frames of the scalar NMS, NR polar and PolarCode calls
 SCALAR_BATCH = 4096  # frames of phase 12's P(128,64) list cases and fuzz shapes
+FUZZ_WIDE_BATCH = 256  # of them, frames of the N=4096 fuzz shapes: the plain version's cost
 
 
 def judge_list(out, ref, tag, tie_metrics=None):
@@ -1067,6 +1105,81 @@ def plain_fields(res):
              "info_llrs", "best_index")}
 
 
+def systematic_reference(pc, llr_rows, crc_on, crc1, L, dev):
+    """What `PolarCode.pac_list_crc_decoder(issystematic=True)` returns for
+    each row, from the plain PAC decoder in float32 on the card: every
+    path's `v_full` re-encoded, the first valid path whose extracted bits
+    pass the CRC, else the first path."""
+
+    import torch
+
+    from polar_code_tpu_torch.legacy.pac import pac_list_decode_batch
+    from polar_code_tpu_torch.ops.polar_transform import polar_transform
+
+    res = pac_list_decode_batch(torch.from_numpy(np.asarray(llr_rows, np.float32)).to(dev),
+                                pc.polarcode_mask, pc.gen, L, crc_len=crc1.len if crc_on else 0,
+                                crc_poly=crc1.gen if crc_on else 0)
+    coded = polar_transform(res["v_full"]).cpu().numpy()[:, :, np.asarray(pc.polarcode_mask) == 1]
+    valid = res["valid"].cpu().numpy()
+    out = []
+    for cands, ok in zip(coded.astype(int), valid):
+        pick = cands[0]
+        if crc_on:
+            pick = next((c for c, v in zip(cands, ok) if v and sum(crc1.crcCalc(c)) == 0), cands[0])
+        out.append(pick)
+    return np.stack(out)
+
+
+PAC_LIST_FIELDS = ("extracted", "crc_pass", "v_full", "candidates", "metrics", "valid", "best_index")
+
+
+def k3_list_vs_plain(x, mask, gen, L, crc_len, crc_poly, tag, out=None, ref=None):
+    """K3's list launch (`pac_list_decode_cuda(..., full=True)`) against the
+    plain version on the same card tensor, every field of the list held
+    exactly (a dead path's +inf metric equal to +inf); either side may be
+    given.  Returns max |diff| over the fields."""
+
+    import torch
+
+    from polar_code_tpu_torch.legacy.pac import pac_list_decode_batch
+    from polar_code_tpu_torch.legacy.pac_cuda import pac_list_decode_cuda
+
+    if out is None:
+        out = pac_list_decode_cuda(x, mask, gen, L, crc_len, crc_poly, full=True)
+    if ref is None:
+        ref = pac_list_decode_batch(x, mask, gen, L, crc_len=crc_len, crc_poly=crc_poly)
+    torch.cuda.synchronize()
+    err = 0.0
+    for f in PAC_LIST_FIELDS:
+        have, want = out[f].double().cpu().numpy(), ref[f].double().cpu().numpy()
+        check(have.shape == want.shape, f"{tag}: K3's {f} is {have.shape}, the plain version's {want.shape}")
+        with np.errstate(invalid="ignore"):
+            diff = np.where(have == want, 0.0, np.abs(have - want))
+        err = max(err, float(diff.max()) if diff.size else 0.0)
+        check(np.array_equal(have, want), f"{tag}: K3's list {f} differs from the plain version in frames "
+              f"{np.flatnonzero(np.any((have != want).reshape(len(have), -1), axis=1))[:10].tolist()}")
+    return err
+
+
+def k1_vs_plain(llr, info, M, crc, plan, tag):
+    """K1's list and best-only launches against the plain version on the
+    same card tensors (`judge_list`): ((frames differing, near-ties, max
+    |info LLR diff|) of the list, the same of best-only)."""
+
+    import torch
+
+    from polar_code_tpu_torch.ops.scl import decode_scl_batch
+    from polar_code_tpu_torch.ops.scl_cuda import decode_scl_cuda
+
+    out = decode_scl_cuda(llr, info, M, crc, force_info_bits=plan, full=True)
+    best = decode_scl_cuda(llr, info, M, crc, force_info_bits=plan)
+    torch.cuda.synchronize()
+    ref = plain_fields(decode_scl_batch(llr, info, M, crc, force_info_bits=plan, dtype=torch.float32))
+    res = judge_list(out, ref, tag)
+    best_ref = {f: ref[f] for f in ("best_path_bits", "best_path_info_llrs", "crc_pass")}
+    return res, judge_list(best, best_ref, tag + " best-only", ref["metrics"])
+
+
 def scalar_surface(dev, smi):
     """Phase 12: K1's full-list output against the plain version and the JAX
     float32 metrics; the fuzz shapes through K1 and K3; the scalar entry
@@ -1091,18 +1204,9 @@ def scalar_surface(dev, smi):
     from polar_code_tpu_torch.ops.crc import check_crc
     from polar_code_tpu_torch.ops.sc import sc_decode
     from polar_code_tpu_torch.ops.scl import decode_scl_batch
-    from polar_code_tpu_torch.ops.scl_cuda import MAX_N, decode_scl_cuda
+    from polar_code_tpu_torch.ops.scl_cuda import decode_scl_cuda
     from polar_code_tpu_torch.polar.api import decode_scl
     from polar_code_tpu_torch.polar.construct import construct_info_set
-
-    def k1_vs_plain(llr, info, M, crc, plan, tag):
-        out = decode_scl_cuda(llr, info, M, crc, force_info_bits=plan, full=True)
-        best = decode_scl_cuda(llr, info, M, crc, force_info_bits=plan)
-        torch.cuda.synchronize()
-        ref = plain_fields(decode_scl_batch(llr, info, M, crc, force_info_bits=plan, dtype=torch.float32))
-        res = judge_list(out, ref, tag)
-        best_ref = {f: ref[f] for f in ("best_path_bits", "best_path_info_llrs", "crc_pass")}
-        return res, judge_list(best, best_ref, tag + " best-only", ref["metrics"])
 
     # ---- (a) K1's list output against the plain version ----
     rng = np.random.default_rng(20261021)
@@ -1147,16 +1251,10 @@ def scalar_surface(dev, smi):
     differ = ties = 0
     for n_c, k_c, M, crc, scale, seed in FUZZ_CONFIGS:
         info_c = construct_info_set(n_c, k_c)
+        B = FUZZ_WIDE_BATCH if n_c > 2048 else SCALAR_BATCH  # the plain version's cost
         llr = torch.from_numpy(np.random.default_rng(seed).normal(0, scale, (SCALAR_BATCH, n_c))
-                               .astype(np.float32)).to(dev)
-        tag = f"fuzz N={n_c} K={k_c} M={M} crc={crc} B={SCALAR_BATCH}"
-        if n_c > MAX_N:  # K1's envelope: its shape check refuses the decode
-            try:
-                decode_scl_cuda(llr, info_c, M, crc)
-            except ValueError as exc:
-                print(f"  {tag}: refused by K1's shape check: {exc}")
-                continue
-            check(False, f"{tag}: K1 took a shape outside its envelope")
+                               .astype(np.float32)[:B]).to(dev)
+        tag = f"fuzz N={n_c} K={k_c} M={M} crc={crc} B={B}"
         (d, t, _), (db, tb, _) = k1_vs_plain(llr, info_c, M, crc, None, tag)
         differ, ties = differ + d + db, ties + t + tb
         print(f"  {tag}: list and best-only equal to the plain version outside "
@@ -1174,9 +1272,8 @@ def scalar_surface(dev, smi):
                | (out["crc_pass"] != ref["crc_pass"])).cpu().numpy()
         print(f"  fuzz PAC N={n_p} Kp={kp} L={L} {profile} B={SCALAR_BATCH}: {int(bad.sum())} frames differ")
         check(not bad.any(), f"K3 differs from the plain version at fuzz PAC N={n_p} Kp={kp} L={L}")
-    print(f"fuzz shapes: {len(FUZZ_CONFIGS)} SCL shapes ({differ} frames differ, all {ties} near-ties; "
-          f"N=4096 refused by K1's shape check) and {len(FUZZ_PAC_CONFIGS)} PAC shapes, every frame "
-          f"identical")
+    print(f"fuzz shapes: {len(FUZZ_CONFIGS)} SCL shapes ({differ} frames differ, all {ties} near-ties) "
+          f"and {len(FUZZ_PAC_CONFIGS)} PAC shapes, every frame identical")
 
     # ---- (d) the scalar entry points on the card ----
     golden = np.load(GOLDEN / "ref_p128_k64.npz")
@@ -1198,21 +1295,25 @@ def scalar_surface(dev, smi):
     pc_llr = (2.0 * (1.0 - 2.0 * codewords + rng.normal(0.0, math.sqrt(nv), codewords.shape)) / nv
               ).astype(np.float32)
 
-    check_raises = []
-    for what, call in (
-            ("PolarCode(device=cuda).pac_list_crc_decoder(issystematic=True)",
-             lambda: pc[4].pac_list_crc_decoder(pc_llr[0], True, True, crc16, 4)),
-            ("decode_ldpc_nms(early_stop=False) on the card",
-             lambda: decode_ldpc_nms(nms_llr[0].cpu().numpy(), ira_H, early_stop=False)),
-            ("decode_scl(dtype=float64) on the card",
-             lambda: decode_scl(golden["llrs"][0], g_info, 8, CRC, dtype=torch.float64))):
-        try:
-            call()
-        except ValueError as exc:
-            check_raises.append(f"  {what} raises: {exc}")
-            continue
-        check(False, f"{what} did not raise")
-    print("\n".join(check_raises))
+    # the systematic decoder and decode without early stop, on one frame each,
+    # against the plain version on the card; float64 on the card raises
+    got = pc[4].pac_list_crc_decoder(pc_llr[0], True, True, crc16, 4)
+    want = systematic_reference(pc[4], pc_llr[:1], True, crc16, 4, dev)[0]
+    check(np.array_equal(got, want), "PolarCode systematic decoder differs from the plain version")
+    got = decode_ldpc_nms(nms_llr[0].cpu().numpy(), ira_H, early_stop=False)
+    want = decode_ldpc_nms_batch(nms_llr[:1], ira_H, early_stop=False)
+    check(np.array_equal(got["hard"], want["hard"][0].cpu().numpy())
+          and got["iters_used"] == 20 == int(want["iters_used"][0])
+          and got["parity_ok"] == bool(want["parity_ok"][0]),
+          "decode_ldpc_nms(early_stop=False) differs from the plain version")
+    print("  PolarCode(64, 48, dega, L=4) systematic CRC-16 and decode_ldpc_nms(early_stop=False) on "
+          "the card: one frame each, equal to the plain version")
+    try:
+        decode_scl(golden["llrs"][0], g_info, 8, CRC, dtype=torch.float64)
+    except ValueError as exc:
+        print(f"  decode_scl(dtype=float64) on the card raises: {exc}")
+    else:
+        check(False, "decode_scl(dtype=float64) on the card did not raise")
 
     k1_before, k2_before = decode_scl_cuda.launches, decode_ldpc_nms_cuda.launches
     k3_before = pac_list_decode_cuda.launches
@@ -1318,6 +1419,314 @@ def scalar_surface(dev, smi):
     return launches
 
 
+# phase 13, the wide envelope: K1's by-path instantiation (list sizes 1..32
+# outside {1, 2, 4, 8}) and N up to 8192, K3's list output and K2 without
+# early stop
+WIDE_MS = (3, 16, 32)  # (a): P(128,64) list sizes, B=1001 (ragged)
+WIDE_B = 1001
+WIDE_N = [(4096, 2048, M) for M in (1, 4, 8, 16)] + [(8192, 4096, M) for M in (1, 4, 8, 16, 32)]  # (b)
+WIDE_N_FRAMES = 32  # (b): the plain version takes seconds a batch at N=8192
+# (d): list size: its two Eb/N0 points (dB), where the SCL FER is about 1e-1
+# to 1e-2; tests/golden/fer_wide/fer_M{M}.csv, 40960 frames a point
+WIDE_FER = {16: (4.0, 4.5), 32: (3.5, 4.0)}
+WIDE_FER_FRAMES = 40960
+SYSTEMATIC_LS = (1, 4, 32)  # (e): PolarCode(64, 48, "dega", L), systematic
+WIDE_TIME_B = (4096, 1024)  # (f): frames of the P(128,64), PAC and LDPC times; of N 4096 and 8192
+
+
+def wide_envelope(dev, smi):
+    """Phase 13: K1's by-path instantiation and N up to 8192 against the
+    plain version and the JAX float32 golden file, the FER CLI at M 16 and
+    32 against the JAX CSVs, the scalar calls that reach the new
+    instantiations, and their times.  Returns the `kernels` entries of the
+    three new instantiations."""
+
+    import torch
+
+    from polar_code_tpu_torch.eval import run_fer_sweep
+    from polar_code_tpu_torch.legacy.crclib import crc as legacy_crc
+    from polar_code_tpu_torch.legacy.pac import pac_list_decode_batch
+    from polar_code_tpu_torch.legacy.pac_cuda import pac_list_decode_cuda
+    from polar_code_tpu_torch.legacy.polar_code import PolarCode
+    from polar_code_tpu_torch.legacy.rate_profile import rateprofile
+    from polar_code_tpu_torch.nr.ldpc import decode_ldpc_nms, decode_ldpc_nms_batch
+    from polar_code_tpu_torch.nr.ldpc.nms_cuda import decode_ldpc_nms_cuda
+    from polar_code_tpu_torch.ops import scl_cuda
+    from polar_code_tpu_torch.ops.scl import decode_scl_batch
+    from polar_code_tpu_torch.polar.api import decode_scl
+    from polar_code_tpu_torch.polar.construct import construct_info_set
+
+    decode_scl_cuda = scl_cuda.decode_scl_cuda
+    wrappers = (decode_scl_cuda, decode_ldpc_nms_cuda, pac_list_decode_cuda)
+    plains = (decode_scl_batch, decode_ldpc_nms_batch, pac_list_decode_batch)
+
+    def reset_counts():
+        for f in wrappers:
+            f.launches = 0
+        decode_scl_cuda.path_launches = pac_list_decode_cuda.list_launches = 0
+        decode_ldpc_nms_cuda.no_stop_launches = 0
+        for f in plains:
+            f.cuda_calls = 0
+
+    def new_counts():  # launches of the by-path K1, list K3 and no-stop K2
+        return (decode_scl_cuda.path_launches, decode_ldpc_nms_cuda.no_stop_launches,
+                pac_list_decode_cuda.list_launches)
+
+    for n_s, k_s, M in [(N, K, M) for M in WIDE_MS] + [(1024, 512, 16)] + WIDE_N:
+        g, fpb, per_sm = scl_cuda.launch_plan(n_s, k_s, M)
+        fb = scl_cuda.frame_bytes(n_s, k_s, M, g)
+        kind = "byte words" if M in scl_cuda.BYTE_WORD_M else f"by path, LM={scl_cuda.path_width(M)}"
+        print(f"  K1 N={n_s} K={k_s} M={M} ({kind}): levels 1..{g} in global scratch; {fb} B shared "
+              f"a frame x {fpb} frames a block; {per_sm} resident frames an SM (occupancy calculator)")
+        check(per_sm >= 1, f"K1 cannot place a frame of N={n_s} M={M}")
+
+    # ---- (a) the by-path instantiation against the plain version ----
+    rng = np.random.default_rng(20261105)
+    info = construct_info_set(N, K)
+    cases = [(N, K, M, crc, plan, WIDE_B, 2.5, "gaussian") for M in WIDE_MS for crc in (CRC, None)
+             for plan in (False, True)]
+    cases.append((1024, 512, 16, CRC, False, 256, 1.75, "gaussian_bitrev"))
+    differ = ties = 0
+    max_err = 0.0
+
+    def against_plain(case_list, label):
+        nonlocal differ, ties, max_err
+        for n_c, k_c, M, crc, use_plan, B, snr, method in case_list:
+            info_c = construct_info_set(n_c, k_c, method=method)
+            llr_np, msg = make_llrs(rng, B, snr, info_c, n=n_c)
+            plan = torch.from_numpy(random_plan(rng, msg)).to(dev) if use_plan else None
+            tag = (f"{label} P({n_c},{k_c}) M={M} crc={'on' if crc else 'off'} "
+                   f"plan={'on' if use_plan else 'off'} {snr} dB B={B}")
+            (d, t, e), (db, tb, eb) = k1_vs_plain(torch.from_numpy(llr_np).to(dev), info_c, M, crc, plan,
+                                                   tag)
+            differ, ties, max_err = differ + d + db, ties + t + tb, max(max_err, e, eb)
+            print(f"  {tag}: list and best-only equal to the plain version outside {t + tb} "
+                  f"near-tie frames", flush=True)
+
+    against_plain(cases, "(a)")
+    print(f"(a) K1 by path vs plain: {len(cases)} cases, list and best-only, {differ} frames differ, all "
+          f"{ties} near-ties; max |info LLR diff| {max_err:.3e}")
+
+    # ---- (b) N 4096 and 8192 against the plain version ----
+    differ = ties = 0
+    against_plain([(n_c, k_c, M, CRC, False, WIDE_N_FRAMES, 1.5, "gaussian_bitrev")
+                   for n_c, k_c, M in WIDE_N], "(b)")
+    print(f"(b) K1 at N 4096 and 8192 vs plain: {len(WIDE_N)} shapes, {differ} frames differ, all "
+          f"{ties} near-ties")
+
+    # ---- (c) against the JAX float32 XLA decoder ----
+    differ = ties = 0
+    with np.load(GOLDEN / "scl_f32_wide.npz") as gold:
+        wide_cases = json.loads(str(gold["cases"]))
+        for case in wide_cases:
+            tag, code = case["name"], case["code"]
+            x = torch.from_numpy(gold[f"{code}/llr"]).to(dev)
+            plan = torch.from_numpy(gold[f"{code}/plan"]).to(dev) if case["plan"] else None
+            out = decode_scl_cuda(x, gold[f"{code}/info"], case["M"], case["crc"], force_info_bits=plan,
+                                  full=True)
+            ref = {"best_path_bits": gold[f"{tag}/bits"], "best_path_info_llrs": gold[f"{tag}/llrs"],
+                   "crc_pass": gold[f"{tag}/crc_pass"], "metrics": gold[f"{tag}/metrics"]}
+            check(ref["metrics"].shape == tuple(out["metrics"].shape), f"{tag}: golden metrics shape")
+            d, t, _ = judge_list(out, ref, f"(c) vs JAX f32 {tag}")
+            differ, ties = differ + d, ties + t
+            print(f"  (c) {tag} B={x.shape[0]}: {d} frames differ from JAX float32 ({t} near-ties); "
+                  f"crc pass {int(ref['crc_pass'].sum())}", flush=True)
+    print(f"(c) K1 vs JAX float32: {len(wide_cases)} cases (bits, info LLRs, metrics of all M paths), "
+          f"{differ} frames differ, all {ties} near-ties")
+
+    # ---- (d) the FER CLI at M 16 and 32 against the JAX CSVs ----
+    path_launches = 0
+    for M, (snr_lo, snr_hi) in WIDE_FER.items():
+        ref = jax_fer_rows(GOLDEN / "fer_wide" / f"fer_M{M}.csv", WIDE_FER_FRAMES)
+        reset_counts()
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+            rows = run_fer_sweep.main([
+                "--M", str(M), "--snr_lo", str(snr_lo), "--snr_hi", str(snr_hi), "--snr_step", "0.5",
+                "--retries", "8", "--beta", str(REPO / "checkpoints" / "beta_M8.npy"),
+                "--batch", "4096", "--frames", str(WIDE_FER_FRAMES), "--seed", "0",
+                "--out_dir", f"{tmp}/results", "--plot_dir", f"{tmp}/plots"])
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches, plain = decode_scl_cuda.launches, sum(f.cuda_calls for f in plains)
+        path_launches += decode_scl_cuda.path_launches
+        steps = len(rows) * math.ceil(WIDE_FER_FRAMES / 4096)
+        print(f"(d) FER CLI P(128,64) M={M}: {launches} K1 launches ({decode_scl_cuda.path_launches} by "
+              f"path) over {steps} FER steps, plain decoders on CUDA {plain} times, "
+              f"{len(rows) * WIDE_FER_FRAMES / secs:.0f} frames/s")
+        check(launches >= steps and decode_scl_cuda.path_launches == launches,
+              f"the M={M} FER sweep did not go through K1's by-path instantiation")
+        check(plain == 0, f"a plain decoder ran on CUDA in the M={M} FER sweep")
+        check(len(rows) == len(ref), f"the M={M} FER sweep gave {len(rows)} points")
+        for row in rows:
+            for key in ("fer_scl", "fer_dl"):
+                p1, p2 = row[key], ref[row["snr_db"]][key]
+                check(math.isfinite(p1) and 0.0 < p1 < 1.0, f"M={M} {key} at {row['snr_db']} dB is {p1}")
+                z = fer_z(p1, WIDE_FER_FRAMES, p2, WIDE_FER_FRAMES)
+                print(f"  M={M} {row['snr_db']} dB {key}: port {p1:.6e} vs JAX {p2:.6e} "
+                      f"({WIDE_FER_FRAMES} frames each): z = {z:+.3f}")
+                check(abs(z) < 3.0, f"M={M} {key} at {row['snr_db']} dB is off the JAX sweep (z={z:.2f})")
+
+    # ---- (e) the scalar calls that reach the new instantiations ----
+    pac_err, nms_err = 0.0, 0  # max |diff| of K3's list and K2 without early stop against the plain version
+    golden = np.load(GOLDEN / "ref_p128_k64.npz")
+    g_info = golden["info_set"]
+    crc16 = legacy_crc(*PAC_CRC)
+    systematic = {}
+    for L in SYSTEMATIC_LS:
+        pc = PolarCode(64, 48, "dega", L, rateprofile(64, 48, 2.0, 0))
+        for crc_on in (True, False):
+            msgs = rng.integers(0, 2, (SCALAR_FRAMES, 32 if crc_on else 48)).astype(np.int8)
+            if crc_on:
+                msgs = np.concatenate([msgs, crc16.crcCalc_batch(msgs)], axis=1)
+            codewords = np.stack([pc.encode(m, True) for m in msgs])
+            nv = 1.0 / (2.0 * 0.5 * 10 ** 0.3)
+            llr = (2.0 * (1.0 - 2.0 * codewords + rng.normal(0.0, math.sqrt(nv), codewords.shape)) / nv
+                   ).astype(np.float32)
+            systematic[L, crc_on] = (pc, msgs, llr)
+    ira_bg, ira_H = ldpc_code(IRA[1], IRA[2])
+    nms_llr = ldpc_llrs(rng, (IRA, (ira_bg, ira_H)), SCALAR_FRAMES, 2.5, dev)
+    reset_counts()
+    scl16 = [decode_scl(llr, g_info, 16, CRC) for llr in golden["llrs"]]
+    sys_out = {key: np.stack([pc.pac_list_crc_decoder(row, True, key[1], crc16, key[0]) for row in llr])
+               for key, (pc, _, llr) in systematic.items()}
+    nms_out = {se: [decode_ldpc_nms(row, ira_H, early_stop=False, self_exclude=se)
+                    for row in nms_llr.cpu().numpy()] for se in (False, True)}
+    torch.cuda.synchronize()
+    scalar_launches = tuple(f.launches for f in wrappers)
+    scalar_new = new_counts()
+    plain = tuple(f.cuda_calls for f in plains)
+    calls = (len(scl16), 2 * SCALAR_FRAMES, len(systematic) * SCALAR_FRAMES)
+    print(f"(e) scalar calls: K1/K2/K3 launches {scalar_launches} (by path / no early stop / list "
+          f"{scalar_new}) for {calls} decodes; plain decoders on CUDA {plain}")
+    check(scalar_launches == calls == scalar_new,
+          f"the scalar calls launched {scalar_launches} ({scalar_new} new), not one a decode {calls}")
+    check(plain == (0, 0, 0), f"a plain decoder ran on CUDA under the scalar calls: {plain}")
+    ref = decode_scl_batch(torch.from_numpy(golden["llrs"].astype(np.float32)).to(dev), g_info, 16, CRC,
+                           dtype=torch.float32)
+    want = plain_fields(ref)
+    got = {"best_path_bits": torch.from_numpy(np.stack([r["best_path_bits"] for r in scl16]))}
+    d, t, _ = judge_list(got, {"best_path_bits": want["best_path_bits"]}, "(e) decode_scl M=16",
+                         want["metrics"])
+    near = near_tie_frames(want["metrics"])
+    for b, r in enumerate(scl16):  # the valid paths' metrics, in the final order, outside near-ties
+        have, ok = np.asarray(r["metrics"]), want["valid"][b]
+        check(near[b] or have.shape == (int(ok.sum()),)
+              and np.all(np.abs(have - want["metrics"][b][ok]) <= 1e-6 * np.abs(have)),
+              f"decode_scl M=16 frame {b} metrics differ from the plain version")
+    print(f"  decode_scl P(128,64) M=16 CRC on the 12 golden frames: {d} frames differ from the plain "
+          f"version ({t} near-ties)")
+    for (L, crc_on), (pc, msgs, llr) in systematic.items():
+        want = systematic_reference(pc, llr, crc_on, crc16, L, dev)
+        got = sys_out[L, crc_on]
+        check(np.array_equal(got, want), f"systematic PolarCode L={L} crc={crc_on} differs from the plain "
+              f"version")
+        print(f"  PolarCode(64, 48, dega, L={L}) systematic, CRC-16 {'on' if crc_on else 'off'}, 3.0 dB: "
+              f"{SCALAR_FRAMES} frames equal to the plain version; {int(np.all(got == msgs, axis=1).sum())} "
+              f"decoded the sent message")
+        # the list the systematic decoder reads, every field, on the same frames
+        crc_args = (crc16.len, crc16.gen) if crc_on else (0, 0)
+        e = k3_list_vs_plain(torch.from_numpy(llr).to(dev), pc.polarcode_mask, pc.gen, L, *crc_args,
+                             f"(e) K3 list L={L} crc={crc_on}")
+        pac_err = max(pac_err, e)
+        print(f"  K3 list at PolarCode(64, 48, dega, L={L}), CRC-16 {'on' if crc_on else 'off'}: "
+              f"{', '.join(PAC_LIST_FIELDS)} of {SCALAR_FRAMES} frames equal to the plain version "
+              f"(max |diff| {e})")
+    for se in (False, True):
+        ref = decode_ldpc_nms_batch(nms_llr, ira_H, early_stop=False, self_exclude=se)
+        for f in ("hard", "iters_used", "parity_ok"):
+            got = np.asarray([r[f] for r in nms_out[se]]).astype(np.int64)
+            want = ref[f].cpu().numpy().astype(np.int64)
+            nms_err = max(nms_err, int(np.abs(got - want).max()))
+            check(np.array_equal(got, want), f"decode_ldpc_nms(early_stop=False) {f} "
+                  f"differs from the plain version ({'two-min' if se else 'shared'})")
+        print(f"  decode_ldpc_nms(early_stop=False) QC-IRA 4x8 Z=31 {'two-min' if se else 'shared'} 2.5 dB: "
+              f"{SCALAR_FRAMES} frames equal to the plain version, 20 iterations each; parity "
+              f"{sum(r['parity_ok'] for r in nms_out[se])}")
+
+    # ---- (f) times with CUDA events ----
+    print(f"wide-envelope times on {smi}:")
+    B, B_wide = WIDE_TIME_B
+    llr_np, _ = make_llrs(np.random.default_rng(5), B, 5.0, info)
+    llr = torch.from_numpy(llr_np).to(dev)
+    entries = {}
+    for M in (8, 16, 32):  # the byte-word instantiation beside the by-path one
+        ms = cuda_time_ms(lambda M=M: decode_scl_cuda(llr, info, M, CRC), reps=20)
+        b_ms, b_by = bound(*scl_work(info, M, B))
+        line = f"  K1 P(128,64) M={M} CRC B={B} 5.0 dB: {ms:.4f} ms"
+        if M == 32:
+            plain_ms = cuda_time_ms(
+                lambda: decode_scl_batch(llr, info, M, CRC, dtype=torch.float32), reps=3, warmup=1)
+            entries["scl_path"] = (ms, plain_ms, b_ms, b_by)
+            line += f"; plain {plain_ms:.4f} ms"
+        print(f"{line}; bound {b_ms:.6f} ms ({b_by})"
+              f"{'' if M in scl_cuda.BYTE_WORD_M else f' (by path, LM={scl_cuda.path_width(M)})'}")
+    for n_c, k_c in ((4096, 2048), (8192, 4096)):
+        info_c = construct_info_set(n_c, k_c, method="gaussian_bitrev")
+        x = torch.from_numpy(make_llrs(rng, B_wide, 1.5, info_c, n=n_c)[0]).to(dev)
+        ms = cuda_time_ms(lambda: decode_scl_cuda(x, info_c, 4, CRC), reps=5, warmup=1)
+        plain_ms = cuda_time_ms(lambda: decode_scl_batch(x, info_c, 4, CRC, dtype=torch.float32),
+                                reps=1, warmup=0)
+        b_ms, b_by = bound(*scl_work(info_c, 4, B_wide, n=n_c, k=k_c))
+        print(f"  K1 P({n_c},{k_c}) M=4 CRC B={B_wide} 1.5 dB: {ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+              f"{b_ms:.6f} ms ({b_by})")
+    n_p, k_p, crc_p = PAC_CODES[128]
+    p_mask = pac_mask(n_p, k_p + crc_p[0])
+    x = pac_llrs(rng, B, 2.5, PAC_CODES[128], PAC_GEN, p_mask, dev)
+    best_ms = cuda_time_ms(lambda: pac_list_decode_cuda(x, p_mask, PAC_GEN, 8, *crc_p), reps=20)
+    list_ms = cuda_time_ms(lambda: pac_list_decode_cuda(x, p_mask, PAC_GEN, 8, *crc_p, full=True), reps=20)
+    best2_ms = cuda_time_ms(lambda: pac_list_decode_cuda(x, p_mask, PAC_GEN, 8, *crc_p), reps=20)
+    plain_ms = cuda_time_ms(lambda: pac_list_decode_batch(x, p_mask, PAC_GEN, 8, crc_len=crc_p[0],
+                                                          crc_poly=crc_p[1]), reps=3, warmup=1)
+    e = k3_list_vs_plain(x, p_mask, PAC_GEN, 8, *crc_p, f"(f) K3 list PAC(128,64) L=8 B={B}")
+    pac_err = max(pac_err, e)
+    print(f"  K3 list PAC(128,64)+CRC-16 L=8 B={B} 2.5 dB: {', '.join(PAC_LIST_FIELDS)} equal to the plain "
+          f"version (max |diff| {e})")
+    nbytes, nops = pac_work(p_mask, 8, B)
+    kp = int(p_mask.sum())
+    b_ms, b_by = bound(nbytes + B * 8 * (n_p + kp + 4) + B * 4, nops)  # the list outputs too
+    entries["pac_list"] = (list_ms, plain_ms, b_ms, b_by)
+    print(f"  K3 PAC(128,64)+CRC-16 L=8 B={B} 2.5 dB: full list {list_ms:.4f} ms beside best-only "
+          f"{best_ms:.4f} / {best2_ms:.4f} ms ({list_ms / min(best_ms, best2_ms):.3f}x); plain {plain_ms:.4f} "
+          f"ms; bound {b_ms:.6f} ms ({b_by})")
+    x = ldpc_llrs(rng, (IRA, (ira_bg, ira_H)), B, 2.5, dev)
+    stop_ms = cuda_time_ms(lambda: decode_ldpc_nms_cuda(x, ira_bg, IRA[2], self_exclude=True), reps=20)
+    full_ms = cuda_time_ms(lambda: decode_ldpc_nms_cuda(x, ira_bg, IRA[2], early_stop=False,
+                                                        self_exclude=True), reps=20)
+    stop2_ms = cuda_time_ms(lambda: decode_ldpc_nms_cuda(x, ira_bg, IRA[2], self_exclude=True), reps=20)
+    plain_ms = cuda_time_ms(lambda: decode_ldpc_nms_batch(x, ira_H, early_stop=False, self_exclude=True),
+                            reps=3, warmup=1)
+    got = decode_ldpc_nms_cuda(x, ira_bg, IRA[2], early_stop=False, self_exclude=True)
+    ref = decode_ldpc_nms_batch(x, ira_H, early_stop=False, self_exclude=True)
+    for f in ("hard", "iters_used", "parity_ok"):
+        d = int((got[f].long() - ref[f].long()).abs().max())
+        nms_err = max(nms_err, d)
+        check(d == 0, f"K2 without early stop at B={B}: {f} differs from the plain version")
+    print(f"  K2 QC-IRA 4x8 Z=31 two-min B={B} 2.5 dB without early stop: hard bits, iterations and parity "
+          f"equal to the plain version (max |diff| {nms_err})")
+    iters = torch.full((B,), 20, dtype=torch.int32)
+    b_ms, b_by = bound(*nms_work(iters, ira_H.shape[1], int((ira_bg.shifts >= 0).sum()) * IRA[2],
+                                 ira_H.shape[0], True))
+    entries["nms_no_stop"] = (full_ms, plain_ms, b_ms, b_by)
+    print(f"  K2 QC-IRA 4x8 Z=31 two-min B={B} 2.5 dB: 20 iterations without early stop {full_ms:.4f} ms "
+          f"beside early stop {stop_ms:.4f} / {stop2_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+          f"{b_ms:.6f} ms ({b_by})")
+
+    launches = {"scl_path": path_launches + scalar_new[0], "nms_no_stop": scalar_new[1],
+                "pac_list": scalar_new[2]}
+    errors = {"scl_path": max_err, "nms_no_stop": float(nms_err), "pac_list": pac_err}
+    names = {"scl_path": ("scl_decode (by path: M 1-32 outside 1/2/4/8)",
+                          "polar_code_tpu_torch/csrc/scl_decode.cu", "polar_code_tpu/ops/scl_pallas.py:293"),
+             "nms_no_stop": ("nms_decode (without early stop)", "polar_code_tpu_torch/csrc/nms_decode.cu",
+                             "polar_code_tpu/nr/ldpc/nms_pallas.py:31"),
+             "pac_list": ("pac_decode (full list)", "polar_code_tpu_torch/csrc/pac_decode.cu",
+                          "polar_code_tpu/legacy/pac_pallas.py:59")}
+    return [{"name": names[k][0], "route": "cuda", "source": names[k][1], "replaces": names[k][2],
+             "launches": launches[k], "max_abs_err": errors[k], "ms": entries[k][0], "plain_ms": entries[k][1],
+             "bound_ms": entries[k][2], "bound_by": entries[k][3], "library_ms": None}
+            for k in ("scl_path", "pac_list", "nms_no_stop")]
+
+
 def main():
     import torch
 
@@ -1375,7 +1784,7 @@ def main():
                   f"spills {row['spill_stores']} B stores / {row['spill_loads']} B loads")
     scl_cuda._library()
     k1_resident = {}
-    for n_s, k_s, M in ([(N, K, M) for M in scl_cuda.SUPPORTED_M]
+    for n_s, k_s, M in ([(N, K, M) for M in scl_cuda.BYTE_WORD_M]
                         + [(n_c, k_c, M) for n_c, k_c in K1C_SHAPES for M in (1, 8)]):
         g, fpb, k1_resident[n_s, M] = scl_cuda.launch_plan(n_s, k_s, M)
         fb = scl_cuda.frame_bytes(n_s, k_s, M, g)
@@ -1415,7 +1824,7 @@ def main():
     # ---- 3. K1 against its plain version ----
     rng = np.random.default_rng(20261017)
     cases = [(M, crc, plan, snr, 4096)
-             for M in scl_cuda.SUPPORTED_M for crc in (CRC, None)
+             for M in scl_cuda.BYTE_WORD_M for crc in (CRC, None)
              for plan in (False, True) for snr in (3.0, 5.0, 7.0)]
     # ragged batches: not a multiple of 128 frames, and (1001) of the block
     cases += [(8, CRC, True, 5.0, 1000), (4, CRC, False, 5.0, 1001)]
@@ -1519,7 +1928,7 @@ def main():
 
     # K1d: the rest of the envelope, B=256 codeword LLRs at 1-4 dB a frame
     rng = np.random.default_rng(20261020)
-    d_cases = [(64, 32, M, crc, plan, 256) for M in scl_cuda.SUPPORTED_M
+    d_cases = [(64, 32, M, crc, plan, 256) for M in scl_cuda.BYTE_WORD_M
                for crc in (CRC, None) for plan in (False, True)]
     for n_c, k_c in K1C_SHAPES:
         d_cases += [(n_c, k_c, 8, None, False, 256), (n_c, k_c, 8, CRC, True, 256),
@@ -2025,7 +2434,11 @@ def main():
     scalar_k1, scalar_k2, scalar_k3 = scalar_surface(dev, smi)
     phase_done("12 scalar surface")
 
-    # ---- 13. result lines ----
+    # ---- 13. the wide envelope ----
+    wide_entries = wide_envelope(dev, smi)
+    phase_done("13 wide_envelope")
+
+    # ---- 14. result lines ----
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by = nms_times[f"{IRA[0]} two-min 2.5 dB B=4096"]
     print(json.dumps({"kernels": [{
         "name": "scl_decode",
@@ -2064,7 +2477,7 @@ def main():
         "bound_ms": pac_bound_ms,
         "bound_by": pac_bound_by,
         "library_ms": None,
-    }]}))
+    }] + wide_entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind, "count": count}}))
     return 0

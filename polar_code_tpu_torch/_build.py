@@ -5,8 +5,9 @@ Each `csrc/*.cu` file has a plain `extern "C"` interface and is compiled by
 build directory, then loaded with `ctypes`.  The directory is the
 git-ignored `build/` at the repository root unless
 `utils/cache.py::enable_compilation_cache` points `BUILD_DIR` elsewhere.
-The library name carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  A file lock a library
+The library name carries a hash of the source, the headers it may include
+(`csrc/*.cuh`) and the flags, so an edited source or header is rebuilt and
+an unchanged one is reused.  A file lock a library
 makes processes that start together (the ranks of a multi-process run) run
 `nvcc` once: the others wait and load its result.
 """
@@ -55,12 +56,15 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
-def build(source: str) -> BuildResult:
+def build(source: str, defines: tuple = ()) -> BuildResult:
     """Compile `csrc/<source>` into `BUILD_DIR` unless an identical build
-    exists there.  Holds `<lib>.lock` over the check and the compile."""
+    exists there, with `defines` (nvcc `-D` arguments) after the flags.
+    Holds `<lib>.lock` over the check and the compile."""
 
     src = CSRC / source
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = NVCC_FLAGS + tuple(defines)
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:16]
     build_dir = Path(BUILD_DIR)
     lib = build_dir / f"{src.stem}_{key}.so"
     log_path = lib.with_suffix(".log")
@@ -73,7 +77,7 @@ def build(source: str) -> BuildResult:
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [_nvcc(), *flags, "-o", str(tmp), str(src)],
             capture_output=True, text=True, timeout=600,
         )
         seconds = time.perf_counter() - t0
@@ -87,10 +91,11 @@ def build(source: str) -> BuildResult:
 
 
 @functools.lru_cache(maxsize=None)
-def load(source: str) -> ctypes.CDLL:
-    """Build (if needed) and load `csrc/<source>`; one handle per process."""
+def load(source: str, defines: tuple = ()) -> ctypes.CDLL:
+    """Build (if needed) and load `csrc/<source>`; one handle per process and
+    set of defines."""
 
-    return ctypes.CDLL(str(build(source).path))
+    return ctypes.CDLL(str(build(source, defines).path))
 
 
 __all__ = ["BuildResult", "build", "load", "BUILD_DIR", "CSRC", "NVCC_FLAGS"]

@@ -15,6 +15,9 @@
 // syndrome, block-row by block-row, and stops at the first failing one; a
 // frame whose syndrome passes stops and is never touched again, which keeps
 // its LLRs exactly, as the plain version's `where(done, llr, new_llr)` does.
+// Without early stop (`early_stop` 0, the plain version's
+// `early_stop=False`) no syndrome is checked between iterations: every frame
+// runs `max_iter` of them, and its bits and parity are its final LLRs'.
 //
 // What bounds it on this card: neither bytes (n floats in, n bytes and two
 // words out a frame) nor the arithmetic peak, but the instructions each edge
@@ -93,6 +96,7 @@ struct Params {
   unsigned* rec_scratch; // BLOCK with records in global memory: [grid][mb][nw][Z]
   int B, mb, n, Z, E, max_iter;
   float alpha;
+  int early_stop;        // 0: every frame runs max_iter iterations
   int nw;                // record words a row: 1 (shared min) or 3 + sign words (two-min)
   int col_chunks;        // WARP: 8-edge chunks of the column table
   int tables_bytes;      // WARP: block-shared table bytes (a multiple of 16)
@@ -391,14 +395,15 @@ __device__ void decode(const F& f, const Params& p, int& iters, int& ok) {
       if (f.active) update_row<D, SE>(f, r, p.mb, p.alpha, next, pf);
       f.sync();
     }
-    if (!syndrome_fails<D>(f, p.mb, pf)) {
+    if (p.early_stop && !syndrome_fails<D>(f, p.mb, pf)) {
       stopped = 1;
       break;
     }
   }
   // a frame that never stopped reports the check of its final LLRs: the
-  // last iteration's (failed), or the input's when max_iter is 0
-  ok = stopped || (p.max_iter == 0 && !syndrome_fails<D>(f, p.mb, pf));
+  // last iteration's (failed, under early stop), or the input's when
+  // max_iter is 0
+  ok = stopped || ((p.max_iter == 0 || !p.early_stop) && !syndrome_fails<D>(f, p.mb, pf));
   iters = stopped ? it + 1 : p.max_iter;
 }
 
@@ -537,16 +542,16 @@ extern "C" int nms_occupancy(int D, int se, int mode, int threads, int smem, int
 extern "C" int nms_decode_launch(const void* llr, const void* row_tab, const void* col_tab,
                                  void* out_hard, void* out_iters, void* out_ok, void* rec_scratch,
                                  int B, int mb, int n, int Z, int E, int max_iter, float alpha,
-                                 int nw, int col_chunks, int tables_bytes, int frame_bytes,
-                                 int rec_offset, int frames_per_block, int D, int se, int mode,
-                                 int grid, int threads, int smem, void* stream) {
+                                 int early_stop, int nw, int col_chunks, int tables_bytes,
+                                 int frame_bytes, int rec_offset, int frames_per_block, int D,
+                                 int se, int mode, int grid, int threads, int smem, void* stream) {
   Kernel k = pick(D, se, mode);
   if (!k || grid < 1) return (int)cudaErrorInvalidValue;
   Params p{static_cast<const float*>(llr), static_cast<const int*>(row_tab), col_tab,
            static_cast<int8_t*>(out_hard), static_cast<int*>(out_iters),
            static_cast<uint8_t*>(out_ok), static_cast<unsigned*>(rec_scratch),
-           B, mb, n, Z, E, max_iter, alpha, nw, col_chunks, tables_bytes, frame_bytes,
-           rec_offset, frames_per_block};
+           B, mb, n, Z, E, max_iter, alpha, early_stop, nw, col_chunks, tables_bytes,
+           frame_bytes, rec_offset, frames_per_block};
   cudaError_t err = set_smem(k, smem);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&p};

@@ -55,10 +55,11 @@
 // levels 2..n (level 1's bits are read only by the g of phase N/2, its own
 // row).  A fork is one shuffle a word from lane parent[m] (up to four words
 // at L=32); a read through σ is one field extract in lane m and one shuffle
-// from lane m to the lanes that handle path m's entries.  The SCL kernel's
-// byte-per-path word of one level serves M ≤ 8; at L=32 a level's map is
-// 160 bits, and a fork would permute 32 fields in every word, where here it
-// moves whole words.  `legacy/pac_cuda.py::SIGMA_FIELDS` bounds n by the
+// from lane m to the lanes that handle path m's entries.  The SCL kernel
+// keeps this layout too, for its list sizes outside {1, 2, 4, 8}; its
+// byte-word layout by level, one word of M bytes a level, serves M ≤ 8 only:
+// at L=32 a level's map is 160 bits, and a fork would permute 32 fields in
+// every word, where here it moves whole words.  `legacy/pac_cuda.py::SIGMA_FIELDS` bounds n by the
 // fields the words hold.  A phase's resets — the LLR levels its descent
 // writes and the bit level the previous phase's chain stored — are applied
 // together at the phase's start, one bitwise select a word with masks the
@@ -72,6 +73,16 @@
 // The selected path's trace is walked back once by one lane into a slot of
 // each trace row, and all lanes then write the output bytes in ascending-u
 // order.
+//
+// The full list (`pac_list_decode_cuda(..., full=True)`, which the
+// systematic scalar decoder reads): the instantiation with LIST set also
+// writes every path of the final list, in the plain version's final stable
+// (metric, slot) order — its message bits by u index (`v_full`, zero at
+// frozen positions), its info bits in ascending-u order, its metric (+inf
+// for a dead path) — and the selected rank.  Lane m < L walks its own
+// path's trace back, reading TI only, before lane 0 rewrites slot 0 of the
+// trace rows for the selected path.  The legacy drivers launch the
+// instantiation without LIST, whose code is unchanged.
 //
 // Layout.  One warp decodes one frame, lane m holds path slot m (L <= 32);
 // a block holds a few frames.  Levels G+1..n of each path live in dynamic
@@ -105,117 +116,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "list_decode.cuh"
+
 #define PAC_BIG 3.0e38f
-#define FULL_MASK 0xffffffffu
 #define MAX_FRAMES_PER_BLOCK 4  // warps a block at most; `plan` picks how many
-#define MAX_LEVELS 16             // n at most: the phase words take N up to 65536
 
 namespace {
-
-__device__ __forceinline__ float sign_of(float x) {
-  return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
-}
-
-__device__ __forceinline__ float f_minsum(float a, float b) {
-  return sign_of(a) * sign_of(b) * fminf(fabsf(a), fabsf(b));
-}
-
-__device__ __forceinline__ float g_update(float a, float b, uint8_t c) {
-  return b + (1.f - 2.f * (float)c) * a;
-}
-
-// The σ maps of the lane's path: field f of the packed words is the
-// physical row that holds the path's data for σ level f.
-template <int LM>
-struct Sigma {
-  static constexpr int kBits = LM <= 2 ? 1 : LM == 4 ? 2 : LM == 8 ? 3 : LM == 16 ? 4 : 5;
-  static constexpr int kFields = 32 / kBits;  // fields a word
-  static constexpr int kWords = LM <= 2 ? 1 : LM == 4 ? 2 : LM <= 16 ? 3 : 4;
-  unsigned w[kWords];
-
-  // every field holding path m itself: the identity map
-  static __device__ __forceinline__ unsigned identity(int m) {
-    unsigned rep = 0;
-#pragma unroll
-    for (int j = 0; j < kFields; ++j) rep |= 1u << (kBits * j);
-    return (unsigned)(m & (LM - 1)) * rep;
-  }
-  __device__ __forceinline__ void init(unsigned id) {
-#pragma unroll
-    for (int k = 0; k < kWords; ++k) w[k] = id;
-  }
-  __device__ __forceinline__ int get(int f) const {
-    const int k = f / kFields;
-    unsigned x = w[0];
-#pragma unroll
-    for (int j = 1; j < kWords; ++j)
-      if (k == j) x = w[j];
-    return (int)((x >> (kBits * (f - k * kFields))) & (LM - 1));
-  }
-  // the fields set in mask[k] back to the identity `id`
-  __device__ __forceinline__ void reset(const unsigned* mask, unsigned id) {
-#pragma unroll
-    for (int k = 0; k < kWords; ++k) w[k] = (w[k] & ~mask[k]) | (id & mask[k]);
-  }
-  // σ ← σ[parent]: the lane takes its parent's maps
-  __device__ __forceinline__ void fork(int parent) {
-#pragma unroll
-    for (int k = 0; k < kWords; ++k) w[k] = __shfl_sync(FULL_MASK, w[k], parent);
-  }
-};
-
-// The σ fields a level write resets, per word, built on the host for one
-// (n, LM) and passed by value, so that a phase indexes them with its
-// warp-uniform levels (constant-bank loads): llr[l] the fields of LLR levels
-// l..n−1, bit[l] the field of bit level l.
-struct ResetMasks {
-  unsigned llr[MAX_LEVELS + 1][4];
-  unsigned bit[MAX_LEVELS + 1][4];
-};
-
-template <int LM>
-ResetMasks reset_masks(int n) {
-  using S = Sigma<LM>;
-  ResetMasks r = {};
-  auto set = [&](unsigned* words, int f) {
-    words[f / S::kFields] |= ((1u << S::kBits) - 1u) << (S::kBits * (f % S::kFields));
-  };
-  for (int l = 1; l <= n; ++l) {
-    for (int lv = l; lv < n; ++lv) set(r.llr[l], lv - 1);
-    if (l >= 2) set(r.bit[l], n + l - 3);
-  }
-  return r;
-}
-
-// One f or g pass over a level of width half = 1 << lh, paths 0..L−1:
-// dst[m][e] = f or g of the parent level's src[r][e] and src[r][e + half],
-// r = σ(m) when `via` (`own` is then this lane's σ field of the parent
-// level, and path m's comes from lane m) and m otherwise; a g takes dst's
-// own partial sums as its left bits.  A pointer is a level's first entry
-// and a path's row is `stride` entries long.  Each call site passes
-// pointers that are all shared or all global, so that the inlined
-// shared-memory accesses compile to LDS/STS.  Every lane runs every
-// iteration (the shuffle needs the whole warp); lanes past the entries
-// store nothing.
-__device__ __forceinline__ void fg_pass(float* dst, const uint8_t* dbits, int dstride,
-                                        const float* src, int sstride, bool via, int own,
-                                        bool is_g, int lh, int L, int lane) {
-  const int half = 1 << lh;
-  const int total = L * half;
-  for (int t0 = 0; t0 < total; t0 += 32) {
-    const int t = t0 + lane;
-    const int m = (t < total ? t : total - 1) >> lh;
-    int r = m;
-    if (via) r = __shfl_sync(FULL_MASK, own, m);
-    if (t < total) {
-      const int e = t & (half - 1);
-      const float* row = src + r * sstride;
-      const float a = row[e], b = row[e + half];
-      const int o = m * dstride + e;
-      dst[o] = is_g ? g_update(a, b, dbits[o]) : f_minsum(a, b);
-    }
-  }
-}
 
 // Level 1 from the channel: the halves butterfly on the bit-reversal-
 // permuted LLRs, read as ch[brev(j)] (`rev_shift` = 32 − n).
@@ -233,33 +139,9 @@ __device__ __forceinline__ void channel_pass(float* dst, const uint8_t* dbits, i
   }
 }
 
-// One step of the partial-sum chain, paths 0..L−1: the chain so far, sz =
-// 1 << lsz bits at the start of the store level's row st[m], becomes
-// [left[r] ^ cur, cur] in place, r as in fg_pass.
-__device__ __forceinline__ void chain_pass(uint8_t* st, int ststride, const uint8_t* left,
-                                           int lstride, bool via, int own, int lsz, int L,
-                                           int lane) {
-  const int sz = 1 << lsz;
-  const int total = L * sz;
-  for (int t0 = 0; t0 < total; t0 += 32) {
-    const int t = t0 + lane;
-    const int m = (t < total ? t : total - 1) >> lsz;
-    int r = m;
-    if (via) r = __shfl_sync(FULL_MASK, own, m);
-    if (t < total) {
-      const int e = t & (sz - 1);
-      const uint8_t x = left[r * lstride + e];
-      uint8_t* cur = st + m * ststride + e;
-      const uint8_t c = cur[0];
-      cur[sz] = c;
-      cur[0] = x ^ c;
-    }
-  }
-}
-
 // LM: the list size rounded up to a power of two; it sizes σ, and L <= LM
 // is the list size itself.
-template <int LM>
+template <int LM, bool LIST>
 __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) pac_decode_kernel(
     const float* __restrict__ llr,        // [B, N] channel LLRs, natural order
     const uint32_t* __restrict__ hcols,   // [Kp] CRC check-matrix columns, phase order
@@ -269,6 +151,12 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) pac_decode_kernel(
     uint8_t* glob_bits,                   // [B, L, N-(N>>G)], null when G == 0
     int8_t* __restrict__ out_bits,        // [B, Kp]
     uint8_t* __restrict__ out_pass,       // [B]
+    const int* __restrict__ out_pos,      // [Kp] ascending-u output index of each info phase, LIST only
+    const int* __restrict__ u_pos,        // [Kp] u index of each info phase, LIST only
+    int8_t* __restrict__ list_v,          // [B, L, N], LIST only
+    int8_t* __restrict__ list_bits,       // [B, L, Kp], LIST only
+    float* __restrict__ list_metrics,     // [B, L], LIST only
+    int* __restrict__ list_best,          // [B], LIST only
     int B, int N, int n, int Kp, int L, int G, unsigned mem_mask, unsigned tap_mask,
     int use_crc, int frame_bytes, int frames_per_block, const ResetMasks masks) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -292,8 +180,8 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) pac_decode_kernel(
   auto so = [&](int l) { return (N >> G) - (N >> (l - 1)); };
   auto go = [&](int l) { return N - (N >> (l - 1)); };
 
-  const unsigned sig_id = Sigma<LM>::identity(lane);
-  Sigma<LM> sig;  // lane m < L: σ of path m; field l−1: LLR level l, n+l−3: bit level l
+  const unsigned sig_id = PathSigma<LM>::identity(lane);
+  PathSigma<LM> sig;  // lane m < L: σ of path m; field l−1: LLR level l, n+l−3: bit level l
   sig.init(sig_id);
   float pm = (lane == 0) ? 0.f : PAC_BIG;  // lane m < L: metric of slot m
   unsigned reg = 0;                         // lane m < L: shift register of slot m
@@ -316,9 +204,9 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) pac_decode_kernel(
       // the write and this reset: the descent reads level l0−1 through σ,
       // the leaf level n−1 only at a g leaf (l0 = n), and the chain's reads
       // come after this phase's fork.
-      unsigned r[Sigma<LM>::kWords];
+      unsigned r[PathSigma<LM>::kWords];
 #pragma unroll
-      for (int k = 0; k < Sigma<LM>::kWords; ++k) r[k] = masks.llr[l0][k] | masks.bit[s_prev][k];
+      for (int k = 0; k < PathSigma<LM>::kWords; ++k) r[k] = masks.llr[l0][k] | masks.bit[s_prev][k];
       sig.reset(r, sig_id);
     }
 
@@ -333,10 +221,10 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) pac_decode_kernel(
         else
           channel_pass(Lg + go(1), Bg + go(1), SG, ch, rev_shift, is_g, n - 1, L, lane);
       } else if (l > G + 1) {
-        fg_pass(Ls + so(l), Bs + so(l), SS, Ls + so(l - 1), SS, via, own, is_g, n - l, L, lane);
+        path_fg_pass(Ls + so(l), Bs + so(l), SS, Ls + so(l - 1), SS, via, own, is_g, n - l, L, lane);
       } else {  // the few passes that touch global memory: generic pointers
         const bool sh = l > G;
-        fg_pass(sh ? Ls + so(l) : Lg + go(l), sh ? Bs + so(l) : Bg + go(l), sh ? SS : SG,
+        path_fg_pass(sh ? Ls + so(l) : Lg + go(l), sh ? Bs + so(l) : Bg + go(l), sh ? SS : SG,
                 Lg + go(l - 1), SG, via, own, is_g, n - l, L, lane);
       }
       __syncwarp();
@@ -440,9 +328,9 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) pac_decode_kernel(
         const bool via = LM > 1 && (cmask >> lv & 1);
         const int own = via ? sig.get(n + lv - 3) : 0;
         if (s > G)
-          chain_pass(Bs + so(s), SS, Bs + so(lv), SS, via, own, n - lv, L, lane);
+          path_chain_pass(Bs + so(s), SS, Bs + so(lv), SS, via, own, n - lv, L, lane);
         else
-          chain_pass(Bg + go(s), SG, lv > G ? Bs + so(lv) : Bg + go(lv), lv > G ? SS : SG, via,
+          path_chain_pass(Bg + go(s), SG, lv > G ? Bs + so(lv) : Bg + go(lv), lv > G ? SS : SG, via,
                      own, n - lv, L, lane);
         __syncwarp();
       }
@@ -462,6 +350,26 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) pac_decode_kernel(
   const int sel_rank = ok_ranks ? __ffs(ok_ranks) - 1 : 0;
   const unsigned who = __ballot_sync(FULL_MASK, lane < L && frank == sel_rank);
   __syncwarp();  // the last info phase's trace row is visible to lane 0
+  if (LIST) {
+    // every path into row frank of the list, before the trace is rewritten
+    int8_t* v = list_v + frame * L * N;
+    for (int t = lane; t < L * N; t += 32) v[t] = 0;
+    __syncwarp();
+    if (lane < L) {
+      int8_t* vrow = v + frank * N;
+      int8_t* brow = list_bits + (frame * L + frank) * Kp;
+      int slot = lane;
+      for (int i = Kp - 1; i >= 0; --i) {
+        const int w = TI[i * L + slot];
+        vrow[u_pos[i]] = (int8_t)(w & 1);
+        brow[out_pos[i]] = (int8_t)(w & 1);
+        slot = w >> 1;
+      }
+      list_metrics[frame * L + frank] = pm < PAC_BIG ? pm : __int_as_float(0x7f800000);
+    }
+    if (lane == 0) list_best[frame] = sel_rank;
+    __syncwarp();
+  }
   if (lane == 0) {
     // record the selected path's bit v in slot 0 of each trace row; row i
     // is read before it is overwritten, and later steps read rows below i
@@ -477,33 +385,60 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) pac_decode_kernel(
   for (int j = lane; j < Kp; j += 32) out_bits[frame * Kp + j] = (int8_t)TI[phase_of[j] * L];
 }
 
-template <int LM>
+template <int LM, bool LIST>
 cudaError_t set_smem(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(pac_decode_kernel<LM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+  return cudaFuncSetAttribute(pac_decode_kernel<LM, LIST>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int LM>
-int launch(const float* llr, const uint32_t* hcols, const int* sched, const int* phase_of,
-           float* glob_llr, uint8_t* glob_bits, int8_t* out_bits, uint8_t* out_pass, int B,
-           int N, int n, int Kp, int L, int G, unsigned mem_mask, unsigned tap_mask, int use_crc,
-           int frame_bytes, int frames_per_block, cudaStream_t stream) {
-  if (n > MAX_LEVELS || (LM > 1 && 2 * n - 2 > Sigma<LM>::kWords * Sigma<LM>::kFields))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)frame_bytes * frames_per_block;
-  cudaError_t err = set_smem<LM>(smem);
+// every kernel argument but the σ masks, and the stream
+struct Args {
+  const float* llr;
+  const uint32_t* hcols;
+  const int* sched;
+  const int* phase_of;
+  float* glob_llr;
+  uint8_t* glob_bits;
+  int8_t* out_bits;
+  uint8_t* out_pass;
+  const int* out_pos;
+  const int* u_pos;
+  int8_t* list_v;
+  int8_t* list_bits;
+  float* list_metrics;
+  int* list_best;
+  int B, N, n, Kp, L, G;
+  unsigned mem_mask, tap_mask;
+  int use_crc, frame_bytes, frames_per_block;
+};
+
+template <int LM, bool LIST>
+int launch_as(const Args& a, cudaStream_t stream) {
+  const size_t smem = (size_t)a.frame_bytes * a.frames_per_block;
+  cudaError_t err = set_smem<LM, LIST>(smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (B + frames_per_block - 1) / frames_per_block;
-  pac_decode_kernel<LM><<<blocks, 32 * frames_per_block, smem, stream>>>(
-      llr, hcols, sched, phase_of, glob_llr, glob_bits, out_bits, out_pass, B, N, n, Kp, L, G,
-      mem_mask, tap_mask, use_crc, frame_bytes, frames_per_block, reset_masks<LM>(n));
+  const int blocks = (a.B + a.frames_per_block - 1) / a.frames_per_block;
+  pac_decode_kernel<LM, LIST><<<blocks, 32 * a.frames_per_block, smem, stream>>>(
+      a.llr, a.hcols, a.sched, a.phase_of, a.glob_llr, a.glob_bits, a.out_bits, a.out_pass,
+      a.out_pos, a.u_pos, a.list_v, a.list_bits, a.list_metrics, a.list_best, a.B, a.N, a.n,
+      a.Kp, a.L, a.G, a.mem_mask, a.tap_mask, a.use_crc, a.frame_bytes, a.frames_per_block,
+      reset_masks<LM>(a.n));
   return (int)cudaGetLastError();
+}
+
+// the list instantiation when the list outputs are given, else the drivers' one
+template <int LM>
+int launch(const Args& a, cudaStream_t stream) {
+  if (a.n > MAX_LEVELS || (LM > 1 && 2 * a.n - 2 > PathSigma<LM>::kWords * PathSigma<LM>::kFields))
+    return (int)cudaErrorInvalidValue;
+  return a.list_v ? launch_as<LM, true>(a, stream) : launch_as<LM, false>(a, stream);
 }
 
 // The frames a block (1..MAX_FRAMES_PER_BLOCK) that let an SM hold the most
 // frames at once, by the occupancy calculator (shared memory, registers and
-// warps all counted); ties go to more frames a block.
+// warps all counted); ties go to more frames a block.  The list
+// instantiation runs on the same plan: it has the same launch bounds.
 template <int LM>
 int plan(int frame_bytes, int max_block_smem, int* frames_per_block, int* frames_per_sm) {
   *frames_per_block = 1;
@@ -511,11 +446,11 @@ int plan(int frame_bytes, int max_block_smem, int* frames_per_block, int* frames
   for (int fpb = 1; fpb <= MAX_FRAMES_PER_BLOCK; ++fpb) {
     const size_t smem = (size_t)frame_bytes * fpb;
     if (smem > (size_t)max_block_smem) break;
-    cudaError_t err = set_smem<LM>(smem);
+    cudaError_t err = set_smem<LM, false>(smem);
     if (err != cudaSuccess) return (int)err;
     int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pac_decode_kernel<LM>, 32 * fpb,
-                                                        smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pac_decode_kernel<LM, false>,
+                                                        32 * fpb, smem);
     if (err != cudaSuccess) return (int)err;
     if (blocks * fpb >= *frames_per_sm) {
       *frames_per_block = fpb;
@@ -529,29 +464,27 @@ int plan(int frame_bytes, int max_block_smem, int* frames_per_block, int* frames
 
 extern "C" int pac_decode_launch(const void* llr, const void* hcols, const void* sched,
                                  const void* phase_of, void* glob_llr, void* glob_bits,
-                                 void* out_bits, void* out_pass, int B, int N, int n, int Kp,
+                                 void* out_bits, void* out_pass, const void* out_pos,
+                                 const void* u_pos, void* list_v, void* list_bits,
+                                 void* list_metrics, void* list_best, int B, int N, int n, int Kp,
                                  int L, int G, unsigned mem_mask, unsigned tap_mask, int use_crc,
                                  int frame_bytes, int frames_per_block, void* stream) {
-  auto* l = static_cast<const float*>(llr);
-  auto* h = static_cast<const uint32_t*>(hcols);
-  auto* s = static_cast<const int*>(sched);
-  auto* ph = static_cast<const int*>(phase_of);
-  auto* gl = static_cast<float*>(glob_llr);
-  auto* gb = static_cast<uint8_t*>(glob_bits);
-  auto* ob = static_cast<int8_t*>(out_bits);
-  auto* pass = static_cast<uint8_t*>(out_pass);
+  const Args a{static_cast<const float*>(llr), static_cast<const uint32_t*>(hcols),
+               static_cast<const int*>(sched), static_cast<const int*>(phase_of),
+               static_cast<float*>(glob_llr), static_cast<uint8_t*>(glob_bits),
+               static_cast<int8_t*>(out_bits), static_cast<uint8_t*>(out_pass),
+               static_cast<const int*>(out_pos), static_cast<const int*>(u_pos),
+               static_cast<int8_t*>(list_v), static_cast<int8_t*>(list_bits),
+               static_cast<float*>(list_metrics), static_cast<int*>(list_best),
+               B, N, n, Kp, L, G, mem_mask, tap_mask, use_crc, frame_bytes, frames_per_block};
   auto st = static_cast<cudaStream_t>(stream);
-#define PAC_LAUNCH(LM)                                                                    \
-  return launch<LM>(l, h, s, ph, gl, gb, ob, pass, B, N, n, Kp, L, G, mem_mask, tap_mask, \
-                    use_crc, frame_bytes, frames_per_block, st)
   if (L < 1 || L > 32) return (int)cudaErrorInvalidValue;
-  if (L == 1) PAC_LAUNCH(1);
-  if (L <= 2) PAC_LAUNCH(2);
-  if (L <= 4) PAC_LAUNCH(4);
-  if (L <= 8) PAC_LAUNCH(8);
-  if (L <= 16) PAC_LAUNCH(16);
-  PAC_LAUNCH(32);
-#undef PAC_LAUNCH
+  if (L == 1) return launch<1>(a, st);
+  if (L <= 2) return launch<2>(a, st);
+  if (L <= 4) return launch<4>(a, st);
+  if (L <= 8) return launch<8>(a, st);
+  if (L <= 16) return launch<16>(a, st);
+  return launch<32>(a, st);
 }
 
 extern "C" int pac_launch_plan(int L, int frame_bytes, int max_block_smem, int* frames_per_block,

@@ -43,12 +43,33 @@
 // levels (the g's level gl−1, the chain's levels above s).  No row is copied
 // at a fork.
 //
-// σ lives in registers.  Lane r < 2n−1 holds the map of one level as a word
-// of M bytes, byte m = σ[m]: rows 0..n−2 for LLR levels 1..n−1 (level n is
-// read only at its own leaf), rows n−1..2n−2 for bit levels 1..n.  A fork is
-// two byte permutes (`__byte_perm`, prmt) in every lane, their selectors the
-// survivors' parents gathered by two warp reductions; a read through σ is
-// one shuffle from the level's lane, once per level and phase.
+// σ lives in registers, in one of two layouts.
+//   * By level, the byte-word instantiations scl_decode_kernel<M> at M ∈ {1,
+//     2, 4, 8}, which the sweeps launch.  Lane r < 2n−1 holds the map of one
+//     level as a word of M bytes, byte m = σ[m]: rows 0..n−2 for LLR levels
+//     1..n−1 (level n is read only at its own leaf), rows n−1..2n−2 for bit
+//     levels 1..n.  A fork is two byte permutes (`__byte_perm`, prmt) in
+//     every lane, their selectors the survivors' parents gathered by two
+//     warp reductions; a read through σ is one shuffle from the level's
+//     lane, once per level and phase.  A byte permute takes 8 bytes at
+//     most, so this layout serves M <= 8.
+//   * By path, the instantiations scl_path_kernel<LM> (LM ∈ {8, 16, 32},
+//     the list size rounded up to a power of two, M itself a runtime
+//     argument), which serve every other M in 1..32: the PAC kernel's
+//     layout, shared with it in `list_decode.cuh`.  Lane m holds path m's
+//     origin row at every level, one field of log2(LM) bits a level,
+//     32/log2(LM) fields a word, 1-4 words: fields 0..n−2 for LLR levels
+//     1..n−1, fields n−1..2n−3 for bit levels 2..n (level 1's bits are read
+//     only by the g of phase N/2, from the path's own row, with no fork
+//     since the chain stored them).  2n−2 = 24 fields at n = 13, which four words of six
+//     5-bit fields hold at LM = 32 (`ops/scl_cuda.py::SIGMA_FIELDS`).  A
+//     fork is one shuffle a word from lane parent[m]; a read through σ is a
+//     field extract in lane m and a shuffle to the lanes that handle path
+//     m's entries.  A phase's resets (the LLR levels its descent writes, the
+//     bit level the previous chain stored) are applied together at the
+//     phase's start, one select a word with masks the host builds for
+//     (n, LM).  Lane p holds candidates 2p and 2p + 1, and counts each one's
+//     rank over the 2M candidates: 64 at M = 32, two a lane.
 //
 // Layout.  One warp decodes one frame; a block holds a few frames.  Levels
 // G+1..n of each path live in dynamic shared memory, with the trace indices;
@@ -66,16 +87,21 @@
 //   Lg  float [M][N-(N>>G)]  LLR rows, levels 1..G
 //   Bg  u8    [M][N-(N>>G)]  partial-sum rows, levels 1..G
 //   TL  float [K][M]         leaf LLR of each survivor's parent per info phase
+// The trace indices stay in shared memory at every G, since the final walk
+// reads them at random: K·M bytes, 32 KB at N=8192 M=8 (6 frames an SM) and
+// 128 KB at N=8192 M=32 (1); `ops/scl_cuda.py::check_shape` refuses a shape
+// whose frame overfills a block even at G = n−1.
 // A phase's schedule is one word, loaded a phase ahead.  Lanes split each
 // level's M·(N>>l) f/g entries down to level n−1; lane m computes path m's
 // leaf from its level-n−1 row and keeps it in a register (no phase but its
 // own reads it), and takes the partial-sum chain's first step the same way.
-// At an info phase lane i < 2M holds candidate i = 2p+b; its rank in
-// (metric, index) order is counted with shuffles, which is the stable sort
-// of the plain version, and ranks < M survive.  Each path carries its CRC syndrome (the XOR of the 32-bit
-// check columns of its set bits), so selection needs no walk; the selected
-// path's trace is walked back by one lane, which records each info phase's
-// slot, and all lanes then write the outputs.
+// At an info phase (byte words) lane i < 2M holds candidate i = 2p+b; its
+// rank in (metric, index) order is counted with shuffles, which is the
+// stable sort of the plain version, and ranks < M survive.  Each path
+// carries its CRC syndrome (the XOR of the 32-bit check columns of its set
+// bits), so selection needs no walk; the selected path's trace is walked
+// back by one lane, which records each info phase's slot, and all lanes
+// then write the outputs.
 //
 // The full list (the scalar API's output, `decode_scl_cuda(..., full=True)`):
 // the instantiation with LIST set also writes every path of the final list,
@@ -83,7 +109,8 @@
 // LLRs and metric (+inf for a path never reached) — and the selected rank.
 // Lane m < M walks its own path's trace back, reading TI/TL only, before
 // lane 0 rewrites slot 0 of the trace rows for the best path.  The sweeps
-// launch the instantiation without LIST, whose code is unchanged.
+// launch the instantiation without LIST, whose code is unchanged.  Both σ
+// layouts have a LIST instantiation.
 //
 // The arithmetic is the plain version's, op for op, so results are equal bit
 // for bit: f = sign(a)·sign(b)·min(|a|,|b|), g = b + (1−2c)·a, penalty
@@ -93,23 +120,27 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "list_decode.cuh"
+
 #define SCL_BIG 3.0e38f
-#define FULL_MASK 0xffffffffu
 #define MAX_FRAMES_PER_BLOCK 4  // warps a block at most; `plan` picks how many
 
+// Which instantiation decodes a list size.  The default build sends M ∈ {1,
+// 2, 4, 8} to the byte-word instantiations and every other M to the by-path
+// one of width max(M rounded up to a power of two, SCL_LEAST_PATH_WIDTH = 8):
+// the byte words are 13-34% faster at their M, and a by-path width of 4
+// would save M=3 only 1% (`tools/time_scl_layouts.py`, which builds with
+// -DSCL_BY_PATH_ONLY=1 and -DSCL_LEAST_PATH_WIDTH=4 to time the layouts and
+// widths against each other).  `ops/scl_cuda.py::path_width` assumes the
+// default.
+#ifndef SCL_BY_PATH_ONLY
+#define SCL_BY_PATH_ONLY 0
+#endif
+#ifndef SCL_LEAST_PATH_WIDTH
+#define SCL_LEAST_PATH_WIDTH 8
+#endif
+
 namespace {
-
-__device__ __forceinline__ float sign_of(float x) {
-  return x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
-}
-
-__device__ __forceinline__ float f_minsum(float a, float b) {
-  return sign_of(a) * sign_of(b) * fminf(fabsf(a), fabsf(b));
-}
-
-__device__ __forceinline__ float g_update(float a, float b, uint8_t c) {
-  return b + (1.f - 2.f * (float)c) * a;
-}
 
 __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
@@ -401,63 +432,296 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, 8) scl_decode_kerne
   }
 }
 
-template <int M, bool LIST>
-cudaError_t set_smem(size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(scl_decode_kernel<M, LIST>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// ---------------------------------------------------------------------------
+// The by-path instantiation: list sizes 1..32 outside {1, 2, 4, 8}.
+// ---------------------------------------------------------------------------
+
+// The SCL decode with σ kept by path: lane m < M holds path m's metric,
+// syndrome and σ, and its two candidates 2m and 2m+1.  It computes what
+// scl_decode_kernel computes, at a runtime list size M <= LM.
+template <int LM, bool LIST>
+__global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) scl_path_kernel(
+    const float* __restrict__ llr, const int8_t* __restrict__ forced,
+    const uint32_t* __restrict__ hcols, const int* __restrict__ sched, float* glob_llr,
+    uint8_t* glob_bits, float* trace_llr, int8_t* __restrict__ out_bits,
+    float* __restrict__ out_llrs, uint8_t* __restrict__ out_pass, int8_t* __restrict__ list_bits,
+    float* __restrict__ list_llrs, float* __restrict__ list_metrics, int* __restrict__ list_best,
+    int B, int N, int n, int K, int M, int G, int use_crc, int frame_bytes, int frames_per_block,
+    const ResetMasks masks) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long frame = (long long)blockIdx.x * frames_per_block + warp;
+  if (frame >= B) return;  // whole warp leaves; the kernel has no block barrier
+
+  const int SS = (N >> G) - 1;  // entries of a path's row in shared memory
+  const int SG = N - (N >> G);  // entries of a path's row in global memory
+  unsigned char* base = smem + (size_t)warp * frame_bytes;
+  float* Ls = reinterpret_cast<float*>(base);
+  uint8_t* Bs = reinterpret_cast<uint8_t*>(Ls + M * SS);
+  uint8_t* TI = Bs + M * SS;
+  float* Lg = glob_llr + frame * M * SG;  // unused when G == 0
+  uint8_t* Bg = glob_bits + frame * M * SG;
+  float* TL = trace_llr + frame * K * M;
+  const float* ch = llr + frame * N;
+  const int8_t* plan = forced ? forced + frame * K : nullptr;
+  auto so = [&](int l) { return (N >> G) - (N >> (l - 1)); };
+  auto go = [&](int l) { return N - (N >> (l - 1)); };
+
+  const unsigned sig_id = PathSigma<LM>::identity(lane);
+  PathSigma<LM> sig;  // lane m < M: σ of path m
+  sig.init(sig_id);
+  float pm = (lane == 0) ? 0.f : SCL_BIG;  // lane m < M: metric of path m
+  uint32_t syn = 0;                         // lane m < M: CRC syndrome of path m
+  int info_i = 0;
+  int word = sched[0];
+  int s_prev = 0;  // the previous phase's store level
+  for (int p = 0; p < N; ++p) {
+    const int next_word = p + 1 < N ? sched[p + 1] : 0;
+    const int gl = word & 31;
+    const int is_frozen = word >> 10 & 1;
+    int fb = -1;
+    uint32_t hc = 0;
+    if (!is_frozen) {
+      if (plan) fb = plan[info_i];
+      if (use_crc) hc = hcols[info_i];
+    }
+    const int l0 = p == 0 ? 1 : gl;
+    {
+      // σ back to identity on the levels rewritten since the last fork: the
+      // bit level the previous phase's chain stored, and the LLR levels
+      // l0..n−1 this phase's descent writes (`csrc/pac_decode.cu` has why
+      // no read through σ falls between those writes and this point)
+      unsigned r[PathSigma<LM>::kWords];
+#pragma unroll
+      for (int k = 0; k < PathSigma<LM>::kWords; ++k) r[k] = masks.llr[l0][k] | masks.bit[s_prev][k];
+      sig.reset(r, sig_id);
+    }
+
+    // ---- f/g updates down to level n−1 ----
+    for (int l = l0; l < n; ++l) {
+      const bool is_g = (p != 0) && (l == gl);
+      const bool via = is_g && l > 1 && (word >> 11 & 1);
+      const int own = via ? sig.get(l - 2) : 0;
+      if (l > G + 1) {
+        path_fg_pass(Ls + so(l), Bs + so(l), SS, Ls + so(l - 1), SS, via, own, is_g, n - l, M,
+                     lane);
+      } else {  // the few passes that touch global memory: generic pointers
+        const bool sh = l > G;
+        path_fg_pass(sh ? Ls + so(l) : Lg + go(l), sh ? Bs + so(l) : Bg + go(l), sh ? SS : SG,
+                     l > 1 ? Lg + go(l - 1) : ch, l > 1 ? SG : 0, via, own, is_g, n - l, M, lane);
+      }
+      __syncwarp();
+    }
+    // the leaf (level n): lane m computes it from its parent row
+    const bool g_leaf = gl == n;
+    float leaf = 0.f;
+    if (lane < M) {
+      const int r = (g_leaf && n > 1 && (word >> 11 & 1)) ? sig.get(n - 2) : lane;
+      const float* row = n == 1 ? ch : n - 1 > G ? Ls + so(n - 1) + r * SS : Lg + go(n - 1) + r * SG;
+      leaf = g_leaf ? g_update(row[0], row[1], Bs[lane * SS + so(n)]) : f_minsum(row[0], row[1]);
+    }
+
+    // ---- leaf decision: extend every path, or fork and keep the best M ----
+    int bit = 0;
+    if (is_frozen) {
+      if (lane < M) pm = pm + softplus(-leaf);
+    } else {
+      // lane p holds candidates 2p (bit 0) and 2p + 1 (bit 1); each one's
+      // rank in (metric, index) order is counted over the 2M candidates
+      float c0 = pm + softplus(-leaf), c1 = pm + softplus(leaf);
+      if (fb == 1) c0 = SCL_BIG;
+      if (fb == 0) c1 = SCL_BIG;
+      int r0 = 0, r1 = 0;
+      for (int j = 0; j < M; ++j) {
+        const float a = __shfl_sync(FULL_MASK, c0, j);
+        const float b = __shfl_sync(FULL_MASK, c1, j);
+        r0 += (a < c0) || (a == c0 && j < lane);   // index 2j vs 2·lane
+        r0 += (b < c0) || (b == c0 && j < lane);   // index 2j+1 vs 2·lane
+        r1 += (a < c1) || (a == c1 && j <= lane);  // index 2j vs 2·lane+1
+        r1 += (b < c1) || (b == c1 && j < lane);   // index 2j+1 vs 2·lane+1
+      }
+      // the candidate ranked m goes to trace slot m
+      uint8_t* row = TI + info_i * M;
+      if (lane < M) {
+        if (r0 < M) row[r0] = (uint8_t)(2 * lane);
+        if (r1 < M) row[r1] = (uint8_t)(2 * lane + 1);
+      }
+      __syncwarp();
+      const int w = lane < M ? row[lane] : 0;
+      const int parent = w >> 1;
+      const float n0 = __shfl_sync(FULL_MASK, c0, parent);
+      const float n1 = __shfl_sync(FULL_MASK, c1, parent);
+      const float leaf_par = __shfl_sync(FULL_MASK, leaf, parent);
+      const uint32_t syn_par = __shfl_sync(FULL_MASK, syn, parent);
+      if (lane < M) {
+        bit = w & 1;
+        pm = bit ? n1 : n0;
+        TL[info_i * M + lane] = leaf_par;
+        syn = bit ? syn_par ^ hc : syn_par;
+      }
+      sig.fork(parent);  // σ ← σ[parent] on every level
+      ++info_i;
+    }
+
+    // ---- partial-sum chain ----
+    const int s = word >> 5 & 31;
+    if (s > 0) {
+      const int cmask = word >> 11;  // bit l: level l's left bits through σ
+      if (lane < M) {
+        uint8_t* cur = s > G ? Bs + lane * SS + so(s) : Bg + lane * SG + go(s);
+        if (s == n) {
+          cur[0] = (uint8_t)bit;
+        } else {
+          const int r = (cmask >> n & 1) ? sig.get(2 * n - 3) : lane;
+          const uint8_t left = Bs[r * SS + so(n)];
+          cur[1] = (uint8_t)bit;
+          cur[0] = (uint8_t)(left ^ bit);
+        }
+      }
+      __syncwarp();
+      for (int lv = n - 1; lv > s; --lv) {
+        const bool via = cmask >> lv & 1;
+        const int own = via ? sig.get(n + lv - 3) : 0;
+        if (s > G)
+          path_chain_pass(Bs + so(s), SS, Bs + so(lv), SS, via, own, n - lv, M, lane);
+        else
+          path_chain_pass(Bg + go(s), SG, lv > G ? Bs + so(lv) : Bg + go(lv), lv > G ? SS : SG,
+                          via, own, n - lv, M, lane);
+        __syncwarp();
+      }
+    }
+    s_prev = s;
+    word = next_word;
+  }
+
+  // ---- final stable sort of the list, CRC selection, backtrack ----
+  int frank = 0;
+  for (int j = 0; j < M; ++j) {
+    const float pj = __shfl_sync(FULL_MASK, pm, j);
+    frank += (pj < pm) || (pj == pm && j < lane);
+  }
+  const bool ok = use_crc && lane < M && syn == 0u && pm < SCL_BIG;
+  const unsigned ok_ranks = __reduce_or_sync(FULL_MASK, ok ? (1u << frank) : 0u);
+  const int sel_rank = ok_ranks ? __ffs(ok_ranks) - 1 : 0;
+  const unsigned who = __ballot_sync(FULL_MASK, lane < M && frank == sel_rank);
+  if (LIST) {
+    if (lane < M) {
+      const long long o = (frame * M + frank) * K;
+      int slot = lane;
+      for (int i = K - 1; i >= 0; --i) {
+        const int w = TI[i * M + slot];
+        list_bits[o + i] = (int8_t)(w & 1);
+        list_llrs[o + i] = TL[i * M + slot];
+        slot = w >> 1;
+      }
+      list_metrics[frame * M + frank] = pm < SCL_BIG ? pm : __int_as_float(0x7f800000);
+    }
+    if (lane == 0) list_best[frame] = sel_rank;
+    __syncwarp();
+  }
+  if (lane == 0) {
+    int slot = __ffs(who) - 1;
+    for (int i = K - 1; i >= 0; --i) {
+      const int w = TI[i * M + slot];
+      TI[i * M] = (uint8_t)((slot << 1) | (w & 1));
+      slot = w >> 1;
+    }
+    out_pass[frame] = ok_ranks ? 1 : 0;
+  }
+  __syncwarp();
+  for (int i = lane; i < K; i += 32) {
+    const int r = TI[i * M];
+    out_bits[frame * K + i] = (int8_t)(r & 1);
+    out_llrs[frame * K + i] = TL[i * M + (r >> 1)];
+  }
 }
 
+// ---------------------------------------------------------------------------
+// Host side.
+// ---------------------------------------------------------------------------
+
+template <typename Kern>
+cudaError_t set_smem(Kern kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// every kernel argument but the list size, the σ masks and the stream
+struct Args {
+  const float* llr;
+  const int8_t* forced;
+  const uint32_t* hcols;
+  const int* sched;
+  float* glob_llr;
+  uint8_t* glob_bits;
+  float* trace_llr;
+  int8_t* out_bits;
+  float* out_llrs;
+  uint8_t* out_pass;
+  int8_t* list_bits;
+  float* list_llrs;
+  float* list_metrics;
+  int* list_best;
+  int B, N, n, K, G, use_crc, frame_bytes, frames_per_block;
+};
+
 template <int M, bool LIST>
-int launch_as(const float* llr, const int8_t* forced, const uint32_t* hcols, const int* sched,
-              float* glob_llr, uint8_t* glob_bits, float* trace_llr, int8_t* out_bits,
-              float* out_llrs, uint8_t* out_pass, int8_t* list_bits, float* list_llrs,
-              float* list_metrics, int* list_best, int B, int N, int n, int K, int G,
-              int use_crc, int frame_bytes, int frames_per_block, cudaStream_t stream) {
-  const size_t smem = (size_t)frame_bytes * frames_per_block;
-  cudaError_t err = set_smem<M, LIST>(smem);
+int launch_as(const Args& a, cudaStream_t stream) {
+  const size_t smem = (size_t)a.frame_bytes * a.frames_per_block;
+  cudaError_t err = set_smem(scl_decode_kernel<M, LIST>, smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (B + frames_per_block - 1) / frames_per_block;
-  scl_decode_kernel<M, LIST><<<blocks, 32 * frames_per_block, smem, stream>>>(
-      llr, forced, hcols, sched, glob_llr, glob_bits, trace_llr, out_bits, out_llrs, out_pass,
-      list_bits, list_llrs, list_metrics, list_best, B, N, n, K, G, use_crc, frame_bytes,
-      frames_per_block);
+  const int blocks = (a.B + a.frames_per_block - 1) / a.frames_per_block;
+  scl_decode_kernel<M, LIST><<<blocks, 32 * a.frames_per_block, smem, stream>>>(
+      a.llr, a.forced, a.hcols, a.sched, a.glob_llr, a.glob_bits, a.trace_llr, a.out_bits,
+      a.out_llrs, a.out_pass, a.list_bits, a.list_llrs, a.list_metrics, a.list_best, a.B, a.N,
+      a.n, a.K, a.G, a.use_crc, a.frame_bytes, a.frames_per_block);
+  return (int)cudaGetLastError();
+}
+
+template <int LM, bool LIST>
+int launch_path_as(const Args& a, int M, cudaStream_t stream) {
+  if (a.n > MAX_LEVELS || 2 * a.n - 2 > PathSigma<LM>::kWords * PathSigma<LM>::kFields)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)a.frame_bytes * a.frames_per_block;
+  cudaError_t err = set_smem(scl_path_kernel<LM, LIST>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (a.B + a.frames_per_block - 1) / a.frames_per_block;
+  scl_path_kernel<LM, LIST><<<blocks, 32 * a.frames_per_block, smem, stream>>>(
+      a.llr, a.forced, a.hcols, a.sched, a.glob_llr, a.glob_bits, a.trace_llr, a.out_bits,
+      a.out_llrs, a.out_pass, a.list_bits, a.list_llrs, a.list_metrics, a.list_best, a.B, a.N,
+      a.n, a.K, M, a.G, a.use_crc, a.frame_bytes, a.frames_per_block, reset_masks<LM>(a.n));
   return (int)cudaGetLastError();
 }
 
 // the list instantiation when the list outputs are given, else the sweeps' one
 template <int M>
-int launch(const float* llr, const int8_t* forced, const uint32_t* hcols, const int* sched,
-           float* glob_llr, uint8_t* glob_bits, float* trace_llr, int8_t* out_bits,
-           float* out_llrs, uint8_t* out_pass, int8_t* list_bits, float* list_llrs,
-           float* list_metrics, int* list_best, int B, int N, int n, int K, int G, int use_crc,
-           int frame_bytes, int frames_per_block, cudaStream_t stream) {
-  if (list_bits)
-    return launch_as<M, true>(llr, forced, hcols, sched, glob_llr, glob_bits, trace_llr,
-                              out_bits, out_llrs, out_pass, list_bits, list_llrs, list_metrics,
-                              list_best, B, N, n, K, G, use_crc, frame_bytes, frames_per_block,
-                              stream);
-  return launch_as<M, false>(llr, forced, hcols, sched, glob_llr, glob_bits, trace_llr, out_bits,
-                             out_llrs, out_pass, nullptr, nullptr, nullptr, nullptr, B, N, n, K,
-                             G, use_crc, frame_bytes, frames_per_block, stream);
+int launch(const Args& a, cudaStream_t stream) {
+  return a.list_bits ? launch_as<M, true>(a, stream) : launch_as<M, false>(a, stream);
+}
+
+template <int LM>
+int launch_path(const Args& a, int M, cudaStream_t stream) {
+  return a.list_bits ? launch_path_as<LM, true>(a, M, stream)
+                     : launch_path_as<LM, false>(a, M, stream);
 }
 
 // The frames a block (1..MAX_FRAMES_PER_BLOCK) that let an SM hold the most
 // frames at once, by the occupancy calculator (shared memory, registers and
 // warps all counted); ties go to more frames a block.  The list
 // instantiation runs on the same plan: it has the same launch bounds.
-template <int M>
-int plan(int frame_bytes, int max_block_smem, int* frames_per_block, int* frames_per_sm) {
+template <typename Kern>
+int plan(Kern kernel, int frame_bytes, int max_block_smem, int* frames_per_block,
+         int* frames_per_sm) {
   *frames_per_block = 1;
   *frames_per_sm = 0;
   for (int fpb = 1; fpb <= MAX_FRAMES_PER_BLOCK; ++fpb) {
     const size_t smem = (size_t)frame_bytes * fpb;
     if (smem > (size_t)max_block_smem) break;
-    cudaError_t err = set_smem<M, false>(smem);
+    cudaError_t err = set_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
     int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, scl_decode_kernel<M, false>,
-                                                        32 * fpb, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, 32 * fpb, smem);
     if (err != cudaSuccess) return (int)err;
     if (blocks * fpb >= *frames_per_sm) {
       *frames_per_block = fpb;
@@ -476,39 +740,52 @@ extern "C" int scl_decode_launch(const void* llr, const void* forced, const void
                                  void* list_best, int B, int N, int n, int K, int M, int G,
                                  int use_crc, int frame_bytes, int frames_per_block,
                                  void* stream) {
-  auto* l = static_cast<const float*>(llr);
-  auto* f = static_cast<const int8_t*>(forced);
-  auto* h = static_cast<const uint32_t*>(hcols);
-  auto* s = static_cast<const int*>(sched);
-  auto* gl = static_cast<float*>(glob_llr);
-  auto* gb = static_cast<uint8_t*>(glob_bits);
-  auto* tl = static_cast<float*>(trace_llr);
-  auto* ob = static_cast<int8_t*>(out_bits);
-  auto* ol = static_cast<float*>(out_llrs);
-  auto* op = static_cast<uint8_t*>(out_pass);
-  auto* lb = static_cast<int8_t*>(list_bits);
-  auto* ll = static_cast<float*>(list_llrs);
-  auto* lm = static_cast<float*>(list_metrics);
-  auto* li = static_cast<int*>(list_best);
+  const Args a{static_cast<const float*>(llr), static_cast<const int8_t*>(forced),
+               static_cast<const uint32_t*>(hcols), static_cast<const int*>(sched),
+               static_cast<float*>(glob_llr), static_cast<uint8_t*>(glob_bits),
+               static_cast<float*>(trace_llr), static_cast<int8_t*>(out_bits),
+               static_cast<float*>(out_llrs), static_cast<uint8_t*>(out_pass),
+               static_cast<int8_t*>(list_bits), static_cast<float*>(list_llrs),
+               static_cast<float*>(list_metrics), static_cast<int*>(list_best),
+               B, N, n, K, G, use_crc, frame_bytes, frames_per_block};
   auto st = static_cast<cudaStream_t>(stream);
-  switch (M) {
-    case 1: return launch<1>(l, f, h, s, gl, gb, tl, ob, ol, op, lb, ll, lm, li, B, N, n, K, G, use_crc, frame_bytes, frames_per_block, st);
-    case 2: return launch<2>(l, f, h, s, gl, gb, tl, ob, ol, op, lb, ll, lm, li, B, N, n, K, G, use_crc, frame_bytes, frames_per_block, st);
-    case 4: return launch<4>(l, f, h, s, gl, gb, tl, ob, ol, op, lb, ll, lm, li, B, N, n, K, G, use_crc, frame_bytes, frames_per_block, st);
-    case 8: return launch<8>(l, f, h, s, gl, gb, tl, ob, ol, op, lb, ll, lm, li, B, N, n, K, G, use_crc, frame_bytes, frames_per_block, st);
-    default: return (int)cudaErrorInvalidValue;
+#if !SCL_BY_PATH_ONLY
+  switch (M) {  // the byte-word instantiations, which the sweeps launch
+    case 1: return launch<1>(a, st);
+    case 2: return launch<2>(a, st);
+    case 4: return launch<4>(a, st);
+    case 8: return launch<8>(a, st);
   }
+#endif
+  if (M < 1 || M > 32) return (int)cudaErrorInvalidValue;
+#if SCL_LEAST_PATH_WIDTH <= 4
+  if (M <= 4) return launch_path<4>(a, M, st);
+#endif
+  if (M <= 8) return launch_path<8>(a, M, st);
+  if (M <= 16) return launch_path<16>(a, M, st);
+  return launch_path<32>(a, M, st);
 }
 
 extern "C" int scl_launch_plan(int M, int frame_bytes, int max_block_smem,
                                int* frames_per_block, int* frames_per_sm) {
+#define SCL_PLAN(kernel) \
+  return plan(kernel, frame_bytes, max_block_smem, frames_per_block, frames_per_sm)
+#if !SCL_BY_PATH_ONLY
   switch (M) {
-    case 1: return plan<1>(frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
-    case 2: return plan<2>(frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
-    case 4: return plan<4>(frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
-    case 8: return plan<8>(frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
-    default: return (int)cudaErrorInvalidValue;
+    case 1: SCL_PLAN((scl_decode_kernel<1, false>));
+    case 2: SCL_PLAN((scl_decode_kernel<2, false>));
+    case 4: SCL_PLAN((scl_decode_kernel<4, false>));
+    case 8: SCL_PLAN((scl_decode_kernel<8, false>));
   }
+#endif
+  if (M < 1 || M > 32) return (int)cudaErrorInvalidValue;
+#if SCL_LEAST_PATH_WIDTH <= 4
+  if (M <= 4) SCL_PLAN((scl_path_kernel<4, false>));
+#endif
+  if (M <= 8) SCL_PLAN((scl_path_kernel<8, false>));
+  if (M <= 16) SCL_PLAN((scl_path_kernel<16, false>));
+  SCL_PLAN((scl_path_kernel<32, false>));
+#undef SCL_PLAN
 }
 
 extern "C" const char* scl_error_string(int code) {

@@ -118,7 +118,8 @@ def pac_list_decode_batch(
 
     Returns {"extracted" int8 [B, Kp] (CRC-selected / best metric),
              "candidates" int8 [B, L, Kp], "metrics" [B, L], "valid" bool
-             [B, L], "crc_pass" bool [B], "v_full" int8 [B, L, N]}.
+             [B, L], "crc_pass" bool [B], "v_full" int8 [B, L, N],
+             "best_index" int64 [B] (the selected rank)}.
     """
 
     gen = [int(g) for g in gen]
@@ -273,6 +274,7 @@ def pac_list_decode_batch(
         "valid": valid.T,
         "crc_pass": crc_pass,
         "v_full": v_dec.permute(2, 0, 1),  # [B, L, N] message-domain bits
+        "best_index": best_index,
     }
 
 
@@ -288,6 +290,7 @@ def pac_decode(
     crc_len: int = 0,
     crc_poly: int = 0,
     backend: str = "auto",
+    full: bool = False,
 ) -> dict:
     """Decode with the backend the tensor's device calls for.
 
@@ -295,8 +298,8 @@ def pac_decode(
     JAX names), which raises ValueError for a shape it does not take; there
     is no fallback to the plain version on the card.  A CPU tensor runs the
     plain version, whatever the backend.  Returns at least {"extracted",
-    "crc_pass"}; the plain version additionally returns
-    candidates/metrics/valid/v_full.
+    "crc_pass"}; the plain version, and the kernel under `full`,
+    additionally return candidates/metrics/valid/v_full/best_index.
     """
 
     if backend not in ("auto", "xla", "pallas"):
@@ -308,7 +311,7 @@ def pac_decode(
                          "through the PAC kernel (backend 'auto' or 'pallas')")
     from .pac_cuda import pac_list_decode_cuda
 
-    return pac_list_decode_cuda(llr, mask, gen, L, crc_len=crc_len, crc_poly=crc_poly)
+    return pac_list_decode_cuda(llr, mask, gen, L, crc_len=crc_len, crc_poly=crc_poly, full=full)
 
 
 __all__ = [

@@ -4,7 +4,13 @@ Replaces the TPU kernel `polar_code_tpu/legacy/pac_pallas.py` `_kernel_body`
 (wrapper `pac_list_decode_pallas`).  `pac_list_decode_cuda` has that
 wrapper's contract: llr [B, N] float32 → {"extracted" int8 [B, Kp] in
 ascending-u order (the first path that passes the CRC, else the best one),
-"crc_pass" bool [B]}.
+"crc_pass" bool [B]}.  With `full=True` it also returns the whole final
+list, the plain version's fields, in its final stable (metric, slot) order:
+"v_full" int8 [B, L, N] (message bits by u index), "candidates" int8
+[B, L, Kp], "metrics" float32 [B, L] (+inf for a dead path), "valid" bool
+[B, L] and the selected rank "best_index" int64 [B]; the kernel's LIST
+instantiation writes them (the systematic scalar decoder,
+`legacy/polar_code.py`, reads them).
 
 On a CUDA tensor it launches the kernel, or raises for a shape the kernel
 does not take; it runs the plain version (`legacy/pac.py`) only for a tensor
@@ -12,7 +18,8 @@ on the CPU.  The kernel takes every list size from 1 to 32 (one path a lane
 of a warp; the TPU kernel took power-of-two L <= 8) and any batch size: the
 last block is masked, since the adaptive second stage re-decodes a ragged
 set of failed frames.  `pac_list_decode_cuda.launches` counts kernel
-launches.
+launches, and `pac_list_decode_cuda.list_launches` those of them that went
+to the list instantiation.
 
 The kernel's design (its source note has the whole of it): the TPU
 kernel's lazy clone — path m writes row m, per-level path-origin maps σ
@@ -44,17 +51,16 @@ import torch
 
 from .. import _build
 from ..ops.crc import check_matrix
-from ..ops.scl_cuda import MAX_BLOCK_SMEM, smallest_global_levels
+from ..ops.scl_cuda import MAX_BLOCK_SMEM, SIGMA_FIELDS, smallest_global_levels
 from ..ops.scl_schedule import phase_words
 from .pac import bitrev_perm, pac_list_decode_batch
 
 SOURCE = "pac_decode.cu"
 MAX_L = 32  # one path a lane
 MAX_MEM = 31  # the shift register is a 32-bit mask
-# σ levels (2n − 2 of them) a lane's registers hold, by the list size rounded
-# up to a power of two: 32 / log2(LM) fields a word, 1-4 words
-# (`Sigma` in `csrc/pac_decode.cu`); L=1 has no σ
-SIGMA_FIELDS = {2: 32, 4: 32, 8: 30, 16: 24, 32: 24}
+# the list outputs of `full=True`, in the order of the kernel's arguments;
+# "valid" is worked out from the metrics
+LIST_FIELDS = ("v_full", "candidates", "metrics", "best_index", "valid")
 
 
 def frame_bytes(N: int, Kp: int, L: int, global_levels: int = 0) -> int:
@@ -89,6 +95,8 @@ def check_shape(N: int, Kp: int, L: int, gen, crc_len: int, dtype: torch.dtype) 
             f"outside the kernel's envelope ({MAX_BLOCK_SMEM})"
         )
     n = int(math.log2(N))
+    # σ levels (2n − 2 of them) by the list size rounded up to a power of
+    # two (`PathSigma` in `csrc/list_decode.cuh`); L=1 has no σ
     if L > 1 and 2 * n - 2 > SIGMA_FIELDS[1 << (L - 1).bit_length()]:
         raise ValueError(f"the PAC kernel's σ registers do not hold N={N} at L={L}")
 
@@ -97,7 +105,7 @@ def check_shape(N: int, Kp: int, L: int, gen, crc_len: int, dtype: torch.dtype) 
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     lib.pac_decode_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_uint] * 2
+        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_uint] * 2
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     )
     lib.pac_decode_launch.restype = ctypes.c_int
@@ -160,7 +168,9 @@ def _plan(mask_key: bytes, gen: tuple, L: int, crc_len: int, crc_poly: int, dtyp
     checked and cached (the legacy drivers launch small batches, where the
     host's share of a call matters): (N, Kp, L, G, frames a block, phase
     words, the info phase of each ascending-u output bit, check columns,
-    shift-register and tap masks, CRC flag, shared bytes a frame).
+    shift-register and tap masks, CRC flag, shared bytes a frame, and for
+    the list output the ascending-u output index and the u index of each
+    info phase).
     `global_levels` overrides the launch plan's G (`chip_smoke.py` times
     other G)."""
 
@@ -176,20 +186,26 @@ def _plan(mask_key: bytes, gen: tuple, L: int, crc_len: int, crc_poly: int, dtyp
               torch.as_tensor(np.argsort(out_pos).astype(np.int32), device=device),
               torch.as_tensor(cols.view(np.int32), device=device))
     tap_mask = sum(1 << t for t, g in enumerate(gen[1:]) if g)
+    positions = np.flatnonzero(mask == 1)
+    list_tables = (torch.as_tensor(out_pos, device=device),
+                   torch.as_tensor(positions[out_pos].astype(np.int32), device=device))
     return (N, Kp, L, G, fpb, *tables, (1 << (len(gen) - 1)) - 1, tap_mask, int(crc_len > 0),
-            frame_bytes(N, Kp, L, G))
+            frame_bytes(N, Kp, L, G), list_tables)
 
 
 def pac_list_decode_cuda(
-    llr: torch.Tensor, mask, gen, L: int, crc_len: int = 0, crc_poly: int = 0,
+    llr: torch.Tensor, mask, gen, L: int, crc_len: int = 0, crc_poly: int = 0, *,
+    full: bool = False,
 ) -> dict:
     """Fused PAC list decode of a batch: the selected path's bits in
-    ascending-u order, and the CRC pass flag."""
+    ascending-u order, and the CRC pass flag; with `full`, also the whole
+    final list."""
 
     if llr.device.type == "cpu":
         res = pac_list_decode_batch(llr, mask, gen, L, crc_len=crc_len, crc_poly=crc_poly,
                                     dtype=llr.dtype)
-        return {"extracted": res["extracted"], "crc_pass": res["crc_pass"]}
+        fields = ("extracted", "crc_pass") + (LIST_FIELDS if full else ())
+        return {f: res[f] for f in fields}
     if llr.device.type != "cuda":
         raise ValueError(f"pac_list_decode_cuda takes CUDA or CPU tensors, not {llr.device}")
     if llr.dim() != 2 or not llr.is_contiguous():
@@ -199,39 +215,53 @@ def pac_list_decode_cuda(
         raise ValueError(f"mask has {mask.size} entries for N={int(llr.shape[1])}")
     plan = _plan(mask.tobytes(), tuple(int(g) for g in gen), L, crc_len, crc_poly, llr.dtype,
                  llr.device)
-    return _launch(llr, plan)
+    return _launch(llr, plan, full)
 
 
-def _launch(llr, plan) -> dict:
-    """Launch the kernel on checked inputs (`_plan`)."""
+def _launch(llr, plan, full=False) -> dict:
+    """Launch the kernel on checked inputs (`_plan`); `full` launches the list
+    instantiation."""
 
-    N, Kp, L, G, fpb, sched, phase_of, hcols, mem_mask, tap_mask, use_crc, fbytes = plan
+    (N, Kp, L, G, fpb, sched, phase_of, hcols, mem_mask, tap_mask, use_crc, fbytes,
+     (out_pos, u_pos)) = plan
     B = int(llr.shape[0])
     dev = llr.device
-    bits = torch.empty((B, Kp), dtype=torch.int8, device=dev)
-    passed = torch.empty((B,), dtype=torch.bool, device=dev)
-    if B == 0:
-        return {"extracted": bits, "crc_pass": passed}
-    row = N - (N >> G)  # entries of a path's levels 1..G
-    glob_llr = torch.empty((B, L, row), dtype=torch.float32, device=dev) if G else None
-    glob_bits = torch.empty((B, L, row), dtype=torch.uint8, device=dev) if G else None
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.pac_decode_launch(
-            llr.data_ptr(), hcols.data_ptr(), sched.data_ptr(), phase_of.data_ptr(),
-            glob_llr.data_ptr() if G else None, glob_bits.data_ptr() if G else None,
-            bits.data_ptr(), passed.data_ptr(),
-            B, N, int(math.log2(N)), Kp, L, G, mem_mask, tap_mask, use_crc, fbytes, fpb, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"PAC kernel launch failed: {lib.pac_error_string(rc).decode()} ({rc})")
-    pac_list_decode_cuda.launches += 1
-    return {"extracted": bits, "crc_pass": passed}
+    out = {"extracted": torch.empty((B, Kp), dtype=torch.int8, device=dev),
+           "crc_pass": torch.empty((B,), dtype=torch.bool, device=dev)}
+    if full:
+        out.update(v_full=torch.empty((B, L, N), dtype=torch.int8, device=dev),
+                   candidates=torch.empty((B, L, Kp), dtype=torch.int8, device=dev),
+                   metrics=torch.empty((B, L), dtype=torch.float32, device=dev),
+                   best_index=torch.empty((B,), dtype=torch.int32, device=dev))
+    if B > 0:
+        row = N - (N >> G)  # entries of a path's levels 1..G
+        glob_llr = torch.empty((B, L, row), dtype=torch.float32, device=dev) if G else None
+        glob_bits = torch.empty((B, L, row), dtype=torch.uint8, device=dev) if G else None
+        lists = [out[f].data_ptr() if full else None for f in LIST_FIELDS[:4]]
+        lib = _library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.pac_decode_launch(
+                llr.data_ptr(), hcols.data_ptr(), sched.data_ptr(), phase_of.data_ptr(),
+                glob_llr.data_ptr() if G else None, glob_bits.data_ptr() if G else None,
+                out["extracted"].data_ptr(), out["crc_pass"].data_ptr(),
+                out_pos.data_ptr(), u_pos.data_ptr(), *lists,
+                B, N, int(math.log2(N)), Kp, L, G, mem_mask, tap_mask, use_crc, fbytes, fpb, stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"PAC kernel launch failed: {lib.pac_error_string(rc).decode()} ({rc})")
+        pac_list_decode_cuda.launches += 1
+        if full:
+            pac_list_decode_cuda.list_launches += 1
+    if full:
+        out["best_index"] = out["best_index"].long()
+        out["valid"] = torch.isfinite(out["metrics"])
+    return out
 
 
 pac_list_decode_cuda.launches = 0
+pac_list_decode_cuda.list_launches = 0  # of them, launches of the list instantiation
 
 
 __all__ = ["pac_list_decode_cuda", "check_shape", "frame_bytes", "host_tables", "launch_plan",
-           "MAX_L", "SIGMA_FIELDS"]
+           "MAX_L", "SIGMA_FIELDS", "LIST_FIELDS"]

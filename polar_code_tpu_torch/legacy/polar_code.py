@@ -9,9 +9,8 @@ call `legacy.pac` batched functions directly.
 
 `pac_list_crc_decoder` decodes on the card through the PAC kernel
 (`pac.pac_decode`) in float32, and on the CPU through the plain decoder in
-float64.  Its systematic branch re-encodes every path's `v_full`, which only
-the plain decoder returns, so on the card it raises: decode systematic codes
-with `device="cpu"`.
+float64.  Its systematic branch re-encodes every path's `v_full`: on the card
+the kernel's full-list instantiation returns the list, one launch a call.
 """
 
 from __future__ import annotations
@@ -102,35 +101,30 @@ class PolarCode:
         crc_len = crc1.len if isCRCinc else 0
         crc_poly = crc1.gen if isCRCinc else 0
         if self.device.type == "cuda":
-            if issystematic:
-                raise ValueError(
-                    "the PAC kernel returns the selected path only; the systematic decoder "
-                    "needs every path's v_full: decode it on the CPU (device=\"cpu\")")
             x = torch.as_tensor(np.asarray(soft_mess, dtype=np.float32), device=self.device)[None]
             res = pac_decode(x, self.polarcode_mask, self.gen, L, crc_len=crc_len,
-                             crc_poly=crc_poly)
-            return res["extracted"][0].cpu().numpy().astype(int)
-        res = pac_list_decode_batch(
-            torch.as_tensor(np.asarray(soft_mess, dtype=np.float64))[None],
-            self.polarcode_mask,
-            self.gen,
-            L,
-            crc_len=crc_len,
-            crc_poly=crc_poly,
-            dtype=torch.float64,
-        )
+                             crc_poly=crc_poly, full=issystematic)
+        else:
+            res = pac_list_decode_batch(
+                torch.as_tensor(np.asarray(soft_mess, dtype=np.float64))[None],
+                self.polarcode_mask,
+                self.gen,
+                L,
+                crc_len=crc_len,
+                crc_poly=crc_poly,
+                dtype=torch.float64,
+            )
         if issystematic:
-            v_full = res["v_full"][0].numpy().astype(np.int8)  # [L, N]
-            cands = [
-                self.extract(self.mul_matrix(v_full[l])) for l in range(v_full.shape[0])
-            ]
-            valid = res["valid"][0].numpy()
+            # every path re-encoded at once: the transform of each row of v_full
+            coded = polar_transform(res["v_full"][0].to(torch.int8)).cpu().numpy().astype(int)
+            cands = [self.extract(row) for row in coded]
+            valid = res["valid"][0].cpu().numpy()
             if isCRCinc:
                 for cand in [c for c, v in zip(cands, valid) if v]:
                     if sum(crc1.crcCalc(np.asarray(cand))) == 0:
                         return np.asarray(cand, dtype=int)
             return np.asarray(cands[0], dtype=int)
-        return res["extracted"][0].numpy().astype(int)
+        return res["extracted"][0].cpu().numpy().astype(int)
 
 
 __all__ = ["PolarCode"]

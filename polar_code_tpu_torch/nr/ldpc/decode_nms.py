@@ -27,8 +27,8 @@ dense H).  On the CPU it runs this plain version in float64; on the card it
 goes through the kernel in float32, with the base graph and lifting size
 recovered from H (`builder.circulant_structure`): a Z×Z circulant block-row
 is a group of column-disjoint rows, so the kernel's block-row order gives
-the sequential row order's result, as the greedy layers here do.  The
-kernel always stops early, so `early_stop=False` raises on the card.
+the sequential row order's result, as the greedy layers here do, with or
+without early stop.
 """
 
 from __future__ import annotations
@@ -198,15 +198,12 @@ def decode_ldpc_nms(
             early_stop=early_stop, self_exclude=self_exclude, dtype=torch.float64,
         )
     else:
-        if not early_stop:
-            raise ValueError("the NMS kernel always stops early; decode with early_stop=False "
-                             "on the CPU (device=\"cpu\")")
         from .nms_cuda import decode_ldpc_nms_cuda
 
         base_graph, Z = circulant_structure(H)
         x = torch.as_tensor(llr, dtype=torch.float32, device=dev)[None]
         res = decode_ldpc_nms_cuda(x, base_graph, Z, max_iter=max_iter, alpha=alpha,
-                                   self_exclude=self_exclude)
+                                   early_stop=early_stop, self_exclude=self_exclude)
     return {
         "hard": res["hard"][0].cpu().numpy().astype(np.int8),
         "iters_used": int(res["iters_used"][0]),

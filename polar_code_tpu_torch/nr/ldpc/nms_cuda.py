@@ -5,11 +5,13 @@ Replaces the TPU kernel `polar_code_tpu/nr/ldpc/nms_pallas.py` `_kernel_body`
 (wrapper `decode_ldpc_nms_pallas`).  `decode_ldpc_nms_cuda` takes LLRs
 float32 [B, nb·Z] of a code lifted from `base_graph` at `Z` and returns
 {"hard" int8 [B, n], "iters_used" int32 [B], "parity_ok" bool [B]}, the
-contract of the plain version `decode_nms.decode_ldpc_nms_batch`.
+contract of the plain version `decode_nms.decode_ldpc_nms_batch`, with early
+stop or (`early_stop=False`) without.
 
 On a CUDA tensor it launches the kernel, or raises for a shape the kernel
 does not take; it runs the plain version only for a tensor on the CPU.  Any
-batch size is taken.  `decode_ldpc_nms_cuda.launches` counts kernel launches.
+batch size is taken.  `decode_ldpc_nms_cuda.launches` counts kernel launches,
+and `decode_ldpc_nms_cuda.no_stop_launches` those of them without early stop.
 
 The kernel's design is in its source note.  This module lays it out:
 `kernel_layout` picks the mode (WARP: a warp a frame and several frames a
@@ -173,7 +175,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     lib.nms_decode_launch.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float]
-        + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     )
     lib.nms_decode_launch.restype = ctypes.c_int
     lib.nms_occupancy.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
@@ -260,19 +262,21 @@ def decode_ldpc_nms_cuda(
     Z: int,
     max_iter: int = 20,
     alpha: float = 0.8,
+    early_stop: bool = True,
     *,
     self_exclude: bool = False,
     H: Optional[np.ndarray] = None,
 ) -> dict:
-    """Layered NMS decode of a batch with early stop; shared min, or two-min
-    under `self_exclude`.  `H`, the lifted parity-check matrix, is read only
-    by the plain version on a CPU tensor (built from the base graph when
-    not given); the kernel works from the base graph's shifts."""
+    """Layered NMS decode of a batch; shared min, or two-min under
+    `self_exclude`; with early stop, or (`early_stop=False`) `max_iter`
+    iterations for every frame.  `H`, the lifted parity-check matrix, is
+    read only by the plain version on a CPU tensor (built from the base
+    graph when not given); the kernel works from the base graph's shifts."""
 
     if llr.device.type == "cpu":
         return decode_ldpc_nms_batch(
             llr, H if H is not None else build_h_matrix(base_graph, Z), max_iter=max_iter,
-            alpha=alpha, self_exclude=self_exclude, dtype=llr.dtype,
+            alpha=alpha, early_stop=early_stop, self_exclude=self_exclude, dtype=llr.dtype,
         )
     if llr.device.type != "cuda":
         raise ValueError(f"decode_ldpc_nms_cuda takes CUDA or CPU tensors, not {llr.device}")
@@ -301,17 +305,20 @@ def decode_ldpc_nms_cuda(
         rc = lib.nms_decode_launch(
             llr.data_ptr(), rows.data_ptr(), cols.data_ptr(), hard.data_ptr(), iters.data_ptr(),
             ok.data_ptr(), scratch.data_ptr() if scratch is not None else None,
-            B, mb, n, Z, E, int(max_iter), float(alpha), lay.nw, lay.col_chunks,
+            B, mb, n, Z, E, int(max_iter), float(alpha), int(early_stop), lay.nw, lay.col_chunks,
             lay.tables_bytes, lay.frame_bytes, lay.rec_offset, plan.frames_per_block, lay.D,
             int(self_exclude), plan.mode, grid, plan.threads, plan.smem, stream,
         )
     if rc != 0:
         raise RuntimeError(f"NMS kernel launch failed: {lib.nms_error_string(rc).decode()} ({rc})")
     decode_ldpc_nms_cuda.launches += 1
+    if not early_stop:
+        decode_ldpc_nms_cuda.no_stop_launches += 1
     return {"hard": hard, "iters_used": iters, "parity_ok": ok}
 
 
 decode_ldpc_nms_cuda.launches = 0
+decode_ldpc_nms_cuda.no_stop_launches = 0  # of them, launches without early stop
 
 
 __all__ = ["decode_ldpc_nms_cuda", "check_shape", "host_tables", "kernel_layout", "launch_plan",

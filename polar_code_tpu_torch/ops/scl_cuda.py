@@ -15,7 +15,17 @@ On a CUDA tensor it launches the kernel, or raises for a shape the kernel
 does not take; it runs the plain version (`ops/scl.py`) only for a tensor on
 the CPU.  Any batch size is taken: the last block is masked, since the retry
 batches after compaction are data-dependent.  `decode_scl_cuda.launches`
-counts kernel launches.
+counts kernel launches, and `decode_scl_cuda.path_launches` those of them
+that went to the by-path instantiation.
+
+The kernel takes every list size M from 1 to 32 and N up to 8192 (the TPU
+kernel's N envelope).  M ∈ {1, 2, 4, 8} go to the byte-word instantiations,
+which the sweeps launch; every other M to the by-path instantiation of M
+rounded up to a power of two (`path_width`; the source note has both σ
+layouts).  A shape whose frame fits no block even with every level but the
+leaf in global scratch (`check_shape`: the trace indices, K·M bytes, stay in
+shared memory) raises, as does a batch whose global scratch does not fit
+the card: the wrapper names the bytes and shrinks nothing.
 
 Memory.  A frame keeps tree levels G+1..n of its M paths, and its trace
 indices, in shared memory; levels 1..G and the trace LLRs go to a global
@@ -41,12 +51,23 @@ from .scl import decode_scl_batch
 from .scl_schedule import phase_words
 
 SOURCE = "scl_decode.cu"
-SUPPORTED_M = (1, 2, 4, 8)
-# the north star's envelope, N up to 2048, is what the kernel is held to; in
-# it a frame's state fits a block once enough levels go to global scratch
-MAX_N = 2048
+MAX_M = 32  # one path a lane of a warp
+SUPPORTED_M = tuple(range(1, MAX_M + 1))
+# the list sizes of the byte-word instantiations, which the sweeps launch;
+# every other M goes through the by-path instantiation of M rounded up to a
+# power of two (`path_width`)
+BYTE_WORD_M = (1, 2, 4, 8)
+# the TPU kernel's N envelope (`scl_pallas.kernel_fit_dtype`: N up to 8192);
+# at every (N, K, M) in it whose frame fits a block at some G
+# (`check_shape`) a frame's state fits once enough levels go to global scratch
+MAX_N = 8192
 MAX_BLOCK_SMEM = 227 * 1024  # dynamic shared memory one block may use on an H100
 FRAMES_PER_SM_TARGET = 16
+# σ levels (2n − 2 of them) a lane's registers hold in the by-path layout, by
+# the list size rounded up to a power of two: 32 / log2(LM) fields a word,
+# 1-4 words (`PathSigma` in `csrc/list_decode.cuh`, which the SCL and PAC
+# kernels share)
+SIGMA_FIELDS = {2: 32, 4: 32, 8: 30, 16: 24, 32: 24}
 # the outputs of every launch, and those `full=True` adds (the plain
 # `SCLResult`'s names), in the order of the kernel's arguments; "valid" is
 # worked out from the metrics
@@ -64,24 +85,50 @@ def frame_bytes(N: int, K: int, M: int, global_levels: int = 0) -> int:
     return (raw + 15) // 16 * 16
 
 
+def path_width(M: int) -> int:
+    """LM of the by-path instantiation that decodes list size M: M rounded up
+    to a power of two, at least 8 (the source's dispatch note)."""
+
+    return max(8, 1 << (M - 1).bit_length())
+
+
+def scratch_bytes(B: int, N: int, K: int, M: int, global_levels: int) -> int:
+    """Global scratch one launch allocates: the LLR and partial-sum rows of
+    levels 1..G and the trace LLRs of every frame."""
+
+    return B * M * (N - (N >> global_levels)) * 5 + B * K * M * 4
+
+
 def check_shape(N: int, K: int, M: int, crc: Optional[str], dtype: torch.dtype) -> None:
     """Raise ValueError unless the kernel takes this decode."""
 
     if dtype != torch.float32:
         raise ValueError(f"the SCL kernel decodes float32 LLRs, not {dtype}")
     if M not in SUPPORTED_M:
-        raise ValueError(f"the SCL kernel supports M in {SUPPORTED_M}, not {M}")
+        raise ValueError(f"the SCL kernel supports list sizes 1..{MAX_M}, not {M}")
     if N < 2 or N & (N - 1) or not 0 < K <= N:
         raise ValueError(f"invalid code shape N={N} K={K}")
     if N > MAX_N:
         raise ValueError(f"the SCL kernel takes N up to {MAX_N}, not {N}")
     if crc is not None and crc_degree(crc) > 32:
         raise ValueError("the SCL kernel supports CRCs of degree <= 32")
+    n = int(math.log2(N))
+    if M not in BYTE_WORD_M and 2 * n - 2 > SIGMA_FIELDS[path_width(M)]:
+        raise ValueError(f"the SCL kernel's σ registers do not hold N={N} at M={M}")
+    least = frame_bytes(N, K, M, n - 1)  # levels 1..n−1 in global scratch: a frame's least
+    if least > MAX_BLOCK_SMEM:
+        raise ValueError(
+            f"SCL decode state for N={N} K={K} M={M} is {least} bytes of shared memory a frame "
+            f"with every level but the leaf in global scratch, more than a block has "
+            f"({MAX_BLOCK_SMEM})")
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
+def _library(defines: tuple = ()) -> ctypes.CDLL:
+    """The kernel's library; `defines` only for the layout timings of
+    `tools/time_scl_layouts.py` (the source's dispatch note)."""
+
+    lib = _build.load(SOURCE, defines)
     lib.scl_decode_launch.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.scl_decode_launch.restype = ctypes.c_int
     lib.scl_launch_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
@@ -202,9 +249,15 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
     if B > 0:
         sched, hcols = _device_tables(tuple(int(i) for i in info_np), N, crc, dev)
         row = N - (N >> G)  # entries of a path's levels 1..G
-        glob_llr = torch.empty((B, M, row), dtype=torch.float32, device=dev) if G else None
-        glob_bits = torch.empty((B, M, row), dtype=torch.uint8, device=dev) if G else None
-        trace_llr = torch.empty((B, K, M), dtype=torch.float32, device=dev)
+        try:
+            glob_llr = torch.empty((B, M, row), dtype=torch.float32, device=dev) if G else None
+            glob_bits = torch.empty((B, M, row), dtype=torch.uint8, device=dev) if G else None
+            trace_llr = torch.empty((B, K, M), dtype=torch.float32, device=dev)
+        except torch.cuda.OutOfMemoryError as exc:
+            raise RuntimeError(
+                f"the SCL kernel's global scratch for B={B} N={N} K={K} M={M} is "
+                f"{scratch_bytes(B, N, K, M, G)} bytes, more than the card has free: decode "
+                f"in smaller batches") from exc
         lists = [out[f].data_ptr() if full else None for f in LIST_FIELDS[:4]]
         lib = _library()
         with torch.cuda.device(dev):
@@ -222,13 +275,17 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
         if rc != 0:
             raise RuntimeError(f"SCL kernel launch failed: {lib.scl_error_string(rc).decode()} ({rc})")
         decode_scl_cuda.launches += 1
+        if M not in BYTE_WORD_M:
+            decode_scl_cuda.path_launches += 1
     if full:
         out["valid"] = torch.isfinite(out["metrics"])
     return out
 
 
 decode_scl_cuda.launches = 0
+decode_scl_cuda.path_launches = 0  # of them, launches of the by-path instantiation
 
 
 __all__ = ["decode_scl_cuda", "check_shape", "frame_bytes", "launch_plan", "smallest_global_levels",
-           "SUPPORTED_M"]
+           "path_width", "scratch_bytes", "SUPPORTED_M", "BYTE_WORD_M", "MAX_M", "MAX_N",
+           "SIGMA_FIELDS"]

@@ -124,7 +124,7 @@ def test_wrapper_on_cpu_runs_the_plain_version(mask):
     assert torch.equal(out["crc_pass"], ref["crc_pass"])
     for backend in ("auto", "xla", "pallas"):  # a CPU tensor runs the plain version
         full = pac_decode(llr, mask, GEN, 4, crc_len=CRC_LEN, crc_poly=CRC_POLY, backend=backend)
-        assert set(full) == set(KEYS)
+        assert set(full) == set(KEYS) | {"best_index"}  # the JAX keys and the selected rank
         for key in KEYS:
             assert torch.equal(full[key], ref[key]), key
     with pytest.raises(ValueError, match="backend"):

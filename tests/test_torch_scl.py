@@ -176,12 +176,15 @@ def test_wrapper_runs_plain_version_on_cpu():
     [
         (128, 64, 8, CRC, torch.float32, True),
         (2048, 1024, 4, CRC, torch.float32, True),
-        (128, 64, 3, CRC, torch.float32, False),  # M not a power of two
-        (128, 64, 16, CRC, torch.float32, False),  # M above 8
+        (128, 64, 3, CRC, torch.float32, True),  # M not a power of two: by-path σ
+        (128, 64, 16, CRC, torch.float32, True),  # M above 8: by-path σ
         (128, 64, 8, CRC, torch.float64, False),  # the kernel is float32
         (96, 48, 8, CRC, torch.float32, False),  # N not a power of two
-        (4096, 2048, 8, CRC, torch.float32, False),  # N above the kernel's envelope
+        (4096, 2048, 8, CRC, torch.float32, True),  # the TPU kernel's N envelope
         (128, 64, 8, "0x1" + "0" * 9 + "1", torch.float32, False),  # CRC degree 36
+        (128, 64, 33, CRC, torch.float32, False),  # M above 32: one path a lane
+        (16384, 8192, 1, CRC, torch.float32, False),  # N above 8192
+        (8192, 8192, 32, None, torch.float32, False),  # the trace indices fit no block
     ],
 )
 def test_kernel_shape_gate(N, K, M, crc, dtype, ok):

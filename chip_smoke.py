@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's three paths on one NVIDIA card and check them.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -109,7 +109,8 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    `extracted` and `crc_pass`; then against the plain version on the card,
    B=4096 at 2.5 dB, for PAC(128,64)+CRC-16 L=8 and the simulator's
    PAC(64,32) m=6 at L 1 and 32, and ragged B=1001 and B=1000 batches (L=16
-   and L=5); then K3d, the rest of the envelope up to its L=32 corner:
+   and L=5); then K3d, the rest of the first envelope, up to N=1024 L=32
+   (phase 14 has L above 32 and N above 1024):
    PAC(256,128) and PAC(512,256) with CRC-16 at L=32 and 8, PAC(512,256)
    with the CRC off, PAC(1024,512)+CRC-16 at L=32 and a ragged B=333 at
    L=24.  No near-tie exemption: the PAC metric has no transcendentals;
@@ -177,10 +178,34 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    without early stop beside early stop at QC-IRA 4×8 Z=31 two-min B=4096
    (and its bits, iterations and parity there equal to the plain
    version's);
-14. a `kernels` JSON line (one entry a kernel, and one for each new
-   instantiation with its launches on phase 13's paths; each `max_abs_err`
-   the largest difference from the plain version that the run measured),
-   the `nvidia-smi` line, and the device JSON line last.
+14. the deep lists (`deep_lists`): K1's and K3's launch plans at the new
+   shapes (frames an SM, where the trace indices live); (a) K1's over-warps
+   instantiation (list sizes 33..1024, a frame over the warps of a block)
+   against the plain version, list and best-only, at P(128,64) CRC-24A M ∈
+   {33, 64, 256, 1024}, B=37, CRC and plan on and off, and at P(1024,512)
+   M 64 and 256 (the trace indices in global scratch at 256) and P(32,28)
+   M=64, B=13, under K1's near-tie rule; (b) K3 against the plain version,
+   every list field and best-only, max |diff| 0: PAC(128,64)+CRC-16 at L
+   64, 256 and 1024 and PAC(32,12)+CRC-16 at L=64 (B=37), PAC(2048,1024)
+   L=32 and PAC(8192,4096) L=8 (B=6); (c) K1 and K3
+   against the JAX golden files `tests/golden/scl_f32_deep.npz` and
+   `pac_deep.npz` (written by `tests/golden/make_deep_lists.py`); (d) the
+   FER sweep CLI at P(128,64) M=64, 8 retries, β `beta_M8.npy`, 40960
+   frames at 3.0 and 3.5 dB, through K1's over-warps instantiation alone,
+   against the JAX CLI's `tests/golden/fer_deep/fer_M64.csv` at |z| < 3;
+   (e) the legacy simulator at `list_size_max=256` (stage 2 over warps),
+   identical to the JAX driver (`tests/golden/legacy_pac_deep.json`); (f)
+   `decode_scl` at M=64 on the 12 golden frames and `PolarCode(64, 48,
+   "dega", 256).pac_list_crc_decoder`, systematic and not, 32 frames each,
+   one launch a call, equal to the plain version; (g) times with CUDA
+   events beside their bounds: K1 at P(128,64) B=4096 M 64, 256 and 1024
+   beside by-path M=32, and at P(1024,512) M=64 B=1024; K3 at
+   PAC(128,64)+CRC-16 B=4096 L 64 and 256 beside L=32, and PAC(2048,1024)
+   L=32 and PAC(8192,4096) L=8 at B=1024;
+15. a `kernels` JSON line (one entry a kernel, and one for each new
+   instantiation with its launches on phases 13's and 14's paths; each
+   `max_abs_err` the largest difference from the plain version that the
+   run measured), the `nvidia-smi` line, and the device JSON line last.
 
 It exits non-zero, and prints no result line, when there is no CUDA device,
 when a phase fails, or when run without the rest of the repository.  It
@@ -309,13 +334,16 @@ def ptxas_report(log):
             tw = re.search(r"scl_path_kernelILi(\d+)ELb([01])E", m.group(1))
             tp = re.search(r"pac_decode_kernelILi(\d+)E(?:Lb([01])E)?", m.group(1))
             tn = re.search(r"nms_kernel_(warp|block|1024)ILi(\d+)ELb([01])E", m.group(1))
+            td = re.search(r"(scl|pac)_deep_kernelI([ht])Lb([01])E", m.group(1))
             entry = (f"scl_decode_kernel<M={tm.group(1)}{', list' if tm.group(2) == '1' else ''}>" if tm
                      else f"scl_path_kernel<LM={tw.group(1)}{', list' if tw.group(2) == '1' else ''}>"
                      if tw
                      else f"pac_decode_kernel<LM={tp.group(1)}{', list' if tp.group(2) == '1' else ''}>"
                      if tp
                      else f"nms_kernel<D={tn.group(2)}, {'two-min' if tn.group(3) == '1' else 'shared'}, "
-                          f"{tn.group(1)}>" if tn else m.group(1))
+                          f"{tn.group(1)}>" if tn
+                     else f"{td.group(1)}_deep_kernel<{'u8' if td.group(2) == 'h' else 'u16'} trace"
+                          f"{', list' if td.group(3) == '1' else ''}>" if td else m.group(1))
             cur = {"entry": entry, "regs": None, "spill_stores": None, "spill_loads": None,
                    "smem": 0}
             rows.append(cur)
@@ -1419,9 +1447,9 @@ def scalar_surface(dev, smi):
     return launches
 
 
-# phase 13, the wide envelope: K1's by-path instantiation (list sizes 1..32
-# outside {1, 2, 4, 8}) and N up to 8192, K3's list output and K2 without
-# early stop
+# phase 13, the wide envelope: K1's by-path instantiation (the list sizes up
+# to 32 outside {1, 2, 4, 8}; phase 14 has 33..1024) and N up to 8192, K3's
+# list output and K2 without early stop
 WIDE_MS = (3, 16, 32)  # (a): P(128,64) list sizes, B=1001 (ragged)
 WIDE_B = 1001
 WIDE_N = [(4096, 2048, M) for M in (1, 4, 8, 16)] + [(8192, 4096, M) for M in (1, 4, 8, 16, 32)]  # (b)
@@ -1725,6 +1753,316 @@ def wide_envelope(dev, smi):
              "launches": launches[k], "max_abs_err": errors[k], "ms": entries[k][0], "plain_ms": entries[k][1],
              "bound_ms": entries[k][2], "bound_by": entries[k][3], "library_ms": None}
             for k in ("scl_path", "pac_list", "nms_no_stop")]
+
+
+# phase 14, the deep lists: K1 and K3 at list sizes 33..1024 (their
+# over-warps instantiations, a frame spread over the warps of a block) and
+# K3 at N up to 8192
+DEEP_MS = (33, 64, 256, 1024)  # (a): P(128,64) list sizes
+DEEP_B = 37  # frames of a vs-plain case: ragged, and the plain version costs seconds at M=1024
+# (a): P(32,28), four payload bits beside CRC-24A, and P(1024,512), with
+# the trace indices in global scratch at M=256
+DEEP_N = ((32, 28, 64), (1024, 512, 64), (1024, 512, 256))
+DEEP_N_B = 13
+DEEP_LS = (64, 256, 1024)  # (b): PAC(128,64)+CRC-16 list sizes; and PAC(32,12)+CRC-16 at L=64
+DEEP_PAC_SMALL = (32, 12, 64)
+DEEP_PAC_N = ((2048, 1024, 32), (8192, 4096, 8))  # (b): K3 at N above 1024, one path a lane
+DEEP_PAC_N_B = 6  # the plain version takes seconds a batch at N=8192
+# (d): list size and its two Eb/N0 points (dB), where the SCL FER is about
+# 1e-1 to 1e-2; tests/golden/fer_deep/fer_M64.csv, 40960 frames a point
+DEEP_FER = (64, (3.0, 3.5))
+DEEP_FER_FRAMES = 40960
+DEEP_SIM_LIST_MAX = 256  # (e): the legacy simulator's stage-2 list size
+DEEP_SCALAR = (64, 256, 32)  # (f): decode_scl's M, PolarCode's L, frames a PolarCode decoder
+DEEP_TIME_B = (4096, 1024)  # (g): frames of the P(128,64) times; of N 1024 and above
+
+
+def deep_lists(dev, smi):
+    """Phase 14: K1 and K3 over warps (list sizes 33..1024) and K3 at N up to
+    8192 against the plain versions and the JAX golden files, the FER CLI
+    at M=64 against the JAX CSV, the legacy simulator at
+    list_size_max=256 against the JAX driver, the scalar calls that reach the
+    new instantiations, and their times.  Returns the `kernels` entries of
+    the two over-warps instantiations."""
+
+    import torch
+
+    from polar_code_tpu_torch.eval import run_fer_sweep
+    from polar_code_tpu_torch.legacy import simulator
+    from polar_code_tpu_torch.legacy.crclib import crc as legacy_crc
+    from polar_code_tpu_torch.legacy.pac import pac_list_decode_batch
+    from polar_code_tpu_torch.legacy.pac_cuda import launch_plan as pac_plan
+    from polar_code_tpu_torch.legacy.pac_cuda import frame_bytes as pac_frame_bytes
+    from polar_code_tpu_torch.legacy.pac_cuda import pac_list_decode_cuda
+    from polar_code_tpu_torch.legacy.polar_code import PolarCode
+    from polar_code_tpu_torch.legacy.rate_profile import rateprofile
+    from polar_code_tpu_torch.ops import scl_cuda
+    from polar_code_tpu_torch.ops.scl import decode_scl_batch
+    from polar_code_tpu_torch.polar.api import decode_scl
+    from polar_code_tpu_torch.polar.construct import construct_info_set
+
+    decode_scl_cuda = scl_cuda.decode_scl_cuda
+    wrappers = (decode_scl_cuda, pac_list_decode_cuda)
+    plains = (decode_scl_batch, pac_list_decode_batch)
+
+    def reset_counts():
+        for f in wrappers:
+            f.launches = f.deep_launches = 0
+        for f in plains:
+            f.cuda_calls = 0
+
+    for n_s, k_s, M in [(N, K, M) for M in DEEP_MS] + list(DEEP_N):
+        g, fpb, per_sm = scl_cuda.launch_plan(n_s, k_s, M)
+        where = "shared memory" if scl_cuda.trace_in_smem(n_s, k_s, M) else "global scratch"
+        print(f"  K1 N={n_s} K={k_s} M={M} (over warps, {scl_cuda.trace_entry_bytes(M)}-byte trace "
+              f"entries in {where}): levels 1..{g} in global scratch; "
+              f"{scl_cuda.frame_bytes(n_s, k_s, M, g)} B shared a frame, one frame a block of "
+              f"{32 * -(-M // 32)} threads; {per_sm} frames an SM (occupancy calculator)")
+        check(per_sm >= 1, f"K1 cannot place a frame of N={n_s} M={M}")
+    for n_p, k_p, L in [(N, K, L) for L in (32,) + DEEP_LS] + list(DEEP_PAC_N):
+        kp = k_p + PAC_CRC[0]
+        g, fpb, per_sm = pac_plan(n_p, kp, L)
+        print(f"  K3 N={n_p} Kp={kp} L={L}: levels 1..{g} in global scratch; "
+              f"{pac_frame_bytes(n_p, kp, L, g)} B shared a frame x {fpb} frames a block; {per_sm} "
+              f"frames an SM (occupancy calculator)")
+        check(per_sm >= 1, f"K3 cannot place a frame of N={n_p} L={L}")
+
+    # ---- (a) K1 over warps against the plain version ----
+    rng = np.random.default_rng(20261114)
+    cases = [(N, K, M, crc, plan, DEEP_B, 2.5, "gaussian") for M in DEEP_MS for crc in (CRC, None)
+             for plan in (False, True)]
+    cases += [(n_c, k_c, M, CRC, False, DEEP_N_B, 1.5, "gaussian_bitrev") for n_c, k_c, M in DEEP_N]
+    differ = ties = 0
+    k1_err = 0.0
+    for n_c, k_c, M, crc, use_plan, B, snr, method in cases:
+        info_c = construct_info_set(n_c, k_c, method=method)
+        llr_np, msg = make_llrs(rng, B, snr, info_c, n=n_c)
+        plan = torch.from_numpy(random_plan(rng, msg)).to(dev) if use_plan else None
+        tag = (f"(a) P({n_c},{k_c}) M={M} crc={'on' if crc else 'off'} plan={'on' if use_plan else 'off'} "
+               f"{snr} dB B={B}")
+        (d, t, e), (db, tb, eb) = k1_vs_plain(torch.from_numpy(llr_np).to(dev), info_c, M, crc, plan, tag)
+        differ, ties, k1_err = differ + d + db, ties + t + tb, max(k1_err, e, eb)
+        print(f"  {tag}: list and best-only equal to the plain version outside {t + tb} near-tie frames",
+              flush=True)
+    print(f"(a) K1 over warps vs plain: {len(cases)} cases, list and best-only, {differ} frames differ, all "
+          f"{ties} near-ties; max |info LLR diff| {k1_err:.3e}")
+
+    # ---- (b) K3 over warps, and at N 2048 and 8192, against the plain version ----
+    k3_err = 0.0
+    for n_p, k_p, L in [(N, K, L) for L in DEEP_LS] + [DEEP_PAC_SMALL] + list(DEEP_PAC_N):
+        B = DEEP_B if n_p <= N else DEEP_PAC_N_B
+        mask = pac_mask(n_p, k_p + PAC_CRC[0])
+        x = pac_llrs(rng, B, 2.0 if n_p <= N else 1.5, (n_p, k_p, PAC_CRC), PAC_GEN, mask, dev)
+        ref = pac_list_decode_batch(x, mask, PAC_GEN, L, crc_len=PAC_CRC[0], crc_poly=PAC_CRC[1])
+        tag = f"(b) PAC({n_p},{k_p})+CRC-16 L={L} B={B}"
+        e = k3_list_vs_plain(x, mask, PAC_GEN, L, *PAC_CRC, tag, ref=ref)
+        best = pac_list_decode_cuda(x, mask, PAC_GEN, L, *PAC_CRC)
+        for f in ("extracted", "crc_pass"):
+            check(torch.equal(best[f], ref[f]), f"{tag} best-only: K3's {f} differs from the plain version")
+        k3_err = max(k3_err, e)
+        print(f"  {tag}: list ({', '.join(PAC_LIST_FIELDS)}) and best-only equal to the plain version "
+              f"(max |diff| {e}); crc pass {int(ref['crc_pass'].sum())}", flush=True)
+
+    # ---- (c) against the JAX float32 golden files ----
+    differ = ties = 0
+    with np.load(GOLDEN / "scl_f32_deep.npz") as gold:
+        deep_cases = json.loads(str(gold["cases"]))
+        for case in deep_cases:
+            tag, code = case["name"], case["code"]
+            x = torch.from_numpy(gold[f"{code}/llr"]).to(dev)
+            plan = torch.from_numpy(gold[f"{code}/plan"]).to(dev) if case["plan"] else None
+            out = decode_scl_cuda(x, gold[f"{code}/info"], case["M"], case["crc"], force_info_bits=plan,
+                                  full=True)
+            ref = {"best_path_bits": gold[f"{tag}/bits"], "best_path_info_llrs": gold[f"{tag}/llrs"],
+                   "crc_pass": gold[f"{tag}/crc_pass"], "metrics": gold[f"{tag}/metrics"]}
+            check(ref["metrics"].shape == tuple(out["metrics"].shape), f"{tag}: golden metrics shape")
+            d, t, _ = judge_list(out, ref, f"(c) vs JAX f32 {tag}")
+            differ, ties = differ + d, ties + t
+            print(f"  (c) K1 {tag} B={x.shape[0]}: {d} frames differ from JAX float32 ({t} near-ties); "
+                  f"crc pass {int(ref['crc_pass'].sum())}", flush=True)
+    with np.load(GOLDEN / "pac_deep.npz") as gold:
+        pac_cases = json.loads(str(gold["cases"]))
+        for case in pac_cases:
+            name = case["name"]
+            x = torch.from_numpy(gold[f"{name}/llr"]).to(dev)
+            out = pac_list_decode_cuda(x, gold[f"{name}/mask"], case["gen"], case["L"], case["crc_len"],
+                                       case["crc_poly"], full=True)
+            for f in ("extracted", "crc_pass", "metrics", "v_full", "candidates"):
+                have, want = out[f].cpu().numpy(), gold[f"{name}/{f}"]
+                check(have.shape == want.shape and np.array_equal(have.astype(want.dtype), want),
+                      f"(c) K3 {name}: {f} differs from the JAX decoder's")
+            print(f"  (c) K3 {name} B={x.shape[0]}: extracted, crc_pass, metrics, v_full and candidates equal "
+                  f"to the JAX decoder's; crc pass {int(gold[f'{name}/crc_pass'].sum())}", flush=True)
+    print(f"(c) vs JAX: K1 {len(deep_cases)} cases (bits, info LLRs, metrics of all M paths), {differ} frames "
+          f"differ, all {ties} near-ties; K3 {len(pac_cases)} cases, every field equal")
+
+    # ---- (d) the FER CLI at M=64 against the JAX CSV ----
+    M, (snr_lo, snr_hi) = DEEP_FER
+    ref = jax_fer_rows(GOLDEN / "fer_deep" / f"fer_M{M}.csv", DEEP_FER_FRAMES)
+    reset_counts()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+        rows = run_fer_sweep.main([
+            "--M", str(M), "--snr_lo", str(snr_lo), "--snr_hi", str(snr_hi), "--snr_step", "0.5",
+            "--retries", "8", "--beta", str(REPO / "checkpoints" / "beta_M8.npy"),
+            "--batch", "4096", "--frames", str(DEEP_FER_FRAMES), "--seed", "0",
+            "--out_dir", f"{tmp}/results", "--plot_dir", f"{tmp}/plots"])
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches, fer_deep = decode_scl_cuda.launches, decode_scl_cuda.deep_launches
+    plain = sum(f.cuda_calls for f in plains)
+    steps = len(rows) * math.ceil(DEEP_FER_FRAMES / 4096)
+    print(f"(d) FER CLI P(128,64) M={M}: {launches} K1 launches ({fer_deep} over warps) over {steps} FER "
+          f"steps, plain decoders on CUDA {plain} times, {len(rows) * DEEP_FER_FRAMES / secs:.0f} frames/s")
+    check(launches >= steps and fer_deep == launches,
+          f"the M={M} FER sweep did not go through K1's over-warps instantiation")
+    check(plain == 0, f"a plain decoder ran on CUDA in the M={M} FER sweep")
+    check(len(rows) == len(ref), f"the M={M} FER sweep gave {len(rows)} points")
+    for row in rows:
+        for key in ("fer_scl", "fer_dl"):
+            p1, p2 = row[key], ref[row["snr_db"]][key]
+            check(math.isfinite(p1) and 0.0 < p1 < 1.0, f"M={M} {key} at {row['snr_db']} dB is {p1}")
+            z = fer_z(p1, DEEP_FER_FRAMES, p2, DEEP_FER_FRAMES)
+            print(f"  M={M} {row['snr_db']} dB {key}: port {p1:.6e} vs JAX {p2:.6e} "
+                  f"({DEEP_FER_FRAMES} frames each): z = {z:+.3f}")
+            check(abs(z) < 3.0, f"M={M} {key} at {row['snr_db']} dB is off the JAX sweep (z={z:.2f})")
+
+    # ---- (e) the legacy simulator at list_size_max=256 against the JAX driver ----
+    sim_ref = json.loads((GOLDEN / "legacy_pac_deep.json").read_text())["simulator"]
+    cfg = sim_ref["config"]
+    reset_counts()
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(buf):
+        res = simulator.run(simulator.LegacySimConfig(snr_range=cfg["snr_range"], seed=cfg["seed"],
+                                                      list_size_max=cfg["list_size_max"]), tmp)
+        sim_csv = next(Path(tmp).glob("*.csv")).read_text()
+    sim_s = time.perf_counter() - t
+    sim_launches, sim_deep = pac_list_decode_cuda.launches, pac_list_decode_cuda.deep_launches
+    plain = sum(f.cuda_calls for f in plains)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("@")]
+    for ln in lines:
+        print(f"  simulator L 1 -> {cfg['list_size_max']}: {ln}")
+    print(f"(e) simulator at list_size_max={cfg['list_size_max']}: {sim_s:.3f} s (host clock; the JAX driver "
+          f"on the CPU took {sim_ref['seconds']:.1f} s); K3 {sim_launches} launches, {sim_deep} of them over "
+          f"warps (stage 2); plain decoders on CUDA {plain} times")
+    check(lines == sim_ref["lines"] and res.ber == sim_ref["ber"] and res.fer == sim_ref["fer"]
+          and sim_csv == sim_ref["csv"], f"simulator results at list_size_max={cfg['list_size_max']} differ "
+          f"from the JAX driver's: {lines} {res.ber} vs {sim_ref['lines']} {sim_ref['ber']}")
+    check(sim_deep > 0, "the simulator's stage 2 did not go through K3's over-warps instantiation")
+    check(plain == 0, "a plain decoder ran on CUDA in the simulator")
+
+    # ---- (f) the scalar calls ----
+    scl_m, pac_l, frames = DEEP_SCALAR
+    golden = np.load(GOLDEN / "ref_p128_k64.npz")
+    g_info = golden["info_set"]
+    crc16 = legacy_crc(*PAC_CRC)
+    pc = PolarCode(64, 48, "dega", pac_l, rateprofile(64, 48, 2.0, 0))
+    msgs = rng.integers(0, 2, (frames, 32)).astype(np.int8)
+    msgs = np.concatenate([msgs, crc16.crcCalc_batch(msgs)], axis=1)
+    pac_in = {}
+    for systematic in (True, False):
+        codewords = np.stack([pc.encode(m, systematic) for m in msgs])
+        nv = 1.0 / (2.0 * 0.5 * 10 ** 0.2)
+        pac_in[systematic] = (2.0 * (1.0 - 2.0 * codewords + rng.normal(0.0, math.sqrt(nv), codewords.shape))
+                              / nv).astype(np.float32)
+    reset_counts()
+    scl_out = [decode_scl(llr, g_info, scl_m, CRC) for llr in golden["llrs"]]
+    pac_out = {sy: np.stack([pc.pac_list_crc_decoder(row, sy, True, crc16, pac_l) for row in llr])
+               for sy, llr in pac_in.items()}
+    torch.cuda.synchronize()
+    scalar = tuple(f.launches for f in wrappers)
+    scalar_deep = tuple(f.deep_launches for f in wrappers)
+    plain = tuple(f.cuda_calls for f in plains)
+    calls = (len(scl_out), 2 * frames)
+    print(f"(f) scalar calls: K1/K3 launches {scalar} ({scalar_deep} over warps) for {calls} decodes; plain "
+          f"decoders on CUDA {plain}")
+    check(scalar == calls == scalar_deep,
+          f"the scalar calls launched {scalar} ({scalar_deep} over warps), not one a decode {calls}")
+    check(plain == (0, 0), f"a plain decoder ran on CUDA under the scalar calls: {plain}")
+    ref = plain_fields(decode_scl_batch(torch.from_numpy(golden["llrs"].astype(np.float32)).to(dev), g_info,
+                                        scl_m, CRC, dtype=torch.float32))
+    got = {"best_path_bits": torch.from_numpy(np.stack([r["best_path_bits"] for r in scl_out]))}
+    d, t, _ = judge_list(got, {"best_path_bits": ref["best_path_bits"]}, f"(f) decode_scl M={scl_m}",
+                         ref["metrics"])
+    near = near_tie_frames(ref["metrics"])
+    for b, r in enumerate(scl_out):  # the valid paths' metrics, in the final order, outside near-ties
+        have, ok = np.asarray(r["metrics"]), ref["valid"][b]
+        check(near[b] or have.shape == (int(ok.sum()),)
+              and np.all(np.abs(have - ref["metrics"][b][ok]) <= 1e-6 * np.abs(have)),
+              f"decode_scl M={scl_m} frame {b} metrics differ from the plain version")
+    print(f"  decode_scl P(128,64) M={scl_m} CRC on the 12 golden frames: {d} frames differ from the plain "
+          f"version ({t} near-ties)")
+    for systematic, llr in pac_in.items():
+        if systematic:
+            want = systematic_reference(pc, llr, True, crc16, pac_l, dev)
+        else:
+            want = pac_list_decode_batch(torch.from_numpy(llr).to(dev), pc.polarcode_mask, pc.gen, pac_l,
+                                         crc_len=crc16.len, crc_poly=crc16.gen)["extracted"].cpu().numpy()
+        check(np.array_equal(pac_out[systematic], want), f"PolarCode L={pac_l} systematic={systematic} "
+              f"differs from the plain version")
+        print(f"  PolarCode(64, 48, dega, L={pac_l}) {'systematic' if systematic else 'non-systematic'}, "
+              f"CRC-16, 2.0 dB: {frames} frames equal to the plain version; "
+              f"{int(np.all(pac_out[systematic] == msgs, axis=1).sum())} decoded the sent message")
+
+    # ---- (g) times with CUDA events ----
+    print(f"deep-list times on {smi}:")
+    B, B_wide = DEEP_TIME_B
+    info = construct_info_set(N, K)
+    llr = torch.from_numpy(make_llrs(np.random.default_rng(5), B, 5.0, info)[0]).to(dev)
+    entries = {}
+    for M in (32, 64, 256, 1024):  # the by-path instantiation beside the over-warps one
+        ms = cuda_time_ms(lambda M=M: decode_scl_cuda(llr, info, M, CRC), reps=2 if M == 1024 else 10,
+                          warmup=1)
+        b_ms, b_by = bound(*scl_work(info, M, B))
+        line = f"  K1 P(128,64) M={M} CRC B={B} 5.0 dB: {ms:.4f} ms"
+        if M == 64:
+            plain_ms = cuda_time_ms(
+                lambda: decode_scl_batch(llr, info, M, CRC, dtype=torch.float32), reps=2, warmup=1)
+            entries["scl_deep"] = (ms, plain_ms, b_ms, b_by)
+            line += f"; plain {plain_ms:.4f} ms"
+        print(f"{line}; bound {b_ms:.6f} ms ({b_by}); {scl_cuda.launch_plan(N, K, M)[2]} frames an SM")
+    info_c = construct_info_set(1024, 512, method="gaussian_bitrev")
+    x = torch.from_numpy(make_llrs(rng, B_wide, 1.75, info_c, n=1024)[0]).to(dev)
+    ms = cuda_time_ms(lambda: decode_scl_cuda(x, info_c, 64, CRC), reps=3, warmup=1)
+    plain_ms = cuda_time_ms(lambda: decode_scl_batch(x, info_c, 64, CRC, dtype=torch.float32), reps=1,
+                            warmup=0)
+    b_ms, b_by = bound(*scl_work(info_c, 64, B_wide, n=1024, k=512))
+    print(f"  K1 P(1024,512) M=64 CRC B={B_wide} 1.75 dB: {ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+          f"{b_ms:.6f} ms ({b_by}); {scl_cuda.launch_plan(1024, 512, 64)[2]} frames an SM")
+    n_p, k_p, crc_p = PAC_CODES[128]
+    p_mask = pac_mask(n_p, k_p + crc_p[0])
+    x = pac_llrs(rng, B, 2.5, PAC_CODES[128], PAC_GEN, p_mask, dev)
+    for L in (32, 64, 256):  # one path a lane beside over warps
+        ms = cuda_time_ms(lambda L=L: pac_list_decode_cuda(x, p_mask, PAC_GEN, L, *crc_p), reps=10, warmup=1)
+        b_ms, b_by = bound(*pac_work(p_mask, L, B))
+        line = f"  K3 PAC(128,64)+CRC-16 L={L} B={B} 2.5 dB: {ms:.4f} ms"
+        if L == 64:
+            plain_ms = cuda_time_ms(lambda: pac_list_decode_batch(x, p_mask, PAC_GEN, L, crc_len=crc_p[0],
+                                                                  crc_poly=crc_p[1]), reps=2, warmup=1)
+            entries["pac_deep"] = (ms, plain_ms, b_ms, b_by)
+            line += f"; plain {plain_ms:.4f} ms"
+        print(f"{line}; bound {b_ms:.6f} ms ({b_by}); {pac_plan(n_p, k_p + crc_p[0], L)[2]} frames an SM")
+    for n_p, k_p, L in DEEP_PAC_N:
+        mask = pac_mask(n_p, k_p + PAC_CRC[0])
+        x = pac_llrs(rng, B_wide, 1.5, (n_p, k_p, PAC_CRC), PAC_GEN, mask, dev)
+        ms = cuda_time_ms(lambda: pac_list_decode_cuda(x, mask, PAC_GEN, L, *PAC_CRC), reps=3, warmup=1)
+        plain_ms = cuda_time_ms(lambda: pac_list_decode_batch(x, mask, PAC_GEN, L, crc_len=PAC_CRC[0],
+                                                              crc_poly=PAC_CRC[1]), reps=1, warmup=0)
+        b_ms, b_by = bound(*pac_work(mask, L, B_wide))
+        print(f"  K3 PAC({n_p},{k_p})+CRC-16 L={L} B={B_wide} 1.5 dB: {ms:.4f} ms; plain {plain_ms:.4f} ms; "
+              f"bound {b_ms:.6f} ms ({b_by}); {pac_plan(n_p, k_p + PAC_CRC[0], L)[2]} frames an SM")
+
+    launches = {"scl_deep": fer_deep + scalar_deep[0], "pac_deep": sim_deep + scalar_deep[1]}
+    errors = {"scl_deep": k1_err, "pac_deep": k3_err}
+    names = {"scl_deep": ("scl_decode (over warps: M 33-1024)", "polar_code_tpu_torch/csrc/scl_decode.cu",
+                          "polar_code_tpu/ops/scl_pallas.py:293"),
+             "pac_deep": ("pac_decode (over warps: L 33-1024)", "polar_code_tpu_torch/csrc/pac_decode.cu",
+                          "polar_code_tpu/legacy/pac_pallas.py:59")}
+    return [{"name": names[k][0], "route": "cuda", "source": names[k][1], "replaces": names[k][2],
+             "launches": launches[k], "max_abs_err": errors[k], "ms": entries[k][0], "plain_ms": entries[k][1],
+             "bound_ms": entries[k][2], "bound_by": entries[k][3], "library_ms": None}
+            for k in ("scl_deep", "pac_deep")]
 
 
 def main():
@@ -2302,8 +2640,8 @@ def main():
     for code, L, B in plain_cases:
         # L=16 ragged: crc_polar_vs_uncoded's polar code
         compare_pac(code, L, B, PAC_GEN if L != 16 else [1], "K3")
-    # K3d: the rest of the envelope, levels in global scratch, up to its
-    # L=32 corner (N=1024); small batches keep the plain version quick
+    # K3d: the rest of the first envelope, levels in global scratch, up to
+    # N=1024 L=32; small batches keep the plain version quick
     k3d_cases = [((256, 128, PAC_CRC), 32, 512, PAC_GEN), ((512, 256, PAC_CRC), 8, 512, PAC_GEN),
                  ((512, 256, PAC_CRC), 32, 256, PAC_GEN), ((512, 256, None), 8, 512, PAC_GEN),
                  ((1024, 512, PAC_CRC), 32, 128, PAC_GEN), ((1024, 512, PAC_CRC), 24, 333, [1])]
@@ -2394,7 +2732,7 @@ def main():
                   f"{pms:.4f} ms (2 calls); bound {b_ms:.6f} ms ({b_by})", flush=True)
             if n_p == 128 and L == 8:
                 pac_ms, pac_plain_ms, pac_bound_ms, pac_bound_by = ms, pms, b_ms, b_by
-    # the envelope's L=32 corner, and what its time depends on: the levels
+    # N=1024 L=32, and what its time depends on: the levels
     # in global scratch, G (`pac_cuda._launch`), and the info phases (the
     # same code with one payload bit: the f/g passes and the chain are the
     # same, the forks — the rank, σ, trace and syndrome — fall from 528 to 17)
@@ -2438,7 +2776,11 @@ def main():
     wide_entries = wide_envelope(dev, smi)
     phase_done("13 wide_envelope")
 
-    # ---- 14. result lines ----
+    # ---- 14. the deep lists ----
+    deep_entries = deep_lists(dev, smi)
+    phase_done("14 deep_lists")
+
+    # ---- 15. result lines ----
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by = nms_times[f"{IRA[0]} two-min 2.5 dB B=4096"]
     print(json.dumps({"kernels": [{
         "name": "scl_decode",
@@ -2477,7 +2819,7 @@ def main():
         "bound_ms": pac_bound_ms,
         "bound_by": pac_bound_by,
         "library_ms": None,
-    }] + wide_entries}))
+    }] + wide_entries + deep_entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind, "count": count}}))
     return 0

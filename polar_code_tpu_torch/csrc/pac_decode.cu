@@ -67,6 +67,20 @@
 // that point.  At L=1 there is no σ, and the rank needs no count: the good
 // candidate always ranks first.
 //
+// Over warps, the instantiations pac_deep_kernel<T> (L 33..1024, a runtime
+// argument; the SCL kernel's scl_deep_kernel, with the machinery shared in
+// `list_decode.cuh`): one frame a block of ceil(L/32) warps, thread m slot
+// m.  σ is a table in shared memory, a row of 2n−2 fields a slot; a fork
+// copies the parent's row between two block barriers.  At an info phase
+// each slot publishes its two candidates, leaf, syndrome and shift
+// register; thread p counts the ranks of good p and bad L + p over all 2L
+// (`rank_pair`) and writes each survivor's layout index into trace slot
+// rank; the survivor then reads its parent's values (the edge bits from the
+// parent's leaf and register) and rewrites its own slot as 2·parent + v.
+// The selected rank is a min-reduction.  T, the width of a trace entry and
+// a σ field, is a byte up to L = 128 and 16 bits above; the trace moves to
+// global scratch where the frame would not fit a block with it.
+//
 // Each path carries its CRC syndrome (the XOR of the 32-bit check columns,
 // in phase order, of its set bits) and its shift register in registers,
 // both gathered with the metric at a fork, so the selection needs no walk.
@@ -85,7 +99,7 @@
 // instantiation without LIST, whose code is unchanged.
 //
 // Layout.  One warp decodes one frame, lane m holds path slot m (L <= 32);
-// a block holds a few frames.  Levels G+1..n of each path live in dynamic
+// a block holds a few frames (over warps, one block a frame).  Levels G+1..n of each path live in dynamic
 // shared memory, with the trace; levels 1..G (the widest, read at a handful
 // of phases) live in a global scratch the wrapper allocates.  The wrapper
 // picks G with the occupancy calculator (`ops/scl_cuda.py::
@@ -124,13 +138,14 @@
 namespace {
 
 // Level 1 from the channel: the halves butterfly on the bit-reversal-
-// permuted LLRs, read as ch[brev(j)] (`rev_shift` = 32 − n).
+// permuted LLRs, read as ch[brev(j)] (`rev_shift` = 32 − n), over `nt`
+// threads (a warp, or a block over warps).
 __device__ __forceinline__ void channel_pass(float* dst, const uint8_t* dbits, int dstride,
                                              const float* ch, int rev_shift, bool is_g, int lh,
-                                             int L, int lane) {
+                                             int L, int lane, int nt = 32) {
   const int half = 1 << lh;
   const int total = L * half;
-  for (int t = lane; t < total; t += 32) {
+  for (int t = lane; t < total; t += nt) {
     const int m = t >> lh;
     const int e = t & (half - 1);
     const float a = ch[__brev(e) >> rev_shift], b = ch[__brev(e + half) >> rev_shift];
@@ -385,11 +400,227 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) pac_decode_kernel(
   for (int j = lane; j < Kp; j += 32) out_bits[frame * Kp + j] = (int8_t)TI[phase_of[j] * L];
 }
 
-template <int LM, bool LIST>
-cudaError_t set_smem(size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(pac_decode_kernel<LM, LIST>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// ---------------------------------------------------------------------------
+// Over warps: list sizes 33..1024, one frame a block, one thread a path.
+// ---------------------------------------------------------------------------
+
+// The PAC decode with a frame spread over the ceil(L/32) warps of a block:
+// thread m < L holds slot m's metric, shift register and syndrome and its
+// two candidates, good m and bad L + m; σ is a table in shared memory
+// (`DeepSigma`), and a fork reads the parent's candidates, leaf, syndrome
+// and shift register from shared memory behind a block barrier.  T is the
+// width of a trace entry and a σ field.  It computes what
+// pac_decode_kernel computes.
+template <typename T, bool LIST>
+__global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_kernel(
+    const float* __restrict__ llr, const uint32_t* __restrict__ hcols,
+    const int* __restrict__ sched, const int* __restrict__ phase_of, float* glob_llr,
+    uint8_t* glob_bits,
+    T* trace_idx,  // [B, Kp, L] when the trace lives in global memory, else null
+    int8_t* __restrict__ out_bits, uint8_t* __restrict__ out_pass, const int* __restrict__ out_pos,
+    const int* __restrict__ u_pos, int8_t* __restrict__ list_v, int8_t* __restrict__ list_bits,
+    float* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int Kp, int L,
+    int G, unsigned mem_mask, unsigned tap_mask, int use_crc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long frame = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const bool act = tid < L;  // thread m < L: slot m
+
+  const DeepLayout lay = deep_layout(N, n, Kp, L, G, sizeof(T), 3, trace_idx == nullptr);
+  const int SS = (N >> G) - 1;
+  const int SG = N - (N >> G);
+  DeepSigma<T> sig{reinterpret_cast<T*>(smem + lay.sig), lay.sig_row / (int)sizeof(T),
+                   lay.sig_row / 16};
+  float2* cand = reinterpret_cast<float2*>(smem + lay.cand);
+  float* Ls = reinterpret_cast<float*>(smem + lay.ls);
+  float* leafS = reinterpret_cast<float*>(smem + lay.words);
+  uint32_t* synS = reinterpret_cast<uint32_t*>(smem + lay.words + round16(4 * L));
+  unsigned* regS = reinterpret_cast<unsigned*>(smem + lay.words + 2 * round16(4 * L));
+  uint8_t* Bs = smem + lay.bs;
+  T* TI = trace_idx ? trace_idx + frame * Kp * L : reinterpret_cast<T*>(smem + lay.ti);
+  int* selS = reinterpret_cast<int*>(smem + lay.sel);
+  float* Lg = glob_llr + frame * L * SG;  // unused when G == 0
+  uint8_t* Bg = glob_bits + frame * L * SG;
+  const float* ch = llr + frame * N;
+  const int rev_shift = 32 - n;
+  auto so = [&](int l) { return (N >> G) - (N >> (l - 1)); };
+  auto go = [&](int l) { return N - (N >> (l - 1)); };
+
+  if (act) sig.init(tid, 2 * n - 2);
+  __syncthreads();
+  float pm = (tid == 0) ? 0.f : PAC_BIG;  // thread m < L: metric of slot m
+  unsigned reg = 0;                        // thread m < L: shift register of slot m
+  uint32_t syn = 0;                        // thread m < L: CRC syndrome of slot m
+  int info_i = 0;
+  int word = sched[0];
+  int s_prev = 0;  // the previous phase's store level
+  for (int p = 0; p < N; ++p) {
+    const int next_word = p + 1 < N ? sched[p + 1] : 0;
+    const int gl = word & 31;
+    const int is_frozen = word >> 10 & 1;
+    const uint32_t hc = (!is_frozen && use_crc) ? hcols[info_i] : 0u;
+    const int l0 = p == 0 ? 1 : gl;
+    // σ back to identity on the levels rewritten since the last fork, in
+    // the thread's own row (as pac_decode_kernel's reset)
+    if (act) sig.reset(tid, l0 - 1, n - 1, s_prev >= 2 ? n + s_prev - 3 : -1);
+
+    // ---- f/g updates down to level n−1 ----
+    for (int l = l0; l < n; ++l) {
+      const bool is_g = (p != 0) && (l == gl);
+      const T* via = (is_g && l > 1 && (word >> 11 & 1)) ? sig.field(l - 2) : nullptr;
+      if (l == 1) {
+        if (G == 0)
+          channel_pass(Ls + so(1), Bs + so(1), SS, ch, rev_shift, is_g, n - 1, L, tid, nt);
+        else
+          channel_pass(Lg + go(1), Bg + go(1), SG, ch, rev_shift, is_g, n - 1, L, tid, nt);
+      } else if (l > G + 1) {
+        block_fg_pass(Ls + so(l), Bs + so(l), SS, Ls + so(l - 1), SS, via, sig.row, is_g, n - l, L,
+                      tid, nt);
+      } else {  // the few passes that touch global memory: generic pointers
+        const bool sh = l > G;
+        block_fg_pass(sh ? Ls + so(l) : Lg + go(l), sh ? Bs + so(l) : Bg + go(l), sh ? SS : SG,
+                      Lg + go(l - 1), SG, via, sig.row, is_g, n - l, L, tid, nt);
+      }
+      __syncthreads();
+    }
+    // the leaf (level n): thread m computes it from its parent row
+    const bool g_leaf = gl == n;
+    float leaf = 0.f;
+    if (act) {
+      float a, b;
+      if (n == 1) {
+        a = ch[0];
+        b = ch[1];
+      } else {
+        const int r = (g_leaf && (word >> 11 & 1)) ? sig.get(tid, n - 2) : tid;
+        const float* row = n - 1 > G ? Ls + so(n - 1) + r * SS : Lg + go(n - 1) + r * SG;
+        a = row[0];
+        b = row[1];
+      }
+      leaf = g_leaf ? g_update(a, b, Bs[tid * SS + so(n)]) : f_minsum(a, b);
+    }
+    const int hard = leaf < 0.f;
+    const int base_bit = __popc(reg & tap_mask) & 1;  // edge bit for v = 0
+
+    // ---- leaf decision: extend every path, or fork and keep the best L ----
+    int edge = 0;  // thread m < L: the edge bit the partial sums of slot m take
+    if (is_frozen) {
+      if (act) {
+        if (pm < PAC_BIG && base_bit != hard) pm = pm + fabsf(leaf);
+        reg = (reg << 1) & mem_mask;
+        edge = base_bit;
+      }
+    } else {
+      const float cg = pm;                                           // index m
+      const float cb = (pm < PAC_BIG) ? pm + fabsf(leaf) : PAC_BIG;  // index L + m
+      if (act) {
+        cand[tid] = make_float2(cg, cb);
+        leafS[tid] = leaf;
+        synS[tid] = syn;
+        regS[tid] = reg;
+      }
+      __syncthreads();
+      // good j (x) precedes good m for j < m and every bad one; bad L + j
+      // (y) precedes bad L + m for j < m; the candidate ranked r leaves its
+      // layout index in trace slot r
+      T* row = TI + info_i * L;
+      if (act) {
+        int rg, rb;
+        rank_pair(cand, L, cg, tid, 0, cb, L, tid, &rg, &rb);
+        if (rg < L) row[rg] = (T)tid;
+        if (rb < L) row[rb] = (T)(L + tid);
+      }
+      __syncthreads();
+      int parent = 0;
+      if (act) {
+        const int w = row[tid];
+        const int is_bad = w >= L;
+        parent = is_bad ? w - L : w;
+        const float2 pc = cand[parent];
+        const int hp = leafS[parent] < 0.f;
+        const unsigned rp = regS[parent];
+        const int bp = __popc(rp & tap_mask) & 1;
+        const uint32_t sp = synS[parent];
+        const int v = bp ^ hp ^ is_bad;  // good: edge == hard; bad: the other bit
+        pm = is_bad ? pc.y : pc.x;
+        edge = hp ^ is_bad;
+        reg = ((rp << 1) | (unsigned)v) & mem_mask;
+        syn = v ? sp ^ hc : sp;
+        row[tid] = (T)((parent << 1) | v);  // slot m is read and rewritten by thread m alone
+      }
+      sig.fork(tid, parent, act);  // σ ← σ[parent] on every level
+      ++info_i;
+    }
+
+    // ---- partial-sum chain ----
+    const int s = word >> 5 & 31;
+    if (s > 0) {
+      const int cmask = word >> 11;  // bit l: level l's left bits through σ
+      if (act) {
+        uint8_t* cur = s > G ? Bs + tid * SS + so(s) : Bg + tid * SG + go(s);
+        if (s == n) {
+          cur[0] = (uint8_t)edge;
+        } else {
+          const int r = (cmask >> n & 1) ? sig.get(tid, 2 * n - 3) : tid;
+          const uint8_t left = Bs[r * SS + so(n)];
+          cur[1] = (uint8_t)edge;
+          cur[0] = (uint8_t)(left ^ edge);
+        }
+      }
+      __syncthreads();
+      for (int lv = n - 1; lv > s; --lv) {
+        const T* via = (cmask >> lv & 1) ? sig.field(n + lv - 3) : nullptr;
+        if (s > G)
+          block_chain_pass(Bs + so(s), SS, Bs + so(lv), SS, via, sig.row, n - lv, L, tid, nt);
+        else
+          block_chain_pass(Bg + go(s), SG, lv > G ? Bs + so(lv) : Bg + go(lv), lv > G ? SS : SG,
+                           via, sig.row, n - lv, L, tid, nt);
+        __syncthreads();
+      }
+    }
+    s_prev = s;
+    word = next_word;
+  }
+
+  // ---- final stable sort of the list, CRC selection, backtrack ----
+  if (act) cand[tid].x = pm;
+  if (tid == 0) *selS = L;
+  __syncthreads();
+  int least;
+  const bool ok = use_crc && act && syn == 0u && pm < PAC_BIG;
+  const int frank = final_rank(cand, L, tid, pm, ok, selS, &least);
+  const int sel_rank = least < L ? least : 0;
+  if (LIST) {
+    int8_t* v = list_v + frame * L * N;
+    for (int t = tid; t < L * N; t += nt) v[t] = 0;
+    __syncthreads();
+    if (act) {
+      int8_t* vrow = v + frank * N;
+      int8_t* brow = list_bits + (frame * L + frank) * Kp;
+      int slot = tid;
+      for (int i = Kp - 1; i >= 0; --i) {
+        const int w = TI[i * L + slot];
+        vrow[u_pos[i]] = (int8_t)(w & 1);
+        brow[out_pos[i]] = (int8_t)(w & 1);
+        slot = w >> 1;
+      }
+      list_metrics[frame * L + frank] = pm < PAC_BIG ? pm : __int_as_float(0x7f800000);
+    }
+    if (tid == 0) list_best[frame] = sel_rank;
+    __syncthreads();
+  }
+  if (act && frank == sel_rank) {
+    // the selected path's bit v into slot 0 of each trace row
+    int slot = tid;
+    for (int i = Kp - 1; i >= 0; --i) {
+      const int w = TI[i * L + slot];
+      TI[i * L] = (T)(w & 1);
+      slot = w >> 1;
+    }
+    out_pass[frame] = least < L ? 1 : 0;
+  }
+  __syncthreads();
+  for (int j = tid; j < Kp; j += nt) out_bits[frame * Kp + j] = (int8_t)TI[phase_of[j] * L];
 }
 
 // every kernel argument but the σ masks, and the stream
@@ -416,7 +647,7 @@ struct Args {
 template <int LM, bool LIST>
 int launch_as(const Args& a, cudaStream_t stream) {
   const size_t smem = (size_t)a.frame_bytes * a.frames_per_block;
-  cudaError_t err = set_smem<LM, LIST>(smem);
+  cudaError_t err = set_smem(pac_decode_kernel<LM, LIST>, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (a.B + a.frames_per_block - 1) / a.frames_per_block;
   pac_decode_kernel<LM, LIST><<<blocks, 32 * a.frames_per_block, smem, stream>>>(
@@ -435,6 +666,30 @@ int launch(const Args& a, cudaStream_t stream) {
   return a.list_v ? launch_as<LM, true>(a, stream) : launch_as<LM, false>(a, stream);
 }
 
+template <typename T, bool LIST>
+int launch_deep_as(const Args& a, T* trace_idx, cudaStream_t stream) {
+  const DeepLayout lay = deep_layout(a.N, a.n, a.Kp, a.L, a.G, sizeof(T), 3, trace_idx == nullptr);
+  if (a.n > MAX_LEVELS || lay.sig_row > 16 * DEEP_SIGMA_VECS || lay.total != a.frame_bytes ||
+      a.frames_per_block != 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem(pac_deep_kernel<T, LIST>, lay.total);
+  if (err != cudaSuccess) return (int)err;
+  pac_deep_kernel<T, LIST><<<a.B, deep_threads(a.L), lay.total, stream>>>(
+      a.llr, a.hcols, a.sched, a.phase_of, a.glob_llr, a.glob_bits, trace_idx, a.out_bits,
+      a.out_pass, a.out_pos, a.u_pos, a.list_v, a.list_bits, a.list_metrics, a.list_best, a.N, a.n,
+      a.Kp, a.L, a.G, a.mem_mask, a.tap_mask, a.use_crc);
+  return (int)cudaGetLastError();
+}
+
+// byte trace entries while 2L <= 256, else 16-bit ones
+int launch_deep(const Args& a, void* trace_idx, cudaStream_t stream) {
+  if (a.L <= 128)
+    return a.list_v ? launch_deep_as<uint8_t, true>(a, static_cast<uint8_t*>(trace_idx), stream)
+                    : launch_deep_as<uint8_t, false>(a, static_cast<uint8_t*>(trace_idx), stream);
+  return a.list_v ? launch_deep_as<uint16_t, true>(a, static_cast<uint16_t*>(trace_idx), stream)
+                  : launch_deep_as<uint16_t, false>(a, static_cast<uint16_t*>(trace_idx), stream);
+}
+
 // The frames a block (1..MAX_FRAMES_PER_BLOCK) that let an SM hold the most
 // frames at once, by the occupancy calculator (shared memory, registers and
 // warps all counted); ties go to more frames a block.  The list
@@ -446,7 +701,7 @@ int plan(int frame_bytes, int max_block_smem, int* frames_per_block, int* frames
   for (int fpb = 1; fpb <= MAX_FRAMES_PER_BLOCK; ++fpb) {
     const size_t smem = (size_t)frame_bytes * fpb;
     if (smem > (size_t)max_block_smem) break;
-    cudaError_t err = set_smem<LM, false>(smem);
+    cudaError_t err = set_smem(pac_decode_kernel<LM, false>, smem);
     if (err != cudaSuccess) return (int)err;
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pac_decode_kernel<LM, false>,
@@ -464,7 +719,7 @@ int plan(int frame_bytes, int max_block_smem, int* frames_per_block, int* frames
 
 extern "C" int pac_decode_launch(const void* llr, const void* hcols, const void* sched,
                                  const void* phase_of, void* glob_llr, void* glob_bits,
-                                 void* out_bits, void* out_pass, const void* out_pos,
+                                 void* trace_idx, void* out_bits, void* out_pass, const void* out_pos,
                                  const void* u_pos, void* list_v, void* list_bits,
                                  void* list_metrics, void* list_best, int B, int N, int n, int Kp,
                                  int L, int G, unsigned mem_mask, unsigned tap_mask, int use_crc,
@@ -478,7 +733,9 @@ extern "C" int pac_decode_launch(const void* llr, const void* hcols, const void*
                static_cast<float*>(list_metrics), static_cast<int*>(list_best),
                B, N, n, Kp, L, G, mem_mask, tap_mask, use_crc, frame_bytes, frames_per_block};
   auto st = static_cast<cudaStream_t>(stream);
-  if (L < 1 || L > 32) return (int)cudaErrorInvalidValue;
+  if (L < 1 || L > DEEP_MAX_M) return (int)cudaErrorInvalidValue;
+  if (L >= DEEP_MIN_M) return launch_deep(a, trace_idx, st);
+  if (trace_idx) return (int)cudaErrorInvalidValue;  // one slot a lane: the trace stays in shared memory
   if (L == 1) return launch<1>(a, st);
   if (L <= 2) return launch<2>(a, st);
   if (L <= 4) return launch<4>(a, st);
@@ -489,7 +746,13 @@ extern "C" int pac_decode_launch(const void* llr, const void* hcols, const void*
 
 extern "C" int pac_launch_plan(int L, int frame_bytes, int max_block_smem, int* frames_per_block,
                                int* frames_per_sm) {
-  if (L < 1 || L > 32) return (int)cudaErrorInvalidValue;
+  if (L < 1 || L > DEEP_MAX_M) return (int)cudaErrorInvalidValue;
+  if (L > 128)
+    return plan_deep(pac_deep_kernel<uint16_t, false>, L, frame_bytes, max_block_smem,
+                     frames_per_block, frames_per_sm);
+  if (L >= DEEP_MIN_M)
+    return plan_deep(pac_deep_kernel<uint8_t, false>, L, frame_bytes, max_block_smem,
+                     frames_per_block, frames_per_sm);
   if (L == 1) return plan<1>(frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
   if (L <= 2) return plan<2>(frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
   if (L <= 4) return plan<4>(frame_bytes, max_block_smem, frames_per_block, frames_per_sm);

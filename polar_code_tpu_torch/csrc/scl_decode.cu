@@ -43,7 +43,8 @@
 // levels (the g's level gl−1, the chain's levels above s).  No row is copied
 // at a fork.
 //
-// σ lives in registers, in one of two layouts.
+// σ lives in registers, in one of two layouts, up to M = 32; above, in a
+// table in shared memory.
 //   * By level, the byte-word instantiations scl_decode_kernel<M> at M ∈ {1,
 //     2, 4, 8}, which the sweeps launch.  Lane r < 2n−1 holds the map of one
 //     level as a word of M bytes, byte m = σ[m]: rows 0..n−2 for LLR levels
@@ -70,8 +71,27 @@
 //     phase's start, one select a word with masks the host builds for
 //     (n, LM).  Lane p holds candidates 2p and 2p + 1, and counts each one's
 //     rank over the 2M candidates: 64 at M = 32, two a lane.
+//   * Over warps, the instantiations scl_deep_kernel<T> (M 33..1024, a
+//     runtime argument): one frame a block of ceil(M/32) warps, thread m
+//     path m.  One path a lane is what caps the layouts above at 32: their
+//     exchanges between paths (σ reads, the fork, the rank, the parent's
+//     metric, leaf and syndrome, the final rank and the CRC selection) are
+//     warp shuffles and 32-bit ballots.  Here each is a shared-memory write,
+//     a block barrier and a read (`list_decode.cuh`).  σ is a table, a row
+//     of 2n−2 fields a path (16-48 bytes, `DeepSigma`): a read through σ is
+//     one load of the path's field, a reset writes the thread's own row, and
+//     a fork copies the parent's row through registers between two
+//     barriers.  Each path publishes its two candidates, leaf and syndrome
+//     at an info phase; thread p counts the ranks of candidates 2p and
+//     2p + 1 over all 2M (`rank_pair`, broadcast reads, O(M) a thread: the
+//     stable order, exactly), and the survivor of rank r reads its parent's
+//     values after the barrier.  The selected rank is a min-reduction
+//     (`final_rank`, an atomicMin in shared memory) where the 32-bit mask
+//     of the warp layouts would overflow.  T, the width of a trace entry
+//     2p+b < 2M and of a σ field, is a byte up to M = 128 and 16 bits above.
 //
-// Layout.  One warp decodes one frame; a block holds a few frames.  Levels
+// Layout.  One warp decodes one frame and a block holds a few frames (over
+// warps: one block a frame).  Levels
 // G+1..n of each path live in dynamic shared memory, with the trace indices;
 // levels 1..G (the widest: levels 1 and 2 alone hold three quarters of the
 // rows, and are read at a handful of phases) live in a global scratch the
@@ -87,10 +107,15 @@
 //   Lg  float [M][N-(N>>G)]  LLR rows, levels 1..G
 //   Bg  u8    [M][N-(N>>G)]  partial-sum rows, levels 1..G
 //   TL  float [K][M]         leaf LLR of each survivor's parent per info phase
-// The trace indices stay in shared memory at every G, since the final walk
-// reads them at random: K·M bytes, 32 KB at N=8192 M=8 (6 frames an SM) and
-// 128 KB at N=8192 M=32 (1); `ops/scl_cuda.py::check_shape` refuses a shape
-// whose frame overfills a block even at G = n−1.
+// The trace indices stay in shared memory at every G up to M = 32, since the
+// final walk reads them at random: K·M bytes, 32 KB at N=8192 M=8 (6 frames
+// an SM) and 128 KB at N=8192 M=32 (1).  Over warps a frame also holds its σ
+// table, candidates, leaf and syndrome (`deep_layout`), and the trace
+// indices (K·M entries of T: 128 KB at P(128,64) M=1024, 256 KB at
+// P(1024,512) M=256) move to global scratch beside TL where the frame would
+// not fit a block with them at G = n−1 (`ops/scl_cuda.py::trace_in_smem`).
+// `ops/scl_cuda.py::check_shape` refuses a shape whose frame overfills a
+// block even at G = n−1.
 // A phase's schedule is one word, loaded a phase ahead.  Lanes split each
 // level's M·(N>>l) f/g entries down to level n−1; lane m computes path m's
 // leaf from its level-n−1 row and keeps it in a register (no phase but its
@@ -109,8 +134,8 @@
 // LLRs and metric (+inf for a path never reached) — and the selected rank.
 // Lane m < M walks its own path's trace back, reading TI/TL only, before
 // lane 0 rewrites slot 0 of the trace rows for the best path.  The sweeps
-// launch the instantiation without LIST, whose code is unchanged.  Both σ
-// layouts have a LIST instantiation.
+// launch the instantiation without LIST, whose code is unchanged.  Every σ
+// layout has a LIST instantiation.
 //
 // The arithmetic is the plain version's, op for op, so results are equal bit
 // for bit: f = sign(a)·sign(b)·min(|a|,|b|), g = b + (1−2c)·a, penalty
@@ -638,14 +663,209 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) scl_path_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Host side.
+// Over warps: list sizes 33..1024, one frame a block, one thread a path.
 // ---------------------------------------------------------------------------
 
-template <typename Kern>
-cudaError_t set_smem(Kern kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The SCL decode with a frame spread over the ceil(M/32) warps of a block:
+// thread m < M holds path m's metric and syndrome and its two candidates 2m
+// and 2m+1; σ is a table in shared memory (`DeepSigma`), and each exchange
+// between paths is a shared-memory write, a block barrier and a read.  T is
+// the width of a trace entry and a σ field.  It computes what
+// scl_decode_kernel computes.
+template <typename T, bool LIST>
+__global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_kernel(
+    const float* __restrict__ llr, const int8_t* __restrict__ forced,
+    const uint32_t* __restrict__ hcols, const int* __restrict__ sched, float* glob_llr,
+    uint8_t* glob_bits, float* trace_llr,
+    T* trace_idx,  // [B, K, M] when the trace indices live in global memory, else null
+    int8_t* __restrict__ out_bits, float* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,
+    int8_t* __restrict__ list_bits, float* __restrict__ list_llrs, float* __restrict__ list_metrics,
+    int* __restrict__ list_best, int N, int n, int K, int M, int G, int use_crc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long frame = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const bool act = tid < M;  // thread m < M: path m
+
+  const DeepLayout lay = deep_layout(N, n, K, M, G, sizeof(T), 2, trace_idx == nullptr);
+  const int SS = (N >> G) - 1;
+  const int SG = N - (N >> G);
+  DeepSigma<T> sig{reinterpret_cast<T*>(smem + lay.sig), lay.sig_row / (int)sizeof(T),
+                   lay.sig_row / 16};
+  float2* cand = reinterpret_cast<float2*>(smem + lay.cand);
+  float* Ls = reinterpret_cast<float*>(smem + lay.ls);
+  float* leafS = reinterpret_cast<float*>(smem + lay.words);
+  uint32_t* synS = reinterpret_cast<uint32_t*>(smem + lay.words + round16(4 * M));
+  uint8_t* Bs = smem + lay.bs;
+  T* TI = trace_idx ? trace_idx + frame * K * M : reinterpret_cast<T*>(smem + lay.ti);
+  int* selS = reinterpret_cast<int*>(smem + lay.sel);
+  float* Lg = glob_llr + frame * M * SG;  // unused when G == 0
+  uint8_t* Bg = glob_bits + frame * M * SG;
+  float* TL = trace_llr + frame * K * M;
+  const float* ch = llr + frame * N;
+  const int8_t* plan = forced ? forced + frame * K : nullptr;
+  auto so = [&](int l) { return (N >> G) - (N >> (l - 1)); };
+  auto go = [&](int l) { return N - (N >> (l - 1)); };
+
+  if (act) sig.init(tid, 2 * n - 2);
+  __syncthreads();
+  float pm = (tid == 0) ? 0.f : SCL_BIG;  // thread m < M: metric of path m
+  uint32_t syn = 0;                        // thread m < M: CRC syndrome of path m
+  int info_i = 0;
+  int word = sched[0];
+  int s_prev = 0;  // the previous phase's store level
+  for (int p = 0; p < N; ++p) {
+    const int next_word = p + 1 < N ? sched[p + 1] : 0;
+    const int gl = word & 31;
+    const int is_frozen = word >> 10 & 1;
+    int fb = -1;
+    uint32_t hc = 0;
+    if (!is_frozen) {
+      if (plan) fb = plan[info_i];
+      if (use_crc) hc = hcols[info_i];
+    }
+    const int l0 = p == 0 ? 1 : gl;
+    // σ back to identity on the levels rewritten since the last fork, in
+    // the thread's own row (as scl_path_kernel); no other thread reads
+    // these fields before the next barrier
+    if (act) sig.reset(tid, l0 - 1, n - 1, s_prev >= 2 ? n + s_prev - 3 : -1);
+
+    // ---- f/g updates down to level n−1 ----
+    for (int l = l0; l < n; ++l) {
+      const bool is_g = (p != 0) && (l == gl);
+      const T* via = (is_g && l > 1 && (word >> 11 & 1)) ? sig.field(l - 2) : nullptr;
+      if (l > G + 1) {
+        block_fg_pass(Ls + so(l), Bs + so(l), SS, Ls + so(l - 1), SS, via, sig.row, is_g, n - l, M,
+                      tid, nt);
+      } else {  // the few passes that touch global memory: generic pointers
+        const bool sh = l > G;
+        block_fg_pass(sh ? Ls + so(l) : Lg + go(l), sh ? Bs + so(l) : Bg + go(l), sh ? SS : SG,
+                      l > 1 ? Lg + go(l - 1) : ch, l > 1 ? SG : 0, via, sig.row, is_g, n - l, M,
+                      tid, nt);
+      }
+      __syncthreads();
+    }
+    // the leaf (level n): thread m computes it from its parent row
+    const bool g_leaf = gl == n;
+    float leaf = 0.f;
+    if (act) {
+      const int r = (g_leaf && n > 1 && (word >> 11 & 1)) ? sig.get(tid, n - 2) : tid;
+      const float* row = n == 1 ? ch : n - 1 > G ? Ls + so(n - 1) + r * SS : Lg + go(n - 1) + r * SG;
+      leaf = g_leaf ? g_update(row[0], row[1], Bs[tid * SS + so(n)]) : f_minsum(row[0], row[1]);
+    }
+
+    // ---- leaf decision: extend every path, or fork and keep the best M ----
+    int bit = 0;
+    if (is_frozen) {
+      if (act) pm = pm + softplus(-leaf);
+    } else {
+      float c0 = pm + softplus(-leaf), c1 = pm + softplus(leaf);
+      if (fb == 1) c0 = SCL_BIG;
+      if (fb == 0) c1 = SCL_BIG;
+      if (act) {
+        cand[tid] = make_float2(c0, c1);
+        leafS[tid] = leaf;
+        synS[tid] = syn;
+      }
+      __syncthreads();
+      // candidates 2j (x) and 2j+1 (y): 2m ranks after both of path j < m,
+      // 2m+1 after 2j for j <= m and after 2j+1 for j < m; the candidate
+      // ranked r goes to trace slot r
+      T* row = TI + info_i * M;
+      if (act) {
+        int r0, r1;
+        rank_pair(cand, M, c0, tid, tid, c1, tid + 1, tid, &r0, &r1);
+        if (r0 < M) row[r0] = (T)(2 * tid);
+        if (r1 < M) row[r1] = (T)(2 * tid + 1);
+      }
+      __syncthreads();
+      int parent = 0;
+      if (act) {
+        const int w = row[tid];
+        parent = w >> 1;
+        bit = w & 1;
+        const float2 pc = cand[parent];
+        pm = bit ? pc.y : pc.x;
+        TL[info_i * M + tid] = leafS[parent];
+        syn = bit ? synS[parent] ^ hc : synS[parent];
+      }
+      sig.fork(tid, parent, act);  // σ ← σ[parent] on every level
+      ++info_i;
+    }
+
+    // ---- partial-sum chain ----
+    const int s = word >> 5 & 31;
+    if (s > 0) {
+      const int cmask = word >> 11;  // bit l: level l's left bits through σ
+      if (act) {
+        uint8_t* cur = s > G ? Bs + tid * SS + so(s) : Bg + tid * SG + go(s);
+        if (s == n) {
+          cur[0] = (uint8_t)bit;
+        } else {
+          const int r = (cmask >> n & 1) ? sig.get(tid, 2 * n - 3) : tid;
+          const uint8_t left = Bs[r * SS + so(n)];
+          cur[1] = (uint8_t)bit;
+          cur[0] = (uint8_t)(left ^ bit);
+        }
+      }
+      __syncthreads();
+      for (int lv = n - 1; lv > s; --lv) {
+        const T* via = (cmask >> lv & 1) ? sig.field(n + lv - 3) : nullptr;
+        if (s > G)
+          block_chain_pass(Bs + so(s), SS, Bs + so(lv), SS, via, sig.row, n - lv, M, tid, nt);
+        else
+          block_chain_pass(Bg + go(s), SG, lv > G ? Bs + so(lv) : Bg + go(lv), lv > G ? SS : SG,
+                           via, sig.row, n - lv, M, tid, nt);
+        __syncthreads();
+      }
+    }
+    s_prev = s;
+    word = next_word;
+  }
+
+  // ---- final stable sort of the list, CRC selection, backtrack ----
+  if (act) cand[tid].x = pm;
+  if (tid == 0) *selS = M;
+  __syncthreads();
+  int least;
+  const bool ok = use_crc && act && syn == 0u && pm < SCL_BIG;
+  const int frank = final_rank(cand, M, tid, pm, ok, selS, &least);
+  const int sel_rank = least < M ? least : 0;
+  if (LIST) {
+    if (act) {
+      const long long o = (frame * M + frank) * K;
+      int slot = tid;
+      for (int i = K - 1; i >= 0; --i) {
+        const int w = TI[i * M + slot];
+        list_bits[o + i] = (int8_t)(w & 1);
+        list_llrs[o + i] = TL[i * M + slot];
+        slot = w >> 1;
+      }
+      list_metrics[frame * M + frank] = pm < SCL_BIG ? pm : __int_as_float(0x7f800000);
+    }
+    if (tid == 0) list_best[frame] = sel_rank;
+    __syncthreads();
+  }
+  if (act && frank == sel_rank) {
+    // the selected path's (slot << 1 | bit) into slot 0 of each trace row
+    int slot = tid;
+    for (int i = K - 1; i >= 0; --i) {
+      const int w = TI[i * M + slot];
+      TI[i * M] = (T)((slot << 1) | (w & 1));
+      slot = w >> 1;
+    }
+    out_pass[frame] = least < M ? 1 : 0;
+  }
+  __syncthreads();
+  for (int i = tid; i < K; i += nt) {
+    const int r = TI[i * M];
+    out_bits[frame * K + i] = (int8_t)(r & 1);
+    out_llrs[frame * K + i] = TL[i * M + (r >> 1)];
+  }
 }
+
+// ---------------------------------------------------------------------------
+// Host side.
+// ---------------------------------------------------------------------------
 
 // every kernel argument but the list size, the σ masks and the stream
 struct Args {
@@ -706,6 +926,30 @@ int launch_path(const Args& a, int M, cudaStream_t stream) {
                      : launch_path_as<LM, false>(a, M, stream);
 }
 
+template <typename T, bool LIST>
+int launch_deep_as(const Args& a, int M, T* trace_idx, cudaStream_t stream) {
+  const DeepLayout lay = deep_layout(a.N, a.n, a.K, M, a.G, sizeof(T), 2, trace_idx == nullptr);
+  if (a.n > MAX_LEVELS || lay.sig_row > 16 * DEEP_SIGMA_VECS || lay.total != a.frame_bytes ||
+      a.frames_per_block != 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem(scl_deep_kernel<T, LIST>, lay.total);
+  if (err != cudaSuccess) return (int)err;
+  scl_deep_kernel<T, LIST><<<a.B, deep_threads(M), lay.total, stream>>>(
+      a.llr, a.forced, a.hcols, a.sched, a.glob_llr, a.glob_bits, a.trace_llr, trace_idx,
+      a.out_bits, a.out_llrs, a.out_pass, a.list_bits, a.list_llrs, a.list_metrics, a.list_best,
+      a.N, a.n, a.K, M, a.G, a.use_crc);
+  return (int)cudaGetLastError();
+}
+
+// byte trace entries while 2M <= 256, else 16-bit ones
+int launch_deep(const Args& a, int M, void* trace_idx, cudaStream_t stream) {
+  if (M <= 128)
+    return a.list_bits ? launch_deep_as<uint8_t, true>(a, M, static_cast<uint8_t*>(trace_idx), stream)
+                       : launch_deep_as<uint8_t, false>(a, M, static_cast<uint8_t*>(trace_idx), stream);
+  return a.list_bits ? launch_deep_as<uint16_t, true>(a, M, static_cast<uint16_t*>(trace_idx), stream)
+                     : launch_deep_as<uint16_t, false>(a, M, static_cast<uint16_t*>(trace_idx), stream);
+}
+
 // The frames a block (1..MAX_FRAMES_PER_BLOCK) that let an SM hold the most
 // frames at once, by the occupancy calculator (shared memory, registers and
 // warps all counted); ties go to more frames a block.  The list
@@ -735,10 +979,10 @@ int plan(Kern kernel, int frame_bytes, int max_block_smem, int* frames_per_block
 
 extern "C" int scl_decode_launch(const void* llr, const void* forced, const void* hcols,
                                  const void* sched, void* glob_llr, void* glob_bits,
-                                 void* trace_llr, void* out_bits, void* out_llrs, void* out_pass,
-                                 void* list_bits, void* list_llrs, void* list_metrics,
-                                 void* list_best, int B, int N, int n, int K, int M, int G,
-                                 int use_crc, int frame_bytes, int frames_per_block,
+                                 void* trace_llr, void* trace_idx, void* out_bits, void* out_llrs,
+                                 void* out_pass, void* list_bits, void* list_llrs,
+                                 void* list_metrics, void* list_best, int B, int N, int n, int K,
+                                 int M, int G, int use_crc, int frame_bytes, int frames_per_block,
                                  void* stream) {
   const Args a{static_cast<const float*>(llr), static_cast<const int8_t*>(forced),
                static_cast<const uint32_t*>(hcols), static_cast<const int*>(sched),
@@ -757,7 +1001,9 @@ extern "C" int scl_decode_launch(const void* llr, const void* forced, const void
     case 8: return launch<8>(a, st);
   }
 #endif
-  if (M < 1 || M > 32) return (int)cudaErrorInvalidValue;
+  if (M < 1 || M > DEEP_MAX_M) return (int)cudaErrorInvalidValue;
+  if (M >= DEEP_MIN_M) return launch_deep(a, M, trace_idx, st);
+  if (trace_idx) return (int)cudaErrorInvalidValue;  // one path a lane: the trace stays in shared memory
 #if SCL_LEAST_PATH_WIDTH <= 4
   if (M <= 4) return launch_path<4>(a, M, st);
 #endif
@@ -778,7 +1024,13 @@ extern "C" int scl_launch_plan(int M, int frame_bytes, int max_block_smem,
     case 8: SCL_PLAN((scl_decode_kernel<8, false>));
   }
 #endif
-  if (M < 1 || M > 32) return (int)cudaErrorInvalidValue;
+  if (M < 1 || M > DEEP_MAX_M) return (int)cudaErrorInvalidValue;
+  if (M > 128)
+    return plan_deep(scl_deep_kernel<uint16_t, false>, M, frame_bytes, max_block_smem,
+                     frames_per_block, frames_per_sm);
+  if (M >= DEEP_MIN_M)
+    return plan_deep(scl_deep_kernel<uint8_t, false>, M, frame_bytes, max_block_smem,
+                     frames_per_block, frames_per_sm);
 #if SCL_LEAST_PATH_WIDTH <= 4
   if (M <= 4) SCL_PLAN((scl_path_kernel<4, false>));
 #endif

@@ -51,22 +51,20 @@ def conv_transform_matrix(gen: Tuple[int, ...], N: int) -> np.ndarray:
     positions.
     """
 
-    gen = list(gen)
-    mem = len(gen) - 1
     n = int(math.log2(N))
+    order = np.array([bitreversed(j, n) for j in range(N)])  # step q visits u index order[q]
+    step = np.empty(N, np.int64)
+    step[order] = np.arange(N)
+    # the register holds the inputs of the last len(gen) − 1 steps, so e_k,
+    # fed at step step[k], reaches the output of step step[k] + t through
+    # tap t: one entry a set tap (distinct rows, so no XOR folds two)
     T = np.zeros((N, N), dtype=np.int8)
-    order = [bitreversed(j, n) for j in range(N)]
-    for k in range(N):
-        state = [0] * mem
-        v = np.zeros(N, dtype=np.int8)
-        v[k] = 1
-        for i in order:
-            out = v[i] * gen[0]
-            for t in range(1, len(gen)):
-                if gen[t] == 1:
-                    out ^= state[t - 1]
-            T[i, k] = out
-            state = [int(v[i])] + state[: mem - 1]
+    cols = np.arange(N)
+    for t, g in enumerate(gen):
+        if g:
+            q = step + t
+            ok = q < N
+            T[order[q[ok]], cols[ok]] = 1
     T.setflags(write=False)
     return T
 

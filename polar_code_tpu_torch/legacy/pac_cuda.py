@@ -14,30 +14,35 @@ instantiation writes them (the systematic scalar decoder,
 
 On a CUDA tensor it launches the kernel, or raises for a shape the kernel
 does not take; it runs the plain version (`legacy/pac.py`) only for a tensor
-on the CPU.  The kernel takes every list size from 1 to 32 (one path a lane
-of a warp; the TPU kernel took power-of-two L <= 8) and any batch size: the
-last block is masked, since the adaptive second stage re-decodes a ragged
-set of failed frames.  `pac_list_decode_cuda.launches` counts kernel
-launches, and `pac_list_decode_cuda.list_launches` those of them that went
-to the list instantiation.
+on the CPU.  The kernel takes every list size from 1 to 1024 (the TPU
+kernel took power-of-two L <= 8, and the JAX package's XLA decoder takes the
+rest), N up to 8192, and any batch size: the last block is masked, since
+the adaptive second stage re-decodes a ragged set of failed frames.  Up to
+L=32 one path is a lane of a warp; from 33 to 1024 a frame is spread over
+the ceil(L/32) warps of a block, one thread a path (the over-warps
+instantiation).  `pac_list_decode_cuda.launches` counts kernel launches,
+`pac_list_decode_cuda.list_launches` those of them that went to a list
+instantiation and `pac_list_decode_cuda.deep_launches` those that went to
+an over-warps one.
 
 The kernel's design (its source note has the whole of it): the TPU
 kernel's lazy clone — path m writes row m, per-level path-origin maps σ
 compose at forks and reset at level writes, and only the reads the phase
 words flag (`ops/scl_schedule.py::phase_words`) go through σ — so no row is
 copied at a fork.  σ is a few registers a lane, `SIGMA_FIELDS` levels at
-most.  Each path carries its CRC syndrome and shift register in registers.
-What bounds it is a frame's serial chain of phases, hidden by keeping many
-frames on an SM: a frame keeps tree levels G+1..n and its trace in shared
-memory, and levels 1..G go to a global scratch allocated here for each
-call, G by the occupancy calculator (`launch_plan`, the SCL kernel's
-policy `ops/scl_cuda.py::smallest_global_levels`).
+most (over warps, a table in shared memory).  Each path carries its CRC
+syndrome and shift register in registers.  What bounds it is a frame's
+serial chain of phases, hidden by keeping many frames on an SM: a frame
+keeps tree levels G+1..n and its trace in shared memory, and levels 1..G go
+to a global scratch allocated here for each call, G by the occupancy
+calculator (`launch_plan`, the SCL kernel's policy
+`ops/scl_cuda.py::smallest_global_levels`).  Over warps the trace moves to
+global scratch where a frame would not fit a block with it
+(`ops/scl_cuda.py::trace_in_smem`, as in the SCL kernel).
 
-The envelope is the first design's: a frame's whole decode state,
-`frame_bytes(N, Kp, L)` with every level in shared memory, within one
-block's shared memory (N up to 1024 at L=32).  The kernel no longer keeps
-that state in shared memory; the bound stays, so that it takes no shape
-past the envelope's L=32 corner, which `chip_smoke.py` phase 9 checks.
+The envelope: a shape is taken where its frame fits a block at some G, that
+is with every level but the leaf in global scratch (`check_shape`); a shape
+past it raises with its bytes named.
 """
 
 from __future__ import annotations
@@ -51,12 +56,14 @@ import torch
 
 from .. import _build
 from ..ops.crc import check_matrix
-from ..ops.scl_cuda import MAX_BLOCK_SMEM, SIGMA_FIELDS, smallest_global_levels
+from ..ops.scl_cuda import (MAX_BLOCK_SMEM, MAX_N, PATH_MAX_M, SIGMA_FIELDS, deep_frame_bytes,
+                             smallest_global_levels, trace_entry_bytes, trace_in_smem)
 from ..ops.scl_schedule import phase_words
 from .pac import bitrev_perm, pac_list_decode_batch
 
 SOURCE = "pac_decode.cu"
-MAX_L = 32  # one path a lane
+MAX_L = 1024  # one thread a path, a block at most
+DEEP_WORDS = 3  # published 32-bit values a path over warps: leaf, syndrome, shift register
 MAX_MEM = 31  # the shift register is a 32-bit mask
 # the list outputs of `full=True`, in the order of the kernel's arguments;
 # "valid" is worked out from the metrics
@@ -64,10 +71,15 @@ LIST_FIELDS = ("v_full", "candidates", "metrics", "best_index", "valid")
 
 
 def frame_bytes(N: int, Kp: int, L: int, global_levels: int = 0) -> int:
-    """Shared memory one frame's decode state takes, rounded to 16 bytes:
-    the LLR rows (float32) and edge-bit rows (bytes) of levels
-    global_levels+1..n, and the trace (bytes)."""
+    """Shared memory one frame's decode state takes, rounded to 16 bytes: up
+    to L=32 the LLR rows (float32) and edge-bit rows (bytes) of levels
+    global_levels+1..n, and the trace (bytes); over warps
+    `ops/scl_cuda.py::deep_frame_bytes`, with the trace where
+    `trace_in_smem` puts it."""
 
+    if L > PATH_MAX_M:
+        return deep_frame_bytes(N, Kp, L, global_levels, trace_in_smem(N, Kp, L, DEEP_WORDS),
+                                DEEP_WORDS)
     row = (N >> global_levels) - 1
     raw = 4 * L * row + L * row + Kp * L
     return (raw + 15) // 16 * 16
@@ -83,29 +95,33 @@ def check_shape(N: int, Kp: int, L: int, gen, crc_len: int, dtype: torch.dtype) 
         raise ValueError(f"the PAC kernel supports list sizes 1..{MAX_L}, not {L}")
     if N < 2 or N & (N - 1) or not 0 < Kp <= N:
         raise ValueError(f"invalid code shape N={N} Kp={Kp}")
+    if N > MAX_N:
+        raise ValueError(f"the PAC kernel takes N up to {MAX_N}, not {N}")
     if not gen or gen[0] != 1:
         raise ValueError("convolution generator must start with 1")
     if len(gen) - 1 > MAX_MEM:
         raise ValueError(f"the PAC kernel supports generators of memory <= {MAX_MEM}")
     if not 0 <= crc_len <= 32 or (crc_len and crc_len >= Kp):
         raise ValueError(f"the PAC kernel supports CRCs of degree <= 32 inside Kp, not {crc_len}")
-    if frame_bytes(N, Kp, L) > MAX_BLOCK_SMEM:
-        raise ValueError(
-            f"PAC decode state for N={N} Kp={Kp} L={L} is {frame_bytes(N, Kp, L)} bytes a frame, "
-            f"outside the kernel's envelope ({MAX_BLOCK_SMEM})"
-        )
     n = int(math.log2(N))
     # σ levels (2n − 2 of them) by the list size rounded up to a power of
-    # two (`PathSigma` in `csrc/list_decode.cuh`); L=1 has no σ
-    if L > 1 and 2 * n - 2 > SIGMA_FIELDS[1 << (L - 1).bit_length()]:
+    # two (`PathSigma` in `csrc/list_decode.cuh`); L=1 has no σ, and over
+    # warps σ is a table that holds n <= 13 (`MAX_N`)
+    if 1 < L <= PATH_MAX_M and 2 * n - 2 > SIGMA_FIELDS[1 << (L - 1).bit_length()]:
         raise ValueError(f"the PAC kernel's σ registers do not hold N={N} at L={L}")
+    least = frame_bytes(N, Kp, L, n - 1)  # levels 1..n−1 in global scratch: a frame's least
+    if least > MAX_BLOCK_SMEM:
+        raise ValueError(
+            f"PAC decode state for N={N} Kp={Kp} L={L} is {least} bytes of shared memory a frame "
+            f"with every level but the leaf in global scratch, more than a block has "
+            f"({MAX_BLOCK_SMEM})")
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     lib.pac_decode_launch.argtypes = (
-        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_uint] * 2
+        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_uint] * 2
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     )
     lib.pac_decode_launch.restype = ctypes.c_int
@@ -168,9 +184,10 @@ def _plan(mask_key: bytes, gen: tuple, L: int, crc_len: int, crc_poly: int, dtyp
     checked and cached (the legacy drivers launch small batches, where the
     host's share of a call matters): (N, Kp, L, G, frames a block, phase
     words, the info phase of each ascending-u output bit, check columns,
-    shift-register and tap masks, CRC flag, shared bytes a frame, and for
-    the list output the ascending-u output index and the u index of each
-    info phase).
+    shift-register and tap masks, CRC flag, shared bytes a frame, for the
+    list output the ascending-u output index and the u index of each info
+    phase, and the dtype of the trace's global scratch, None where the
+    trace stays in shared memory).
     `global_levels` overrides the launch plan's G (`chip_smoke.py` times
     other G)."""
 
@@ -189,8 +206,10 @@ def _plan(mask_key: bytes, gen: tuple, L: int, crc_len: int, crc_poly: int, dtyp
     positions = np.flatnonzero(mask == 1)
     list_tables = (torch.as_tensor(out_pos, device=device),
                    torch.as_tensor(positions[out_pos].astype(np.int32), device=device))
+    ti_dtype = (None if trace_in_smem(N, Kp, L, DEEP_WORDS)
+                else torch.uint8 if trace_entry_bytes(L) == 1 else torch.int16)
     return (N, Kp, L, G, fpb, *tables, (1 << (len(gen) - 1)) - 1, tap_mask, int(crc_len > 0),
-            frame_bytes(N, Kp, L, G), list_tables)
+            frame_bytes(N, Kp, L, G), list_tables, ti_dtype)
 
 
 def pac_list_decode_cuda(
@@ -223,7 +242,7 @@ def _launch(llr, plan, full=False) -> dict:
     instantiation."""
 
     (N, Kp, L, G, fpb, sched, phase_of, hcols, mem_mask, tap_mask, use_crc, fbytes,
-     (out_pos, u_pos)) = plan
+     (out_pos, u_pos), ti_dtype) = plan
     B = int(llr.shape[0])
     dev = llr.device
     out = {"extracted": torch.empty((B, Kp), dtype=torch.int8, device=dev),
@@ -235,8 +254,16 @@ def _launch(llr, plan, full=False) -> dict:
                    best_index=torch.empty((B,), dtype=torch.int32, device=dev))
     if B > 0:
         row = N - (N >> G)  # entries of a path's levels 1..G
-        glob_llr = torch.empty((B, L, row), dtype=torch.float32, device=dev) if G else None
-        glob_bits = torch.empty((B, L, row), dtype=torch.uint8, device=dev) if G else None
+        try:
+            glob_llr = torch.empty((B, L, row), dtype=torch.float32, device=dev) if G else None
+            glob_bits = torch.empty((B, L, row), dtype=torch.uint8, device=dev) if G else None
+            trace_idx = torch.empty((B, Kp, L), dtype=ti_dtype, device=dev) if ti_dtype else None
+        except torch.cuda.OutOfMemoryError as exc:
+            ti = B * Kp * L * trace_entry_bytes(L) if ti_dtype else 0
+            raise RuntimeError(
+                f"the PAC kernel's global scratch for B={B} N={N} Kp={Kp} L={L} is "
+                f"{B * L * row * 5 + ti} bytes, more than the card has free: decode in smaller "
+                f"batches") from exc
         lists = [out[f].data_ptr() if full else None for f in LIST_FIELDS[:4]]
         lib = _library()
         with torch.cuda.device(dev):
@@ -244,6 +271,7 @@ def _launch(llr, plan, full=False) -> dict:
             rc = lib.pac_decode_launch(
                 llr.data_ptr(), hcols.data_ptr(), sched.data_ptr(), phase_of.data_ptr(),
                 glob_llr.data_ptr() if G else None, glob_bits.data_ptr() if G else None,
+                trace_idx.data_ptr() if ti_dtype else None,
                 out["extracted"].data_ptr(), out["crc_pass"].data_ptr(),
                 out_pos.data_ptr(), u_pos.data_ptr(), *lists,
                 B, N, int(math.log2(N)), Kp, L, G, mem_mask, tap_mask, use_crc, fbytes, fpb, stream,
@@ -253,6 +281,8 @@ def _launch(llr, plan, full=False) -> dict:
         pac_list_decode_cuda.launches += 1
         if full:
             pac_list_decode_cuda.list_launches += 1
+        if L > PATH_MAX_M:
+            pac_list_decode_cuda.deep_launches += 1
     if full:
         out["best_index"] = out["best_index"].long()
         out["valid"] = torch.isfinite(out["metrics"])
@@ -260,8 +290,9 @@ def _launch(llr, plan, full=False) -> dict:
 
 
 pac_list_decode_cuda.launches = 0
-pac_list_decode_cuda.list_launches = 0  # of them, launches of the list instantiation
+pac_list_decode_cuda.list_launches = 0  # of them, launches of a list instantiation
+pac_list_decode_cuda.deep_launches = 0  # of them, launches of an over-warps instantiation
 
 
 __all__ = ["pac_list_decode_cuda", "check_shape", "frame_bytes", "host_tables", "launch_plan",
-           "MAX_L", "SIGMA_FIELDS", "LIST_FIELDS"]
+           "MAX_L", "MAX_N", "SIGMA_FIELDS", "LIST_FIELDS"]

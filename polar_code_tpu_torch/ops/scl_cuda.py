@@ -15,24 +15,32 @@ On a CUDA tensor it launches the kernel, or raises for a shape the kernel
 does not take; it runs the plain version (`ops/scl.py`) only for a tensor on
 the CPU.  Any batch size is taken: the last block is masked, since the retry
 batches after compaction are data-dependent.  `decode_scl_cuda.launches`
-counts kernel launches, and `decode_scl_cuda.path_launches` those of them
-that went to the by-path instantiation.
+counts kernel launches, `decode_scl_cuda.path_launches` those of them that
+went to the by-path instantiation and `decode_scl_cuda.deep_launches`
+those that went to the over-warps one.
 
-The kernel takes every list size M from 1 to 32 and N up to 8192 (the TPU
-kernel's N envelope).  M ∈ {1, 2, 4, 8} go to the byte-word instantiations,
-which the sweeps launch; every other M to the by-path instantiation of M
-rounded up to a power of two (`path_width`; the source note has both σ
+The kernel takes every list size M from 1 to 1024 (the JAX package's XLA
+decoder takes any M; its TPU kernel power-of-two M <= 8) and N up to 8192
+(the TPU kernel's N envelope).  M ∈ {1, 2, 4, 8} go to the byte-word
+instantiations, which the sweeps launch; M up to 32 to the by-path
+instantiation of M rounded up to a power of two (`path_width`), one path a
+lane of a warp; M from 33 to 1024 to the over-warps instantiation, one
+frame a block and one thread a path (the source note has the three
 layouts).  A shape whose frame fits no block even with every level but the
-leaf in global scratch (`check_shape`: the trace indices, K·M bytes, stay in
-shared memory) raises, as does a batch whose global scratch does not fit
-the card: the wrapper names the bytes and shrinks nothing.
+leaf in global scratch (`check_shape`) raises, as does a batch whose global
+scratch does not fit the card: the wrapper names the bytes and shrinks
+nothing.
 
-Memory.  A frame keeps tree levels G+1..n of its M paths, and its trace
-indices, in shared memory; levels 1..G and the trace LLRs go to a global
-scratch allocated here for each call.  `launch_plan` asks the CUDA
-occupancy calculator for the smallest G at which an SM holds
-`FRAMES_PER_SM_TARGET` frames (`smallest_global_levels`, which the PAC
-kernel's wrapper shares), and for the frames a block that hold the most.
+Memory.  A frame keeps tree levels G+1..n of its M paths in shared memory;
+levels 1..G and the trace LLRs go to a global scratch allocated here for
+each call.  The trace indices stay in shared memory up to M=32 (K·M bytes);
+over warps (entries of `trace_entry_bytes(M)`, with the σ table and the
+published candidates, `deep_frame_bytes`) they move to global scratch where
+the frame would not fit a block with them (`trace_in_smem`: P(1024,512) at
+M=256, for one).  `launch_plan` asks the CUDA occupancy calculator for the
+smallest G at which an SM holds `FRAMES_PER_SM_TARGET` frames
+(`smallest_global_levels`, which the PAC kernel's wrapper shares), and for
+the frames a block that hold the most.
 """
 
 from __future__ import annotations
@@ -51,8 +59,12 @@ from .scl import decode_scl_batch
 from .scl_schedule import phase_words
 
 SOURCE = "scl_decode.cu"
-MAX_M = 32  # one path a lane of a warp
+MAX_M = 1024  # one thread a path, a block at most
 SUPPORTED_M = tuple(range(1, MAX_M + 1))
+# the largest list size decoded one path a lane of a warp; above it a frame
+# is spread over the ceil(M/32) warps of a block (`DEEP_MIN_M` in
+# `csrc/list_decode.cuh`)
+PATH_MAX_M = 32
 # the list sizes of the byte-word instantiations, which the sweeps launch;
 # every other M goes through the by-path instantiation of M rounded up to a
 # power of two (`path_width`)
@@ -75,14 +87,54 @@ BEST_FIELDS = ("best_path_bits", "best_path_info_llrs", "crc_pass")
 LIST_FIELDS = ("candidates", "info_llrs", "metrics", "best_index", "valid")
 
 
-def frame_bytes(N: int, K: int, M: int, global_levels: int = 0) -> int:
-    """Shared memory one frame's decode state takes, rounded to 16 bytes:
-    the LLR rows (float32) and partial-sum rows (bytes) of levels
-    global_levels+1..n, and the trace indices (bytes)."""
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
 
+
+def trace_entry_bytes(M: int) -> int:
+    """Bytes of a trace entry 2p+b (< 2M), and of a σ field over warps."""
+
+    return 1 if M <= 128 else 2
+
+
+def deep_frame_bytes(N: int, K: int, M: int, global_levels: int, trace_in_smem: bool,
+                     words: int = 2) -> int:
+    """Shared memory one frame takes over warps (`deep_layout` in
+    `csrc/list_decode.cuh`), each region rounded to 16 bytes: the σ table
+    (2n−2 fields a path), the candidates (float2 a path), the LLR rows
+    (float32) of levels global_levels+1..n, `words` published 32-bit values
+    a path (SCL 2, PAC 3), the partial-sum rows (bytes), the trace indices
+    when they stay in shared memory, and the selected rank."""
+
+    n = int(math.log2(N))
+    row = (N >> global_levels) - 1
+    eb = trace_entry_bytes(M)
+    sig_row = max(16, _round16((2 * n - 2) * eb))
+    return (M * sig_row + _round16(8 * M) + _round16(4 * M * row) + words * _round16(4 * M)
+            + _round16(M * row) + (_round16(K * M * eb) if trace_in_smem else 0) + 16)
+
+
+def trace_in_smem(N: int, K: int, M: int, words: int = 2) -> bool:
+    """Whether the trace indices stay in shared memory: always up to M=32,
+    and over warps where the frame fits a block with them at G = n−1."""
+
+    if M <= PATH_MAX_M:
+        return True
+    n = int(math.log2(N))
+    return deep_frame_bytes(N, K, M, n - 1, True, words) <= MAX_BLOCK_SMEM
+
+
+def frame_bytes(N: int, K: int, M: int, global_levels: int = 0) -> int:
+    """Shared memory one frame's decode state takes, rounded to 16 bytes: up
+    to M=32 the LLR rows (float32) and partial-sum rows (bytes) of levels
+    global_levels+1..n, and the trace indices (bytes); over warps
+    `deep_frame_bytes`, with the trace where `trace_in_smem` puts it."""
+
+    if M > PATH_MAX_M:
+        return deep_frame_bytes(N, K, M, global_levels, trace_in_smem(N, K, M))
     row = (N >> global_levels) - 1
     raw = 4 * M * row + M * row + K * M
-    return (raw + 15) // 16 * 16
+    return _round16(raw)
 
 
 def path_width(M: int) -> int:
@@ -94,9 +146,11 @@ def path_width(M: int) -> int:
 
 def scratch_bytes(B: int, N: int, K: int, M: int, global_levels: int) -> int:
     """Global scratch one launch allocates: the LLR and partial-sum rows of
-    levels 1..G and the trace LLRs of every frame."""
+    levels 1..G and the trace LLRs of every frame, and the trace indices
+    where they leave shared memory (`trace_in_smem`)."""
 
-    return B * M * (N - (N >> global_levels)) * 5 + B * K * M * 4
+    ti = 0 if trace_in_smem(N, K, M) else B * K * M * trace_entry_bytes(M)
+    return B * M * (N - (N >> global_levels)) * 5 + B * K * M * 4 + ti
 
 
 def check_shape(N: int, K: int, M: int, crc: Optional[str], dtype: torch.dtype) -> None:
@@ -104,7 +158,7 @@ def check_shape(N: int, K: int, M: int, crc: Optional[str], dtype: torch.dtype) 
 
     if dtype != torch.float32:
         raise ValueError(f"the SCL kernel decodes float32 LLRs, not {dtype}")
-    if M not in SUPPORTED_M:
+    if not 1 <= M <= MAX_M:
         raise ValueError(f"the SCL kernel supports list sizes 1..{MAX_M}, not {M}")
     if N < 2 or N & (N - 1) or not 0 < K <= N:
         raise ValueError(f"invalid code shape N={N} K={K}")
@@ -113,7 +167,7 @@ def check_shape(N: int, K: int, M: int, crc: Optional[str], dtype: torch.dtype) 
     if crc is not None and crc_degree(crc) > 32:
         raise ValueError("the SCL kernel supports CRCs of degree <= 32")
     n = int(math.log2(N))
-    if M not in BYTE_WORD_M and 2 * n - 2 > SIGMA_FIELDS[path_width(M)]:
+    if M not in BYTE_WORD_M and M <= PATH_MAX_M and 2 * n - 2 > SIGMA_FIELDS[path_width(M)]:
         raise ValueError(f"the SCL kernel's σ registers do not hold N={N} at M={M}")
     least = frame_bytes(N, K, M, n - 1)  # levels 1..n−1 in global scratch: a frame's least
     if least > MAX_BLOCK_SMEM:
@@ -129,7 +183,7 @@ def _library(defines: tuple = ()) -> ctypes.CDLL:
     `tools/time_scl_layouts.py` (the source's dispatch note)."""
 
     lib = _build.load(SOURCE, defines)
-    lib.scl_decode_launch.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.scl_decode_launch.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.scl_decode_launch.restype = ctypes.c_int
     lib.scl_launch_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
     lib.scl_launch_plan.restype = ctypes.c_int
@@ -249,10 +303,13 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
     if B > 0:
         sched, hcols = _device_tables(tuple(int(i) for i in info_np), N, crc, dev)
         row = N - (N >> G)  # entries of a path's levels 1..G
+        ti_dtype = torch.uint8 if trace_entry_bytes(M) == 1 else torch.int16
         try:
             glob_llr = torch.empty((B, M, row), dtype=torch.float32, device=dev) if G else None
             glob_bits = torch.empty((B, M, row), dtype=torch.uint8, device=dev) if G else None
             trace_llr = torch.empty((B, K, M), dtype=torch.float32, device=dev)
+            trace_idx = (None if trace_in_smem(N, K, M)
+                         else torch.empty((B, K, M), dtype=ti_dtype, device=dev))
         except torch.cuda.OutOfMemoryError as exc:
             raise RuntimeError(
                 f"the SCL kernel's global scratch for B={B} N={N} K={K} M={M} is "
@@ -267,7 +324,7 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
                 force_info_bits.data_ptr() if force_info_bits is not None else None,
                 hcols.data_ptr(), sched.data_ptr(),
                 glob_llr.data_ptr() if G else None, glob_bits.data_ptr() if G else None,
-                trace_llr.data_ptr(),
+                trace_llr.data_ptr(), trace_idx.data_ptr() if trace_idx is not None else None,
                 *(out[f].data_ptr() for f in BEST_FIELDS), *lists,
                 B, N, int(math.log2(N)), K, M, G, int(crc is not None),
                 frame_bytes(N, K, M, G), fpb, stream,
@@ -275,7 +332,9 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
         if rc != 0:
             raise RuntimeError(f"SCL kernel launch failed: {lib.scl_error_string(rc).decode()} ({rc})")
         decode_scl_cuda.launches += 1
-        if M not in BYTE_WORD_M:
+        if M > PATH_MAX_M:
+            decode_scl_cuda.deep_launches += 1
+        elif M not in BYTE_WORD_M:
             decode_scl_cuda.path_launches += 1
     if full:
         out["valid"] = torch.isfinite(out["metrics"])
@@ -284,8 +343,10 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
 
 decode_scl_cuda.launches = 0
 decode_scl_cuda.path_launches = 0  # of them, launches of the by-path instantiation
+decode_scl_cuda.deep_launches = 0  # of them, launches of the over-warps instantiation
 
 
-__all__ = ["decode_scl_cuda", "check_shape", "frame_bytes", "launch_plan", "smallest_global_levels",
-           "path_width", "scratch_bytes", "SUPPORTED_M", "BYTE_WORD_M", "MAX_M", "MAX_N",
+__all__ = ["decode_scl_cuda", "check_shape", "frame_bytes", "deep_frame_bytes", "trace_in_smem",
+           "trace_entry_bytes", "launch_plan", "smallest_global_levels", "path_width",
+           "scratch_bytes", "SUPPORTED_M", "BYTE_WORD_M", "MAX_M", "PATH_MAX_M", "MAX_N",
            "SIGMA_FIELDS"]

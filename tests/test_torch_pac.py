@@ -134,13 +134,13 @@ def test_wrapper_on_cpu_runs_the_plain_version(mask):
 def test_check_shape_bounds_the_kernel():
     check_shape(64, 32, 32, [1, 0, 1, 1, 0, 1, 1], 0, torch.float32)  # the simulator's stage 2
     check_shape(1024, 512, 32, [1], 16, torch.float32)  # about 180 KB a frame
-    for args in ((64, 32, 33, [1], 0, torch.float32),   # L > 32
+    for args in ((64, 32, 1025, [1], 0, torch.float32),   # L > 1024
                  (64, 32, 0, [1], 0, torch.float32),
                  (64, 32, 8, [0, 1], 0, torch.float32),  # gen[0] != 1
                  (64, 32, 8, [1] * 33, 0, torch.float32),  # memory 32
                  (64, 32, 8, [1], 33, torch.float32),
                  (64, 32, 8, [1], 0, torch.float64),
-                 (2048, 1024, 32, [1], 0, torch.float32)):  # > 227 KB a frame
+                 (8192, 8000, 32, [1], 0, torch.float32)):  # > 227 KB a frame at every G
         with pytest.raises(ValueError):
             check_shape(*args)
 
@@ -166,7 +166,7 @@ def test_pac_decode_on_cuda_raises_for_what_the_kernel_does_not_take():
     x = _CudaStandIn()
     calls = pac_list_decode_batch.cuda_calls
     with pytest.raises(ValueError, match="list sizes"):
-        pac_decode(x, mask, [1, 0, 1, 1, 0, 1, 1], 33)
+        pac_decode(x, mask, [1, 0, 1, 1, 0, 1, 1], 1025)
     with pytest.raises(ValueError, match="plain decoder runs on CPU"):
         pac_decode(x, mask, [1], 4, backend="xla")
     assert pac_list_decode_batch.cuda_calls == calls  # no fallback to the plain version

@@ -37,7 +37,7 @@ from polar_code_tpu.legacy.pac import pac_list_decode_batch as jax_decode
 from polar_code_tpu.ops.scl_pallas import _schedule_tables as jax_schedule
 from polar_code_tpu_torch.legacy.crclib import crc as crc_lib
 from polar_code_tpu_torch.legacy.pac import bitrev_perm, pac_encode_batch, pac_list_decode_batch
-from polar_code_tpu_torch.legacy.pac_cuda import SIGMA_FIELDS, check_shape, frame_bytes, host_tables
+from polar_code_tpu_torch.legacy.pac_cuda import MAX_N, SIGMA_FIELDS, check_shape, frame_bytes, host_tables
 from polar_code_tpu_torch.ops.scl_cuda import MAX_BLOCK_SMEM
 from polar_code_tpu_torch.legacy.rate_profile import rateprofile
 from polar_code_tpu_torch.ops.scl_schedule import schedule_tables
@@ -81,20 +81,27 @@ def test_fork_tables_equal_jax_at_pac_info_sets(N, profile):
 
 
 def test_sigma_registers_hold_the_envelope():
-    """Every shape the kernel takes has its 2n − 2 σ levels in its lanes'
-    registers: the envelope (a frame's whole state within a block's shared
-    memory) ends before `SIGMA_FIELDS` does, at every list size."""
+    """Every shape the kernel takes one path a lane has its 2n − 2 σ levels
+    in its lanes' registers: N up to `MAX_N` = 8192 (n = 13, 24 fields), at
+    every list size 2..32; a frame fits a block there once every level but
+    the leaf is in global scratch (the fit rule), and N above 8192 raises."""
 
+    assert MAX_N == 8192
     for L in range(2, 33):
         lm = 1 << (L - 1).bit_length()
-        N = 2
-        while frame_bytes(2 * N, 2, L) <= MAX_BLOCK_SMEM:
-            N *= 2
-        n = int(math.log2(N))
-        assert 2 * n - 2 <= SIGMA_FIELDS[lm], (L, N)
-        check_shape(N, 2, L, [1], 0, torch.float32)
-        with pytest.raises(ValueError, match="envelope"):
-            check_shape(2 * N, 2, L, [1], 0, torch.float32)
+        for n in range(1, 14):
+            N = 1 << n
+            assert 2 * n - 2 <= SIGMA_FIELDS[lm], (L, N)
+            # the leaf rows and the trace: 5·L + Kp·L bytes, rounded to 16
+            assert frame_bytes(N, N // 2, L, n - 1) == (5 * L + N // 2 * L + 15) // 16 * 16
+            if frame_bytes(N, N // 2, L, n - 1) <= MAX_BLOCK_SMEM:
+                check_shape(N, N // 2, L, [1], 0, torch.float32)
+            else:  # the trace alone overfills a block
+                with pytest.raises(ValueError, match="bytes of shared memory"):
+                    check_shape(N, N // 2, L, [1], 0, torch.float32)
+        check_shape(8192, 2, L, [1], 0, torch.float32)
+        with pytest.raises(ValueError, match="8192"):
+            check_shape(16384, 2, L, [1], 0, torch.float32)
 
 
 def _sigma_gather(rows, sig):

@@ -178,12 +178,15 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    without early stop beside early stop at QC-IRA 4×8 Z=31 two-min B=4096
    (and its bits, iterations and parity there equal to the plain
    version's);
-14. the deep lists (`deep_lists`): K1's and K3's launch plans at the new
-   shapes (frames an SM, where the trace indices live); (a) K1's over-warps
+14. the deep lists (`deep_lists`): the `-Xptxas -v` registers and spills
+   of the eight over-warps instantiations (a best-only one that spills
+   fails the phase), and K1's and K3's launch plans at the new shapes
+   (frames an SM, threads a block); (a) K1's
+   over-warps
    instantiation (list sizes 33..1024, a frame over the warps of a block)
    against the plain version, list and best-only, at P(128,64) CRC-24A M ∈
-   {33, 64, 256, 1024}, B=37, CRC and plan on and off, and at P(1024,512)
-   M 64 and 256 (the trace indices in global scratch at 256) and P(32,28)
+   {33, 64, 100, 256, 1024}, B=37, CRC and plan on and off, and at P(1024,512)
+   M 64 and 256 and P(32,28)
    M=64, B=13, under K1's near-tie rule; (b) K3 against the plain version,
    every list field and best-only, max |diff| 0: PAC(128,64)+CRC-16 at L
    64, 256 and 1024 and PAC(32,12)+CRC-16 at L=64 (B=37), PAC(2048,1024)
@@ -200,8 +203,8 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    one launch a call, equal to the plain version; (g) times with CUDA
    events beside their bounds: K1 at P(128,64) B=4096 M 64, 256 and 1024
    beside by-path M=32, and at P(1024,512) M=64 B=1024; K3 at
-   PAC(128,64)+CRC-16 B=4096 L 64 and 256 beside L=32, and PAC(2048,1024)
-   L=32 and PAC(8192,4096) L=8 at B=1024;
+   PAC(128,64)+CRC-16 B=4096 L 64, 256 and 1024 beside L=32, and
+   PAC(2048,1024) L=32 and PAC(8192,4096) L=8 at B=1024;
 15. a `kernels` JSON line (one entry a kernel, and one for each new
    instantiation with its launches on phases 13's and 14's paths; each
    `max_abs_err` the largest difference from the plain version that the
@@ -1758,10 +1761,10 @@ def wide_envelope(dev, smi):
 # phase 14, the deep lists: K1 and K3 at list sizes 33..1024 (their
 # over-warps instantiations, a frame spread over the warps of a block) and
 # K3 at N up to 8192
-DEEP_MS = (33, 64, 256, 1024)  # (a): P(128,64) list sizes
+DEEP_MS = (33, 64, 100, 256, 1024)  # (a): P(128,64) list sizes; 33 and 100 sort pads
 DEEP_B = 37  # frames of a vs-plain case: ragged, and the plain version costs seconds at M=1024
 # (a): P(32,28), four payload bits beside CRC-24A, and P(1024,512), with
-# the trace indices in global scratch at M=256
+# 16-bit trace entries at M=256
 DEEP_N = ((32, 28, 64), (1024, 512, 64), (1024, 512, 256))
 DEEP_N_B = 13
 DEEP_LS = (64, 256, 1024)  # (b): PAC(128,64)+CRC-16 list sizes; and PAC(32,12)+CRC-16 at L=64
@@ -1787,11 +1790,13 @@ def deep_lists(dev, smi):
 
     import torch
 
+    from polar_code_tpu_torch import _build
     from polar_code_tpu_torch.eval import run_fer_sweep
     from polar_code_tpu_torch.legacy import simulator
     from polar_code_tpu_torch.legacy.crclib import crc as legacy_crc
     from polar_code_tpu_torch.legacy.pac import pac_list_decode_batch
     from polar_code_tpu_torch.legacy.pac_cuda import launch_plan as pac_plan
+    from polar_code_tpu_torch.legacy.pac_cuda import SOURCE as pac_source
     from polar_code_tpu_torch.legacy.pac_cuda import frame_bytes as pac_frame_bytes
     from polar_code_tpu_torch.legacy.pac_cuda import pac_list_decode_cuda
     from polar_code_tpu_torch.legacy.polar_code import PolarCode
@@ -1811,20 +1816,27 @@ def deep_lists(dev, smi):
         for f in plains:
             f.cuda_calls = 0
 
+    for source in (scl_cuda.SOURCE, pac_source):  # built in phase 2: this reads the kept log
+        for row in ptxas_report(_build.build(source).log):
+            if "_deep_kernel" in row["entry"]:
+                print(f"  ptxas {row['entry']}: {row['regs']} registers, spills {row['spill_stores']} B "
+                      f"stores / {row['spill_loads']} B loads")
+                check("list" in row["entry"] or not row["spill_stores"],
+                      f"the best-only {row['entry']} spills {row['spill_stores']} B")
     for n_s, k_s, M in [(N, K, M) for M in DEEP_MS] + list(DEEP_N):
         g, fpb, per_sm = scl_cuda.launch_plan(n_s, k_s, M)
-        where = "shared memory" if scl_cuda.trace_in_smem(n_s, k_s, M) else "global scratch"
         print(f"  K1 N={n_s} K={k_s} M={M} (over warps, {scl_cuda.trace_entry_bytes(M)}-byte trace "
-              f"entries in {where}): levels 1..{g} in global scratch; "
+              f"entries): levels 1..{g} and the trace indices in global scratch; "
               f"{scl_cuda.frame_bytes(n_s, k_s, M, g)} B shared a frame, one frame a block of "
-              f"{32 * -(-M // 32)} threads; {per_sm} frames an SM (occupancy calculator)")
+              f"{scl_cuda.sort_keys(M) // 2} threads; {per_sm} frames an SM (occupancy calculator)")
         check(per_sm >= 1, f"K1 cannot place a frame of N={n_s} M={M}")
     for n_p, k_p, L in [(N, K, L) for L in (32,) + DEEP_LS] + list(DEEP_PAC_N):
         kp = k_p + PAC_CRC[0]
         g, fpb, per_sm = pac_plan(n_p, kp, L)
+        threads = scl_cuda.sort_keys(L) // 2 if L > scl_cuda.PATH_MAX_M else 32 * fpb
         print(f"  K3 N={n_p} Kp={kp} L={L}: levels 1..{g} in global scratch; "
-              f"{pac_frame_bytes(n_p, kp, L, g)} B shared a frame x {fpb} frames a block; {per_sm} "
-              f"frames an SM (occupancy calculator)")
+              f"{pac_frame_bytes(n_p, kp, L, g)} B shared a frame x {fpb} frames a block of {threads} "
+              f"threads; {per_sm} frames an SM (occupancy calculator)")
         check(per_sm >= 1, f"K3 cannot place a frame of N={n_p} L={L}")
 
     # ---- (a) K1 over warps against the plain version ----
@@ -2033,8 +2045,9 @@ def deep_lists(dev, smi):
     n_p, k_p, crc_p = PAC_CODES[128]
     p_mask = pac_mask(n_p, k_p + crc_p[0])
     x = pac_llrs(rng, B, 2.5, PAC_CODES[128], PAC_GEN, p_mask, dev)
-    for L in (32, 64, 256):  # one path a lane beside over warps
-        ms = cuda_time_ms(lambda L=L: pac_list_decode_cuda(x, p_mask, PAC_GEN, L, *crc_p), reps=10, warmup=1)
+    for L in (32,) + DEEP_LS:  # one path a lane beside over warps
+        ms = cuda_time_ms(lambda L=L: pac_list_decode_cuda(x, p_mask, PAC_GEN, L, *crc_p),
+                          reps=2 if L == 1024 else 10, warmup=1)
         b_ms, b_by = bound(*pac_work(p_mask, L, B))
         line = f"  K3 PAC(128,64)+CRC-16 L={L} B={B} 2.5 dB: {ms:.4f} ms"
         if L == 64:

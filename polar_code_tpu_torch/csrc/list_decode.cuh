@@ -6,7 +6,7 @@
 // passes that read a parent level through σ; and, for a frame spread over
 // the warps of a block (list sizes 33..1024, one thread a path), σ as a
 // table in shared memory, the passes that read through it, its fork, the
-// stable rank of the 2M candidates and the frame's shared-memory layout.
+// block-wide sort of the 2M candidates and the frame's shared-memory layout.
 // Each source's note has the design; `_build.py` rebuilds a source when
 // this file changes.
 
@@ -156,44 +156,54 @@ __device__ __forceinline__ void path_chain_pass(uint8_t* st, int ststride, const
 // A frame over the warps of a block: list sizes 33..1024.
 //
 // One block decodes one frame, thread m < M holds path m, and the block has
-// ceil(M/32) warps; every exchange between paths goes through shared memory
-// behind a block barrier.  σ is a table, a row of fields a path (field f as
-// in PathSigma), each entry a T: uint8_t while the trace entries 2p+b < 2M
-// fit a byte (M <= 128), else uint16_t.
+// M rounded up to a power of two threads (`deep_threads`); every exchange
+// between paths goes through shared memory behind a block barrier.  σ is a
+// table, a row of fields a path (field f as in PathSigma), each entry a T:
+// uint8_t while the trace entries 2p+b < 2M fit a byte (M <= 128), else
+// uint16_t.
 // ---------------------------------------------------------------------------
 
 #define DEEP_MIN_M 33    // list sizes below go one path a lane of a warp
 #define DEEP_MAX_M 1024  // one thread a path, a block at most
-#define DEEP_SIGMA_VECS 3  // 16-byte words of a σ row at most: 2n−2 = 24 fields of 2 bytes
+#define DEEP_SIGMA_WORDS 12  // 32-bit words of a σ row at most: 2n−2 = 24 fields of 2 bytes
 
 __host__ __device__ __forceinline__ int round16(int x) { return (x + 15) & ~15; }
+__host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
+
+// The keys a fork sorts: the 2M candidates padded to a power of two, at
+// least 2M (`ops/scl_cuda.py::sort_keys`).
+__host__ __device__ __forceinline__ int sort_keys(int M) {
+  int P = 1;
+  while (P < 2 * M) P <<= 1;
+  return P;
+}
 
 // Byte offsets of a frame's regions in its block's dynamic shared memory,
-// each region 16-byte aligned: the σ table [M][row], the candidates float2
-// [M], the LLR rows float [M][(N>>G)−1], `words` 32-bit values a path (the
-// published leaf, syndrome and, in PAC, shift register), the partial-sum
-// rows u8 [M][(N>>G)−1], the trace indices T [K][M] when they stay in shared
-// memory, and the selected rank.  `ops/scl_cuda.py::deep_frame_bytes` is the
-// same reckoning.
+// each region 16-byte aligned: the σ table [M][row] (a row of 2n−2 fields
+// rounded to 4 bytes, so that paths m and m+1 fall in other banks), the
+// sort keys u64 [sort_keys(M)] (at the end of the decode, the final
+// metrics float [M]), the LLR rows float [M][(N>>G)−1], `words` 32-bit
+// values a path (the published leaf, syndrome and, in PAC, shift
+// register), the partial-sum rows u8 [M][(N>>G)−1] and the selected rank.
+// The trace indices live in global scratch.  `ops/scl_cuda.py::
+// deep_frame_bytes` is the same reckoning.
 struct DeepLayout {
-  int sig, cand, ls, words, bs, ti, sel, total;
-  int sig_row;  // bytes of a path's σ row: 16, 32 or 48
+  int sig, keys, ls, words, bs, sel, total;
+  int sig_row;  // bytes of a path's σ row: 4..48, a multiple of 4
 };
 
-__host__ __device__ __forceinline__ DeepLayout deep_layout(int N, int n, int K, int M, int G,
-                                                           int entry_bytes, int words,
-                                                           bool trace_in_smem) {
+__host__ __device__ __forceinline__ DeepLayout deep_layout(int N, int n, int M, int G,
+                                                           int entry_bytes, int words) {
   DeepLayout d;
   const int ss = (N >> G) - 1;
-  d.sig_row = round16((2 * n - 2) * entry_bytes);
-  if (d.sig_row < 16) d.sig_row = 16;
+  d.sig_row = round4((2 * n - 2) * entry_bytes);
+  if (d.sig_row < 4) d.sig_row = 4;
   d.sig = 0;
-  d.cand = d.sig + M * d.sig_row;
-  d.ls = d.cand + round16(8 * M);
+  d.keys = d.sig + round16(M * d.sig_row);
+  d.ls = d.keys + 8 * sort_keys(M);
   d.words = d.ls + round16(4 * M * ss);
   d.bs = d.words + words * round16(4 * M);
-  d.ti = d.bs + round16(M * ss);
-  d.sel = d.ti + (trace_in_smem ? round16(K * M * entry_bytes) : 0);
+  d.sel = d.bs + round16(M * ss);
   d.total = d.sel + 16;
   return d;
 }
@@ -203,7 +213,7 @@ template <typename T>
 struct DeepSigma {
   T* tab;
   int row;  // entries a path's row
-  int vecs;  // 16-byte words a path's row
+  int words;  // 32-bit words a path's row
 
   __device__ __forceinline__ int get(int m, int f) const { return tab[m * row + f]; }
   // the column of field f: entry m is path m's origin row
@@ -221,16 +231,16 @@ struct DeepSigma {
   // parent's row through registers, between two block barriers.  Every
   // thread of the block calls it.
   __device__ __forceinline__ void fork(int m, int parent, bool active) {
-    uint4 v[DEEP_SIGMA_VECS];
-    const uint4* src = reinterpret_cast<const uint4*>(tab + parent * row);
+    unsigned v[DEEP_SIGMA_WORDS];
+    const unsigned* src = reinterpret_cast<const unsigned*>(tab + parent * row);
 #pragma unroll
-    for (int k = 0; k < DEEP_SIGMA_VECS; ++k)
-      if (active && k < vecs) v[k] = src[k];
+    for (int k = 0; k < DEEP_SIGMA_WORDS; ++k)
+      if (active && k < words) v[k] = src[k];
     __syncthreads();
-    uint4* dst = reinterpret_cast<uint4*>(tab + m * row);
+    unsigned* dst = reinterpret_cast<unsigned*>(tab + m * row);
 #pragma unroll
-    for (int k = 0; k < DEEP_SIGMA_VECS; ++k)
-      if (active && k < vecs) dst[k] = v[k];
+    for (int k = 0; k < DEEP_SIGMA_WORDS; ++k)
+      if (active && k < words) dst[k] = v[k];
     __syncthreads();
   }
 };
@@ -273,24 +283,89 @@ __device__ __forceinline__ void block_chain_pass(uint8_t* st, int ststride, cons
   }
 }
 
-// The stable rank of two candidates among the 2M of a fork, cand[j] =
-// (x_j, y_j): a candidate of metric c ranks after every x_j < c and every
-// y_j < c, and after x_j == c when j < ax and y_j == c when j < ay (the
-// candidates of lower index: the caller's layout sets the thresholds).  So
-// ranks are a permutation of 0..2M−1 in (metric, index) order, the plain
-// version's stable sort.  Reads of cand[j] are broadcasts.
-__device__ __forceinline__ void rank_pair(const float2* cand, int M, float c0, int a0x, int a0y,
-                                          float c1, int a1x, int a1y, int* r0, int* r1) {
-  int k0 = 0, k1 = 0;
-  for (int j = 0; j < M; ++j) {
-    const float2 q = cand[j];
-    k0 += (q.x < c0) || (q.x == c0 && j < a0x);
-    k0 += (q.y < c0) || (q.y == c0 && j < a0y);
-    k1 += (q.x < c1) || (q.x == c1 && j < a1x);
-    k1 += (q.y < c1) || (q.y == c1 && j < a1y);
+// ---- the sort of a fork's 2M candidates ----
+//
+// A candidate is one 64-bit key: its metric in the high word, mapped to a
+// 32-bit word whose unsigned order is the float order (the sign bit set on a
+// non-negative float, every bit flipped on a negative one), and its layout
+// index in the low word (2p + b in the SCL kernel, p and M + p in the PAC
+// kernel's [good×M, bad×M]).  −0.0 is taken as +0.0 first: the floats
+// compare equal and their words would not.  Metrics are never NaN, and 3e38
+// and +inf map like any float, at most 0xFF800000, so the all-ones key
+// that pads the 2M keys to P = sort_keys(M) sorts after every candidate.
+// The keys are unique, so the ascending key order is exactly the plain
+// version's stable (metric, index) sort, whatever the network: the key of
+// rank r < M is survivor r.  No metric is −0.0 (each is +0.0 plus
+// non-negative penalties, or 3e38), so the survivor takes its metric back
+// from its key bit for bit.
+
+__device__ __forceinline__ unsigned long long cand_key(float c, int index) {
+  const unsigned u = c == 0.f ? 0u : __float_as_uint(c);
+  const unsigned w = u ^ ((unsigned)((int)u >> 31) | 0x80000000u);
+  return (unsigned long long)w << 32 | (unsigned)index;
+}
+
+__device__ __forceinline__ float key_metric(unsigned long long key) {
+  const unsigned w = (unsigned)(key >> 32);
+  return __uint_as_float(w & 0x80000000u ? w ^ 0x80000000u : ~w);
+}
+
+__device__ __forceinline__ int key_index(unsigned long long key) { return (int)(unsigned)key; }
+
+// A bitonic network over the 2M keys of a fork, padded to P = sort_keys(M)
+// with all-ones keys, ascending.  The block has P/2 threads (`deep_threads`)
+// and thread t holds keys 2t and 2t+1 in registers: its two candidates, or
+// two pads where t >= M.  A stage of distance j compare-exchanges keys i
+// and i^j, the smaller to i when i's bit of the merge size is clear (else
+// the larger): in registers when j = 1, by __shfl_xor_sync with lane t ^
+// j/2, no barrier, when j < 64, and through keys[] behind block barriers
+// above (15 of the 66 stages at P = 2048; 1 of 28 at P = 128).  Only ranks
+// below M <= P/2 are read, so after the last merge's first stage, which
+// leaves the P/2 smallest keys in the lower half, the upper half's threads
+// stop, and only the lower half is stored to keys[].  Every thread of the
+// block calls it; the caller reads keys[] behind a barrier.
+__device__ __forceinline__ void block_sort_keys(unsigned long long* keys, unsigned long long k0,
+                                                unsigned long long k1, int P, int tid) {
+  const int base = 2 * tid;
+  bool on = true;
+  auto vec = [&](int at) { return reinterpret_cast<ulonglong2*>(keys + at); };
+  // keep the smaller of a pair whose partner is across bit j >= 2: key i
+  // below it in an ascending run (i's bit of the merge size clear), or
+  // above it in a descending one; both keys of the thread alike
+  auto exchange = [](unsigned long long& k, unsigned long long o, bool keep_min) {
+    k = (o < k) == keep_min ? o : k;
+  };
+  for (int size = 2; size <= P; size <<= 1) {
+    const bool up = (base & size) == 0;
+    for (int j = size >> 1; j >= 64; j >>= 1) {  // across warps
+      __syncthreads();  // the previous exchange's reads are done
+      if (on) *vec(base) = make_ulonglong2(k0, k1);
+      __syncthreads();
+      if (on) {
+        const bool keep_min = ((base & j) == 0) == up;
+        const ulonglong2 o = *vec(base ^ j);
+        exchange(k0, o.x, keep_min);
+        exchange(k1, o.y, keep_min);
+      }
+      if (size == P) on = on && base < P / 2;
+    }
+    if (on) {
+#pragma unroll
+      for (int j = 32; j >= 2; j >>= 1) {  // within the warp
+        if (j < size) {
+          const bool keep_min = ((base & j) == 0) == up;
+          exchange(k0, __shfl_xor_sync(FULL_MASK, k0, j / 2), keep_min);
+          exchange(k1, __shfl_xor_sync(FULL_MASK, k1, j / 2), keep_min);
+        }
+      }
+      const bool swap = (k0 > k1) == up;  // j = 1, in registers
+      const unsigned long long lo = swap ? k1 : k0;
+      k1 = swap ? k0 : k1;
+      k0 = lo;
+    }
   }
-  *r0 = k0;
-  *r1 = k1;
+  __syncthreads();  // the last exchange's reads are done
+  if (on) *vec(base) = make_ulonglong2(k0, k1);
 }
 
 // ---- host side ----
@@ -302,11 +377,15 @@ cudaError_t set_smem(Kern kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// threads of an over-warps block: a whole warp a 32 paths
-inline int deep_threads(int M) { return 32 * ((M + 31) / 32); }
+// Threads of an over-warps block: one a pair of sort keys, M rounded up to
+// a power of two.  Where M is not one, the threads past M only sort pads
+// (M = 65: 128 threads, where a warp a 32 paths would take 96): two keys
+// a thread keep the sort within the 64 registers that the 1024-thread
+// launch bound allows, where four a thread made the SCL kernel spill.
+inline int deep_threads(int M) { return sort_keys(M) / 2; }
 
 // One frame a block: the blocks an SM holds at once, by the occupancy
-// calculator (shared memory, registers and the block's ceil(M/32) warps).
+// calculator (shared memory, registers and the block's `deep_threads`).
 template <typename Kern>
 int plan_deep(Kern kernel, int M, int frame_bytes, int max_block_smem, int* frames_per_block,
               int* frames_per_sm) {
@@ -320,15 +399,15 @@ int plan_deep(Kern kernel, int M, int frame_bytes, int max_block_smem, int* fram
 }
 
 // The final stable (metric, slot) rank of path m among the M metrics
-// cand[j].x, and the least rank of the paths with `ok` set (M when none has
+// metric[j], and the least rank of the paths with `ok` set (M when none has
 // it), by a min-reduction in *sel.  Every thread of the block calls it;
-// *sel must hold M, and cand[j].x path j's metric, behind a barrier.
-__device__ __forceinline__ int final_rank(const float2* cand, int M, int m, float pm, bool ok,
+// *sel must hold M, and metric[j] path j's metric, behind a barrier.
+__device__ __forceinline__ int final_rank(const float* metric, int M, int m, float pm, bool ok,
                                           int* sel, int* least) {
   int rank = 0;
   if (m < M)
     for (int j = 0; j < M; ++j) {
-      const float pj = cand[j].x;
+      const float pj = metric[j];
       rank += (pj < pm) || (pj == pm && j < m);
     }
   if (ok) atomicMin(sel, rank);

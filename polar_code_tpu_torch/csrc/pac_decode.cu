@@ -69,17 +69,19 @@
 //
 // Over warps, the instantiations pac_deep_kernel<T> (L 33..1024, a runtime
 // argument; the SCL kernel's scl_deep_kernel, with the machinery shared in
-// `list_decode.cuh`): one frame a block of ceil(L/32) warps, thread m slot
-// m.  σ is a table in shared memory, a row of 2n−2 fields a slot; a fork
-// copies the parent's row between two block barriers.  At an info phase
-// each slot publishes its two candidates, leaf, syndrome and shift
-// register; thread p counts the ranks of good p and bad L + p over all 2L
-// (`rank_pair`) and writes each survivor's layout index into trace slot
-// rank; the survivor then reads its parent's values (the edge bits from the
-// parent's leaf and register) and rewrites its own slot as 2·parent + v.
-// The selected rank is a min-reduction.  T, the width of a trace entry and
-// a σ field, is a byte up to L = 128 and 16 bits above; the trace moves to
-// global scratch where the frame would not fit a block with it.
+// `list_decode.cuh`): one frame a block of L rounded up to a power of two
+// threads, thread m slot m.  σ is a table in shared memory, a row of 2n−2
+// fields a slot; a fork copies the parent's row between two block barriers.
+// At an info phase each slot publishes its leaf, syndrome and shift
+// register, and the block sorts the 2L candidates as 64-bit keys (the
+// metric's order-preserving word above the layout index, p for good p and
+// L + p for bad p) with the SCL kernel's bitonic network
+// (`block_sort_keys`); slot m takes the key of rank m: its metric, and its
+// parent's values (the edge bits from the parent's leaf and register), and
+// writes 2·parent + v into its trace slot.  The selected rank is a
+// min-reduction.  T, the width of a trace entry and a σ field, is a byte up
+// to L = 128 and 16 bits above; the trace lives in global scratch, and
+// shared memory holds tree levels.
 //
 // Each path carries its CRC syndrome (the XOR of the 32-bit check columns,
 // in phase order, of its set bits) and its shift register in registers,
@@ -118,7 +120,8 @@
 // At an info phase the 2L candidates are laid out as [good×L, bad×L]: lane p
 // holds good candidate p (metric pm) and bad candidate L + p (pm + |leaf|).
 // Each candidate's rank in (metric, layout index) order is counted with
-// shuffles — the stable sort of the plain version — and ranks < L survive.
+// shuffles — the stable sort of the plain version — and ranks < L survive
+// (over warps, a sort of the candidates' keys in that order).
 //
 // The arithmetic is the plain version's, op for op, and none of it is
 // transcendental, so results are equal bit for bit: f = sign(a)·sign(b)·
@@ -404,7 +407,7 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) pac_decode_kernel(
 // Over warps: list sizes 33..1024, one frame a block, one thread a path.
 // ---------------------------------------------------------------------------
 
-// The PAC decode with a frame spread over the ceil(L/32) warps of a block:
+// The PAC decode with a frame spread over the warps of a block:
 // thread m < L holds slot m's metric, shift register and syndrome and its
 // two candidates, good m and bad L + m; σ is a table in shared memory
 // (`DeepSigma`), and a fork reads the parent's candidates, leaf, syndrome
@@ -416,7 +419,7 @@ __global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_kernel(
     const float* __restrict__ llr, const uint32_t* __restrict__ hcols,
     const int* __restrict__ sched, const int* __restrict__ phase_of, float* glob_llr,
     uint8_t* glob_bits,
-    T* trace_idx,  // [B, Kp, L] when the trace lives in global memory, else null
+    T* trace_idx,  // [B, Kp, L]: the trace, in global scratch
     int8_t* __restrict__ out_bits, uint8_t* __restrict__ out_pass, const int* __restrict__ out_pos,
     const int* __restrict__ u_pos, int8_t* __restrict__ list_v, int8_t* __restrict__ list_bits,
     float* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int Kp, int L,
@@ -426,18 +429,18 @@ __global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_kernel(
   const int tid = threadIdx.x, nt = blockDim.x;
   const bool act = tid < L;  // thread m < L: slot m
 
-  const DeepLayout lay = deep_layout(N, n, Kp, L, G, sizeof(T), 3, trace_idx == nullptr);
+  const DeepLayout lay = deep_layout(N, n, L, G, sizeof(T), 3);
   const int SS = (N >> G) - 1;
   const int SG = N - (N >> G);
   DeepSigma<T> sig{reinterpret_cast<T*>(smem + lay.sig), lay.sig_row / (int)sizeof(T),
-                   lay.sig_row / 16};
-  float2* cand = reinterpret_cast<float2*>(smem + lay.cand);
+                   lay.sig_row / 4};
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem + lay.keys);
   float* Ls = reinterpret_cast<float*>(smem + lay.ls);
   float* leafS = reinterpret_cast<float*>(smem + lay.words);
   uint32_t* synS = reinterpret_cast<uint32_t*>(smem + lay.words + round16(4 * L));
   unsigned* regS = reinterpret_cast<unsigned*>(smem + lay.words + 2 * round16(4 * L));
   uint8_t* Bs = smem + lay.bs;
-  T* TI = trace_idx ? trace_idx + frame * Kp * L : reinterpret_cast<T*>(smem + lay.ti);
+  T* TI = trace_idx + frame * Kp * L;
   int* selS = reinterpret_cast<int*>(smem + lay.sel);
   float* Lg = glob_llr + frame * L * SG;  // unused when G == 0
   uint8_t* Bg = glob_bits + frame * L * SG;
@@ -514,39 +517,32 @@ __global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_kernel(
       const float cg = pm;                                           // index m
       const float cb = (pm < PAC_BIG) ? pm + fabsf(leaf) : PAC_BIG;  // index L + m
       if (act) {
-        cand[tid] = make_float2(cg, cb);
         leafS[tid] = leaf;
         synS[tid] = syn;
         regS[tid] = reg;
       }
+      // thread m's keys: good m and bad m (pads from L on), whose indices m
+      // and L + m keep the plain version's layout [good×L, bad×L]
+      block_sort_keys(keys, act ? cand_key(cg, tid) : ~0ull, act ? cand_key(cb, L + tid) : ~0ull,
+                      sort_keys(L), tid);
       __syncthreads();
-      // good j (x) precedes good m for j < m and every bad one; bad L + j
-      // (y) precedes bad L + m for j < m; the candidate ranked r leaves its
-      // layout index in trace slot r
-      T* row = TI + info_i * L;
-      if (act) {
-        int rg, rb;
-        rank_pair(cand, L, cg, tid, 0, cb, L, tid, &rg, &rb);
-        if (rg < L) row[rg] = (T)tid;
-        if (rb < L) row[rb] = (T)(L + tid);
-      }
-      __syncthreads();
+      // slot m: the candidate of rank m
       int parent = 0;
       if (act) {
-        const int w = row[tid];
+        const unsigned long long key = keys[tid];
+        const int w = key_index(key);
         const int is_bad = w >= L;
         parent = is_bad ? w - L : w;
-        const float2 pc = cand[parent];
         const int hp = leafS[parent] < 0.f;
         const unsigned rp = regS[parent];
         const int bp = __popc(rp & tap_mask) & 1;
         const uint32_t sp = synS[parent];
         const int v = bp ^ hp ^ is_bad;  // good: edge == hard; bad: the other bit
-        pm = is_bad ? pc.y : pc.x;
+        pm = key_metric(key);
         edge = hp ^ is_bad;
         reg = ((rp << 1) | (unsigned)v) & mem_mask;
         syn = v ? sp ^ hc : sp;
-        row[tid] = (T)((parent << 1) | v);  // slot m is read and rewritten by thread m alone
+        TI[info_i * L + tid] = (T)((parent << 1) | v);
       }
       sig.fork(tid, parent, act);  // σ ← σ[parent] on every level
       ++info_i;
@@ -583,12 +579,13 @@ __global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_kernel(
   }
 
   // ---- final stable sort of the list, CRC selection, backtrack ----
-  if (act) cand[tid].x = pm;
+  float* metric = reinterpret_cast<float*>(keys);
+  if (act) metric[tid] = pm;
   if (tid == 0) *selS = L;
   __syncthreads();
   int least;
   const bool ok = use_crc && act && syn == 0u && pm < PAC_BIG;
-  const int frank = final_rank(cand, L, tid, pm, ok, selS, &least);
+  const int frank = final_rank(metric, L, tid, pm, ok, selS, &least);
   const int sel_rank = least < L ? least : 0;
   if (LIST) {
     int8_t* v = list_v + frame * L * N;
@@ -668,9 +665,9 @@ int launch(const Args& a, cudaStream_t stream) {
 
 template <typename T, bool LIST>
 int launch_deep_as(const Args& a, T* trace_idx, cudaStream_t stream) {
-  const DeepLayout lay = deep_layout(a.N, a.n, a.Kp, a.L, a.G, sizeof(T), 3, trace_idx == nullptr);
-  if (a.n > MAX_LEVELS || lay.sig_row > 16 * DEEP_SIGMA_VECS || lay.total != a.frame_bytes ||
-      a.frames_per_block != 1)
+  const DeepLayout lay = deep_layout(a.N, a.n, a.L, a.G, sizeof(T), 3);
+  if (!trace_idx || a.n > MAX_LEVELS || lay.sig_row > 4 * DEEP_SIGMA_WORDS ||
+      lay.total != a.frame_bytes || a.frames_per_block != 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = set_smem(pac_deep_kernel<T, LIST>, lay.total);
   if (err != cudaSuccess) return (int)err;

@@ -72,23 +72,29 @@
 //     (n, LM).  Lane p holds candidates 2p and 2p + 1, and counts each one's
 //     rank over the 2M candidates: 64 at M = 32, two a lane.
 //   * Over warps, the instantiations scl_deep_kernel<T> (M 33..1024, a
-//     runtime argument): one frame a block of ceil(M/32) warps, thread m
-//     path m.  One path a lane is what caps the layouts above at 32: their
+//     runtime argument): one frame a block of M rounded up to a power of
+//     two threads (`deep_threads`: one a pair of sort keys), thread m path
+//     m.  One path a lane is what caps the layouts above at 32: their
 //     exchanges between paths (σ reads, the fork, the rank, the parent's
 //     metric, leaf and syndrome, the final rank and the CRC selection) are
 //     warp shuffles and 32-bit ballots.  Here each is a shared-memory write,
 //     a block barrier and a read (`list_decode.cuh`).  σ is a table, a row
-//     of 2n−2 fields a path (16-48 bytes, `DeepSigma`): a read through σ is
+//     of 2n−2 fields a path (4-48 bytes, `DeepSigma`): a read through σ is
 //     one load of the path's field, a reset writes the thread's own row, and
 //     a fork copies the parent's row through registers between two
-//     barriers.  Each path publishes its two candidates, leaf and syndrome
-//     at an info phase; thread p counts the ranks of candidates 2p and
-//     2p + 1 over all 2M (`rank_pair`, broadcast reads, O(M) a thread: the
-//     stable order, exactly), and the survivor of rank r reads its parent's
-//     values after the barrier.  The selected rank is a min-reduction
-//     (`final_rank`, an atomicMin in shared memory) where the 32-bit mask
-//     of the warp layouts would overflow.  T, the width of a trace entry
-//     2p+b < 2M and of a σ field, is a byte up to M = 128 and 16 bits above.
+//     barriers.  At an info phase each path publishes its leaf and syndrome,
+//     and the block sorts the 2M candidates as 64-bit keys (the metric's
+//     order-preserving word above the index 2p + b), padded to a power of two,
+//     with a bitonic network (`block_sort_keys`: a thread's two keys in
+//     registers, shuffles within a warp, shared memory behind barriers only
+//     across warps; O(log² M) steps a thread, where counting each candidate's
+//     rank over all 2M takes O(M)).  The keys are unique, so the order is the
+//     plain version's stable sort exactly, and survivor m takes the key of rank
+//     m, its metric back from the key and its parent's leaf and syndrome after
+//     the barrier.  The selected rank is a min-reduction (`final_rank`, an
+//     atomicMin in shared memory) where the 32-bit mask of the warp layouts
+//     would overflow.  T, the width of a trace entry 2p+b < 2M and of a σ
+//     field, is a byte up to M = 128 and 16 bits above.
 //
 // Layout.  One warp decodes one frame and a block holds a few frames (over
 // warps: one block a frame).  Levels
@@ -110,10 +116,12 @@
 // The trace indices stay in shared memory at every G up to M = 32, since the
 // final walk reads them at random: K·M bytes, 32 KB at N=8192 M=8 (6 frames
 // an SM) and 128 KB at N=8192 M=32 (1).  Over warps a frame also holds its σ
-// table, candidates, leaf and syndrome (`deep_layout`), and the trace
-// indices (K·M entries of T: 128 KB at P(128,64) M=1024, 256 KB at
-// P(1024,512) M=256) move to global scratch beside TL where the frame would
-// not fit a block with them at G = n−1 (`ops/scl_cuda.py::trace_in_smem`).
+// table, sort keys, leaf and syndrome (`deep_layout`), and the trace
+// indices (K·M entries of T: 128 KB at P(128,64) M=1024) go to global
+// scratch beside TL, so that shared memory holds tree levels: with them
+// there, the sort keys pushed K3's L=256 frame to G = 6, 17.4 ms at B=4096
+// on an H100, against 7.0 ms at the G = 2 the occupancy policy picks with
+// them in global scratch (`tools/time_deep_lists.py`, `PERF.md`).
 // `ops/scl_cuda.py::check_shape` refuses a shape whose frame overfills a
 // block even at G = n−1.
 // A phase's schedule is one word, loaded a phase ahead.  Lanes split each
@@ -666,7 +674,7 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) scl_path_kernel(
 // Over warps: list sizes 33..1024, one frame a block, one thread a path.
 // ---------------------------------------------------------------------------
 
-// The SCL decode with a frame spread over the ceil(M/32) warps of a block:
+// The SCL decode with a frame spread over the warps of a block:
 // thread m < M holds path m's metric and syndrome and its two candidates 2m
 // and 2m+1; σ is a table in shared memory (`DeepSigma`), and each exchange
 // between paths is a shared-memory write, a block barrier and a read.  T is
@@ -677,7 +685,7 @@ __global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_kernel(
     const float* __restrict__ llr, const int8_t* __restrict__ forced,
     const uint32_t* __restrict__ hcols, const int* __restrict__ sched, float* glob_llr,
     uint8_t* glob_bits, float* trace_llr,
-    T* trace_idx,  // [B, K, M] when the trace indices live in global memory, else null
+    T* trace_idx,  // [B, K, M]: the trace indices, in global scratch
     int8_t* __restrict__ out_bits, float* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,
     int8_t* __restrict__ list_bits, float* __restrict__ list_llrs, float* __restrict__ list_metrics,
     int* __restrict__ list_best, int N, int n, int K, int M, int G, int use_crc) {
@@ -686,17 +694,17 @@ __global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_kernel(
   const int tid = threadIdx.x, nt = blockDim.x;
   const bool act = tid < M;  // thread m < M: path m
 
-  const DeepLayout lay = deep_layout(N, n, K, M, G, sizeof(T), 2, trace_idx == nullptr);
+  const DeepLayout lay = deep_layout(N, n, M, G, sizeof(T), 2);
   const int SS = (N >> G) - 1;
   const int SG = N - (N >> G);
   DeepSigma<T> sig{reinterpret_cast<T*>(smem + lay.sig), lay.sig_row / (int)sizeof(T),
-                   lay.sig_row / 16};
-  float2* cand = reinterpret_cast<float2*>(smem + lay.cand);
+                   lay.sig_row / 4};
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem + lay.keys);
   float* Ls = reinterpret_cast<float*>(smem + lay.ls);
   float* leafS = reinterpret_cast<float*>(smem + lay.words);
   uint32_t* synS = reinterpret_cast<uint32_t*>(smem + lay.words + round16(4 * M));
   uint8_t* Bs = smem + lay.bs;
-  T* TI = trace_idx ? trace_idx + frame * K * M : reinterpret_cast<T*>(smem + lay.ti);
+  T* TI = trace_idx + frame * K * M;
   int* selS = reinterpret_cast<int*>(smem + lay.sel);
   float* Lg = glob_llr + frame * M * SG;  // unused when G == 0
   uint8_t* Bg = glob_bits + frame * M * SG;
@@ -762,29 +770,22 @@ __global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_kernel(
       if (fb == 1) c0 = SCL_BIG;
       if (fb == 0) c1 = SCL_BIG;
       if (act) {
-        cand[tid] = make_float2(c0, c1);
         leafS[tid] = leaf;
         synS[tid] = syn;
       }
+      // thread m's keys: candidates 2m and 2m+1 (pads from M on)
+      block_sort_keys(keys, act ? cand_key(c0, 2 * tid) : ~0ull,
+                      act ? cand_key(c1, 2 * tid + 1) : ~0ull, sort_keys(M), tid);
       __syncthreads();
-      // candidates 2j (x) and 2j+1 (y): 2m ranks after both of path j < m,
-      // 2m+1 after 2j for j <= m and after 2j+1 for j < m; the candidate
-      // ranked r goes to trace slot r
-      T* row = TI + info_i * M;
-      if (act) {
-        int r0, r1;
-        rank_pair(cand, M, c0, tid, tid, c1, tid + 1, tid, &r0, &r1);
-        if (r0 < M) row[r0] = (T)(2 * tid);
-        if (r1 < M) row[r1] = (T)(2 * tid + 1);
-      }
-      __syncthreads();
+      // survivor m: the candidate of rank m, into trace slot m
       int parent = 0;
       if (act) {
-        const int w = row[tid];
+        const unsigned long long key = keys[tid];
+        const int w = key_index(key);
+        TI[info_i * M + tid] = (T)w;
         parent = w >> 1;
         bit = w & 1;
-        const float2 pc = cand[parent];
-        pm = bit ? pc.y : pc.x;
+        pm = key_metric(key);
         TL[info_i * M + tid] = leafS[parent];
         syn = bit ? synS[parent] ^ hc : synS[parent];
       }
@@ -823,12 +824,13 @@ __global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_kernel(
   }
 
   // ---- final stable sort of the list, CRC selection, backtrack ----
-  if (act) cand[tid].x = pm;
+  float* metric = reinterpret_cast<float*>(keys);
+  if (act) metric[tid] = pm;
   if (tid == 0) *selS = M;
   __syncthreads();
   int least;
   const bool ok = use_crc && act && syn == 0u && pm < SCL_BIG;
-  const int frank = final_rank(cand, M, tid, pm, ok, selS, &least);
+  const int frank = final_rank(metric, M, tid, pm, ok, selS, &least);
   const int sel_rank = least < M ? least : 0;
   if (LIST) {
     if (act) {
@@ -928,9 +930,9 @@ int launch_path(const Args& a, int M, cudaStream_t stream) {
 
 template <typename T, bool LIST>
 int launch_deep_as(const Args& a, int M, T* trace_idx, cudaStream_t stream) {
-  const DeepLayout lay = deep_layout(a.N, a.n, a.K, M, a.G, sizeof(T), 2, trace_idx == nullptr);
-  if (a.n > MAX_LEVELS || lay.sig_row > 16 * DEEP_SIGMA_VECS || lay.total != a.frame_bytes ||
-      a.frames_per_block != 1)
+  const DeepLayout lay = deep_layout(a.N, a.n, M, a.G, sizeof(T), 2);
+  if (!trace_idx || a.n > MAX_LEVELS || lay.sig_row > 4 * DEEP_SIGMA_WORDS ||
+      lay.total != a.frame_bytes || a.frames_per_block != 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = set_smem(scl_deep_kernel<T, LIST>, lay.total);
   if (err != cudaSuccess) return (int)err;

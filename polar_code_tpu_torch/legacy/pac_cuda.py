@@ -19,7 +19,7 @@ kernel took power-of-two L <= 8, and the JAX package's XLA decoder takes the
 rest), N up to 8192, and any batch size: the last block is masked, since
 the adaptive second stage re-decodes a ragged set of failed frames.  Up to
 L=32 one path is a lane of a warp; from 33 to 1024 a frame is spread over
-the ceil(L/32) warps of a block, one thread a path (the over-warps
+the warps of a block, one thread a path (the over-warps
 instantiation).  `pac_list_decode_cuda.launches` counts kernel launches,
 `pac_list_decode_cuda.list_launches` those of them that went to a list
 instantiation and `pac_list_decode_cuda.deep_launches` those that went to
@@ -36,9 +36,8 @@ serial chain of phases, hidden by keeping many frames on an SM: a frame
 keeps tree levels G+1..n and its trace in shared memory, and levels 1..G go
 to a global scratch allocated here for each call, G by the occupancy
 calculator (`launch_plan`, the SCL kernel's policy
-`ops/scl_cuda.py::smallest_global_levels`).  Over warps the trace moves to
-global scratch where a frame would not fit a block with it
-(`ops/scl_cuda.py::trace_in_smem`, as in the SCL kernel).
+`ops/scl_cuda.py::smallest_global_levels`).  Over warps the trace goes to
+global scratch, as in the SCL kernel, and the shared memory to tree levels.
 
 The envelope: a shape is taken where its frame fits a block at some G, that
 is with every level but the leaf in global scratch (`check_shape`); a shape
@@ -57,7 +56,7 @@ import torch
 from .. import _build
 from ..ops.crc import check_matrix
 from ..ops.scl_cuda import (MAX_BLOCK_SMEM, MAX_N, PATH_MAX_M, SIGMA_FIELDS, deep_frame_bytes,
-                             smallest_global_levels, trace_entry_bytes, trace_in_smem)
+                             smallest_global_levels, trace_entry_bytes)
 from ..ops.scl_schedule import phase_words
 from .pac import bitrev_perm, pac_list_decode_batch
 
@@ -74,12 +73,10 @@ def frame_bytes(N: int, Kp: int, L: int, global_levels: int = 0) -> int:
     """Shared memory one frame's decode state takes, rounded to 16 bytes: up
     to L=32 the LLR rows (float32) and edge-bit rows (bytes) of levels
     global_levels+1..n, and the trace (bytes); over warps
-    `ops/scl_cuda.py::deep_frame_bytes`, with the trace where
-    `trace_in_smem` puts it."""
+    `ops/scl_cuda.py::deep_frame_bytes` (the trace in global scratch)."""
 
     if L > PATH_MAX_M:
-        return deep_frame_bytes(N, Kp, L, global_levels, trace_in_smem(N, Kp, L, DEEP_WORDS),
-                                DEEP_WORDS)
+        return deep_frame_bytes(N, L, global_levels, DEEP_WORDS)
     row = (N >> global_levels) - 1
     raw = 4 * L * row + L * row + Kp * L
     return (raw + 15) // 16 * 16
@@ -206,7 +203,7 @@ def _plan(mask_key: bytes, gen: tuple, L: int, crc_len: int, crc_poly: int, dtyp
     positions = np.flatnonzero(mask == 1)
     list_tables = (torch.as_tensor(out_pos, device=device),
                    torch.as_tensor(positions[out_pos].astype(np.int32), device=device))
-    ti_dtype = (None if trace_in_smem(N, Kp, L, DEEP_WORDS)
+    ti_dtype = (None if L <= PATH_MAX_M
                 else torch.uint8 if trace_entry_bytes(L) == 1 else torch.int16)
     return (N, Kp, L, G, fpb, *tables, (1 << (len(gen) - 1)) - 1, tap_mask, int(crc_len > 0),
             frame_bytes(N, Kp, L, G), list_tables, ti_dtype)

@@ -34,11 +34,12 @@ nothing.
 Memory.  A frame keeps tree levels G+1..n of its M paths in shared memory;
 levels 1..G and the trace LLRs go to a global scratch allocated here for
 each call.  The trace indices stay in shared memory up to M=32 (K·M bytes);
-over warps (entries of `trace_entry_bytes(M)`, with the σ table and the
-published candidates, `deep_frame_bytes`) they move to global scratch where
-the frame would not fit a block with them (`trace_in_smem`: P(1024,512) at
-M=256, for one).  `launch_plan` asks the CUDA occupancy calculator for the
-smallest G at which an SM holds `FRAMES_PER_SM_TARGET` frames
+over warps (entries of `trace_entry_bytes(M)`) they go to global scratch,
+written once an info phase and read once at the end, so that a frame's
+shared memory (the σ table, the sort keys of the candidates and the tree
+levels, `deep_frame_bytes`) goes to tree levels.  `launch_plan` asks the
+CUDA occupancy calculator for the smallest G at which an SM holds
+`FRAMES_PER_SM_TARGET` frames
 (`smallest_global_levels`, which the PAC kernel's wrapper shares), and for
 the frames a block that hold the most.
 """
@@ -62,8 +63,8 @@ SOURCE = "scl_decode.cu"
 MAX_M = 1024  # one thread a path, a block at most
 SUPPORTED_M = tuple(range(1, MAX_M + 1))
 # the largest list size decoded one path a lane of a warp; above it a frame
-# is spread over the ceil(M/32) warps of a block (`DEEP_MIN_M` in
-# `csrc/list_decode.cuh`)
+# is spread over the warps of a block of M rounded up to a power of two
+# threads (`DEEP_MIN_M` and `deep_threads` in `csrc/list_decode.cuh`)
 PATH_MAX_M = 32
 # the list sizes of the byte-word instantiations, which the sweeps launch;
 # every other M goes through the by-path instantiation of M rounded up to a
@@ -97,41 +98,36 @@ def trace_entry_bytes(M: int) -> int:
     return 1 if M <= 128 else 2
 
 
-def deep_frame_bytes(N: int, K: int, M: int, global_levels: int, trace_in_smem: bool,
-                     words: int = 2) -> int:
+def sort_keys(M: int) -> int:
+    """Keys a fork sorts over warps: the 2M candidates padded to a power of
+    two (`sort_keys` in `csrc/list_decode.cuh`)."""
+
+    return 1 << (2 * M - 1).bit_length()
+
+
+def deep_frame_bytes(N: int, M: int, global_levels: int, words: int = 2) -> int:
     """Shared memory one frame takes over warps (`deep_layout` in
     `csrc/list_decode.cuh`), each region rounded to 16 bytes: the σ table
-    (2n−2 fields a path), the candidates (float2 a path), the LLR rows
-    (float32) of levels global_levels+1..n, `words` published 32-bit values
-    a path (SCL 2, PAC 3), the partial-sum rows (bytes), the trace indices
-    when they stay in shared memory, and the selected rank."""
+    (2n−2 fields a path, a row rounded to 4 bytes), the sort keys
+    (`sort_keys(M)` of 8 bytes), the LLR rows (float32) of levels
+    global_levels+1..n, `words` published 32-bit values a path (SCL 2, PAC
+    3), the partial-sum rows (bytes) and the selected rank."""
 
     n = int(math.log2(N))
     row = (N >> global_levels) - 1
-    eb = trace_entry_bytes(M)
-    sig_row = max(16, _round16((2 * n - 2) * eb))
-    return (M * sig_row + _round16(8 * M) + _round16(4 * M * row) + words * _round16(4 * M)
-            + _round16(M * row) + (_round16(K * M * eb) if trace_in_smem else 0) + 16)
-
-
-def trace_in_smem(N: int, K: int, M: int, words: int = 2) -> bool:
-    """Whether the trace indices stay in shared memory: always up to M=32,
-    and over warps where the frame fits a block with them at G = n−1."""
-
-    if M <= PATH_MAX_M:
-        return True
-    n = int(math.log2(N))
-    return deep_frame_bytes(N, K, M, n - 1, True, words) <= MAX_BLOCK_SMEM
+    sig_row = max(4, ((2 * n - 2) * trace_entry_bytes(M) + 3) // 4 * 4)
+    return (_round16(M * sig_row) + 8 * sort_keys(M) + _round16(4 * M * row)
+            + words * _round16(4 * M) + _round16(M * row) + 16)
 
 
 def frame_bytes(N: int, K: int, M: int, global_levels: int = 0) -> int:
     """Shared memory one frame's decode state takes, rounded to 16 bytes: up
     to M=32 the LLR rows (float32) and partial-sum rows (bytes) of levels
     global_levels+1..n, and the trace indices (bytes); over warps
-    `deep_frame_bytes`, with the trace where `trace_in_smem` puts it."""
+    `deep_frame_bytes`."""
 
     if M > PATH_MAX_M:
-        return deep_frame_bytes(N, K, M, global_levels, trace_in_smem(N, K, M))
+        return deep_frame_bytes(N, M, global_levels)
     row = (N >> global_levels) - 1
     raw = 4 * M * row + M * row + K * M
     return _round16(raw)
@@ -146,10 +142,10 @@ def path_width(M: int) -> int:
 
 def scratch_bytes(B: int, N: int, K: int, M: int, global_levels: int) -> int:
     """Global scratch one launch allocates: the LLR and partial-sum rows of
-    levels 1..G and the trace LLRs of every frame, and the trace indices
-    where they leave shared memory (`trace_in_smem`)."""
+    levels 1..G and the trace LLRs of every frame, and over warps the trace
+    indices."""
 
-    ti = 0 if trace_in_smem(N, K, M) else B * K * M * trace_entry_bytes(M)
+    ti = B * K * M * trace_entry_bytes(M) if M > PATH_MAX_M else 0
     return B * M * (N - (N >> global_levels)) * 5 + B * K * M * 4 + ti
 
 
@@ -308,8 +304,8 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
             glob_llr = torch.empty((B, M, row), dtype=torch.float32, device=dev) if G else None
             glob_bits = torch.empty((B, M, row), dtype=torch.uint8, device=dev) if G else None
             trace_llr = torch.empty((B, K, M), dtype=torch.float32, device=dev)
-            trace_idx = (None if trace_in_smem(N, K, M)
-                         else torch.empty((B, K, M), dtype=ti_dtype, device=dev))
+            trace_idx = (torch.empty((B, K, M), dtype=ti_dtype, device=dev) if M > PATH_MAX_M
+                         else None)
         except torch.cuda.OutOfMemoryError as exc:
             raise RuntimeError(
                 f"the SCL kernel's global scratch for B={B} N={N} K={K} M={M} is "
@@ -346,7 +342,7 @@ decode_scl_cuda.path_launches = 0  # of them, launches of the by-path instantiat
 decode_scl_cuda.deep_launches = 0  # of them, launches of the over-warps instantiation
 
 
-__all__ = ["decode_scl_cuda", "check_shape", "frame_bytes", "deep_frame_bytes", "trace_in_smem",
+__all__ = ["decode_scl_cuda", "check_shape", "frame_bytes", "deep_frame_bytes", "sort_keys",
            "trace_entry_bytes", "launch_plan", "smallest_global_levels", "path_width",
            "scratch_bytes", "SUPPORTED_M", "BYTE_WORD_M", "MAX_M", "PATH_MAX_M", "MAX_N",
            "SIGMA_FIELDS"]

@@ -1,0 +1,103 @@
+#!/usr/bin/env python3
+"""Hold the over-warps list decoders of one checkout to another's, bit for bit.
+
+    python tools/compare_deep_lists.py --repo DIR --save FILE.npz
+    python tools/compare_deep_lists.py [--repo DIR] --compare FILE.npz
+
+DIR (default: this checkout) is the root of the checkout whose
+`polar_code_tpu_torch` is imported and built into DIR/build.  Each run
+decodes the same inputs (numpy draws, seed 123, through this checkout's
+`chip_smoke.py` helpers) with the SCL kernel K1 at P(128,64) CRC-24A M 33,
+64, 65, 100, 129, 256 and 1024, P(1024,512) M=256 and P(32,28) M=64, with
+and without a forced plan, and with the PAC kernel K3 at PAC(128,64)+CRC-16
+L 33, 64, 65, 100, 129, 256 and 1024 and PAC(32,12) L=64, B=37 frames each,
+every output of the list launch and of the best-only one.  `--save` writes
+them to FILE; `--compare` holds them to FILE's, byte for byte, and each
+case to the plain PyTorch version (`chip_smoke.py`'s judges: K1 outside
+near-ties, K3 every field).  To compare a change with its parent, run both
+on one card in one go; FILE holds every output (over 64 MiB: the full
+lists at M=1024).  Prints the card's `nvidia-smi` line and exits non-zero
+on any difference.
+"""
+
+import argparse
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--repo", default=str(HERE), help="checkout whose kernels run")
+    mode = ap.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--save", help="write the outputs to this .npz")
+    mode.add_argument("--compare", help="hold the outputs to this .npz and to the plain versions")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.repo).resolve()))
+    import faulthandler
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    # this checkout's chip_smoke.py, whatever DIR holds; it arms a watchdog
+    # when imported, which this run does not need
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    faulthandler.cancel_dump_traceback_later()
+    from polar_code_tpu_torch.legacy import pac_cuda
+    from polar_code_tpu_torch.ops import scl_cuda
+    from polar_code_tpu_torch.polar.construct import construct_info_set
+
+    if not torch.cuda.is_available():
+        print("compare_deep_lists: no CUDA device is available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    outs = {}
+    rng = np.random.default_rng(123)
+
+    def keep(tag, full, best):
+        torch.cuda.synchronize()
+        for f, v in list(full.items()) + [(f"best/{f}", v) for f, v in best.items()]:
+            outs[f"{tag}|{f}"] = v.cpu().numpy()
+
+    k1 = [(128, 64, M) for M in (33, 64, 65, 100, 129, 256, 1024)] + [(1024, 512, 256), (32, 28, 64)]
+    for n, k, M in k1:
+        info = construct_info_set(n, k, method="gaussian" if n == 128 else "gaussian_bitrev")
+        llr, msg = cs.make_llrs(rng, 37, 2.5, info, n=n)
+        x = torch.from_numpy(llr).to(dev)
+        plan = torch.from_numpy(cs.random_plan(rng, msg)).to(dev)
+        for p in (None, plan):
+            tag = f"K1 P({n},{k}) M={M} plan={'on' if p is not None else 'off'}"
+            keep(tag, scl_cuda.decode_scl_cuda(x, info, M, cs.CRC, force_info_bits=p, full=True),
+                 scl_cuda.decode_scl_cuda(x, info, M, cs.CRC, force_info_bits=p))
+            if args.compare:
+                cs.k1_vs_plain(x, info, M, cs.CRC, p, tag)
+    for n, k, L in [(128, 64, L) for L in (33, 64, 65, 100, 129, 256, 1024)] + [(32, 12, 64)]:
+        mask = cs.pac_mask(n, k + cs.PAC_CRC[0])
+        x = cs.pac_llrs(rng, 37, 2.0, (n, k, cs.PAC_CRC), cs.PAC_GEN, mask, dev)
+        tag = f"K3 PAC({n},{k}) L={L}"
+        full = pac_cuda.pac_list_decode_cuda(x, mask, cs.PAC_GEN, L, *cs.PAC_CRC, full=True)
+        keep(tag, full, pac_cuda.pac_list_decode_cuda(x, mask, cs.PAC_GEN, L, *cs.PAC_CRC))
+        if args.compare:
+            cs.k3_list_vs_plain(x, mask, cs.PAC_GEN, L, *cs.PAC_CRC, tag, out=full)
+    print(cs.nvidia_smi_line())
+    if args.save:
+        np.savez(args.save, **outs)
+        print(f"saved {len(outs)} arrays of {len(k1) * 2} K1 and 8 K3 cases to {args.save}")
+        return 0
+    with np.load(args.compare) as ref:
+        differ = [t for t, v in outs.items()
+                  if t not in ref or ref[t].shape != v.shape
+                  or not np.array_equal(ref[t].view(np.uint8), v.view(np.uint8))]
+    for t in differ:
+        print(f"  differs from {args.compare}: {t}")
+    print(f"{len(outs)} arrays, {len(differ)} differ byte for byte; every case equal to the plain "
+          f"version (K1 outside near-ties)")
+    return 1 if differ else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

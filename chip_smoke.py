@@ -149,11 +149,15 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    one frame each equal to the plain version, and float64 raising on the
    card; (e) `decode_scl`'s time a call and K1's full-list launch beside
    its best-only launch;
-13. the wide envelope (`wide_envelope`): K1's launch plan at every new
-   shape; (a) K1's by-path instantiation against the plain version, list
-   and best-only, at P(128,64) CRC-24A M ∈ {3, 16, 32}, B=1001, CRC on and
-   off, plan on and off, and at P(1024,512) M=16 B=256; (b) K1 at N=4096
-   (M 1, 4, 8, 16) and N=8192 (M 1, 4, 8, 16, 32), 32 frames each, against
+13. the wide envelope (`wide_envelope`): the `-Xptxas -v` registers and
+   spills of the six by-path instantiations (one that spills fails the
+   phase), K1's launch plan at every new shape (at B=4096); (a) K1's
+   by-path instantiation against the plain version, list and best-only,
+   at P(128,64) CRC-24A M ∈ {3, 16, 32}, B=1001, CRC on and off, plan on
+   and off, and at P(1024,512) M=16 B=256; (b) K1 at N=4096 (M 1, 4, 8,
+   16) and N=8192 (M 1, 4, 8, 16, 32), 32 frames each, and by path at
+   N=8192 K=8000 M=32 and K=8192 M=29 (K·M trace bytes past a block,
+   which the trace indices in global scratch take), 4 frames each, against
    the plain version; (c) K1 against the JAX float32 decoder, every case of
    `tests/golden/scl_f32_wide.npz` (written on the CPU by
    `tests/golden/make_scl_f32_wide.py`: P(128,64) at M 3, 16, 32 and
@@ -171,9 +175,16 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    K3's list launch (`pac_list_decode_cuda(..., full=True)`) on the
    systematic decoder's frames, every list field (`extracted`, `crc_pass`,
    `v_full`, `candidates`, `metrics`, `valid`, `best_index`) equal to the
-   plain version's; (f) times with CUDA events: K1 at P(128,64) B=4096 M
-   16 and 32 beside M=8, at P(4096,2048) and P(8192,4096) M=4 B=1024, K3's
-   list launch beside its best-only one at PAC(128,64)+CRC-16 L=8 B=4096
+   plain version's; (f) times with CUDA events: K1 by path at `PATH_TIMES`
+   (P(128,64) M 3, 16 and 32 at B 4096, 400 and 1; P(1024,512) M=16 and
+   P(8192,4096) M=32 at B=1024), each with its launch plan (G, frames a
+   block and an SM) and bound, and on the same inputs at each shape's
+   launch plan, list and best-only, against the plain version (P(8192,4096)
+   on 8 frames at the B=1024 plan; the plan depends on B, so these are the
+   plans of the FER CLI's B=4096 launches and of the timed batches, which
+   (a)–(c) at smaller batches do not run), beside byte-word M=8 at
+   B=4096; K1 at P(4096,2048) and P(8192,4096) M=4 B=1024, K3's list
+   launch beside its best-only one at PAC(128,64)+CRC-16 L=8 B=4096
    (and every list field there equal to the plain version's), and K2
    without early stop beside early stop at QC-IRA 4×8 Z=31 two-min B=4096
    (and its bits, iterations and parity there equal to the plain
@@ -1192,18 +1203,26 @@ def k3_list_vs_plain(x, mask, gen, L, crc_len, crc_poly, tag, out=None, ref=None
     return err
 
 
-def k1_vs_plain(llr, info, M, crc, plan, tag):
+def k1_vs_plain(llr, info, M, crc, plan, tag, launch_b=None):
     """K1's list and best-only launches against the plain version on the
     same card tensors (`judge_list`): ((frames differing, near-ties, max
-    |info LLR diff|) of the list, the same of best-only)."""
+    |info LLR diff|) of the list, the same of best-only).  With `launch_b`,
+    K1 runs the launch plan of a batch of launch_b frames on the frames
+    given: a few frames of a large batch's launch."""
 
     import torch
 
+    from polar_code_tpu_torch.ops import scl_cuda
     from polar_code_tpu_torch.ops.scl import decode_scl_batch
-    from polar_code_tpu_torch.ops.scl_cuda import decode_scl_cuda
 
-    out = decode_scl_cuda(llr, info, M, crc, force_info_bits=plan, full=True)
-    best = decode_scl_cuda(llr, info, M, crc, force_info_bits=plan)
+    if launch_b is None:
+        out = scl_cuda.decode_scl_cuda(llr, info, M, crc, force_info_bits=plan, full=True)
+        best = scl_cuda.decode_scl_cuda(llr, info, M, crc, force_info_bits=plan)
+    else:
+        G, fpb, _ = scl_cuda.launch_plan(llr.shape[1], len(info), M, launch_b)
+        info_np = np.asarray(info, np.int64)
+        out = scl_cuda._launch(llr, info_np, M, crc, plan, G, fpb, full=True)
+        best = scl_cuda._launch(llr, info_np, M, crc, plan, G, fpb)
     torch.cuda.synchronize()
     ref = plain_fields(decode_scl_batch(llr, info, M, crc, force_info_bits=plan, dtype=torch.float32))
     res = judge_list(out, ref, tag)
@@ -1457,12 +1476,81 @@ WIDE_MS = (3, 16, 32)  # (a): P(128,64) list sizes, B=1001 (ragged)
 WIDE_B = 1001
 WIDE_N = [(4096, 2048, M) for M in (1, 4, 8, 16)] + [(8192, 4096, M) for M in (1, 4, 8, 16, 32)]  # (b)
 WIDE_N_FRAMES = 32  # (b): the plain version takes seconds a batch at N=8192
+# (b): by path at N=8192 with K·M trace bytes past a block (the trace indices
+# in global scratch take them), a few frames each
+WIDE_N_TRACE = ((8192, 8000, 32), (8192, 8192, 29))
+WIDE_N_TRACE_FRAMES = 4
 # (d): list size: its two Eb/N0 points (dB), where the SCL FER is about 1e-1
 # to 1e-2; tests/golden/fer_wide/fer_M{M}.csv, 40960 frames a point
 WIDE_FER = {16: (4.0, 4.5), 32: (3.5, 4.0)}
 WIDE_FER_FRAMES = 40960
 SYSTEMATIC_LS = (1, 4, 32)  # (e): PolarCode(64, 48, "dega", L), systematic
 WIDE_TIME_B = (4096, 1024)  # (f): frames of the P(128,64), PAC and LDPC times; of N 4096 and 8192
+# (f): K1 by path, (N, K, construction, Eb/N0 dB, M, B, timed launches): a
+# FER step's baseline (B=4096), a retry batch (B=400) and a scalar call
+# (B=1) at P(128,64), and P(1024,512) and P(8192,4096) at B=1024;
+# `tools/time_path_lists.py` times the same shapes
+PATH_TIMES = ([(N, K, "gaussian", 5.0, M, B, reps) for B, reps in ((4096, 10), (400, 20), (1, 20))
+               for M in WIDE_MS]
+              + [(1024, 512, "gaussian_bitrev", 1.75, 16, 1024, 3),
+                 (8192, 4096, "gaussian_bitrev", 1.5, 32, 1024, 2)])
+PATH_CHECK_FRAMES = 8  # (f): frames of P(8192,4096) held to the plain version at the B=1024 plan
+
+
+def path_inputs(dev):
+    """PATH_TIMES' inputs, from numpy (seed 5): {(N, K): (info set, LLRs of
+    the most frames a shape of that code takes, on `dev`)}."""
+
+    import torch
+
+    from polar_code_tpu_torch.polar.construct import construct_info_set
+
+    rng = np.random.default_rng(5)
+    inputs = {}
+    for n, k, method, snr, _, _, _ in PATH_TIMES:
+        if (n, k) not in inputs:
+            info = construct_info_set(n, k, method=method)
+            b_max = max(t[5] for t in PATH_TIMES if t[:2] == (n, k))
+            inputs[n, k] = info, torch.from_numpy(make_llrs(rng, b_max, snr, info, n=n)[0]).to(dev)
+    return inputs
+
+
+def time_by_path(dev, plan_of, label="", sweep=False):
+    """K1 by path at PATH_TIMES with CUDA events (`path_inputs`):
+    prints a line a shape — its time, its bound, the launch plan `plan_of(N,
+    K, M, B)` gives (tree levels in global scratch G, frames a block, frames
+    an SM) — and with `sweep` the shapes of B > 1 at every other G within two
+    of the plan's (`scl_cuda._launch`).  Returns {tag: (ms, bound ms, bound
+    by, plan)}, and the tag of each G sweep point with its ms."""
+
+    from polar_code_tpu_torch.ops import scl_cuda
+
+    inputs, out = path_inputs(dev), {}
+    for n, k, method, snr, M, B, reps in PATH_TIMES:
+        info, llr = inputs[n, k]
+        x = llr[:B]
+        tag = f"K1 P({n},{k}) M={M} B={B}"
+        plan = plan_of(n, k, M, B)
+        fn = lambda: scl_cuda.decode_scl_cuda(x, info, M, CRC)  # noqa: E731
+        fn()  # builds the kernel at its first call
+        ms = cuda_time_ms(fn, reps=reps, warmup=1)
+        b_ms, b_by = bound(*scl_work(info, M, B, n=n, k=k))
+        out[tag] = (ms, b_ms, b_by, plan)
+        print(f"  {label}{tag} CRC {snr} dB (by path, LM={scl_cuda.path_width(M)}): {ms:.4f} ms "
+              f"({reps} launches); bound {b_ms:.6f} ms ({b_by}), {ms / b_ms:.0f}x; G={plan[0]}, "
+              f"{plan[1]} frames a block, {plan[2]} frames an SM", flush=True)
+        if sweep and B > 1:
+            info_np = np.asarray(info, np.int64)
+            for g in range(max(0, plan[0] - 2), min(int(math.log2(n)) - 1, plan[0] + 2) + 1):
+                g_fpb, g_per_sm = scl_cuda._occupancy(n, k, M, g)
+                if g == plan[0] or g_per_sm == 0:
+                    continue
+                fn = lambda g=g, f=g_fpb: scl_cuda._launch(x, info_np, M, CRC, None, g, f)  # noqa: E731
+                g_ms = cuda_time_ms(fn, reps=reps, warmup=1)
+                out[f"{tag} G={g}"] = g_ms
+                print(f"  {label}  {tag} at G={g}: {g_ms:.4f} ms; {g_fpb} frames a block, {g_per_sm} "
+                      f"frames an SM", flush=True)
+    return out
 
 
 def wide_envelope(dev, smi):
@@ -1474,6 +1562,7 @@ def wide_envelope(dev, smi):
 
     import torch
 
+    from polar_code_tpu_torch import _build
     from polar_code_tpu_torch.eval import run_fer_sweep
     from polar_code_tpu_torch.legacy.crclib import crc as legacy_crc
     from polar_code_tpu_torch.legacy.pac import pac_list_decode_batch
@@ -1503,12 +1592,18 @@ def wide_envelope(dev, smi):
         return (decode_scl_cuda.path_launches, decode_ldpc_nms_cuda.no_stop_launches,
                 pac_list_decode_cuda.list_launches)
 
-    for n_s, k_s, M in [(N, K, M) for M in WIDE_MS] + [(1024, 512, 16)] + WIDE_N:
-        g, fpb, per_sm = scl_cuda.launch_plan(n_s, k_s, M)
+    for row in ptxas_report(_build.build(scl_cuda.SOURCE).log):  # built in phase 2: the kept log
+        if "scl_path_kernel" in row["entry"]:
+            print(f"  ptxas {row['entry']}: {row['regs']} registers, spills {row['spill_stores']} B "
+                  f"stores / {row['spill_loads']} B loads")
+            check(not row["spill_stores"], f"{row['entry']} spills {row['spill_stores']} B")
+    for n_s, k_s, M in [(N, K, M) for M in WIDE_MS] + [(1024, 512, 16)] + WIDE_N + list(WIDE_N_TRACE):
+        g, fpb, per_sm = scl_cuda.launch_plan(n_s, k_s, M, 4096)
         fb = scl_cuda.frame_bytes(n_s, k_s, M, g)
-        kind = "byte words" if M in scl_cuda.BYTE_WORD_M else f"by path, LM={scl_cuda.path_width(M)}"
-        print(f"  K1 N={n_s} K={k_s} M={M} ({kind}): levels 1..{g} in global scratch; {fb} B shared "
-              f"a frame x {fpb} frames a block; {per_sm} resident frames an SM (occupancy calculator)")
+        kind = "by path, LM=" + str(scl_cuda.path_width(M)) if scl_cuda.path_layout(M) else "byte words"
+        print(f"  K1 N={n_s} K={k_s} M={M} ({kind}) at B=4096: levels 1..{g} in global scratch; {fb} B "
+              f"shared a frame x {fpb} frames a block; {per_sm} resident frames an SM (occupancy "
+              f"calculator)")
         check(per_sm >= 1, f"K1 cannot place a frame of N={n_s} M={M}")
 
     # ---- (a) the by-path instantiation against the plain version ----
@@ -1541,9 +1636,11 @@ def wide_envelope(dev, smi):
     # ---- (b) N 4096 and 8192 against the plain version ----
     differ = ties = 0
     against_plain([(n_c, k_c, M, CRC, False, WIDE_N_FRAMES, 1.5, "gaussian_bitrev")
-                   for n_c, k_c, M in WIDE_N], "(b)")
-    print(f"(b) K1 at N 4096 and 8192 vs plain: {len(WIDE_N)} shapes, {differ} frames differ, all "
-          f"{ties} near-ties")
+                   for n_c, k_c, M in WIDE_N]
+                  + [(n_c, k_c, M, CRC, False, WIDE_N_TRACE_FRAMES, 1.5, "gaussian_bitrev")
+                     for n_c, k_c, M in WIDE_N_TRACE], "(b)")
+    print(f"(b) K1 at N 4096 and 8192 vs plain: {len(WIDE_N) + len(WIDE_N_TRACE)} shapes, {differ} "
+          f"frames differ, all {ties} near-ties")
 
     # ---- (c) against the JAX float32 XLA decoder ----
     differ = ties = 0
@@ -1681,17 +1778,28 @@ def wide_envelope(dev, smi):
     llr_np, _ = make_llrs(np.random.default_rng(5), B, 5.0, info)
     llr = torch.from_numpy(llr_np).to(dev)
     entries = {}
-    for M in (8, 16, 32):  # the byte-word instantiation beside the by-path one
-        ms = cuda_time_ms(lambda M=M: decode_scl_cuda(llr, info, M, CRC), reps=20)
-        b_ms, b_by = bound(*scl_work(info, M, B))
-        line = f"  K1 P(128,64) M={M} CRC B={B} 5.0 dB: {ms:.4f} ms"
-        if M == 32:
-            plain_ms = cuda_time_ms(
-                lambda: decode_scl_batch(llr, info, M, CRC, dtype=torch.float32), reps=3, warmup=1)
-            entries["scl_path"] = (ms, plain_ms, b_ms, b_by)
-            line += f"; plain {plain_ms:.4f} ms"
-        print(f"{line}; bound {b_ms:.6f} ms ({b_by})"
-              f"{'' if M in scl_cuda.BYTE_WORD_M else f' (by path, LM={scl_cuda.path_width(M)})'}")
+    ms = cuda_time_ms(lambda: decode_scl_cuda(llr, info, 8, CRC), reps=20)  # the byte words beside
+    print(f"  K1 P(128,64) M=8 CRC B={B} 5.0 dB (byte words): {ms:.4f} ms; bound "
+          f"{bound(*scl_work(info, 8, B))[0]:.6f} ms")
+    path_times = time_by_path(dev, scl_cuda.launch_plan)
+    # the same inputs at the plans those batches run (the FER CLI's B=4096
+    # launches among them) against the plain version; P(8192,4096) on a few
+    # frames at the B=1024 plan
+    differ = ties = 0
+    for (n_c, k_c), (info_c, x) in path_inputs(dev).items():
+        for M, B_t in sorted({t[4:6] for t in PATH_TIMES if t[:2] == (n_c, k_c)}):
+            frames = min(B_t, PATH_CHECK_FRAMES) if n_c == 8192 else B_t
+            tag = f"(f) K1 P({n_c},{k_c}) M={M} at the B={B_t} plan {scl_cuda.launch_plan(n_c, k_c, M, B_t)}"
+            (d, t, e), (db, tb, eb) = k1_vs_plain(x[:frames], info_c, M, CRC, None, tag, launch_b=B_t)
+            differ, ties, max_err = differ + d + db, ties + t + tb, max(max_err, e, eb)
+            print(f"  {tag}, {frames} frames: list and best-only equal to the plain version outside "
+                  f"{t + tb} near-tie frames", flush=True)
+    print(f"(f) K1 by path at the timed plans vs plain: {differ} frames differ, all {ties} near-ties")
+    ms, b_ms, b_by, _ = path_times[f"K1 P(128,64) M=32 B={B}"]
+    plain_ms = cuda_time_ms(lambda: decode_scl_batch(llr, info, 32, CRC, dtype=torch.float32), reps=3,
+                            warmup=1)
+    entries["scl_path"] = (ms, plain_ms, b_ms, b_by)
+    print(f"  K1 P(128,64) M=32 CRC B={B} 5.0 dB: plain {plain_ms:.4f} ms")
     for n_c, k_c in ((4096, 2048), (8192, 4096)):
         info_c = construct_info_set(n_c, k_c, method="gaussian_bitrev")
         x = torch.from_numpy(make_llrs(rng, B_wide, 1.5, info_c, n=n_c)[0]).to(dev)
@@ -1824,7 +1932,7 @@ def deep_lists(dev, smi):
                 check("list" in row["entry"] or not row["spill_stores"],
                       f"the best-only {row['entry']} spills {row['spill_stores']} B")
     for n_s, k_s, M in [(N, K, M) for M in DEEP_MS] + list(DEEP_N):
-        g, fpb, per_sm = scl_cuda.launch_plan(n_s, k_s, M)
+        g, fpb, per_sm = scl_cuda.launch_plan(n_s, k_s, M, 4096)
         print(f"  K1 N={n_s} K={k_s} M={M} (over warps, {scl_cuda.trace_entry_bytes(M)}-byte trace "
               f"entries): levels 1..{g} and the trace indices in global scratch; "
               f"{scl_cuda.frame_bytes(n_s, k_s, M, g)} B shared a frame, one frame a block of "
@@ -2033,7 +2141,8 @@ def deep_lists(dev, smi):
                 lambda: decode_scl_batch(llr, info, M, CRC, dtype=torch.float32), reps=2, warmup=1)
             entries["scl_deep"] = (ms, plain_ms, b_ms, b_by)
             line += f"; plain {plain_ms:.4f} ms"
-        print(f"{line}; bound {b_ms:.6f} ms ({b_by}); {scl_cuda.launch_plan(N, K, M)[2]} frames an SM")
+        print(f"{line}; bound {b_ms:.6f} ms ({b_by}); "
+              f"{scl_cuda.launch_plan(N, K, M, B)[2]} frames an SM")
     info_c = construct_info_set(1024, 512, method="gaussian_bitrev")
     x = torch.from_numpy(make_llrs(rng, B_wide, 1.75, info_c, n=1024)[0]).to(dev)
     ms = cuda_time_ms(lambda: decode_scl_cuda(x, info_c, 64, CRC), reps=3, warmup=1)
@@ -2041,7 +2150,7 @@ def deep_lists(dev, smi):
                             warmup=0)
     b_ms, b_by = bound(*scl_work(info_c, 64, B_wide, n=1024, k=512))
     print(f"  K1 P(1024,512) M=64 CRC B={B_wide} 1.75 dB: {ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
-          f"{b_ms:.6f} ms ({b_by}); {scl_cuda.launch_plan(1024, 512, 64)[2]} frames an SM")
+          f"{b_ms:.6f} ms ({b_by}); {scl_cuda.launch_plan(1024, 512, 64, B_wide)[2]} frames an SM")
     n_p, k_p, crc_p = PAC_CODES[128]
     p_mask = pac_mask(n_p, k_p + crc_p[0])
     x = pac_llrs(rng, B, 2.5, PAC_CODES[128], PAC_GEN, p_mask, dev)
@@ -2137,7 +2246,7 @@ def main():
     k1_resident = {}
     for n_s, k_s, M in ([(N, K, M) for M in scl_cuda.BYTE_WORD_M]
                         + [(n_c, k_c, M) for n_c, k_c in K1C_SHAPES for M in (1, 8)]):
-        g, fpb, k1_resident[n_s, M] = scl_cuda.launch_plan(n_s, k_s, M)
+        g, fpb, k1_resident[n_s, M] = scl_cuda.launch_plan(n_s, k_s, M, 4096)
         fb = scl_cuda.frame_bytes(n_s, k_s, M, g)
         print(f"  K1 N={n_s} K={k_s} M={M}: levels 1..{g} in global scratch; dynamic smem "
               f"{fb} B per frame x {fpb} frames = {fb * fpb} B per block; "
@@ -2271,7 +2380,7 @@ def main():
         big = torch.from_numpy(np.random.default_rng(n_c).normal(0.0, 2.0, (4096, n_c))
                                .astype(np.float32)).to(dev)
         k1c_ms[n_c] = cuda_time_ms(lambda: scl_cuda.decode_scl_cuda(big, info_c, 8, CRC), reps=10)
-        g, fpb, per_sm = scl_cuda.launch_plan(n_c, k_c, 8)
+        g, fpb, per_sm = scl_cuda.launch_plan(n_c, k_c, 8, 4096)
         print(f"  K1 N={n_c} K={k_c} B=4096 M=8 CRC: {k1c_ms[n_c]:.4f} ms a decode (10 launches); "
               f"{scl_cuda.frame_bytes(n_c, k_c, 8, g)} B smem a frame, {fpb} frames a block, "
               f"{per_sm} an SM", flush=True)

@@ -3,10 +3,12 @@
 // kernel (`pac_decode.cu`).  The f and g updates of the plain versions, op
 // for op; the σ maps kept by path (a lane's path-origin rows, packed in a
 // few registers) with the masks that reset them; the f/g and partial-sum
-// passes that read a parent level through σ; and, for a frame spread over
-// the warps of a block (list sizes 33..1024, one thread a path), σ as a
-// table in shared memory, the passes that read through it, its fork, the
-// block-wide sort of the 2M candidates and the frame's shared-memory layout.
+// passes that read a parent level through σ; the candidates' 64-bit keys
+// and their sort within a warp (the by-path SCL fork); and, for a frame
+// spread over the warps of a block (list sizes 33..1024, one thread a
+// path), σ as a table in shared memory, the passes that read through it,
+// its fork, the block-wide sort of the 2M candidates and the frame's
+// shared-memory layout.
 // Each source's note has the design; `_build.py` rebuilds a source when
 // this file changes.
 
@@ -311,6 +313,56 @@ __device__ __forceinline__ float key_metric(unsigned long long key) {
 }
 
 __device__ __forceinline__ int key_index(unsigned long long key) { return (int)(unsigned)key; }
+
+// One compare-exchange of a bitonic network, seen from one side: the
+// smaller of the pair when keep_min, else the larger.
+__device__ __forceinline__ unsigned long long keep_key(unsigned long long k, unsigned long long o,
+                                                       bool keep_min) {
+  return (o < k) == keep_min ? o : k;
+}
+
+// A bitonic network over one key a lane, ascending in each aligned group of
+// P lanes (P a power of two, at most PMAX <= 32, warp-uniform): every stage
+// is one __shfl_xor_sync of the key's two halves and a compare-select, with
+// no shared memory and no barrier; log2(P)·(log2(P)+1)/2 stages.  Lane i of
+// a group ends with its key of rank i.
+template <int PMAX>
+__device__ __forceinline__ unsigned long long warp_sort_keys(unsigned long long k, int lane, int P) {
+#pragma unroll
+  for (int size = 2; size <= PMAX; size <<= 1) {
+    if (size > P) break;
+#pragma unroll
+    for (int j = size >> 1; j >= 1; j >>= 1)
+      k = keep_key(k, __shfl_xor_sync(FULL_MASK, k, j), ((lane & j) == 0) == ((lane & size) == 0));
+  }
+  return k;
+}
+
+// The 32 smallest of 64 keys in order, two keys a lane: k0 at position
+// `lane`, k1 at position lane + 32.  The first five merges sort k0 ascending and k1
+// descending across the lanes (15 stages of shuffles), the last merge's
+// first stage keeps the smaller of a lane's two in k0 (in registers), and
+// its five further stages sort k0 alone: lane i ends with the key of rank i.
+__device__ __forceinline__ unsigned long long warp_sort_keys64(unsigned long long k0,
+                                                               unsigned long long k1, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int j = size >> 1; j >= 1; j >>= 1) {
+      const bool lower = (lane & j) == 0;
+      const bool up = size == 32 || (lane & size) == 0;  // k0's run; k1's is the other way at 32
+      const unsigned long long o0 = __shfl_xor_sync(FULL_MASK, k0, j);
+      const unsigned long long o1 = __shfl_xor_sync(FULL_MASK, k1, j);
+      k0 = keep_key(k0, o0, lower == up);
+      k1 = keep_key(k1, o1, lower == (size == 32 ? false : up));
+    }
+  }
+  k0 = k1 < k0 ? k1 : k0;
+#pragma unroll
+  for (int j = 16; j >= 1; j >>= 1)
+    k0 = keep_key(k0, __shfl_xor_sync(FULL_MASK, k0, j), (lane & j) == 0);
+  return k0;
+}
 
 // A bitonic network over the 2M keys of a fork, padded to P = sort_keys(M)
 // with all-ones keys, ascending.  The block has P/2 threads (`deep_threads`)

@@ -69,8 +69,14 @@
 //     m's entries.  A phase's resets (the LLR levels its descent writes, the
 //     bit level the previous chain stored) are applied together at the
 //     phase's start, one select a word with masks the host builds for
-//     (n, LM).  Lane p holds candidates 2p and 2p + 1, and counts each one's
-//     rank over the 2M candidates: 64 at M = 32, two a lane.
+//     (n, LM).  Lane p holds candidates 2p and 2p + 1.  A fork sorts the 2M
+//     candidates as unique 64-bit keys (`cand_key`, below) with a bitonic
+//     network inside the warp (`path_select`): shuffles of the keys' two
+//     halves, no shared memory, no barrier, unrolled to LM with the stages
+//     past sort_keys(M) skipped; survivor m takes the key of rank m from
+//     its own register, its metric back from the key.  Counting each
+//     candidate's rank over all 2M by shuffles, O(M) a lane, took 34% / 46%
+//     of the time at M 16 / 32 on an H100 (`PERF.md`).
 //   * Over warps, the instantiations scl_deep_kernel<T> (M 33..1024, a
 //     runtime argument): one frame a block of M rounded up to a power of
 //     two threads (`deep_threads`: one a pair of sort keys), thread m path
@@ -98,30 +104,39 @@
 //
 // Layout.  One warp decodes one frame and a block holds a few frames (over
 // warps: one block a frame).  Levels
-// G+1..n of each path live in dynamic shared memory, with the trace indices;
-// levels 1..G (the widest: levels 1 and 2 alone hold three quarters of the
-// rows, and are read at a handful of phases) live in a global scratch the
-// wrapper allocates, with the trace LLRs, which are written once an info
-// phase and read once at the end.  The wrapper picks the smallest G at
-// which the occupancy calculator puts 16 frames on an SM (G=4 at N=2048
-// M=8: 13,280 B a frame).  Per frame in shared memory:
+// G+1..n of each path live in dynamic shared memory (in the byte-word
+// layout with the trace indices); levels 1..G (the widest: levels 1 and 2
+// alone hold three quarters of the rows, and are read at a handful of
+// phases) live in a global scratch the wrapper allocates, with the trace
+// LLRs, which are written once an info phase and read once at the end.
+// Per frame in shared memory:
 //   Ls  float [M][(N>>G)-1]  LLR rows, one active node per level G+1..n−1
 //                            (and an unused entry for level n)
 //   Bs  u8    [M][(N>>G)-1]  partial-sum rows, levels G+1..n
-//   TI  u8    [K][M]         creation index 2p+b of each survivor per info phase
+//   TI  u8    [K][M]         byte words only: creation index 2p+b of each
+//                            survivor per info phase
 // and in global memory, per frame:
 //   Lg  float [M][N-(N>>G)]  LLR rows, levels 1..G
 //   Bg  u8    [M][N-(N>>G)]  partial-sum rows, levels 1..G
 //   TL  float [K][M]         leaf LLR of each survivor's parent per info phase
-// The trace indices stay in shared memory at every G up to M = 32, since the
-// final walk reads them at random: K·M bytes, 32 KB at N=8192 M=8 (6 frames
-// an SM) and 128 KB at N=8192 M=32 (1).  Over warps a frame also holds its σ
-// table, sort keys, leaf and syndrome (`deep_layout`), and the trace
-// indices (K·M entries of T: 128 KB at P(128,64) M=1024) go to global
-// scratch beside TL, so that shared memory holds tree levels: with them
-// there, the sort keys pushed K3's L=256 frame to G = 6, 17.4 ms at B=4096
-// on an H100, against 7.0 ms at the G = 2 the occupancy policy picks with
-// them in global scratch (`tools/time_deep_lists.py`, `PERF.md`).
+//   TI  u8    [K][16|32]     by path: the trace indices, rows of M bytes
+//                            padded to 16 (`round16(M)`)
+// By path the trace indices are written from registers once an info phase,
+// one byte a lane, and read only at the end: there the frame's shared
+// memory, free of tree levels, takes a chunk of rows at a time as 16-byte
+// words, and the walks back run in it.  In shared memory they were K·M
+// bytes, 17% of the frame at P(128,64) M=32 and 128 KB of 172 KB at
+// N=8192 M=32 (1 frame an SM, and K > 7259 refused).  Over warps a frame
+// also holds its σ table, sort keys, leaf and syndrome (`deep_layout`), and
+// the trace indices (K·M entries of T: 128 KB at P(128,64) M=1024) go to
+// global scratch beside TL: with them there, the sort keys pushed K3's
+// L=256 frame to G = 6, 17.4 ms at B=4096 on an H100, against 7.0 ms at the
+// G = 2 the occupancy policy picks with them in global scratch
+// (`tools/time_deep_lists.py`, `PERF.md`).  The wrapper picks the smallest
+// G at which the occupancy calculator puts 16 frames on an SM (G=4 at
+// N=2048 M=8: 13,280 B a frame); by path ceil(B / SMs) frames, at most what
+// the registers allow (`__launch_bounds__` asks for 32 frames an SM: a
+// B=4096 launch in one wave), and at a retry batch the lowest G.
 // `ops/scl_cuda.py::check_shape` refuses a shape whose frame overfills a
 // block even at G = n−1.
 // A phase's schedule is one word, loaded a phase ahead.  Lanes split each
@@ -130,7 +145,8 @@
 // own reads it), and takes the partial-sum chain's first step the same way.
 // At an info phase (byte words) lane i < 2M holds candidate i = 2p+b; its
 // rank in (metric, index) order is counted with shuffles, which is the
-// stable sort of the plain version, and ranks < M survive.  Each path
+// stable sort of the plain version, and ranks < M survive (by path the
+// in-warp sort above, over warps the block's).  Each path
 // carries its CRC syndrome (the XOR of the 32-bit check columns of its set
 // bits), so selection needs no walk; the selected path's trace is walked
 // back by one lane, which records each info phase's slot, and all lanes
@@ -141,7 +157,8 @@
 // in the plain version's final stable (metric, slot) order — its bits, info
 // LLRs and metric (+inf for a path never reached) — and the selected rank.
 // Lane m < M walks its own path's trace back, reading TI/TL only, before
-// lane 0 rewrites slot 0 of the trace rows for the best path.  The sweeps
+// lane 0 rewrites slot 0 of the trace rows for the best path (by path, lane
+// r walks the path of final rank r, chunk by chunk).  The sweeps
 // launch the instantiation without LIST, whose code is unchanged.  Every σ
 // layout has a LIST instantiation.
 //
@@ -157,15 +174,22 @@
 
 #define SCL_BIG 3.0e38f
 #define MAX_FRAMES_PER_BLOCK 4  // warps a block at most; `plan` picks how many
+// blocks of MAX_FRAMES_PER_BLOCK warps an SM that the by-path launch bound
+// asks registers for: 32 frames an SM at 64 registers a thread, which holds
+// a B=4096 launch in one wave on 132 SMs
+#define PATH_MIN_BLOCKS 8
 
 // Which instantiation decodes a list size.  The default build sends M ∈ {1,
 // 2, 4, 8} to the byte-word instantiations and every other M to the by-path
-// one of width max(M rounded up to a power of two, SCL_LEAST_PATH_WIDTH = 8):
-// the byte words are 13-34% faster at their M, and a by-path width of 4
-// would save M=3 only 1% (`tools/time_scl_layouts.py`, which builds with
-// -DSCL_BY_PATH_ONLY=1 and -DSCL_LEAST_PATH_WIDTH=4 to time the layouts and
-// widths against each other).  `ops/scl_cuda.py::path_width` assumes the
-// default.
+// one of width max(M rounded up to a power of two, SCL_LEAST_PATH_WIDTH = 8).
+// On an H100 the byte words are faster at M 1, 2 and 4 (12-36% at P(128,64)
+// B=4096); at M=8 the by-path layout with its in-warp sort is now the
+// faster (0.3540 against 0.3630 ms at P(128,64), 6.76 against 7.83 ms at
+// P(2048,1024)), and a by-path width of 4 saves M=3 about 3%
+// (`tools/time_scl_layouts.py`, which builds with -DSCL_BY_PATH_ONLY=1 and
+// -DSCL_LEAST_PATH_WIDTH=4 to time the layouts and widths against each
+// other; `PERF.md`).  `ops/scl_cuda.py::path_width` and `BYTE_WORD_M`
+// assume the default.
 #ifndef SCL_BY_PATH_ONLY
 #define SCL_BY_PATH_ONLY 0
 #endif
@@ -469,18 +493,45 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, 8) scl_decode_kerne
 // The by-path instantiation: list sizes 1..32 outside {1, 2, 4, 8}.
 // ---------------------------------------------------------------------------
 
+// A fork's selection, by path: the 2M candidates (lane p < M holds
+// candidate 2p, bit 0, at metric c0 and 2p + 1 at c1) as unique 64-bit keys
+// (`cand_key`), padded with all-ones keys, sorted by an in-warp bitonic
+// network.  Returns, in lane m, the key of rank m.  Up to LM = 16 the P =
+// sort_keys(M) <= 32 keys go one a lane (lane q < M: candidate 2q; lane M + p:
+// candidate 2p + 1, its metric shuffled from lane p), and only the stages of
+// P run; at LM = 32, two a lane (`warp_sort_keys64`).
+template <int LM>
+__device__ __forceinline__ unsigned long long path_select(float c0, float c1, int M, int P,
+                                                          int lane) {
+  if constexpr (LM <= 16) {
+    const bool odd = lane >= M;
+    const int p = odd ? lane - M : lane;
+    const float c1p = __shfl_sync(FULL_MASK, c1, p);
+    const unsigned long long k = lane < 2 * M ? cand_key(odd ? c1p : c0, 2 * p + odd) : ~0ull;
+    return warp_sort_keys<2 * LM>(k, lane, P);
+  } else {
+    const bool on = lane < M;
+    return warp_sort_keys64(on ? cand_key(c0, 2 * lane) : ~0ull,
+                            on ? cand_key(c1, 2 * lane + 1) : ~0ull, lane);
+  }
+}
+
 // The SCL decode with σ kept by path: lane m < M holds path m's metric,
 // syndrome and σ, and its two candidates 2m and 2m+1.  It computes what
-// scl_decode_kernel computes, at a runtime list size M <= LM.
+// scl_decode_kernel computes, at a runtime list size M <= LM.  The trace
+// indices live in global scratch, rows of round16(M) bytes; at the end the
+// frame's shared memory, free of tree levels, takes them a chunk of rows at
+// a time for the walks back.
 template <int LM, bool LIST>
-__global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) scl_path_kernel(
+__global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, PATH_MIN_BLOCKS) scl_path_kernel(
     const float* __restrict__ llr, const int8_t* __restrict__ forced,
     const uint32_t* __restrict__ hcols, const int* __restrict__ sched, float* glob_llr,
-    uint8_t* glob_bits, float* trace_llr, int8_t* __restrict__ out_bits,
-    float* __restrict__ out_llrs, uint8_t* __restrict__ out_pass, int8_t* __restrict__ list_bits,
-    float* __restrict__ list_llrs, float* __restrict__ list_metrics, int* __restrict__ list_best,
-    int B, int N, int n, int K, int M, int G, int use_crc, int frame_bytes, int frames_per_block,
-    const ResetMasks masks) {
+    uint8_t* glob_bits, float* trace_llr,
+    uint8_t* trace_idx,  // [B, K, round16(M)]: the trace indices, in global scratch
+    int8_t* __restrict__ out_bits, float* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,
+    int8_t* __restrict__ list_bits, float* __restrict__ list_llrs, float* __restrict__ list_metrics,
+    int* __restrict__ list_best, int B, int N, int n, int K, int M, int G, int use_crc,
+    int frame_bytes, int frames_per_block, const ResetMasks masks) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -489,13 +540,15 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) scl_path_kernel(
 
   const int SS = (N >> G) - 1;  // entries of a path's row in shared memory
   const int SG = N - (N >> G);  // entries of a path's row in global memory
+  const int TW = round16(M);    // bytes of a trace-index row
+  const int P = sort_keys(M);   // keys a fork sorts
   unsigned char* base = smem + (size_t)warp * frame_bytes;
   float* Ls = reinterpret_cast<float*>(base);
   uint8_t* Bs = reinterpret_cast<uint8_t*>(Ls + M * SS);
-  uint8_t* TI = Bs + M * SS;
   float* Lg = glob_llr + frame * M * SG;  // unused when G == 0
   uint8_t* Bg = glob_bits + frame * M * SG;
   float* TL = trace_llr + frame * K * M;
+  uint8_t* TI = trace_idx + frame * K * TW;
   const float* ch = llr + frame * N;
   const int8_t* plan = forced ? forced + frame * K : nullptr;
   auto so = [&](int l) { return (N >> G) - (N >> (l - 1)); };
@@ -560,36 +613,20 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) scl_path_kernel(
     if (is_frozen) {
       if (lane < M) pm = pm + softplus(-leaf);
     } else {
-      // lane p holds candidates 2p (bit 0) and 2p + 1 (bit 1); each one's
-      // rank in (metric, index) order is counted over the 2M candidates
       float c0 = pm + softplus(-leaf), c1 = pm + softplus(leaf);
       if (fb == 1) c0 = SCL_BIG;
       if (fb == 0) c1 = SCL_BIG;
-      int r0 = 0, r1 = 0;
-      for (int j = 0; j < M; ++j) {
-        const float a = __shfl_sync(FULL_MASK, c0, j);
-        const float b = __shfl_sync(FULL_MASK, c1, j);
-        r0 += (a < c0) || (a == c0 && j < lane);   // index 2j vs 2·lane
-        r0 += (b < c0) || (b == c0 && j < lane);   // index 2j+1 vs 2·lane
-        r1 += (a < c1) || (a == c1 && j <= lane);  // index 2j vs 2·lane+1
-        r1 += (b < c1) || (b == c1 && j < lane);   // index 2j+1 vs 2·lane+1
-      }
-      // the candidate ranked m goes to trace slot m
-      uint8_t* row = TI + info_i * M;
-      if (lane < M) {
-        if (r0 < M) row[r0] = (uint8_t)(2 * lane);
-        if (r1 < M) row[r1] = (uint8_t)(2 * lane + 1);
-      }
-      __syncwarp();
-      const int w = lane < M ? row[lane] : 0;
+      // survivor m: the candidate of rank m, into trace slot m, its metric
+      // back from the key
+      const unsigned long long key = path_select<LM>(c0, c1, M, P, lane);
+      const int w = lane < M ? key_index(key) : 0;
       const int parent = w >> 1;
-      const float n0 = __shfl_sync(FULL_MASK, c0, parent);
-      const float n1 = __shfl_sync(FULL_MASK, c1, parent);
       const float leaf_par = __shfl_sync(FULL_MASK, leaf, parent);
       const uint32_t syn_par = __shfl_sync(FULL_MASK, syn, parent);
       if (lane < M) {
         bit = w & 1;
-        pm = bit ? n1 : n0;
+        pm = key_metric(key);
+        TI[info_i * TW + lane] = (uint8_t)w;
         TL[info_i * M + lane] = leaf_par;
         syn = bit ? syn_par ^ hc : syn_par;
       }
@@ -629,44 +666,64 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) scl_path_kernel(
   }
 
   // ---- final stable sort of the list, CRC selection, backtrack ----
-  int frank = 0;
-  for (int j = 0; j < M; ++j) {
-    const float pj = __shfl_sync(FULL_MASK, pm, j);
-    frank += (pj < pm) || (pj == pm && j < lane);
-  }
-  const bool ok = use_crc && lane < M && syn == 0u && pm < SCL_BIG;
-  const unsigned ok_ranks = __reduce_or_sync(FULL_MASK, ok ? (1u << frank) : 0u);
+  // lane r < M: the key (metric, path) of final rank r
+  const unsigned long long fkey =
+      warp_sort_keys<LM>(lane < M ? cand_key(pm, lane) : ~0ull, lane, P / 2);
+  const int path_r = lane < M ? key_index(fkey) : 0;
+  const bool ok = use_crc && syn == 0u && pm < SCL_BIG;  // of path `lane`
+  const bool ok_r = __shfl_sync(FULL_MASK, (int)ok, path_r);
+  const unsigned ok_ranks = __ballot_sync(FULL_MASK, lane < M && ok_r);
   const int sel_rank = ok_ranks ? __ffs(ok_ranks) - 1 : 0;
-  const unsigned who = __ballot_sync(FULL_MASK, lane < M && frank == sel_rank);
+  int best = __shfl_sync(FULL_MASK, path_r, sel_rank);  // lane 0's walk: the selected path
+  int slot = path_r;                                       // lane r's walk (LIST): path of rank r
   if (LIST) {
     if (lane < M) {
-      const long long o = (frame * M + frank) * K;
-      int slot = lane;
-      for (int i = K - 1; i >= 0; --i) {
-        const int w = TI[i * M + slot];
-        list_bits[o + i] = (int8_t)(w & 1);
-        list_llrs[o + i] = TL[i * M + slot];
-        slot = w >> 1;
-      }
-      list_metrics[frame * M + frank] = pm < SCL_BIG ? pm : __int_as_float(0x7f800000);
+      const float mr = key_metric(fkey);
+      list_metrics[frame * M + lane] = mr < SCL_BIG ? mr : __int_as_float(0x7f800000);
     }
     if (lane == 0) list_best[frame] = sel_rank;
+  }
+  if (lane == 0) out_pass[frame] = ok_ranks ? 1 : 0;
+  // the walks back, over chunks of trace rows copied into the frame's shared
+  // memory (16-byte rows apart, R >= 1 rows: frame_bytes >= round16(5·M))
+  uint8_t* TIs = base;
+  const int R = frame_bytes / TW;
+  for (int hi = K - 1; hi >= 0; hi -= R) {
+    const int lo = hi - R + 1 > 0 ? hi - R + 1 : 0;
+    __syncwarp();  // the tree's (or the previous chunk's) last reads are done
+    const uint4* src = reinterpret_cast<const uint4*>(TI + lo * TW);
+    uint4* dst = reinterpret_cast<uint4*>(TIs);
+    for (int v = lane; v < (hi - lo + 1) * TW / 16; v += 32) dst[v] = src[v];
     __syncwarp();
-  }
-  if (lane == 0) {
-    int slot = __ffs(who) - 1;
-    for (int i = K - 1; i >= 0; --i) {
-      const int w = TI[i * M + slot];
-      TI[i * M] = (uint8_t)((slot << 1) | (w & 1));
-      slot = w >> 1;
+    if (LIST) {
+      // every path into row r of the list, before lane 0 rewrites slot 0
+      if (lane < M) {
+        const long long o = (frame * M + lane) * K;
+        for (int i = hi; i >= lo; --i) {
+          const int w = TIs[(i - lo) * TW + slot];
+          list_bits[o + i] = (int8_t)(w & 1);
+          list_llrs[o + i] = TL[i * M + slot];
+          slot = w >> 1;
+        }
+      }
+      __syncwarp();
     }
-    out_pass[frame] = ok_ranks ? 1 : 0;
-  }
-  __syncwarp();
-  for (int i = lane; i < K; i += 32) {
-    const int r = TI[i * M];
-    out_bits[frame * K + i] = (int8_t)(r & 1);
-    out_llrs[frame * K + i] = TL[i * M + (r >> 1)];
+    if (lane == 0) {
+      // the selected path's (slot << 1 | bit) into slot 0 of each row; row i
+      // is read before it is overwritten, and later steps read rows below i
+      for (int i = hi; i >= lo; --i) {
+        uint8_t* row = TIs + (i - lo) * TW;
+        const int w = row[best];
+        row[0] = (uint8_t)((best << 1) | (w & 1));
+        best = w >> 1;
+      }
+    }
+    __syncwarp();
+    for (int i = lo + lane; i <= hi; i += 32) {
+      const int r = TIs[(i - lo) * TW];
+      out_bits[frame * K + i] = (int8_t)(r & 1);
+      out_llrs[frame * K + i] = TL[i * M + (r >> 1)];
+    }
   }
 }
 
@@ -902,17 +959,21 @@ int launch_as(const Args& a, cudaStream_t stream) {
 }
 
 template <int LM, bool LIST>
-int launch_path_as(const Args& a, int M, cudaStream_t stream) {
-  if (a.n > MAX_LEVELS || 2 * a.n - 2 > PathSigma<LM>::kWords * PathSigma<LM>::kFields)
+int launch_path_as(const Args& a, int M, uint8_t* trace_idx, cudaStream_t stream) {
+  // the walks back take the trace a chunk of 16-byte rows at a time through
+  // the frame's shared memory: a whole number of them, at least one row
+  if (!trace_idx || a.n > MAX_LEVELS || 2 * a.n - 2 > PathSigma<LM>::kWords * PathSigma<LM>::kFields ||
+      a.frame_bytes % 16 || a.frame_bytes < round16(M))
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)a.frame_bytes * a.frames_per_block;
   cudaError_t err = set_smem(scl_path_kernel<LM, LIST>, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (a.B + a.frames_per_block - 1) / a.frames_per_block;
   scl_path_kernel<LM, LIST><<<blocks, 32 * a.frames_per_block, smem, stream>>>(
-      a.llr, a.forced, a.hcols, a.sched, a.glob_llr, a.glob_bits, a.trace_llr, a.out_bits,
-      a.out_llrs, a.out_pass, a.list_bits, a.list_llrs, a.list_metrics, a.list_best, a.B, a.N,
-      a.n, a.K, M, a.G, a.use_crc, a.frame_bytes, a.frames_per_block, reset_masks<LM>(a.n));
+      a.llr, a.forced, a.hcols, a.sched, a.glob_llr, a.glob_bits, a.trace_llr, trace_idx,
+      a.out_bits, a.out_llrs, a.out_pass, a.list_bits, a.list_llrs, a.list_metrics, a.list_best,
+      a.B, a.N, a.n, a.K, M, a.G, a.use_crc, a.frame_bytes, a.frames_per_block,
+      reset_masks<LM>(a.n));
   return (int)cudaGetLastError();
 }
 
@@ -923,9 +984,10 @@ int launch(const Args& a, cudaStream_t stream) {
 }
 
 template <int LM>
-int launch_path(const Args& a, int M, cudaStream_t stream) {
-  return a.list_bits ? launch_path_as<LM, true>(a, M, stream)
-                     : launch_path_as<LM, false>(a, M, stream);
+int launch_path(const Args& a, int M, void* trace_idx, cudaStream_t stream) {
+  uint8_t* ti = static_cast<uint8_t*>(trace_idx);
+  return a.list_bits ? launch_path_as<LM, true>(a, M, ti, stream)
+                     : launch_path_as<LM, false>(a, M, ti, stream);
 }
 
 template <typename T, bool LIST>
@@ -1005,13 +1067,12 @@ extern "C" int scl_decode_launch(const void* llr, const void* forced, const void
 #endif
   if (M < 1 || M > DEEP_MAX_M) return (int)cudaErrorInvalidValue;
   if (M >= DEEP_MIN_M) return launch_deep(a, M, trace_idx, st);
-  if (trace_idx) return (int)cudaErrorInvalidValue;  // one path a lane: the trace stays in shared memory
 #if SCL_LEAST_PATH_WIDTH <= 4
-  if (M <= 4) return launch_path<4>(a, M, st);
+  if (M <= 4) return launch_path<4>(a, M, trace_idx, st);
 #endif
-  if (M <= 8) return launch_path<8>(a, M, st);
-  if (M <= 16) return launch_path<16>(a, M, st);
-  return launch_path<32>(a, M, st);
+  if (M <= 8) return launch_path<8>(a, M, trace_idx, st);
+  if (M <= 16) return launch_path<16>(a, M, trace_idx, st);
+  return launch_path<32>(a, M, trace_idx, st);
 }
 
 extern "C" int scl_launch_plan(int M, int frame_bytes, int max_block_smem,

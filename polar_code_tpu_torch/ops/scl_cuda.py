@@ -33,15 +33,18 @@ nothing.
 
 Memory.  A frame keeps tree levels G+1..n of its M paths in shared memory;
 levels 1..G and the trace LLRs go to a global scratch allocated here for
-each call.  The trace indices stay in shared memory up to M=32 (K·M bytes);
-over warps (entries of `trace_entry_bytes(M)`) they go to global scratch,
-written once an info phase and read once at the end, so that a frame's
-shared memory (the σ table, the sort keys of the candidates and the tree
-levels, `deep_frame_bytes`) goes to tree levels.  `launch_plan` asks the
-CUDA occupancy calculator for the smallest G at which an SM holds
-`FRAMES_PER_SM_TARGET` frames
+each call.  The trace indices stay in shared memory in the byte-word
+layout (K·M bytes); by path (rows of `path_trace_row(M)` bytes) and over
+warps (entries of `trace_entry_bytes(M)`) they go to global scratch,
+written once an info phase and read at the end, so that a frame's shared
+memory goes to tree levels (and over warps to the σ table and the sort
+keys, `deep_frame_bytes`).  `launch_plan` asks the CUDA occupancy
+calculator for the smallest G at which an SM holds a number of frames
 (`smallest_global_levels`, which the PAC kernel's wrapper shares), and for
-the frames a block that hold the most.
+the frames a block that hold the most: `FRAMES_PER_SM_TARGET` in the
+byte-word and over-warps layouts; by path the batch's share of the card,
+ceil(B / SMs) frames an SM, up to the most any G holds (`path_target`), so
+that a large batch runs in one wave and a retry batch at the lowest G.
 """
 
 from __future__ import annotations
@@ -120,16 +123,30 @@ def deep_frame_bytes(N: int, M: int, global_levels: int, words: int = 2) -> int:
             + words * _round16(4 * M) + _round16(M * row) + 16)
 
 
+def path_layout(M: int) -> bool:
+    """Whether list size M goes to the by-path instantiation."""
+
+    return M <= PATH_MAX_M and M not in BYTE_WORD_M
+
+
+def path_trace_row(M: int) -> int:
+    """Bytes of a trace-index row by path in global scratch: M entries
+    padded to 16 bytes, so that the walks back copy whole rows as 16-byte
+    words into shared memory."""
+
+    return _round16(M)
+
+
 def frame_bytes(N: int, K: int, M: int, global_levels: int = 0) -> int:
     """Shared memory one frame's decode state takes, rounded to 16 bytes: up
     to M=32 the LLR rows (float32) and partial-sum rows (bytes) of levels
-    global_levels+1..n, and the trace indices (bytes); over warps
-    `deep_frame_bytes`."""
+    global_levels+1..n, and in the byte-word layout the trace indices
+    (bytes); over warps `deep_frame_bytes`."""
 
     if M > PATH_MAX_M:
         return deep_frame_bytes(N, M, global_levels)
     row = (N >> global_levels) - 1
-    raw = 4 * M * row + M * row + K * M
+    raw = 4 * M * row + M * row + (0 if path_layout(M) else K * M)
     return _round16(raw)
 
 
@@ -142,10 +159,11 @@ def path_width(M: int) -> int:
 
 def scratch_bytes(B: int, N: int, K: int, M: int, global_levels: int) -> int:
     """Global scratch one launch allocates: the LLR and partial-sum rows of
-    levels 1..G and the trace LLRs of every frame, and over warps the trace
-    indices."""
+    levels 1..G and the trace LLRs of every frame, and by path and over
+    warps the trace indices."""
 
-    ti = B * K * M * trace_entry_bytes(M) if M > PATH_MAX_M else 0
+    ti = (B * K * M * trace_entry_bytes(M) if M > PATH_MAX_M
+          else B * K * path_trace_row(M) if path_layout(M) else 0)
     return B * M * (N - (N >> global_levels)) * 5 + B * K * M * 4 + ti
 
 
@@ -163,7 +181,7 @@ def check_shape(N: int, K: int, M: int, crc: Optional[str], dtype: torch.dtype) 
     if crc is not None and crc_degree(crc) > 32:
         raise ValueError("the SCL kernel supports CRCs of degree <= 32")
     n = int(math.log2(N))
-    if M not in BYTE_WORD_M and M <= PATH_MAX_M and 2 * n - 2 > SIGMA_FIELDS[path_width(M)]:
+    if path_layout(M) and 2 * n - 2 > SIGMA_FIELDS[path_width(M)]:
         raise ValueError(f"the SCL kernel's σ registers do not hold N={N} at M={M}")
     least = frame_bytes(N, K, M, n - 1)  # levels 1..n−1 in global scratch: a frame's least
     if least > MAX_BLOCK_SMEM:
@@ -203,30 +221,56 @@ def _occupancy(N: int, K: int, M: int, G: int) -> tuple:
     return fpb.value, per_sm.value
 
 
-def smallest_global_levels(n: int, occupancy) -> tuple:
+def smallest_global_levels(n: int, occupancy, target: int = FRAMES_PER_SM_TARGET) -> tuple:
     """(G, frames a block, frames an SM) for a decode kernel whose tree levels
     1..G go to global scratch: the smallest G at which `occupancy(G)` — (frames
-    a block, frames an SM) by the CUDA occupancy calculator — puts
-    `FRAMES_PER_SM_TARGET` frames on an SM or, where no G does, the smallest G
-    that puts the most there.  Level n, the leaf, always stays in shared
-    memory.  The SCL and PAC kernels both take their G here."""
+    a block, frames an SM) by the CUDA occupancy calculator — puts `target`
+    frames on an SM or, where no G does, the smallest G that puts the most
+    there.  Level n, the leaf, always stays in shared memory.  The SCL and
+    PAC kernels both take their G here."""
 
     plans = []
     for g in range(n):
         fpb, per_sm = occupancy(g)
-        if per_sm >= FRAMES_PER_SM_TARGET:
+        if per_sm >= target:
             return g, fpb, per_sm
         plans.append((g, fpb, per_sm))
     most = max(p[2] for p in plans)
     return next(p for p in plans if p[2] == most)
 
 
-@functools.lru_cache(maxsize=None)
-def launch_plan(N: int, K: int, M: int) -> tuple:
-    """(global levels G, frames a block, frames an SM holds at once) on the
-    current card, by `smallest_global_levels`."""
+def path_target(B: int, sms: int, most: int) -> int:
+    """Frames an SM the by-path plan asks for: the batch's share of the
+    card's `sms` SMs, ceil(B / sms), so that the batch runs in one wave, up to
+    `most`, the frames an SM the registers and warps allow (the occupancy at
+    G = n−1)."""
 
-    return smallest_global_levels(int(math.log2(N)), lambda g: _occupancy(N, K, M, g))
+    return max(1, min(-(-B // sms), most))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(N: int, K: int, M: int, target: int) -> tuple:
+    return smallest_global_levels(int(math.log2(N)), lambda g: _occupancy(N, K, M, g), target)
+
+
+def launch_plan(N: int, K: int, M: int, B: int) -> tuple:
+    """(global levels G, frames a block, frames an SM holds at once) for a
+    batch of B frames on the current card, by `smallest_global_levels`:
+    `FRAMES_PER_SM_TARGET` frames an SM in the byte-word and over-warps
+    layouts, `path_target` of the card's SMs by path.  The occupancy
+    (`_occupancy`) is cached by shape alone: the cards of one host are taken
+    to be of one kind."""
+
+    if not path_layout(M):
+        return _plan(N, K, M, FRAMES_PER_SM_TARGET)
+    n = int(math.log2(N))
+    most = _occupancy(N, K, M, n - 1)[1]
+    return _plan(N, K, M, path_target(B, _sm_count(torch.cuda.current_device()), most))
 
 
 @functools.lru_cache(maxsize=64)
@@ -276,7 +320,8 @@ def decode_scl_cuda(
         if (f.device != llr.device or f.dtype != torch.int8 or tuple(f.shape) != (B, K)
                 or not f.is_contiguous()):
             raise ValueError(f"force_info_bits must be a contiguous int8 [{B}, {K}] tensor on {llr.device}")
-    G, fpb, _ = launch_plan(N, K, M)
+    with torch.cuda.device(llr.device):
+        G, fpb, _ = launch_plan(N, K, M, B)
     return _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full)
 
 
@@ -305,7 +350,8 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
             glob_bits = torch.empty((B, M, row), dtype=torch.uint8, device=dev) if G else None
             trace_llr = torch.empty((B, K, M), dtype=torch.float32, device=dev)
             trace_idx = (torch.empty((B, K, M), dtype=ti_dtype, device=dev) if M > PATH_MAX_M
-                         else None)
+                         else torch.empty((B, K, path_trace_row(M)), dtype=torch.uint8, device=dev)
+                         if path_layout(M) else None)
         except torch.cuda.OutOfMemoryError as exc:
             raise RuntimeError(
                 f"the SCL kernel's global scratch for B={B} N={N} K={K} M={M} is "
@@ -330,7 +376,7 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
         decode_scl_cuda.launches += 1
         if M > PATH_MAX_M:
             decode_scl_cuda.deep_launches += 1
-        elif M not in BYTE_WORD_M:
+        elif path_layout(M):
             decode_scl_cuda.path_launches += 1
     if full:
         out["valid"] = torch.isfinite(out["metrics"])
@@ -344,5 +390,5 @@ decode_scl_cuda.deep_launches = 0  # of them, launches of the over-warps instant
 
 __all__ = ["decode_scl_cuda", "check_shape", "frame_bytes", "deep_frame_bytes", "sort_keys",
            "trace_entry_bytes", "launch_plan", "smallest_global_levels", "path_width",
-           "scratch_bytes", "SUPPORTED_M", "BYTE_WORD_M", "MAX_M", "PATH_MAX_M", "MAX_N",
-           "SIGMA_FIELDS"]
+           "path_layout", "path_trace_row", "path_target", "scratch_bytes", "SUPPORTED_M",
+           "BYTE_WORD_M", "MAX_M", "PATH_MAX_M", "MAX_N", "SIGMA_FIELDS"]

@@ -170,8 +170,8 @@ def test_scratch_bytes_over_warps():
     ti = 4096 * 512 * 256 * 2
     assert scl_cuda.scratch_bytes(4096, 1024, 512, 256, 9) == (4096 * 256 * 1022 * 5
                                                                 + 4096 * 512 * 256 * 4 + ti)
-    # one path a lane, the trace indices stay in shared memory
-    assert scl_cuda.scratch_bytes(4096, 128, 64, 32, 2) == 4096 * 32 * (96 * 5 + 64 * 4)
+    # by path the trace indices are in global scratch too, rows of 32 bytes at M=32
+    assert scl_cuda.scratch_bytes(4096, 128, 64, 32, 2) == 4096 * 32 * (96 * 5 + 64 * 4) + 4096 * 64 * 32
     # PAC(8192,4096)+CRC-16 at L=8: its trace stays in shared memory, 4112·8 bytes
     assert pac_cuda.frame_bytes(8192, 4112, 8, 12) == (5 * 8 + 4112 * 8 + 15) // 16 * 16
     # over warps: σ rows of 24 byte fields, 128 sort keys

@@ -14,8 +14,8 @@ decoding without early stop (K2).  On the CPU:
   two-min;
 * `PolarCode(device="cpu")`'s systematic decoder against JAX's at L=32;
 * K1's planning: `check_shape` over the envelope, `frame_bytes` and the σ
-  fields at n = 13, the scratch reckoning, and a model of the by-path
-  candidate rank (two candidates a lane) against the stable sort.
+  fields at n = 13, the scratch reckoning, and a pairwise rank count in the
+  by-path layout (two candidates a lane) against the stable sort.
 
 On the card (marker `gpu`): K1's by-path instantiation, K3's list output and
 K2 without early stop against their plain versions.
@@ -184,8 +184,8 @@ def test_check_shape_takes_the_envelope():
         scl_cuda.check_shape(128, 64, 1025, CRC, torch.float32)
     with pytest.raises(ValueError, match="8192"):
         scl_cuda.check_shape(16384, 8192, 4, CRC, torch.float32)
-    with pytest.raises(ValueError, match="bytes of shared memory"):
-        scl_cuda.check_shape(8192, 8192, 32, None, torch.float32)
+    # by path the trace indices live in global scratch: every K at N=8192
+    scl_cuda.check_shape(8192, 8192, 32, None, torch.float32)
 
 
 def test_frame_and_scratch_bytes_at_n13():
@@ -195,18 +195,22 @@ def test_frame_and_scratch_bytes_at_n13():
     assert 2 * n - 2 <= scl_cuda.SIGMA_FIELDS[16] == 3 * (32 // 4)
     assert [scl_cuda.path_width(M) for M in (3, 5, 8, 9, 16, 17, 32)] == [8, 8, 8, 16, 16, 32, 32]
     # with every level but the leaf in global scratch a frame keeps its leaf
-    # rows and its trace indices: 5·M + K·M bytes, rounded to 16
-    assert scl_cuda.frame_bytes(8192, 4096, 32, n - 1) == (5 * 32 + 4096 * 32 + 15) // 16 * 16
+    # rows, and in the byte-word layout its trace indices: 5·M (+ K·M)
+    # bytes, rounded to 16
+    assert scl_cuda.frame_bytes(8192, 4096, 32, n - 1) == 5 * 32
     assert scl_cuda.frame_bytes(8192, 4096, 4, n - 1) == 16416
     assert scl_cuda.frame_bytes(8192, 4096, 4, 0) == (5 * 4 * 8191 + 4096 * 4 + 15) // 16 * 16
-    # Lg, Bg and TL: about 7.5 GB at B=4096, N=8192, M=32 with G=12
-    assert scl_cuda.scratch_bytes(4096, 8192, 4096, 32, 12) == 4096 * 32 * 8190 * 5 + 4096 * 4096 * 32 * 4
+    # Lg, Bg, TL and TI (rows of 32 bytes): about 8 GB at B=4096, N=8192,
+    # M=32 with G=12
+    assert scl_cuda.scratch_bytes(4096, 8192, 4096, 32, 12) == (4096 * 32 * 8190 * 5
+                                                                + 4096 * 4096 * 32 * (4 + 1))
 
 
 def _bypath_ranks(c0, c1):
-    """K1's by-path rank count (`scl_path_kernel`): lane p holds candidates
+    """A pairwise rank count in K1's by-path layout: lane p holds candidates
     2p and 2p + 1 with metrics c0[p], c1[p]; each counts the candidates
-    before it in (metric, index) order."""
+    before it in (metric, index) order, the order the kernel's in-warp key
+    sort gives (`tests/test_torch_path_lists.py` models that sort)."""
 
     M = len(c0)
     r0, r1 = np.zeros(M, int), np.zeros(M, int)

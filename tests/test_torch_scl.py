@@ -184,7 +184,7 @@ def test_wrapper_runs_plain_version_on_cpu():
         (128, 64, 8, "0x1" + "0" * 9 + "1", torch.float32, False),  # CRC degree 36
         (128, 64, 1025, CRC, torch.float32, False),  # M above 1024: one thread a path of a block
         (16384, 8192, 1, CRC, torch.float32, False),  # N above 8192
-        (8192, 8192, 32, None, torch.float32, False),  # the trace indices fit no block
+        (8192, 8192, 32, None, torch.float32, True),  # by path the trace indices are in global scratch
     ],
 )
 def test_kernel_shape_gate(N, K, M, crc, dtype, ok):

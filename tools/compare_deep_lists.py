@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Hold the over-warps list decoders of one checkout to another's, bit for bit.
+"""Hold the by-path and over-warps list decoders of one checkout to another's, bit for bit.
 
     python tools/compare_deep_lists.py --repo DIR --save FILE.npz
     python tools/compare_deep_lists.py [--repo DIR] --compare FILE.npz
@@ -7,17 +7,22 @@
 DIR (default: this checkout) is the root of the checkout whose
 `polar_code_tpu_torch` is imported and built into DIR/build.  Each run
 decodes the same inputs (numpy draws, seed 123, through this checkout's
-`chip_smoke.py` helpers) with the SCL kernel K1 at P(128,64) CRC-24A M 33,
-64, 65, 100, 129, 256 and 1024, P(1024,512) M=256 and P(32,28) M=64, with
-and without a forced plan, and with the PAC kernel K3 at PAC(128,64)+CRC-16
-L 33, 64, 65, 100, 129, 256 and 1024 and PAC(32,12) L=64, B=37 frames each,
+`chip_smoke.py` helpers) with the SCL kernel K1 over warps at P(128,64)
+CRC-24A M 33, 64, 65, 100, 129, 256 and 1024, P(1024,512) M=256 and
+P(32,28) M=64, with and without a forced plan; K1 by path at P(128,64) M 3,
+5, 16, 17, 31 and 32, P(32,28) M=16 and P(8192,4096) M=32 (B=8), with and
+without CRC-24A and a forced plan, and with CRC-24A at the launch plans of
+the timed batches (`chip_smoke.py`'s PATH_TIMES): P(128,64) M 3, 16 and 32
+at B=4096, P(1024,512) M=16 at B=1024, and 8 frames of P(8192,4096) M=32 at
+the plan of B=1024; and the PAC kernel K3 at PAC(128,64)+CRC-16 L 33, 64,
+65, 100, 129, 256 and 1024 and PAC(32,12) L=64; B=37 frames unless named,
 every output of the list launch and of the best-only one.  `--save` writes
 them to FILE; `--compare` holds them to FILE's, byte for byte, and each
 case to the plain PyTorch version (`chip_smoke.py`'s judges: K1 outside
 near-ties, K3 every field).  To compare a change with its parent, run both
-on one card in one go; FILE holds every output (over 64 MiB: the full
-lists at M=1024).  Prints the card's `nvidia-smi` line and exits non-zero
-on any difference.
+on one card in one go; FILE holds every output (a few hundred MiB: keep it
+in the git-ignored `smoke_checkout/`, not under `chiprun_out/`).  Prints
+the card's `nvidia-smi` line and exits non-zero on any difference.
 """
 
 import argparse
@@ -37,6 +42,7 @@ def main():
     sys.path.insert(0, str(Path(args.repo).resolve()))
     import faulthandler
     import importlib.util
+    import inspect
 
     import numpy as np
     import torch
@@ -63,18 +69,36 @@ def main():
         for f, v in list(full.items()) + [(f"best/{f}", v) for f, v in best.items()]:
             outs[f"{tag}|{f}"] = v.cpu().numpy()
 
-    k1 = [(128, 64, M) for M in (33, 64, 65, 100, 129, 256, 1024)] + [(1024, 512, 256), (32, 28, 64)]
-    for n, k, M in k1:
+    # a checkout whose by-path plan takes the batch size, or one whose plan does not
+    takes_b = "B" in inspect.signature(scl_cuda.launch_plan).parameters
+
+    def k1(x, info, M, crc, p, launch_b, full=False):
+        if launch_b is None:
+            return scl_cuda.decode_scl_cuda(x, info, M, crc, force_info_bits=p, full=full)
+        G, fpb, _ = scl_cuda.launch_plan(x.shape[1], len(info), M, *([launch_b] if takes_b else []))
+        return scl_cuda._launch(x, np.asarray(info, np.int64), M, crc, p, G, fpb, full)
+
+    # (N, K, M, frames, CRCs, the batch whose launch plan runs): over warps
+    # with CRC-24A, by path with and without, and at the timed batches' plans
+    k1_cases = ([(128, 64, M, 37, (cs.CRC,), None) for M in (33, 64, 65, 100, 129, 256, 1024)]
+                + [(1024, 512, 256, 37, (cs.CRC,), None), (32, 28, 64, 37, (cs.CRC,), None)]
+                + [(128, 64, M, 37, (cs.CRC, None), None) for M in (3, 5, 16, 17, 31, 32)]
+                + [(32, 28, 16, 37, (cs.CRC, None), None), (8192, 4096, 32, 8, (cs.CRC, None), None)]
+                + [(128, 64, M, 4096, (cs.CRC,), None) for M in (3, 16, 32)]
+                + [(1024, 512, 16, 1024, (cs.CRC,), None), (8192, 4096, 32, 8, (cs.CRC,), 1024)])
+    for n, k, M, B, crcs, launch_b in k1_cases:
         info = construct_info_set(n, k, method="gaussian" if n == 128 else "gaussian_bitrev")
-        llr, msg = cs.make_llrs(rng, 37, 2.5, info, n=n)
+        llr, msg = cs.make_llrs(rng, B, 2.5 if n < 8192 else 1.5, info, n=n)
         x = torch.from_numpy(llr).to(dev)
         plan = torch.from_numpy(cs.random_plan(rng, msg)).to(dev)
-        for p in (None, plan):
-            tag = f"K1 P({n},{k}) M={M} plan={'on' if p is not None else 'off'}"
-            keep(tag, scl_cuda.decode_scl_cuda(x, info, M, cs.CRC, force_info_bits=p, full=True),
-                 scl_cuda.decode_scl_cuda(x, info, M, cs.CRC, force_info_bits=p))
-            if args.compare:
-                cs.k1_vs_plain(x, info, M, cs.CRC, p, tag)
+        for crc in crcs:
+            for p in (None, plan):
+                tag = (f"K1 P({n},{k}) M={M}{'' if crc else ' crc=off'} "
+                       f"plan={'on' if p is not None else 'off'}"
+                       + (f" B={B}" if B > 37 else "") + (f" at the B={launch_b} plan" if launch_b else ""))
+                keep(tag, k1(x, info, M, crc, p, launch_b, full=True), k1(x, info, M, crc, p, launch_b))
+                if args.compare:
+                    cs.k1_vs_plain(x, info, M, crc, p, tag, launch_b=launch_b)
     for n, k, L in [(128, 64, L) for L in (33, 64, 65, 100, 129, 256, 1024)] + [(32, 12, 64)]:
         mask = cs.pac_mask(n, k + cs.PAC_CRC[0])
         x = cs.pac_llrs(rng, 37, 2.0, (n, k, cs.PAC_CRC), cs.PAC_GEN, mask, dev)
@@ -86,7 +110,8 @@ def main():
     print(cs.nvidia_smi_line())
     if args.save:
         np.savez(args.save, **outs)
-        print(f"saved {len(outs)} arrays of {len(k1) * 2} K1 and 8 K3 cases to {args.save}")
+        n_k1 = sum(2 * len(case[4]) for case in k1_cases)
+        print(f"saved {len(outs)} arrays of {n_k1} K1 and 8 K3 cases to {args.save}")
         return 0
     with np.load(args.compare) as ref:
         differ = [t for t, v in outs.items()

@@ -71,13 +71,13 @@ def main():
     llr = torch.from_numpy(cs.make_llrs(np.random.default_rng(5), B, 5.0, info)[0]).to(dev)
     for M in (64, 256, 1024):
         run(f"K1 P(128,64) M={M} B={B}", lambda M=M: scl_cuda.decode_scl_cuda(llr, info, M, cs.CRC),
-            2 if M == 1024 else 10, cs.scl_work(info, M, B), scl_cuda.launch_plan(cs.N, cs.K, M))
+            2 if M == 1024 else 10, cs.scl_work(info, M, B), scl_cuda.launch_plan(cs.N, cs.K, M, B))
     run("K1 P(128,64) M=256 B=1", lambda: scl_cuda.decode_scl_cuda(llr[:1], info, 256, cs.CRC), 20,
-        cs.scl_work(info, 256, 1), scl_cuda.launch_plan(cs.N, cs.K, 256))
+        cs.scl_work(info, 256, 1), scl_cuda.launch_plan(cs.N, cs.K, 256, 1))
     info_c = construct_info_set(1024, 512, method="gaussian_bitrev")
     x = torch.from_numpy(cs.make_llrs(np.random.default_rng(6), 1024, 1.75, info_c, n=1024)[0]).to(dev)
     run("K1 P(1024,512) M=64 B=1024", lambda: scl_cuda.decode_scl_cuda(x, info_c, 64, cs.CRC), 3,
-        cs.scl_work(info_c, 64, 1024, n=1024, k=512), scl_cuda.launch_plan(1024, 512, 64))
+        cs.scl_work(info_c, 64, 1024, n=1024, k=512), scl_cuda.launch_plan(1024, 512, 64, 1024))
     n_p, k_p, crc_p = cs.PAC_CODES[128]
     mask = cs.pac_mask(n_p, k_p + crc_p[0])
     x = cs.pac_llrs(np.random.default_rng(7), B, 2.5, cs.PAC_CODES[128], cs.PAC_GEN, mask, dev)

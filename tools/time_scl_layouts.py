@@ -93,11 +93,14 @@ def main() -> int:
     dev = torch.device("cuda")
     default_library = scl_cuda._library
 
-    def use(name):  # route the wrapper's launches to one build's library
+    default_byte_words = scl_cuda.BYTE_WORD_M
+
+    def use(name):  # route the wrapper's launches, and its reckoning, to one build's layouts
         lib = default_library(VARIANTS[name])
         scl_cuda._library = lambda: lib
+        scl_cuda.BYTE_WORD_M = default_byte_words if name == "default" else ()
         scl_cuda._occupancy.cache_clear()
-        scl_cuda.launch_plan.cache_clear()
+        scl_cuda._plan.cache_clear()
 
     rng = np.random.default_rng(13)
     inputs = {}
@@ -120,6 +123,7 @@ def main() -> int:
                 key = (n, k, M)
                 times.setdefault(key, {}).setdefault(name, []).append(ms)
     scl_cuda._library = default_library
+    scl_cuda.BYTE_WORD_M = default_byte_words
     ok = True
     for (n, k, _, snr), M in SHAPES:
         outs = decoded[n, M]

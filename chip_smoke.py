@@ -216,10 +216,42 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    beside by-path M=32, and at P(1024,512) M=64 B=1024; K3 at
    PAC(128,64)+CRC-16 B=4096 L 64, 256 and 1024 beside L=32, and
    PAC(2048,1024) L=32 and PAC(8192,4096) L=8 at B=1024;
-15. a `kernels` JSON line (one entry a kernel, and one for each new
-   instantiation with its launches on phases 13's and 14's paths; each
-   `max_abs_err` the largest difference from the plain version that the
-   run measured), the `nvidia-smi` line, and the device JSON line last.
+15. the cluster lists (`cluster_lists`): the `-Xptxas -v` registers and
+   spills of the four cluster instantiations and of K3's one-path-a-lane
+   ones (a best-only one that spills fails the phase; K3 at L=1 may spill
+   up to the parent's 32 B), and K1's and K3's
+   launch plans at the new shapes (scratch bytes a frame, shared bytes a
+   block, frames the card runs at once); each vs-plain case at two draws
+   (seeds 20261118 and 20261119: a missing cluster barrier would show as a
+   rare wrong decision): (a) K1's cluster instantiation (list sizes
+   1025..8192, a frame over a thread-block cluster of 2, 4 or 8 blocks of
+   1024 threads) against the plain version, list and best-only, at
+   P(128,64) CRC-24A M ∈ {1025, 2048, 3000, 4096, 8192} (B=32; CRC and plan
+   on and off at 2048), P(1024,512) M=2048 (B=16) and P(8192,2048) M=2048
+   (B=2), under K1's near-tie rule, and K1 and K3 at M = L = 2048 with the
+   free memory pinned to 10 frames' scratch, a batch of 32 in 4 launches,
+   every output equal to one launch's; (b) K1 and K3 against the JAX golden
+   files `tests/golden/scl_f32_cluster.npz` (P(128,64) M 2048, 4096 and
+   8192) and `pac_cluster.npz` (PAC(128,64)+CRC-16 L=2048), written by
+   `tests/golden/make_cluster_lists.py`; (c) K3's cluster instantiation
+   against the plain version, every list field and best-only, max |diff|
+   0: PAC(128,64)+CRC-16 and PAC(32,12)+CRC-16 at L 2048 and 4096; (d) K3
+   one path a lane at PAC(8192,7368)+CRC-16 L=32 (B=2), Kp past what its
+   trace in shared memory took, the same way;
+   (e) the legacy simulator at `list_size_max=2048` (stage 2 on a cluster),
+   identical to the JAX driver (`tests/golden/legacy_pac_cluster.json`),
+   and `decode_scl` at M=2048 on the 12 golden frames and `PolarCode(64,
+   48, "dega", 2048).pac_list_crc_decoder`, systematic and not, 8 frames
+   each, one cluster launch a call, equal to the plain version; the plain
+   decoders 0 times on CUDA; (f) times with CUDA events beside their
+   bounds: K1 at P(128,64) CRC-24A B=1024 M 2048, 4096 and 8192 beside over
+   warps at M=1024, K3 at PAC(128,64)+CRC-16 B=1024 L 2048 and 4096 beside
+   L=1024, the plain versions at M = L = 2048, and K3 one path a lane at
+   PAC(128,64)+CRC-16 L=32 B=4096 and PAC(8192,7368) L=32 B=64;
+16. a `kernels` JSON line (one entry a kernel, and one for each new
+   instantiation with its launches on phases 13's, 14's and 15's paths;
+   each `max_abs_err` the largest difference from the plain version that
+   the run measured), the `nvidia-smi` line, and the device JSON line last.
 
 It exits non-zero, and prints no result line, when there is no CUDA device,
 when a phase fails, or when run without the rest of the repository.  It
@@ -349,6 +381,7 @@ def ptxas_report(log):
             tp = re.search(r"pac_decode_kernelILi(\d+)E(?:Lb([01])E)?", m.group(1))
             tn = re.search(r"nms_kernel_(warp|block|1024)ILi(\d+)ELb([01])E", m.group(1))
             td = re.search(r"(scl|pac)_deep_kernelI([ht])Lb([01])E", m.group(1))
+            tc = re.search(r"(scl|pac)_cluster_kernelILb([01])E", m.group(1))
             entry = (f"scl_decode_kernel<M={tm.group(1)}{', list' if tm.group(2) == '1' else ''}>" if tm
                      else f"scl_path_kernel<LM={tw.group(1)}{', list' if tw.group(2) == '1' else ''}>"
                      if tw
@@ -357,7 +390,9 @@ def ptxas_report(log):
                      else f"nms_kernel<D={tn.group(2)}, {'two-min' if tn.group(3) == '1' else 'shared'}, "
                           f"{tn.group(1)}>" if tn
                      else f"{td.group(1)}_deep_kernel<{'u8' if td.group(2) == 'h' else 'u16'} trace"
-                          f"{', list' if td.group(3) == '1' else ''}>" if td else m.group(1))
+                          f"{', list' if td.group(3) == '1' else ''}>" if td
+                     else f"{tc.group(1)}_cluster_kernel<{'list' if tc.group(2) == '1' else 'best-only'}>"
+                     if tc else m.group(1))
             cur = {"entry": entry, "regs": None, "spill_stores": None, "spill_loads": None,
                    "smem": 0}
             rows.append(cur)
@@ -2187,6 +2222,339 @@ def deep_lists(dev, smi):
             for k in ("scl_deep", "pac_deep")]
 
 
+# phase 15, the cluster lists: K1 and K3 at list sizes 1025..8192 (their
+# cluster instantiations, a frame spread over a thread-block cluster of 2,
+# 4 or 8 blocks of 1024 threads) and K3 one path a lane with its trace in
+# global scratch
+CLUSTER_SEEDS = (20261118, 20261119)  # every vs-plain case at two draws: a missing barrier is rare
+CLUSTER_B = 32  # frames of a P(128,64) vs-plain case
+# (a): P(128,64) list sizes (1025 and 3000 sort pads; 3000 leaves a block idle),
+# CRC and plan on and off at 2048
+CLUSTER_MS = (1025, 2048, 3000, 4096, 8192)
+# (a): (N, K, M, frames); the plain version took 3.2 s at P(8192,256) M=2048 B=2
+CLUSTER_N = ((1024, 512, 2048, 16), (8192, 2048, 2048, 2))
+CLUSTER_LS = (2048, 4096)  # (c): K3 list sizes at PAC(128,64)+CRC-16 and PAC(32,12)+CRC-16
+# (d): K3 one path a lane at N=8192 with Kp past what its trace in shared
+# memory took (7259 at L=32)
+ONE_LANE_N = ((8192, 7384, 32),)
+ONE_LANE_B = 2  # the plain version takes about 12 s a call at N=8192
+CLUSTER_SIM_LIST_MAX = 2048  # (e): the legacy simulator's stage-2 list size
+CLUSTER_SCALAR = (2048, 2048, 8)  # (e): decode_scl's M, PolarCode's L, frames a PolarCode decoder
+CLUSTER_TIME_B = 1024  # (f): frames of the timed launches
+
+
+def cluster_lists(dev, smi):
+    """Phase 15: K1 and K3 on a cluster (list sizes 1025..8192) against the
+    plain versions and the JAX golden files, K3 one path a lane at N=8192
+    with the trace in global scratch, the legacy simulator at
+    list_size_max=2048 against the JAX driver, the scalar calls that reach
+    the new instantiations, and their times.  Returns the `kernels` entries
+    of the two cluster instantiations."""
+
+    import torch
+
+    from polar_code_tpu_torch import _build
+    from polar_code_tpu_torch.legacy import pac_cuda, simulator
+    from polar_code_tpu_torch.legacy.crclib import crc as legacy_crc
+    from polar_code_tpu_torch.legacy.pac import pac_list_decode_batch
+    from polar_code_tpu_torch.legacy.pac_cuda import launch_plan as pac_plan
+    from polar_code_tpu_torch.legacy.pac_cuda import SOURCE as pac_source
+    from polar_code_tpu_torch.legacy.pac_cuda import frame_bytes as pac_frame_bytes
+    from polar_code_tpu_torch.legacy.pac_cuda import pac_list_decode_cuda
+    from polar_code_tpu_torch.legacy.polar_code import PolarCode
+    from polar_code_tpu_torch.legacy.rate_profile import rateprofile
+    from polar_code_tpu_torch.ops import scl_cuda
+    from polar_code_tpu_torch.ops.scl import decode_scl_batch
+    from polar_code_tpu_torch.polar.api import decode_scl
+    from polar_code_tpu_torch.polar.construct import construct_info_set
+
+    decode_scl_cuda = scl_cuda.decode_scl_cuda
+    wrappers = (decode_scl_cuda, pac_list_decode_cuda)
+    plains = (decode_scl_batch, pac_list_decode_batch)
+
+    def reset_counts():
+        for f in wrappers:
+            f.launches = f.cluster_launches = 0
+        for f in plains:
+            f.cuda_calls = 0
+
+    for source in (scl_cuda.SOURCE, pac_source):  # built in phase 2: this reads the kept log
+        for row in ptxas_report(_build.build(source).log):
+            if "_cluster_kernel" in row["entry"] or "pac_decode_kernel" in row["entry"]:
+                print(f"  ptxas {row['entry']}: {row['regs']} registers, spills {row['spill_stores']} B "
+                      f"stores / {row['spill_loads']} B loads")
+            if "_cluster_kernel" in row["entry"] or "pac_decode_kernel" in row["entry"]:
+                # K3 at L=1 may keep the parent's few spilled bytes: the
+                # spill-free builds of it (launch bounds of 5–7 blocks an
+                # SM) ran 19% slower at B=65536 (PERF.md, §6)
+                limit = 32 if row["entry"] == "pac_decode_kernel<LM=1>" else 0
+                check("list" in row["entry"] or row["spill_stores"] <= limit,
+                      f"the best-only {row['entry']} spills {row['spill_stores']} B (at most {limit})")
+    for n_s, k_s, M in [(N, K, M) for M in CLUSTER_MS] + [c[:3] for c in CLUSTER_N]:
+        g, _, at_once = scl_cuda.launch_plan(n_s, k_s, M, CLUSTER_TIME_B)
+        print(f"  K1 N={n_s} K={k_s} M={M} (a cluster of {scl_cuda.cluster_blocks(M)} blocks of 1024 "
+              f"threads): levels 1..{g} and the trace in global scratch, "
+              f"{scl_cuda.scratch_bytes(1, n_s, k_s, M, g)} B a frame; {scl_cuda.frame_bytes(n_s, k_s, M, g)} "
+              f"B shared a block; {at_once} frames at once on the card (occupancy calculator)")
+    for n_p, kp, L in [(N, K + PAC_CRC[0], L) for L in CLUSTER_LS] + list(ONE_LANE_N) + [(N, 80, 32)]:
+        g, fpb, at = pac_plan(n_p, kp, L)
+        where = (f"a cluster of {scl_cuda.cluster_blocks(L)} blocks; {at} frames at once on the card"
+                 if L > scl_cuda.DEEP_MAX_M else f"{fpb} frames a block; {at} frames an SM")
+        print(f"  K3 N={n_p} Kp={kp} L={L}: levels 1..{g} and the trace in global scratch; "
+              f"{pac_frame_bytes(n_p, kp, L, g)} B shared a frame or block; {where} (occupancy "
+              f"calculator)")
+
+    # ---- (a) K1 on a cluster against the plain version, at two draws ----
+    cases = [(N, K, M, CRC, False, CLUSTER_B) for M in CLUSTER_MS]
+    cases += [(N, K, 2048, crc, plan, CLUSTER_B) for crc, plan in ((CRC, True), (None, False), (None, True))]
+    cases += [(n_c, k_c, M, CRC, False, B) for n_c, k_c, M, B in CLUSTER_N]
+    differ = ties = 0
+    k1_err = 0.0
+    t_plain_n8192 = None
+    for seed in CLUSTER_SEEDS:
+        rng = np.random.default_rng(seed)
+        for n_c, k_c, M, crc, use_plan, B in cases:
+            info_c = construct_info_set(n_c, k_c, method="gaussian" if n_c == N else "gaussian_bitrev")
+            llr_np, msg = make_llrs(rng, B, 2.0 if n_c == N else 1.5, info_c, n=n_c)
+            plan = torch.from_numpy(random_plan(rng, msg)).to(dev) if use_plan else None
+            tag = (f"(a) P({n_c},{k_c}) M={M} crc={'on' if crc else 'off'} "
+                   f"plan={'on' if use_plan else 'off'} B={B} seed {seed}")
+            t = time.perf_counter()
+            (d, t_, e), (db, tb, eb) = k1_vs_plain(torch.from_numpy(llr_np).to(dev), info_c, M, crc, plan, tag)
+            if n_c == 8192:
+                t_plain_n8192 = time.perf_counter() - t
+            differ, ties, k1_err = differ + d + db, ties + t_ + tb, max(k1_err, e, eb)
+            print(f"  {tag}: list and best-only equal to the plain version outside {t_ + tb} near-tie frames "
+                  f"({time.perf_counter() - t:.1f} s)", flush=True)
+    print(f"(a) K1 on a cluster vs plain: {len(cases)} cases at {len(CLUSTER_SEEDS)} draws, list and "
+          f"best-only, {differ} frames differ, all {ties} near-ties; max |info LLR diff| {k1_err:.3e}")
+    # a batch whose scratch does not fit the free memory goes in launches of
+    # `cluster_batch` frames: here the free bytes are pinned to 10 frames'
+    rng = np.random.default_rng(CLUSTER_SEEDS[0])
+    llr_np, msg = make_llrs(rng, CLUSTER_B, 2.0, construct_info_set(N, K))
+    x = torch.from_numpy(llr_np).to(dev)
+    plan = torch.from_numpy(random_plan(rng, msg)).to(dev)
+    mask = pac_mask(N, K + PAC_CRC[0])
+    xp = pac_llrs(rng, CLUSTER_B, 2.0, (N, K, PAC_CRC), PAC_GEN, mask, dev)
+    whole = (decode_scl_cuda(x, construct_info_set(N, K), 2048, CRC, force_info_bits=plan, full=True),
+             pac_list_decode_cuda(xp, mask, PAC_GEN, 2048, *PAC_CRC, full=True))
+    free_bytes = scl_cuda.card_free_bytes
+    reset_counts()
+    try:  # 10 frames' scratch over nine tenths
+        scl_cuda.card_free_bytes = lambda d: scl_cuda.scratch_bytes(100, N, K, 2048, 7) // 9 + 100
+        pac_cuda.card_free_bytes = lambda d: pac_cuda.scratch_bytes(100, N, K + PAC_CRC[0], 2048, 7) // 9 + 100
+        split = (decode_scl_cuda(x, construct_info_set(N, K), 2048, CRC, force_info_bits=plan, full=True),
+                 pac_list_decode_cuda(xp, mask, PAC_GEN, 2048, *PAC_CRC, full=True))
+    finally:
+        scl_cuda.card_free_bytes = pac_cuda.card_free_bytes = free_bytes
+    torch.cuda.synchronize()
+    want = -(-CLUSTER_B // 10)
+    check((decode_scl_cuda.cluster_launches, pac_list_decode_cuda.cluster_launches) == (want, want),
+          f"a split batch of {CLUSTER_B} frames took {decode_scl_cuda.cluster_launches} / "
+          f"{pac_list_decode_cuda.cluster_launches} launches, not {want}")
+    for a, b in zip(whole, split):
+        for f in a:
+            check(torch.equal(a[f], b[f]), f"(a) a split cluster batch's {f} differs from one launch's")
+    print(f"  (a) K1 and K3 at M = L = 2048, B={CLUSTER_B} with the free memory pinned to 10 frames' "
+          f"scratch: {want} launches each, every output equal to one launch's", flush=True)
+
+    # ---- (b) against the JAX golden files ----
+    differ = ties = 0
+    with np.load(GOLDEN / "scl_f32_cluster.npz") as gold:
+        gold_cases = json.loads(str(gold["cases"]))
+        for case in gold_cases:
+            tag, code = case["name"], case["code"]
+            x = torch.from_numpy(gold[f"{code}/llr"]).to(dev)
+            plan = torch.from_numpy(gold[f"{code}/plan"]).to(dev) if case["plan"] else None
+            out = decode_scl_cuda(x, gold[f"{code}/info"], case["M"], case["crc"], force_info_bits=plan,
+                                  full=True)
+            ref = {"best_path_bits": gold[f"{tag}/bits"], "best_path_info_llrs": gold[f"{tag}/llrs"],
+                   "crc_pass": gold[f"{tag}/crc_pass"], "metrics": gold[f"{tag}/metrics"]}
+            check(ref["metrics"].shape == tuple(out["metrics"].shape), f"{tag}: golden metrics shape")
+            d, t, _ = judge_list(out, ref, f"(b) vs JAX f32 {tag}")
+            differ, ties = differ + d, ties + t
+            print(f"  (b) K1 {tag} B={x.shape[0]}: {d} frames differ from JAX float32 ({t} near-ties); "
+                  f"crc pass {int(ref['crc_pass'].sum())}", flush=True)
+    with np.load(GOLDEN / "pac_cluster.npz") as gold:
+        pac_cases = json.loads(str(gold["cases"]))
+        for case in pac_cases:
+            name = case["name"]
+            x = torch.from_numpy(gold[f"{name}/llr"]).to(dev)
+            out = pac_list_decode_cuda(x, gold[f"{name}/mask"], case["gen"], case["L"], case["crc_len"],
+                                       case["crc_poly"], full=True)
+            best = pac_list_decode_cuda(x, gold[f"{name}/mask"], case["gen"], case["L"], case["crc_len"],
+                                        case["crc_poly"])
+            for f in ("extracted", "crc_pass", "metrics", "v_full", "candidates"):
+                have, want = out[f].cpu().numpy(), gold[f"{name}/{f}"]
+                check(have.shape == want.shape and np.array_equal(have.astype(want.dtype), want),
+                      f"(b) K3 {name}: {f} differs from the JAX decoder's")
+            for f in ("extracted", "crc_pass"):
+                check(np.array_equal(best[f].cpu().numpy().astype(gold[f"{name}/{f}"].dtype),
+                                     gold[f"{name}/{f}"]), f"(b) K3 {name} best-only: {f} differs")
+            print(f"  (b) K3 {name} B={x.shape[0]}: list (extracted, crc_pass, metrics, v_full, candidates) "
+                  f"and best-only equal to the JAX decoder's; crc pass {int(gold[f'{name}/crc_pass'].sum())}",
+                  flush=True)
+    print(f"(b) vs JAX: K1 {len(gold_cases)} cases (bits, info LLRs, metrics of all M paths), {differ} frames "
+          f"differ, all {ties} near-ties; K3 {len(pac_cases)} case, every field equal")
+
+    # ---- (c) K3 on a cluster, (d) one path a lane at N=8192, against the plain version ----
+    k3_err = 0.0
+    pac_shapes = ([(N, K, L, CLUSTER_B) for L in CLUSTER_LS] + [(32, 12, L, CLUSTER_B) for L in CLUSTER_LS]
+                  + [(n_p, kp - PAC_CRC[0], L, ONE_LANE_B) for n_p, kp, L in ONE_LANE_N])
+    for seed in CLUSTER_SEEDS:
+        rng = np.random.default_rng(seed)
+        for n_p, k_p, L, B in pac_shapes:
+            mask = pac_mask(n_p, k_p + PAC_CRC[0])
+            x = pac_llrs(rng, B, 2.0 if n_p <= N else 1.5, (n_p, k_p, PAC_CRC), PAC_GEN, mask, dev)
+            ref = pac_list_decode_batch(x, mask, PAC_GEN, L, crc_len=PAC_CRC[0], crc_poly=PAC_CRC[1])
+            tag = f"({'c' if L > 32 else 'd'}) PAC({n_p},{k_p})+CRC-16 L={L} B={B} seed {seed}"
+            e = k3_list_vs_plain(x, mask, PAC_GEN, L, *PAC_CRC, tag, ref=ref)
+            best = pac_list_decode_cuda(x, mask, PAC_GEN, L, *PAC_CRC)
+            for f in ("extracted", "crc_pass"):
+                check(torch.equal(best[f], ref[f]), f"{tag} best-only: K3's {f} differs from the plain version")
+            k3_err = max(k3_err, e)
+            print(f"  {tag}: list ({', '.join(PAC_LIST_FIELDS)}) and best-only equal to the plain version "
+                  f"(max |diff| {e}); crc pass {int(ref['crc_pass'].sum())}", flush=True)
+
+    # ---- (e) the simulator and the scalar calls ----
+    sim_ref = json.loads((GOLDEN / "legacy_pac_cluster.json").read_text())["simulator"]
+    cfg = sim_ref["config"]
+    reset_counts()
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(buf):
+        res = simulator.run(simulator.LegacySimConfig(snr_range=cfg["snr_range"], seed=cfg["seed"],
+                                                      list_size_max=cfg["list_size_max"]), tmp)
+        sim_csv = next(Path(tmp).glob("*.csv")).read_text()
+    sim_s = time.perf_counter() - t
+    sim_launches, sim_cluster = pac_list_decode_cuda.launches, pac_list_decode_cuda.cluster_launches
+    plain = sum(f.cuda_calls for f in plains)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("@")]
+    for ln in lines:
+        print(f"  simulator L 1 -> {cfg['list_size_max']}: {ln}")
+    print(f"(e) simulator at list_size_max={cfg['list_size_max']}: {sim_s:.3f} s (host clock; the JAX driver "
+          f"on the CPU took {sim_ref['seconds']:.1f} s); K3 {sim_launches} launches, {sim_cluster} of them on "
+          f"a cluster (stage 2); plain decoders on CUDA {plain} times")
+    check(lines == sim_ref["lines"] and res.ber == sim_ref["ber"] and res.fer == sim_ref["fer"]
+          and sim_csv == sim_ref["csv"], f"simulator results at list_size_max={cfg['list_size_max']} differ "
+          f"from the JAX driver's: {lines} {res.ber} vs {sim_ref['lines']} {sim_ref['ber']}")
+    check(sim_cluster > 0, "the simulator's stage 2 did not go through K3's cluster instantiation")
+    check(plain == 0, "a plain decoder ran on CUDA in the simulator")
+
+    scl_m, pac_l, frames = CLUSTER_SCALAR
+    golden = np.load(GOLDEN / "ref_p128_k64.npz")
+    g_info = golden["info_set"]
+    crc16 = legacy_crc(*PAC_CRC)
+    pc = PolarCode(64, 48, "dega", pac_l, rateprofile(64, 48, 2.0, 0))
+    rng = np.random.default_rng(CLUSTER_SEEDS[0])
+    msgs = rng.integers(0, 2, (frames, 32)).astype(np.int8)
+    msgs = np.concatenate([msgs, crc16.crcCalc_batch(msgs)], axis=1)
+    pac_in = {}
+    for systematic in (True, False):
+        codewords = np.stack([pc.encode(m, systematic) for m in msgs])
+        nv = 1.0 / (2.0 * 0.5 * 10 ** 0.2)
+        pac_in[systematic] = (2.0 * (1.0 - 2.0 * codewords + rng.normal(0.0, math.sqrt(nv), codewords.shape))
+                              / nv).astype(np.float32)
+    reset_counts()
+    scl_out = [decode_scl(llr, g_info, scl_m, CRC) for llr in golden["llrs"]]
+    pac_out = {sy: np.stack([pc.pac_list_crc_decoder(row, sy, True, crc16, pac_l) for row in llr])
+               for sy, llr in pac_in.items()}
+    torch.cuda.synchronize()
+    scalar = tuple(f.launches for f in wrappers)
+    scalar_cluster = tuple(f.cluster_launches for f in wrappers)
+    plain = tuple(f.cuda_calls for f in plains)
+    calls = (len(scl_out), 2 * frames)
+    print(f"(e) scalar calls: K1/K3 launches {scalar} ({scalar_cluster} on a cluster) for {calls} decodes; "
+          f"plain decoders on CUDA {plain}")
+    check(scalar == calls == scalar_cluster,
+          f"the scalar calls launched {scalar} ({scalar_cluster} on a cluster), not one a decode {calls}")
+    check(plain == (0, 0), f"a plain decoder ran on CUDA under the scalar calls: {plain}")
+    ref = plain_fields(decode_scl_batch(torch.from_numpy(golden["llrs"].astype(np.float32)).to(dev), g_info,
+                                        scl_m, CRC, dtype=torch.float32))
+    got = {"best_path_bits": torch.from_numpy(np.stack([r["best_path_bits"] for r in scl_out]))}
+    d, t, _ = judge_list(got, {"best_path_bits": ref["best_path_bits"]}, f"(e) decode_scl M={scl_m}",
+                         ref["metrics"])
+    near = near_tie_frames(ref["metrics"])
+    for b, r in enumerate(scl_out):  # the valid paths' metrics, in the final order, outside near-ties
+        have, ok = np.asarray(r["metrics"]), ref["valid"][b]
+        check(near[b] or have.shape == (int(ok.sum()),)
+              and np.all(np.abs(have - ref["metrics"][b][ok]) <= 1e-6 * np.abs(have)),
+              f"decode_scl M={scl_m} frame {b} metrics differ from the plain version")
+    print(f"  decode_scl P(128,64) M={scl_m} CRC on the 12 golden frames: {d} frames differ from the plain "
+          f"version ({t} near-ties)")
+    for systematic, llr in pac_in.items():
+        if systematic:
+            want = systematic_reference(pc, llr, True, crc16, pac_l, dev)
+        else:
+            want = pac_list_decode_batch(torch.from_numpy(llr).to(dev), pc.polarcode_mask, pc.gen, pac_l,
+                                         crc_len=crc16.len, crc_poly=crc16.gen)["extracted"].cpu().numpy()
+        check(np.array_equal(pac_out[systematic], want), f"PolarCode L={pac_l} systematic={systematic} "
+              f"differs from the plain version")
+        print(f"  PolarCode(64, 48, dega, L={pac_l}) {'systematic' if systematic else 'non-systematic'}, "
+              f"CRC-16, 2.0 dB: {frames} frames equal to the plain version; "
+              f"{int(np.all(pac_out[systematic] == msgs, axis=1).sum())} decoded the sent message")
+
+    # ---- (f) times with CUDA events ----
+    print(f"cluster-list times on {smi}:")
+    B = CLUSTER_TIME_B
+    info = construct_info_set(N, K)
+    llr = torch.from_numpy(make_llrs(np.random.default_rng(5), B, 5.0, info)[0]).to(dev)
+    entries = {}
+    for M in (1024, 2048, 4096, 8192):  # over warps beside the cluster
+        ms = cuda_time_ms(lambda M=M: decode_scl_cuda(llr, info, M, CRC), reps=2, warmup=1)
+        b_ms, b_by = bound(*scl_work(info, M, B))
+        line = f"  K1 P(128,64) M={M} CRC B={B} 5.0 dB: {ms:.4f} ms"
+        if M == 2048:
+            plain_ms = cuda_time_ms(lambda: decode_scl_batch(llr, info, M, CRC, dtype=torch.float32), reps=1,
+                                    warmup=0)
+            entries["scl_cluster"] = (ms, plain_ms, b_ms, b_by)
+            line += f"; plain {plain_ms:.4f} ms"
+        print(f"{line}; bound {b_ms:.6f} ms ({b_by}); {scl_cuda.launch_plan(N, K, M, B)[2]} frames "
+              f"{'at once' if M > scl_cuda.DEEP_MAX_M else 'an SM'}", flush=True)
+    if t_plain_n8192 is not None:
+        print(f"  (a)'s P(8192,2048) M=2048 case, K1 list and best-only and the plain version: "
+              f"{t_plain_n8192:.1f} s (host clock)")
+    n_p, k_p, crc_p = PAC_CODES[128]
+    p_mask = pac_mask(n_p, k_p + crc_p[0])
+    x = pac_llrs(np.random.default_rng(6), B, 2.5, PAC_CODES[128], PAC_GEN, p_mask, dev)
+    for L in (1024, 2048, 4096):
+        ms = cuda_time_ms(lambda L=L: pac_list_decode_cuda(x, p_mask, PAC_GEN, L, *crc_p), reps=2, warmup=1)
+        b_ms, b_by = bound(*pac_work(p_mask, L, B))
+        line = f"  K3 PAC(128,64)+CRC-16 L={L} B={B} 2.5 dB: {ms:.4f} ms"
+        if L == 2048:
+            plain_ms = cuda_time_ms(lambda: pac_list_decode_batch(x, p_mask, PAC_GEN, L, crc_len=crc_p[0],
+                                                                  crc_poly=crc_p[1]), reps=1, warmup=0)
+            entries["pac_cluster"] = (ms, plain_ms, b_ms, b_by)
+            line += f"; plain {plain_ms:.4f} ms"
+        print(f"{line}; bound {b_ms:.6f} ms ({b_by}); {pac_plan(n_p, k_p + crc_p[0], L)[2]} frames "
+              f"{'at once' if L > scl_cuda.DEEP_MAX_M else 'an SM'}", flush=True)
+    # K3 one path a lane, the trace now in global scratch (parent beside it:
+    # `tools/time_pac_cuda.py` in one call)
+    x = pac_llrs(np.random.default_rng(7), 4096, 2.5, PAC_CODES[128], PAC_GEN, p_mask, dev)
+    ms = cuda_time_ms(lambda: pac_list_decode_cuda(x, p_mask, PAC_GEN, 32, *crc_p), reps=5)
+    b_ms, b_by = bound(*pac_work(p_mask, 32, 4096))
+    g, fpb, per_sm = pac_plan(n_p, k_p + crc_p[0], 32)
+    print(f"  K3 one path a lane PAC(128,64)+CRC-16 L=32 B=4096 2.5 dB: {ms:.4f} ms (5 launches); bound "
+          f"{b_ms:.6f} ms ({b_by}); levels 1..{g} in global scratch, {fpb} frames a block, {per_sm} an SM")
+    n_w, kp_w, L_w = ONE_LANE_N[0]
+    w_mask = pac_mask(n_w, kp_w)
+    x = pac_llrs(np.random.default_rng(8), 64, 1.5, (n_w, kp_w - PAC_CRC[0], PAC_CRC), PAC_GEN, w_mask, dev)
+    ms = cuda_time_ms(lambda: pac_list_decode_cuda(x, w_mask, PAC_GEN, L_w, *PAC_CRC), reps=2, warmup=1)
+    print(f"  K3 one path a lane PAC({n_w},{kp_w - PAC_CRC[0]})+CRC-16 L={L_w} B=64 1.5 dB: {ms:.4f} ms "
+          f"(a shape the trace in shared memory refused); {pac_plan(n_w, kp_w, L_w)}")
+
+    launches = {"scl_cluster": scalar_cluster[0], "pac_cluster": sim_cluster + scalar_cluster[1]}
+    errors = {"scl_cluster": k1_err, "pac_cluster": k3_err}
+    names = {"scl_cluster": ("scl_decode (cluster: M 1025-8192)", "polar_code_tpu_torch/csrc/scl_decode.cu",
+                             "polar_code_tpu/ops/scl_pallas.py:293"),
+             "pac_cluster": ("pac_decode (cluster: L 1025-8192)", "polar_code_tpu_torch/csrc/pac_decode.cu",
+                             "polar_code_tpu/legacy/pac_pallas.py:59")}
+    return [{"name": names[k][0], "route": "cuda", "source": names[k][1], "replaces": names[k][2],
+             "launches": launches[k], "max_abs_err": errors[k], "ms": entries[k][0], "plain_ms": entries[k][1],
+             "bound_ms": entries[k][2], "bound_by": entries[k][3], "library_ms": None}
+            for k in ("scl_cluster", "pac_cluster")]
+
+
 def main():
     import torch
 
@@ -2902,7 +3270,11 @@ def main():
     deep_entries = deep_lists(dev, smi)
     phase_done("14 deep_lists")
 
-    # ---- 15. result lines ----
+    # ---- 15. the cluster lists ----
+    cluster_entries = cluster_lists(dev, smi)
+    phase_done("15 cluster_lists")
+
+    # ---- 16. result lines ----
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by = nms_times[f"{IRA[0]} two-min 2.5 dB B=4096"]
     print(json.dumps({"kernels": [{
         "name": "scl_decode",
@@ -2941,7 +3313,7 @@ def main():
         "bound_ms": pac_bound_ms,
         "bound_by": pac_bound_by,
         "library_ms": None,
-    }] + wide_entries + deep_entries}))
+    }] + wide_entries + deep_entries + cluster_entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind, "count": count}}))
     return 0

@@ -8,12 +8,15 @@
 // spread over the warps of a block (list sizes 33..1024, one thread a
 // path), σ as a table in shared memory, the passes that read through it,
 // its fork, the block-wide sort of the 2M candidates and the frame's
-// shared-memory layout.
+// shared-memory layout; and, for a frame over a thread-block cluster (list
+// sizes 1025..8192), the same pieces across the cluster's blocks through
+// distributed shared memory, and the cluster launch.
 // Each source's note has the design; `_build.py` rebuilds a source when
 // this file changes.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -220,14 +223,16 @@ struct DeepSigma {
   __device__ __forceinline__ int get(int m, int f) const { return tab[m * row + f]; }
   // the column of field f: entry m is path m's origin row
   __device__ __forceinline__ const T* field(int f) const { return tab + f; }
-  // path m's fields 0..nf−1 to the identity
-  __device__ __forceinline__ void init(int m, int nf) {
-    for (int f = 0; f < nf; ++f) tab[m * row + f] = (T)m;
+  // row i's fields 0..nf−1 to the identity of path id, the path the row
+  // holds (i = id over warps; on a cluster a block's row i holds path
+  // rank·1024 + i)
+  __device__ __forceinline__ void init(int i, int id, int nf) {
+    for (int f = 0; f < nf; ++f) tab[i * row + f] = (T)id;
   }
-  // path m's fields lo..hi−1, and `extra` when it is >= 0, to the identity
-  __device__ __forceinline__ void reset(int m, int lo, int hi, int extra) {
-    for (int f = lo; f < hi; ++f) tab[m * row + f] = (T)m;
-    if (extra >= 0) tab[m * row + extra] = (T)m;
+  // row i's fields lo..hi−1, and `extra` when it is >= 0, to the identity
+  __device__ __forceinline__ void reset(int i, int id, int lo, int hi, int extra) {
+    for (int f = lo; f < hi; ++f) tab[i * row + f] = (T)id;
+    if (extra >= 0) tab[i * row + extra] = (T)id;
   }
   // σ ← σ[parent] for every path at once: each active thread copies its
   // parent's row through registers, between two block barriers.  Every
@@ -420,6 +425,215 @@ __device__ __forceinline__ void block_sort_keys(unsigned long long* keys, unsign
   if (on) *vec(base) = make_ulonglong2(k0, k1);
 }
 
+// ---------------------------------------------------------------------------
+// A frame over a thread-block cluster: list sizes 1025..8192.
+//
+// One frame a cluster of C = cluster_blocks(M) blocks (2 at M 1025..2048, 4
+// up to 4096, 8 up to 8192: 8 is the portable cluster size) of 1024
+// threads: thread tid of cluster rank r holds path r·1024 + tid and sort
+// keys 2(r·1024 + tid) and +1, as over warps.  Every tree level (LLR and
+// partial-sum rows, levels 1..n) lives in global scratch, which every block
+// reads directly, so no tree row crosses blocks through distributed shared
+// memory.  Block r's shared memory holds σ of its own 1024 paths (16-bit
+// fields: 2p+b < 2M <= 16384) in two tables, one read and one a fork's
+// target (`cluster_sigma_fork`), 2048 of the sort keys and its paths'
+// published words (`cluster_layout`); a read of another path's σ row, key
+// or word goes through DSMEM (`path_entry`: path p lives in rank p >> 10 at
+// row p & 1023).  Each exchange between blocks sits between two cluster
+// barriers (barrier.cluster arrive.release / wait.acquire, through
+// cooperative_groups), and a tree row another block may read is read with
+// ld.global.cg, from L2, never from a stale line of this SM's L1.
+// ---------------------------------------------------------------------------
+
+#define CLUSTER_THREADS 1024  // threads a block of a cluster frame: one a path
+#define CLUSTER_SHIFT 10      // log2(CLUSTER_THREADS)
+#define CLUSTER_MAX_BLOCKS 8  // the portable cluster size
+#define CLUSTER_MAX_M (CLUSTER_THREADS * CLUSTER_MAX_BLOCKS)
+
+// Blocks of a cluster frame: M rounded up to a power of two, over 1024.
+__host__ __device__ __forceinline__ int cluster_blocks(int M) {
+  return sort_keys(M) / 2 / CLUSTER_THREADS;
+}
+
+// Byte offsets of one block's regions in its dynamic shared memory, each
+// 16-byte aligned: two σ tables [1024][row] (2n−2 16-bit fields a path, a
+// row rounded to 4 bytes), the block's 2048 sort keys u64, `words` 32-bit
+// values a path (the published leaf, syndrome and, in PAC, shift register)
+// and the selected rank.  `ops/scl_cuda.py::cluster_block_bytes` is the
+// same reckoning.
+struct ClusterLayout {
+  int sig, sig2, keys, words, sel, total;
+  int sig_row;  // bytes of a path's σ row: 4..48, a multiple of 4
+};
+
+__host__ __device__ __forceinline__ ClusterLayout cluster_layout(int n, int words) {
+  ClusterLayout c;
+  c.sig_row = round4((2 * n - 2) * 2);
+  if (c.sig_row < 4) c.sig_row = 4;
+  c.sig = 0;
+  c.sig2 = round16(CLUSTER_THREADS * c.sig_row);
+  c.keys = 2 * c.sig2;
+  c.words = c.keys + 8 * 2 * CLUSTER_THREADS;
+  c.sel = c.words + words * 4 * CLUSTER_THREADS;
+  c.total = c.sel + 16;
+  return c;
+}
+
+// Path p's entry of a per-path array of `stride` entries a path, whose
+// block-local copy starts at `local`: rank p >> 10's, through DSMEM.
+template <typename T>
+__device__ __forceinline__ T* path_entry(T* local, int p, int stride = 1) {
+  return cooperative_groups::this_cluster().map_shared_rank(
+      local + (p & (CLUSTER_THREADS - 1)) * stride, p >> CLUSTER_SHIFT);
+}
+
+// The key of rank q after cluster_sort_keys: rank q >> 11's keys[q & 2047].
+__device__ __forceinline__ unsigned long long cluster_key(unsigned long long* keys, int q) {
+  return *cooperative_groups::this_cluster().map_shared_rank(
+      keys + (q & (2 * CLUSTER_THREADS - 1)), q >> (CLUSTER_SHIFT + 1));
+}
+
+// σ ← σ[parent] for every path of the cluster, from one table to the other:
+// each active thread copies its parent's row from `sig`'s table (through
+// DSMEM) into its own row of `next`, a few words at a time, and `sig` then
+// reads `next` (the old table is the next fork's target, read by no one
+// since this fork's reads).  The closing cluster barrier orders every
+// remote read of the fork (the parent rows, keys and published words)
+// before any block writes them again, and the copy before the block's own
+// reads through σ.  Two tables, where one would hold the row in registers
+// across a barrier (12 words at n = 13, past the 64-register cap).  Every
+// thread of the cluster calls it.
+__device__ __forceinline__ void cluster_sigma_fork(DeepSigma<uint16_t>& sig, uint16_t*& next,
+                                                   int tid, int parent, bool active) {
+  if (active) {
+    const unsigned* src = path_entry(reinterpret_cast<unsigned*>(sig.tab), parent, sig.words);
+    unsigned* dst = reinterpret_cast<unsigned*>(next + tid * sig.row);
+#pragma unroll 4
+    for (int k = 0; k < sig.words; ++k) dst[k] = src[k];
+  }
+  uint16_t* cur = sig.tab;
+  sig.tab = next;
+  next = cur;
+  cooperative_groups::this_cluster().sync();
+}
+
+// block_fg_pass over the paths base..base+Mr−1 of one block of a cluster
+// frame, every level in global scratch: dst[m][e] (row stride `stride`) from
+// src[r][e] and src[r][e + half] (row stride `sstride`, 0 for the channel),
+// r = via[(m − base)·vrow] (the block's σ column of the parent level) when
+// `via`, else m.  The parent row may be another block's: it is read from L2
+// (a block's own rows, its partial sums here, are written and read by its
+// own SM behind block barriers).
+__device__ __forceinline__ void cluster_fg_pass(float* dst, const uint8_t* dbits, int stride,
+                                                const float* src, int sstride, const uint16_t* via,
+                                                int vrow, bool is_g, int lh, int base, int Mr,
+                                                int tid) {
+  const int half = 1 << lh;
+  const int total = Mr * half;
+  for (int t = tid; t < total; t += CLUSTER_THREADS) {
+    const int lm = t >> lh;
+    const int e = t & (half - 1);
+    const int m = base + lm;
+    const int r = via ? (int)via[lm * vrow] : m;
+    const float* row = src + r * sstride;
+    const float a = __ldcg(row + e), b = __ldcg(row + e + half);
+    const int o = m * stride + e;
+    dst[o] = is_g ? g_update(a, b, dbits[o]) : f_minsum(a, b);
+  }
+}
+
+// block_chain_pass over the paths base..base+Mr−1 of one block of a cluster
+// frame, rows in global scratch, r as in cluster_fg_pass (the left bits
+// from L2, the block's own chain from its SM).
+__device__ __forceinline__ void cluster_chain_pass(uint8_t* st, const uint8_t* left, int stride,
+                                                   const uint16_t* via, int vrow, int lsz, int base,
+                                                   int Mr, int tid) {
+  const int sz = 1 << lsz;
+  const int total = Mr * sz;
+  for (int t = tid; t < total; t += CLUSTER_THREADS) {
+    const int lm = t >> lsz;
+    const int e = t & (sz - 1);
+    const int m = base + lm;
+    const int r = via ? (int)via[lm * vrow] : m;
+    const uint8_t x = __ldcg(left + r * stride + e);
+    uint8_t* cur = st + m * stride + e;
+    const uint8_t c = cur[0];
+    cur[sz] = c;
+    cur[0] = x ^ c;
+  }
+}
+
+// block_sort_keys over a cluster: the P = sort_keys(M) keys (P >= 4096),
+// thread tid of rank r holding keys 2(r·1024 + tid) and +1 in registers,
+// block r keys[] the 2048 from 2048·r.  A stage of distance j >= 2048 pairs
+// keys of two blocks: each stores its keys, a cluster barrier, and each
+// reads its partner's from rank r ^ (j / 2048) through DSMEM, between
+// cluster barriers (6 of the 105 stages at P = 16384, 1 of 78 at P = 4096);
+// the stages below it run as in block_sort_keys, in the block, the warp and
+// registers, the first of them behind a cluster barrier where a cross-block
+// stage came before (another block may still be reading keys[]).  After the
+// last merge's first stage the upper half's blocks stop, and the lower half
+// is stored to keys[] behind a closing cluster barrier: key of rank q is then
+// rank q >> 11's keys[q & 2047].  Every thread of the cluster calls it.
+__device__ __forceinline__ void cluster_sort_keys(unsigned long long* keys, unsigned long long k0,
+                                                  unsigned long long k1, int P, int rank, int tid) {
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int base = 2 * (rank * CLUSTER_THREADS + tid);
+  const int lbase = 2 * tid;
+  bool on = true;
+  auto vec = [&](int at) { return reinterpret_cast<ulonglong2*>(keys + at); };
+  auto exchange = [](unsigned long long& k, unsigned long long o, bool keep_min) {
+    k = (o < k) == keep_min ? o : k;
+  };
+  for (int size = 2; size <= P; size <<= 1) {
+    const bool up = (base & size) == 0;
+    int j = size >> 1;
+    for (; j >= 2 * CLUSTER_THREADS; j >>= 1) {  // across blocks
+      cluster.sync();  // the previous exchange's reads are done
+      if (on) *vec(lbase) = make_ulonglong2(k0, k1);
+      cluster.sync();
+      if (on) {
+        const bool keep_min = ((base & j) == 0) == up;
+        const ulonglong2 o = *cluster.map_shared_rank(vec(lbase), rank ^ (j / (2 * CLUSTER_THREADS)));
+        exchange(k0, o.x, keep_min);
+        exchange(k1, o.y, keep_min);
+      }
+      if (size == P) on = on && base < P / 2;
+    }
+    bool remote = size > 2 * CLUSTER_THREADS;  // another block may still read keys[]
+    for (; j >= 64; j >>= 1) {  // across warps of the block
+      if (remote) cluster.sync(); else __syncthreads();
+      remote = false;
+      if (on) *vec(lbase) = make_ulonglong2(k0, k1);
+      __syncthreads();
+      if (on) {
+        const bool keep_min = ((base & j) == 0) == up;
+        const ulonglong2 o = *vec(lbase ^ j);
+        exchange(k0, o.x, keep_min);
+        exchange(k1, o.y, keep_min);
+      }
+      if (size == P) on = on && base < P / 2;
+    }
+    if (on) {
+#pragma unroll
+      for (int jj = 32; jj >= 2; jj >>= 1) {  // within the warp
+        if (jj < size) {
+          const bool keep_min = ((base & jj) == 0) == up;
+          exchange(k0, __shfl_xor_sync(FULL_MASK, k0, jj / 2), keep_min);
+          exchange(k1, __shfl_xor_sync(FULL_MASK, k1, jj / 2), keep_min);
+        }
+      }
+      const bool swap = (k0 > k1) == up;  // j = 1, in registers
+      const unsigned long long lo = swap ? k1 : k0;
+      k1 = swap ? k0 : k1;
+      k0 = lo;
+    }
+  }
+  __syncthreads();  // the last exchange's reads (in the block) are done
+  if (on) *vec(lbase) = make_ulonglong2(k0, k1);
+  cluster.sync();
+}
+
 // ---- host side ----
 
 // Let a kernel take more than 48 KB of dynamic shared memory.
@@ -448,6 +662,54 @@ int plan_deep(Kern kernel, int M, int frame_bytes, int max_block_smem, int* fram
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(frames_per_sm, kernel, deep_threads(M),
                                                              frame_bytes);
+}
+
+// The launch of `frames` frames, a cluster of cluster_blocks(M) blocks of
+// 1024 threads each with `block_bytes` of dynamic shared memory; `attr`,
+// the cluster's dimension, must outlive the configuration.
+inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int frames, int M, int block_bytes,
+                                         cudaStream_t stream) {
+  const int C = cluster_blocks(M);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)frames * C);
+  cfg.blockDim = dim3(CLUSTER_THREADS);
+  cfg.dynamicSmemBytes = block_bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// One frame a cluster: the frames the card runs at once, by the occupancy
+// calculator (cudaOccupancyMaxActiveClusters: shared memory, registers,
+// and where the GPCs can place a cluster of cluster_blocks(M) blocks);
+// 0 when it places none.
+template <typename Kern>
+int plan_cluster(Kern kernel, int M, int block_bytes, int max_block_smem, int* frames_at_once) {
+  *frames_at_once = 0;
+  if (block_bytes > max_block_smem) return 0;
+  cudaError_t err = set_smem(kernel, block_bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(&attr, 1, M, block_bytes, 0);
+  return (int)cudaOccupancyMaxActiveClusters(frames_at_once, (const void*)kernel, &cfg);
+}
+
+// Launch a cluster kernel over B frames (`cluster_config`).
+template <typename... Params, typename... Values>
+int launch_cluster_kernel(void (*kernel)(Params...), int B, int M, int block_bytes,
+                          cudaStream_t stream, Values... args) {
+  cudaError_t err = set_smem(kernel, block_bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(&attr, B, M, block_bytes, stream);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // The final stable (metric, slot) rank of path m among the M metrics

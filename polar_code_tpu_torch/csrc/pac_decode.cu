@@ -83,6 +83,11 @@
 // to L = 128 and 16 bits above; the trace lives in global scratch, and
 // shared memory holds tree levels.
 //
+// On a cluster, the instantiations pac_cluster_kernel<LIST> (L 1025..8192):
+// the SCL kernel's cluster layout (`scl_decode.cu`, `list_decode.cuh`), a
+// frame over a thread-block cluster of 2, 4 or 8 blocks of 1024 threads,
+// every tree level in global scratch, with three published words a slot.
+//
 // Each path carries its CRC syndrome (the XOR of the 32-bit check columns,
 // in phase order, of its set bits) and its shift register in registers,
 // both gathered with the metric at a fork, so the selection needs no walk.
@@ -102,17 +107,30 @@
 //
 // Layout.  One warp decodes one frame, lane m holds path slot m (L <= 32);
 // a block holds a few frames (over warps, one block a frame).  Levels G+1..n of each path live in dynamic
-// shared memory, with the trace; levels 1..G (the widest, read at a handful
-// of phases) live in a global scratch the wrapper allocates.  The wrapper
+// shared memory; levels 1..G (the widest, read at a handful of phases) and
+// the trace live in a global scratch the wrapper allocates.  The wrapper
 // picks G with the occupancy calculator (`ops/scl_cuda.py::
 // smallest_global_levels`).  Per frame in shared memory:
 //   Ls float [L][(N>>G)-1]  LLR rows, one active node per level G+1..n−1
 //                           (and an unused entry for level n)
 //   Bs u8    [L][(N>>G)-1]  edge-bit partial-sum rows, levels G+1..n
-//   TI u8    [Kp][L]        2·parent + v of each survivor at each info phase
+//   ring u8  [16][16|32]    the last (up to) 16 trace rows, from a 16-byte
+//                           boundary past Bs (L > 1)
 // and in global memory, per frame:
 //   Lg float [L][N-(N>>G)]  LLR rows, levels 1..G
 //   Bg u8    [L][N-(N>>G)]  partial-sum rows, levels 1..G
+//   TI u8    [Kp][16|32]    2·parent + v of each survivor at each info
+//                           phase, rows of L bytes padded to round16(L)
+// At L=1 the decisions are the path: lane 0 writes them to the outputs as it
+// takes them, with no trace, ring or walk back.  Above, the trace is
+// written once an info phase, one byte a lane, into the ring
+// in shared memory; each 16th info phase (and the last) the warp copies the
+// ring's rows to TI as 16-byte words.  A byte store a lane to global memory
+// at each info phase cost more (7% at PAC(64,32) L=8 B=65536).  TI is read
+// only at the end: there the frame's shared memory, free of tree levels,
+// takes a chunk of rows at a time as 16-byte words, and the walks back run
+// in it, as in the SCL kernel's by-path instantiation.  In shared memory the
+// whole trace was Kp·L bytes, and at N=8192 L=32 it refused Kp > 7259.
 // A phase's schedule is one word (`scl_schedule.phase_words`), loaded a
 // phase ahead.  Lanes split each level's L·(N>>l) f/g entries down to level
 // n−1; lane m computes path m's leaf from its level-n−1 row and keeps it in
@@ -137,6 +155,7 @@
 
 #define PAC_BIG 3.0e38f
 #define MAX_FRAMES_PER_BLOCK 4  // warps a block at most; `plan` picks how many
+#define TRACE_RING 16           // trace rows a one-lane frame stages in shared memory (a power of two)
 
 namespace {
 
@@ -158,18 +177,21 @@ __device__ __forceinline__ void channel_pass(float* dst, const uint8_t* dbits, i
 }
 
 // LM: the list size rounded up to a power of two; it sizes σ, and L <= LM
-// is the list size itself.
+// is the list size itself.  LM=2 alone asks for 7 blocks an SM: left to
+// itself ptxas gives it 126 registers (16 frames an SM) and it ran 13%
+// slower at B=65536 than with 70; a bound of 0 is none, and any explicit
+// bound on LM >= 4 (even 1) made those slower (PERF.md, §6).
 template <int LM, bool LIST>
-__global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) pac_decode_kernel(
+__global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, LM == 2 ? 7 : 0) pac_decode_kernel(
     const float* __restrict__ llr,        // [B, N] channel LLRs, natural order
     const uint32_t* __restrict__ hcols,   // [Kp] CRC check-matrix columns, phase order
     const int* __restrict__ sched,        // [N] phase words (scl_schedule.phase_words)
-    const int* __restrict__ phase_of,     // [Kp] info phase of each ascending-u output bit
     float* glob_llr,                      // [B, L, N-(N>>G)], null when G == 0
     uint8_t* glob_bits,                   // [B, L, N-(N>>G)], null when G == 0
+    uint8_t* trace_idx,                   // [B, Kp, round16(L)]: the trace, in global scratch
     int8_t* __restrict__ out_bits,        // [B, Kp]
     uint8_t* __restrict__ out_pass,       // [B]
-    const int* __restrict__ out_pos,      // [Kp] ascending-u output index of each info phase, LIST only
+    const int* __restrict__ out_pos,      // [Kp] ascending-u output index of each info phase
     const int* __restrict__ u_pos,        // [Kp] u index of each info phase, LIST only
     int8_t* __restrict__ list_v,          // [B, L, N], LIST only
     int8_t* __restrict__ list_bits,       // [B, L, Kp], LIST only
@@ -185,10 +207,12 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) pac_decode_kernel(
 
   const int SS = (N >> G) - 1;  // entries of a path's row in shared memory
   const int SG = N - (N >> G);  // entries of a path's row in global memory
+  const int TW = round16(L);    // bytes of a trace row
   unsigned char* base = smem + (size_t)warp * frame_bytes;
   float* Ls = reinterpret_cast<float*>(base);
   uint8_t* Bs = reinterpret_cast<uint8_t*>(Ls + L * SS);
-  uint8_t* TI = Bs + L * SS;
+  uint8_t* TI = trace_idx + frame * Kp * TW;
+  uint8_t* ring = base + round16(5 * L * SS);  // trace row i at (i mod TRACE_RING) · TW
   float* Lg = glob_llr + frame * L * SG;  // unused when G == 0
   uint8_t* Bg = glob_bits + frame * L * SG;
   const float* ch = llr + frame * N;
@@ -205,6 +229,19 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) pac_decode_kernel(
   unsigned reg = 0;                         // lane m < L: shift register of slot m
   uint32_t syn = 0;                         // lane m < L: CRC syndrome of slot m
   int info_i = 0;
+  if (LIST && LM == 1) {
+    // one path: its decisions go straight to row 0 of the list, zeroed first
+    for (int t = lane; t < N; t += 32) list_v[frame * N + t] = 0;
+    __syncwarp();
+  }
+  // the ring's first `rows` rows to trace rows info_i − rows .. info_i − 1
+  auto flush = [&](int rows) {
+    __syncwarp();  // the rows' bytes are in
+    const uint4* src = reinterpret_cast<const uint4*>(ring);
+    uint4* dst = reinterpret_cast<uint4*>(TI + (info_i - rows) * TW);
+    for (int x = lane; x < rows * TW / 16; x += 32) dst[x] = src[x];
+    __syncwarp();  // read before the next info phase rewrites row 0
+  };
   int word = sched[0];
   int s_prev = 0;  // the previous phase's store level
   for (int p = 0; p < N; ++p) {
@@ -277,13 +314,19 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) pac_decode_kernel(
       }
     } else if (LM == 1) {
       // one path: its good candidate (index 0, metric pm) ranks before its
-      // bad one (pm + |leaf|), so the rank needs no count
+      // bad one (pm + |leaf|), so the rank needs no count, and its
+      // decisions are the path: no trace, no walk back
       if (lane == 0) {
         const int v = base_bit ^ hard;
         edge = hard;
         reg = ((reg << 1) | (unsigned)v) & mem_mask;
         syn = v ? syn ^ hc : syn;
-        TI[info_i] = (uint8_t)v;
+        const int o = out_pos[info_i];
+        out_bits[frame * Kp + o] = (int8_t)v;
+        if (LIST) {
+          list_v[frame * N + u_pos[info_i]] = (int8_t)v;
+          list_bits[frame * Kp + o] = (int8_t)v;
+        }
       }
       ++info_i;
     } else {
@@ -317,10 +360,10 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) pac_decode_kernel(
         edge = hp ^ is_bad;
         reg = ((rp << 1) | (unsigned)v) & mem_mask;
         syn = v ? sp ^ hc : sp;
-        TI[info_i * L + lane] = (uint8_t)((parent << 1) | v);
+        ring[(info_i & (TRACE_RING - 1)) * TW + lane] = (uint8_t)((parent << 1) | v);
       }
       if (LM > 1) sig.fork(parent);  // σ ← σ[parent] on every level
-      ++info_i;
+      if (((++info_i) & (TRACE_RING - 1)) == 0) flush(TRACE_RING);
     }
 
     // ---- partial-sum chain: cur = [left ^ cur, cur] up to the store level,
@@ -356,6 +399,7 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) pac_decode_kernel(
     s_prev = s;
     word = next_word;
   }
+  if (LM > 1 && (info_i & (TRACE_RING - 1))) flush(info_i & (TRACE_RING - 1));
 
   // ---- final stable sort of the list, CRC selection, backtrack ----
   int frank = 0;
@@ -367,40 +411,55 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK) pac_decode_kernel(
   const unsigned ok_ranks = __reduce_or_sync(FULL_MASK, ok ? (1u << frank) : 0u);
   const int sel_rank = ok_ranks ? __ffs(ok_ranks) - 1 : 0;
   const unsigned who = __ballot_sync(FULL_MASK, lane < L && frank == sel_rank);
-  __syncwarp();  // the last info phase's trace row is visible to lane 0
+  int best = __ffs(who) - 1;  // lane 0's walk: the selected slot
+  int slot = lane;            // lane m's walk (LIST): slot m's path, into row frank
+  int8_t* v = list_v + frame * L * N;
   if (LIST) {
-    // every path into row frank of the list, before the trace is rewritten
-    int8_t* v = list_v + frame * L * N;
-    for (int t = lane; t < L * N; t += 32) v[t] = 0;
-    __syncwarp();
-    if (lane < L) {
-      int8_t* vrow = v + frank * N;
-      int8_t* brow = list_bits + (frame * L + frank) * Kp;
-      int slot = lane;
-      for (int i = Kp - 1; i >= 0; --i) {
-        const int w = TI[i * L + slot];
-        vrow[u_pos[i]] = (int8_t)(w & 1);
-        brow[out_pos[i]] = (int8_t)(w & 1);
-        slot = w >> 1;
-      }
-      list_metrics[frame * L + frank] = pm < PAC_BIG ? pm : __int_as_float(0x7f800000);
-    }
+    if (LM > 1)
+      for (int t = lane; t < L * N; t += 32) v[t] = 0;
+    if (lane < L) list_metrics[frame * L + frank] = pm < PAC_BIG ? pm : __int_as_float(0x7f800000);
     if (lane == 0) list_best[frame] = sel_rank;
+  }
+  if (lane == 0) out_pass[frame] = ok_ranks ? 1 : 0;
+  if (LM == 1) return;
+  // the walks back, over chunks of trace rows copied into the frame's shared
+  // memory (rows of TW bytes, R >= TRACE_RING rows)
+  uint8_t* TIs = base;
+  const int R = frame_bytes / TW;
+  for (int hi = Kp - 1; hi >= 0; hi -= R) {
+    const int lo = hi - R + 1 > 0 ? hi - R + 1 : 0;
+    __syncwarp();  // the tree's (or the previous chunk's) last reads, and the zeroed rows, are done
+    const uint4* src = reinterpret_cast<const uint4*>(TI + lo * TW);
+    uint4* dst = reinterpret_cast<uint4*>(TIs);
+    for (int x = lane; x < (hi - lo + 1) * TW / 16; x += 32) dst[x] = src[x];
     __syncwarp();
-  }
-  if (lane == 0) {
-    // record the selected path's bit v in slot 0 of each trace row; row i
-    // is read before it is overwritten, and later steps read rows below i
-    int slot = __ffs(who) - 1;
-    for (int i = Kp - 1; i >= 0; --i) {
-      const int w = TI[i * L + slot];
-      TI[i * L] = (uint8_t)(w & 1);
-      slot = w >> 1;
+    if (LIST) {
+      // every path into row frank of the list, before lane 0 rewrites slot 0
+      if (lane < L) {
+        int8_t* vrow = v + frank * N;
+        int8_t* brow = list_bits + (frame * L + frank) * Kp;
+        for (int i = hi; i >= lo; --i) {
+          const int w = TIs[(i - lo) * TW + slot];
+          vrow[u_pos[i]] = (int8_t)(w & 1);
+          brow[out_pos[i]] = (int8_t)(w & 1);
+          slot = w >> 1;
+        }
+      }
+      __syncwarp();
     }
-    out_pass[frame] = ok_ranks ? 1 : 0;
+    if (lane == 0) {
+      // the selected path's bit v into slot 0 of each row; row i is read
+      // before it is overwritten, and later steps read rows below i
+      for (int i = hi; i >= lo; --i) {
+        uint8_t* row = TIs + (i - lo) * TW;
+        const int w = row[best];
+        row[0] = (uint8_t)(w & 1);
+        best = w >> 1;
+      }
+    }
+    __syncwarp();
+    for (int i = lo + lane; i <= hi; i += 32) out_bits[frame * Kp + out_pos[i]] = (int8_t)TIs[(i - lo) * TW];
   }
-  __syncwarp();
-  for (int j = lane; j < Kp; j += 32) out_bits[frame * Kp + j] = (int8_t)TI[phase_of[j] * L];
 }
 
 // ---------------------------------------------------------------------------
@@ -449,7 +508,7 @@ __global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_kernel(
   auto so = [&](int l) { return (N >> G) - (N >> (l - 1)); };
   auto go = [&](int l) { return N - (N >> (l - 1)); };
 
-  if (act) sig.init(tid, 2 * n - 2);
+  if (act) sig.init(tid, tid, 2 * n - 2);
   __syncthreads();
   float pm = (tid == 0) ? 0.f : PAC_BIG;  // thread m < L: metric of slot m
   unsigned reg = 0;                        // thread m < L: shift register of slot m
@@ -465,7 +524,7 @@ __global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_kernel(
     const int l0 = p == 0 ? 1 : gl;
     // σ back to identity on the levels rewritten since the last fork, in
     // the thread's own row (as pac_decode_kernel's reset)
-    if (act) sig.reset(tid, l0 - 1, n - 1, s_prev >= 2 ? n + s_prev - 3 : -1);
+    if (act) sig.reset(tid, tid, l0 - 1, n - 1, s_prev >= 2 ? n + s_prev - 3 : -1);
 
     // ---- f/g updates down to level n−1 ----
     for (int l = l0; l < n; ++l) {
@@ -620,6 +679,224 @@ __global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_kernel(
   for (int j = tid; j < Kp; j += nt) out_bits[frame * Kp + j] = (int8_t)TI[phase_of[j] * L];
 }
 
+// ---------------------------------------------------------------------------
+// Over a cluster: list sizes 1025..8192, one frame a cluster of blocks.
+// ---------------------------------------------------------------------------
+
+// The PAC decode with a frame spread over a cluster of C =
+// cluster_blocks(L) blocks of 1024 threads, on the SCL kernel's cluster
+// layout (`scl_decode.cu`'s scl_cluster_kernel has the design): thread tid
+// of rank r holds slot m = r·1024 + tid's metric, shift register and
+// syndrome and its candidates good m and bad L + m; every tree level in
+// global scratch, rows of N − 1 entries; σ, the sort keys and the published
+// leaf, syndrome and shift register of the block's 1024 slots in its shared
+// memory, and the fork's parent values through DSMEM.  It computes what
+// pac_decode_kernel computes.
+template <bool LIST>
+__global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(
+    const float* __restrict__ llr, const uint32_t* __restrict__ hcols,
+    const int* __restrict__ sched, const int* __restrict__ phase_of,
+    float* glob_llr,     // [B, L, N-1]: every LLR level
+    uint8_t* glob_bits,  // [B, L, N-1]: every edge-bit level
+    uint16_t* trace_idx,  // [B, Kp, L]: the trace, in global scratch
+    int8_t* __restrict__ out_bits, uint8_t* __restrict__ out_pass, const int* __restrict__ out_pos,
+    const int* __restrict__ u_pos, int8_t* __restrict__ list_v, int8_t* __restrict__ list_bits,
+    float* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int Kp, int L,
+    unsigned mem_mask, unsigned tap_mask, int use_crc) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const long long frame = blockIdx.x / C;
+  const int tid = threadIdx.x;
+  const int base = rank * CLUSTER_THREADS;  // the block's first slot
+  const int m = base + tid;                 // this thread's slot
+  const int Lr = L - base < 0 ? 0 : L - base < CLUSTER_THREADS ? L - base : CLUSTER_THREADS;
+  const bool act = m < L;
+  const int P = sort_keys(L);
+
+  const ClusterLayout lay = cluster_layout(n, 3);
+  const int SG = N - 1;  // entries of a path's row: levels 1..n
+  DeepSigma<uint16_t> sig{reinterpret_cast<uint16_t*>(smem + lay.sig), lay.sig_row / 2,
+                          lay.sig_row / 4};
+  uint16_t* sig_next = reinterpret_cast<uint16_t*>(smem + lay.sig2);  // the next fork's σ table
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem + lay.keys);
+  float* leafS = reinterpret_cast<float*>(smem + lay.words);
+  uint32_t* synS = reinterpret_cast<uint32_t*>(smem + lay.words + 4 * CLUSTER_THREADS);
+  unsigned* regS = reinterpret_cast<unsigned*>(smem + lay.words + 8 * CLUSTER_THREADS);
+  int* selS = reinterpret_cast<int*>(smem + lay.sel);
+  float* Lg = glob_llr + frame * L * SG;
+  uint8_t* Bg = glob_bits + frame * L * SG;
+  uint16_t* TI = trace_idx + frame * Kp * L;
+  const float* ch = llr + frame * N;
+  auto go = [&](int l) { return N - (N >> (l - 1)); };
+
+  if (act) sig.init(tid, m, 2 * n - 2);
+  if (m == 0) *selS = L;
+  __syncthreads();
+  float pm = (m == 0) ? 0.f : PAC_BIG;  // metric of slot m
+  unsigned reg = 0;                      // shift register of slot m
+  uint32_t syn = 0;                      // CRC syndrome of slot m
+  int info_i = 0;
+  int word = sched[0];
+  int s_prev = 0;
+  for (int p = 0; p < N; ++p) {
+    // the phase's word, read at the previous phase's end: no register holds
+    // the next one across the fork (the 64-register cap)
+    const int gl = word & 31;
+    const int is_frozen = word >> 10 & 1;
+    const int l0 = p == 0 ? 1 : gl;
+    if (act) sig.reset(tid, m, l0 - 1, n - 1, s_prev >= 2 ? n + s_prev - 3 : -1);
+
+    // ---- f/g updates down to level n−1, this block's slots ----
+    for (int l = l0; l < n; ++l) {
+      const bool is_g = (p != 0) && (l == gl);
+      if (l == 1) {
+        channel_pass(Lg + base * SG, Bg + base * SG, SG, ch, 32 - n, is_g, n - 1, Lr, tid,
+                     CLUSTER_THREADS);
+      } else {
+        const uint16_t* via = (is_g && (word >> 11 & 1)) ? sig.field(l - 2) : nullptr;
+        cluster_fg_pass(Lg + go(l), Bg + go(l), SG, Lg + go(l - 1), SG, via, sig.row, is_g, n - l,
+                        base, Lr, tid);
+      }
+      __syncthreads();
+    }
+    // the leaf (level n) from the parent row
+    const bool g_leaf = gl == n;
+    float leaf = 0.f;
+    if (act) {
+      float a, b;
+      if (n == 1) {
+        a = ch[0];
+        b = ch[1];
+      } else {
+        const int r = (g_leaf && (word >> 11 & 1)) ? sig.get(tid, n - 2) : m;
+        const float* row = Lg + go(n - 1) + r * SG;
+        a = __ldcg(row);
+        b = __ldcg(row + 1);
+      }
+      leaf = g_leaf ? g_update(a, b, Bg[m * SG + go(n)]) : f_minsum(a, b);
+    }
+    const int hard = leaf < 0.f;
+    const int base_bit = __popc(reg & tap_mask) & 1;  // edge bit for v = 0
+
+    // ---- leaf decision: extend every slot, or fork and keep the best L ----
+    int edge = 0;
+    if (is_frozen) {
+      if (act) {
+        if (pm < PAC_BIG && base_bit != hard) pm = pm + fabsf(leaf);
+        reg = (reg << 1) & mem_mask;
+        edge = base_bit;
+      }
+    } else {
+      const float cg_ = pm;                                           // index m
+      const float cb = (pm < PAC_BIG) ? pm + fabsf(leaf) : PAC_BIG;   // index L + m
+      if (act) {
+        leafS[tid] = leaf;
+        synS[tid] = syn;
+        regS[tid] = reg;
+      }
+      cluster_sort_keys(keys, act ? cand_key(cg_, m) : ~0ull, act ? cand_key(cb, L + m) : ~0ull, P,
+                        rank, tid);
+      // slot m: the candidate of rank m.  Every thread takes new values
+      // (a thread past L those of slot 0's parent, never read), so that no
+      // slot state is live across the sort: the 64 registers hold it
+      const unsigned long long key = cluster_key(keys, act ? m : 0);
+      const int w = act ? key_index(key) : 0;
+      const int is_bad = w >= L;
+      const int parent = is_bad ? w - L : w;
+      const int hp = *path_entry(leafS, parent) < 0.f;
+      const unsigned rp = *path_entry(regS, parent);
+      const int bp = __popc(rp & tap_mask) & 1;
+      const uint32_t sp = *path_entry(synS, parent);
+      const uint32_t hc = use_crc ? hcols[info_i] : 0u;
+      const int v = bp ^ hp ^ is_bad;  // good: edge == hard; bad: the other bit
+      pm = key_metric(key);
+      edge = hp ^ is_bad;
+      reg = ((rp << 1) | (unsigned)v) & mem_mask;
+      syn = v ? sp ^ hc : sp;
+      if (act) TI[info_i * L + m] = (uint16_t)((parent << 1) | v);
+      cluster_sigma_fork(sig, sig_next, tid, parent, act);  // σ ← σ[parent] on every level
+      ++info_i;
+    }
+
+    // ---- partial-sum chain, this block's slots ----
+    const int s = word >> 5 & 31;
+    if (s > 0) {
+      const int cmask = word >> 11;  // bit l: level l's left bits through σ
+      if (act) {
+        uint8_t* cur = Bg + m * SG + go(s);
+        if (s == n) {
+          cur[0] = (uint8_t)edge;
+        } else {
+          const int r = (cmask >> n & 1) ? sig.get(tid, 2 * n - 3) : m;
+          const uint8_t left = __ldcg(Bg + r * SG + go(n));
+          cur[1] = (uint8_t)edge;
+          cur[0] = (uint8_t)(left ^ edge);
+        }
+      }
+      __syncthreads();
+      for (int lv = n - 1; lv > s; --lv) {
+        const uint16_t* via = (cmask >> lv & 1) ? sig.field(n + lv - 3) : nullptr;
+        cluster_chain_pass(Bg + go(s), Bg + go(lv), SG, via, sig.row, n - lv, base, Lr, tid);
+        __syncthreads();
+      }
+    }
+    // a row read through σ may be another block's: no block rewrites it
+    // before every block is past this phase
+    if (word >> 11) cluster.sync();
+    s_prev = s;
+    word = p + 1 < N ? sched[p + 1] : 0;
+  }
+
+  // ---- final stable sort of the list, CRC selection, backtrack ----
+  if (act) synS[tid] = use_crc && syn == 0u && pm < PAC_BIG;  // slot m passes
+  cluster_sort_keys(keys, act ? cand_key(pm, m) : ~0ull, ~0ull, P, rank, tid);
+  // thread r = m < L: the key (metric, slot) of final rank r
+  const unsigned long long fkey = act ? cluster_key(keys, m) : ~0ull;
+  const int slot_r = act ? key_index(fkey) : 0;
+  if (act && *path_entry(synS, slot_r)) atomicMin(cluster.map_shared_rank(selS, 0), m);
+  cluster.sync();
+  const int least = *cluster.map_shared_rank(selS, 0);
+  const int sel_rank = least < L ? least : 0;
+  if (LIST) {
+    // the block's rows of the list (ranks base..base+Lr−1) zeroed, then the
+    // slot of rank m into row m, before the trace is rewritten
+    int8_t* v = list_v + frame * L * N;
+    for (int t = tid; t < Lr * N; t += CLUSTER_THREADS) v[base * N + t] = 0;
+    __syncthreads();
+    if (act) {
+      const float mr = key_metric(fkey);
+      list_metrics[frame * L + m] = mr < PAC_BIG ? mr : __int_as_float(0x7f800000);
+      int8_t* vrow = v + m * N;
+      int8_t* brow = list_bits + (frame * L + m) * Kp;
+      int slot = slot_r;
+      for (int i = Kp - 1; i >= 0; --i) {
+        const int w = __ldcg(TI + i * L + slot);
+        vrow[u_pos[i]] = (int8_t)(w & 1);
+        brow[out_pos[i]] = (int8_t)(w & 1);
+        slot = w >> 1;
+      }
+    }
+    if (m == 0) list_best[frame] = sel_rank;
+  }
+  cluster.sync();  // every walk has read the trace, and rank 0's word is read
+  if (act && m == sel_rank) {
+    // the selected slot's bit v into slot 0 of each trace row
+    int slot = slot_r;
+    for (int i = Kp - 1; i >= 0; --i) {
+      const int w = __ldcg(TI + i * L + slot);
+      TI[i * L] = (uint16_t)(w & 1);
+      slot = w >> 1;
+    }
+    out_pass[frame] = least < L ? 1 : 0;
+  }
+  cluster.sync();
+  for (int j = m; j < Kp; j += C * CLUSTER_THREADS)
+    out_bits[frame * Kp + j] = (int8_t)__ldcg(TI + phase_of[j] * L);
+}
+
 // every kernel argument but the σ masks, and the stream
 struct Args {
   const float* llr;
@@ -642,13 +919,13 @@ struct Args {
 };
 
 template <int LM, bool LIST>
-int launch_as(const Args& a, cudaStream_t stream) {
+int launch_as(const Args& a, uint8_t* trace_idx, cudaStream_t stream) {
   const size_t smem = (size_t)a.frame_bytes * a.frames_per_block;
   cudaError_t err = set_smem(pac_decode_kernel<LM, LIST>, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (a.B + a.frames_per_block - 1) / a.frames_per_block;
   pac_decode_kernel<LM, LIST><<<blocks, 32 * a.frames_per_block, smem, stream>>>(
-      a.llr, a.hcols, a.sched, a.phase_of, a.glob_llr, a.glob_bits, a.out_bits, a.out_pass,
+      a.llr, a.hcols, a.sched, a.glob_llr, a.glob_bits, trace_idx, a.out_bits, a.out_pass,
       a.out_pos, a.u_pos, a.list_v, a.list_bits, a.list_metrics, a.list_best, a.B, a.N, a.n,
       a.Kp, a.L, a.G, a.mem_mask, a.tap_mask, a.use_crc, a.frame_bytes, a.frames_per_block,
       reset_masks<LM>(a.n));
@@ -657,10 +934,18 @@ int launch_as(const Args& a, cudaStream_t stream) {
 
 // the list instantiation when the list outputs are given, else the drivers' one
 template <int LM>
-int launch(const Args& a, cudaStream_t stream) {
-  if (a.n > MAX_LEVELS || (LM > 1 && 2 * a.n - 2 > PathSigma<LM>::kWords * PathSigma<LM>::kFields))
+int launch(const Args& a, void* trace_idx, cudaStream_t stream) {
+  // the frame's shared memory: a whole number of 16-byte words, the tree
+  // rows and the trace ring, through which the walks back also take the
+  // trace a chunk of rows at a time
+  // (one path: no trace, no ring)
+  if ((LM > 1 && !trace_idx) || !a.out_pos || a.n > MAX_LEVELS ||
+      (LM > 1 && 2 * a.n - 2 > PathSigma<LM>::kWords * PathSigma<LM>::kFields) ||
+      a.frame_bytes % 16 ||
+      a.frame_bytes < round16(5 * a.L * ((a.N >> a.G) - 1)) + (LM > 1 ? TRACE_RING * round16(a.L) : 0))
     return (int)cudaErrorInvalidValue;
-  return a.list_v ? launch_as<LM, true>(a, stream) : launch_as<LM, false>(a, stream);
+  uint8_t* ti = static_cast<uint8_t*>(trace_idx);
+  return a.list_v ? launch_as<LM, true>(a, ti, stream) : launch_as<LM, false>(a, ti, stream);
 }
 
 template <typename T, bool LIST>
@@ -685,6 +970,26 @@ int launch_deep(const Args& a, void* trace_idx, cudaStream_t stream) {
                     : launch_deep_as<uint8_t, false>(a, static_cast<uint8_t*>(trace_idx), stream);
   return a.list_v ? launch_deep_as<uint16_t, true>(a, static_cast<uint16_t*>(trace_idx), stream)
                   : launch_deep_as<uint16_t, false>(a, static_cast<uint16_t*>(trace_idx), stream);
+}
+
+template <bool LIST>
+int launch_cluster_as(const Args& a, uint16_t* trace_idx, cudaStream_t stream) {
+  const ClusterLayout lay = cluster_layout(a.n, 3);
+  // every level in global scratch (G = n), one frame a cluster
+  if (!trace_idx || !a.glob_llr || !a.glob_bits || a.n > MAX_LEVELS ||
+      lay.sig_row > 4 * DEEP_SIGMA_WORDS || a.G != a.n || lay.total != a.frame_bytes ||
+      a.frames_per_block != 1)
+    return (int)cudaErrorInvalidValue;
+  return launch_cluster_kernel(pac_cluster_kernel<LIST>, a.B, a.L, lay.total, stream, a.llr, a.hcols,
+                               a.sched, a.phase_of, a.glob_llr, a.glob_bits, trace_idx, a.out_bits,
+                               a.out_pass, a.out_pos, a.u_pos, a.list_v, a.list_bits,
+                               a.list_metrics, a.list_best, a.N, a.n, a.Kp, a.L, a.mem_mask,
+                               a.tap_mask, a.use_crc);
+}
+
+int launch_cluster(const Args& a, void* trace_idx, cudaStream_t stream) {
+  uint16_t* ti = static_cast<uint16_t*>(trace_idx);
+  return a.list_v ? launch_cluster_as<true>(a, ti, stream) : launch_cluster_as<false>(a, ti, stream);
 }
 
 // The frames a block (1..MAX_FRAMES_PER_BLOCK) that let an SM hold the most
@@ -730,20 +1035,24 @@ extern "C" int pac_decode_launch(const void* llr, const void* hcols, const void*
                static_cast<float*>(list_metrics), static_cast<int*>(list_best),
                B, N, n, Kp, L, G, mem_mask, tap_mask, use_crc, frame_bytes, frames_per_block};
   auto st = static_cast<cudaStream_t>(stream);
-  if (L < 1 || L > DEEP_MAX_M) return (int)cudaErrorInvalidValue;
+  if (L < 1 || L > CLUSTER_MAX_M) return (int)cudaErrorInvalidValue;
+  if (L > DEEP_MAX_M) return launch_cluster(a, trace_idx, st);
   if (L >= DEEP_MIN_M) return launch_deep(a, trace_idx, st);
-  if (trace_idx) return (int)cudaErrorInvalidValue;  // one slot a lane: the trace stays in shared memory
-  if (L == 1) return launch<1>(a, st);
-  if (L <= 2) return launch<2>(a, st);
-  if (L <= 4) return launch<4>(a, st);
-  if (L <= 8) return launch<8>(a, st);
-  if (L <= 16) return launch<16>(a, st);
-  return launch<32>(a, st);
+  if (L == 1) return launch<1>(a, trace_idx, st);
+  if (L <= 2) return launch<2>(a, trace_idx, st);
+  if (L <= 4) return launch<4>(a, trace_idx, st);
+  if (L <= 8) return launch<8>(a, trace_idx, st);
+  if (L <= 16) return launch<16>(a, trace_idx, st);
+  return launch<32>(a, trace_idx, st);
 }
 
 extern "C" int pac_launch_plan(int L, int frame_bytes, int max_block_smem, int* frames_per_block,
                                int* frames_per_sm) {
-  if (L < 1 || L > DEEP_MAX_M) return (int)cudaErrorInvalidValue;
+  if (L < 1 || L > CLUSTER_MAX_M) return (int)cudaErrorInvalidValue;
+  if (L > DEEP_MAX_M) {  // frames_per_sm: the frames (clusters) the card runs at once
+    *frames_per_block = 1;
+    return plan_cluster(pac_cluster_kernel<false>, L, frame_bytes, max_block_smem, frames_per_sm);
+  }
   if (L > 128)
     return plan_deep(pac_deep_kernel<uint16_t, false>, L, frame_bytes, max_block_smem,
                      frames_per_block, frames_per_sm);

@@ -101,9 +101,25 @@
 //     atomicMin in shared memory) where the 32-bit mask of the warp layouts
 //     would overflow.  T, the width of a trace entry 2p+b < 2M and of a σ
 //     field, is a byte up to M = 128 and 16 bits above.
+//   * On a cluster, the instantiations scl_cluster_kernel<LIST> (M
+//     1025..8192, a runtime argument).  One thread a path caps a block at
+//     M = 1024 (its threads), and 64 registers a thread at two sort keys;
+//     so a frame goes to a thread-block cluster of cluster_blocks(M) = 2, 4
+//     or 8 blocks of 1024 threads, thread tid of rank r path r·1024 + tid
+//     (`list_decode.cuh`).  Every tree level is in global scratch (G = n),
+//     and each block runs the passes of its own paths, reading a parent row
+//     through σ from L2 wherever it lies: only σ rows, sort keys and the
+//     published leaf and syndrome cross blocks, through distributed shared
+//     memory between cluster barriers.  The fork is the over-warps sort
+//     extended to the cluster (`cluster_sort_keys`: the stages whose
+//     partner is 2048 keys or more away cross blocks), the final rank the
+//     same sort over the M (metric, path) keys, as by path, and the selected
+//     rank an atomicMin on rank 0's word.  16-bit trace entries and σ
+//     fields.
 //
 // Layout.  One warp decodes one frame and a block holds a few frames (over
-// warps: one block a frame).  Levels
+// warps: one block a frame; on a cluster, one cluster a frame, every level
+// in global scratch).  Levels
 // G+1..n of each path live in dynamic shared memory (in the byte-word
 // layout with the trace indices); levels 1..G (the widest: levels 1 and 2
 // alone hold three quarters of the rows, and are read at a handful of
@@ -771,7 +787,7 @@ __global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_kernel(
   auto so = [&](int l) { return (N >> G) - (N >> (l - 1)); };
   auto go = [&](int l) { return N - (N >> (l - 1)); };
 
-  if (act) sig.init(tid, 2 * n - 2);
+  if (act) sig.init(tid, tid, 2 * n - 2);
   __syncthreads();
   float pm = (tid == 0) ? 0.f : SCL_BIG;  // thread m < M: metric of path m
   uint32_t syn = 0;                        // thread m < M: CRC syndrome of path m
@@ -792,7 +808,7 @@ __global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_kernel(
     // σ back to identity on the levels rewritten since the last fork, in
     // the thread's own row (as scl_path_kernel); no other thread reads
     // these fields before the next barrier
-    if (act) sig.reset(tid, l0 - 1, n - 1, s_prev >= 2 ? n + s_prev - 3 : -1);
+    if (act) sig.reset(tid, tid, l0 - 1, n - 1, s_prev >= 2 ? n + s_prev - 3 : -1);
 
     // ---- f/g updates down to level n−1 ----
     for (int l = l0; l < n; ++l) {
@@ -923,6 +939,212 @@ __global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// Over a cluster: list sizes 1025..8192, one frame a cluster of blocks.
+// ---------------------------------------------------------------------------
+
+// The SCL decode with a frame spread over a cluster of C = cluster_blocks(M)
+// blocks of 1024 threads (`list_decode.cuh`): thread tid of rank r holds
+// path m = r·1024 + tid's metric and syndrome and its candidates 2m and
+// 2m+1.  Every tree level of every path is in global scratch, rows of N − 1
+// entries (level l at N − (N >> (l−1)), the leaf's bit at N − 2), and each
+// block runs the f/g and chain passes of its own paths: a read through σ
+// takes the path's field from the block's own table, and its row, which may
+// be another block's, from L2.  σ, the sort keys and the published leaf and
+// syndrome are the block's 1024 paths' in its shared memory; the fork's
+// parent row, key and words come through DSMEM between cluster barriers.  A
+// phase that read another path's row through σ ends with a cluster barrier,
+// so that no block rewrites a row another may still read (a frozen stretch
+// has no fork to order them).  The final rank is the cluster sort of the M
+// keys (metric, m); thread r takes the key of rank r, and the selected rank,
+// the least of those whose path passes the CRC, is an atomicMin on rank
+// 0's shared word through DSMEM.  It computes what scl_decode_kernel
+// computes.
+template <bool LIST>
+__global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_kernel(
+    const float* __restrict__ llr, const int8_t* __restrict__ forced,
+    const uint32_t* __restrict__ hcols, const int* __restrict__ sched,
+    float* glob_llr,    // [B, M, N-1]: every LLR level
+    uint8_t* glob_bits, // [B, M, N-1]: every partial-sum level
+    float* trace_llr,   // [B, K, M]
+    uint16_t* trace_idx,  // [B, K, M]
+    int8_t* __restrict__ out_bits, float* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,
+    int8_t* __restrict__ list_bits, float* __restrict__ list_llrs, float* __restrict__ list_metrics,
+    int* __restrict__ list_best, int N, int n, int K, int M, int use_crc) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const long long frame = blockIdx.x / C;
+  const int tid = threadIdx.x;
+  const int base = rank * CLUSTER_THREADS;  // the block's first path
+  const int m = base + tid;                 // this thread's path
+  const int Mr = M - base < 0 ? 0 : M - base < CLUSTER_THREADS ? M - base : CLUSTER_THREADS;
+  const bool act = m < M;
+  const int P = sort_keys(M);
+
+  const ClusterLayout lay = cluster_layout(n, 2);
+  const int SG = N - 1;  // entries of a path's row: levels 1..n
+  DeepSigma<uint16_t> sig{reinterpret_cast<uint16_t*>(smem + lay.sig), lay.sig_row / 2,
+                          lay.sig_row / 4};
+  uint16_t* sig_next = reinterpret_cast<uint16_t*>(smem + lay.sig2);  // the next fork's σ table
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem + lay.keys);
+  float* leafS = reinterpret_cast<float*>(smem + lay.words);
+  uint32_t* synS = reinterpret_cast<uint32_t*>(smem + lay.words + 4 * CLUSTER_THREADS);
+  int* selS = reinterpret_cast<int*>(smem + lay.sel);
+  float* Lg = glob_llr + frame * M * SG;
+  uint8_t* Bg = glob_bits + frame * M * SG;
+  float* TL = trace_llr + frame * K * M;
+  uint16_t* TI = trace_idx + frame * K * M;
+  const float* ch = llr + frame * N;
+  const int8_t* plan = forced ? forced + frame * K : nullptr;
+  auto go = [&](int l) { return N - (N >> (l - 1)); };
+
+  if (act) sig.init(tid, m, 2 * n - 2);
+  if (m == 0) *selS = M;
+  __syncthreads();
+  float pm = (m == 0) ? 0.f : SCL_BIG;  // metric of path m
+  uint32_t syn = 0;                      // CRC syndrome of path m
+  int info_i = 0;
+  int word = sched[0];
+  int s_prev = 0;
+  for (int p = 0; p < N; ++p) {
+    const int next_word = p + 1 < N ? sched[p + 1] : 0;
+    const int gl = word & 31;
+    const int is_frozen = word >> 10 & 1;
+    int fb = -1;
+    uint32_t hc = 0;
+    if (!is_frozen) {
+      if (plan) fb = plan[info_i];
+      if (use_crc) hc = hcols[info_i];
+    }
+    const int l0 = p == 0 ? 1 : gl;
+    if (act) sig.reset(tid, m, l0 - 1, n - 1, s_prev >= 2 ? n + s_prev - 3 : -1);
+
+    // ---- f/g updates down to level n−1, this block's paths ----
+    for (int l = l0; l < n; ++l) {
+      const bool is_g = (p != 0) && (l == gl);
+      const uint16_t* via = (is_g && l > 1 && (word >> 11 & 1)) ? sig.field(l - 2) : nullptr;
+      cluster_fg_pass(Lg + go(l), Bg + go(l), SG, l > 1 ? Lg + go(l - 1) : ch, l > 1 ? SG : 0, via,
+                      sig.row, is_g, n - l, base, Mr, tid);
+      __syncthreads();
+    }
+    // the leaf (level n) from the parent row, level n−1
+    const bool g_leaf = gl == n;
+    float leaf = 0.f;
+    if (act) {
+      const int r = (g_leaf && n > 1 && (word >> 11 & 1)) ? sig.get(tid, n - 2) : m;
+      const float* row = n == 1 ? ch : Lg + go(n - 1) + r * SG;
+      const float a = __ldcg(row), b = __ldcg(row + 1);
+      leaf = g_leaf ? g_update(a, b, Bg[m * SG + go(n)]) : f_minsum(a, b);
+    }
+
+    // ---- leaf decision: extend every path, or fork and keep the best M ----
+    int bit = 0;
+    if (is_frozen) {
+      if (act) pm = pm + softplus(-leaf);
+    } else {
+      float c0 = pm + softplus(-leaf), c1 = pm + softplus(leaf);
+      if (fb == 1) c0 = SCL_BIG;
+      if (fb == 0) c1 = SCL_BIG;
+      if (act) {
+        leafS[tid] = leaf;
+        synS[tid] = syn;
+      }
+      cluster_sort_keys(keys, act ? cand_key(c0, 2 * m) : ~0ull, act ? cand_key(c1, 2 * m + 1) : ~0ull,
+                        P, rank, tid);
+      // survivor m: the candidate of rank m, into trace slot m
+      int parent = 0;
+      if (act) {
+        const unsigned long long key = cluster_key(keys, m);
+        const int w = key_index(key);
+        TI[info_i * M + m] = (uint16_t)w;
+        parent = w >> 1;
+        bit = w & 1;
+        pm = key_metric(key);
+        TL[info_i * M + m] = *path_entry(leafS, parent);
+        const uint32_t sp = *path_entry(synS, parent);
+        syn = bit ? sp ^ hc : sp;
+      }
+      cluster_sigma_fork(sig, sig_next, tid, parent, act);  // σ ← σ[parent] on every level
+      ++info_i;
+    }
+
+    // ---- partial-sum chain, this block's paths ----
+    const int s = word >> 5 & 31;
+    if (s > 0) {
+      const int cmask = word >> 11;  // bit l: level l's left bits through σ
+      if (act) {
+        uint8_t* cur = Bg + m * SG + go(s);
+        if (s == n) {
+          cur[0] = (uint8_t)bit;
+        } else {
+          const int r = (cmask >> n & 1) ? sig.get(tid, 2 * n - 3) : m;
+          const uint8_t left = __ldcg(Bg + r * SG + go(n));
+          cur[1] = (uint8_t)bit;
+          cur[0] = (uint8_t)(left ^ bit);
+        }
+      }
+      __syncthreads();
+      for (int lv = n - 1; lv > s; --lv) {
+        const uint16_t* via = (cmask >> lv & 1) ? sig.field(n + lv - 3) : nullptr;
+        cluster_chain_pass(Bg + go(s), Bg + go(lv), SG, via, sig.row, n - lv, base, Mr, tid);
+        __syncthreads();
+      }
+    }
+    // a row read through σ may be another block's: no block rewrites it
+    // before every block is past this phase
+    if (word >> 11) cluster.sync();
+    s_prev = s;
+    word = next_word;
+  }
+
+  // ---- final stable sort of the list, CRC selection, backtrack ----
+  if (act) synS[tid] = use_crc && syn == 0u && pm < SCL_BIG;  // path m passes
+  cluster_sort_keys(keys, act ? cand_key(pm, m) : ~0ull, ~0ull, P, rank, tid);
+  // thread r = m < M: the key (metric, path) of final rank r
+  const unsigned long long fkey = act ? cluster_key(keys, m) : ~0ull;
+  const int path_r = act ? key_index(fkey) : 0;
+  if (act && *path_entry(synS, path_r)) atomicMin(cluster.map_shared_rank(selS, 0), m);
+  cluster.sync();
+  const int least = *cluster.map_shared_rank(selS, 0);
+  const int sel_rank = least < M ? least : 0;
+  if (LIST) {
+    if (act) {
+      const float mr = key_metric(fkey);
+      list_metrics[frame * M + m] = mr < SCL_BIG ? mr : __int_as_float(0x7f800000);
+      // the path of rank m into row m of the list, before the trace is rewritten
+      const long long o = (frame * M + m) * K;
+      int slot = path_r;
+      for (int i = K - 1; i >= 0; --i) {
+        const int w = __ldcg(TI + i * M + slot);
+        list_bits[o + i] = (int8_t)(w & 1);
+        list_llrs[o + i] = __ldcg(TL + i * M + slot);
+        slot = w >> 1;
+      }
+    }
+    if (m == 0) list_best[frame] = sel_rank;
+  }
+  cluster.sync();  // every walk has read the trace, and rank 0's word is read
+  if (act && m == sel_rank) {
+    // the selected path's (slot << 1 | bit) into slot 0 of each trace row
+    int slot = path_r;
+    for (int i = K - 1; i >= 0; --i) {
+      const int w = __ldcg(TI + i * M + slot);
+      TI[i * M] = (uint16_t)((slot << 1) | (w & 1));
+      slot = w >> 1;
+    }
+    out_pass[frame] = least < M ? 1 : 0;
+  }
+  cluster.sync();
+  for (int i = m; i < K; i += C * CLUSTER_THREADS) {
+    const int r = __ldcg(TI + i * M);
+    out_bits[frame * K + i] = (int8_t)(r & 1);
+    out_llrs[frame * K + i] = __ldcg(TL + i * M + (r >> 1));
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side.
 // ---------------------------------------------------------------------------
 
@@ -1014,6 +1236,26 @@ int launch_deep(const Args& a, int M, void* trace_idx, cudaStream_t stream) {
                      : launch_deep_as<uint16_t, false>(a, M, static_cast<uint16_t*>(trace_idx), stream);
 }
 
+template <bool LIST>
+int launch_cluster_as(const Args& a, int M, uint16_t* trace_idx, cudaStream_t stream) {
+  const ClusterLayout lay = cluster_layout(a.n, 2);
+  // every level in global scratch (G = n), one frame a cluster
+  if (!trace_idx || !a.glob_llr || !a.glob_bits || a.n > MAX_LEVELS ||
+      lay.sig_row > 4 * DEEP_SIGMA_WORDS || a.G != a.n || lay.total != a.frame_bytes ||
+      a.frames_per_block != 1)
+    return (int)cudaErrorInvalidValue;
+  return launch_cluster_kernel(scl_cluster_kernel<LIST>, a.B, M, lay.total, stream, a.llr, a.forced,
+                               a.hcols, a.sched, a.glob_llr, a.glob_bits, a.trace_llr, trace_idx,
+                               a.out_bits, a.out_llrs, a.out_pass, a.list_bits, a.list_llrs,
+                               a.list_metrics, a.list_best, a.N, a.n, a.K, M, a.use_crc);
+}
+
+int launch_cluster(const Args& a, int M, void* trace_idx, cudaStream_t stream) {
+  uint16_t* ti = static_cast<uint16_t*>(trace_idx);
+  return a.list_bits ? launch_cluster_as<true>(a, M, ti, stream)
+                     : launch_cluster_as<false>(a, M, ti, stream);
+}
+
 // The frames a block (1..MAX_FRAMES_PER_BLOCK) that let an SM hold the most
 // frames at once, by the occupancy calculator (shared memory, registers and
 // warps all counted); ties go to more frames a block.  The list
@@ -1065,7 +1307,8 @@ extern "C" int scl_decode_launch(const void* llr, const void* forced, const void
     case 8: return launch<8>(a, st);
   }
 #endif
-  if (M < 1 || M > DEEP_MAX_M) return (int)cudaErrorInvalidValue;
+  if (M < 1 || M > CLUSTER_MAX_M) return (int)cudaErrorInvalidValue;
+  if (M > DEEP_MAX_M) return launch_cluster(a, M, trace_idx, st);
   if (M >= DEEP_MIN_M) return launch_deep(a, M, trace_idx, st);
 #if SCL_LEAST_PATH_WIDTH <= 4
   if (M <= 4) return launch_path<4>(a, M, trace_idx, st);
@@ -1087,7 +1330,11 @@ extern "C" int scl_launch_plan(int M, int frame_bytes, int max_block_smem,
     case 8: SCL_PLAN((scl_decode_kernel<8, false>));
   }
 #endif
-  if (M < 1 || M > DEEP_MAX_M) return (int)cudaErrorInvalidValue;
+  if (M < 1 || M > CLUSTER_MAX_M) return (int)cudaErrorInvalidValue;
+  if (M > DEEP_MAX_M) {  // frames_per_sm: the frames (clusters) the card runs at once
+    *frames_per_block = 1;
+    return plan_cluster(scl_cluster_kernel<false>, M, frame_bytes, max_block_smem, frames_per_sm);
+  }
   if (M > 128)
     return plan_deep(scl_deep_kernel<uint16_t, false>, M, frame_bytes, max_block_smem,
                      frames_per_block, frames_per_sm);

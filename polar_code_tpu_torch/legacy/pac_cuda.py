@@ -14,16 +14,21 @@ instantiation writes them (the systematic scalar decoder,
 
 On a CUDA tensor it launches the kernel, or raises for a shape the kernel
 does not take; it runs the plain version (`legacy/pac.py`) only for a tensor
-on the CPU.  The kernel takes every list size from 1 to 1024 (the TPU
+on the CPU.  The kernel takes every list size from 1 to 8192 (the TPU
 kernel took power-of-two L <= 8, and the JAX package's XLA decoder takes the
 rest), N up to 8192, and any batch size: the last block is masked, since
 the adaptive second stage re-decodes a ragged set of failed frames.  Up to
 L=32 one path is a lane of a warp; from 33 to 1024 a frame is spread over
-the warps of a block, one thread a path (the over-warps
-instantiation).  `pac_list_decode_cuda.launches` counts kernel launches,
+the warps of a block, one thread a path (the over-warps instantiation);
+from 1025 to 8192 over a thread-block cluster of
+`ops/scl_cuda.py::cluster_blocks(L)` blocks of 1024 threads, one thread a
+path (the cluster instantiation, whose batch, as the SCL kernel's, goes in
+launches that fit the card's free memory).
+`pac_list_decode_cuda.launches` counts kernel launches,
 `pac_list_decode_cuda.list_launches` those of them that went to a list
-instantiation and `pac_list_decode_cuda.deep_launches` those that went to
-an over-warps one.
+instantiation, `pac_list_decode_cuda.deep_launches` those that went to an
+over-warps one and `pac_list_decode_cuda.cluster_launches` those that went
+to a cluster one.
 
 The kernel's design (its source note has the whole of it): the TPU
 kernel's lazy clone — path m writes row m, per-level path-origin maps σ
@@ -33,11 +38,15 @@ copied at a fork.  σ is a few registers a lane, `SIGMA_FIELDS` levels at
 most (over warps, a table in shared memory).  Each path carries its CRC
 syndrome and shift register in registers.  What bounds it is a frame's
 serial chain of phases, hidden by keeping many frames on an SM: a frame
-keeps tree levels G+1..n and its trace in shared memory, and levels 1..G go
-to a global scratch allocated here for each call, G by the occupancy
-calculator (`launch_plan`, the SCL kernel's policy
-`ops/scl_cuda.py::smallest_global_levels`).  Over warps the trace goes to
-global scratch, as in the SCL kernel, and the shared memory to tree levels.
+keeps tree levels G+1..n in shared memory, and levels 1..G go to a global
+scratch allocated here for each call, G by the occupancy calculator
+(`launch_plan`, the SCL kernel's policy
+`ops/scl_cuda.py::smallest_global_levels`).  The trace goes to global
+scratch too, as in the SCL kernel: rows of round16(L) bytes one path a lane,
+staged 16 rows at a time in shared memory and read by the walks back a
+chunk at a time through the frame's freed shared memory (none at L=1,
+whose decisions go straight to the outputs), and [Kp, L] entries over
+warps; the shared memory goes to tree levels.  On a cluster every tree level is in global scratch.
 
 The envelope: a shape is taken where its frame fits a block at some G, that
 is with every level but the leaf in global scratch (`check_shape`); a shape
@@ -55,15 +64,18 @@ import torch
 
 from .. import _build
 from ..ops.crc import check_matrix
-from ..ops.scl_cuda import (MAX_BLOCK_SMEM, MAX_N, PATH_MAX_M, SIGMA_FIELDS, deep_frame_bytes,
-                             smallest_global_levels, trace_entry_bytes)
+from ..ops.scl_cuda import (CLUSTER_MAX_BLOCKS, CLUSTER_THREADS, DEEP_MAX_M, MAX_BLOCK_SMEM, MAX_N,
+                             PATH_MAX_M, SIGMA_FIELDS, card_free_bytes, cluster_batch,
+                             cluster_block_bytes, cluster_blocks, deep_frame_bytes, path_trace_row,
+                             row_ptr, smallest_global_levels, trace_entry_bytes)
 from ..ops.scl_schedule import phase_words
 from .pac import bitrev_perm, pac_list_decode_batch
 
 SOURCE = "pac_decode.cu"
-MAX_L = 1024  # one thread a path, a block at most
+MAX_L = 8192  # one thread a path, a cluster of 8 blocks at most
 DEEP_WORDS = 3  # published 32-bit values a path over warps: leaf, syndrome, shift register
 MAX_MEM = 31  # the shift register is a 32-bit mask
+TRACE_RING = 16  # trace rows a one-path-a-lane frame stages in shared memory (`pac_decode.cu`)
 # the list outputs of `full=True`, in the order of the kernel's arguments;
 # "valid" is worked out from the metrics
 LIST_FIELDS = ("v_full", "candidates", "metrics", "best_index", "valid")
@@ -72,14 +84,35 @@ LIST_FIELDS = ("v_full", "candidates", "metrics", "best_index", "valid")
 def frame_bytes(N: int, Kp: int, L: int, global_levels: int = 0) -> int:
     """Shared memory one frame's decode state takes, rounded to 16 bytes: up
     to L=32 the LLR rows (float32) and edge-bit rows (bytes) of levels
-    global_levels+1..n, and the trace (bytes); over warps
-    `ops/scl_cuda.py::deep_frame_bytes` (the trace in global scratch)."""
+    global_levels+1..n, and above L=1 a ring of `TRACE_RING` trace rows of
+    round16(L) bytes (the trace is in global scratch, whatever Kp); over
+    warps `ops/scl_cuda.py::deep_frame_bytes`; on a cluster what each of
+    its blocks takes, `ops/scl_cuda.py::cluster_block_bytes`."""
 
+    if L > DEEP_MAX_M:
+        return cluster_block_bytes(N, DEEP_WORDS)
     if L > PATH_MAX_M:
         return deep_frame_bytes(N, L, global_levels, DEEP_WORDS)
     row = (N >> global_levels) - 1
-    raw = 4 * L * row + L * row + Kp * L
-    return (raw + 15) // 16 * 16
+    return (5 * L * row + 15) // 16 * 16 + TRACE_RING * _trace_row(L)
+
+
+def scratch_bytes(B: int, N: int, Kp: int, L: int, global_levels: int) -> int:
+    """Global scratch one launch allocates: the LLR and edge-bit rows of
+    levels 1..G of every frame, and its trace: rows of round16(L) bytes one
+    path a lane (none at L=1), Kp·L entries of `trace_entry_bytes(L)` over warps and on a
+    cluster (G = n, rows of N − 1 entries)."""
+
+    return B * L * (N - (N >> global_levels)) * 5 + B * Kp * _trace_row(L)
+
+
+def _trace_row(L: int) -> int:
+    """Bytes of a frame's trace row in global scratch: none at L=1, whose
+    decisions are its path."""
+
+    if L == 1:
+        return 0
+    return path_trace_row(L) if L <= PATH_MAX_M else L * trace_entry_bytes(L)
 
 
 def check_shape(N: int, Kp: int, L: int, gen, crc_len: int, dtype: torch.dtype) -> None:
@@ -89,7 +122,9 @@ def check_shape(N: int, Kp: int, L: int, gen, crc_len: int, dtype: torch.dtype) 
     if dtype != torch.float32:
         raise ValueError(f"the PAC kernel decodes float32 LLRs, not {dtype}")
     if not 1 <= L <= MAX_L:
-        raise ValueError(f"the PAC kernel supports list sizes 1..{MAX_L}, not {L}")
+        raise ValueError(f"the PAC kernel supports list sizes 1..{MAX_L} (one frame a cluster of at "
+                         f"most {CLUSTER_MAX_BLOCKS} blocks of {CLUSTER_THREADS} threads, one thread a "
+                         f"path), not {L}")
     if N < 2 or N & (N - 1) or not 0 < Kp <= N:
         raise ValueError(f"invalid code shape N={N} Kp={Kp}")
     if N > MAX_N:
@@ -146,9 +181,18 @@ def _occupancy(N: int, Kp: int, L: int, G: int) -> tuple:
 @functools.lru_cache(maxsize=None)
 def launch_plan(N: int, Kp: int, L: int) -> tuple:
     """(global levels G, frames a block, frames an SM holds at once) on the
-    current card."""
+    current card; on a cluster (L > 1024) (n, 1, the frames the card runs at
+    once), as `ops/scl_cuda.py::launch_plan`, raising where that is 0."""
 
-    return smallest_global_levels(int(math.log2(N)), lambda g: _occupancy(N, Kp, L, g))
+    n = int(math.log2(N))
+    if L > DEEP_MAX_M:
+        at_once = _occupancy(N, Kp, L, n)[1]
+        if at_once < 1:
+            raise RuntimeError(f"the card places no cluster of {cluster_blocks(L)} blocks of "
+                               f"{CLUSTER_THREADS} threads and {frame_bytes(N, Kp, L, n)} B of shared "
+                               f"memory each (N={N} L={L})")
+        return n, 1, at_once
+    return smallest_global_levels(n, lambda g: _occupancy(N, Kp, L, g))
 
 
 def host_tables(mask, crc_len: int, crc_poly: int):
@@ -183,8 +227,7 @@ def _plan(mask_key: bytes, gen: tuple, L: int, crc_len: int, crc_poly: int, dtyp
     words, the info phase of each ascending-u output bit, check columns,
     shift-register and tap masks, CRC flag, shared bytes a frame, for the
     list output the ascending-u output index and the u index of each info
-    phase, and the dtype of the trace's global scratch, None where the
-    trace stays in shared memory).
+    phase).
     `global_levels` overrides the launch plan's G (`chip_smoke.py` times
     other G)."""
 
@@ -203,10 +246,8 @@ def _plan(mask_key: bytes, gen: tuple, L: int, crc_len: int, crc_poly: int, dtyp
     positions = np.flatnonzero(mask == 1)
     list_tables = (torch.as_tensor(out_pos, device=device),
                    torch.as_tensor(positions[out_pos].astype(np.int32), device=device))
-    ti_dtype = (None if L <= PATH_MAX_M
-                else torch.uint8 if trace_entry_bytes(L) == 1 else torch.int16)
     return (N, Kp, L, G, fpb, *tables, (1 << (len(gen) - 1)) - 1, tap_mask, int(crc_len > 0),
-            frame_bytes(N, Kp, L, G), list_tables, ti_dtype)
+            frame_bytes(N, Kp, L, G), list_tables)
 
 
 def pac_list_decode_cuda(
@@ -239,7 +280,7 @@ def _launch(llr, plan, full=False) -> dict:
     instantiation."""
 
     (N, Kp, L, G, fpb, sched, phase_of, hcols, mem_mask, tap_mask, use_crc, fbytes,
-     (out_pos, u_pos), ti_dtype) = plan
+     (out_pos, u_pos)) = plan
     B = int(llr.shape[0])
     dev = llr.device
     out = {"extracted": torch.empty((B, Kp), dtype=torch.int8, device=dev),
@@ -250,36 +291,48 @@ def _launch(llr, plan, full=False) -> dict:
                    metrics=torch.empty((B, L), dtype=torch.float32, device=dev),
                    best_index=torch.empty((B,), dtype=torch.int32, device=dev))
     if B > 0:
-        row = N - (N >> G)  # entries of a path's levels 1..G
+        step = B
+        if L > DEEP_MAX_M:
+            with torch.cuda.device(dev):
+                step = cluster_batch(B, scratch_bytes(1, N, Kp, L, G), card_free_bytes(dev))
+        # one allocation: the LLR rows (float32) of levels 1..G, their edge
+        # bits, and the trace from a 16-byte boundary
+        # (none at L=1 with G=0)
+        lvl = step * L * (N - (N >> G))
+        ti_at = (5 * lvl + 15) // 16 * 16
+        total = ti_at + step * Kp * _trace_row(L)
         try:
-            glob_llr = torch.empty((B, L, row), dtype=torch.float32, device=dev) if G else None
-            glob_bits = torch.empty((B, L, row), dtype=torch.uint8, device=dev) if G else None
-            trace_idx = torch.empty((B, Kp, L), dtype=ti_dtype, device=dev) if ti_dtype else None
+            scratch = torch.empty((total,), dtype=torch.uint8, device=dev) if total else None
         except torch.cuda.OutOfMemoryError as exc:
-            ti = B * Kp * L * trace_entry_bytes(L) if ti_dtype else 0
             raise RuntimeError(
-                f"the PAC kernel's global scratch for B={B} N={N} Kp={Kp} L={L} is "
-                f"{B * L * row * 5 + ti} bytes, more than the card has free: decode in smaller "
-                f"batches") from exc
-        lists = [out[f].data_ptr() if full else None for f in LIST_FIELDS[:4]]
+                f"the PAC kernel's global scratch for B={step} N={N} Kp={Kp} L={L} is "
+                f"{scratch_bytes(step, N, Kp, L, G)} bytes, more than the card has free: decode in "
+                f"smaller batches") from exc
+        at = scratch.data_ptr() if total else 0
+        glob_llr, glob_bits = (at, at + 4 * lvl) if G else (None, None)
+        batch = [llr, out["extracted"], out["crc_pass"]] + [out[f] for f in LIST_FIELDS[:4] if full]
         lib = _library()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.pac_decode_launch(
-                llr.data_ptr(), hcols.data_ptr(), sched.data_ptr(), phase_of.data_ptr(),
-                glob_llr.data_ptr() if G else None, glob_bits.data_ptr() if G else None,
-                trace_idx.data_ptr() if ti_dtype else None,
-                out["extracted"].data_ptr(), out["crc_pass"].data_ptr(),
-                out_pos.data_ptr(), u_pos.data_ptr(), *lists,
-                B, N, int(math.log2(N)), Kp, L, G, mem_mask, tap_mask, use_crc, fbytes, fpb, stream,
-            )
-        if rc != 0:
-            raise RuntimeError(f"PAC kernel launch failed: {lib.pac_error_string(rc).decode()} ({rc})")
-        pac_list_decode_cuda.launches += 1
-        if full:
-            pac_list_decode_cuda.list_launches += 1
-        if L > PATH_MAX_M:
-            pac_list_decode_cuda.deep_launches += 1
+            for b0 in range(0, B, step):  # one launch unless a cluster batch is split
+                rows = [row_ptr(t, b0) for t in batch] if b0 else [t.data_ptr() for t in batch]
+                rc = lib.pac_decode_launch(
+                    rows[0], hcols.data_ptr(), sched.data_ptr(), phase_of.data_ptr(), glob_llr,
+                    glob_bits, at + ti_at, rows[1], rows[2], out_pos.data_ptr(), u_pos.data_ptr(),
+                    *(rows[3:] if full else (None,) * 4),
+                    min(step, B - b0), N, int(math.log2(N)), Kp, L, G, mem_mask, tap_mask, use_crc,
+                    fbytes, fpb, stream,
+                )
+                if rc != 0:
+                    raise RuntimeError(f"PAC kernel launch failed: {lib.pac_error_string(rc).decode()} "
+                                       f"({rc})")
+                pac_list_decode_cuda.launches += 1
+                if full:
+                    pac_list_decode_cuda.list_launches += 1
+                if L > DEEP_MAX_M:
+                    pac_list_decode_cuda.cluster_launches += 1
+                elif L > PATH_MAX_M:
+                    pac_list_decode_cuda.deep_launches += 1
     if full:
         out["best_index"] = out["best_index"].long()
         out["valid"] = torch.isfinite(out["metrics"])
@@ -289,7 +342,9 @@ def _launch(llr, plan, full=False) -> dict:
 pac_list_decode_cuda.launches = 0
 pac_list_decode_cuda.list_launches = 0  # of them, launches of a list instantiation
 pac_list_decode_cuda.deep_launches = 0  # of them, launches of an over-warps instantiation
+pac_list_decode_cuda.cluster_launches = 0  # of them, launches of a cluster instantiation
 
 
-__all__ = ["pac_list_decode_cuda", "check_shape", "frame_bytes", "host_tables", "launch_plan",
+__all__ = ["pac_list_decode_cuda", "check_shape", "frame_bytes", "scratch_bytes", "host_tables",
+           "launch_plan",
            "MAX_L", "MAX_N", "SIGMA_FIELDS", "LIST_FIELDS"]

@@ -16,20 +16,25 @@ does not take; it runs the plain version (`ops/scl.py`) only for a tensor on
 the CPU.  Any batch size is taken: the last block is masked, since the retry
 batches after compaction are data-dependent.  `decode_scl_cuda.launches`
 counts kernel launches, `decode_scl_cuda.path_launches` those of them that
-went to the by-path instantiation and `decode_scl_cuda.deep_launches`
-those that went to the over-warps one.
+went to the by-path instantiation, `decode_scl_cuda.deep_launches` those
+that went to the over-warps one and `decode_scl_cuda.cluster_launches`
+those that went to the cluster one.
 
-The kernel takes every list size M from 1 to 1024 (the JAX package's XLA
+The kernel takes every list size M from 1 to 8192 (the JAX package's XLA
 decoder takes any M; its TPU kernel power-of-two M <= 8) and N up to 8192
 (the TPU kernel's N envelope).  M ∈ {1, 2, 4, 8} go to the byte-word
 instantiations, which the sweeps launch; M up to 32 to the by-path
 instantiation of M rounded up to a power of two (`path_width`), one path a
 lane of a warp; M from 33 to 1024 to the over-warps instantiation, one
-frame a block and one thread a path (the source note has the three
+frame a block and one thread a path; M from 1025 to 8192 to the cluster
+instantiation, one frame a thread-block cluster of `cluster_blocks(M)`
+blocks of 1024 threads, one thread a path (the source note has the four
 layouts).  A shape whose frame fits no block even with every level but the
 leaf in global scratch (`check_shape`) raises, as does a batch whose global
 scratch does not fit the card: the wrapper names the bytes and shrinks
-nothing.
+nothing, but on a cluster, whose scratch is M·(N−1)·5 + K·M·6 bytes a frame
+(8.3 MB at P(128,64) M=8192), it splits the batch into launches that fit
+the card's free memory (`cluster_batch`), one launch counted each.
 
 Memory.  A frame keeps tree levels G+1..n of its M paths in shared memory;
 levels 1..G and the trace LLRs go to a global scratch allocated here for
@@ -38,7 +43,9 @@ layout (K·M bytes); by path (rows of `path_trace_row(M)` bytes) and over
 warps (entries of `trace_entry_bytes(M)`) they go to global scratch,
 written once an info phase and read at the end, so that a frame's shared
 memory goes to tree levels (and over warps to the σ table and the sort
-keys, `deep_frame_bytes`).  `launch_plan` asks the CUDA occupancy
+keys, `deep_frame_bytes`; on a cluster every tree level goes to global
+scratch, and a block's shared memory holds σ, sort keys and published
+words of its 1024 paths, `cluster_block_bytes`).  `launch_plan` asks the CUDA occupancy
 calculator for the smallest G at which an SM holds a number of frames
 (`smallest_global_levels`, which the PAC kernel's wrapper shares), and for
 the frames a block that hold the most: `FRAMES_PER_SM_TARGET` in the
@@ -63,8 +70,11 @@ from .scl import decode_scl_batch
 from .scl_schedule import phase_words
 
 SOURCE = "scl_decode.cu"
-MAX_M = 1024  # one thread a path, a block at most
+MAX_M = 8192  # one thread a path, a cluster of 8 blocks (the portable cluster size) at most
 SUPPORTED_M = tuple(range(1, MAX_M + 1))
+DEEP_MAX_M = 1024  # the largest list size over the warps of one block; above, a cluster
+CLUSTER_THREADS = 1024  # threads a block of a cluster frame (`list_decode.cuh`)
+CLUSTER_MAX_BLOCKS = 8
 # the largest list size decoded one path a lane of a warp; above it a frame
 # is spread over the warps of a block of M rounded up to a power of two
 # threads (`DEEP_MIN_M` and `deep_threads` in `csrc/list_decode.cuh`)
@@ -123,6 +133,41 @@ def deep_frame_bytes(N: int, M: int, global_levels: int, words: int = 2) -> int:
             + words * _round16(4 * M) + _round16(M * row) + 16)
 
 
+def cluster_blocks(M: int) -> int:
+    """Blocks of a cluster frame (M 1025..8192): M rounded up to a power of
+    two, over 1024 (`cluster_blocks` in `csrc/list_decode.cuh`)."""
+
+    return sort_keys(M) // 2 // CLUSTER_THREADS
+
+
+def cluster_block_bytes(N: int, words: int = 2) -> int:
+    """Shared memory each block of a cluster frame takes (`cluster_layout`
+    in `csrc/list_decode.cuh`), each region rounded to 16 bytes: two σ
+    tables of its 1024 paths (2n−2 16-bit fields a path, a row rounded to
+    4 bytes; a fork copies from one into the other), its 2048 sort keys of
+    8 bytes, `words` published 32-bit values a path (SCL 2, PAC 3) and the
+    selected rank.  Every tree level is in global scratch, so N enters only
+    through σ's row."""
+
+    n = int(math.log2(N))
+    sig_row = max(4, ((2 * n - 2) * 2 + 3) // 4 * 4)
+    return (2 * _round16(CLUSTER_THREADS * sig_row) + 8 * 2 * CLUSTER_THREADS
+            + words * 4 * CLUSTER_THREADS + 16)
+
+
+def cluster_batch(B: int, frame_scratch: int, free: int) -> int:
+    """Frames a cluster launch takes when each needs `frame_scratch` bytes
+    of global scratch and `free` bytes are free on the card: all B, or the
+    most whose scratch fits nine tenths of `free`.  Raises ValueError, naming
+    the bytes, when one frame does not fit."""
+
+    fits = int(free * 0.9) // frame_scratch
+    if fits < 1:
+        raise ValueError(f"one frame's global scratch is {frame_scratch} bytes, more than nine tenths "
+                         f"of the {free} bytes free on the card")
+    return min(B, fits)
+
+
 def path_layout(M: int) -> bool:
     """Whether list size M goes to the by-path instantiation."""
 
@@ -141,8 +186,12 @@ def frame_bytes(N: int, K: int, M: int, global_levels: int = 0) -> int:
     """Shared memory one frame's decode state takes, rounded to 16 bytes: up
     to M=32 the LLR rows (float32) and partial-sum rows (bytes) of levels
     global_levels+1..n, and in the byte-word layout the trace indices
-    (bytes); over warps `deep_frame_bytes`."""
+    (bytes); over warps `deep_frame_bytes`; on a cluster what each of its
+    blocks takes, `cluster_block_bytes` (every level in global scratch,
+    whatever `global_levels`)."""
 
+    if M > DEEP_MAX_M:
+        return cluster_block_bytes(N)
     if M > PATH_MAX_M:
         return deep_frame_bytes(N, M, global_levels)
     row = (N >> global_levels) - 1
@@ -159,8 +208,8 @@ def path_width(M: int) -> int:
 
 def scratch_bytes(B: int, N: int, K: int, M: int, global_levels: int) -> int:
     """Global scratch one launch allocates: the LLR and partial-sum rows of
-    levels 1..G and the trace LLRs of every frame, and by path and over
-    warps the trace indices."""
+    levels 1..G and the trace LLRs of every frame, and by path, over warps
+    and on a cluster (G = n, rows of N − 1 entries) the trace indices."""
 
     ti = (B * K * M * trace_entry_bytes(M) if M > PATH_MAX_M
           else B * K * path_trace_row(M) if path_layout(M) else 0)
@@ -173,7 +222,9 @@ def check_shape(N: int, K: int, M: int, crc: Optional[str], dtype: torch.dtype) 
     if dtype != torch.float32:
         raise ValueError(f"the SCL kernel decodes float32 LLRs, not {dtype}")
     if not 1 <= M <= MAX_M:
-        raise ValueError(f"the SCL kernel supports list sizes 1..{MAX_M}, not {M}")
+        raise ValueError(f"the SCL kernel supports list sizes 1..{MAX_M} (one frame a cluster of at "
+                         f"most {CLUSTER_MAX_BLOCKS} blocks of {CLUSTER_THREADS} threads, one thread a "
+                         f"path), not {M}")
     if N < 2 or N & (N - 1) or not 0 < K <= N:
         raise ValueError(f"invalid code shape N={N} K={K}")
     if N > MAX_N:
@@ -262,10 +313,20 @@ def launch_plan(N: int, K: int, M: int, B: int) -> tuple:
     """(global levels G, frames a block, frames an SM holds at once) for a
     batch of B frames on the current card, by `smallest_global_levels`:
     `FRAMES_PER_SM_TARGET` frames an SM in the byte-word and over-warps
-    layouts, `path_target` of the card's SMs by path.  The occupancy
-    (`_occupancy`) is cached by shape alone: the cards of one host are taken
-    to be of one kind."""
+    layouts, `path_target` of the card's SMs by path.  On a cluster (M >
+    1024): (n, 1, the frames the card runs at once), every level in global
+    scratch, by `cudaOccupancyMaxActiveClusters`; it raises where that is 0.
+    The occupancy (`_occupancy`) is cached by shape alone: the cards of one
+    host are taken to be of one kind."""
 
+    if M > DEEP_MAX_M:
+        n = int(math.log2(N))
+        at_once = _occupancy(N, K, M, n)[1]
+        if at_once < 1:
+            raise RuntimeError(f"the card places no cluster of {cluster_blocks(M)} blocks of "
+                               f"{CLUSTER_THREADS} threads and {frame_bytes(N, K, M, n)} B of shared "
+                               f"memory each (N={N} M={M})")
+        return n, 1, at_once
     if not path_layout(M):
         return _plan(N, K, M, FRAMES_PER_SM_TARGET)
     n = int(math.log2(N))
@@ -325,10 +386,26 @@ def decode_scl_cuda(
     return _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full)
 
 
+def row_ptr(t: torch.Tensor, b: int) -> int:
+    """Address of row b of a contiguous batch-major tensor: where a split
+    launch's share of the batch starts, with no tensor made for it."""
+
+    return t.data_ptr() + b * t.stride(0) * t.element_size()
+
+
+def card_free_bytes(dev) -> int:
+    """Bytes a scratch allocation can take on `dev`: free on the card, and
+    held by PyTorch's cache unused."""
+
+    free, _ = torch.cuda.mem_get_info(dev)
+    return int(free + torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev))
+
+
 def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
     """Launch the kernel on checked inputs, with levels 1..G in global
     scratch and fpb frames a block (`chip_smoke.py` times other G here);
-    `full` launches the list instantiation."""
+    `full` launches the list instantiation.  On a cluster the batch goes in
+    launches of `cluster_batch` frames."""
 
     B, N = int(llr.shape[0]), int(llr.shape[1])
     K = int(info_np.size)
@@ -345,39 +422,46 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
         sched, hcols = _device_tables(tuple(int(i) for i in info_np), N, crc, dev)
         row = N - (N >> G)  # entries of a path's levels 1..G
         ti_dtype = torch.uint8 if trace_entry_bytes(M) == 1 else torch.int16
+        step = B
+        if M > DEEP_MAX_M:
+            with torch.cuda.device(dev):
+                step = cluster_batch(B, scratch_bytes(1, N, K, M, G), card_free_bytes(dev))
         try:
-            glob_llr = torch.empty((B, M, row), dtype=torch.float32, device=dev) if G else None
-            glob_bits = torch.empty((B, M, row), dtype=torch.uint8, device=dev) if G else None
-            trace_llr = torch.empty((B, K, M), dtype=torch.float32, device=dev)
-            trace_idx = (torch.empty((B, K, M), dtype=ti_dtype, device=dev) if M > PATH_MAX_M
-                         else torch.empty((B, K, path_trace_row(M)), dtype=torch.uint8, device=dev)
+            glob_llr = torch.empty((step, M, row), dtype=torch.float32, device=dev) if G else None
+            glob_bits = torch.empty((step, M, row), dtype=torch.uint8, device=dev) if G else None
+            trace_llr = torch.empty((step, K, M), dtype=torch.float32, device=dev)
+            trace_idx = (torch.empty((step, K, M), dtype=ti_dtype, device=dev) if M > PATH_MAX_M
+                         else torch.empty((step, K, path_trace_row(M)), dtype=torch.uint8, device=dev)
                          if path_layout(M) else None)
         except torch.cuda.OutOfMemoryError as exc:
             raise RuntimeError(
-                f"the SCL kernel's global scratch for B={B} N={N} K={K} M={M} is "
-                f"{scratch_bytes(B, N, K, M, G)} bytes, more than the card has free: decode "
+                f"the SCL kernel's global scratch for B={step} N={N} K={K} M={M} is "
+                f"{scratch_bytes(step, N, K, M, G)} bytes, more than the card has free: decode "
                 f"in smaller batches") from exc
-        lists = [out[f].data_ptr() if full else None for f in LIST_FIELDS[:4]]
         lib = _library()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.scl_decode_launch(
-                llr.data_ptr(),
-                force_info_bits.data_ptr() if force_info_bits is not None else None,
-                hcols.data_ptr(), sched.data_ptr(),
-                glob_llr.data_ptr() if G else None, glob_bits.data_ptr() if G else None,
-                trace_llr.data_ptr(), trace_idx.data_ptr() if trace_idx is not None else None,
-                *(out[f].data_ptr() for f in BEST_FIELDS), *lists,
-                B, N, int(math.log2(N)), K, M, G, int(crc is not None),
-                frame_bytes(N, K, M, G), fpb, stream,
-            )
-        if rc != 0:
-            raise RuntimeError(f"SCL kernel launch failed: {lib.scl_error_string(rc).decode()} ({rc})")
-        decode_scl_cuda.launches += 1
-        if M > PATH_MAX_M:
-            decode_scl_cuda.deep_launches += 1
-        elif path_layout(M):
-            decode_scl_cuda.path_launches += 1
+        for b0 in range(0, B, step):  # one launch unless a cluster batch is split
+            lists = [row_ptr(out[f], b0) if full else None for f in LIST_FIELDS[:4]]
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                rc = lib.scl_decode_launch(
+                    row_ptr(llr, b0),
+                    row_ptr(force_info_bits, b0) if force_info_bits is not None else None,
+                    hcols.data_ptr(), sched.data_ptr(),
+                    glob_llr.data_ptr() if G else None, glob_bits.data_ptr() if G else None,
+                    trace_llr.data_ptr(), trace_idx.data_ptr() if trace_idx is not None else None,
+                    *(row_ptr(out[f], b0) for f in BEST_FIELDS), *lists,
+                    min(step, B - b0), N, int(math.log2(N)), K, M, G, int(crc is not None),
+                    frame_bytes(N, K, M, G), fpb, stream,
+                )
+            if rc != 0:
+                raise RuntimeError(f"SCL kernel launch failed: {lib.scl_error_string(rc).decode()} ({rc})")
+            decode_scl_cuda.launches += 1
+            if M > DEEP_MAX_M:
+                decode_scl_cuda.cluster_launches += 1
+            elif M > PATH_MAX_M:
+                decode_scl_cuda.deep_launches += 1
+            elif path_layout(M):
+                decode_scl_cuda.path_launches += 1
     if full:
         out["valid"] = torch.isfinite(out["metrics"])
     return out
@@ -386,9 +470,11 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
 decode_scl_cuda.launches = 0
 decode_scl_cuda.path_launches = 0  # of them, launches of the by-path instantiation
 decode_scl_cuda.deep_launches = 0  # of them, launches of the over-warps instantiation
+decode_scl_cuda.cluster_launches = 0  # of them, launches of the cluster instantiation
 
 
 __all__ = ["decode_scl_cuda", "check_shape", "frame_bytes", "deep_frame_bytes", "sort_keys",
+           "cluster_blocks", "cluster_block_bytes", "cluster_batch",
            "trace_entry_bytes", "launch_plan", "smallest_global_levels", "path_width",
            "path_layout", "path_trace_row", "path_target", "scratch_bytes", "SUPPORTED_M",
-           "BYTE_WORD_M", "MAX_M", "PATH_MAX_M", "MAX_N", "SIGMA_FIELDS"]
+           "BYTE_WORD_M", "MAX_M", "PATH_MAX_M", "DEEP_MAX_M", "MAX_N", "SIGMA_FIELDS"]

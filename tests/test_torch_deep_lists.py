@@ -118,15 +118,18 @@ def test_check_shape_takes_lists_up_to_1024():
     for M in (64, 256):
         scl_cuda.check_shape(1024, 512, M, CRC, torch.float32)
     scl_cuda.check_shape(8192, 4096, 1024, None, torch.float32)
-    with pytest.raises(ValueError, match="1..1024"):
-        scl_cuda.check_shape(128, 64, 1025, CRC, torch.float32)
+    # above 1024 a frame goes over a cluster of blocks, up to 8192
+    scl_cuda.check_shape(128, 64, 1025, CRC, torch.float32)
+    with pytest.raises(ValueError, match="1..8192"):
+        scl_cuda.check_shape(128, 64, 8193, CRC, torch.float32)
     for L in range(33, 1025):
         pac_cuda.check_shape(128, 80, L, GEN, 16, torch.float32)
     pac_cuda.check_shape(2048, 1040, 32, GEN, 16, torch.float32)
     pac_cuda.check_shape(8192, 4112, 8, GEN, 16, torch.float32)
     pac_cuda.check_shape(8192, 4112, 1024, GEN, 16, torch.float32)
-    with pytest.raises(ValueError, match="1..1024"):
-        pac_cuda.check_shape(128, 80, 1025, GEN, 16, torch.float32)
+    pac_cuda.check_shape(128, 80, 1025, GEN, 16, torch.float32)
+    with pytest.raises(ValueError, match="1..8192"):
+        pac_cuda.check_shape(128, 80, 8193, GEN, 16, torch.float32)
     with pytest.raises(ValueError, match="8192"):
         pac_cuda.check_shape(16384, 8208, 8, GEN, 16, torch.float32)
 
@@ -172,8 +175,9 @@ def test_scratch_bytes_over_warps():
                                                                 + 4096 * 512 * 256 * 4 + ti)
     # by path the trace indices are in global scratch too, rows of 32 bytes at M=32
     assert scl_cuda.scratch_bytes(4096, 128, 64, 32, 2) == 4096 * 32 * (96 * 5 + 64 * 4) + 4096 * 64 * 32
-    # PAC(8192,4096)+CRC-16 at L=8: its trace stays in shared memory, 4112·8 bytes
-    assert pac_cuda.frame_bytes(8192, 4112, 8, 12) == (5 * 8 + 4112 * 8 + 15) // 16 * 16
+    # PAC(8192,4096)+CRC-16 at L=8: its trace is in global scratch too, rows of
+    # 16 bytes; the frame keeps its leaf rows and a ring of 16 trace rows
+    assert pac_cuda.frame_bytes(8192, 4112, 8, 12) == (5 * 8 + 15) // 16 * 16 + 16 * 16
     # over warps: σ rows of 24 byte fields, 128 sort keys
     assert pac_cuda.frame_bytes(8192, 4112, 64, 12) == 64 * 24 + 8 * 128 + 256 + 3 * 256 + 64 + 16
 

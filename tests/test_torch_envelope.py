@@ -180,8 +180,8 @@ def test_check_shape_takes_the_envelope():
         scl_cuda.check_shape(4096, 2048, M, CRC, torch.float32)
     for M in range(1, 5):
         scl_cuda.check_shape(8192, 4096, M, CRC, torch.float32)
-    with pytest.raises(ValueError, match="1..1024"):
-        scl_cuda.check_shape(128, 64, 1025, CRC, torch.float32)
+    with pytest.raises(ValueError, match="1..8192"):
+        scl_cuda.check_shape(128, 64, 8193, CRC, torch.float32)
     with pytest.raises(ValueError, match="8192"):
         scl_cuda.check_shape(16384, 8192, 4, CRC, torch.float32)
     # by path the trace indices live in global scratch: every K at N=8192

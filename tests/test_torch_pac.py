@@ -112,7 +112,8 @@ def test_host_tables_permute_the_check_matrix_to_phase_order(mask):
         col = [(int(words[i]) >> d) & 1 for d in range(CRC_LEN)]
         assert col == list(Hc[:, out_pos[i]])
     assert sched.shape == (N,) and int((sched >> 10 & 1).sum()) == N - KP  # frozen phases
-    assert frame_bytes(64, 32, 32) == 11104  # 5·32·63 + 32·32, to 16 B
+    # 5·32·63 to 16 B, and a ring of 16 trace rows of 32 B: the trace is in global scratch
+    assert frame_bytes(64, 32, 32) == 10080 + 16 * 32
 
 
 def test_wrapper_on_cpu_runs_the_plain_version(mask):
@@ -133,14 +134,15 @@ def test_wrapper_on_cpu_runs_the_plain_version(mask):
 
 def test_check_shape_bounds_the_kernel():
     check_shape(64, 32, 32, [1, 0, 1, 1, 0, 1, 1], 0, torch.float32)  # the simulator's stage 2
-    check_shape(1024, 512, 32, [1], 16, torch.float32)  # about 180 KB a frame
-    for args in ((64, 32, 1025, [1], 0, torch.float32),   # L > 1024
+    check_shape(1024, 512, 32, [1], 16, torch.float32)  # about 160 KB a frame
+    check_shape(8192, 8000, 32, [1], 0, torch.float32)  # the trace in global scratch: every Kp
+    for args in ((64, 32, 8193, [1], 0, torch.float32),   # L > 8192
                  (64, 32, 0, [1], 0, torch.float32),
                  (64, 32, 8, [0, 1], 0, torch.float32),  # gen[0] != 1
                  (64, 32, 8, [1] * 33, 0, torch.float32),  # memory 32
                  (64, 32, 8, [1], 33, torch.float32),
                  (64, 32, 8, [1], 0, torch.float64),
-                 (8192, 8000, 32, [1], 0, torch.float32)):  # > 227 KB a frame at every G
+                 (16384, 8000, 32, [1], 0, torch.float32)):  # N > 8192
         with pytest.raises(ValueError):
             check_shape(*args)
 
@@ -166,7 +168,7 @@ def test_pac_decode_on_cuda_raises_for_what_the_kernel_does_not_take():
     x = _CudaStandIn()
     calls = pac_list_decode_batch.cuda_calls
     with pytest.raises(ValueError, match="list sizes"):
-        pac_decode(x, mask, [1, 0, 1, 1, 0, 1, 1], 1025)
+        pac_decode(x, mask, [1, 0, 1, 1, 0, 1, 1], 8193)
     with pytest.raises(ValueError, match="plain decoder runs on CPU"):
         pac_decode(x, mask, [1], 4, backend="xla")
     assert pac_list_decode_batch.cuda_calls == calls  # no fallback to the plain version

@@ -92,13 +92,11 @@ def test_sigma_registers_hold_the_envelope():
         for n in range(1, 14):
             N = 1 << n
             assert 2 * n - 2 <= SIGMA_FIELDS[lm], (L, N)
-            # the leaf rows and the trace: 5·L + Kp·L bytes, rounded to 16
-            assert frame_bytes(N, N // 2, L, n - 1) == (5 * L + N // 2 * L + 15) // 16 * 16
-            if frame_bytes(N, N // 2, L, n - 1) <= MAX_BLOCK_SMEM:
-                check_shape(N, N // 2, L, [1], 0, torch.float32)
-            else:  # the trace alone overfills a block
-                with pytest.raises(ValueError, match="bytes of shared memory"):
-                    check_shape(N, N // 2, L, [1], 0, torch.float32)
+            # the leaf rows, 5·L bytes rounded to 16, and a ring of 16 trace
+            # rows: the trace is in global scratch, so every Kp fits
+            ring = 16 * ((L + 15) // 16 * 16)
+            assert frame_bytes(N, N // 2, L, n - 1) == (5 * L + 15) // 16 * 16 + ring <= MAX_BLOCK_SMEM
+            check_shape(N, N // 2, L, [1], 0, torch.float32)
         check_shape(8192, 2, L, [1], 0, torch.float32)
         with pytest.raises(ValueError, match="8192"):
             check_shape(16384, 2, L, [1], 0, torch.float32)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Hold the by-path and over-warps list decoders of one checkout to another's, bit for bit.
+"""Hold the list decoders of one checkout to another's, bit for bit: K1 by path and over warps, K3.
 
     python tools/compare_deep_lists.py --repo DIR --save FILE.npz
     python tools/compare_deep_lists.py [--repo DIR] --compare FILE.npz
@@ -14,7 +14,9 @@ P(32,28) M=64, with and without a forced plan; K1 by path at P(128,64) M 3,
 without CRC-24A and a forced plan, and with CRC-24A at the launch plans of
 the timed batches (`chip_smoke.py`'s PATH_TIMES): P(128,64) M 3, 16 and 32
 at B=4096, P(1024,512) M=16 at B=1024, and 8 frames of P(8192,4096) M=32 at
-the plan of B=1024; and the PAC kernel K3 at PAC(128,64)+CRC-16 L 33, 64,
+the plan of B=1024; and the PAC kernel K3 one path a lane at
+PAC(128,64)+CRC-16 L 1, 2, 4, 5, 8, 16, 24 and 32, PAC(2048,1024) L=32 and
+PAC(8192,4096) L=8 (B=6), and over warps at PAC(128,64)+CRC-16 L 33, 64,
 65, 100, 129, 256 and 1024 and PAC(32,12) L=64; B=37 frames unless named,
 every output of the list launch and of the best-only one.  `--save` writes
 them to FILE; `--compare` holds them to FILE's, byte for byte, and each
@@ -99,10 +101,12 @@ def main():
                 keep(tag, k1(x, info, M, crc, p, launch_b, full=True), k1(x, info, M, crc, p, launch_b))
                 if args.compare:
                     cs.k1_vs_plain(x, info, M, crc, p, tag, launch_b=launch_b)
-    for n, k, L in [(128, 64, L) for L in (33, 64, 65, 100, 129, 256, 1024)] + [(32, 12, 64)]:
+    k3_cases = ([(128, 64, L, 37) for L in (33, 64, 65, 100, 129, 256, 1024)] + [(32, 12, 64, 37)]
+                + [(128, 64, L, 37) for L in (1, 2, 4, 5, 8, 16, 24, 32)] + [(2048, 1024, 32, 6), (8192, 4096, 8, 6)])
+    for n, k, L, B in k3_cases:
         mask = cs.pac_mask(n, k + cs.PAC_CRC[0])
-        x = cs.pac_llrs(rng, 37, 2.0, (n, k, cs.PAC_CRC), cs.PAC_GEN, mask, dev)
-        tag = f"K3 PAC({n},{k}) L={L}"
+        x = cs.pac_llrs(rng, B, 2.0 if n <= 128 else 1.5, (n, k, cs.PAC_CRC), cs.PAC_GEN, mask, dev)
+        tag = f"K3 PAC({n},{k}) L={L}" + (f" B={B}" if B != 37 else "")
         full = pac_cuda.pac_list_decode_cuda(x, mask, cs.PAC_GEN, L, *cs.PAC_CRC, full=True)
         keep(tag, full, pac_cuda.pac_list_decode_cuda(x, mask, cs.PAC_GEN, L, *cs.PAC_CRC))
         if args.compare:
@@ -111,7 +115,7 @@ def main():
     if args.save:
         np.savez(args.save, **outs)
         n_k1 = sum(2 * len(case[4]) for case in k1_cases)
-        print(f"saved {len(outs)} arrays of {n_k1} K1 and 8 K3 cases to {args.save}")
+        print(f"saved {len(outs)} arrays of {n_k1} K1 and {len(k3_cases)} K3 cases to {args.save}")
         return 0
     with np.load(args.compare) as ref:
         differ = [t for t, v in outs.items()

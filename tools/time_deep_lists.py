@@ -11,7 +11,8 @@ run it on one card, in one go, for a parent checkout and for the change, in
 the order parent, change, change, parent.
 
 Shapes: the SCL kernel K1 over warps at P(128,64) CRC-24A, 5.0 dB, M 64,
-256 and 1024, B=4096; the PAC kernel K3 over warps at PAC(128,64)+CRC-16,
+256 and 1024, B=4096, beside its byte-word M=8 (`chip_smoke.py` phase 5's
+kernel); the PAC kernel K3 over warps at PAC(128,64)+CRC-16,
 gen 1011011, `dega`, 2.5 dB, L 64, 256 and 1024, B=4096; K1 at P(1024,512)
 `gaussian_bitrev` M=64, 1.75 dB, B=1024; and one frame (B=1) of K1 at M=256
 and K3 at L=256, a launch's latency.  Prints a line a shape (its time, its
@@ -69,7 +70,7 @@ def main():
     B = 4096
     info = construct_info_set(cs.N, cs.K)
     llr = torch.from_numpy(cs.make_llrs(np.random.default_rng(5), B, 5.0, info)[0]).to(dev)
-    for M in (64, 256, 1024):
+    for M in (8, 64, 256, 1024):  # M=8: the byte-word instantiation the sweeps launch
         run(f"K1 P(128,64) M={M} B={B}", lambda M=M: scl_cuda.decode_scl_cuda(llr, info, M, cs.CRC),
             2 if M == 1024 else 10, cs.scl_work(info, M, B), scl_cuda.launch_plan(cs.N, cs.K, M, B))
     run("K1 P(128,64) M=256 B=1", lambda: scl_cuda.decode_scl_cuda(llr[:1], info, 256, cs.CRC), 20,

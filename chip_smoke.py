@@ -2243,6 +2243,32 @@ CLUSTER_SCALAR = (2048, 2048, 8)  # (e): decode_scl's M, PolarCode's L, frames a
 CLUSTER_TIME_B = 1024  # (f): frames of the timed launches
 
 
+def pac_cuda_info_phases(mask):
+    """K3's info phases: the mask's ones in bit-reversed order."""
+
+    from polar_code_tpu_torch.legacy.pac import bitrev_perm
+
+    return np.flatnonzero(np.asarray(mask)[bitrev_perm(int(np.asarray(mask).size))] == 1)
+
+
+def cluster_barriers(n_code, info_phases, M):
+    """(an info phase's, a frozen phase's) cluster barriers on a cluster, from
+    the schedule words: an info phase one a cross-block sort stage and one
+    for the sorted keys (`scl_cuda.cluster_exchanges`), and
+    each phase whose word flags a read through σ the split phase-end one;
+    as "a" or "a–b" where phases differ."""
+
+    from polar_code_tpu_torch.ops.scl_cuda import cluster_exchanges, sort_keys
+    from polar_code_tpu_torch.ops.scl_schedule import phase_words
+
+    exchanges = cluster_exchanges(sort_keys(M))
+    words = phase_words(n_code, np.asarray(info_phases, np.int64)).astype(np.int64)
+    info, flagged = (words >> 10 & 1) == 0, (words >> 11) != 0
+    per = np.where(info, exchanges, 0) + flagged
+    span = lambda v: f"{v.min()}" if v.min() == v.max() else f"{v.min()}–{v.max()}"  # noqa: E731
+    return span(per[info]), span(per[~info]) if (~info).any() else "-"
+
+
 def cluster_lists(dev, smi):
     """Phase 15: K1 and K3 on a cluster (list sizes 1025..8192) against the
     plain versions and the JAX golden files, K3 one path a lane at N=8192
@@ -2283,26 +2309,38 @@ def cluster_lists(dev, smi):
             if "_cluster_kernel" in row["entry"] or "pac_decode_kernel" in row["entry"]:
                 print(f"  ptxas {row['entry']}: {row['regs']} registers, spills {row['spill_stores']} B "
                       f"stores / {row['spill_loads']} B loads")
-            if "_cluster_kernel" in row["entry"] or "pac_decode_kernel" in row["entry"]:
-                # K3 at L=1 may keep the parent's few spilled bytes: the
-                # spill-free builds of it (launch bounds of 5–7 blocks an
-                # SM) ran 19% slower at B=65536 (PERF.md, §6)
+                # every cluster instantiation, best-only and list, spill-free;
+                # K3 one path a lane's best-only ones too, but at L=1, which
+                # may keep the parent's few spilled bytes: the spill-free
+                # builds of it (launch bounds of 5–7 blocks an SM) ran 19%
+                # slower at B=65536 (PERF.md, §6)
                 limit = 32 if row["entry"] == "pac_decode_kernel<LM=1>" else 0
-                check("list" in row["entry"] or row["spill_stores"] <= limit,
-                      f"the best-only {row['entry']} spills {row['spill_stores']} B (at most {limit})")
-    for n_s, k_s, M in [(N, K, M) for M in CLUSTER_MS] + [c[:3] for c in CLUSTER_N]:
-        g, _, at_once = scl_cuda.launch_plan(n_s, k_s, M, CLUSTER_TIME_B)
-        print(f"  K1 N={n_s} K={k_s} M={M} (a cluster of {scl_cuda.cluster_blocks(M)} blocks of 1024 "
-              f"threads): levels 1..{g} and the trace in global scratch, "
-              f"{scl_cuda.scratch_bytes(1, n_s, k_s, M, g)} B a frame; {scl_cuda.frame_bytes(n_s, k_s, M, g)} "
-              f"B shared a block; {at_once} frames at once on the card (occupancy calculator)")
-    for n_p, kp, L in [(N, K + PAC_CRC[0], L) for L in CLUSTER_LS] + list(ONE_LANE_N) + [(N, 80, 32)]:
+                check(("list" in row["entry"] and "_cluster_kernel" not in row["entry"])
+                      or row["spill_stores"] <= limit,
+                      f"{row['entry']} spills {row['spill_stores']} B (at most {limit})")
+    cluster_shapes = ([("K1", n_s, k_s, M, 2) for n_s, k_s, M in [(N, K, M) for M in CLUSTER_MS]
+                       + [c[:3] for c in CLUSTER_N]]
+                      + [("K3", N, K + PAC_CRC[0], L, 3) for L in CLUSTER_LS])
+    for kernel, n_s, k_s, M, words in cluster_shapes:
+        if kernel == "K1":
+            g, _, at_once = scl_cuda.launch_plan(n_s, k_s, M, CLUSTER_TIME_B)
+            scratch = scl_cuda.scratch_bytes(1, n_s, k_s, M, g)
+            info_phases = construct_info_set(n_s, k_s, method="gaussian" if n_s == N else "gaussian_bitrev")
+        else:
+            g, _, at_once = pac_plan(n_s, k_s, M)
+            scratch = pac_cuda.scratch_bytes(1, n_s, k_s, M, g)
+            info_phases = pac_cuda_info_phases(pac_mask(n_s, k_s))
+        info_b, frozen_b = cluster_barriers(n_s, info_phases, M)
+        print(f"  {kernel} N={n_s} K={k_s} M={M} (a cluster of {scl_cuda.cluster_blocks(M)} blocks of 1024 "
+              f"threads): levels {g + 1}..{int(math.log2(n_s))} in shared memory, 1..{g} and the trace in "
+              f"global scratch ({scratch} B a frame); {scl_cuda.cluster_block_bytes(n_s, g, words)} B shared a "
+              f"block; {at_once} frames at once on the card (occupancy calculator); cluster barriers "
+              f"{info_b} an info phase, {frozen_b} a frozen phase")
+    for n_p, kp, L in list(ONE_LANE_N) + [(N, 80, 32)]:
         g, fpb, at = pac_plan(n_p, kp, L)
-        where = (f"a cluster of {scl_cuda.cluster_blocks(L)} blocks; {at} frames at once on the card"
-                 if L > scl_cuda.DEEP_MAX_M else f"{fpb} frames a block; {at} frames an SM")
         print(f"  K3 N={n_p} Kp={kp} L={L}: levels 1..{g} and the trace in global scratch; "
-              f"{pac_frame_bytes(n_p, kp, L, g)} B shared a frame or block; {where} (occupancy "
-              f"calculator)")
+              f"{pac_frame_bytes(n_p, kp, L, g)} B shared a frame; {fpb} frames a block; {at} frames an SM "
+              f"(occupancy calculator)")
 
     # ---- (a) K1 on a cluster against the plain version, at two draws ----
     cases = [(N, K, M, CRC, False, CLUSTER_B) for M in CLUSTER_MS]
@@ -2341,8 +2379,9 @@ def cluster_lists(dev, smi):
     free_bytes = scl_cuda.card_free_bytes
     reset_counts()
     try:  # 10 frames' scratch over nine tenths
-        scl_cuda.card_free_bytes = lambda d: scl_cuda.scratch_bytes(100, N, K, 2048, 7) // 9 + 100
-        pac_cuda.card_free_bytes = lambda d: pac_cuda.scratch_bytes(100, N, K + PAC_CRC[0], 2048, 7) // 9 + 100
+        g1, g3 = scl_cuda.launch_plan(N, K, 2048, CLUSTER_B)[0], pac_plan(N, K + PAC_CRC[0], 2048)[0]
+        scl_cuda.card_free_bytes = lambda d: scl_cuda.scratch_bytes(100, N, K, 2048, g1) // 9 + 100
+        pac_cuda.card_free_bytes = lambda d: pac_cuda.scratch_bytes(100, N, K + PAC_CRC[0], 2048, g3) // 9 + 100
         split = (decode_scl_cuda(x, construct_info_set(N, K), 2048, CRC, force_info_bits=plan, full=True),
                  pac_list_decode_cuda(xp, mask, PAC_GEN, 2048, *PAC_CRC, full=True))
     finally:

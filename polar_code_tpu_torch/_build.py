@@ -56,14 +56,15 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
-def build(source: str, defines: tuple = ()) -> BuildResult:
-    """Compile `csrc/<source>` into `BUILD_DIR` unless an identical build
-    exists there, with `defines` (nvcc `-D` arguments) after the flags.
-    Holds `<lib>.lock` over the check and the compile."""
+def build(source: str, defines: tuple = (), csrc: Path = CSRC) -> BuildResult:
+    """Compile `<csrc>/<source>` (`csrc/` by default) into `BUILD_DIR` unless
+    an identical build exists there, with `defines` (nvcc `-D` arguments)
+    after the flags.  Holds `<lib>.lock` over the check and the compile."""
 
-    src = CSRC / source
+    csrc = Path(csrc)
+    src = csrc / source
     flags = NVCC_FLAGS + tuple(defines)
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    headers = b"".join(h.read_bytes() for h in sorted(csrc.glob("*.cuh")))
     key = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:16]
     build_dir = Path(BUILD_DIR)
     lib = build_dir / f"{src.stem}_{key}.so"

@@ -431,52 +431,95 @@ __device__ __forceinline__ void block_sort_keys(unsigned long long* keys, unsign
 // One frame a cluster of C = cluster_blocks(M) blocks (2 at M 1025..2048, 4
 // up to 4096, 8 up to 8192: 8 is the portable cluster size) of 1024
 // threads: thread tid of cluster rank r holds path r·1024 + tid and sort
-// keys 2(r·1024 + tid) and +1, as over warps.  Every tree level (LLR and
-// partial-sum rows, levels 1..n) lives in global scratch, which every block
-// reads directly, so no tree row crosses blocks through distributed shared
-// memory.  Block r's shared memory holds σ of its own 1024 paths (16-bit
-// fields: 2p+b < 2M <= 16384) in two tables, one read and one a fork's
-// target (`cluster_sigma_fork`), 2048 of the sort keys and its paths'
-// published words (`cluster_layout`); a read of another path's σ row, key
-// or word goes through DSMEM (`path_entry`: path p lives in rank p >> 10 at
-// row p & 1023).  Each exchange between blocks sits between two cluster
-// barriers (barrier.cluster arrive.release / wait.acquire, through
-// cooperative_groups), and a tree row another block may read is read with
-// ld.global.cg, from L2, never from a stale line of this SM's L1.
+// keys 2(r·1024 + tid) and +1, as over warps.  Tree levels G+1..n of the
+// block's own 1024 paths live in its shared memory (rows of (N >> G) − 1
+// entries, as over warps), and levels 1..G of every path in global scratch
+// (rows of N − (N >> G) entries); G is the smallest whose block fits
+// (`ops/scl_cuda.py::launch_plan`).  Path p lives in rank p >> 10 at row
+// p & 1023: a read through σ of a shared level whose row is another
+// block's goes through distributed shared memory (`cluster_row`), the
+// block's own rows are plain shared loads, and a global row another block
+// may have written is read with ld.global.cg, from L2.  Block r's shared
+// memory also holds σ of its own paths (16-bit fields: 2p+b < 2M <= 16384)
+// in two tables, one read and one a fork's target (`cluster_sigma_fork`),
+// three sort-key buffers (`cluster_sort_keys`) and its paths' published
+// words in two sets; σ's table and the word set an info phase uses go by
+// the phase's parity (`cluster_layout`).
+//
+// The cluster barriers (barrier.cluster arrive.release / wait.acquire):
+// one a cross-block sort stage and one for the sorted keys (so 2, 4 and 7
+// an info phase at P = 4096, 8192 and 16384), and one a phase whose word
+// flags a read through σ, split: the block arrives after the phase's last
+// read of another block's rows and waits before its next phase's passes,
+// the only writes another block may read that it had been reading (σ's
+// tables, the key buffers and the word sets are each rewritten only
+// behind a later sort's barriers).  A tree row another block reads through
+// σ was written before the fork that σ records, and so before that fork's
+// sort barriers.
 // ---------------------------------------------------------------------------
 
 #define CLUSTER_THREADS 1024  // threads a block of a cluster frame: one a path
 #define CLUSTER_SHIFT 10      // log2(CLUSTER_THREADS)
+#define CLUSTER_KEYS (2 * CLUSTER_THREADS)  // sort keys a block holds
 #define CLUSTER_MAX_BLOCKS 8  // the portable cluster size
 #define CLUSTER_MAX_M (CLUSTER_THREADS * CLUSTER_MAX_BLOCKS)
-
 // Blocks of a cluster frame: M rounded up to a power of two, over 1024.
 __host__ __device__ __forceinline__ int cluster_blocks(int M) {
   return sort_keys(M) / 2 / CLUSTER_THREADS;
 }
 
+// The key exchanges of one cluster sort of P keys: its cross-block stages
+// (j >= 2048 in each merge of 4096 keys or more: 1, 3, 6 at P = 4096, 8192,
+// 16384) and the sorted keys' store.  Sort i of a launch starts at count
+// i·cluster_exchanges(P), which picks its buffers (`cluster_sort_keys`).
+__host__ __device__ __forceinline__ int cluster_exchanges(int P) {
+  int x = 1;
+  for (int size = 2 * CLUSTER_KEYS; size <= P; size <<= 1)
+    for (int j = size >> 1; j >= CLUSTER_KEYS; j >>= 1) ++x;
+  return x;
+}
+
 // Byte offsets of one block's regions in its dynamic shared memory, each
 // 16-byte aligned: two σ tables [1024][row] (2n−2 16-bit fields a path, a
-// row rounded to 4 bytes), the block's 2048 sort keys u64, `words` 32-bit
-// values a path (the published leaf, syndrome and, in PAC, shift register)
-// and the selected rank.  `ops/scl_cuda.py::cluster_block_bytes` is the
-// same reckoning.
+// row rounded to 4 bytes), three buffers of 2048 sort keys u64, two sets of
+// `words` 32-bit values a path (the published leaf, syndrome and, in PAC,
+// shift register), the LLR rows float [1024][(N>>G)−1] and partial-sum rows
+// u8 [1024][(N>>G)−1] of levels G+1..n, and the selected rank.
+// `ops/scl_cuda.py::cluster_block_bytes` is the same reckoning.
 struct ClusterLayout {
-  int sig, sig2, keys, words, sel, total;
+  int sig, sig2, keys, words, ls, bs, sel, total;
   int sig_row;  // bytes of a path's σ row: 4..48, a multiple of 4
+  int word_set;  // bytes of one set of published words
 };
 
-__host__ __device__ __forceinline__ ClusterLayout cluster_layout(int n, int words) {
+__host__ __device__ __forceinline__ ClusterLayout cluster_layout(int N, int n, int G, int words) {
   ClusterLayout c;
+  const int ss = (N >> G) - 1;
   c.sig_row = round4((2 * n - 2) * 2);
   if (c.sig_row < 4) c.sig_row = 4;
   c.sig = 0;
   c.sig2 = round16(CLUSTER_THREADS * c.sig_row);
   c.keys = 2 * c.sig2;
-  c.words = c.keys + 8 * 2 * CLUSTER_THREADS;
-  c.sel = c.words + words * 4 * CLUSTER_THREADS;
+  c.words = c.keys + 3 * 8 * CLUSTER_KEYS;
+  c.word_set = words * 4 * CLUSTER_THREADS;
+  c.ls = c.words + 2 * c.word_set;
+  c.bs = c.ls + round16(4 * CLUSTER_THREADS * ss);
+  c.sel = c.bs + round16(CLUSTER_THREADS * ss);
   c.total = c.sel + 16;
   return c;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_barrier() {
+  cluster_arrive();
+  cluster_wait();
 }
 
 // Path p's entry of a per-path array of `stride` entries a path, whose
@@ -487,23 +530,27 @@ __device__ __forceinline__ T* path_entry(T* local, int p, int stride = 1) {
       local + (p & (CLUSTER_THREADS - 1)) * stride, p >> CLUSTER_SHIFT);
 }
 
-// The key of rank q after cluster_sort_keys: rank q >> 11's keys[q & 2047].
-__device__ __forceinline__ unsigned long long cluster_key(unsigned long long* keys, int q) {
-  return *cooperative_groups::this_cluster().map_shared_rank(
-      keys + (q & (2 * CLUSTER_THREADS - 1)), q >> (CLUSTER_SHIFT + 1));
+// Path r's row of a shared level whose block-local rows (`stride` entries
+// apart) start at `local`: the block's own row, or another block's through
+// DSMEM.
+template <typename T>
+__device__ __forceinline__ const T* cluster_row(const T* local, int r, int stride, int rank) {
+  T* row = const_cast<T*>(local) + (r & (CLUSTER_THREADS - 1)) * stride;
+  const int owner = r >> CLUSTER_SHIFT;
+  return owner == rank ? row : cooperative_groups::this_cluster().map_shared_rank(row, owner);
 }
 
 // σ ← σ[parent] for every path of the cluster, from one table to the other:
 // each active thread copies its parent's row from `sig`'s table (through
-// DSMEM) into its own row of `next`, a few words at a time, and `sig` then
-// reads `next` (the old table is the next fork's target, read by no one
-// since this fork's reads).  The closing cluster barrier orders every
-// remote read of the fork (the parent rows, keys and published words)
-// before any block writes them again, and the copy before the block's own
-// reads through σ.  Two tables, where one would hold the row in registers
-// across a barrier (12 words at n = 13, past the 64-register cap).  Every
-// thread of the cluster calls it.
-__device__ __forceinline__ void cluster_sigma_fork(DeepSigma<uint16_t>& sig, uint16_t*& next,
+// DSMEM) into its own row of `next`, a few words at a time, behind a block
+// barrier (only the block's own threads read their rows).  The tables
+// alternate by the info phase's parity: `next` is read from the next
+// phase on, and `sig`'s is the next fork's target, which writes it behind
+// that fork's sort barriers, after every block's reads here.  Two tables,
+// where one would hold the row in registers across a cluster barrier (12
+// words at n = 13, past the 64-register cap).  Every thread of the block
+// calls it.
+__device__ __forceinline__ void cluster_sigma_fork(const DeepSigma<uint16_t>& sig, uint16_t* next,
                                                    int tid, int parent, bool active) {
   if (active) {
     const unsigned* src = path_entry(reinterpret_cast<unsigned*>(sig.tab), parent, sig.words);
@@ -511,52 +558,68 @@ __device__ __forceinline__ void cluster_sigma_fork(DeepSigma<uint16_t>& sig, uin
 #pragma unroll 4
     for (int k = 0; k < sig.words; ++k) dst[k] = src[k];
   }
-  uint16_t* cur = sig.tab;
-  sig.tab = next;
-  next = cur;
-  cooperative_groups::this_cluster().sync();
+  __syncthreads();
 }
 
-// block_fg_pass over the paths base..base+Mr−1 of one block of a cluster
-// frame, every level in global scratch: dst[m][e] (row stride `stride`) from
-// src[r][e] and src[r][e + half] (row stride `sstride`, 0 for the channel),
-// r = via[(m − base)·vrow] (the block's σ column of the parent level) when
-// `via`, else m.  The parent row may be another block's: it is read from L2
-// (a block's own rows, its partial sums here, are written and read by its
-// own SM behind block barriers).
-__device__ __forceinline__ void cluster_fg_pass(float* dst, const uint8_t* dbits, int stride,
+// One f or g pass over a level of width half = 1 << lh for the paths
+// base..base+Mr−1 of one block: dst[lm][e] (the block's rows from dst,
+// `dstride` entries apart, shared or global) is the f or g of the parent
+// level's entries e and e + half of row r = via[lm·vrow] (the block's σ
+// column of the parent level) when `via`, else of the path's own row.
+// SHARED: the parent level is in shared memory (`src` the block's first
+// row, rows `sstride` apart; another block's row through DSMEM); else in
+// global scratch (`src` path 0's row, rows `sstride` apart, 0 for the
+// channel), read from L2.  A g takes dst's own partial sums as its left
+// bits.
+template <bool SHARED>
+__device__ __forceinline__ void cluster_fg_pass(float* dst, const uint8_t* dbits, int dstride,
                                                 const float* src, int sstride, const uint16_t* via,
-                                                int vrow, bool is_g, int lh, int base, int Mr,
-                                                int tid) {
+                                                int vrow, bool is_g, int lh, int base, int rank,
+                                                int Mr, int tid) {
   const int half = 1 << lh;
   const int total = Mr * half;
+  // one iteration at a time: unrolled, K3's list instantiation spills at
+  // the 64-register cap (this loop and cluster_chain_pass's)
+#pragma unroll 1
   for (int t = tid; t < total; t += CLUSTER_THREADS) {
     const int lm = t >> lh;
     const int e = t & (half - 1);
-    const int m = base + lm;
-    const int r = via ? (int)via[lm * vrow] : m;
-    const float* row = src + r * sstride;
-    const float a = __ldcg(row + e), b = __ldcg(row + e + half);
-    const int o = m * stride + e;
+    float a, b;
+    if (SHARED) {
+      const float* row = via ? cluster_row(src, (int)via[lm * vrow], sstride, rank) : src + lm * sstride;
+      a = row[e];
+      b = row[e + half];
+    } else {
+      const float* row = src + (via ? (int)via[lm * vrow] : base + lm) * sstride;
+      a = __ldcg(row + e);
+      b = __ldcg(row + e + half);
+    }
+    const int o = lm * dstride + e;
     dst[o] = is_g ? g_update(a, b, dbits[o]) : f_minsum(a, b);
   }
 }
 
-// block_chain_pass over the paths base..base+Mr−1 of one block of a cluster
-// frame, rows in global scratch, r as in cluster_fg_pass (the left bits
-// from L2, the block's own chain from its SM).
-__device__ __forceinline__ void cluster_chain_pass(uint8_t* st, const uint8_t* left, int stride,
-                                                   const uint16_t* via, int vrow, int lsz, int base,
-                                                   int Mr, int tid) {
+// One step of the partial-sum chain for the paths base..base+Mr−1 of one
+// block: the chain so far, sz = 1 << lsz bits at the start of the store
+// level's row (the block's rows from `st`, `ststride` apart, shared or
+// global), becomes [left[r] ^ cur, cur] in place, r as in cluster_fg_pass
+// (SHARED: the left level in shared memory, else in global scratch).
+template <bool SHARED>
+__device__ __forceinline__ void cluster_chain_pass(uint8_t* st, int ststride, const uint8_t* left,
+                                                   int lstride, const uint16_t* via, int vrow,
+                                                   int lsz, int base, int rank, int Mr, int tid) {
   const int sz = 1 << lsz;
   const int total = Mr * sz;
+#pragma unroll 1
   for (int t = tid; t < total; t += CLUSTER_THREADS) {
     const int lm = t >> lsz;
     const int e = t & (sz - 1);
-    const int m = base + lm;
-    const int r = via ? (int)via[lm * vrow] : m;
-    const uint8_t x = __ldcg(left + r * stride + e);
-    uint8_t* cur = st + m * stride + e;
+    uint8_t x;
+    if (SHARED)
+      x = (via ? cluster_row(left, (int)via[lm * vrow], lstride, rank) : left + lm * lstride)[e];
+    else
+      x = __ldcg(left + (via ? (int)via[lm * vrow] : base + lm) * lstride + e);
+    uint8_t* cur = st + lm * ststride + e;
     const uint8_t c = cur[0];
     cur[sz] = c;
     cur[0] = x ^ c;
@@ -564,51 +627,60 @@ __device__ __forceinline__ void cluster_chain_pass(uint8_t* st, const uint8_t* l
 }
 
 // block_sort_keys over a cluster: the P = sort_keys(M) keys (P >= 4096),
-// thread tid of rank r holding keys 2(r·1024 + tid) and +1 in registers,
-// block r keys[] the 2048 from 2048·r.  A stage of distance j >= 2048 pairs
-// keys of two blocks: each stores its keys, a cluster barrier, and each
-// reads its partner's from rank r ^ (j / 2048) through DSMEM, between
-// cluster barriers (6 of the 105 stages at P = 16384, 1 of 78 at P = 4096);
-// the stages below it run as in block_sort_keys, in the block, the warp and
-// registers, the first of them behind a cluster barrier where a cross-block
-// stage came before (another block may still be reading keys[]).  After the
-// last merge's first stage the upper half's blocks stop, and the lower half
-// is stored to keys[] behind a closing cluster barrier: key of rank q is then
-// rank q >> 11's keys[q & 2047].  Every thread of the cluster calls it.
-__device__ __forceinline__ void cluster_sort_keys(unsigned long long* keys, unsigned long long k0,
-                                                  unsigned long long k1, int P, int rank, int tid) {
+// thread tid of rank r holding keys 2(r·1024 + tid) and +1 in registers.
+// A stage of distance j >= 2048 pairs keys of two blocks: each stores its
+// keys in its exchange buffer X[xc & 1] (xc counts the cluster's exchanges
+// over the launch), one cluster barrier, and each reads its partner's from
+// rank r ^ (j / 2048) through DSMEM (1 / 3 / 6 of the 78 / 91 / 105 stages
+// at P = 4096 / 8192 / 16384).  A stage of distance 64..1024 goes through
+// the block's own buffers, Y and the exchange buffer the last cross-block
+// stage did not use, in turns, one block barrier a stage: a buffer is
+// rewritten only after the barrier of the stage that follows its reads,
+// and the one another block may still read is not rewritten before the
+// next cluster barrier.  Below, the warp and registers, as in
+// block_sort_keys.  After the last merge's first stage the upper half's
+// blocks stop, and the lower half is stored to the next exchange buffer
+// behind a cluster barrier: the key of rank q is then rank q >> 11's entry
+// q & 2047 of the buffer returned (`cluster_key`).  Every thread of the
+// cluster calls it, with the same xc: the launch's exchanges before it.
+__device__ __forceinline__ unsigned long long* cluster_sort_keys(unsigned long long* keys,
+                                                                 unsigned long long k0,
+                                                                 unsigned long long k1, int P,
+                                                                 int rank, int tid, int xc) {
   cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
   const int base = 2 * (rank * CLUSTER_THREADS + tid);
   const int lbase = 2 * tid;
+  unsigned long long* const Y = keys + 2 * CLUSTER_KEYS;
   bool on = true;
-  auto vec = [&](int at) { return reinterpret_cast<ulonglong2*>(keys + at); };
+  int ib = 0;  // in-block stages since the last cross-block one: Y at even counts
+  auto X = [&](int c) { return keys + (c & 1) * CLUSTER_KEYS; };
   auto exchange = [](unsigned long long& k, unsigned long long o, bool keep_min) {
     k = (o < k) == keep_min ? o : k;
   };
   for (int size = 2; size <= P; size <<= 1) {
     const bool up = (base & size) == 0;
     int j = size >> 1;
-    for (; j >= 2 * CLUSTER_THREADS; j >>= 1) {  // across blocks
-      cluster.sync();  // the previous exchange's reads are done
-      if (on) *vec(lbase) = make_ulonglong2(k0, k1);
-      cluster.sync();
+    for (; j >= CLUSTER_KEYS; j >>= 1) {  // across blocks
+      ulonglong2* buf = reinterpret_cast<ulonglong2*>(X(xc) + lbase);
+      if (on) *buf = make_ulonglong2(k0, k1);
+      cluster_barrier();
       if (on) {
         const bool keep_min = ((base & j) == 0) == up;
-        const ulonglong2 o = *cluster.map_shared_rank(vec(lbase), rank ^ (j / (2 * CLUSTER_THREADS)));
+        const ulonglong2 o = *cluster.map_shared_rank(buf, rank ^ (j / CLUSTER_KEYS));
         exchange(k0, o.x, keep_min);
         exchange(k1, o.y, keep_min);
       }
+      ++xc;
+      ib = 0;
       if (size == P) on = on && base < P / 2;
     }
-    bool remote = size > 2 * CLUSTER_THREADS;  // another block may still read keys[]
     for (; j >= 64; j >>= 1) {  // across warps of the block
-      if (remote) cluster.sync(); else __syncthreads();
-      remote = false;
-      if (on) *vec(lbase) = make_ulonglong2(k0, k1);
+      unsigned long long* buf = (ib++ & 1) ? X(xc) : Y;
+      if (on) *reinterpret_cast<ulonglong2*>(buf + lbase) = make_ulonglong2(k0, k1);
       __syncthreads();
       if (on) {
         const bool keep_min = ((base & j) == 0) == up;
-        const ulonglong2 o = *vec(lbase ^ j);
+        const ulonglong2 o = *reinterpret_cast<const ulonglong2*>(buf + (lbase ^ j));
         exchange(k0, o.x, keep_min);
         exchange(k1, o.y, keep_min);
       }
@@ -629,9 +701,16 @@ __device__ __forceinline__ void cluster_sort_keys(unsigned long long* keys, unsi
       k0 = lo;
     }
   }
-  __syncthreads();  // the last exchange's reads (in the block) are done
-  if (on) *vec(lbase) = make_ulonglong2(k0, k1);
-  cluster.sync();
+  unsigned long long* sorted = X(xc);  // Y and this one's stage reads are behind a barrier
+  if (on) *reinterpret_cast<ulonglong2*>(sorted + lbase) = make_ulonglong2(k0, k1);
+  cluster_barrier();
+  return sorted;
+}
+
+// The key of rank q after cluster_sort_keys: rank q >> 11's sorted[q & 2047].
+__device__ __forceinline__ unsigned long long cluster_key(unsigned long long* sorted, int q) {
+  return *cooperative_groups::this_cluster().map_shared_rank(
+      sorted + (q & (CLUSTER_KEYS - 1)), q >> (CLUSTER_SHIFT + 1));
 }
 
 // ---- host side ----

@@ -86,7 +86,8 @@
 // On a cluster, the instantiations pac_cluster_kernel<LIST> (L 1025..8192):
 // the SCL kernel's cluster layout (`scl_decode.cu`, `list_decode.cuh`), a
 // frame over a thread-block cluster of 2, 4 or 8 blocks of 1024 threads,
-// every tree level in global scratch, with three published words a slot.
+// levels G+1..n of a block's slots in its shared memory and levels 1..G in
+// global scratch, with three published words a slot.
 //
 // Each path carries its CRC syndrome (the XOR of the 32-bit check columns,
 // in phase order, of its set bits) and its shift register in registers,
@@ -687,22 +688,22 @@ __global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_kernel(
 // cluster_blocks(L) blocks of 1024 threads, on the SCL kernel's cluster
 // layout (`scl_decode.cu`'s scl_cluster_kernel has the design): thread tid
 // of rank r holds slot m = r·1024 + tid's metric, shift register and
-// syndrome and its candidates good m and bad L + m; every tree level in
-// global scratch, rows of N − 1 entries; σ, the sort keys and the published
-// leaf, syndrome and shift register of the block's 1024 slots in its shared
-// memory, and the fork's parent values through DSMEM.  It computes what
-// pac_decode_kernel computes.
+// syndrome and its candidates good m and bad L + m; tree levels G+1..n of
+// the block's slots in its shared memory, levels 1..G in global scratch;
+// σ, the sort keys and the published leaf, syndrome and shift register of
+// the block's 1024 slots in its shared memory, and the fork's parent
+// values through DSMEM.  It computes what pac_decode_kernel computes.
 template <bool LIST>
 __global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(
     const float* __restrict__ llr, const uint32_t* __restrict__ hcols,
     const int* __restrict__ sched, const int* __restrict__ phase_of,
-    float* glob_llr,     // [B, L, N-1]: every LLR level
-    uint8_t* glob_bits,  // [B, L, N-1]: every edge-bit level
+    float* glob_llr,     // [B, L, N-(N>>G)]: LLR levels 1..G, null when G == 0
+    uint8_t* glob_bits,  // [B, L, N-(N>>G)]: edge-bit levels 1..G
     uint16_t* trace_idx,  // [B, Kp, L]: the trace, in global scratch
     int8_t* __restrict__ out_bits, uint8_t* __restrict__ out_pass, const int* __restrict__ out_pos,
     const int* __restrict__ u_pos, int8_t* __restrict__ list_v, int8_t* __restrict__ list_bits,
     float* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int Kp, int L,
-    unsigned mem_mask, unsigned tap_mask, int use_crc) {
+    int G, unsigned mem_mask, unsigned tap_mask, int use_crc) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -716,23 +717,30 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(
   const bool act = m < L;
   const int P = sort_keys(L);
 
-  const ClusterLayout lay = cluster_layout(n, 3);
-  const int SG = N - 1;  // entries of a path's row: levels 1..n
-  DeepSigma<uint16_t> sig{reinterpret_cast<uint16_t*>(smem + lay.sig), lay.sig_row / 2,
-                          lay.sig_row / 4};
-  uint16_t* sig_next = reinterpret_cast<uint16_t*>(smem + lay.sig2);  // the next fork's σ table
+  const ClusterLayout lay = cluster_layout(N, n, G, 3);
+  const int SS = (N >> G) - 1;  // entries of a slot's shared row: levels G+1..n
+  const int SG = N - (N >> G);  // entries of a slot's global row: levels 1..G
+  // σ after i forks: table i & 1 (the other is the next fork's target)
+  auto sigma = [&](int i) {
+    return DeepSigma<uint16_t>{reinterpret_cast<uint16_t*>(smem + (i & 1) * lay.sig2), lay.sig_row / 2,
+                               lay.sig_row / 4};
+  };
   unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem + lay.keys);
-  float* leafS = reinterpret_cast<float*>(smem + lay.words);
-  uint32_t* synS = reinterpret_cast<uint32_t*>(smem + lay.words + 4 * CLUSTER_THREADS);
-  unsigned* regS = reinterpret_cast<unsigned*>(smem + lay.words + 8 * CLUSTER_THREADS);
+  float* Ls = reinterpret_cast<float*>(smem + lay.ls);
+  uint8_t* Bs = smem + lay.bs;
   int* selS = reinterpret_cast<int*>(smem + lay.sel);
-  float* Lg = glob_llr + frame * L * SG;
+  float* Lg = glob_llr + frame * L * SG;  // unused when G == 0
   uint8_t* Bg = glob_bits + frame * L * SG;
   uint16_t* TI = trace_idx + frame * Kp * L;
   const float* ch = llr + frame * N;
+  auto so = [&](int l) { return (N >> G) - (N >> (l - 1)); };
   auto go = [&](int l) { return N - (N >> (l - 1)); };
+  // word k (leaf, syndrome, shift register) of published set i (an info phase's parity)
+  auto wordS = [&](int i, int k) {
+    return reinterpret_cast<unsigned*>(smem + lay.words + i * lay.word_set + k * 4 * CLUSTER_THREADS);
+  };
 
-  if (act) sig.init(tid, m, 2 * n - 2);
+  if (act) sigma(0).init(tid, m, 2 * n - 2);
   if (m == 0) *selS = L;
   __syncthreads();
   float pm = (m == 0) ? 0.f : PAC_BIG;  // metric of slot m
@@ -740,25 +748,36 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(
   uint32_t syn = 0;                      // CRC syndrome of slot m
   int info_i = 0;
   int word = sched[0];
-  int s_prev = 0;
   for (int p = 0; p < N; ++p) {
     // the phase's word, read at the previous phase's end: no register holds
-    // the next one across the fork (the 64-register cap)
+    // the next one across the fork (the 64-register cap); nor the previous
+    // one's, read again here for its store level and its barrier
+    const int prev = p > 0 ? sched[p - 1] : 0;
+    const int s_prev = prev >> 5 & 31;
     const int gl = word & 31;
     const int is_frozen = word >> 10 & 1;
     const int l0 = p == 0 ? 1 : gl;
+    DeepSigma<uint16_t> sig = sigma(info_i);
     if (act) sig.reset(tid, m, l0 - 1, n - 1, s_prev >= 2 ? n + s_prev - 3 : -1);
+    // another block may still read the rows this phase rewrites
+    if (prev >> 11) cluster_wait();
 
     // ---- f/g updates down to level n−1, this block's slots ----
     for (int l = l0; l < n; ++l) {
       const bool is_g = (p != 0) && (l == gl);
+      float* dst = l > G ? Ls + so(l) : Lg + base * SG + go(l);
+      const uint8_t* dbits = l > G ? Bs + so(l) : Bg + base * SG + go(l);
+      const int ds = l > G ? SS : SG;
       if (l == 1) {
-        channel_pass(Lg + base * SG, Bg + base * SG, SG, ch, 32 - n, is_g, n - 1, Lr, tid,
-                     CLUSTER_THREADS);
+        channel_pass(dst, dbits, ds, ch, 32 - n, is_g, n - 1, Lr, tid, CLUSTER_THREADS);
       } else {
         const uint16_t* via = (is_g && (word >> 11 & 1)) ? sig.field(l - 2) : nullptr;
-        cluster_fg_pass(Lg + go(l), Bg + go(l), SG, Lg + go(l - 1), SG, via, sig.row, is_g, n - l,
-                        base, Lr, tid);
+        if (l - 1 > G)
+          cluster_fg_pass<true>(dst, dbits, ds, Ls + so(l - 1), SS, via, sig.row, is_g, n - l, base, rank,
+                                Lr, tid);
+        else
+          cluster_fg_pass<false>(dst, dbits, ds, Lg + go(l - 1), SG, via, sig.row, is_g, n - l, base,
+                                 rank, Lr, tid);
       }
       __syncthreads();
     }
@@ -772,11 +791,17 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(
         b = ch[1];
       } else {
         const int r = (g_leaf && (word >> 11 & 1)) ? sig.get(tid, n - 2) : m;
-        const float* row = Lg + go(n - 1) + r * SG;
-        a = __ldcg(row);
-        b = __ldcg(row + 1);
+        if (n - 1 > G) {
+          const float* row = cluster_row(Ls + so(n - 1), r, SS, rank);
+          a = row[0];
+          b = row[1];
+        } else {
+          const float* row = Lg + go(n - 1) + r * SG;
+          a = __ldcg(row);
+          b = __ldcg(row + 1);
+        }
       }
-      leaf = g_leaf ? g_update(a, b, Bg[m * SG + go(n)]) : f_minsum(a, b);
+      leaf = g_leaf ? g_update(a, b, Bs[tid * SS + so(n)]) : f_minsum(a, b);
     }
     const int hard = leaf < 0.f;
     const int base_bit = __popc(reg & tap_mask) & 1;  // edge bit for v = 0
@@ -792,24 +817,26 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(
     } else {
       const float cg_ = pm;                                           // index m
       const float cb = (pm < PAC_BIG) ? pm + fabsf(leaf) : PAC_BIG;   // index L + m
+      const int set = info_i & 1;
       if (act) {
-        leafS[tid] = leaf;
-        synS[tid] = syn;
-        regS[tid] = reg;
+        wordS(set, 0)[tid] = __float_as_uint(leaf);
+        wordS(set, 1)[tid] = syn;
+        wordS(set, 2)[tid] = reg;
       }
-      cluster_sort_keys(keys, act ? cand_key(cg_, m) : ~0ull, act ? cand_key(cb, L + m) : ~0ull, P,
-                        rank, tid);
+      unsigned long long* sorted = cluster_sort_keys(keys, act ? cand_key(cg_, m) : ~0ull,
+                                                     act ? cand_key(cb, L + m) : ~0ull, P, rank, tid,
+                                                     info_i * cluster_exchanges(P));
       // slot m: the candidate of rank m.  Every thread takes new values
       // (a thread past L those of slot 0's parent, never read), so that no
       // slot state is live across the sort: the 64 registers hold it
-      const unsigned long long key = cluster_key(keys, act ? m : 0);
+      const unsigned long long key = cluster_key(sorted, act ? m : 0);
       const int w = act ? key_index(key) : 0;
       const int is_bad = w >= L;
       const int parent = is_bad ? w - L : w;
-      const int hp = *path_entry(leafS, parent) < 0.f;
-      const unsigned rp = *path_entry(regS, parent);
+      const int hp = __uint_as_float(*path_entry(wordS(set, 0), parent)) < 0.f;
+      const unsigned rp = *path_entry(wordS(set, 2), parent);
       const int bp = __popc(rp & tap_mask) & 1;
-      const uint32_t sp = *path_entry(synS, parent);
+      const uint32_t sp = *path_entry(wordS(set, 1), parent);
       const uint32_t hc = use_crc ? hcols[info_i] : 0u;
       const int v = bp ^ hp ^ is_bad;  // good: edge == hard; bad: the other bit
       pm = key_metric(key);
@@ -817,8 +844,8 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(
       reg = ((rp << 1) | (unsigned)v) & mem_mask;
       syn = v ? sp ^ hc : sp;
       if (act) TI[info_i * L + m] = (uint16_t)((parent << 1) | v);
-      cluster_sigma_fork(sig, sig_next, tid, parent, act);  // σ ← σ[parent] on every level
-      ++info_i;
+      cluster_sigma_fork(sig, sigma(info_i + 1).tab, tid, parent, act);  // σ ← σ[parent] on every level
+      sig = sigma(++info_i);
     }
 
     // ---- partial-sum chain, this block's slots ----
@@ -826,37 +853,44 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(
     if (s > 0) {
       const int cmask = word >> 11;  // bit l: level l's left bits through σ
       if (act) {
-        uint8_t* cur = Bg + m * SG + go(s);
+        uint8_t* cur = s > G ? Bs + tid * SS + so(s) : Bg + m * SG + go(s);
         if (s == n) {
           cur[0] = (uint8_t)edge;
         } else {
           const int r = (cmask >> n & 1) ? sig.get(tid, 2 * n - 3) : m;
-          const uint8_t left = __ldcg(Bg + r * SG + go(n));
+          const uint8_t left = *cluster_row(Bs + so(n), r, SS, rank);
           cur[1] = (uint8_t)edge;
           cur[0] = (uint8_t)(left ^ edge);
         }
       }
       __syncthreads();
+      uint8_t* st = s > G ? Bs + so(s) : Bg + base * SG + go(s);
+      const int sts = s > G ? SS : SG;
       for (int lv = n - 1; lv > s; --lv) {
         const uint16_t* via = (cmask >> lv & 1) ? sig.field(n + lv - 3) : nullptr;
-        cluster_chain_pass(Bg + go(s), Bg + go(lv), SG, via, sig.row, n - lv, base, Lr, tid);
+        if (lv > G)
+          cluster_chain_pass<true>(st, sts, Bs + so(lv), SS, via, sig.row, n - lv, base, rank, Lr, tid);
+        else
+          cluster_chain_pass<false>(st, sts, Bg + go(lv), SG, via, sig.row, n - lv, base, rank, Lr, tid);
         __syncthreads();
       }
     }
-    // a row read through σ may be another block's: no block rewrites it
-    // before every block is past this phase
-    if (word >> 11) cluster.sync();
-    s_prev = s;
+    // a row read through σ may be another block's: this block arrives, and
+    // waits before it next writes a row (split)
+    if (word >> 11) cluster_arrive();
     word = p + 1 < N ? sched[p + 1] : 0;
   }
+  if (sched[N - 1] >> 11) cluster_wait();
 
   // ---- final stable sort of the list, CRC selection, backtrack ----
-  if (act) synS[tid] = use_crc && syn == 0u && pm < PAC_BIG;  // slot m passes
-  cluster_sort_keys(keys, act ? cand_key(pm, m) : ~0ull, ~0ull, P, rank, tid);
+  unsigned* passS = wordS(info_i & 1, 1);
+  if (act) passS[tid] = use_crc && syn == 0u && pm < PAC_BIG;  // slot m passes
+  unsigned long long* sorted = cluster_sort_keys(keys, act ? cand_key(pm, m) : ~0ull, ~0ull, P, rank,
+                                                 tid, info_i * cluster_exchanges(P));
   // thread r = m < L: the key (metric, slot) of final rank r
-  const unsigned long long fkey = act ? cluster_key(keys, m) : ~0ull;
+  const unsigned long long fkey = act ? cluster_key(sorted, m) : ~0ull;
   const int slot_r = act ? key_index(fkey) : 0;
-  if (act && *path_entry(synS, slot_r)) atomicMin(cluster.map_shared_rank(selS, 0), m);
+  if (act && *path_entry(passS, slot_r)) atomicMin(cluster.map_shared_rank(selS, 0), m);
   cluster.sync();
   const int least = *cluster.map_shared_rank(selS, 0);
   const int sel_rank = least < L ? least : 0;
@@ -974,16 +1008,17 @@ int launch_deep(const Args& a, void* trace_idx, cudaStream_t stream) {
 
 template <bool LIST>
 int launch_cluster_as(const Args& a, uint16_t* trace_idx, cudaStream_t stream) {
-  const ClusterLayout lay = cluster_layout(a.n, 3);
-  // every level in global scratch (G = n), one frame a cluster
-  if (!trace_idx || !a.glob_llr || !a.glob_bits || a.n > MAX_LEVELS ||
-      lay.sig_row > 4 * DEEP_SIGMA_WORDS || a.G != a.n || lay.total != a.frame_bytes ||
+  const ClusterLayout lay = cluster_layout(a.N, a.n, a.G, 3);
+  // levels 1..G in global scratch, G+1..n in each block's shared memory,
+  // one frame a cluster
+  if (!trace_idx || (a.G > 0 && (!a.glob_llr || !a.glob_bits)) || a.n > MAX_LEVELS || a.G < 0 ||
+      a.G >= a.n || lay.sig_row > 4 * DEEP_SIGMA_WORDS || lay.total != a.frame_bytes ||
       a.frames_per_block != 1)
     return (int)cudaErrorInvalidValue;
   return launch_cluster_kernel(pac_cluster_kernel<LIST>, a.B, a.L, lay.total, stream, a.llr, a.hcols,
                                a.sched, a.phase_of, a.glob_llr, a.glob_bits, trace_idx, a.out_bits,
                                a.out_pass, a.out_pos, a.u_pos, a.list_v, a.list_bits,
-                               a.list_metrics, a.list_best, a.N, a.n, a.Kp, a.L, a.mem_mask,
+                               a.list_metrics, a.list_best, a.N, a.n, a.Kp, a.L, a.G, a.mem_mask,
                                a.tap_mask, a.use_crc);
 }
 

@@ -106,20 +106,23 @@
 //     M = 1024 (its threads), and 64 registers a thread at two sort keys;
 //     so a frame goes to a thread-block cluster of cluster_blocks(M) = 2, 4
 //     or 8 blocks of 1024 threads, thread tid of rank r path r·1024 + tid
-//     (`list_decode.cuh`).  Every tree level is in global scratch (G = n),
-//     and each block runs the passes of its own paths, reading a parent row
-//     through σ from L2 wherever it lies: only σ rows, sort keys and the
-//     published leaf and syndrome cross blocks, through distributed shared
-//     memory between cluster barriers.  The fork is the over-warps sort
-//     extended to the cluster (`cluster_sort_keys`: the stages whose
-//     partner is 2048 keys or more away cross blocks), the final rank the
-//     same sort over the M (metric, path) keys, as by path, and the selected
-//     rank an atomicMin on rank 0's word.  16-bit trace entries and σ
-//     fields.
+//     (`list_decode.cuh`).  Levels G+1..n of a block's 1024 paths are in
+//     its shared memory and levels 1..G of every path in global scratch, G
+//     the smallest whose block fits (G = n − 4 at N 16..2048); each block
+//     runs the passes of its own paths, reading a parent row through σ
+//     wherever it lies: another block's shared row through distributed
+//     shared memory, a global row from L2.  When every level was in global
+//     scratch, those round trips were half the time at P(128,64) M=2048
+//     (`PERF.md` §6).  The fork is the over-warps sort extended to the
+//     cluster (`cluster_sort_keys`: the stages whose partner is 2048 keys
+//     or more away cross blocks, one cluster barrier each, the keys in two
+//     exchange buffers in turns), the final rank the same sort over the M
+//     (metric, path) keys, as by path, and the selected rank an atomicMin
+//     on rank 0's word.  16-bit trace entries and σ fields.
 //
 // Layout.  One warp decodes one frame and a block holds a few frames (over
-// warps: one block a frame; on a cluster, one cluster a frame, every level
-// in global scratch).  Levels
+// warps: one block a frame; on a cluster, one cluster a frame, each block
+// with its own paths' rows).  Levels
 // G+1..n of each path live in dynamic shared memory (in the byte-word
 // layout with the trace indices); levels 1..G (the widest: levels 1 and 2
 // alone hold three quarters of the rows, and are read at a handful of
@@ -943,33 +946,33 @@ __global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_kernel(
 // ---------------------------------------------------------------------------
 
 // The SCL decode with a frame spread over a cluster of C = cluster_blocks(M)
-// blocks of 1024 threads (`list_decode.cuh`): thread tid of rank r holds
-// path m = r·1024 + tid's metric and syndrome and its candidates 2m and
-// 2m+1.  Every tree level of every path is in global scratch, rows of N − 1
-// entries (level l at N − (N >> (l−1)), the leaf's bit at N − 2), and each
-// block runs the f/g and chain passes of its own paths: a read through σ
-// takes the path's field from the block's own table, and its row, which may
-// be another block's, from L2.  σ, the sort keys and the published leaf and
-// syndrome are the block's 1024 paths' in its shared memory; the fork's
-// parent row, key and words come through DSMEM between cluster barriers.  A
-// phase that read another path's row through σ ends with a cluster barrier,
-// so that no block rewrites a row another may still read (a frozen stretch
-// has no fork to order them).  The final rank is the cluster sort of the M
-// keys (metric, m); thread r takes the key of rank r, and the selected rank,
-// the least of those whose path passes the CRC, is an atomicMin on rank
-// 0's shared word through DSMEM.  It computes what scl_decode_kernel
-// computes.
+// blocks of 1024 threads (`list_decode.cuh` has the layout and the
+// barriers): thread tid of rank r holds path m = r·1024 + tid's metric and
+// syndrome and its candidates 2m and 2m+1.  Tree levels G+1..n of the
+// block's 1024 paths are in its shared memory, levels 1..G of every path in
+// global scratch, and each block runs the f/g and chain passes of its own
+// paths: a read through σ takes the path's field from the block's own
+// table, and its row, which may be another block's, through DSMEM (a shared
+// level) or from L2 (a global one).  A fork publishes each path's leaf and
+// syndrome (one of two sets by the info phase's parity), sorts the 2M
+// candidates over the cluster, and takes the parent's words and σ row
+// through DSMEM.  A phase that read another path's row through σ ends with
+// a split cluster barrier, waited for before the next phase's passes.  The
+// final rank is the cluster sort of the M keys (metric, m); thread r takes
+// the key of rank r, and the selected rank, the least of those whose path
+// passes the CRC, is an atomicMin on rank 0's shared word through DSMEM.
+// It computes what scl_decode_kernel computes.
 template <bool LIST>
 __global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_kernel(
     const float* __restrict__ llr, const int8_t* __restrict__ forced,
     const uint32_t* __restrict__ hcols, const int* __restrict__ sched,
-    float* glob_llr,    // [B, M, N-1]: every LLR level
-    uint8_t* glob_bits, // [B, M, N-1]: every partial-sum level
+    float* glob_llr,    // [B, M, N-(N>>G)]: LLR levels 1..G, null when G == 0
+    uint8_t* glob_bits, // [B, M, N-(N>>G)]: partial-sum levels 1..G
     float* trace_llr,   // [B, K, M]
     uint16_t* trace_idx,  // [B, K, M]
     int8_t* __restrict__ out_bits, float* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,
     int8_t* __restrict__ list_bits, float* __restrict__ list_llrs, float* __restrict__ list_metrics,
-    int* __restrict__ list_best, int N, int n, int K, int M, int use_crc) {
+    int* __restrict__ list_best, int N, int n, int K, int M, int G, int use_crc) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -983,29 +986,39 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_kernel(
   const bool act = m < M;
   const int P = sort_keys(M);
 
-  const ClusterLayout lay = cluster_layout(n, 2);
-  const int SG = N - 1;  // entries of a path's row: levels 1..n
-  DeepSigma<uint16_t> sig{reinterpret_cast<uint16_t*>(smem + lay.sig), lay.sig_row / 2,
-                          lay.sig_row / 4};
-  uint16_t* sig_next = reinterpret_cast<uint16_t*>(smem + lay.sig2);  // the next fork's σ table
+  const ClusterLayout lay = cluster_layout(N, n, G, 2);
+  const int SS = (N >> G) - 1;  // entries of a path's shared row: levels G+1..n
+  const int SG = N - (N >> G);  // entries of a path's global row: levels 1..G
+  // σ after i forks: table i & 1 (the other is the next fork's target)
+  auto sigma = [&](int i) {
+    return DeepSigma<uint16_t>{reinterpret_cast<uint16_t*>(smem + (i & 1) * lay.sig2), lay.sig_row / 2,
+                               lay.sig_row / 4};
+  };
   unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem + lay.keys);
-  float* leafS = reinterpret_cast<float*>(smem + lay.words);
-  uint32_t* synS = reinterpret_cast<uint32_t*>(smem + lay.words + 4 * CLUSTER_THREADS);
+  float* Ls = reinterpret_cast<float*>(smem + lay.ls);
+  uint8_t* Bs = smem + lay.bs;
   int* selS = reinterpret_cast<int*>(smem + lay.sel);
-  float* Lg = glob_llr + frame * M * SG;
+  float* Lg = glob_llr + frame * M * SG;  // unused when G == 0
   uint8_t* Bg = glob_bits + frame * M * SG;
   float* TL = trace_llr + frame * K * M;
   uint16_t* TI = trace_idx + frame * K * M;
   const float* ch = llr + frame * N;
   const int8_t* plan = forced ? forced + frame * K : nullptr;
+  auto so = [&](int l) { return (N >> G) - (N >> (l - 1)); };
   auto go = [&](int l) { return N - (N >> (l - 1)); };
+  // the published leaf and syndrome of set i (an info phase's parity)
+  auto leafS = [&](int i) { return reinterpret_cast<float*>(smem + lay.words + i * lay.word_set); };
+  auto synS = [&](int i) {
+    return reinterpret_cast<uint32_t*>(smem + lay.words + i * lay.word_set + 4 * CLUSTER_THREADS);
+  };
 
-  if (act) sig.init(tid, m, 2 * n - 2);
+  if (act) sigma(0).init(tid, m, 2 * n - 2);
   if (m == 0) *selS = M;
   __syncthreads();
   float pm = (m == 0) ? 0.f : SCL_BIG;  // metric of path m
   uint32_t syn = 0;                      // CRC syndrome of path m
   int info_i = 0;
+  bool pending = false;   // a split cluster barrier arrived at, not yet waited for
   int word = sched[0];
   int s_prev = 0;
   for (int p = 0; p < N; ++p) {
@@ -1019,14 +1032,25 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_kernel(
       if (use_crc) hc = hcols[info_i];
     }
     const int l0 = p == 0 ? 1 : gl;
+    DeepSigma<uint16_t> sig = sigma(info_i);
     if (act) sig.reset(tid, m, l0 - 1, n - 1, s_prev >= 2 ? n + s_prev - 3 : -1);
+    // another block may still read the rows this phase rewrites
+    if (pending) cluster_wait();
+    pending = false;
 
     // ---- f/g updates down to level n−1, this block's paths ----
     for (int l = l0; l < n; ++l) {
       const bool is_g = (p != 0) && (l == gl);
       const uint16_t* via = (is_g && l > 1 && (word >> 11 & 1)) ? sig.field(l - 2) : nullptr;
-      cluster_fg_pass(Lg + go(l), Bg + go(l), SG, l > 1 ? Lg + go(l - 1) : ch, l > 1 ? SG : 0, via,
-                      sig.row, is_g, n - l, base, Mr, tid);
+      float* dst = l > G ? Ls + so(l) : Lg + base * SG + go(l);
+      const uint8_t* dbits = l > G ? Bs + so(l) : Bg + base * SG + go(l);
+      const int ds = l > G ? SS : SG;
+      if (l - 1 > G)
+        cluster_fg_pass<true>(dst, dbits, ds, Ls + so(l - 1), SS, via, sig.row, is_g, n - l, base, rank,
+                              Mr, tid);
+      else
+        cluster_fg_pass<false>(dst, dbits, ds, l > 1 ? Lg + go(l - 1) : ch, l > 1 ? SG : 0, via, sig.row,
+                               is_g, n - l, base, rank, Mr, tid);
       __syncthreads();
     }
     // the leaf (level n) from the parent row, level n−1
@@ -1034,9 +1058,20 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_kernel(
     float leaf = 0.f;
     if (act) {
       const int r = (g_leaf && n > 1 && (word >> 11 & 1)) ? sig.get(tid, n - 2) : m;
-      const float* row = n == 1 ? ch : Lg + go(n - 1) + r * SG;
-      const float a = __ldcg(row), b = __ldcg(row + 1);
-      leaf = g_leaf ? g_update(a, b, Bg[m * SG + go(n)]) : f_minsum(a, b);
+      float a, b;
+      if (n == 1) {
+        a = ch[0];
+        b = ch[1];
+      } else if (n - 1 > G) {
+        const float* row = cluster_row(Ls + so(n - 1), r, SS, rank);
+        a = row[0];
+        b = row[1];
+      } else {
+        const float* row = Lg + go(n - 1) + r * SG;
+        a = __ldcg(row);
+        b = __ldcg(row + 1);
+      }
+      leaf = g_leaf ? g_update(a, b, Bs[tid * SS + so(n)]) : f_minsum(a, b);
     }
 
     // ---- leaf decision: extend every path, or fork and keep the best M ----
@@ -1047,27 +1082,29 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_kernel(
       float c0 = pm + softplus(-leaf), c1 = pm + softplus(leaf);
       if (fb == 1) c0 = SCL_BIG;
       if (fb == 0) c1 = SCL_BIG;
+      const int set = info_i & 1;
       if (act) {
-        leafS[tid] = leaf;
-        synS[tid] = syn;
+        leafS(set)[tid] = leaf;
+        synS(set)[tid] = syn;
       }
-      cluster_sort_keys(keys, act ? cand_key(c0, 2 * m) : ~0ull, act ? cand_key(c1, 2 * m + 1) : ~0ull,
-                        P, rank, tid);
+      unsigned long long* sorted = cluster_sort_keys(keys, act ? cand_key(c0, 2 * m) : ~0ull,
+                                                     act ? cand_key(c1, 2 * m + 1) : ~0ull, P, rank,
+                                                     tid, info_i * cluster_exchanges(P));
       // survivor m: the candidate of rank m, into trace slot m
       int parent = 0;
       if (act) {
-        const unsigned long long key = cluster_key(keys, m);
+        const unsigned long long key = cluster_key(sorted, m);
         const int w = key_index(key);
         TI[info_i * M + m] = (uint16_t)w;
         parent = w >> 1;
         bit = w & 1;
         pm = key_metric(key);
-        TL[info_i * M + m] = *path_entry(leafS, parent);
-        const uint32_t sp = *path_entry(synS, parent);
+        TL[info_i * M + m] = *path_entry(leafS(set), parent);
+        const uint32_t sp = *path_entry(synS(set), parent);
         syn = bit ? sp ^ hc : sp;
       }
-      cluster_sigma_fork(sig, sig_next, tid, parent, act);  // σ ← σ[parent] on every level
-      ++info_i;
+      cluster_sigma_fork(sig, sigma(info_i + 1).tab, tid, parent, act);  // σ ← σ[parent] on every level
+      sig = sigma(++info_i);
     }
 
     // ---- partial-sum chain, this block's paths ----
@@ -1075,37 +1112,48 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_kernel(
     if (s > 0) {
       const int cmask = word >> 11;  // bit l: level l's left bits through σ
       if (act) {
-        uint8_t* cur = Bg + m * SG + go(s);
+        uint8_t* cur = s > G ? Bs + tid * SS + so(s) : Bg + m * SG + go(s);
         if (s == n) {
           cur[0] = (uint8_t)bit;
         } else {
           const int r = (cmask >> n & 1) ? sig.get(tid, 2 * n - 3) : m;
-          const uint8_t left = __ldcg(Bg + r * SG + go(n));
+          const uint8_t left = *cluster_row(Bs + so(n), r, SS, rank);
           cur[1] = (uint8_t)bit;
           cur[0] = (uint8_t)(left ^ bit);
         }
       }
       __syncthreads();
+      uint8_t* st = s > G ? Bs + so(s) : Bg + base * SG + go(s);
+      const int sts = s > G ? SS : SG;
       for (int lv = n - 1; lv > s; --lv) {
         const uint16_t* via = (cmask >> lv & 1) ? sig.field(n + lv - 3) : nullptr;
-        cluster_chain_pass(Bg + go(s), Bg + go(lv), SG, via, sig.row, n - lv, base, Mr, tid);
+        if (lv > G)
+          cluster_chain_pass<true>(st, sts, Bs + so(lv), SS, via, sig.row, n - lv, base, rank, Mr, tid);
+        else
+          cluster_chain_pass<false>(st, sts, Bg + go(lv), SG, via, sig.row, n - lv, base, rank, Mr, tid);
         __syncthreads();
       }
     }
-    // a row read through σ may be another block's: no block rewrites it
-    // before every block is past this phase
-    if (word >> 11) cluster.sync();
+    // a row read through σ may be another block's: this block arrives, and
+    // waits before it next writes a row (split)
+    if (word >> 11) {
+      cluster_arrive();
+      pending = true;
+    }
     s_prev = s;
     word = next_word;
   }
+  if (pending) cluster_wait();
 
   // ---- final stable sort of the list, CRC selection, backtrack ----
-  if (act) synS[tid] = use_crc && syn == 0u && pm < SCL_BIG;  // path m passes
-  cluster_sort_keys(keys, act ? cand_key(pm, m) : ~0ull, ~0ull, P, rank, tid);
+  uint32_t* passS = synS(info_i & 1);
+  if (act) passS[tid] = use_crc && syn == 0u && pm < SCL_BIG;  // path m passes
+  unsigned long long* sorted = cluster_sort_keys(keys, act ? cand_key(pm, m) : ~0ull, ~0ull, P, rank,
+                                                 tid, info_i * cluster_exchanges(P));
   // thread r = m < M: the key (metric, path) of final rank r
-  const unsigned long long fkey = act ? cluster_key(keys, m) : ~0ull;
+  const unsigned long long fkey = act ? cluster_key(sorted, m) : ~0ull;
   const int path_r = act ? key_index(fkey) : 0;
-  if (act && *path_entry(synS, path_r)) atomicMin(cluster.map_shared_rank(selS, 0), m);
+  if (act && *path_entry(passS, path_r)) atomicMin(cluster.map_shared_rank(selS, 0), m);
   cluster.sync();
   const int least = *cluster.map_shared_rank(selS, 0);
   const int sel_rank = least < M ? least : 0;
@@ -1238,16 +1286,17 @@ int launch_deep(const Args& a, int M, void* trace_idx, cudaStream_t stream) {
 
 template <bool LIST>
 int launch_cluster_as(const Args& a, int M, uint16_t* trace_idx, cudaStream_t stream) {
-  const ClusterLayout lay = cluster_layout(a.n, 2);
-  // every level in global scratch (G = n), one frame a cluster
-  if (!trace_idx || !a.glob_llr || !a.glob_bits || a.n > MAX_LEVELS ||
-      lay.sig_row > 4 * DEEP_SIGMA_WORDS || a.G != a.n || lay.total != a.frame_bytes ||
+  const ClusterLayout lay = cluster_layout(a.N, a.n, a.G, 2);
+  // levels 1..G in global scratch, G+1..n in each block's shared memory,
+  // one frame a cluster
+  if (!trace_idx || (a.G > 0 && (!a.glob_llr || !a.glob_bits)) || a.n > MAX_LEVELS || a.G < 0 ||
+      a.G >= a.n || lay.sig_row > 4 * DEEP_SIGMA_WORDS || lay.total != a.frame_bytes ||
       a.frames_per_block != 1)
     return (int)cudaErrorInvalidValue;
   return launch_cluster_kernel(scl_cluster_kernel<LIST>, a.B, M, lay.total, stream, a.llr, a.forced,
                                a.hcols, a.sched, a.glob_llr, a.glob_bits, a.trace_llr, trace_idx,
                                a.out_bits, a.out_llrs, a.out_pass, a.list_bits, a.list_llrs,
-                               a.list_metrics, a.list_best, a.N, a.n, a.K, M, a.use_crc);
+                               a.list_metrics, a.list_best, a.N, a.n, a.K, M, a.G, a.use_crc);
 }
 
 int launch_cluster(const Args& a, int M, void* trace_idx, cudaStream_t stream) {

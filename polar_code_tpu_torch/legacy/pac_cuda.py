@@ -46,7 +46,9 @@ scratch too, as in the SCL kernel: rows of round16(L) bytes one path a lane,
 staged 16 rows at a time in shared memory and read by the walks back a
 chunk at a time through the frame's freed shared memory (none at L=1,
 whose decisions go straight to the outputs), and [Kp, L] entries over
-warps; the shared memory goes to tree levels.  On a cluster every tree level is in global scratch.
+warps; the shared memory goes to tree levels.  On a cluster a block keeps
+levels G+1..n of its 1024 paths in shared memory, read by the other blocks
+through DSMEM, and levels 1..G go to global scratch.
 
 The envelope: a shape is taken where its frame fits a block at some G, that
 is with every level but the leaf in global scratch (`check_shape`); a shape
@@ -90,7 +92,7 @@ def frame_bytes(N: int, Kp: int, L: int, global_levels: int = 0) -> int:
     its blocks takes, `ops/scl_cuda.py::cluster_block_bytes`."""
 
     if L > DEEP_MAX_M:
-        return cluster_block_bytes(N, DEEP_WORDS)
+        return cluster_block_bytes(N, global_levels, DEEP_WORDS)
     if L > PATH_MAX_M:
         return deep_frame_bytes(N, L, global_levels, DEEP_WORDS)
     row = (N >> global_levels) - 1
@@ -101,7 +103,7 @@ def scratch_bytes(B: int, N: int, Kp: int, L: int, global_levels: int) -> int:
     """Global scratch one launch allocates: the LLR and edge-bit rows of
     levels 1..G of every frame, and its trace: rows of round16(L) bytes one
     path a lane (none at L=1), Kp·L entries of `trace_entry_bytes(L)` over warps and on a
-    cluster (G = n, rows of N − 1 entries)."""
+    cluster."""
 
     return B * L * (N - (N >> global_levels)) * 5 + B * Kp * _trace_row(L)
 
@@ -181,17 +183,18 @@ def _occupancy(N: int, Kp: int, L: int, G: int) -> tuple:
 @functools.lru_cache(maxsize=None)
 def launch_plan(N: int, Kp: int, L: int) -> tuple:
     """(global levels G, frames a block, frames an SM holds at once) on the
-    current card; on a cluster (L > 1024) (n, 1, the frames the card runs at
-    once), as `ops/scl_cuda.py::launch_plan`, raising where that is 0."""
+    current card; on a cluster (L > 1024) (G, 1, the frames the card runs at
+    once), G as `ops/scl_cuda.py::launch_plan` picks it, raising where the
+    card places no cluster."""
 
     n = int(math.log2(N))
     if L > DEEP_MAX_M:
-        at_once = _occupancy(N, Kp, L, n)[1]
+        at_once = _occupancy(N, Kp, L, n - 1)[1]
         if at_once < 1:
             raise RuntimeError(f"the card places no cluster of {cluster_blocks(L)} blocks of "
-                               f"{CLUSTER_THREADS} threads and {frame_bytes(N, Kp, L, n)} B of shared "
+                               f"{CLUSTER_THREADS} threads and {frame_bytes(N, Kp, L, n - 1)} B of shared "
                                f"memory each (N={N} L={L})")
-        return n, 1, at_once
+        return smallest_global_levels(n, lambda g: _occupancy(N, Kp, L, g), at_once)
     return smallest_global_levels(n, lambda g: _occupancy(N, Kp, L, g))
 
 

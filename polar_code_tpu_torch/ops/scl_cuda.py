@@ -32,20 +32,21 @@ blocks of 1024 threads, one thread a path (the source note has the four
 layouts).  A shape whose frame fits no block even with every level but the
 leaf in global scratch (`check_shape`) raises, as does a batch whose global
 scratch does not fit the card: the wrapper names the bytes and shrinks
-nothing, but on a cluster, whose scratch is M·(N−1)·5 + K·M·6 bytes a frame
-(8.3 MB at P(128,64) M=8192), it splits the batch into launches that fit
-the card's free memory (`cluster_batch`), one launch counted each.
+nothing, but on a cluster, whose scratch is M·(N − (N >> G))·5 + K·M·6
+bytes a frame (7.7 MB at P(128,64) M=8192, G=3), it splits the batch into
+launches that fit the card's free memory (`cluster_batch`), one launch
+counted each.
 
 Memory.  A frame keeps tree levels G+1..n of its M paths in shared memory;
 levels 1..G and the trace LLRs go to a global scratch allocated here for
 each call.  The trace indices stay in shared memory in the byte-word
 layout (K·M bytes); by path (rows of `path_trace_row(M)` bytes) and over
-warps (entries of `trace_entry_bytes(M)`) they go to global scratch,
-written once an info phase and read at the end, so that a frame's shared
-memory goes to tree levels (and over warps to the σ table and the sort
-keys, `deep_frame_bytes`; on a cluster every tree level goes to global
-scratch, and a block's shared memory holds σ, sort keys and published
-words of its 1024 paths, `cluster_block_bytes`).  `launch_plan` asks the CUDA occupancy
+warps and on a cluster (entries of `trace_entry_bytes(M)`) they go to
+global scratch, written once an info phase and read at the end, so that a
+frame's shared memory goes to tree levels (and over warps to the σ table
+and the sort keys, `deep_frame_bytes`; on a cluster a block's shared
+memory holds σ, sort keys, published words and levels G+1..n of its 1024
+paths, `cluster_block_bytes`).  `launch_plan` asks the CUDA occupancy
 calculator for the smallest G at which an SM holds a number of frames
 (`smallest_global_levels`, which the PAC kernel's wrapper shares), and for
 the frames a block that hold the most: `FRAMES_PER_SM_TARGET` in the
@@ -140,19 +141,32 @@ def cluster_blocks(M: int) -> int:
     return sort_keys(M) // 2 // CLUSTER_THREADS
 
 
-def cluster_block_bytes(N: int, words: int = 2) -> int:
+def cluster_exchanges(P: int) -> int:
+    """Cluster barriers one sort of P keys on a cluster takes
+    (`cluster_exchanges` in `csrc/list_decode.cuh`): one a cross-block stage
+    (distance 2048 or more in each merge of 4096 keys or more: 1, 3, 6 at
+    P = 4096, 8192, 16384) and one for the sorted keys."""
+
+    return 1 + sum(s - 11 for s in range(12, P.bit_length()))
+
+
+def cluster_block_bytes(N: int, global_levels: int, words: int = 2) -> int:
     """Shared memory each block of a cluster frame takes (`cluster_layout`
     in `csrc/list_decode.cuh`), each region rounded to 16 bytes: two σ
     tables of its 1024 paths (2n−2 16-bit fields a path, a row rounded to
-    4 bytes; a fork copies from one into the other), its 2048 sort keys of
-    8 bytes, `words` published 32-bit values a path (SCL 2, PAC 3) and the
-    selected rank.  Every tree level is in global scratch, so N enters only
-    through σ's row."""
+    4 bytes; a fork copies from one into the other), three buffers of 2048
+    sort keys of 8 bytes (two a cross-block stage's exchange, in turns, and
+    one for the stages within the block), two sets (an info phase's parity)
+    of `words` published 32-bit values a path (SCL 2, PAC 3), the LLR rows
+    (float32) and partial-sum rows (bytes) of levels global_levels+1..n of
+    its 1024 paths, and the selected rank."""
 
     n = int(math.log2(N))
     sig_row = max(4, ((2 * n - 2) * 2 + 3) // 4 * 4)
-    return (2 * _round16(CLUSTER_THREADS * sig_row) + 8 * 2 * CLUSTER_THREADS
-            + words * 4 * CLUSTER_THREADS + 16)
+    row = (N >> global_levels) - 1
+    return (2 * _round16(CLUSTER_THREADS * sig_row) + 3 * 8 * 2 * CLUSTER_THREADS
+            + 2 * words * 4 * CLUSTER_THREADS + _round16(4 * CLUSTER_THREADS * row)
+            + _round16(CLUSTER_THREADS * row) + 16)
 
 
 def cluster_batch(B: int, frame_scratch: int, free: int) -> int:
@@ -187,11 +201,10 @@ def frame_bytes(N: int, K: int, M: int, global_levels: int = 0) -> int:
     to M=32 the LLR rows (float32) and partial-sum rows (bytes) of levels
     global_levels+1..n, and in the byte-word layout the trace indices
     (bytes); over warps `deep_frame_bytes`; on a cluster what each of its
-    blocks takes, `cluster_block_bytes` (every level in global scratch,
-    whatever `global_levels`)."""
+    blocks takes, `cluster_block_bytes`."""
 
     if M > DEEP_MAX_M:
-        return cluster_block_bytes(N)
+        return cluster_block_bytes(N, global_levels)
     if M > PATH_MAX_M:
         return deep_frame_bytes(N, M, global_levels)
     row = (N >> global_levels) - 1
@@ -209,7 +222,7 @@ def path_width(M: int) -> int:
 def scratch_bytes(B: int, N: int, K: int, M: int, global_levels: int) -> int:
     """Global scratch one launch allocates: the LLR and partial-sum rows of
     levels 1..G and the trace LLRs of every frame, and by path, over warps
-    and on a cluster (G = n, rows of N − 1 entries) the trace indices."""
+    and on a cluster the trace indices."""
 
     ti = (B * K * M * trace_entry_bytes(M) if M > PATH_MAX_M
           else B * K * path_trace_row(M) if path_layout(M) else 0)
@@ -314,22 +327,24 @@ def launch_plan(N: int, K: int, M: int, B: int) -> tuple:
     batch of B frames on the current card, by `smallest_global_levels`:
     `FRAMES_PER_SM_TARGET` frames an SM in the byte-word and over-warps
     layouts, `path_target` of the card's SMs by path.  On a cluster (M >
-    1024): (n, 1, the frames the card runs at once), every level in global
-    scratch, by `cudaOccupancyMaxActiveClusters`; it raises where that is 0.
-    The occupancy (`_occupancy`) is cached by shape alone: the cards of one
-    host are taken to be of one kind."""
+    1024): (G, 1, the frames the card runs at once, by
+    `cudaOccupancyMaxActiveClusters`), G the smallest at which the card runs
+    as many frames at once as with every level but the leaf in global
+    scratch (the most shared memory a block's 1024 paths can take); it
+    raises where the card places no cluster.  The occupancy (`_occupancy`)
+    is cached by shape alone: the cards of one host are taken to be of one
+    kind."""
 
+    n = int(math.log2(N))
     if M > DEEP_MAX_M:
-        n = int(math.log2(N))
-        at_once = _occupancy(N, K, M, n)[1]
+        at_once = _occupancy(N, K, M, n - 1)[1]
         if at_once < 1:
             raise RuntimeError(f"the card places no cluster of {cluster_blocks(M)} blocks of "
-                               f"{CLUSTER_THREADS} threads and {frame_bytes(N, K, M, n)} B of shared "
+                               f"{CLUSTER_THREADS} threads and {frame_bytes(N, K, M, n - 1)} B of shared "
                                f"memory each (N={N} M={M})")
-        return n, 1, at_once
+        return _plan(N, K, M, at_once)
     if not path_layout(M):
         return _plan(N, K, M, FRAMES_PER_SM_TARGET)
-    n = int(math.log2(N))
     most = _occupancy(N, K, M, n - 1)[1]
     return _plan(N, K, M, path_target(B, _sm_count(torch.cuda.current_device()), most))
 
@@ -474,7 +489,7 @@ decode_scl_cuda.cluster_launches = 0  # of them, launches of the cluster instant
 
 
 __all__ = ["decode_scl_cuda", "check_shape", "frame_bytes", "deep_frame_bytes", "sort_keys",
-           "cluster_blocks", "cluster_block_bytes", "cluster_batch",
+           "cluster_blocks", "cluster_exchanges", "cluster_block_bytes", "cluster_batch",
            "trace_entry_bytes", "launch_plan", "smallest_global_levels", "path_width",
            "path_layout", "path_trace_row", "path_target", "scratch_bytes", "SUPPORTED_M",
            "BYTE_WORD_M", "MAX_M", "PATH_MAX_M", "DEEP_MAX_M", "MAX_N", "SIGMA_FIELDS"]

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Hold the list decoders of one checkout to another's, bit for bit: K1 by path and over warps, K3.
+"""Hold the list decoders of one checkout to another's, bit for bit: K1 by path, over warps and on a cluster, K3.
 
     python tools/compare_deep_lists.py --repo DIR --save FILE.npz
     python tools/compare_deep_lists.py [--repo DIR] --compare FILE.npz
@@ -14,11 +14,15 @@ P(32,28) M=64, with and without a forced plan; K1 by path at P(128,64) M 3,
 without CRC-24A and a forced plan, and with CRC-24A at the launch plans of
 the timed batches (`chip_smoke.py`'s PATH_TIMES): P(128,64) M 3, 16 and 32
 at B=4096, P(1024,512) M=16 at B=1024, and 8 frames of P(8192,4096) M=32 at
-the plan of B=1024; and the PAC kernel K3 one path a lane at
-PAC(128,64)+CRC-16 L 1, 2, 4, 5, 8, 16, 24 and 32, PAC(2048,1024) L=32 and
-PAC(8192,4096) L=8 (B=6), and over warps at PAC(128,64)+CRC-16 L 33, 64,
-65, 100, 129, 256 and 1024 and PAC(32,12) L=64; B=37 frames unless named,
-every output of the list launch and of the best-only one.  `--save` writes
+the plan of B=1024; K1 on a cluster at P(128,64) M 1025, 2048 and 3000
+(B=12), 4096 and 8192 (B=6), with and without CRC-24A and a forced plan,
+and P(1024,512) (B=4) and P(8192,2048) (B=2) M=2048 with CRC-24A; and the
+PAC kernel K3 one path a lane at PAC(128,64)+CRC-16 L 1, 2, 4, 5, 8, 16,
+24 and 32, PAC(2048,1024) L=32 and PAC(8192,4096) L=8 (B=6), over warps at
+PAC(128,64)+CRC-16 L 33, 64, 65, 100, 129, 256 and 1024 and PAC(32,12)
+L=64, and on a cluster at PAC(128,64)+CRC-16 L 2048 (B=12) and 4096
+(B=6); B=37 frames unless named, every output of the list launch and of
+the best-only one.  `--save` writes
 them to FILE; `--compare` holds them to FILE's, byte for byte, and each
 case to the plain PyTorch version (`chip_smoke.py`'s judges: K1 outside
 near-ties, K3 every field).  To compare a change with its parent, run both
@@ -87,7 +91,10 @@ def main():
                 + [(128, 64, M, 37, (cs.CRC, None), None) for M in (3, 5, 16, 17, 31, 32)]
                 + [(32, 28, 16, 37, (cs.CRC, None), None), (8192, 4096, 32, 8, (cs.CRC, None), None)]
                 + [(128, 64, M, 4096, (cs.CRC,), None) for M in (3, 16, 32)]
-                + [(1024, 512, 16, 1024, (cs.CRC,), None), (8192, 4096, 32, 8, (cs.CRC,), 1024)])
+                + [(1024, 512, 16, 1024, (cs.CRC,), None), (8192, 4096, 32, 8, (cs.CRC,), 1024)]
+                + [(128, 64, M, 12 if M <= 3000 else 6, (cs.CRC, None), None)
+                   for M in (1025, 2048, 3000, 4096, 8192)]
+                + [(1024, 512, 2048, 4, (cs.CRC,), None), (8192, 2048, 2048, 2, (cs.CRC,), None)])
     for n, k, M, B, crcs, launch_b in k1_cases:
         info = construct_info_set(n, k, method="gaussian" if n == 128 else "gaussian_bitrev")
         llr, msg = cs.make_llrs(rng, B, 2.5 if n < 8192 else 1.5, info, n=n)
@@ -97,12 +104,13 @@ def main():
             for p in (None, plan):
                 tag = (f"K1 P({n},{k}) M={M}{'' if crc else ' crc=off'} "
                        f"plan={'on' if p is not None else 'off'}"
-                       + (f" B={B}" if B > 37 else "") + (f" at the B={launch_b} plan" if launch_b else ""))
+                       + (f" B={B}" if B != 37 else "") + (f" at the B={launch_b} plan" if launch_b else ""))
                 keep(tag, k1(x, info, M, crc, p, launch_b, full=True), k1(x, info, M, crc, p, launch_b))
                 if args.compare:
                     cs.k1_vs_plain(x, info, M, crc, p, tag, launch_b=launch_b)
     k3_cases = ([(128, 64, L, 37) for L in (33, 64, 65, 100, 129, 256, 1024)] + [(32, 12, 64, 37)]
-                + [(128, 64, L, 37) for L in (1, 2, 4, 5, 8, 16, 24, 32)] + [(2048, 1024, 32, 6), (8192, 4096, 8, 6)])
+                + [(128, 64, L, 37) for L in (1, 2, 4, 5, 8, 16, 24, 32)] + [(2048, 1024, 32, 6), (8192, 4096, 8, 6)]
+                + [(128, 64, 2048, 12), (128, 64, 4096, 6)])
     for n, k, L, B in k3_cases:
         mask = cs.pac_mask(n, k + cs.PAC_CRC[0])
         x = cs.pac_llrs(rng, B, 2.0 if n <= 128 else 1.5, (n, k, cs.PAC_CRC), cs.PAC_GEN, mask, dev)

@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""Hold the SASS of each CUDA kernel of this checkout against another checkout's, on a machine with nvcc.
+
+    python tools/compare_sass.py --repo DIR [--sources scl_decode.cu,pac_decode.cu]
+
+Builds each source of this checkout's `csrc/` and of DIR's
+`polar_code_tpu_torch/csrc/` with this checkout's flags (`_build.build`,
+into this checkout's build directory), dumps both libraries' SASS with
+`cuobjdump -sass`, and prints, for every kernel function, "same" or the
+count of SASS lines that differ, with its demangled name.  A kernel
+whose SASS is the same in both runs the same instructions: a time that
+differs between the two is the card's, not the code's.  Exits 1 when a
+source fails to build or `cuobjdump` fails.
+"""
+
+import argparse
+import difflib
+import re
+import shutil
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+ANON = re.compile(r"_GLOBAL__N__\w+")  # the anonymous namespace of one build
+
+
+def functions(lib: Path) -> dict:
+    """Demangled kernel name -> its SASS lines, from `cuobjdump -sass`; the
+    anonymous namespace's name, which differs between two builds of one
+    source, is taken out of every line."""
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None and line.strip():
+            funcs[name].append(ANON.sub("_GLOBAL__N_", line.strip()))
+    # a template kernel by its name and arguments, without its parameters
+    return {re.sub(r">\(.*\)$", ">", name): body for name, body in zip(demangle(list(funcs)), funcs.values())}
+
+
+def demangle(names):
+    cxxfilt = shutil.which("cu++filt") or shutil.which("c++filt") or "/usr/local/cuda/bin/cu++filt"
+    out = subprocess.run([cxxfilt], input="\n".join(names), capture_output=True, text=True, check=True)
+    shown = out.stdout.splitlines()
+    if len(shown) != len(names):
+        raise RuntimeError(f"{cxxfilt} gave {len(shown)} names for {len(names)}")
+    return shown
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--repo", required=True, help="the other checkout")
+    ap.add_argument("--sources", default="scl_decode.cu,pac_decode.cu")
+    args = ap.parse_args()
+    sys.path.insert(0, str(HERE))
+    from polar_code_tpu_torch import _build
+
+    other = Path(args.repo).resolve() / "polar_code_tpu_torch" / "csrc"
+    sources = args.sources.split(",")
+    jobs = [(s, c) for s in sources for c in (_build.CSRC, other)]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:  # every nvcc at once
+        libs = dict(zip(jobs, pool.map(lambda j: _build.build(j[0], csrc=j[1]).path, jobs)))
+    for source in sources:
+        mine = functions(libs[source, _build.CSRC])
+        theirs = functions(libs[source, other])
+        names = sorted(set(mine) | set(theirs))
+        same = 0
+        for name in names:
+            if name not in mine or name not in theirs:
+                print(f"  {source} {name}: only in {'this checkout' if name in mine else args.repo}")
+                continue
+            diff = [d for d in difflib.unified_diff(theirs[name], mine[name], n=0, lineterm="")
+                    if d[:1] in "+-" and d[:3] not in ("+++", "---")]
+            same += not diff
+            print(f"  {source} {name}: {'same' if not diff else f'{len(diff)} SASS lines differ'}")
+        print(f"{source}: {same} of {len(names)} kernels with the same SASS as {args.repo}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the over-warps list decoders of one checkout, on one CUDA card.
+"""Time the over-warps and cluster list decoders of one checkout, on one CUDA card.
 
     python tools/time_deep_lists.py [--repo DIR] [--label NAME]
 
@@ -15,10 +15,13 @@ Shapes: the SCL kernel K1 over warps at P(128,64) CRC-24A, 5.0 dB, M 64,
 kernel); the PAC kernel K3 over warps at PAC(128,64)+CRC-16,
 gen 1011011, `dega`, 2.5 dB, L 64, 256 and 1024, B=4096; K1 at P(1024,512)
 `gaussian_bitrev` M=64, 1.75 dB, B=1024; and one frame (B=1) of K1 at M=256
-and K3 at L=256, a launch's latency.  Prints a line a shape (its time, its
-bound from `chip_smoke.py`'s work counts and the frames an SM the wrapper's
-launch plan holds), the card's `nvidia-smi` name and power limit, and a
-JSON line of every time last.
+and K3 at L=256, a launch's latency; and on a cluster, B=1024, K1 at
+P(128,64) CRC-24A 5.0 dB M 2048, 4096 and 8192 and K3 at PAC(128,64)+CRC-16
+2.5 dB L 2048 and 4096 (`chip_smoke.py` phase 15 (f)).  `--only A|B` times
+the shapes whose names hold A or B.  Prints a line a shape (its time, its
+bound from `chip_smoke.py`'s work counts and the frames an SM, or on a
+cluster the frames at once, the wrapper's launch plan holds), the card's
+`nvidia-smi` name and power limit, and a JSON line of every time last.
 """
 
 import argparse
@@ -33,6 +36,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repo", default=str(HERE), help="checkout whose kernels are timed")
     ap.add_argument("--label", default=None)
+    ap.add_argument("--only", default=None, help="time only the shapes whose names hold one of A|B|..")
     args = ap.parse_args()
     repo = Path(args.repo).resolve()
     sys.path.insert(0, str(repo))
@@ -60,12 +64,15 @@ def main():
     times, per_sm = {}, {}
 
     def run(tag, fn, reps, work, plan):
+        if args.only and not any(part in tag for part in args.only.split("|")):
+            return
         fn()  # builds the kernel at its first call
         ms = cs.cuda_time_ms(fn, reps=reps, warmup=1)
         b_ms, b_by = cs.bound(*work)
         times[tag], per_sm[tag] = ms, plan[2]
+        where = "at once" if "cluster" in tag else "an SM"
         print(f"  [{label}] {tag}: {ms:.4f} ms ({reps} launches); bound {b_ms:.6f} ms ({b_by}), "
-              f"{ms / b_ms:.0f}x; {plan[2]} frames an SM", flush=True)
+              f"{ms / b_ms:.0f}x; {plan[2]} frames {where}", flush=True)
 
     B = 4096
     info = construct_info_set(cs.N, cs.K)
@@ -88,6 +95,16 @@ def main():
             2 if L == 1024 else 10, cs.pac_work(mask, L, B), pac_cuda.launch_plan(n_p, k_p + crc_p[0], L))
     run("K3 PAC(128,64) L=256 B=1", lambda: pac_cuda.pac_list_decode_cuda(x[:1], mask, cs.PAC_GEN, 256, *crc_p),
         20, cs.pac_work(mask, 256, 1), pac_cuda.launch_plan(n_p, k_p + crc_p[0], 256))
+    B = 1024  # on a cluster
+    llr = llr[:B].contiguous()
+    for M in (2048, 4096, 8192):
+        run(f"K1 cluster P(128,64) M={M} B={B}", lambda M=M: scl_cuda.decode_scl_cuda(llr, info, M, cs.CRC),
+            3 if M == 2048 else 2, cs.scl_work(info, M, B), scl_cuda.launch_plan(cs.N, cs.K, M, B))
+    x = x[:B].contiguous()
+    for L in (2048, 4096):
+        run(f"K3 cluster PAC(128,64) L={L} B={B}",
+            lambda L=L: pac_cuda.pac_list_decode_cuda(x, mask, cs.PAC_GEN, L, *crc_p),
+            3 if L == 2048 else 2, cs.pac_work(mask, L, B), pac_cuda.launch_plan(n_p, k_p + crc_p[0], L))
     print(cs.nvidia_smi_line())
     print(json.dumps({"label": label, "ms": times, "frames_per_sm": per_sm}))
     return 0

@@ -229,8 +229,9 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    P(128,64) CRC-24A M ∈ {1025, 2048, 3000, 4096, 8192} (B=32; CRC and plan
    on and off at 2048), P(1024,512) M=2048 (B=16) and P(8192,2048) M=2048
    (B=2), under K1's near-tie rule, and K1 and K3 at M = L = 2048 with the
-   free memory pinned to 10 frames' scratch, a batch of 32 in 4 launches,
-   every output equal to one launch's; (b) K1 and K3 against the JAX golden
+   card's room pinned to 10 frames' scratch (a larger allocation raises
+   the out-of-memory error), a batch of 32 in 4 launches, every output
+   equal to one launch's; (b) K1 and K3 against the JAX golden
    files `tests/golden/scl_f32_cluster.npz` (P(128,64) M 2048, 4096 and
    8192) and `pac_cluster.npz` (PAC(128,64)+CRC-16 L=2048), written by
    `tests/golden/make_cluster_lists.py`; (c) K3's cluster instantiation
@@ -248,8 +249,36 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    warps at M=1024, K3 at PAC(128,64)+CRC-16 B=1024 L 2048 and 4096 beside
    L=1024, the plain versions at M = L = 2048, and K3 one path a lane at
    PAC(128,64)+CRC-16 L=32 B=4096 and PAC(8192,7368) L=32 B=64;
-16. a `kernels` JSON line (one entry a kernel, and one for each new
-   instantiation with its launches on phases 13's, 14's and 15's paths;
+16. the long codes (`long_codes`): the `-Xptxas -v` registers and spills
+   of the wide instantiations (σ of 30 fields: K1 and K3 one path a lane
+   at LM 16 and 32, over warps with 16-bit entries; a best-only one that
+   spills fails the phase), and each shape's plan (G, scratch bytes a
+   frame, shared bytes, frames an SM or at once); (a) K1 and K3 against
+   the plain version, list and best-only, one draw each, no frame allowed
+   to differ (the plain version takes 9–75 s a call, so its calls run six
+   at once in worker processes, `plain_reference`): K1 at P(16384,8192) M
+   1, 8, 32 (the golden file's 8 frames), M=16 with forced plans, M 64,
+   1024 and 2048, at P(65536,65536) M 1, 8 and 32, P(65536,32768) M 8 and
+   32 and P(65536,256) M=2048; K3 at PAC(16384,8192)+CRC-16 L 8 (golden),
+   16, 32, 64, 256, 2048 and PAC(65536,240) L 8 and 2048, every list field
+   exactly; (b)
+   K1, K3 and both plain versions against the JAX file
+   `tests/golden/scl_f32_long.npz` (written by
+   `tests/golden/make_scl_f32_long.py`), K1 under its near-tie rule; (c)
+   the FER sweep CLI at P(16384,8192) `gaussian_bitrev` CRC-24A M=8, 8
+   retries, no β, 4096 frames at B=1024 and 1.25 dB, through K1 (the plain
+   decoders 0 times on CUDA), and `decode_scl` at M=8, the legacy
+   `pac_decode` at L=8 and the systematic `PolarCode(16384, 8208)` at L=8
+   on one frame each, one launch a call, equal to the batch launches; a
+   batch the card cannot allocate (K1 P(128,64) M=64 B=65536, a blocker
+   tensor holding all but half its scratch) split after the failed
+   allocation, every output equal to one launch's; (d) CUDA-event times
+   at B=1024 (B=64 at M and L >= 1024) beside their bounds, and the plain
+   versions' at P(16384,8192) M = L = 8; (e) with a parent's
+   `polar_code_tpu_torch/` and `tools/` in `smoke_checkout/parent/`,
+   `tools/compare_sass.py` against it;
+17. a `kernels` JSON line (one entry a kernel, and one for each new
+   instantiation with its launches on phases 13's to 16's paths;
    each `max_abs_err` the largest difference from the plain version that
    the run measured), the `nvidia-smi` line, and the device JSON line last.
 
@@ -275,7 +304,8 @@ import re  # noqa: E402
 import subprocess  # noqa: E402
 import tempfile  # noqa: E402
 import time  # noqa: E402
-from concurrent.futures import ThreadPoolExecutor  # noqa: E402
+import multiprocessing  # noqa: E402
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -377,16 +407,19 @@ def ptxas_report(log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             tm = re.search(r"scl_decode_kernelILi(\d+)ELb([01])E", m.group(1))
-            tw = re.search(r"scl_path_kernelILi(\d+)ELb([01])E", m.group(1))
-            tp = re.search(r"pac_decode_kernelILi(\d+)E(?:Lb([01])E)?", m.group(1))
+            tw = re.search(r"scl_path(_wide)?_kernelILi(\d+)ELb([01])E", m.group(1))
+            tp = re.search(r"pac_decode(_wide)?_kernelILi(\d+)E(?:Lb([01])E)?", m.group(1))
             tn = re.search(r"nms_kernel_(warp|block|1024)ILi(\d+)ELb([01])E", m.group(1))
             td = re.search(r"(scl|pac)_deep_kernelI([ht])Lb([01])E", m.group(1))
+            tdw = re.search(r"(scl|pac)_deep_wide_kernelILb([01])E", m.group(1))
             tc = re.search(r"(scl|pac)_cluster_kernelILb([01])E", m.group(1))
             entry = (f"scl_decode_kernel<M={tm.group(1)}{', list' if tm.group(2) == '1' else ''}>" if tm
-                     else f"scl_path_kernel<LM={tw.group(1)}{', list' if tw.group(2) == '1' else ''}>"
-                     if tw
-                     else f"pac_decode_kernel<LM={tp.group(1)}{', list' if tp.group(2) == '1' else ''}>"
-                     if tp
+                     else f"scl_path{tw.group(1) or ''}_kernel<LM={tw.group(2)}"
+                          f"{', list' if tw.group(3) == '1' else ''}>" if tw
+                     else f"pac_decode{tp.group(1) or ''}_kernel<LM={tp.group(2)}"
+                          f"{', list' if tp.group(3) == '1' else ''}>" if tp
+                     else f"{tdw.group(1)}_deep_wide_kernel<u16 trace{', list' if tdw.group(2) == '1' else ''}>"
+                     if tdw
                      else f"nms_kernel<D={tn.group(2)}, {'two-min' if tn.group(3) == '1' else 'shared'}, "
                           f"{tn.group(1)}>" if tn
                      else f"{td.group(1)}_deep_kernel<{'u8' if td.group(2) == 'h' else 'u16'} trace"
@@ -1238,12 +1271,14 @@ def k3_list_vs_plain(x, mask, gen, L, crc_len, crc_poly, tag, out=None, ref=None
     return err
 
 
-def k1_vs_plain(llr, info, M, crc, plan, tag, launch_b=None):
+def k1_vs_plain(llr, info, M, crc, plan, tag, launch_b=None, keep=None, ref=None):
     """K1's list and best-only launches against the plain version on the
     same card tensors (`judge_list`): ((frames differing, near-ties, max
     |info LLR diff|) of the list, the same of best-only).  With `launch_b`,
     K1 runs the launch plan of a batch of launch_b frames on the frames
-    given: a few frames of a large batch's launch."""
+    given: a few frames of a large batch's launch.  A `keep` dict takes the
+    plain version's fields and K1's list.  A `ref` (`plain_fields` of the
+    plain version's call on these inputs) stands in for that call."""
 
     import torch
 
@@ -1259,7 +1294,10 @@ def k1_vs_plain(llr, info, M, crc, plan, tag, launch_b=None):
         out = scl_cuda._launch(llr, info_np, M, crc, plan, G, fpb, full=True)
         best = scl_cuda._launch(llr, info_np, M, crc, plan, G, fpb)
     torch.cuda.synchronize()
-    ref = plain_fields(decode_scl_batch(llr, info, M, crc, force_info_bits=plan, dtype=torch.float32))
+    if ref is None:
+        ref = plain_fields(decode_scl_batch(llr, info, M, crc, force_info_bits=plan, dtype=torch.float32))
+    if keep is not None:
+        keep.update(plain=ref, k1=out)
     res = judge_list(out, ref, tag)
     best_ref = {f: ref[f] for f in ("best_path_bits", "best_path_info_llrs", "crc_pass")}
     return res, judge_list(best, best_ref, tag + " best-only", ref["metrics"])
@@ -2366,8 +2404,9 @@ def cluster_lists(dev, smi):
                   f"({time.perf_counter() - t:.1f} s)", flush=True)
     print(f"(a) K1 on a cluster vs plain: {len(cases)} cases at {len(CLUSTER_SEEDS)} draws, list and "
           f"best-only, {differ} frames differ, all {ties} near-ties; max |info LLR diff| {k1_err:.3e}")
-    # a batch whose scratch does not fit the free memory goes in launches of
-    # `cluster_batch` frames: here the free bytes are pinned to 10 frames'
+    # a batch whose scratch cannot be allocated goes in launches of
+    # `alloc_scratch` frames: here the card's room is pinned to 10 frames'
+    # scratch (an allocation of more raises the card's out-of-memory error)
     rng = np.random.default_rng(CLUSTER_SEEDS[0])
     llr_np, msg = make_llrs(rng, CLUSTER_B, 2.0, construct_info_set(N, K))
     x = torch.from_numpy(llr_np).to(dev)
@@ -2376,16 +2415,22 @@ def cluster_lists(dev, smi):
     xp = pac_llrs(rng, CLUSTER_B, 2.0, (N, K, PAC_CRC), PAC_GEN, mask, dev)
     whole = (decode_scl_cuda(x, construct_info_set(N, K), 2048, CRC, force_info_bits=plan, full=True),
              pac_list_decode_cuda(xp, mask, PAC_GEN, 2048, *PAC_CRC, full=True))
-    free_bytes = scl_cuda.card_free_bytes
+    alloc_scratch = scl_cuda.alloc_scratch
+
+    def ten_frames(B, one, alloc, free, what):
+        def pinned(frames):
+            if frames > 10:
+                raise torch.cuda.OutOfMemoryError(f"{frames} frames, past the 10 pinned")
+            return alloc(frames)
+        return alloc_scratch(B, one, pinned, lambda: one * 100 // 9 + 100, what)
+
     reset_counts()
-    try:  # 10 frames' scratch over nine tenths
-        g1, g3 = scl_cuda.launch_plan(N, K, 2048, CLUSTER_B)[0], pac_plan(N, K + PAC_CRC[0], 2048)[0]
-        scl_cuda.card_free_bytes = lambda d: scl_cuda.scratch_bytes(100, N, K, 2048, g1) // 9 + 100
-        pac_cuda.card_free_bytes = lambda d: pac_cuda.scratch_bytes(100, N, K + PAC_CRC[0], 2048, g3) // 9 + 100
+    try:
+        scl_cuda.alloc_scratch = pac_cuda.alloc_scratch = ten_frames
         split = (decode_scl_cuda(x, construct_info_set(N, K), 2048, CRC, force_info_bits=plan, full=True),
                  pac_list_decode_cuda(xp, mask, PAC_GEN, 2048, *PAC_CRC, full=True))
     finally:
-        scl_cuda.card_free_bytes = pac_cuda.card_free_bytes = free_bytes
+        scl_cuda.alloc_scratch = pac_cuda.alloc_scratch = alloc_scratch
     torch.cuda.synchronize()
     want = -(-CLUSTER_B // 10)
     check((decode_scl_cuda.cluster_launches, pac_list_decode_cuda.cluster_launches) == (want, want),
@@ -2394,7 +2439,7 @@ def cluster_lists(dev, smi):
     for a, b in zip(whole, split):
         for f in a:
             check(torch.equal(a[f], b[f]), f"(a) a split cluster batch's {f} differs from one launch's")
-    print(f"  (a) K1 and K3 at M = L = 2048, B={CLUSTER_B} with the free memory pinned to 10 frames' "
+    print(f"  (a) K1 and K3 at M = L = 2048, B={CLUSTER_B} with the card's room pinned to 10 frames' "
           f"scratch: {want} launches each, every output equal to one launch's", flush=True)
 
     # ---- (b) against the JAX golden files ----
@@ -2540,9 +2585,11 @@ def cluster_lists(dev, smi):
     llr = torch.from_numpy(make_llrs(np.random.default_rng(5), B, 5.0, info)[0]).to(dev)
     entries = {}
     for M in (1024, 2048, 4096, 8192):  # over warps beside the cluster
+        before = decode_scl_cuda.launches
         ms = cuda_time_ms(lambda M=M: decode_scl_cuda(llr, info, M, CRC), reps=2, warmup=1)
         b_ms, b_by = bound(*scl_work(info, M, B))
-        line = f"  K1 P(128,64) M={M} CRC B={B} 5.0 dB: {ms:.4f} ms"
+        line = (f"  K1 P(128,64) M={M} CRC B={B} 5.0 dB: {ms:.4f} ms ({(decode_scl_cuda.launches - before) / 3:g} "
+                f"launches a call)")
         if M == 2048:
             plain_ms = cuda_time_ms(lambda: decode_scl_batch(llr, info, M, CRC, dtype=torch.float32), reps=1,
                                     warmup=0)
@@ -2592,6 +2639,456 @@ def cluster_lists(dev, smi):
              "launches": launches[k], "max_abs_err": errors[k], "ms": entries[k][0], "plain_ms": entries[k][1],
              "bound_ms": entries[k][2], "bound_by": entries[k][3], "library_ms": None}
             for k in ("scl_cluster", "pac_cluster")]
+
+
+LONG_SEED = 20261201
+# (a): the plain version's call costs 9–17 s at N=16384 and 40–75 s at
+# N=65536 on an H100's host whatever the batch (it steps through N phases;
+# the host's speed moved it by half between two runs), so a case is one
+# draw of a few frames, and the phase runs the plain calls `LONG_WORKERS`
+# at once in worker processes (`plain_reference`), the longest first: those
+# at N=65536, then those at M or L >= 1024 (about 36 s at N=16384 beside
+# 12-16 s at the other list sizes when six run at once).
+# K1 against the plain version, list and best-only: (N, K, M, frames,
+# forced plans); beside the golden file's M 1 (byte words), 8 (by path at
+# LM=8, where the byte words give way) and 32 (the wide LM=32) at N=16384:
+LONG_K1 = ((16384, 8192, 16, 8, True),  # the wide LM=16, with plans
+           (16384, 8192, 64, 4, False),  # over warps, 8-bit σ fields and trace entries
+           (16384, 8192, 1024, 4, False),  # the wide over-warps twin (16-bit)
+           (16384, 8192, 2048, 2, False),  # a cluster, σ rows of 52 B, G = n − 3
+           (65536, 65536, 1, 1, False),  # byte words, a trace of K = 65536 bytes in shared memory
+           (65536, 32768, 8, 1, False),  # by path at LM=8, its 30 σ fields full
+           (65536, 65536, 8, 1, False),  # the same with a trace of N rows
+           (65536, 32768, 32, 1, False),  # the wide LM=32's 30 fields full
+           (65536, 65536, 32, 1, False),  # the same with a trace of N rows
+           (65536, 256, 2048, 1, False))  # a cluster at n = 16
+# (a): K3 against the plain version, every list field and best-only: (N,
+# payload, L, frames); beside the golden file's L=8 at N=16384:
+LONG_K3 = ((16384, 8192, 16, 2),  # the wide one-lane LM=16
+           (16384, 8192, 32, 4),  # the wide one-lane LM=32
+           (16384, 8192, 64, 2),  # over warps, 8-bit
+           (16384, 8192, 256, 2),  # the wide over-warps twin (16-bit)
+           (16384, 8192, 2048, 1),  # a cluster, G = n − 3
+           (65536, 240, 8, 1),  # one path a lane at n = 16, the trace's Kp rows in global scratch
+           (65536, 240, 2048, 1))  # a cluster at G = n − 2
+LONG_WORKERS = 6  # plain calls at once: each holds a host core, of the 8 beside an H100 here
+LONG_SNR = 1.25  # dB: P(16384,8192) at M=8 decodes most frames, M=1 about half (the golden file)
+# (c): the FER CLI at P(16384,8192) `gaussian_bitrev` CRC-24A M=8, 8 DL-SCL
+# retries, no β: N, K, frames, batch, Eb/N0; the scalar and legacy calls at
+# the same (N, K)
+LONG_FER = (16384, 8192, 4096, 1024, 1.25)
+LONG_TIME_B = (1024, 64)  # (d): frames of the timed launches; at M and L >= 1024
+# (c): a batch whose scratch the card cannot allocate, split after the
+# failed allocation: K1 over warps at P(128,64) M=64, 65536 frames (3.4 GB
+# of scratch), with the card's free memory held to about half of it
+LONG_SPLIT = (64, 65536)
+
+
+def plain_reference(kind, args, device="cuda"):
+    """One plain decode on `device`, in a worker process of phase 16:
+    `plain_fields` of the SCL decoder (kind "scl": LLRs, info set, M, CRC,
+    plan) or the PAC decoder's list fields (kind "pac": LLRs, mask, gen, L,
+    CRC length and polynomial), as numpy arrays, and the call's seconds on
+    the host clock."""
+
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    dev = torch.device(device)
+    t = time.perf_counter()
+    if kind == "scl":
+        from polar_code_tpu_torch.ops.scl import decode_scl_batch
+
+        llr, info, M, crc, plan = args
+        res = plain_fields(decode_scl_batch(
+            torch.from_numpy(llr).to(dev), info, M, crc, dtype=torch.float32,
+            force_info_bits=None if plan is None else torch.from_numpy(plan).to(dev)))
+    else:
+        from polar_code_tpu_torch.legacy.pac import pac_list_decode_batch
+
+        llr, mask, gen, L, crc_len, crc_poly = args
+        out = pac_list_decode_batch(torch.from_numpy(llr).to(dev), mask, gen, L, crc_len=crc_len,
+                                    crc_poly=crc_poly)
+        res = {f: out[f].cpu().numpy() for f in PAC_LIST_FIELDS}
+    return res, time.perf_counter() - t
+
+
+def long_codes(dev, smi):
+    """Phase 16: K1 and K3 at code lengths 16384..65536 against the plain
+    versions and the JAX golden file, the FER CLI at P(16384,8192) M=8 and
+    the scalar and legacy calls at N=16384, and their times.  Returns the
+    `kernels` entries of K1 and K3 at these lengths."""
+
+    import torch
+
+    from polar_code_tpu_torch import _build
+    from polar_code_tpu_torch.eval import run_fer_sweep
+    from polar_code_tpu_torch.legacy import pac_cuda
+    from polar_code_tpu_torch.legacy.crclib import crc as legacy_crc
+    from polar_code_tpu_torch.legacy.pac import pac_decode, pac_list_decode_batch
+    from polar_code_tpu_torch.legacy.pac_cuda import pac_list_decode_cuda
+    from polar_code_tpu_torch.legacy.polar_code import PolarCode
+    from polar_code_tpu_torch.legacy.rate_profile import rateprofile
+    from polar_code_tpu_torch.ops import scl_cuda
+    from polar_code_tpu_torch.ops.polar_transform import polar_transform
+    from polar_code_tpu_torch.ops.scl import decode_scl_batch
+    from polar_code_tpu_torch.polar.api import decode_scl
+    from polar_code_tpu_torch.polar.construct import construct_info_set
+
+    decode_scl_cuda = scl_cuda.decode_scl_cuda
+    wrappers = (decode_scl_cuda, pac_list_decode_cuda)
+    plains = (decode_scl_batch, pac_list_decode_batch)
+    t_phase = time.perf_counter()
+
+    def reset_counts():
+        for f in wrappers:
+            f.launches = 0
+        for f in plains:
+            f.cuda_calls = 0
+
+    # ---- (d), first part: registers and spills of the new instantiations, and the plans ----
+    for source in (scl_cuda.SOURCE, pac_cuda.SOURCE):  # built in phase 2: this reads the kept log
+        for row in ptxas_report(_build.build(source).log):
+            if "_wide_kernel" in row["entry"]:
+                print(f"  ptxas {row['entry']}: {row['regs']} registers, spills {row['spill_stores']} B "
+                      f"stores / {row['spill_loads']} B loads")
+                check("list" in row["entry"] or not row["spill_stores"],
+                      f"the best-only {row['entry']} spills {row['spill_stores']} B")
+    info_of = {}
+
+    def code_info(n_c, k_c):
+        if (n_c, k_c) not in info_of:
+            info_of[n_c, k_c] = (np.arange(n_c) if k_c == n_c
+                                 else construct_info_set(n_c, k_c, method="gaussian_bitrev"))
+        return info_of[n_c, k_c]
+
+    def k1_layout(n_c, M):
+        if M > scl_cuda.DEEP_MAX_M:
+            return f"a cluster of {scl_cuda.cluster_blocks(M)} blocks"
+        if M > scl_cuda.PATH_MAX_M:
+            wide = M > 128 and n_c > 8192
+            return f"over warps, {scl_cuda.trace_entry_bytes(M) * 8}-bit entries{', wide' if wide else ''}"
+        if scl_cuda.byte_words(M, n_c):
+            return "byte words"
+        LM = scl_cuda.path_width(M)
+        wide = 2 * int(math.log2(n_c)) - 2 > scl_cuda.NARROW_SIGMA_FIELDS[LM]
+        return f"by path, LM={LM}{', wide' if wide else ''}"
+
+    def k3_layout(n_p, L):
+        if L > scl_cuda.DEEP_MAX_M:
+            return f"a cluster of {scl_cuda.cluster_blocks(L)} blocks"
+        if L > scl_cuda.PATH_MAX_M:
+            wide = L > 128 and n_p > 8192
+            return f"over warps, {scl_cuda.trace_entry_bytes(L) * 8}-bit entries{', wide' if wide else ''}"
+        LM = 1 << (L - 1).bit_length()
+        wide = 2 * int(math.log2(n_p)) - 2 > scl_cuda.NARROW_SIGMA_FIELDS.get(LM, 32)
+        return f"one path a lane, LM={LM}{', wide' if wide else ''}"
+
+    def long_split():
+        """(c): a batch whose scratch the card cannot allocate goes in
+        several launches (`scl_cuda.alloc_scratch`): K1 over warps at
+        P(128,64), `LONG_SPLIT`, once with the card's memory free and once
+        with all but about half the batch's scratch held by a blocker
+        tensor; every output equal."""
+
+        M, B = LONG_SPLIT
+        info = construct_info_set(N, K)
+        x = torch.from_numpy(make_llrs(np.random.default_rng(LONG_SEED + 2), B, 3.0, info)[0]).to(dev)
+        whole = decode_scl_cuda(x, info, M, CRC)
+        torch.cuda.synchronize()
+        one = scl_cuda.scratch_bytes(1, N, K, M, scl_cuda.launch_plan(N, K, M, B)[0])
+        torch.cuda.empty_cache()
+        blocker = torch.empty((scl_cuda.card_free_bytes(dev) - one * B // 2,), dtype=torch.uint8, device=dev)
+        try:
+            free = scl_cuda.card_free_bytes(dev)
+            reset_counts()
+            split = decode_scl_cuda(x, info, M, CRC)
+            torch.cuda.synchronize()
+            launches = decode_scl_cuda.launches
+        finally:
+            del blocker
+            torch.cuda.empty_cache()
+        print(f"(c) a batch the card cannot allocate: K1 P({N},{K}) M={M} ({k1_layout(N, M)}) B={B}, "
+              f"{B * one} bytes of scratch, with {free} bytes free (a blocker tensor holds the rest): "
+              f"{launches} launches", flush=True)
+        check(launches >= 2, f"a batch of {B * one} bytes of scratch with {free} bytes free went in {launches} "
+              f"launch(es)")
+        for f in whole:
+            check(torch.equal(whole[f], split[f]), f"(c) the split batch's {f} differs from one launch's")
+
+    gold = np.load(GOLDEN / "scl_f32_long.npz")
+    gold_cases = json.loads(str(gold["cases"]))
+    # every K1 and K3 shape of the phase: the golden file's, then (a)'s
+    k1_shapes = ([(c["N"], c["K"], c["M"]) for c in gold_cases if c["kind"] == "scl"]
+                 + [c[:3] for c in LONG_K1])
+    k3_shapes = ([(c["N"], c["K"], c["L"]) for c in gold_cases if c["kind"] == "pac"]
+                 + [c[:3] for c in LONG_K3])
+    for n_c, k_c, M in k1_shapes:
+        B = LONG_TIME_B[1] if M >= 1024 else LONG_TIME_B[0]
+        g, fpb, per_sm = scl_cuda.launch_plan(n_c, k_c, M, B)
+        print(f"  K1 N={n_c} K={k_c} M={M} ({k1_layout(n_c, M)}) at B={B}: levels 1..{g} in global "
+              f"scratch ({scl_cuda.scratch_bytes(1, n_c, k_c, M, g)} B a frame); "
+              f"{scl_cuda.frame_bytes(n_c, k_c, M, g)} B shared a {'block' if M > 1024 else 'frame'}; "
+              f"{fpb} frames a block; {per_sm} frames {'at once' if M > 1024 else 'an SM'}")
+    for n_p, k_p, L in k3_shapes:
+        g, fpb, per_sm = pac_cuda.launch_plan(n_p, k_p + PAC_CRC[0], L)
+        print(f"  K3 N={n_p} Kp={k_p + PAC_CRC[0]} L={L}: levels 1..{g} in global scratch "
+              f"({pac_cuda.scratch_bytes(1, n_p, k_p + PAC_CRC[0], L, g)} B a frame); "
+              f"{pac_cuda.frame_bytes(n_p, k_p + PAC_CRC[0], L, g)} B shared a {'block' if L > 1024 else 'frame'}"
+              f"; {fpb} frames a block; {per_sm} frames {'at once' if L > 1024 else 'an SM'}", flush=True)
+
+    def long_path():
+        """(c): the FER CLI at P(16384,8192) M=8 through K1, and the scalar
+        and legacy calls at N=16384.  Returns (K1 launches of the sweep, the
+        scalar calls' K1 and K3 launches)."""
+
+        n_f, k_f, frames, batch, snr = LONG_FER
+        reset_counts()
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+            rows = run_fer_sweep.main([
+                "--M", "8", "--N", str(n_f), "--K", str(k_f), "--construction", "gaussian_bitrev",
+                "--snr_lo", str(snr), "--snr_hi", str(snr), "--snr_step", "0.5", "--retries", "8",
+                "--batch", str(batch), "--frames", str(frames), "--seed", "0",
+                "--out_dir", f"{tmp}/results", "--plot_dir", f"{tmp}/plots"])
+            torch.cuda.synchronize()
+        fer_s = time.perf_counter() - t
+        fer_launches, plain = decode_scl_cuda.launches, sum(f.cuda_calls for f in plains)
+        steps = frames // batch
+        row = rows[0]
+        print(f"(c) FER CLI P({n_f},{k_f}) gaussian_bitrev CRC-24A M=8, 8 retries, no β, {snr} dB: {frames} frames "
+              f"at B={batch}: FER SCL {row['fer_scl']:.6e}, DL-SCL {row['fer_dl']:.6e}; {fer_launches} K1 launches "
+              f"over {steps} steps; plain decoders on CUDA {plain} times; {frames / fer_s:.0f} frames/s "
+              f"({fer_s:.1f} s, host clock, beside (a)'s plain calls in their workers)")
+        check(len(rows) == 1 and all(math.isfinite(row[k]) and 0.0 <= row[k] < 1.0 for k in ("fer_scl", "fer_dl")),
+              f"the FER sweep at N={n_f} gave {rows}")
+        check(fer_launches >= steps + (8 if row["fer_scl"] > 0 else 0),
+              f"the FER sweep at N={n_f} launched K1 {fer_launches} times over {steps} steps")
+        check(plain == 0, f"a plain decoder ran on CUDA in the FER sweep at N={n_f}")
+
+        info_f = code_info(n_f, k_f)
+        llr_np, _ = make_llrs(np.random.default_rng(LONG_SEED), 1, 2.0, info_f, n=n_f)
+        crc16 = legacy_crc(*PAC_CRC)
+        pac_mask_f = pac_mask(n_f, k_f + PAC_CRC[0])
+        pc = PolarCode(n_f, k_f + PAC_CRC[0], "dega", 8, rateprofile(n_f, k_f + PAC_CRC[0], 2.0, 0))
+        rng = np.random.default_rng(LONG_SEED + 1)
+        msg = rng.integers(0, 2, (1, k_f)).astype(np.int8)
+        msg = np.concatenate([msg, crc16.crcCalc_batch(msg)], axis=1)
+        nv = 1.0 / (2.0 * (k_f / n_f) * 10 ** (2.0 / 10.0))
+        sys_cw = pc.encode(msg[0], True)
+        sys_llr = (2.0 * (1.0 - 2.0 * sys_cw + rng.normal(0.0, math.sqrt(nv), sys_cw.shape)) / nv).astype(np.float32)
+        pac_x = pac_llrs(rng, 1, 2.0, (n_f, k_f, PAC_CRC), PAC_GEN, pac_mask_f, dev)
+        reset_counts()
+        scl_out = decode_scl(llr_np[0], info_f, 8, CRC)
+        legacy_out = pac_decode(pac_x, pac_mask_f, PAC_GEN, 8, crc_len=PAC_CRC[0], crc_poly=PAC_CRC[1])
+        sys_out = pc.pac_list_crc_decoder(sys_llr, True, True, crc16, 8)
+        torch.cuda.synchronize()
+        scalar = tuple(f.launches for f in wrappers)
+        plain = tuple(f.cuda_calls for f in plains)
+        print(f"(c) decode_scl P({n_f},{k_f}) M=8, pac_decode PAC({n_f},{k_f})+CRC-16 L=8 and the systematic "
+              f"PolarCode({n_f}, {k_f + PAC_CRC[0]}) L=8 decoder, one frame each at 2.0 dB: K1/K3 launches {scalar}; "
+              f"plain decoders on CUDA {plain}")
+        check(scalar == (1, 2) and plain == (0, 0), f"the scalar calls launched {scalar}, plain {plain}")
+        batch_out = decode_scl_cuda(torch.from_numpy(llr_np).to(dev), info_f, 8, CRC, full=True)
+        check(np.array_equal(scl_out["best_path_bits"], batch_out["best_path_bits"][0].cpu().numpy()),
+              "decode_scl at N=16384 differs from K1's batch launch")
+        want = pac_list_decode_cuda(pac_x, pac_mask_f, PAC_GEN, 8, *PAC_CRC)["extracted"]
+        check(torch.equal(legacy_out["extracted"], want), "pac_decode at N=16384 differs from K3's batch launch")
+        lst = pac_list_decode_cuda(torch.from_numpy(sys_llr)[None].to(dev), pc.polarcode_mask, pc.gen, 8, *PAC_CRC,
+                                   full=True)
+        coded = polar_transform(lst["v_full"][0].to(torch.int8)).cpu().numpy()[:, np.asarray(pc.polarcode_mask) == 1]
+        valid = lst["valid"][0].cpu().numpy()
+        pick = next((c for c, v in zip(coded.astype(int), valid) if v and sum(crc16.crcCalc(c)) == 0),
+                    coded[0].astype(int))
+        check(np.array_equal(sys_out, pick), "the systematic PolarCode at N=16384 differs from K3's list launch")
+        print(f"  each equal to its batch kernel's launch on the same frame; K1's batch crc pass "
+              f"{bool(batch_out['crc_pass'][0])}, pac_decode crc pass {bool(legacy_out['crc_pass'][0])}, PolarCode "
+              f"decoded the sent message: {bool(np.array_equal(sys_out, msg[0]))}", flush=True)
+
+        return fer_launches, scalar
+
+    # ---- (a) and (b): the kernels against the plain versions, and both against JAX ----
+    # every plain call of (a) and (b) goes to the workers at once, the
+    # longest first (N=65536, then M or L >= 1024); (c) runs while they work
+    jobs, inputs = {}, {}
+    for case in (c for c in gold_cases if c["kind"] == "scl"):
+        llr_np = gold[f"{case['code']}/llr"]
+        jobs[case["name"]] = ("scl", (llr_np, gold[f"{case['code']}/info"], case["M"], case["crc"], None))
+    for n_c, k_c, M, B, use_plan in LONG_K1:
+        rng = np.random.default_rng(LONG_SEED + n_c + M)
+        info_c = code_info(n_c, k_c)
+        llr_np, msg = make_llrs(rng, B, LONG_SNR, info_c, n=n_c)
+        plan_np = random_plan(rng, msg) if use_plan else None
+        inputs["K1", n_c, k_c, M] = (llr_np, plan_np)
+        jobs["K1", n_c, k_c, M] = ("scl", (llr_np, info_c, M, CRC, plan_np))
+    for case in (c for c in gold_cases if c["kind"] == "pac"):
+        name = case["name"]
+        jobs[name] = ("pac", (gold[f"{name}/llr"], gold[f"{name}/mask"], case["gen"], case["L"], case["crc_len"],
+                              case["crc_poly"]))
+    for n_p, k_p, L, B in LONG_K3:
+        mask = pac_mask(n_p, k_p + PAC_CRC[0])
+        x = pac_llrs(np.random.default_rng(LONG_SEED + n_p + L), B, LONG_SNR, (n_p, k_p, PAC_CRC), PAC_GEN, mask,
+                     dev)
+        inputs["K3", n_p, k_p, L] = (x, mask)
+        jobs["K3", n_p, k_p, L] = ("pac", (x.cpu().numpy(), mask, PAC_GEN, L, *PAC_CRC))
+    def cost(key):  # the code length, then list sizes of 1024 and more
+        kind, args = jobs[key]
+        return args[0].shape[1], args[2 if kind == "scl" else 3] >= 1024
+
+    order = sorted(jobs, key=cost, reverse=True)
+    pool = ProcessPoolExecutor(LONG_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = {key: pool.submit(plain_reference, *jobs[key], str(dev)) for key in order}
+        t_pool = time.perf_counter()
+        print(f"  {len(jobs)} plain calls submitted to {LONG_WORKERS} worker processes", flush=True)
+        fer_launches, scalar = long_path()
+
+        def plain_of(key):
+            res, secs = futures[key].result()
+            plain_s[key] = secs
+            return res
+
+        differ = ties = 0
+        k1_err = 0.0
+        plain_s = {}
+        for case in (c for c in gold_cases if c["kind"] == "scl"):
+            tag, code, M = case["name"], case["code"], case["M"]
+            x = torch.from_numpy(gold[f"{code}/llr"]).to(dev)
+            kept = {}
+            (d, t_, e), (db, tb, eb) = k1_vs_plain(x, gold[f"{code}/info"], M, case["crc"], None,
+                                                    f"(a) P({case['N']},{case['K']}) M={M} golden LLRs",
+                                                    keep=kept, ref=plain_of(tag))
+            check(d + db == 0, f"(a) {tag}: K1 differs from the plain version in {d + db} frames, {t_ + tb} "
+                  f"of them near-ties: the kernel runs the plain version's float operations")
+            differ, ties, k1_err = differ + d + db, ties + t_ + tb, max(k1_err, e, eb)
+            # (b): K1's list and the plain version against the JAX float32 decoder's outputs
+            ref = {"best_path_bits": gold[f"{tag}/bits"], "best_path_info_llrs": gold[f"{tag}/llrs"],
+                   "crc_pass": gold[f"{tag}/crc_pass"], "metrics": gold[f"{tag}/metrics"]}
+            check(ref["metrics"].shape == tuple(kept["k1"]["metrics"].shape), f"{tag}: golden metrics shape")
+            dj, tj, _ = judge_list(kept["k1"], ref, f"(b) vs JAX f32 {tag}")
+            dp, tp, _ = judge_list({f: torch.from_numpy(v) for f, v in kept["plain"].items()}, ref,
+                                   f"(b) plain vs JAX f32 {tag}", kept["plain"]["metrics"])
+            print(f"  (a), (b) P({case['N']},{case['K']}) M={M} ({k1_layout(case['N'], M)}) on the golden "
+                  f"file's {x.shape[0]} frames: K1 list and best-only equal to the plain version; K1 {dj} and "
+                  f"the plain version {dp} frames from JAX float32 ({tj}, {tp} near-ties); crc pass "
+                  f"{int(ref['crc_pass'].sum())}", flush=True)
+        for n_c, k_c, M, B, use_plan in LONG_K1:
+            llr_np, plan_np = inputs["K1", n_c, k_c, M]
+            plan = torch.from_numpy(plan_np).to(dev) if use_plan else None
+            tag = f"(a) P({n_c},{k_c}) M={M} ({k1_layout(n_c, M)}) plan={'on' if use_plan else 'off'} B={B}"
+            (d, t_, e), (db, tb, eb) = k1_vs_plain(torch.from_numpy(llr_np).to(dev), code_info(n_c, k_c), M,
+                                                    CRC, plan, tag, ref=plain_of(("K1", n_c, k_c, M)))
+            check(d + db == 0, f"{tag}: K1 differs from the plain version in {d + db} frames, {t_ + tb} of "
+                  f"them near-ties: the kernel runs the plain version's float operations")
+            differ, ties, k1_err = differ + d + db, ties + t_ + tb, max(k1_err, e, eb)
+            print(f"  {tag}: list and best-only equal to the plain version", flush=True)
+        print(f"(a) K1 at N 16384-65536 vs plain: {len(k1_shapes)} cases, list and best-only, {differ} frames "
+              f"differ (none allowed); max |info LLR diff| {k1_err:.3e}")
+
+        k3_err = 0.0
+        for case in (c for c in gold_cases if c["kind"] == "pac"):
+            name = case["name"]
+            x = torch.from_numpy(gold[f"{name}/llr"]).to(dev)
+            ref = {f: torch.from_numpy(v) for f, v in plain_of(name).items()}
+            out = pac_list_decode_cuda(x, gold[f"{name}/mask"], case["gen"], case["L"], case["crc_len"],
+                                       case["crc_poly"], full=True)
+            k3_err = max(k3_err, k3_list_vs_plain(x, gold[f"{name}/mask"], case["gen"], case["L"],
+                                                  case["crc_len"], case["crc_poly"], f"(a) {name}", out=out,
+                                                  ref=ref))
+            best = pac_list_decode_cuda(x, gold[f"{name}/mask"], case["gen"], case["L"], case["crc_len"],
+                                        case["crc_poly"])
+            for f in ("extracted", "crc_pass"):
+                check(torch.equal(best[f].cpu(), ref[f]), f"(a) {name} best-only: K3's {f} differs")
+            for f in ("extracted", "crc_pass", "metrics", "v_full", "candidates"):
+                want = gold[f"{name}/{f}"]
+                for who, have in (("K3", out[f]), ("the plain version", ref[f])):
+                    have = have.cpu().numpy()
+                    check(have.shape == want.shape and np.array_equal(have.astype(want.dtype), want),
+                          f"(b) {who} {name}: {f} differs from the JAX decoder's")
+            print(f"  (a), (b) {name} on the golden file's {x.shape[0]} frames: K3 list and best-only equal to "
+                  f"the plain version, and K3 and the plain version equal to the JAX decoder in every field; crc "
+                  f"pass {int(gold[f'{name}/crc_pass'].sum())}", flush=True)
+        for n_p, k_p, L, B in LONG_K3:
+            x, mask = inputs["K3", n_p, k_p, L]
+            tag = f"(a) PAC({n_p},{k_p})+CRC-16 L={L} ({k3_layout(n_p, L)}) B={B}"
+            ref = {f: torch.from_numpy(v) for f, v in plain_of(("K3", n_p, k_p, L)).items()}
+            k3_err = max(k3_err, k3_list_vs_plain(x, mask, PAC_GEN, L, *PAC_CRC, tag, ref=ref))
+            best = pac_list_decode_cuda(x, mask, PAC_GEN, L, *PAC_CRC)
+            for f in ("extracted", "crc_pass"):
+                check(torch.equal(best[f].cpu(), ref[f]), f"{tag} best-only: K3's {f} differs from the plain "
+                      f"version")
+            print(f"  {tag}: list ({', '.join(PAC_LIST_FIELDS)}) and best-only equal to the plain version; crc "
+                  f"pass {int(ref['crc_pass'].sum())}", flush=True)
+        print(f"(a) K3 at N 16384-65536 vs plain: {len(k3_shapes)} cases, every list field and best-only equal "
+              f"(max |diff| {k3_err}); (b) K1 and K3 and their plain versions against the JAX golden file: "
+              f"{len(gold_cases)} cases")
+        print(f"  the plain calls in {LONG_WORKERS} workers: {time.perf_counter() - t_pool:.1f} s from submission "
+              f"to the last comparison (host clock); each call's own seconds:")
+        for key in order:
+            print(f"    {key}: {plain_s[key]:.1f} s")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    long_split()
+
+    # ---- (d) times with CUDA events ----
+    print(f"long-code times on {smi}:")
+    entries = {}
+    for n_c, k_c, M in k1_shapes:
+        B = LONG_TIME_B[1] if M >= 1024 else LONG_TIME_B[0]
+        info_c = code_info(n_c, k_c)
+        x = torch.from_numpy(make_llrs(np.random.default_rng(9), B, LONG_SNR, info_c, n=n_c)[0]).to(dev)
+        ms = cuda_time_ms(lambda: decode_scl_cuda(x, info_c, M, CRC), reps=1, warmup=1)
+        b_ms, b_by = bound(*scl_work(info_c, M, B, n=n_c, k=k_c))
+        g, fpb, per_sm = scl_cuda.launch_plan(n_c, k_c, M, B)
+        line = (f"  K1 P({n_c},{k_c}) M={M} ({k1_layout(n_c, M)}) CRC B={B} {LONG_SNR} dB: {ms:.4f} ms; bound "
+                f"{b_ms:.6f} ms ({b_by}); G={g}, {fpb} frames a block, {per_sm} frames "
+                f"{'at once' if M > 1024 else 'an SM'}")
+        if (n_c, M) == (LONG_FER[0], 8):  # the path's code: the `kernels` line
+            plain_ms = cuda_time_ms(lambda: decode_scl_batch(x, info_c, M, CRC, dtype=torch.float32), reps=1,
+                                    warmup=0)
+            entries["scl"] = (ms, plain_ms, b_ms, b_by)
+            line += f"; plain {plain_ms:.4f} ms"
+        print(line, flush=True)
+    for n_p, k_p, L in k3_shapes:
+        B = LONG_TIME_B[1] if L >= 1024 else LONG_TIME_B[0]
+        mask = pac_mask(n_p, k_p + PAC_CRC[0])
+        x = pac_llrs(np.random.default_rng(10), B, LONG_SNR, (n_p, k_p, PAC_CRC), PAC_GEN, mask, dev)
+        ms = cuda_time_ms(lambda: pac_list_decode_cuda(x, mask, PAC_GEN, L, *PAC_CRC), reps=1, warmup=1)
+        b_ms, b_by = bound(*pac_work(mask, L, B))
+        g, fpb, per_sm = pac_cuda.launch_plan(n_p, k_p + PAC_CRC[0], L)
+        line = (f"  K3 PAC({n_p},{k_p})+CRC-16 L={L} B={B} {LONG_SNR} dB: {ms:.4f} ms; bound {b_ms:.6f} ms "
+                f"({b_by}); G={g}, {fpb} frames a block, {per_sm} frames {'at once' if L > 1024 else 'an SM'}")
+        if (n_p, L) == (LONG_FER[0], 8):
+            plain_ms = cuda_time_ms(lambda: pac_list_decode_batch(x, mask, PAC_GEN, L, crc_len=PAC_CRC[0],
+                                                                  crc_poly=PAC_CRC[1]), reps=1, warmup=0)
+            entries["pac"] = (ms, plain_ms, b_ms, b_by)
+            line += f"; plain {plain_ms:.4f} ms"
+        print(line, flush=True)
+
+    print(f"phase long_codes (a)-(d): {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- (e) the SASS of the N <= 8192 instantiations against the parent's ----
+    parent = REPO / "smoke_checkout" / "parent"
+    if (parent / "polar_code_tpu_torch" / "csrc").is_dir():
+        out = subprocess.run([sys.executable, str(REPO / "tools" / "compare_sass.py"), "--repo", str(parent)],
+                             capture_output=True, text=True, timeout=600)
+        print(out.stdout.rstrip())
+        summary = [ln for ln in out.stdout.splitlines() if "kernels with the same SASS" in ln]
+        print(f"(e) SASS against {parent}: {'; '.join(summary) or out.stderr[-500:]}")
+    else:
+        print("(e) SASS: no parent checkout in smoke_checkout/parent here; `tools/compare_sass.py --repo "
+              "<parent>` compares the N <= 8192 instantiations in a call of their own (PERF.md, §6)")
+
+    launches = {"scl": fer_launches + scalar[0], "pac": scalar[1]}
+    errors = {"scl": k1_err, "pac": k3_err}
+    names = {"scl": ("scl_decode (N 16384-65536)", "polar_code_tpu_torch/csrc/scl_decode.cu",
+                     "polar_code_tpu/ops/scl_pallas.py:293"),
+             "pac": ("pac_decode (N 16384-65536)", "polar_code_tpu_torch/csrc/pac_decode.cu",
+                     "polar_code_tpu/legacy/pac_pallas.py:59")}
+    return [{"name": names[k][0], "route": "cuda", "source": names[k][1], "replaces": names[k][2],
+             "launches": launches[k], "max_abs_err": errors[k], "ms": entries[k][0], "plain_ms": entries[k][1],
+             "bound_ms": entries[k][2], "bound_by": entries[k][3], "library_ms": None}
+            for k in ("scl", "pac")]
 
 
 def main():
@@ -3313,7 +3810,11 @@ def main():
     cluster_entries = cluster_lists(dev, smi)
     phase_done("15 cluster_lists")
 
-    # ---- 16. result lines ----
+    # ---- 16. code lengths past 8192 ----
+    long_entries = long_codes(dev, smi)
+    phase_done("16 long_codes")
+
+    # ---- 17. result lines ----
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by = nms_times[f"{IRA[0]} two-min 2.5 dB B=4096"]
     print(json.dumps({"kernels": [{
         "name": "scl_decode",
@@ -3352,7 +3853,7 @@ def main():
         "bound_ms": pac_bound_ms,
         "bound_by": pac_bound_by,
         "library_ms": None,
-    }] + wide_entries + deep_entries + cluster_entries}))
+    }] + wide_entries + deep_entries + cluster_entries + long_entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind, "count": count}}))
     return 0

@@ -41,12 +41,17 @@ __device__ __forceinline__ float g_update(float a, float b, uint8_t c) {
 // physical row that holds the path's data for σ level f (fields 0..n−2: LLR
 // levels 1..n−1; fields n−1..2n−3: bit levels 2..n).  LM is the list size
 // rounded up to a power of two; it sizes the fields: 32 / log2(LM) fields a
-// word, 1-4 words (`ops/scl_cuda.py::SIGMA_FIELDS` counts them).
-template <int LM>
+// word, 1-4 words, enough for n <= 13 (24 fields at LM 16 and 32).  WIDE
+// adds a word, for the LM 16 and 32 instantiations that take n 14..16 (30
+// fields: 32 at LM=16, 30 at LM=32); LM 2, 4 and 8 already hold 30
+// (`ops/scl_cuda.py::SIGMA_FIELDS` counts them).
+template <int LM, bool WIDE = false>
 struct PathSigma {
   static constexpr int kBits = LM <= 2 ? 1 : LM == 4 ? 2 : LM == 8 ? 3 : LM == 16 ? 4 : 5;
   static constexpr int kFields = 32 / kBits;  // fields a word
-  static constexpr int kWords = LM <= 2 ? 1 : LM == 4 ? 2 : LM <= 16 ? 3 : 4;
+  static constexpr int kWords = (LM <= 2 ? 1 : LM == 4 ? 2 : LM <= 16 ? 3 : 4) + WIDE;
+  // whether the words hold a code of 2^n: 2n − 2 fields
+  static __host__ __device__ constexpr bool holds(int n) { return 2 * n - 2 <= kWords * kFields; }
   unsigned w[kWords];
 
   // every field holding path m itself: the identity map
@@ -83,16 +88,20 @@ struct PathSigma {
 // The σ fields a level write resets, per word, built on the host for one
 // (n, LM) and passed by value, so that a phase indexes them with its
 // warp-uniform levels: llr[l] the fields of LLR levels l..n−1, bit[l] the
-// field of bit level l.
-struct ResetMasks {
-  unsigned llr[MAX_LEVELS + 1][4];
-  unsigned bit[MAX_LEVELS + 1][4];
+// field of bit level l.  W words: 4 for the instantiations that take n <=
+// 13, 5 for the wide ones.
+template <int W>
+struct ResetMasksOf {
+  unsigned llr[MAX_LEVELS + 1][W];
+  unsigned bit[MAX_LEVELS + 1][W];
 };
+using ResetMasks = ResetMasksOf<4>;
+using WideResetMasks = ResetMasksOf<5>;
 
-template <int LM>
-ResetMasks reset_masks(int n) {
-  using S = PathSigma<LM>;
-  ResetMasks r = {};
+template <int LM, bool WIDE = false>
+ResetMasksOf<WIDE ? 5 : 4> reset_masks(int n) {
+  using S = PathSigma<LM, WIDE>;
+  ResetMasksOf<WIDE ? 5 : 4> r = {};
   auto set = [&](unsigned* words, int f) {
     words[f / S::kFields] |= ((1u << S::kBits) - 1u) << (S::kBits * (f % S::kFields));
   };
@@ -171,6 +180,10 @@ __device__ __forceinline__ void path_chain_pass(uint8_t* st, int ststride, const
 #define DEEP_MIN_M 33    // list sizes below go one path a lane of a warp
 #define DEEP_MAX_M 1024  // one thread a path, a block at most
 #define DEEP_SIGMA_WORDS 12  // 32-bit words of a σ row at most: 2n−2 = 24 fields of 2 bytes
+// the same at n 14..16 (30 fields of 2 bytes: 15 words), for the wide
+// over-warps instantiations; their fork copies a row in halves of 8 words
+#define DEEP_WIDE_SIGMA_WORDS 16
+#define DEEP_FORK_WORDS 8
 
 __host__ __device__ __forceinline__ int round16(int x) { return (x + 15) & ~15; }
 __host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
@@ -194,7 +207,7 @@ __host__ __device__ __forceinline__ int sort_keys(int M) {
 // deep_frame_bytes` is the same reckoning.
 struct DeepLayout {
   int sig, keys, ls, words, bs, sel, total;
-  int sig_row;  // bytes of a path's σ row: 4..48, a multiple of 4
+  int sig_row;  // bytes of a path's σ row: 4..60, a multiple of 4
 };
 
 __host__ __device__ __forceinline__ DeepLayout deep_layout(int N, int n, int M, int G,
@@ -213,8 +226,9 @@ __host__ __device__ __forceinline__ DeepLayout deep_layout(int N, int n, int M, 
   return d;
 }
 
-// σ of every path, a row of `row` entries a path in shared memory.
-template <typename T>
+// σ of every path, a row of `row` entries a path in shared memory; a row
+// of WORDS 32-bit words at most.
+template <typename T, int WORDS = DEEP_SIGMA_WORDS>
 struct DeepSigma {
   T* tab;
   int row;  // entries a path's row
@@ -235,20 +249,38 @@ struct DeepSigma {
     if (extra >= 0) tab[i * row + extra] = (T)id;
   }
   // σ ← σ[parent] for every path at once: each active thread copies its
-  // parent's row through registers, between two block barriers.  Every
-  // thread of the block calls it.
+  // parent's row through registers, between two block barriers (a wide row
+  // in halves: words 0..7, then 8..15, whose reads follow only the first
+  // half's writes).  Every thread of the block calls it.
   __device__ __forceinline__ void fork(int m, int parent, bool active) {
-    unsigned v[DEEP_SIGMA_WORDS];
-    const unsigned* src = reinterpret_cast<const unsigned*>(tab + parent * row);
+    if constexpr (WORDS <= DEEP_SIGMA_WORDS) {
+      unsigned v[DEEP_SIGMA_WORDS];
+      const unsigned* src = reinterpret_cast<const unsigned*>(tab + parent * row);
 #pragma unroll
-    for (int k = 0; k < DEEP_SIGMA_WORDS; ++k)
-      if (active && k < words) v[k] = src[k];
-    __syncthreads();
-    unsigned* dst = reinterpret_cast<unsigned*>(tab + m * row);
+      for (int k = 0; k < DEEP_SIGMA_WORDS; ++k)
+        if (active && k < words) v[k] = src[k];
+      __syncthreads();
+      unsigned* dst = reinterpret_cast<unsigned*>(tab + m * row);
 #pragma unroll
-    for (int k = 0; k < DEEP_SIGMA_WORDS; ++k)
-      if (active && k < words) dst[k] = v[k];
-    __syncthreads();
+      for (int k = 0; k < DEEP_SIGMA_WORDS; ++k)
+        if (active && k < words) dst[k] = v[k];
+      __syncthreads();
+    } else {
+      const unsigned* src = reinterpret_cast<const unsigned*>(tab + parent * row);
+      unsigned* dst = reinterpret_cast<unsigned*>(tab + m * row);
+#pragma unroll
+      for (int h = 0; h < WORDS; h += DEEP_FORK_WORDS) {
+        unsigned v[DEEP_FORK_WORDS];
+#pragma unroll
+        for (int k = 0; k < DEEP_FORK_WORDS; ++k)
+          if (active && h + k < words) v[k] = src[h + k];
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < DEEP_FORK_WORDS; ++k)
+          if (active && h + k < words) dst[h + k] = v[k];
+        __syncthreads();
+      }
+    }
   }
 };
 
@@ -456,6 +488,12 @@ __device__ __forceinline__ void block_sort_keys(unsigned long long* keys, unsign
 // behind a later sort's barriers).  A tree row another block reads through
 // σ was written before the fork that σ records, and so before that fork's
 // sort barriers.
+//
+// Offsets.  Every kernel takes a frame's base in 64 bits (frame · its size)
+// and indexes within the frame with 32-bit products; the largest are here.
+// At N = 65536 and M = 8192 a trace entry info_i·M + m and a list row's
+// start m·N reach 2^29, and a global tree row's start r·(N − (N >> G)) is
+// below 8191 · 65535 < 2^29: a quarter of 2^31.
 // ---------------------------------------------------------------------------
 
 #define CLUSTER_THREADS 1024  // threads a block of a cluster frame: one a path
@@ -488,7 +526,7 @@ __host__ __device__ __forceinline__ int cluster_exchanges(int P) {
 // `ops/scl_cuda.py::cluster_block_bytes` is the same reckoning.
 struct ClusterLayout {
   int sig, sig2, keys, words, ls, bs, sel, total;
-  int sig_row;  // bytes of a path's σ row: 4..48, a multiple of 4
+  int sig_row;  // bytes of a path's σ row: 4..60, a multiple of 4
   int word_set;  // bytes of one set of published words
 };
 
@@ -548,7 +586,8 @@ __device__ __forceinline__ const T* cluster_row(const T* local, int r, int strid
 // phase on, and `sig`'s is the next fork's target, which writes it behind
 // that fork's sort barriers, after every block's reads here.  Two tables,
 // where one would hold the row in registers across a cluster barrier (12
-// words at n = 13, past the 64-register cap).  Every thread of the block
+// words at n = 13, 15 at n = 16, past the 64-register cap); the copy's
+// loop takes a row of any n up to MAX_LEVELS.  Every thread of the block
 // calls it.
 __device__ __forceinline__ void cluster_sigma_fork(const DeepSigma<uint16_t>& sig, uint16_t* next,
                                                    int tid, int parent, bool active) {
@@ -714,6 +753,20 @@ __device__ __forceinline__ unsigned long long cluster_key(unsigned long long* so
 }
 
 // ---- host side ----
+
+// Whether the one-path-a-lane kernels of width LM take their wide twin at
+// n: only LM 16 and 32 have one, and their narrow words hold n <= 13.
+template <int LM>
+bool path_wide(int n) {
+  return LM >= 16 && !PathSigma<LM>::holds(n);
+}
+
+// Whether an over-warps σ row of T entries at n outgrows the fork's
+// DEEP_SIGMA_WORDS registers: 16-bit entries past n = 13.
+template <typename T>
+bool deep_wide(int n) {
+  return round4((2 * n - 2) * (int)sizeof(T)) > 4 * DEEP_SIGMA_WORDS;
+}
 
 // Let a kernel take more than 48 KB of dynamic shared memory.
 template <typename Kern>

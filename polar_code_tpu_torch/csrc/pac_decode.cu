@@ -60,7 +60,8 @@
 // byte-word layout by level, one word of M bytes a level, serves M ≤ 8 only:
 // at L=32 a level's map is 160 bits, and a fork would permute 32 fields in
 // every word, where here it moves whole words.  `legacy/pac_cuda.py::SIGMA_FIELDS` bounds n by the
-// fields the words hold.  A phase's resets — the LLR levels its descent
+// fields the words hold: past n = 13 (N 16384..65536) LM 16 and 32 run the
+// wide twins pac_decode_wide_kernel<LM>, one more word a lane.  A phase's resets — the LLR levels its descent
 // writes and the bit level the previous phase's chain stored — are applied
 // together at the phase's start, one bitwise select a word with masks the
 // host builds for (n, LM): no read through σ falls between those writes and
@@ -81,7 +82,8 @@
 // writes 2·parent + v into its trace slot.  The selected rank is a
 // min-reduction.  T, the width of a trace entry and a σ field, is a byte up
 // to L = 128 and 16 bits above; the trace lives in global scratch, and
-// shared memory holds tree levels.
+// shared memory holds tree levels.  Past n = 13 a 16-bit σ row outgrows the
+// fork's 12 registers, and pac_deep_wide_kernel copies it in two halves.
 //
 // On a cluster, the instantiations pac_cluster_kernel<LIST> (L 1025..8192):
 // the SCL kernel's cluster layout (`scl_decode.cu`, `list_decode.cuh`), a
@@ -181,25 +183,28 @@ __device__ __forceinline__ void channel_pass(float* dst, const uint8_t* dbits, i
 // is the list size itself.  LM=2 alone asks for 7 blocks an SM: left to
 // itself ptxas gives it 126 registers (16 frames an SM) and it ran 13%
 // slower at B=65536 than with 70; a bound of 0 is none, and any explicit
-// bound on LM >= 4 (even 1) made those slower (PERF.md, §6).
-template <int LM, bool LIST>
-__global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, LM == 2 ? 7 : 0) pac_decode_kernel(
-    const float* __restrict__ llr,        // [B, N] channel LLRs, natural order
-    const uint32_t* __restrict__ hcols,   // [Kp] CRC check-matrix columns, phase order
-    const int* __restrict__ sched,        // [N] phase words (scl_schedule.phase_words)
-    float* glob_llr,                      // [B, L, N-(N>>G)], null when G == 0
-    uint8_t* glob_bits,                   // [B, L, N-(N>>G)], null when G == 0
-    uint8_t* trace_idx,                   // [B, Kp, round16(L)]: the trace, in global scratch
-    int8_t* __restrict__ out_bits,        // [B, Kp]
-    uint8_t* __restrict__ out_pass,       // [B]
-    const int* __restrict__ out_pos,      // [Kp] ascending-u output index of each info phase
-    const int* __restrict__ u_pos,        // [Kp] u index of each info phase, LIST only
-    int8_t* __restrict__ list_v,          // [B, L, N], LIST only
-    int8_t* __restrict__ list_bits,       // [B, L, Kp], LIST only
-    float* __restrict__ list_metrics,     // [B, L], LIST only
-    int* __restrict__ list_best,          // [B], LIST only
+// bound on LM >= 4 (even 1) made those slower (PERF.md, §6).  This is the
+// body of pac_decode_kernel (σ in PathSigma<LM>'s words: n <= 13 at LM 16
+// and 32) and of pac_decode_wide_kernel (WIDE: one more word, n 14..16);
+// the kernels' pointer arguments carry the __restrict__ qualifiers.
+template <int LM, bool LIST, bool WIDE, typename Masks>
+__device__ __forceinline__ void pac_path_decode(
+    const float* llr,          // [B, N] channel LLRs, natural order
+    const uint32_t* hcols,     // [Kp] CRC check-matrix columns, phase order
+    const int* sched,          // [N] phase words (scl_schedule.phase_words)
+    float* glob_llr,           // [B, L, N-(N>>G)], null when G == 0
+    uint8_t* glob_bits,        // [B, L, N-(N>>G)], null when G == 0
+    uint8_t* trace_idx,        // [B, Kp, round16(L)]: the trace, in global scratch
+    int8_t* out_bits,          // [B, Kp]
+    uint8_t* out_pass,         // [B]
+    const int* out_pos,        // [Kp] ascending-u output index of each info phase
+    const int* u_pos,          // [Kp] u index of each info phase, LIST only
+    int8_t* list_v,            // [B, L, N], LIST only
+    int8_t* list_bits,         // [B, L, Kp], LIST only
+    float* list_metrics,       // [B, L], LIST only
+    int* list_best,            // [B], LIST only
     int B, int N, int n, int Kp, int L, int G, unsigned mem_mask, unsigned tap_mask,
-    int use_crc, int frame_bytes, int frames_per_block, const ResetMasks masks) {
+    int use_crc, int frame_bytes, int frames_per_block, const Masks& masks) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -223,8 +228,8 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, LM == 2 ? 7 : 0) pa
   auto so = [&](int l) { return (N >> G) - (N >> (l - 1)); };
   auto go = [&](int l) { return N - (N >> (l - 1)); };
 
-  const unsigned sig_id = PathSigma<LM>::identity(lane);
-  PathSigma<LM> sig;  // lane m < L: σ of path m; field l−1: LLR level l, n+l−3: bit level l
+  const unsigned sig_id = PathSigma<LM, WIDE>::identity(lane);
+  PathSigma<LM, WIDE> sig;  // lane m < L: σ of path m; field l−1: LLR level l, n+l−3: bit level l
   sig.init(sig_id);
   float pm = (lane == 0) ? 0.f : PAC_BIG;  // lane m < L: metric of slot m
   unsigned reg = 0;                         // lane m < L: shift register of slot m
@@ -260,9 +265,9 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, LM == 2 ? 7 : 0) pa
       // the write and this reset: the descent reads level l0−1 through σ,
       // the leaf level n−1 only at a g leaf (l0 = n), and the chain's reads
       // come after this phase's fork.
-      unsigned r[PathSigma<LM>::kWords];
+      unsigned r[PathSigma<LM, WIDE>::kWords];
 #pragma unroll
-      for (int k = 0; k < PathSigma<LM>::kWords; ++k) r[k] = masks.llr[l0][k] | masks.bit[s_prev][k];
+      for (int k = 0; k < PathSigma<LM, WIDE>::kWords; ++k) r[k] = masks.llr[l0][k] | masks.bit[s_prev][k];
       sig.reset(r, sig_id);
     }
 
@@ -463,6 +468,33 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, LM == 2 ? 7 : 0) pa
   }
 }
 
+#define PAC_PATH_PARAMS                                                                          \
+  const float* __restrict__ llr, const uint32_t* __restrict__ hcols,                             \
+      const int* __restrict__ sched, float* glob_llr, uint8_t* glob_bits, uint8_t* trace_idx,    \
+      int8_t* __restrict__ out_bits, uint8_t* __restrict__ out_pass,                             \
+      const int* __restrict__ out_pos, const int* __restrict__ u_pos,                            \
+      int8_t* __restrict__ list_v, int8_t* __restrict__ list_bits,                               \
+      float* __restrict__ list_metrics, int* __restrict__ list_best, int B, int N, int n, int Kp, \
+      int L, int G, unsigned mem_mask, unsigned tap_mask, int use_crc, int frame_bytes,          \
+      int frames_per_block
+#define PAC_PATH_ARGS                                                                           \
+  llr, hcols, sched, glob_llr, glob_bits, trace_idx, out_bits, out_pass, out_pos, u_pos, list_v, \
+      list_bits, list_metrics, list_best, B, N, n, Kp, L, G, mem_mask, tap_mask, use_crc,       \
+      frame_bytes, frames_per_block, masks
+
+template <int LM, bool LIST>
+__global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, LM == 2 ? 7 : 0)
+    pac_decode_kernel(PAC_PATH_PARAMS, const ResetMasks masks) {
+  pac_path_decode<LM, LIST, false>(PAC_PATH_ARGS);
+}
+
+// LM 16 and 32 at N 16384..65536: σ in one more word
+template <int LM, bool LIST>
+__global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, 0)
+    pac_decode_wide_kernel(PAC_PATH_PARAMS, const WideResetMasks masks) {
+  pac_path_decode<LM, LIST, true>(PAC_PATH_ARGS);
+}
+
 // ---------------------------------------------------------------------------
 // Over warps: list sizes 33..1024, one frame a block, one thread a path.
 // ---------------------------------------------------------------------------
@@ -473,17 +505,17 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, LM == 2 ? 7 : 0) pa
 // (`DeepSigma`), and a fork reads the parent's candidates, leaf, syndrome
 // and shift register from shared memory behind a block barrier.  T is the
 // width of a trace entry and a σ field.  It computes what
-// pac_decode_kernel computes.
-template <typename T, bool LIST>
-__global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_kernel(
-    const float* __restrict__ llr, const uint32_t* __restrict__ hcols,
-    const int* __restrict__ sched, const int* __restrict__ phase_of, float* glob_llr,
-    uint8_t* glob_bits,
+// pac_decode_kernel computes.  The body of pac_deep_kernel (σ rows of
+// DEEP_SIGMA_WORDS words at most: n <= 13 at 16-bit fields) and of
+// pac_deep_wide_kernel (WORDS = DEEP_WIDE_SIGMA_WORDS: n 14..16).
+template <typename T, bool LIST, int WORDS>
+__device__ __forceinline__ void pac_deep_decode(
+    const float* llr, const uint32_t* hcols, const int* sched, const int* phase_of,
+    float* glob_llr, uint8_t* glob_bits,
     T* trace_idx,  // [B, Kp, L]: the trace, in global scratch
-    int8_t* __restrict__ out_bits, uint8_t* __restrict__ out_pass, const int* __restrict__ out_pos,
-    const int* __restrict__ u_pos, int8_t* __restrict__ list_v, int8_t* __restrict__ list_bits,
-    float* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int Kp, int L,
-    int G, unsigned mem_mask, unsigned tap_mask, int use_crc) {
+    int8_t* out_bits, uint8_t* out_pass, const int* out_pos, const int* u_pos, int8_t* list_v,
+    int8_t* list_bits, float* list_metrics, int* list_best, int N, int n, int Kp, int L, int G,
+    unsigned mem_mask, unsigned tap_mask, int use_crc) {
   extern __shared__ __align__(16) unsigned char smem[];
   const long long frame = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -492,8 +524,8 @@ __global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_kernel(
   const DeepLayout lay = deep_layout(N, n, L, G, sizeof(T), 3);
   const int SS = (N >> G) - 1;
   const int SG = N - (N >> G);
-  DeepSigma<T> sig{reinterpret_cast<T*>(smem + lay.sig), lay.sig_row / (int)sizeof(T),
-                   lay.sig_row / 4};
+  DeepSigma<T, WORDS> sig{reinterpret_cast<T*>(smem + lay.sig), lay.sig_row / (int)sizeof(T),
+                          lay.sig_row / 4};
   unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem + lay.keys);
   float* Ls = reinterpret_cast<float*>(smem + lay.ls);
   float* leafS = reinterpret_cast<float*>(smem + lay.words);
@@ -678,6 +710,30 @@ __global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_kernel(
   }
   __syncthreads();
   for (int j = tid; j < Kp; j += nt) out_bits[frame * Kp + j] = (int8_t)TI[phase_of[j] * L];
+}
+
+#define PAC_DEEP_PARAMS(T)                                                                       \
+  const float* __restrict__ llr, const uint32_t* __restrict__ hcols,                             \
+      const int* __restrict__ sched, const int* __restrict__ phase_of, float* glob_llr,          \
+      uint8_t* glob_bits, T* trace_idx, int8_t* __restrict__ out_bits,                           \
+      uint8_t* __restrict__ out_pass, const int* __restrict__ out_pos,                           \
+      const int* __restrict__ u_pos, int8_t* __restrict__ list_v, int8_t* __restrict__ list_bits, \
+      float* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int Kp, int L, \
+      int G, unsigned mem_mask, unsigned tap_mask, int use_crc
+#define PAC_DEEP_ARGS                                                                            \
+  llr, hcols, sched, phase_of, glob_llr, glob_bits, trace_idx, out_bits, out_pass, out_pos,      \
+      u_pos, list_v, list_bits, list_metrics, list_best, N, n, Kp, L, G, mem_mask, tap_mask,     \
+      use_crc
+
+template <typename T, bool LIST>
+__global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_kernel(PAC_DEEP_PARAMS(T)) {
+  pac_deep_decode<T, LIST, DEEP_SIGMA_WORDS>(PAC_DEEP_ARGS);
+}
+
+// 16-bit entries (L 129..1024) at N 16384..65536: σ rows of up to 15 words
+template <bool LIST>
+__global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_wide_kernel(PAC_DEEP_PARAMS(uint16_t)) {
+  pac_deep_decode<uint16_t, LIST, DEEP_WIDE_SIGMA_WORDS>(PAC_DEEP_ARGS);
 }
 
 // ---------------------------------------------------------------------------
@@ -952,17 +1008,28 @@ struct Args {
   int use_crc, frame_bytes, frames_per_block;
 };
 
-template <int LM, bool LIST>
+// the one-path-a-lane kernel of width LM: pac_decode_kernel, or WIDE (LM 16
+// and 32 past n = 13) pac_decode_wide_kernel
+template <int LM, bool LIST, bool WIDE>
+auto path_kernel() {
+  if constexpr (WIDE)
+    return pac_decode_wide_kernel<LM, LIST>;
+  else
+    return pac_decode_kernel<LM, LIST>;
+}
+
+template <int LM, bool LIST, bool WIDE>
 int launch_as(const Args& a, uint8_t* trace_idx, cudaStream_t stream) {
+  const auto kernel = path_kernel<LM, LIST, WIDE>();
   const size_t smem = (size_t)a.frame_bytes * a.frames_per_block;
-  cudaError_t err = set_smem(pac_decode_kernel<LM, LIST>, smem);
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (a.B + a.frames_per_block - 1) / a.frames_per_block;
-  pac_decode_kernel<LM, LIST><<<blocks, 32 * a.frames_per_block, smem, stream>>>(
+  kernel<<<blocks, 32 * a.frames_per_block, smem, stream>>>(
       a.llr, a.hcols, a.sched, a.glob_llr, a.glob_bits, trace_idx, a.out_bits, a.out_pass,
       a.out_pos, a.u_pos, a.list_v, a.list_bits, a.list_metrics, a.list_best, a.B, a.N, a.n,
       a.Kp, a.L, a.G, a.mem_mask, a.tap_mask, a.use_crc, a.frame_bytes, a.frames_per_block,
-      reset_masks<LM>(a.n));
+      reset_masks<LM, WIDE>(a.n));
   return (int)cudaGetLastError();
 }
 
@@ -974,36 +1041,54 @@ int launch(const Args& a, void* trace_idx, cudaStream_t stream) {
   // trace a chunk of rows at a time
   // (one path: no trace, no ring)
   if ((LM > 1 && !trace_idx) || !a.out_pos || a.n > MAX_LEVELS ||
-      (LM > 1 && 2 * a.n - 2 > PathSigma<LM>::kWords * PathSigma<LM>::kFields) ||
-      a.frame_bytes % 16 ||
+      (LM > 1 && !PathSigma<LM, (LM >= 16)>::holds(a.n)) || a.frame_bytes % 16 ||
       a.frame_bytes < round16(5 * a.L * ((a.N >> a.G) - 1)) + (LM > 1 ? TRACE_RING * round16(a.L) : 0))
     return (int)cudaErrorInvalidValue;
   uint8_t* ti = static_cast<uint8_t*>(trace_idx);
-  return a.list_v ? launch_as<LM, true>(a, ti, stream) : launch_as<LM, false>(a, ti, stream);
+  if constexpr (LM >= 16)
+    if (path_wide<LM>(a.n))
+      return a.list_v ? launch_as<LM, true, true>(a, ti, stream) : launch_as<LM, false, true>(a, ti, stream);
+  return a.list_v ? launch_as<LM, true, false>(a, ti, stream) : launch_as<LM, false, false>(a, ti, stream);
 }
 
-template <typename T, bool LIST>
+// the over-warps kernel: pac_deep_kernel<T>, or WIDE (16-bit entries past
+// n = 13) pac_deep_wide_kernel
+template <typename T, bool LIST, bool WIDE>
+auto deep_kernel() {
+  if constexpr (WIDE)
+    return pac_deep_wide_kernel<LIST>;
+  else
+    return pac_deep_kernel<T, LIST>;
+}
+
+template <typename T, bool LIST, bool WIDE>
 int launch_deep_as(const Args& a, T* trace_idx, cudaStream_t stream) {
   const DeepLayout lay = deep_layout(a.N, a.n, a.L, a.G, sizeof(T), 3);
-  if (!trace_idx || a.n > MAX_LEVELS || lay.sig_row > 4 * DEEP_SIGMA_WORDS ||
-      lay.total != a.frame_bytes || a.frames_per_block != 1)
+  if (!trace_idx || a.n > MAX_LEVELS ||
+      lay.sig_row > 4 * (WIDE ? DEEP_WIDE_SIGMA_WORDS : DEEP_SIGMA_WORDS) || lay.total != a.frame_bytes ||
+      a.frames_per_block != 1)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = set_smem(pac_deep_kernel<T, LIST>, lay.total);
+  const auto kernel = deep_kernel<T, LIST, WIDE>();
+  cudaError_t err = set_smem(kernel, lay.total);
   if (err != cudaSuccess) return (int)err;
-  pac_deep_kernel<T, LIST><<<a.B, deep_threads(a.L), lay.total, stream>>>(
+  kernel<<<a.B, deep_threads(a.L), lay.total, stream>>>(
       a.llr, a.hcols, a.sched, a.phase_of, a.glob_llr, a.glob_bits, trace_idx, a.out_bits,
       a.out_pass, a.out_pos, a.u_pos, a.list_v, a.list_bits, a.list_metrics, a.list_best, a.N, a.n,
       a.Kp, a.L, a.G, a.mem_mask, a.tap_mask, a.use_crc);
   return (int)cudaGetLastError();
 }
 
-// byte trace entries while 2L <= 256, else 16-bit ones
+// byte trace entries while 2L <= 256, else 16-bit ones (wide past n = 13)
 int launch_deep(const Args& a, void* trace_idx, cudaStream_t stream) {
   if (a.L <= 128)
-    return a.list_v ? launch_deep_as<uint8_t, true>(a, static_cast<uint8_t*>(trace_idx), stream)
-                    : launch_deep_as<uint8_t, false>(a, static_cast<uint8_t*>(trace_idx), stream);
-  return a.list_v ? launch_deep_as<uint16_t, true>(a, static_cast<uint16_t*>(trace_idx), stream)
-                  : launch_deep_as<uint16_t, false>(a, static_cast<uint16_t*>(trace_idx), stream);
+    return a.list_v ? launch_deep_as<uint8_t, true, false>(a, static_cast<uint8_t*>(trace_idx), stream)
+                    : launch_deep_as<uint8_t, false, false>(a, static_cast<uint8_t*>(trace_idx), stream);
+  uint16_t* ti = static_cast<uint16_t*>(trace_idx);
+  if (deep_wide<uint16_t>(a.n))
+    return a.list_v ? launch_deep_as<uint16_t, true, true>(a, ti, stream)
+                    : launch_deep_as<uint16_t, false, true>(a, ti, stream);
+  return a.list_v ? launch_deep_as<uint16_t, true, false>(a, ti, stream)
+                  : launch_deep_as<uint16_t, false, false>(a, ti, stream);
 }
 
 template <bool LIST>
@@ -1012,8 +1097,7 @@ int launch_cluster_as(const Args& a, uint16_t* trace_idx, cudaStream_t stream) {
   // levels 1..G in global scratch, G+1..n in each block's shared memory,
   // one frame a cluster
   if (!trace_idx || (a.G > 0 && (!a.glob_llr || !a.glob_bits)) || a.n > MAX_LEVELS || a.G < 0 ||
-      a.G >= a.n || lay.sig_row > 4 * DEEP_SIGMA_WORDS || lay.total != a.frame_bytes ||
-      a.frames_per_block != 1)
+      a.G >= a.n || lay.total != a.frame_bytes || a.frames_per_block != 1)
     return (int)cudaErrorInvalidValue;
   return launch_cluster_kernel(pac_cluster_kernel<LIST>, a.B, a.L, lay.total, stream, a.llr, a.hcols,
                                a.sched, a.phase_of, a.glob_llr, a.glob_bits, trace_idx, a.out_bits,
@@ -1031,18 +1115,17 @@ int launch_cluster(const Args& a, void* trace_idx, cudaStream_t stream) {
 // frames at once, by the occupancy calculator (shared memory, registers and
 // warps all counted); ties go to more frames a block.  The list
 // instantiation runs on the same plan: it has the same launch bounds.
-template <int LM>
-int plan(int frame_bytes, int max_block_smem, int* frames_per_block, int* frames_per_sm) {
+template <typename Kern>
+int plan(Kern kernel, int frame_bytes, int max_block_smem, int* frames_per_block, int* frames_per_sm) {
   *frames_per_block = 1;
   *frames_per_sm = 0;
   for (int fpb = 1; fpb <= MAX_FRAMES_PER_BLOCK; ++fpb) {
     const size_t smem = (size_t)frame_bytes * fpb;
     if (smem > (size_t)max_block_smem) break;
-    cudaError_t err = set_smem(pac_decode_kernel<LM, false>, smem);
+    cudaError_t err = set_smem(kernel, smem);
     if (err != cudaSuccess) return (int)err;
     int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pac_decode_kernel<LM, false>,
-                                                        32 * fpb, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, 32 * fpb, smem);
     if (err != cudaSuccess) return (int)err;
     if (blocks * fpb >= *frames_per_sm) {
       *frames_per_block = fpb;
@@ -1050,6 +1133,15 @@ int plan(int frame_bytes, int max_block_smem, int* frames_per_block, int* frames
     }
   }
   return 0;
+}
+
+template <int LM>
+int plan_path(int n, int frame_bytes, int max_block_smem, int* frames_per_block, int* frames_per_sm) {
+  if constexpr (LM >= 16)
+    if (path_wide<LM>(n))
+      return plan(pac_decode_wide_kernel<LM, false>, frame_bytes, max_block_smem, frames_per_block,
+                  frames_per_sm);
+  return plan(pac_decode_kernel<LM, false>, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
 }
 
 }  // namespace
@@ -1081,7 +1173,7 @@ extern "C" int pac_decode_launch(const void* llr, const void* hcols, const void*
   return launch<32>(a, trace_idx, st);
 }
 
-extern "C" int pac_launch_plan(int L, int frame_bytes, int max_block_smem, int* frames_per_block,
+extern "C" int pac_launch_plan(int L, int n, int frame_bytes, int max_block_smem, int* frames_per_block,
                                int* frames_per_sm) {
   if (L < 1 || L > CLUSTER_MAX_M) return (int)cudaErrorInvalidValue;
   if (L > DEEP_MAX_M) {  // frames_per_sm: the frames (clusters) the card runs at once
@@ -1089,17 +1181,20 @@ extern "C" int pac_launch_plan(int L, int frame_bytes, int max_block_smem, int* 
     return plan_cluster(pac_cluster_kernel<false>, L, frame_bytes, max_block_smem, frames_per_sm);
   }
   if (L > 128)
-    return plan_deep(pac_deep_kernel<uint16_t, false>, L, frame_bytes, max_block_smem,
-                     frames_per_block, frames_per_sm);
+    return deep_wide<uint16_t>(n)
+               ? plan_deep(pac_deep_wide_kernel<false>, L, frame_bytes, max_block_smem, frames_per_block,
+                           frames_per_sm)
+               : plan_deep(pac_deep_kernel<uint16_t, false>, L, frame_bytes, max_block_smem,
+                           frames_per_block, frames_per_sm);
   if (L >= DEEP_MIN_M)
     return plan_deep(pac_deep_kernel<uint8_t, false>, L, frame_bytes, max_block_smem,
                      frames_per_block, frames_per_sm);
-  if (L == 1) return plan<1>(frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
-  if (L <= 2) return plan<2>(frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
-  if (L <= 4) return plan<4>(frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
-  if (L <= 8) return plan<8>(frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
-  if (L <= 16) return plan<16>(frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
-  return plan<32>(frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+  if (L == 1) return plan_path<1>(n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+  if (L <= 2) return plan_path<2>(n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+  if (L <= 4) return plan_path<4>(n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+  if (L <= 8) return plan_path<8>(n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+  if (L <= 16) return plan_path<16>(n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+  return plan_path<32>(n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
 }
 
 extern "C" const char* pac_error_string(int code) {

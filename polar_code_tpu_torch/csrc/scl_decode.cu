@@ -63,7 +63,11 @@
 //     1..n−1, fields n−1..2n−3 for bit levels 2..n (level 1's bits are read
 //     only by the g of phase N/2, from the path's own row, with no fork
 //     since the chain stored them).  2n−2 = 24 fields at n = 13, which four words of six
-//     5-bit fields hold at LM = 32 (`ops/scl_cuda.py::SIGMA_FIELDS`).  A
+//     5-bit fields hold at LM = 32 (`ops/scl_cuda.py::SIGMA_FIELDS`); past
+//     it (N 16384..65536, 30 fields at n = 16) LM 16 and 32 run the wide
+//     twins scl_path_wide_kernel<LM>, one more word under the same launch
+//     bound, and M ∈ {2, 4, 8} leave the byte words for LM = 8, whose three
+//     words of ten 3-bit fields already hold 30 (`BYTE_WORD_MAX_LEVELS`).  A
 //     fork is one shuffle a word from lane parent[m]; a read through σ is a
 //     field extract in lane m and a shuffle to the lanes that handle path
 //     m's entries.  A phase's resets (the LLR levels its descent writes, the
@@ -100,7 +104,10 @@
 //     the barrier.  The selected rank is a min-reduction (`final_rank`, an
 //     atomicMin in shared memory) where the 32-bit mask of the warp layouts
 //     would overflow.  T, the width of a trace entry 2p+b < 2M and of a σ
-//     field, is a byte up to M = 128 and 16 bits above.
+//     field, is a byte up to M = 128 and 16 bits above.  A 16-bit row past n
+//     = 13 (52-60 bytes) is longer than the fork's 12 registers: the twin
+//     scl_deep_wide_kernel copies it in two halves of 8 words, four block
+//     barriers a fork where the others take two.
 //   * On a cluster, the instantiations scl_cluster_kernel<LIST> (M
 //     1025..8192, a runtime argument).  One thread a path caps a block at
 //     M = 1024 (its threads), and 64 registers a thread at two sort keys;
@@ -118,7 +125,10 @@
 //     or more away cross blocks, one cluster barrier each, the keys in two
 //     exchange buffers in turns), the final rank the same sort over the M
 //     (metric, path) keys, as by path, and the selected rank an atomicMin
-//     on rank 0's word.  16-bit trace entries and σ fields.
+//     on rank 0's word.  16-bit trace entries and σ fields; σ's copy at a
+//     fork loops over a row's words, so this instantiation takes every n up
+//     to 16 as it is (K3 at N = 65536 at G = n − 2, where the rest of a
+//     block leaves too little room for n − 3).
 //
 // Layout.  One warp decodes one frame and a block holds a few frames (over
 // warps: one block a frame; on a cluster, one cluster a frame, each block
@@ -196,6 +206,8 @@
 // blocks of MAX_FRAMES_PER_BLOCK warps an SM that the by-path launch bound
 // asks registers for: 32 frames an SM at 64 registers a thread, which holds
 // a B=4096 launch in one wave on 132 SMs
+// (and to the wide twins' one more σ word: 62 registers best-only, 64 with
+// LIST, no spill, as the others; `PERF.md`)
 #define PATH_MIN_BLOCKS 8
 
 // Which instantiation decodes a list size.  The default build sends M ∈ {1,
@@ -214,6 +226,15 @@
 #endif
 #ifndef SCL_LEAST_PATH_WIDTH
 #define SCL_LEAST_PATH_WIDTH 8
+#endif
+// Past n = 13 (N 16384..65536) M ∈ {2, 4, 8} go by path too, at LM = 8,
+// whose σ words hold the 2n − 2 <= 30 fields: a byte-word frame keeps its
+// trace (K·M bytes) in shared memory, 256 KB at P(65536,32768) M=8, past a
+// block.  M=1 keeps the byte words: its trace of K bytes fits at every K.
+// `tools/time_scl_layouts.py` builds with -DBYTE_WORD_MAX_LEVELS=16 to time
+// the byte words at N=16384 against by path.
+#ifndef BYTE_WORD_MAX_LEVELS
+#define BYTE_WORD_MAX_LEVELS 13
 #endif
 
 namespace {
@@ -540,17 +561,18 @@ __device__ __forceinline__ unsigned long long path_select(float c0, float c1, in
 // scl_decode_kernel computes, at a runtime list size M <= LM.  The trace
 // indices live in global scratch, rows of round16(M) bytes; at the end the
 // frame's shared memory, free of tree levels, takes them a chunk of rows at
-// a time for the walks back.
-template <int LM, bool LIST>
-__global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, PATH_MIN_BLOCKS) scl_path_kernel(
-    const float* __restrict__ llr, const int8_t* __restrict__ forced,
-    const uint32_t* __restrict__ hcols, const int* __restrict__ sched, float* glob_llr,
-    uint8_t* glob_bits, float* trace_llr,
+// a time for the walks back.  The body of scl_path_kernel (σ in
+// PathSigma<LM>'s words: n <= 13 at LM 16 and 32) and of
+// scl_path_wide_kernel (WIDE: one more word, n 14..16); the kernels' pointer
+// arguments carry the __restrict__ qualifiers.
+template <int LM, bool LIST, bool WIDE, typename Masks>
+__device__ __forceinline__ void scl_path_decode(
+    const float* llr, const int8_t* forced, const uint32_t* hcols, const int* sched,
+    float* glob_llr, uint8_t* glob_bits, float* trace_llr,
     uint8_t* trace_idx,  // [B, K, round16(M)]: the trace indices, in global scratch
-    int8_t* __restrict__ out_bits, float* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,
-    int8_t* __restrict__ list_bits, float* __restrict__ list_llrs, float* __restrict__ list_metrics,
-    int* __restrict__ list_best, int B, int N, int n, int K, int M, int G, int use_crc,
-    int frame_bytes, int frames_per_block, const ResetMasks masks) {
+    int8_t* out_bits, float* out_llrs, uint8_t* out_pass, int8_t* list_bits, float* list_llrs,
+    float* list_metrics, int* list_best, int B, int N, int n, int K, int M, int G, int use_crc,
+    int frame_bytes, int frames_per_block, const Masks& masks) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -573,8 +595,8 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, PATH_MIN_BLOCKS) sc
   auto so = [&](int l) { return (N >> G) - (N >> (l - 1)); };
   auto go = [&](int l) { return N - (N >> (l - 1)); };
 
-  const unsigned sig_id = PathSigma<LM>::identity(lane);
-  PathSigma<LM> sig;  // lane m < M: σ of path m
+  const unsigned sig_id = PathSigma<LM, WIDE>::identity(lane);
+  PathSigma<LM, WIDE> sig;  // lane m < M: σ of path m
   sig.init(sig_id);
   float pm = (lane == 0) ? 0.f : SCL_BIG;  // lane m < M: metric of path m
   uint32_t syn = 0;                         // lane m < M: CRC syndrome of path m
@@ -597,9 +619,9 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, PATH_MIN_BLOCKS) sc
       // bit level the previous phase's chain stored, and the LLR levels
       // l0..n−1 this phase's descent writes (`csrc/pac_decode.cu` has why
       // no read through σ falls between those writes and this point)
-      unsigned r[PathSigma<LM>::kWords];
+      unsigned r[PathSigma<LM, WIDE>::kWords];
 #pragma unroll
-      for (int k = 0; k < PathSigma<LM>::kWords; ++k) r[k] = masks.llr[l0][k] | masks.bit[s_prev][k];
+      for (int k = 0; k < PathSigma<LM, WIDE>::kWords; ++k) r[k] = masks.llr[l0][k] | masks.bit[s_prev][k];
       sig.reset(r, sig_id);
     }
 
@@ -746,6 +768,32 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, PATH_MIN_BLOCKS) sc
   }
 }
 
+#define SCL_PATH_PARAMS                                                                          \
+  const float* __restrict__ llr, const int8_t* __restrict__ forced,                              \
+      const uint32_t* __restrict__ hcols, const int* __restrict__ sched, float* glob_llr,        \
+      uint8_t* glob_bits, float* trace_llr, uint8_t* trace_idx, int8_t* __restrict__ out_bits,   \
+      float* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,                              \
+      int8_t* __restrict__ list_bits, float* __restrict__ list_llrs,                             \
+      float* __restrict__ list_metrics, int* __restrict__ list_best, int B, int N, int n, int K, \
+      int M, int G, int use_crc, int frame_bytes, int frames_per_block
+#define SCL_PATH_ARGS                                                                           \
+  llr, forced, hcols, sched, glob_llr, glob_bits, trace_llr, trace_idx, out_bits, out_llrs,     \
+      out_pass, list_bits, list_llrs, list_metrics, list_best, B, N, n, K, M, G, use_crc,       \
+      frame_bytes, frames_per_block, masks
+
+template <int LM, bool LIST>
+__global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, PATH_MIN_BLOCKS)
+    scl_path_kernel(SCL_PATH_PARAMS, const ResetMasks masks) {
+  scl_path_decode<LM, LIST, false>(SCL_PATH_ARGS);
+}
+
+// LM 16 and 32 at N 16384..65536: σ in one more word
+template <int LM, bool LIST>
+__global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, PATH_MIN_BLOCKS)
+    scl_path_wide_kernel(SCL_PATH_PARAMS, const WideResetMasks masks) {
+  scl_path_decode<LM, LIST, true>(SCL_PATH_ARGS);
+}
+
 // ---------------------------------------------------------------------------
 // Over warps: list sizes 33..1024, one frame a block, one thread a path.
 // ---------------------------------------------------------------------------
@@ -755,16 +803,16 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, PATH_MIN_BLOCKS) sc
 // and 2m+1; σ is a table in shared memory (`DeepSigma`), and each exchange
 // between paths is a shared-memory write, a block barrier and a read.  T is
 // the width of a trace entry and a σ field.  It computes what
-// scl_decode_kernel computes.
-template <typename T, bool LIST>
-__global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_kernel(
-    const float* __restrict__ llr, const int8_t* __restrict__ forced,
-    const uint32_t* __restrict__ hcols, const int* __restrict__ sched, float* glob_llr,
-    uint8_t* glob_bits, float* trace_llr,
+// scl_decode_kernel computes.  The body of scl_deep_kernel (σ rows of
+// DEEP_SIGMA_WORDS words at most: n <= 13 at 16-bit fields) and of
+// scl_deep_wide_kernel (WORDS = DEEP_WIDE_SIGMA_WORDS: n 14..16).
+template <typename T, bool LIST, int WORDS>
+__device__ __forceinline__ void scl_deep_decode(
+    const float* llr, const int8_t* forced, const uint32_t* hcols, const int* sched,
+    float* glob_llr, uint8_t* glob_bits, float* trace_llr,
     T* trace_idx,  // [B, K, M]: the trace indices, in global scratch
-    int8_t* __restrict__ out_bits, float* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,
-    int8_t* __restrict__ list_bits, float* __restrict__ list_llrs, float* __restrict__ list_metrics,
-    int* __restrict__ list_best, int N, int n, int K, int M, int G, int use_crc) {
+    int8_t* out_bits, float* out_llrs, uint8_t* out_pass, int8_t* list_bits, float* list_llrs,
+    float* list_metrics, int* list_best, int N, int n, int K, int M, int G, int use_crc) {
   extern __shared__ __align__(16) unsigned char smem[];
   const long long frame = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -773,7 +821,7 @@ __global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_kernel(
   const DeepLayout lay = deep_layout(N, n, M, G, sizeof(T), 2);
   const int SS = (N >> G) - 1;
   const int SG = N - (N >> G);
-  DeepSigma<T> sig{reinterpret_cast<T*>(smem + lay.sig), lay.sig_row / (int)sizeof(T),
+  DeepSigma<T, WORDS> sig{reinterpret_cast<T*>(smem + lay.sig), lay.sig_row / (int)sizeof(T),
                    lay.sig_row / 4};
   unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem + lay.keys);
   float* Ls = reinterpret_cast<float*>(smem + lay.ls);
@@ -939,6 +987,29 @@ __global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_kernel(
     out_bits[frame * K + i] = (int8_t)(r & 1);
     out_llrs[frame * K + i] = TL[i * M + (r >> 1)];
   }
+}
+
+#define SCL_DEEP_PARAMS(T)                                                                       \
+  const float* __restrict__ llr, const int8_t* __restrict__ forced,                              \
+      const uint32_t* __restrict__ hcols, const int* __restrict__ sched, float* glob_llr,        \
+      uint8_t* glob_bits, float* trace_llr, T* trace_idx, int8_t* __restrict__ out_bits,         \
+      float* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,                              \
+      int8_t* __restrict__ list_bits, float* __restrict__ list_llrs,                             \
+      float* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int K, int M, \
+      int G, int use_crc
+#define SCL_DEEP_ARGS                                                                            \
+  llr, forced, hcols, sched, glob_llr, glob_bits, trace_llr, trace_idx, out_bits, out_llrs,      \
+      out_pass, list_bits, list_llrs, list_metrics, list_best, N, n, K, M, G, use_crc
+
+template <typename T, bool LIST>
+__global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_kernel(SCL_DEEP_PARAMS(T)) {
+  scl_deep_decode<T, LIST, DEEP_SIGMA_WORDS>(SCL_DEEP_ARGS);
+}
+
+// 16-bit entries (M 129..1024) at N 16384..65536: σ rows of up to 15 words
+template <bool LIST>
+__global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_wide_kernel(SCL_DEEP_PARAMS(uint16_t)) {
+  scl_deep_decode<uint16_t, LIST, DEEP_WIDE_SIGMA_WORDS>(SCL_DEEP_ARGS);
 }
 
 // ---------------------------------------------------------------------------
@@ -1228,26 +1299,42 @@ int launch_as(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int LM, bool LIST>
+// the by-path kernel of width LM: scl_path_kernel, or WIDE (LM 16 and 32
+// past n = 13) scl_path_wide_kernel
+template <int LM, bool LIST, bool WIDE>
+auto path_kernel() {
+  if constexpr (WIDE)
+    return scl_path_wide_kernel<LM, LIST>;
+  else
+    return scl_path_kernel<LM, LIST>;
+}
+
+template <int LM, bool LIST, bool WIDE>
 int launch_path_as(const Args& a, int M, uint8_t* trace_idx, cudaStream_t stream) {
   // the walks back take the trace a chunk of 16-byte rows at a time through
   // the frame's shared memory: a whole number of them, at least one row
-  if (!trace_idx || a.n > MAX_LEVELS || 2 * a.n - 2 > PathSigma<LM>::kWords * PathSigma<LM>::kFields ||
-      a.frame_bytes % 16 || a.frame_bytes < round16(M))
+  if (!trace_idx || a.n > MAX_LEVELS || !PathSigma<LM, WIDE>::holds(a.n) || a.frame_bytes % 16 ||
+      a.frame_bytes < round16(M))
     return (int)cudaErrorInvalidValue;
+  const auto kernel = path_kernel<LM, LIST, WIDE>();
   const size_t smem = (size_t)a.frame_bytes * a.frames_per_block;
-  cudaError_t err = set_smem(scl_path_kernel<LM, LIST>, smem);
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (a.B + a.frames_per_block - 1) / a.frames_per_block;
-  scl_path_kernel<LM, LIST><<<blocks, 32 * a.frames_per_block, smem, stream>>>(
+  kernel<<<blocks, 32 * a.frames_per_block, smem, stream>>>(
       a.llr, a.forced, a.hcols, a.sched, a.glob_llr, a.glob_bits, a.trace_llr, trace_idx,
       a.out_bits, a.out_llrs, a.out_pass, a.list_bits, a.list_llrs, a.list_metrics, a.list_best,
       a.B, a.N, a.n, a.K, M, a.G, a.use_crc, a.frame_bytes, a.frames_per_block,
-      reset_masks<LM>(a.n));
+      reset_masks<LM, WIDE>(a.n));
   return (int)cudaGetLastError();
 }
 
 // the list instantiation when the list outputs are given, else the sweeps' one
+// whether list size M goes to its byte-word instantiation at n
+bool byte_words(int M, int n) {
+  return (M == 1 || M == 2 || M == 4 || M == 8) && (M == 1 || n <= BYTE_WORD_MAX_LEVELS);
+}
+
 template <int M>
 int launch(const Args& a, cudaStream_t stream) {
   return a.list_bits ? launch_as<M, true>(a, stream) : launch_as<M, false>(a, stream);
@@ -1256,32 +1343,52 @@ int launch(const Args& a, cudaStream_t stream) {
 template <int LM>
 int launch_path(const Args& a, int M, void* trace_idx, cudaStream_t stream) {
   uint8_t* ti = static_cast<uint8_t*>(trace_idx);
-  return a.list_bits ? launch_path_as<LM, true>(a, M, ti, stream)
-                     : launch_path_as<LM, false>(a, M, ti, stream);
+  if constexpr (LM >= 16)
+    if (path_wide<LM>(a.n))
+      return a.list_bits ? launch_path_as<LM, true, true>(a, M, ti, stream)
+                         : launch_path_as<LM, false, true>(a, M, ti, stream);
+  return a.list_bits ? launch_path_as<LM, true, false>(a, M, ti, stream)
+                     : launch_path_as<LM, false, false>(a, M, ti, stream);
 }
 
-template <typename T, bool LIST>
+// the over-warps kernel: scl_deep_kernel<T>, or WIDE (16-bit entries past
+// n = 13) scl_deep_wide_kernel
+template <typename T, bool LIST, bool WIDE>
+auto deep_kernel() {
+  if constexpr (WIDE)
+    return scl_deep_wide_kernel<LIST>;
+  else
+    return scl_deep_kernel<T, LIST>;
+}
+
+template <typename T, bool LIST, bool WIDE>
 int launch_deep_as(const Args& a, int M, T* trace_idx, cudaStream_t stream) {
   const DeepLayout lay = deep_layout(a.N, a.n, M, a.G, sizeof(T), 2);
-  if (!trace_idx || a.n > MAX_LEVELS || lay.sig_row > 4 * DEEP_SIGMA_WORDS ||
-      lay.total != a.frame_bytes || a.frames_per_block != 1)
+  if (!trace_idx || a.n > MAX_LEVELS ||
+      lay.sig_row > 4 * (WIDE ? DEEP_WIDE_SIGMA_WORDS : DEEP_SIGMA_WORDS) || lay.total != a.frame_bytes ||
+      a.frames_per_block != 1)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = set_smem(scl_deep_kernel<T, LIST>, lay.total);
+  const auto kernel = deep_kernel<T, LIST, WIDE>();
+  cudaError_t err = set_smem(kernel, lay.total);
   if (err != cudaSuccess) return (int)err;
-  scl_deep_kernel<T, LIST><<<a.B, deep_threads(M), lay.total, stream>>>(
+  kernel<<<a.B, deep_threads(M), lay.total, stream>>>(
       a.llr, a.forced, a.hcols, a.sched, a.glob_llr, a.glob_bits, a.trace_llr, trace_idx,
       a.out_bits, a.out_llrs, a.out_pass, a.list_bits, a.list_llrs, a.list_metrics, a.list_best,
       a.N, a.n, a.K, M, a.G, a.use_crc);
   return (int)cudaGetLastError();
 }
 
-// byte trace entries while 2M <= 256, else 16-bit ones
+// byte trace entries while 2M <= 256, else 16-bit ones (wide past n = 13)
 int launch_deep(const Args& a, int M, void* trace_idx, cudaStream_t stream) {
   if (M <= 128)
-    return a.list_bits ? launch_deep_as<uint8_t, true>(a, M, static_cast<uint8_t*>(trace_idx), stream)
-                       : launch_deep_as<uint8_t, false>(a, M, static_cast<uint8_t*>(trace_idx), stream);
-  return a.list_bits ? launch_deep_as<uint16_t, true>(a, M, static_cast<uint16_t*>(trace_idx), stream)
-                     : launch_deep_as<uint16_t, false>(a, M, static_cast<uint16_t*>(trace_idx), stream);
+    return a.list_bits ? launch_deep_as<uint8_t, true, false>(a, M, static_cast<uint8_t*>(trace_idx), stream)
+                       : launch_deep_as<uint8_t, false, false>(a, M, static_cast<uint8_t*>(trace_idx), stream);
+  uint16_t* ti = static_cast<uint16_t*>(trace_idx);
+  if (deep_wide<uint16_t>(a.n))
+    return a.list_bits ? launch_deep_as<uint16_t, true, true>(a, M, ti, stream)
+                       : launch_deep_as<uint16_t, false, true>(a, M, ti, stream);
+  return a.list_bits ? launch_deep_as<uint16_t, true, false>(a, M, ti, stream)
+                     : launch_deep_as<uint16_t, false, false>(a, M, ti, stream);
 }
 
 template <bool LIST>
@@ -1290,8 +1397,7 @@ int launch_cluster_as(const Args& a, int M, uint16_t* trace_idx, cudaStream_t st
   // levels 1..G in global scratch, G+1..n in each block's shared memory,
   // one frame a cluster
   if (!trace_idx || (a.G > 0 && (!a.glob_llr || !a.glob_bits)) || a.n > MAX_LEVELS || a.G < 0 ||
-      a.G >= a.n || lay.sig_row > 4 * DEEP_SIGMA_WORDS || lay.total != a.frame_bytes ||
-      a.frames_per_block != 1)
+      a.G >= a.n || lay.total != a.frame_bytes || a.frames_per_block != 1)
     return (int)cudaErrorInvalidValue;
   return launch_cluster_kernel(scl_cluster_kernel<LIST>, a.B, M, lay.total, stream, a.llr, a.forced,
                                a.hcols, a.sched, a.glob_llr, a.glob_bits, a.trace_llr, trace_idx,
@@ -1349,12 +1455,12 @@ extern "C" int scl_decode_launch(const void* llr, const void* forced, const void
                B, N, n, K, G, use_crc, frame_bytes, frames_per_block};
   auto st = static_cast<cudaStream_t>(stream);
 #if !SCL_BY_PATH_ONLY
-  switch (M) {  // the byte-word instantiations, which the sweeps launch
-    case 1: return launch<1>(a, st);
-    case 2: return launch<2>(a, st);
-    case 4: return launch<4>(a, st);
-    case 8: return launch<8>(a, st);
-  }
+  if (byte_words(M, n)) switch (M) {  // the byte-word instantiations, which the sweeps launch
+      case 1: return launch<1>(a, st);
+      case 2: return launch<2>(a, st);
+      case 4: return launch<4>(a, st);
+      case 8: return launch<8>(a, st);
+    }
 #endif
   if (M < 1 || M > CLUSTER_MAX_M) return (int)cudaErrorInvalidValue;
   if (M > DEEP_MAX_M) return launch_cluster(a, M, trace_idx, st);
@@ -1367,17 +1473,17 @@ extern "C" int scl_decode_launch(const void* llr, const void* forced, const void
   return launch_path<32>(a, M, trace_idx, st);
 }
 
-extern "C" int scl_launch_plan(int M, int frame_bytes, int max_block_smem,
+extern "C" int scl_launch_plan(int M, int n, int frame_bytes, int max_block_smem,
                                int* frames_per_block, int* frames_per_sm) {
 #define SCL_PLAN(kernel) \
   return plan(kernel, frame_bytes, max_block_smem, frames_per_block, frames_per_sm)
 #if !SCL_BY_PATH_ONLY
-  switch (M) {
-    case 1: SCL_PLAN((scl_decode_kernel<1, false>));
-    case 2: SCL_PLAN((scl_decode_kernel<2, false>));
-    case 4: SCL_PLAN((scl_decode_kernel<4, false>));
-    case 8: SCL_PLAN((scl_decode_kernel<8, false>));
-  }
+  if (byte_words(M, n)) switch (M) {
+      case 1: SCL_PLAN((scl_decode_kernel<1, false>));
+      case 2: SCL_PLAN((scl_decode_kernel<2, false>));
+      case 4: SCL_PLAN((scl_decode_kernel<4, false>));
+      case 8: SCL_PLAN((scl_decode_kernel<8, false>));
+    }
 #endif
   if (M < 1 || M > CLUSTER_MAX_M) return (int)cudaErrorInvalidValue;
   if (M > DEEP_MAX_M) {  // frames_per_sm: the frames (clusters) the card runs at once
@@ -1385,8 +1491,11 @@ extern "C" int scl_launch_plan(int M, int frame_bytes, int max_block_smem,
     return plan_cluster(scl_cluster_kernel<false>, M, frame_bytes, max_block_smem, frames_per_sm);
   }
   if (M > 128)
-    return plan_deep(scl_deep_kernel<uint16_t, false>, M, frame_bytes, max_block_smem,
-                     frames_per_block, frames_per_sm);
+    return deep_wide<uint16_t>(n)
+               ? plan_deep(scl_deep_wide_kernel<false>, M, frame_bytes, max_block_smem, frames_per_block,
+                           frames_per_sm)
+               : plan_deep(scl_deep_kernel<uint16_t, false>, M, frame_bytes, max_block_smem,
+                           frames_per_block, frames_per_sm);
   if (M >= DEEP_MIN_M)
     return plan_deep(scl_deep_kernel<uint8_t, false>, M, frame_bytes, max_block_smem,
                      frames_per_block, frames_per_sm);
@@ -1394,7 +1503,11 @@ extern "C" int scl_launch_plan(int M, int frame_bytes, int max_block_smem,
   if (M <= 4) SCL_PLAN((scl_path_kernel<4, false>));
 #endif
   if (M <= 8) SCL_PLAN((scl_path_kernel<8, false>));
-  if (M <= 16) SCL_PLAN((scl_path_kernel<16, false>));
+  if (M <= 16) {
+    if (path_wide<16>(n)) SCL_PLAN((scl_path_wide_kernel<16, false>));
+    SCL_PLAN((scl_path_kernel<16, false>));
+  }
+  if (path_wide<32>(n)) SCL_PLAN((scl_path_wide_kernel<32, false>));
   SCL_PLAN((scl_path_kernel<32, false>));
 #undef SCL_PLAN
 }

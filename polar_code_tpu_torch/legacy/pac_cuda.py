@@ -15,15 +15,18 @@ instantiation writes them (the systematic scalar decoder,
 On a CUDA tensor it launches the kernel, or raises for a shape the kernel
 does not take; it runs the plain version (`legacy/pac.py`) only for a tensor
 on the CPU.  The kernel takes every list size from 1 to 8192 (the TPU
-kernel took power-of-two L <= 8, and the JAX package's XLA decoder takes the
-rest), N up to 8192, and any batch size: the last block is masked, since
-the adaptive second stage re-decodes a ragged set of failed frames.  Up to
-L=32 one path is a lane of a warp; from 33 to 1024 a frame is spread over
-the warps of a block, one thread a path (the over-warps instantiation);
-from 1025 to 8192 over a thread-block cluster of
+kernel took power-of-two L <= 8 and N up to 8192, and the JAX package's XLA
+decoder takes the rest), N up to 65536 (the phase words' limit), and any
+batch size: the last block is masked, since the adaptive second stage
+re-decodes a ragged set of failed frames.  Up to L=32 one path is a lane of
+a warp (past N=8192 at L 17..32 and 9..16, a wide twin with one more σ
+word); from 33 to 1024 a frame is spread over the warps of a block, one
+thread a path (the over-warps instantiation, with a wide twin for 16-bit
+σ rows past N=8192); from 1025 to 8192 over a thread-block cluster of
 `ops/scl_cuda.py::cluster_blocks(L)` blocks of 1024 threads, one thread a
-path (the cluster instantiation, whose batch, as the SCL kernel's, goes in
-launches that fit the card's free memory).
+path (the cluster instantiation).  A batch goes, as the SCL kernel's, in
+launches whose global scratch fits the card's free memory
+(`ops/scl_cuda.py::alloc_scratch`).
 `pac_list_decode_cuda.launches` counts kernel launches,
 `pac_list_decode_cuda.list_launches` those of them that went to a list
 instantiation, `pac_list_decode_cuda.deep_launches` those that went to an
@@ -67,9 +70,9 @@ import torch
 from .. import _build
 from ..ops.crc import check_matrix
 from ..ops.scl_cuda import (CLUSTER_MAX_BLOCKS, CLUSTER_THREADS, DEEP_MAX_M, MAX_BLOCK_SMEM, MAX_N,
-                             PATH_MAX_M, SIGMA_FIELDS, card_free_bytes, cluster_batch,
-                             cluster_block_bytes, cluster_blocks, deep_frame_bytes, path_trace_row,
-                             row_ptr, smallest_global_levels, trace_entry_bytes)
+                             PATH_MAX_M, SIGMA_FIELDS, alloc_scratch, card_free_bytes,
+                             cluster_block_bytes, cluster_blocks, deep_frame_bytes, path_trace_row, row_ptr,
+                             smallest_global_levels, trace_entry_bytes)
 from ..ops.scl_schedule import phase_words
 from .pac import bitrev_perm, pac_list_decode_batch
 
@@ -140,7 +143,8 @@ def check_shape(N: int, Kp: int, L: int, gen, crc_len: int, dtype: torch.dtype) 
     n = int(math.log2(N))
     # σ levels (2n − 2 of them) by the list size rounded up to a power of
     # two (`PathSigma` in `csrc/list_decode.cuh`); L=1 has no σ, and over
-    # warps σ is a table that holds n <= 13 (`MAX_N`)
+    # warps and on a cluster σ is a table whose rows hold every n up to
+    # log2(`MAX_N`)
     if 1 < L <= PATH_MAX_M and 2 * n - 2 > SIGMA_FIELDS[1 << (L - 1).bit_length()]:
         raise ValueError(f"the PAC kernel's σ registers do not hold N={N} at L={L}")
     least = frame_bytes(N, Kp, L, n - 1)  # levels 1..n−1 in global scratch: a frame's least
@@ -159,7 +163,7 @@ def _library() -> ctypes.CDLL:
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     )
     lib.pac_decode_launch.restype = ctypes.c_int
-    lib.pac_launch_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.pac_launch_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
     lib.pac_launch_plan.restype = ctypes.c_int
     lib.pac_error_string.argtypes = [ctypes.c_int]
     lib.pac_error_string.restype = ctypes.c_char_p
@@ -173,7 +177,7 @@ def _occupancy(N: int, Kp: int, L: int, G: int) -> tuple:
 
     lib = _library()
     fpb, per_sm = ctypes.c_int(0), ctypes.c_int(0)
-    rc = lib.pac_launch_plan(L, frame_bytes(N, Kp, L, G), MAX_BLOCK_SMEM,
+    rc = lib.pac_launch_plan(L, int(math.log2(N)), frame_bytes(N, Kp, L, G), MAX_BLOCK_SMEM,
                              ctypes.byref(fpb), ctypes.byref(per_sm))
     if rc != 0:
         raise RuntimeError(f"PAC occupancy query failed: {lib.pac_error_string(rc).decode()} ({rc})")
@@ -294,30 +298,28 @@ def _launch(llr, plan, full=False) -> dict:
                    metrics=torch.empty((B, L), dtype=torch.float32, device=dev),
                    best_index=torch.empty((B,), dtype=torch.int32, device=dev))
     if B > 0:
-        step = B
-        if L > DEEP_MAX_M:
-            with torch.cuda.device(dev):
-                step = cluster_batch(B, scratch_bytes(1, N, Kp, L, G), card_free_bytes(dev))
-        # one allocation: the LLR rows (float32) of levels 1..G, their edge
-        # bits, and the trace from a 16-byte boundary
-        # (none at L=1 with G=0)
-        lvl = step * L * (N - (N >> G))
-        ti_at = (5 * lvl + 15) // 16 * 16
-        total = ti_at + step * Kp * _trace_row(L)
-        try:
-            scratch = torch.empty((total,), dtype=torch.uint8, device=dev) if total else None
-        except torch.cuda.OutOfMemoryError as exc:
-            raise RuntimeError(
-                f"the PAC kernel's global scratch for B={step} N={N} Kp={Kp} L={L} is "
-                f"{scratch_bytes(step, N, Kp, L, G)} bytes, more than the card has free: decode in "
-                f"smaller batches") from exc
-        at = scratch.data_ptr() if total else 0
+        # one allocation a launch: the LLR rows (float32) of levels 1..G,
+        # their edge bits, and the trace from a 16-byte boundary (none at L=1
+        # with G=0)
+        def layout(frames):
+            lvl = frames * L * (N - (N >> G))
+            ti_at = (5 * lvl + 15) // 16 * 16
+            return lvl, ti_at, ti_at + frames * Kp * _trace_row(L)
+
+        def scratch(frames):
+            total = layout(frames)[2]
+            return torch.empty((total,), dtype=torch.uint8, device=dev) if total else None
+
+        step, scratch = alloc_scratch(B, scratch_bytes(1, N, Kp, L, G), scratch, lambda: card_free_bytes(dev),
+                                      f"the PAC kernel's global scratch at N={N} Kp={Kp} L={L}")
+        lvl, ti_at, _ = layout(step)
+        at = scratch.data_ptr() if scratch is not None else 0
         glob_llr, glob_bits = (at, at + 4 * lvl) if G else (None, None)
         batch = [llr, out["extracted"], out["crc_pass"]] + [out[f] for f in LIST_FIELDS[:4] if full]
         lib = _library()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            for b0 in range(0, B, step):  # one launch unless a cluster batch is split
+            for b0 in range(0, B, step):  # one launch unless the batch is split
                 rows = [row_ptr(t, b0) for t in batch] if b0 else [t.data_ptr() for t in batch]
                 rc = lib.pac_decode_launch(
                     rows[0], hcols.data_ptr(), sched.data_ptr(), phase_of.data_ptr(), glob_llr,

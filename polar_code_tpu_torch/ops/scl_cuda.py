@@ -21,21 +21,26 @@ that went to the over-warps one and `decode_scl_cuda.cluster_launches`
 those that went to the cluster one.
 
 The kernel takes every list size M from 1 to 8192 (the JAX package's XLA
-decoder takes any M; its TPU kernel power-of-two M <= 8) and N up to 8192
-(the TPU kernel's N envelope).  M ∈ {1, 2, 4, 8} go to the byte-word
-instantiations, which the sweeps launch; M up to 32 to the by-path
+decoder takes any M; its TPU kernel power-of-two M <= 8) and N up to 65536
+(the TPU kernel's N envelope is 8192; the JAX package sends longer codes to
+its XLA decoder, and the kernel's phase words stop at 65536).  M ∈ {1, 2,
+4, 8} go to the byte-word instantiations, which the sweeps launch (up to
+N=8192; above, M=1 alone, `byte_words`); M up to 32 to the by-path
 instantiation of M rounded up to a power of two (`path_width`), one path a
 lane of a warp; M from 33 to 1024 to the over-warps instantiation, one
 frame a block and one thread a path; M from 1025 to 8192 to the cluster
 instantiation, one frame a thread-block cluster of `cluster_blocks(M)`
 blocks of 1024 threads, one thread a path (the source note has the four
-layouts).  A shape whose frame fits no block even with every level but the
-leaf in global scratch (`check_shape`) raises, as does a batch whose global
-scratch does not fit the card: the wrapper names the bytes and shrinks
-nothing, but on a cluster, whose scratch is M·(N − (N >> G))·5 + K·M·6
-bytes a frame (7.7 MB at P(128,64) M=8192, G=3), it splits the batch into
-launches that fit the card's free memory (`cluster_batch`), one launch
-counted each.
+layouts).  Past N=8192 the by-path widths 16 and 32 and the over-warps
+16-bit instantiation have wide twins whose σ holds 2n − 2 = 30 fields.  A
+shape whose frame fits no block even with every level but the leaf in
+global scratch (`check_shape`) raises.  A batch whose global scratch
+(`scratch_bytes`: 4.3 GB a frame at P(65536,32768) M=8192, G=13) cannot be
+allocated goes, in every layout, in launches that fit nine tenths of the
+card's free memory (`alloc_scratch`, `split_batch`), one launch counted
+each; a frame that alone overfills it raises with its bytes named.  The
+card is asked for its free memory only after an allocation failed, so a
+launch that fits pays no query.
 
 Memory.  A frame keeps tree levels G+1..n of its M paths in shared memory;
 levels 1..G and the trace LLRs go to a global scratch allocated here for
@@ -84,17 +89,24 @@ PATH_MAX_M = 32
 # every other M goes through the by-path instantiation of M rounded up to a
 # power of two (`path_width`)
 BYTE_WORD_M = (1, 2, 4, 8)
-# the TPU kernel's N envelope (`scl_pallas.kernel_fit_dtype`: N up to 8192);
-# at every (N, K, M) in it whose frame fits a block at some G
+# the phase words' limit (`ops/scl_schedule.py::phase_words`, `MAX_LEVELS`
+# in `csrc/list_decode.cuh`); past the TPU kernel's 8192, where JAX runs its
+# XLA decoder; at every (N, K, M) up to it whose frame fits a block at some G
 # (`check_shape`) a frame's state fits once enough levels go to global scratch
-MAX_N = 8192
+MAX_N = 65536
+# the longest code of the byte-word instantiations at M 2, 4 and 8 (n = 13,
+# `BYTE_WORD_MAX_LEVELS` in `csrc/scl_decode.cu`); above, those go by path
+BYTE_WORD_MAX_N = 8192
 MAX_BLOCK_SMEM = 227 * 1024  # dynamic shared memory one block may use on an H100
 FRAMES_PER_SM_TARGET = 16
 # σ levels (2n − 2 of them) a lane's registers hold in the by-path layout, by
-# the list size rounded up to a power of two: 32 / log2(LM) fields a word,
-# 1-4 words (`PathSigma` in `csrc/list_decode.cuh`, which the SCL and PAC
-# kernels share)
-SIGMA_FIELDS = {2: 32, 4: 32, 8: 30, 16: 24, 32: 24}
+# the list size rounded up to a power of two: 32 / log2(LM) fields a word
+# (`PathSigma` in `csrc/list_decode.cuh`, which the SCL and PAC kernels
+# share).  The instantiations that run N up to 8192 have 1-4 words
+# (`NARROW_SIGMA_FIELDS`); past it LM 16 and 32 run wide twins with one more
+# word, and these are the most each width holds
+SIGMA_FIELDS = {2: 32, 4: 32, 8: 30, 16: 32, 32: 30}
+NARROW_SIGMA_FIELDS = {2: 32, 4: 32, 8: 30, 16: 24, 32: 24}
 # the outputs of every launch, and those `full=True` adds (the plain
 # `SCLResult`'s names), in the order of the kernel's arguments; "valid" is
 # worked out from the metrics
@@ -169,12 +181,38 @@ def cluster_block_bytes(N: int, global_levels: int, words: int = 2) -> int:
             + _round16(CLUSTER_THREADS * row) + 16)
 
 
-def cluster_batch(B: int, frame_scratch: int, free: int) -> int:
-    """Frames a cluster launch takes when each needs `frame_scratch` bytes
-    of global scratch and `free` bytes are free on the card: all B, or the
-    most whose scratch fits nine tenths of `free`.  Raises ValueError, naming
-    the bytes, when one frame does not fit."""
+def alloc_scratch(B: int, frame_scratch: int, alloc, free, what: str) -> tuple:
+    """(frames a launch takes, `alloc(frames)`): the whole batch where its
+    global scratch can be allocated; where that fails for want of memory,
+    the card is asked `free()` for its free bytes, and the batch goes in
+    launches of `split_batch` frames.  `split_batch` raises ValueError,
+    naming the bytes, when one frame does not fit; RuntimeError, naming
+    `what` and the bytes, when the split's allocation fails too."""
 
+    try:
+        return B, alloc(B)
+    except torch.cuda.OutOfMemoryError:
+        pass  # out of the handler, so that what alloc(B) did take is freed before the query
+    free_bytes = free()
+    step = split_batch(B, frame_scratch, free_bytes)
+    if step < B:
+        try:
+            return step, alloc(step)
+        except torch.cuda.OutOfMemoryError:
+            pass
+    raise RuntimeError(f"{what} is {step * frame_scratch} bytes for {step} frames, more than the card can "
+                       f"allocate of its {free_bytes} free bytes: decode in smaller batches")
+
+
+def split_batch(B: int, frame_scratch: int, free: int) -> int:
+    """Frames a launch of any layout takes when each needs `frame_scratch`
+    bytes of global scratch and `free` bytes are free on the card: all B,
+    or the most whose scratch fits nine tenths of `free` (all B when a frame
+    takes none: K3 at L=1 with every level in shared memory).  Raises
+    ValueError, naming the bytes, when one frame does not fit."""
+
+    if frame_scratch == 0:
+        return B
     fits = int(free * 0.9) // frame_scratch
     if fits < 1:
         raise ValueError(f"one frame's global scratch is {frame_scratch} bytes, more than nine tenths "
@@ -182,10 +220,18 @@ def cluster_batch(B: int, frame_scratch: int, free: int) -> int:
     return min(B, fits)
 
 
-def path_layout(M: int) -> bool:
-    """Whether list size M goes to the by-path instantiation."""
+def byte_words(M: int, N: int = BYTE_WORD_MAX_N) -> bool:
+    """Whether list size M goes to its byte-word instantiation at code
+    length N (`byte_words` in `csrc/scl_decode.cu`)."""
 
-    return M <= PATH_MAX_M and M not in BYTE_WORD_M
+    return M in BYTE_WORD_M and (M == 1 or N <= BYTE_WORD_MAX_N)
+
+
+def path_layout(M: int, N: int = BYTE_WORD_MAX_N) -> bool:
+    """Whether list size M goes to the by-path instantiation at code length
+    N (the default: any N up to 8192)."""
+
+    return M <= PATH_MAX_M and not byte_words(M, N)
 
 
 def path_trace_row(M: int) -> int:
@@ -208,7 +254,7 @@ def frame_bytes(N: int, K: int, M: int, global_levels: int = 0) -> int:
     if M > PATH_MAX_M:
         return deep_frame_bytes(N, M, global_levels)
     row = (N >> global_levels) - 1
-    raw = 4 * M * row + M * row + (0 if path_layout(M) else K * M)
+    raw = 4 * M * row + M * row + (0 if path_layout(M, N) else K * M)
     return _round16(raw)
 
 
@@ -225,7 +271,7 @@ def scratch_bytes(B: int, N: int, K: int, M: int, global_levels: int) -> int:
     and on a cluster the trace indices."""
 
     ti = (B * K * M * trace_entry_bytes(M) if M > PATH_MAX_M
-          else B * K * path_trace_row(M) if path_layout(M) else 0)
+          else B * K * path_trace_row(M) if path_layout(M, N) else 0)
     return B * M * (N - (N >> global_levels)) * 5 + B * K * M * 4 + ti
 
 
@@ -245,7 +291,7 @@ def check_shape(N: int, K: int, M: int, crc: Optional[str], dtype: torch.dtype) 
     if crc is not None and crc_degree(crc) > 32:
         raise ValueError("the SCL kernel supports CRCs of degree <= 32")
     n = int(math.log2(N))
-    if path_layout(M) and 2 * n - 2 > SIGMA_FIELDS[path_width(M)]:
+    if path_layout(M, N) and 2 * n - 2 > SIGMA_FIELDS[path_width(M)]:
         raise ValueError(f"the SCL kernel's σ registers do not hold N={N} at M={M}")
     least = frame_bytes(N, K, M, n - 1)  # levels 1..n−1 in global scratch: a frame's least
     if least > MAX_BLOCK_SMEM:
@@ -263,7 +309,7 @@ def _library(defines: tuple = ()) -> ctypes.CDLL:
     lib = _build.load(SOURCE, defines)
     lib.scl_decode_launch.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.scl_decode_launch.restype = ctypes.c_int
-    lib.scl_launch_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.scl_launch_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
     lib.scl_launch_plan.restype = ctypes.c_int
     lib.scl_error_string.argtypes = [ctypes.c_int]
     lib.scl_error_string.restype = ctypes.c_char_p
@@ -278,7 +324,7 @@ def _occupancy(N: int, K: int, M: int, G: int) -> tuple:
 
     lib = _library()
     fpb, per_sm = ctypes.c_int(0), ctypes.c_int(0)
-    rc = lib.scl_launch_plan(M, frame_bytes(N, K, M, G), MAX_BLOCK_SMEM,
+    rc = lib.scl_launch_plan(M, int(math.log2(N)), frame_bytes(N, K, M, G), MAX_BLOCK_SMEM,
                              ctypes.byref(fpb), ctypes.byref(per_sm))
     if rc != 0:
         raise RuntimeError(f"SCL occupancy query failed: {lib.scl_error_string(rc).decode()} ({rc})")
@@ -343,7 +389,7 @@ def launch_plan(N: int, K: int, M: int, B: int) -> tuple:
                                f"{CLUSTER_THREADS} threads and {frame_bytes(N, K, M, n - 1)} B of shared "
                                f"memory each (N={N} M={M})")
         return _plan(N, K, M, at_once)
-    if not path_layout(M):
+    if not path_layout(M, N):
         return _plan(N, K, M, FRAMES_PER_SM_TARGET)
     most = _occupancy(N, K, M, n - 1)[1]
     return _plan(N, K, M, path_target(B, _sm_count(torch.cuda.current_device()), most))
@@ -419,8 +465,8 @@ def card_free_bytes(dev) -> int:
 def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
     """Launch the kernel on checked inputs, with levels 1..G in global
     scratch and fpb frames a block (`chip_smoke.py` times other G here);
-    `full` launches the list instantiation.  On a cluster the batch goes in
-    launches of `cluster_batch` frames."""
+    `full` launches the list instantiation.  The batch goes in launches of
+    `alloc_scratch` frames."""
 
     B, N = int(llr.shape[0]), int(llr.shape[1])
     K = int(info_np.size)
@@ -437,24 +483,20 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
         sched, hcols = _device_tables(tuple(int(i) for i in info_np), N, crc, dev)
         row = N - (N >> G)  # entries of a path's levels 1..G
         ti_dtype = torch.uint8 if trace_entry_bytes(M) == 1 else torch.int16
-        step = B
-        if M > DEEP_MAX_M:
-            with torch.cuda.device(dev):
-                step = cluster_batch(B, scratch_bytes(1, N, K, M, G), card_free_bytes(dev))
-        try:
-            glob_llr = torch.empty((step, M, row), dtype=torch.float32, device=dev) if G else None
-            glob_bits = torch.empty((step, M, row), dtype=torch.uint8, device=dev) if G else None
-            trace_llr = torch.empty((step, K, M), dtype=torch.float32, device=dev)
-            trace_idx = (torch.empty((step, K, M), dtype=ti_dtype, device=dev) if M > PATH_MAX_M
-                         else torch.empty((step, K, path_trace_row(M)), dtype=torch.uint8, device=dev)
-                         if path_layout(M) else None)
-        except torch.cuda.OutOfMemoryError as exc:
-            raise RuntimeError(
-                f"the SCL kernel's global scratch for B={step} N={N} K={K} M={M} is "
-                f"{scratch_bytes(step, N, K, M, G)} bytes, more than the card has free: decode "
-                f"in smaller batches") from exc
+
+        def scratch(frames):
+            return ((torch.empty((frames, M, row), dtype=torch.float32, device=dev) if G else None),
+                    (torch.empty((frames, M, row), dtype=torch.uint8, device=dev) if G else None),
+                    torch.empty((frames, K, M), dtype=torch.float32, device=dev),
+                    (torch.empty((frames, K, M), dtype=ti_dtype, device=dev) if M > PATH_MAX_M
+                     else torch.empty((frames, K, path_trace_row(M)), dtype=torch.uint8, device=dev)
+                     if path_layout(M, N) else None))
+
+        step, (glob_llr, glob_bits, trace_llr, trace_idx) = alloc_scratch(
+            B, scratch_bytes(1, N, K, M, G), scratch, lambda: card_free_bytes(dev),
+            f"the SCL kernel's global scratch at N={N} K={K} M={M}")
         lib = _library()
-        for b0 in range(0, B, step):  # one launch unless a cluster batch is split
+        for b0 in range(0, B, step):  # one launch unless the batch is split
             lists = [row_ptr(out[f], b0) if full else None for f in LIST_FIELDS[:4]]
             with torch.cuda.device(dev):
                 stream = torch.cuda.current_stream(dev).cuda_stream
@@ -475,7 +517,7 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
                 decode_scl_cuda.cluster_launches += 1
             elif M > PATH_MAX_M:
                 decode_scl_cuda.deep_launches += 1
-            elif path_layout(M):
+            elif path_layout(M, N):
                 decode_scl_cuda.path_launches += 1
     if full:
         out["valid"] = torch.isfinite(out["metrics"])
@@ -489,7 +531,8 @@ decode_scl_cuda.cluster_launches = 0  # of them, launches of the cluster instant
 
 
 __all__ = ["decode_scl_cuda", "check_shape", "frame_bytes", "deep_frame_bytes", "sort_keys",
-           "cluster_blocks", "cluster_exchanges", "cluster_block_bytes", "cluster_batch",
+           "cluster_blocks", "cluster_exchanges", "cluster_block_bytes", "split_batch", "alloc_scratch",
            "trace_entry_bytes", "launch_plan", "smallest_global_levels", "path_width",
-           "path_layout", "path_trace_row", "path_target", "scratch_bytes", "SUPPORTED_M",
-           "BYTE_WORD_M", "MAX_M", "PATH_MAX_M", "DEEP_MAX_M", "MAX_N", "SIGMA_FIELDS"]
+           "byte_words", "path_layout", "path_trace_row", "path_target", "scratch_bytes",
+           "SUPPORTED_M", "BYTE_WORD_M", "BYTE_WORD_MAX_N", "MAX_M", "PATH_MAX_M", "DEEP_MAX_M",
+           "MAX_N", "SIGMA_FIELDS", "NARROW_SIGMA_FIELDS"]

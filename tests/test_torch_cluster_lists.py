@@ -15,8 +15,8 @@ global scratch, so it takes PAC(8192, Kp) at every Kp.  On the CPU:
   PAC(32,12)+CRC-16 L=2048;
 * the planning: `cluster_blocks`, the bytes a block of a cluster takes at
   every G, the plan's G at N 16..8192 (a stand-in occupancy calculator),
-  `scratch_bytes`, `cluster_batch`, `check_shape` over M and L 1025..8192
-  at N 128..8192 and raising at 8193 and at N=16384, and K3's one-lane
+  `scratch_bytes`, `split_batch`, `check_shape` over M and L 1025..8192
+  at N 128..65536 and raising at 8193 and at N=131072, and K3's one-lane
   frame without the trace;
 * a model of the cluster sort (`cluster_sort_keys` in
   `csrc/list_decode.cuh`: the stages across blocks through two exchange
@@ -210,12 +210,12 @@ def test_cluster_scratch_bytes():
     assert pac_cuda.scratch_bytes(8, 128, 80, 1, 0) == 0  # one path: no trace
     # a launch takes all B, or the most frames whose scratch fits 0.9 of the free bytes
     one = scl_cuda.scratch_bytes(1, 8192, 1024, 8192, 10)
-    assert scl_cuda.cluster_batch(1000, one, 80 * 10 ** 9) == 72 * 10 ** 9 // one == 186
-    assert scl_cuda.cluster_batch(16, one, 80 * 10 ** 9) == 16
+    assert scl_cuda.split_batch(1000, one, 80 * 10 ** 9) == 72 * 10 ** 9 // one == 186
+    assert scl_cuda.split_batch(16, one, 80 * 10 ** 9) == 16
     with pytest.raises(ValueError, match=f"{one} bytes"):
-        scl_cuda.cluster_batch(4, one, one)
+        scl_cuda.split_batch(4, one, one)
     # the split is exact: launches of `step` frames cover B, the last ragged
-    step = scl_cuda.cluster_batch(1000, one, 80 * 10 ** 9)
+    step = scl_cuda.split_batch(1000, one, 80 * 10 ** 9)
     assert [min(step, 1000 - b0) for b0 in range(0, 1000, step)] == [186] * 5 + [70]
 
 
@@ -231,10 +231,13 @@ def test_check_shape_takes_lists_up_to_8192():
         scl_cuda.check_shape(128, 64, 8193, CRC, torch.float32)
     with pytest.raises(ValueError, match="1..8192 .*cluster"):
         pac_cuda.check_shape(128, 80, 8193, GEN, 16, torch.float32)
-    with pytest.raises(ValueError, match="8192"):
-        scl_cuda.check_shape(16384, 8192, 2048, CRC, torch.float32)
-    with pytest.raises(ValueError, match="8192"):
-        pac_cuda.check_shape(16384, 8208, 2048, GEN, 16, torch.float32)
+    for N in (16384, 32768, 65536):  # past the TPU kernel's N=8192
+        scl_cuda.check_shape(N, N // 2, 2048, CRC, torch.float32)
+        pac_cuda.check_shape(N, N // 2 + 16, 2048, GEN, 16, torch.float32)
+    with pytest.raises(ValueError, match="65536"):
+        scl_cuda.check_shape(131072, 65536, 2048, CRC, torch.float32)
+    with pytest.raises(ValueError, match="65536"):
+        pac_cuda.check_shape(131072, 65552, 2048, GEN, 16, torch.float32)
     # the routing takes them on the card; the shape gate is all it asks there
     assert resolve_backend(torch.device("cuda"), M=8192, dtype=torch.float32, N=1024, K=512) == "cuda"
 

@@ -130,8 +130,11 @@ def test_check_shape_takes_lists_up_to_1024():
     pac_cuda.check_shape(128, 80, 1025, GEN, 16, torch.float32)
     with pytest.raises(ValueError, match="1..8192"):
         pac_cuda.check_shape(128, 80, 8193, GEN, 16, torch.float32)
-    with pytest.raises(ValueError, match="8192"):
-        pac_cuda.check_shape(16384, 8208, 8, GEN, 16, torch.float32)
+    for N in (16384, 32768, 65536):  # past the TPU kernel's N=8192
+        pac_cuda.check_shape(N, N // 2 + 16, 8, GEN, 16, torch.float32)
+        pac_cuda.check_shape(N, N // 2 + 16, 1024, GEN, 16, torch.float32)
+    with pytest.raises(ValueError, match="65536"):
+        pac_cuda.check_shape(131072, 65552, 8, GEN, 16, torch.float32)
 
 
 def test_frame_bytes_over_warps():

@@ -182,8 +182,11 @@ def test_check_shape_takes_the_envelope():
         scl_cuda.check_shape(8192, 4096, M, CRC, torch.float32)
     with pytest.raises(ValueError, match="1..8192"):
         scl_cuda.check_shape(128, 64, 8193, CRC, torch.float32)
-    with pytest.raises(ValueError, match="8192"):
-        scl_cuda.check_shape(16384, 8192, 4, CRC, torch.float32)
+    # past the TPU kernel's N=8192 up to the phase words' 65536
+    for N in (16384, 32768, 65536):
+        scl_cuda.check_shape(N, N // 2, 4, CRC, torch.float32)
+    with pytest.raises(ValueError, match="65536"):
+        scl_cuda.check_shape(131072, 65536, 4, CRC, torch.float32)
     # by path the trace indices live in global scratch: every K at N=8192
     scl_cuda.check_shape(8192, 8192, 32, None, torch.float32)
 
@@ -191,8 +194,9 @@ def test_check_shape_takes_the_envelope():
 def test_frame_and_scratch_bytes_at_n13():
     n = 13
     # the σ fields of the by-path layout: 2n − 2 = 24 fit LM=32's four words
-    assert 2 * n - 2 == scl_cuda.SIGMA_FIELDS[32] == 4 * (32 // 5)
-    assert 2 * n - 2 <= scl_cuda.SIGMA_FIELDS[16] == 3 * (32 // 4)
+    # (the instantiations that take n <= 13; longer codes go wide)
+    assert 2 * n - 2 == scl_cuda.NARROW_SIGMA_FIELDS[32] == 4 * (32 // 5)
+    assert 2 * n - 2 <= scl_cuda.NARROW_SIGMA_FIELDS[16] == 3 * (32 // 4)
     assert [scl_cuda.path_width(M) for M in (3, 5, 8, 9, 16, 17, 32)] == [8, 8, 8, 16, 16, 32, 32]
     # with every level but the leaf in global scratch a frame keeps its leaf
     # rows, and in the byte-word layout its trace indices: 5·M (+ K·M)

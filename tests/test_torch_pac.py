@@ -136,13 +136,15 @@ def test_check_shape_bounds_the_kernel():
     check_shape(64, 32, 32, [1, 0, 1, 1, 0, 1, 1], 0, torch.float32)  # the simulator's stage 2
     check_shape(1024, 512, 32, [1], 16, torch.float32)  # about 160 KB a frame
     check_shape(8192, 8000, 32, [1], 0, torch.float32)  # the trace in global scratch: every Kp
+    for N in (16384, 32768, 65536):  # past the TPU kernel's N=8192
+        check_shape(N, N // 2, 32, [1], 0, torch.float32)
     for args in ((64, 32, 8193, [1], 0, torch.float32),   # L > 8192
                  (64, 32, 0, [1], 0, torch.float32),
                  (64, 32, 8, [0, 1], 0, torch.float32),  # gen[0] != 1
                  (64, 32, 8, [1] * 33, 0, torch.float32),  # memory 32
                  (64, 32, 8, [1], 33, torch.float32),
                  (64, 32, 8, [1], 0, torch.float64),
-                 (16384, 8000, 32, [1], 0, torch.float32)):  # N > 8192
+                 (131072, 8000, 32, [1], 0, torch.float32)):  # N > 65536
         with pytest.raises(ValueError):
             check_shape(*args)
 

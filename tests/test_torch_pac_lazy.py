@@ -82,14 +82,14 @@ def test_fork_tables_equal_jax_at_pac_info_sets(N, profile):
 
 def test_sigma_registers_hold_the_envelope():
     """Every shape the kernel takes one path a lane has its 2n − 2 σ levels
-    in its lanes' registers: N up to `MAX_N` = 8192 (n = 13, 24 fields), at
+    in its lanes' registers: N up to `MAX_N` = 65536 (n = 16, 30 fields), at
     every list size 2..32; a frame fits a block there once every level but
-    the leaf is in global scratch (the fit rule), and N above 8192 raises."""
+    the leaf is in global scratch (the fit rule), and N above 65536 raises."""
 
-    assert MAX_N == 8192
+    assert MAX_N == 65536
     for L in range(2, 33):
         lm = 1 << (L - 1).bit_length()
-        for n in range(1, 14):
+        for n in range(1, 17):
             N = 1 << n
             assert 2 * n - 2 <= SIGMA_FIELDS[lm], (L, N)
             # the leaf rows, 5·L bytes rounded to 16, and a ring of 16 trace
@@ -97,9 +97,9 @@ def test_sigma_registers_hold_the_envelope():
             ring = 16 * ((L + 15) // 16 * 16)
             assert frame_bytes(N, N // 2, L, n - 1) == (5 * L + 15) // 16 * 16 + ring <= MAX_BLOCK_SMEM
             check_shape(N, N // 2, L, [1], 0, torch.float32)
-        check_shape(8192, 2, L, [1], 0, torch.float32)
-        with pytest.raises(ValueError, match="8192"):
-            check_shape(16384, 2, L, [1], 0, torch.float32)
+        check_shape(65536, 2, L, [1], 0, torch.float32)
+        with pytest.raises(ValueError, match="65536"):
+            check_shape(131072, 2, L, [1], 0, torch.float32)
 
 
 def _sigma_gather(rows, sig):

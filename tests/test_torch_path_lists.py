@@ -269,8 +269,10 @@ def test_check_shape_takes_n8192_at_every_by_path_m():
             scl_cuda.check_shape(8192, K, M, CRC, torch.float32)
     for M in (3, 5, 17):
         scl_cuda.check_shape(8192, 8192, M, None, torch.float32)
-    with pytest.raises(ValueError, match="8192"):
-        scl_cuda.check_shape(16384, 8192, 32, CRC, torch.float32)
+    for N in (16384, 32768, 65536):  # through the wide twin of LM=32
+        scl_cuda.check_shape(N, N // 2, 32, CRC, torch.float32)
+    with pytest.raises(ValueError, match="65536"):
+        scl_cuda.check_shape(131072, 65536, 32, CRC, torch.float32)
 
 
 def _fake_occupancy(frames_at):

@@ -183,7 +183,8 @@ def test_wrapper_runs_plain_version_on_cpu():
         (4096, 2048, 8, CRC, torch.float32, True),  # the TPU kernel's N envelope
         (128, 64, 8, "0x1" + "0" * 9 + "1", torch.float32, False),  # CRC degree 36
         (128, 64, 8193, CRC, torch.float32, False),  # M above 8192: one thread a path of a cluster of 8 blocks
-        (16384, 8192, 1, CRC, torch.float32, False),  # N above 8192
+        (16384, 8192, 1, CRC, torch.float32, True),  # N above 8192: past the TPU kernel's envelope
+        (131072, 65536, 1, CRC, torch.float32, False),  # N above 65536: past the phase words
         (8192, 8192, 32, None, torch.float32, True),  # by path the trace indices are in global scratch
     ],
 )

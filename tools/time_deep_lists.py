@@ -21,7 +21,9 @@ P(128,64) CRC-24A 5.0 dB M 2048, 4096 and 8192 and K3 at PAC(128,64)+CRC-16
 the shapes whose names hold A or B.  Prints a line a shape (its time, its
 bound from `chip_smoke.py`'s work counts and the frames an SM, or on a
 cluster the frames at once, the wrapper's launch plan holds), the card's
-`nvidia-smi` name and power limit, and a JSON line of every time last.
+`nvidia-smi` name and power limit, and a JSON line of every time last;
+a shape's line gives the kernel launches a call (more than one where a
+batch was split).
 """
 
 import argparse
@@ -62,17 +64,20 @@ def main():
     label = args.label or str(repo)
     dev = torch.device("cuda")
     times, per_sm = {}, {}
+    wrappers = (scl_cuda.decode_scl_cuda, pac_cuda.pac_list_decode_cuda)
 
     def run(tag, fn, reps, work, plan):
         if args.only and not any(part in tag for part in args.only.split("|")):
             return
         fn()  # builds the kernel at its first call
+        before = sum(f.launches for f in wrappers)
         ms = cs.cuda_time_ms(fn, reps=reps, warmup=1)
+        launches = (sum(f.launches for f in wrappers) - before) / (reps + 1)
         b_ms, b_by = cs.bound(*work)
         times[tag], per_sm[tag] = ms, plan[2]
         where = "at once" if "cluster" in tag else "an SM"
-        print(f"  [{label}] {tag}: {ms:.4f} ms ({reps} launches); bound {b_ms:.6f} ms ({b_by}), "
-              f"{ms / b_ms:.0f}x; {plan[2]} frames {where}", flush=True)
+        print(f"  [{label}] {tag}: {ms:.4f} ms ({reps} calls, {launches:g} kernel launches a call); bound "
+              f"{b_ms:.6f} ms ({b_by}), {ms / b_ms:.0f}x; {plan[2]} frames {where}", flush=True)
 
     B = 4096
     info = construct_info_set(cs.N, cs.K)

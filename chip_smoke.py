@@ -277,8 +277,29 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    versions' at P(16384,8192) M = L = 8; (e) with a parent's
    `polar_code_tpu_torch/` and `tools/` in `smoke_checkout/parent/`,
    `tools/compare_sass.py` against it;
-17. a `kernels` JSON line (one entry a kernel, and one for each new
-   instantiation with its launches on phases 13's to 16's paths;
+17. the list sizes past 8192 (`list_sizes_16k`): K1 and K3 at M and L
+   8193..16384, a frame over a thread-block cluster of 16 blocks (a
+   non-portable cluster size); each shape's plan (G, scratch, bytes a
+   block, clusters at once by the occupancy calculator, cluster barriers
+   a phase); (a) K1 against the plain version, list and best-only, at two
+   draws, no frame allowed to differ: P(128,64) CRC-24A M 8193, 12000,
+   16384 and 16384 with forced plans (16 frames), P(1024,512) M=16384, and
+   P(65536,256) M=16384 on one frame, its plain call in a worker process;
+   (b) K3 the same, every list field: PAC(128,64)+CRC-16 L 8193 and 16384
+   and PAC(16384,1024)+CRC-16 L=16384 on one frame (a worker); (c) a
+   batch split with the card's room pinned to 5 frames' scratch, equal to
+   one launch; (d) K1 against the JAX float32 file
+   `tests/golden/scl_f32_16k.npz` (P(128,64) M=16384, written by
+   `tests/golden/make_scl_f32_16k.py`) under its near-tie rule; (e) the
+   FER CLI at P(128,64) M 16384, 8192 and 4096 on the same frames, no
+   list worse than half its size (z < 3), every decode a cluster launch; the legacy simulator at
+   `list_size_max=16384` equal to its run on the plain decoder; and
+   `decode_scl` at M=16384 and `PolarCode` at L=16384, one cluster launch
+   a call, equal to the plain version; the plain decoders 0 times on CUDA;
+   (f) CUDA-event times at P(128,64) B=1024, M and L 8192 beside 16384,
+   and the plain versions' at 16384;
+18. a `kernels` JSON line (one entry a kernel, and one for each new
+   instantiation with its launches on phases 13's to 17's paths;
    each `max_abs_err` the largest difference from the plain version that
    the run measured), the `nvidia-smi` line, and the device JSON line last.
 
@@ -2277,7 +2298,7 @@ CLUSTER_LS = (2048, 4096)  # (c): K3 list sizes at PAC(128,64)+CRC-16 and PAC(32
 ONE_LANE_N = ((8192, 7384, 32),)
 ONE_LANE_B = 2  # the plain version takes about 12 s a call at N=8192
 CLUSTER_SIM_LIST_MAX = 2048  # (e): the legacy simulator's stage-2 list size
-CLUSTER_SCALAR = (2048, 2048, 8)  # (e): decode_scl's M, PolarCode's L, frames a PolarCode decoder
+CLUSTER_SCALAR = (2048, 8)  # (e): decode_scl's M and PolarCode's L, frames a PolarCode decoder
 CLUSTER_TIME_B = 1024  # (f): frames of the timed launches
 
 
@@ -2307,6 +2328,137 @@ def cluster_barriers(n_code, info_phases, M):
     return span(per[info]), span(per[~info]) if (~info).any() else "-"
 
 
+def cluster_split_check(dev, M, B, room, seed, reset_counts, tag):
+    """A batch whose scratch cannot be allocated goes in launches of
+    `alloc_scratch` frames: K1 (CRC-24A, forced plans) and K3 (CRC-16) at
+    P(128,64), list size M, B frames drawn from `seed`, with the card's room
+    pinned to `room` frames' scratch (an allocation of more raises the
+    card's out-of-memory error); ceil(B / room) cluster launches each, every
+    output equal to one launch's."""
+
+    import torch
+
+    from polar_code_tpu_torch.legacy import pac_cuda
+    from polar_code_tpu_torch.legacy.pac_cuda import pac_list_decode_cuda
+    from polar_code_tpu_torch.ops import scl_cuda
+    from polar_code_tpu_torch.polar.construct import construct_info_set
+
+    decode_scl_cuda = scl_cuda.decode_scl_cuda
+    info = construct_info_set(N, K)
+    rng = np.random.default_rng(seed)
+    llr_np, msg = make_llrs(rng, B, 2.0, info)
+    x = torch.from_numpy(llr_np).to(dev)
+    plan = torch.from_numpy(random_plan(rng, msg)).to(dev)
+    mask = pac_mask(N, K + PAC_CRC[0])
+    xp = pac_llrs(rng, B, 2.0, (N, K, PAC_CRC), PAC_GEN, mask, dev)
+
+    def decode():
+        return (decode_scl_cuda(x, info, M, CRC, force_info_bits=plan, full=True),
+                pac_list_decode_cuda(xp, mask, PAC_GEN, M, *PAC_CRC, full=True))
+
+    whole = decode()
+    alloc_scratch = scl_cuda.alloc_scratch
+
+    def pinned_room(B, one, alloc, free, what):
+        def pinned(frames):
+            if frames > room:
+                raise torch.cuda.OutOfMemoryError(f"{frames} frames, past the {room} pinned")
+            return alloc(frames)
+        return alloc_scratch(B, one, pinned, lambda: one * room * 10 // 9 + 100, what)
+
+    reset_counts()
+    try:
+        scl_cuda.alloc_scratch = pac_cuda.alloc_scratch = pinned_room
+        split = decode()
+    finally:
+        scl_cuda.alloc_scratch = pac_cuda.alloc_scratch = alloc_scratch
+    torch.cuda.synchronize()
+    want = -(-B // room)
+    check((decode_scl_cuda.cluster_launches, pac_list_decode_cuda.cluster_launches) == (want, want),
+          f"a split batch of {B} frames took {decode_scl_cuda.cluster_launches} / "
+          f"{pac_list_decode_cuda.cluster_launches} launches, not {want}")
+    for a, b in zip(whole, split):
+        for f in a:
+            check(torch.equal(a[f], b[f]), f"{tag} a split cluster batch's {f} at {M} differs from one launch's")
+    print(f"  {tag} K1 and K3 at M = L = {M}, B={B} with the card's room pinned to {room} frames' "
+          f"scratch: {want} launches each, every output equal to one launch's", flush=True)
+
+
+def cluster_scalar_calls(dev, M, scl_frames, frames, seed, reset_counts):
+    """The scalar calls on a cluster: `decode_scl` at list size M on the
+    first `scl_frames` golden P(128,64) frames, and `PolarCode(64, 48,
+    "dega", M).pac_list_crc_decoder`, systematic and not, on `frames`
+    CRC-16 frames drawn from `seed`; one cluster launch a call, the plain
+    decoders 0 times on CUDA, and each equal to the plain version (the
+    bits, and decode_scl's metrics outside near-ties).  Returns the
+    cluster launches of K1 and K3."""
+
+    import torch
+
+    from polar_code_tpu_torch.legacy.crclib import crc as legacy_crc
+    from polar_code_tpu_torch.legacy.pac import pac_list_decode_batch
+    from polar_code_tpu_torch.legacy.pac_cuda import pac_list_decode_cuda
+    from polar_code_tpu_torch.legacy.polar_code import PolarCode
+    from polar_code_tpu_torch.legacy.rate_profile import rateprofile
+    from polar_code_tpu_torch.ops import scl_cuda
+    from polar_code_tpu_torch.ops.scl import decode_scl_batch
+    from polar_code_tpu_torch.polar.api import decode_scl
+
+    wrappers = (scl_cuda.decode_scl_cuda, pac_list_decode_cuda)
+    plains = (decode_scl_batch, pac_list_decode_batch)
+    golden = np.load(GOLDEN / "ref_p128_k64.npz")
+    g_info, g_llrs = golden["info_set"], golden["llrs"][:scl_frames]
+    crc16 = legacy_crc(*PAC_CRC)
+    pc = PolarCode(64, 48, "dega", M, rateprofile(64, 48, 2.0, 0))
+    rng = np.random.default_rng(seed)
+    msgs = rng.integers(0, 2, (frames, 32)).astype(np.int8)
+    msgs = np.concatenate([msgs, crc16.crcCalc_batch(msgs)], axis=1)
+    pac_in = {}
+    for systematic in (True, False):
+        codewords = np.stack([pc.encode(m, systematic) for m in msgs])
+        nv = 1.0 / (2.0 * 0.5 * 10 ** 0.2)
+        pac_in[systematic] = (2.0 * (1.0 - 2.0 * codewords + rng.normal(0.0, math.sqrt(nv), codewords.shape))
+                              / nv).astype(np.float32)
+    reset_counts()
+    scl_out = [decode_scl(llr, g_info, M, CRC) for llr in g_llrs]
+    pac_out = {sy: np.stack([pc.pac_list_crc_decoder(row, sy, True, crc16, M) for row in llr])
+               for sy, llr in pac_in.items()}
+    torch.cuda.synchronize()
+    scalar = tuple(f.launches for f in wrappers)
+    scalar_cluster = tuple(f.cluster_launches for f in wrappers)
+    plain = tuple(f.cuda_calls for f in plains)
+    calls = (len(scl_out), 2 * frames)
+    print(f"(e) scalar calls: K1/K3 launches {scalar} ({scalar_cluster} on a cluster) for {calls} decodes; "
+          f"plain decoders on CUDA {plain}")
+    check(scalar == calls == scalar_cluster,
+          f"the scalar calls launched {scalar} ({scalar_cluster} on a cluster), not one a decode {calls}")
+    check(plain == (0, 0), f"a plain decoder ran on CUDA under the scalar calls: {plain}")
+    ref = plain_fields(decode_scl_batch(torch.from_numpy(g_llrs.astype(np.float32)).to(dev), g_info, M, CRC,
+                                        dtype=torch.float32))
+    got = {"best_path_bits": torch.from_numpy(np.stack([r["best_path_bits"] for r in scl_out]))}
+    d, t, _ = judge_list(got, {"best_path_bits": ref["best_path_bits"]}, f"(e) decode_scl M={M}", ref["metrics"])
+    near = near_tie_frames(ref["metrics"])
+    for b, r in enumerate(scl_out):  # the valid paths' metrics, in the final order, outside near-ties
+        have, ok = np.asarray(r["metrics"]), ref["valid"][b]
+        check(near[b] or have.shape == (int(ok.sum()),)
+              and np.all(np.abs(have - ref["metrics"][b][ok]) <= 1e-6 * np.abs(have)),
+              f"decode_scl M={M} frame {b} metrics differ from the plain version")
+    print(f"  decode_scl P(128,64) M={M} CRC on {len(scl_out)} golden frames: {d} frames differ from the plain "
+          f"version ({t} near-ties)")
+    for systematic, llr in pac_in.items():
+        if systematic:
+            want = systematic_reference(pc, llr, True, crc16, M, dev)
+        else:
+            want = pac_list_decode_batch(torch.from_numpy(llr).to(dev), pc.polarcode_mask, pc.gen, M,
+                                         crc_len=crc16.len, crc_poly=crc16.gen)["extracted"].cpu().numpy()
+        check(np.array_equal(pac_out[systematic], want), f"PolarCode L={M} systematic={systematic} "
+              f"differs from the plain version")
+        print(f"  PolarCode(64, 48, dega, L={M}) {'systematic' if systematic else 'non-systematic'}, "
+              f"CRC-16, 2.0 dB: {frames} frames equal to the plain version; "
+              f"{int(np.all(pac_out[systematic] == msgs, axis=1).sum())} decoded the sent message")
+    return scalar_cluster
+
+
 def cluster_lists(dev, smi):
     """Phase 15: K1 and K3 on a cluster (list sizes 1025..8192) against the
     plain versions and the JAX golden files, K3 one path a lane at N=8192
@@ -2319,17 +2471,13 @@ def cluster_lists(dev, smi):
 
     from polar_code_tpu_torch import _build
     from polar_code_tpu_torch.legacy import pac_cuda, simulator
-    from polar_code_tpu_torch.legacy.crclib import crc as legacy_crc
     from polar_code_tpu_torch.legacy.pac import pac_list_decode_batch
     from polar_code_tpu_torch.legacy.pac_cuda import launch_plan as pac_plan
     from polar_code_tpu_torch.legacy.pac_cuda import SOURCE as pac_source
     from polar_code_tpu_torch.legacy.pac_cuda import frame_bytes as pac_frame_bytes
     from polar_code_tpu_torch.legacy.pac_cuda import pac_list_decode_cuda
-    from polar_code_tpu_torch.legacy.polar_code import PolarCode
-    from polar_code_tpu_torch.legacy.rate_profile import rateprofile
     from polar_code_tpu_torch.ops import scl_cuda
     from polar_code_tpu_torch.ops.scl import decode_scl_batch
-    from polar_code_tpu_torch.polar.api import decode_scl
     from polar_code_tpu_torch.polar.construct import construct_info_set
 
     decode_scl_cuda = scl_cuda.decode_scl_cuda
@@ -2404,43 +2552,7 @@ def cluster_lists(dev, smi):
                   f"({time.perf_counter() - t:.1f} s)", flush=True)
     print(f"(a) K1 on a cluster vs plain: {len(cases)} cases at {len(CLUSTER_SEEDS)} draws, list and "
           f"best-only, {differ} frames differ, all {ties} near-ties; max |info LLR diff| {k1_err:.3e}")
-    # a batch whose scratch cannot be allocated goes in launches of
-    # `alloc_scratch` frames: here the card's room is pinned to 10 frames'
-    # scratch (an allocation of more raises the card's out-of-memory error)
-    rng = np.random.default_rng(CLUSTER_SEEDS[0])
-    llr_np, msg = make_llrs(rng, CLUSTER_B, 2.0, construct_info_set(N, K))
-    x = torch.from_numpy(llr_np).to(dev)
-    plan = torch.from_numpy(random_plan(rng, msg)).to(dev)
-    mask = pac_mask(N, K + PAC_CRC[0])
-    xp = pac_llrs(rng, CLUSTER_B, 2.0, (N, K, PAC_CRC), PAC_GEN, mask, dev)
-    whole = (decode_scl_cuda(x, construct_info_set(N, K), 2048, CRC, force_info_bits=plan, full=True),
-             pac_list_decode_cuda(xp, mask, PAC_GEN, 2048, *PAC_CRC, full=True))
-    alloc_scratch = scl_cuda.alloc_scratch
-
-    def ten_frames(B, one, alloc, free, what):
-        def pinned(frames):
-            if frames > 10:
-                raise torch.cuda.OutOfMemoryError(f"{frames} frames, past the 10 pinned")
-            return alloc(frames)
-        return alloc_scratch(B, one, pinned, lambda: one * 100 // 9 + 100, what)
-
-    reset_counts()
-    try:
-        scl_cuda.alloc_scratch = pac_cuda.alloc_scratch = ten_frames
-        split = (decode_scl_cuda(x, construct_info_set(N, K), 2048, CRC, force_info_bits=plan, full=True),
-                 pac_list_decode_cuda(xp, mask, PAC_GEN, 2048, *PAC_CRC, full=True))
-    finally:
-        scl_cuda.alloc_scratch = pac_cuda.alloc_scratch = alloc_scratch
-    torch.cuda.synchronize()
-    want = -(-CLUSTER_B // 10)
-    check((decode_scl_cuda.cluster_launches, pac_list_decode_cuda.cluster_launches) == (want, want),
-          f"a split batch of {CLUSTER_B} frames took {decode_scl_cuda.cluster_launches} / "
-          f"{pac_list_decode_cuda.cluster_launches} launches, not {want}")
-    for a, b in zip(whole, split):
-        for f in a:
-            check(torch.equal(a[f], b[f]), f"(a) a split cluster batch's {f} differs from one launch's")
-    print(f"  (a) K1 and K3 at M = L = 2048, B={CLUSTER_B} with the card's room pinned to 10 frames' "
-          f"scratch: {want} launches each, every output equal to one launch's", flush=True)
+    cluster_split_check(dev, 2048, CLUSTER_B, 10, CLUSTER_SEEDS[0], reset_counts, "(a)")
 
     # ---- (b) against the JAX golden files ----
     differ = ties = 0
@@ -2525,58 +2637,8 @@ def cluster_lists(dev, smi):
     check(sim_cluster > 0, "the simulator's stage 2 did not go through K3's cluster instantiation")
     check(plain == 0, "a plain decoder ran on CUDA in the simulator")
 
-    scl_m, pac_l, frames = CLUSTER_SCALAR
-    golden = np.load(GOLDEN / "ref_p128_k64.npz")
-    g_info = golden["info_set"]
-    crc16 = legacy_crc(*PAC_CRC)
-    pc = PolarCode(64, 48, "dega", pac_l, rateprofile(64, 48, 2.0, 0))
-    rng = np.random.default_rng(CLUSTER_SEEDS[0])
-    msgs = rng.integers(0, 2, (frames, 32)).astype(np.int8)
-    msgs = np.concatenate([msgs, crc16.crcCalc_batch(msgs)], axis=1)
-    pac_in = {}
-    for systematic in (True, False):
-        codewords = np.stack([pc.encode(m, systematic) for m in msgs])
-        nv = 1.0 / (2.0 * 0.5 * 10 ** 0.2)
-        pac_in[systematic] = (2.0 * (1.0 - 2.0 * codewords + rng.normal(0.0, math.sqrt(nv), codewords.shape))
-                              / nv).astype(np.float32)
-    reset_counts()
-    scl_out = [decode_scl(llr, g_info, scl_m, CRC) for llr in golden["llrs"]]
-    pac_out = {sy: np.stack([pc.pac_list_crc_decoder(row, sy, True, crc16, pac_l) for row in llr])
-               for sy, llr in pac_in.items()}
-    torch.cuda.synchronize()
-    scalar = tuple(f.launches for f in wrappers)
-    scalar_cluster = tuple(f.cluster_launches for f in wrappers)
-    plain = tuple(f.cuda_calls for f in plains)
-    calls = (len(scl_out), 2 * frames)
-    print(f"(e) scalar calls: K1/K3 launches {scalar} ({scalar_cluster} on a cluster) for {calls} decodes; "
-          f"plain decoders on CUDA {plain}")
-    check(scalar == calls == scalar_cluster,
-          f"the scalar calls launched {scalar} ({scalar_cluster} on a cluster), not one a decode {calls}")
-    check(plain == (0, 0), f"a plain decoder ran on CUDA under the scalar calls: {plain}")
-    ref = plain_fields(decode_scl_batch(torch.from_numpy(golden["llrs"].astype(np.float32)).to(dev), g_info,
-                                        scl_m, CRC, dtype=torch.float32))
-    got = {"best_path_bits": torch.from_numpy(np.stack([r["best_path_bits"] for r in scl_out]))}
-    d, t, _ = judge_list(got, {"best_path_bits": ref["best_path_bits"]}, f"(e) decode_scl M={scl_m}",
-                         ref["metrics"])
-    near = near_tie_frames(ref["metrics"])
-    for b, r in enumerate(scl_out):  # the valid paths' metrics, in the final order, outside near-ties
-        have, ok = np.asarray(r["metrics"]), ref["valid"][b]
-        check(near[b] or have.shape == (int(ok.sum()),)
-              and np.all(np.abs(have - ref["metrics"][b][ok]) <= 1e-6 * np.abs(have)),
-              f"decode_scl M={scl_m} frame {b} metrics differ from the plain version")
-    print(f"  decode_scl P(128,64) M={scl_m} CRC on the 12 golden frames: {d} frames differ from the plain "
-          f"version ({t} near-ties)")
-    for systematic, llr in pac_in.items():
-        if systematic:
-            want = systematic_reference(pc, llr, True, crc16, pac_l, dev)
-        else:
-            want = pac_list_decode_batch(torch.from_numpy(llr).to(dev), pc.polarcode_mask, pc.gen, pac_l,
-                                         crc_len=crc16.len, crc_poly=crc16.gen)["extracted"].cpu().numpy()
-        check(np.array_equal(pac_out[systematic], want), f"PolarCode L={pac_l} systematic={systematic} "
-              f"differs from the plain version")
-        print(f"  PolarCode(64, 48, dega, L={pac_l}) {'systematic' if systematic else 'non-systematic'}, "
-              f"CRC-16, 2.0 dB: {frames} frames equal to the plain version; "
-              f"{int(np.all(pac_out[systematic] == msgs, axis=1).sum())} decoded the sent message")
+    scalar_cluster = cluster_scalar_calls(dev, CLUSTER_SCALAR[0], 12, CLUSTER_SCALAR[1], CLUSTER_SEEDS[0],
+                                          reset_counts)
 
     # ---- (f) times with CUDA events ----
     print(f"cluster-list times on {smi}:")
@@ -3084,6 +3146,285 @@ def long_codes(dev, smi):
     names = {"scl": ("scl_decode (N 16384-65536)", "polar_code_tpu_torch/csrc/scl_decode.cu",
                      "polar_code_tpu/ops/scl_pallas.py:293"),
              "pac": ("pac_decode (N 16384-65536)", "polar_code_tpu_torch/csrc/pac_decode.cu",
+                     "polar_code_tpu/legacy/pac_pallas.py:59")}
+    return [{"name": names[k][0], "route": "cuda", "source": names[k][1], "replaces": names[k][2],
+             "launches": launches[k], "max_abs_err": errors[k], "ms": entries[k][0], "plain_ms": entries[k][1],
+             "bound_ms": entries[k][2], "bound_by": entries[k][3], "library_ms": None}
+            for k in ("scl", "pac")]
+
+
+# phase 17, list sizes past 8192: K1 and K3 at M and L 8193..16384, a
+# frame over a thread-block cluster of 16 blocks of 1024 threads (a
+# non-portable cluster size the kernels allow)
+LIST16_M = 16384  # the largest list size: (c)'s split, (e)'s FER CLI and scalar calls, (f)'s times
+LIST16_B = 16  # frames of a P(128,64) vs-plain case (CLUSTER_SEEDS: two draws)
+# (a): K1 at P(128,64) CRC-24A: (M, forced plans); 8193 and 12000 sort pads
+LIST16_MS = ((8193, False), (12000, False), (16384, False), (16384, True))
+LIST16_N = (1024, 512, 16384, 4)  # (a): P(1024,512) M=16384, frames
+# (a), (b): one frame at N=65536 (K1) and at N=16384 (K3), the plain call in
+# a worker process as phase 16 runs them: (N, K or payload, M or L)
+LIST16_LONG_K1 = (65536, 256, 16384)
+LIST16_LONG_K3 = (16384, 1024, 16384)
+LIST16_LS = (8193, 16384)  # (b): K3 at PAC(128,64)+CRC-16
+# (e): the FER CLI at P(128,64) M=16384, 8192 and 4096, the same frames:
+# Eb/N0, frames, batch.  At 1.5 dB a larger list decodes better (FER
+# 1.31e-2 at M=16384 against 2.19e-2 at 8192 on these frames, z = -6.1), so
+# the gate is one-sided: no list decodes worse than half its size beyond
+# 3 sigma
+LIST16_FER = (1.5, 16384, 4096)
+LIST16_SIM_SNR = [3.0, 3.5]  # (e): the legacy simulator at list_size_max=16384
+LIST16_SCALAR = (4, 4)  # (e): decode_scl's golden frames and PolarCode's frames, at LIST16_M
+LIST16_TIME_B = 1024  # (f): frames of the timed launches
+
+
+def list_sizes_16k(dev, smi):
+    """Phase 17: K1 and K3 at list sizes 8193..16384 (a cluster of 16
+    blocks) against the plain versions and the JAX golden file, a split
+    batch, the FER CLI at M=16384 against 8192 and 4096, the legacy simulator at
+    list_size_max=16384 against itself on the plain decoder, the scalar
+    calls, and the times.  Returns the `kernels` entries of the two
+    cluster-of-16 instantiations."""
+
+    import torch
+
+    from polar_code_tpu_torch.eval import run_fer_sweep
+    from polar_code_tpu_torch.legacy import pac_cuda, simulator
+    from polar_code_tpu_torch.legacy.pac import pac_list_decode_batch
+    from polar_code_tpu_torch.legacy.pac_cuda import pac_list_decode_cuda
+    from polar_code_tpu_torch.ops import scl_cuda
+    from polar_code_tpu_torch.ops.scl import decode_scl_batch
+    from polar_code_tpu_torch.polar.construct import construct_info_set
+
+    decode_scl_cuda = scl_cuda.decode_scl_cuda
+    wrappers = (decode_scl_cuda, pac_list_decode_cuda)
+    plains = (decode_scl_batch, pac_list_decode_batch)
+    info = construct_info_set(N, K)
+    t_phase = time.perf_counter()
+
+    def reset_counts():
+        for f in wrappers:
+            f.launches = f.cluster_launches = 0
+        for f in plains:
+            f.cuda_calls = 0
+
+    # ---- each shape's plan: clusters of 16 at once, by the occupancy calculator ----
+    n_l, k_l, m_l = LIST16_LONG_K1
+    n_p, p_p, l_p = LIST16_LONG_K3
+    k1_info = {N: info, LIST16_N[0]: construct_info_set(*LIST16_N[:2], method="gaussian_bitrev"),
+               n_l: construct_info_set(n_l, k_l, method="gaussian_bitrev")}
+    shapes = ([("K1", N, K, M) for M in (8192, 8193, LIST16_M)] + [("K1",) + LIST16_N[:3], ("K1", n_l, k_l, m_l)]
+              + [("K3", N, K + PAC_CRC[0], L) for L in (8192, 8193, LIST16_M)] + [("K3", n_p, p_p + PAC_CRC[0], l_p)])
+    for kernel, n_s, k_s, M in shapes:
+        if kernel == "K1":
+            g, _, at_once = scl_cuda.launch_plan(n_s, k_s, M, LIST16_TIME_B)
+            scratch = scl_cuda.scratch_bytes(1, n_s, k_s, M, g)
+            words, info_phases = 2, k1_info[n_s]
+        else:
+            g, _, at_once = pac_cuda.launch_plan(n_s, k_s, M)
+            scratch = pac_cuda.scratch_bytes(1, n_s, k_s, M, g)
+            words, info_phases = 3, pac_cuda_info_phases(pac_mask(n_s, k_s))
+        info_b, frozen_b = cluster_barriers(n_s, info_phases, M)
+        print(f"  {kernel} N={n_s} K={k_s} M={M} (a cluster of {scl_cuda.cluster_blocks(M)} blocks of 1024 "
+              f"threads): levels {g + 1}..{int(math.log2(n_s))} in shared memory, 1..{g} and the trace in "
+              f"global scratch ({scratch} B a frame); {scl_cuda.cluster_block_bytes(n_s, g, words)} B shared a "
+              f"block; {at_once} clusters at once on the card (occupancy calculator); cluster barriers "
+              f"{info_b} an info phase, {frozen_b} a frozen phase", flush=True)
+        check(at_once >= 1, f"{kernel} N={n_s} M={M}: the card places no cluster")
+
+    # the long shapes' plain calls go to worker processes first; the rest runs meanwhile
+    rng = np.random.default_rng(LONG_SEED + 17)
+    long_k1, _ = make_llrs(rng, 1, 0.5, k1_info[n_l], n=n_l)
+    mask_p = pac_mask(n_p, p_p + PAC_CRC[0])
+    long_k3 = pac_llrs(rng, 1, 1.5, (n_p, p_p, PAC_CRC), PAC_GEN, mask_p, dev)
+    pool = ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = {"K1": pool.submit(plain_reference, "scl", (long_k1, k1_info[n_l], m_l, CRC, None), str(dev)),
+                   "K3": pool.submit(plain_reference, "pac", (long_k3.cpu().numpy(), mask_p, PAC_GEN, l_p,
+                                                               *PAC_CRC), str(dev))}
+
+        # ---- (a) K1 against the plain version, list and best-only, at two draws ----
+        cases = [(N, K, M, plan, LIST16_B) for M, plan in LIST16_MS] + [LIST16_N[:3] + (False, LIST16_N[3])]
+        differ = ties = 0
+        k1_err = 0.0
+        for seed in CLUSTER_SEEDS:
+            rng = np.random.default_rng(seed + 17)
+            for n_c, k_c, M, use_plan, B in cases:
+                llr_np, msg = make_llrs(rng, B, 2.0 if n_c == N else 1.5, k1_info[n_c], n=n_c)
+                plan = torch.from_numpy(random_plan(rng, msg)).to(dev) if use_plan else None
+                tag = f"(a) P({n_c},{k_c}) M={M} plan={'on' if use_plan else 'off'} B={B} seed {seed}"
+                t = time.perf_counter()
+                (d, t_, e), (db, tb, eb) = k1_vs_plain(torch.from_numpy(llr_np).to(dev), k1_info[n_c], M, CRC,
+                                                        plan, tag)
+                check(d + db == 0, f"{tag}: K1 differs from the plain version in {d + db} frames ({t_ + tb} "
+                      f"near-ties): the kernel runs the plain version's float operations")
+                differ, ties, k1_err = differ + d + db, ties + t_ + tb, max(k1_err, e, eb)
+                print(f"  {tag}: list and best-only equal to the plain version ({time.perf_counter() - t:.1f} s)",
+                      flush=True)
+
+        # ---- (b) K3 against the plain version, every list field and best-only ----
+        k3_err = 0.0
+        for seed in CLUSTER_SEEDS:
+            rng = np.random.default_rng(seed + 17)
+            for L in LIST16_LS:
+                mask = pac_mask(N, K + PAC_CRC[0])
+                x = pac_llrs(rng, LIST16_B, 2.0, (N, K, PAC_CRC), PAC_GEN, mask, dev)
+                ref = pac_list_decode_batch(x, mask, PAC_GEN, L, crc_len=PAC_CRC[0], crc_poly=PAC_CRC[1])
+                tag = f"(b) PAC({N},{K})+CRC-16 L={L} B={LIST16_B} seed {seed}"
+                k3_err = max(k3_err, k3_list_vs_plain(x, mask, PAC_GEN, L, *PAC_CRC, tag, ref=ref))
+                best = pac_list_decode_cuda(x, mask, PAC_GEN, L, *PAC_CRC)
+                for f in ("extracted", "crc_pass"):
+                    check(torch.equal(best[f], ref[f]), f"{tag} best-only: K3's {f} differs from the plain version")
+                print(f"  {tag}: list ({', '.join(PAC_LIST_FIELDS)}) and best-only equal to the plain version; "
+                      f"crc pass {int(ref['crc_pass'].sum())}", flush=True)
+
+        # ---- (c) a split batch at M = L = 16384: the card's room pinned to 5 frames' scratch ----
+        cluster_split_check(dev, LIST16_M, LIST16_B, 5, CLUSTER_SEEDS[0] + 17, reset_counts, "(c)")
+
+        # ---- (a), (b) the long shapes, against their plain calls in the workers ----
+        ref, secs = futures["K1"].result()
+        tag = f"(a) P({n_l},{k_l}) M={m_l} B=1"
+        (d, t_, e), (db, tb, eb) = k1_vs_plain(torch.from_numpy(long_k1).to(dev), k1_info[n_l], m_l, CRC, None,
+                                                tag, ref=ref)
+        check(d + db == 0, f"{tag}: K1 differs from the plain version in {d + db} frames")
+        differ, ties, k1_err = differ + d + db, ties + t_ + tb, max(k1_err, e, eb)
+        print(f"  {tag}: list and best-only equal to the plain version (its call {secs:.1f} s in a worker); crc "
+              f"pass {bool(ref['crc_pass'][0])}", flush=True)
+        ref, secs = futures["K3"].result()
+        ref = {f: torch.from_numpy(v) for f, v in ref.items()}
+        tag = f"(b) PAC({n_p},{p_p})+CRC-16 L={l_p} B=1"
+        k3_err = max(k3_err, k3_list_vs_plain(long_k3, mask_p, PAC_GEN, l_p, *PAC_CRC, tag, ref=ref))
+        best = pac_list_decode_cuda(long_k3, mask_p, PAC_GEN, l_p, *PAC_CRC)
+        for f in ("extracted", "crc_pass"):
+            check(torch.equal(best[f].cpu(), ref[f]), f"{tag} best-only: K3's {f} differs from the plain version")
+        print(f"  {tag}: list and best-only equal to the plain version (its call {secs:.1f} s in a worker); crc "
+              f"pass {bool(ref['crc_pass'][0])}", flush=True)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    print(f"(a) K1 at M 8193-16384 vs plain: {len(cases) * len(CLUSTER_SEEDS) + 1} cases, list and best-only, "
+          f"{differ} frames differ (none allowed); max |info LLR diff| {k1_err:.3e}; (b) K3 "
+          f"{len(LIST16_LS) * len(CLUSTER_SEEDS) + 1} cases, every field equal")
+
+    # ---- (d) against the JAX golden file, K1 under its near-tie rule ----
+    with np.load(GOLDEN / "scl_f32_16k.npz") as gold:
+        case, = json.loads(str(gold["cases"]))
+        tag, code = case["name"], case["code"]
+        x = torch.from_numpy(gold[f"{code}/llr"]).to(dev)
+        out = decode_scl_cuda(x, gold[f"{code}/info"], case["M"], case["crc"], full=True)
+        best = decode_scl_cuda(x, gold[f"{code}/info"], case["M"], case["crc"])
+        ref = {"best_path_bits": gold[f"{tag}/bits"], "best_path_info_llrs": gold[f"{tag}/llrs"],
+               "crc_pass": gold[f"{tag}/crc_pass"], "metrics": gold[f"{tag}/metrics"]}
+        d, t_, _ = judge_list(out, ref, f"(d) vs JAX f32 {tag}")
+        db, tb, _ = judge_list(best, {f: ref[f] for f in ("best_path_bits", "best_path_info_llrs", "crc_pass")},
+                               f"(d) vs JAX f32 {tag} best-only",
+                               ref["metrics"])
+        top = near_tie_frames(ref["metrics"][:, :64])
+    print(f"(d) K1 P(128,64) M=16384 on the golden file's {x.shape[0]} frames: list {d} and best-only {db} frames "
+          f"from JAX float32 ({t_}, {tb} near-ties over the 16384 metrics; {int(top.sum())} frames with a near-tie "
+          f"among the first 64); crc pass {int(ref['crc_pass'].sum())}", flush=True)
+
+    # ---- (e) the entry points: the FER CLI, the simulator, the scalar calls ----
+    snr, frames, batch = LIST16_FER
+    fer = {}
+    for M in (LIST16_M, LIST16_M // 2, LIST16_M // 4):
+        reset_counts()
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+            rows = run_fer_sweep.main([
+                "--M", str(M), "--snr_lo", str(snr), "--snr_hi", str(snr), "--snr_step", "0.5",
+                "--retries", "8", "--batch", str(batch), "--frames", str(frames), "--seed", "0",
+                "--out_dir", f"{tmp}/results", "--plot_dir", f"{tmp}/plots"])
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches, cluster = decode_scl_cuda.launches, decode_scl_cuda.cluster_launches
+        plain = sum(f.cuda_calls for f in plains)
+        fer[M] = (rows[0], launches)
+        print(f"(e) FER CLI P(128,64) CRC-24A M={M}, 8 retries, no β, {snr} dB, {frames} frames at B={batch}: FER "
+              f"SCL {rows[0]['fer_scl']:.6e}, DL-SCL {rows[0]['fer_dl']:.6e}; {launches} K1 launches ({cluster} on a "
+              f"cluster) over {frames // batch} steps; plain decoders on CUDA {plain} times; {frames / secs:.0f} "
+              f"frames/s ({secs:.1f} s)", flush=True)
+        check(len(rows) == 1 and launches >= frames // batch and cluster == launches,
+              f"the M={M} FER sweep did not go through K1's cluster instantiation ({launches}, {cluster})")
+        check(plain == 0, f"a plain decoder ran on CUDA in the M={M} FER sweep")
+    for key in ("fer_scl", "fer_dl"):
+        for M in (LIST16_M, LIST16_M // 2):
+            p1, p2 = fer[M][0][key], fer[M // 2][0][key]
+            check(math.isfinite(p1) and 0.0 < p1 < 1.0, f"M={M} {key} is {p1}")
+            z = fer_z(p1, frames, p2, frames)
+            print(f"  {key}: M={M} {p1:.6e} vs M={M // 2} {p2:.6e} on the same {frames} frames: z = {z:+.3f}")
+            check(z < 3.0, f"M={M} {key} decodes worse than M={M // 2} (z={z:.2f})")
+
+    runs = {}
+    for which in ("kernel", "plain"):
+        reset_counts()
+        buf = io.StringIO()
+        t = time.perf_counter()
+        decode = simulator.pac_decode
+        try:
+            if which == "plain":  # every stage on the plain version, on the card
+                simulator.pac_decode = lambda llr, mask, gen, L, crc_len=0, crc_poly=0: pac_list_decode_batch(
+                    llr, mask, gen, L, crc_len=crc_len, crc_poly=crc_poly)
+            with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(buf):
+                res = simulator.run(simulator.LegacySimConfig(snr_range=LIST16_SIM_SNR, seed=0,
+                                                              list_size_max=LIST16_M), tmp)
+                csv = next(Path(tmp).glob("*.csv")).read_text()
+        finally:
+            simulator.pac_decode = decode
+        lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("@")]
+        runs[which] = (lines, res.ber, res.fer, csv, pac_list_decode_cuda.launches,
+                       pac_list_decode_cuda.cluster_launches, sum(f.cuda_calls for f in plains),
+                       time.perf_counter() - t)
+    lines, ber, fer_s, csv, sim_launches, sim_cluster, plain, secs = runs["kernel"]
+    for ln in lines:
+        print(f"  simulator L 1 -> {LIST16_M}: {ln}")
+    print(f"(e) simulator at list_size_max={LIST16_M}: {secs:.3f} s; K3 {sim_launches} launches, {sim_cluster} of them on "
+          f"a cluster of 16 (stage 2); plain decoders on CUDA {plain} times; on the plain decoder "
+          f"{runs['plain'][-1]:.3f} s ({runs['plain'][-2]} plain calls)")
+    check(runs["kernel"][:4] == runs["plain"][:4], f"the simulator at list_size_max={LIST16_M} differs from its run on "
+          f"the plain decoder: {ber} {fer_s} vs {runs['plain'][1]} {runs['plain'][2]}")
+    check(sim_cluster > 0 and plain == 0, "the simulator's stage 2 did not go through K3's cluster instantiation "
+          "alone")
+
+    scalar_cluster = cluster_scalar_calls(dev, LIST16_M, *LIST16_SCALAR, CLUSTER_SEEDS[0] + 17, reset_counts)
+
+    # ---- (f) times with CUDA events, M and L 8192 beside 16384 ----
+    print(f"list-size-16384 times on {smi}:")
+    B = LIST16_TIME_B
+    llr = torch.from_numpy(make_llrs(np.random.default_rng(5), B, 5.0, info)[0]).to(dev)
+    entries = {}
+    for M in (LIST16_M // 2, LIST16_M):
+        before = decode_scl_cuda.launches
+        ms = cuda_time_ms(lambda M=M: decode_scl_cuda(llr, info, M, CRC), reps=2, warmup=1)
+        b_ms, b_by = bound(*scl_work(info, M, B))
+        line = (f"  K1 P(128,64) M={M} CRC B={B} 5.0 dB: {ms:.4f} ms ({(decode_scl_cuda.launches - before) / 3:g} "
+                f"launches a call)")
+        if M == LIST16_M:
+            plain_ms = cuda_time_ms(lambda: decode_scl_batch(llr, info, M, CRC, dtype=torch.float32), reps=1,
+                                    warmup=0)
+            entries["scl"] = (ms, plain_ms, b_ms, b_by)
+            line += f"; plain {plain_ms:.4f} ms"
+        print(f"{line}; bound {b_ms:.6f} ms ({b_by}); {scl_cuda.launch_plan(N, K, M, B)[2]} clusters at once",
+              flush=True)
+    n_c, k_c, crc_c = PAC_CODES[128]
+    p_mask = pac_mask(n_c, k_c + crc_c[0])
+    x = pac_llrs(np.random.default_rng(6), B, 2.5, PAC_CODES[128], PAC_GEN, p_mask, dev)
+    for L in (LIST16_M // 2, LIST16_M):
+        ms = cuda_time_ms(lambda L=L: pac_list_decode_cuda(x, p_mask, PAC_GEN, L, *crc_c), reps=2, warmup=1)
+        b_ms, b_by = bound(*pac_work(p_mask, L, B))
+        line = f"  K3 PAC(128,64)+CRC-16 L={L} B={B} 2.5 dB: {ms:.4f} ms"
+        if L == LIST16_M:
+            plain_ms = cuda_time_ms(lambda: pac_list_decode_batch(x, p_mask, PAC_GEN, L, crc_len=crc_c[0],
+                                                                  crc_poly=crc_c[1]), reps=1, warmup=0)
+            entries["pac"] = (ms, plain_ms, b_ms, b_by)
+            line += f"; plain {plain_ms:.4f} ms"
+        print(f"{line}; bound {b_ms:.6f} ms ({b_by}); {pac_cuda.launch_plan(n_c, k_c + crc_c[0], L)[2]} clusters "
+              f"at once", flush=True)
+    print(f"phase list_sizes_16k: {time.perf_counter() - t_phase:.1f} s")
+
+    launches = {"scl": fer[LIST16_M][1] + scalar_cluster[0], "pac": sim_cluster + scalar_cluster[1]}
+    errors = {"scl": k1_err, "pac": k3_err}
+    names = {"scl": ("scl_decode (cluster of 16: M 8193-16384)", "polar_code_tpu_torch/csrc/scl_decode.cu",
+                     "polar_code_tpu/ops/scl_pallas.py:293"),
+             "pac": ("pac_decode (cluster of 16: L 8193-16384)", "polar_code_tpu_torch/csrc/pac_decode.cu",
                      "polar_code_tpu/legacy/pac_pallas.py:59")}
     return [{"name": names[k][0], "route": "cuda", "source": names[k][1], "replaces": names[k][2],
              "launches": launches[k], "max_abs_err": errors[k], "ms": entries[k][0], "plain_ms": entries[k][1],
@@ -3814,7 +4155,11 @@ def main():
     long_entries = long_codes(dev, smi)
     phase_done("16 long_codes")
 
-    # ---- 17. result lines ----
+    # ---- 17. list sizes past 8192 ----
+    list16_entries = list_sizes_16k(dev, smi)
+    phase_done("17 list_sizes_16k")
+
+    # ---- 18. result lines ----
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by = nms_times[f"{IRA[0]} two-min 2.5 dB B=4096"]
     print(json.dumps({"kernels": [{
         "name": "scl_decode",
@@ -3853,7 +4198,7 @@ def main():
         "bound_ms": pac_bound_ms,
         "bound_by": pac_bound_by,
         "library_ms": None,
-    }] + wide_entries + deep_entries + cluster_entries + long_entries}))
+    }] + wide_entries + deep_entries + cluster_entries + long_entries + list16_entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind, "count": count}}))
     return 0

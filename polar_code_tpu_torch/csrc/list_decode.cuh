@@ -458,31 +458,33 @@ __device__ __forceinline__ void block_sort_keys(unsigned long long* keys, unsign
 }
 
 // ---------------------------------------------------------------------------
-// A frame over a thread-block cluster: list sizes 1025..8192.
+// A frame over a thread-block cluster: list sizes 1025..16384.
 //
 // One frame a cluster of C = cluster_blocks(M) blocks (2 at M 1025..2048, 4
-// up to 4096, 8 up to 8192: 8 is the portable cluster size) of 1024
-// threads: thread tid of cluster rank r holds path r·1024 + tid and sort
-// keys 2(r·1024 + tid) and +1, as over warps.  Tree levels G+1..n of the
-// block's own 1024 paths live in its shared memory (rows of (N >> G) − 1
-// entries, as over warps), and levels 1..G of every path in global scratch
-// (rows of N − (N >> G) entries); G is the smallest whose block fits
-// (`ops/scl_cuda.py::launch_plan`).  Path p lives in rank p >> 10 at row
+// up to 4096, 8 up to 8192, 16 up to 16384: 8 is the portable cluster
+// size, and 16 a non-portable one that Hopper places for a kernel that
+// allows it, `allow_cluster`) of 1024 threads: thread tid of cluster rank
+// r holds path r·1024 + tid and sort keys 2(r·1024 + tid) and +1, as over
+// warps.  Tree levels G+1..n of the block's own 1024 paths live in its
+// shared memory (rows of (N >> G) − 1 entries, as over warps), and levels
+// 1..G of every path in global scratch (rows of N − (N >> G) entries); G
+// is the smallest whose block fits (`ops/scl_cuda.py::launch_plan`).  Path p lives in rank p >> 10 at row
 // p & 1023: a read through σ of a shared level whose row is another
 // block's goes through distributed shared memory (`cluster_row`), the
 // block's own rows are plain shared loads, and a global row another block
 // may have written is read with ld.global.cg, from L2.  Block r's shared
-// memory also holds σ of its own paths (16-bit fields: 2p+b < 2M <= 16384)
+// memory also holds σ of its own paths (16-bit fields: 2p+b < 2M <= 32768)
 // in two tables, one read and one a fork's target (`cluster_sigma_fork`),
 // three sort-key buffers (`cluster_sort_keys`) and its paths' published
 // words in two sets; σ's table and the word set an info phase uses go by
 // the phase's parity (`cluster_layout`).
 //
 // The cluster barriers (barrier.cluster arrive.release / wait.acquire):
-// one a cross-block sort stage and one for the sorted keys (so 2, 4 and 7
-// an info phase at P = 4096, 8192 and 16384), and one a phase whose word
-// flags a read through σ, split: the block arrives after the phase's last
-// read of another block's rows and waits before its next phase's passes,
+// one a cross-block sort stage and one for the sorted keys (so 2, 4, 7 and
+// 11 an info phase at P = 4096, 8192, 16384 and 32768), and one a phase
+// whose word flags a read through σ, split: the block arrives after the
+// phase's last read of another block's rows and waits before its next
+// phase's passes,
 // the only writes another block may read that it had been reading (σ's
 // tables, the key buffers and the word sets are each rewritten only
 // behind a later sort's barriers).  A tree row another block reads through
@@ -491,15 +493,19 @@ __device__ __forceinline__ void block_sort_keys(unsigned long long* keys, unsign
 //
 // Offsets.  Every kernel takes a frame's base in 64 bits (frame · its size)
 // and indexes within the frame with 32-bit products; the largest are here.
-// At N = 65536 and M = 8192 a trace entry info_i·M + m and a list row's
-// start m·N reach 2^29, and a global tree row's start r·(N − (N >> G)) is
-// below 8191 · 65535 < 2^29: a quarter of 2^31.
+// At N = 65536 and M = 16384 a trace entry info_i·M + m (K·M = 2^30 entries
+// a frame at K = N) and a list row's start m·N (K3's v rows; the list's
+// [M, K] rows start from a 64-bit (frame·M + m)·K) reach 2^30, and a
+// global tree row's start r·(N − (N >> G)) plus its entry is below 16384 ·
+// 65536 = 2^30: half of 2^31.  Past M = 16384 a frame needs a cluster of
+// more than 16 blocks, which no GPC places, and at M = 32768 these
+// products reach 2^31.
 // ---------------------------------------------------------------------------
 
 #define CLUSTER_THREADS 1024  // threads a block of a cluster frame: one a path
 #define CLUSTER_SHIFT 10      // log2(CLUSTER_THREADS)
 #define CLUSTER_KEYS (2 * CLUSTER_THREADS)  // sort keys a block holds
-#define CLUSTER_MAX_BLOCKS 8  // the portable cluster size
+#define CLUSTER_MAX_BLOCKS 16  // past the portable 8, where the kernel allows it (`allow_cluster`)
 #define CLUSTER_MAX_M (CLUSTER_THREADS * CLUSTER_MAX_BLOCKS)
 // Blocks of a cluster frame: M rounded up to a power of two, over 1024.
 __host__ __device__ __forceinline__ int cluster_blocks(int M) {
@@ -507,9 +513,10 @@ __host__ __device__ __forceinline__ int cluster_blocks(int M) {
 }
 
 // The key exchanges of one cluster sort of P keys: its cross-block stages
-// (j >= 2048 in each merge of 4096 keys or more: 1, 3, 6 at P = 4096, 8192,
-// 16384) and the sorted keys' store.  Sort i of a launch starts at count
-// i·cluster_exchanges(P), which picks its buffers (`cluster_sort_keys`).
+// (j >= 2048 in each merge of 4096 keys or more: 1, 3, 6, 10 at P = 4096,
+// 8192, 16384, 32768) and the sorted keys' store.  Sort i of a launch
+// starts at count i·cluster_exchanges(P), which picks its buffers
+// (`cluster_sort_keys`).
 __host__ __device__ __forceinline__ int cluster_exchanges(int P) {
   int x = 1;
   for (int size = 2 * CLUSTER_KEYS; size <= P; size <<= 1)
@@ -670,9 +677,9 @@ __device__ __forceinline__ void cluster_chain_pass(uint8_t* st, int ststride, co
 // A stage of distance j >= 2048 pairs keys of two blocks: each stores its
 // keys in its exchange buffer X[xc & 1] (xc counts the cluster's exchanges
 // over the launch), one cluster barrier, and each reads its partner's from
-// rank r ^ (j / 2048) through DSMEM (1 / 3 / 6 of the 78 / 91 / 105 stages
-// at P = 4096 / 8192 / 16384).  A stage of distance 64..1024 goes through
-// the block's own buffers, Y and the exchange buffer the last cross-block
+// rank r ^ (j / 2048) through DSMEM (1 / 3 / 6 / 10 of the 78 / 91 / 105 /
+// 120 stages at P = 4096 / 8192 / 16384 / 32768).  A stage of distance
+// 64..1024 goes through the block's own buffers, Y and the exchange buffer the last cross-block
 // stage did not use, in turns, one block barrier a stage: a buffer is
 // rewritten only after the barrier of the stage that follows its reads,
 // and the one another block may still read is not rewritten before the
@@ -796,6 +803,17 @@ int plan_deep(Kern kernel, int M, int frame_bytes, int max_block_smem, int* fram
                                                              frame_bytes);
 }
 
+// Let a cluster kernel take `block_bytes` of dynamic shared memory a block
+// and clusters past the portable 8 blocks (16 at M > 8192): without
+// cudaFuncAttributeNonPortableClusterSizeAllowed the occupancy calculator
+// and the launch refuse them.  Set before either asks of the kernel.
+template <typename Kern>
+cudaError_t allow_cluster(Kern kernel, int block_bytes) {
+  cudaError_t err = set_smem(kernel, block_bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
 // The launch of `frames` frames, a cluster of cluster_blocks(M) blocks of
 // 1024 threads each with `block_bytes` of dynamic shared memory; `attr`,
 // the cluster's dimension, must outlive the configuration.
@@ -824,7 +842,7 @@ template <typename Kern>
 int plan_cluster(Kern kernel, int M, int block_bytes, int max_block_smem, int* frames_at_once) {
   *frames_at_once = 0;
   if (block_bytes > max_block_smem) return 0;
-  cudaError_t err = set_smem(kernel, block_bytes);
+  cudaError_t err = allow_cluster(kernel, block_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(&attr, 1, M, block_bytes, 0);
@@ -835,7 +853,7 @@ int plan_cluster(Kern kernel, int M, int block_bytes, int max_block_smem, int* f
 template <typename... Params, typename... Values>
 int launch_cluster_kernel(void (*kernel)(Params...), int B, int M, int block_bytes,
                           cudaStream_t stream, Values... args) {
-  cudaError_t err = set_smem(kernel, block_bytes);
+  cudaError_t err = allow_cluster(kernel, block_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(&attr, B, M, block_bytes, stream);

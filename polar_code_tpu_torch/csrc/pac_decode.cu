@@ -85,9 +85,9 @@
 // shared memory holds tree levels.  Past n = 13 a 16-bit σ row outgrows the
 // fork's 12 registers, and pac_deep_wide_kernel copies it in two halves.
 //
-// On a cluster, the instantiations pac_cluster_kernel<LIST> (L 1025..8192):
+// On a cluster, the instantiations pac_cluster_kernel<LIST> (L 1025..16384):
 // the SCL kernel's cluster layout (`scl_decode.cu`, `list_decode.cuh`), a
-// frame over a thread-block cluster of 2, 4 or 8 blocks of 1024 threads,
+// frame over a thread-block cluster of 2, 4, 8 or 16 blocks of 1024 threads,
 // levels G+1..n of a block's slots in its shared memory and levels 1..G in
 // global scratch, with three published words a slot.
 //
@@ -737,7 +737,7 @@ __global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_wide_kernel(PAC_DEEP_PARA
 }
 
 // ---------------------------------------------------------------------------
-// Over a cluster: list sizes 1025..8192, one frame a cluster of blocks.
+// Over a cluster: list sizes 1025..16384, one frame a cluster of blocks.
 // ---------------------------------------------------------------------------
 
 // The PAC decode with a frame spread over a cluster of C =

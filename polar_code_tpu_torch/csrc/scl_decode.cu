@@ -109,11 +109,13 @@
 //     scl_deep_wide_kernel copies it in two halves of 8 words, four block
 //     barriers a fork where the others take two.
 //   * On a cluster, the instantiations scl_cluster_kernel<LIST> (M
-//     1025..8192, a runtime argument).  One thread a path caps a block at
-//     M = 1024 (its threads), and 64 registers a thread at two sort keys;
-//     so a frame goes to a thread-block cluster of cluster_blocks(M) = 2, 4
-//     or 8 blocks of 1024 threads, thread tid of rank r path r·1024 + tid
-//     (`list_decode.cuh`).  Levels G+1..n of a block's 1024 paths are in
+//     1025..16384, a runtime argument, as is the cluster's size C).  One
+//     thread a path caps a block at M = 1024 (its threads), and 64
+//     registers a thread at two sort keys; so a frame goes to a
+//     thread-block cluster of cluster_blocks(M) = 2, 4, 8 or 16 blocks of
+//     1024 threads (16 past M = 8192, a non-portable size the host allows
+//     on the kernel, `allow_cluster`), thread tid of rank r path r·1024 +
+//     tid (`list_decode.cuh`).  Levels G+1..n of a block's 1024 paths are in
 //     its shared memory and levels 1..G of every path in global scratch, G
 //     the smallest whose block fits (G = n − 4 at N 16..2048); each block
 //     runs the passes of its own paths, reading a parent row through σ
@@ -1013,7 +1015,7 @@ __global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_wide_kernel(SCL_DEEP_PARA
 }
 
 // ---------------------------------------------------------------------------
-// Over a cluster: list sizes 1025..8192, one frame a cluster of blocks.
+// Over a cluster: list sizes 1025..16384, one frame a cluster of blocks.
 // ---------------------------------------------------------------------------
 
 // The SCL decode with a frame spread over a cluster of C = cluster_blocks(M)

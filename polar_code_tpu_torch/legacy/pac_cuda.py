@@ -14,7 +14,7 @@ instantiation writes them (the systematic scalar decoder,
 
 On a CUDA tensor it launches the kernel, or raises for a shape the kernel
 does not take; it runs the plain version (`legacy/pac.py`) only for a tensor
-on the CPU.  The kernel takes every list size from 1 to 8192 (the TPU
+on the CPU.  The kernel takes every list size from 1 to 16384 (the TPU
 kernel took power-of-two L <= 8 and N up to 8192, and the JAX package's XLA
 decoder takes the rest), N up to 65536 (the phase words' limit), and any
 batch size: the last block is masked, since the adaptive second stage
@@ -22,9 +22,10 @@ re-decodes a ragged set of failed frames.  Up to L=32 one path is a lane of
 a warp (past N=8192 at L 17..32 and 9..16, a wide twin with one more σ
 word); from 33 to 1024 a frame is spread over the warps of a block, one
 thread a path (the over-warps instantiation, with a wide twin for 16-bit
-σ rows past N=8192); from 1025 to 8192 over a thread-block cluster of
+σ rows past N=8192); from 1025 to 16384 over a thread-block cluster of
 `ops/scl_cuda.py::cluster_blocks(L)` blocks of 1024 threads, one thread a
-path (the cluster instantiation).  A batch goes, as the SCL kernel's, in
+path (the cluster instantiation; 16 blocks past L=8192, a non-portable
+cluster size).  A batch goes, as the SCL kernel's, in
 launches whose global scratch fits the card's free memory
 (`ops/scl_cuda.py::alloc_scratch`).
 `pac_list_decode_cuda.launches` counts kernel launches,
@@ -77,7 +78,7 @@ from ..ops.scl_schedule import phase_words
 from .pac import bitrev_perm, pac_list_decode_batch
 
 SOURCE = "pac_decode.cu"
-MAX_L = 8192  # one thread a path, a cluster of 8 blocks at most
+MAX_L = 16384  # one thread a path, a cluster of 16 blocks (a non-portable cluster size) at most
 DEEP_WORDS = 3  # published 32-bit values a path over warps: leaf, syndrome, shift register
 MAX_MEM = 31  # the shift register is a 32-bit mask
 TRACE_RING = 16  # trace rows a one-path-a-lane frame stages in shared memory (`pac_decode.cu`)
@@ -129,7 +130,7 @@ def check_shape(N: int, Kp: int, L: int, gen, crc_len: int, dtype: torch.dtype) 
     if not 1 <= L <= MAX_L:
         raise ValueError(f"the PAC kernel supports list sizes 1..{MAX_L} (one frame a cluster of at "
                          f"most {CLUSTER_MAX_BLOCKS} blocks of {CLUSTER_THREADS} threads, one thread a "
-                         f"path), not {L}")
+                         f"path: {CLUSTER_MAX_BLOCKS} is the largest cluster an H100 places), not {L}")
     if N < 2 or N & (N - 1) or not 0 < Kp <= N:
         raise ValueError(f"invalid code shape N={N} Kp={Kp}")
     if N > MAX_N:
@@ -189,7 +190,7 @@ def launch_plan(N: int, Kp: int, L: int) -> tuple:
     """(global levels G, frames a block, frames an SM holds at once) on the
     current card; on a cluster (L > 1024) (G, 1, the frames the card runs at
     once), G as `ops/scl_cuda.py::launch_plan` picks it, raising where the
-    card places no cluster."""
+    card places no cluster (past L=8192 one of 16 blocks)."""
 
     n = int(math.log2(N))
     if L > DEEP_MAX_M:

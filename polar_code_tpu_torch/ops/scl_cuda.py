@@ -20,7 +20,7 @@ went to the by-path instantiation, `decode_scl_cuda.deep_launches` those
 that went to the over-warps one and `decode_scl_cuda.cluster_launches`
 those that went to the cluster one.
 
-The kernel takes every list size M from 1 to 8192 (the JAX package's XLA
+The kernel takes every list size M from 1 to 16384 (the JAX package's XLA
 decoder takes any M; its TPU kernel power-of-two M <= 8) and N up to 65536
 (the TPU kernel's N envelope is 8192; the JAX package sends longer codes to
 its XLA decoder, and the kernel's phase words stop at 65536).  M ∈ {1, 2,
@@ -28,14 +28,16 @@ its XLA decoder, and the kernel's phase words stop at 65536).  M ∈ {1, 2,
 N=8192; above, M=1 alone, `byte_words`); M up to 32 to the by-path
 instantiation of M rounded up to a power of two (`path_width`), one path a
 lane of a warp; M from 33 to 1024 to the over-warps instantiation, one
-frame a block and one thread a path; M from 1025 to 8192 to the cluster
+frame a block and one thread a path; M from 1025 to 16384 to the cluster
 instantiation, one frame a thread-block cluster of `cluster_blocks(M)`
-blocks of 1024 threads, one thread a path (the source note has the four
-layouts).  Past N=8192 the by-path widths 16 and 32 and the over-warps
-16-bit instantiation have wide twins whose σ holds 2n − 2 = 30 fields.  A
+blocks of 1024 threads, one thread a path: 2, 4 or 8 blocks up to M=8192
+(8 is the portable cluster size) and 16 above, a non-portable size that
+the source allows on the kernel (the source note has the four layouts).
+Past N=8192 the by-path widths 16 and 32 and the over-warps 16-bit
+instantiation have wide twins whose σ holds 2n − 2 = 30 fields.  A
 shape whose frame fits no block even with every level but the leaf in
 global scratch (`check_shape`) raises.  A batch whose global scratch
-(`scratch_bytes`: 4.3 GB a frame at P(65536,32768) M=8192, G=13) cannot be
+(`scratch_bytes`: 8.6 GB a frame at P(65536,32768) M=16384, G=13) cannot be
 allocated goes, in every layout, in launches that fit nine tenths of the
 card's free memory (`alloc_scratch`, `split_batch`), one launch counted
 each; a frame that alone overfills it raises with its bytes named.  The
@@ -76,11 +78,11 @@ from .scl import decode_scl_batch
 from .scl_schedule import phase_words
 
 SOURCE = "scl_decode.cu"
-MAX_M = 8192  # one thread a path, a cluster of 8 blocks (the portable cluster size) at most
+MAX_M = 16384  # one thread a path, a cluster of 16 blocks (a non-portable cluster size) at most
 SUPPORTED_M = tuple(range(1, MAX_M + 1))
 DEEP_MAX_M = 1024  # the largest list size over the warps of one block; above, a cluster
 CLUSTER_THREADS = 1024  # threads a block of a cluster frame (`list_decode.cuh`)
-CLUSTER_MAX_BLOCKS = 8
+CLUSTER_MAX_BLOCKS = 16  # past 8, the portable cluster size (M > 8192), a non-portable size
 # the largest list size decoded one path a lane of a warp; above it a frame
 # is spread over the warps of a block of M rounded up to a power of two
 # threads (`DEEP_MIN_M` and `deep_threads` in `csrc/list_decode.cuh`)
@@ -147,8 +149,8 @@ def deep_frame_bytes(N: int, M: int, global_levels: int, words: int = 2) -> int:
 
 
 def cluster_blocks(M: int) -> int:
-    """Blocks of a cluster frame (M 1025..8192): M rounded up to a power of
-    two, over 1024 (`cluster_blocks` in `csrc/list_decode.cuh`)."""
+    """Blocks of a cluster frame (M 1025..16384): M rounded up to a power
+    of two, over 1024 (`cluster_blocks` in `csrc/list_decode.cuh`)."""
 
     return sort_keys(M) // 2 // CLUSTER_THREADS
 
@@ -156,8 +158,8 @@ def cluster_blocks(M: int) -> int:
 def cluster_exchanges(P: int) -> int:
     """Cluster barriers one sort of P keys on a cluster takes
     (`cluster_exchanges` in `csrc/list_decode.cuh`): one a cross-block stage
-    (distance 2048 or more in each merge of 4096 keys or more: 1, 3, 6 at
-    P = 4096, 8192, 16384) and one for the sorted keys."""
+    (distance 2048 or more in each merge of 4096 keys or more: 1, 3, 6, 10
+    at P = 4096, 8192, 16384, 32768) and one for the sorted keys."""
 
     return 1 + sum(s - 11 for s in range(12, P.bit_length()))
 
@@ -283,7 +285,7 @@ def check_shape(N: int, K: int, M: int, crc: Optional[str], dtype: torch.dtype) 
     if not 1 <= M <= MAX_M:
         raise ValueError(f"the SCL kernel supports list sizes 1..{MAX_M} (one frame a cluster of at "
                          f"most {CLUSTER_MAX_BLOCKS} blocks of {CLUSTER_THREADS} threads, one thread a "
-                         f"path), not {M}")
+                         f"path: {CLUSTER_MAX_BLOCKS} is the largest cluster an H100 places), not {M}")
     if N < 2 or N & (N - 1) or not 0 < K <= N:
         raise ValueError(f"invalid code shape N={N} K={K}")
     if N > MAX_N:
@@ -377,7 +379,9 @@ def launch_plan(N: int, K: int, M: int, B: int) -> tuple:
     `cudaOccupancyMaxActiveClusters`), G the smallest at which the card runs
     as many frames at once as with every level but the leaf in global
     scratch (the most shared memory a block's 1024 paths can take); it
-    raises where the card places no cluster.  The occupancy (`_occupancy`)
+    raises where the card places no cluster (past M=8192 a cluster of 16
+    blocks, which the kernel allows as a non-portable size: a card whose
+    GPCs hold fewer than 16 free SMs places none).  The occupancy (`_occupancy`)
     is cached by shape alone: the cards of one host are taken to be of one
     kind."""
 

@@ -16,18 +16,21 @@ global scratch, so it takes PAC(8192, Kp) at every Kp.  On the CPU:
 * the planning: `cluster_blocks`, the bytes a block of a cluster takes at
   every G, the plan's G at N 16..8192 (a stand-in occupancy calculator),
   `scratch_bytes`, `split_batch`, `check_shape` over M and L 1025..8192
-  at N 128..65536 and raising at 8193 and at N=131072, and K3's one-lane
+  at N 128..65536 and raising at 16385 and at N=131072, and K3's one-lane
   frame without the trace;
 * a model of the cluster sort (`cluster_sort_keys` in
   `csrc/list_decode.cuh`: the stages across blocks through two exchange
   buffers in turns, one cluster barrier each, then those within the block
   through a third buffer and the free exchange one, one block barrier
-  each) against the stable sort at P = 4096, 8192 and 16384 keys, with its
-  stage and barrier counts, the buffers' races tracked across three sorts
-  in a row, and the final rank by the same sort;
-* a model of the phase barriers over the schedule words at N 16..8192:
+  each) against the stable sort at P = 4096, 8192, 16384 and 32768 keys
+  (clusters of 2 to 16 blocks), with its stage and barrier counts, the
+  buffers' races tracked across three sorts in a row, and the final rank
+  by the same sort;
+* a model of the phase barriers over the schedule words at N 16..65536:
   every row read through σ is written behind a barrier, and no block
-  rewrites one before the split barrier of the phase that read it.
+  rewrites one before the split barrier of the phase that read it.  The
+  replay takes every read through σ as a read of another block's row, so
+  it holds at any number of blocks, 16 among them.
 
 On the card (marker `gpu`): K1 and K3 on a cluster against their plain
 versions.
@@ -227,10 +230,12 @@ def test_check_shape_takes_lists_up_to_8192():
     for M in range(1025, 8193, 127):
         scl_cuda.check_shape(128, 64, M, None, torch.float32)
         pac_cuda.check_shape(128, 80, M, GEN, 16, torch.float32)
-    with pytest.raises(ValueError, match="1..8192 .*cluster"):
-        scl_cuda.check_shape(128, 64, 8193, CRC, torch.float32)
-    with pytest.raises(ValueError, match="1..8192 .*cluster"):
-        pac_cuda.check_shape(128, 80, 8193, GEN, 16, torch.float32)
+    # 8193..16384 go to a cluster of 16 blocks (`tests/test_torch_list_16k.py`);
+    # the first size refused is 16385
+    with pytest.raises(ValueError, match="1..16384 .*cluster"):
+        scl_cuda.check_shape(128, 64, 16385, CRC, torch.float32)
+    with pytest.raises(ValueError, match="1..16384 .*cluster"):
+        pac_cuda.check_shape(128, 80, 16385, GEN, 16, torch.float32)
     for N in (16384, 32768, 65536):  # past the TPU kernel's N=8192
         scl_cuda.check_shape(N, N // 2, 2048, CRC, torch.float32)
         pac_cuda.check_shape(N, N // 2 + 16, 2048, GEN, 16, torch.float32)
@@ -323,7 +328,7 @@ def _cluster_sort(k0, k1, bufs=None, xc=0):
     T = k0.size
     P = 2 * T
     C = T // 1024
-    assert C in (2, 4, 8) and P == 2048 * C
+    assert C in (2, 4, 8, 16) and P == 2048 * C
     bufs = bufs or _Buffers(C)
     g = np.arange(T)
     base, rank, lbase = 2 * g, g // 1024, 2 * (g % 1024)
@@ -400,9 +405,9 @@ def _take_ranks(bufs, sorted_b, M):
     return out
 
 
-@pytest.mark.parametrize("P", [4096, 8192, 16384])
+@pytest.mark.parametrize("P", [4096, 8192, 16384, 32768])
 def test_cluster_sort_is_the_stable_sort(P):
-    M_values = {4096: (1025, 2048), 8192: (2049, 4096), 16384: (4097, 8192)}[P]
+    M_values = {4096: (1025, 2048), 8192: (2049, 4096), 16384: (4097, 8192), 32768: (8193, 16384)}[P]
     rng = np.random.default_rng(P)
     ties = np.array([0.0, -0.0, 0.5, 1.0, 1.5, 3e38, np.inf], np.float32)
     T = P // 2
@@ -435,12 +440,12 @@ def test_cluster_sort_is_the_stable_sort(P):
                 np.testing.assert_array_equal(out, np.sort(np.concatenate([k0, k1]))[:T])
     p = P.bit_length() - 1
     assert sum(kinds.values()) == p * (p + 1) // 2
-    assert kinds["blocks"] == {4096: 1, 8192: 3, 16384: 6}[P]  # the stages across blocks
+    assert kinds["blocks"] == {4096: 1, 8192: 3, 16384: 6, 32768: 10}[P]  # the stages across blocks
     assert scl_cuda.cluster_exchanges(P) == kinds["blocks"] + 1  # and the sorted keys' store
     assert kinds["shared"] == 5 * (p - 11) + 15  # the in-block stages, j 1024..64
 
 
-@pytest.mark.parametrize("M", [1025, 2048, 3000, 4096, 8192])
+@pytest.mark.parametrize("M", [1025, 2048, 3000, 4096, 8192, 8193, 16384])
 def test_cluster_sort_buffers_across_forks(M):
     """Three sorts in a row over one set of key buffers, as a decode runs
     them (two forks, each read by every thread for the key of its rank, and
@@ -467,14 +472,14 @@ def test_cluster_sort_buffers_across_forks(M):
         out, kinds, sorted_b, xc = _cluster_sort(k0, k1, bufs, xc)
         np.testing.assert_array_equal(out, np.sort(np.concatenate([k0, k1]))[:T])
         np.testing.assert_array_equal(_take_ranks(bufs, sorted_b, M), out[:M])
-        cross = {4096: 1, 8192: 3, 16384: 6}[P]
+        cross = {4096: 1, 8192: 3, 16384: 6, 32768: 10}[P]
         assert kinds["blocks"] == cross and kinds["shared"] == 5 * (p - 11) + 15
         assert bufs.barriers["cluster"] - before["cluster"] == scl_cuda.cluster_exchanges(P) == cross + 1
         assert bufs.barriers["block"] - before["block"] == kinds["shared"]
     assert xc == 3 * scl_cuda.cluster_exchanges(P)
 
 
-@pytest.mark.parametrize("M", [1025, 3000, 8192])
+@pytest.mark.parametrize("M", [1025, 3000, 8192, 16384])
 def test_cluster_final_rank_is_the_stable_rank(M):
     """The final rank by the cluster sort of (metric, m) keys, thread m's
     second key a pad: thread r takes the path of rank r, and the selected
@@ -550,7 +555,7 @@ def _phase_barrier_races(words, n, split=True):
     return races
 
 
-@pytest.mark.parametrize("N", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192])
+@pytest.mark.parametrize("N", [16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 65536])
 def test_cluster_phase_barriers_cover_sigma_reads(N):
     """Every row a phase writes that another block may have read through σ
     is written after the wait of the split barrier the reading phase
@@ -588,15 +593,16 @@ def test_cluster_barrier_counts():
 
     words = phase_words(128, np.asarray(construct_info_set(128, 64), np.int64)).astype(np.int64)
     info, flagged = (words >> 10 & 1) == 0, (words >> 11) != 0
-    for P, cross in ((4096, 1), (8192, 3), (16384, 6)):
+    for P, cross in ((4096, 1), (8192, 3), (16384, 6), (32768, 10)):
         merges = P.bit_length() - 1 - 11  # merges with a cross-block stage
         new = np.where(info, scl_cuda.cluster_exchanges(P), 0) + flagged
         old = np.where(info, 2 * cross + merges + 1 + 1, 0) + flagged
         assert set(new[info]) <= {cross + 1, cross + 2} and set(new[~info]) <= {0, 1}
         assert set(old[info]) <= {2 * cross + merges + 2, 2 * cross + merges + 3}
-        assert (2 * cross + merges + 3, cross + 2) == {4096: (6, 3), 8192: (11, 5), 16384: (18, 8)}[P]
+        assert (2 * cross + merges + 3, cross + 2) == {4096: (6, 3), 8192: (11, 5), 16384: (18, 8),
+                                                       32768: (27, 12)}[P]
         assert new.sum() < old.sum() / 2 + flagged.sum()
-    # every info phase reads through σ here (so 3 / 5 / 8 against 6 / 11 / 18),
+    # every info phase reads through σ here (so 3 / 5 / 8 / 12 against 6 / 11 / 18 / 27),
     # and about half the frozen phases
     assert flagged[info].all() and 0 < flagged[~info].sum() < (~info).sum()
 

@@ -297,9 +297,29 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    `decode_scl` at M=16384 and `PolarCode` at L=16384, one cluster launch
    a call, equal to the plain version; the plain decoders 0 times on CUDA;
    (f) CUDA-event times at P(128,64) B=1024, M and L 8192 beside 16384,
-   and the plain versions' at 16384;
-18. a `kernels` JSON line (one entry a kernel, and one for each new
-   instantiation with its launches on phases 13's to 17's paths;
+   and the plain versions' at 16384; the timed launches' first and last 16
+   frames equal to 16-frame launches of the same kernel;
+18. the list sizes past 16384 (`list_sizes_32k`): K1 and K3 at M and L
+   16385..32768, two paths a thread on a cluster of 16 blocks (the pair
+   instantiations, σ in global scratch); their registers and spills, each
+   shape's plan; (a) K1 against the plain version, list and best-only, no
+   frame allowed to differ: P(128,64) CRC-24A M 16385, 24000, 32768 and
+   32768 with forced plans (16 frames, two draws), P(1024,512) M=32768 (16
+   frames) and P(65536,256) M=32768 (one frame), the last two's plain calls
+   in worker processes; (b) K3 the same, every list field: PAC(128,64)+
+   CRC-16 L 16385 and 32768 and PAC(16384,1024)+CRC-16 L=32768 (one frame,
+   a worker); (c) a split batch at 32768; (d) K1 against
+   `tests/golden/scl_f32_32k.npz` (P(128,64) M=32768, written by
+   `tests/golden/make_scl_f32_32k.py`) under its near-tie rule; (e) the FER
+   CLI at P(128,64) M=32768 on phase 17's frames, no worse than its M=16384
+   (z < 3), every decode a pair launch; the legacy simulator at
+   `list_size_max=32768` equal to its run on the plain decoder; and
+   `decode_scl` and `PolarCode` at 32768, one pair launch a call; the plain
+   decoders 0 times on CUDA; (f) CUDA-event times at P(128,64) B=1024, M
+   and L 16384 beside 32768, the plain versions' at 32768, and the timed
+   launches' first and last 16 frames against 16-frame launches;
+19. a `kernels` JSON line (one entry a kernel, and one for each new
+   instantiation with its launches on phases 13's to 18's paths;
    each `max_abs_err` the largest difference from the plain version that
    the run measured), the `nvidia-smi` line, and the device JSON line last.
 
@@ -433,7 +453,7 @@ def ptxas_report(log):
             tn = re.search(r"nms_kernel_(warp|block|1024)ILi(\d+)ELb([01])E", m.group(1))
             td = re.search(r"(scl|pac)_deep_kernelI([ht])Lb([01])E", m.group(1))
             tdw = re.search(r"(scl|pac)_deep_wide_kernelILb([01])E", m.group(1))
-            tc = re.search(r"(scl|pac)_cluster_kernelILb([01])E", m.group(1))
+            tc = re.search(r"(scl|pac)_cluster(_pair)?_kernelILb([01])E", m.group(1))
             entry = (f"scl_decode_kernel<M={tm.group(1)}{', list' if tm.group(2) == '1' else ''}>" if tm
                      else f"scl_path{tw.group(1) or ''}_kernel<LM={tw.group(2)}"
                           f"{', list' if tw.group(3) == '1' else ''}>" if tw
@@ -445,8 +465,8 @@ def ptxas_report(log):
                           f"{tn.group(1)}>" if tn
                      else f"{td.group(1)}_deep_kernel<{'u8' if td.group(2) == 'h' else 'u16'} trace"
                           f"{', list' if td.group(3) == '1' else ''}>" if td
-                     else f"{tc.group(1)}_cluster_kernel<{'list' if tc.group(2) == '1' else 'best-only'}>"
-                     if tc else m.group(1))
+                     else f"{tc.group(1)}_cluster{tc.group(2) or ''}_kernel<"
+                          f"{'list' if tc.group(3) == '1' else 'best-only'}>" if tc else m.group(1))
             cur = {"entry": entry, "regs": None, "spill_stores": None, "spill_loads": None,
                    "smem": 0}
             rows.append(cur)
@@ -1196,32 +1216,34 @@ def judge_list(out, ref, tag, tie_metrics=None):
     """Frames where K1's outputs differ from a reference's: under the plain
     `SCLResult` names, the bits, pass flags, candidates, validity and
     selected rank exactly, metrics and info LLRs within 1e-6 relative (+inf
-    where the reference has it); only the fields `ref` holds.  Fails on a
-    frame outside near-ties (`near_tie_frames` of the reference's metrics,
-    or of `tie_metrics`) and on a list whose selected candidate is not the
-    best path.  Returns (frames differing, of them near-ties, max |info LLR
-    diff|)."""
+    where the reference has it); only the fields `ref` holds, compared
+    where K1's outputs lie (a full list at M=32768 holds 2^28 info LLRs).
+    Fails on a frame outside near-ties (`near_tie_frames` of the
+    reference's metrics, or of `tie_metrics`) and on a list whose selected
+    candidate is not the best path.  Returns (frames differing, of them
+    near-ties, max |info LLR diff|)."""
 
-    got = {f: v.cpu().numpy() for f, v in out.items()}
-    B = got["best_path_bits"].shape[0]
-    bad = np.zeros(B, bool)
+    import torch
+
+    B = int(out["best_path_bits"].shape[0])
+    dev = out["best_path_bits"].device
+    bad = torch.zeros(B, dtype=torch.bool, device=dev)
     err = 0.0
     for f, want in ref.items():
-        have = got[f].reshape(B, -1)
-        want = np.asarray(want).reshape(B, -1)
+        have = out[f].reshape(B, -1)
+        want = torch.as_tensor(np.asarray(want)).to(dev).reshape(B, -1)
         if f in ("metrics", "info_llrs", "best_path_info_llrs"):
-            with np.errstate(invalid="ignore"):
-                diff = np.abs(have.astype(np.float64) - want)
-                ok = (have == want) | (diff <= 1e-6 * np.maximum(np.abs(want), 1e-30))
+            diff = (have.double() - want.double()).abs()
+            ok = (have == want) | (diff <= 1e-6 * want.double().abs().clamp_min(1e-30))
             if f != "metrics":
-                err = max(err, float(diff.max()) if diff.size else 0.0)
+                err = max(err, float(diff.max()) if diff.numel() else 0.0)
         else:
             ok = have == want
-        bad |= ~np.all(ok, axis=1)
-    if "candidates" in got:
-        pick = np.take_along_axis(got["candidates"], got["best_index"].astype(np.int64)[:, None, None],
-                                  axis=1)[:, 0]
-        check(np.array_equal(pick, got["best_path_bits"]), f"{tag}: K1's list does not hold its best path")
+        bad |= ~ok.all(dim=1)
+    if "candidates" in out:
+        pick = out["candidates"][torch.arange(B, device=dev), out["best_index"].long()]
+        check(torch.equal(pick, out["best_path_bits"]), f"{tag}: K1's list does not hold its best path")
+    bad = bad.cpu().numpy()
     ties = near_tie_frames(np.asarray(ref["metrics"] if tie_metrics is None else tie_metrics))
     unexplained = bad & ~ties
     if bad.any():
@@ -1267,8 +1289,9 @@ PAC_LIST_FIELDS = ("extracted", "crc_pass", "v_full", "candidates", "metrics", "
 def k3_list_vs_plain(x, mask, gen, L, crc_len, crc_poly, tag, out=None, ref=None):
     """K3's list launch (`pac_list_decode_cuda(..., full=True)`) against the
     plain version on the same card tensor, every field of the list held
-    exactly (a dead path's +inf metric equal to +inf); either side may be
-    given.  Returns max |diff| over the fields."""
+    exactly (a dead path's +inf metric equal to +inf), compared where K3's
+    outputs lie; either side may be given.  Returns the max |diff| over the
+    fields: 0, since any difference fails the check."""
 
     import torch
 
@@ -1280,16 +1303,14 @@ def k3_list_vs_plain(x, mask, gen, L, crc_len, crc_poly, tag, out=None, ref=None
     if ref is None:
         ref = pac_list_decode_batch(x, mask, gen, L, crc_len=crc_len, crc_poly=crc_poly)
     torch.cuda.synchronize()
-    err = 0.0
     for f in PAC_LIST_FIELDS:
-        have, want = out[f].double().cpu().numpy(), ref[f].double().cpu().numpy()
-        check(have.shape == want.shape, f"{tag}: K3's {f} is {have.shape}, the plain version's {want.shape}")
-        with np.errstate(invalid="ignore"):
-            diff = np.where(have == want, 0.0, np.abs(have - want))
-        err = max(err, float(diff.max()) if diff.size else 0.0)
-        check(np.array_equal(have, want), f"{tag}: K3's list {f} differs from the plain version in frames "
-              f"{np.flatnonzero(np.any((have != want).reshape(len(have), -1), axis=1))[:10].tolist()}")
-    return err
+        have, want = out[f], ref[f].to(out[f].device)
+        check(have.shape == want.shape, f"{tag}: K3's {f} is {tuple(have.shape)}, the plain version's "
+              f"{tuple(want.shape)}")
+        if not torch.equal(have, want):
+            frames = torch.nonzero((have != want).reshape(len(have), -1).any(dim=1)).flatten()
+            check(False, f"{tag}: K3's list {f} differs from the plain version in frames {frames[:10].tolist()}")
+    return 0.0
 
 
 def k1_vs_plain(llr, info, M, crc, plan, tag, launch_b=None, keep=None, ref=None):
@@ -2775,11 +2796,26 @@ def plain_reference(kind, args, device="cuda"):
     return res, time.perf_counter() - t
 
 
-def long_codes(dev, smi):
+def sass_against_parent():
+    """`tools/compare_sass.py` against the parent checkout in
+    `smoke_checkout/parent/`, started in the background (its builds and
+    `cuobjdump` run on the host's cores beside the phases that run on the
+    card): the process, or None where there is no parent checkout."""
+
+    parent = REPO / "smoke_checkout" / "parent"
+    if not (parent / "polar_code_tpu_torch" / "csrc").is_dir():
+        return None
+    return subprocess.Popen([sys.executable, str(REPO / "tools" / "compare_sass.py"), "--repo", str(parent)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def long_codes(dev, smi, sass=None):
     """Phase 16: K1 and K3 at code lengths 16384..65536 against the plain
     versions and the JAX golden file, the FER CLI at P(16384,8192) M=8 and
-    the scalar and legacy calls at N=16384, and their times.  Returns the
-    `kernels` entries of K1 and K3 at these lengths."""
+    the scalar and legacy calls at N=16384, and their times, and the SASS
+    against a parent checkout's (`sass`, the `sass_against_parent` process
+    when one was started).  Returns the `kernels` entries of K1 and K3 at
+    these lengths."""
 
     import torch
 
@@ -3129,14 +3165,14 @@ def long_codes(dev, smi):
 
     print(f"phase long_codes (a)-(d): {time.perf_counter() - t_phase:.1f} s")
 
-    # ---- (e) the SASS of the N <= 8192 instantiations against the parent's ----
+    # ---- (e) every kernel's SASS against the parent's ----
     parent = REPO / "smoke_checkout" / "parent"
-    if (parent / "polar_code_tpu_torch" / "csrc").is_dir():
-        out = subprocess.run([sys.executable, str(REPO / "tools" / "compare_sass.py"), "--repo", str(parent)],
-                             capture_output=True, text=True, timeout=600)
-        print(out.stdout.rstrip())
-        summary = [ln for ln in out.stdout.splitlines() if "kernels with the same SASS" in ln]
-        print(f"(e) SASS against {parent}: {'; '.join(summary) or out.stderr[-500:]}")
+    sass = sass or sass_against_parent()
+    if sass is not None:
+        out, err = sass.communicate(timeout=600)
+        print(out.rstrip())
+        summary = [ln for ln in out.splitlines() if "kernels with the same SASS" in ln]
+        print(f"(e) SASS against {parent}: {'; '.join(summary) or err[-500:]}")
     else:
         print("(e) SASS: no parent checkout in smoke_checkout/parent here; `tools/compare_sass.py --repo "
               "<parent>` compares the N <= 8192 instantiations in a call of their own (PERF.md, §6)")
@@ -3177,13 +3213,35 @@ LIST16_SCALAR = (4, 4)  # (e): decode_scl's golden frames and PolarCode's frames
 LIST16_TIME_B = 1024  # (f): frames of the timed launches
 
 
+def timed_batch_check(run, x, fields, tag, edge=16):
+    """The first and last `edge` frames of a timed launch's batch against
+    launches of the same kernel on those frames alone, every field equal:
+    `run(x)` returns the wrapper's outputs.  A timed launch at M or L above
+    8192 holds gigabytes of global scratch that an `edge`-frame one does
+    not, and its outputs are otherwise not compared."""
+
+    import torch
+
+    big = run(x)
+    B = int(x.shape[0])
+    for lo in (0, B - edge):
+        small = run(x[lo:lo + edge].contiguous())
+        for f in fields:
+            check(torch.equal(big[f][lo:lo + edge], small[f]), f"{tag}: frames {lo}..{lo + edge - 1} of the "
+                  f"B={B} launch's {f} differ from a launch of those {edge} frames")
+    torch.cuda.synchronize()
+    print(f"  {tag}: frames 0..{edge - 1} and {B - edge}..{B - 1} of the B={B} launch equal to {edge}-frame "
+          f"launches ({', '.join(fields)})", flush=True)
+
+
 def list_sizes_16k(dev, smi):
     """Phase 17: K1 and K3 at list sizes 8193..16384 (a cluster of 16
     blocks) against the plain versions and the JAX golden file, a split
     batch, the FER CLI at M=16384 against 8192 and 4096, the legacy simulator at
     list_size_max=16384 against itself on the plain decoder, the scalar
-    calls, and the times.  Returns the `kernels` entries of the two
-    cluster-of-16 instantiations."""
+    calls, and the times, the timed launches' first and last 16 frames held
+    to 16-frame launches.  Returns the `kernels` entries of the two
+    cluster-of-16 instantiations, and the FER CLI's row at M=16384."""
 
     import torch
 
@@ -3404,6 +3462,9 @@ def list_sizes_16k(dev, smi):
             line += f"; plain {plain_ms:.4f} ms"
         print(f"{line}; bound {b_ms:.6f} ms ({b_by}); {scl_cuda.launch_plan(N, K, M, B)[2]} clusters at once",
               flush=True)
+        if M == LIST16_M:
+            timed_batch_check(lambda t, M=M: decode_scl_cuda(t, info, M, CRC), llr, scl_cuda.BEST_FIELDS,
+                              f"(f) K1 M={M}")
     n_c, k_c, crc_c = PAC_CODES[128]
     p_mask = pac_mask(n_c, k_c + crc_c[0])
     x = pac_llrs(np.random.default_rng(6), B, 2.5, PAC_CODES[128], PAC_GEN, p_mask, dev)
@@ -3418,6 +3479,9 @@ def list_sizes_16k(dev, smi):
             line += f"; plain {plain_ms:.4f} ms"
         print(f"{line}; bound {b_ms:.6f} ms ({b_by}); {pac_cuda.launch_plan(n_c, k_c + crc_c[0], L)[2]} clusters "
               f"at once", flush=True)
+        if L == LIST16_M:
+            timed_batch_check(lambda t, L=L: pac_list_decode_cuda(t, p_mask, PAC_GEN, L, *crc_c), x,
+                              ("extracted", "crc_pass"), f"(f) K3 L={L}")
     print(f"phase list_sizes_16k: {time.perf_counter() - t_phase:.1f} s")
 
     launches = {"scl": fer[LIST16_M][1] + scalar_cluster[0], "pac": sim_cluster + scalar_cluster[1]}
@@ -3425,6 +3489,320 @@ def list_sizes_16k(dev, smi):
     names = {"scl": ("scl_decode (cluster of 16: M 8193-16384)", "polar_code_tpu_torch/csrc/scl_decode.cu",
                      "polar_code_tpu/ops/scl_pallas.py:293"),
              "pac": ("pac_decode (cluster of 16: L 8193-16384)", "polar_code_tpu_torch/csrc/pac_decode.cu",
+                     "polar_code_tpu/legacy/pac_pallas.py:59")}
+    return [{"name": names[k][0], "route": "cuda", "source": names[k][1], "replaces": names[k][2],
+             "launches": launches[k], "max_abs_err": errors[k], "ms": entries[k][0], "plain_ms": entries[k][1],
+             "bound_ms": entries[k][2], "bound_by": entries[k][3], "library_ms": None}
+            for k in ("scl", "pac")], fer[LIST16_M][0]
+
+
+# phase 18, list sizes past 16384: K1 and K3 at M and L 16385..32768, two
+# paths a thread on a cluster of 16 blocks of 1024 threads (the pair
+# instantiations, σ in global scratch)
+LIST32_M = 32768  # the largest list size: (c)'s split, (e)'s FER CLI and scalar calls, (f)'s times
+LIST32_B = 16  # frames of a vs-plain case
+# (a): K1 at P(128,64) CRC-24A: (M, forced plans), at the two draws of
+# CLUSTER_SEEDS; 16385 and 24000 sort pads
+LIST32_MS = ((16385, False), (24000, False), (32768, False), (32768, True))
+# (a), (b): the plain calls that take longest go to worker processes, as
+# phase 16 runs them: K1 at P(1024,512) on LIST32_B frames, and one frame at
+# N=65536 (K1) and at N=16384 (K3): (N, K or payload, M or L)
+LIST32_N = (1024, 512, 32768)
+LIST32_LONG_K1 = (65536, 256, 32768)
+LIST32_LONG_K3 = (16384, 1024, 32768)
+LIST32_LS = (16385, 32768)  # (b): K3 at PAC(128,64)+CRC-16
+LIST32_SIM_SNR = [3.0, 3.5]  # (e): the legacy simulator at list_size_max=32768
+LIST32_SCALAR = (4, 4)  # (e): decode_scl's golden frames and PolarCode's frames, at LIST32_M
+LIST32_TIME_B = 1024  # (f): frames of the timed launches
+
+
+def list_sizes_32k(dev, smi, fer16):
+    """Phase 18: K1 and K3 at list sizes 16385..32768 (two paths a thread on
+    a cluster of 16 blocks) against the plain versions and the JAX golden
+    file, a split batch, the FER CLI at M=32768 against phase 17's M=16384
+    row on the same frames (`fer16`), the legacy simulator at
+    list_size_max=32768 against itself on the plain decoder, the scalar
+    calls, and the times, the timed launches' first and last 16 frames held
+    to 16-frame launches.  Returns the `kernels` entries of the two pair
+    instantiations."""
+
+    import torch
+
+    from polar_code_tpu_torch import _build
+    from polar_code_tpu_torch.eval import run_fer_sweep
+    from polar_code_tpu_torch.legacy import pac_cuda, simulator
+    from polar_code_tpu_torch.legacy.pac import pac_list_decode_batch
+    from polar_code_tpu_torch.legacy.pac_cuda import pac_list_decode_cuda
+    from polar_code_tpu_torch.ops import scl_cuda
+    from polar_code_tpu_torch.ops.scl import decode_scl_batch
+    from polar_code_tpu_torch.polar.construct import construct_info_set
+
+    decode_scl_cuda = scl_cuda.decode_scl_cuda
+    wrappers = (decode_scl_cuda, pac_list_decode_cuda)
+    plains = (decode_scl_batch, pac_list_decode_batch)
+    info = construct_info_set(N, K)
+    t_phase = time.perf_counter()
+
+    def reset_counts():
+        for f in wrappers:
+            f.launches = f.cluster_launches = f.pair_launches = 0
+        for f in plains:
+            f.cuda_calls = 0
+
+    def lap(part):
+        print(f"  [phase 18 at {time.perf_counter() - t_phase:.1f} s] {part}", flush=True)
+
+    # ---- the pair instantiations' registers and spills (built in phase 2: the kept log) ----
+    regs = {}
+    for source in (scl_cuda.SOURCE, pac_cuda.SOURCE):
+        for row in ptxas_report(_build.build(source).log):
+            if "_cluster_pair_kernel" in row["entry"]:
+                regs[row["entry"]] = (row["regs"], row["spill_stores"])
+                print(f"  ptxas {row['entry']}: {row['regs']} registers, spills {row['spill_stores']} B stores / "
+                      f"{row['spill_loads']} B loads", flush=True)
+    check(len(regs) == 4, f"the build log holds {len(regs)} pair instantiations, not 4: {sorted(regs)}")
+
+    # ---- each shape's plan: clusters of 16 at once, by the occupancy calculator ----
+    n_l, k_l, m_l = LIST32_LONG_K1
+    n_p, p_p, l_p = LIST32_LONG_K3
+    k1_info = {N: info, LIST32_N[0]: construct_info_set(*LIST32_N[:2], method="gaussian_bitrev"),
+               n_l: construct_info_set(n_l, k_l, method="gaussian_bitrev")}
+    shapes = ([("K1", N, K, M) for M in (LIST32_LS[0], LIST32_M)] + [("K1",) + LIST32_N, ("K1", n_l, k_l, m_l)]
+              + [("K3", N, K + PAC_CRC[0], L) for L in LIST32_LS] + [("K3", n_p, p_p + PAC_CRC[0], l_p)])
+    for kernel, n_s, k_s, M in shapes:
+        if kernel == "K1":
+            g, _, at_once = scl_cuda.launch_plan(n_s, k_s, M, LIST32_TIME_B)
+            scratch = scl_cuda.scratch_bytes(1, n_s, k_s, M, g)
+            words, info_phases = 2, k1_info[n_s]
+        else:
+            g, _, at_once = pac_cuda.launch_plan(n_s, k_s, M)
+            scratch = pac_cuda.scratch_bytes(1, n_s, k_s, M, g)
+            words, info_phases = 3, pac_cuda_info_phases(pac_mask(n_s, k_s))
+        info_b, frozen_b = cluster_barriers(n_s, info_phases, M)
+        print(f"  {kernel} N={n_s} K={k_s} M={M} (a cluster of {scl_cuda.cluster_blocks(M)} blocks of 1024 "
+              f"threads, {scl_cuda.cluster_ppt(M)} paths a thread): levels {g + 1}..{int(math.log2(n_s))} in "
+              f"shared memory, 1..{g}, the trace and σ in global scratch ({scratch} B a frame, "
+              f"{scl_cuda.sigma_bytes(1, n_s, M)} B of it σ); "
+              f"{scl_cuda.cluster_block_bytes(n_s, g, words, 2)} B shared a block; {at_once} clusters at once on "
+              f"the card (occupancy calculator); cluster barriers {info_b} an info phase, {frozen_b} a frozen "
+              f"phase", flush=True)
+        check(at_once >= 1, f"{kernel} N={n_s} M={M}: the card places no cluster")
+
+    # the longest plain calls go to worker processes first; the rest runs
+    # meanwhile.  The workers' plain calls hold 5–25 GB each on the card, so
+    # this process first hands back what its allocator keeps cached from
+    # phase 17's B=1024 launches, which no other process can use
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(LONG_SEED + 18)
+    long_k1, _ = make_llrs(rng, 1, 0.5, k1_info[n_l], n=n_l)
+    mask_p = pac_mask(n_p, p_p + PAC_CRC[0])
+    long_k3 = pac_llrs(rng, 1, 1.5, (n_p, p_p, PAC_CRC), PAC_GEN, mask_p, dev)
+    mid_k1, _ = make_llrs(rng, LIST32_B, 1.5, k1_info[LIST32_N[0]], n=LIST32_N[0])
+    pool = ProcessPoolExecutor(3, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = {"K1": pool.submit(plain_reference, "scl", (long_k1, k1_info[n_l], m_l, CRC, None), str(dev)),
+                   "K3": pool.submit(plain_reference, "pac", (long_k3.cpu().numpy(), mask_p, PAC_GEN, l_p,
+                                                               *PAC_CRC), str(dev)),
+                   "K1 N=1024": pool.submit(plain_reference, "scl", (mid_k1, k1_info[LIST32_N[0]], LIST32_N[2],
+                                                                      CRC, None), str(dev))}
+
+        # ---- (a) K1 against the plain version, list and best-only, at two draws ----
+        lap("(a)")
+        differ = ties = 0
+        k1_err = 0.0
+        for seed in CLUSTER_SEEDS:
+            rng = np.random.default_rng(seed + 18)
+            for M, use_plan in LIST32_MS:
+                llr_np, msg = make_llrs(rng, LIST32_B, 2.0, info)
+                plan = torch.from_numpy(random_plan(rng, msg)).to(dev) if use_plan else None
+                tag = f"(a) P({N},{K}) M={M} plan={'on' if use_plan else 'off'} B={LIST32_B} seed {seed}"
+                t = time.perf_counter()
+                (d, t_, e), (db, tb, eb) = k1_vs_plain(torch.from_numpy(llr_np).to(dev), info, M, CRC, plan, tag)
+                check(d + db == 0, f"{tag}: K1 differs from the plain version in {d + db} frames ({t_ + tb} "
+                      f"near-ties): the kernel runs the plain version's float operations")
+                differ, ties, k1_err = differ + d + db, ties + t_ + tb, max(k1_err, e, eb)
+                print(f"  {tag}: list and best-only equal to the plain version ({time.perf_counter() - t:.1f} s)",
+                      flush=True)
+
+        # ---- (b) K3 against the plain version, every list field and best-only ----
+        lap("(b)")
+        k3_err = 0.0
+        for seed in CLUSTER_SEEDS:
+            rng = np.random.default_rng(seed + 18)
+            for L in LIST32_LS:
+                mask = pac_mask(N, K + PAC_CRC[0])
+                x = pac_llrs(rng, LIST32_B, 2.0, (N, K, PAC_CRC), PAC_GEN, mask, dev)
+                ref = pac_list_decode_batch(x, mask, PAC_GEN, L, crc_len=PAC_CRC[0], crc_poly=PAC_CRC[1])
+                tag = f"(b) PAC({N},{K})+CRC-16 L={L} B={LIST32_B} seed {seed}"
+                k3_err = max(k3_err, k3_list_vs_plain(x, mask, PAC_GEN, L, *PAC_CRC, tag, ref=ref))
+                best = pac_list_decode_cuda(x, mask, PAC_GEN, L, *PAC_CRC)
+                for f in ("extracted", "crc_pass"):
+                    check(torch.equal(best[f], ref[f]), f"{tag} best-only: K3's {f} differs from the plain version")
+                print(f"  {tag}: list ({', '.join(PAC_LIST_FIELDS)}) and best-only equal to the plain version; "
+                      f"crc pass {int(ref['crc_pass'].sum())}", flush=True)
+
+        # ---- (c) a split batch at M = L = 32768: the card's room pinned to 5 frames' scratch ----
+        lap("(c)")
+        cluster_split_check(dev, LIST32_M, LIST32_B, 5, CLUSTER_SEEDS[0] + 18, reset_counts, "(c)")
+
+        # ---- (a), (b) the shapes whose plain calls ran in the workers ----
+        lap("(a), (b) the workers' shapes")
+        cases = [("K1 N=1024", torch.from_numpy(mid_k1).to(dev), k1_info[LIST32_N[0]], LIST32_N[:3]),
+                 ("K1", torch.from_numpy(long_k1).to(dev), k1_info[n_l], LIST32_LONG_K1)]
+        for key, x, case_info, (n_c, k_c, M) in cases:
+            ref, secs = futures[key].result()
+            tag = f"(a) P({n_c},{k_c}) M={M} B={x.shape[0]}"
+            (d, t_, e), (db, tb, eb) = k1_vs_plain(x, case_info, M, CRC, None, tag, ref=ref)
+            check(d + db == 0, f"{tag}: K1 differs from the plain version in {d + db} frames")
+            differ, ties, k1_err = differ + d + db, ties + t_ + tb, max(k1_err, e, eb)
+            print(f"  {tag}: list and best-only equal to the plain version (its call {secs:.1f} s in a worker); "
+                  f"crc pass {int(ref['crc_pass'].sum())}", flush=True)
+        ref, secs = futures["K3"].result()
+        ref = {f: torch.from_numpy(v) for f, v in ref.items()}
+        tag = f"(b) PAC({n_p},{p_p})+CRC-16 L={l_p} B=1"
+        k3_err = max(k3_err, k3_list_vs_plain(long_k3, mask_p, PAC_GEN, l_p, *PAC_CRC, tag, ref=ref))
+        best = pac_list_decode_cuda(long_k3, mask_p, PAC_GEN, l_p, *PAC_CRC)
+        for f in ("extracted", "crc_pass"):
+            check(torch.equal(best[f].cpu(), ref[f]), f"{tag} best-only: K3's {f} differs from the plain version")
+        print(f"  {tag}: list and best-only equal to the plain version (its call {secs:.1f} s in a worker); crc "
+              f"pass {bool(ref['crc_pass'][0])}", flush=True)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    print(f"(a) K1 at M 16385-32768 vs plain: {len(LIST32_MS) * len(CLUSTER_SEEDS) + 2} cases, list and best-only, "
+          f"{differ} frames differ (none allowed); max |info LLR diff| {k1_err:.3e}; (b) K3 "
+          f"{len(LIST32_LS) * len(CLUSTER_SEEDS) + 1} cases, every field equal")
+
+    # ---- (d) against the JAX golden file, K1 under its near-tie rule ----
+    lap("(d)")
+    with np.load(GOLDEN / "scl_f32_32k.npz") as gold:
+        case, = json.loads(str(gold["cases"]))
+        tag, code = case["name"], case["code"]
+        x = torch.from_numpy(gold[f"{code}/llr"]).to(dev)
+        out = decode_scl_cuda(x, gold[f"{code}/info"], case["M"], case["crc"], full=True)
+        best = decode_scl_cuda(x, gold[f"{code}/info"], case["M"], case["crc"])
+        ref = {"best_path_bits": gold[f"{tag}/bits"], "best_path_info_llrs": gold[f"{tag}/llrs"],
+               "crc_pass": gold[f"{tag}/crc_pass"], "metrics": gold[f"{tag}/metrics"]}
+        d, t_, _ = judge_list(out, ref, f"(d) vs JAX f32 {tag}")
+        db, tb, _ = judge_list(best, {f: ref[f] for f in ("best_path_bits", "best_path_info_llrs", "crc_pass")},
+                               f"(d) vs JAX f32 {tag} best-only", ref["metrics"])
+        top = near_tie_frames(ref["metrics"][:, :64])
+    print(f"(d) K1 P(128,64) M={case['M']} on the golden file's {x.shape[0]} frames: list {d} and best-only {db} "
+          f"frames from JAX float32 ({t_}, {tb} near-ties over the {case['M']} metrics; {int(top.sum())} frames with "
+          f"a near-tie among the first 64); crc pass {int(ref['crc_pass'].sum())}", flush=True)
+
+    # ---- (e) the entry points: the FER CLI, the simulator, the scalar calls ----
+    lap("(e)")
+    snr, frames, batch = LIST16_FER
+    reset_counts()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+        rows = run_fer_sweep.main([
+            "--M", str(LIST32_M), "--snr_lo", str(snr), "--snr_hi", str(snr), "--snr_step", "0.5",
+            "--retries", "8", "--batch", str(batch), "--frames", str(frames), "--seed", "0",
+            "--out_dir", f"{tmp}/results", "--plot_dir", f"{tmp}/plots"])
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    fer_launches, fer_pair = decode_scl_cuda.launches, decode_scl_cuda.pair_launches
+    plain = sum(f.cuda_calls for f in plains)
+    print(f"(e) FER CLI P(128,64) CRC-24A M={LIST32_M}, 8 retries, no β, {snr} dB, {frames} frames at B={batch}: FER "
+          f"SCL {rows[0]['fer_scl']:.6e}, DL-SCL {rows[0]['fer_dl']:.6e}; {fer_launches} K1 launches ({fer_pair} at "
+          f"two paths a thread) over {frames // batch} steps; plain decoders on CUDA {plain} times; "
+          f"{frames / secs:.0f} frames/s ({secs:.1f} s)", flush=True)
+    check(len(rows) == 1 and fer_launches >= frames // batch and fer_pair == fer_launches,
+          f"the M={LIST32_M} FER sweep did not go through K1's pair instantiation ({fer_launches}, {fer_pair})")
+    check(plain == 0, f"a plain decoder ran on CUDA in the M={LIST32_M} FER sweep")
+    for key in ("fer_scl", "fer_dl"):
+        p1, p2 = rows[0][key], fer16[key]
+        check(math.isfinite(p1) and 0.0 < p1 < 1.0, f"M={LIST32_M} {key} is {p1}")
+        z = fer_z(p1, frames, p2, frames)
+        print(f"  {key}: M={LIST32_M} {p1:.6e} vs M={LIST32_M // 2} {p2:.6e} (phase 17) on the same {frames} "
+              f"frames: z = {z:+.3f}")
+        check(z < 3.0, f"M={LIST32_M} {key} decodes worse than M={LIST32_M // 2} (z={z:.2f})")
+
+    runs = {}
+    for which in ("kernel", "plain"):
+        reset_counts()
+        buf = io.StringIO()
+        t = time.perf_counter()
+        decode = simulator.pac_decode
+        try:
+            if which == "plain":  # every stage on the plain version, on the card
+                simulator.pac_decode = lambda llr, mask, gen, L, crc_len=0, crc_poly=0: pac_list_decode_batch(
+                    llr, mask, gen, L, crc_len=crc_len, crc_poly=crc_poly)
+            with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(buf):
+                res = simulator.run(simulator.LegacySimConfig(snr_range=LIST32_SIM_SNR, seed=0,
+                                                              list_size_max=LIST32_M), tmp)
+                csv = next(Path(tmp).glob("*.csv")).read_text()
+        finally:
+            simulator.pac_decode = decode
+        lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("@")]
+        runs[which] = (lines, res.ber, res.fer, csv, pac_list_decode_cuda.launches,
+                       pac_list_decode_cuda.pair_launches, sum(f.cuda_calls for f in plains),
+                       time.perf_counter() - t)
+    lines, ber, fer_s, csv, sim_launches, sim_pair, plain, secs = runs["kernel"]
+    for ln in lines:
+        print(f"  simulator L 1 -> {LIST32_M}: {ln}")
+    print(f"(e) simulator at list_size_max={LIST32_M}: {secs:.3f} s; K3 {sim_launches} launches, {sim_pair} of them at "
+          f"two paths a thread (stage 2); plain decoders on CUDA {plain} times; on the plain decoder "
+          f"{runs['plain'][-1]:.3f} s ({runs['plain'][-2]} plain calls)")
+    check(runs["kernel"][:4] == runs["plain"][:4], f"the simulator at list_size_max={LIST32_M} differs from its run on "
+          f"the plain decoder: {ber} {fer_s} vs {runs['plain'][1]} {runs['plain'][2]}")
+    check(sim_pair > 0 and plain == 0, "the simulator's stage 2 did not go through K3's pair instantiation alone")
+
+    lap("(e) scalar calls")
+    scalar_cluster = cluster_scalar_calls(dev, LIST32_M, *LIST32_SCALAR, CLUSTER_SEEDS[0] + 18, reset_counts)
+    scalar_pair = tuple(f.pair_launches for f in wrappers)
+    check(scalar_pair == scalar_cluster, f"the scalar calls at {LIST32_M} launched {scalar_pair} pair "
+          f"instantiations of {scalar_cluster} cluster launches")
+
+    # ---- (f) times with CUDA events, M and L 16384 beside 32768 ----
+    lap("(f)")
+    print(f"list-size-32768 times on {smi}:")
+    B = LIST32_TIME_B
+    llr = torch.from_numpy(make_llrs(np.random.default_rng(5), B, 5.0, info)[0]).to(dev)
+    entries = {}
+    for M in (LIST32_M // 2, LIST32_M):
+        before = decode_scl_cuda.launches
+        ms = cuda_time_ms(lambda M=M: decode_scl_cuda(llr, info, M, CRC), reps=2, warmup=1)
+        b_ms, b_by = bound(*scl_work(info, M, B))
+        line = (f"  K1 P(128,64) M={M} CRC B={B} 5.0 dB: {ms:.4f} ms ({(decode_scl_cuda.launches - before) / 3:g} "
+                f"launches a call)")
+        if M == LIST32_M:
+            plain_ms = cuda_time_ms(lambda: decode_scl_batch(llr, info, M, CRC, dtype=torch.float32), reps=1,
+                                    warmup=0)
+            entries["scl"] = (ms, plain_ms, b_ms, b_by)
+            line += f"; plain {plain_ms:.4f} ms"
+        print(f"{line}; bound {b_ms:.6f} ms ({b_by}); {scl_cuda.launch_plan(N, K, M, B)[2]} clusters at once; "
+              f"{scl_cuda.cluster_ppt(M)} paths a thread", flush=True)
+        if M == LIST32_M:
+            timed_batch_check(lambda t, M=M: decode_scl_cuda(t, info, M, CRC), llr, scl_cuda.BEST_FIELDS,
+                              f"(f) K1 M={M}")
+    n_c, k_c, crc_c = PAC_CODES[128]
+    p_mask = pac_mask(n_c, k_c + crc_c[0])
+    x = pac_llrs(np.random.default_rng(6), B, 2.5, PAC_CODES[128], PAC_GEN, p_mask, dev)
+    for L in (LIST32_M // 2, LIST32_M):
+        ms = cuda_time_ms(lambda L=L: pac_list_decode_cuda(x, p_mask, PAC_GEN, L, *crc_c), reps=2, warmup=1)
+        b_ms, b_by = bound(*pac_work(p_mask, L, B))
+        line = f"  K3 PAC(128,64)+CRC-16 L={L} B={B} 2.5 dB: {ms:.4f} ms"
+        if L == LIST32_M:
+            plain_ms = cuda_time_ms(lambda: pac_list_decode_batch(x, p_mask, PAC_GEN, L, crc_len=crc_c[0],
+                                                                  crc_poly=crc_c[1]), reps=1, warmup=0)
+            entries["pac"] = (ms, plain_ms, b_ms, b_by)
+            line += f"; plain {plain_ms:.4f} ms"
+        print(f"{line}; bound {b_ms:.6f} ms ({b_by}); {pac_cuda.launch_plan(n_c, k_c + crc_c[0], L)[2]} clusters "
+              f"at once; {scl_cuda.cluster_ppt(L)} paths a thread", flush=True)
+        if L == LIST32_M:
+            timed_batch_check(lambda t, L=L: pac_list_decode_cuda(t, p_mask, PAC_GEN, L, *crc_c), x,
+                              ("extracted", "crc_pass"), f"(f) K3 L={L}")
+    for entry, (r, spill) in sorted(regs.items()):
+        print(f"  {entry}: {r} registers, {spill} B spilled")
+    print(f"phase list_sizes_32k: {time.perf_counter() - t_phase:.1f} s")
+
+    launches = {"scl": fer_pair + scalar_pair[0], "pac": sim_pair + scalar_pair[1]}
+    errors = {"scl": k1_err, "pac": k3_err}
+    names = {"scl": ("scl_decode (two paths a thread: M 16385-32768)", "polar_code_tpu_torch/csrc/scl_decode.cu",
+                     "polar_code_tpu/ops/scl_pallas.py:293"),
+             "pac": ("pac_decode (two paths a thread: L 16385-32768)", "polar_code_tpu_torch/csrc/pac_decode.cu",
                      "polar_code_tpu/legacy/pac_pallas.py:59")}
     return [{"name": names[k][0], "route": "cuda", "source": names[k][1], "replaces": names[k][2],
              "launches": launches[k], "max_abs_err": errors[k], "ms": entries[k][0], "plain_ms": entries[k][1],
@@ -4140,26 +4518,36 @@ def main():
     phase_done("12 scalar surface")
 
     # ---- 13. the wide envelope ----
-    wide_entries = wide_envelope(dev, smi)
-    phase_done("13 wide_envelope")
+    sass = sass_against_parent()  # the SASS against a parent checkout, read in phase 16 (e)
+    try:
+        wide_entries = wide_envelope(dev, smi)
+        phase_done("13 wide_envelope")
 
-    # ---- 14. the deep lists ----
-    deep_entries = deep_lists(dev, smi)
-    phase_done("14 deep_lists")
+        # ---- 14. the deep lists ----
+        deep_entries = deep_lists(dev, smi)
+        phase_done("14 deep_lists")
 
-    # ---- 15. the cluster lists ----
-    cluster_entries = cluster_lists(dev, smi)
-    phase_done("15 cluster_lists")
+        # ---- 15. the cluster lists ----
+        cluster_entries = cluster_lists(dev, smi)
+        phase_done("15 cluster_lists")
 
-    # ---- 16. code lengths past 8192 ----
-    long_entries = long_codes(dev, smi)
-    phase_done("16 long_codes")
+        # ---- 16. code lengths past 8192 ----
+        long_entries = long_codes(dev, smi, sass)
+        phase_done("16 long_codes")
+    finally:
+        if sass is not None and sass.poll() is None:
+            sass.kill()
+            sass.wait()
 
     # ---- 17. list sizes past 8192 ----
-    list16_entries = list_sizes_16k(dev, smi)
+    list16_entries, fer16 = list_sizes_16k(dev, smi)
     phase_done("17 list_sizes_16k")
 
-    # ---- 18. result lines ----
+    # ---- 18. list sizes past 16384 ----
+    list32_entries = list_sizes_32k(dev, smi, fer16)
+    phase_done("18 list_sizes_32k")
+
+    # ---- 19. result lines ----
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by = nms_times[f"{IRA[0]} two-min 2.5 dB B=4096"]
     print(json.dumps({"kernels": [{
         "name": "scl_decode",
@@ -4198,7 +4586,8 @@ def main():
         "bound_ms": pac_bound_ms,
         "bound_by": pac_bound_by,
         "library_ms": None,
-    }] + wide_entries + deep_entries + cluster_entries + long_entries + list16_entries}))
+    }] + wide_entries + deep_entries + cluster_entries + long_entries + list16_entries
+                      + list32_entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind, "count": count}}))
     return 0

@@ -9,7 +9,7 @@
 // path), σ as a table in shared memory, the passes that read through it,
 // its fork, the block-wide sort of the 2M candidates and the frame's
 // shared-memory layout; and, for a frame over a thread-block cluster (list
-// sizes 1025..8192), the same pieces across the cluster's blocks through
+// sizes 1025..32768), the same pieces across the cluster's blocks through
 // distributed shared memory, and the cluster launch.
 // Each source's note has the design; `_build.py` rebuilds a source when
 // this file changes.
@@ -19,6 +19,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #define FULL_MASK 0xffffffffu
 #define MAX_LEVELS 16  // n at most: the phase words take N up to 65536
@@ -458,33 +460,39 @@ __device__ __forceinline__ void block_sort_keys(unsigned long long* keys, unsign
 }
 
 // ---------------------------------------------------------------------------
-// A frame over a thread-block cluster: list sizes 1025..16384.
+// A frame over a thread-block cluster: list sizes 1025..32768.
 //
 // One frame a cluster of C = cluster_blocks(M) blocks (2 at M 1025..2048, 4
-// up to 4096, 8 up to 8192, 16 up to 16384: 8 is the portable cluster
-// size, and 16 a non-portable one that Hopper places for a kernel that
-// allows it, `allow_cluster`) of 1024 threads: thread tid of cluster rank
-// r holds path r·1024 + tid and sort keys 2(r·1024 + tid) and +1, as over
-// warps.  Tree levels G+1..n of the block's own 1024 paths live in its
-// shared memory (rows of (N >> G) − 1 entries, as over warps), and levels
-// 1..G of every path in global scratch (rows of N − (N >> G) entries); G
-// is the smallest whose block fits (`ops/scl_cuda.py::launch_plan`).  Path p lives in rank p >> 10 at row
-// p & 1023: a read through σ of a shared level whose row is another
+// up to 4096, 8 up to 8192, 16 above: 8 is the portable cluster size, and
+// 16 a non-portable one that Hopper places for a kernel that allows it,
+// `allow_cluster`, and the most it places) of 1024 threads, each holding
+// PPT = cluster_ppt(M) paths: one up to M = 16384, two above (the
+// `_pair` kernels), so that a block holds PATHS = 1024·PPT paths.  Thread
+// tid of cluster rank r holds paths r·PATHS + k·1024 + tid (k < PPT) and
+// sort keys 2PPT(r·1024 + tid) + 0..2PPT−1.  Tree levels G+1..n of the
+// block's own paths live in its shared memory (rows of (N >> G) − 1
+// entries, as over warps), and levels 1..G of every path in global scratch
+// (rows of N − (N >> G) entries); G is the smallest whose block fits
+// (`ops/scl_cuda.py::launch_plan`).  Path p lives in rank p / PATHS at row
+// p % PATHS: a read through σ of a shared level whose row is another
 // block's goes through distributed shared memory (`cluster_row`), the
 // block's own rows are plain shared loads, and a global row another block
-// may have written is read with ld.global.cg, from L2.  Block r's shared
-// memory also holds σ of its own paths (16-bit fields: 2p+b < 2M <= 32768)
-// in two tables, one read and one a fork's target (`cluster_sigma_fork`),
-// three sort-key buffers (`cluster_sort_keys`) and its paths' published
+// may have written is read with ld.global.cg, from L2.  σ of the block's
+// paths (16-bit fields: 2p+b < 2M <= 65536) is two tables, one read and
+// one a fork's target: in the block's shared memory at one path a thread
+// (`cluster_sigma_fork`), in global scratch at two (`global_sigma_fork`:
+// two tables of 2048 rows do not fit a block beside its keys and rows).
+// The block's shared memory also holds three sort-key buffers
+// (`cluster_sort_keys`, `cluster_sort_keys4`) and its paths' published
 // words in two sets; σ's table and the word set an info phase uses go by
 // the phase's parity (`cluster_layout`).
 //
 // The cluster barriers (barrier.cluster arrive.release / wait.acquire):
 // one a cross-block sort stage and one for the sorted keys (so 2, 4, 7 and
-// 11 an info phase at P = 4096, 8192, 16384 and 32768), and one a phase
-// whose word flags a read through σ, split: the block arrives after the
-// phase's last read of another block's rows and waits before its next
-// phase's passes,
+// 11 an info phase at P = 4096, 8192, 16384 and 32768, and 11 at 65536,
+// whose blocks hold 4096 keys), and one a phase whose word flags a read
+// through σ, split: the block arrives after the phase's last read of
+// another block's rows and waits before its next phase's passes,
 // the only writes another block may read that it had been reading (σ's
 // tables, the key buffers and the word sets are each rewritten only
 // behind a later sort's barriers).  A tree row another block reads through
@@ -492,64 +500,83 @@ __device__ __forceinline__ void block_sort_keys(unsigned long long* keys, unsign
 // sort barriers.
 //
 // Offsets.  Every kernel takes a frame's base in 64 bits (frame · its size)
-// and indexes within the frame with 32-bit products; the largest are here.
-// At N = 65536 and M = 16384 a trace entry info_i·M + m (K·M = 2^30 entries
-// a frame at K = N) and a list row's start m·N (K3's v rows; the list's
-// [M, K] rows start from a 64-bit (frame·M + m)·K) reach 2^30, and a
-// global tree row's start r·(N − (N >> G)) plus its entry is below 16384 ·
-// 65536 = 2^30: half of 2^31.  Past M = 16384 a frame needs a cluster of
-// more than 16 blocks, which no GPC places, and at M = 32768 these
-// products reach 2^31.
+// and indexes within the frame with `ClusterOff<PPT>` products.  At one
+// path a thread they are 32-bit: at N = 65536 and M = 16384 a trace entry
+// info_i·M + m (K·M = 2^30 entries a frame at K = N) and a list row's start
+// m·N (K3's v rows; the list's [M, K] rows start from a 64-bit
+// (frame·M + m)·K) reach 2^30, and a global tree row's start
+// r·(N − (N >> G)) plus its entry is below 16384 · 65536 = 2^30: half of
+// 2^31.  At M = 32768 they reach 2^31, and at two paths a thread they are
+// 64-bit.
 // ---------------------------------------------------------------------------
 
-#define CLUSTER_THREADS 1024  // threads a block of a cluster frame: one a path
+#define CLUSTER_THREADS 1024  // threads a block of a cluster frame
 #define CLUSTER_SHIFT 10      // log2(CLUSTER_THREADS)
-#define CLUSTER_KEYS (2 * CLUSTER_THREADS)  // sort keys a block holds
+#define CLUSTER_KEYS (2 * CLUSTER_THREADS)  // sort keys a block holds at one path a thread
 #define CLUSTER_MAX_BLOCKS 16  // past the portable 8, where the kernel allows it (`allow_cluster`)
-#define CLUSTER_MAX_M (CLUSTER_THREADS * CLUSTER_MAX_BLOCKS)
-// Blocks of a cluster frame: M rounded up to a power of two, over 1024.
-__host__ __device__ __forceinline__ int cluster_blocks(int M) {
-  return sort_keys(M) / 2 / CLUSTER_THREADS;
+#define CLUSTER_MAX_PPT 2      // paths a thread at most: two past M = 16384
+#define CLUSTER_MAX_M (CLUSTER_THREADS * CLUSTER_MAX_BLOCKS * CLUSTER_MAX_PPT)
+
+// Paths a thread of a cluster frame: one up to 1024 · 16, two above.
+__host__ __device__ __forceinline__ int cluster_ppt(int M) {
+  return M > CLUSTER_THREADS * CLUSTER_MAX_BLOCKS ? 2 : 1;
 }
 
-// The key exchanges of one cluster sort of P keys: its cross-block stages
-// (j >= 2048 in each merge of 4096 keys or more: 1, 3, 6, 10 at P = 4096,
-// 8192, 16384, 32768) and the sorted keys' store.  Sort i of a launch
-// starts at count i·cluster_exchanges(P), which picks its buffers
+// Blocks of a cluster frame: M rounded up to a power of two, over the
+// block's 1024 · cluster_ppt(M) paths.
+__host__ __device__ __forceinline__ int cluster_blocks(int M) {
+  return sort_keys(M) / 2 / CLUSTER_THREADS / cluster_ppt(M);
+}
+
+// A cluster frame's offsets within the frame: 32-bit at one path a thread,
+// 64-bit at two, where they reach 2^31 (the section note).
+template <int PPT>
+using ClusterOff = typename std::conditional<PPT == 1, int, long long>::type;
+
+// The key exchanges of one cluster sort of P keys, 2048·PPT a block: its
+// cross-block stages (j >= 2048·PPT in each merge of 4096·PPT keys or more:
+// 1, 3, 6, 10 at P = 4096, 8192, 16384, 32768 at one path a thread, 10 at
+// 65536 at two) and the sorted keys' store.  Sort i of a launch starts at
+// count i·cluster_exchanges(P), which picks its buffers
 // (`cluster_sort_keys`).
+template <int PPT = 1>
 __host__ __device__ __forceinline__ int cluster_exchanges(int P) {
   int x = 1;
-  for (int size = 2 * CLUSTER_KEYS; size <= P; size <<= 1)
-    for (int j = size >> 1; j >= CLUSTER_KEYS; j >>= 1) ++x;
+  for (int size = 2 * CLUSTER_KEYS * PPT; size <= P; size <<= 1)
+    for (int j = size >> 1; j >= CLUSTER_KEYS * PPT; j >>= 1) ++x;
   return x;
 }
 
 // Byte offsets of one block's regions in its dynamic shared memory, each
-// 16-byte aligned: two σ tables [1024][row] (2n−2 16-bit fields a path, a
-// row rounded to 4 bytes), three buffers of 2048 sort keys u64, two sets of
-// `words` 32-bit values a path (the published leaf, syndrome and, in PAC,
-// shift register), the LLR rows float [1024][(N>>G)−1] and partial-sum rows
-// u8 [1024][(N>>G)−1] of levels G+1..n, and the selected rank.
-// `ops/scl_cuda.py::cluster_block_bytes` is the same reckoning.
+// 16-byte aligned, for its PATHS = 1024·PPT paths: two σ tables
+// [PATHS][row] (2n−2 16-bit fields a path, a row rounded to 4 bytes; none
+// at two paths a thread, whose σ is in global scratch), three buffers of
+// 2·PATHS sort keys u64, two sets of `words` 32-bit values a path (the
+// published leaf, syndrome and, in PAC, shift register), the LLR rows float
+// [PATHS][(N>>G)−1] and partial-sum rows u8 [PATHS][(N>>G)−1] of levels
+// G+1..n, and the selected rank.  `ops/scl_cuda.py::cluster_block_bytes`
+// is the same reckoning.
 struct ClusterLayout {
   int sig, sig2, keys, words, ls, bs, sel, total;
   int sig_row;  // bytes of a path's σ row: 4..60, a multiple of 4
   int word_set;  // bytes of one set of published words
 };
 
+template <int PPT = 1>
 __host__ __device__ __forceinline__ ClusterLayout cluster_layout(int N, int n, int G, int words) {
+  constexpr int PATHS = CLUSTER_THREADS * PPT;
   ClusterLayout c;
   const int ss = (N >> G) - 1;
   c.sig_row = round4((2 * n - 2) * 2);
   if (c.sig_row < 4) c.sig_row = 4;
   c.sig = 0;
-  c.sig2 = round16(CLUSTER_THREADS * c.sig_row);
+  c.sig2 = PPT == 1 ? round16(CLUSTER_THREADS * c.sig_row) : 0;
   c.keys = 2 * c.sig2;
-  c.words = c.keys + 3 * 8 * CLUSTER_KEYS;
-  c.word_set = words * 4 * CLUSTER_THREADS;
+  c.words = c.keys + 3 * 8 * CLUSTER_KEYS * PPT;
+  c.word_set = words * 4 * PATHS;
   c.ls = c.words + 2 * c.word_set;
-  c.bs = c.ls + round16(4 * CLUSTER_THREADS * ss);
-  c.sel = c.bs + round16(CLUSTER_THREADS * ss);
+  c.bs = c.ls + round16(4 * PATHS * ss);
+  c.sel = c.bs + round16(PATHS * ss);
   c.total = c.sel + 16;
   return c;
 }
@@ -568,20 +595,20 @@ __device__ __forceinline__ void cluster_barrier() {
 }
 
 // Path p's entry of a per-path array of `stride` entries a path, whose
-// block-local copy starts at `local`: rank p >> 10's, through DSMEM.
-template <typename T>
+// block-local copy starts at `local`: rank p / (1024·PPT)'s, through DSMEM.
+template <int PPT = 1, typename T>
 __device__ __forceinline__ T* path_entry(T* local, int p, int stride = 1) {
   return cooperative_groups::this_cluster().map_shared_rank(
-      local + (p & (CLUSTER_THREADS - 1)) * stride, p >> CLUSTER_SHIFT);
+      local + (p & (CLUSTER_THREADS * PPT - 1)) * stride, p >> (CLUSTER_SHIFT + PPT - 1));
 }
 
 // Path r's row of a shared level whose block-local rows (`stride` entries
 // apart) start at `local`: the block's own row, or another block's through
 // DSMEM.
-template <typename T>
+template <int PPT = 1, typename T>
 __device__ __forceinline__ const T* cluster_row(const T* local, int r, int stride, int rank) {
-  T* row = const_cast<T*>(local) + (r & (CLUSTER_THREADS - 1)) * stride;
-  const int owner = r >> CLUSTER_SHIFT;
+  T* row = const_cast<T*>(local) + (r & (CLUSTER_THREADS * PPT - 1)) * stride;
+  const int owner = r >> (CLUSTER_SHIFT + PPT - 1);
   return owner == rank ? row : cooperative_groups::this_cluster().map_shared_rank(row, owner);
 }
 
@@ -607,6 +634,21 @@ __device__ __forceinline__ void cluster_sigma_fork(const DeepSigma<uint16_t>& si
   __syncthreads();
 }
 
+// σ ← σ[parent] for the block's path lm at two paths a thread, σ's two
+// tables in global scratch ([frame][2][M][row], `sig.tab` the block's first
+// row of the table read): the parent's row, which another block may have
+// written (ld.global.cg, from L2; the fork's sort barriers order its
+// writes before), into row lm of `next`.  The tables alternate as
+// cluster_sigma_fork's; only the block's own threads read a row of its
+// paths through σ, behind the block barrier the caller ends the fork with.
+__device__ __forceinline__ void global_sigma_fork(const DeepSigma<uint16_t>& sig, uint16_t* next, int lm,
+                                                  long long parent_from_base) {
+  const unsigned* src = reinterpret_cast<const unsigned*>(sig.tab + parent_from_base * sig.row);
+  unsigned* dst = reinterpret_cast<unsigned*>(next + lm * sig.row);
+#pragma unroll 2
+  for (int k = 0; k < sig.words; ++k) dst[k] = __ldcg(src + k);
+}
+
 // One f or g pass over a level of width half = 1 << lh for the paths
 // base..base+Mr−1 of one block: dst[lm][e] (the block's rows from dst,
 // `dstride` entries apart, shared or global) is the f or g of the parent
@@ -616,8 +658,8 @@ __device__ __forceinline__ void cluster_sigma_fork(const DeepSigma<uint16_t>& si
 // row, rows `sstride` apart; another block's row through DSMEM); else in
 // global scratch (`src` path 0's row, rows `sstride` apart, 0 for the
 // channel), read from L2.  A g takes dst's own partial sums as its left
-// bits.
-template <bool SHARED>
+// bits.  PPT paths a thread: the block's Mr <= 1024·PPT paths.
+template <bool SHARED, int PPT = 1>
 __device__ __forceinline__ void cluster_fg_pass(float* dst, const uint8_t* dbits, int dstride,
                                                 const float* src, int sstride, const uint16_t* via,
                                                 int vrow, bool is_g, int lh, int base, int rank,
@@ -632,11 +674,11 @@ __device__ __forceinline__ void cluster_fg_pass(float* dst, const uint8_t* dbits
     const int e = t & (half - 1);
     float a, b;
     if (SHARED) {
-      const float* row = via ? cluster_row(src, (int)via[lm * vrow], sstride, rank) : src + lm * sstride;
+      const float* row = via ? cluster_row<PPT>(src, (int)via[lm * vrow], sstride, rank) : src + lm * sstride;
       a = row[e];
       b = row[e + half];
     } else {
-      const float* row = src + (via ? (int)via[lm * vrow] : base + lm) * sstride;
+      const float* row = src + (ClusterOff<PPT>)(via ? (int)via[lm * vrow] : base + lm) * sstride;
       a = __ldcg(row + e);
       b = __ldcg(row + e + half);
     }
@@ -650,7 +692,7 @@ __device__ __forceinline__ void cluster_fg_pass(float* dst, const uint8_t* dbits
 // level's row (the block's rows from `st`, `ststride` apart, shared or
 // global), becomes [left[r] ^ cur, cur] in place, r as in cluster_fg_pass
 // (SHARED: the left level in shared memory, else in global scratch).
-template <bool SHARED>
+template <bool SHARED, int PPT = 1>
 __device__ __forceinline__ void cluster_chain_pass(uint8_t* st, int ststride, const uint8_t* left,
                                                    int lstride, const uint16_t* via, int vrow,
                                                    int lsz, int base, int rank, int Mr, int tid) {
@@ -662,9 +704,9 @@ __device__ __forceinline__ void cluster_chain_pass(uint8_t* st, int ststride, co
     const int e = t & (sz - 1);
     uint8_t x;
     if (SHARED)
-      x = (via ? cluster_row(left, (int)via[lm * vrow], lstride, rank) : left + lm * lstride)[e];
+      x = (via ? cluster_row<PPT>(left, (int)via[lm * vrow], lstride, rank) : left + lm * lstride)[e];
     else
-      x = __ldcg(left + (via ? (int)via[lm * vrow] : base + lm) * lstride + e);
+      x = __ldcg(left + (ClusterOff<PPT>)(via ? (int)via[lm * vrow] : base + lm) * lstride + e);
     uint8_t* cur = st + lm * ststride + e;
     const uint8_t c = cur[0];
     cur[sz] = c;
@@ -753,10 +795,122 @@ __device__ __forceinline__ unsigned long long* cluster_sort_keys(unsigned long l
   return sorted;
 }
 
-// The key of rank q after cluster_sort_keys: rank q >> 11's sorted[q & 2047].
+// cluster_sort_keys at two paths a thread (M 16385..32768): the P keys
+// (P = 65536) over blocks of 4096, thread tid of rank r holding the keys of
+// positions 4(r·1024 + tid) + 0..3 in k[0..3], each stage compare-
+// exchanging positions i and i^j as cluster_sort_keys does.  Distances 1
+// and 2 are within the thread, in registers; 4..64 within the warp, by
+// __shfl_xor_sync with lane tid ^ j/4; 128..2048 through the block's
+// buffers Y and X (as cluster_sort_keys' 64..1024, one block barrier a
+// stage, the buffers in the same turns); and 4096 and above across blocks,
+// partner rank r ^ j/4096, through the exchange buffers X[xc & 1] behind a
+// cluster barrier (10 of the 136 stages at P = 65536).  A buffer holds
+// thread tid's keys 0, 1 at entries 2·tid, +1 and its keys 2, 3 at
+// 2048 + 2·tid, +1, so that each of its two 16-byte stores and loads is a
+// warp's 512 contiguous bytes.  After the last merge's first stage the upper
+// half's blocks stop, and the lower half stores its keys in rank order,
+// thread tid's at 4·tid..+3 of the next exchange buffer, behind a cluster
+// barrier: the key of rank q is then rank q >> 12's entry q & 4095
+// (`cluster_key<2>`).  Every thread of the cluster calls it, with the same
+// xc: the launch's exchanges before it (`cluster_exchanges<2>`).
+__device__ __forceinline__ unsigned long long* cluster_sort_keys4(unsigned long long* keys,
+                                                                  unsigned long long (&k)[4], int P,
+                                                                  int rank, int tid, int xc) {
+  constexpr int BK = 2 * CLUSTER_KEYS;  // keys a block
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int base = 4 * (rank * CLUSTER_THREADS + tid);
+  unsigned long long* const Y = keys + 2 * BK;
+  bool on = true;
+  int ib = 0;  // in-block stages since the last cross-block one: Y at even counts
+  auto X = [&](int c) { return keys + (c & 1) * BK; };
+  auto exchange = [](unsigned long long& a, unsigned long long o, bool keep_min) {
+    a = (o < a) == keep_min ? o : a;
+  };
+  auto store = [&](unsigned long long* buf) {
+    ulonglong2* v = reinterpret_cast<ulonglong2*>(buf);
+    v[tid] = make_ulonglong2(k[0], k[1]);
+    v[CLUSTER_THREADS + tid] = make_ulonglong2(k[2], k[3]);
+  };
+  // keys i against thread t's keys i of `buf` (this block's, or another's through DSMEM)
+  auto merge = [&](const unsigned long long* buf, int t, bool keep_min) {
+    const ulonglong2* v = reinterpret_cast<const ulonglong2*>(buf);
+    const ulonglong2 lo = v[t], hi = v[CLUSTER_THREADS + t];
+    exchange(k[0], lo.x, keep_min);
+    exchange(k[1], lo.y, keep_min);
+    exchange(k[2], hi.x, keep_min);
+    exchange(k[3], hi.y, keep_min);
+  };
+  // positions a < b of one thread: the smaller to a when ascending
+  auto order = [](unsigned long long& a, unsigned long long& b, bool up) {
+    const bool swap = (a > b) == up;
+    const unsigned long long lo = swap ? b : a;
+    b = swap ? a : b;
+    a = lo;
+  };
+  for (int size = 2; size <= P; size <<= 1) {
+    const bool up = (base & size) == 0;  // every key of the thread, but keys 2, 3 at size 2
+    int j = size >> 1;
+    for (; j >= BK; j >>= 1) {  // across blocks
+      unsigned long long* buf = X(xc);
+      if (on) store(buf);
+      cluster_barrier();
+      if (on) merge(cluster.map_shared_rank(buf, rank ^ (j / BK)), tid, ((base & j) == 0) == up);
+      ++xc;
+      ib = 0;
+      if (size == P) on = on && base < P / 2;
+    }
+    for (; j >= 128; j >>= 1) {  // across warps of the block
+      unsigned long long* buf = (ib++ & 1) ? X(xc) : Y;
+      if (on) store(buf);
+      __syncthreads();
+      if (on) merge(buf, tid ^ (j / 4), ((base & j) == 0) == up);
+      if (size == P) on = on && base < P / 2;
+    }
+    if (on) {
+#pragma unroll
+      for (int jj = 64; jj >= 4; jj >>= 1) {  // within the warp
+        if (jj < size) {
+          const bool keep_min = ((base & jj) == 0) == up;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) exchange(k[i], __shfl_xor_sync(FULL_MASK, k[i], jj / 4), keep_min);
+        }
+      }
+      if (size >= 4) {  // j = 2, in registers
+        order(k[0], k[2], up);
+        order(k[1], k[3], up);
+      }
+      order(k[0], k[1], up);  // j = 1
+      order(k[2], k[3], size == 2 ? !up : up);
+    }
+  }
+  unsigned long long* sorted = X(xc);  // Y and this one's stage reads are behind a barrier
+  if (on) {
+    ulonglong2* v = reinterpret_cast<ulonglong2*>(sorted);
+    v[2 * tid] = make_ulonglong2(k[0], k[1]);
+    v[2 * tid + 1] = make_ulonglong2(k[2], k[3]);
+  }
+  cluster_barrier();
+  return sorted;
+}
+
+// The sort of a fork's or the final rank's keys at PPT paths a thread,
+// k[0..2PPT−1] the thread's: cluster_sort_keys, or cluster_sort_keys4.
+template <int PPT>
+__device__ __forceinline__ unsigned long long* cluster_sort(unsigned long long* keys,
+                                                            unsigned long long (&k)[2 * PPT], int P,
+                                                            int rank, int tid, int xc) {
+  if constexpr (PPT == 1)
+    return cluster_sort_keys(keys, k[0], k[1], P, rank, tid, xc);
+  else
+    return cluster_sort_keys4(keys, k, P, rank, tid, xc);
+}
+
+// The key of rank q after cluster_sort: rank q / (2048·PPT)'s
+// sorted[q % (2048·PPT)].
+template <int PPT = 1>
 __device__ __forceinline__ unsigned long long cluster_key(unsigned long long* sorted, int q) {
   return *cooperative_groups::this_cluster().map_shared_rank(
-      sorted + (q & (CLUSTER_KEYS - 1)), q >> (CLUSTER_SHIFT + 1));
+      sorted + (q & (CLUSTER_KEYS * PPT - 1)), q >> (CLUSTER_SHIFT + PPT));
 }
 
 // ---- host side ----

@@ -89,7 +89,11 @@
 // the SCL kernel's cluster layout (`scl_decode.cu`, `list_decode.cuh`), a
 // frame over a thread-block cluster of 2, 4, 8 or 16 blocks of 1024 threads,
 // levels G+1..n of a block's slots in its shared memory and levels 1..G in
-// global scratch, with three published words a slot.
+// global scratch, with three published words a slot; past L = 16384
+// pac_cluster_pair_kernel<LIST> (L 16385..32768), two slots a thread on a
+// cluster of 16, σ in global scratch, as the SCL kernel's pair
+// instantiation (the same body, the slots a thread a compile-time
+// parameter).
 //
 // Each path carries its CRC syndrome (the XOR of the 32-bit check columns,
 // in phase order, of its set bits) and its shift register in registers,
@@ -737,20 +741,23 @@ __global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_wide_kernel(PAC_DEEP_PARA
 }
 
 // ---------------------------------------------------------------------------
-// Over a cluster: list sizes 1025..16384, one frame a cluster of blocks.
+// Over a cluster: list sizes 1025..32768, one frame a cluster of blocks.
 // ---------------------------------------------------------------------------
 
 // The PAC decode with a frame spread over a cluster of C =
 // cluster_blocks(L) blocks of 1024 threads, on the SCL kernel's cluster
-// layout (`scl_decode.cu`'s scl_cluster_kernel has the design): thread tid
-// of rank r holds slot m = r·1024 + tid's metric, shift register and
-// syndrome and its candidates good m and bad L + m; tree levels G+1..n of
-// the block's slots in its shared memory, levels 1..G in global scratch;
-// σ, the sort keys and the published leaf, syndrome and shift register of
-// the block's 1024 slots in its shared memory, and the fork's parent
-// values through DSMEM.  It computes what pac_decode_kernel computes.
-template <bool LIST>
-__global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(
+// layout (`scl_decode.cu`'s scl_cluster_decode has the design), PPT slots
+// a thread (1 up to L = 16384, 2 above): slot m = r·1024·PPT + k·1024 + tid
+// of rank r (k < PPT) has its metric, shift register and syndrome in thread
+// tid's registers and its candidates good m and bad L + m among the
+// thread's sort keys; tree levels G+1..n of the block's slots in its shared
+// memory, levels 1..G in global scratch; the sort keys and the published
+// leaf, syndrome and shift register of the block's slots in its shared
+// memory, and σ there too at one slot a thread (in global scratch at two,
+// `sigma_g`); the fork's parent values through DSMEM.  It computes what
+// pac_decode_kernel computes.
+template <bool LIST, int PPT>
+__device__ __forceinline__ void pac_cluster_decode(
     const float* __restrict__ llr, const uint32_t* __restrict__ hcols,
     const int* __restrict__ sched, const int* __restrict__ phase_of,
     float* glob_llr,     // [B, L, N-(N>>G)]: LLR levels 1..G, null when G == 0
@@ -759,7 +766,10 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(
     int8_t* __restrict__ out_bits, uint8_t* __restrict__ out_pass, const int* __restrict__ out_pos,
     const int* __restrict__ u_pos, int8_t* __restrict__ list_v, int8_t* __restrict__ list_bits,
     float* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int Kp, int L,
-    int G, unsigned mem_mask, unsigned tap_mask, int use_crc) {
+    int G, unsigned mem_mask, unsigned tap_mask, int use_crc,
+    uint16_t* sigma_g) {  // [B, 2, L, row]: σ's two tables at two slots a thread, else null
+  using Off = ClusterOff<PPT>;
+  constexpr int PATHS = CLUSTER_THREADS * PPT;  // slots a block
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -767,19 +777,29 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(
   const int rank = (int)cluster.block_rank();
   const long long frame = blockIdx.x / C;
   const int tid = threadIdx.x;
-  const int base = rank * CLUSTER_THREADS;  // the block's first slot
-  const int m = base + tid;                 // this thread's slot
-  const int Lr = L - base < 0 ? 0 : L - base < CLUSTER_THREADS ? L - base : CLUSTER_THREADS;
-  const bool act = m < L;
+  const int base = rank * PATHS;  // the block's first slot
+  int m[PPT];                     // this thread's slots
+  bool act[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    m[k] = base + k * CLUSTER_THREADS + tid;
+    act[k] = m[k] < L;
+  }
+  const int Lr = L - base < 0 ? 0 : L - base < PATHS ? L - base : PATHS;
   const int P = sort_keys(L);
 
-  const ClusterLayout lay = cluster_layout(N, n, G, 3);
+  const ClusterLayout lay = cluster_layout<PPT>(N, n, G, 3);
   const int SS = (N >> G) - 1;  // entries of a slot's shared row: levels G+1..n
   const int SG = N - (N >> G);  // entries of a slot's global row: levels 1..G
-  // σ after i forks: table i & 1 (the other is the next fork's target)
+  // σ after i forks: table i & 1 (the other is the next fork's target),
+  // from the block's first slot's row
   auto sigma = [&](int i) {
-    return DeepSigma<uint16_t>{reinterpret_cast<uint16_t*>(smem + (i & 1) * lay.sig2), lay.sig_row / 2,
-                               lay.sig_row / 4};
+    if constexpr (PPT == 1)
+      return DeepSigma<uint16_t>{reinterpret_cast<uint16_t*>(smem + (i & 1) * lay.sig2), lay.sig_row / 2,
+                                 lay.sig_row / 4};
+    else
+      return DeepSigma<uint16_t>{sigma_g + ((frame * 2 + (i & 1)) * L + base) * (lay.sig_row / 2),
+                                 lay.sig_row / 2, lay.sig_row / 4};
   };
   unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem + lay.keys);
   float* Ls = reinterpret_cast<float*>(smem + lay.ls);
@@ -793,15 +813,23 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(
   auto go = [&](int l) { return N - (N >> (l - 1)); };
   // word k (leaf, syndrome, shift register) of published set i (an info phase's parity)
   auto wordS = [&](int i, int k) {
-    return reinterpret_cast<unsigned*>(smem + lay.words + i * lay.word_set + k * 4 * CLUSTER_THREADS);
+    return reinterpret_cast<unsigned*>(smem + lay.words + i * lay.word_set + k * 4 * PATHS);
   };
 
-  if (act) sigma(0).init(tid, m, 2 * n - 2);
-  if (m == 0) *selS = L;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k)
+    if (act[k]) sigma(0).init(k * CLUSTER_THREADS + tid, m[k], 2 * n - 2);
+  if (m[0] == 0) *selS = L;
   __syncthreads();
-  float pm = (m == 0) ? 0.f : PAC_BIG;  // metric of slot m
-  unsigned reg = 0;                      // shift register of slot m
-  uint32_t syn = 0;                      // CRC syndrome of slot m
+  float pm[PPT];      // metric of slot m[k]
+  unsigned reg[PPT];  // shift register of slot m[k]
+  uint32_t syn[PPT];  // CRC syndrome of slot m[k]
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    pm[k] = (m[k] == 0) ? 0.f : PAC_BIG;
+    reg[k] = 0;
+    syn[k] = 0;
+  }
   int info_i = 0;
   int word = sched[0];
   for (int p = 0; p < N; ++p) {
@@ -814,93 +842,122 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(
     const int is_frozen = word >> 10 & 1;
     const int l0 = p == 0 ? 1 : gl;
     DeepSigma<uint16_t> sig = sigma(info_i);
-    if (act) sig.reset(tid, m, l0 - 1, n - 1, s_prev >= 2 ? n + s_prev - 3 : -1);
+#pragma unroll
+    for (int k = 0; k < PPT; ++k)
+      if (act[k]) sig.reset(k * CLUSTER_THREADS + tid, m[k], l0 - 1, n - 1, s_prev >= 2 ? n + s_prev - 3 : -1);
     // another block may still read the rows this phase rewrites
     if (prev >> 11) cluster_wait();
 
     // ---- f/g updates down to level n−1, this block's slots ----
     for (int l = l0; l < n; ++l) {
       const bool is_g = (p != 0) && (l == gl);
-      float* dst = l > G ? Ls + so(l) : Lg + base * SG + go(l);
-      const uint8_t* dbits = l > G ? Bs + so(l) : Bg + base * SG + go(l);
+      float* dst = l > G ? Ls + so(l) : Lg + (Off)base * SG + go(l);
+      const uint8_t* dbits = l > G ? Bs + so(l) : Bg + (Off)base * SG + go(l);
       const int ds = l > G ? SS : SG;
       if (l == 1) {
         channel_pass(dst, dbits, ds, ch, 32 - n, is_g, n - 1, Lr, tid, CLUSTER_THREADS);
       } else {
         const uint16_t* via = (is_g && (word >> 11 & 1)) ? sig.field(l - 2) : nullptr;
         if (l - 1 > G)
-          cluster_fg_pass<true>(dst, dbits, ds, Ls + so(l - 1), SS, via, sig.row, is_g, n - l, base, rank,
-                                Lr, tid);
+          cluster_fg_pass<true, PPT>(dst, dbits, ds, Ls + so(l - 1), SS, via, sig.row, is_g, n - l, base, rank,
+                                     Lr, tid);
         else
-          cluster_fg_pass<false>(dst, dbits, ds, Lg + go(l - 1), SG, via, sig.row, is_g, n - l, base,
-                                 rank, Lr, tid);
+          cluster_fg_pass<false, PPT>(dst, dbits, ds, Lg + go(l - 1), SG, via, sig.row, is_g, n - l, base,
+                                      rank, Lr, tid);
       }
       __syncthreads();
     }
     // the leaf (level n) from the parent row
     const bool g_leaf = gl == n;
-    float leaf = 0.f;
-    if (act) {
-      float a, b;
-      if (n == 1) {
-        a = ch[0];
-        b = ch[1];
-      } else {
-        const int r = (g_leaf && (word >> 11 & 1)) ? sig.get(tid, n - 2) : m;
-        if (n - 1 > G) {
-          const float* row = cluster_row(Ls + so(n - 1), r, SS, rank);
-          a = row[0];
-          b = row[1];
+    float leaf[PPT];
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const int lm = k * CLUSTER_THREADS + tid;
+      leaf[k] = 0.f;
+      if (act[k]) {
+        float a, b;
+        if (n == 1) {
+          a = ch[0];
+          b = ch[1];
         } else {
-          const float* row = Lg + go(n - 1) + r * SG;
-          a = __ldcg(row);
-          b = __ldcg(row + 1);
+          const int r = (g_leaf && (word >> 11 & 1)) ? sig.get(lm, n - 2) : m[k];
+          if (n - 1 > G) {
+            const float* row = cluster_row<PPT>(Ls + so(n - 1), r, SS, rank);
+            a = row[0];
+            b = row[1];
+          } else {
+            const float* row = Lg + go(n - 1) + (Off)r * SG;
+            a = __ldcg(row);
+            b = __ldcg(row + 1);
+          }
         }
+        leaf[k] = g_leaf ? g_update(a, b, Bs[lm * SS + so(n)]) : f_minsum(a, b);
       }
-      leaf = g_leaf ? g_update(a, b, Bs[tid * SS + so(n)]) : f_minsum(a, b);
     }
-    const int hard = leaf < 0.f;
-    const int base_bit = __popc(reg & tap_mask) & 1;  // edge bit for v = 0
 
     // ---- leaf decision: extend every slot, or fork and keep the best L ----
-    int edge = 0;
+    int edge[PPT];
     if (is_frozen) {
-      if (act) {
-        if (pm < PAC_BIG && base_bit != hard) pm = pm + fabsf(leaf);
-        reg = (reg << 1) & mem_mask;
-        edge = base_bit;
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const int hard = leaf[k] < 0.f;
+        const int base_bit = __popc(reg[k] & tap_mask) & 1;  // edge bit for v = 0
+        edge[k] = 0;
+        if (act[k]) {
+          if (pm[k] < PAC_BIG && base_bit != hard) pm[k] = pm[k] + fabsf(leaf[k]);
+          reg[k] = (reg[k] << 1) & mem_mask;
+          edge[k] = base_bit;
+        }
       }
     } else {
-      const float cg_ = pm;                                           // index m
-      const float cb = (pm < PAC_BIG) ? pm + fabsf(leaf) : PAC_BIG;   // index L + m
       const int set = info_i & 1;
-      if (act) {
-        wordS(set, 0)[tid] = __float_as_uint(leaf);
-        wordS(set, 1)[tid] = syn;
-        wordS(set, 2)[tid] = reg;
+      unsigned long long kk[2 * PPT];
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const float cg_ = pm[k];                                              // index m
+        const float cb = (pm[k] < PAC_BIG) ? pm[k] + fabsf(leaf[k]) : PAC_BIG;  // index L + m
+        if (act[k]) {
+          wordS(set, 0)[k * CLUSTER_THREADS + tid] = __float_as_uint(leaf[k]);
+          wordS(set, 1)[k * CLUSTER_THREADS + tid] = syn[k];
+          wordS(set, 2)[k * CLUSTER_THREADS + tid] = reg[k];
+        }
+        kk[2 * k] = act[k] ? cand_key(cg_, m[k]) : ~0ull;
+        kk[2 * k + 1] = act[k] ? cand_key(cb, L + m[k]) : ~0ull;
       }
-      unsigned long long* sorted = cluster_sort_keys(keys, act ? cand_key(cg_, m) : ~0ull,
-                                                     act ? cand_key(cb, L + m) : ~0ull, P, rank, tid,
-                                                     info_i * cluster_exchanges(P));
+      unsigned long long* sorted =
+          cluster_sort<PPT>(keys, kk, P, rank, tid, info_i * cluster_exchanges<PPT>(P));
       // slot m: the candidate of rank m.  Every thread takes new values
       // (a thread past L those of slot 0's parent, never read), so that no
       // slot state is live across the sort: the 64 registers hold it
-      const unsigned long long key = cluster_key(sorted, act ? m : 0);
-      const int w = act ? key_index(key) : 0;
-      const int is_bad = w >= L;
-      const int parent = is_bad ? w - L : w;
-      const int hp = __uint_as_float(*path_entry(wordS(set, 0), parent)) < 0.f;
-      const unsigned rp = *path_entry(wordS(set, 2), parent);
-      const int bp = __popc(rp & tap_mask) & 1;
-      const uint32_t sp = *path_entry(wordS(set, 1), parent);
-      const uint32_t hc = use_crc ? hcols[info_i] : 0u;
-      const int v = bp ^ hp ^ is_bad;  // good: edge == hard; bad: the other bit
-      pm = key_metric(key);
-      edge = hp ^ is_bad;
-      reg = ((rp << 1) | (unsigned)v) & mem_mask;
-      syn = v ? sp ^ hc : sp;
-      if (act) TI[info_i * L + m] = (uint16_t)((parent << 1) | v);
-      cluster_sigma_fork(sig, sigma(info_i + 1).tab, tid, parent, act);  // σ ← σ[parent] on every level
+      int parent[PPT];
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const unsigned long long key = cluster_key<PPT>(sorted, act[k] ? m[k] : 0);
+        const int w = act[k] ? key_index(key) : 0;
+        const int is_bad = w >= L;
+        parent[k] = is_bad ? w - L : w;
+        const int hp = __uint_as_float(*path_entry<PPT>(wordS(set, 0), parent[k])) < 0.f;
+        const unsigned rp = *path_entry<PPT>(wordS(set, 2), parent[k]);
+        const int bp = __popc(rp & tap_mask) & 1;
+        const uint32_t sp = *path_entry<PPT>(wordS(set, 1), parent[k]);
+        const uint32_t hc = use_crc ? hcols[info_i] : 0u;
+        const int v = bp ^ hp ^ is_bad;  // good: edge == hard; bad: the other bit
+        pm[k] = key_metric(key);
+        edge[k] = hp ^ is_bad;
+        reg[k] = ((rp << 1) | (unsigned)v) & mem_mask;
+        syn[k] = v ? sp ^ hc : sp;
+        if (act[k]) TI[(Off)info_i * L + m[k]] = (uint16_t)((parent[k] << 1) | v);
+      }
+      // σ ← σ[parent] on every level
+      if constexpr (PPT == 1) {
+        cluster_sigma_fork(sig, sigma(info_i + 1).tab, tid, parent[0], act[0]);
+      } else {
+        uint16_t* next = sigma(info_i + 1).tab;
+#pragma unroll
+        for (int k = 0; k < PPT; ++k)
+          if (act[k]) global_sigma_fork(sig, next, k * CLUSTER_THREADS + tid, parent[k] - base);
+        __syncthreads();
+      }
       sig = sigma(++info_i);
     }
 
@@ -908,26 +965,30 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(
     const int s = word >> 5 & 31;
     if (s > 0) {
       const int cmask = word >> 11;  // bit l: level l's left bits through σ
-      if (act) {
-        uint8_t* cur = s > G ? Bs + tid * SS + so(s) : Bg + m * SG + go(s);
-        if (s == n) {
-          cur[0] = (uint8_t)edge;
-        } else {
-          const int r = (cmask >> n & 1) ? sig.get(tid, 2 * n - 3) : m;
-          const uint8_t left = *cluster_row(Bs + so(n), r, SS, rank);
-          cur[1] = (uint8_t)edge;
-          cur[0] = (uint8_t)(left ^ edge);
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const int lm = k * CLUSTER_THREADS + tid;
+        if (act[k]) {
+          uint8_t* cur = s > G ? Bs + lm * SS + so(s) : Bg + (Off)m[k] * SG + go(s);
+          if (s == n) {
+            cur[0] = (uint8_t)edge[k];
+          } else {
+            const int r = (cmask >> n & 1) ? sig.get(lm, 2 * n - 3) : m[k];
+            const uint8_t left = *cluster_row<PPT>(Bs + so(n), r, SS, rank);
+            cur[1] = (uint8_t)edge[k];
+            cur[0] = (uint8_t)(left ^ edge[k]);
+          }
         }
       }
       __syncthreads();
-      uint8_t* st = s > G ? Bs + so(s) : Bg + base * SG + go(s);
+      uint8_t* st = s > G ? Bs + so(s) : Bg + (Off)base * SG + go(s);
       const int sts = s > G ? SS : SG;
       for (int lv = n - 1; lv > s; --lv) {
         const uint16_t* via = (cmask >> lv & 1) ? sig.field(n + lv - 3) : nullptr;
         if (lv > G)
-          cluster_chain_pass<true>(st, sts, Bs + so(lv), SS, via, sig.row, n - lv, base, rank, Lr, tid);
+          cluster_chain_pass<true, PPT>(st, sts, Bs + so(lv), SS, via, sig.row, n - lv, base, rank, Lr, tid);
         else
-          cluster_chain_pass<false>(st, sts, Bg + go(lv), SG, via, sig.row, n - lv, base, rank, Lr, tid);
+          cluster_chain_pass<false, PPT>(st, sts, Bg + go(lv), SG, via, sig.row, n - lv, base, rank, Lr, tid);
         __syncthreads();
       }
     }
@@ -940,13 +1001,23 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(
 
   // ---- final stable sort of the list, CRC selection, backtrack ----
   unsigned* passS = wordS(info_i & 1, 1);
-  if (act) passS[tid] = use_crc && syn == 0u && pm < PAC_BIG;  // slot m passes
-  unsigned long long* sorted = cluster_sort_keys(keys, act ? cand_key(pm, m) : ~0ull, ~0ull, P, rank,
-                                                 tid, info_i * cluster_exchanges(P));
-  // thread r = m < L: the key (metric, slot) of final rank r
-  const unsigned long long fkey = act ? cluster_key(sorted, m) : ~0ull;
-  const int slot_r = act ? key_index(fkey) : 0;
-  if (act && *path_entry(passS, slot_r)) atomicMin(cluster.map_shared_rank(selS, 0), m);
+  unsigned long long kk[2 * PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    if (act[k]) passS[k * CLUSTER_THREADS + tid] = use_crc && syn[k] == 0u && pm[k] < PAC_BIG;  // slot m passes
+    kk[2 * k] = act[k] ? cand_key(pm[k], m[k]) : ~0ull;
+    kk[2 * k + 1] = ~0ull;
+  }
+  unsigned long long* sorted = cluster_sort<PPT>(keys, kk, P, rank, tid, info_i * cluster_exchanges<PPT>(P));
+  // the thread of slot m < L: the key (metric, slot) of final rank m
+  unsigned long long fkey[PPT];
+  int slot_r[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    fkey[k] = act[k] ? cluster_key<PPT>(sorted, m[k]) : ~0ull;
+    slot_r[k] = act[k] ? key_index(fkey[k]) : 0;
+    if (act[k] && *path_entry<PPT>(passS, slot_r[k])) atomicMin(cluster.map_shared_rank(selS, 0), m[k]);
+  }
   cluster.sync();
   const int least = *cluster.map_shared_rank(selS, 0);
   const int sel_rank = least < L ? least : 0;
@@ -954,37 +1025,69 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(
     // the block's rows of the list (ranks base..base+Lr−1) zeroed, then the
     // slot of rank m into row m, before the trace is rewritten
     int8_t* v = list_v + frame * L * N;
-    for (int t = tid; t < Lr * N; t += CLUSTER_THREADS) v[base * N + t] = 0;
+    for (Off t = tid; t < (Off)Lr * N; t += CLUSTER_THREADS) v[(Off)base * N + t] = 0;
     __syncthreads();
-    if (act) {
-      const float mr = key_metric(fkey);
-      list_metrics[frame * L + m] = mr < PAC_BIG ? mr : __int_as_float(0x7f800000);
-      int8_t* vrow = v + m * N;
-      int8_t* brow = list_bits + (frame * L + m) * Kp;
-      int slot = slot_r;
-      for (int i = Kp - 1; i >= 0; --i) {
-        const int w = __ldcg(TI + i * L + slot);
-        vrow[u_pos[i]] = (int8_t)(w & 1);
-        brow[out_pos[i]] = (int8_t)(w & 1);
-        slot = w >> 1;
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      if (act[k]) {
+        const float mr = key_metric(fkey[k]);
+        list_metrics[frame * L + m[k]] = mr < PAC_BIG ? mr : __int_as_float(0x7f800000);
+        int8_t* vrow = v + (Off)m[k] * N;
+        int8_t* brow = list_bits + (frame * L + m[k]) * Kp;
+        int slot = slot_r[k];
+        for (int i = Kp - 1; i >= 0; --i) {
+          const int w = __ldcg(TI + (Off)i * L + slot);
+          vrow[u_pos[i]] = (int8_t)(w & 1);
+          brow[out_pos[i]] = (int8_t)(w & 1);
+          slot = w >> 1;
+        }
       }
     }
-    if (m == 0) list_best[frame] = sel_rank;
+    if (m[0] == 0) list_best[frame] = sel_rank;
   }
   cluster.sync();  // every walk has read the trace, and rank 0's word is read
-  if (act && m == sel_rank) {
-    // the selected slot's bit v into slot 0 of each trace row
-    int slot = slot_r;
-    for (int i = Kp - 1; i >= 0; --i) {
-      const int w = __ldcg(TI + i * L + slot);
-      TI[i * L] = (uint16_t)(w & 1);
-      slot = w >> 1;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    if (act[k] && m[k] == sel_rank) {
+      // the selected slot's bit v into slot 0 of each trace row
+      int slot = slot_r[k];
+      for (int i = Kp - 1; i >= 0; --i) {
+        const int w = __ldcg(TI + (Off)i * L + slot);
+        TI[(Off)i * L] = (uint16_t)(w & 1);
+        slot = w >> 1;
+      }
+      out_pass[frame] = least < L ? 1 : 0;
     }
-    out_pass[frame] = least < L ? 1 : 0;
   }
   cluster.sync();
-  for (int j = m; j < Kp; j += C * CLUSTER_THREADS)
-    out_bits[frame * Kp + j] = (int8_t)__ldcg(TI + phase_of[j] * L);
+  for (int j = rank * CLUSTER_THREADS + tid; j < Kp; j += C * CLUSTER_THREADS)
+    out_bits[frame * Kp + j] = (int8_t)__ldcg(TI + (Off)phase_of[j] * L);
+}
+
+#define PAC_CLUSTER_PARAMS                                                                         \
+  const float* __restrict__ llr, const uint32_t* __restrict__ hcols,                               \
+      const int* __restrict__ sched, const int* __restrict__ phase_of, float* glob_llr,            \
+      uint8_t* glob_bits, uint16_t* trace_idx, int8_t* __restrict__ out_bits,                      \
+      uint8_t* __restrict__ out_pass, const int* __restrict__ out_pos,                             \
+      const int* __restrict__ u_pos, int8_t* __restrict__ list_v, int8_t* __restrict__ list_bits,  \
+      float* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int Kp, int L,  \
+      int G, unsigned mem_mask, unsigned tap_mask, int use_crc
+#define PAC_CLUSTER_ARGS                                                                           \
+  llr, hcols, sched, phase_of, glob_llr, glob_bits, trace_idx, out_bits, out_pass, out_pos,        \
+      u_pos, list_v, list_bits, list_metrics, list_best, N, n, Kp, L, G, mem_mask, tap_mask,       \
+      use_crc
+
+// L 1025..16384: one slot a thread, σ in the blocks' shared memory
+template <bool LIST>
+__global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(PAC_CLUSTER_PARAMS) {
+  pac_cluster_decode<LIST, 1>(PAC_CLUSTER_ARGS, nullptr);
+}
+
+// L 16385..32768: two slots a thread on a cluster of 16, σ in global scratch
+template <bool LIST>
+__global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_pair_kernel(PAC_CLUSTER_PARAMS,
+                                                                           uint16_t* sigma_g) {
+  pac_cluster_decode<LIST, 2>(PAC_CLUSTER_ARGS, sigma_g);
 }
 
 // every kernel argument but the σ masks, and the stream
@@ -1091,24 +1194,34 @@ int launch_deep(const Args& a, void* trace_idx, cudaStream_t stream) {
                   : launch_deep_as<uint16_t, false, false>(a, ti, stream);
 }
 
-template <bool LIST>
-int launch_cluster_as(const Args& a, uint16_t* trace_idx, cudaStream_t stream) {
-  const ClusterLayout lay = cluster_layout(a.N, a.n, a.G, 3);
+template <bool LIST, int PPT>
+int launch_cluster_as(const Args& a, uint16_t* trace_idx, uint16_t* sigma, cudaStream_t stream) {
+  const ClusterLayout lay = cluster_layout<PPT>(a.N, a.n, a.G, 3);
   // levels 1..G in global scratch, G+1..n in each block's shared memory,
-  // one frame a cluster
-  if (!trace_idx || (a.G > 0 && (!a.glob_llr || !a.glob_bits)) || a.n > MAX_LEVELS || a.G < 0 ||
-      a.G >= a.n || lay.total != a.frame_bytes || a.frames_per_block != 1)
+  // one frame a cluster; at two slots a thread σ in global scratch
+  if (!trace_idx || (PPT == 2 && !sigma) || (a.G > 0 && (!a.glob_llr || !a.glob_bits)) || a.n > MAX_LEVELS ||
+      a.G < 0 || a.G >= a.n || lay.total != a.frame_bytes || a.frames_per_block != 1)
     return (int)cudaErrorInvalidValue;
-  return launch_cluster_kernel(pac_cluster_kernel<LIST>, a.B, a.L, lay.total, stream, a.llr, a.hcols,
-                               a.sched, a.phase_of, a.glob_llr, a.glob_bits, trace_idx, a.out_bits,
-                               a.out_pass, a.out_pos, a.u_pos, a.list_v, a.list_bits,
-                               a.list_metrics, a.list_best, a.N, a.n, a.Kp, a.L, a.G, a.mem_mask,
-                               a.tap_mask, a.use_crc);
+  if constexpr (PPT == 1)
+    return launch_cluster_kernel(pac_cluster_kernel<LIST>, a.B, a.L, lay.total, stream, a.llr, a.hcols,
+                                 a.sched, a.phase_of, a.glob_llr, a.glob_bits, trace_idx, a.out_bits,
+                                 a.out_pass, a.out_pos, a.u_pos, a.list_v, a.list_bits,
+                                 a.list_metrics, a.list_best, a.N, a.n, a.Kp, a.L, a.G, a.mem_mask,
+                                 a.tap_mask, a.use_crc);
+  else
+    return launch_cluster_kernel(pac_cluster_pair_kernel<LIST>, a.B, a.L, lay.total, stream, a.llr, a.hcols,
+                                 a.sched, a.phase_of, a.glob_llr, a.glob_bits, trace_idx, a.out_bits,
+                                 a.out_pass, a.out_pos, a.u_pos, a.list_v, a.list_bits,
+                                 a.list_metrics, a.list_best, a.N, a.n, a.Kp, a.L, a.G, a.mem_mask,
+                                 a.tap_mask, a.use_crc, sigma);
 }
 
-int launch_cluster(const Args& a, void* trace_idx, cudaStream_t stream) {
+int launch_cluster(const Args& a, void* trace_idx, void* sigma, cudaStream_t stream) {
   uint16_t* ti = static_cast<uint16_t*>(trace_idx);
-  return a.list_v ? launch_cluster_as<true>(a, ti, stream) : launch_cluster_as<false>(a, ti, stream);
+  uint16_t* sg = static_cast<uint16_t*>(sigma);
+  if (cluster_ppt(a.L) == 2)
+    return a.list_v ? launch_cluster_as<true, 2>(a, ti, sg, stream) : launch_cluster_as<false, 2>(a, ti, sg, stream);
+  return a.list_v ? launch_cluster_as<true, 1>(a, ti, sg, stream) : launch_cluster_as<false, 1>(a, ti, sg, stream);
 }
 
 // The frames a block (1..MAX_FRAMES_PER_BLOCK) that let an SM hold the most
@@ -1148,7 +1261,8 @@ int plan_path(int n, int frame_bytes, int max_block_smem, int* frames_per_block,
 
 extern "C" int pac_decode_launch(const void* llr, const void* hcols, const void* sched,
                                  const void* phase_of, void* glob_llr, void* glob_bits,
-                                 void* trace_idx, void* out_bits, void* out_pass, const void* out_pos,
+                                 void* trace_idx, void* sigma, void* out_bits, void* out_pass,
+                                 const void* out_pos,
                                  const void* u_pos, void* list_v, void* list_bits,
                                  void* list_metrics, void* list_best, int B, int N, int n, int Kp,
                                  int L, int G, unsigned mem_mask, unsigned tap_mask, int use_crc,
@@ -1163,7 +1277,7 @@ extern "C" int pac_decode_launch(const void* llr, const void* hcols, const void*
                B, N, n, Kp, L, G, mem_mask, tap_mask, use_crc, frame_bytes, frames_per_block};
   auto st = static_cast<cudaStream_t>(stream);
   if (L < 1 || L > CLUSTER_MAX_M) return (int)cudaErrorInvalidValue;
-  if (L > DEEP_MAX_M) return launch_cluster(a, trace_idx, st);
+  if (L > DEEP_MAX_M) return launch_cluster(a, trace_idx, sigma, st);
   if (L >= DEEP_MIN_M) return launch_deep(a, trace_idx, st);
   if (L == 1) return launch<1>(a, trace_idx, st);
   if (L <= 2) return launch<2>(a, trace_idx, st);
@@ -1178,7 +1292,9 @@ extern "C" int pac_launch_plan(int L, int n, int frame_bytes, int max_block_smem
   if (L < 1 || L > CLUSTER_MAX_M) return (int)cudaErrorInvalidValue;
   if (L > DEEP_MAX_M) {  // frames_per_sm: the frames (clusters) the card runs at once
     *frames_per_block = 1;
-    return plan_cluster(pac_cluster_kernel<false>, L, frame_bytes, max_block_smem, frames_per_sm);
+    return cluster_ppt(L) == 2
+               ? plan_cluster(pac_cluster_pair_kernel<false>, L, frame_bytes, max_block_smem, frames_per_sm)
+               : plan_cluster(pac_cluster_kernel<false>, L, frame_bytes, max_block_smem, frames_per_sm);
   }
   if (L > 128)
     return deep_wide<uint16_t>(n)

@@ -131,6 +131,21 @@
 //     fork loops over a row's words, so this instantiation takes every n up
 //     to 16 as it is (K3 at N = 65536 at G = n − 2, where the rest of a
 //     block leaves too little room for n − 3).
+//   * Past M = 16384, scl_cluster_pair_kernel<LIST> (M 16385..32768): 16
+//     blocks is the largest cluster an H100 places (7 at once, `PERF.md`
+//     §6), and a block at most 1024 threads, so each thread holds two paths
+//     (r·2048 + tid and r·2048 + 1024 + tid) and four sort keys
+//     (`cluster_sort_keys4`: distances 1 and 2 in registers, the stages
+//     across blocks at 4096 keys and more).  The same body,
+//     scl_cluster_decode<LIST, 2>, with the paths a thread a compile-time
+//     parameter, so that the one-path kernels are what they were.  A block's
+//     2048 paths take three key buffers of 96 KB and two word sets of
+//     32 KB, and two σ tables of 2048 rows (96 KB at n = 7, 240 KB at
+//     n = 16) would not fit beside them: σ's two tables go to global
+//     scratch ([B][2][M][row], `sigma_g`), the block's own rows read through
+//     L1, a parent's row at a fork from L2.  The 16-bit fields are full at
+//     M = 32768 (2p + b up to 65535, unsigned), and the within-frame
+//     offsets, which reach 2^31 there, are 64-bit (`ClusterOff`).
 //
 // Layout.  One warp decodes one frame and a block holds a few frames (over
 // warps: one block a frame; on a cluster, one cluster a frame, each block
@@ -1015,28 +1030,31 @@ __global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_wide_kernel(SCL_DEEP_PARA
 }
 
 // ---------------------------------------------------------------------------
-// Over a cluster: list sizes 1025..16384, one frame a cluster of blocks.
+// Over a cluster: list sizes 1025..32768, one frame a cluster of blocks.
 // ---------------------------------------------------------------------------
 
 // The SCL decode with a frame spread over a cluster of C = cluster_blocks(M)
 // blocks of 1024 threads (`list_decode.cuh` has the layout and the
-// barriers): thread tid of rank r holds path m = r·1024 + tid's metric and
-// syndrome and its candidates 2m and 2m+1.  Tree levels G+1..n of the
-// block's 1024 paths are in its shared memory, levels 1..G of every path in
-// global scratch, and each block runs the f/g and chain passes of its own
-// paths: a read through σ takes the path's field from the block's own
-// table, and its row, which may be another block's, through DSMEM (a shared
-// level) or from L2 (a global one).  A fork publishes each path's leaf and
-// syndrome (one of two sets by the info phase's parity), sorts the 2M
-// candidates over the cluster, and takes the parent's words and σ row
-// through DSMEM.  A phase that read another path's row through σ ends with
-// a split cluster barrier, waited for before the next phase's passes.  The
-// final rank is the cluster sort of the M keys (metric, m); thread r takes
-// the key of rank r, and the selected rank, the least of those whose path
-// passes the CRC, is an atomicMin on rank 0's shared word through DSMEM.
-// It computes what scl_decode_kernel computes.
-template <bool LIST>
-__global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_kernel(
+// barriers), each thread holding PPT paths (1 up to M = 16384, 2 above):
+// path m = r·1024·PPT + k·1024 + tid of rank r (k < PPT) has its metric and
+// syndrome in thread tid's registers, and its candidates 2m and 2m+1 among
+// the thread's sort keys.  Tree levels G+1..n of the block's paths are in
+// its shared memory, levels 1..G of every path in global scratch, and each
+// block runs the f/g and chain passes of its own paths: a read through σ
+// takes the path's field from the block's own rows of σ, and its tree row,
+// which may be another block's, through DSMEM (a shared level) or from L2
+// (a global one).  A fork publishes each path's leaf and syndrome (one of
+// two sets by the info phase's parity), sorts the 2M candidates over the
+// cluster, and takes the parent's words and σ row (through DSMEM; at two
+// paths a thread σ is in global scratch, `sigma_g`, and the row comes from
+// L2).  A phase that read another path's row through σ ends with a split
+// cluster barrier, waited for before the next phase's passes.  The final
+// rank is the cluster sort of the M keys (metric, m); the thread of path m
+// takes the key of rank m, and the selected rank, the least of those whose
+// path passes the CRC, is an atomicMin on rank 0's shared word through
+// DSMEM.  It computes what scl_decode_kernel computes.
+template <bool LIST, int PPT>
+__device__ __forceinline__ void scl_cluster_decode(
     const float* __restrict__ llr, const int8_t* __restrict__ forced,
     const uint32_t* __restrict__ hcols, const int* __restrict__ sched,
     float* glob_llr,    // [B, M, N-(N>>G)]: LLR levels 1..G, null when G == 0
@@ -1045,7 +1063,10 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_kernel(
     uint16_t* trace_idx,  // [B, K, M]
     int8_t* __restrict__ out_bits, float* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,
     int8_t* __restrict__ list_bits, float* __restrict__ list_llrs, float* __restrict__ list_metrics,
-    int* __restrict__ list_best, int N, int n, int K, int M, int G, int use_crc) {
+    int* __restrict__ list_best, int N, int n, int K, int M, int G, int use_crc,
+    uint16_t* sigma_g) {  // [B, 2, M, row]: σ's two tables at two paths a thread, else null
+  using Off = ClusterOff<PPT>;
+  constexpr int PATHS = CLUSTER_THREADS * PPT;  // paths a block
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1053,19 +1074,29 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_kernel(
   const int rank = (int)cluster.block_rank();
   const long long frame = blockIdx.x / C;
   const int tid = threadIdx.x;
-  const int base = rank * CLUSTER_THREADS;  // the block's first path
-  const int m = base + tid;                 // this thread's path
-  const int Mr = M - base < 0 ? 0 : M - base < CLUSTER_THREADS ? M - base : CLUSTER_THREADS;
-  const bool act = m < M;
+  const int base = rank * PATHS;  // the block's first path
+  int m[PPT];                     // this thread's paths
+  bool act[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    m[k] = base + k * CLUSTER_THREADS + tid;
+    act[k] = m[k] < M;
+  }
+  const int Mr = M - base < 0 ? 0 : M - base < PATHS ? M - base : PATHS;
   const int P = sort_keys(M);
 
-  const ClusterLayout lay = cluster_layout(N, n, G, 2);
+  const ClusterLayout lay = cluster_layout<PPT>(N, n, G, 2);
   const int SS = (N >> G) - 1;  // entries of a path's shared row: levels G+1..n
   const int SG = N - (N >> G);  // entries of a path's global row: levels 1..G
-  // σ after i forks: table i & 1 (the other is the next fork's target)
+  // σ after i forks: table i & 1 (the other is the next fork's target),
+  // from the block's first path's row
   auto sigma = [&](int i) {
-    return DeepSigma<uint16_t>{reinterpret_cast<uint16_t*>(smem + (i & 1) * lay.sig2), lay.sig_row / 2,
-                               lay.sig_row / 4};
+    if constexpr (PPT == 1)
+      return DeepSigma<uint16_t>{reinterpret_cast<uint16_t*>(smem + (i & 1) * lay.sig2), lay.sig_row / 2,
+                                 lay.sig_row / 4};
+    else
+      return DeepSigma<uint16_t>{sigma_g + ((frame * 2 + (i & 1)) * M + base) * (lay.sig_row / 2),
+                                 lay.sig_row / 2, lay.sig_row / 4};
   };
   unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem + lay.keys);
   float* Ls = reinterpret_cast<float*>(smem + lay.ls);
@@ -1082,14 +1113,21 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_kernel(
   // the published leaf and syndrome of set i (an info phase's parity)
   auto leafS = [&](int i) { return reinterpret_cast<float*>(smem + lay.words + i * lay.word_set); };
   auto synS = [&](int i) {
-    return reinterpret_cast<uint32_t*>(smem + lay.words + i * lay.word_set + 4 * CLUSTER_THREADS);
+    return reinterpret_cast<uint32_t*>(smem + lay.words + i * lay.word_set + 4 * PATHS);
   };
 
-  if (act) sigma(0).init(tid, m, 2 * n - 2);
-  if (m == 0) *selS = M;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k)
+    if (act[k]) sigma(0).init(k * CLUSTER_THREADS + tid, m[k], 2 * n - 2);
+  if (m[0] == 0) *selS = M;
   __syncthreads();
-  float pm = (m == 0) ? 0.f : SCL_BIG;  // metric of path m
-  uint32_t syn = 0;                      // CRC syndrome of path m
+  float pm[PPT];     // metric of path m[k]
+  uint32_t syn[PPT];  // CRC syndrome of path m[k]
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    pm[k] = (m[k] == 0) ? 0.f : SCL_BIG;
+    syn[k] = 0;
+  }
   int info_i = 0;
   bool pending = false;   // a split cluster barrier arrived at, not yet waited for
   int word = sched[0];
@@ -1106,7 +1144,9 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_kernel(
     }
     const int l0 = p == 0 ? 1 : gl;
     DeepSigma<uint16_t> sig = sigma(info_i);
-    if (act) sig.reset(tid, m, l0 - 1, n - 1, s_prev >= 2 ? n + s_prev - 3 : -1);
+#pragma unroll
+    for (int k = 0; k < PPT; ++k)
+      if (act[k]) sig.reset(k * CLUSTER_THREADS + tid, m[k], l0 - 1, n - 1, s_prev >= 2 ? n + s_prev - 3 : -1);
     // another block may still read the rows this phase rewrites
     if (pending) cluster_wait();
     pending = false;
@@ -1115,68 +1155,95 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_kernel(
     for (int l = l0; l < n; ++l) {
       const bool is_g = (p != 0) && (l == gl);
       const uint16_t* via = (is_g && l > 1 && (word >> 11 & 1)) ? sig.field(l - 2) : nullptr;
-      float* dst = l > G ? Ls + so(l) : Lg + base * SG + go(l);
-      const uint8_t* dbits = l > G ? Bs + so(l) : Bg + base * SG + go(l);
+      float* dst = l > G ? Ls + so(l) : Lg + (Off)base * SG + go(l);
+      const uint8_t* dbits = l > G ? Bs + so(l) : Bg + (Off)base * SG + go(l);
       const int ds = l > G ? SS : SG;
       if (l - 1 > G)
-        cluster_fg_pass<true>(dst, dbits, ds, Ls + so(l - 1), SS, via, sig.row, is_g, n - l, base, rank,
-                              Mr, tid);
+        cluster_fg_pass<true, PPT>(dst, dbits, ds, Ls + so(l - 1), SS, via, sig.row, is_g, n - l, base, rank,
+                                   Mr, tid);
       else
-        cluster_fg_pass<false>(dst, dbits, ds, l > 1 ? Lg + go(l - 1) : ch, l > 1 ? SG : 0, via, sig.row,
-                               is_g, n - l, base, rank, Mr, tid);
+        cluster_fg_pass<false, PPT>(dst, dbits, ds, l > 1 ? Lg + go(l - 1) : ch, l > 1 ? SG : 0, via, sig.row,
+                                    is_g, n - l, base, rank, Mr, tid);
       __syncthreads();
     }
     // the leaf (level n) from the parent row, level n−1
     const bool g_leaf = gl == n;
-    float leaf = 0.f;
-    if (act) {
-      const int r = (g_leaf && n > 1 && (word >> 11 & 1)) ? sig.get(tid, n - 2) : m;
-      float a, b;
-      if (n == 1) {
-        a = ch[0];
-        b = ch[1];
-      } else if (n - 1 > G) {
-        const float* row = cluster_row(Ls + so(n - 1), r, SS, rank);
-        a = row[0];
-        b = row[1];
-      } else {
-        const float* row = Lg + go(n - 1) + r * SG;
-        a = __ldcg(row);
-        b = __ldcg(row + 1);
+    float leaf[PPT];
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const int lm = k * CLUSTER_THREADS + tid;
+      leaf[k] = 0.f;
+      if (act[k]) {
+        const int r = (g_leaf && n > 1 && (word >> 11 & 1)) ? sig.get(lm, n - 2) : m[k];
+        float a, b;
+        if (n == 1) {
+          a = ch[0];
+          b = ch[1];
+        } else if (n - 1 > G) {
+          const float* row = cluster_row<PPT>(Ls + so(n - 1), r, SS, rank);
+          a = row[0];
+          b = row[1];
+        } else {
+          const float* row = Lg + go(n - 1) + (Off)r * SG;
+          a = __ldcg(row);
+          b = __ldcg(row + 1);
+        }
+        leaf[k] = g_leaf ? g_update(a, b, Bs[lm * SS + so(n)]) : f_minsum(a, b);
       }
-      leaf = g_leaf ? g_update(a, b, Bs[tid * SS + so(n)]) : f_minsum(a, b);
     }
 
     // ---- leaf decision: extend every path, or fork and keep the best M ----
-    int bit = 0;
+    int bit[PPT];
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) bit[k] = 0;
     if (is_frozen) {
-      if (act) pm = pm + softplus(-leaf);
+#pragma unroll
+      for (int k = 0; k < PPT; ++k)
+        if (act[k]) pm[k] = pm[k] + softplus(-leaf[k]);
     } else {
-      float c0 = pm + softplus(-leaf), c1 = pm + softplus(leaf);
-      if (fb == 1) c0 = SCL_BIG;
-      if (fb == 0) c1 = SCL_BIG;
       const int set = info_i & 1;
-      if (act) {
-        leafS(set)[tid] = leaf;
-        synS(set)[tid] = syn;
+      unsigned long long kk[2 * PPT];
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        float c0 = pm[k] + softplus(-leaf[k]), c1 = pm[k] + softplus(leaf[k]);
+        if (fb == 1) c0 = SCL_BIG;
+        if (fb == 0) c1 = SCL_BIG;
+        if (act[k]) {
+          leafS(set)[k * CLUSTER_THREADS + tid] = leaf[k];
+          synS(set)[k * CLUSTER_THREADS + tid] = syn[k];
+        }
+        kk[2 * k] = act[k] ? cand_key(c0, 2 * m[k]) : ~0ull;
+        kk[2 * k + 1] = act[k] ? cand_key(c1, 2 * m[k] + 1) : ~0ull;
       }
-      unsigned long long* sorted = cluster_sort_keys(keys, act ? cand_key(c0, 2 * m) : ~0ull,
-                                                     act ? cand_key(c1, 2 * m + 1) : ~0ull, P, rank,
-                                                     tid, info_i * cluster_exchanges(P));
+      unsigned long long* sorted =
+          cluster_sort<PPT>(keys, kk, P, rank, tid, info_i * cluster_exchanges<PPT>(P));
       // survivor m: the candidate of rank m, into trace slot m
-      int parent = 0;
-      if (act) {
-        const unsigned long long key = cluster_key(sorted, m);
-        const int w = key_index(key);
-        TI[info_i * M + m] = (uint16_t)w;
-        parent = w >> 1;
-        bit = w & 1;
-        pm = key_metric(key);
-        TL[info_i * M + m] = *path_entry(leafS(set), parent);
-        const uint32_t sp = *path_entry(synS(set), parent);
-        syn = bit ? sp ^ hc : sp;
+      int parent[PPT];
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        parent[k] = 0;
+        if (act[k]) {
+          const unsigned long long key = cluster_key<PPT>(sorted, m[k]);
+          const int w = key_index(key);
+          TI[(Off)info_i * M + m[k]] = (uint16_t)w;
+          parent[k] = w >> 1;
+          bit[k] = w & 1;
+          pm[k] = key_metric(key);
+          TL[(Off)info_i * M + m[k]] = *path_entry<PPT>(leafS(set), parent[k]);
+          const uint32_t sp = *path_entry<PPT>(synS(set), parent[k]);
+          syn[k] = bit[k] ? sp ^ hc : sp;
+        }
       }
-      cluster_sigma_fork(sig, sigma(info_i + 1).tab, tid, parent, act);  // σ ← σ[parent] on every level
+      // σ ← σ[parent] on every level
+      if constexpr (PPT == 1) {
+        cluster_sigma_fork(sig, sigma(info_i + 1).tab, tid, parent[0], act[0]);
+      } else {
+        uint16_t* next = sigma(info_i + 1).tab;
+#pragma unroll
+        for (int k = 0; k < PPT; ++k)
+          if (act[k]) global_sigma_fork(sig, next, k * CLUSTER_THREADS + tid, parent[k] - base);
+        __syncthreads();
+      }
       sig = sigma(++info_i);
     }
 
@@ -1184,26 +1251,30 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_kernel(
     const int s = word >> 5 & 31;
     if (s > 0) {
       const int cmask = word >> 11;  // bit l: level l's left bits through σ
-      if (act) {
-        uint8_t* cur = s > G ? Bs + tid * SS + so(s) : Bg + m * SG + go(s);
-        if (s == n) {
-          cur[0] = (uint8_t)bit;
-        } else {
-          const int r = (cmask >> n & 1) ? sig.get(tid, 2 * n - 3) : m;
-          const uint8_t left = *cluster_row(Bs + so(n), r, SS, rank);
-          cur[1] = (uint8_t)bit;
-          cur[0] = (uint8_t)(left ^ bit);
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        const int lm = k * CLUSTER_THREADS + tid;
+        if (act[k]) {
+          uint8_t* cur = s > G ? Bs + lm * SS + so(s) : Bg + (Off)m[k] * SG + go(s);
+          if (s == n) {
+            cur[0] = (uint8_t)bit[k];
+          } else {
+            const int r = (cmask >> n & 1) ? sig.get(lm, 2 * n - 3) : m[k];
+            const uint8_t left = *cluster_row<PPT>(Bs + so(n), r, SS, rank);
+            cur[1] = (uint8_t)bit[k];
+            cur[0] = (uint8_t)(left ^ bit[k]);
+          }
         }
       }
       __syncthreads();
-      uint8_t* st = s > G ? Bs + so(s) : Bg + base * SG + go(s);
+      uint8_t* st = s > G ? Bs + so(s) : Bg + (Off)base * SG + go(s);
       const int sts = s > G ? SS : SG;
       for (int lv = n - 1; lv > s; --lv) {
         const uint16_t* via = (cmask >> lv & 1) ? sig.field(n + lv - 3) : nullptr;
         if (lv > G)
-          cluster_chain_pass<true>(st, sts, Bs + so(lv), SS, via, sig.row, n - lv, base, rank, Mr, tid);
+          cluster_chain_pass<true, PPT>(st, sts, Bs + so(lv), SS, via, sig.row, n - lv, base, rank, Mr, tid);
         else
-          cluster_chain_pass<false>(st, sts, Bg + go(lv), SG, via, sig.row, n - lv, base, rank, Mr, tid);
+          cluster_chain_pass<false, PPT>(st, sts, Bg + go(lv), SG, via, sig.row, n - lv, base, rank, Mr, tid);
         __syncthreads();
       }
     }
@@ -1220,49 +1291,90 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_kernel(
 
   // ---- final stable sort of the list, CRC selection, backtrack ----
   uint32_t* passS = synS(info_i & 1);
-  if (act) passS[tid] = use_crc && syn == 0u && pm < SCL_BIG;  // path m passes
-  unsigned long long* sorted = cluster_sort_keys(keys, act ? cand_key(pm, m) : ~0ull, ~0ull, P, rank,
-                                                 tid, info_i * cluster_exchanges(P));
-  // thread r = m < M: the key (metric, path) of final rank r
-  const unsigned long long fkey = act ? cluster_key(sorted, m) : ~0ull;
-  const int path_r = act ? key_index(fkey) : 0;
-  if (act && *path_entry(passS, path_r)) atomicMin(cluster.map_shared_rank(selS, 0), m);
+  unsigned long long kk[2 * PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    if (act[k]) passS[k * CLUSTER_THREADS + tid] = use_crc && syn[k] == 0u && pm[k] < SCL_BIG;  // path m passes
+    kk[2 * k] = act[k] ? cand_key(pm[k], m[k]) : ~0ull;
+    kk[2 * k + 1] = ~0ull;
+  }
+  unsigned long long* sorted = cluster_sort<PPT>(keys, kk, P, rank, tid, info_i * cluster_exchanges<PPT>(P));
+  // the thread of path m < M: the key (metric, path) of final rank m
+  unsigned long long fkey[PPT];
+  int path_r[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    fkey[k] = act[k] ? cluster_key<PPT>(sorted, m[k]) : ~0ull;
+    path_r[k] = act[k] ? key_index(fkey[k]) : 0;
+    if (act[k] && *path_entry<PPT>(passS, path_r[k])) atomicMin(cluster.map_shared_rank(selS, 0), m[k]);
+  }
   cluster.sync();
   const int least = *cluster.map_shared_rank(selS, 0);
   const int sel_rank = least < M ? least : 0;
   if (LIST) {
-    if (act) {
-      const float mr = key_metric(fkey);
-      list_metrics[frame * M + m] = mr < SCL_BIG ? mr : __int_as_float(0x7f800000);
-      // the path of rank m into row m of the list, before the trace is rewritten
-      const long long o = (frame * M + m) * K;
-      int slot = path_r;
-      for (int i = K - 1; i >= 0; --i) {
-        const int w = __ldcg(TI + i * M + slot);
-        list_bits[o + i] = (int8_t)(w & 1);
-        list_llrs[o + i] = __ldcg(TL + i * M + slot);
-        slot = w >> 1;
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      if (act[k]) {
+        const float mr = key_metric(fkey[k]);
+        list_metrics[frame * M + m[k]] = mr < SCL_BIG ? mr : __int_as_float(0x7f800000);
+        // the path of rank m into row m of the list, before the trace is rewritten
+        const long long o = (frame * M + m[k]) * K;
+        int slot = path_r[k];
+        for (int i = K - 1; i >= 0; --i) {
+          const int w = __ldcg(TI + (Off)i * M + slot);
+          list_bits[o + i] = (int8_t)(w & 1);
+          list_llrs[o + i] = __ldcg(TL + (Off)i * M + slot);
+          slot = w >> 1;
+        }
       }
     }
-    if (m == 0) list_best[frame] = sel_rank;
+    if (m[0] == 0) list_best[frame] = sel_rank;
   }
   cluster.sync();  // every walk has read the trace, and rank 0's word is read
-  if (act && m == sel_rank) {
-    // the selected path's (slot << 1 | bit) into slot 0 of each trace row
-    int slot = path_r;
-    for (int i = K - 1; i >= 0; --i) {
-      const int w = __ldcg(TI + i * M + slot);
-      TI[i * M] = (uint16_t)((slot << 1) | (w & 1));
-      slot = w >> 1;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    if (act[k] && m[k] == sel_rank) {
+      // the selected path's (slot << 1 | bit) into slot 0 of each trace row
+      int slot = path_r[k];
+      for (int i = K - 1; i >= 0; --i) {
+        const int w = __ldcg(TI + (Off)i * M + slot);
+        TI[(Off)i * M] = (uint16_t)((slot << 1) | (w & 1));
+        slot = w >> 1;
+      }
+      out_pass[frame] = least < M ? 1 : 0;
     }
-    out_pass[frame] = least < M ? 1 : 0;
   }
   cluster.sync();
-  for (int i = m; i < K; i += C * CLUSTER_THREADS) {
-    const int r = __ldcg(TI + i * M);
+  for (int i = rank * CLUSTER_THREADS + tid; i < K; i += C * CLUSTER_THREADS) {
+    const int r = __ldcg(TI + (Off)i * M);
     out_bits[frame * K + i] = (int8_t)(r & 1);
-    out_llrs[frame * K + i] = __ldcg(TL + i * M + (r >> 1));
+    out_llrs[frame * K + i] = __ldcg(TL + (Off)i * M + (r >> 1));
   }
+}
+
+#define SCL_CLUSTER_PARAMS                                                                         \
+  const float* __restrict__ llr, const int8_t* __restrict__ forced,                                \
+      const uint32_t* __restrict__ hcols, const int* __restrict__ sched, float* glob_llr,          \
+      uint8_t* glob_bits, float* trace_llr, uint16_t* trace_idx, int8_t* __restrict__ out_bits,    \
+      float* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,                                \
+      int8_t* __restrict__ list_bits, float* __restrict__ list_llrs,                               \
+      float* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int K, int M,   \
+      int G, int use_crc
+#define SCL_CLUSTER_ARGS                                                                           \
+  llr, forced, hcols, sched, glob_llr, glob_bits, trace_llr, trace_idx, out_bits, out_llrs,        \
+      out_pass, list_bits, list_llrs, list_metrics, list_best, N, n, K, M, G, use_crc
+
+// M 1025..16384: one path a thread, σ in the blocks' shared memory
+template <bool LIST>
+__global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_kernel(SCL_CLUSTER_PARAMS) {
+  scl_cluster_decode<LIST, 1>(SCL_CLUSTER_ARGS, nullptr);
+}
+
+// M 16385..32768: two paths a thread on a cluster of 16, σ in global scratch
+template <bool LIST>
+__global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_pair_kernel(SCL_CLUSTER_PARAMS,
+                                                                           uint16_t* sigma_g) {
+  scl_cluster_decode<LIST, 2>(SCL_CLUSTER_ARGS, sigma_g);
 }
 
 // ---------------------------------------------------------------------------
@@ -1393,24 +1505,34 @@ int launch_deep(const Args& a, int M, void* trace_idx, cudaStream_t stream) {
                      : launch_deep_as<uint16_t, false, false>(a, M, ti, stream);
 }
 
-template <bool LIST>
-int launch_cluster_as(const Args& a, int M, uint16_t* trace_idx, cudaStream_t stream) {
-  const ClusterLayout lay = cluster_layout(a.N, a.n, a.G, 2);
+template <bool LIST, int PPT>
+int launch_cluster_as(const Args& a, int M, uint16_t* trace_idx, uint16_t* sigma, cudaStream_t stream) {
+  const ClusterLayout lay = cluster_layout<PPT>(a.N, a.n, a.G, 2);
   // levels 1..G in global scratch, G+1..n in each block's shared memory,
-  // one frame a cluster
-  if (!trace_idx || (a.G > 0 && (!a.glob_llr || !a.glob_bits)) || a.n > MAX_LEVELS || a.G < 0 ||
-      a.G >= a.n || lay.total != a.frame_bytes || a.frames_per_block != 1)
+  // one frame a cluster; at two paths a thread σ in global scratch
+  if (!trace_idx || (PPT == 2 && !sigma) || (a.G > 0 && (!a.glob_llr || !a.glob_bits)) || a.n > MAX_LEVELS ||
+      a.G < 0 || a.G >= a.n || lay.total != a.frame_bytes || a.frames_per_block != 1)
     return (int)cudaErrorInvalidValue;
-  return launch_cluster_kernel(scl_cluster_kernel<LIST>, a.B, M, lay.total, stream, a.llr, a.forced,
-                               a.hcols, a.sched, a.glob_llr, a.glob_bits, a.trace_llr, trace_idx,
-                               a.out_bits, a.out_llrs, a.out_pass, a.list_bits, a.list_llrs,
-                               a.list_metrics, a.list_best, a.N, a.n, a.K, M, a.G, a.use_crc);
+  if constexpr (PPT == 1)
+    return launch_cluster_kernel(scl_cluster_kernel<LIST>, a.B, M, lay.total, stream, a.llr, a.forced,
+                                 a.hcols, a.sched, a.glob_llr, a.glob_bits, a.trace_llr, trace_idx,
+                                 a.out_bits, a.out_llrs, a.out_pass, a.list_bits, a.list_llrs,
+                                 a.list_metrics, a.list_best, a.N, a.n, a.K, M, a.G, a.use_crc);
+  else
+    return launch_cluster_kernel(scl_cluster_pair_kernel<LIST>, a.B, M, lay.total, stream, a.llr, a.forced,
+                                 a.hcols, a.sched, a.glob_llr, a.glob_bits, a.trace_llr, trace_idx,
+                                 a.out_bits, a.out_llrs, a.out_pass, a.list_bits, a.list_llrs,
+                                 a.list_metrics, a.list_best, a.N, a.n, a.K, M, a.G, a.use_crc, sigma);
 }
 
-int launch_cluster(const Args& a, int M, void* trace_idx, cudaStream_t stream) {
+int launch_cluster(const Args& a, int M, void* trace_idx, void* sigma, cudaStream_t stream) {
   uint16_t* ti = static_cast<uint16_t*>(trace_idx);
-  return a.list_bits ? launch_cluster_as<true>(a, M, ti, stream)
-                     : launch_cluster_as<false>(a, M, ti, stream);
+  uint16_t* sg = static_cast<uint16_t*>(sigma);
+  if (cluster_ppt(M) == 2)
+    return a.list_bits ? launch_cluster_as<true, 2>(a, M, ti, sg, stream)
+                       : launch_cluster_as<false, 2>(a, M, ti, sg, stream);
+  return a.list_bits ? launch_cluster_as<true, 1>(a, M, ti, sg, stream)
+                     : launch_cluster_as<false, 1>(a, M, ti, sg, stream);
 }
 
 // The frames a block (1..MAX_FRAMES_PER_BLOCK) that let an SM hold the most
@@ -1442,7 +1564,7 @@ int plan(Kern kernel, int frame_bytes, int max_block_smem, int* frames_per_block
 
 extern "C" int scl_decode_launch(const void* llr, const void* forced, const void* hcols,
                                  const void* sched, void* glob_llr, void* glob_bits,
-                                 void* trace_llr, void* trace_idx, void* out_bits, void* out_llrs,
+                                 void* trace_llr, void* trace_idx, void* sigma, void* out_bits, void* out_llrs,
                                  void* out_pass, void* list_bits, void* list_llrs,
                                  void* list_metrics, void* list_best, int B, int N, int n, int K,
                                  int M, int G, int use_crc, int frame_bytes, int frames_per_block,
@@ -1465,7 +1587,7 @@ extern "C" int scl_decode_launch(const void* llr, const void* forced, const void
     }
 #endif
   if (M < 1 || M > CLUSTER_MAX_M) return (int)cudaErrorInvalidValue;
-  if (M > DEEP_MAX_M) return launch_cluster(a, M, trace_idx, st);
+  if (M > DEEP_MAX_M) return launch_cluster(a, M, trace_idx, sigma, st);
   if (M >= DEEP_MIN_M) return launch_deep(a, M, trace_idx, st);
 #if SCL_LEAST_PATH_WIDTH <= 4
   if (M <= 4) return launch_path<4>(a, M, trace_idx, st);
@@ -1490,7 +1612,9 @@ extern "C" int scl_launch_plan(int M, int n, int frame_bytes, int max_block_smem
   if (M < 1 || M > CLUSTER_MAX_M) return (int)cudaErrorInvalidValue;
   if (M > DEEP_MAX_M) {  // frames_per_sm: the frames (clusters) the card runs at once
     *frames_per_block = 1;
-    return plan_cluster(scl_cluster_kernel<false>, M, frame_bytes, max_block_smem, frames_per_sm);
+    return cluster_ppt(M) == 2
+               ? plan_cluster(scl_cluster_pair_kernel<false>, M, frame_bytes, max_block_smem, frames_per_sm)
+               : plan_cluster(scl_cluster_kernel<false>, M, frame_bytes, max_block_smem, frames_per_sm);
   }
   if (M > 128)
     return deep_wide<uint16_t>(n)

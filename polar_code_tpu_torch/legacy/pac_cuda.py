@@ -14,7 +14,7 @@ instantiation writes them (the systematic scalar decoder,
 
 On a CUDA tensor it launches the kernel, or raises for a shape the kernel
 does not take; it runs the plain version (`legacy/pac.py`) only for a tensor
-on the CPU.  The kernel takes every list size from 1 to 16384 (the TPU
+on the CPU.  The kernel takes every list size from 1 to 32768 (the TPU
 kernel took power-of-two L <= 8 and N up to 8192, and the JAX package's XLA
 decoder takes the rest), N up to 65536 (the phase words' limit), and any
 batch size: the last block is masked, since the adaptive second stage
@@ -22,17 +22,19 @@ re-decodes a ragged set of failed frames.  Up to L=32 one path is a lane of
 a warp (past N=8192 at L 17..32 and 9..16, a wide twin with one more σ
 word); from 33 to 1024 a frame is spread over the warps of a block, one
 thread a path (the over-warps instantiation, with a wide twin for 16-bit
-σ rows past N=8192); from 1025 to 16384 over a thread-block cluster of
+σ rows past N=8192); from 1025 to 32768 over a thread-block cluster of
 `ops/scl_cuda.py::cluster_blocks(L)` blocks of 1024 threads, one thread a
-path (the cluster instantiation; 16 blocks past L=8192, a non-portable
-cluster size).  A batch goes, as the SCL kernel's, in
+path up to 16384 and two above (the cluster instantiations; 16 blocks past
+L=8192, a non-portable cluster size; at two paths a thread σ in global
+scratch).  A batch goes, as the SCL kernel's, in
 launches whose global scratch fits the card's free memory
 (`ops/scl_cuda.py::alloc_scratch`).
 `pac_list_decode_cuda.launches` counts kernel launches,
 `pac_list_decode_cuda.list_launches` those of them that went to a list
 instantiation, `pac_list_decode_cuda.deep_launches` those that went to an
-over-warps one and `pac_list_decode_cuda.cluster_launches` those that went
-to a cluster one.
+over-warps one, `pac_list_decode_cuda.cluster_launches` those that went
+to a cluster one and `pac_list_decode_cuda.pair_launches` those of them at
+two paths a thread.
 
 The kernel's design (its source note has the whole of it): the TPU
 kernel's lazy clone — path m writes row m, per-level path-origin maps σ
@@ -70,15 +72,15 @@ import torch
 
 from .. import _build
 from ..ops.crc import check_matrix
-from ..ops.scl_cuda import (CLUSTER_MAX_BLOCKS, CLUSTER_THREADS, DEEP_MAX_M, MAX_BLOCK_SMEM, MAX_N,
-                             PATH_MAX_M, SIGMA_FIELDS, alloc_scratch, card_free_bytes,
-                             cluster_block_bytes, cluster_blocks, deep_frame_bytes, path_trace_row, row_ptr,
-                             smallest_global_levels, trace_entry_bytes)
+from ..ops.scl_cuda import (CLUSTER_MAX_BLOCKS, CLUSTER_PAIR_MIN_M, CLUSTER_THREADS, DEEP_MAX_M,
+                             MAX_BLOCK_SMEM, MAX_N, PATH_MAX_M, SIGMA_FIELDS, alloc_scratch, card_free_bytes,
+                             cluster_block_bytes, cluster_blocks, cluster_ppt, deep_frame_bytes, path_trace_row,
+                             row_ptr, sigma_bytes, smallest_global_levels, trace_entry_bytes)
 from ..ops.scl_schedule import phase_words
 from .pac import bitrev_perm, pac_list_decode_batch
 
 SOURCE = "pac_decode.cu"
-MAX_L = 16384  # one thread a path, a cluster of 16 blocks (a non-portable cluster size) at most
+MAX_L = 32768  # two paths a thread, a cluster of 16 blocks (a non-portable cluster size) at most
 DEEP_WORDS = 3  # published 32-bit values a path over warps: leaf, syndrome, shift register
 MAX_MEM = 31  # the shift register is a 32-bit mask
 TRACE_RING = 16  # trace rows a one-path-a-lane frame stages in shared memory (`pac_decode.cu`)
@@ -96,7 +98,7 @@ def frame_bytes(N: int, Kp: int, L: int, global_levels: int = 0) -> int:
     its blocks takes, `ops/scl_cuda.py::cluster_block_bytes`."""
 
     if L > DEEP_MAX_M:
-        return cluster_block_bytes(N, global_levels, DEEP_WORDS)
+        return cluster_block_bytes(N, global_levels, DEEP_WORDS, cluster_ppt(L))
     if L > PATH_MAX_M:
         return deep_frame_bytes(N, L, global_levels, DEEP_WORDS)
     row = (N >> global_levels) - 1
@@ -107,9 +109,10 @@ def scratch_bytes(B: int, N: int, Kp: int, L: int, global_levels: int) -> int:
     """Global scratch one launch allocates: the LLR and edge-bit rows of
     levels 1..G of every frame, and its trace: rows of round16(L) bytes one
     path a lane (none at L=1), Kp·L entries of `trace_entry_bytes(L)` over warps and on a
-    cluster."""
+    cluster; at two paths a thread of a cluster, σ's tables
+    (`ops/scl_cuda.py::sigma_bytes`)."""
 
-    return B * L * (N - (N >> global_levels)) * 5 + B * Kp * _trace_row(L)
+    return B * L * (N - (N >> global_levels)) * 5 + B * Kp * _trace_row(L) + sigma_bytes(B, N, L)
 
 
 def _trace_row(L: int) -> int:
@@ -129,8 +132,9 @@ def check_shape(N: int, Kp: int, L: int, gen, crc_len: int, dtype: torch.dtype) 
         raise ValueError(f"the PAC kernel decodes float32 LLRs, not {dtype}")
     if not 1 <= L <= MAX_L:
         raise ValueError(f"the PAC kernel supports list sizes 1..{MAX_L} (one frame a cluster of at "
-                         f"most {CLUSTER_MAX_BLOCKS} blocks of {CLUSTER_THREADS} threads, one thread a "
-                         f"path: {CLUSTER_MAX_BLOCKS} is the largest cluster an H100 places), not {L}")
+                         f"most {CLUSTER_MAX_BLOCKS} blocks of {CLUSTER_THREADS} threads, two paths a "
+                         f"thread at most: {CLUSTER_MAX_BLOCKS} is the largest cluster an H100 places), "
+                         f"not {L}")
     if N < 2 or N & (N - 1) or not 0 < Kp <= N:
         raise ValueError(f"invalid code shape N={N} Kp={Kp}")
     if N > MAX_N:
@@ -160,7 +164,7 @@ def check_shape(N: int, Kp: int, L: int, gen, crc_len: int, dtype: torch.dtype) 
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     lib.pac_decode_launch.argtypes = (
-        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_uint] * 2
+        [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_uint] * 2
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     )
     lib.pac_decode_launch.restype = ctypes.c_int
@@ -300,20 +304,22 @@ def _launch(llr, plan, full=False) -> dict:
                    best_index=torch.empty((B,), dtype=torch.int32, device=dev))
     if B > 0:
         # one allocation a launch: the LLR rows (float32) of levels 1..G,
-        # their edge bits, and the trace from a 16-byte boundary (none at L=1
-        # with G=0)
+        # their edge bits, the trace from a 16-byte boundary (none at L=1
+        # with G=0) and, at two paths a thread of a cluster, σ's tables
+        # from another
         def layout(frames):
             lvl = frames * L * (N - (N >> G))
             ti_at = (5 * lvl + 15) // 16 * 16
-            return lvl, ti_at, ti_at + frames * Kp * _trace_row(L)
+            sig_at = (ti_at + frames * Kp * _trace_row(L) + 15) // 16 * 16
+            return lvl, ti_at, sig_at, sig_at + sigma_bytes(frames, N, L)
 
         def scratch(frames):
-            total = layout(frames)[2]
+            total = layout(frames)[3]
             return torch.empty((total,), dtype=torch.uint8, device=dev) if total else None
 
         step, scratch = alloc_scratch(B, scratch_bytes(1, N, Kp, L, G), scratch, lambda: card_free_bytes(dev),
                                       f"the PAC kernel's global scratch at N={N} Kp={Kp} L={L}")
-        lvl, ti_at, _ = layout(step)
+        lvl, ti_at, sig_at, _ = layout(step)
         at = scratch.data_ptr() if scratch is not None else 0
         glob_llr, glob_bits = (at, at + 4 * lvl) if G else (None, None)
         batch = [llr, out["extracted"], out["crc_pass"]] + [out[f] for f in LIST_FIELDS[:4] if full]
@@ -324,7 +330,8 @@ def _launch(llr, plan, full=False) -> dict:
                 rows = [row_ptr(t, b0) for t in batch] if b0 else [t.data_ptr() for t in batch]
                 rc = lib.pac_decode_launch(
                     rows[0], hcols.data_ptr(), sched.data_ptr(), phase_of.data_ptr(), glob_llr,
-                    glob_bits, at + ti_at, rows[1], rows[2], out_pos.data_ptr(), u_pos.data_ptr(),
+                    glob_bits, at + ti_at, at + sig_at if L >= CLUSTER_PAIR_MIN_M else None, rows[1], rows[2],
+                    out_pos.data_ptr(), u_pos.data_ptr(),
                     *(rows[3:] if full else (None,) * 4),
                     min(step, B - b0), N, int(math.log2(N)), Kp, L, G, mem_mask, tap_mask, use_crc,
                     fbytes, fpb, stream,
@@ -337,6 +344,7 @@ def _launch(llr, plan, full=False) -> dict:
                     pac_list_decode_cuda.list_launches += 1
                 if L > DEEP_MAX_M:
                     pac_list_decode_cuda.cluster_launches += 1
+                    pac_list_decode_cuda.pair_launches += L >= CLUSTER_PAIR_MIN_M
                 elif L > PATH_MAX_M:
                     pac_list_decode_cuda.deep_launches += 1
     if full:
@@ -349,6 +357,7 @@ pac_list_decode_cuda.launches = 0
 pac_list_decode_cuda.list_launches = 0  # of them, launches of a list instantiation
 pac_list_decode_cuda.deep_launches = 0  # of them, launches of an over-warps instantiation
 pac_list_decode_cuda.cluster_launches = 0  # of them, launches of a cluster instantiation
+pac_list_decode_cuda.pair_launches = 0  # of those, launches at two paths a thread (L > 16384)
 
 
 __all__ = ["pac_list_decode_cuda", "check_shape", "frame_bytes", "scratch_bytes", "host_tables",

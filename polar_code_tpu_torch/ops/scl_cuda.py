@@ -17,10 +17,11 @@ the CPU.  Any batch size is taken: the last block is masked, since the retry
 batches after compaction are data-dependent.  `decode_scl_cuda.launches`
 counts kernel launches, `decode_scl_cuda.path_launches` those of them that
 went to the by-path instantiation, `decode_scl_cuda.deep_launches` those
-that went to the over-warps one and `decode_scl_cuda.cluster_launches`
-those that went to the cluster one.
+that went to the over-warps one, `decode_scl_cuda.cluster_launches`
+those that went to a cluster one and `decode_scl_cuda.pair_launches` those
+of them at two paths a thread.
 
-The kernel takes every list size M from 1 to 16384 (the JAX package's XLA
+The kernel takes every list size M from 1 to 32768 (the JAX package's XLA
 decoder takes any M; its TPU kernel power-of-two M <= 8) and N up to 65536
 (the TPU kernel's N envelope is 8192; the JAX package sends longer codes to
 its XLA decoder, and the kernel's phase words stop at 65536).  M ∈ {1, 2,
@@ -28,16 +29,18 @@ its XLA decoder, and the kernel's phase words stop at 65536).  M ∈ {1, 2,
 N=8192; above, M=1 alone, `byte_words`); M up to 32 to the by-path
 instantiation of M rounded up to a power of two (`path_width`), one path a
 lane of a warp; M from 33 to 1024 to the over-warps instantiation, one
-frame a block and one thread a path; M from 1025 to 16384 to the cluster
-instantiation, one frame a thread-block cluster of `cluster_blocks(M)`
-blocks of 1024 threads, one thread a path: 2, 4 or 8 blocks up to M=8192
-(8 is the portable cluster size) and 16 above, a non-portable size that
-the source allows on the kernel (the source note has the four layouts).
+frame a block and one thread a path; M from 1025 to 32768 to the cluster
+instantiations, one frame a thread-block cluster of `cluster_blocks(M)`
+blocks of 1024 threads: 2, 4 or 8 blocks up to M=8192 (8 is the portable
+cluster size) and 16 above, a non-portable size that the source allows on
+the kernel and the largest an H100 places, one thread a path up to
+M=16384 and two above (`cluster_ppt`, the pair instantiation, with σ in
+global scratch; the source note has the layouts).
 Past N=8192 the by-path widths 16 and 32 and the over-warps 16-bit
 instantiation have wide twins whose σ holds 2n − 2 = 30 fields.  A
 shape whose frame fits no block even with every level but the leaf in
 global scratch (`check_shape`) raises.  A batch whose global scratch
-(`scratch_bytes`: 8.6 GB a frame at P(65536,32768) M=16384, G=13) cannot be
+(`scratch_bytes`: 17.2 GB a frame at P(65536,32768) M=32768, G=13) cannot be
 allocated goes, in every layout, in launches that fit nine tenths of the
 card's free memory (`alloc_scratch`, `split_batch`), one launch counted
 each; a frame that alone overfills it raises with its bytes named.  The
@@ -53,7 +56,8 @@ global scratch, written once an info phase and read at the end, so that a
 frame's shared memory goes to tree levels (and over warps to the σ table
 and the sort keys, `deep_frame_bytes`; on a cluster a block's shared
 memory holds σ, sort keys, published words and levels G+1..n of its 1024
-paths, `cluster_block_bytes`).  `launch_plan` asks the CUDA occupancy
+paths, `cluster_block_bytes`; at two paths a thread σ goes to global
+scratch, `sigma_row`).  `launch_plan` asks the CUDA occupancy
 calculator for the smallest G at which an SM holds a number of frames
 (`smallest_global_levels`, which the PAC kernel's wrapper shares), and for
 the frames a block that hold the most: `FRAMES_PER_SM_TARGET` in the
@@ -78,11 +82,14 @@ from .scl import decode_scl_batch
 from .scl_schedule import phase_words
 
 SOURCE = "scl_decode.cu"
-MAX_M = 16384  # one thread a path, a cluster of 16 blocks (a non-portable cluster size) at most
+MAX_M = 32768  # two paths a thread, a cluster of 16 blocks (a non-portable cluster size) at most
 SUPPORTED_M = tuple(range(1, MAX_M + 1))
 DEEP_MAX_M = 1024  # the largest list size over the warps of one block; above, a cluster
 CLUSTER_THREADS = 1024  # threads a block of a cluster frame (`list_decode.cuh`)
 CLUSTER_MAX_BLOCKS = 16  # past 8, the portable cluster size (M > 8192), a non-portable size
+# the smallest list size at two paths a thread of a cluster (`cluster_ppt`
+# in `csrc/list_decode.cuh`)
+CLUSTER_PAIR_MIN_M = CLUSTER_THREADS * CLUSTER_MAX_BLOCKS + 1
 # the largest list size decoded one path a lane of a warp; above it a frame
 # is spread over the warps of a block of M rounded up to a power of two
 # threads (`DEEP_MIN_M` and `deep_threads` in `csrc/list_decode.cuh`)
@@ -148,39 +155,57 @@ def deep_frame_bytes(N: int, M: int, global_levels: int, words: int = 2) -> int:
             + words * _round16(4 * M) + _round16(M * row) + 16)
 
 
-def cluster_blocks(M: int) -> int:
-    """Blocks of a cluster frame (M 1025..16384): M rounded up to a power
-    of two, over 1024 (`cluster_blocks` in `csrc/list_decode.cuh`)."""
+def cluster_ppt(M: int) -> int:
+    """Paths a thread of a cluster frame: one up to M=16384, two above
+    (`cluster_ppt` in `csrc/list_decode.cuh`)."""
 
-    return sort_keys(M) // 2 // CLUSTER_THREADS
+    return 2 if M >= CLUSTER_PAIR_MIN_M else 1
+
+
+def cluster_blocks(M: int) -> int:
+    """Blocks of a cluster frame (M 1025..32768): M rounded up to a power
+    of two, over the 1024 · `cluster_ppt(M)` paths of a block
+    (`cluster_blocks` in `csrc/list_decode.cuh`)."""
+
+    return sort_keys(M) // 2 // CLUSTER_THREADS // cluster_ppt(M)
 
 
 def cluster_exchanges(P: int) -> int:
     """Cluster barriers one sort of P keys on a cluster takes
     (`cluster_exchanges` in `csrc/list_decode.cuh`): one a cross-block stage
-    (distance 2048 or more in each merge of 4096 keys or more: 1, 3, 6, 10
-    at P = 4096, 8192, 16384, 32768) and one for the sorted keys."""
+    (distance of a block's keys or more, 2048 up to P = 32768 and 4096 at
+    65536, in each merge of twice that or more: 1, 3, 6, 10 at P = 4096,
+    8192, 16384, 32768, and 10 at 65536) and one for the sorted keys."""
 
-    return 1 + sum(s - 11 for s in range(12, P.bit_length()))
+    block = (2 * CLUSTER_THREADS * cluster_ppt(P // 2)).bit_length() - 1  # log2 of a block's keys
+    return 1 + sum(s - block for s in range(block + 1, P.bit_length()))
 
 
-def cluster_block_bytes(N: int, global_levels: int, words: int = 2) -> int:
-    """Shared memory each block of a cluster frame takes (`cluster_layout`
-    in `csrc/list_decode.cuh`), each region rounded to 16 bytes: two σ
-    tables of its 1024 paths (2n−2 16-bit fields a path, a row rounded to
-    4 bytes; a fork copies from one into the other), three buffers of 2048
-    sort keys of 8 bytes (two a cross-block stage's exchange, in turns, and
-    one for the stages within the block), two sets (an info phase's parity)
-    of `words` published 32-bit values a path (SCL 2, PAC 3), the LLR rows
-    (float32) and partial-sum rows (bytes) of levels global_levels+1..n of
-    its 1024 paths, and the selected rank."""
+def sigma_row(N: int) -> int:
+    """Bytes of a path's σ row on a cluster: 2n − 2 16-bit fields, rounded
+    to 4 bytes."""
 
     n = int(math.log2(N))
-    sig_row = max(4, ((2 * n - 2) * 2 + 3) // 4 * 4)
+    return max(4, ((2 * n - 2) * 2 + 3) // 4 * 4)
+
+
+def cluster_block_bytes(N: int, global_levels: int, words: int = 2, ppt: int = 1) -> int:
+    """Shared memory each block of a cluster frame takes (`cluster_layout`
+    in `csrc/list_decode.cuh`) at `ppt` paths a thread, so 1024 · ppt paths
+    a block, each region rounded to 16 bytes: at one path a thread two σ
+    tables of its paths (`sigma_row` bytes a path; a fork copies from one
+    into the other; at two they are in global scratch), three buffers of
+    2048 · ppt sort keys of 8 bytes (two a cross-block stage's exchange, in
+    turns, and one for the stages within the block), two sets (an info
+    phase's parity) of `words` published 32-bit values a path (SCL 2, PAC
+    3), the LLR rows (float32) and partial-sum rows (bytes) of levels
+    global_levels+1..n of its paths, and the selected rank."""
+
+    paths = CLUSTER_THREADS * ppt
     row = (N >> global_levels) - 1
-    return (2 * _round16(CLUSTER_THREADS * sig_row) + 3 * 8 * 2 * CLUSTER_THREADS
-            + 2 * words * 4 * CLUSTER_THREADS + _round16(4 * CLUSTER_THREADS * row)
-            + _round16(CLUSTER_THREADS * row) + 16)
+    sigma = 2 * _round16(CLUSTER_THREADS * sigma_row(N)) if ppt == 1 else 0
+    return (sigma + 3 * 8 * 2 * paths + 2 * words * 4 * paths + _round16(4 * paths * row)
+            + _round16(paths * row) + 16)
 
 
 def alloc_scratch(B: int, frame_scratch: int, alloc, free, what: str) -> tuple:
@@ -252,7 +277,7 @@ def frame_bytes(N: int, K: int, M: int, global_levels: int = 0) -> int:
     blocks takes, `cluster_block_bytes`."""
 
     if M > DEEP_MAX_M:
-        return cluster_block_bytes(N, global_levels)
+        return cluster_block_bytes(N, global_levels, 2, cluster_ppt(M))
     if M > PATH_MAX_M:
         return deep_frame_bytes(N, M, global_levels)
     row = (N >> global_levels) - 1
@@ -267,14 +292,21 @@ def path_width(M: int) -> int:
     return max(8, 1 << (M - 1).bit_length())
 
 
+def sigma_bytes(B: int, N: int, M: int) -> int:
+    """Global scratch of σ's two tables at two paths a thread of a cluster
+    (M > 16384; none below, where σ is in the blocks' shared memory)."""
+
+    return B * 2 * M * sigma_row(N) if M >= CLUSTER_PAIR_MIN_M else 0
+
+
 def scratch_bytes(B: int, N: int, K: int, M: int, global_levels: int) -> int:
     """Global scratch one launch allocates: the LLR and partial-sum rows of
-    levels 1..G and the trace LLRs of every frame, and by path, over warps
-    and on a cluster the trace indices."""
+    levels 1..G and the trace LLRs of every frame, by path, over warps and
+    on a cluster the trace indices, and at two paths a thread σ's tables."""
 
     ti = (B * K * M * trace_entry_bytes(M) if M > PATH_MAX_M
           else B * K * path_trace_row(M) if path_layout(M, N) else 0)
-    return B * M * (N - (N >> global_levels)) * 5 + B * K * M * 4 + ti
+    return B * M * (N - (N >> global_levels)) * 5 + B * K * M * 4 + ti + sigma_bytes(B, N, M)
 
 
 def check_shape(N: int, K: int, M: int, crc: Optional[str], dtype: torch.dtype) -> None:
@@ -284,8 +316,9 @@ def check_shape(N: int, K: int, M: int, crc: Optional[str], dtype: torch.dtype) 
         raise ValueError(f"the SCL kernel decodes float32 LLRs, not {dtype}")
     if not 1 <= M <= MAX_M:
         raise ValueError(f"the SCL kernel supports list sizes 1..{MAX_M} (one frame a cluster of at "
-                         f"most {CLUSTER_MAX_BLOCKS} blocks of {CLUSTER_THREADS} threads, one thread a "
-                         f"path: {CLUSTER_MAX_BLOCKS} is the largest cluster an H100 places), not {M}")
+                         f"most {CLUSTER_MAX_BLOCKS} blocks of {CLUSTER_THREADS} threads, two paths a "
+                         f"thread at most: {CLUSTER_MAX_BLOCKS} is the largest cluster an H100 places), "
+                         f"not {M}")
     if N < 2 or N & (N - 1) or not 0 < K <= N:
         raise ValueError(f"invalid code shape N={N} K={K}")
     if N > MAX_N:
@@ -309,7 +342,7 @@ def _library(defines: tuple = ()) -> ctypes.CDLL:
     `tools/time_scl_layouts.py` (the source's dispatch note)."""
 
     lib = _build.load(SOURCE, defines)
-    lib.scl_decode_launch.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.scl_decode_launch.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.scl_decode_launch.restype = ctypes.c_int
     lib.scl_launch_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
     lib.scl_launch_plan.restype = ctypes.c_int
@@ -378,10 +411,10 @@ def launch_plan(N: int, K: int, M: int, B: int) -> tuple:
     1024): (G, 1, the frames the card runs at once, by
     `cudaOccupancyMaxActiveClusters`), G the smallest at which the card runs
     as many frames at once as with every level but the leaf in global
-    scratch (the most shared memory a block's 1024 paths can take); it
-    raises where the card places no cluster (past M=8192 a cluster of 16
-    blocks, which the kernel allows as a non-portable size: a card whose
-    GPCs hold fewer than 16 free SMs places none).  The occupancy (`_occupancy`)
+    scratch (the most shared memory a block's paths can take); it raises
+    where the card places no cluster (past M=8192 a cluster of 16 blocks,
+    which the kernel allows as a non-portable size: a card whose GPCs hold
+    fewer than 16 free SMs places none).  The occupancy (`_occupancy`)
     is cached by shape alone: the cards of one host are taken to be of one
     kind."""
 
@@ -494,9 +527,11 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
                     torch.empty((frames, K, M), dtype=torch.float32, device=dev),
                     (torch.empty((frames, K, M), dtype=ti_dtype, device=dev) if M > PATH_MAX_M
                      else torch.empty((frames, K, path_trace_row(M)), dtype=torch.uint8, device=dev)
-                     if path_layout(M, N) else None))
+                     if path_layout(M, N) else None),
+                    (torch.empty((sigma_bytes(frames, N, M),), dtype=torch.uint8, device=dev)
+                     if M >= CLUSTER_PAIR_MIN_M else None))
 
-        step, (glob_llr, glob_bits, trace_llr, trace_idx) = alloc_scratch(
+        step, (glob_llr, glob_bits, trace_llr, trace_idx, sigma) = alloc_scratch(
             B, scratch_bytes(1, N, K, M, G), scratch, lambda: card_free_bytes(dev),
             f"the SCL kernel's global scratch at N={N} K={K} M={M}")
         lib = _library()
@@ -510,6 +545,7 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
                     hcols.data_ptr(), sched.data_ptr(),
                     glob_llr.data_ptr() if G else None, glob_bits.data_ptr() if G else None,
                     trace_llr.data_ptr(), trace_idx.data_ptr() if trace_idx is not None else None,
+                    sigma.data_ptr() if sigma is not None else None,
                     *(row_ptr(out[f], b0) for f in BEST_FIELDS), *lists,
                     min(step, B - b0), N, int(math.log2(N)), K, M, G, int(crc is not None),
                     frame_bytes(N, K, M, G), fpb, stream,
@@ -519,6 +555,7 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
             decode_scl_cuda.launches += 1
             if M > DEEP_MAX_M:
                 decode_scl_cuda.cluster_launches += 1
+                decode_scl_cuda.pair_launches += M >= CLUSTER_PAIR_MIN_M
             elif M > PATH_MAX_M:
                 decode_scl_cuda.deep_launches += 1
             elif path_layout(M, N):
@@ -531,12 +568,15 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
 decode_scl_cuda.launches = 0
 decode_scl_cuda.path_launches = 0  # of them, launches of the by-path instantiation
 decode_scl_cuda.deep_launches = 0  # of them, launches of the over-warps instantiation
-decode_scl_cuda.cluster_launches = 0  # of them, launches of the cluster instantiation
+decode_scl_cuda.cluster_launches = 0  # of them, launches of a cluster instantiation
+decode_scl_cuda.pair_launches = 0  # of those, launches at two paths a thread (M > 16384)
 
 
 __all__ = ["decode_scl_cuda", "check_shape", "frame_bytes", "deep_frame_bytes", "sort_keys",
-           "cluster_blocks", "cluster_exchanges", "cluster_block_bytes", "split_batch", "alloc_scratch",
+           "cluster_blocks", "cluster_ppt", "cluster_exchanges", "cluster_block_bytes", "sigma_row",
+           "sigma_bytes", "split_batch", "alloc_scratch",
            "trace_entry_bytes", "launch_plan", "smallest_global_levels", "path_width",
            "byte_words", "path_layout", "path_trace_row", "path_target", "scratch_bytes",
            "SUPPORTED_M", "BYTE_WORD_M", "BYTE_WORD_MAX_N", "MAX_M", "PATH_MAX_M", "DEEP_MAX_M",
+           "CLUSTER_PAIR_MIN_M",
            "MAX_N", "SIGMA_FIELDS", "NARROW_SIGMA_FIELDS"]

@@ -16,14 +16,15 @@ global scratch, so it takes PAC(8192, Kp) at every Kp.  On the CPU:
 * the planning: `cluster_blocks`, the bytes a block of a cluster takes at
   every G, the plan's G at N 16..8192 (a stand-in occupancy calculator),
   `scratch_bytes`, `split_batch`, `check_shape` over M and L 1025..8192
-  at N 128..65536 and raising at 16385 and at N=131072, and K3's one-lane
+  at N 128..65536 and raising at 32769 and at N=131072, and K3's one-lane
   frame without the trace;
 * a model of the cluster sort (`cluster_sort_keys` in
   `csrc/list_decode.cuh`: the stages across blocks through two exchange
   buffers in turns, one cluster barrier each, then those within the block
   through a third buffer and the free exchange one, one block barrier
   each) against the stable sort at P = 4096, 8192, 16384 and 32768 keys
-  (clusters of 2 to 16 blocks), with its stage and barrier counts, the
+  (clusters of 2 to 16 blocks), and at 65536 (16 blocks of 4096 keys, four
+  a thread: `cluster_sort_keys4`), with its stage and barrier counts, the
   buffers' races tracked across three sorts in a row, and the final rank
   by the same sort;
 * a model of the phase barriers over the schedule words at N 16..65536:
@@ -230,12 +231,12 @@ def test_check_shape_takes_lists_up_to_8192():
     for M in range(1025, 8193, 127):
         scl_cuda.check_shape(128, 64, M, None, torch.float32)
         pac_cuda.check_shape(128, 80, M, GEN, 16, torch.float32)
-    # 8193..16384 go to a cluster of 16 blocks (`tests/test_torch_list_16k.py`);
-    # the first size refused is 16385
-    with pytest.raises(ValueError, match="1..16384 .*cluster"):
-        scl_cuda.check_shape(128, 64, 16385, CRC, torch.float32)
-    with pytest.raises(ValueError, match="1..16384 .*cluster"):
-        pac_cuda.check_shape(128, 80, 16385, GEN, 16, torch.float32)
+    # 8193..32768 go to a cluster of 16 blocks (`tests/test_torch_list_16k.py`,
+    # `tests/test_torch_list_32k.py`); the first size refused is 32769
+    with pytest.raises(ValueError, match="1..32768 .*cluster"):
+        scl_cuda.check_shape(128, 64, 32769, CRC, torch.float32)
+    with pytest.raises(ValueError, match="1..32768 .*cluster"):
+        pac_cuda.check_shape(128, 80, 32769, GEN, 16, torch.float32)
     for N in (16384, 32768, 65536):  # past the TPU kernel's N=8192
         scl_cuda.check_shape(N, N // 2, 2048, CRC, torch.float32)
         pac_cuda.check_shape(N, N // 2 + 16, 2048, GEN, 16, torch.float32)
@@ -275,7 +276,8 @@ def _key_metric(keys):
 
 
 class _Buffers:
-    """The three key buffers of each block of a cluster (X0, X1, Y), kept
+    """The three key buffers of each block of a cluster (X0, X1, Y) of
+    `entries` keys each (2048 at one path a thread, 4096 at two), kept
     across sorts as the kernel keeps them, with the hazards tracked at a
     buffer's grain: every entry is tagged with the stage that stored it (a
     read of another stage's entry reads a wrong key), and a buffer read by
@@ -283,18 +285,20 @@ class _Buffers:
     another block until the next cluster barrier.  Storing to a busy buffer
     is a race."""
 
-    def __init__(self, C):
-        self.val = np.zeros((C, 3, 2048), np.uint64)
-        self.tag = np.full((C, 3, 2048), -1)
+    def __init__(self, C, entries=2048):
+        self.val = np.zeros((C, 3, entries), np.uint64)
+        self.tag = np.full((C, 3, entries), -1)
         self.own = np.zeros((C, 3), bool)
         self.other = np.zeros((C, 3), bool)
         self.stage = 0
         self.barriers = {"cluster": 0, "block": 0}
 
-    def store(self, blocks, b, lbase, k):
+    def store(self, blocks, b, at, k):
+        """Each thread's keys k[:, i] at its entries at[:, i] of buffer b."""
+
         assert not self.own[blocks, b].any() and not self.other[blocks, b].any(), "a store races a read"
-        self.val[blocks, b, lbase], self.val[blocks, b, lbase + 1] = k[:, 0], k[:, 1]
-        self.tag[blocks, b, lbase] = self.tag[blocks, b, lbase + 1] = self.stage
+        self.val[blocks[:, None], b, at] = k
+        self.tag[blocks[:, None], b, at] = self.stage
 
     def read(self, reader, blocks, b, at):
         assert np.all(self.tag[blocks, b, at] == self.stage), "a read of a key no thread stored this stage"
@@ -309,30 +313,36 @@ class _Buffers:
             self.other[:] = False
 
 
-def _cluster_sort(k0, k1, bufs=None, xc=0):
-    """`cluster_sort_keys` on a cluster of C = P/2048 blocks of 1024 threads:
-    global thread g = 1024·r + t holds keys 2g and 2g + 1 (k0[g], k1[g]).  A
-    stage of distance j >= 2048 stores each running thread's keys in its
+def _cluster_sort(keys, bufs=None, xc=0):
+    """`cluster_sort_keys` (q = 2 keys a thread, one path) and
+    `cluster_sort_keys4` (q = 4, two paths) on a cluster of C = P/(1024·q)
+    blocks of 1024 threads: global thread g = 1024·r + t holds the keys of
+    positions q·g + i in keys[g, i].  A block's buffers hold 1024·q keys,
+    thread t's at entries 2t, 2t + 1 (and 2048 + 2t, 2049 + 2t at q = 4).  A
+    stage of distance j >= 1024·q stores each running thread's keys in its
     block's exchange buffer X[xc & 1], one cluster barrier, and reads the
-    partner's from block r ^ j/2048 at the same place; xc then counts it.  A
-    stage of distance 64..1024 stores to the block's Y and X[xc & 1] in
-    turns (Y first after each cross-block stage), one block barrier, and
-    reads the partner's entry; below, shuffles and registers, as
-    `block_sort_keys`.  The upper half stops after the last merge's first
-    stage, and the lower half stores its keys to X[xc & 1] (xc counted)
-    behind a cluster barrier.  `bufs` (a `_Buffers`, fresh when None)
-    persists across calls as in the kernel.  Returns the keys of ranks
-    0..P/2−1 as the blocks store them (rank q in block q >> 11 at q & 2047),
-    the stages of each kind, the buffer of the sorted keys and xc."""
+    partner's from block r ^ j/(1024·q) at the same entries; xc then counts
+    it.  A stage of distance 32·q..512·q stores to the block's Y and
+    X[xc & 1] in turns (Y first after each cross-block stage), one block
+    barrier, and reads thread t ^ j/q's entries; below, shuffles with lane
+    t ^ j/q and, for the distances within a thread (1, and 2 at q = 4),
+    registers.  The upper half stops after the last merge's first stage,
+    and the lower half stores its keys in rank order to X[xc & 1] (xc
+    counted) behind a cluster barrier.  `bufs` (a `_Buffers`, fresh when
+    None) persists across calls as in the kernel.  Returns the keys of
+    ranks 0..P/2−1 as the blocks store them (rank u in block u // (1024·q)
+    at u % (1024·q)), the stages of each kind, the buffer of the sorted keys
+    and xc."""
 
-    T = k0.size
-    P = 2 * T
+    T, q = keys.shape
+    P, bk = q * T, 1024 * q
     C = T // 1024
-    assert C in (2, 4, 8, 16) and P == 2048 * C
-    bufs = bufs or _Buffers(C)
+    assert q in (2, 4) and C in (2, 4, 8, 16) and P == bk * C
+    bufs = bufs or _Buffers(C, bk)
     g = np.arange(T)
-    base, rank, lbase = 2 * g, g // 1024, 2 * (g % 1024)
-    k = np.stack([k0, k1], axis=1)
+    base, rank, t = q * g, g // 1024, g % 1024
+    entries = np.stack([2 * t, 2 * t + 1] + ([2048 + 2 * t, 2049 + 2 * t] if q == 4 else []), axis=1)
+    k = keys.copy()
     on = np.ones(T, bool)
     kinds = {"blocks": 0, "shared": 0, "shuffles": 0, "registers": 0}
 
@@ -340,77 +350,117 @@ def _cluster_sort(k0, k1, bufs=None, xc=0):
         keep_min = ((base & j) == 0)[:, None] == up
         return np.where(on[:, None] & ((o < k) == keep_min), o, k)
 
-    def read_pairs(b, src_rank, at):
+    def read_keys(b, src_rank, src_t):
         o = np.empty_like(k)
         for r in range(C):  # each block reads as a reader of its own
             mine = on & (rank == r)
             if mine.any():
-                o[mine, 0] = bufs.read(r, src_rank[mine], b, at[mine])
-                o[mine, 1] = bufs.read(r, src_rank[mine], b, at[mine] + 1)
+                for i in range(q):
+                    o[mine, i] = bufs.read(r, src_rank[mine], b, entries[src_t[mine], i])
         return np.where(on[:, None], o, k)
+
+    def order(a, b, up):  # keys a < b of each thread: the smaller to a when ascending
+        lo, hi = np.minimum(k[:, a], k[:, b]), np.maximum(k[:, a], k[:, b])
+        k[:, a], k[:, b] = np.where(on, np.where(up, lo, hi), k[:, a]), np.where(on, np.where(up, hi, lo), k[:, b])
 
     size, ib = 2, 0  # ib: in-block stages since the last cross-block one
     while size <= P:
         up = ((base & size) == 0)[:, None]
         j = size // 2
-        while j >= 64:
+        while j >= 32 * q:
             bufs.stage += 1
-            if j >= 2048:  # across blocks: block rank ^ j/2048, through DSMEM
+            if j >= bk:  # across blocks: block rank ^ j/bk, through DSMEM
                 kinds["blocks"] += 1
                 b = xc & 1
-                bufs.store(rank[on], b, lbase[on], k[on])
+                bufs.store(rank[on], b, entries[on], k[on])
                 bufs.barrier(cluster=True)
-                k = stage(read_pairs(b, rank ^ (j // 2048), lbase), j, up)
+                k = stage(read_keys(b, rank ^ (j // bk), t), j, up)
                 xc += 1
                 ib = 0
             else:
                 kinds["shared"] += 1
                 b = (xc & 1) if ib & 1 else 2
                 ib += 1
-                bufs.store(rank[on], b, lbase[on], k[on])
+                bufs.store(rank[on], b, entries[on], k[on])
                 bufs.barrier(cluster=False)
-                assert np.all((lbase ^ j) // 2048 == 0)
-                k = stage(read_pairs(b, rank, lbase ^ j), j, up)
+                assert np.all((t ^ (j // q)) < 1024)
+                k = stage(read_keys(b, rank, t ^ (j // q)), j, up)
             if size == P:
                 on &= base < P // 2
             j //= 2
-        for jj in (32, 16, 8, 4, 2):
+        for jj in (16 * q, 8 * q, 4 * q, 2 * q, q):
             if jj < size:
                 kinds["shuffles"] += 1
-                partner = g ^ (jj // 2)
+                partner = g ^ (jj // q)
                 assert np.array_equal(partner // 32, g // 32) and np.array_equal(on[partner], on)
                 k = stage(k[partner], jj, up)
-        kinds["registers"] += 1
-        swap = on & ((k[:, 0] > k[:, 1]) == up[:, 0])
-        k = np.where(swap[:, None], k[:, ::-1], k)
+        if q == 4 and size >= 4:  # distance 2, in registers
+            kinds["registers"] += 1
+            order(0, 2, up[:, 0])
+            order(1, 3, up[:, 0])
+        kinds["registers"] += 1  # distance 1
+        order(0, 1, up[:, 0])
+        if q == 4:  # at size 2 keys 2, 3 run down
+            order(2, 3, up[:, 0] if size > 2 else ~up[:, 0])
         size *= 2
     assert not on[T // 2:].any() and on[:T // 2].all()
     bufs.stage += 1
     sorted_b = xc & 1
-    bufs.store(rank[on], sorted_b, lbase[on], k[on])
+    rank_order = (q * t)[:, None] + np.arange(q)[None, :]  # the sorted keys' store: in rank order
+    bufs.store(rank[on], sorted_b, rank_order[on], k[on])
     bufs.barrier(cluster=True)
     return k[:T // 2].reshape(-1), kinds, sorted_b, xc + 1
 
 
-def _take_ranks(bufs, sorted_b, M):
-    """Thread m's read of the key of rank m (`cluster_key`): block m >> 11's
-    entry m & 2047 of the sorted buffer, through DSMEM."""
+def _take_ranks(bufs, sorted_b, M, q=2):
+    """The read by the thread of path m of the key of rank m (`cluster_key`):
+    block m // (1024·q)'s entry m % (1024·q) of the sorted buffer, through
+    DSMEM; the reader is the block of path m, m // (512·q)."""
 
-    q = np.arange(M)
-    owner, reader = q >> 11, q >> 10
+    u = np.arange(M)
+    owner, reader = u // (1024 * q), u // (512 * q)
     out = np.empty(M, np.uint64)
     for r in np.unique(reader):
         mine = reader == r
-        out[mine] = bufs.read(r, owner[mine], sorted_b, q[mine] & 2047)
+        out[mine] = bufs.read(r, owner[mine], sorted_b, u[mine] % (1024 * q))
     return out
 
 
-@pytest.mark.parametrize("P", [4096, 8192, 16384, 32768])
+def _path_threads(M):
+    """(the global thread, the key column) of each path m < M: one path a
+    thread, m itself; at two (M > 16384) path r·2048 + k·1024 + t on thread
+    r·1024 + t, its candidates in columns 2k and 2k + 1."""
+
+    m = np.arange(M)
+    if scl_cuda.cluster_ppt(M) == 1:
+        return m, np.zeros(M, np.int64)
+    return (m // 2048) * 1024 + m % 1024, 2 * ((m // 1024) % 2)
+
+
+def _fork_keys(M, good, bad, layout):
+    """The [T, q] keys of a fork's candidates as the threads hold them:
+    path m's two candidates (SCL 2m and 2m + 1, PAC good m and bad M + m)
+    in its thread's columns (`_path_threads`), pads elsewhere."""
+
+    P = scl_cuda.sort_keys(M)
+    q = 2 * scl_cuda.cluster_ppt(M)
+    keys = np.full((P // q, q), ONES)
+    m = np.arange(M, dtype=np.uint64)
+    idx0 = m * np.uint64(2) if layout == "scl" else m
+    idx1 = idx0 + np.uint64(1) if layout == "scl" else m + np.uint64(M)
+    thread, col = _path_threads(M)
+    keys[thread, col] = _key_word(good).astype(np.uint64) << np.uint64(32) | idx0
+    keys[thread, col + 1] = _key_word(bad).astype(np.uint64) << np.uint64(32) | idx1
+    return keys
+
+
+# one path a thread up to P = 32768 keys (2048 a block), two at 65536 (4096)
+@pytest.mark.parametrize("P", [4096, 8192, 16384, 32768, 65536])
 def test_cluster_sort_is_the_stable_sort(P):
-    M_values = {4096: (1025, 2048), 8192: (2049, 4096), 16384: (4097, 8192), 32768: (8193, 16384)}[P]
+    M_values = {4096: (1025, 2048), 8192: (2049, 4096), 16384: (4097, 8192), 32768: (8193, 16384),
+                65536: (16385, 32768)}[P]
     rng = np.random.default_rng(P)
     ties = np.array([0.0, -0.0, 0.5, 1.0, 1.5, 3e38, np.inf], np.float32)
-    T = P // 2
     for M in M_values:
         assert scl_cuda.sort_keys(M) == P
         for trial in range(2):
@@ -421,13 +471,8 @@ def test_cluster_sort_is_the_stable_sort(P):
                 good = ties[rng.integers(0, 7, M)]
                 bad = ties[rng.integers(0, 7, M)]
             for layout in ("scl", "pac"):
-                # thread m's two candidates: SCL 2m and 2m+1, PAC good m and bad M + m
-                idx0 = np.arange(M, dtype=np.uint64) * np.uint64(2 if layout == "scl" else 1)
-                idx1 = idx0 + np.uint64(1) if layout == "scl" else np.arange(M, dtype=np.uint64) + np.uint64(M)
-                k0, k1 = np.full(T, ONES), np.full(T, ONES)
-                k0[:M] = _key_word(good).astype(np.uint64) << np.uint64(32) | idx0
-                k1[:M] = _key_word(bad).astype(np.uint64) << np.uint64(32) | idx1
-                out, kinds, _, _ = _cluster_sort(k0, k1)
+                keys = _fork_keys(M, good, bad, layout)
+                out, kinds, _, _ = _cluster_sort(keys)
                 c = np.empty(2 * M, np.float32)
                 if layout == "scl":
                     c[0::2], c[1::2] = good, bad
@@ -437,15 +482,16 @@ def test_cluster_sort_is_the_stable_sort(P):
                 want = np.argsort(c, kind="stable")[:M]
                 np.testing.assert_array_equal((out[:M] & np.uint64(0xFFFFFFFF)).astype(np.int64), want)
                 np.testing.assert_array_equal(_key_metric(out[:M]), c[want])
-                np.testing.assert_array_equal(out, np.sort(np.concatenate([k0, k1]))[:T])
+                np.testing.assert_array_equal(out, np.sort(keys.reshape(-1))[:P // 2])
     p = P.bit_length() - 1
+    block = 11 + (P == 65536)  # log2 of a block's keys
     assert sum(kinds.values()) == p * (p + 1) // 2
-    assert kinds["blocks"] == {4096: 1, 8192: 3, 16384: 6, 32768: 10}[P]  # the stages across blocks
+    assert kinds["blocks"] == {4096: 1, 8192: 3, 16384: 6, 32768: 10, 65536: 10}[P]  # the stages across blocks
     assert scl_cuda.cluster_exchanges(P) == kinds["blocks"] + 1  # and the sorted keys' store
-    assert kinds["shared"] == 5 * (p - 11) + 15  # the in-block stages, j 1024..64
+    assert kinds["shared"] == 5 * (p - block) + 15  # the in-block stages, j 1024..64 (2048..128 at two a thread)
 
 
-@pytest.mark.parametrize("M", [1025, 2048, 3000, 4096, 8192, 8193, 16384])
+@pytest.mark.parametrize("M", [1025, 2048, 3000, 4096, 8192, 8193, 16384, 16385, 32768])
 def test_cluster_sort_buffers_across_forks(M):
     """Three sorts in a row over one set of key buffers, as a decode runs
     them (two forks, each read by every thread for the key of its rank, and
@@ -453,47 +499,52 @@ def test_cluster_sort_buffers_across_forks(M):
     same buffer (its own block's before a barrier, another block's before a
     cluster barrier), and a fork takes one cluster barrier a cross-block
     stage and one for the sorted keys, and one block barrier a stage within
-    the block."""
+    the block.  Past M = 16384 each thread holds two paths' keys."""
 
     P = scl_cuda.sort_keys(M)
-    T, C = P // 2, P // 2048
+    q = 2 * scl_cuda.cluster_ppt(M)
+    C = P // (1024 * q)
     rng = np.random.default_rng(M)
-    bufs, xc = _Buffers(C), 0
+    bufs, xc = _Buffers(C, 1024 * q), 0
     p = P.bit_length() - 1
+    thread, col = _path_threads(M)
     for fork in range(3):
         metric = rng.random(2 * M).astype(np.float32)
         metric[rng.random(2 * M) < 0.3] = np.float32(3e38)  # dead candidates tie
-        keys = _key_word(metric).astype(np.uint64) << np.uint64(32) | np.arange(2 * M, dtype=np.uint64)
-        k0, k1 = np.full(T, ONES), np.full(T, ONES)
-        k0[:M], k1[:M] = keys[0::2], keys[1::2]
-        if fork == 2:  # the final rank: one key a thread, the second a pad
-            k0[:M], k1[:] = keys[:M], ONES
+        cand = _key_word(metric).astype(np.uint64) << np.uint64(32) | np.arange(2 * M, dtype=np.uint64)
+        keys = np.full((P // q, q), ONES)
+        if fork < 2:  # path m's candidates 2m and 2m + 1
+            keys[thread, col], keys[thread, col + 1] = cand[0::2], cand[1::2]
+        else:  # the final rank: one key a path, the other a pad
+            keys[thread, col] = cand[:M]
         before = dict(bufs.barriers)
-        out, kinds, sorted_b, xc = _cluster_sort(k0, k1, bufs, xc)
-        np.testing.assert_array_equal(out, np.sort(np.concatenate([k0, k1]))[:T])
-        np.testing.assert_array_equal(_take_ranks(bufs, sorted_b, M), out[:M])
-        cross = {4096: 1, 8192: 3, 16384: 6, 32768: 10}[P]
-        assert kinds["blocks"] == cross and kinds["shared"] == 5 * (p - 11) + 15
+        out, kinds, sorted_b, xc = _cluster_sort(keys, bufs, xc)
+        np.testing.assert_array_equal(out, np.sort(keys.reshape(-1))[:P // 2])
+        np.testing.assert_array_equal(_take_ranks(bufs, sorted_b, M, q), out[:M])
+        cross = {4096: 1, 8192: 3, 16384: 6, 32768: 10, 65536: 10}[P]
+        assert kinds["blocks"] == cross and kinds["shared"] == 5 * (p - 10 - q // 2) + 15
         assert bufs.barriers["cluster"] - before["cluster"] == scl_cuda.cluster_exchanges(P) == cross + 1
         assert bufs.barriers["block"] - before["block"] == kinds["shared"]
     assert xc == 3 * scl_cuda.cluster_exchanges(P)
 
 
-@pytest.mark.parametrize("M", [1025, 3000, 8192, 16384])
+@pytest.mark.parametrize("M", [1025, 3000, 8192, 16384, 16385, 32768])
 def test_cluster_final_rank_is_the_stable_rank(M):
-    """The final rank by the cluster sort of (metric, m) keys, thread m's
-    second key a pad: thread r takes the path of rank r, and the selected
-    rank is the least r whose path passes (an atomicMin), 0 when none
-    does."""
+    """The final rank by the cluster sort of (metric, m) keys, each path's
+    second key a pad: the thread of path r takes the path of rank r, and
+    the selected rank is the least r whose path passes (an atomicMin), 0
+    when none does."""
 
     rng = np.random.default_rng(M)
     pm = rng.random(M).astype(np.float32)
     tie = rng.random(M) < 0.5  # half the paths on a few tied metrics, dead ones at 3e38
     pm[tie] = np.array([0.0, 1.5, 2.5, 3e38], np.float32)[rng.integers(0, 4, int(tie.sum()))]
-    T = scl_cuda.sort_keys(M) // 2
-    k0 = np.full(T, ONES)
-    k0[:M] = _key_word(pm).astype(np.uint64) << np.uint64(32) | np.arange(M, dtype=np.uint64)
-    out, _, _, _ = _cluster_sort(k0, np.full(T, ONES))
+    P = scl_cuda.sort_keys(M)
+    q = 2 * scl_cuda.cluster_ppt(M)
+    keys = np.full((P // q, q), ONES)
+    thread, col = _path_threads(M)
+    keys[thread, col] = _key_word(pm).astype(np.uint64) << np.uint64(32) | np.arange(M, dtype=np.uint64)
+    out, _, _, _ = _cluster_sort(keys)
     path_r = (out[:M] & np.uint64(0xFFFFFFFF)).astype(np.int64)
     np.testing.assert_array_equal(path_r, np.argsort(pm, kind="stable"))
     for share in (0.0, 0.1):
@@ -593,14 +644,15 @@ def test_cluster_barrier_counts():
 
     words = phase_words(128, np.asarray(construct_info_set(128, 64), np.int64)).astype(np.int64)
     info, flagged = (words >> 10 & 1) == 0, (words >> 11) != 0
-    for P, cross in ((4096, 1), (8192, 3), (16384, 6), (32768, 10)):
-        merges = P.bit_length() - 1 - 11  # merges with a cross-block stage
+    # P = 65536: M 16385..32768, two paths a thread, 4096 keys a block
+    for P, cross in ((4096, 1), (8192, 3), (16384, 6), (32768, 10), (65536, 10)):
+        merges = P.bit_length() - 1 - (12 if P == 65536 else 11)  # merges with a cross-block stage
         new = np.where(info, scl_cuda.cluster_exchanges(P), 0) + flagged
         old = np.where(info, 2 * cross + merges + 1 + 1, 0) + flagged
         assert set(new[info]) <= {cross + 1, cross + 2} and set(new[~info]) <= {0, 1}
         assert set(old[info]) <= {2 * cross + merges + 2, 2 * cross + merges + 3}
         assert (2 * cross + merges + 3, cross + 2) == {4096: (6, 3), 8192: (11, 5), 16384: (18, 8),
-                                                       32768: (27, 12)}[P]
+                                                       32768: (27, 12), 65536: (27, 12)}[P]
         assert new.sum() < old.sum() / 2 + flagged.sum()
     # every info phase reads through σ here (so 3 / 5 / 8 / 12 against 6 / 11 / 18 / 27),
     # and about half the frozen phases

@@ -7,14 +7,15 @@ Builds each source of this checkout's `csrc/` and of DIR's
 `polar_code_tpu_torch/csrc/` with this checkout's flags (`_build.build`,
 into this checkout's build directory), dumps both libraries' SASS with
 `cuobjdump -sass`, and prints, for every kernel function, "same" or the
-count of SASS lines that differ, with its demangled name.  A kernel
+count of SASS lines that differ position by position (each line carries
+its address, so an instruction added early moves every line after it),
+with its demangled name.  A kernel
 whose SASS is the same in both runs the same instructions: a time that
 differs between the two is the card's, not the code's.  Exits 1 when a
 source fails to build or `cuobjdump` fails.
 """
 
 import argparse
-import difflib
 import re
 import shutil
 import subprocess
@@ -29,7 +30,9 @@ ANON = re.compile(r"_GLOBAL__N__\w+")  # the anonymous namespace of one build
 def functions(lib: Path) -> dict:
     """Demangled kernel name -> its SASS lines, from `cuobjdump -sass`; the
     anonymous namespace's name, which differs between two builds of one
-    source, is taken out of every line."""
+    source, is taken out of every line, and each run of blanks is one
+    blank (`cuobjdump` pads every line of a library to its longest
+    instruction, so a kernel added to a source moves the others' columns)."""
 
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
@@ -39,7 +42,7 @@ def functions(lib: Path) -> dict:
             name = line.split("Function : ", 1)[1].strip()
             funcs[name] = []
         elif name is not None and line.strip():
-            funcs[name].append(ANON.sub("_GLOBAL__N_", line.strip()))
+            funcs[name].append(" ".join(ANON.sub("_GLOBAL__N_", line).split()))
     # a template kernel by its name and arguments, without its parameters
     return {re.sub(r">\(.*\)$", ">", name): body for name, body in zip(demangle(list(funcs)), funcs.values())}
 
@@ -75,10 +78,10 @@ def main():
             if name not in mine or name not in theirs:
                 print(f"  {source} {name}: only in {'this checkout' if name in mine else args.repo}")
                 continue
-            diff = [d for d in difflib.unified_diff(theirs[name], mine[name], n=0, lineterm="")
-                    if d[:1] in "+-" and d[:3] not in ("+++", "---")]
+            a, b = theirs[name], mine[name]
+            diff = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
             same += not diff
-            print(f"  {source} {name}: {'same' if not diff else f'{len(diff)} SASS lines differ'}")
+            print(f"  {source} {name}: {'same' if not diff else f'{diff} SASS lines differ'}")
         print(f"{source}: {same} of {len(names)} kernels with the same SASS as {args.repo}")
     return 0
 

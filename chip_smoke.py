@@ -183,7 +183,7 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    on 8 frames at the B=1024 plan; the plan depends on B, so these are the
    plans of the FER CLI's B=4096 launches and of the timed batches, which
    (a)–(c) at smaller batches do not run), beside byte-word M=8 at
-   B=4096; K1 at P(4096,2048) and P(8192,4096) M=4 B=1024, K3's list
+   B=4096; K1 at P(4096,2048) and P(8192,4096) M=4 B=256, K3's list
    launch beside its best-only one at PAC(128,64)+CRC-16 L=8 B=4096
    (and every list field there equal to the plain version's), and K2
    without early stop beside early stop at QC-IRA 4×8 Z=31 two-min B=4096
@@ -273,7 +273,7 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    batch the card cannot allocate (K1 P(128,64) M=64 B=65536, a blocker
    tensor holding all but half its scratch) split after the failed
    allocation, every output equal to one launch's; (d) CUDA-event times
-   at B=1024 (B=64 at M and L >= 1024) beside their bounds, and the plain
+   at B=256 (B=16 at M and L >= 1024) beside their bounds, and the plain
    versions' at P(16384,8192) M = L = 8; (e) with a parent's
    `polar_code_tpu_torch/` and `tools/` in `smoke_checkout/parent/`,
    `tools/compare_sass.py` against it;
@@ -318,8 +318,32 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    decoders 0 times on CUDA; (f) CUDA-event times at P(128,64) B=1024, M
    and L 16384 beside 32768, the plain versions' at 32768, and the timed
    launches' first and last 16 frames against 16-frame launches;
-19. a `kernels` JSON line (one entry a kernel, and one for each new
-   instantiation with its launches on phases 13's to 18's paths;
+19. the list sizes past 32768 (`list_sizes_64k`): K1 and K3 at M and L
+   32769..65536, four paths a thread on a cluster of 16 blocks (the quad
+   instantiations: 32-bit trace entries and σ fields, σ and the published
+   words in global scratch); their registers and spills (a spill is
+   printed, not refused), each shape's plan; (a) K1 against the plain
+   version, list and best-only, no frame allowed to differ: P(128,64)
+   CRC-24A M 32769, 50000, 65536 and 65536 with forced plans (16 frames),
+   P(1024,512) M=65536 (4 frames) and P(65536,256) M=65536 (one frame),
+   the last two's plain calls in a worker process, one call at a time,
+   each shape checked on the kernel as its call ends (P(65536,256), whose
+   plain call holds some 60 GB, last and once the worker is gone); (b) K3
+   the same, every list field:
+   PAC(128,64)+CRC-16 L 32769 and 65536 and PAC(16384,1024)+CRC-16
+   L=65536 (one frame, a worker); (c) a split batch at 65536; (d) K1
+   against `tests/golden/scl_f32_64k.npz` (P(128,64) M=65536, written by
+   `tests/golden/make_scl_f32_64k.py`) under its near-tie rule; (e) the
+   FER CLI at P(128,64) M=65536 on phase 18's frames, no worse than its
+   M=32768 (z < 3), every decode a quad launch; the legacy simulator at
+   `list_size_max=65536` equal to its run on the plain decoder; and
+   `decode_scl` and `PolarCode` at 65536, one quad launch a call; the
+   plain decoders 0 times on CUDA; (f) CUDA-event times at P(128,64)
+   B=256, M and L 32768 beside 65536, the plain versions' at 65536, and
+   the timed launches' first and last 16 frames against 16-frame
+   launches;
+20. a `kernels` JSON line (one entry a kernel, and one for each new
+   instantiation with its launches on phases 13's to 19's paths;
    each `max_abs_err` the largest difference from the plain version that
    the run measured), the `nvidia-smi` line, and the device JSON line last.
 
@@ -453,7 +477,7 @@ def ptxas_report(log):
             tn = re.search(r"nms_kernel_(warp|block|1024)ILi(\d+)ELb([01])E", m.group(1))
             td = re.search(r"(scl|pac)_deep_kernelI([ht])Lb([01])E", m.group(1))
             tdw = re.search(r"(scl|pac)_deep_wide_kernelILb([01])E", m.group(1))
-            tc = re.search(r"(scl|pac)_cluster(_pair)?_kernelILb([01])E", m.group(1))
+            tc = re.search(r"(scl|pac)_cluster(_pair|_quad)?_kernelILb([01])E", m.group(1))
             entry = (f"scl_decode_kernel<M={tm.group(1)}{', list' if tm.group(2) == '1' else ''}>" if tm
                      else f"scl_path{tw.group(1) or ''}_kernel<LM={tw.group(2)}"
                           f"{', list' if tw.group(3) == '1' else ''}>" if tw
@@ -1600,7 +1624,7 @@ WIDE_N_TRACE_FRAMES = 4
 WIDE_FER = {16: (4.0, 4.5), 32: (3.5, 4.0)}
 WIDE_FER_FRAMES = 40960
 SYSTEMATIC_LS = (1, 4, 32)  # (e): PolarCode(64, 48, "dega", L), systematic
-WIDE_TIME_B = (4096, 1024)  # (f): frames of the P(128,64), PAC and LDPC times; of N 4096 and 8192
+WIDE_TIME_B = (4096, 256)  # (f): frames of the P(128,64), PAC and LDPC times; of N 4096 and 8192
 # (f): K1 by path, (N, K, construction, Eb/N0 dB, M, B, timed launches): a
 # FER step's baseline (B=4096), a retry batch (B=400) and a scalar call
 # (B=1) at P(128,64), and P(1024,512) and P(8192,4096) at B=1024;
@@ -2760,7 +2784,7 @@ LONG_SNR = 1.25  # dB: P(16384,8192) at M=8 decodes most frames, M=1 about half 
 # retries, no β: N, K, frames, batch, Eb/N0; the scalar and legacy calls at
 # the same (N, K)
 LONG_FER = (16384, 8192, 4096, 1024, 1.25)
-LONG_TIME_B = (1024, 64)  # (d): frames of the timed launches; at M and L >= 1024
+LONG_TIME_B = (256, 16)  # (d): frames of the timed launches; at M and L >= 1024
 # (c): a batch whose scratch the card cannot allocate, split after the
 # failed allocation: K1 over warps at P(128,64) M=64, 65536 frames (3.4 GB
 # of scratch), with the card's free memory held to about half of it
@@ -2772,8 +2796,11 @@ def plain_reference(kind, args, device="cuda"):
     `plain_fields` of the SCL decoder (kind "scl": LLRs, info set, M, CRC,
     plan) or the PAC decoder's list fields (kind "pac": LLRs, mask, gen, L,
     CRC length and polynomial), as numpy arrays, and the call's seconds on
-    the host clock."""
+    the host clock.  The worker's allocator grows its segments in place, so
+    that the plain calls that hold tens of gigabytes leave no reserved
+    gaps."""
 
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     sys.path.insert(0, str(REPO))
@@ -3202,15 +3229,16 @@ LIST16_N = (1024, 512, 16384, 4)  # (a): P(1024,512) M=16384, frames
 LIST16_LONG_K1 = (65536, 256, 16384)
 LIST16_LONG_K3 = (16384, 1024, 16384)
 LIST16_LS = (8193, 16384)  # (b): K3 at PAC(128,64)+CRC-16
-# (e): the FER CLI at P(128,64) M=16384, 8192 and 4096, the same frames:
-# Eb/N0, frames, batch.  At 1.5 dB a larger list decodes better (FER
-# 1.31e-2 at M=16384 against 2.19e-2 at 8192 on these frames, z = -6.1), so
-# the gate is one-sided: no list decodes worse than half its size beyond
-# 3 sigma
-LIST16_FER = (1.5, 16384, 4096)
+# (e): the FER CLI at P(128,64) M=16384, 8192 and 4096, the same frames,
+# and at M 32768 and 65536 in phases 18 and 19: Eb/N0, frames, batch.  At
+# 1.5 dB a larger list decodes better (FER 1.31e-2 at M=16384 against
+# 2.19e-2 at 8192 on 16384 frames, z = -6.1), so the gate is one-sided: no
+# list decodes worse than half its size beyond 3 sigma.  4096 frames (one
+# step), so that phases 17-19 keep to the run's time
+LIST16_FER = (1.5, 4096, 4096)
 LIST16_SIM_SNR = [3.0, 3.5]  # (e): the legacy simulator at list_size_max=16384
 LIST16_SCALAR = (4, 4)  # (e): decode_scl's golden frames and PolarCode's frames, at LIST16_M
-LIST16_TIME_B = 1024  # (f): frames of the timed launches
+LIST16_TIME_B = 256  # (f): frames of the timed launches
 
 
 def timed_batch_check(run, x, fields, tag, edge=16):
@@ -3513,7 +3541,7 @@ LIST32_LONG_K3 = (16384, 1024, 32768)
 LIST32_LS = (16385, 32768)  # (b): K3 at PAC(128,64)+CRC-16
 LIST32_SIM_SNR = [3.0, 3.5]  # (e): the legacy simulator at list_size_max=32768
 LIST32_SCALAR = (4, 4)  # (e): decode_scl's golden frames and PolarCode's frames, at LIST32_M
-LIST32_TIME_B = 1024  # (f): frames of the timed launches
+LIST32_TIME_B = 256  # (f): frames of the timed launches
 
 
 def list_sizes_32k(dev, smi, fer16):
@@ -3524,7 +3552,7 @@ def list_sizes_32k(dev, smi, fer16):
     list_size_max=32768 against itself on the plain decoder, the scalar
     calls, and the times, the timed launches' first and last 16 frames held
     to 16-frame launches.  Returns the `kernels` entries of the two pair
-    instantiations."""
+    instantiations, and the FER CLI's row at M=32768."""
 
     import torch
 
@@ -3645,6 +3673,61 @@ def list_sizes_32k(dev, smi, fer16):
         lap("(c)")
         cluster_split_check(dev, LIST32_M, LIST32_B, 5, CLUSTER_SEEDS[0] + 18, reset_counts, "(c)")
 
+        # ---- (d) against the JAX golden file, K1 under its near-tie rule ----
+        lap("(d)")
+        with np.load(GOLDEN / "scl_f32_32k.npz") as gold:
+            case, = json.loads(str(gold["cases"]))
+            tag, code = case["name"], case["code"]
+            x = torch.from_numpy(gold[f"{code}/llr"]).to(dev)
+            out = decode_scl_cuda(x, gold[f"{code}/info"], case["M"], case["crc"], full=True)
+            best = decode_scl_cuda(x, gold[f"{code}/info"], case["M"], case["crc"])
+            ref = {"best_path_bits": gold[f"{tag}/bits"], "best_path_info_llrs": gold[f"{tag}/llrs"],
+                   "crc_pass": gold[f"{tag}/crc_pass"], "metrics": gold[f"{tag}/metrics"]}
+            d, t_, _ = judge_list(out, ref, f"(d) vs JAX f32 {tag}")
+            db, tb, _ = judge_list(best, {f: ref[f] for f in ("best_path_bits", "best_path_info_llrs", "crc_pass")},
+                                   f"(d) vs JAX f32 {tag} best-only", ref["metrics"])
+            top = near_tie_frames(ref["metrics"][:, :64])
+        print(f"(d) K1 P(128,64) M={case['M']} on the golden file's {x.shape[0]} frames: list {d} and best-only "
+              f"{db} frames from JAX float32 ({t_}, {tb} near-ties over the {case['M']} metrics; {int(top.sum())} "
+              f"frames with a near-tie among the first 64); crc pass {int(ref['crc_pass'].sum())}", flush=True)
+
+        # ---- (e), part: the simulator and the scalar calls, while the workers run ----
+        runs = {}
+        for which in ("kernel", "plain"):
+            reset_counts()
+            buf = io.StringIO()
+            t = time.perf_counter()
+            decode = simulator.pac_decode
+            try:
+                if which == "plain":  # every stage on the plain version, on the card
+                    simulator.pac_decode = lambda llr, mask, gen, L, crc_len=0, crc_poly=0: pac_list_decode_batch(
+                        llr, mask, gen, L, crc_len=crc_len, crc_poly=crc_poly)
+                with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(buf):
+                    res = simulator.run(simulator.LegacySimConfig(snr_range=LIST32_SIM_SNR, seed=0,
+                                                                  list_size_max=LIST32_M), tmp)
+                    csv = next(Path(tmp).glob("*.csv")).read_text()
+            finally:
+                simulator.pac_decode = decode
+            lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("@")]
+            runs[which] = (lines, res.ber, res.fer, csv, pac_list_decode_cuda.launches,
+                           pac_list_decode_cuda.pair_launches, sum(f.cuda_calls for f in plains),
+                           time.perf_counter() - t)
+        lines, ber, fer_s, csv, sim_launches, sim_pair, plain, secs = runs["kernel"]
+        for ln in lines:
+            print(f"  simulator L 1 -> {LIST32_M}: {ln}")
+        print(f"(e) simulator at list_size_max={LIST32_M}: {secs:.3f} s; K3 {sim_launches} launches, {sim_pair} of "
+              f"them at two paths a thread (stage 2); plain decoders on CUDA {plain} times; on the plain decoder "
+              f"{runs['plain'][-1]:.3f} s ({runs['plain'][-2]} plain calls)")
+        check(runs["kernel"][:4] == runs["plain"][:4], f"the simulator at list_size_max={LIST32_M} differs from "
+              f"its run on the plain decoder: {ber} {fer_s} vs {runs['plain'][1]} {runs['plain'][2]}")
+        check(sim_pair > 0 and plain == 0, "the simulator's stage 2 did not go through K3's pair instantiation alone")
+
+        lap("(e) scalar calls")
+        scalar_cluster = cluster_scalar_calls(dev, LIST32_M, *LIST32_SCALAR, CLUSTER_SEEDS[0] + 18, reset_counts)
+        scalar_pair = tuple(f.pair_launches for f in wrappers)
+        check(scalar_pair == scalar_cluster, f"the scalar calls at {LIST32_M} launched {scalar_pair} pair "
+              f"instantiations of {scalar_cluster} cluster launches")
+
         # ---- (a), (b) the shapes whose plain calls ran in the workers ----
         lap("(a), (b) the workers' shapes")
         cases = [("K1 N=1024", torch.from_numpy(mid_k1).to(dev), k1_info[LIST32_N[0]], LIST32_N[:3]),
@@ -3672,25 +3755,7 @@ def list_sizes_32k(dev, smi, fer16):
           f"{differ} frames differ (none allowed); max |info LLR diff| {k1_err:.3e}; (b) K3 "
           f"{len(LIST32_LS) * len(CLUSTER_SEEDS) + 1} cases, every field equal")
 
-    # ---- (d) against the JAX golden file, K1 under its near-tie rule ----
-    lap("(d)")
-    with np.load(GOLDEN / "scl_f32_32k.npz") as gold:
-        case, = json.loads(str(gold["cases"]))
-        tag, code = case["name"], case["code"]
-        x = torch.from_numpy(gold[f"{code}/llr"]).to(dev)
-        out = decode_scl_cuda(x, gold[f"{code}/info"], case["M"], case["crc"], full=True)
-        best = decode_scl_cuda(x, gold[f"{code}/info"], case["M"], case["crc"])
-        ref = {"best_path_bits": gold[f"{tag}/bits"], "best_path_info_llrs": gold[f"{tag}/llrs"],
-               "crc_pass": gold[f"{tag}/crc_pass"], "metrics": gold[f"{tag}/metrics"]}
-        d, t_, _ = judge_list(out, ref, f"(d) vs JAX f32 {tag}")
-        db, tb, _ = judge_list(best, {f: ref[f] for f in ("best_path_bits", "best_path_info_llrs", "crc_pass")},
-                               f"(d) vs JAX f32 {tag} best-only", ref["metrics"])
-        top = near_tie_frames(ref["metrics"][:, :64])
-    print(f"(d) K1 P(128,64) M={case['M']} on the golden file's {x.shape[0]} frames: list {d} and best-only {db} "
-          f"frames from JAX float32 ({t_}, {tb} near-ties over the {case['M']} metrics; {int(top.sum())} frames with "
-          f"a near-tie among the first 64); crc pass {int(ref['crc_pass'].sum())}", flush=True)
-
-    # ---- (e) the entry points: the FER CLI, the simulator, the scalar calls ----
+    # ---- (e) the FER CLI, after the workers (its batch takes the card's free memory) ----
     lap("(e)")
     snr, frames, batch = LIST16_FER
     reset_counts()
@@ -3718,42 +3783,6 @@ def list_sizes_32k(dev, smi, fer16):
         print(f"  {key}: M={LIST32_M} {p1:.6e} vs M={LIST32_M // 2} {p2:.6e} (phase 17) on the same {frames} "
               f"frames: z = {z:+.3f}")
         check(z < 3.0, f"M={LIST32_M} {key} decodes worse than M={LIST32_M // 2} (z={z:.2f})")
-
-    runs = {}
-    for which in ("kernel", "plain"):
-        reset_counts()
-        buf = io.StringIO()
-        t = time.perf_counter()
-        decode = simulator.pac_decode
-        try:
-            if which == "plain":  # every stage on the plain version, on the card
-                simulator.pac_decode = lambda llr, mask, gen, L, crc_len=0, crc_poly=0: pac_list_decode_batch(
-                    llr, mask, gen, L, crc_len=crc_len, crc_poly=crc_poly)
-            with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(buf):
-                res = simulator.run(simulator.LegacySimConfig(snr_range=LIST32_SIM_SNR, seed=0,
-                                                              list_size_max=LIST32_M), tmp)
-                csv = next(Path(tmp).glob("*.csv")).read_text()
-        finally:
-            simulator.pac_decode = decode
-        lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("@")]
-        runs[which] = (lines, res.ber, res.fer, csv, pac_list_decode_cuda.launches,
-                       pac_list_decode_cuda.pair_launches, sum(f.cuda_calls for f in plains),
-                       time.perf_counter() - t)
-    lines, ber, fer_s, csv, sim_launches, sim_pair, plain, secs = runs["kernel"]
-    for ln in lines:
-        print(f"  simulator L 1 -> {LIST32_M}: {ln}")
-    print(f"(e) simulator at list_size_max={LIST32_M}: {secs:.3f} s; K3 {sim_launches} launches, {sim_pair} of them at "
-          f"two paths a thread (stage 2); plain decoders on CUDA {plain} times; on the plain decoder "
-          f"{runs['plain'][-1]:.3f} s ({runs['plain'][-2]} plain calls)")
-    check(runs["kernel"][:4] == runs["plain"][:4], f"the simulator at list_size_max={LIST32_M} differs from its run on "
-          f"the plain decoder: {ber} {fer_s} vs {runs['plain'][1]} {runs['plain'][2]}")
-    check(sim_pair > 0 and plain == 0, "the simulator's stage 2 did not go through K3's pair instantiation alone")
-
-    lap("(e) scalar calls")
-    scalar_cluster = cluster_scalar_calls(dev, LIST32_M, *LIST32_SCALAR, CLUSTER_SEEDS[0] + 18, reset_counts)
-    scalar_pair = tuple(f.pair_launches for f in wrappers)
-    check(scalar_pair == scalar_cluster, f"the scalar calls at {LIST32_M} launched {scalar_pair} pair "
-          f"instantiations of {scalar_cluster} cluster launches")
 
     # ---- (f) times with CUDA events, M and L 16384 beside 32768 ----
     lap("(f)")
@@ -3803,6 +3832,335 @@ def list_sizes_32k(dev, smi, fer16):
     names = {"scl": ("scl_decode (two paths a thread: M 16385-32768)", "polar_code_tpu_torch/csrc/scl_decode.cu",
                      "polar_code_tpu/ops/scl_pallas.py:293"),
              "pac": ("pac_decode (two paths a thread: L 16385-32768)", "polar_code_tpu_torch/csrc/pac_decode.cu",
+                     "polar_code_tpu/legacy/pac_pallas.py:59")}
+    return [{"name": names[k][0], "route": "cuda", "source": names[k][1], "replaces": names[k][2],
+             "launches": launches[k], "max_abs_err": errors[k], "ms": entries[k][0], "plain_ms": entries[k][1],
+             "bound_ms": entries[k][2], "bound_by": entries[k][3], "library_ms": None}
+            for k in ("scl", "pac")], rows[0]
+
+
+# phase 19, list sizes past 32768: K1 and K3 at M and L 32769..65536, four
+# paths a thread on a cluster of 16 blocks of 1024 threads (the quad
+# instantiations: 32-bit trace entries and σ fields, σ and the published
+# words in global scratch, level n alone in shared memory)
+LIST64_M = 65536  # the largest list size: (c)'s split, (e)'s FER CLI and scalar calls, (f)'s times
+LIST64_B = 16  # frames of a vs-plain case
+# (a): K1 at P(128,64) CRC-24A: (M, forced plans); 32769 and 50000 sort pads
+LIST64_MS = ((32769, False), (50000, False), (65536, False), (65536, True))
+# (a), (b): the plain calls that take longest go to worker processes, as
+# phase 16 runs them: K1 at P(1024,512) on LIST64_N_B frames, and one frame
+# at N=65536 (K1) and at N=16384 (K3): (N, K or payload, M or L)
+LIST64_N = (1024, 512, 65536)
+LIST64_N_B = 4
+LIST64_LONG_K1 = (65536, 256, 65536)
+LIST64_LONG_K3 = (16384, 1024, 65536)
+LIST64_LS = (32769, 65536)  # (b): K3 at PAC(128,64)+CRC-16
+LIST64_SIM_SNR = [3.0, 3.5]  # (e): the legacy simulator at list_size_max=65536
+LIST64_SCALAR = (4, 4)  # (e): decode_scl's golden frames and PolarCode's frames, at LIST64_M
+LIST64_TIME_B = 256  # (f): frames of the timed launches
+
+
+def list_sizes_64k(dev, smi, fer32):
+    """Phase 19: K1 and K3 at list sizes 32769..65536 (four paths a thread
+    on a cluster of 16 blocks) against the plain versions and the JAX
+    golden file, a split batch, the FER CLI at M=65536 against phase 18's
+    M=32768 row on the same frames (`fer32`), the legacy simulator at
+    list_size_max=65536 against itself on the plain decoder, the scalar
+    calls, and the times at B=256, the timed launches' first and last 16
+    frames held to 16-frame launches.  Returns the `kernels` entries of the
+    two quad instantiations."""
+
+    import torch
+
+    from polar_code_tpu_torch import _build
+    from polar_code_tpu_torch.eval import run_fer_sweep
+    from polar_code_tpu_torch.legacy import pac_cuda, simulator
+    from polar_code_tpu_torch.legacy.pac import pac_list_decode_batch
+    from polar_code_tpu_torch.legacy.pac_cuda import pac_list_decode_cuda
+    from polar_code_tpu_torch.ops import scl_cuda
+    from polar_code_tpu_torch.ops.scl import decode_scl_batch
+    from polar_code_tpu_torch.polar.construct import construct_info_set
+
+    decode_scl_cuda = scl_cuda.decode_scl_cuda
+    wrappers = (decode_scl_cuda, pac_list_decode_cuda)
+    plains = (decode_scl_batch, pac_list_decode_batch)
+    info = construct_info_set(N, K)
+    t_phase = time.perf_counter()
+
+    def reset_counts():
+        for f in wrappers:
+            f.launches = f.cluster_launches = f.pair_launches = f.quad_launches = 0
+        for f in plains:
+            f.cuda_calls = 0
+
+    def lap(part):
+        print(f"  [phase 19 at {time.perf_counter() - t_phase:.1f} s] {part}", flush=True)
+
+    # ---- the quad instantiations' registers and spills (built in phase 2: the kept log) ----
+    regs = {}
+    for source in (scl_cuda.SOURCE, pac_cuda.SOURCE):
+        for row in ptxas_report(_build.build(source).log):
+            if "_cluster_quad_kernel" in row["entry"]:
+                regs[row["entry"]] = (row["regs"], row["spill_stores"], row["spill_loads"])
+                print(f"  ptxas {row['entry']}: {row['regs']} registers, spills {row['spill_stores']} B stores / "
+                      f"{row['spill_loads']} B loads", flush=True)
+    check(len(regs) == 4, f"the build log holds {len(regs)} quad instantiations, not 4: {sorted(regs)}")
+
+    # ---- each shape's plan: clusters of 16 at once, by the occupancy calculator ----
+    n_l, k_l, m_l = LIST64_LONG_K1
+    n_p, p_p, l_p = LIST64_LONG_K3
+    k1_info = {N: info, LIST64_N[0]: construct_info_set(*LIST64_N[:2], method="gaussian_bitrev"),
+               n_l: construct_info_set(n_l, k_l, method="gaussian_bitrev")}
+    shapes = ([("K1", N, K, M) for M in (LIST64_LS[0], LIST64_M)] + [("K1",) + LIST64_N, ("K1", n_l, k_l, m_l)]
+              + [("K3", N, K + PAC_CRC[0], L) for L in LIST64_LS] + [("K3", n_p, p_p + PAC_CRC[0], l_p)])
+    for kernel, n_s, k_s, M in shapes:
+        if kernel == "K1":
+            g, _, at_once = scl_cuda.launch_plan(n_s, k_s, M, LIST64_TIME_B)
+            scratch = scl_cuda.scratch_bytes(1, n_s, k_s, M, g)
+            words, info_phases = 2, k1_info[n_s]
+        else:
+            g, _, at_once = pac_cuda.launch_plan(n_s, k_s, M)
+            scratch = pac_cuda.scratch_bytes(1, n_s, k_s, M, g)
+            words, info_phases = 3, pac_cuda_info_phases(pac_mask(n_s, k_s))
+        info_b, frozen_b = cluster_barriers(n_s, info_phases, M)
+        print(f"  {kernel} N={n_s} K={k_s} M={M} (a cluster of {scl_cuda.cluster_blocks(M)} blocks of 1024 "
+              f"threads, {scl_cuda.cluster_ppt(M)} paths a thread): levels {g + 1}..{int(math.log2(n_s))} in "
+              f"shared memory, 1..{g}, the trace, σ and the published words in global scratch ({scratch} B a "
+              f"frame, {scl_cuda.sigma_bytes(1, n_s, M, words)} B of it σ and words); "
+              f"{scl_cuda.cluster_block_bytes(n_s, g, words, 4)} B shared a block; {at_once} clusters at once on "
+              f"the card (occupancy calculator); cluster barriers {info_b} an info phase, {frozen_b} a frozen "
+              f"phase", flush=True)
+        check(at_once >= 1, f"{kernel} N={n_s} M={M}: the card places no cluster")
+
+    # the longest plain calls go to a worker process first, one at a time:
+    # the plain call at P(65536,256) M=65536 holds some 60 GB on the card,
+    # and ran out of memory beside the PAC call at N=16384 (13 GB), so it
+    # runs last, beside only this process, which hands back its cached
+    # blocks first, keeps to small batches while the worker runs, checks
+    # each worker shape on the kernel as its plain call ends, and runs
+    # P(65536,256) on the kernel (21.6 GB of scratch) once the pool, and the
+    # memory its process cached, are gone
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(LONG_SEED + 19)
+    long_k1, _ = make_llrs(rng, 1, 0.5, k1_info[n_l], n=n_l)
+    mask_p = pac_mask(n_p, p_p + PAC_CRC[0])
+    long_k3 = pac_llrs(rng, 1, 1.5, (n_p, p_p, PAC_CRC), PAC_GEN, mask_p, dev)
+    mid_k1, _ = make_llrs(rng, LIST64_N_B, 1.5, k1_info[LIST64_N[0]], n=LIST64_N[0])
+    plain_args = {"K3": ("pac", (long_k3.cpu().numpy(), mask_p, PAC_GEN, l_p, *PAC_CRC), str(dev)),
+                  "K1 N=1024": ("scl", (mid_k1, k1_info[LIST64_N[0]], LIST64_N[2], CRC, None), str(dev)),
+                  "K1": ("scl", (long_k1, k1_info[n_l], m_l, CRC, None), str(dev))}  # in the order they run
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = {key: pool.submit(plain_reference, *args) for key, args in plain_args.items()}
+
+        # ---- (a) K1 against the plain version, list and best-only ----
+        lap("(a)")
+        differ = ties = 0
+        k1_err = 0.0
+        rng = np.random.default_rng(CLUSTER_SEEDS[0] + 19)
+        for M, use_plan in LIST64_MS:
+            llr_np, msg = make_llrs(rng, LIST64_B, 2.0, info)
+            plan = torch.from_numpy(random_plan(rng, msg)).to(dev) if use_plan else None
+            tag = f"(a) P({N},{K}) M={M} plan={'on' if use_plan else 'off'} B={LIST64_B}"
+            t = time.perf_counter()
+            (d, t_, e), (db, tb, eb) = k1_vs_plain(torch.from_numpy(llr_np).to(dev), info, M, CRC, plan, tag)
+            check(d + db == 0, f"{tag}: K1 differs from the plain version in {d + db} frames ({t_ + tb} "
+                  f"near-ties): the kernel runs the plain version's float operations")
+            differ, ties, k1_err = differ + d + db, ties + t_ + tb, max(k1_err, e, eb)
+            print(f"  {tag}: list and best-only equal to the plain version ({time.perf_counter() - t:.1f} s)",
+                  flush=True)
+
+        # ---- (b) K3 against the plain version, every list field and best-only ----
+        lap("(b)")
+        k3_err = 0.0
+        for L in LIST64_LS:
+            mask = pac_mask(N, K + PAC_CRC[0])
+            x = pac_llrs(rng, LIST64_B, 2.0, (N, K, PAC_CRC), PAC_GEN, mask, dev)
+            ref = pac_list_decode_batch(x, mask, PAC_GEN, L, crc_len=PAC_CRC[0], crc_poly=PAC_CRC[1])
+            tag = f"(b) PAC({N},{K})+CRC-16 L={L} B={LIST64_B}"
+            k3_err = max(k3_err, k3_list_vs_plain(x, mask, PAC_GEN, L, *PAC_CRC, tag, ref=ref))
+            best = pac_list_decode_cuda(x, mask, PAC_GEN, L, *PAC_CRC)
+            for f in ("extracted", "crc_pass"):
+                check(torch.equal(best[f], ref[f]), f"{tag} best-only: K3's {f} differs from the plain version")
+            print(f"  {tag}: list ({', '.join(PAC_LIST_FIELDS)}) and best-only equal to the plain version; "
+                  f"crc pass {int(ref['crc_pass'].sum())}", flush=True)
+
+        # ---- (c) a split batch at M = L = 65536: the card's room pinned to 5 frames' scratch ----
+        lap("(c)")
+        cluster_split_check(dev, LIST64_M, LIST64_B, 5, CLUSTER_SEEDS[0] + 19, reset_counts, "(c)")
+        torch.cuda.empty_cache()
+
+        # ---- (d) against the JAX golden file, K1 under its near-tie rule ----
+        lap("(d)")
+        with np.load(GOLDEN / "scl_f32_64k.npz") as gold:
+            case, = json.loads(str(gold["cases"]))
+            tag, code = case["name"], case["code"]
+            x = torch.from_numpy(gold[f"{code}/llr"]).to(dev)
+            out = decode_scl_cuda(x, gold[f"{code}/info"], case["M"], case["crc"], full=True)
+            best = decode_scl_cuda(x, gold[f"{code}/info"], case["M"], case["crc"])
+            ref = {"best_path_bits": gold[f"{tag}/bits"], "best_path_info_llrs": gold[f"{tag}/llrs"],
+                   "crc_pass": gold[f"{tag}/crc_pass"], "metrics": gold[f"{tag}/metrics"]}
+            d, t_, _ = judge_list(out, ref, f"(d) vs JAX f32 {tag}")
+            db, tb, _ = judge_list(best, {f: ref[f] for f in ("best_path_bits", "best_path_info_llrs", "crc_pass")},
+                                   f"(d) vs JAX f32 {tag} best-only", ref["metrics"])
+            top = near_tie_frames(ref["metrics"][:, :64])
+        print(f"(d) K1 P(128,64) M={case['M']} on the golden file's {x.shape[0]} frames: list {d} and best-only "
+              f"{db} frames from JAX float32 ({t_}, {tb} near-ties over the {case['M']} metrics; {int(top.sum())} "
+              f"frames with a near-tie among the first 64); crc pass {int(ref['crc_pass'].sum())}", flush=True)
+        del out, best, x
+        torch.cuda.empty_cache()
+
+        # ---- (e), part: the simulator and the scalar calls, while the workers run ----
+        lap("(e) the simulator")
+        runs = {}
+        for which in ("kernel", "plain"):
+            reset_counts()
+            buf = io.StringIO()
+            t = time.perf_counter()
+            decode = simulator.pac_decode
+            try:
+                if which == "plain":  # every stage on the plain version, on the card
+                    simulator.pac_decode = lambda llr, mask, gen, L, crc_len=0, crc_poly=0: pac_list_decode_batch(
+                        llr, mask, gen, L, crc_len=crc_len, crc_poly=crc_poly)
+                with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(buf):
+                    res = simulator.run(simulator.LegacySimConfig(snr_range=LIST64_SIM_SNR, seed=0,
+                                                                  list_size_max=LIST64_M), tmp)
+                    csv = next(Path(tmp).glob("*.csv")).read_text()
+            finally:
+                simulator.pac_decode = decode
+            lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("@")]
+            runs[which] = (lines, res.ber, res.fer, csv, pac_list_decode_cuda.launches,
+                           pac_list_decode_cuda.quad_launches, sum(f.cuda_calls for f in plains),
+                           time.perf_counter() - t)
+        lines, ber, fer_s, csv, sim_launches, sim_quad, plain, secs = runs["kernel"]
+        for ln in lines:
+            print(f"  simulator L 1 -> {LIST64_M}: {ln}")
+        print(f"(e) simulator at list_size_max={LIST64_M}: {secs:.3f} s; K3 {sim_launches} launches, {sim_quad} of "
+              f"them at four paths a thread (stage 2); plain decoders on CUDA {plain} times; on the plain decoder "
+              f"{runs['plain'][-1]:.3f} s ({runs['plain'][-2]} plain calls)")
+        check(runs["kernel"][:4] == runs["plain"][:4], f"the simulator at list_size_max={LIST64_M} differs from "
+              f"its run on the plain decoder: {ber} {fer_s} vs {runs['plain'][1]} {runs['plain'][2]}")
+        check(sim_quad > 0 and plain == 0, "the simulator's stage 2 did not go through K3's quad instantiation alone")
+
+        lap("(e) scalar calls")
+        scalar_cluster = cluster_scalar_calls(dev, LIST64_M, *LIST64_SCALAR, CLUSTER_SEEDS[0] + 19, reset_counts)
+        scalar_quad = tuple(f.quad_launches for f in wrappers)
+        check(scalar_quad == scalar_cluster, f"the scalar calls at {LIST64_M} launched {scalar_quad} quad "
+              f"instantiations of {scalar_cluster} cluster launches")
+
+        torch.cuda.empty_cache()
+
+        # ---- (b), (a) the workers' shapes, as their plain calls end ----
+        lap("(b) the workers' shape: waiting for its plain call")
+        ref, secs = futures["K3"].result()
+        ref = {f: torch.from_numpy(v) for f, v in ref.items()}
+        tag = f"(b) PAC({n_p},{p_p})+CRC-16 L={l_p} B=1"
+        k3_err = max(k3_err, k3_list_vs_plain(long_k3, mask_p, PAC_GEN, l_p, *PAC_CRC, tag, ref=ref))
+        best = pac_list_decode_cuda(long_k3, mask_p, PAC_GEN, l_p, *PAC_CRC)
+        for f in ("extracted", "crc_pass"):
+            check(torch.equal(best[f].cpu(), ref[f]), f"{tag} best-only: K3's {f} differs from the plain version")
+        print(f"  {tag}: list and best-only equal to the plain version (its call {secs:.1f} s in a worker); crc "
+              f"pass {bool(ref['crc_pass'][0])}", flush=True)
+        del ref, best
+        cases = [("K1 N=1024", torch.from_numpy(mid_k1).to(dev), k1_info[LIST64_N[0]], LIST64_N),
+                 ("K1", torch.from_numpy(long_k1).to(dev), k1_info[n_l], LIST64_LONG_K1)]
+        for key, x, case_info, (n_c, k_c, M) in cases:
+            tag = f"(a) P({n_c},{k_c}) M={M} B={x.shape[0]}"
+            torch.cuda.empty_cache()
+            lap(f"{tag}: waiting for its plain call")
+            ref, secs = futures[key].result()
+            if key == "K1":  # the kernel's scratch once the worker's memory is gone
+                pool.shutdown(wait=True)
+            (d, t_, e), (db, tb, eb) = k1_vs_plain(x, case_info, M, CRC, None, tag, ref=ref)
+            check(d + db == 0, f"{tag}: K1 differs from the plain version in {d + db} frames")
+            differ, ties, k1_err = differ + d + db, ties + t_ + tb, max(k1_err, e, eb)
+            print(f"  {tag}: list and best-only equal to the plain version (its call {secs:.1f} s in a worker); "
+                  f"crc pass {int(ref['crc_pass'].sum())}", flush=True)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    del ref, cases
+    torch.cuda.empty_cache()
+    print(f"(a) K1 at M 32769-65536 vs plain: {len(LIST64_MS) + 2} cases, list and best-only, {differ} frames "
+          f"differ (none allowed); max |info LLR diff| {k1_err:.3e}; (b) K3 {len(LIST64_LS) + 1} cases, every "
+          f"field equal")
+
+    # ---- (e) the FER CLI, after the workers (its batch takes the card's free memory) ----
+    lap("(e)")
+    snr, frames, batch = LIST16_FER
+    reset_counts()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+        rows = run_fer_sweep.main([
+            "--M", str(LIST64_M), "--snr_lo", str(snr), "--snr_hi", str(snr), "--snr_step", "0.5",
+            "--retries", "8", "--batch", str(batch), "--frames", str(frames), "--seed", "0",
+            "--out_dir", f"{tmp}/results", "--plot_dir", f"{tmp}/plots"])
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    fer_launches, fer_quad = decode_scl_cuda.launches, decode_scl_cuda.quad_launches
+    plain = sum(f.cuda_calls for f in plains)
+    print(f"(e) FER CLI P(128,64) CRC-24A M={LIST64_M}, 8 retries, no β, {snr} dB, {frames} frames at B={batch}: FER "
+          f"SCL {rows[0]['fer_scl']:.6e}, DL-SCL {rows[0]['fer_dl']:.6e}; {fer_launches} K1 launches ({fer_quad} at "
+          f"four paths a thread) over {frames // batch} steps; plain decoders on CUDA {plain} times; "
+          f"{frames / secs:.0f} frames/s ({secs:.1f} s)", flush=True)
+    check(len(rows) == 1 and fer_launches >= frames // batch and fer_quad == fer_launches,
+          f"the M={LIST64_M} FER sweep did not go through K1's quad instantiation ({fer_launches}, {fer_quad})")
+    check(plain == 0, f"a plain decoder ran on CUDA in the M={LIST64_M} FER sweep")
+    for key in ("fer_scl", "fer_dl"):
+        p1, p2 = rows[0][key], fer32[key]
+        check(math.isfinite(p1) and 0.0 < p1 < 1.0, f"M={LIST64_M} {key} is {p1}")
+        z = fer_z(p1, frames, p2, frames)
+        print(f"  {key}: M={LIST64_M} {p1:.6e} vs M={LIST64_M // 2} {p2:.6e} (phase 18) on the same {frames} "
+              f"frames: z = {z:+.3f}")
+        check(z < 3.0, f"M={LIST64_M} {key} decodes worse than M={LIST64_M // 2} (z={z:.2f})")
+
+    # ---- (f) times with CUDA events, M and L 32768 beside 65536 ----
+    lap("(f)")
+    print(f"list-size-65536 times on {smi}:")
+    B = LIST64_TIME_B
+    llr = torch.from_numpy(make_llrs(np.random.default_rng(5), B, 5.0, info)[0]).to(dev)
+    entries = {}
+    for M in (LIST64_M // 2, LIST64_M):
+        before = decode_scl_cuda.launches
+        ms = cuda_time_ms(lambda M=M: decode_scl_cuda(llr, info, M, CRC), reps=2, warmup=1)
+        b_ms, b_by = bound(*scl_work(info, M, B))
+        line = (f"  K1 P(128,64) M={M} CRC B={B} 5.0 dB: {ms:.4f} ms ({(decode_scl_cuda.launches - before) / 3:g} "
+                f"launches a call)")
+        if M == LIST64_M:
+            plain_ms = cuda_time_ms(lambda: decode_scl_batch(llr, info, M, CRC, dtype=torch.float32), reps=1,
+                                    warmup=0)
+            entries["scl"] = (ms, plain_ms, b_ms, b_by)
+            line += f"; plain {plain_ms:.4f} ms"
+        print(f"{line}; bound {b_ms:.6f} ms ({b_by}); {scl_cuda.launch_plan(N, K, M, B)[2]} clusters at once; "
+              f"{scl_cuda.cluster_ppt(M)} paths a thread", flush=True)
+        if M == LIST64_M:
+            timed_batch_check(lambda t, M=M: decode_scl_cuda(t, info, M, CRC), llr, scl_cuda.BEST_FIELDS,
+                              f"(f) K1 M={M}")
+    n_c, k_c, crc_c = PAC_CODES[128]
+    p_mask = pac_mask(n_c, k_c + crc_c[0])
+    x = pac_llrs(np.random.default_rng(6), B, 2.5, PAC_CODES[128], PAC_GEN, p_mask, dev)
+    for L in (LIST64_M // 2, LIST64_M):
+        ms = cuda_time_ms(lambda L=L: pac_list_decode_cuda(x, p_mask, PAC_GEN, L, *crc_c), reps=2, warmup=1)
+        b_ms, b_by = bound(*pac_work(p_mask, L, B))
+        line = f"  K3 PAC(128,64)+CRC-16 L={L} B={B} 2.5 dB: {ms:.4f} ms"
+        if L == LIST64_M:
+            plain_ms = cuda_time_ms(lambda: pac_list_decode_batch(x, p_mask, PAC_GEN, L, crc_len=crc_c[0],
+                                                                  crc_poly=crc_c[1]), reps=1, warmup=0)
+            entries["pac"] = (ms, plain_ms, b_ms, b_by)
+            line += f"; plain {plain_ms:.4f} ms"
+        print(f"{line}; bound {b_ms:.6f} ms ({b_by}); {pac_cuda.launch_plan(n_c, k_c + crc_c[0], L)[2]} clusters "
+              f"at once; {scl_cuda.cluster_ppt(L)} paths a thread", flush=True)
+        if L == LIST64_M:
+            timed_batch_check(lambda t, L=L: pac_list_decode_cuda(t, p_mask, PAC_GEN, L, *crc_c), x,
+                              ("extracted", "crc_pass"), f"(f) K3 L={L}")
+    for entry, (r, spill_st, spill_ld) in sorted(regs.items()):
+        print(f"  {entry}: {r} registers, {spill_st} B spill stores, {spill_ld} B spill loads")
+    print(f"phase list_sizes_64k: {time.perf_counter() - t_phase:.1f} s")
+
+    launches = {"scl": fer_quad + scalar_quad[0], "pac": sim_quad + scalar_quad[1]}
+    errors = {"scl": k1_err, "pac": k3_err}
+    names = {"scl": ("scl_decode (four paths a thread: M 32769-65536)", "polar_code_tpu_torch/csrc/scl_decode.cu",
+                     "polar_code_tpu/ops/scl_pallas.py:293"),
+             "pac": ("pac_decode (four paths a thread: L 32769-65536)", "polar_code_tpu_torch/csrc/pac_decode.cu",
                      "polar_code_tpu/legacy/pac_pallas.py:59")}
     return [{"name": names[k][0], "route": "cuda", "source": names[k][1], "replaces": names[k][2],
              "launches": launches[k], "max_abs_err": errors[k], "ms": entries[k][0], "plain_ms": entries[k][1],
@@ -4312,9 +4670,10 @@ def main():
         pms = None
         if H is not None:
             big = H.shape[1] > 10000
+            # one call at Z=383, where a plain call takes about 3 s
             pms = cuda_time_ms(lambda: decode_ldpc_nms_batch(x, H, 20, 0.8, self_exclude=se),
-                               reps=2 if big else 5, warmup=1)
-            line += f"; plain {pms:.4f} ms ({2 if big else 5} calls)"
+                               reps=1 if big else 5, warmup=0 if big else 1)
+            line += f"; plain {pms:.4f} ms ({1 if big else 5} calls)"
         print(f"{line}; bound {b_ms:.6f} ms ({b_by}; mean iterations "
               f"{iters.float().mean().item():.3f})", flush=True)
         nms_times[tag] = (ms, pms, b_ms, b_by)
@@ -4544,10 +4903,14 @@ def main():
     phase_done("17 list_sizes_16k")
 
     # ---- 18. list sizes past 16384 ----
-    list32_entries = list_sizes_32k(dev, smi, fer16)
+    list32_entries, fer32 = list_sizes_32k(dev, smi, fer16)
     phase_done("18 list_sizes_32k")
 
-    # ---- 19. result lines ----
+    # ---- 19. list sizes past 32768 ----
+    list64_entries = list_sizes_64k(dev, smi, fer32)
+    phase_done("19 list_sizes_64k")
+
+    # ---- 20. result lines ----
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by = nms_times[f"{IRA[0]} two-min 2.5 dB B=4096"]
     print(json.dumps({"kernels": [{
         "name": "scl_decode",
@@ -4587,7 +4950,7 @@ def main():
         "bound_by": pac_bound_by,
         "library_ms": None,
     }] + wide_entries + deep_entries + cluster_entries + long_entries + list16_entries
-                      + list32_entries}))
+                      + list32_entries + list64_entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind, "count": count}}))
     return 0

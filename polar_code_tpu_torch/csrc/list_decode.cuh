@@ -9,7 +9,7 @@
 // path), σ as a table in shared memory, the passes that read through it,
 // its fork, the block-wide sort of the 2M candidates and the frame's
 // shared-memory layout; and, for a frame over a thread-block cluster (list
-// sizes 1025..32768), the same pieces across the cluster's blocks through
+// sizes 1025..65536), the same pieces across the cluster's blocks through
 // distributed shared memory, and the cluster launch.
 // Each source's note has the design; `_build.py` rebuilds a source when
 // this file changes.
@@ -460,39 +460,47 @@ __device__ __forceinline__ void block_sort_keys(unsigned long long* keys, unsign
 }
 
 // ---------------------------------------------------------------------------
-// A frame over a thread-block cluster: list sizes 1025..32768.
+// A frame over a thread-block cluster: list sizes 1025..65536.
 //
 // One frame a cluster of C = cluster_blocks(M) blocks (2 at M 1025..2048, 4
 // up to 4096, 8 up to 8192, 16 above: 8 is the portable cluster size, and
 // 16 a non-portable one that Hopper places for a kernel that allows it,
 // `allow_cluster`, and the most it places) of 1024 threads, each holding
-// PPT = cluster_ppt(M) paths: one up to M = 16384, two above (the
-// `_pair` kernels), so that a block holds PATHS = 1024·PPT paths.  Thread
-// tid of cluster rank r holds paths r·PATHS + k·1024 + tid (k < PPT) and
-// sort keys 2PPT(r·1024 + tid) + 0..2PPT−1.  Tree levels G+1..n of the
-// block's own paths live in its shared memory (rows of (N >> G) − 1
-// entries, as over warps), and levels 1..G of every path in global scratch
-// (rows of N − (N >> G) entries); G is the smallest whose block fits
-// (`ops/scl_cuda.py::launch_plan`).  Path p lives in rank p / PATHS at row
-// p % PATHS: a read through σ of a shared level whose row is another
+// PPT = cluster_ppt(M) paths: one up to M = 16384, two up to 32768 (the
+// `_pair` kernels), four above (the `_quad` kernels), so that a block holds
+// PATHS = 1024·PPT paths.  Every shift and mask by PPT takes log2(PPT) from
+// `ppt_shift`.  Thread tid of cluster rank r holds paths r·PATHS + k·1024 +
+// tid (k < PPT) and sort keys 2PPT(r·1024 + tid) + 0..2PPT−1.  Tree levels
+// G+1..n of the block's own paths live in its shared memory (rows of (N >>
+// G) − 1 entries, as over warps), and levels 1..G of every path in global
+// scratch (rows of N − (N >> G) entries a path; at four paths a thread
+// rows of N >> l entries a level, [G][M][N >> l], so that a phase's narrow
+// levels are contiguous); G is the smallest whose block fits
+// (`ops/scl_cuda.py::launch_plan`).  Path p lives in rank p / PATHS at
+// row p % PATHS: a read through σ of a shared level whose row is another
 // block's goes through distributed shared memory (`cluster_row`), the
 // block's own rows are plain shared loads, and a global row another block
 // may have written is read with ld.global.cg, from L2.  σ of the block's
-// paths (16-bit fields: 2p+b < 2M <= 65536) is two tables, one read and
-// one a fork's target: in the block's shared memory at one path a thread
-// (`cluster_sigma_fork`), in global scratch at two (`global_sigma_fork`:
-// two tables of 2048 rows do not fit a block beside its keys and rows).
-// The block's shared memory also holds three sort-key buffers
-// (`cluster_sort_keys`, `cluster_sort_keys4`) and its paths' published
-// words in two sets; σ's table and the word set an info phase uses go by
-// the phase's parity (`cluster_layout`).
+// paths is two tables, one read and one a fork's target: in the block's
+// shared memory at one path a thread (`cluster_sigma_fork`), in global
+// scratch at two and four (`global_sigma_fork`: two tables of 2048 rows do
+// not fit a block beside its keys and rows).  A σ field and a trace entry
+// hold 2p + b < 2M: 16-bit up to M = 32768, 32-bit above
+// (`ClusterEntry`).  The block's shared memory also holds three sort-key
+// buffers (`cluster_sort_keysn`) and, up to two paths a thread, its paths'
+// published words in two sets; σ's table and the word set an info phase
+// uses go by the phase's parity (`cluster_layout`).  At four paths a thread
+// the three key buffers alone take 192 KB of a block's 227, so the word
+// sets go to global scratch beside σ ([B][2][words][M] 32-bit, written
+// before a fork's sort and read after its barriers with ld.global.cg), and
+// only level n stays in shared memory (G = n − 1 at every N).
 //
 // The cluster barriers (barrier.cluster arrive.release / wait.acquire):
 // one a cross-block sort stage and one for the sorted keys (so 2, 4, 7 and
-// 11 an info phase at P = 4096, 8192, 16384 and 32768, and 11 at 65536,
-// whose blocks hold 4096 keys), and one a phase whose word flags a read
-// through σ, split: the block arrives after the phase's last read of
-// another block's rows and waits before its next phase's passes,
+// 11 an info phase at P = 4096, 8192, 16384 and 32768, and 11 at 65536 and
+// 131072, whose blocks hold 4096 and 8192 keys), and one a phase whose word
+// flags a read through σ, split: the block arrives after the phase's last
+// read of another block's rows and waits before its next phase's passes,
 // the only writes another block may read that it had been reading (σ's
 // tables, the key buffers and the word sets are each rewritten only
 // behind a later sort's barriers).  A tree row another block reads through
@@ -506,21 +514,39 @@ __device__ __forceinline__ void block_sort_keys(unsigned long long* keys, unsign
 // m·N (K3's v rows; the list's [M, K] rows start from a 64-bit
 // (frame·M + m)·K) reach 2^30, and a global tree row's start
 // r·(N − (N >> G)) plus its entry is below 16384 · 65536 = 2^30: half of
-// 2^31.  At M = 32768 they reach 2^31, and at two paths a thread they are
-// 64-bit.
+// 2^31.  At M = 32768 they reach 2^31, and past one path a thread they are
+// 64-bit (2^32 at M = 65536).
 // ---------------------------------------------------------------------------
 
 #define CLUSTER_THREADS 1024  // threads a block of a cluster frame
 #define CLUSTER_SHIFT 10      // log2(CLUSTER_THREADS)
 #define CLUSTER_KEYS (2 * CLUSTER_THREADS)  // sort keys a block holds at one path a thread
 #define CLUSTER_MAX_BLOCKS 16  // past the portable 8, where the kernel allows it (`allow_cluster`)
-#define CLUSTER_MAX_PPT 2      // paths a thread at most: two past M = 16384
+#define CLUSTER_MAX_PPT 4      // paths a thread at most: two past M = 16384, four past 32768
 #define CLUSTER_MAX_M (CLUSTER_THREADS * CLUSTER_MAX_BLOCKS * CLUSTER_MAX_PPT)
 
-// Paths a thread of a cluster frame: one up to 1024 · 16, two above.
+// Paths a thread of a cluster frame: the least power of two at which 16
+// blocks of 1024 threads hold M paths (one up to 16384, two up to 32768,
+// four up to 65536).
 __host__ __device__ __forceinline__ int cluster_ppt(int M) {
-  return M > CLUSTER_THREADS * CLUSTER_MAX_BLOCKS ? 2 : 1;
+  int ppt = 1;
+  while (M > CLUSTER_THREADS * CLUSTER_MAX_BLOCKS * ppt) ppt <<= 1;
+  return ppt;
 }
+
+// log2 of PPT paths a thread: the shift from a path to its block, past
+// CLUSTER_SHIFT.
+__host__ __device__ constexpr int ppt_shift(int PPT) { return PPT <= 1 ? 0 : 1 + ppt_shift(PPT / 2); }
+
+// A σ field and a trace entry at PPT paths a thread: 2p + b < 2M, 16-bit
+// up to M = 32768, 32-bit at four paths a thread (2p + b up to 131071).
+template <int PPT>
+using ClusterEntry = typename std::conditional<(PPT >= 4), uint32_t, uint16_t>::type;
+
+// Whether the published word sets are in global scratch (four paths a
+// thread: the block's three key buffers take 192 KB), else in shared memory.
+template <int PPT>
+__host__ __device__ constexpr bool words_global() { return PPT >= 4; }
 
 // Blocks of a cluster frame: M rounded up to a power of two, over the
 // block's 1024 · cluster_ppt(M) paths.
@@ -529,14 +555,14 @@ __host__ __device__ __forceinline__ int cluster_blocks(int M) {
 }
 
 // A cluster frame's offsets within the frame: 32-bit at one path a thread,
-// 64-bit at two, where they reach 2^31 (the section note).
+// 64-bit above, where they reach 2^31 (the section note).
 template <int PPT>
 using ClusterOff = typename std::conditional<PPT == 1, int, long long>::type;
 
 // The key exchanges of one cluster sort of P keys, 2048·PPT a block: its
 // cross-block stages (j >= 2048·PPT in each merge of 4096·PPT keys or more:
 // 1, 3, 6, 10 at P = 4096, 8192, 16384, 32768 at one path a thread, 10 at
-// 65536 at two) and the sorted keys' store.  Sort i of a launch starts at
+// 65536 at two and at 131072 at four) and the sorted keys' store.  Sort i of a launch starts at
 // count i·cluster_exchanges(P), which picks its buffers
 // (`cluster_sort_keys`).
 template <int PPT = 1>
@@ -549,16 +575,17 @@ __host__ __device__ __forceinline__ int cluster_exchanges(int P) {
 
 // Byte offsets of one block's regions in its dynamic shared memory, each
 // 16-byte aligned, for its PATHS = 1024·PPT paths: two σ tables
-// [PATHS][row] (2n−2 16-bit fields a path, a row rounded to 4 bytes; none
-// at two paths a thread, whose σ is in global scratch), three buffers of
-// 2·PATHS sort keys u64, two sets of `words` 32-bit values a path (the
-// published leaf, syndrome and, in PAC, shift register), the LLR rows float
+// [PATHS][row] (2n−2 fields of `ClusterEntry<PPT>` a path, a row rounded to
+// 4 bytes; none past one path a thread, whose σ is in global scratch),
+// three buffers of 2·PATHS sort keys u64, two sets of `words` 32-bit values
+// a path (the published leaf, syndrome and, in PAC, shift register; none at
+// four paths a thread, `words_global`), the LLR rows float
 // [PATHS][(N>>G)−1] and partial-sum rows u8 [PATHS][(N>>G)−1] of levels
 // G+1..n, and the selected rank.  `ops/scl_cuda.py::cluster_block_bytes`
 // is the same reckoning.
 struct ClusterLayout {
   int sig, sig2, keys, words, ls, bs, sel, total;
-  int sig_row;  // bytes of a path's σ row: 4..60, a multiple of 4
+  int sig_row;  // bytes of a path's σ row: 4..60 (16-bit fields), 8..120 (32-bit), a multiple of 4
   int word_set;  // bytes of one set of published words
 };
 
@@ -567,13 +594,13 @@ __host__ __device__ __forceinline__ ClusterLayout cluster_layout(int N, int n, i
   constexpr int PATHS = CLUSTER_THREADS * PPT;
   ClusterLayout c;
   const int ss = (N >> G) - 1;
-  c.sig_row = round4((2 * n - 2) * 2);
+  c.sig_row = round4((2 * n - 2) * (int)sizeof(ClusterEntry<PPT>));
   if (c.sig_row < 4) c.sig_row = 4;
   c.sig = 0;
   c.sig2 = PPT == 1 ? round16(CLUSTER_THREADS * c.sig_row) : 0;
   c.keys = 2 * c.sig2;
   c.words = c.keys + 3 * 8 * CLUSTER_KEYS * PPT;
-  c.word_set = words * 4 * PATHS;
+  c.word_set = words_global<PPT>() ? 0 : words * 4 * PATHS;
   c.ls = c.words + 2 * c.word_set;
   c.bs = c.ls + round16(4 * PATHS * ss);
   c.sel = c.bs + round16(PATHS * ss);
@@ -599,7 +626,7 @@ __device__ __forceinline__ void cluster_barrier() {
 template <int PPT = 1, typename T>
 __device__ __forceinline__ T* path_entry(T* local, int p, int stride = 1) {
   return cooperative_groups::this_cluster().map_shared_rank(
-      local + (p & (CLUSTER_THREADS * PPT - 1)) * stride, p >> (CLUSTER_SHIFT + PPT - 1));
+      local + (p & (CLUSTER_THREADS * PPT - 1)) * stride, p >> (CLUSTER_SHIFT + ppt_shift(PPT)));
 }
 
 // Path r's row of a shared level whose block-local rows (`stride` entries
@@ -608,7 +635,7 @@ __device__ __forceinline__ T* path_entry(T* local, int p, int stride = 1) {
 template <int PPT = 1, typename T>
 __device__ __forceinline__ const T* cluster_row(const T* local, int r, int stride, int rank) {
   T* row = const_cast<T*>(local) + (r & (CLUSTER_THREADS * PPT - 1)) * stride;
-  const int owner = r >> (CLUSTER_SHIFT + PPT - 1);
+  const int owner = r >> (CLUSTER_SHIFT + ppt_shift(PPT));
   return owner == rank ? row : cooperative_groups::this_cluster().map_shared_rank(row, owner);
 }
 
@@ -634,14 +661,15 @@ __device__ __forceinline__ void cluster_sigma_fork(const DeepSigma<uint16_t>& si
   __syncthreads();
 }
 
-// σ ← σ[parent] for the block's path lm at two paths a thread, σ's two
+// σ ← σ[parent] for the block's path lm past one path a thread, σ's two
 // tables in global scratch ([frame][2][M][row], `sig.tab` the block's first
 // row of the table read): the parent's row, which another block may have
 // written (ld.global.cg, from L2; the fork's sort barriers order its
 // writes before), into row lm of `next`.  The tables alternate as
 // cluster_sigma_fork's; only the block's own threads read a row of its
 // paths through σ, behind the block barrier the caller ends the fork with.
-__device__ __forceinline__ void global_sigma_fork(const DeepSigma<uint16_t>& sig, uint16_t* next, int lm,
+template <typename T>
+__device__ __forceinline__ void global_sigma_fork(const DeepSigma<T>& sig, T* next, int lm,
                                                   long long parent_from_base) {
   const unsigned* src = reinterpret_cast<const unsigned*>(sig.tab + parent_from_base * sig.row);
   unsigned* dst = reinterpret_cast<unsigned*>(next + lm * sig.row);
@@ -659,9 +687,9 @@ __device__ __forceinline__ void global_sigma_fork(const DeepSigma<uint16_t>& sig
 // global scratch (`src` path 0's row, rows `sstride` apart, 0 for the
 // channel), read from L2.  A g takes dst's own partial sums as its left
 // bits.  PPT paths a thread: the block's Mr <= 1024·PPT paths.
-template <bool SHARED, int PPT = 1>
+template <bool SHARED, int PPT = 1, typename E>
 __device__ __forceinline__ void cluster_fg_pass(float* dst, const uint8_t* dbits, int dstride,
-                                                const float* src, int sstride, const uint16_t* via,
+                                                const float* src, int sstride, const E* via,
                                                 int vrow, bool is_g, int lh, int base, int rank,
                                                 int Mr, int tid) {
   const int half = 1 << lh;
@@ -692,9 +720,9 @@ __device__ __forceinline__ void cluster_fg_pass(float* dst, const uint8_t* dbits
 // level's row (the block's rows from `st`, `ststride` apart, shared or
 // global), becomes [left[r] ^ cur, cur] in place, r as in cluster_fg_pass
 // (SHARED: the left level in shared memory, else in global scratch).
-template <bool SHARED, int PPT = 1>
+template <bool SHARED, int PPT = 1, typename E>
 __device__ __forceinline__ void cluster_chain_pass(uint8_t* st, int ststride, const uint8_t* left,
-                                                   int lstride, const uint16_t* via, int vrow,
+                                                   int lstride, const E* via, int vrow,
                                                    int lsz, int base, int rank, int Mr, int tid) {
   const int sz = 1 << lsz;
   const int total = Mr * sz;
@@ -795,30 +823,33 @@ __device__ __forceinline__ unsigned long long* cluster_sort_keys(unsigned long l
   return sorted;
 }
 
-// cluster_sort_keys at two paths a thread (M 16385..32768): the P keys
-// (P = 65536) over blocks of 4096, thread tid of rank r holding the keys of
-// positions 4(r·1024 + tid) + 0..3 in k[0..3], each stage compare-
-// exchanging positions i and i^j as cluster_sort_keys does.  Distances 1
-// and 2 are within the thread, in registers; 4..64 within the warp, by
-// __shfl_xor_sync with lane tid ^ j/4; 128..2048 through the block's
-// buffers Y and X (as cluster_sort_keys' 64..1024, one block barrier a
-// stage, the buffers in the same turns); and 4096 and above across blocks,
-// partner rank r ^ j/4096, through the exchange buffers X[xc & 1] behind a
-// cluster barrier (10 of the 136 stages at P = 65536).  A buffer holds
-// thread tid's keys 0, 1 at entries 2·tid, +1 and its keys 2, 3 at
-// 2048 + 2·tid, +1, so that each of its two 16-byte stores and loads is a
-// warp's 512 contiguous bytes.  After the last merge's first stage the upper
-// half's blocks stop, and the lower half stores its keys in rank order,
-// thread tid's at 4·tid..+3 of the next exchange buffer, behind a cluster
-// barrier: the key of rank q is then rank q >> 12's entry q & 4095
-// (`cluster_key<2>`).  Every thread of the cluster calls it, with the same
-// xc: the launch's exchanges before it (`cluster_exchanges<2>`).
-__device__ __forceinline__ unsigned long long* cluster_sort_keys4(unsigned long long* keys,
-                                                                  unsigned long long (&k)[4], int P,
+// cluster_sort_keys past one path a thread (M 16385..65536): the P keys
+// (65536 at two paths a thread, 131072 at four) over blocks of BK =
+// 1024·KPT, KPT = 2·PPT keys a thread (4 or 8): thread tid of rank r holds
+// the keys of positions KPT(r·1024 + tid) + 0..KPT−1 in k[], each stage
+// compare-exchanging positions i and i^j as cluster_sort_keys does.
+// Distances below KPT are within the thread, in registers; KPT..16·KPT
+// within the warp, by __shfl_xor_sync with lane tid ^ j/KPT; 32·KPT..BK/2
+// through the block's buffers Y and X (as cluster_sort_keys' 64..1024, one
+// block barrier a stage, the buffers in the same turns); and BK and above
+// across blocks, partner rank r ^ j/BK, through the exchange buffers
+// X[xc & 1] behind a cluster barrier (10 of the 136 / 153 stages at P =
+// 65536 / 131072).  A buffer holds thread tid's keys 2i, 2i+1 at entries
+// 2(i·1024 + tid), +1, so that each of its KPT/2 16-byte stores and loads
+// is a warp's 512 contiguous bytes.  After the last merge's first stage the
+// upper half's blocks stop, and the lower half stores its keys in rank
+// order, thread tid's at KPT·tid..+KPT−1 of the next exchange buffer,
+// behind a cluster barrier: the key of rank q is then rank q / BK's entry
+// q % BK (`cluster_key<PPT>`).  Every thread of the cluster calls it, with
+// the same xc: the launch's exchanges before it (`cluster_exchanges<PPT>`).
+template <int KPT>
+__device__ __forceinline__ unsigned long long* cluster_sort_keysn(unsigned long long* keys,
+                                                                  unsigned long long (&k)[KPT], int P,
                                                                   int rank, int tid, int xc) {
-  constexpr int BK = 2 * CLUSTER_KEYS;  // keys a block
+  constexpr int BK = CLUSTER_THREADS * KPT;  // keys a block
+  constexpr int H = KPT / 2;                 // 16-byte pairs of keys a thread
   cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
-  const int base = 4 * (rank * CLUSTER_THREADS + tid);
+  const int base = KPT * (rank * CLUSTER_THREADS + tid);
   unsigned long long* const Y = keys + 2 * BK;
   bool on = true;
   int ib = 0;  // in-block stages since the last cross-block one: Y at even counts
@@ -828,17 +859,18 @@ __device__ __forceinline__ unsigned long long* cluster_sort_keys4(unsigned long 
   };
   auto store = [&](unsigned long long* buf) {
     ulonglong2* v = reinterpret_cast<ulonglong2*>(buf);
-    v[tid] = make_ulonglong2(k[0], k[1]);
-    v[CLUSTER_THREADS + tid] = make_ulonglong2(k[2], k[3]);
+#pragma unroll
+    for (int i = 0; i < H; ++i) v[i * CLUSTER_THREADS + tid] = make_ulonglong2(k[2 * i], k[2 * i + 1]);
   };
   // keys i against thread t's keys i of `buf` (this block's, or another's through DSMEM)
   auto merge = [&](const unsigned long long* buf, int t, bool keep_min) {
     const ulonglong2* v = reinterpret_cast<const ulonglong2*>(buf);
-    const ulonglong2 lo = v[t], hi = v[CLUSTER_THREADS + t];
-    exchange(k[0], lo.x, keep_min);
-    exchange(k[1], lo.y, keep_min);
-    exchange(k[2], hi.x, keep_min);
-    exchange(k[3], hi.y, keep_min);
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const ulonglong2 o = v[i * CLUSTER_THREADS + t];
+      exchange(k[2 * i], o.x, keep_min);
+      exchange(k[2 * i + 1], o.y, keep_min);
+    }
   };
   // positions a < b of one thread: the smaller to a when ascending
   auto order = [](unsigned long long& a, unsigned long long& b, bool up) {
@@ -848,7 +880,7 @@ __device__ __forceinline__ unsigned long long* cluster_sort_keys4(unsigned long 
     a = lo;
   };
   for (int size = 2; size <= P; size <<= 1) {
-    const bool up = (base & size) == 0;  // every key of the thread, but keys 2, 3 at size 2
+    const bool up = (base & size) == 0;  // every key of the thread once size > KPT
     int j = size >> 1;
     for (; j >= BK; j >>= 1) {  // across blocks
       unsigned long long* buf = X(xc);
@@ -859,42 +891,44 @@ __device__ __forceinline__ unsigned long long* cluster_sort_keys4(unsigned long 
       ib = 0;
       if (size == P) on = on && base < P / 2;
     }
-    for (; j >= 128; j >>= 1) {  // across warps of the block
+    for (; j >= 32 * KPT; j >>= 1) {  // across warps of the block
       unsigned long long* buf = (ib++ & 1) ? X(xc) : Y;
       if (on) store(buf);
       __syncthreads();
-      if (on) merge(buf, tid ^ (j / 4), ((base & j) == 0) == up);
+      if (on) merge(buf, tid ^ (j / KPT), ((base & j) == 0) == up);
       if (size == P) on = on && base < P / 2;
     }
     if (on) {
 #pragma unroll
-      for (int jj = 64; jj >= 4; jj >>= 1) {  // within the warp
+      for (int jj = 16 * KPT; jj >= KPT; jj >>= 1) {  // within the warp
         if (jj < size) {
           const bool keep_min = ((base & jj) == 0) == up;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) exchange(k[i], __shfl_xor_sync(FULL_MASK, k[i], jj / 4), keep_min);
+          for (int i = 0; i < KPT; ++i) exchange(k[i], __shfl_xor_sync(FULL_MASK, k[i], jj / KPT), keep_min);
         }
       }
-      if (size >= 4) {  // j = 2, in registers
-        order(k[0], k[2], up);
-        order(k[1], k[3], up);
+#pragma unroll
+      for (int jj = KPT / 2; jj >= 1; jj >>= 1) {  // within the thread, in registers
+        if (jj < size) {
+#pragma unroll
+          for (int i = 0; i < KPT; ++i)  // position base + i ascends where its bit of size is clear
+            if (!(i & jj)) order(k[i], k[i | jj], ((base | i) & size) == 0);
+        }
       }
-      order(k[0], k[1], up);  // j = 1
-      order(k[2], k[3], size == 2 ? !up : up);
     }
   }
   unsigned long long* sorted = X(xc);  // Y and this one's stage reads are behind a barrier
   if (on) {
     ulonglong2* v = reinterpret_cast<ulonglong2*>(sorted);
-    v[2 * tid] = make_ulonglong2(k[0], k[1]);
-    v[2 * tid + 1] = make_ulonglong2(k[2], k[3]);
+#pragma unroll
+    for (int i = 0; i < H; ++i) v[H * tid + i] = make_ulonglong2(k[2 * i], k[2 * i + 1]);
   }
   cluster_barrier();
   return sorted;
 }
 
 // The sort of a fork's or the final rank's keys at PPT paths a thread,
-// k[0..2PPT−1] the thread's: cluster_sort_keys, or cluster_sort_keys4.
+// k[0..2PPT−1] the thread's: cluster_sort_keys, or cluster_sort_keysn.
 template <int PPT>
 __device__ __forceinline__ unsigned long long* cluster_sort(unsigned long long* keys,
                                                             unsigned long long (&k)[2 * PPT], int P,
@@ -902,7 +936,7 @@ __device__ __forceinline__ unsigned long long* cluster_sort(unsigned long long* 
   if constexpr (PPT == 1)
     return cluster_sort_keys(keys, k[0], k[1], P, rank, tid, xc);
   else
-    return cluster_sort_keys4(keys, k, P, rank, tid, xc);
+    return cluster_sort_keysn<2 * PPT>(keys, k, P, rank, tid, xc);
 }
 
 // The key of rank q after cluster_sort: rank q / (2048·PPT)'s
@@ -910,7 +944,7 @@ __device__ __forceinline__ unsigned long long* cluster_sort(unsigned long long* 
 template <int PPT = 1>
 __device__ __forceinline__ unsigned long long cluster_key(unsigned long long* sorted, int q) {
   return *cooperative_groups::this_cluster().map_shared_rank(
-      sorted + (q & (CLUSTER_KEYS * PPT - 1)), q >> (CLUSTER_SHIFT + PPT));
+      sorted + (q & (CLUSTER_KEYS * PPT - 1)), q >> (CLUSTER_SHIFT + 1 + ppt_shift(PPT)));
 }
 
 // ---- host side ----

@@ -93,7 +93,10 @@
 // pac_cluster_pair_kernel<LIST> (L 16385..32768), two slots a thread on a
 // cluster of 16, σ in global scratch, as the SCL kernel's pair
 // instantiation (the same body, the slots a thread a compile-time
-// parameter).
+// parameter); past L = 32768 pac_cluster_quad_kernel<LIST> (L
+// 32769..65536), four slots a thread, 32-bit trace entries and σ fields,
+// and the three published words in global scratch beside σ, as the SCL
+// kernel's quad instantiation.
 //
 // Each path carries its CRC syndrome (the XOR of the 32-bit check columns,
 // in phase order, of its set bits) and its shift register in registers,
@@ -741,20 +744,22 @@ __global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_wide_kernel(PAC_DEEP_PARA
 }
 
 // ---------------------------------------------------------------------------
-// Over a cluster: list sizes 1025..32768, one frame a cluster of blocks.
+// Over a cluster: list sizes 1025..65536, one frame a cluster of blocks.
 // ---------------------------------------------------------------------------
 
 // The PAC decode with a frame spread over a cluster of C =
 // cluster_blocks(L) blocks of 1024 threads, on the SCL kernel's cluster
 // layout (`scl_decode.cu`'s scl_cluster_decode has the design), PPT slots
-// a thread (1 up to L = 16384, 2 above): slot m = r·1024·PPT + k·1024 + tid
+// a thread (1 up to L = 16384, 2 up to 32768, 4 above): slot m =
+// r·1024·PPT + k·1024 + tid
 // of rank r (k < PPT) has its metric, shift register and syndrome in thread
 // tid's registers and its candidates good m and bad L + m among the
 // thread's sort keys; tree levels G+1..n of the block's slots in its shared
 // memory, levels 1..G in global scratch; the sort keys and the published
 // leaf, syndrome and shift register of the block's slots in its shared
-// memory, and σ there too at one slot a thread (in global scratch at two,
-// `sigma_g`); the fork's parent values through DSMEM.  It computes what
+// memory (in global scratch at four slots a thread, `words_g`), and σ
+// there too at one slot a thread (in global scratch past it, `sigma_g`);
+// the fork's parent values through DSMEM (or L2).  It computes what
 // pac_decode_kernel computes.
 template <bool LIST, int PPT>
 __device__ __forceinline__ void pac_cluster_decode(
@@ -762,13 +767,15 @@ __device__ __forceinline__ void pac_cluster_decode(
     const int* __restrict__ sched, const int* __restrict__ phase_of,
     float* glob_llr,     // [B, L, N-(N>>G)]: LLR levels 1..G, null when G == 0
     uint8_t* glob_bits,  // [B, L, N-(N>>G)]: edge-bit levels 1..G
-    uint16_t* trace_idx,  // [B, Kp, L]: the trace, in global scratch
+    ClusterEntry<PPT>* trace_idx,  // [B, Kp, L]: the trace, in global scratch
     int8_t* __restrict__ out_bits, uint8_t* __restrict__ out_pass, const int* __restrict__ out_pos,
     const int* __restrict__ u_pos, int8_t* __restrict__ list_v, int8_t* __restrict__ list_bits,
     float* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int Kp, int L,
     int G, unsigned mem_mask, unsigned tap_mask, int use_crc,
-    uint16_t* sigma_g) {  // [B, 2, L, row]: σ's two tables at two slots a thread, else null
+    ClusterEntry<PPT>* sigma_g,  // [B, 2, L, row]: σ's two tables past one slot a thread, else null
+    uint32_t* words_g) {  // [B, 2, 3, L]: the published word sets at four slots a thread, else null
   using Off = ClusterOff<PPT>;
+  using E = ClusterEntry<PPT>;  // a σ field and a trace entry
   constexpr int PATHS = CLUSTER_THREADS * PPT;  // slots a block
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
@@ -795,11 +802,10 @@ __device__ __forceinline__ void pac_cluster_decode(
   // from the block's first slot's row
   auto sigma = [&](int i) {
     if constexpr (PPT == 1)
-      return DeepSigma<uint16_t>{reinterpret_cast<uint16_t*>(smem + (i & 1) * lay.sig2), lay.sig_row / 2,
-                                 lay.sig_row / 4};
+      return DeepSigma<E>{reinterpret_cast<E*>(smem + (i & 1) * lay.sig2), lay.sig_row / 2, lay.sig_row / 4};
     else
-      return DeepSigma<uint16_t>{sigma_g + ((frame * 2 + (i & 1)) * L + base) * (lay.sig_row / 2),
-                                 lay.sig_row / 2, lay.sig_row / 4};
+      return DeepSigma<E>{sigma_g + ((frame * 2 + (i & 1)) * L + base) * (lay.sig_row / (int)sizeof(E)),
+                          lay.sig_row / (int)sizeof(E), lay.sig_row / 4};
   };
   unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem + lay.keys);
   float* Ls = reinterpret_cast<float*>(smem + lay.ls);
@@ -807,13 +813,35 @@ __device__ __forceinline__ void pac_cluster_decode(
   int* selS = reinterpret_cast<int*>(smem + lay.sel);
   float* Lg = glob_llr + frame * L * SG;  // unused when G == 0
   uint8_t* Bg = glob_bits + frame * L * SG;
-  uint16_t* TI = trace_idx + frame * Kp * L;
+  E* TI = trace_idx + frame * Kp * L;
   const float* ch = llr + frame * N;
   auto so = [&](int l) { return (N >> G) - (N >> (l - 1)); };
   auto go = [&](int l) { return N - (N >> (l - 1)); };
-  // word k (leaf, syndrome, shift register) of published set i (an info phase's parity)
+  // levels 1..G in global scratch: a path's row of SG entries up to two
+  // paths a thread; at four, by level ([G][L][N >> l]), so that the narrow
+  // levels a phase reads are a few contiguous kilobytes a block, where a
+  // path's row put each of them in a 32-byte sector of its own.  glev(g,
+  // l): level l's first row; gw(l): a row's entries
+  constexpr bool BY_LEVEL = PPT >= 4;
+  auto glev = [&](auto* g, int l) { return g + (Off)L * go(l); };
+  auto gw = [&](int l) { return BY_LEVEL ? N >> l : SG; };
+  // word k (leaf, syndrome, shift register) of published set i (an info
+  // phase's parity), from the block's first slot: in shared memory, or at
+  // four slots a thread in global scratch
   auto wordS = [&](int i, int k) {
-    return reinterpret_cast<unsigned*>(smem + lay.words + i * lay.word_set + k * 4 * PATHS);
+    if constexpr (words_global<PPT>())
+      return words_g + ((frame * 2 + i) * 3 + k) * L + base;
+    else
+      return reinterpret_cast<unsigned*>(smem + lay.words + i * lay.word_set + k * 4 * PATHS);
+  };
+  // slot p's entry of a published word whose block-local start is `own`:
+  // another block's through DSMEM, or from L2 (written before the sort's
+  // cluster barriers)
+  auto published = [&](unsigned* own, int p) {
+    if constexpr (words_global<PPT>())
+      return __ldcg(own - base + p);
+    else
+      return *path_entry<PPT>(own, p);
   };
 
 #pragma unroll
@@ -841,7 +869,7 @@ __device__ __forceinline__ void pac_cluster_decode(
     const int gl = word & 31;
     const int is_frozen = word >> 10 & 1;
     const int l0 = p == 0 ? 1 : gl;
-    DeepSigma<uint16_t> sig = sigma(info_i);
+    DeepSigma<E> sig = sigma(info_i);
 #pragma unroll
     for (int k = 0; k < PPT; ++k)
       if (act[k]) sig.reset(k * CLUSTER_THREADS + tid, m[k], l0 - 1, n - 1, s_prev >= 2 ? n + s_prev - 3 : -1);
@@ -851,18 +879,20 @@ __device__ __forceinline__ void pac_cluster_decode(
     // ---- f/g updates down to level n−1, this block's slots ----
     for (int l = l0; l < n; ++l) {
       const bool is_g = (p != 0) && (l == gl);
-      float* dst = l > G ? Ls + so(l) : Lg + (Off)base * SG + go(l);
-      const uint8_t* dbits = l > G ? Bs + so(l) : Bg + (Off)base * SG + go(l);
-      const int ds = l > G ? SS : SG;
+      float* dst = l > G ? Ls + so(l) : BY_LEVEL ? glev(Lg, l) + (Off)base * gw(l) : Lg + (Off)base * SG + go(l);
+      const uint8_t* dbits = l > G ? Bs + so(l)
+                                   : BY_LEVEL ? glev(Bg, l) + (Off)base * gw(l) : Bg + (Off)base * SG + go(l);
+      const int ds = l > G ? SS : gw(l);
       if (l == 1) {
         channel_pass(dst, dbits, ds, ch, 32 - n, is_g, n - 1, Lr, tid, CLUSTER_THREADS);
       } else {
-        const uint16_t* via = (is_g && (word >> 11 & 1)) ? sig.field(l - 2) : nullptr;
+        const E* via = (is_g && (word >> 11 & 1)) ? sig.field(l - 2) : nullptr;
         if (l - 1 > G)
           cluster_fg_pass<true, PPT>(dst, dbits, ds, Ls + so(l - 1), SS, via, sig.row, is_g, n - l, base, rank,
                                      Lr, tid);
         else
-          cluster_fg_pass<false, PPT>(dst, dbits, ds, Lg + go(l - 1), SG, via, sig.row, is_g, n - l, base,
+          cluster_fg_pass<false, PPT>(dst, dbits, ds, BY_LEVEL ? glev(Lg, l - 1) : Lg + go(l - 1), gw(l - 1), via,
+                                      sig.row, is_g, n - l, base,
                                       rank, Lr, tid);
       }
       __syncthreads();
@@ -886,7 +916,7 @@ __device__ __forceinline__ void pac_cluster_decode(
             a = row[0];
             b = row[1];
           } else {
-            const float* row = Lg + go(n - 1) + (Off)r * SG;
+            const float* row = BY_LEVEL ? glev(Lg, n - 1) + (Off)r * 2 : Lg + go(n - 1) + (Off)r * SG;
             a = __ldcg(row);
             b = __ldcg(row + 1);
           }
@@ -936,23 +966,23 @@ __device__ __forceinline__ void pac_cluster_decode(
         const int w = act[k] ? key_index(key) : 0;
         const int is_bad = w >= L;
         parent[k] = is_bad ? w - L : w;
-        const int hp = __uint_as_float(*path_entry<PPT>(wordS(set, 0), parent[k])) < 0.f;
-        const unsigned rp = *path_entry<PPT>(wordS(set, 2), parent[k]);
+        const int hp = __uint_as_float(published(wordS(set, 0), parent[k])) < 0.f;
+        const unsigned rp = published(wordS(set, 2), parent[k]);
         const int bp = __popc(rp & tap_mask) & 1;
-        const uint32_t sp = *path_entry<PPT>(wordS(set, 1), parent[k]);
+        const uint32_t sp = published(wordS(set, 1), parent[k]);
         const uint32_t hc = use_crc ? hcols[info_i] : 0u;
         const int v = bp ^ hp ^ is_bad;  // good: edge == hard; bad: the other bit
         pm[k] = key_metric(key);
         edge[k] = hp ^ is_bad;
         reg[k] = ((rp << 1) | (unsigned)v) & mem_mask;
         syn[k] = v ? sp ^ hc : sp;
-        if (act[k]) TI[(Off)info_i * L + m[k]] = (uint16_t)((parent[k] << 1) | v);
+        if (act[k]) TI[(Off)info_i * L + m[k]] = (E)((parent[k] << 1) | v);
       }
       // σ ← σ[parent] on every level
       if constexpr (PPT == 1) {
         cluster_sigma_fork(sig, sigma(info_i + 1).tab, tid, parent[0], act[0]);
       } else {
-        uint16_t* next = sigma(info_i + 1).tab;
+        E* next = sigma(info_i + 1).tab;
 #pragma unroll
         for (int k = 0; k < PPT; ++k)
           if (act[k]) global_sigma_fork(sig, next, k * CLUSTER_THREADS + tid, parent[k] - base);
@@ -969,7 +999,8 @@ __device__ __forceinline__ void pac_cluster_decode(
       for (int k = 0; k < PPT; ++k) {
         const int lm = k * CLUSTER_THREADS + tid;
         if (act[k]) {
-          uint8_t* cur = s > G ? Bs + lm * SS + so(s) : Bg + (Off)m[k] * SG + go(s);
+          uint8_t* cur = s > G ? Bs + lm * SS + so(s)
+                               : BY_LEVEL ? glev(Bg, s) + (Off)m[k] * gw(s) : Bg + (Off)m[k] * SG + go(s);
           if (s == n) {
             cur[0] = (uint8_t)edge[k];
           } else {
@@ -981,14 +1012,15 @@ __device__ __forceinline__ void pac_cluster_decode(
         }
       }
       __syncthreads();
-      uint8_t* st = s > G ? Bs + so(s) : Bg + (Off)base * SG + go(s);
-      const int sts = s > G ? SS : SG;
+      uint8_t* st = s > G ? Bs + so(s) : BY_LEVEL ? glev(Bg, s) + (Off)base * gw(s) : Bg + (Off)base * SG + go(s);
+      const int sts = s > G ? SS : gw(s);
       for (int lv = n - 1; lv > s; --lv) {
-        const uint16_t* via = (cmask >> lv & 1) ? sig.field(n + lv - 3) : nullptr;
+        const E* via = (cmask >> lv & 1) ? sig.field(n + lv - 3) : nullptr;
         if (lv > G)
           cluster_chain_pass<true, PPT>(st, sts, Bs + so(lv), SS, via, sig.row, n - lv, base, rank, Lr, tid);
         else
-          cluster_chain_pass<false, PPT>(st, sts, Bg + go(lv), SG, via, sig.row, n - lv, base, rank, Lr, tid);
+          cluster_chain_pass<false, PPT>(st, sts, BY_LEVEL ? glev(Bg, lv) : Bg + go(lv), gw(lv), via, sig.row,
+                                         n - lv, base, rank, Lr, tid);
         __syncthreads();
       }
     }
@@ -1016,7 +1048,7 @@ __device__ __forceinline__ void pac_cluster_decode(
   for (int k = 0; k < PPT; ++k) {
     fkey[k] = act[k] ? cluster_key<PPT>(sorted, m[k]) : ~0ull;
     slot_r[k] = act[k] ? key_index(fkey[k]) : 0;
-    if (act[k] && *path_entry<PPT>(passS, slot_r[k])) atomicMin(cluster.map_shared_rank(selS, 0), m[k]);
+    if (act[k] && published(passS, slot_r[k])) atomicMin(cluster.map_shared_rank(selS, 0), m[k]);
   }
   cluster.sync();
   const int least = *cluster.map_shared_rank(selS, 0);
@@ -1053,7 +1085,7 @@ __device__ __forceinline__ void pac_cluster_decode(
       int slot = slot_r[k];
       for (int i = Kp - 1; i >= 0; --i) {
         const int w = __ldcg(TI + (Off)i * L + slot);
-        TI[(Off)i * L] = (uint16_t)(w & 1);
+        TI[(Off)i * L] = (E)(w & 1);
         slot = w >> 1;
       }
       out_pass[frame] = least < L ? 1 : 0;
@@ -1064,10 +1096,10 @@ __device__ __forceinline__ void pac_cluster_decode(
     out_bits[frame * Kp + j] = (int8_t)__ldcg(TI + (Off)phase_of[j] * L);
 }
 
-#define PAC_CLUSTER_PARAMS                                                                         \
+#define PAC_CLUSTER_PARAMS(E)                                                                      \
   const float* __restrict__ llr, const uint32_t* __restrict__ hcols,                               \
       const int* __restrict__ sched, const int* __restrict__ phase_of, float* glob_llr,            \
-      uint8_t* glob_bits, uint16_t* trace_idx, int8_t* __restrict__ out_bits,                      \
+      uint8_t* glob_bits, E* trace_idx, int8_t* __restrict__ out_bits,                             \
       uint8_t* __restrict__ out_pass, const int* __restrict__ out_pos,                             \
       const int* __restrict__ u_pos, int8_t* __restrict__ list_v, int8_t* __restrict__ list_bits,  \
       float* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int Kp, int L,  \
@@ -1079,15 +1111,24 @@ __device__ __forceinline__ void pac_cluster_decode(
 
 // L 1025..16384: one slot a thread, σ in the blocks' shared memory
 template <bool LIST>
-__global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(PAC_CLUSTER_PARAMS) {
-  pac_cluster_decode<LIST, 1>(PAC_CLUSTER_ARGS, nullptr);
+__global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(PAC_CLUSTER_PARAMS(uint16_t)) {
+  pac_cluster_decode<LIST, 1>(PAC_CLUSTER_ARGS, nullptr, nullptr);
 }
 
 // L 16385..32768: two slots a thread on a cluster of 16, σ in global scratch
 template <bool LIST>
-__global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_pair_kernel(PAC_CLUSTER_PARAMS,
+__global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_pair_kernel(PAC_CLUSTER_PARAMS(uint16_t),
                                                                            uint16_t* sigma_g) {
-  pac_cluster_decode<LIST, 2>(PAC_CLUSTER_ARGS, sigma_g);
+  pac_cluster_decode<LIST, 2>(PAC_CLUSTER_ARGS, sigma_g, nullptr);
+}
+
+// L 32769..65536: four slots a thread on a cluster of 16, 32-bit trace
+// entries and σ fields, σ and the published words in global scratch
+template <bool LIST>
+__global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_quad_kernel(PAC_CLUSTER_PARAMS(uint32_t),
+                                                                           uint32_t* sigma_g,
+                                                                           uint32_t* words_g) {
+  pac_cluster_decode<LIST, 4>(PAC_CLUSTER_ARGS, sigma_g, words_g);
 }
 
 // every kernel argument but the σ masks, and the stream
@@ -1195,33 +1236,49 @@ int launch_deep(const Args& a, void* trace_idx, cudaStream_t stream) {
 }
 
 template <bool LIST, int PPT>
-int launch_cluster_as(const Args& a, uint16_t* trace_idx, uint16_t* sigma, cudaStream_t stream) {
+int launch_cluster_as(const Args& a, void* trace_idx, void* sigma, cudaStream_t stream) {
+  using E = ClusterEntry<PPT>;
   const ClusterLayout lay = cluster_layout<PPT>(a.N, a.n, a.G, 3);
   // levels 1..G in global scratch, G+1..n in each block's shared memory,
-  // one frame a cluster; at two slots a thread σ in global scratch
-  if (!trace_idx || (PPT == 2 && !sigma) || (a.G > 0 && (!a.glob_llr || !a.glob_bits)) || a.n > MAX_LEVELS ||
+  // one frame a cluster; past one slot a thread σ in global scratch
+  if (!trace_idx || (PPT > 1 && !sigma) || (a.G > 0 && (!a.glob_llr || !a.glob_bits)) || a.n > MAX_LEVELS ||
       a.G < 0 || a.G >= a.n || lay.total != a.frame_bytes || a.frames_per_block != 1)
     return (int)cudaErrorInvalidValue;
+  E* ti = static_cast<E*>(trace_idx);
+  E* sg = static_cast<E*>(sigma);
   if constexpr (PPT == 1)
     return launch_cluster_kernel(pac_cluster_kernel<LIST>, a.B, a.L, lay.total, stream, a.llr, a.hcols,
-                                 a.sched, a.phase_of, a.glob_llr, a.glob_bits, trace_idx, a.out_bits,
+                                 a.sched, a.phase_of, a.glob_llr, a.glob_bits, ti, a.out_bits,
                                  a.out_pass, a.out_pos, a.u_pos, a.list_v, a.list_bits,
                                  a.list_metrics, a.list_best, a.N, a.n, a.Kp, a.L, a.G, a.mem_mask,
                                  a.tap_mask, a.use_crc);
-  else
+  else if constexpr (PPT == 2)
     return launch_cluster_kernel(pac_cluster_pair_kernel<LIST>, a.B, a.L, lay.total, stream, a.llr, a.hcols,
-                                 a.sched, a.phase_of, a.glob_llr, a.glob_bits, trace_idx, a.out_bits,
+                                 a.sched, a.phase_of, a.glob_llr, a.glob_bits, ti, a.out_bits,
                                  a.out_pass, a.out_pos, a.u_pos, a.list_v, a.list_bits,
                                  a.list_metrics, a.list_best, a.N, a.n, a.Kp, a.L, a.G, a.mem_mask,
-                                 a.tap_mask, a.use_crc, sigma);
+                                 a.tap_mask, a.use_crc, sg);
+  else  // the published word sets after σ's tables, [B][2][3][L]
+    return launch_cluster_kernel(pac_cluster_quad_kernel<LIST>, a.B, a.L, lay.total, stream, a.llr, a.hcols,
+                                 a.sched, a.phase_of, a.glob_llr, a.glob_bits, ti, a.out_bits,
+                                 a.out_pass, a.out_pos, a.u_pos, a.list_v, a.list_bits,
+                                 a.list_metrics, a.list_best, a.N, a.n, a.Kp, a.L, a.G, a.mem_mask,
+                                 a.tap_mask, a.use_crc, sg,
+                                 reinterpret_cast<uint32_t*>(static_cast<char*>(sigma) +
+                                                             (size_t)a.B * 2 * a.L * lay.sig_row));
 }
 
 int launch_cluster(const Args& a, void* trace_idx, void* sigma, cudaStream_t stream) {
-  uint16_t* ti = static_cast<uint16_t*>(trace_idx);
-  uint16_t* sg = static_cast<uint16_t*>(sigma);
-  if (cluster_ppt(a.L) == 2)
-    return a.list_v ? launch_cluster_as<true, 2>(a, ti, sg, stream) : launch_cluster_as<false, 2>(a, ti, sg, stream);
-  return a.list_v ? launch_cluster_as<true, 1>(a, ti, sg, stream) : launch_cluster_as<false, 1>(a, ti, sg, stream);
+  switch (cluster_ppt(a.L)) {
+    case 4:
+      return a.list_v ? launch_cluster_as<true, 4>(a, trace_idx, sigma, stream)
+                      : launch_cluster_as<false, 4>(a, trace_idx, sigma, stream);
+    case 2:
+      return a.list_v ? launch_cluster_as<true, 2>(a, trace_idx, sigma, stream)
+                      : launch_cluster_as<false, 2>(a, trace_idx, sigma, stream);
+  }
+  return a.list_v ? launch_cluster_as<true, 1>(a, trace_idx, sigma, stream)
+                  : launch_cluster_as<false, 1>(a, trace_idx, sigma, stream);
 }
 
 // The frames a block (1..MAX_FRAMES_PER_BLOCK) that let an SM hold the most
@@ -1292,9 +1349,11 @@ extern "C" int pac_launch_plan(int L, int n, int frame_bytes, int max_block_smem
   if (L < 1 || L > CLUSTER_MAX_M) return (int)cudaErrorInvalidValue;
   if (L > DEEP_MAX_M) {  // frames_per_sm: the frames (clusters) the card runs at once
     *frames_per_block = 1;
-    return cluster_ppt(L) == 2
-               ? plan_cluster(pac_cluster_pair_kernel<false>, L, frame_bytes, max_block_smem, frames_per_sm)
-               : plan_cluster(pac_cluster_kernel<false>, L, frame_bytes, max_block_smem, frames_per_sm);
+    switch (cluster_ppt(L)) {
+      case 4: return plan_cluster(pac_cluster_quad_kernel<false>, L, frame_bytes, max_block_smem, frames_per_sm);
+      case 2: return plan_cluster(pac_cluster_pair_kernel<false>, L, frame_bytes, max_block_smem, frames_per_sm);
+    }
+    return plan_cluster(pac_cluster_kernel<false>, L, frame_bytes, max_block_smem, frames_per_sm);
   }
   if (L > 128)
     return deep_wide<uint16_t>(n)

@@ -135,7 +135,7 @@
 //     blocks is the largest cluster an H100 places (7 at once, `PERF.md`
 //     §6), and a block at most 1024 threads, so each thread holds two paths
 //     (r·2048 + tid and r·2048 + 1024 + tid) and four sort keys
-//     (`cluster_sort_keys4`: distances 1 and 2 in registers, the stages
+//     (`cluster_sort_keysn<4>`: distances 1 and 2 in registers, the stages
 //     across blocks at 4096 keys and more).  The same body,
 //     scl_cluster_decode<LIST, 2>, with the paths a thread a compile-time
 //     parameter, so that the one-path kernels are what they were.  A block's
@@ -146,6 +146,19 @@
 //     L1, a parent's row at a fork from L2.  The 16-bit fields are full at
 //     M = 32768 (2p + b up to 65535, unsigned), and the within-frame
 //     offsets, which reach 2^31 there, are 64-bit (`ClusterOff`).
+//   * Past M = 32768, scl_cluster_quad_kernel<LIST> (M 32769..65536): the
+//     same body at four paths a thread, eight sort keys
+//     (`cluster_sort_keysn<8>`: distances 1..4 in registers, 8..128 by
+//     shuffles, 256..4096 through the buffers, 8192 and above across
+//     blocks).  Its three key buffers take 192 KB of a block's 227, so the
+//     published leaf and syndrome go to global scratch beside σ
+//     ([B][2][2][M], `words_g`, read after the sort's barriers from L2),
+//     and only level n stays in shared memory (G = n − 1, 217,104 B a block
+//     at every N).  Two key buffers (128 KB) would let G = n − 2, at one
+//     more block barrier a sort stage; the sort is the larger share of a
+//     fork, so the three stay.  2p + b reaches 131071: the trace entries
+//     and σ fields are 32-bit (`ClusterEntry<4>`), and every kernel at
+//     M <= 32768 keeps its 8- or 16-bit ones.
 //
 // Layout.  One warp decodes one frame and a block holds a few frames (over
 // warps: one block a frame; on a cluster, one cluster a frame, each block
@@ -1030,12 +1043,13 @@ __global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_wide_kernel(SCL_DEEP_PARA
 }
 
 // ---------------------------------------------------------------------------
-// Over a cluster: list sizes 1025..32768, one frame a cluster of blocks.
+// Over a cluster: list sizes 1025..65536, one frame a cluster of blocks.
 // ---------------------------------------------------------------------------
 
 // The SCL decode with a frame spread over a cluster of C = cluster_blocks(M)
 // blocks of 1024 threads (`list_decode.cuh` has the layout and the
-// barriers), each thread holding PPT paths (1 up to M = 16384, 2 above):
+// barriers), each thread holding PPT paths (1 up to M = 16384, 2 up to
+// 32768, 4 above):
 // path m = r·1024·PPT + k·1024 + tid of rank r (k < PPT) has its metric and
 // syndrome in thread tid's registers, and its candidates 2m and 2m+1 among
 // the thread's sort keys.  Tree levels G+1..n of the block's paths are in
@@ -1045,9 +1059,9 @@ __global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_wide_kernel(SCL_DEEP_PARA
 // which may be another block's, through DSMEM (a shared level) or from L2
 // (a global one).  A fork publishes each path's leaf and syndrome (one of
 // two sets by the info phase's parity), sorts the 2M candidates over the
-// cluster, and takes the parent's words and σ row (through DSMEM; at two
-// paths a thread σ is in global scratch, `sigma_g`, and the row comes from
-// L2).  A phase that read another path's row through σ ends with a split
+// cluster, and takes the parent's words and σ row (through DSMEM; past one
+// path a thread σ is in global scratch, `sigma_g`, and the row comes from
+// L2, and at four the words too, `words_g`).  A phase that read another path's row through σ ends with a split
 // cluster barrier, waited for before the next phase's passes.  The final
 // rank is the cluster sort of the M keys (metric, m); the thread of path m
 // takes the key of rank m, and the selected rank, the least of those whose
@@ -1060,12 +1074,14 @@ __device__ __forceinline__ void scl_cluster_decode(
     float* glob_llr,    // [B, M, N-(N>>G)]: LLR levels 1..G, null when G == 0
     uint8_t* glob_bits, // [B, M, N-(N>>G)]: partial-sum levels 1..G
     float* trace_llr,   // [B, K, M]
-    uint16_t* trace_idx,  // [B, K, M]
+    ClusterEntry<PPT>* trace_idx,  // [B, K, M]
     int8_t* __restrict__ out_bits, float* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,
     int8_t* __restrict__ list_bits, float* __restrict__ list_llrs, float* __restrict__ list_metrics,
     int* __restrict__ list_best, int N, int n, int K, int M, int G, int use_crc,
-    uint16_t* sigma_g) {  // [B, 2, M, row]: σ's two tables at two paths a thread, else null
+    ClusterEntry<PPT>* sigma_g,  // [B, 2, M, row]: σ's two tables past one path a thread, else null
+    uint32_t* words_g) {  // [B, 2, 2, M]: the published word sets at four paths a thread, else null
   using Off = ClusterOff<PPT>;
+  using E = ClusterEntry<PPT>;  // a σ field and a trace entry
   constexpr int PATHS = CLUSTER_THREADS * PPT;  // paths a block
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
@@ -1092,11 +1108,10 @@ __device__ __forceinline__ void scl_cluster_decode(
   // from the block's first path's row
   auto sigma = [&](int i) {
     if constexpr (PPT == 1)
-      return DeepSigma<uint16_t>{reinterpret_cast<uint16_t*>(smem + (i & 1) * lay.sig2), lay.sig_row / 2,
-                                 lay.sig_row / 4};
+      return DeepSigma<E>{reinterpret_cast<E*>(smem + (i & 1) * lay.sig2), lay.sig_row / 2, lay.sig_row / 4};
     else
-      return DeepSigma<uint16_t>{sigma_g + ((frame * 2 + (i & 1)) * M + base) * (lay.sig_row / 2),
-                                 lay.sig_row / 2, lay.sig_row / 4};
+      return DeepSigma<E>{sigma_g + ((frame * 2 + (i & 1)) * M + base) * (lay.sig_row / (int)sizeof(E)),
+                          lay.sig_row / (int)sizeof(E), lay.sig_row / 4};
   };
   unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem + lay.keys);
   float* Ls = reinterpret_cast<float*>(smem + lay.ls);
@@ -1105,15 +1120,42 @@ __device__ __forceinline__ void scl_cluster_decode(
   float* Lg = glob_llr + frame * M * SG;  // unused when G == 0
   uint8_t* Bg = glob_bits + frame * M * SG;
   float* TL = trace_llr + frame * K * M;
-  uint16_t* TI = trace_idx + frame * K * M;
+  E* TI = trace_idx + frame * K * M;
   const float* ch = llr + frame * N;
   const int8_t* plan = forced ? forced + frame * K : nullptr;
   auto so = [&](int l) { return (N >> G) - (N >> (l - 1)); };
   auto go = [&](int l) { return N - (N >> (l - 1)); };
-  // the published leaf and syndrome of set i (an info phase's parity)
-  auto leafS = [&](int i) { return reinterpret_cast<float*>(smem + lay.words + i * lay.word_set); };
+  // levels 1..G in global scratch: a path's row of SG entries up to two
+  // paths a thread; at four, by level ([G][M][N >> l]), so that the narrow
+  // levels a phase reads are a few contiguous kilobytes a block, where a
+  // path's row put each of them in a 32-byte sector of its own.  glev(g,
+  // l): level l's first row; gw(l): a row's entries
+  constexpr bool BY_LEVEL = PPT >= 4;
+  auto glev = [&](auto* g, int l) { return g + (Off)M * go(l); };
+  auto gw = [&](int l) { return BY_LEVEL ? N >> l : SG; };
+  // the published leaf and syndrome of set i (an info phase's parity), from
+  // the block's first path: in shared memory, or at four paths a thread in
+  // global scratch
+  auto leafS = [&](int i) {
+    if constexpr (words_global<PPT>())
+      return reinterpret_cast<float*>(words_g + (frame * 2 + i) * 2 * M + base);
+    else
+      return reinterpret_cast<float*>(smem + lay.words + i * lay.word_set);
+  };
   auto synS = [&](int i) {
-    return reinterpret_cast<uint32_t*>(smem + lay.words + i * lay.word_set + 4 * PATHS);
+    if constexpr (words_global<PPT>())
+      return words_g + ((frame * 2 + i) * 2 + 1) * M + base;
+    else
+      return reinterpret_cast<uint32_t*>(smem + lay.words + i * lay.word_set + 4 * PATHS);
+  };
+  // path p's entry of a published array whose block-local start is `own`:
+  // another block's through DSMEM, or from L2 (written before the sort's
+  // cluster barriers)
+  auto published = [&](auto* own, int p) {
+    if constexpr (words_global<PPT>())
+      return __ldcg(own - base + p);
+    else
+      return *path_entry<PPT>(own, p);
   };
 
 #pragma unroll
@@ -1143,7 +1185,7 @@ __device__ __forceinline__ void scl_cluster_decode(
       if (use_crc) hc = hcols[info_i];
     }
     const int l0 = p == 0 ? 1 : gl;
-    DeepSigma<uint16_t> sig = sigma(info_i);
+    DeepSigma<E> sig = sigma(info_i);
 #pragma unroll
     for (int k = 0; k < PPT; ++k)
       if (act[k]) sig.reset(k * CLUSTER_THREADS + tid, m[k], l0 - 1, n - 1, s_prev >= 2 ? n + s_prev - 3 : -1);
@@ -1154,15 +1196,17 @@ __device__ __forceinline__ void scl_cluster_decode(
     // ---- f/g updates down to level n−1, this block's paths ----
     for (int l = l0; l < n; ++l) {
       const bool is_g = (p != 0) && (l == gl);
-      const uint16_t* via = (is_g && l > 1 && (word >> 11 & 1)) ? sig.field(l - 2) : nullptr;
-      float* dst = l > G ? Ls + so(l) : Lg + (Off)base * SG + go(l);
-      const uint8_t* dbits = l > G ? Bs + so(l) : Bg + (Off)base * SG + go(l);
-      const int ds = l > G ? SS : SG;
+      const E* via = (is_g && l > 1 && (word >> 11 & 1)) ? sig.field(l - 2) : nullptr;
+      float* dst = l > G ? Ls + so(l) : BY_LEVEL ? glev(Lg, l) + (Off)base * gw(l) : Lg + (Off)base * SG + go(l);
+      const uint8_t* dbits = l > G ? Bs + so(l)
+                                   : BY_LEVEL ? glev(Bg, l) + (Off)base * gw(l) : Bg + (Off)base * SG + go(l);
+      const int ds = l > G ? SS : gw(l);
       if (l - 1 > G)
         cluster_fg_pass<true, PPT>(dst, dbits, ds, Ls + so(l - 1), SS, via, sig.row, is_g, n - l, base, rank,
                                    Mr, tid);
       else
-        cluster_fg_pass<false, PPT>(dst, dbits, ds, l > 1 ? Lg + go(l - 1) : ch, l > 1 ? SG : 0, via, sig.row,
+        cluster_fg_pass<false, PPT>(dst, dbits, ds, l > 1 ? (BY_LEVEL ? glev(Lg, l - 1) : Lg + go(l - 1)) : ch,
+                                    l > 1 ? gw(l - 1) : 0, via, sig.row,
                                     is_g, n - l, base, rank, Mr, tid);
       __syncthreads();
     }
@@ -1184,7 +1228,7 @@ __device__ __forceinline__ void scl_cluster_decode(
           a = row[0];
           b = row[1];
         } else {
-          const float* row = Lg + go(n - 1) + (Off)r * SG;
+          const float* row = BY_LEVEL ? glev(Lg, n - 1) + (Off)r * 2 : Lg + go(n - 1) + (Off)r * SG;
           a = __ldcg(row);
           b = __ldcg(row + 1);
         }
@@ -1225,12 +1269,12 @@ __device__ __forceinline__ void scl_cluster_decode(
         if (act[k]) {
           const unsigned long long key = cluster_key<PPT>(sorted, m[k]);
           const int w = key_index(key);
-          TI[(Off)info_i * M + m[k]] = (uint16_t)w;
+          TI[(Off)info_i * M + m[k]] = (E)w;
           parent[k] = w >> 1;
           bit[k] = w & 1;
           pm[k] = key_metric(key);
-          TL[(Off)info_i * M + m[k]] = *path_entry<PPT>(leafS(set), parent[k]);
-          const uint32_t sp = *path_entry<PPT>(synS(set), parent[k]);
+          TL[(Off)info_i * M + m[k]] = published(leafS(set), parent[k]);
+          const uint32_t sp = published(synS(set), parent[k]);
           syn[k] = bit[k] ? sp ^ hc : sp;
         }
       }
@@ -1238,7 +1282,7 @@ __device__ __forceinline__ void scl_cluster_decode(
       if constexpr (PPT == 1) {
         cluster_sigma_fork(sig, sigma(info_i + 1).tab, tid, parent[0], act[0]);
       } else {
-        uint16_t* next = sigma(info_i + 1).tab;
+        E* next = sigma(info_i + 1).tab;
 #pragma unroll
         for (int k = 0; k < PPT; ++k)
           if (act[k]) global_sigma_fork(sig, next, k * CLUSTER_THREADS + tid, parent[k] - base);
@@ -1255,7 +1299,8 @@ __device__ __forceinline__ void scl_cluster_decode(
       for (int k = 0; k < PPT; ++k) {
         const int lm = k * CLUSTER_THREADS + tid;
         if (act[k]) {
-          uint8_t* cur = s > G ? Bs + lm * SS + so(s) : Bg + (Off)m[k] * SG + go(s);
+          uint8_t* cur = s > G ? Bs + lm * SS + so(s)
+                               : BY_LEVEL ? glev(Bg, s) + (Off)m[k] * gw(s) : Bg + (Off)m[k] * SG + go(s);
           if (s == n) {
             cur[0] = (uint8_t)bit[k];
           } else {
@@ -1267,14 +1312,15 @@ __device__ __forceinline__ void scl_cluster_decode(
         }
       }
       __syncthreads();
-      uint8_t* st = s > G ? Bs + so(s) : Bg + (Off)base * SG + go(s);
-      const int sts = s > G ? SS : SG;
+      uint8_t* st = s > G ? Bs + so(s) : BY_LEVEL ? glev(Bg, s) + (Off)base * gw(s) : Bg + (Off)base * SG + go(s);
+      const int sts = s > G ? SS : gw(s);
       for (int lv = n - 1; lv > s; --lv) {
-        const uint16_t* via = (cmask >> lv & 1) ? sig.field(n + lv - 3) : nullptr;
+        const E* via = (cmask >> lv & 1) ? sig.field(n + lv - 3) : nullptr;
         if (lv > G)
           cluster_chain_pass<true, PPT>(st, sts, Bs + so(lv), SS, via, sig.row, n - lv, base, rank, Mr, tid);
         else
-          cluster_chain_pass<false, PPT>(st, sts, Bg + go(lv), SG, via, sig.row, n - lv, base, rank, Mr, tid);
+          cluster_chain_pass<false, PPT>(st, sts, BY_LEVEL ? glev(Bg, lv) : Bg + go(lv), gw(lv), via, sig.row,
+                                         n - lv, base, rank, Mr, tid);
         __syncthreads();
       }
     }
@@ -1306,7 +1352,7 @@ __device__ __forceinline__ void scl_cluster_decode(
   for (int k = 0; k < PPT; ++k) {
     fkey[k] = act[k] ? cluster_key<PPT>(sorted, m[k]) : ~0ull;
     path_r[k] = act[k] ? key_index(fkey[k]) : 0;
-    if (act[k] && *path_entry<PPT>(passS, path_r[k])) atomicMin(cluster.map_shared_rank(selS, 0), m[k]);
+    if (act[k] && published(passS, path_r[k])) atomicMin(cluster.map_shared_rank(selS, 0), m[k]);
   }
   cluster.sync();
   const int least = *cluster.map_shared_rank(selS, 0);
@@ -1338,7 +1384,7 @@ __device__ __forceinline__ void scl_cluster_decode(
       int slot = path_r[k];
       for (int i = K - 1; i >= 0; --i) {
         const int w = __ldcg(TI + (Off)i * M + slot);
-        TI[(Off)i * M] = (uint16_t)((slot << 1) | (w & 1));
+        TI[(Off)i * M] = (E)((slot << 1) | (w & 1));
         slot = w >> 1;
       }
       out_pass[frame] = least < M ? 1 : 0;
@@ -1352,10 +1398,10 @@ __device__ __forceinline__ void scl_cluster_decode(
   }
 }
 
-#define SCL_CLUSTER_PARAMS                                                                         \
+#define SCL_CLUSTER_PARAMS(E)                                                                      \
   const float* __restrict__ llr, const int8_t* __restrict__ forced,                                \
       const uint32_t* __restrict__ hcols, const int* __restrict__ sched, float* glob_llr,          \
-      uint8_t* glob_bits, float* trace_llr, uint16_t* trace_idx, int8_t* __restrict__ out_bits,    \
+      uint8_t* glob_bits, float* trace_llr, E* trace_idx, int8_t* __restrict__ out_bits,           \
       float* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,                                \
       int8_t* __restrict__ list_bits, float* __restrict__ list_llrs,                               \
       float* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int K, int M,   \
@@ -1366,15 +1412,24 @@ __device__ __forceinline__ void scl_cluster_decode(
 
 // M 1025..16384: one path a thread, σ in the blocks' shared memory
 template <bool LIST>
-__global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_kernel(SCL_CLUSTER_PARAMS) {
-  scl_cluster_decode<LIST, 1>(SCL_CLUSTER_ARGS, nullptr);
+__global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_kernel(SCL_CLUSTER_PARAMS(uint16_t)) {
+  scl_cluster_decode<LIST, 1>(SCL_CLUSTER_ARGS, nullptr, nullptr);
 }
 
 // M 16385..32768: two paths a thread on a cluster of 16, σ in global scratch
 template <bool LIST>
-__global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_pair_kernel(SCL_CLUSTER_PARAMS,
+__global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_pair_kernel(SCL_CLUSTER_PARAMS(uint16_t),
                                                                            uint16_t* sigma_g) {
-  scl_cluster_decode<LIST, 2>(SCL_CLUSTER_ARGS, sigma_g);
+  scl_cluster_decode<LIST, 2>(SCL_CLUSTER_ARGS, sigma_g, nullptr);
+}
+
+// M 32769..65536: four paths a thread on a cluster of 16, 32-bit trace
+// entries and σ fields, σ and the published words in global scratch
+template <bool LIST>
+__global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_quad_kernel(SCL_CLUSTER_PARAMS(uint32_t),
+                                                                           uint32_t* sigma_g,
+                                                                           uint32_t* words_g) {
+  scl_cluster_decode<LIST, 4>(SCL_CLUSTER_ARGS, sigma_g, words_g);
 }
 
 // ---------------------------------------------------------------------------
@@ -1506,33 +1561,46 @@ int launch_deep(const Args& a, int M, void* trace_idx, cudaStream_t stream) {
 }
 
 template <bool LIST, int PPT>
-int launch_cluster_as(const Args& a, int M, uint16_t* trace_idx, uint16_t* sigma, cudaStream_t stream) {
+int launch_cluster_as(const Args& a, int M, void* trace_idx, void* sigma, cudaStream_t stream) {
+  using E = ClusterEntry<PPT>;
   const ClusterLayout lay = cluster_layout<PPT>(a.N, a.n, a.G, 2);
   // levels 1..G in global scratch, G+1..n in each block's shared memory,
-  // one frame a cluster; at two paths a thread σ in global scratch
-  if (!trace_idx || (PPT == 2 && !sigma) || (a.G > 0 && (!a.glob_llr || !a.glob_bits)) || a.n > MAX_LEVELS ||
+  // one frame a cluster; past one path a thread σ in global scratch
+  if (!trace_idx || (PPT > 1 && !sigma) || (a.G > 0 && (!a.glob_llr || !a.glob_bits)) || a.n > MAX_LEVELS ||
       a.G < 0 || a.G >= a.n || lay.total != a.frame_bytes || a.frames_per_block != 1)
     return (int)cudaErrorInvalidValue;
+  E* ti = static_cast<E*>(trace_idx);
+  E* sg = static_cast<E*>(sigma);
   if constexpr (PPT == 1)
     return launch_cluster_kernel(scl_cluster_kernel<LIST>, a.B, M, lay.total, stream, a.llr, a.forced,
-                                 a.hcols, a.sched, a.glob_llr, a.glob_bits, a.trace_llr, trace_idx,
+                                 a.hcols, a.sched, a.glob_llr, a.glob_bits, a.trace_llr, ti,
                                  a.out_bits, a.out_llrs, a.out_pass, a.list_bits, a.list_llrs,
                                  a.list_metrics, a.list_best, a.N, a.n, a.K, M, a.G, a.use_crc);
-  else
+  else if constexpr (PPT == 2)
     return launch_cluster_kernel(scl_cluster_pair_kernel<LIST>, a.B, M, lay.total, stream, a.llr, a.forced,
-                                 a.hcols, a.sched, a.glob_llr, a.glob_bits, a.trace_llr, trace_idx,
+                                 a.hcols, a.sched, a.glob_llr, a.glob_bits, a.trace_llr, ti,
                                  a.out_bits, a.out_llrs, a.out_pass, a.list_bits, a.list_llrs,
-                                 a.list_metrics, a.list_best, a.N, a.n, a.K, M, a.G, a.use_crc, sigma);
+                                 a.list_metrics, a.list_best, a.N, a.n, a.K, M, a.G, a.use_crc, sg);
+  else  // the published word sets after σ's tables, [B][2][2][M]
+    return launch_cluster_kernel(scl_cluster_quad_kernel<LIST>, a.B, M, lay.total, stream, a.llr, a.forced,
+                                 a.hcols, a.sched, a.glob_llr, a.glob_bits, a.trace_llr, ti,
+                                 a.out_bits, a.out_llrs, a.out_pass, a.list_bits, a.list_llrs,
+                                 a.list_metrics, a.list_best, a.N, a.n, a.K, M, a.G, a.use_crc, sg,
+                                 reinterpret_cast<uint32_t*>(static_cast<char*>(sigma) +
+                                                             (size_t)a.B * 2 * M * lay.sig_row));
 }
 
 int launch_cluster(const Args& a, int M, void* trace_idx, void* sigma, cudaStream_t stream) {
-  uint16_t* ti = static_cast<uint16_t*>(trace_idx);
-  uint16_t* sg = static_cast<uint16_t*>(sigma);
-  if (cluster_ppt(M) == 2)
-    return a.list_bits ? launch_cluster_as<true, 2>(a, M, ti, sg, stream)
-                       : launch_cluster_as<false, 2>(a, M, ti, sg, stream);
-  return a.list_bits ? launch_cluster_as<true, 1>(a, M, ti, sg, stream)
-                     : launch_cluster_as<false, 1>(a, M, ti, sg, stream);
+  switch (cluster_ppt(M)) {
+    case 4:
+      return a.list_bits ? launch_cluster_as<true, 4>(a, M, trace_idx, sigma, stream)
+                         : launch_cluster_as<false, 4>(a, M, trace_idx, sigma, stream);
+    case 2:
+      return a.list_bits ? launch_cluster_as<true, 2>(a, M, trace_idx, sigma, stream)
+                         : launch_cluster_as<false, 2>(a, M, trace_idx, sigma, stream);
+  }
+  return a.list_bits ? launch_cluster_as<true, 1>(a, M, trace_idx, sigma, stream)
+                     : launch_cluster_as<false, 1>(a, M, trace_idx, sigma, stream);
 }
 
 // The frames a block (1..MAX_FRAMES_PER_BLOCK) that let an SM hold the most
@@ -1612,9 +1680,11 @@ extern "C" int scl_launch_plan(int M, int n, int frame_bytes, int max_block_smem
   if (M < 1 || M > CLUSTER_MAX_M) return (int)cudaErrorInvalidValue;
   if (M > DEEP_MAX_M) {  // frames_per_sm: the frames (clusters) the card runs at once
     *frames_per_block = 1;
-    return cluster_ppt(M) == 2
-               ? plan_cluster(scl_cluster_pair_kernel<false>, M, frame_bytes, max_block_smem, frames_per_sm)
-               : plan_cluster(scl_cluster_kernel<false>, M, frame_bytes, max_block_smem, frames_per_sm);
+    switch (cluster_ppt(M)) {
+      case 4: return plan_cluster(scl_cluster_quad_kernel<false>, M, frame_bytes, max_block_smem, frames_per_sm);
+      case 2: return plan_cluster(scl_cluster_pair_kernel<false>, M, frame_bytes, max_block_smem, frames_per_sm);
+    }
+    return plan_cluster(scl_cluster_kernel<false>, M, frame_bytes, max_block_smem, frames_per_sm);
   }
   if (M > 128)
     return deep_wide<uint16_t>(n)

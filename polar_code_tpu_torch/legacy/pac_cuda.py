@@ -14,7 +14,7 @@ instantiation writes them (the systematic scalar decoder,
 
 On a CUDA tensor it launches the kernel, or raises for a shape the kernel
 does not take; it runs the plain version (`legacy/pac.py`) only for a tensor
-on the CPU.  The kernel takes every list size from 1 to 32768 (the TPU
+on the CPU.  The kernel takes every list size from 1 to 65536 (the TPU
 kernel took power-of-two L <= 8 and N up to 8192, and the JAX package's XLA
 decoder takes the rest), N up to 65536 (the phase words' limit), and any
 batch size: the last block is masked, since the adaptive second stage
@@ -22,19 +22,21 @@ re-decodes a ragged set of failed frames.  Up to L=32 one path is a lane of
 a warp (past N=8192 at L 17..32 and 9..16, a wide twin with one more σ
 word); from 33 to 1024 a frame is spread over the warps of a block, one
 thread a path (the over-warps instantiation, with a wide twin for 16-bit
-σ rows past N=8192); from 1025 to 32768 over a thread-block cluster of
+σ rows past N=8192); from 1025 to 65536 over a thread-block cluster of
 `ops/scl_cuda.py::cluster_blocks(L)` blocks of 1024 threads, one thread a
-path up to 16384 and two above (the cluster instantiations; 16 blocks past
-L=8192, a non-portable cluster size; at two paths a thread σ in global
-scratch).  A batch goes, as the SCL kernel's, in
+path up to 16384, two up to 32768 and four above (the cluster
+instantiations; 16 blocks past L=8192, a non-portable cluster size; past
+one path a thread σ in global scratch, and at four the published words
+too, with 32-bit trace entries and σ fields).  A batch goes, as the SCL
+kernel's, in
 launches whose global scratch fits the card's free memory
 (`ops/scl_cuda.py::alloc_scratch`).
 `pac_list_decode_cuda.launches` counts kernel launches,
 `pac_list_decode_cuda.list_launches` those of them that went to a list
 instantiation, `pac_list_decode_cuda.deep_launches` those that went to an
 over-warps one, `pac_list_decode_cuda.cluster_launches` those that went
-to a cluster one and `pac_list_decode_cuda.pair_launches` those of them at
-two paths a thread.
+to a cluster one, `pac_list_decode_cuda.pair_launches` those of them at
+two paths a thread and `pac_list_decode_cuda.quad_launches` those at four.
 
 The kernel's design (its source note has the whole of it): the TPU
 kernel's lazy clone — path m writes row m, per-level path-origin maps σ
@@ -80,7 +82,7 @@ from ..ops.scl_schedule import phase_words
 from .pac import bitrev_perm, pac_list_decode_batch
 
 SOURCE = "pac_decode.cu"
-MAX_L = 32768  # two paths a thread, a cluster of 16 blocks (a non-portable cluster size) at most
+MAX_L = 65536  # four paths a thread, a cluster of 16 blocks (a non-portable cluster size) at most
 DEEP_WORDS = 3  # published 32-bit values a path over warps: leaf, syndrome, shift register
 MAX_MEM = 31  # the shift register is a 32-bit mask
 TRACE_RING = 16  # trace rows a one-path-a-lane frame stages in shared memory (`pac_decode.cu`)
@@ -109,10 +111,11 @@ def scratch_bytes(B: int, N: int, Kp: int, L: int, global_levels: int) -> int:
     """Global scratch one launch allocates: the LLR and edge-bit rows of
     levels 1..G of every frame, and its trace: rows of round16(L) bytes one
     path a lane (none at L=1), Kp·L entries of `trace_entry_bytes(L)` over warps and on a
-    cluster; at two paths a thread of a cluster, σ's tables
-    (`ops/scl_cuda.py::sigma_bytes`)."""
+    cluster; past one path a thread of a cluster, σ's tables, and at four
+    the published words (`ops/scl_cuda.py::sigma_bytes`)."""
 
-    return B * L * (N - (N >> global_levels)) * 5 + B * Kp * _trace_row(L) + sigma_bytes(B, N, L)
+    return (B * L * (N - (N >> global_levels)) * 5 + B * Kp * _trace_row(L)
+            + sigma_bytes(B, N, L, DEEP_WORDS))
 
 
 def _trace_row(L: int) -> int:
@@ -132,7 +135,7 @@ def check_shape(N: int, Kp: int, L: int, gen, crc_len: int, dtype: torch.dtype) 
         raise ValueError(f"the PAC kernel decodes float32 LLRs, not {dtype}")
     if not 1 <= L <= MAX_L:
         raise ValueError(f"the PAC kernel supports list sizes 1..{MAX_L} (one frame a cluster of at "
-                         f"most {CLUSTER_MAX_BLOCKS} blocks of {CLUSTER_THREADS} threads, two paths a "
+                         f"most {CLUSTER_MAX_BLOCKS} blocks of {CLUSTER_THREADS} threads, four paths a "
                          f"thread at most: {CLUSTER_MAX_BLOCKS} is the largest cluster an H100 places), "
                          f"not {L}")
     if N < 2 or N & (N - 1) or not 0 < Kp <= N:
@@ -305,13 +308,13 @@ def _launch(llr, plan, full=False) -> dict:
     if B > 0:
         # one allocation a launch: the LLR rows (float32) of levels 1..G,
         # their edge bits, the trace from a 16-byte boundary (none at L=1
-        # with G=0) and, at two paths a thread of a cluster, σ's tables
-        # from another
+        # with G=0) and, past one path a thread of a cluster, σ's tables
+        # (and at four the published words) from another
         def layout(frames):
             lvl = frames * L * (N - (N >> G))
             ti_at = (5 * lvl + 15) // 16 * 16
             sig_at = (ti_at + frames * Kp * _trace_row(L) + 15) // 16 * 16
-            return lvl, ti_at, sig_at, sig_at + sigma_bytes(frames, N, L)
+            return lvl, ti_at, sig_at, sig_at + sigma_bytes(frames, N, L, DEEP_WORDS)
 
         def scratch(frames):
             total = layout(frames)[3]
@@ -344,7 +347,8 @@ def _launch(llr, plan, full=False) -> dict:
                     pac_list_decode_cuda.list_launches += 1
                 if L > DEEP_MAX_M:
                     pac_list_decode_cuda.cluster_launches += 1
-                    pac_list_decode_cuda.pair_launches += L >= CLUSTER_PAIR_MIN_M
+                    pac_list_decode_cuda.pair_launches += cluster_ppt(L) == 2
+                    pac_list_decode_cuda.quad_launches += cluster_ppt(L) == 4
                 elif L > PATH_MAX_M:
                     pac_list_decode_cuda.deep_launches += 1
     if full:
@@ -357,7 +361,8 @@ pac_list_decode_cuda.launches = 0
 pac_list_decode_cuda.list_launches = 0  # of them, launches of a list instantiation
 pac_list_decode_cuda.deep_launches = 0  # of them, launches of an over-warps instantiation
 pac_list_decode_cuda.cluster_launches = 0  # of them, launches of a cluster instantiation
-pac_list_decode_cuda.pair_launches = 0  # of those, launches at two paths a thread (L > 16384)
+pac_list_decode_cuda.pair_launches = 0  # of those, launches at two paths a thread (L 16385..32768)
+pac_list_decode_cuda.quad_launches = 0  # of those, launches at four paths a thread (L > 32768)
 
 
 __all__ = ["pac_list_decode_cuda", "check_shape", "frame_bytes", "scratch_bytes", "host_tables",

@@ -18,10 +18,11 @@ batches after compaction are data-dependent.  `decode_scl_cuda.launches`
 counts kernel launches, `decode_scl_cuda.path_launches` those of them that
 went to the by-path instantiation, `decode_scl_cuda.deep_launches` those
 that went to the over-warps one, `decode_scl_cuda.cluster_launches`
-those that went to a cluster one and `decode_scl_cuda.pair_launches` those
-of them at two paths a thread.
+those that went to a cluster one, `decode_scl_cuda.pair_launches` those
+of them at two paths a thread and `decode_scl_cuda.quad_launches` those at
+four.
 
-The kernel takes every list size M from 1 to 32768 (the JAX package's XLA
+The kernel takes every list size M from 1 to 65536 (the JAX package's XLA
 decoder takes any M; its TPU kernel power-of-two M <= 8) and N up to 65536
 (the TPU kernel's N envelope is 8192; the JAX package sends longer codes to
 its XLA decoder, and the kernel's phase words stop at 65536).  M ∈ {1, 2,
@@ -29,18 +30,20 @@ its XLA decoder, and the kernel's phase words stop at 65536).  M ∈ {1, 2,
 N=8192; above, M=1 alone, `byte_words`); M up to 32 to the by-path
 instantiation of M rounded up to a power of two (`path_width`), one path a
 lane of a warp; M from 33 to 1024 to the over-warps instantiation, one
-frame a block and one thread a path; M from 1025 to 32768 to the cluster
+frame a block and one thread a path; M from 1025 to 65536 to the cluster
 instantiations, one frame a thread-block cluster of `cluster_blocks(M)`
 blocks of 1024 threads: 2, 4 or 8 blocks up to M=8192 (8 is the portable
 cluster size) and 16 above, a non-portable size that the source allows on
 the kernel and the largest an H100 places, one thread a path up to
-M=16384 and two above (`cluster_ppt`, the pair instantiation, with σ in
-global scratch; the source note has the layouts).
+M=16384, two up to 32768 and four above (`cluster_ppt`: the pair
+instantiation, with σ in global scratch, and the quad one, with 32-bit
+trace entries and σ fields and the published words in global scratch too;
+the source note has the layouts).
 Past N=8192 the by-path widths 16 and 32 and the over-warps 16-bit
 instantiation have wide twins whose σ holds 2n − 2 = 30 fields.  A
 shape whose frame fits no block even with every level but the leaf in
 global scratch (`check_shape`) raises.  A batch whose global scratch
-(`scratch_bytes`: 17.2 GB a frame at P(65536,32768) M=32768, G=13) cannot be
+(`scratch_bytes`: 21.5 GB a frame at P(65536,256) M=65536, G=15) cannot be
 allocated goes, in every layout, in launches that fit nine tenths of the
 card's free memory (`alloc_scratch`, `split_batch`), one launch counted
 each; a frame that alone overfills it raises with its bytes named.  The
@@ -57,7 +60,7 @@ frame's shared memory goes to tree levels (and over warps to the σ table
 and the sort keys, `deep_frame_bytes`; on a cluster a block's shared
 memory holds σ, sort keys, published words and levels G+1..n of its 1024
 paths, `cluster_block_bytes`; at two paths a thread σ goes to global
-scratch, `sigma_row`).  `launch_plan` asks the CUDA occupancy
+scratch, `sigma_row`, and at four the published words too, `sigma_bytes`).  `launch_plan` asks the CUDA occupancy
 calculator for the smallest G at which an SM holds a number of frames
 (`smallest_global_levels`, which the PAC kernel's wrapper shares), and for
 the frames a block that hold the most: `FRAMES_PER_SM_TARGET` in the
@@ -82,14 +85,15 @@ from .scl import decode_scl_batch
 from .scl_schedule import phase_words
 
 SOURCE = "scl_decode.cu"
-MAX_M = 32768  # two paths a thread, a cluster of 16 blocks (a non-portable cluster size) at most
+MAX_M = 65536  # four paths a thread, a cluster of 16 blocks (a non-portable cluster size) at most
 SUPPORTED_M = tuple(range(1, MAX_M + 1))
 DEEP_MAX_M = 1024  # the largest list size over the warps of one block; above, a cluster
 CLUSTER_THREADS = 1024  # threads a block of a cluster frame (`list_decode.cuh`)
 CLUSTER_MAX_BLOCKS = 16  # past 8, the portable cluster size (M > 8192), a non-portable size
-# the smallest list size at two paths a thread of a cluster (`cluster_ppt`
-# in `csrc/list_decode.cuh`)
+# the smallest list sizes at two and at four paths a thread of a cluster
+# (`cluster_ppt` in `csrc/list_decode.cuh`)
 CLUSTER_PAIR_MIN_M = CLUSTER_THREADS * CLUSTER_MAX_BLOCKS + 1
+CLUSTER_QUAD_MIN_M = 2 * CLUSTER_THREADS * CLUSTER_MAX_BLOCKS + 1
 # the largest list size decoded one path a lane of a warp; above it a frame
 # is spread over the warps of a block of M rounded up to a power of two
 # threads (`DEEP_MIN_M` and `deep_threads` in `csrc/list_decode.cuh`)
@@ -128,9 +132,11 @@ def _round16(x: int) -> int:
 
 
 def trace_entry_bytes(M: int) -> int:
-    """Bytes of a trace entry 2p+b (< 2M), and of a σ field over warps."""
+    """Bytes of a trace entry 2p+b (< 2M), and of a σ field over warps and
+    on a cluster: 2p+b reaches 131071 at M=65536, past 16 bits above
+    M=32768."""
 
-    return 1 if M <= 128 else 2
+    return 1 if M <= 128 else 2 if M < CLUSTER_QUAD_MIN_M else 4
 
 
 def sort_keys(M: int) -> int:
@@ -156,14 +162,18 @@ def deep_frame_bytes(N: int, M: int, global_levels: int, words: int = 2) -> int:
 
 
 def cluster_ppt(M: int) -> int:
-    """Paths a thread of a cluster frame: one up to M=16384, two above
-    (`cluster_ppt` in `csrc/list_decode.cuh`)."""
+    """Paths a thread of a cluster frame: the least power of two at which
+    16 blocks of 1024 threads hold M paths, one up to M=16384, two up to
+    32768, four up to 65536 (`cluster_ppt` in `csrc/list_decode.cuh`)."""
 
-    return 2 if M >= CLUSTER_PAIR_MIN_M else 1
+    ppt = 1
+    while M > CLUSTER_THREADS * CLUSTER_MAX_BLOCKS * ppt:
+        ppt *= 2
+    return ppt
 
 
 def cluster_blocks(M: int) -> int:
-    """Blocks of a cluster frame (M 1025..32768): M rounded up to a power
+    """Blocks of a cluster frame (M 1025..65536): M rounded up to a power
     of two, over the 1024 · `cluster_ppt(M)` paths of a block
     (`cluster_blocks` in `csrc/list_decode.cuh`)."""
 
@@ -173,20 +183,21 @@ def cluster_blocks(M: int) -> int:
 def cluster_exchanges(P: int) -> int:
     """Cluster barriers one sort of P keys on a cluster takes
     (`cluster_exchanges` in `csrc/list_decode.cuh`): one a cross-block stage
-    (distance of a block's keys or more, 2048 up to P = 32768 and 4096 at
-    65536, in each merge of twice that or more: 1, 3, 6, 10 at P = 4096,
-    8192, 16384, 32768, and 10 at 65536) and one for the sorted keys."""
+    (distance of a block's keys or more, 2048 up to P = 32768, 4096 at
+    65536 and 8192 at 131072, in each merge of twice that or more: 1, 3, 6,
+    10 at P = 4096, 8192, 16384, 32768, and 10 at 65536 and 131072) and one
+    for the sorted keys."""
 
     block = (2 * CLUSTER_THREADS * cluster_ppt(P // 2)).bit_length() - 1  # log2 of a block's keys
     return 1 + sum(s - block for s in range(block + 1, P.bit_length()))
 
 
-def sigma_row(N: int) -> int:
-    """Bytes of a path's σ row on a cluster: 2n − 2 16-bit fields, rounded
-    to 4 bytes."""
+def sigma_row(N: int, M: int = CLUSTER_PAIR_MIN_M) -> int:
+    """Bytes of a path's σ row on a cluster at list size M: 2n − 2 fields of
+    16 bits (32 past M=32768, `trace_entry_bytes`), rounded to 4 bytes."""
 
     n = int(math.log2(N))
-    return max(4, ((2 * n - 2) * 2 + 3) // 4 * 4)
+    return max(4, ((2 * n - 2) * trace_entry_bytes(M) + 3) // 4 * 4)
 
 
 def cluster_block_bytes(N: int, global_levels: int, words: int = 2, ppt: int = 1) -> int:
@@ -194,17 +205,21 @@ def cluster_block_bytes(N: int, global_levels: int, words: int = 2, ppt: int = 1
     in `csrc/list_decode.cuh`) at `ppt` paths a thread, so 1024 · ppt paths
     a block, each region rounded to 16 bytes: at one path a thread two σ
     tables of its paths (`sigma_row` bytes a path; a fork copies from one
-    into the other; at two they are in global scratch), three buffers of
+    into the other; past one they are in global scratch), three buffers of
     2048 · ppt sort keys of 8 bytes (two a cross-block stage's exchange, in
-    turns, and one for the stages within the block), two sets (an info
-    phase's parity) of `words` published 32-bit values a path (SCL 2, PAC
-    3), the LLR rows (float32) and partial-sum rows (bytes) of levels
-    global_levels+1..n of its paths, and the selected rank."""
+    turns, and one for the stages within the block), up to two paths a
+    thread two sets (an info phase's parity) of `words` published 32-bit
+    values a path (SCL 2, PAC 3; at four in global scratch, `sigma_bytes`),
+    the LLR rows (float32) and partial-sum rows (bytes) of levels
+    global_levels+1..n of its paths, and the selected rank.  At four paths
+    a thread the keys take 196,608 B, and only G = n − 1 fits: 217,104 B at
+    every N."""
 
     paths = CLUSTER_THREADS * ppt
     row = (N >> global_levels) - 1
     sigma = 2 * _round16(CLUSTER_THREADS * sigma_row(N)) if ppt == 1 else 0
-    return (sigma + 3 * 8 * 2 * paths + 2 * words * 4 * paths + _round16(4 * paths * row)
+    word_sets = 2 * words * 4 * paths if ppt <= 2 else 0
+    return (sigma + 3 * 8 * 2 * paths + word_sets + _round16(4 * paths * row)
             + _round16(paths * row) + 16)
 
 
@@ -292,17 +307,23 @@ def path_width(M: int) -> int:
     return max(8, 1 << (M - 1).bit_length())
 
 
-def sigma_bytes(B: int, N: int, M: int) -> int:
-    """Global scratch of σ's two tables at two paths a thread of a cluster
-    (M > 16384; none below, where σ is in the blocks' shared memory)."""
+def sigma_bytes(B: int, N: int, M: int, words: int = 2) -> int:
+    """Global scratch of σ's two tables past one path a thread of a cluster
+    (M > 16384; none below, where σ is in the blocks' shared memory), and at
+    four paths a thread (M > 32768) after them the two sets of `words`
+    published 32-bit values a path (SCL 2, PAC 3), [B][2][words][M]."""
 
-    return B * 2 * M * sigma_row(N) if M >= CLUSTER_PAIR_MIN_M else 0
+    if M < CLUSTER_PAIR_MIN_M:
+        return 0
+    word_sets = B * 2 * words * 4 * M if M >= CLUSTER_QUAD_MIN_M else 0
+    return B * 2 * M * sigma_row(N, M) + word_sets
 
 
 def scratch_bytes(B: int, N: int, K: int, M: int, global_levels: int) -> int:
     """Global scratch one launch allocates: the LLR and partial-sum rows of
     levels 1..G and the trace LLRs of every frame, by path, over warps and
-    on a cluster the trace indices, and at two paths a thread σ's tables."""
+    on a cluster the trace indices, past one path a thread σ's tables, and
+    at four the published words (`sigma_bytes`)."""
 
     ti = (B * K * M * trace_entry_bytes(M) if M > PATH_MAX_M
           else B * K * path_trace_row(M) if path_layout(M, N) else 0)
@@ -316,7 +337,7 @@ def check_shape(N: int, K: int, M: int, crc: Optional[str], dtype: torch.dtype) 
         raise ValueError(f"the SCL kernel decodes float32 LLRs, not {dtype}")
     if not 1 <= M <= MAX_M:
         raise ValueError(f"the SCL kernel supports list sizes 1..{MAX_M} (one frame a cluster of at "
-                         f"most {CLUSTER_MAX_BLOCKS} blocks of {CLUSTER_THREADS} threads, two paths a "
+                         f"most {CLUSTER_MAX_BLOCKS} blocks of {CLUSTER_THREADS} threads, four paths a "
                          f"thread at most: {CLUSTER_MAX_BLOCKS} is the largest cluster an H100 places), "
                          f"not {M}")
     if N < 2 or N & (N - 1) or not 0 < K <= N:
@@ -519,7 +540,7 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
     if B > 0:
         sched, hcols = _device_tables(tuple(int(i) for i in info_np), N, crc, dev)
         row = N - (N >> G)  # entries of a path's levels 1..G
-        ti_dtype = torch.uint8 if trace_entry_bytes(M) == 1 else torch.int16
+        ti_dtype = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[trace_entry_bytes(M)]
 
         def scratch(frames):
             return ((torch.empty((frames, M, row), dtype=torch.float32, device=dev) if G else None),
@@ -555,7 +576,8 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
             decode_scl_cuda.launches += 1
             if M > DEEP_MAX_M:
                 decode_scl_cuda.cluster_launches += 1
-                decode_scl_cuda.pair_launches += M >= CLUSTER_PAIR_MIN_M
+                decode_scl_cuda.pair_launches += cluster_ppt(M) == 2
+                decode_scl_cuda.quad_launches += cluster_ppt(M) == 4
             elif M > PATH_MAX_M:
                 decode_scl_cuda.deep_launches += 1
             elif path_layout(M, N):
@@ -569,7 +591,8 @@ decode_scl_cuda.launches = 0
 decode_scl_cuda.path_launches = 0  # of them, launches of the by-path instantiation
 decode_scl_cuda.deep_launches = 0  # of them, launches of the over-warps instantiation
 decode_scl_cuda.cluster_launches = 0  # of them, launches of a cluster instantiation
-decode_scl_cuda.pair_launches = 0  # of those, launches at two paths a thread (M > 16384)
+decode_scl_cuda.pair_launches = 0  # of those, launches at two paths a thread (M 16385..32768)
+decode_scl_cuda.quad_launches = 0  # of those, launches at four paths a thread (M > 32768)
 
 
 __all__ = ["decode_scl_cuda", "check_shape", "frame_bytes", "deep_frame_bytes", "sort_keys",
@@ -578,5 +601,5 @@ __all__ = ["decode_scl_cuda", "check_shape", "frame_bytes", "deep_frame_bytes", 
            "trace_entry_bytes", "launch_plan", "smallest_global_levels", "path_width",
            "byte_words", "path_layout", "path_trace_row", "path_target", "scratch_bytes",
            "SUPPORTED_M", "BYTE_WORD_M", "BYTE_WORD_MAX_N", "MAX_M", "PATH_MAX_M", "DEEP_MAX_M",
-           "CLUSTER_PAIR_MIN_M",
+           "CLUSTER_PAIR_MIN_M", "CLUSTER_QUAD_MIN_M",
            "MAX_N", "SIGMA_FIELDS", "NARROW_SIGMA_FIELDS"]

@@ -16,15 +16,16 @@ global scratch, so it takes PAC(8192, Kp) at every Kp.  On the CPU:
 * the planning: `cluster_blocks`, the bytes a block of a cluster takes at
   every G, the plan's G at N 16..8192 (a stand-in occupancy calculator),
   `scratch_bytes`, `split_batch`, `check_shape` over M and L 1025..8192
-  at N 128..65536 and raising at 32769 and at N=131072, and K3's one-lane
+  at N 128..65536 and raising at 65537 and at N=131072, and K3's one-lane
   frame without the trace;
 * a model of the cluster sort (`cluster_sort_keys` in
   `csrc/list_decode.cuh`: the stages across blocks through two exchange
   buffers in turns, one cluster barrier each, then those within the block
   through a third buffer and the free exchange one, one block barrier
   each) against the stable sort at P = 4096, 8192, 16384 and 32768 keys
-  (clusters of 2 to 16 blocks), and at 65536 (16 blocks of 4096 keys, four
-  a thread: `cluster_sort_keys4`), with its stage and barrier counts, the
+  (clusters of 2 to 16 blocks), at 65536 (16 blocks of 4096 keys, four
+  a thread) and at 131072 (16 blocks of 8192 keys, eight a thread:
+  `cluster_sort_keysn`), with its stage and barrier counts, the
   buffers' races tracked across three sorts in a row, and the final rank
   by the same sort;
 * a model of the phase barriers over the schedule words at N 16..65536:
@@ -231,12 +232,13 @@ def test_check_shape_takes_lists_up_to_8192():
     for M in range(1025, 8193, 127):
         scl_cuda.check_shape(128, 64, M, None, torch.float32)
         pac_cuda.check_shape(128, 80, M, GEN, 16, torch.float32)
-    # 8193..32768 go to a cluster of 16 blocks (`tests/test_torch_list_16k.py`,
-    # `tests/test_torch_list_32k.py`); the first size refused is 32769
-    with pytest.raises(ValueError, match="1..32768 .*cluster"):
-        scl_cuda.check_shape(128, 64, 32769, CRC, torch.float32)
-    with pytest.raises(ValueError, match="1..32768 .*cluster"):
-        pac_cuda.check_shape(128, 80, 32769, GEN, 16, torch.float32)
+    # 8193..65536 go to a cluster of 16 blocks (`tests/test_torch_list_16k.py`,
+    # `tests/test_torch_list_32k.py`, `tests/test_torch_list_64k.py`); the
+    # first size refused is 65537
+    with pytest.raises(ValueError, match="1..65536 .*cluster"):
+        scl_cuda.check_shape(128, 64, 65537, CRC, torch.float32)
+    with pytest.raises(ValueError, match="1..65536 .*cluster"):
+        pac_cuda.check_shape(128, 80, 65537, GEN, 16, torch.float32)
     for N in (16384, 32768, 65536):  # past the TPU kernel's N=8192
         scl_cuda.check_shape(N, N // 2, 2048, CRC, torch.float32)
         pac_cuda.check_shape(N, N // 2 + 16, 2048, GEN, 16, torch.float32)
@@ -277,7 +279,8 @@ def _key_metric(keys):
 
 class _Buffers:
     """The three key buffers of each block of a cluster (X0, X1, Y) of
-    `entries` keys each (2048 at one path a thread, 4096 at two), kept
+    `entries` keys each (2048 at one path a thread, 4096 at two, 8192 at
+    four), kept
     across sorts as the kernel keeps them, with the hazards tracked at a
     buffer's grain: every entry is tagged with the stage that stored it (a
     read of another stage's entry reads a wrong key), and a buffer read by
@@ -315,19 +318,20 @@ class _Buffers:
 
 def _cluster_sort(keys, bufs=None, xc=0):
     """`cluster_sort_keys` (q = 2 keys a thread, one path) and
-    `cluster_sort_keys4` (q = 4, two paths) on a cluster of C = P/(1024·q)
-    blocks of 1024 threads: global thread g = 1024·r + t holds the keys of
-    positions q·g + i in keys[g, i].  A block's buffers hold 1024·q keys,
-    thread t's at entries 2t, 2t + 1 (and 2048 + 2t, 2049 + 2t at q = 4).  A
+    `cluster_sort_keysn<q>` (q = 4 and 8, two and four paths) on a cluster
+    of C = P/(1024·q) blocks of 1024 threads: global thread g = 1024·r + t
+    holds the keys of positions q·g + i in keys[g, i].  A block's buffers
+    hold 1024·q keys, thread t's keys 2h, 2h + 1 at entries 2048·h + 2t,
+    2048·h + 2t + 1.  A
     stage of distance j >= 1024·q stores each running thread's keys in its
     block's exchange buffer X[xc & 1], one cluster barrier, and reads the
     partner's from block r ^ j/(1024·q) at the same entries; xc then counts
     it.  A stage of distance 32·q..512·q stores to the block's Y and
     X[xc & 1] in turns (Y first after each cross-block stage), one block
     barrier, and reads thread t ^ j/q's entries; below, shuffles with lane
-    t ^ j/q and, for the distances within a thread (1, and 2 at q = 4),
-    registers.  The upper half stops after the last merge's first stage,
-    and the lower half stores its keys in rank order to X[xc & 1] (xc
+    t ^ j/q and, for the distances within a thread (below q), registers.
+    The upper half stops after the last merge's first stage, and the lower
+    half stores its keys in rank order to X[xc & 1] (xc
     counted) behind a cluster barrier.  `bufs` (a `_Buffers`, fresh when
     None) persists across calls as in the kernel.  Returns the keys of
     ranks 0..P/2−1 as the blocks store them (rank u in block u // (1024·q)
@@ -337,11 +341,11 @@ def _cluster_sort(keys, bufs=None, xc=0):
     T, q = keys.shape
     P, bk = q * T, 1024 * q
     C = T // 1024
-    assert q in (2, 4) and C in (2, 4, 8, 16) and P == bk * C
+    assert q in (2, 4, 8) and C in (2, 4, 8, 16) and P == bk * C
     bufs = bufs or _Buffers(C, bk)
     g = np.arange(T)
     base, rank, t = q * g, g // 1024, g % 1024
-    entries = np.stack([2 * t, 2 * t + 1] + ([2048 + 2 * t, 2049 + 2 * t] if q == 4 else []), axis=1)
+    entries = np.stack([2048 * (i // 2) + 2 * t + i % 2 for i in range(q)], axis=1)
     k = keys.copy()
     on = np.ones(T, bool)
     kinds = {"blocks": 0, "shared": 0, "shuffles": 0, "registers": 0}
@@ -394,14 +398,14 @@ def _cluster_sort(keys, bufs=None, xc=0):
                 partner = g ^ (jj // q)
                 assert np.array_equal(partner // 32, g // 32) and np.array_equal(on[partner], on)
                 k = stage(k[partner], jj, up)
-        if q == 4 and size >= 4:  # distance 2, in registers
-            kinds["registers"] += 1
-            order(0, 2, up[:, 0])
-            order(1, 3, up[:, 0])
-        kinds["registers"] += 1  # distance 1
-        order(0, 1, up[:, 0])
-        if q == 4:  # at size 2 keys 2, 3 run down
-            order(2, 3, up[:, 0] if size > 2 else ~up[:, 0])
+        jj = q // 2
+        while jj >= 1:  # within the thread, in registers
+            if jj < size:
+                kinds["registers"] += 1
+                for i in range(q):
+                    if not i & jj:  # position q·g + i ascends where its bit of size is clear
+                        order(i, i | jj, ((base | i) & size) == 0)
+            jj //= 2
         size *= 2
     assert not on[T // 2:].any() and on[:T // 2].all()
     bufs.stage += 1
@@ -428,13 +432,13 @@ def _take_ranks(bufs, sorted_b, M, q=2):
 
 def _path_threads(M):
     """(the global thread, the key column) of each path m < M: one path a
-    thread, m itself; at two (M > 16384) path r·2048 + k·1024 + t on thread
-    r·1024 + t, its candidates in columns 2k and 2k + 1."""
+    thread, m itself; at ppt = 2 or 4 (M > 16384, 32768) path
+    r·1024·ppt + k·1024 + t on thread r·1024 + t, its candidates in
+    columns 2k and 2k + 1."""
 
     m = np.arange(M)
-    if scl_cuda.cluster_ppt(M) == 1:
-        return m, np.zeros(M, np.int64)
-    return (m // 2048) * 1024 + m % 1024, 2 * ((m // 1024) % 2)
+    ppt = scl_cuda.cluster_ppt(M)
+    return (m // (1024 * ppt)) * 1024 + m % 1024, 2 * ((m // 1024) % ppt)
 
 
 def _fork_keys(M, good, bad, layout):
@@ -454,11 +458,12 @@ def _fork_keys(M, good, bad, layout):
     return keys
 
 
-# one path a thread up to P = 32768 keys (2048 a block), two at 65536 (4096)
-@pytest.mark.parametrize("P", [4096, 8192, 16384, 32768, 65536])
+# one path a thread up to P = 32768 keys (2048 a block), two at 65536
+# (4096), four at 131072 (8192)
+@pytest.mark.parametrize("P", [4096, 8192, 16384, 32768, 65536, 131072])
 def test_cluster_sort_is_the_stable_sort(P):
     M_values = {4096: (1025, 2048), 8192: (2049, 4096), 16384: (4097, 8192), 32768: (8193, 16384),
-                65536: (16385, 32768)}[P]
+                65536: (16385, 32768), 131072: (32769, 65536)}[P]
     rng = np.random.default_rng(P)
     ties = np.array([0.0, -0.0, 0.5, 1.0, 1.5, 3e38, np.inf], np.float32)
     for M in M_values:
@@ -484,14 +489,16 @@ def test_cluster_sort_is_the_stable_sort(P):
                 np.testing.assert_array_equal(_key_metric(out[:M]), c[want])
                 np.testing.assert_array_equal(out, np.sort(keys.reshape(-1))[:P // 2])
     p = P.bit_length() - 1
-    block = 11 + (P == 65536)  # log2 of a block's keys
+    block = 11 + {65536: 1, 131072: 2}.get(P, 0)  # log2 of a block's keys
     assert sum(kinds.values()) == p * (p + 1) // 2
-    assert kinds["blocks"] == {4096: 1, 8192: 3, 16384: 6, 32768: 10, 65536: 10}[P]  # the stages across blocks
+    # the stages across blocks
+    assert kinds["blocks"] == {4096: 1, 8192: 3, 16384: 6, 32768: 10, 65536: 10, 131072: 10}[P]
     assert scl_cuda.cluster_exchanges(P) == kinds["blocks"] + 1  # and the sorted keys' store
-    assert kinds["shared"] == 5 * (p - block) + 15  # the in-block stages, j 1024..64 (2048..128 at two a thread)
+    # the in-block stages, j 1024..64 (2048..128 at two paths a thread, 4096..256 at four)
+    assert kinds["shared"] == 5 * (p - block) + 15
 
 
-@pytest.mark.parametrize("M", [1025, 2048, 3000, 4096, 8192, 8193, 16384, 16385, 32768])
+@pytest.mark.parametrize("M", [1025, 2048, 3000, 4096, 8192, 8193, 16384, 16385, 32768, 32769, 65536])
 def test_cluster_sort_buffers_across_forks(M):
     """Three sorts in a row over one set of key buffers, as a decode runs
     them (two forks, each read by every thread for the key of its rank, and
@@ -499,7 +506,8 @@ def test_cluster_sort_buffers_across_forks(M):
     same buffer (its own block's before a barrier, another block's before a
     cluster barrier), and a fork takes one cluster barrier a cross-block
     stage and one for the sorted keys, and one block barrier a stage within
-    the block.  Past M = 16384 each thread holds two paths' keys."""
+    the block.  Past M = 16384 each thread holds two paths' keys, past
+    32768 four."""
 
     P = scl_cuda.sort_keys(M)
     q = 2 * scl_cuda.cluster_ppt(M)
@@ -521,14 +529,15 @@ def test_cluster_sort_buffers_across_forks(M):
         out, kinds, sorted_b, xc = _cluster_sort(keys, bufs, xc)
         np.testing.assert_array_equal(out, np.sort(keys.reshape(-1))[:P // 2])
         np.testing.assert_array_equal(_take_ranks(bufs, sorted_b, M, q), out[:M])
-        cross = {4096: 1, 8192: 3, 16384: 6, 32768: 10, 65536: 10}[P]
-        assert kinds["blocks"] == cross and kinds["shared"] == 5 * (p - 10 - q // 2) + 15
+        cross = {4096: 1, 8192: 3, 16384: 6, 32768: 10, 65536: 10, 131072: 10}[P]
+        block = (1024 * q).bit_length() - 1  # log2 of a block's keys
+        assert kinds["blocks"] == cross and kinds["shared"] == 5 * (p - block) + 15
         assert bufs.barriers["cluster"] - before["cluster"] == scl_cuda.cluster_exchanges(P) == cross + 1
         assert bufs.barriers["block"] - before["block"] == kinds["shared"]
     assert xc == 3 * scl_cuda.cluster_exchanges(P)
 
 
-@pytest.mark.parametrize("M", [1025, 3000, 8192, 16384, 16385, 32768])
+@pytest.mark.parametrize("M", [1025, 3000, 8192, 16384, 16385, 32768, 32769, 65536])
 def test_cluster_final_rank_is_the_stable_rank(M):
     """The final rank by the cluster sort of (metric, m) keys, each path's
     second key a pad: the thread of path r takes the path of rank r, and
@@ -644,15 +653,17 @@ def test_cluster_barrier_counts():
 
     words = phase_words(128, np.asarray(construct_info_set(128, 64), np.int64)).astype(np.int64)
     info, flagged = (words >> 10 & 1) == 0, (words >> 11) != 0
-    # P = 65536: M 16385..32768, two paths a thread, 4096 keys a block
-    for P, cross in ((4096, 1), (8192, 3), (16384, 6), (32768, 10), (65536, 10)):
-        merges = P.bit_length() - 1 - (12 if P == 65536 else 11)  # merges with a cross-block stage
+    # P = 65536: M 16385..32768, two paths a thread, 4096 keys a block;
+    # P = 131072: M 32769..65536, four paths a thread, 8192 keys a block
+    for P, cross in ((4096, 1), (8192, 3), (16384, 6), (32768, 10), (65536, 10), (131072, 10)):
+        block = 11 + {65536: 1, 131072: 2}.get(P, 0)  # log2 of a block's keys
+        merges = P.bit_length() - 1 - block  # merges with a cross-block stage
         new = np.where(info, scl_cuda.cluster_exchanges(P), 0) + flagged
         old = np.where(info, 2 * cross + merges + 1 + 1, 0) + flagged
         assert set(new[info]) <= {cross + 1, cross + 2} and set(new[~info]) <= {0, 1}
         assert set(old[info]) <= {2 * cross + merges + 2, 2 * cross + merges + 3}
         assert (2 * cross + merges + 3, cross + 2) == {4096: (6, 3), 8192: (11, 5), 16384: (18, 8),
-                                                       32768: (27, 12), 65536: (27, 12)}[P]
+                                                       32768: (27, 12), 65536: (27, 12), 131072: (27, 12)}[P]
         assert new.sum() < old.sum() / 2 + flagged.sum()
     # every info phase reads through σ here (so 3 / 5 / 8 / 12 against 6 / 11 / 18 / 27),
     # and about half the frozen phases

@@ -118,18 +118,18 @@ def test_check_shape_takes_lists_up_to_1024():
     for M in (64, 256):
         scl_cuda.check_shape(1024, 512, M, CRC, torch.float32)
     scl_cuda.check_shape(8192, 4096, 1024, None, torch.float32)
-    # above 1024 a frame goes over a cluster of blocks, up to 32768
+    # above 1024 a frame goes over a cluster of blocks, up to 65536
     scl_cuda.check_shape(128, 64, 1025, CRC, torch.float32)
-    with pytest.raises(ValueError, match="1..32768"):
-        scl_cuda.check_shape(128, 64, 32769, CRC, torch.float32)
+    with pytest.raises(ValueError, match="1..65536"):
+        scl_cuda.check_shape(128, 64, 65537, CRC, torch.float32)
     for L in range(33, 1025):
         pac_cuda.check_shape(128, 80, L, GEN, 16, torch.float32)
     pac_cuda.check_shape(2048, 1040, 32, GEN, 16, torch.float32)
     pac_cuda.check_shape(8192, 4112, 8, GEN, 16, torch.float32)
     pac_cuda.check_shape(8192, 4112, 1024, GEN, 16, torch.float32)
     pac_cuda.check_shape(128, 80, 1025, GEN, 16, torch.float32)
-    with pytest.raises(ValueError, match="1..32768"):
-        pac_cuda.check_shape(128, 80, 32769, GEN, 16, torch.float32)
+    with pytest.raises(ValueError, match="1..65536"):
+        pac_cuda.check_shape(128, 80, 65537, GEN, 16, torch.float32)
     for N in (16384, 32768, 65536):  # past the TPU kernel's N=8192
         pac_cuda.check_shape(N, N // 2 + 16, 8, GEN, 16, torch.float32)
         pac_cuda.check_shape(N, N // 2 + 16, 1024, GEN, 16, torch.float32)

@@ -180,8 +180,8 @@ def test_check_shape_takes_the_envelope():
         scl_cuda.check_shape(4096, 2048, M, CRC, torch.float32)
     for M in range(1, 5):
         scl_cuda.check_shape(8192, 4096, M, CRC, torch.float32)
-    with pytest.raises(ValueError, match="1..32768"):
-        scl_cuda.check_shape(128, 64, 32769, CRC, torch.float32)
+    with pytest.raises(ValueError, match="1..65536"):
+        scl_cuda.check_shape(128, 64, 65537, CRC, torch.float32)
     # past the TPU kernel's N=8192 up to the phase words' 65536
     for N in (16384, 32768, 65536):
         scl_cuda.check_shape(N, N // 2, 4, CRC, torch.float32)

@@ -184,7 +184,7 @@ def test_stable_partition_perm_equals_jax_and_argsort():
 def test_routing_follows_the_device():
     assert resolve_backend(torch.device("cpu"), M=8, dtype=torch.float64, N=128, K=64) == "plain"
     with pytest.raises(ValueError):  # the kernel shape gate applies on the card
-        resolve_backend(torch.device("cuda"), M=32769, dtype=torch.float32, N=128, K=64)
+        resolve_backend(torch.device("cuda"), M=65537, dtype=torch.float32, N=128, K=64)
     assert auto_compact_capacity(-1, 4096, "cuda") == 4096
     assert auto_compact_capacity(-1, 128, "cuda") == 0
     assert auto_compact_capacity(-1, 4096, "cpu") == 0

@@ -18,8 +18,8 @@ the CPU:
   block's bytes (those of M = 8192), the launch plan on a stand-in
   occupancy calculator (the same G as at 8192; none placed raises),
   `scratch_bytes` and the batch split at M = 16384, `check_shape` over M
-  and L 8193..16384 at N 128..65536 (the first size refused is 32769, past
-  the two paths a thread of `tests/test_torch_list_32k.py`);
+  and L 8193..16384 at N 128..65536 (the first size refused is 65537, past
+  the four paths a thread of `tests/test_torch_list_64k.py`);
 * the largest 32-bit products of the cluster kernels at M = 16384, N =
   65536, against 2^31.
 
@@ -118,8 +118,9 @@ def test_plain_float32_matches_jax_golden_at_m16384():
 # ---- the planning ----
 
 def test_cluster_of_16_blocks():
-    # the largest cluster: 16 blocks, at one path a thread up to 16384 (two above, to MAX_M)
-    assert scl_cuda.MAX_M == pac_cuda.MAX_L == 32768 and scl_cuda.CLUSTER_MAX_BLOCKS == 16
+    # the largest cluster: 16 blocks, at one path a thread up to 16384 (two
+    # up to 32768, four above, to MAX_M)
+    assert scl_cuda.MAX_M == pac_cuda.MAX_L == 65536 and scl_cuda.CLUSTER_MAX_BLOCKS == 16
     assert scl_cuda.CLUSTER_PAIR_MIN_M == 16385 and scl_cuda.cluster_ppt(16384) == 1
     for M in (8193, 9000, 12000, 12289, 16383, 16384):
         assert scl_cuda.sort_keys(M) == P16 and scl_cuda.cluster_blocks(M) == 16
@@ -146,19 +147,19 @@ def test_check_shape_takes_lists_up_to_16384():
         scl_cuda.check_shape(128, 64, M, None, torch.float32)
         pac_cuda.check_shape(128, 80, M, GEN, 16, torch.float32)
     scl_cuda.check_shape(65536, 65536, 16384, CRC, torch.float32)  # K = N: the largest trace
-    for N in (128, 65536):  # past two paths a thread of a cluster of 16 blocks
-        with pytest.raises(ValueError, match="1..32768 .*16 blocks"):
-            scl_cuda.check_shape(N, N // 2, 32769, CRC, torch.float32)
-        with pytest.raises(ValueError, match="1..32768 .*16 blocks"):
-            pac_cuda.check_shape(N, N // 2 + 16, 32769, GEN, 16, torch.float32)
+    for N in (128, 65536):  # past four paths a thread of a cluster of 16 blocks
+        with pytest.raises(ValueError, match="1..65536 .*16 blocks"):
+            scl_cuda.check_shape(N, N // 2, 65537, CRC, torch.float32)
+        with pytest.raises(ValueError, match="1..65536 .*16 blocks"):
+            pac_cuda.check_shape(N, N // 2 + 16, 65537, GEN, 16, torch.float32)
     with pytest.raises(ValueError, match="65536"):
         scl_cuda.check_shape(131072, 65536, 16384, CRC, torch.float32)
     with pytest.raises(ValueError, match="65536"):
         pac_cuda.check_shape(131072, 65552, 16384, GEN, 16, torch.float32)
-    # the routing takes them on the card, and refuses 32769 there
+    # the routing takes them on the card, and refuses 65537 there
     assert resolve_backend(torch.device("cuda"), M=16384, dtype=torch.float32, N=128, K=64) == "cuda"
-    with pytest.raises(ValueError, match="32768"):
-        resolve_backend(torch.device("cuda"), M=32769, dtype=torch.float32, N=128, K=64)
+    with pytest.raises(ValueError, match="65536"):
+        resolve_backend(torch.device("cuda"), M=65537, dtype=torch.float32, N=128, K=64)
 
 
 @pytest.mark.parametrize("N", [16, 128, 1024, 8192, 65536])

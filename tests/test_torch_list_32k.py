@@ -18,7 +18,8 @@ in `csrc/list_decode.cuh`), σ's two tables in global scratch.  On the CPU:
   paths' rows) within 227 KB at the plan's G at every N 16..65536, the
   launch plan on a stand-in occupancy calculator, `scratch_bytes` with σ's
   tables and the batch split at M = 32768, `check_shape` over M and L
-  16385..32768 at N 128..65536 and raising at 32769, and the routing;
+  16385..32768 at N 128..65536 and raising at 65537 (past four paths a
+  thread), and the routing;
 * the within-frame offsets at M = L = 32768, N = K = 65536 against 2^31
   (computed in 64 bits in the pair instantiations) and the 16-bit fields
   against 2^16.
@@ -191,15 +192,16 @@ def test_check_shape_takes_lists_up_to_32768():
         pac_cuda.check_shape(128, 80, M, GEN, 16, torch.float32)
     scl_cuda.check_shape(65536, 65536, 32768, CRC, torch.float32)  # K = N: the largest trace
     pac_cuda.check_shape(65536, 65536, 32768, GEN, 16, torch.float32)
+    # past 32768 four paths a thread (`tests/test_torch_list_64k.py`): the
+    # first size refused is 65537
     for N in (128, 65536):
-        with pytest.raises(ValueError, match="1..32768 .*two paths a thread"):
-            scl_cuda.check_shape(N, N // 2, 32769, CRC, torch.float32)
-        with pytest.raises(ValueError, match="1..32768 .*two paths a thread"):
-            pac_cuda.check_shape(N, N // 2 + 16, 32769, GEN, 16, torch.float32)
-    # the routing takes 32768 on the card and refuses 32769 there
-    assert resolve_backend(torch.device("cuda"), M=32768, dtype=torch.float32, N=128, K=64) == "cuda"
-    with pytest.raises(ValueError, match="32768"):
-        resolve_backend(torch.device("cuda"), M=32769, dtype=torch.float32, N=128, K=64)
+        with pytest.raises(ValueError, match="1..65536 .*four paths a thread"):
+            scl_cuda.check_shape(N, N // 2, 65537, CRC, torch.float32)
+        with pytest.raises(ValueError, match="1..65536 .*four paths a thread"):
+            pac_cuda.check_shape(N, N // 2 + 16, 65537, GEN, 16, torch.float32)
+    # the routing takes 32768 and 32769 on the card
+    for M in (32768, 32769):
+        assert resolve_backend(torch.device("cuda"), M=M, dtype=torch.float32, N=128, K=64) == "cuda"
 
 
 def test_scratch_and_split_at_32768():

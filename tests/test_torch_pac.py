@@ -138,7 +138,7 @@ def test_check_shape_bounds_the_kernel():
     check_shape(8192, 8000, 32, [1], 0, torch.float32)  # the trace in global scratch: every Kp
     for N in (16384, 32768, 65536):  # past the TPU kernel's N=8192
         check_shape(N, N // 2, 32, [1], 0, torch.float32)
-    for args in ((64, 32, 32769, [1], 0, torch.float32),   # L > 32768
+    for args in ((64, 32, 65537, [1], 0, torch.float32),   # L > 65536
                  (64, 32, 0, [1], 0, torch.float32),
                  (64, 32, 8, [0, 1], 0, torch.float32),  # gen[0] != 1
                  (64, 32, 8, [1] * 33, 0, torch.float32),  # memory 32
@@ -170,7 +170,7 @@ def test_pac_decode_on_cuda_raises_for_what_the_kernel_does_not_take():
     x = _CudaStandIn()
     calls = pac_list_decode_batch.cuda_calls
     with pytest.raises(ValueError, match="list sizes"):
-        pac_decode(x, mask, [1, 0, 1, 1, 0, 1, 1], 32769)
+        pac_decode(x, mask, [1, 0, 1, 1, 0, 1, 1], 65537)
     with pytest.raises(ValueError, match="plain decoder runs on CPU"):
         pac_decode(x, mask, [1], 4, backend="xla")
     assert pac_list_decode_batch.cuda_calls == calls  # no fallback to the plain version

@@ -184,7 +184,8 @@ def test_wrapper_runs_plain_version_on_cpu():
         (128, 64, 8, "0x1" + "0" * 9 + "1", torch.float32, False),  # CRC degree 36
         (128, 64, 8193, CRC, torch.float32, True),  # M above 8192: a cluster of 16 blocks
         (128, 64, 16385, CRC, torch.float32, True),  # M above 16384: two paths a thread
-        (128, 64, 32769, CRC, torch.float32, False),  # M above 32768: two paths a thread of a cluster of 16 blocks
+        (128, 64, 32769, CRC, torch.float32, True),  # M above 32768: four paths a thread
+        (128, 64, 65537, CRC, torch.float32, False),  # M above 65536: four paths a thread of a cluster of 16 blocks
         (16384, 8192, 1, CRC, torch.float32, True),  # N above 8192: past the TPU kernel's envelope
         (131072, 65536, 1, CRC, torch.float32, False),  # N above 65536: past the phase words
         (8192, 8192, 32, None, torch.float32, True),  # by path the trace indices are in global scratch

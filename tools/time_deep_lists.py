@@ -16,9 +16,9 @@ kernel); the PAC kernel K3 over warps at PAC(128,64)+CRC-16,
 gen 1011011, `dega`, 2.5 dB, L 64, 256 and 1024, B=4096; K1 at P(1024,512)
 `gaussian_bitrev` M=64, 1.75 dB, B=1024; and one frame (B=1) of K1 at M=256
 and K3 at L=256, a launch's latency; and on a cluster, B=1024, K1 at
-P(128,64) CRC-24A 5.0 dB M 2048, 4096, 8192 and 16384 and K3 at
-PAC(128,64)+CRC-16 2.5 dB L 2048, 4096, 8192 and 16384 (`chip_smoke.py`
-phases 15 (f) and 17 (f)).  `--only A|B` times
+P(128,64) CRC-24A 5.0 dB M 2048, 4096, 8192, 16384 and 32768 and K3 at
+PAC(128,64)+CRC-16 2.5 dB L 2048, 4096, 8192, 16384 and 32768
+(`chip_smoke.py` phases 15 (f), 17 (f) and 18 (f)).  `--only A|B` times
 the shapes whose names hold A or B.  Prints a line a shape (its time, its
 bound from `chip_smoke.py`'s work counts and the frames an SM, or on a
 cluster the frames at once, the wrapper's launch plan holds), the card's
@@ -103,11 +103,11 @@ def main():
         20, cs.pac_work(mask, 256, 1), pac_cuda.launch_plan(n_p, k_p + crc_p[0], 256))
     B = 1024  # on a cluster
     llr = llr[:B].contiguous()
-    for M in (2048, 4096, 8192, 16384):
+    for M in (2048, 4096, 8192, 16384, 32768):
         run(f"K1 cluster P(128,64) M={M} B={B}", lambda M=M: scl_cuda.decode_scl_cuda(llr, info, M, cs.CRC),
             3 if M == 2048 else 2, cs.scl_work(info, M, B), scl_cuda.launch_plan(cs.N, cs.K, M, B))
     x = x[:B].contiguous()
-    for L in (2048, 4096, 8192, 16384):
+    for L in (2048, 4096, 8192, 16384, 32768):
         run(f"K3 cluster PAC(128,64) L={L} B={B}",
             lambda L=L: pac_cuda.pac_list_decode_cuda(x, mask, cs.PAC_GEN, L, *crc_p),
             3 if L == 2048 else 2, cs.pac_work(mask, L, B), pac_cuda.launch_plan(n_p, k_p + crc_p[0], L))

@@ -146,8 +146,8 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    on 64 frames each, equal to the batch kernels on the same frames; K1, K2
    and K3 launched once a decode and the plain decoders never on CUDA; the
    systematic PolarCode decoder and `decode_ldpc_nms(early_stop=False)` on
-   one frame each equal to the plain version, and float64 raising on the
-   card; (e) `decode_scl`'s time a call and K1's full-list launch beside
+   one frame each equal to the plain version, and float64 past its
+   envelope (M=33) raising on the card; (e) `decode_scl`'s time a call and K1's full-list launch beside
    its best-only launch;
 13. the wide envelope (`wide_envelope`): the `-Xptxas -v` registers and
    spills of the six by-path instantiations (one that spills fails the
@@ -342,8 +342,31 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    B=256, M and L 32768 beside 65536, the plain versions' at 65536, and
    the timed launches' first and last 16 frames against 16-frame
    launches;
-20. a `kernels` JSON line (one entry a kernel, and one for each new
-   instantiation with its launches on phases 13's to 19's paths;
+20. float64 on the card (`float64_on_card`): the registers and spills of
+   the 26 float64 instantiations (K1's byte words and by path, K3 one path
+   a lane, best-only and list); (a) K1 in float64 against the plain
+   float64 version, every field equal: P(128,64) CRC-24A B=4096, M 1, 2,
+   4, 8 (byte words) and 3, 16, 32 (by path), plans on and off,
+   best-only and list; (a), (b) K1 and K3 against the JAX float64 golden
+   file `tests/golden/scl_f64_decode.npz` (P(128,64) M 1-32, P(2048,1024)
+   M=8, P(8192,4096) M=4, PAC(128,64)+CRC-16 L 1, 4, 8, 32), a differing
+   frame reported and allowed only at a near-tie, metrics and info LLRs
+   within 1e-12 relative; (b) K3 in float64 against the plain float64
+   version, every field, L 1, 4, 8, 32 at B=4096; (c) the float64 scalar
+   surface: `decode_scl` M 1 and 8 and `decode_with_retries` M=2 on the
+   12 golden frames of `ref_p128_k64.npz` bit for bit with no near-tie
+   rule, `decode_scl` M=32 (by path), `decode_rate_matched_scl` and
+   `PolarCode` L 1, 4, 32 against the plain float64 versions; (d) the
+   float64 FER step (P(128,64) M=8, 8 retries, β, B=4096) on 102400
+   frames at 4.0 dB against `results/fer_M8.csv` (|z| < 3), and its
+   frames/s at 5 dB beside float32's; one float64 launch a decode and
+   the plain decoders 0 times on CUDA over (c) and (d); (e) each float64
+   kernel's CUDA-event time beside its float32 twin's, with its bound at
+   the data sheet's float64 rate, registers, spills, shared bytes a
+   frame, G and frames an SM; (f) with a parent checkout unpacked, no
+   float32 kernel's SASS moved (phase 16 (e)'s report);
+21. a `kernels` JSON line (one entry a kernel, and one for each new
+   instantiation with its launches on phases 13's to 20's paths;
    each `max_abs_err` the largest difference from the plain version that
    the run measured), the `nvidia-smi` line, and the device JSON line last.
 
@@ -381,6 +404,7 @@ T0 = time.perf_counter()
 N, K, CRC = 128, 64, "0x1864CFB"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
+FP64_OPS_PER_S = FP32_OPS_PER_S / 2  # the data sheet's float64 outside the tensor cores, half of it
 JAX_CSV = REPO / "results" / "fer_M8.csv"
 # every rate in that CSV times 204800 is a whole count: 204800 frames a point
 JAX_FRAMES_PER_POINT = 204800
@@ -471,18 +495,20 @@ def ptxas_report(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            tm = re.search(r"scl_decode_kernelILi(\d+)ELb([01])E", m.group(1))
-            tw = re.search(r"scl_path(_wide)?_kernelILi(\d+)ELb([01])E", m.group(1))
-            tp = re.search(r"pac_decode(_wide)?_kernelILi(\d+)E(?:Lb([01])E)?", m.group(1))
+            tm = re.search(r"scl_decode_kernelILi(\d+)ELb([01])E([fd]?)", m.group(1))
+            tw = re.search(r"scl_path(_wide)?_kernelILi(\d+)ELb([01])E([fd]?)", m.group(1))
+            tp = re.search(r"pac_decode(_wide)?_kernelILi(\d+)E(?:Lb([01])E)?([fd]?)", m.group(1))
             tn = re.search(r"nms_kernel_(warp|block|1024)ILi(\d+)ELb([01])E", m.group(1))
             td = re.search(r"(scl|pac)_deep_kernelI([ht])Lb([01])E", m.group(1))
             tdw = re.search(r"(scl|pac)_deep_wide_kernelILb([01])E", m.group(1))
             tc = re.search(r"(scl|pac)_cluster(_pair|_quad)?_kernelILb([01])E", m.group(1))
-            entry = (f"scl_decode_kernel<M={tm.group(1)}{', list' if tm.group(2) == '1' else ''}>" if tm
+            f64 = {"d": ", f64"}
+            entry = (f"scl_decode_kernel<M={tm.group(1)}{', list' if tm.group(2) == '1' else ''}"
+                     f"{f64.get(tm.group(3), '')}>" if tm
                      else f"scl_path{tw.group(1) or ''}_kernel<LM={tw.group(2)}"
-                          f"{', list' if tw.group(3) == '1' else ''}>" if tw
+                          f"{', list' if tw.group(3) == '1' else ''}{f64.get(tw.group(4), '')}>" if tw
                      else f"pac_decode{tp.group(1) or ''}_kernel<LM={tp.group(2)}"
-                          f"{', list' if tp.group(3) == '1' else ''}>" if tp
+                          f"{', list' if tp.group(3) == '1' else ''}{f64.get(tp.group(4), '')}>" if tp
                      else f"{tdw.group(1)}_deep_wide_kernel<u16 trace{', list' if tdw.group(2) == '1' else ''}>"
                      if tdw
                      else f"nms_kernel<D={tn.group(2)}, {'two-min' if tn.group(3) == '1' else 'shared'}, "
@@ -508,10 +534,10 @@ def ptxas_report(log):
     return rows
 
 
-def make_llrs(rng, B, snr_db, info_set, n=N):
+def make_llrs(rng, B, snr_db, info_set, n=N, dtype=np.float32):
     """Real CRC-24A codewords of the (n, len(info_set)) code through BPSK +
-    AWGN, drawn with numpy (float32 LLRs); `snr_db` a number or a [B, 1]
-    array of per-frame Eb/N0."""
+    AWGN, drawn with numpy (LLRs of `dtype`, float32 unless asked); `snr_db`
+    a number or a [B, 1] array of per-frame Eb/N0."""
 
     import torch
     from polar_code_tpu_torch.ops.crc import attach_crc_batch, crc_degree
@@ -523,7 +549,7 @@ def make_llrs(rng, B, snr_db, info_set, n=N):
     code = encode_batch(msg, info_set, n).numpy()
     nv = 1.0 / (2.0 * (k / n) * 10 ** (np.asarray(snr_db) / 10.0))
     y = 1.0 - 2.0 * code + rng.normal(0.0, 1.0, code.shape) * np.sqrt(nv)
-    return (2.0 * y / nv).astype(np.float32), msg.numpy()
+    return (2.0 * y / nv).astype(dtype), msg.numpy()
 
 
 def nr_polar_llrs(rng, B, snr_db, info_set):
@@ -629,10 +655,10 @@ def select_ops(L):
     return (math.factorial(2 * L) // math.factorial(L) - 1).bit_length()
 
 
-def scl_work(info_set, M, B, n=N, k=K):
+def scl_work(info_set, M, B, n=N, k=K, elem=4):
     """(bytes, operations) one SCL decode of B frames needs at least.
 
-    Bytes: LLRs in, bits + info LLRs + pass out, each once.  Operations
+    Bytes: LLRs in (`elem` bytes each), bits + info LLRs + pass out, each once.  Operations
     (float32): f = 4 (two |·|, min, sign product) and g = 2 (multiply, add)
     per updated entry per path, the penalty and metric add (5) per path per
     phase plus the second candidate's (5) at info phases, and `select_ops(M)`
@@ -645,7 +671,7 @@ def scl_work(info_set, M, B, n=N, k=K):
     fg = int(((upd == 1) * widths).sum()) * 4 + int(((upd == 2) * widths).sum()) * 2
     n_info = int((frozen == 0).sum())
     per_frame = M * fg + M * n * 5 + M * n_info * 5 + n_info * select_ops(M)
-    nbytes = B * (n * 4 + k + k * 4 + 1)
+    nbytes = B * (n * elem + k + k * elem + 1)
     return nbytes, per_frame * B
 
 
@@ -669,9 +695,10 @@ def pac_mask(N, kp, profile="dega"):
     return np.asarray(rp.modify_profile())
 
 
-def pac_llrs(rng, B, snr_db, code, gen, mask, dev):
-    """Float32 LLRs of PAC codewords (CRC'd payloads, the port's encoder on the
-    card) through BPSK + AWGN at Eb/N0 over the payload rate (numpy draws)."""
+def pac_llrs(rng, B, snr_db, code, gen, mask, dev, dtype=np.float32):
+    """LLRs (float32 unless asked) of PAC codewords (CRC'd payloads, the
+    port's encoder on the card) through BPSK + AWGN at Eb/N0 over the
+    payload rate (numpy draws)."""
 
     import torch
     from polar_code_tpu_torch.legacy.crclib import crc
@@ -684,10 +711,10 @@ def pac_llrs(rng, B, snr_db, code, gen, mask, dev):
     x = pac_encode_batch(torch.from_numpy(msgs).to(dev), mask, gen, n).cpu().numpy()
     nv = 1.0 / (2.0 * (k / n) * 10 ** (snr_db / 10.0))
     y = 1.0 - 2.0 * x + rng.normal(0.0, math.sqrt(nv), x.shape)
-    return torch.from_numpy((2.0 * y / nv).astype(np.float32)).to(dev)
+    return torch.from_numpy((2.0 * y / nv).astype(dtype)).to(dev)
 
 
-def pac_work(mask, L, B):
+def pac_work(mask, L, B, elem=4):
     """(bytes, operations) one PAC list decode of B frames needs at least.
 
     Bytes: LLRs in, bits + pass flag out, each once.  Operations, per path:
@@ -704,11 +731,14 @@ def pac_work(mask, L, B):
     fg = int(((upd == 1) * widths).sum()) * 4 + int(((upd == 2) * widths).sum()) * 2
     n_info = int((frozen == 0).sum())
     per_frame = L * fg + L * n * 2 + n_info * select_ops(L)
-    return B * (n * 4 + n_info + 1), per_frame * B
+    return B * (n * elem + n_info + 1), per_frame * B
 
 
-def bound(nbytes, nops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
+def bound(nbytes, nops, ops_per_s=None):
+    """(least ms, "bytes" or "operations"): at the float32 rate unless
+    `ops_per_s` is given (`FP64_OPS_PER_S` for the float64 kernels)."""
+
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / (ops_per_s or FP32_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1485,7 +1515,8 @@ def scalar_surface(dev, smi):
               ).astype(np.float32)
 
     # the systematic decoder and decode without early stop, on one frame each,
-    # against the plain version on the card; float64 on the card raises
+    # against the plain version on the card; float64 outside its envelope
+    # (M <= 32, N <= 8192) raises on the card (phase 20 decodes inside it)
     got = pc[4].pac_list_crc_decoder(pc_llr[0], True, True, crc16, 4)
     want = systematic_reference(pc[4], pc_llr[:1], True, crc16, 4, dev)[0]
     check(np.array_equal(got, want), "PolarCode systematic decoder differs from the plain version")
@@ -1498,11 +1529,12 @@ def scalar_surface(dev, smi):
     print("  PolarCode(64, 48, dega, L=4) systematic CRC-16 and decode_ldpc_nms(early_stop=False) on "
           "the card: one frame each, equal to the plain version")
     try:
-        decode_scl(golden["llrs"][0], g_info, 8, CRC, dtype=torch.float64)
+        decode_scl(golden["llrs"][0], g_info, 33, CRC, dtype=torch.float64)
     except ValueError as exc:
-        print(f"  decode_scl(dtype=float64) on the card raises: {exc}")
+        print(f"  decode_scl(M=33, dtype=float64) on the card raises: {exc}")
+        check("float64 at list sizes 1..32 and N up to 8192" in str(exc), "the raise does not name the envelope")
     else:
-        check(False, "decode_scl(dtype=float64) on the card did not raise")
+        check(False, "decode_scl(M=33, dtype=float64) on the card did not raise")
 
     k1_before, k2_before = decode_scl_cuda.launches, decode_ldpc_nms_cuda.launches
     k3_before = pac_list_decode_cuda.launches
@@ -3197,6 +3229,7 @@ def long_codes(dev, smi, sass=None):
     sass = sass or sass_against_parent()
     if sass is not None:
         out, err = sass.communicate(timeout=600)
+        SASS_OUT["out"] = out
         print(out.rstrip())
         summary = [ln for ln in out.splitlines() if "kernels with the same SASS" in ln]
         print(f"(e) SASS against {parent}: {'; '.join(summary) or err[-500:]}")
@@ -4168,6 +4201,378 @@ def list_sizes_64k(dev, smi, fer32):
             for k in ("scl", "pac")]
 
 
+# phase 20, float64 on the card: K1's byte words and by path and K3 one path
+# a lane at list sizes 1-32 and N up to 8192, in double
+F64_SEED = 20261020
+F64_B = 4096  # frames of a vs-plain case and of the timed launches
+F64_MS = (1, 2, 4, 8, 3, 16, 32)  # (a): K1 byte words, then by path
+F64_LS = (1, 4, 8, 32)  # (b): K3 at PAC(128,64)+CRC-16
+F64_SCALAR_MS = (1, 8, 32)  # (c): decode_scl on the golden frames (32: by path)
+F64_PC_LS = (1, 4, 32)  # (c): PolarCode(64, 48, "dega", L), non-systematic on SCALAR_FRAMES frames
+F64_FER = (4.0, 102400)  # (d): Eb/N0 and frames of the FER check against results/fer_M8.csv
+F64_FER_TIMED = 20  # (d): FER steps timed at 5 dB, float64 beside float32
+F64_REL = 1e-12
+SASS_OUT = {}  # phase 16 (e)'s `tools/compare_sass.py` report, read again in phase 20 (f)
+
+
+def float64_on_card(dev, smi):
+    """Phase 20: K1 (byte words, by path) and K3 (one path a lane) in float64
+    against the plain float64 versions on the card and the JAX float64
+    golden file; the float64 scalar surface and FER step, one launch a
+    decode; each float64 kernel's time beside its float32 twin's; the
+    float32 kernels' SASS against a parent checkout's where one is
+    unpacked.  Returns the `kernels` entries of the float64
+    instantiations."""
+
+    import torch
+
+    from polar_code_tpu_torch import _build
+    from polar_code_tpu_torch.channel import noise_var_coded, noise_var_uncoded
+    from polar_code_tpu_torch.dlscl.flip import decode_with_retries
+    from polar_code_tpu_torch.interop import load_beta
+    from polar_code_tpu_torch.legacy import pac_cuda
+    from polar_code_tpu_torch.legacy.crclib import crc as legacy_crc
+    from polar_code_tpu_torch.legacy.pac import pac_list_decode_batch
+    from polar_code_tpu_torch.legacy.pac_cuda import pac_list_decode_cuda
+    from polar_code_tpu_torch.legacy.polar_code import PolarCode
+    from polar_code_tpu_torch.legacy.rate_profile import rateprofile
+    from polar_code_tpu_torch.eval.run_ber_sweep import _noise_var
+    from polar_code_tpu_torch.nr.polar.scl_nr import (decode_rate_matched_scl, decode_rate_matched_scl_batch,
+                                                      encode_rate_matched_batch)
+    from polar_code_tpu_torch.ops import scl_cuda
+    from polar_code_tpu_torch.ops.scl import decode_scl_batch
+    from polar_code_tpu_torch.polar.api import decode_scl
+    from polar_code_tpu_torch.polar.construct import construct_info_set
+    from polar_code_tpu_torch.sim.pipeline import make_fer_chunk
+
+    f64 = torch.float64
+    decode_scl_cuda = scl_cuda.decode_scl_cuda
+    wrappers = (decode_scl_cuda, pac_list_decode_cuda)
+    plains = (decode_scl_batch, pac_list_decode_batch)
+    info = construct_info_set(N, K)
+    rng = np.random.default_rng(F64_SEED)
+    t_phase = time.perf_counter()
+
+    def reset_counts():
+        for f in wrappers:
+            f.launches = f.f64_launches = 0
+        decode_scl_cuda.path_launches = 0
+        for f in plains:
+            f.cuda_calls = 0
+
+    def lap(part):
+        print(f"  [phase 20 at {time.perf_counter() - t_phase:.1f} s] {part}", flush=True)
+
+    def rel_err(got, want):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        fin = np.isfinite(want)
+        if not np.array_equal(np.isfinite(got), fin) or not np.array_equal(got[~fin], want[~fin]):
+            return math.inf
+        return float(np.max(np.abs(got[fin] - want[fin]) / np.abs(want[fin]), initial=0.0))
+
+    # ---- the float64 instantiations' registers and spills (built in phase 2: the kept log) ----
+    regs = {}
+    for source in (scl_cuda.SOURCE, pac_cuda.SOURCE):
+        for row in ptxas_report(_build.build(source).log):
+            if row["entry"].endswith(", f64>"):
+                regs[row["entry"]] = (row["regs"], row["spill_stores"], row["spill_loads"])
+    check(len(regs) == 26, f"the build log holds {len(regs)} float64 instantiations, not 26: {sorted(regs)}")
+
+    # ---- (a) K1 in float64 against the plain float64 version, and the golden file ----
+    lap("(a)")
+    k1_err, k1_cases = 0.0, 0
+    for M in F64_MS:
+        llr_np, msg = make_llrs(rng, F64_B, np.where(np.arange(F64_B) % 2, 1.5, 3.0)[:, None], info,
+                                dtype=np.float64)
+        llr = torch.from_numpy(llr_np).to(dev)
+        for use_plan in (False, True):
+            plan = torch.from_numpy(random_plan(rng, msg)).to(dev) if use_plan else None
+            ref = decode_scl_batch(llr, info, M, CRC, force_info_bits=plan, dtype=f64)
+            for full in (False, True):
+                out = decode_scl_cuda(llr, info, M, CRC, force_info_bits=plan, full=full)
+                torch.cuda.synchronize()
+                fields = scl_cuda.BEST_FIELDS + (scl_cuda.LIST_FIELDS if full else ())
+                for f in fields:
+                    want = getattr(ref, f)
+                    check(out[f].dtype == want.dtype, f"K1 float64 M={M} {f} is {out[f].dtype}, not {want.dtype}")
+                    check(torch.equal(out[f], want),
+                          f"K1 float64 M={M} plan={use_plan} full={full}: {f} differs from the plain version")
+                k1_err = max(k1_err, float((out["best_path_info_llrs"] - ref.best_path_info_llrs).abs().max()))
+                k1_cases += 1
+        del ref
+    near, golden_cases = [], 0
+    with np.load(GOLDEN / "scl_f64_decode.npz") as gold:
+        cases = json.loads(str(gold["cases"]))
+        for case in cases:
+            tag, code = case["name"], case["code"]
+            x = torch.from_numpy(gold[f"{code}/llr"]).to(dev)
+            if code == "pac128":
+                out = pac_list_decode_cuda(x, gold["pac128/mask"], case["gen"], case["L"], case["crc_len"],
+                                           case["crc_poly"], full=True)
+                fields = ("extracted", "crc_pass", "candidates", "v_full", "valid")
+            else:
+                plan = torch.from_numpy(gold[f"{code}/plan"]).to(dev) if case["plan"] else None
+                out = decode_scl_cuda(x, gold[f"{code}/info"], case["M"], case["crc"], force_info_bits=plan,
+                                      full=True)
+                out["bits"], out["llrs"] = out["best_path_bits"], out["best_path_info_llrs"]
+                fields = (("bits", "crc_pass") + (("candidates", "best_index") if case["full"] else ()))
+            torch.cuda.synchronize()
+            bad = np.zeros(int(x.shape[0]), bool)
+            for f in fields:
+                got, want = out[f].cpu().numpy(), gold[f"{tag}/{f}"]
+                bad |= (got != want).reshape(len(bad), -1).any(axis=1)
+            same = ~bad  # the values of the frames whose decisions agree
+            errs = [rel_err(out["metrics"].cpu().numpy()[same], gold[f"{tag}/metrics"][same])]
+            if code != "pac128":
+                errs.append(rel_err(out["llrs"].cpu().numpy()[same], gold[f"{tag}/llrs"][same]))
+                if case["info_llrs"]:
+                    errs.append(rel_err(out["info_llrs"].cpu().numpy()[same], gold[f"{tag}/info_llrs"][same]))
+            ties = near_tie_frames(gold[f"{tag}/metrics"], rel=1e-9)
+            for f in np.flatnonzero(bad):
+                near.append(f"{tag} frame {f}{' (near-tie)' if ties[f] else ''}")
+            check(not (bad & ~ties).any(), f"K1/K3 float64 {tag}: frames {np.flatnonzero(bad & ~ties).tolist()} "
+                  f"differ from JAX float64 outside a near-tie")
+            check(max(errs) <= F64_REL, f"K1/K3 float64 {tag}: metrics or info LLRs off JAX float64 "
+                  f"by {max(errs):.3e} relative")
+            golden_cases += 1
+    print(f"(a) K1 float64 vs plain float64 on the card: {k1_cases} cases (P(128,64) CRC-24A B={F64_B}, M "
+          f"{', '.join(map(str, F64_MS))}, plans on and off, best-only and list), every field equal; max |info LLR "
+          f"diff| {k1_err:.3e}", flush=True)
+    print(f"(a), (b) K1 and K3 float64 vs tests/golden/scl_f64_decode.npz (JAX float64): {golden_cases} cases, "
+          f"{len(near)} frames differ{': ' + '; '.join(near) if near else ''}; metrics and info LLRs within "
+          f"{F64_REL:g} relative", flush=True)
+
+    # ---- (b) K3 in float64 against the plain float64 version ----
+    lap("(b)")
+    n_p, k_p, crc_p = PAC_CODES[128]
+    p_mask = pac_mask(n_p, k_p + crc_p[0])
+    k3_err = 0.0
+    for L in F64_LS:
+        x = pac_llrs(rng, F64_B, 2.0, PAC_CODES[128], PAC_GEN, p_mask, dev, dtype=np.float64)
+        ref = pac_list_decode_batch(x, p_mask, PAC_GEN, L, crc_len=crc_p[0], crc_poly=crc_p[1], dtype=f64)
+        for full in (False, True):
+            out = pac_list_decode_cuda(x, p_mask, PAC_GEN, L, *crc_p, full=full)
+            torch.cuda.synchronize()
+            for f in out:
+                check(torch.equal(out[f], ref[f].to(out[f].dtype)), f"K3 float64 L={L} full={full}: {f} differs "
+                      f"from the plain version")
+            if full:
+                fin = torch.isfinite(ref["metrics"])
+                k3_err = max(k3_err, float((out["metrics"][fin] - ref["metrics"][fin]).abs().max()))
+                check(out["metrics"].dtype == f64, f"K3 float64 metrics are {out['metrics'].dtype}")
+    print(f"(b) K3 float64 vs plain float64: PAC(128,64)+CRC-16 B={F64_B} L {', '.join(map(str, F64_LS))}, "
+          f"best-only and list, every field equal", flush=True)
+
+    # ---- (c), (d): the float64 scalar surface and FER step, counted ----
+    lap("(c)")
+    golden = np.load(GOLDEN / "ref_p128_k64.npz")
+    g_info = golden["info_set"]
+    try:
+        scl_cuda.check_shape(16384, 8192, 8, CRC, f64)
+    except ValueError as exc:
+        print(f"  float64 past N=8192 raises: {exc}")
+    else:
+        check(False, "the SCL kernel took float64 at N=16384")
+    n_r, k_r, kp_r, e_r, m_r = NR_POLAR
+    info_r = construct_info_set(n_r, k_r)
+    payload = torch.from_numpy(rng.integers(0, 2, (SCALAR_FRAMES, kp_r)).astype(np.int8))
+    tx = encode_rate_matched_batch(payload, CRC, n_r, e_r, info_r).numpy()
+    nv = _noise_var(3.5, kp_r, e_r)
+    nr_llr = (1.0 - 2.0 * tx + rng.normal(0.0, math.sqrt(nv), tx.shape)) * (2.0 / nv)
+    crc16 = legacy_crc(*PAC_CRC)
+    pc = {L: PolarCode(64, 48, "dega", L, rateprofile(64, 48, 2.0, 0), dtype=f64) for L in F64_PC_LS}
+    pc_cpu = PolarCode(64, 48, "dega", 4, rateprofile(64, 48, 2.0, 0), device="cpu")
+    msgs = rng.integers(0, 2, (SCALAR_FRAMES, 32)).astype(np.int8)
+    msgs = np.concatenate([msgs, crc16.crcCalc_batch(msgs)], axis=1)
+    codewords = np.stack([pc_cpu.encode(m, False) for m in msgs])
+    nv = 1.0 / (2.0 * 0.5 * 10 ** 0.3)
+    pc_llr = 2.0 * (1.0 - 2.0 * codewords + rng.normal(0.0, math.sqrt(nv), codewords.shape)) / nv
+
+    beta = load_beta(str(REPO / "checkpoints" / "beta_M8.npy")).beta_matrix().detach()
+    chunks = {dt: make_fer_chunk(N=N, K=K, crc_poly=CRC, info_set=info, M=8, retries=8, beta=beta,
+                                 batch=F64_B, device=dev, compact=-1, dtype=dt) for dt in (torch.float32, f64)}
+    snr, frames = F64_FER
+    nv_c, nv_u = noise_var_coded(snr, K, N), noise_var_uncoded(snr)
+    for i in range(2):  # warm both steps, outside the counted run
+        for chunk in chunks.values():
+            torch.stack([v.to(f64) for v in chunk(7, 50, i, noise_var_coded(5.0, K, N),
+                                                  noise_var_uncoded(5.0)).values()]).tolist()
+
+    reset_counts()
+    t = time.perf_counter()
+    scl = {M: [decode_scl(llr, g_info, M, CRC, dtype=f64) for llr in golden["llrs"]] for M in F64_SCALAR_MS}
+    dl = [decode_with_retries(llr, g_info, 2, 4, crc=CRC, dtype=f64) for llr in golden["llrs"]]
+    nr = [decode_rate_matched_scl(row, CRC, n_r, e_r, info_r, m_r, dtype=f64) for row in nr_llr]
+    pac = {L: [pc[L].pac_list_crc_decoder(row, False, True, crc16, L) for row in pc_llr] for L in F64_PC_LS}
+    systematic = pc[4].pac_list_crc_decoder(pc_llr[0], True, True, crc16, 4)
+    torch.cuda.synchronize()
+    scalar_s = time.perf_counter() - t
+    scalar_k1, scalar_k3 = decode_scl_cuda.f64_launches, pac_list_decode_cuda.f64_launches
+    scalar_path = decode_scl_cuda.path_launches
+    scalar_all = (decode_scl_cuda.launches, pac_list_decode_cuda.launches)
+    calls = (len(F64_SCALAR_MS) * len(golden["llrs"]) + sum(len(r["attempts"]) for r in dl) + SCALAR_FRAMES,
+             len(F64_PC_LS) * SCALAR_FRAMES + 1)
+    fer = {"scl_errors": 0, "dl_errors": 0}
+    t = time.perf_counter()
+    for i in range(frames // F64_B):
+        out = chunks[f64](3, 40, i, nv_c, nv_u)
+        for key in fer:
+            fer[key] += int(out[key])
+    torch.cuda.synchronize()
+    fer_s = time.perf_counter() - t
+    fer_k1 = decode_scl_cuda.f64_launches - scalar_k1
+    fer_all = decode_scl_cuda.launches - scalar_all[0]
+    plain = sum(f.cuda_calls for f in plains)
+    steps = frames // F64_B
+    print(f"(c) the float64 scalar surface on the card: {scalar_s:.3f} s (host clock); float64 K1/K3 launches "
+          f"({scalar_k1}, {scalar_k3}) for {calls} decodes ({scalar_path} K1 by path); (d) the float64 FER step "
+          f"P(128,64) M=8, 8 retries, β, B={F64_B}, {snr} dB: {steps} steps, {fer_k1} K1 launches "
+          f"({fer_k1 / steps:.2f} a step), {frames / fer_s:.0f} frames/s; plain decoders on CUDA {plain} times",
+          flush=True)
+    check((scalar_k1, scalar_k3) == calls and scalar_all == calls,
+          f"the float64 scalar entry points launched {(scalar_k1, scalar_k3)} ({scalar_all} in all), not one "
+          f"float64 launch a decode {calls}")
+    check(scalar_path == len(golden["llrs"]), f"decode_scl M=32 made {scalar_path} by-path launches")
+    check(fer_k1 == fer_all and steps <= fer_k1 <= steps * 9,
+          f"the float64 FER step made {fer_k1} float64 K1 launches of {fer_all} over {steps} steps")
+    check(plain == 0, "a plain decoder ran on CUDA in the float64 scalar surface or FER step")
+
+    # the golden reference vectors, bit for bit and with no near-tie rule
+    for M in (1, 8):
+        bits = np.stack([r["best_path_bits"] for r in scl[M]])
+        check(np.array_equal(bits, golden[f"scl_m{M}_best"]), f"decode_scl float64 M={M} differs from the golden bits")
+        for b, r in enumerate(scl[M]):
+            want = golden[f"scl_m{M}_metrics"][b]
+            want = want[np.isfinite(want)]
+            got = np.asarray(r["metrics"])
+            check(got.shape == want.shape and rel_err(got, want) <= F64_REL,
+                  f"decode_scl float64 M={M} frame {b} metrics {got} vs golden {want}")
+    for b, r in enumerate(dl):
+        check(np.array_equal(r["best_path_bits"], golden["dl_m2_best"][b])
+              and r["success"] == bool(golden["dl_m2_success"][b])
+              and len(r["attempts"]) - 1 == int(golden["dl_m2_attempts"][b]),
+              f"decode_with_retries float64 M=2 frame {b} differs from the golden run")
+    for b, r in enumerate(scl[32]):  # by path: the plain float64 decoder on the CPU
+        want = decode_scl(golden["llrs"][b], g_info, 32, CRC, device="cpu")
+        check(np.array_equal(r["best_path_bits"], want["best_path_bits"])
+              and rel_err(r["metrics"], want["metrics"]) <= F64_REL
+              and rel_err(r["best_path_info_llrs"], want["best_path_info_llrs"]) <= F64_REL,
+              f"decode_scl float64 M=32 frame {b} differs from the plain float64 decoder")
+    ref = decode_rate_matched_scl_batch(torch.from_numpy(nr_llr), CRC, n_r, e_r, info_r, m_r, dtype=f64)
+    for f in ("payload", "best_path_bits", "crc_pass"):
+        check(np.array_equal(np.asarray([r[f] for r in nr]), ref[f].numpy()),
+              f"decode_rate_matched_scl float64 {f} differs from the plain float64 batch")
+    for L in F64_PC_LS:
+        want = pac_list_decode_batch(torch.from_numpy(pc_llr), pc[L].polarcode_mask, [1], L, crc_len=PAC_CRC[0],
+                                     crc_poly=PAC_CRC[1], dtype=f64)["extracted"].numpy()
+        check(np.array_equal(np.stack(pac[L]), want), f"PolarCode float64 L={L} differs from the plain float64 batch")
+    check(np.array_equal(systematic, pc_cpu.pac_list_crc_decoder(pc_llr[0], True, True, crc16, 4)),
+          "the float64 systematic PolarCode decoder differs from the plain one")
+    print(f"  golden P(128,64) in float64 on the card: decode_scl M=1 and M=8 bits equal and metrics within "
+          f"{F64_REL:g}, decode_with_retries M=2 12/12 frames, no near-tie rule; decode_scl M=32 equal to the plain "
+          f"float64 decoder; decode_rate_matched_scl N={n_r} M={m_r} and PolarCode(64, 48) L "
+          f"{', '.join(map(str, F64_PC_LS))} on {SCALAR_FRAMES} frames and the systematic decoder equal to the "
+          f"plain float64 versions", flush=True)
+
+    # (d) the FER against the JAX sweep's, and the step's rate beside float32's
+    jax_rows = {}
+    for line in JAX_CSV.read_text().splitlines()[1:]:
+        vals = line.split(",")
+        jax_rows[float(vals[0])] = {"fer_scl": float(vals[3]), "fer_dl": float(vals[5])}
+    for key, errs in (("fer_scl", fer["scl_errors"]), ("fer_dl", fer["dl_errors"])):
+        p1, p2 = errs / frames, jax_rows[snr][key]
+        z = fer_z(p1, frames, p2, JAX_FRAMES_PER_POINT)
+        print(f"  {snr} dB {key}: float64 port {p1:.6e} ({frames} frames) vs JAX {p2:.6e} "
+              f"({JAX_FRAMES_PER_POINT} frames): z = {z:+.3f}")
+        check(0.0 < p1 < 1.0 and abs(z) < 3.0, f"float64 {key} at {snr} dB is off the JAX sweep (z={z:.2f})")
+    nv5 = (noise_var_coded(5.0, K, N), noise_var_uncoded(5.0))
+    rates = {}
+    for dt in (torch.float32, f64, f64, torch.float32):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(F64_FER_TIMED):
+            torch.stack([v.to(f64) for v in chunks[dt](1, 50, 1000 + i, *nv5).values()]).tolist()
+        torch.cuda.synchronize()
+        rates.setdefault(dt, []).append(F64_FER_TIMED * F64_B / (time.perf_counter() - t))
+    print(f"  FER step at 5 dB (M=8, 8 retries, B={F64_B}) on {smi}: float32 "
+          f"{', '.join(f'{r:.0f}' for r in rates[torch.float32])} frames/s, float64 "
+          f"{', '.join(f'{r:.0f}' for r in rates[f64])} frames/s ({F64_FER_TIMED} steps each, in the order "
+          f"float32, float64, float64, float32)", flush=True)
+
+    # ---- (e) times with CUDA events, each float64 kernel beside its float32 twin ----
+    lap("(e)")
+    print(f"float64 times on {smi}:")
+    llr32 = torch.from_numpy(make_llrs(np.random.default_rng(5), F64_B, 5.0, info)[0]).to(dev)
+    llr64 = torch.from_numpy(make_llrs(np.random.default_rng(5), F64_B, 5.0, info, dtype=np.float64)[0]).to(dev)
+    entries, ratios = {}, {}
+    for M in F64_MS:
+        ms32 = cuda_time_ms(lambda: decode_scl_cuda(llr32, info, M, CRC), reps=20)
+        ms64 = cuda_time_ms(lambda: decode_scl_cuda(llr64, info, M, CRC), reps=20)
+        g, fpb, per_sm = scl_cuda.launch_plan(N, K, M, F64_B, 8)
+        kind = "byte words" if scl_cuda.byte_words(M) else f"by path LM={scl_cuda.path_width(M)}"
+        entry = (f"scl_decode_kernel<M={M}, f64>" if scl_cuda.byte_words(M)
+                 else f"scl_path_kernel<LM={scl_cuda.path_width(M)}, f64>")
+        r, st, ld = regs[entry]
+        b_ms, b_by = bound(*scl_work(info, M, F64_B, elem=8), FP64_OPS_PER_S)
+        ratios[f"K1 M={M}"] = ms64 / ms32
+        print(f"  K1 {kind} P(128,64) M={M} CRC B={F64_B}: float64 {ms64:.4f} ms, float32 {ms32:.4f} ms "
+              f"({ms64 / ms32:.2f}x); bound {b_ms:.6f} ms ({b_by}, float64 at {FP64_OPS_PER_S / 1e12:g} TFLOP/s); "
+              f"{r} registers, spills {st} B stores / {ld} B loads; {scl_cuda.frame_bytes(N, K, M, g, 8)} B shared "
+              f"a frame at G={g}, {fpb} frames a block, {per_sm} frames an SM", flush=True)
+        if M in (8, 16):
+            plain_ms = cuda_time_ms(lambda: decode_scl_batch(llr64, info, M, CRC, dtype=f64), reps=2, warmup=1)
+            entries["scl" if M == 8 else "path"] = (ms64, plain_ms, b_ms, b_by)
+            print(f"    plain float64 version, same decode: {plain_ms:.4f} ms", flush=True)
+    x32 = pac_llrs(np.random.default_rng(6), F64_B, 2.5, PAC_CODES[128], PAC_GEN, p_mask, dev)
+    x64 = pac_llrs(np.random.default_rng(6), F64_B, 2.5, PAC_CODES[128], PAC_GEN, p_mask, dev, dtype=np.float64)
+    for L in F64_LS:
+        ms32 = cuda_time_ms(lambda: pac_list_decode_cuda(x32, p_mask, PAC_GEN, L, *crc_p), reps=20)
+        ms64 = cuda_time_ms(lambda: pac_list_decode_cuda(x64, p_mask, PAC_GEN, L, *crc_p), reps=20)
+        g, fpb, per_sm = pac_cuda.launch_plan(n_p, k_p + crc_p[0], L, 8)
+        r, st, ld = regs[f"pac_decode_kernel<LM={1 << (L - 1).bit_length()}, f64>"]
+        b_ms, b_by = bound(*pac_work(p_mask, L, F64_B, elem=8), FP64_OPS_PER_S)
+        ratios[f"K3 L={L}"] = ms64 / ms32
+        print(f"  K3 PAC(128,64)+CRC-16 L={L} B={F64_B}: float64 {ms64:.4f} ms, float32 {ms32:.4f} ms "
+              f"({ms64 / ms32:.2f}x); bound {b_ms:.6f} ms ({b_by}); {r} registers, spills {st} B stores / {ld} B "
+              f"loads; {pac_cuda.frame_bytes(n_p, k_p + crc_p[0], L, g, 8)} B shared a frame at G={g}, {fpb} frames "
+              f"a block, {per_sm} frames an SM", flush=True)
+        if L == 8:
+            plain_ms = cuda_time_ms(lambda: pac_list_decode_batch(x64, p_mask, PAC_GEN, L, crc_len=crc_p[0],
+                                                                  crc_poly=crc_p[1], dtype=f64), reps=2, warmup=1)
+            entries["pac"] = (ms64, plain_ms, b_ms, b_by)
+            print(f"    plain float64 version, same decode: {plain_ms:.4f} ms", flush=True)
+    for entry, (r, st, ld) in sorted(regs.items()):
+        print(f"  ptxas {entry}: {r} registers, {st} B spill stores, {ld} B spill loads")
+
+    # ---- (f) the float32 kernels' SASS against the parent's ----
+    if "out" in SASS_OUT:
+        rows = [ln.strip() for ln in SASS_OUT["out"].splitlines() if ln.startswith("  ") and ": " in ln]
+        moved = [ln for ln in rows if "SASS lines differ" in ln]
+        added = [ln for ln in rows if "only in this checkout" in ln]
+        print(f"(f) SASS against the parent: {len(rows) - len(moved) - len(added)} float32 kernels the same, "
+              f"{len(moved)} moved, {len(added)} only in this checkout")
+        check(not moved, f"float32 kernels whose SASS moved: {moved[:6]}")
+        check(all("double" in ln for ln in added), f"kernels only in this checkout that are not float64: {added[:6]}")
+    else:
+        print("(f) SASS: no parent checkout in smoke_checkout/parent here; `tools/compare_sass.py --repo <parent>` "
+              "holds the float32 kernels to the parent's in a call of their own (PERF.md, §6)")
+    print(f"phase float64_on_card: {time.perf_counter() - t_phase:.1f} s")
+
+    launches = {"scl": scalar_k1 - scalar_path + fer_k1, "path": scalar_path, "pac": scalar_k3}
+    errors = {"scl": k1_err, "path": k1_err, "pac": k3_err}
+    names = {"scl": ("scl_decode (float64, byte words: M 1, 2, 4, 8)", "polar_code_tpu_torch/csrc/scl_decode.cu",
+                     "polar_code_tpu/ops/scl_pallas.py:293"),
+             "path": ("scl_decode (float64, by path: M 3-32)", "polar_code_tpu_torch/csrc/scl_decode.cu",
+                      "polar_code_tpu/ops/scl_pallas.py:293"),
+             "pac": ("pac_decode (float64, one path a lane: L 1-32)", "polar_code_tpu_torch/csrc/pac_decode.cu",
+                     "polar_code_tpu/legacy/pac_pallas.py:59")}
+    return [{"name": names[k][0], "route": "cuda", "source": names[k][1], "replaces": names[k][2],
+             "launches": launches[k], "max_abs_err": errors[k], "ms": entries[k][0], "plain_ms": entries[k][1],
+             "bound_ms": entries[k][2], "bound_by": entries[k][3], "library_ms": None}
+            for k in ("scl", "path", "pac")]
+
+
+
 def main():
     import torch
 
@@ -4910,7 +5315,11 @@ def main():
     list64_entries = list_sizes_64k(dev, smi, fer32)
     phase_done("19 list_sizes_64k")
 
-    # ---- 20. result lines ----
+    # ---- 20. float64 on the card ----
+    f64_entries = float64_on_card(dev, smi)
+    phase_done("20 float64_on_card")
+
+    # ---- 21. result lines ----
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by = nms_times[f"{IRA[0]} two-min 2.5 dB B=4096"]
     print(json.dumps({"kernels": [{
         "name": "scl_decode",
@@ -4950,7 +5359,7 @@ def main():
         "bound_by": pac_bound_by,
         "library_ms": None,
     }] + wide_entries + deep_entries + cluster_entries + long_entries + list16_entries
-                      + list32_entries + list64_entries}))
+                      + list32_entries + list64_entries + f64_entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind, "count": count}}))
     return 0

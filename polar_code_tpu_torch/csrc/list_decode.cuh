@@ -39,6 +39,39 @@ __device__ __forceinline__ float g_update(float a, float b, uint8_t c) {
   return b + (1.f - 2.f * (float)c) * a;
 }
 
+// the float64 instantiations' f and g: the same operations in double
+__device__ __forceinline__ double sign_of(double x) {
+  return x > 0.0 ? 1.0 : (x < 0.0 ? -1.0 : 0.0);
+}
+
+__device__ __forceinline__ double f_minsum(double a, double b) {
+  return sign_of(a) * sign_of(b) * fmin(fabs(a), fabs(b));
+}
+
+__device__ __forceinline__ double g_update(double a, double b, uint8_t c) {
+  return b + (1.0 - 2.0 * (double)c) * a;
+}
+
+// +inf in a float type: the metric the list outputs give a path never reached
+__device__ __forceinline__ float inf_of(float) { return __int_as_float(0x7f800000); }
+__device__ __forceinline__ double inf_of(double) { return __longlong_as_double(0x7ff0000000000000ll); }
+
+// The metric of a candidate a plan turns off and of a path never reached
+// (SCL), or of a dead path (PAC), in the kernels templated on the float
+// type.  In float32 the stand-in 3e38 (`SCL_BIG`, `PAC_BIG`), which absorbs
+// every finite metric added to it; in float64 +inf itself, as in the plain
+// versions (a double's ulp at 3e38 is 2^75, so 3e38 would absorb only
+// metrics below about 1.9e22).
+template <typename F>
+__device__ __forceinline__ F big();
+template <>
+__device__ __forceinline__ float big<float>() { return 3.0e38f; }
+template <>
+__device__ __forceinline__ double big<double>() { return inf_of(0.0); }
+
+__device__ __forceinline__ float abs_of(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_of(double x) { return fabs(x); }
+
 // The σ maps of the lane's path: field f of the packed words is the
 // physical row that holds the path's data for σ level f (fields 0..n−2: LLR
 // levels 1..n−1; fields n−1..2n−3: bit levels 2..n).  LM is the list size
@@ -124,8 +157,10 @@ ResetMasksOf<WIDE ? 5 : 4> reset_masks(int n) {
 // shared-memory accesses compile to LDS/STS.  Every lane runs every
 // iteration (the shuffle needs the whole warp); lanes past the entries
 // store nothing.
-__device__ __forceinline__ void path_fg_pass(float* dst, const uint8_t* dbits, int dstride,
-                                             const float* src, int sstride, bool via, int own,
+// F is the LLRs' float type.
+template <typename F>
+__device__ __forceinline__ void path_fg_pass(F* dst, const uint8_t* dbits, int dstride,
+                                             const F* src, int sstride, bool via, int own,
                                              bool is_g, int lh, int M, int lane) {
   const int half = 1 << lh;
   const int total = M * half;
@@ -136,8 +171,8 @@ __device__ __forceinline__ void path_fg_pass(float* dst, const uint8_t* dbits, i
     if (via) r = __shfl_sync(FULL_MASK, own, m);
     if (t < total) {
       const int e = t & (half - 1);
-      const float* row = src + r * sstride;
-      const float a = row[e], b = row[e + half];
+      const F* row = src + r * sstride;
+      const F a = row[e], b = row[e + half];
       const int o = m * dstride + e;
       dst[o] = is_g ? g_update(a, b, dbits[o]) : f_minsum(a, b);
     }
@@ -353,26 +388,62 @@ __device__ __forceinline__ float key_metric(unsigned long long key) {
 
 __device__ __forceinline__ int key_index(unsigned long long key) { return (int)(unsigned)key; }
 
+// the all-ones key that pads a sort
+__device__ __forceinline__ unsigned long long pad_key(float) { return ~0ull; }
+
+// A float64 candidate (the by-path SCL fork and final sort at float64): a
+// double metric fills 64 bits, so its key is the pair (metric, index),
+// compared as a pair: a metric below, or an equal metric (−0.0 and +0.0
+// are equal doubles) and a lower index.  Metrics are never NaN; a
+// candidate a plan turns off, and a path never reached, carry +inf, and
+// the pad (+inf, 0xFFFFFFFF) sorts after every candidate, whose index is
+// below 2M.  The keys are unique, so the ascending order is the plain
+// version's stable (metric, index) sort, as for the 64-bit keys; the
+// survivor takes its metric from the pair as it is.
+struct DKey {
+  double m;
+  unsigned i;
+};
+
+__device__ __forceinline__ bool operator<(DKey a, DKey b) { return a.m < b.m || (a.m == b.m && a.i < b.i); }
+
+__device__ __forceinline__ DKey cand_key(double c, int index) { return {c, (unsigned)index}; }
+
+__device__ __forceinline__ double key_metric(DKey key) { return key.m; }
+
+__device__ __forceinline__ int key_index(DKey key) { return (int)key.i; }
+
+__device__ __forceinline__ DKey pad_key(double x) { return {inf_of(x), ~0u}; }
+
+// a key from lane ^ j: one shuffle of a 64-bit key, three of a pair
+__device__ __forceinline__ unsigned long long shfl_xor_key(unsigned long long k, int j) {
+  return __shfl_xor_sync(FULL_MASK, k, j);
+}
+
+__device__ __forceinline__ DKey shfl_xor_key(DKey k, int j) {
+  return {__shfl_xor_sync(FULL_MASK, k.m, j), __shfl_xor_sync(FULL_MASK, k.i, j)};
+}
+
 // One compare-exchange of a bitonic network, seen from one side: the
 // smaller of the pair when keep_min, else the larger.
-__device__ __forceinline__ unsigned long long keep_key(unsigned long long k, unsigned long long o,
-                                                       bool keep_min) {
+template <typename Key>
+__device__ __forceinline__ Key keep_key(Key k, Key o, bool keep_min) {
   return (o < k) == keep_min ? o : k;
 }
 
 // A bitonic network over one key a lane, ascending in each aligned group of
 // P lanes (P a power of two, at most PMAX <= 32, warp-uniform): every stage
-// is one __shfl_xor_sync of the key's two halves and a compare-select, with
-// no shared memory and no barrier; log2(P)·(log2(P)+1)/2 stages.  Lane i of
-// a group ends with its key of rank i.
-template <int PMAX>
-__device__ __forceinline__ unsigned long long warp_sort_keys(unsigned long long k, int lane, int P) {
+// is one __shfl_xor_sync of the key's two halves (of a DKey's metric and
+// index) and a compare-select, with no shared memory and no barrier;
+// log2(P)·(log2(P)+1)/2 stages.  Lane i of a group ends with its key of rank i.
+template <int PMAX, typename Key>
+__device__ __forceinline__ Key warp_sort_keys(Key k, int lane, int P) {
 #pragma unroll
   for (int size = 2; size <= PMAX; size <<= 1) {
     if (size > P) break;
 #pragma unroll
     for (int j = size >> 1; j >= 1; j >>= 1)
-      k = keep_key(k, __shfl_xor_sync(FULL_MASK, k, j), ((lane & j) == 0) == ((lane & size) == 0));
+      k = keep_key(k, shfl_xor_key(k, j), ((lane & j) == 0) == ((lane & size) == 0));
   }
   return k;
 }
@@ -382,16 +453,17 @@ __device__ __forceinline__ unsigned long long warp_sort_keys(unsigned long long 
 // descending across the lanes (15 stages of shuffles), the last merge's
 // first stage keeps the smaller of a lane's two in k0 (in registers), and
 // its five further stages sort k0 alone: lane i ends with the key of rank i.
-__device__ __forceinline__ unsigned long long warp_sort_keys64(unsigned long long k0,
-                                                               unsigned long long k1, int lane) {
+// Key: a 64-bit key, or a float64 DKey.
+template <typename Key>
+__device__ __forceinline__ Key warp_sort_keys64(Key k0, Key k1, int lane) {
 #pragma unroll
   for (int size = 2; size <= 32; size <<= 1) {
 #pragma unroll
     for (int j = size >> 1; j >= 1; j >>= 1) {
       const bool lower = (lane & j) == 0;
       const bool up = size == 32 || (lane & size) == 0;  // k0's run; k1's is the other way at 32
-      const unsigned long long o0 = __shfl_xor_sync(FULL_MASK, k0, j);
-      const unsigned long long o1 = __shfl_xor_sync(FULL_MASK, k1, j);
+      const Key o0 = shfl_xor_key(k0, j);
+      const Key o1 = shfl_xor_key(k1, j);
       k0 = keep_key(k0, o0, lower == up);
       k1 = keep_key(k1, o1, lower == (size == 32 ? false : up));
     }
@@ -399,7 +471,7 @@ __device__ __forceinline__ unsigned long long warp_sort_keys64(unsigned long lon
   k0 = k1 < k0 ? k1 : k0;
 #pragma unroll
   for (int j = 16; j >= 1; j >>= 1)
-    k0 = keep_key(k0, __shfl_xor_sync(FULL_MASK, k0, j), (lane & j) == 0);
+    k0 = keep_key(k0, shfl_xor_key(k0, j), (lane & j) == 0);
   return k0;
 }
 

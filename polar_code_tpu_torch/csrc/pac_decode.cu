@@ -121,13 +121,13 @@
 // the trace live in a global scratch the wrapper allocates.  The wrapper
 // picks G with the occupancy calculator (`ops/scl_cuda.py::
 // smallest_global_levels`).  Per frame in shared memory:
-//   Ls float [L][(N>>G)-1]  LLR rows, one active node per level G+1..n−1
+//   Ls F     [L][(N>>G)-1]  LLR rows (float or double), one active node per level G+1..n−1
 //                           (and an unused entry for level n)
 //   Bs u8    [L][(N>>G)-1]  edge-bit partial-sum rows, levels G+1..n
 //   ring u8  [16][16|32]    the last (up to) 16 trace rows, from a 16-byte
 //                           boundary past Bs (L > 1)
 // and in global memory, per frame:
-//   Lg float [L][N-(N>>G)]  LLR rows, levels 1..G
+//   Lg F     [L][N-(N>>G)]  LLR rows, levels 1..G
 //   Bg u8    [L][N-(N>>G)]  partial-sum rows, levels 1..G
 //   TI u8    [Kp][16|32]    2·parent + v of each survivor at each info
 //                           phase, rows of L bytes padded to round16(L)
@@ -157,6 +157,16 @@
 // single float32 adds to the metric (built with -fmad=false, no fast math).
 // Dead paths carry 3e38 and stay there, so, as the plain version's inf, they
 // tie with each other and are ordered by layout index.
+//
+// Float64.  The one-path-a-lane body is templated on the LLRs' float type F:
+// pac_decode_kernel<LM, LIST, double> (L 1..32 at N <= 8192, best-only and
+// LIST) keeps its LLR rows, metric and rank in double, the LLRs' and the
+// metrics' type in JAX's float64 decode, and dead paths at +inf itself
+// (`big<F>` in `list_decode.cuh`); the float32 instantiations compile to
+// the SASS they had (`tools/compare_sass.py`).  A frame's LLR rows take
+// twice the bytes, and the host plans G for them (`launch_plan(..., 8)`).
+// Its launch bounds ask nothing of the registers.  Over warps, on a cluster
+// and past N = 8192 the kernel is float32 only (the wrapper raises).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -171,16 +181,17 @@ namespace {
 
 // Level 1 from the channel: the halves butterfly on the bit-reversal-
 // permuted LLRs, read as ch[brev(j)] (`rev_shift` = 32 − n), over `nt`
-// threads (a warp, or a block over warps).
-__device__ __forceinline__ void channel_pass(float* dst, const uint8_t* dbits, int dstride,
-                                             const float* ch, int rev_shift, bool is_g, int lh,
+// threads (a warp, or a block over warps); F the LLRs' float type.
+template <typename F>
+__device__ __forceinline__ void channel_pass(F* dst, const uint8_t* dbits, int dstride,
+                                             const F* ch, int rev_shift, bool is_g, int lh,
                                              int L, int lane, int nt = 32) {
   const int half = 1 << lh;
   const int total = L * half;
   for (int t = lane; t < total; t += nt) {
     const int m = t >> lh;
     const int e = t & (half - 1);
-    const float a = ch[__brev(e) >> rev_shift], b = ch[__brev(e + half) >> rev_shift];
+    const F a = ch[__brev(e) >> rev_shift], b = ch[__brev(e + half) >> rev_shift];
     const int o = m * dstride + e;
     dst[o] = is_g ? g_update(a, b, dbits[o]) : f_minsum(a, b);
   }
@@ -193,13 +204,14 @@ __device__ __forceinline__ void channel_pass(float* dst, const uint8_t* dbits, i
 // bound on LM >= 4 (even 1) made those slower (PERF.md, §6).  This is the
 // body of pac_decode_kernel (σ in PathSigma<LM>'s words: n <= 13 at LM 16
 // and 32) and of pac_decode_wide_kernel (WIDE: one more word, n 14..16);
-// the kernels' pointer arguments carry the __restrict__ qualifiers.
-template <int LM, bool LIST, bool WIDE, typename Masks>
+// the kernels' pointer arguments carry the __restrict__ qualifiers.  F:
+// float, or double (the float64 instantiations, N <= 8192).
+template <int LM, bool LIST, bool WIDE, typename F, typename Masks>
 __device__ __forceinline__ void pac_path_decode(
-    const float* llr,          // [B, N] channel LLRs, natural order
+    const F* llr,              // [B, N] channel LLRs, natural order
     const uint32_t* hcols,     // [Kp] CRC check-matrix columns, phase order
     const int* sched,          // [N] phase words (scl_schedule.phase_words)
-    float* glob_llr,           // [B, L, N-(N>>G)], null when G == 0
+    F* glob_llr,               // [B, L, N-(N>>G)], null when G == 0
     uint8_t* glob_bits,        // [B, L, N-(N>>G)], null when G == 0
     uint8_t* trace_idx,        // [B, Kp, round16(L)]: the trace, in global scratch
     int8_t* out_bits,          // [B, Kp]
@@ -208,7 +220,7 @@ __device__ __forceinline__ void pac_path_decode(
     const int* u_pos,          // [Kp] u index of each info phase, LIST only
     int8_t* list_v,            // [B, L, N], LIST only
     int8_t* list_bits,         // [B, L, Kp], LIST only
-    float* list_metrics,       // [B, L], LIST only
+    F* list_metrics,           // [B, L], LIST only
     int* list_best,            // [B], LIST only
     int B, int N, int n, int Kp, int L, int G, unsigned mem_mask, unsigned tap_mask,
     int use_crc, int frame_bytes, int frames_per_block, const Masks& masks) {
@@ -222,13 +234,13 @@ __device__ __forceinline__ void pac_path_decode(
   const int SG = N - (N >> G);  // entries of a path's row in global memory
   const int TW = round16(L);    // bytes of a trace row
   unsigned char* base = smem + (size_t)warp * frame_bytes;
-  float* Ls = reinterpret_cast<float*>(base);
+  F* Ls = reinterpret_cast<F*>(base);
   uint8_t* Bs = reinterpret_cast<uint8_t*>(Ls + L * SS);
   uint8_t* TI = trace_idx + frame * Kp * TW;
-  uint8_t* ring = base + round16(5 * L * SS);  // trace row i at (i mod TRACE_RING) · TW
-  float* Lg = glob_llr + frame * L * SG;  // unused when G == 0
+  uint8_t* ring = base + round16(((int)sizeof(F) + 1) * L * SS);  // trace row i at (i mod TRACE_RING) · TW
+  F* Lg = glob_llr + frame * L * SG;  // unused when G == 0
   uint8_t* Bg = glob_bits + frame * L * SG;
-  const float* ch = llr + frame * N;
+  const F* ch = llr + frame * N;
   const int rev_shift = 32 - n;  // __brev(j) >> rev_shift reverses j's n bits
   // offset of level l (1..n) in a path's row: levels G+1..n in shared
   // memory, levels 1..G in global memory
@@ -238,8 +250,8 @@ __device__ __forceinline__ void pac_path_decode(
   const unsigned sig_id = PathSigma<LM, WIDE>::identity(lane);
   PathSigma<LM, WIDE> sig;  // lane m < L: σ of path m; field l−1: LLR level l, n+l−3: bit level l
   sig.init(sig_id);
-  float pm = (lane == 0) ? 0.f : PAC_BIG;  // lane m < L: metric of slot m
-  unsigned reg = 0;                         // lane m < L: shift register of slot m
+  F pm = (lane == 0) ? F(0) : big<F>();  // lane m < L: metric of slot m
+  unsigned reg = 0;                       // lane m < L: shift register of slot m
   uint32_t syn = 0;                         // lane m < L: CRC syndrome of slot m
   int info_i = 0;
   if (LIST && LM == 1) {
@@ -300,15 +312,15 @@ __device__ __forceinline__ void pac_path_decode(
     // the leaf (level n): lane m computes it from its parent row, level
     // n−1, and keeps it in a register; only its own phase reads it
     const bool g_leaf = gl == n;  // a g at the leaf (odd phases)
-    float leaf = 0.f;
+    F leaf = 0;
     if (lane < L) {
-      float a, b;
+      F a, b;
       if (n == 1) {
         a = ch[0];
         b = ch[1];
       } else {
         const int r = (LM > 1 && g_leaf && (word >> 11 & 1)) ? sig.get(n - 2) : lane;
-        const float* row = n - 1 > G ? Ls + so(n - 1) + r * SS : Lg + go(n - 1) + r * SG;
+        const F* row = n - 1 > G ? Ls + so(n - 1) + r * SS : Lg + go(n - 1) + r * SG;
         a = row[0];
         b = row[1];
       }
@@ -321,7 +333,7 @@ __device__ __forceinline__ void pac_path_decode(
     int edge = 0;  // lane m < L: the edge bit the partial sums of slot m take
     if (is_frozen) {
       if (lane < L) {
-        if (pm < PAC_BIG && base_bit != hard) pm = pm + fabsf(leaf);
+        if (pm < big<F>() && base_bit != hard) pm = pm + abs_of(leaf);
         reg = (reg << 1) & mem_mask;
         edge = base_bit;
       }
@@ -343,12 +355,12 @@ __device__ __forceinline__ void pac_path_decode(
       }
       ++info_i;
     } else {
-      const float cg = pm;                                            // index lane
-      const float cb = (pm < PAC_BIG) ? pm + fabsf(leaf) : PAC_BIG;   // index L + lane
+      const F cg = pm;                                             // index lane
+      const F cb = (pm < big<F>()) ? pm + abs_of(leaf) : big<F>();  // index L + lane
       int rank_g = 0, rank_b = 0;
       for (int j = 0; j < L; ++j) {
-        const float gj = __shfl_sync(FULL_MASK, cg, j);
-        const float bj = __shfl_sync(FULL_MASK, cb, j);
+        const F gj = __shfl_sync(FULL_MASK, cg, j);
+        const F bj = __shfl_sync(FULL_MASK, cb, j);
         rank_g += (gj < cg) || (gj == cg && j < lane);
         rank_g += bj < cg;   // index L + j follows every good index
         rank_b += gj <= cb;  // index j precedes every bad index
@@ -361,8 +373,8 @@ __device__ __forceinline__ void pac_path_decode(
       }
       const int is_bad = w >= L;
       const int parent = is_bad ? w - L : w;
-      const float pg = __shfl_sync(FULL_MASK, cg, parent);
-      const float pb = __shfl_sync(FULL_MASK, cb, parent);
+      const F pg = __shfl_sync(FULL_MASK, cg, parent);
+      const F pb = __shfl_sync(FULL_MASK, cb, parent);
       const int hp = __shfl_sync(FULL_MASK, hard, parent);
       const int bp = __shfl_sync(FULL_MASK, base_bit, parent);
       const unsigned rp = __shfl_sync(FULL_MASK, reg, parent);
@@ -417,10 +429,10 @@ __device__ __forceinline__ void pac_path_decode(
   // ---- final stable sort of the list, CRC selection, backtrack ----
   int frank = 0;
   for (int j = 0; j < L; ++j) {
-    const float pj = __shfl_sync(FULL_MASK, pm, j);
+    const F pj = __shfl_sync(FULL_MASK, pm, j);
     frank += (pj < pm) || (pj == pm && j < lane);
   }
-  const bool ok = use_crc && lane < L && syn == 0u && pm < PAC_BIG;
+  const bool ok = use_crc && lane < L && syn == 0u && pm < big<F>();
   const unsigned ok_ranks = __reduce_or_sync(FULL_MASK, ok ? (1u << frank) : 0u);
   const int sel_rank = ok_ranks ? __ffs(ok_ranks) - 1 : 0;
   const unsigned who = __ballot_sync(FULL_MASK, lane < L && frank == sel_rank);
@@ -430,7 +442,7 @@ __device__ __forceinline__ void pac_path_decode(
   if (LIST) {
     if (LM > 1)
       for (int t = lane; t < L * N; t += 32) v[t] = 0;
-    if (lane < L) list_metrics[frame * L + frank] = pm < PAC_BIG ? pm : __int_as_float(0x7f800000);
+    if (lane < L) list_metrics[frame * L + frank] = pm < big<F>() ? pm : inf_of(pm);
     if (lane == 0) list_best[frame] = sel_rank;
   }
   if (lane == 0) out_pass[frame] = ok_ranks ? 1 : 0;
@@ -475,13 +487,13 @@ __device__ __forceinline__ void pac_path_decode(
   }
 }
 
-#define PAC_PATH_PARAMS                                                                          \
-  const float* __restrict__ llr, const uint32_t* __restrict__ hcols,                             \
-      const int* __restrict__ sched, float* glob_llr, uint8_t* glob_bits, uint8_t* trace_idx,    \
+#define PAC_PATH_PARAMS(F)                                                                       \
+  const F* __restrict__ llr, const uint32_t* __restrict__ hcols,                                 \
+      const int* __restrict__ sched, F* glob_llr, uint8_t* glob_bits, uint8_t* trace_idx,        \
       int8_t* __restrict__ out_bits, uint8_t* __restrict__ out_pass,                             \
       const int* __restrict__ out_pos, const int* __restrict__ u_pos,                            \
       int8_t* __restrict__ list_v, int8_t* __restrict__ list_bits,                               \
-      float* __restrict__ list_metrics, int* __restrict__ list_best, int B, int N, int n, int Kp, \
+      F* __restrict__ list_metrics, int* __restrict__ list_best, int B, int N, int n, int Kp,    \
       int L, int G, unsigned mem_mask, unsigned tap_mask, int use_crc, int frame_bytes,          \
       int frames_per_block
 #define PAC_PATH_ARGS                                                                           \
@@ -489,17 +501,19 @@ __device__ __forceinline__ void pac_path_decode(
       list_bits, list_metrics, list_best, B, N, n, Kp, L, G, mem_mask, tap_mask, use_crc,       \
       frame_bytes, frames_per_block, masks
 
-template <int LM, bool LIST>
-__global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, LM == 2 ? 7 : 0)
-    pac_decode_kernel(PAC_PATH_PARAMS, const ResetMasks masks) {
-  pac_path_decode<LM, LIST, false>(PAC_PATH_ARGS);
+// F: float, or double (the float64 instantiations, N <= 8192, with no
+// bound on the registers)
+template <int LM, bool LIST, typename F>
+__global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, sizeof(F) == 4 && LM == 2 ? 7 : 0)
+    pac_decode_kernel(PAC_PATH_PARAMS(F), const ResetMasks masks) {
+  pac_path_decode<LM, LIST, false, F>(PAC_PATH_ARGS);
 }
 
-// LM 16 and 32 at N 16384..65536: σ in one more word
+// LM 16 and 32 at N 16384..65536: σ in one more word (float32)
 template <int LM, bool LIST>
 __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, 0)
-    pac_decode_wide_kernel(PAC_PATH_PARAMS, const WideResetMasks masks) {
-  pac_path_decode<LM, LIST, true>(PAC_PATH_ARGS);
+    pac_decode_wide_kernel(PAC_PATH_PARAMS(float), const WideResetMasks masks) {
+  pac_path_decode<LM, LIST, true, float>(PAC_PATH_ARGS);
 }
 
 // ---------------------------------------------------------------------------
@@ -1131,13 +1145,15 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_quad_kernel(PAC_C
   pac_cluster_decode<LIST, 4>(PAC_CLUSTER_ARGS, sigma_g, words_g);
 }
 
-// every kernel argument but the σ masks, and the stream
-struct Args {
-  const float* llr;
+// every kernel argument but the σ masks, and the stream; F the LLRs' float
+// type (double only one path a lane at N <= 8192)
+template <typename F>
+struct ArgsOf {
+  const F* llr;
   const uint32_t* hcols;
   const int* sched;
   const int* phase_of;
-  float* glob_llr;
+  F* glob_llr;
   uint8_t* glob_bits;
   int8_t* out_bits;
   uint8_t* out_pass;
@@ -1145,26 +1161,27 @@ struct Args {
   const int* u_pos;
   int8_t* list_v;
   int8_t* list_bits;
-  float* list_metrics;
+  F* list_metrics;
   int* list_best;
   int B, N, n, Kp, L, G;
   unsigned mem_mask, tap_mask;
   int use_crc, frame_bytes, frames_per_block;
 };
+using Args = ArgsOf<float>;
 
 // the one-path-a-lane kernel of width LM: pac_decode_kernel, or WIDE (LM 16
-// and 32 past n = 13) pac_decode_wide_kernel
-template <int LM, bool LIST, bool WIDE>
+// and 32 past n = 13, float32) pac_decode_wide_kernel
+template <int LM, bool LIST, bool WIDE, typename F>
 auto path_kernel() {
   if constexpr (WIDE)
     return pac_decode_wide_kernel<LM, LIST>;
   else
-    return pac_decode_kernel<LM, LIST>;
+    return pac_decode_kernel<LM, LIST, F>;
 }
 
-template <int LM, bool LIST, bool WIDE>
-int launch_as(const Args& a, uint8_t* trace_idx, cudaStream_t stream) {
-  const auto kernel = path_kernel<LM, LIST, WIDE>();
+template <int LM, bool LIST, bool WIDE, typename F>
+int launch_as(const ArgsOf<F>& a, uint8_t* trace_idx, cudaStream_t stream) {
+  const auto kernel = path_kernel<LM, LIST, WIDE, F>();
   const size_t smem = (size_t)a.frame_bytes * a.frames_per_block;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1178,18 +1195,19 @@ int launch_as(const Args& a, uint8_t* trace_idx, cudaStream_t stream) {
 }
 
 // the list instantiation when the list outputs are given, else the drivers' one
-template <int LM>
-int launch(const Args& a, void* trace_idx, cudaStream_t stream) {
+template <int LM, typename F>
+int launch(const ArgsOf<F>& a, void* trace_idx, cudaStream_t stream) {
   // the frame's shared memory: a whole number of 16-byte words, the tree
   // rows and the trace ring, through which the walks back also take the
   // trace a chunk of rows at a time
-  // (one path: no trace, no ring)
+  // (one path: no trace, no ring); float64 at n <= 13 only
   if ((LM > 1 && !trace_idx) || !a.out_pos || a.n > MAX_LEVELS ||
       (LM > 1 && !PathSigma<LM, (LM >= 16)>::holds(a.n)) || a.frame_bytes % 16 ||
-      a.frame_bytes < round16(5 * a.L * ((a.N >> a.G) - 1)) + (LM > 1 ? TRACE_RING * round16(a.L) : 0))
+      a.frame_bytes < round16(((int)sizeof(F) + 1) * a.L * ((a.N >> a.G) - 1)) + (LM > 1 ? TRACE_RING * round16(a.L) : 0) ||
+      (sizeof(F) == 8 && a.n > 13))
     return (int)cudaErrorInvalidValue;
   uint8_t* ti = static_cast<uint8_t*>(trace_idx);
-  if constexpr (LM >= 16)
+  if constexpr (LM >= 16 && std::is_same<F, float>::value)
     if (path_wide<LM>(a.n))
       return a.list_v ? launch_as<LM, true, true>(a, ti, stream) : launch_as<LM, false, true>(a, ti, stream);
   return a.list_v ? launch_as<LM, true, false>(a, ti, stream) : launch_as<LM, false, false>(a, ti, stream);
@@ -1305,13 +1323,50 @@ int plan(Kern kernel, int frame_bytes, int max_block_smem, int* frames_per_block
   return 0;
 }
 
-template <int LM>
+template <int LM, typename F>
 int plan_path(int n, int frame_bytes, int max_block_smem, int* frames_per_block, int* frames_per_sm) {
-  if constexpr (LM >= 16)
+  if constexpr (LM >= 16 && std::is_same<F, float>::value)
     if (path_wide<LM>(n))
       return plan(pac_decode_wide_kernel<LM, false>, frame_bytes, max_block_smem, frames_per_block,
                   frames_per_sm);
-  return plan(pac_decode_kernel<LM, false>, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+  return plan(pac_decode_kernel<LM, false, F>, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+}
+
+// the one-path-a-lane launch and plan at list size L
+template <typename F>
+int launch_lane(const ArgsOf<F>& a, void* trace_idx, cudaStream_t st) {
+  if (a.L == 1) return launch<1>(a, trace_idx, st);
+  if (a.L <= 2) return launch<2>(a, trace_idx, st);
+  if (a.L <= 4) return launch<4>(a, trace_idx, st);
+  if (a.L <= 8) return launch<8>(a, trace_idx, st);
+  if (a.L <= 16) return launch<16>(a, trace_idx, st);
+  return launch<32>(a, trace_idx, st);
+}
+
+template <typename F>
+int plan_lane(int L, int n, int frame_bytes, int max_block_smem, int* frames_per_block, int* frames_per_sm) {
+  if (L == 1) return plan_path<1, F>(n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+  if (L <= 2) return plan_path<2, F>(n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+  if (L <= 4) return plan_path<4, F>(n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+  if (L <= 8) return plan_path<8, F>(n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+  if (L <= 16) return plan_path<16, F>(n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+  return plan_path<32, F>(n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+}
+
+template <typename F>
+ArgsOf<F> args_of(const void* llr, const void* hcols, const void* sched, const void* phase_of, void* glob_llr,
+                  void* glob_bits, void* out_bits, void* out_pass, const void* out_pos, const void* u_pos,
+                  void* list_v, void* list_bits, void* list_metrics, void* list_best, int B, int N, int n,
+                  int Kp, int L, int G, unsigned mem_mask, unsigned tap_mask, int use_crc, int frame_bytes,
+                  int frames_per_block) {
+  return {static_cast<const F*>(llr), static_cast<const uint32_t*>(hcols),
+          static_cast<const int*>(sched), static_cast<const int*>(phase_of),
+          static_cast<F*>(glob_llr), static_cast<uint8_t*>(glob_bits),
+          static_cast<int8_t*>(out_bits), static_cast<uint8_t*>(out_pass),
+          static_cast<const int*>(out_pos), static_cast<const int*>(u_pos),
+          static_cast<int8_t*>(list_v), static_cast<int8_t*>(list_bits),
+          static_cast<F*>(list_metrics), static_cast<int*>(list_best),
+          B, N, n, Kp, L, G, mem_mask, tap_mask, use_crc, frame_bytes, frames_per_block};
 }
 
 }  // namespace
@@ -1323,29 +1378,30 @@ extern "C" int pac_decode_launch(const void* llr, const void* hcols, const void*
                                  const void* u_pos, void* list_v, void* list_bits,
                                  void* list_metrics, void* list_best, int B, int N, int n, int Kp,
                                  int L, int G, unsigned mem_mask, unsigned tap_mask, int use_crc,
-                                 int frame_bytes, int frames_per_block, void* stream) {
-  const Args a{static_cast<const float*>(llr), static_cast<const uint32_t*>(hcols),
-               static_cast<const int*>(sched), static_cast<const int*>(phase_of),
-               static_cast<float*>(glob_llr), static_cast<uint8_t*>(glob_bits),
-               static_cast<int8_t*>(out_bits), static_cast<uint8_t*>(out_pass),
-               static_cast<const int*>(out_pos), static_cast<const int*>(u_pos),
-               static_cast<int8_t*>(list_v), static_cast<int8_t*>(list_bits),
-               static_cast<float*>(list_metrics), static_cast<int*>(list_best),
-               B, N, n, Kp, L, G, mem_mask, tap_mask, use_crc, frame_bytes, frames_per_block};
+                                 int frame_bytes, int frames_per_block, int f64, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
+  if (f64) {  // float64: one path a lane, L 1..32 at n <= 13
+    if (L < 1 || L > 32) return (int)cudaErrorInvalidValue;
+    return launch_lane(args_of<double>(llr, hcols, sched, phase_of, glob_llr, glob_bits, out_bits, out_pass,
+                                       out_pos, u_pos, list_v, list_bits, list_metrics, list_best, B, N, n, Kp,
+                                       L, G, mem_mask, tap_mask, use_crc, frame_bytes, frames_per_block),
+                       trace_idx, st);
+  }
+  const Args a = args_of<float>(llr, hcols, sched, phase_of, glob_llr, glob_bits, out_bits, out_pass, out_pos,
+                                u_pos, list_v, list_bits, list_metrics, list_best, B, N, n, Kp, L, G, mem_mask,
+                                tap_mask, use_crc, frame_bytes, frames_per_block);
   if (L < 1 || L > CLUSTER_MAX_M) return (int)cudaErrorInvalidValue;
   if (L > DEEP_MAX_M) return launch_cluster(a, trace_idx, sigma, st);
   if (L >= DEEP_MIN_M) return launch_deep(a, trace_idx, st);
-  if (L == 1) return launch<1>(a, trace_idx, st);
-  if (L <= 2) return launch<2>(a, trace_idx, st);
-  if (L <= 4) return launch<4>(a, trace_idx, st);
-  if (L <= 8) return launch<8>(a, trace_idx, st);
-  if (L <= 16) return launch<16>(a, trace_idx, st);
-  return launch<32>(a, trace_idx, st);
+  return launch_lane(a, trace_idx, st);
 }
 
-extern "C" int pac_launch_plan(int L, int n, int frame_bytes, int max_block_smem, int* frames_per_block,
+extern "C" int pac_launch_plan(int L, int n, int frame_bytes, int max_block_smem, int f64, int* frames_per_block,
                                int* frames_per_sm) {
+  if (f64) {
+    if (L < 1 || L > 32 || n > 13) return (int)cudaErrorInvalidValue;
+    return plan_lane<double>(L, n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+  }
   if (L < 1 || L > CLUSTER_MAX_M) return (int)cudaErrorInvalidValue;
   if (L > DEEP_MAX_M) {  // frames_per_sm: the frames (clusters) the card runs at once
     *frames_per_block = 1;
@@ -1364,12 +1420,7 @@ extern "C" int pac_launch_plan(int L, int n, int frame_bytes, int max_block_smem
   if (L >= DEEP_MIN_M)
     return plan_deep(pac_deep_kernel<uint8_t, false>, L, frame_bytes, max_block_smem,
                      frames_per_block, frames_per_sm);
-  if (L == 1) return plan_path<1>(n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
-  if (L <= 2) return plan_path<2>(n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
-  if (L <= 4) return plan_path<4>(n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
-  if (L <= 8) return plan_path<8>(n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
-  if (L <= 16) return plan_path<16>(n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
-  return plan_path<32>(n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+  return plan_lane<float>(L, n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
 }
 
 extern "C" const char* pac_error_string(int code) {

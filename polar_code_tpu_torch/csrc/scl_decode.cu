@@ -169,15 +169,15 @@
 // phases) live in a global scratch the wrapper allocates, with the trace
 // LLRs, which are written once an info phase and read once at the end.
 // Per frame in shared memory:
-//   Ls  float [M][(N>>G)-1]  LLR rows, one active node per level G+1..n−1
+//   Ls  F     [M][(N>>G)-1]  LLR rows (float or double), one active node per level G+1..n−1
 //                            (and an unused entry for level n)
 //   Bs  u8    [M][(N>>G)-1]  partial-sum rows, levels G+1..n
 //   TI  u8    [K][M]         byte words only: creation index 2p+b of each
 //                            survivor per info phase
 // and in global memory, per frame:
-//   Lg  float [M][N-(N>>G)]  LLR rows, levels 1..G
+//   Lg  F     [M][N-(N>>G)]  LLR rows, levels 1..G
 //   Bg  u8    [M][N-(N>>G)]  partial-sum rows, levels 1..G
-//   TL  float [K][M]         leaf LLR of each survivor's parent per info phase
+//   TL  F     [K][M]         leaf LLR of each survivor's parent per info phase
 //   TI  u8    [K][16|32]     by path: the trace indices, rows of M bytes
 //                            padded to 16 (`round16(M)`)
 // By path the trace indices are written from registers once an info phase,
@@ -225,6 +225,26 @@
 // for bit: f = sign(a)·sign(b)·min(|a|,|b|), g = b + (1−2c)·a, penalty
 // max(x,0) + log1p(exp(−|x|)) with the accurate expf/log1pf (build without
 // fast math and with -fmad=false).  Unreachable candidates carry 3e38.
+//
+// Float64 (JAX decodes float64 through its XLA decoder; the scalar entry
+// points ask for it).  The byte-word and by-path bodies are templated on the
+// LLRs' float type F: scl_decode_kernel<M, LIST, double> and
+// scl_path_kernel<LM, LIST, double> (M 1..32 at N <= 8192) keep the LLR
+// rows (Ls, Lg), the trace LLRs (TL), the metrics and the candidates in
+// double, with the double penalty (accurate exp and log1p) and +inf for an
+// unreachable candidate (`big<F>`: 3e38 would absorb only metrics below
+// about 1.9e22 in double).  By path a fork's candidate is no longer one
+// 64-bit word: a double metric fills 64 bits, so the key is the pair
+// (metric, index), `DKey` in `list_decode.cuh`, compared as a pair and
+// shuffled as three words by the same bitonic networks
+// (`warp_sort_keys<PMAX, Key>`, `warp_sort_keys64<Key>`); ±0 compare
+// equal, and the pads (+inf, all ones) sort after every candidate.  The
+// float32 instantiations compile to the SASS they had
+// (`tools/compare_sass.py`).  A double takes two registers: the float64
+// instantiations' launch bounds ask for F64_MIN_BLOCKS = 4 blocks an SM
+// (128 registers), and a frame's LLR rows twice the bytes, for which the
+// host plans G (`launch_plan(..., 8)`).  Over warps, on a cluster and past
+// N = 8192 the kernel is float32 only (the wrapper raises).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -239,6 +259,10 @@
 // (and to the wide twins' one more σ word: 62 registers best-only, 64 with
 // LIST, no spill, as the others; `PERF.md`)
 #define PATH_MIN_BLOCKS 8
+// blocks an SM that the float64 instantiations' launch bounds ask registers
+// for (byte words and by path): 4, so up to 128 registers a thread, where a
+// double takes two (none spills: 65-106 registers, `PERF.md` §6)
+#define F64_MIN_BLOCKS 4
 
 // Which instantiation decodes a list size.  The default build sends M ∈ {1,
 // 2, 4, 8} to the byte-word instantiations and every other M to the by-path
@@ -271,6 +295,11 @@ namespace {
 
 __device__ __forceinline__ float softplus(float x) {
   return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+}
+
+// the float64 penalty: the same formula with the accurate double exp and log1p
+__device__ __forceinline__ double softplus(double x) {
+  return fmax(x, 0.0) + log1p(exp(-fabs(x)));
 }
 
 // σ word of one level: byte m is the physical row of path m
@@ -306,17 +335,17 @@ __device__ __forceinline__ int sigma_row(T w, int m) {
 // so that the inlined shared-memory accesses compile to LDS/STS.  When a
 // level has fewer than 32 entries (most passes), lanes past them repeat an
 // entry (total is a power of two) and store the same value: no branch.
-template <int M, typename SigT>
-__device__ __forceinline__ void fg_pass(float* dst, const uint8_t* dbits, int dstride,
-                                        const float* src, int sstride, SigT psig, bool is_g,
+template <int M, typename SigT, typename F>
+__device__ __forceinline__ void fg_pass(F* dst, const uint8_t* dbits, int dstride,
+                                        const F* src, int sstride, SigT psig, bool is_g,
                                         int lh, int lane) {
   const int half = 1 << lh;
   const int total = M * half;
   for (int t = total < 32 ? lane & (total - 1) : lane; t < total; t += 32) {
     const int m = t >> lh;
     const int e = t & (half - 1);
-    const float* row = src + sigma_row(psig, m) * sstride;
-    const float a = row[e], b = row[e + half];
+    const F* row = src + sigma_row(psig, m) * sstride;
+    const F a = row[e], b = row[e + half];
     const int o = m * dstride + e;
     dst[o] = is_g ? g_update(a, b, dbits[o]) : f_minsum(a, b);
     if (total < 32) break;
@@ -346,21 +375,23 @@ __device__ __forceinline__ void chain_pass(uint8_t* st, int ststride, const uint
   }
 }
 
-template <int M, bool LIST>
-__global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, 8) scl_decode_kernel(
-    const float* __restrict__ llr,        // [B, N]
+// F: float, or double (the float64 instantiations, N <= 8192)
+template <int M, bool LIST, typename F>
+__global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, sizeof(F) == 8 ? F64_MIN_BLOCKS : 8)
+    scl_decode_kernel(
+    const F* __restrict__ llr,            // [B, N]
     const int8_t* __restrict__ forced,    // [B, K] or null
     const uint32_t* __restrict__ hcols,   // [K] CRC check-matrix columns
     const int* __restrict__ sched,        // [N] phase words (scl_schedule.phase_words)
-    float* glob_llr,                      // [B, M, N-(N>>G)], null when G == 0
+    F* glob_llr,                          // [B, M, N-(N>>G)], null when G == 0
     uint8_t* glob_bits,                   // [B, M, N-(N>>G)], null when G == 0
-    float* trace_llr,                     // [B, K, M]
+    F* trace_llr,                         // [B, K, M]
     int8_t* __restrict__ out_bits,        // [B, K]
-    float* __restrict__ out_llrs,         // [B, K]
+    F* __restrict__ out_llrs,             // [B, K]
     uint8_t* __restrict__ out_pass,       // [B]
     int8_t* __restrict__ list_bits,       // [B, M, K], LIST only
-    float* __restrict__ list_llrs,        // [B, M, K], LIST only
-    float* __restrict__ list_metrics,     // [B, M], LIST only
+    F* __restrict__ list_llrs,            // [B, M, K], LIST only
+    F* __restrict__ list_metrics,         // [B, M], LIST only
     int* __restrict__ list_best,          // [B], LIST only
     int B, int N, int n, int K, int G, int use_crc, int frame_bytes,
     int frames_per_block) {
@@ -374,13 +405,13 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, 8) scl_decode_kerne
   const int SS = (N >> G) - 1;  // entries of a path's row in shared memory
   const int SG = N - (N >> G);  // entries of a path's row in global memory
   unsigned char* base = smem + (size_t)warp * frame_bytes;
-  float* Ls = reinterpret_cast<float*>(base);
+  F* Ls = reinterpret_cast<F*>(base);
   uint8_t* Bs = reinterpret_cast<uint8_t*>(Ls + M * SS);
   uint8_t* TI = Bs + M * SS;
-  float* Lg = glob_llr + frame * M * SG;  // unused when G == 0
+  F* Lg = glob_llr + frame * M * SG;  // unused when G == 0
   uint8_t* Bg = glob_bits + frame * M * SG;
-  float* TL = trace_llr + frame * K * M;
-  const float* ch = llr + frame * N;
+  F* TL = trace_llr + frame * K * M;
+  const F* ch = llr + frame * N;
   const int8_t* plan = forced ? forced + frame * K : nullptr;
   // offset of level l (1..n) in a path's row: levels G+1..n in shared
   // memory, levels 1..G in global memory
@@ -388,7 +419,7 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, 8) scl_decode_kerne
   auto go = [&](int l) { return N - (N >> (l - 1)); };
 
   SigT sig = Sigma<M>::kIdentity;   // lane r < 2n−1: σ of row r
-  float pm = (lane == 0) ? 0.f : SCL_BIG;  // lane m < M: metric of path m
+  F pm = (lane == 0) ? F(0) : big<F>();  // lane m < M: metric of path m
   uint32_t syn = 0;                 // lane m < M: CRC syndrome of path m
   int info_i = 0;
   int word = sched[0];
@@ -426,10 +457,10 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, 8) scl_decode_kerne
     const bool g_leaf = gl == n;  // a g at the leaf (odd phases)
     SigT lsig = Sigma<M>::kIdentity;
     if (M > 1 && g_leaf && n > 1 && (word >> 11 & 1)) lsig = __shfl_sync(FULL_MASK, sig, n - 2);
-    float leaf = 0.f;
+    F leaf = 0;
     if (lane < M) {
       const int r = sigma_row(lsig, lane);
-      const float* row = n == 1 ? ch : n - 1 > G ? Ls + so(n - 1) + r * SS : Lg + go(n - 1) + r * SG;
+      const F* row = n == 1 ? ch : n - 1 > G ? Ls + so(n - 1) + r * SS : Lg + go(n - 1) + r * SG;
       leaf = g_leaf ? g_update(row[0], row[1], Bs[lane * SS + so(n)]) : f_minsum(row[0], row[1]);
     }
 
@@ -440,14 +471,14 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, 8) scl_decode_kerne
     } else {
       const int cb = lane & 1;
       const int cp = (lane >> 1) & (M - 1);
-      const float lp = __shfl_sync(FULL_MASK, leaf, cp);
-      const float pp = __shfl_sync(FULL_MASK, pm, cp);
-      float c = pp + softplus(cb ? lp : -lp);
-      if (fb != -1 && fb != cb) c = SCL_BIG;
+      const F lp = __shfl_sync(FULL_MASK, leaf, cp);
+      const F pp = __shfl_sync(FULL_MASK, pm, cp);
+      F c = pp + softplus(cb ? lp : -lp);
+      if (fb != -1 && fb != cb) c = big<F>();
       int rank = 0;
 #pragma unroll
       for (int j = 0; j < 2 * M; ++j) {
-        const float cj = __shfl_sync(FULL_MASK, c, j);
+        const F cj = __shfl_sync(FULL_MASK, c, j);
         rank += (cj < c) || (cj == c && j < lane);
       }
       // the candidate ranked m goes to trace slot m: the survivors' creation
@@ -456,9 +487,9 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, 8) scl_decode_kerne
       if (lane < 2 * M && rank < M) row[rank] = (uint8_t)lane;
       __syncwarp();
       const int w = lane < M ? row[lane] : 0;
-      const float new_pm = __shfl_sync(FULL_MASK, c, w);
+      const F new_pm = __shfl_sync(FULL_MASK, c, w);
       const int parent = w >> 1;
-      const float leaf_par = __shfl_sync(FULL_MASK, leaf, parent);
+      const F leaf_par = __shfl_sync(FULL_MASK, leaf, parent);
       const uint32_t syn_par = __shfl_sync(FULL_MASK, syn, parent);
       if (lane < M) {
         pm = new_pm;
@@ -516,10 +547,10 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, 8) scl_decode_kerne
   int frank = 0;
 #pragma unroll
   for (int j = 0; j < M; ++j) {
-    const float pj = __shfl_sync(FULL_MASK, pm, j);
+    const F pj = __shfl_sync(FULL_MASK, pm, j);
     frank += (pj < pm) || (pj == pm && j < lane);
   }
-  const bool ok = use_crc && lane < M && syn == 0u && pm < SCL_BIG;
+  const bool ok = use_crc && lane < M && syn == 0u && pm < big<F>();
   const unsigned ok_ranks = __reduce_or_sync(FULL_MASK, ok ? (1u << frank) : 0u);
   const int sel_rank = ok_ranks ? __ffs(ok_ranks) - 1 : 0;
   const unsigned who = __ballot_sync(FULL_MASK, lane < M && frank == sel_rank);
@@ -534,7 +565,7 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, 8) scl_decode_kerne
         list_llrs[o + i] = TL[i * M + slot];
         slot = w >> 1;
       }
-      list_metrics[frame * M + frank] = pm < SCL_BIG ? pm : __int_as_float(0x7f800000);
+      list_metrics[frame * M + frank] = pm < big<F>() ? pm : inf_of(pm);
     }
     if (lane == 0) list_best[frame] = sel_rank;
     __syncwarp();
@@ -569,20 +600,20 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, 8) scl_decode_kerne
 // network.  Returns, in lane m, the key of rank m.  Up to LM = 16 the P =
 // sort_keys(M) <= 32 keys go one a lane (lane q < M: candidate 2q; lane M + p:
 // candidate 2p + 1, its metric shuffled from lane p), and only the stages of
-// P run; at LM = 32, two a lane (`warp_sort_keys64`).
-template <int LM>
-__device__ __forceinline__ unsigned long long path_select(float c0, float c1, int M, int P,
-                                                          int lane) {
+// P run; at LM = 32, two a lane (`warp_sort_keys64`).  In float64 the keys
+// are (metric, index) pairs (`DKey`), the pads (+inf, all ones).
+template <int LM, typename F>
+__device__ __forceinline__ auto path_select(F c0, F c1, int M, int P, int lane) {
   if constexpr (LM <= 16) {
     const bool odd = lane >= M;
     const int p = odd ? lane - M : lane;
-    const float c1p = __shfl_sync(FULL_MASK, c1, p);
-    const unsigned long long k = lane < 2 * M ? cand_key(odd ? c1p : c0, 2 * p + odd) : ~0ull;
+    const F c1p = __shfl_sync(FULL_MASK, c1, p);
+    const auto k = lane < 2 * M ? cand_key(odd ? c1p : c0, 2 * p + odd) : pad_key(c0);
     return warp_sort_keys<2 * LM>(k, lane, P);
   } else {
     const bool on = lane < M;
-    return warp_sort_keys64(on ? cand_key(c0, 2 * lane) : ~0ull,
-                            on ? cand_key(c1, 2 * lane + 1) : ~0ull, lane);
+    return warp_sort_keys64(on ? cand_key(c0, 2 * lane) : pad_key(c0),
+                            on ? cand_key(c1, 2 * lane + 1) : pad_key(c0), lane);
   }
 }
 
@@ -595,13 +626,13 @@ __device__ __forceinline__ unsigned long long path_select(float c0, float c1, in
 // PathSigma<LM>'s words: n <= 13 at LM 16 and 32) and of
 // scl_path_wide_kernel (WIDE: one more word, n 14..16); the kernels' pointer
 // arguments carry the __restrict__ qualifiers.
-template <int LM, bool LIST, bool WIDE, typename Masks>
+template <int LM, bool LIST, bool WIDE, typename F, typename Masks>
 __device__ __forceinline__ void scl_path_decode(
-    const float* llr, const int8_t* forced, const uint32_t* hcols, const int* sched,
-    float* glob_llr, uint8_t* glob_bits, float* trace_llr,
+    const F* llr, const int8_t* forced, const uint32_t* hcols, const int* sched,
+    F* glob_llr, uint8_t* glob_bits, F* trace_llr,
     uint8_t* trace_idx,  // [B, K, round16(M)]: the trace indices, in global scratch
-    int8_t* out_bits, float* out_llrs, uint8_t* out_pass, int8_t* list_bits, float* list_llrs,
-    float* list_metrics, int* list_best, int B, int N, int n, int K, int M, int G, int use_crc,
+    int8_t* out_bits, F* out_llrs, uint8_t* out_pass, int8_t* list_bits, F* list_llrs,
+    F* list_metrics, int* list_best, int B, int N, int n, int K, int M, int G, int use_crc,
     int frame_bytes, int frames_per_block, const Masks& masks) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
@@ -614,13 +645,13 @@ __device__ __forceinline__ void scl_path_decode(
   const int TW = round16(M);    // bytes of a trace-index row
   const int P = sort_keys(M);   // keys a fork sorts
   unsigned char* base = smem + (size_t)warp * frame_bytes;
-  float* Ls = reinterpret_cast<float*>(base);
+  F* Ls = reinterpret_cast<F*>(base);
   uint8_t* Bs = reinterpret_cast<uint8_t*>(Ls + M * SS);
-  float* Lg = glob_llr + frame * M * SG;  // unused when G == 0
+  F* Lg = glob_llr + frame * M * SG;  // unused when G == 0
   uint8_t* Bg = glob_bits + frame * M * SG;
-  float* TL = trace_llr + frame * K * M;
+  F* TL = trace_llr + frame * K * M;
   uint8_t* TI = trace_idx + frame * K * TW;
-  const float* ch = llr + frame * N;
+  const F* ch = llr + frame * N;
   const int8_t* plan = forced ? forced + frame * K : nullptr;
   auto so = [&](int l) { return (N >> G) - (N >> (l - 1)); };
   auto go = [&](int l) { return N - (N >> (l - 1)); };
@@ -628,8 +659,8 @@ __device__ __forceinline__ void scl_path_decode(
   const unsigned sig_id = PathSigma<LM, WIDE>::identity(lane);
   PathSigma<LM, WIDE> sig;  // lane m < M: σ of path m
   sig.init(sig_id);
-  float pm = (lane == 0) ? 0.f : SCL_BIG;  // lane m < M: metric of path m
-  uint32_t syn = 0;                         // lane m < M: CRC syndrome of path m
+  F pm = (lane == 0) ? F(0) : big<F>();  // lane m < M: metric of path m
+  uint32_t syn = 0;                       // lane m < M: CRC syndrome of path m
   int info_i = 0;
   int word = sched[0];
   int s_prev = 0;  // the previous phase's store level
@@ -672,10 +703,10 @@ __device__ __forceinline__ void scl_path_decode(
     }
     // the leaf (level n): lane m computes it from its parent row
     const bool g_leaf = gl == n;
-    float leaf = 0.f;
+    F leaf = 0;
     if (lane < M) {
       const int r = (g_leaf && n > 1 && (word >> 11 & 1)) ? sig.get(n - 2) : lane;
-      const float* row = n == 1 ? ch : n - 1 > G ? Ls + so(n - 1) + r * SS : Lg + go(n - 1) + r * SG;
+      const F* row = n == 1 ? ch : n - 1 > G ? Ls + so(n - 1) + r * SS : Lg + go(n - 1) + r * SG;
       leaf = g_leaf ? g_update(row[0], row[1], Bs[lane * SS + so(n)]) : f_minsum(row[0], row[1]);
     }
 
@@ -684,15 +715,15 @@ __device__ __forceinline__ void scl_path_decode(
     if (is_frozen) {
       if (lane < M) pm = pm + softplus(-leaf);
     } else {
-      float c0 = pm + softplus(-leaf), c1 = pm + softplus(leaf);
-      if (fb == 1) c0 = SCL_BIG;
-      if (fb == 0) c1 = SCL_BIG;
+      F c0 = pm + softplus(-leaf), c1 = pm + softplus(leaf);
+      if (fb == 1) c0 = big<F>();
+      if (fb == 0) c1 = big<F>();
       // survivor m: the candidate of rank m, into trace slot m, its metric
       // back from the key
-      const unsigned long long key = path_select<LM>(c0, c1, M, P, lane);
+      const auto key = path_select<LM>(c0, c1, M, P, lane);
       const int w = lane < M ? key_index(key) : 0;
       const int parent = w >> 1;
-      const float leaf_par = __shfl_sync(FULL_MASK, leaf, parent);
+      const F leaf_par = __shfl_sync(FULL_MASK, leaf, parent);
       const uint32_t syn_par = __shfl_sync(FULL_MASK, syn, parent);
       if (lane < M) {
         bit = w & 1;
@@ -738,10 +769,9 @@ __device__ __forceinline__ void scl_path_decode(
 
   // ---- final stable sort of the list, CRC selection, backtrack ----
   // lane r < M: the key (metric, path) of final rank r
-  const unsigned long long fkey =
-      warp_sort_keys<LM>(lane < M ? cand_key(pm, lane) : ~0ull, lane, P / 2);
+  const auto fkey = warp_sort_keys<LM>(lane < M ? cand_key(pm, lane) : pad_key(pm), lane, P / 2);
   const int path_r = lane < M ? key_index(fkey) : 0;
-  const bool ok = use_crc && syn == 0u && pm < SCL_BIG;  // of path `lane`
+  const bool ok = use_crc && syn == 0u && pm < big<F>();  // of path `lane`
   const bool ok_r = __shfl_sync(FULL_MASK, (int)ok, path_r);
   const unsigned ok_ranks = __ballot_sync(FULL_MASK, lane < M && ok_r);
   const int sel_rank = ok_ranks ? __ffs(ok_ranks) - 1 : 0;
@@ -749,8 +779,8 @@ __device__ __forceinline__ void scl_path_decode(
   int slot = path_r;                                       // lane r's walk (LIST): path of rank r
   if (LIST) {
     if (lane < M) {
-      const float mr = key_metric(fkey);
-      list_metrics[frame * M + lane] = mr < SCL_BIG ? mr : __int_as_float(0x7f800000);
+      const F mr = key_metric(fkey);
+      list_metrics[frame * M + lane] = mr < big<F>() ? mr : inf_of(mr);
     }
     if (lane == 0) list_best[frame] = sel_rank;
   }
@@ -798,30 +828,31 @@ __device__ __forceinline__ void scl_path_decode(
   }
 }
 
-#define SCL_PATH_PARAMS                                                                          \
-  const float* __restrict__ llr, const int8_t* __restrict__ forced,                              \
-      const uint32_t* __restrict__ hcols, const int* __restrict__ sched, float* glob_llr,        \
-      uint8_t* glob_bits, float* trace_llr, uint8_t* trace_idx, int8_t* __restrict__ out_bits,   \
-      float* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,                              \
-      int8_t* __restrict__ list_bits, float* __restrict__ list_llrs,                             \
-      float* __restrict__ list_metrics, int* __restrict__ list_best, int B, int N, int n, int K, \
+#define SCL_PATH_PARAMS(F)                                                                       \
+  const F* __restrict__ llr, const int8_t* __restrict__ forced,                                  \
+      const uint32_t* __restrict__ hcols, const int* __restrict__ sched, F* glob_llr,            \
+      uint8_t* glob_bits, F* trace_llr, uint8_t* trace_idx, int8_t* __restrict__ out_bits,       \
+      F* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,                                  \
+      int8_t* __restrict__ list_bits, F* __restrict__ list_llrs,                                 \
+      F* __restrict__ list_metrics, int* __restrict__ list_best, int B, int N, int n, int K,     \
       int M, int G, int use_crc, int frame_bytes, int frames_per_block
 #define SCL_PATH_ARGS                                                                           \
   llr, forced, hcols, sched, glob_llr, glob_bits, trace_llr, trace_idx, out_bits, out_llrs,     \
       out_pass, list_bits, list_llrs, list_metrics, list_best, B, N, n, K, M, G, use_crc,       \
       frame_bytes, frames_per_block, masks
 
-template <int LM, bool LIST>
-__global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, PATH_MIN_BLOCKS)
-    scl_path_kernel(SCL_PATH_PARAMS, const ResetMasks masks) {
-  scl_path_decode<LM, LIST, false>(SCL_PATH_ARGS);
+// F: float, or double (the float64 instantiations, N <= 8192)
+template <int LM, bool LIST, typename F>
+__global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, sizeof(F) == 8 ? F64_MIN_BLOCKS : PATH_MIN_BLOCKS)
+    scl_path_kernel(SCL_PATH_PARAMS(F), const ResetMasks masks) {
+  scl_path_decode<LM, LIST, false, F>(SCL_PATH_ARGS);
 }
 
-// LM 16 and 32 at N 16384..65536: σ in one more word
+// LM 16 and 32 at N 16384..65536: σ in one more word (float32)
 template <int LM, bool LIST>
 __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, PATH_MIN_BLOCKS)
-    scl_path_wide_kernel(SCL_PATH_PARAMS, const WideResetMasks masks) {
-  scl_path_decode<LM, LIST, true>(SCL_PATH_ARGS);
+    scl_path_wide_kernel(SCL_PATH_PARAMS(float), const WideResetMasks masks) {
+  scl_path_decode<LM, LIST, true, float>(SCL_PATH_ARGS);
 }
 
 // ---------------------------------------------------------------------------
@@ -1436,32 +1467,36 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_quad_kernel(SCL_C
 // Host side.
 // ---------------------------------------------------------------------------
 
-// every kernel argument but the list size, the σ masks and the stream
-struct Args {
-  const float* llr;
+// every kernel argument but the list size, the σ masks and the stream; F
+// the LLRs' float type (double only for the byte-word and by-path
+// instantiations at N <= 8192)
+template <typename F>
+struct ArgsOf {
+  const F* llr;
   const int8_t* forced;
   const uint32_t* hcols;
   const int* sched;
-  float* glob_llr;
+  F* glob_llr;
   uint8_t* glob_bits;
-  float* trace_llr;
+  F* trace_llr;
   int8_t* out_bits;
-  float* out_llrs;
+  F* out_llrs;
   uint8_t* out_pass;
   int8_t* list_bits;
-  float* list_llrs;
-  float* list_metrics;
+  F* list_llrs;
+  F* list_metrics;
   int* list_best;
   int B, N, n, K, G, use_crc, frame_bytes, frames_per_block;
 };
+using Args = ArgsOf<float>;
 
-template <int M, bool LIST>
-int launch_as(const Args& a, cudaStream_t stream) {
+template <int M, bool LIST, typename F>
+int launch_as(const ArgsOf<F>& a, cudaStream_t stream) {
   const size_t smem = (size_t)a.frame_bytes * a.frames_per_block;
-  cudaError_t err = set_smem(scl_decode_kernel<M, LIST>, smem);
+  cudaError_t err = set_smem(scl_decode_kernel<M, LIST, F>, smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (a.B + a.frames_per_block - 1) / a.frames_per_block;
-  scl_decode_kernel<M, LIST><<<blocks, 32 * a.frames_per_block, smem, stream>>>(
+  scl_decode_kernel<M, LIST, F><<<blocks, 32 * a.frames_per_block, smem, stream>>>(
       a.llr, a.forced, a.hcols, a.sched, a.glob_llr, a.glob_bits, a.trace_llr, a.out_bits,
       a.out_llrs, a.out_pass, a.list_bits, a.list_llrs, a.list_metrics, a.list_best, a.B, a.N,
       a.n, a.K, a.G, a.use_crc, a.frame_bytes, a.frames_per_block);
@@ -1469,23 +1504,23 @@ int launch_as(const Args& a, cudaStream_t stream) {
 }
 
 // the by-path kernel of width LM: scl_path_kernel, or WIDE (LM 16 and 32
-// past n = 13) scl_path_wide_kernel
-template <int LM, bool LIST, bool WIDE>
+// past n = 13, float32) scl_path_wide_kernel
+template <int LM, bool LIST, bool WIDE, typename F>
 auto path_kernel() {
   if constexpr (WIDE)
     return scl_path_wide_kernel<LM, LIST>;
   else
-    return scl_path_kernel<LM, LIST>;
+    return scl_path_kernel<LM, LIST, F>;
 }
 
-template <int LM, bool LIST, bool WIDE>
-int launch_path_as(const Args& a, int M, uint8_t* trace_idx, cudaStream_t stream) {
+template <int LM, bool LIST, bool WIDE, typename F>
+int launch_path_as(const ArgsOf<F>& a, int M, uint8_t* trace_idx, cudaStream_t stream) {
   // the walks back take the trace a chunk of 16-byte rows at a time through
   // the frame's shared memory: a whole number of them, at least one row
   if (!trace_idx || a.n > MAX_LEVELS || !PathSigma<LM, WIDE>::holds(a.n) || a.frame_bytes % 16 ||
       a.frame_bytes < round16(M))
     return (int)cudaErrorInvalidValue;
-  const auto kernel = path_kernel<LM, LIST, WIDE>();
+  const auto kernel = path_kernel<LM, LIST, WIDE, F>();
   const size_t smem = (size_t)a.frame_bytes * a.frames_per_block;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1504,15 +1539,15 @@ bool byte_words(int M, int n) {
   return (M == 1 || M == 2 || M == 4 || M == 8) && (M == 1 || n <= BYTE_WORD_MAX_LEVELS);
 }
 
-template <int M>
-int launch(const Args& a, cudaStream_t stream) {
+template <int M, typename F>
+int launch(const ArgsOf<F>& a, cudaStream_t stream) {
   return a.list_bits ? launch_as<M, true>(a, stream) : launch_as<M, false>(a, stream);
 }
 
-template <int LM>
-int launch_path(const Args& a, int M, void* trace_idx, cudaStream_t stream) {
+template <int LM, typename F>
+int launch_path(const ArgsOf<F>& a, int M, void* trace_idx, cudaStream_t stream) {
   uint8_t* ti = static_cast<uint8_t*>(trace_idx);
-  if constexpr (LM >= 16)
+  if constexpr (LM >= 16 && std::is_same<F, float>::value)
     if (path_wide<LM>(a.n))
       return a.list_bits ? launch_path_as<LM, true, true>(a, M, ti, stream)
                          : launch_path_as<LM, false, true>(a, M, ti, stream);
@@ -1628,35 +1663,19 @@ int plan(Kern kernel, int frame_bytes, int max_block_smem, int* frames_per_block
   return 0;
 }
 
-}  // namespace
-
-extern "C" int scl_decode_launch(const void* llr, const void* forced, const void* hcols,
-                                 const void* sched, void* glob_llr, void* glob_bits,
-                                 void* trace_llr, void* trace_idx, void* sigma, void* out_bits, void* out_llrs,
-                                 void* out_pass, void* list_bits, void* list_llrs,
-                                 void* list_metrics, void* list_best, int B, int N, int n, int K,
-                                 int M, int G, int use_crc, int frame_bytes, int frames_per_block,
-                                 void* stream) {
-  const Args a{static_cast<const float*>(llr), static_cast<const int8_t*>(forced),
-               static_cast<const uint32_t*>(hcols), static_cast<const int*>(sched),
-               static_cast<float*>(glob_llr), static_cast<uint8_t*>(glob_bits),
-               static_cast<float*>(trace_llr), static_cast<int8_t*>(out_bits),
-               static_cast<float*>(out_llrs), static_cast<uint8_t*>(out_pass),
-               static_cast<int8_t*>(list_bits), static_cast<float*>(list_llrs),
-               static_cast<float*>(list_metrics), static_cast<int*>(list_best),
-               B, N, n, K, G, use_crc, frame_bytes, frames_per_block};
-  auto st = static_cast<cudaStream_t>(stream);
+// list sizes 1..32, one path a lane of a warp: the byte-word
+// instantiations (M ∈ {1, 2, 4, 8} where `byte_words`), which the sweeps
+// launch, else by path
+template <typename F>
+int launch_warp(const ArgsOf<F>& a, int M, void* trace_idx, cudaStream_t st) {
 #if !SCL_BY_PATH_ONLY
-  if (byte_words(M, n)) switch (M) {  // the byte-word instantiations, which the sweeps launch
+  if (byte_words(M, a.n)) switch (M) {
       case 1: return launch<1>(a, st);
       case 2: return launch<2>(a, st);
       case 4: return launch<4>(a, st);
       case 8: return launch<8>(a, st);
     }
 #endif
-  if (M < 1 || M > CLUSTER_MAX_M) return (int)cudaErrorInvalidValue;
-  if (M > DEEP_MAX_M) return launch_cluster(a, M, trace_idx, sigma, st);
-  if (M >= DEEP_MIN_M) return launch_deep(a, M, trace_idx, st);
 #if SCL_LEAST_PATH_WIDTH <= 4
   if (M <= 4) return launch_path<4>(a, M, trace_idx, st);
 #endif
@@ -1665,18 +1684,82 @@ extern "C" int scl_decode_launch(const void* llr, const void* forced, const void
   return launch_path<32>(a, M, trace_idx, st);
 }
 
-extern "C" int scl_launch_plan(int M, int n, int frame_bytes, int max_block_smem,
-                               int* frames_per_block, int* frames_per_sm) {
+// the plan of launch_warp's instantiation (best-only: the list one has the
+// same launch bounds)
+template <typename F>
+int plan_warp(int M, int n, int frame_bytes, int max_block_smem, int* frames_per_block, int* frames_per_sm) {
 #define SCL_PLAN(kernel) \
   return plan(kernel, frame_bytes, max_block_smem, frames_per_block, frames_per_sm)
 #if !SCL_BY_PATH_ONLY
   if (byte_words(M, n)) switch (M) {
-      case 1: SCL_PLAN((scl_decode_kernel<1, false>));
-      case 2: SCL_PLAN((scl_decode_kernel<2, false>));
-      case 4: SCL_PLAN((scl_decode_kernel<4, false>));
-      case 8: SCL_PLAN((scl_decode_kernel<8, false>));
+      case 1: SCL_PLAN((scl_decode_kernel<1, false, F>));
+      case 2: SCL_PLAN((scl_decode_kernel<2, false, F>));
+      case 4: SCL_PLAN((scl_decode_kernel<4, false, F>));
+      case 8: SCL_PLAN((scl_decode_kernel<8, false, F>));
     }
 #endif
+#if SCL_LEAST_PATH_WIDTH <= 4
+  if (M <= 4) SCL_PLAN((scl_path_kernel<4, false, F>));
+#endif
+  if (M <= 8) SCL_PLAN((scl_path_kernel<8, false, F>));
+  if constexpr (std::is_same<F, float>::value) {
+    if (M <= 16 && path_wide<16>(n)) SCL_PLAN((scl_path_wide_kernel<16, false>));
+    if (M > 16 && path_wide<32>(n)) SCL_PLAN((scl_path_wide_kernel<32, false>));
+  }
+  if (M <= 16) SCL_PLAN((scl_path_kernel<16, false, F>));
+  SCL_PLAN((scl_path_kernel<32, false, F>));
+#undef SCL_PLAN
+}
+
+template <typename F>
+ArgsOf<F> args_of(const void* llr, const void* forced, const void* hcols, const void* sched, void* glob_llr,
+                  void* glob_bits, void* trace_llr, void* out_bits, void* out_llrs, void* out_pass,
+                  void* list_bits, void* list_llrs, void* list_metrics, void* list_best, int B, int N, int n,
+                  int K, int G, int use_crc, int frame_bytes, int frames_per_block) {
+  return {static_cast<const F*>(llr), static_cast<const int8_t*>(forced),
+          static_cast<const uint32_t*>(hcols), static_cast<const int*>(sched),
+          static_cast<F*>(glob_llr), static_cast<uint8_t*>(glob_bits),
+          static_cast<F*>(trace_llr), static_cast<int8_t*>(out_bits),
+          static_cast<F*>(out_llrs), static_cast<uint8_t*>(out_pass),
+          static_cast<int8_t*>(list_bits), static_cast<F*>(list_llrs),
+          static_cast<F*>(list_metrics), static_cast<int*>(list_best),
+          B, N, n, K, G, use_crc, frame_bytes, frames_per_block};
+}
+
+}  // namespace
+
+// f64: the LLRs, the level and trace LLRs and the LLR and metric outputs are
+// float64 (double) rather than float32
+extern "C" int scl_decode_launch(const void* llr, const void* forced, const void* hcols,
+                                 const void* sched, void* glob_llr, void* glob_bits,
+                                 void* trace_llr, void* trace_idx, void* sigma, void* out_bits, void* out_llrs,
+                                 void* out_pass, void* list_bits, void* list_llrs,
+                                 void* list_metrics, void* list_best, int B, int N, int n, int K,
+                                 int M, int G, int use_crc, int frame_bytes, int frames_per_block,
+                                 int f64, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (f64) {  // M 1..32 at n <= 13
+    if (M < 1 || M > 32 || n > BYTE_WORD_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+    return launch_warp(args_of<double>(llr, forced, hcols, sched, glob_llr, glob_bits, trace_llr, out_bits,
+                                       out_llrs, out_pass, list_bits, list_llrs, list_metrics, list_best, B, N,
+                                       n, K, G, use_crc, frame_bytes, frames_per_block),
+                       M, trace_idx, st);
+  }
+  const Args a = args_of<float>(llr, forced, hcols, sched, glob_llr, glob_bits, trace_llr, out_bits, out_llrs,
+                                out_pass, list_bits, list_llrs, list_metrics, list_best, B, N, n, K, G, use_crc,
+                                frame_bytes, frames_per_block);
+  if (M < 1 || M > CLUSTER_MAX_M) return (int)cudaErrorInvalidValue;
+  if (M > DEEP_MAX_M) return launch_cluster(a, M, trace_idx, sigma, st);
+  if (M >= DEEP_MIN_M) return launch_deep(a, M, trace_idx, st);
+  return launch_warp(a, M, trace_idx, st);
+}
+
+extern "C" int scl_launch_plan(int M, int n, int frame_bytes, int max_block_smem, int f64,
+                               int* frames_per_block, int* frames_per_sm) {
+  if (f64) {  // the float64 instantiations: M 1..32 at n <= 13
+    if (M < 1 || M > 32 || n > BYTE_WORD_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+    return plan_warp<double>(M, n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
+  }
   if (M < 1 || M > CLUSTER_MAX_M) return (int)cudaErrorInvalidValue;
   if (M > DEEP_MAX_M) {  // frames_per_sm: the frames (clusters) the card runs at once
     *frames_per_block = 1;
@@ -1695,17 +1778,7 @@ extern "C" int scl_launch_plan(int M, int n, int frame_bytes, int max_block_smem
   if (M >= DEEP_MIN_M)
     return plan_deep(scl_deep_kernel<uint8_t, false>, M, frame_bytes, max_block_smem,
                      frames_per_block, frames_per_sm);
-#if SCL_LEAST_PATH_WIDTH <= 4
-  if (M <= 4) SCL_PLAN((scl_path_kernel<4, false>));
-#endif
-  if (M <= 8) SCL_PLAN((scl_path_kernel<8, false>));
-  if (M <= 16) {
-    if (path_wide<16>(n)) SCL_PLAN((scl_path_wide_kernel<16, false>));
-    SCL_PLAN((scl_path_kernel<16, false>));
-  }
-  if (path_wide<32>(n)) SCL_PLAN((scl_path_wide_kernel<32, false>));
-  SCL_PLAN((scl_path_kernel<32, false>));
-#undef SCL_PLAN
+  return plan_warp<float>(M, n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
 }
 
 extern "C" const char* scl_error_string(int code) {

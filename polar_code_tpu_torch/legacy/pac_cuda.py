@@ -14,7 +14,9 @@ instantiation writes them (the systematic scalar decoder,
 
 On a CUDA tensor it launches the kernel, or raises for a shape the kernel
 does not take; it runs the plain version (`legacy/pac.py`) only for a tensor
-on the CPU.  The kernel takes every list size from 1 to 65536 (the TPU
+on the CPU.  The LLRs are float32, or float64 one path a lane (L 1..32) at N
+up to 8192 (`ops/scl_cuda.py::F64_MAX_M`, `F64_MAX_N`), where "metrics" is
+float64 too; a float64 decode outside that raises, naming the envelope.  The kernel takes every list size from 1 to 65536 (the TPU
 kernel took power-of-two L <= 8 and N up to 8192, and the JAX package's XLA
 decoder takes the rest), N up to 65536 (the phase words' limit), and any
 batch size: the last block is masked, since the adaptive second stage
@@ -74,8 +76,9 @@ import torch
 
 from .. import _build
 from ..ops.crc import check_matrix
-from ..ops.scl_cuda import (CLUSTER_MAX_BLOCKS, CLUSTER_PAIR_MIN_M, CLUSTER_THREADS, DEEP_MAX_M,
-                             MAX_BLOCK_SMEM, MAX_N, PATH_MAX_M, SIGMA_FIELDS, alloc_scratch, card_free_bytes,
+from ..ops.scl_cuda import (CLUSTER_MAX_BLOCKS, CLUSTER_PAIR_MIN_M, CLUSTER_THREADS, DEEP_MAX_M, DTYPES,
+                             F64_MAX_M, F64_MAX_N, MAX_BLOCK_SMEM, MAX_N, PATH_MAX_M, SIGMA_FIELDS,
+                             alloc_scratch, card_free_bytes, occupancy_of,
                              cluster_block_bytes, cluster_blocks, cluster_ppt, deep_frame_bytes, path_trace_row,
                              row_ptr, sigma_bytes, smallest_global_levels, trace_entry_bytes)
 from ..ops.scl_schedule import phase_words
@@ -91,30 +94,32 @@ TRACE_RING = 16  # trace rows a one-path-a-lane frame stages in shared memory (`
 LIST_FIELDS = ("v_full", "candidates", "metrics", "best_index", "valid")
 
 
-def frame_bytes(N: int, Kp: int, L: int, global_levels: int = 0) -> int:
+def frame_bytes(N: int, Kp: int, L: int, global_levels: int = 0, elem: int = 4) -> int:
     """Shared memory one frame's decode state takes, rounded to 16 bytes: up
-    to L=32 the LLR rows (float32) and edge-bit rows (bytes) of levels
-    global_levels+1..n, and above L=1 a ring of `TRACE_RING` trace rows of
-    round16(L) bytes (the trace is in global scratch, whatever Kp); over
-    warps `ops/scl_cuda.py::deep_frame_bytes`; on a cluster what each of
-    its blocks takes, `ops/scl_cuda.py::cluster_block_bytes`."""
+    to L=32 the LLR rows (`elem` bytes an entry: 4 in float32, 8 in
+    float64) and edge-bit rows (bytes) of levels global_levels+1..n, and
+    above L=1 a ring of `TRACE_RING` trace rows of round16(L) bytes (the
+    trace is in global scratch, whatever Kp); over warps
+    `ops/scl_cuda.py::deep_frame_bytes`; on a cluster what each of its
+    blocks takes, `ops/scl_cuda.py::cluster_block_bytes` (both float32)."""
 
     if L > DEEP_MAX_M:
         return cluster_block_bytes(N, global_levels, DEEP_WORDS, cluster_ppt(L))
     if L > PATH_MAX_M:
         return deep_frame_bytes(N, L, global_levels, DEEP_WORDS)
     row = (N >> global_levels) - 1
-    return (5 * L * row + 15) // 16 * 16 + TRACE_RING * _trace_row(L)
+    return ((elem + 1) * L * row + 15) // 16 * 16 + TRACE_RING * _trace_row(L)
 
 
-def scratch_bytes(B: int, N: int, Kp: int, L: int, global_levels: int) -> int:
-    """Global scratch one launch allocates: the LLR and edge-bit rows of
-    levels 1..G of every frame, and its trace: rows of round16(L) bytes one
-    path a lane (none at L=1), Kp·L entries of `trace_entry_bytes(L)` over warps and on a
-    cluster; past one path a thread of a cluster, σ's tables, and at four
-    the published words (`ops/scl_cuda.py::sigma_bytes`)."""
+def scratch_bytes(B: int, N: int, Kp: int, L: int, global_levels: int, elem: int = 4) -> int:
+    """Global scratch one launch allocates: the LLR (`elem` bytes an entry)
+    and edge-bit rows of levels 1..G of every frame, and its trace: rows of
+    round16(L) bytes one path a lane (none at L=1), Kp·L entries of
+    `trace_entry_bytes(L)` over warps and on a cluster; past one path a
+    thread of a cluster, σ's tables, and at four the published words
+    (`ops/scl_cuda.py::sigma_bytes`)."""
 
-    return (B * L * (N - (N >> global_levels)) * 5 + B * Kp * _trace_row(L)
+    return (B * L * (N - (N >> global_levels)) * (elem + 1) + B * Kp * _trace_row(L)
             + sigma_bytes(B, N, L, DEEP_WORDS))
 
 
@@ -131,8 +136,12 @@ def check_shape(N: int, Kp: int, L: int, gen, crc_len: int, dtype: torch.dtype) 
     """Raise ValueError unless the kernel takes this decode."""
 
     gen = [int(g) for g in gen]
-    if dtype != torch.float32:
-        raise ValueError(f"the PAC kernel decodes float32 LLRs, not {dtype}")
+    if dtype not in DTYPES:
+        raise ValueError(f"the PAC kernel decodes float32 or float64 LLRs, not {dtype}")
+    if dtype == torch.float64 and not (1 <= L <= F64_MAX_M and N <= F64_MAX_N):
+        raise ValueError(f"the PAC kernel decodes float64 at list sizes 1..{F64_MAX_M} and N up to "
+                         f"{F64_MAX_N} (one path a lane of a warp), not L={L} N={N}; float32 takes "
+                         f"L up to {MAX_L} and N up to {MAX_N}")
     if not 1 <= L <= MAX_L:
         raise ValueError(f"the PAC kernel supports list sizes 1..{MAX_L} (one frame a cluster of at "
                          f"most {CLUSTER_MAX_BLOCKS} blocks of {CLUSTER_THREADS} threads, four paths a "
@@ -155,7 +164,7 @@ def check_shape(N: int, Kp: int, L: int, gen, crc_len: int, dtype: torch.dtype) 
     # log2(`MAX_N`)
     if 1 < L <= PATH_MAX_M and 2 * n - 2 > SIGMA_FIELDS[1 << (L - 1).bit_length()]:
         raise ValueError(f"the PAC kernel's σ registers do not hold N={N} at L={L}")
-    least = frame_bytes(N, Kp, L, n - 1)  # levels 1..n−1 in global scratch: a frame's least
+    least = frame_bytes(N, Kp, L, n - 1, 8 if dtype == torch.float64 else 4)  # a frame's least
     if least > MAX_BLOCK_SMEM:
         raise ValueError(
             f"PAC decode state for N={N} Kp={Kp} L={L} is {least} bytes of shared memory a frame "
@@ -168,10 +177,10 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     lib.pac_decode_launch.argtypes = (
         [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [ctypes.c_uint] * 2
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     lib.pac_decode_launch.restype = ctypes.c_int
-    lib.pac_launch_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.pac_launch_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
     lib.pac_launch_plan.restype = ctypes.c_int
     lib.pac_error_string.argtypes = [ctypes.c_int]
     lib.pac_error_string.restype = ctypes.c_char_p
@@ -179,27 +188,31 @@ def _library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _occupancy(N: int, Kp: int, L: int, G: int) -> tuple:
+def _occupancy(N: int, Kp: int, L: int, G: int, elem: int = 4) -> tuple:
     """(frames a block, frames an SM holds at once) with levels 1..G in
-    global scratch, by the CUDA occupancy calculator."""
+    global scratch, by the CUDA occupancy calculator; `elem` 8: the float64
+    instantiation."""
 
     lib = _library()
     fpb, per_sm = ctypes.c_int(0), ctypes.c_int(0)
-    rc = lib.pac_launch_plan(L, int(math.log2(N)), frame_bytes(N, Kp, L, G), MAX_BLOCK_SMEM,
-                             ctypes.byref(fpb), ctypes.byref(per_sm))
+    rc = lib.pac_launch_plan(L, int(math.log2(N)), frame_bytes(N, Kp, L, G, elem), MAX_BLOCK_SMEM,
+                             int(elem == 8), ctypes.byref(fpb), ctypes.byref(per_sm))
     if rc != 0:
         raise RuntimeError(f"PAC occupancy query failed: {lib.pac_error_string(rc).decode()} ({rc})")
     return fpb.value, per_sm.value
 
 
 @functools.lru_cache(maxsize=None)
-def launch_plan(N: int, Kp: int, L: int) -> tuple:
+def launch_plan(N: int, Kp: int, L: int, elem: int = 4) -> tuple:
     """(global levels G, frames a block, frames an SM holds at once) on the
     current card; on a cluster (L > 1024) (G, 1, the frames the card runs at
     once), G as `ops/scl_cuda.py::launch_plan` picks it, raising where the
-    card places no cluster (past L=8192 one of 16 blocks)."""
+    card places no cluster (past L=8192 one of 16 blocks).  `elem` 8 plans
+    the float64 instantiation."""
 
     n = int(math.log2(N))
+    if elem != 4:
+        return smallest_global_levels(n, lambda g: _occupancy(N, Kp, L, g, elem))
     if L > DEEP_MAX_M:
         at_once = _occupancy(N, Kp, L, n - 1)[1]
         if at_once < 1:
@@ -250,9 +263,10 @@ def _plan(mask_key: bytes, gen: tuple, L: int, crc_len: int, crc_poly: int, dtyp
     N = int(mask.size)
     Kp = int((mask == 1).sum())
     check_shape(N, Kp, L, gen, crc_len, dtype)
-    G, fpb, _ = launch_plan(N, Kp, L)
+    elem = 8 if dtype == torch.float64 else 4
+    G, fpb, _ = launch_plan(N, Kp, L, elem)
     if global_levels is not None:
-        G, fpb = global_levels, _occupancy(N, Kp, L, global_levels)[0]
+        G, fpb = global_levels, occupancy_of(_occupancy, elem)(N, Kp, L, global_levels)[0]
     words, out_pos, cols = host_tables(mask, crc_len, crc_poly)
     tables = (torch.as_tensor(words, device=device),
               torch.as_tensor(np.argsort(out_pos).astype(np.int32), device=device),
@@ -262,7 +276,7 @@ def _plan(mask_key: bytes, gen: tuple, L: int, crc_len: int, crc_poly: int, dtyp
     list_tables = (torch.as_tensor(out_pos, device=device),
                    torch.as_tensor(positions[out_pos].astype(np.int32), device=device))
     return (N, Kp, L, G, fpb, *tables, (1 << (len(gen) - 1)) - 1, tap_mask, int(crc_len > 0),
-            frame_bytes(N, Kp, L, G), list_tables)
+            frame_bytes(N, Kp, L, G, elem), list_tables)
 
 
 def pac_list_decode_cuda(
@@ -297,22 +311,22 @@ def _launch(llr, plan, full=False) -> dict:
     (N, Kp, L, G, fpb, sched, phase_of, hcols, mem_mask, tap_mask, use_crc, fbytes,
      (out_pos, u_pos)) = plan
     B = int(llr.shape[0])
-    dev = llr.device
+    dev, elem = llr.device, llr.element_size()
     out = {"extracted": torch.empty((B, Kp), dtype=torch.int8, device=dev),
            "crc_pass": torch.empty((B,), dtype=torch.bool, device=dev)}
     if full:
         out.update(v_full=torch.empty((B, L, N), dtype=torch.int8, device=dev),
                    candidates=torch.empty((B, L, Kp), dtype=torch.int8, device=dev),
-                   metrics=torch.empty((B, L), dtype=torch.float32, device=dev),
+                   metrics=torch.empty((B, L), dtype=llr.dtype, device=dev),
                    best_index=torch.empty((B,), dtype=torch.int32, device=dev))
     if B > 0:
-        # one allocation a launch: the LLR rows (float32) of levels 1..G,
-        # their edge bits, the trace from a 16-byte boundary (none at L=1
-        # with G=0) and, past one path a thread of a cluster, σ's tables
+        # one allocation a launch: the LLR rows (of the LLRs' type) of levels
+        # 1..G, their edge bits, the trace from a 16-byte boundary (none at
+        # L=1 with G=0) and, past one path a thread of a cluster, σ's tables
         # (and at four the published words) from another
         def layout(frames):
             lvl = frames * L * (N - (N >> G))
-            ti_at = (5 * lvl + 15) // 16 * 16
+            ti_at = ((elem + 1) * lvl + 15) // 16 * 16
             sig_at = (ti_at + frames * Kp * _trace_row(L) + 15) // 16 * 16
             return lvl, ti_at, sig_at, sig_at + sigma_bytes(frames, N, L, DEEP_WORDS)
 
@@ -320,11 +334,11 @@ def _launch(llr, plan, full=False) -> dict:
             total = layout(frames)[3]
             return torch.empty((total,), dtype=torch.uint8, device=dev) if total else None
 
-        step, scratch = alloc_scratch(B, scratch_bytes(1, N, Kp, L, G), scratch, lambda: card_free_bytes(dev),
+        step, scratch = alloc_scratch(B, scratch_bytes(1, N, Kp, L, G, elem), scratch, lambda: card_free_bytes(dev),
                                       f"the PAC kernel's global scratch at N={N} Kp={Kp} L={L}")
         lvl, ti_at, sig_at, _ = layout(step)
         at = scratch.data_ptr() if scratch is not None else 0
-        glob_llr, glob_bits = (at, at + 4 * lvl) if G else (None, None)
+        glob_llr, glob_bits = (at, at + elem * lvl) if G else (None, None)
         batch = [llr, out["extracted"], out["crc_pass"]] + [out[f] for f in LIST_FIELDS[:4] if full]
         lib = _library()
         with torch.cuda.device(dev):
@@ -337,12 +351,13 @@ def _launch(llr, plan, full=False) -> dict:
                     out_pos.data_ptr(), u_pos.data_ptr(),
                     *(rows[3:] if full else (None,) * 4),
                     min(step, B - b0), N, int(math.log2(N)), Kp, L, G, mem_mask, tap_mask, use_crc,
-                    fbytes, fpb, stream,
+                    fbytes, fpb, int(elem == 8), stream,
                 )
                 if rc != 0:
                     raise RuntimeError(f"PAC kernel launch failed: {lib.pac_error_string(rc).decode()} "
                                        f"({rc})")
                 pac_list_decode_cuda.launches += 1
+                pac_list_decode_cuda.f64_launches += elem == 8
                 if full:
                     pac_list_decode_cuda.list_launches += 1
                 if L > DEEP_MAX_M:
@@ -363,6 +378,7 @@ pac_list_decode_cuda.deep_launches = 0  # of them, launches of an over-warps ins
 pac_list_decode_cuda.cluster_launches = 0  # of them, launches of a cluster instantiation
 pac_list_decode_cuda.pair_launches = 0  # of those, launches at two paths a thread (L 16385..32768)
 pac_list_decode_cuda.quad_launches = 0  # of those, launches at four paths a thread (L > 32768)
+pac_list_decode_cuda.f64_launches = 0  # of them, launches of a float64 instantiation
 
 
 __all__ = ["pac_list_decode_cuda", "check_shape", "frame_bytes", "scratch_bytes", "host_tables",

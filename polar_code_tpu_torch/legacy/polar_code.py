@@ -8,8 +8,11 @@ instance's device (the card unless `device="cpu"`); heavy workloads should
 call `legacy.pac` batched functions directly.
 
 `pac_list_crc_decoder` decodes on the card through the PAC kernel
-(`pac.pac_decode`) in float32, and on the CPU through the plain decoder in
-float64.  Its systematic branch re-encodes every path's `v_full`: on the card
+(`pac.pac_decode`), and on the CPU through the plain decoder, in the
+instance's float type: `dtype=None` is float32 on the card and float64 on
+the CPU (`utils/device.py::scalar_dtype`); `dtype=torch.float64` on the card
+decodes in float64, the JAX class's type, at list sizes up to 32 and N up to
+8192.  Its systematic branch re-encodes every path's `v_full`: on the card
 the kernel's full-list instantiation returns the list, one launch a call.
 """
 
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 
 from ..ops.polar_transform import polar_transform
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, scalar_dtype
 from . import exceptions as pcexc
 from .pac import pac_decode, pac_encode_batch, pac_list_decode_batch
 from .rate_profile import bitreversed, rateprofile
@@ -29,12 +32,13 @@ from .rate_profile import bitreversed, rateprofile
 
 class PolarCode:
     def __init__(self, N: int, K: int, construct: str, L: int, rprofile: rateprofile,
-                 *, device=None):
+                 *, device=None, dtype=None):
         if K > N:
             raise pcexc.PCLengthError
         if math.log2(N) != int(math.log2(N)):
             raise pcexc.PCLengthDivTwoError
         self.device = resolve_device(device)
+        self.dtype = scalar_dtype(self.device, dtype)
         self.codeword_length = N
         self.log2_N = int(math.log2(N))
         self.nonfrozen_bits = K
@@ -100,20 +104,13 @@ class PolarCode:
     ) -> np.ndarray:
         crc_len = crc1.len if isCRCinc else 0
         crc_poly = crc1.gen if isCRCinc else 0
+        x = torch.as_tensor(np.asarray(soft_mess, dtype=np.float64), dtype=self.dtype, device=self.device)[None]
         if self.device.type == "cuda":
-            x = torch.as_tensor(np.asarray(soft_mess, dtype=np.float32), device=self.device)[None]
             res = pac_decode(x, self.polarcode_mask, self.gen, L, crc_len=crc_len,
                              crc_poly=crc_poly, full=issystematic)
         else:
-            res = pac_list_decode_batch(
-                torch.as_tensor(np.asarray(soft_mess, dtype=np.float64))[None],
-                self.polarcode_mask,
-                self.gen,
-                L,
-                crc_len=crc_len,
-                crc_poly=crc_poly,
-                dtype=torch.float64,
-            )
+            res = pac_list_decode_batch(x, self.polarcode_mask, self.gen, L, crc_len=crc_len,
+                                        crc_poly=crc_poly, dtype=self.dtype)
         if issystematic:
             # every path re-encoded at once: the transform of each row of v_full
             coded = polar_transform(res["v_full"][0].to(torch.int8)).cpu().numpy().astype(int)

@@ -14,7 +14,7 @@ through the kernel on the card.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -97,9 +97,14 @@ def decode_rate_matched_scl(
     ilv_mode: str = "default",
     *,
     device=None,
+    dtype: Optional[torch.dtype] = None,
 ) -> Dict[str, np.ndarray]:
+    """`dtype=None` decodes in float64 on the CPU (the JAX function's type)
+    and float32 on the card; `dtype=torch.float64` on the card runs the
+    kernel's float64 instantiation."""
+
     dev = resolve_device(device)
-    dtype = scalar_dtype(dev)
+    dtype = scalar_dtype(dev, dtype)
     res = decode_rate_matched_scl_batch(
         torch.as_tensor(np.asarray(llr_E, dtype=np.float64), dtype=dtype, device=dev)[None],
         crc_poly, N, E, info_set, M, ilv_mode, dtype=dtype,

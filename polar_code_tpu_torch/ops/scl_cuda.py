@@ -13,7 +13,12 @@ stable (metric, slot) order; the kernel's LIST instantiation writes them.
 
 On a CUDA tensor it launches the kernel, or raises for a shape the kernel
 does not take; it runs the plain version (`ops/scl.py`) only for a tensor on
-the CPU.  Any batch size is taken: the last block is masked, since the retry
+the CPU.  The LLRs are float32, or float64 inside the float64 envelope
+(`F64_MAX_M`, `F64_MAX_N`: M 1..32 at N up to 8192, the byte-word and
+by-path instantiations, as the JAX package's float64 decodes run through
+its XLA decoder); the LLR and metric outputs then are float64 too.  A
+float64 decode outside it raises, naming the envelope: no path casts to
+float32.  Any batch size is taken: the last block is masked, since the retry
 batches after compaction are data-dependent.  `decode_scl_cuda.launches`
 counts kernel launches, `decode_scl_cuda.path_launches` those of them that
 went to the by-path instantiation, `decode_scl_cuda.deep_launches` those
@@ -111,6 +116,12 @@ MAX_N = 65536
 # `BYTE_WORD_MAX_LEVELS` in `csrc/scl_decode.cu`); above, those go by path
 BYTE_WORD_MAX_N = 8192
 MAX_BLOCK_SMEM = 227 * 1024  # dynamic shared memory one block may use on an H100
+# the float64 envelope: the byte-word and by-path instantiations (one path a
+# lane of a warp) at N up to 8192, whose σ registers hold n <= 13 at every
+# width; over warps, on a cluster and past N=8192 the kernels are float32
+F64_MAX_M = PATH_MAX_M
+F64_MAX_N = BYTE_WORD_MAX_N
+DTYPES = (torch.float32, torch.float64)
 FRAMES_PER_SM_TARGET = 16
 # σ levels (2n − 2 of them) a lane's registers hold in the by-path layout, by
 # the list size rounded up to a power of two: 32 / log2(LM) fields a word
@@ -284,19 +295,20 @@ def path_trace_row(M: int) -> int:
     return _round16(M)
 
 
-def frame_bytes(N: int, K: int, M: int, global_levels: int = 0) -> int:
+def frame_bytes(N: int, K: int, M: int, global_levels: int = 0, elem: int = 4) -> int:
     """Shared memory one frame's decode state takes, rounded to 16 bytes: up
-    to M=32 the LLR rows (float32) and partial-sum rows (bytes) of levels
-    global_levels+1..n, and in the byte-word layout the trace indices
-    (bytes); over warps `deep_frame_bytes`; on a cluster what each of its
-    blocks takes, `cluster_block_bytes`."""
+    to M=32 the LLR rows (`elem` bytes an entry: 4 in float32, 8 in
+    float64) and partial-sum rows (bytes) of levels global_levels+1..n, and
+    in the byte-word layout the trace indices (bytes); over warps
+    `deep_frame_bytes`; on a cluster what each of its blocks takes,
+    `cluster_block_bytes` (both float32)."""
 
     if M > DEEP_MAX_M:
         return cluster_block_bytes(N, global_levels, 2, cluster_ppt(M))
     if M > PATH_MAX_M:
         return deep_frame_bytes(N, M, global_levels)
     row = (N >> global_levels) - 1
-    raw = 4 * M * row + M * row + (0 if path_layout(M, N) else K * M)
+    raw = elem * M * row + M * row + (0 if path_layout(M, N) else K * M)
     return _round16(raw)
 
 
@@ -319,22 +331,27 @@ def sigma_bytes(B: int, N: int, M: int, words: int = 2) -> int:
     return B * 2 * M * sigma_row(N, M) + word_sets
 
 
-def scratch_bytes(B: int, N: int, K: int, M: int, global_levels: int) -> int:
-    """Global scratch one launch allocates: the LLR and partial-sum rows of
-    levels 1..G and the trace LLRs of every frame, by path, over warps and
-    on a cluster the trace indices, past one path a thread σ's tables, and
-    at four the published words (`sigma_bytes`)."""
+def scratch_bytes(B: int, N: int, K: int, M: int, global_levels: int, elem: int = 4) -> int:
+    """Global scratch one launch allocates: the LLR (`elem` bytes an entry)
+    and partial-sum rows of levels 1..G and the trace LLRs of every frame,
+    by path, over warps and on a cluster the trace indices, past one path a
+    thread σ's tables, and at four the published words (`sigma_bytes`)."""
 
     ti = (B * K * M * trace_entry_bytes(M) if M > PATH_MAX_M
           else B * K * path_trace_row(M) if path_layout(M, N) else 0)
-    return B * M * (N - (N >> global_levels)) * 5 + B * K * M * 4 + ti + sigma_bytes(B, N, M)
+    return (B * M * (N - (N >> global_levels)) * (elem + 1) + B * K * M * elem + ti
+            + sigma_bytes(B, N, M))
 
 
 def check_shape(N: int, K: int, M: int, crc: Optional[str], dtype: torch.dtype) -> None:
     """Raise ValueError unless the kernel takes this decode."""
 
-    if dtype != torch.float32:
-        raise ValueError(f"the SCL kernel decodes float32 LLRs, not {dtype}")
+    if dtype not in DTYPES:
+        raise ValueError(f"the SCL kernel decodes float32 or float64 LLRs, not {dtype}")
+    if dtype == torch.float64 and not (1 <= M <= F64_MAX_M and N <= F64_MAX_N):
+        raise ValueError(f"the SCL kernel decodes float64 at list sizes 1..{F64_MAX_M} and N up to "
+                         f"{F64_MAX_N} (one path a lane of a warp), not M={M} N={N}; float32 takes "
+                         f"M up to {MAX_M} and N up to {MAX_N}")
     if not 1 <= M <= MAX_M:
         raise ValueError(f"the SCL kernel supports list sizes 1..{MAX_M} (one frame a cluster of at "
                          f"most {CLUSTER_MAX_BLOCKS} blocks of {CLUSTER_THREADS} threads, four paths a "
@@ -349,7 +366,7 @@ def check_shape(N: int, K: int, M: int, crc: Optional[str], dtype: torch.dtype) 
     n = int(math.log2(N))
     if path_layout(M, N) and 2 * n - 2 > SIGMA_FIELDS[path_width(M)]:
         raise ValueError(f"the SCL kernel's σ registers do not hold N={N} at M={M}")
-    least = frame_bytes(N, K, M, n - 1)  # levels 1..n−1 in global scratch: a frame's least
+    least = frame_bytes(N, K, M, n - 1, 8 if dtype == torch.float64 else 4)  # a frame's least: levels 1..n−1 in global scratch
     if least > MAX_BLOCK_SMEM:
         raise ValueError(
             f"SCL decode state for N={N} K={K} M={M} is {least} bytes of shared memory a frame "
@@ -363,9 +380,9 @@ def _library(defines: tuple = ()) -> ctypes.CDLL:
     `tools/time_scl_layouts.py` (the source's dispatch note)."""
 
     lib = _build.load(SOURCE, defines)
-    lib.scl_decode_launch.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.scl_decode_launch.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     lib.scl_decode_launch.restype = ctypes.c_int
-    lib.scl_launch_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.scl_launch_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
     lib.scl_launch_plan.restype = ctypes.c_int
     lib.scl_error_string.argtypes = [ctypes.c_int]
     lib.scl_error_string.restype = ctypes.c_char_p
@@ -373,15 +390,16 @@ def _library(defines: tuple = ()) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _occupancy(N: int, K: int, M: int, G: int) -> tuple:
+def _occupancy(N: int, K: int, M: int, G: int, elem: int = 4) -> tuple:
     """(frames a block, frames an SM holds at once) with levels 1..G in
     global scratch, by the CUDA occupancy calculator (shared memory,
-    registers, warps): the frames a block that let an SM hold the most."""
+    registers, warps): the frames a block that let an SM hold the most.
+    `elem` 8: the float64 instantiation."""
 
     lib = _library()
     fpb, per_sm = ctypes.c_int(0), ctypes.c_int(0)
-    rc = lib.scl_launch_plan(M, int(math.log2(N)), frame_bytes(N, K, M, G), MAX_BLOCK_SMEM,
-                             ctypes.byref(fpb), ctypes.byref(per_sm))
+    rc = lib.scl_launch_plan(M, int(math.log2(N)), frame_bytes(N, K, M, G, elem), MAX_BLOCK_SMEM,
+                             int(elem == 8), ctypes.byref(fpb), ctypes.byref(per_sm))
     if rc != 0:
         raise RuntimeError(f"SCL occupancy query failed: {lib.scl_error_string(rc).decode()} ({rc})")
     return fpb.value, per_sm.value
@@ -419,12 +437,21 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def occupancy_of(occupancy, elem: int):
+    """A wrapper's occupancy query (`_occupancy` here and in
+    `legacy/pac_cuda.py`) for the float32 (`elem` 4) or the float64 (8)
+    instantiations, called as `(N, K, M, G)`."""
+
+    return occupancy if elem == 4 else functools.partial(occupancy, elem=elem)
+
+
 @functools.lru_cache(maxsize=None)
-def _plan(N: int, K: int, M: int, target: int) -> tuple:
-    return smallest_global_levels(int(math.log2(N)), lambda g: _occupancy(N, K, M, g), target)
+def _plan(N: int, K: int, M: int, target: int, elem: int = 4) -> tuple:
+    occupancy = occupancy_of(_occupancy, elem)
+    return smallest_global_levels(int(math.log2(N)), lambda g: occupancy(N, K, M, g), target)
 
 
-def launch_plan(N: int, K: int, M: int, B: int) -> tuple:
+def launch_plan(N: int, K: int, M: int, B: int, elem: int = 4) -> tuple:
     """(global levels G, frames a block, frames an SM holds at once) for a
     batch of B frames on the current card, by `smallest_global_levels`:
     `FRAMES_PER_SM_TARGET` frames an SM in the byte-word and over-warps
@@ -435,9 +462,10 @@ def launch_plan(N: int, K: int, M: int, B: int) -> tuple:
     scratch (the most shared memory a block's paths can take); it raises
     where the card places no cluster (past M=8192 a cluster of 16 blocks,
     which the kernel allows as a non-portable size: a card whose GPCs hold
-    fewer than 16 free SMs places none).  The occupancy (`_occupancy`)
-    is cached by shape alone: the cards of one host are taken to be of one
-    kind."""
+    fewer than 16 free SMs places none).  `elem` 8 plans the float64
+    instantiation, whose frames hold 8-byte LLR rows.  The occupancy
+    (`_occupancy`) is cached by shape alone: the cards of one host are
+    taken to be of one kind."""
 
     n = int(math.log2(N))
     if M > DEEP_MAX_M:
@@ -448,9 +476,9 @@ def launch_plan(N: int, K: int, M: int, B: int) -> tuple:
                                f"memory each (N={N} M={M})")
         return _plan(N, K, M, at_once)
     if not path_layout(M, N):
-        return _plan(N, K, M, FRAMES_PER_SM_TARGET)
-    most = _occupancy(N, K, M, n - 1)[1]
-    return _plan(N, K, M, path_target(B, _sm_count(torch.cuda.current_device()), most))
+        return _plan(N, K, M, FRAMES_PER_SM_TARGET, elem)
+    most = occupancy_of(_occupancy, elem)(N, K, M, n - 1)[1]
+    return _plan(N, K, M, path_target(B, _sm_count(torch.cuda.current_device()), most), elem)
 
 
 @functools.lru_cache(maxsize=64)
@@ -501,7 +529,7 @@ def decode_scl_cuda(
                 or not f.is_contiguous()):
             raise ValueError(f"force_info_bits must be a contiguous int8 [{B}, {K}] tensor on {llr.device}")
     with torch.cuda.device(llr.device):
-        G, fpb, _ = launch_plan(N, K, M, B)
+        G, fpb, _ = launch_plan(N, K, M, B, llr.element_size())
     return _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full)
 
 
@@ -528,14 +556,14 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
 
     B, N = int(llr.shape[0]), int(llr.shape[1])
     K = int(info_np.size)
-    dev = llr.device
+    dev, dt, elem = llr.device, llr.dtype, llr.element_size()
     out = {"best_path_bits": torch.empty((B, K), dtype=torch.int8, device=dev),
-           "best_path_info_llrs": torch.empty((B, K), dtype=torch.float32, device=dev),
+           "best_path_info_llrs": torch.empty((B, K), dtype=dt, device=dev),
            "crc_pass": torch.empty((B,), dtype=torch.bool, device=dev)}
     if full:
         out.update(candidates=torch.empty((B, M, K), dtype=torch.int8, device=dev),
-                   info_llrs=torch.empty((B, M, K), dtype=torch.float32, device=dev),
-                   metrics=torch.empty((B, M), dtype=torch.float32, device=dev),
+                   info_llrs=torch.empty((B, M, K), dtype=dt, device=dev),
+                   metrics=torch.empty((B, M), dtype=dt, device=dev),
                    best_index=torch.empty((B,), dtype=torch.int32, device=dev))
     if B > 0:
         sched, hcols = _device_tables(tuple(int(i) for i in info_np), N, crc, dev)
@@ -543,9 +571,9 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
         ti_dtype = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[trace_entry_bytes(M)]
 
         def scratch(frames):
-            return ((torch.empty((frames, M, row), dtype=torch.float32, device=dev) if G else None),
+            return ((torch.empty((frames, M, row), dtype=dt, device=dev) if G else None),
                     (torch.empty((frames, M, row), dtype=torch.uint8, device=dev) if G else None),
-                    torch.empty((frames, K, M), dtype=torch.float32, device=dev),
+                    torch.empty((frames, K, M), dtype=dt, device=dev),
                     (torch.empty((frames, K, M), dtype=ti_dtype, device=dev) if M > PATH_MAX_M
                      else torch.empty((frames, K, path_trace_row(M)), dtype=torch.uint8, device=dev)
                      if path_layout(M, N) else None),
@@ -553,7 +581,7 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
                      if M >= CLUSTER_PAIR_MIN_M else None))
 
         step, (glob_llr, glob_bits, trace_llr, trace_idx, sigma) = alloc_scratch(
-            B, scratch_bytes(1, N, K, M, G), scratch, lambda: card_free_bytes(dev),
+            B, scratch_bytes(1, N, K, M, G, elem), scratch, lambda: card_free_bytes(dev),
             f"the SCL kernel's global scratch at N={N} K={K} M={M}")
         lib = _library()
         for b0 in range(0, B, step):  # one launch unless the batch is split
@@ -569,11 +597,12 @@ def _launch(llr, info_np, M, crc, force_info_bits, G, fpb, full=False) -> dict:
                     sigma.data_ptr() if sigma is not None else None,
                     *(row_ptr(out[f], b0) for f in BEST_FIELDS), *lists,
                     min(step, B - b0), N, int(math.log2(N)), K, M, G, int(crc is not None),
-                    frame_bytes(N, K, M, G), fpb, stream,
+                    frame_bytes(N, K, M, G, elem), fpb, int(elem == 8), stream,
                 )
             if rc != 0:
                 raise RuntimeError(f"SCL kernel launch failed: {lib.scl_error_string(rc).decode()} ({rc})")
             decode_scl_cuda.launches += 1
+            decode_scl_cuda.f64_launches += elem == 8
             if M > DEEP_MAX_M:
                 decode_scl_cuda.cluster_launches += 1
                 decode_scl_cuda.pair_launches += cluster_ppt(M) == 2
@@ -593,6 +622,7 @@ decode_scl_cuda.deep_launches = 0  # of them, launches of the over-warps instant
 decode_scl_cuda.cluster_launches = 0  # of them, launches of a cluster instantiation
 decode_scl_cuda.pair_launches = 0  # of those, launches at two paths a thread (M 16385..32768)
 decode_scl_cuda.quad_launches = 0  # of those, launches at four paths a thread (M > 32768)
+decode_scl_cuda.f64_launches = 0  # of them, launches of a float64 instantiation
 
 
 __all__ = ["decode_scl_cuda", "check_shape", "frame_bytes", "deep_frame_bytes", "sort_keys",
@@ -601,5 +631,5 @@ __all__ = ["decode_scl_cuda", "check_shape", "frame_bytes", "deep_frame_bytes", 
            "trace_entry_bytes", "launch_plan", "smallest_global_levels", "path_width",
            "byte_words", "path_layout", "path_trace_row", "path_target", "scratch_bytes",
            "SUPPORTED_M", "BYTE_WORD_M", "BYTE_WORD_MAX_N", "MAX_M", "PATH_MAX_M", "DEEP_MAX_M",
-           "CLUSTER_PAIR_MIN_M", "CLUSTER_QUAD_MIN_M",
+           "CLUSTER_PAIR_MIN_M", "CLUSTER_QUAD_MIN_M", "F64_MAX_M", "F64_MAX_N", "DTYPES",
            "MAX_N", "SIGMA_FIELDS", "NARROW_SIGMA_FIELDS"]

@@ -45,8 +45,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 def scalar_dtype(device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.dtype:
     """The float type of a scalar entry point's decode: `dtype` when given;
     else float64 on the CPU (the JAX package's x64 parity path) and float32
-    on the card (the kernels' type).  An explicit float64 on the card is
-    passed on, and the kernel's shape check raises for it."""
+    on the card (the kernels' default type, the port's stated choice).  An
+    explicit float64 on the card is passed on: the SCL and PAC kernels
+    decode it through their float64 instantiations at list sizes up to 32
+    and N up to 8192, and their shape checks raise, naming that envelope,
+    outside it."""
 
     if dtype is not None:
         return dtype

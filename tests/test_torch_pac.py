@@ -143,7 +143,7 @@ def test_check_shape_bounds_the_kernel():
                  (64, 32, 8, [0, 1], 0, torch.float32),  # gen[0] != 1
                  (64, 32, 8, [1] * 33, 0, torch.float32),  # memory 32
                  (64, 32, 8, [1], 33, torch.float32),
-                 (64, 32, 8, [1], 0, torch.float64),
+                 (64, 32, 33, [1], 0, torch.float64),  # float64 takes L <= 32
                  (131072, 8000, 32, [1], 0, torch.float32)):  # N > 65536
         with pytest.raises(ValueError):
             check_shape(*args)

@@ -9,7 +9,9 @@ into this checkout's build directory), dumps both libraries' SASS with
 `cuobjdump -sass`, and prints, for every kernel function, "same" or the
 count of SASS lines that differ position by position (each line carries
 its address, so an instruction added early moves every line after it),
-with its demangled name.  A kernel
+with its demangled name (a last template argument `float` dropped: the
+float32 instantiations of the kernels templated on their float type keep
+their untemplated names).  A kernel
 whose SASS is the same in both runs the same instructions: a time that
 differs between the two is the card's, not the code's.  Exits 1 when a
 source fails to build or `cuobjdump` fails.
@@ -25,6 +27,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
 ANON = re.compile(r"_GLOBAL__N__\w+")  # the anonymous namespace of one build
+FLOAT_ARG = re.compile(r", float>$")
 
 
 def functions(lib: Path) -> dict:
@@ -43,8 +46,12 @@ def functions(lib: Path) -> dict:
             funcs[name] = []
         elif name is not None and line.strip():
             funcs[name].append(" ".join(ANON.sub("_GLOBAL__N_", line).split()))
-    # a template kernel by its name and arguments, without its parameters
-    return {re.sub(r">\(.*\)$", ">", name): body for name, body in zip(demangle(list(funcs)), funcs.values())}
+    # a template kernel by its name and arguments, without its parameters;
+    # a float type argument `float` last is dropped, so that a kernel that
+    # gained it (the float32 instantiation of a kernel templated on its
+    # float type) is held against its checkout's untemplated twin
+    return {FLOAT_ARG.sub(">", re.sub(r">\(.*\)$", ">", name)): body
+            for name, body in zip(demangle(list(funcs)), funcs.values())}
 
 
 def demangle(names):

@@ -499,7 +499,7 @@ def ptxas_report(log):
             tw = re.search(r"scl_path(_wide)?_kernelILi(\d+)ELb([01])E([fd]?)", m.group(1))
             tp = re.search(r"pac_decode(_wide)?_kernelILi(\d+)E(?:Lb([01])E)?([fd]?)", m.group(1))
             tn = re.search(r"nms_kernel_(warp|block|1024)ILi(\d+)ELb([01])E", m.group(1))
-            td = re.search(r"(scl|pac)_deep_kernelI([ht])Lb([01])E", m.group(1))
+            td = re.search(r"(scl|pac)_deep_kernelI([ht])Lb([01])E([fd]?)", m.group(1))
             tdw = re.search(r"(scl|pac)_deep_wide_kernelILb([01])E", m.group(1))
             tc = re.search(r"(scl|pac)_cluster(_pair|_quad)?_kernelILb([01])E", m.group(1))
             f64 = {"d": ", f64"}
@@ -514,7 +514,7 @@ def ptxas_report(log):
                      else f"nms_kernel<D={tn.group(2)}, {'two-min' if tn.group(3) == '1' else 'shared'}, "
                           f"{tn.group(1)}>" if tn
                      else f"{td.group(1)}_deep_kernel<{'u8' if td.group(2) == 'h' else 'u16'} trace"
-                          f"{', list' if td.group(3) == '1' else ''}>" if td
+                          f"{', list' if td.group(3) == '1' else ''}{f64.get(td.group(4), '')}>" if td
                      else f"{tc.group(1)}_cluster{tc.group(2) or ''}_kernel<"
                           f"{'list' if tc.group(3) == '1' else 'best-only'}>" if tc else m.group(1))
             cur = {"entry": entry, "regs": None, "spill_stores": None, "spill_loads": None,
@@ -599,7 +599,10 @@ def near_tie_frames(metrics, rel=1e-5):
     return np.any(finite & close, axis=1)
 
 
-def cuda_time_ms(fn, reps, warmup=3):
+def cuda_time_ms(fn, reps, warmup=3, keep=None):
+    """The mean milliseconds of `reps` calls of `fn` after `warmup` untimed
+    ones, by CUDA events; `keep`, a list, gets the last call's result."""
+
     import torch
 
     for _ in range(warmup):
@@ -608,9 +611,11 @@ def cuda_time_ms(fn, reps, warmup=3):
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        fn()
+        res = fn()
     stop.record()
     torch.cuda.synchronize()
+    if keep is not None:
+        keep.append(res)
     return start.elapsed_time(stop) / reps
 
 
@@ -1516,7 +1521,8 @@ def scalar_surface(dev, smi):
 
     # the systematic decoder and decode without early stop, on one frame each,
     # against the plain version on the card; float64 outside its envelope
-    # (M <= 32, N <= 8192) raises on the card (phase 20 decodes inside it)
+    # (M <= 1024, N <= 8192) raises on the card (phases 20 and 21 decode
+    # inside it)
     got = pc[4].pac_list_crc_decoder(pc_llr[0], True, True, crc16, 4)
     want = systematic_reference(pc[4], pc_llr[:1], True, crc16, 4, dev)[0]
     check(np.array_equal(got, want), "PolarCode systematic decoder differs from the plain version")
@@ -1529,12 +1535,12 @@ def scalar_surface(dev, smi):
     print("  PolarCode(64, 48, dega, L=4) systematic CRC-16 and decode_ldpc_nms(early_stop=False) on "
           "the card: one frame each, equal to the plain version")
     try:
-        decode_scl(golden["llrs"][0], g_info, 33, CRC, dtype=torch.float64)
+        decode_scl(golden["llrs"][0], g_info, 1025, CRC, dtype=torch.float64)
     except ValueError as exc:
-        print(f"  decode_scl(M=33, dtype=float64) on the card raises: {exc}")
-        check("float64 at list sizes 1..32 and N up to 8192" in str(exc), "the raise does not name the envelope")
+        print(f"  decode_scl(M=1025, dtype=float64) on the card raises: {exc}")
+        check("float64 at list sizes 1..1024 and N up to 8192" in str(exc), "the raise does not name the envelope")
     else:
-        check(False, "decode_scl(M=33, dtype=float64) on the card did not raise")
+        check(False, "decode_scl(M=1025, dtype=float64) on the card did not raise")
 
     k1_before, k2_before = decode_scl_cuda.launches, decode_ldpc_nms_cuda.launches
     k3_before = pac_list_decode_cuda.launches
@@ -2824,13 +2830,14 @@ LONG_SPLIT = (64, 65536)
 
 
 def plain_reference(kind, args, device="cuda"):
-    """One plain decode on `device`, in a worker process of phase 16:
-    `plain_fields` of the SCL decoder (kind "scl": LLRs, info set, M, CRC,
-    plan) or the PAC decoder's list fields (kind "pac": LLRs, mask, gen, L,
-    CRC length and polynomial), as numpy arrays, and the call's seconds on
-    the host clock.  The worker's allocator grows its segments in place, so
-    that the plain calls that hold tens of gigabytes leave no reserved
-    gaps."""
+    """One plain decode on `device`, in a worker process of phases 16-19
+    and 21: `plain_fields` of the SCL decoder (kind "scl": LLRs, info set,
+    M, CRC, plan) or the PAC decoder's list fields (kind "pac": LLRs, mask,
+    gen, L, CRC length and polynomial), as numpy arrays, and the call's
+    seconds on the host clock; in the LLRs' float type (float32, or
+    float64 in phase 21).  The worker's allocator grows its segments in
+    place, so that the plain calls that hold tens of gigabytes leave no
+    reserved gaps."""
 
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
@@ -2842,15 +2849,16 @@ def plain_reference(kind, args, device="cuda"):
         from polar_code_tpu_torch.ops.scl import decode_scl_batch
 
         llr, info, M, crc, plan = args
+        x = torch.from_numpy(llr).to(dev)
         res = plain_fields(decode_scl_batch(
-            torch.from_numpy(llr).to(dev), info, M, crc, dtype=torch.float32,
+            x, info, M, crc, dtype=x.dtype,
             force_info_bits=None if plan is None else torch.from_numpy(plan).to(dev)))
     else:
         from polar_code_tpu_torch.legacy.pac import pac_list_decode_batch
 
         llr, mask, gen, L, crc_len, crc_poly = args
-        out = pac_list_decode_batch(torch.from_numpy(llr).to(dev), mask, gen, L, crc_len=crc_len,
-                                    crc_poly=crc_poly)
+        x = torch.from_numpy(llr).to(dev)
+        out = pac_list_decode_batch(x, mask, gen, L, crc_len=crc_len, crc_poly=crc_poly, dtype=x.dtype)
         res = {f: out[f].cpu().numpy() for f in PAC_LIST_FIELDS}
     return res, time.perf_counter() - t
 
@@ -3274,16 +3282,16 @@ LIST16_SCALAR = (4, 4)  # (e): decode_scl's golden frames and PolarCode's frames
 LIST16_TIME_B = 256  # (f): frames of the timed launches
 
 
-def timed_batch_check(run, x, fields, tag, edge=16):
+def timed_batch_check(run, x, fields, tag, big, edge=16):
     """The first and last `edge` frames of a timed launch's batch against
     launches of the same kernel on those frames alone, every field equal:
-    `run(x)` returns the wrapper's outputs.  A timed launch at M or L above
+    `big` is the timed launch's outputs (`cuda_time_ms`'s `keep`), `run(t)`
+    returns the wrapper's outputs on `t`.  A timed launch at M or L above
     8192 holds gigabytes of global scratch that an `edge`-frame one does
     not, and its outputs are otherwise not compared."""
 
     import torch
 
-    big = run(x)
     B = int(x.shape[0])
     for lo in (0, B - edge):
         small = run(x[lo:lo + edge].contiguous())
@@ -3295,14 +3303,17 @@ def timed_batch_check(run, x, fields, tag, edge=16):
           f"launches ({', '.join(fields)})", flush=True)
 
 
-def list_sizes_16k(dev, smi):
+def list_sizes_16k(dev, smi, beside=None):
     """Phase 17: K1 and K3 at list sizes 8193..16384 (a cluster of 16
     blocks) against the plain versions and the JAX golden file, a split
     batch, the FER CLI at M=16384 against 8192 and 4096, the legacy simulator at
     list_size_max=16384 against itself on the plain decoder, the scalar
     calls, and the times, the timed launches' first and last 16 frames held
-    to 16-frame launches.  Returns the `kernels` entries of the two
-    cluster-of-16 instantiations, and the FER CLI's row at M=16384."""
+    to 16-frame launches.  `beside`, where given, is called once the
+    phase's own workers are done, before (d): it waits for another phase's
+    workers, so that none holds the card's memory or cores in the FER CLI
+    and the times.  Returns the `kernels` entries of the two cluster-of-16
+    instantiations, and the FER CLI's row at M=16384."""
 
     import torch
 
@@ -3419,6 +3430,8 @@ def list_sizes_16k(dev, smi):
               f"pass {bool(ref['crc_pass'][0])}", flush=True)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
+    if beside is not None:
+        beside()
     print(f"(a) K1 at M 8193-16384 vs plain: {len(cases) * len(CLUSTER_SEEDS) + 1} cases, list and best-only, "
           f"{differ} frames differ (none allowed); max |info LLR diff| {k1_err:.3e}; (b) K3 "
           f"{len(LIST16_LS) * len(CLUSTER_SEEDS) + 1} cases, every field equal")
@@ -3511,8 +3524,8 @@ def list_sizes_16k(dev, smi):
     llr = torch.from_numpy(make_llrs(np.random.default_rng(5), B, 5.0, info)[0]).to(dev)
     entries = {}
     for M in (LIST16_M // 2, LIST16_M):
-        before = decode_scl_cuda.launches
-        ms = cuda_time_ms(lambda M=M: decode_scl_cuda(llr, info, M, CRC), reps=2, warmup=1)
+        before, big = decode_scl_cuda.launches, []
+        ms = cuda_time_ms(lambda M=M: decode_scl_cuda(llr, info, M, CRC), reps=2, warmup=1, keep=big)
         b_ms, b_by = bound(*scl_work(info, M, B))
         line = (f"  K1 P(128,64) M={M} CRC B={B} 5.0 dB: {ms:.4f} ms ({(decode_scl_cuda.launches - before) / 3:g} "
                 f"launches a call)")
@@ -3525,12 +3538,14 @@ def list_sizes_16k(dev, smi):
               flush=True)
         if M == LIST16_M:
             timed_batch_check(lambda t, M=M: decode_scl_cuda(t, info, M, CRC), llr, scl_cuda.BEST_FIELDS,
-                              f"(f) K1 M={M}")
+                              f"(f) K1 M={M}", big[0])
     n_c, k_c, crc_c = PAC_CODES[128]
     p_mask = pac_mask(n_c, k_c + crc_c[0])
     x = pac_llrs(np.random.default_rng(6), B, 2.5, PAC_CODES[128], PAC_GEN, p_mask, dev)
     for L in (LIST16_M // 2, LIST16_M):
-        ms = cuda_time_ms(lambda L=L: pac_list_decode_cuda(x, p_mask, PAC_GEN, L, *crc_c), reps=2, warmup=1)
+        big = []
+        ms = cuda_time_ms(lambda L=L: pac_list_decode_cuda(x, p_mask, PAC_GEN, L, *crc_c), reps=2, warmup=1,
+                          keep=big)
         b_ms, b_by = bound(*pac_work(p_mask, L, B))
         line = f"  K3 PAC(128,64)+CRC-16 L={L} B={B} 2.5 dB: {ms:.4f} ms"
         if L == LIST16_M:
@@ -3542,7 +3557,7 @@ def list_sizes_16k(dev, smi):
               f"at once", flush=True)
         if L == LIST16_M:
             timed_batch_check(lambda t, L=L: pac_list_decode_cuda(t, p_mask, PAC_GEN, L, *crc_c), x,
-                              ("extracted", "crc_pass"), f"(f) K3 L={L}")
+                              ("extracted", "crc_pass"), f"(f) K3 L={L}", big[0])
     print(f"phase list_sizes_16k: {time.perf_counter() - t_phase:.1f} s")
 
     launches = {"scl": fer[LIST16_M][1] + scalar_cluster[0], "pac": sim_cluster + scalar_cluster[1]}
@@ -3577,15 +3592,17 @@ LIST32_SCALAR = (4, 4)  # (e): decode_scl's golden frames and PolarCode's frames
 LIST32_TIME_B = 256  # (f): frames of the timed launches
 
 
-def list_sizes_32k(dev, smi, fer16):
+def list_sizes_32k(dev, smi, fer16, half_ms):
     """Phase 18: K1 and K3 at list sizes 16385..32768 (two paths a thread on
     a cluster of 16 blocks) against the plain versions and the JAX golden
     file, a split batch, the FER CLI at M=32768 against phase 17's M=16384
     row on the same frames (`fer16`), the legacy simulator at
     list_size_max=32768 against itself on the plain decoder, the scalar
-    calls, and the times, the timed launches' first and last 16 frames held
-    to 16-frame launches.  Returns the `kernels` entries of the two pair
-    instantiations, and the FER CLI's row at M=32768."""
+    calls, and the times at M and L 32768 beside phase 17's at 16384 on the
+    same launches (`half_ms`: {"scl": ms, "pac": ms}), the timed launches'
+    first and last 16 frames held to 16-frame launches.  Returns the
+    `kernels` entries of the two pair instantiations, and the FER CLI's row
+    at M=32768."""
 
     import torch
 
@@ -3823,39 +3840,36 @@ def list_sizes_32k(dev, smi, fer16):
     B = LIST32_TIME_B
     llr = torch.from_numpy(make_llrs(np.random.default_rng(5), B, 5.0, info)[0]).to(dev)
     entries = {}
-    for M in (LIST32_M // 2, LIST32_M):
-        before = decode_scl_cuda.launches
-        ms = cuda_time_ms(lambda M=M: decode_scl_cuda(llr, info, M, CRC), reps=2, warmup=1)
-        b_ms, b_by = bound(*scl_work(info, M, B))
-        line = (f"  K1 P(128,64) M={M} CRC B={B} 5.0 dB: {ms:.4f} ms ({(decode_scl_cuda.launches - before) / 3:g} "
-                f"launches a call)")
-        if M == LIST32_M:
-            plain_ms = cuda_time_ms(lambda: decode_scl_batch(llr, info, M, CRC, dtype=torch.float32), reps=1,
-                                    warmup=0)
-            entries["scl"] = (ms, plain_ms, b_ms, b_by)
-            line += f"; plain {plain_ms:.4f} ms"
-        print(f"{line}; bound {b_ms:.6f} ms ({b_by}); {scl_cuda.launch_plan(N, K, M, B)[2]} clusters at once; "
-              f"{scl_cuda.cluster_ppt(M)} paths a thread", flush=True)
-        if M == LIST32_M:
-            timed_batch_check(lambda t, M=M: decode_scl_cuda(t, info, M, CRC), llr, scl_cuda.BEST_FIELDS,
-                              f"(f) K1 M={M}")
+    print(f"  K1 P(128,64) M={LIST32_M // 2} CRC B={B} 5.0 dB: {half_ms['scl']:.4f} ms (phase 17's time of this "
+          f"launch)", flush=True)
+    M = LIST32_M
+    before, big = decode_scl_cuda.launches, []
+    ms = cuda_time_ms(lambda: decode_scl_cuda(llr, info, M, CRC), reps=1, warmup=1, keep=big)
+    per_call = (decode_scl_cuda.launches - before) / 2
+    b_ms, b_by = bound(*scl_work(info, M, B))
+    plain_ms = cuda_time_ms(lambda: decode_scl_batch(llr, info, M, CRC, dtype=torch.float32), reps=1, warmup=0)
+    entries["scl"] = (ms, plain_ms, b_ms, b_by)
+    print(f"  K1 P(128,64) M={M} CRC B={B} 5.0 dB: {ms:.4f} ms ({per_call:g} launches a call); plain "
+          f"{plain_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by}); {scl_cuda.launch_plan(N, K, M, B)[2]} clusters at "
+          f"once; {scl_cuda.cluster_ppt(M)} paths a thread", flush=True)
+    timed_batch_check(lambda t: decode_scl_cuda(t, info, M, CRC), llr, scl_cuda.BEST_FIELDS, f"(f) K1 M={M}",
+                      big[0])
     n_c, k_c, crc_c = PAC_CODES[128]
     p_mask = pac_mask(n_c, k_c + crc_c[0])
     x = pac_llrs(np.random.default_rng(6), B, 2.5, PAC_CODES[128], PAC_GEN, p_mask, dev)
-    for L in (LIST32_M // 2, LIST32_M):
-        ms = cuda_time_ms(lambda L=L: pac_list_decode_cuda(x, p_mask, PAC_GEN, L, *crc_c), reps=2, warmup=1)
-        b_ms, b_by = bound(*pac_work(p_mask, L, B))
-        line = f"  K3 PAC(128,64)+CRC-16 L={L} B={B} 2.5 dB: {ms:.4f} ms"
-        if L == LIST32_M:
-            plain_ms = cuda_time_ms(lambda: pac_list_decode_batch(x, p_mask, PAC_GEN, L, crc_len=crc_c[0],
-                                                                  crc_poly=crc_c[1]), reps=1, warmup=0)
-            entries["pac"] = (ms, plain_ms, b_ms, b_by)
-            line += f"; plain {plain_ms:.4f} ms"
-        print(f"{line}; bound {b_ms:.6f} ms ({b_by}); {pac_cuda.launch_plan(n_c, k_c + crc_c[0], L)[2]} clusters "
-              f"at once; {scl_cuda.cluster_ppt(L)} paths a thread", flush=True)
-        if L == LIST32_M:
-            timed_batch_check(lambda t, L=L: pac_list_decode_cuda(t, p_mask, PAC_GEN, L, *crc_c), x,
-                              ("extracted", "crc_pass"), f"(f) K3 L={L}")
+    print(f"  K3 PAC(128,64)+CRC-16 L={LIST32_M // 2} B={B} 2.5 dB: {half_ms['pac']:.4f} ms (phase 17's time of "
+          f"this launch)", flush=True)
+    L, big = LIST32_M, []
+    ms = cuda_time_ms(lambda: pac_list_decode_cuda(x, p_mask, PAC_GEN, L, *crc_c), reps=1, warmup=1, keep=big)
+    b_ms, b_by = bound(*pac_work(p_mask, L, B))
+    plain_ms = cuda_time_ms(lambda: pac_list_decode_batch(x, p_mask, PAC_GEN, L, crc_len=crc_c[0],
+                                                          crc_poly=crc_c[1]), reps=1, warmup=0)
+    entries["pac"] = (ms, plain_ms, b_ms, b_by)
+    print(f"  K3 PAC(128,64)+CRC-16 L={L} B={B} 2.5 dB: {ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+          f"{b_ms:.6f} ms ({b_by}); {pac_cuda.launch_plan(n_c, k_c + crc_c[0], L)[2]} clusters at once; "
+          f"{scl_cuda.cluster_ppt(L)} paths a thread", flush=True)
+    timed_batch_check(lambda t: pac_list_decode_cuda(t, p_mask, PAC_GEN, L, *crc_c), x, ("extracted", "crc_pass"),
+                      f"(f) K3 L={L}", big[0])
     for entry, (r, spill) in sorted(regs.items()):
         print(f"  {entry}: {r} registers, {spill} B spilled")
     print(f"phase list_sizes_32k: {time.perf_counter() - t_phase:.1f} s")
@@ -3893,15 +3907,16 @@ LIST64_SCALAR = (4, 4)  # (e): decode_scl's golden frames and PolarCode's frames
 LIST64_TIME_B = 256  # (f): frames of the timed launches
 
 
-def list_sizes_64k(dev, smi, fer32):
+def list_sizes_64k(dev, smi, fer32, half_ms):
     """Phase 19: K1 and K3 at list sizes 32769..65536 (four paths a thread
     on a cluster of 16 blocks) against the plain versions and the JAX
     golden file, a split batch, the FER CLI at M=65536 against phase 18's
     M=32768 row on the same frames (`fer32`), the legacy simulator at
     list_size_max=65536 against itself on the plain decoder, the scalar
-    calls, and the times at B=256, the timed launches' first and last 16
-    frames held to 16-frame launches.  Returns the `kernels` entries of the
-    two quad instantiations."""
+    calls, and the times at B=256, M and L 65536 beside phase 18's at 32768
+    on the same launches (`half_ms`: {"scl": ms, "pac": ms}), the timed
+    launches' first and last 16 frames held to 16-frame launches.  Returns
+    the `kernels` entries of the two quad instantiations."""
 
     import torch
 
@@ -4152,39 +4167,36 @@ def list_sizes_64k(dev, smi, fer32):
     B = LIST64_TIME_B
     llr = torch.from_numpy(make_llrs(np.random.default_rng(5), B, 5.0, info)[0]).to(dev)
     entries = {}
-    for M in (LIST64_M // 2, LIST64_M):
-        before = decode_scl_cuda.launches
-        ms = cuda_time_ms(lambda M=M: decode_scl_cuda(llr, info, M, CRC), reps=2, warmup=1)
-        b_ms, b_by = bound(*scl_work(info, M, B))
-        line = (f"  K1 P(128,64) M={M} CRC B={B} 5.0 dB: {ms:.4f} ms ({(decode_scl_cuda.launches - before) / 3:g} "
-                f"launches a call)")
-        if M == LIST64_M:
-            plain_ms = cuda_time_ms(lambda: decode_scl_batch(llr, info, M, CRC, dtype=torch.float32), reps=1,
-                                    warmup=0)
-            entries["scl"] = (ms, plain_ms, b_ms, b_by)
-            line += f"; plain {plain_ms:.4f} ms"
-        print(f"{line}; bound {b_ms:.6f} ms ({b_by}); {scl_cuda.launch_plan(N, K, M, B)[2]} clusters at once; "
-              f"{scl_cuda.cluster_ppt(M)} paths a thread", flush=True)
-        if M == LIST64_M:
-            timed_batch_check(lambda t, M=M: decode_scl_cuda(t, info, M, CRC), llr, scl_cuda.BEST_FIELDS,
-                              f"(f) K1 M={M}")
+    print(f"  K1 P(128,64) M={LIST64_M // 2} CRC B={B} 5.0 dB: {half_ms['scl']:.4f} ms (phase 18's time of this "
+          f"launch)", flush=True)
+    M = LIST64_M
+    before, big = decode_scl_cuda.launches, []
+    ms = cuda_time_ms(lambda: decode_scl_cuda(llr, info, M, CRC), reps=1, warmup=1, keep=big)
+    per_call = (decode_scl_cuda.launches - before) / 2
+    b_ms, b_by = bound(*scl_work(info, M, B))
+    plain_ms = cuda_time_ms(lambda: decode_scl_batch(llr, info, M, CRC, dtype=torch.float32), reps=1, warmup=0)
+    entries["scl"] = (ms, plain_ms, b_ms, b_by)
+    print(f"  K1 P(128,64) M={M} CRC B={B} 5.0 dB: {ms:.4f} ms ({per_call:g} launches a call); plain "
+          f"{plain_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by}); {scl_cuda.launch_plan(N, K, M, B)[2]} clusters at "
+          f"once; {scl_cuda.cluster_ppt(M)} paths a thread", flush=True)
+    timed_batch_check(lambda t: decode_scl_cuda(t, info, M, CRC), llr, scl_cuda.BEST_FIELDS, f"(f) K1 M={M}",
+                      big[0])
     n_c, k_c, crc_c = PAC_CODES[128]
     p_mask = pac_mask(n_c, k_c + crc_c[0])
     x = pac_llrs(np.random.default_rng(6), B, 2.5, PAC_CODES[128], PAC_GEN, p_mask, dev)
-    for L in (LIST64_M // 2, LIST64_M):
-        ms = cuda_time_ms(lambda L=L: pac_list_decode_cuda(x, p_mask, PAC_GEN, L, *crc_c), reps=2, warmup=1)
-        b_ms, b_by = bound(*pac_work(p_mask, L, B))
-        line = f"  K3 PAC(128,64)+CRC-16 L={L} B={B} 2.5 dB: {ms:.4f} ms"
-        if L == LIST64_M:
-            plain_ms = cuda_time_ms(lambda: pac_list_decode_batch(x, p_mask, PAC_GEN, L, crc_len=crc_c[0],
-                                                                  crc_poly=crc_c[1]), reps=1, warmup=0)
-            entries["pac"] = (ms, plain_ms, b_ms, b_by)
-            line += f"; plain {plain_ms:.4f} ms"
-        print(f"{line}; bound {b_ms:.6f} ms ({b_by}); {pac_cuda.launch_plan(n_c, k_c + crc_c[0], L)[2]} clusters "
-              f"at once; {scl_cuda.cluster_ppt(L)} paths a thread", flush=True)
-        if L == LIST64_M:
-            timed_batch_check(lambda t, L=L: pac_list_decode_cuda(t, p_mask, PAC_GEN, L, *crc_c), x,
-                              ("extracted", "crc_pass"), f"(f) K3 L={L}")
+    print(f"  K3 PAC(128,64)+CRC-16 L={LIST64_M // 2} B={B} 2.5 dB: {half_ms['pac']:.4f} ms (phase 18's time of "
+          f"this launch)", flush=True)
+    L, big = LIST64_M, []
+    ms = cuda_time_ms(lambda: pac_list_decode_cuda(x, p_mask, PAC_GEN, L, *crc_c), reps=1, warmup=1, keep=big)
+    b_ms, b_by = bound(*pac_work(p_mask, L, B))
+    plain_ms = cuda_time_ms(lambda: pac_list_decode_batch(x, p_mask, PAC_GEN, L, crc_len=crc_c[0],
+                                                          crc_poly=crc_c[1]), reps=1, warmup=0)
+    entries["pac"] = (ms, plain_ms, b_ms, b_by)
+    print(f"  K3 PAC(128,64)+CRC-16 L={L} B={B} 2.5 dB: {ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+          f"{b_ms:.6f} ms ({b_by}); {pac_cuda.launch_plan(n_c, k_c + crc_c[0], L)[2]} clusters at once; "
+          f"{scl_cuda.cluster_ppt(L)} paths a thread", flush=True)
+    timed_batch_check(lambda t: pac_list_decode_cuda(t, p_mask, PAC_GEN, L, *crc_c), x, ("extracted", "crc_pass"),
+                      f"(f) K3 L={L}", big[0])
     for entry, (r, spill_st, spill_ld) in sorted(regs.items()):
         print(f"  {entry}: {r} registers, {spill_st} B spill stores, {spill_ld} B spill loads")
     print(f"phase list_sizes_64k: {time.perf_counter() - t_phase:.1f} s")
@@ -4213,6 +4225,17 @@ F64_FER = (4.0, 102400)  # (d): Eb/N0 and frames of the FER check against result
 F64_FER_TIMED = 20  # (d): FER steps timed at 5 dB, float64 beside float32
 F64_REL = 1e-12
 SASS_OUT = {}  # phase 16 (e)'s `tools/compare_sass.py` report, read again in phase 20 (f)
+
+
+def rel_err(got, want):
+    """The largest relative difference of `got` from `want` where `want` is
+    finite; +inf where they differ where it is not."""
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    fin = np.isfinite(want)
+    if not np.array_equal(np.isfinite(got), fin) or not np.array_equal(got[~fin], want[~fin]):
+        return math.inf
+    return float(np.max(np.abs(got[fin] - want[fin]) / np.abs(want[fin]), initial=0.0))
 
 
 def float64_on_card(dev, smi):
@@ -4263,20 +4286,13 @@ def float64_on_card(dev, smi):
     def lap(part):
         print(f"  [phase 20 at {time.perf_counter() - t_phase:.1f} s] {part}", flush=True)
 
-    def rel_err(got, want):
-        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-        fin = np.isfinite(want)
-        if not np.array_equal(np.isfinite(got), fin) or not np.array_equal(got[~fin], want[~fin]):
-            return math.inf
-        return float(np.max(np.abs(got[fin] - want[fin]) / np.abs(want[fin]), initial=0.0))
-
     # ---- the float64 instantiations' registers and spills (built in phase 2: the kept log) ----
     regs = {}
     for source in (scl_cuda.SOURCE, pac_cuda.SOURCE):
         for row in ptxas_report(_build.build(source).log):
-            if row["entry"].endswith(", f64>"):
+            if row["entry"].endswith(", f64>") and "_deep_" not in row["entry"]:  # phase 21: over warps
                 regs[row["entry"]] = (row["regs"], row["spill_stores"], row["spill_loads"])
-    check(len(regs) == 26, f"the build log holds {len(regs)} float64 instantiations, not 26: {sorted(regs)}")
+    check(len(regs) == 26, f"the build log holds {len(regs)} float64 one-lane instantiations, not 26: {sorted(regs)}")
 
     # ---- (a) K1 in float64 against the plain float64 version, and the golden file ----
     lap("(a)")
@@ -4549,7 +4565,7 @@ def float64_on_card(dev, smi):
         rows = [ln.strip() for ln in SASS_OUT["out"].splitlines() if ln.startswith("  ") and ": " in ln]
         moved = [ln for ln in rows if "SASS lines differ" in ln]
         added = [ln for ln in rows if "only in this checkout" in ln]
-        print(f"(f) SASS against the parent: {len(rows) - len(moved) - len(added)} float32 kernels the same, "
+        print(f"(f) SASS against the parent: {len(rows) - len(moved) - len(added)} kernels the same, "
               f"{len(moved)} moved, {len(added)} only in this checkout")
         check(not moved, f"float32 kernels whose SASS moved: {moved[:6]}")
         check(all("double" in ln for ln in added), f"kernels only in this checkout that are not float64: {added[:6]}")
@@ -4573,13 +4589,372 @@ def float64_on_card(dev, smi):
 
 
 
+# phase 21, float64 over warps: K1 and K3 at list sizes 33-1024 and N up to
+# 8192 in double, their over-warps instantiations
+F64D_SEED = 20261024
+F64D_B = 32  # frames of a P(128,64) and PAC(128,64) vs-plain case
+F64D_MS = (33, 64, 128, 129, 256, 1024)  # (a): K1 at P(128,64); 128 and 129 the last byte and the first 16-bit entry
+F64D_N = (1024, 512, 64, 16)  # (a): K1 at P(1024,512) M=64, frames
+# (a): K1 at P(8192,4096), two frames: the largest N, the G the plan takes
+# there; their plain calls (seconds each) run in a worker beside phase 17's
+# (a)-(c)
+F64D_LONG = ((8192, 4096, 64), (8192, 4096, 1024))
+F64D_LONG_B = 2
+F64D_LS = (33, 64, 256, 1024)  # (b): K3 at PAC(128,64)+CRC-16
+F64D_SCALAR_MS = (64, 1024)  # (d): decode_scl on the golden frames
+F64D_PC_L = 256  # (d): PolarCode's L, phase 14's simulator's list_size_max
+F64D_TIME = (64, 256, 1024)  # (e): M and L of the float64 and float32 times
+F64D_TIME_B = 4096
+
+
+def start_f64_deep_plain(dev):
+    """Phase 21's plain float64 calls at P(8192,4096) (`F64D_LONG`), started
+    in a worker process before phase 17: (pool, collect).  `collect()`
+    waits for them, shuts the worker down, so that its memory on the card
+    is free again, and returns {(N, K, M): (LLRs, info set, (plain fields,
+    seconds))}; phase 17 calls it where it has waited for its own workers,
+    before its FER CLI and its times."""
+
+    from polar_code_tpu_torch.polar.construct import construct_info_set
+
+    rng = np.random.default_rng(F64D_SEED + 8192)
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    calls = {}
+    for n_c, k_c, M in F64D_LONG:
+        info_c = construct_info_set(n_c, k_c)
+        llr_np, _ = make_llrs(rng, F64D_LONG_B, 1.5, info_c, n=n_c, dtype=np.float64)
+        calls[n_c, k_c, M] = (llr_np, info_c, pool.submit(plain_reference, "scl", (llr_np, info_c, M, CRC, None),
+                                                            str(dev)))
+
+    def collect():
+        refs = {key: (llr_np, info_c, fut.result()) for key, (llr_np, info_c, fut) in calls.items()}
+        pool.shutdown(wait=True)
+        return refs
+
+    return pool, collect
+
+
+def float64_over_warps(dev, smi, long_refs):
+    """Phase 21: K1 and K3 over warps in float64 (M and L 33-1024) against
+    the plain float64 versions on the card, every field, and the JAX
+    float64 golden file; the float64 scalar surface at these list sizes,
+    one over-warps launch a decode; each float64 kernel's time beside its
+    float32 twin's; the float32 kernels' SASS against a parent checkout's
+    where one is unpacked.  `long_refs`: {(N, K, M): (LLRs, info set,
+    (plain fields, seconds))} of `start_f64_deep_plain`.  Returns the
+    `kernels` entries of the float64 over-warps instantiations."""
+
+    import torch
+
+    from polar_code_tpu_torch import _build
+    from polar_code_tpu_torch.legacy import pac_cuda
+    from polar_code_tpu_torch.legacy.crclib import crc as legacy_crc
+    from polar_code_tpu_torch.legacy.pac import pac_list_decode_batch
+    from polar_code_tpu_torch.legacy.pac_cuda import pac_list_decode_cuda
+    from polar_code_tpu_torch.legacy.polar_code import PolarCode
+    from polar_code_tpu_torch.legacy.rate_profile import rateprofile
+    from polar_code_tpu_torch.ops import scl_cuda
+    from polar_code_tpu_torch.ops.scl import decode_scl_batch
+    from polar_code_tpu_torch.polar.api import decode_scl
+    from polar_code_tpu_torch.polar.construct import construct_info_set
+
+    f64 = torch.float64
+    decode_scl_cuda = scl_cuda.decode_scl_cuda
+    wrappers = (decode_scl_cuda, pac_list_decode_cuda)
+    plains = (decode_scl_batch, pac_list_decode_batch)
+    info = construct_info_set(N, K)
+    rng = np.random.default_rng(F64D_SEED)
+    t_phase = time.perf_counter()
+
+    def reset_counts():
+        for f in wrappers:
+            f.launches = f.f64_launches = f.deep_launches = 0
+        for f in plains:
+            f.cuda_calls = 0
+
+    def lap(part):
+        print(f"  [phase 21 at {time.perf_counter() - t_phase:.1f} s] {part}", flush=True)
+
+    def equal_fields(out, ref, fields, tag):
+        for f in fields:
+            want = torch.as_tensor(ref[f]).to(out[f].device)
+            check(out[f].dtype == want.dtype, f"{tag}: {f} is {out[f].dtype}, not {want.dtype}")
+            check(torch.equal(out[f], want), f"{tag}: {f} differs from the plain float64 version")
+
+    # ---- the over-warps float64 instantiations' registers and spills (the kept build log) ----
+    regs = {}
+    for source in (scl_cuda.SOURCE, pac_cuda.SOURCE):
+        for row in ptxas_report(_build.build(source).log):
+            if row["entry"].endswith(", f64>") and "_deep_" in row["entry"]:
+                regs[row["entry"]] = (row["regs"], row["spill_stores"], row["spill_loads"])
+    check(len(regs) == 8, f"the build log holds {len(regs)} float64 over-warps instantiations, not 8: {sorted(regs)}")
+
+    # ---- (a) K1 in float64 over warps against the plain float64 version ----
+    lap("(a)")
+    list_fields = scl_cuda.BEST_FIELDS + scl_cuda.LIST_FIELDS
+    k1_err, k1_cases = 0.0, 0
+    for M in F64D_MS:
+        llr_np, msg = make_llrs(rng, F64D_B, np.where(np.arange(F64D_B) % 2, 1.5, 3.0)[:, None], info,
+                                dtype=np.float64)
+        llr = torch.from_numpy(llr_np).to(dev)
+        for use_plan in (False, True):
+            plan = torch.from_numpy(random_plan(rng, msg)).to(dev) if use_plan else None
+            ref = decode_scl_batch(llr, info, M, CRC, force_info_bits=plan, dtype=f64)
+            ref = {f: getattr(ref, f) for f in list_fields}
+            for full in (False, True):
+                out = decode_scl_cuda(llr, info, M, CRC, force_info_bits=plan, full=full)
+                torch.cuda.synchronize()
+                equal_fields(out, ref, list_fields if full else scl_cuda.BEST_FIELDS,
+                             f"K1 float64 M={M} plan={use_plan} full={full}")
+                k1_err = max(k1_err, float((out["best_path_info_llrs"] - ref["best_path_info_llrs"]).abs().max()))
+                k1_cases += 1
+    n_m, k_m, m_m, b_m = F64D_N
+    info_m = construct_info_set(n_m, k_m)
+    llr = torch.from_numpy(make_llrs(rng, b_m, 1.75, info_m, n=n_m, dtype=np.float64)[0]).to(dev)
+    ref = decode_scl_batch(llr, info_m, m_m, CRC, dtype=f64)
+    ref = {f: getattr(ref, f) for f in list_fields}
+    for full in (False, True):
+        out = decode_scl_cuda(llr, info_m, m_m, CRC, full=full)
+        torch.cuda.synchronize()
+        equal_fields(out, ref, list_fields if full else scl_cuda.BEST_FIELDS, f"K1 float64 P({n_m},{k_m}) M={m_m}")
+        k1_cases += 1
+    long_lines = []
+    for (n_l, k_l, m_l), (llr_np, info_l, (ref, plain_s)) in long_refs.items():
+        llr = torch.from_numpy(llr_np).to(dev)
+        for full in (False, True):
+            out = decode_scl_cuda(llr, info_l, m_l, CRC, full=full)
+            torch.cuda.synchronize()
+            equal_fields(out, ref, list_fields if full else scl_cuda.BEST_FIELDS,
+                         f"K1 float64 P({n_l},{k_l}) M={m_l}")
+            k1_cases += 1
+        g, _, per_sm = scl_cuda.launch_plan(n_l, k_l, m_l, F64D_LONG_B, 8)
+        long_lines.append(f"P({n_l},{k_l}) M={m_l} B={F64D_LONG_B} (G={g}, {per_sm} frames an SM; its plain call "
+                          f"{plain_s:.1f} s in a worker)")
+    print(f"(a) K1 float64 over warps vs the plain float64 version on the card: {k1_cases} launches, every field "
+          f"equal: P(128,64) CRC-24A B={F64D_B} M {', '.join(map(str, F64D_MS))}, plans on and off, best-only and "
+          f"list; P({n_m},{k_m}) M={m_m} B={b_m}; {'; '.join(long_lines)}; max |info LLR diff| {k1_err:.3e}",
+          flush=True)
+
+    # ---- (b) K3 in float64 over warps against the plain float64 version ----
+    lap("(b)")
+    n_p, k_p, crc_p = PAC_CODES[128]
+    p_mask = pac_mask(n_p, k_p + crc_p[0])
+    k3_err = 0.0
+    for L in F64D_LS:
+        x = pac_llrs(rng, F64D_B, 2.0, PAC_CODES[128], PAC_GEN, p_mask, dev, dtype=np.float64)
+        ref = pac_list_decode_batch(x, p_mask, PAC_GEN, L, crc_len=crc_p[0], crc_poly=crc_p[1], dtype=f64)
+        for full in (False, True):
+            out = pac_list_decode_cuda(x, p_mask, PAC_GEN, L, *crc_p, full=full)
+            torch.cuda.synchronize()
+            for f in out:
+                check(torch.equal(out[f], ref[f].to(out[f].dtype)), f"K3 float64 L={L} full={full}: {f} differs "
+                      f"from the plain float64 version")
+            if full:
+                fin = torch.isfinite(ref["metrics"])
+                k3_err = max(k3_err, float((out["metrics"][fin] - ref["metrics"][fin]).abs().max()))
+                check(out["metrics"].dtype == f64, f"K3 float64 metrics are {out['metrics'].dtype}")
+    print(f"(b) K3 float64 over warps vs plain float64: PAC(128,64)+CRC-16 B={F64D_B} L "
+          f"{', '.join(map(str, F64D_LS))}, best-only and list, every field equal; max |metric diff| "
+          f"{k3_err:.3e}", flush=True)
+
+    # ---- (c) K1 and K3 against the JAX float64 golden file ----
+    lap("(c)")
+    near, golden_cases, golden_err = [], 0, 0.0
+    with np.load(GOLDEN / "scl_f64_deep.npz") as gold:
+        for case in json.loads(str(gold["cases"])):
+            tag, code = case["name"], case["code"]
+            x = torch.from_numpy(gold[f"{code}/llr"]).to(dev)
+            if code == "pac128":
+                out = pac_list_decode_cuda(x, gold["pac128/mask"], case["gen"], case["L"], case["crc_len"],
+                                           case["crc_poly"], full=True)
+                fields = ("extracted", "crc_pass", "candidates", "v_full", "valid")
+            else:
+                plan = torch.from_numpy(gold[f"{code}/plan"]).to(dev) if case["plan"] else None
+                out = decode_scl_cuda(x, gold[f"{code}/info"], case["M"], case["crc"], force_info_bits=plan,
+                                      full=True)
+                out["bits"], out["llrs"] = out["best_path_bits"], out["best_path_info_llrs"]
+                fields = ("bits", "crc_pass") + (("candidates", "best_index") if case["full"] else ())
+            torch.cuda.synchronize()
+            bad = np.zeros(int(x.shape[0]), bool)
+            for f in fields:
+                got, want = out[f].cpu().numpy(), gold[f"{tag}/{f}"]
+                bad |= (got != want).reshape(len(bad), -1).any(axis=1)
+            same = ~bad  # the values of the frames whose decisions agree
+            errs = [rel_err(out["metrics"].cpu().numpy()[same], gold[f"{tag}/metrics"][same])]
+            if code != "pac128":
+                errs.append(rel_err(out["llrs"].cpu().numpy()[same], gold[f"{tag}/llrs"][same]))
+                if case["info_llrs"]:
+                    errs.append(rel_err(out["info_llrs"].cpu().numpy()[same], gold[f"{tag}/info_llrs"][same]))
+            ties = near_tie_frames(gold[f"{tag}/metrics"], rel=1e-9)
+            for f in np.flatnonzero(bad):
+                near.append(f"{tag} frame {f}{' (near-tie)' if ties[f] else ''}")
+            check(not (bad & ~ties).any(), f"K1/K3 float64 {tag}: frames {np.flatnonzero(bad & ~ties).tolist()} "
+                  f"differ from JAX float64 outside a near-tie")
+            check(max(errs) <= F64_REL, f"K1/K3 float64 {tag}: metrics or info LLRs off JAX float64 by "
+                  f"{max(errs):.3e} relative")
+            golden_err = max(golden_err, *errs)
+            golden_cases += 1
+    print(f"(c) K1 and K3 float64 over warps vs tests/golden/scl_f64_deep.npz (JAX float64): {golden_cases} cases, "
+          f"{len(near)} frames differ{': ' + '; '.join(near) if near else ''}; metrics and info LLRs within "
+          f"{golden_err:.3e} relative (limit {F64_REL:g})", flush=True)
+
+    # ---- (d) the float64 scalar surface over warps, counted ----
+    lap("(d)")
+    golden = np.load(GOLDEN / "ref_p128_k64.npz")
+    g_info = golden["info_set"]
+    crc16 = legacy_crc(*PAC_CRC)
+    pc = PolarCode(64, 48, "dega", F64D_PC_L, rateprofile(64, 48, 2.0, 0), dtype=f64)
+    pc_cpu = PolarCode(64, 48, "dega", F64D_PC_L, rateprofile(64, 48, 2.0, 0), device="cpu")
+    msgs = rng.integers(0, 2, (SCALAR_FRAMES, 32)).astype(np.int8)
+    msgs = np.concatenate([msgs, crc16.crcCalc_batch(msgs)], axis=1)
+    codewords = np.stack([pc_cpu.encode(m, False) for m in msgs])
+    nv = 1.0 / (2.0 * 0.5 * 10 ** 0.3)
+    pc_llr = 2.0 * (1.0 - 2.0 * codewords + rng.normal(0.0, math.sqrt(nv), codewords.shape)) / nv
+    reset_counts()
+    t = time.perf_counter()
+    scl = {M: [decode_scl(llr, g_info, M, CRC, dtype=f64) for llr in golden["llrs"]] for M in F64D_SCALAR_MS}
+    pac = [pc.pac_list_crc_decoder(row, False, True, crc16, F64D_PC_L) for row in pc_llr]
+    systematic = pc.pac_list_crc_decoder(pc_llr[0], True, True, crc16, F64D_PC_L)
+    torch.cuda.synchronize()
+    scalar_s = time.perf_counter() - t
+    f64_calls = (decode_scl_cuda.f64_launches, pac_list_decode_cuda.f64_launches)
+    deep_calls = (decode_scl_cuda.deep_launches, pac_list_decode_cuda.deep_launches)
+    all_calls = (decode_scl_cuda.launches, pac_list_decode_cuda.launches)
+    plain = sum(f.cuda_calls for f in plains)
+    calls = (len(F64D_SCALAR_MS) * len(golden["llrs"]), SCALAR_FRAMES + 1)
+    print(f"(d) the float64 scalar surface over warps on the card: decode_scl M {', '.join(map(str, F64D_SCALAR_MS))} "
+          f"on {len(golden['llrs'])} golden frames, PolarCode(64, 48, dega, L={F64D_PC_L}) on {SCALAR_FRAMES} frames "
+          f"and one systematic decode: {scalar_s:.3f} s (host clock); float64 K1/K3 launches {f64_calls}, over "
+          f"warps {deep_calls}, in all {all_calls}, for {calls} decodes; plain decoders on CUDA {plain} times",
+          flush=True)
+    check(f64_calls == deep_calls == all_calls == calls,
+          f"the float64 scalar entry points launched {f64_calls} float64, {deep_calls} over-warps and {all_calls} "
+          f"kernels for {calls} decodes, not one float64 over-warps launch a decode")
+    check(plain == 0, "a plain decoder ran on CUDA in the float64 scalar surface")
+    g_llr = torch.from_numpy(golden["llrs"]).to(dev)
+    for M in F64D_SCALAR_MS:
+        ref = decode_scl_batch(g_llr, g_info, M, CRC, dtype=f64)
+        for b, r in enumerate(scl[M]):
+            want = ref.metrics[b].cpu().numpy()
+            check(np.array_equal(r["best_path_bits"], ref.best_path_bits[b].cpu().numpy())
+                  and np.array_equal(r["best_path_info_llrs"], ref.best_path_info_llrs[b].cpu().numpy())
+                  and np.array_equal(np.asarray(r["metrics"]), want[np.isfinite(want)]),
+                  f"decode_scl float64 M={M} frame {b} differs from the plain float64 decoder")
+    want = pac_list_decode_batch(torch.from_numpy(pc_llr).to(dev), pc.polarcode_mask, [1], F64D_PC_L,
+                                 crc_len=PAC_CRC[0], crc_poly=PAC_CRC[1], dtype=f64)["extracted"].cpu().numpy()
+    check(np.array_equal(np.stack(pac), want), f"PolarCode float64 L={F64D_PC_L} differs from the plain float64 batch")
+    check(np.array_equal(systematic, pc_cpu.pac_list_crc_decoder(pc_llr[0], True, True, crc16, F64D_PC_L)),
+          f"the float64 systematic PolarCode decoder at L={F64D_PC_L} differs from the plain one on the CPU")
+    print(f"  decode_scl float64 M {', '.join(map(str, F64D_SCALAR_MS))} equal to the plain float64 decoder (bits, "
+          f"info LLRs, metrics); PolarCode L={F64D_PC_L} on {SCALAR_FRAMES} frames equal to the plain float64 batch; "
+          f"the systematic decoder equal to the plain float64 one on the CPU; "
+          f"{int(sum(np.array_equal(p, m) for p, m in zip(pac, msgs)))} of {SCALAR_FRAMES} PolarCode frames decoded "
+          f"the sent message", flush=True)
+
+    # ---- (e) times with CUDA events, each float64 kernel beside its float32 twin ----
+    lap("(e)")
+    B = F64D_TIME_B
+    print(f"float64 over-warps times on {smi}:")
+    llr32 = torch.from_numpy(make_llrs(np.random.default_rng(5), B, 5.0, info)[0]).to(dev)
+    llr64 = torch.from_numpy(make_llrs(np.random.default_rng(5), B, 5.0, info, dtype=np.float64)[0]).to(dev)
+    x32 = pac_llrs(np.random.default_rng(6), B, 2.5, PAC_CODES[128], PAC_GEN, p_mask, dev)
+    x64 = pac_llrs(np.random.default_rng(6), B, 2.5, PAC_CODES[128], PAC_GEN, p_mask, dev, dtype=np.float64)
+    entries = {}
+    for M in F64D_TIME:
+        reps = 3 if M == 1024 else 10
+        ms32 = cuda_time_ms(lambda: decode_scl_cuda(llr32, info, M, CRC), reps=reps, warmup=1)
+        big = []
+        ms64 = cuda_time_ms(lambda: decode_scl_cuda(llr64, info, M, CRC), reps=reps, warmup=1, keep=big)
+        g, _, per_sm = scl_cuda.launch_plan(N, K, M, B, 8)
+        g32, _, per32 = scl_cuda.launch_plan(N, K, M, B)
+        r, st, ld = regs[f"scl_deep_kernel<{'u8' if M <= 128 else 'u16'} trace, f64>"]
+        b_ms, b_by = bound(*scl_work(info, M, B, elem=8), FP64_OPS_PER_S)
+        line = (f"  K1 over warps P(128,64) M={M} CRC B={B} 5.0 dB: float64 {ms64:.4f} ms, float32 {ms32:.4f} ms "
+                f"({ms64 / ms32:.2f}x); bound {b_ms:.6f} ms ({b_by}, float64 at {FP64_OPS_PER_S / 1e12:g} TFLOP/s); "
+                f"{r} registers, spills {st} B stores / {ld} B loads; {scl_cuda.frame_bytes(N, K, M, g, 8)} B shared "
+                f"a frame at G={g}, {per_sm} frames an SM (float32 {scl_cuda.frame_bytes(N, K, M, g32)} B at "
+                f"G={g32}, {per32})")
+        if M == 64:
+            plain_ms = cuda_time_ms(lambda: decode_scl_batch(llr64, info, M, CRC, dtype=f64), reps=2, warmup=1)
+            entries["scl"] = (ms64, plain_ms, b_ms, b_by)
+            line += f"; plain float64 {plain_ms:.4f} ms"
+        print(line, flush=True)
+        timed_batch_check(lambda x: decode_scl_cuda(x, info, M, CRC), llr64, scl_cuda.BEST_FIELDS,
+                          f"(e) K1 float64 M={M}", big[0])
+    for L in F64D_TIME:
+        reps = 3 if L == 1024 else 10
+        ms32 = cuda_time_ms(lambda: pac_list_decode_cuda(x32, p_mask, PAC_GEN, L, *crc_p), reps=reps, warmup=1)
+        big = []
+        ms64 = cuda_time_ms(lambda: pac_list_decode_cuda(x64, p_mask, PAC_GEN, L, *crc_p), reps=reps, warmup=1,
+                            keep=big)
+        g, _, per_sm = pac_cuda.launch_plan(n_p, k_p + crc_p[0], L, 8)
+        g32, _, per32 = pac_cuda.launch_plan(n_p, k_p + crc_p[0], L)
+        r, st, ld = regs[f"pac_deep_kernel<{'u8' if L <= 128 else 'u16'} trace, f64>"]
+        b_ms, b_by = bound(*pac_work(p_mask, L, B, elem=8), FP64_OPS_PER_S)
+        line = (f"  K3 over warps PAC(128,64)+CRC-16 L={L} B={B} 2.5 dB: float64 {ms64:.4f} ms, float32 "
+                f"{ms32:.4f} ms ({ms64 / ms32:.2f}x); bound {b_ms:.6f} ms ({b_by}); {r} registers, spills {st} B "
+                f"stores / {ld} B loads; {pac_cuda.frame_bytes(n_p, k_p + crc_p[0], L, g, 8)} B shared a frame at "
+                f"G={g}, {per_sm} frames an SM (float32 G={g32}, {per32})")
+        if L == 64:
+            plain_ms = cuda_time_ms(lambda: pac_list_decode_batch(x64, p_mask, PAC_GEN, L, crc_len=crc_p[0],
+                                                                  crc_poly=crc_p[1], dtype=f64), reps=2, warmup=1)
+            entries["pac"] = (ms64, plain_ms, b_ms, b_by)
+            line += f"; plain float64 {plain_ms:.4f} ms"
+        print(line, flush=True)
+        timed_batch_check(lambda x: pac_list_decode_cuda(x, p_mask, PAC_GEN, L, *crc_p), x64,
+                          ("extracted", "crc_pass"), f"(e) K3 float64 L={L}", big[0])
+    for entry, (r, st, ld) in sorted(regs.items()):
+        print(f"  ptxas {entry}: {r} registers, {st} B spill stores, {ld} B spill loads")
+
+    # ---- (f) the float32 kernels' SASS against the parent's ----
+    if "out" in SASS_OUT:
+        rows = [ln.strip() for ln in SASS_OUT["out"].splitlines() if ln.startswith("  ") and ": " in ln]
+        moved = [ln for ln in rows if "SASS lines differ" in ln]
+        deep = [ln for ln in rows if "only in this checkout" in ln and "_deep_kernel<" in ln and "double" in ln]
+        print(f"(f) SASS against the parent: {len(moved)} kernels moved; the {len(deep)} float64 over-warps "
+              f"kernels only in this checkout")
+        check(not moved, f"kernels whose SASS moved: {moved[:6]}")
+        check(len(deep) == 8, f"float64 over-warps kernels only in this checkout: {deep}")
+    else:
+        print("(f) SASS: no parent checkout in smoke_checkout/parent here; `tools/compare_sass.py --repo <parent>` "
+              "holds the float32 kernels to the parent's in a call of their own (PERF.md, §6)")
+    print(f"phase float64_over_warps: {time.perf_counter() - t_phase:.1f} s")
+
+    launches = {"scl": deep_calls[0], "pac": deep_calls[1]}
+    names = {"scl": ("scl_decode (float64, over warps: M 33-1024)", "polar_code_tpu_torch/csrc/scl_decode.cu",
+                     "polar_code_tpu/ops/scl_pallas.py:293"),
+             "pac": ("pac_decode (float64, over warps: L 33-1024)", "polar_code_tpu_torch/csrc/pac_decode.cu",
+                     "polar_code_tpu/legacy/pac_pallas.py:59")}
+    errors = {"scl": k1_err, "pac": k3_err}
+    return [{"name": names[k][0], "route": "cuda", "source": names[k][1], "replaces": names[k][2],
+             "launches": launches[k], "max_abs_err": errors[k], "ms": entries[k][0], "plain_ms": entries[k][1],
+             "bound_ms": entries[k][2], "bound_by": entries[k][3], "library_ms": None}
+            for k in ("scl", "pac")]
+
+
+def start_builds():
+    """Phase 2's builds, one `nvcc` for each source in `csrc/`, started
+    together in threads before torch is imported (`_build` needs no torch),
+    so that they run beside phase 1's imports and queries: (pool, {source:
+    future of `_build.build`}).  Where no `nvcc` is found a future holds
+    the error, which phase 2 raises."""
+
+    from polar_code_tpu_torch import _build
+
+    sources = sorted(path.name for path in _build.CSRC.glob("*.cu"))
+    pool = ThreadPoolExecutor(max_workers=len(sources))
+    return pool, {source: pool.submit(_build.build, source) for source in sources}
+
+
 def main():
+    sys.path.insert(0, str(REPO))
+    build_pool, build_futures = start_builds()
     import torch
 
     if not torch.cuda.is_available():
+        build_pool.shutdown(wait=True, cancel_futures=True)
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(REPO))
     from polar_code_tpu_torch import _build
     from polar_code_tpu_torch.channel import noise_var_coded, noise_var_uncoded
     from polar_code_tpu_torch.eval import run_ber_sweep, run_fer_sweep
@@ -4618,10 +4993,10 @@ def main():
     print(f"nvidia-smi: {smi}")
     phase_done("1 device")
 
-    # ---- 2. build: one nvcc a source, all started together ----
+    # ---- 2. build: one nvcc a source, all started together before phase 1 ----
     sources = {"scl": scl_cuda.SOURCE, "nms": nms_cuda.SOURCE, "pac": pac_cuda.SOURCE}
-    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
-        builds = dict(zip(sources, pool.map(_build.build, sources.values())))
+    builds = {name: build_futures[source].result() for name, source in sources.items()}
+    build_pool.shutdown()
     for built in builds.values():
         print(f"build: {built.path.name} in {built.seconds:.2f} s"
               + (" (reused an identical earlier build)" if built.cached else ""))
@@ -5304,22 +5679,33 @@ def main():
             sass.wait()
 
     # ---- 17. list sizes past 8192 ----
-    list16_entries, fer16 = list_sizes_16k(dev, smi)
-    phase_done("17 list_sizes_16k")
+    f64_pool, collect_f64 = start_f64_deep_plain(dev)  # phase 21's plain calls at N=8192, beside phase 17
+    f64_long = {}
+    try:
+        list16_entries, fer16 = list_sizes_16k(dev, smi, beside=lambda: f64_long.update(collect_f64()))
+        phase_done("17 list_sizes_16k")
+    finally:
+        f64_pool.shutdown(wait=True, cancel_futures=True)
 
     # ---- 18. list sizes past 16384 ----
-    list32_entries, fer32 = list_sizes_32k(dev, smi, fer16)
+    list32_entries, fer32 = list_sizes_32k(dev, smi, fer16, {"scl": list16_entries[0]["ms"],
+                                                            "pac": list16_entries[1]["ms"]})
     phase_done("18 list_sizes_32k")
 
     # ---- 19. list sizes past 32768 ----
-    list64_entries = list_sizes_64k(dev, smi, fer32)
+    list64_entries = list_sizes_64k(dev, smi, fer32, {"scl": list32_entries[0]["ms"],
+                                                     "pac": list32_entries[1]["ms"]})
     phase_done("19 list_sizes_64k")
 
     # ---- 20. float64 on the card ----
     f64_entries = float64_on_card(dev, smi)
     phase_done("20 float64_on_card")
 
-    # ---- 21. result lines ----
+    # ---- 21. float64 over warps ----
+    f64_deep_entries = float64_over_warps(dev, smi, f64_long)
+    phase_done("21 float64_over_warps")
+
+    # ---- 22. result lines ----
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by = nms_times[f"{IRA[0]} two-min 2.5 dB B=4096"]
     print(json.dumps({"kernels": [{
         "name": "scl_decode",
@@ -5359,7 +5745,7 @@ def main():
         "bound_by": pac_bound_by,
         "library_ms": None,
     }] + wide_entries + deep_entries + cluster_entries + long_entries + list16_entries
-                      + list32_entries + list64_entries + f64_entries}))
+                      + list32_entries + list64_entries + f64_entries + f64_deep_entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind, "count": count}}))
     return 0

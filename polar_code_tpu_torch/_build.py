@@ -29,11 +29,14 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 
 # sm_90a keeps Hopper-only instructions available; no fast math and no FMA
-# contraction, so the kernels round exactly as the plain PyTorch versions do
+# contraction, so the kernels round exactly as the plain PyTorch versions do.
+# ptxas assembles a source's kernels in parallel on every core
+# (`--split-compile=0`): the same SASS as one thread, in about a third of
+# ptxas's time (`PERF.md` §4)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-Xptxas", "-v",
+    "-Xptxas", "-v", "-Xptxas", "--split-compile=0",
     "-shared", "-Xcompiler", "-fPIC",
 )
 

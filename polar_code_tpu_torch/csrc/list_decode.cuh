@@ -236,10 +236,12 @@ __host__ __device__ __forceinline__ int sort_keys(int M) {
 // Byte offsets of a frame's regions in its block's dynamic shared memory,
 // each region 16-byte aligned: the σ table [M][row] (a row of 2n−2 fields
 // rounded to 4 bytes, so that paths m and m+1 fall in other banks), the
-// sort keys u64 [sort_keys(M)] (at the end of the decode, the final
-// metrics float [M]), the LLR rows float [M][(N>>G)−1], `words` 32-bit
-// values a path (the published leaf, syndrome and, in PAC, shift
-// register), the partial-sum rows u8 [M][(N>>G)−1] and the selected rank.
+// sort keys [sort_keys(M)] (at the end of the decode, the final metrics
+// [M]), the LLR rows [M][(N>>G)−1], `words` published values a path (the
+// leaf, then the 32-bit syndrome and, in PAC, shift register), the
+// partial-sum rows u8 [M][(N>>G)−1] and the selected rank.  `elem` is the
+// LLRs' bytes: 4 (float32: u64 keys, float rows and leaf) or 8 (float64:
+// the pair keys, 12 bytes each, `block_sort_keys`; double rows and leaf).
 // The trace indices live in global scratch.  `ops/scl_cuda.py::
 // deep_frame_bytes` is the same reckoning.
 struct DeepLayout {
@@ -248,16 +250,16 @@ struct DeepLayout {
 };
 
 __host__ __device__ __forceinline__ DeepLayout deep_layout(int N, int n, int M, int G,
-                                                           int entry_bytes, int words) {
+                                                           int entry_bytes, int words, int elem = 4) {
   DeepLayout d;
   const int ss = (N >> G) - 1;
   d.sig_row = round4((2 * n - 2) * entry_bytes);
   if (d.sig_row < 4) d.sig_row = 4;
   d.sig = 0;
   d.keys = d.sig + round16(M * d.sig_row);
-  d.ls = d.keys + 8 * sort_keys(M);
-  d.words = d.ls + round16(4 * M * ss);
-  d.bs = d.words + words * round16(4 * M);
+  d.ls = d.keys + (elem == 8 ? 12 : 8) * sort_keys(M);
+  d.words = d.ls + round16(elem * M * ss);
+  d.bs = d.words + (elem == 8 ? round16(8 * M) + (words - 1) * round16(4 * M) : words * round16(4 * M));
   d.sel = d.bs + round16(M * ss);
   d.total = d.sel + 16;
   return d;
@@ -322,10 +324,10 @@ struct DeepSigma {
 };
 
 // path_fg_pass over the threads of a block: r = via[m·vrow] when `via` (the
-// σ column of the parent level), else m.
-template <typename T>
-__device__ __forceinline__ void block_fg_pass(float* dst, const uint8_t* dbits, int dstride,
-                                              const float* src, int sstride, const T* via, int vrow,
+// σ column of the parent level), else m; F the LLRs' float type.
+template <typename T, typename F>
+__device__ __forceinline__ void block_fg_pass(F* dst, const uint8_t* dbits, int dstride,
+                                              const F* src, int sstride, const T* via, int vrow,
                                               bool is_g, int lh, int M, int tid, int nt) {
   const int half = 1 << lh;
   const int total = M * half;
@@ -333,8 +335,8 @@ __device__ __forceinline__ void block_fg_pass(float* dst, const uint8_t* dbits, 
     const int m = t >> lh;
     const int e = t & (half - 1);
     const int r = via ? (int)via[m * vrow] : m;
-    const float* row = src + r * sstride;
-    const float a = row[e], b = row[e + half];
+    const F* row = src + r * sstride;
+    const F a = row[e], b = row[e + half];
     const int o = m * dstride + e;
     dst[o] = is_g ? g_update(a, b, dbits[o]) : f_minsum(a, b);
   }
@@ -407,6 +409,8 @@ struct DKey {
 
 __device__ __forceinline__ bool operator<(DKey a, DKey b) { return a.m < b.m || (a.m == b.m && a.i < b.i); }
 
+__device__ __forceinline__ bool operator>(DKey a, DKey b) { return b < a; }
+
 __device__ __forceinline__ DKey cand_key(double c, int index) { return {c, (unsigned)index}; }
 
 __device__ __forceinline__ double key_metric(DKey key) { return key.m; }
@@ -475,8 +479,60 @@ __device__ __forceinline__ Key warp_sort_keys64(Key k0, Key k1, int lane) {
   return k0;
 }
 
+// The candidates' key over warps: the 64-bit key of a float32 metric, the
+// pair (metric, index) of a float64 one.
+template <typename F>
+using KeyOf = std::conditional_t<sizeof(F) == 8, DKey, unsigned long long>;
+
+// block_sort_keys' buffer `keys` of P keys: 64-bit keys, or the pair keys
+// as their metrics double[P] and beside them their indices uint32[P], 12
+// bytes a key.  A thread's two keys go in one 16-byte store (the metrics)
+// and one 8-byte store (the indices), each a run of consecutive words
+// across the warp, so no two threads of a phase meet in a bank, where two
+// 16-byte keys side by side (32 bytes a thread) would take two ways.
+__device__ __forceinline__ void store_key_pair(void* keys, int P, int at, unsigned long long k0,
+                                               unsigned long long k1) {
+  *reinterpret_cast<ulonglong2*>(static_cast<unsigned long long*>(keys) + at) = make_ulonglong2(k0, k1);
+}
+
+__device__ __forceinline__ void store_key_pair(void* keys, int P, int at, DKey k0, DKey k1) {
+  double* m = static_cast<double*>(keys);
+  *reinterpret_cast<double2*>(m + at) = make_double2(k0.m, k1.m);
+  *reinterpret_cast<uint2*>(reinterpret_cast<unsigned*>(m + P) + at) = make_uint2(k0.i, k1.i);
+}
+
+__device__ __forceinline__ void load_key_pair(const void* keys, int P, int at, unsigned long long& k0,
+                                              unsigned long long& k1) {
+  const ulonglong2 o = *reinterpret_cast<const ulonglong2*>(static_cast<const unsigned long long*>(keys) + at);
+  k0 = o.x;
+  k1 = o.y;
+}
+
+__device__ __forceinline__ void load_key_pair(const void* keys, int P, int at, DKey& k0, DKey& k1) {
+  const double* m = static_cast<const double*>(keys);
+  const double2 om = *reinterpret_cast<const double2*>(m + at);
+  const uint2 oi = *reinterpret_cast<const uint2*>(reinterpret_cast<const unsigned*>(m + P) + at);
+  k0 = {om.x, oi.x};
+  k1 = {om.y, oi.y};
+}
+
+// key i of a sorted buffer of P keys
+template <typename Key>
+__device__ __forceinline__ Key key_at(const void* keys, int P, int i);
+
+template <>
+__device__ __forceinline__ unsigned long long key_at<unsigned long long>(const void* keys, int P, int i) {
+  return static_cast<const unsigned long long*>(keys)[i];
+}
+
+template <>
+__device__ __forceinline__ DKey key_at<DKey>(const void* keys, int P, int i) {
+  const double* m = static_cast<const double*>(keys);
+  return {m[i], reinterpret_cast<const unsigned*>(m + P)[i]};
+}
+
 // A bitonic network over the 2M keys of a fork, padded to P = sort_keys(M)
-// with all-ones keys, ascending.  The block has P/2 threads (`deep_threads`)
+// with pad keys (`pad_key`), ascending.  The block has P/2 threads (`deep_threads`)
 // and thread t holds keys 2t and 2t+1 in registers: its two candidates, or
 // two pads where t >= M.  A stage of distance j compare-exchanges keys i
 // and i^j, the smaller to i when i's bit of the merge size is clear (else
@@ -485,30 +541,32 @@ __device__ __forceinline__ Key warp_sort_keys64(Key k0, Key k1, int lane) {
 // above (15 of the 66 stages at P = 2048; 1 of 28 at P = 128).  Only ranks
 // below M <= P/2 are read, so after the last merge's first stage, which
 // leaves the P/2 smallest keys in the lower half, the upper half's threads
-// stop, and only the lower half is stored to keys[].  Every thread of the
-// block calls it; the caller reads keys[] behind a barrier.
-__device__ __forceinline__ void block_sort_keys(unsigned long long* keys, unsigned long long k0,
-                                                unsigned long long k1, int P, int tid) {
+// stop, and only the lower half is stored to keys[].  Key: a 64-bit key
+// (float32), or a float64 pair key (`DKey`: three shuffles a key, and the
+// buffer of `store_key_pair`).  Every thread of the block calls it; the
+// caller reads keys[] (`key_at`) behind a barrier.
+template <typename Key>
+__device__ __forceinline__ void block_sort_keys(void* keys, Key k0, Key k1, int P, int tid) {
   const int base = 2 * tid;
   bool on = true;
-  auto vec = [&](int at) { return reinterpret_cast<ulonglong2*>(keys + at); };
   // keep the smaller of a pair whose partner is across bit j >= 2: key i
   // below it in an ascending run (i's bit of the merge size clear), or
   // above it in a descending one; both keys of the thread alike
-  auto exchange = [](unsigned long long& k, unsigned long long o, bool keep_min) {
+  auto exchange = [](Key& k, Key o, bool keep_min) {
     k = (o < k) == keep_min ? o : k;
   };
   for (int size = 2; size <= P; size <<= 1) {
     const bool up = (base & size) == 0;
     for (int j = size >> 1; j >= 64; j >>= 1) {  // across warps
       __syncthreads();  // the previous exchange's reads are done
-      if (on) *vec(base) = make_ulonglong2(k0, k1);
+      if (on) store_key_pair(keys, P, base, k0, k1);
       __syncthreads();
       if (on) {
         const bool keep_min = ((base & j) == 0) == up;
-        const ulonglong2 o = *vec(base ^ j);
-        exchange(k0, o.x, keep_min);
-        exchange(k1, o.y, keep_min);
+        Key o0, o1;
+        load_key_pair(keys, P, base ^ j, o0, o1);
+        exchange(k0, o0, keep_min);
+        exchange(k1, o1, keep_min);
       }
       if (size == P) on = on && base < P / 2;
     }
@@ -517,18 +575,18 @@ __device__ __forceinline__ void block_sort_keys(unsigned long long* keys, unsign
       for (int j = 32; j >= 2; j >>= 1) {  // within the warp
         if (j < size) {
           const bool keep_min = ((base & j) == 0) == up;
-          exchange(k0, __shfl_xor_sync(FULL_MASK, k0, j / 2), keep_min);
-          exchange(k1, __shfl_xor_sync(FULL_MASK, k1, j / 2), keep_min);
+          exchange(k0, shfl_xor_key(k0, j / 2), keep_min);
+          exchange(k1, shfl_xor_key(k1, j / 2), keep_min);
         }
       }
       const bool swap = (k0 > k1) == up;  // j = 1, in registers
-      const unsigned long long lo = swap ? k1 : k0;
+      const Key lo = swap ? k1 : k0;
       k1 = swap ? k0 : k1;
       k0 = lo;
     }
   }
   __syncthreads();  // the last exchange's reads are done
-  if (on) *vec(base) = make_ulonglong2(k0, k1);
+  if (on) store_key_pair(keys, P, base, k0, k1);
 }
 
 // ---------------------------------------------------------------------------
@@ -1125,13 +1183,15 @@ int launch_cluster_kernel(void (*kernel)(Params...), int B, int M, int block_byt
 // The final stable (metric, slot) rank of path m among the M metrics
 // metric[j], and the least rank of the paths with `ok` set (M when none has
 // it), by a min-reduction in *sel.  Every thread of the block calls it;
-// *sel must hold M, and metric[j] path j's metric, behind a barrier.
-__device__ __forceinline__ int final_rank(const float* metric, int M, int m, float pm, bool ok,
+// *sel must hold M, and metric[j] path j's metric, behind a barrier.  F:
+// the metrics' float type.
+template <typename F>
+__device__ __forceinline__ int final_rank(const F* metric, int M, int m, F pm, bool ok,
                                           int* sel, int* least) {
   int rank = 0;
   if (m < M)
     for (int j = 0; j < M; ++j) {
-      const float pj = metric[j];
+      const F pj = metric[j];
       rank += (pj < pm) || (pj == pm && j < m);
     }
   if (ok) atomicMin(sel, rank);

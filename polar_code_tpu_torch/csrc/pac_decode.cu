@@ -165,8 +165,12 @@
 // (`big<F>` in `list_decode.cuh`); the float32 instantiations compile to
 // the SASS they had (`tools/compare_sass.py`).  A frame's LLR rows take
 // twice the bytes, and the host plans G for them (`launch_plan(..., 8)`).
-// Its launch bounds ask nothing of the registers.  Over warps, on a cluster
-// and past N = 8192 the kernel is float32 only (the wrapper raises).
+// Its launch bounds ask nothing of the registers.  Over warps
+// pac_deep_kernel<T, LIST, double> (L 33..1024 at N <= 8192) is K1's
+// over-warps float64 body's counterpart: the pair keys through
+// `block_sort_keys<DKey>`, a double leaf published, double metrics ranked.
+// On a cluster and past N = 8192 the kernel is float32 only (the wrapper
+// raises).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -525,46 +529,49 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, 0)
 // two candidates, good m and bad L + m; σ is a table in shared memory
 // (`DeepSigma`), and a fork reads the parent's candidates, leaf, syndrome
 // and shift register from shared memory behind a block barrier.  T is the
-// width of a trace entry and a σ field.  It computes what
-// pac_decode_kernel computes.  The body of pac_deep_kernel (σ rows of
+// width of a trace entry and a σ field, F the LLRs' float type (float, or
+// double at N <= 8192: the sort then runs on the pair keys).  It computes
+// what pac_decode_kernel computes.  The body of pac_deep_kernel (σ rows of
 // DEEP_SIGMA_WORDS words at most: n <= 13 at 16-bit fields) and of
 // pac_deep_wide_kernel (WORDS = DEEP_WIDE_SIGMA_WORDS: n 14..16).
-template <typename T, bool LIST, int WORDS>
+template <typename T, bool LIST, int WORDS, typename F>
 __device__ __forceinline__ void pac_deep_decode(
-    const float* llr, const uint32_t* hcols, const int* sched, const int* phase_of,
-    float* glob_llr, uint8_t* glob_bits,
+    const F* llr, const uint32_t* hcols, const int* sched, const int* phase_of,
+    F* glob_llr, uint8_t* glob_bits,
     T* trace_idx,  // [B, Kp, L]: the trace, in global scratch
     int8_t* out_bits, uint8_t* out_pass, const int* out_pos, const int* u_pos, int8_t* list_v,
-    int8_t* list_bits, float* list_metrics, int* list_best, int N, int n, int Kp, int L, int G,
+    int8_t* list_bits, F* list_metrics, int* list_best, int N, int n, int Kp, int L, int G,
     unsigned mem_mask, unsigned tap_mask, int use_crc) {
+  using Key = KeyOf<F>;
   extern __shared__ __align__(16) unsigned char smem[];
   const long long frame = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
   const bool act = tid < L;  // thread m < L: slot m
 
-  const DeepLayout lay = deep_layout(N, n, L, G, sizeof(T), 3);
+  const DeepLayout lay = deep_layout(N, n, L, G, sizeof(T), 3, sizeof(F));
   const int SS = (N >> G) - 1;
   const int SG = N - (N >> G);
   DeepSigma<T, WORDS> sig{reinterpret_cast<T*>(smem + lay.sig), lay.sig_row / (int)sizeof(T),
                           lay.sig_row / 4};
-  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem + lay.keys);
-  float* Ls = reinterpret_cast<float*>(smem + lay.ls);
-  float* leafS = reinterpret_cast<float*>(smem + lay.words);
-  uint32_t* synS = reinterpret_cast<uint32_t*>(smem + lay.words + round16(4 * L));
-  unsigned* regS = reinterpret_cast<unsigned*>(smem + lay.words + 2 * round16(4 * L));
+  unsigned char* keys = smem + lay.keys;
+  F* Ls = reinterpret_cast<F*>(smem + lay.ls);
+  F* leafS = reinterpret_cast<F*>(smem + lay.words);
+  uint32_t* synS = reinterpret_cast<uint32_t*>(smem + lay.words + round16((int)sizeof(F) * L));
+  unsigned* regS = reinterpret_cast<unsigned*>(
+      smem + lay.words + (sizeof(F) == 4 ? 2 * round16(4 * L) : round16(8 * L) + round16(4 * L)));
   uint8_t* Bs = smem + lay.bs;
   T* TI = trace_idx + frame * Kp * L;
   int* selS = reinterpret_cast<int*>(smem + lay.sel);
-  float* Lg = glob_llr + frame * L * SG;  // unused when G == 0
+  F* Lg = glob_llr + frame * L * SG;  // unused when G == 0
   uint8_t* Bg = glob_bits + frame * L * SG;
-  const float* ch = llr + frame * N;
+  const F* ch = llr + frame * N;
   const int rev_shift = 32 - n;
   auto so = [&](int l) { return (N >> G) - (N >> (l - 1)); };
   auto go = [&](int l) { return N - (N >> (l - 1)); };
 
   if (act) sig.init(tid, tid, 2 * n - 2);
   __syncthreads();
-  float pm = (tid == 0) ? 0.f : PAC_BIG;  // thread m < L: metric of slot m
+  F pm = (tid == 0) ? F(0) : big<F>();  // thread m < L: metric of slot m
   unsigned reg = 0;                        // thread m < L: shift register of slot m
   uint32_t syn = 0;                        // thread m < L: CRC syndrome of slot m
   int info_i = 0;
@@ -601,34 +608,34 @@ __device__ __forceinline__ void pac_deep_decode(
     }
     // the leaf (level n): thread m computes it from its parent row
     const bool g_leaf = gl == n;
-    float leaf = 0.f;
+    F leaf = 0;
     if (act) {
-      float a, b;
+      F a, b;
       if (n == 1) {
         a = ch[0];
         b = ch[1];
       } else {
         const int r = (g_leaf && (word >> 11 & 1)) ? sig.get(tid, n - 2) : tid;
-        const float* row = n - 1 > G ? Ls + so(n - 1) + r * SS : Lg + go(n - 1) + r * SG;
+        const F* row = n - 1 > G ? Ls + so(n - 1) + r * SS : Lg + go(n - 1) + r * SG;
         a = row[0];
         b = row[1];
       }
       leaf = g_leaf ? g_update(a, b, Bs[tid * SS + so(n)]) : f_minsum(a, b);
     }
-    const int hard = leaf < 0.f;
+    const int hard = leaf < F(0);
     const int base_bit = __popc(reg & tap_mask) & 1;  // edge bit for v = 0
 
     // ---- leaf decision: extend every path, or fork and keep the best L ----
     int edge = 0;  // thread m < L: the edge bit the partial sums of slot m take
     if (is_frozen) {
       if (act) {
-        if (pm < PAC_BIG && base_bit != hard) pm = pm + fabsf(leaf);
+        if (pm < big<F>() && base_bit != hard) pm = pm + abs_of(leaf);
         reg = (reg << 1) & mem_mask;
         edge = base_bit;
       }
     } else {
-      const float cg = pm;                                           // index m
-      const float cb = (pm < PAC_BIG) ? pm + fabsf(leaf) : PAC_BIG;  // index L + m
+      const F cg = pm;                                            // index m
+      const F cb = (pm < big<F>()) ? pm + abs_of(leaf) : big<F>();  // index L + m
       if (act) {
         leafS[tid] = leaf;
         synS[tid] = syn;
@@ -636,17 +643,17 @@ __device__ __forceinline__ void pac_deep_decode(
       }
       // thread m's keys: good m and bad m (pads from L on), whose indices m
       // and L + m keep the plain version's layout [good×L, bad×L]
-      block_sort_keys(keys, act ? cand_key(cg, tid) : ~0ull, act ? cand_key(cb, L + tid) : ~0ull,
+      block_sort_keys(keys, act ? cand_key(cg, tid) : pad_key(cg), act ? cand_key(cb, L + tid) : pad_key(cg),
                       sort_keys(L), tid);
       __syncthreads();
       // slot m: the candidate of rank m
       int parent = 0;
       if (act) {
-        const unsigned long long key = keys[tid];
+        const Key key = key_at<Key>(keys, sort_keys(L), tid);
         const int w = key_index(key);
         const int is_bad = w >= L;
         parent = is_bad ? w - L : w;
-        const int hp = leafS[parent] < 0.f;
+        const int hp = leafS[parent] < F(0);
         const unsigned rp = regS[parent];
         const int bp = __popc(rp & tap_mask) & 1;
         const uint32_t sp = synS[parent];
@@ -692,12 +699,12 @@ __device__ __forceinline__ void pac_deep_decode(
   }
 
   // ---- final stable sort of the list, CRC selection, backtrack ----
-  float* metric = reinterpret_cast<float*>(keys);
+  F* metric = reinterpret_cast<F*>(keys);
   if (act) metric[tid] = pm;
   if (tid == 0) *selS = L;
   __syncthreads();
   int least;
-  const bool ok = use_crc && act && syn == 0u && pm < PAC_BIG;
+  const bool ok = use_crc && act && syn == 0u && pm < big<F>();
   const int frank = final_rank(metric, L, tid, pm, ok, selS, &least);
   const int sel_rank = least < L ? least : 0;
   if (LIST) {
@@ -714,7 +721,7 @@ __device__ __forceinline__ void pac_deep_decode(
         brow[out_pos[i]] = (int8_t)(w & 1);
         slot = w >> 1;
       }
-      list_metrics[frame * L + frank] = pm < PAC_BIG ? pm : __int_as_float(0x7f800000);
+      list_metrics[frame * L + frank] = pm < big<F>() ? pm : inf_of(pm);
     }
     if (tid == 0) list_best[frame] = sel_rank;
     __syncthreads();
@@ -733,28 +740,30 @@ __device__ __forceinline__ void pac_deep_decode(
   for (int j = tid; j < Kp; j += nt) out_bits[frame * Kp + j] = (int8_t)TI[phase_of[j] * L];
 }
 
-#define PAC_DEEP_PARAMS(T)                                                                       \
-  const float* __restrict__ llr, const uint32_t* __restrict__ hcols,                             \
-      const int* __restrict__ sched, const int* __restrict__ phase_of, float* glob_llr,          \
+#define PAC_DEEP_PARAMS(T, F)                                                                    \
+  const F* __restrict__ llr, const uint32_t* __restrict__ hcols,                                 \
+      const int* __restrict__ sched, const int* __restrict__ phase_of, F* glob_llr,              \
       uint8_t* glob_bits, T* trace_idx, int8_t* __restrict__ out_bits,                           \
       uint8_t* __restrict__ out_pass, const int* __restrict__ out_pos,                           \
       const int* __restrict__ u_pos, int8_t* __restrict__ list_v, int8_t* __restrict__ list_bits, \
-      float* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int Kp, int L, \
+      F* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int Kp, int L,     \
       int G, unsigned mem_mask, unsigned tap_mask, int use_crc
 #define PAC_DEEP_ARGS                                                                            \
   llr, hcols, sched, phase_of, glob_llr, glob_bits, trace_idx, out_bits, out_pass, out_pos,      \
       u_pos, list_v, list_bits, list_metrics, list_best, N, n, Kp, L, G, mem_mask, tap_mask,     \
       use_crc
 
-template <typename T, bool LIST>
-__global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_kernel(PAC_DEEP_PARAMS(T)) {
-  pac_deep_decode<T, LIST, DEEP_SIGMA_WORDS>(PAC_DEEP_ARGS);
+// F: float, or double (the float64 instantiations, N <= 8192)
+template <typename T, bool LIST, typename F>
+__global__ void __launch_bounds__(DEEP_MAX_M)
+    pac_deep_kernel(PAC_DEEP_PARAMS(T, F)) {
+  pac_deep_decode<T, LIST, DEEP_SIGMA_WORDS, F>(PAC_DEEP_ARGS);
 }
 
-// 16-bit entries (L 129..1024) at N 16384..65536: σ rows of up to 15 words
+// 16-bit entries (L 129..1024) at N 16384..65536: σ rows of up to 15 words (float32)
 template <bool LIST>
-__global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_wide_kernel(PAC_DEEP_PARAMS(uint16_t)) {
-  pac_deep_decode<uint16_t, LIST, DEEP_WIDE_SIGMA_WORDS>(PAC_DEEP_ARGS);
+__global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_wide_kernel(PAC_DEEP_PARAMS(uint16_t, float)) {
+  pac_deep_decode<uint16_t, LIST, DEEP_WIDE_SIGMA_WORDS, float>(PAC_DEEP_ARGS);
 }
 
 // ---------------------------------------------------------------------------
@@ -1213,24 +1222,24 @@ int launch(const ArgsOf<F>& a, void* trace_idx, cudaStream_t stream) {
   return a.list_v ? launch_as<LM, true, false>(a, ti, stream) : launch_as<LM, false, false>(a, ti, stream);
 }
 
-// the over-warps kernel: pac_deep_kernel<T>, or WIDE (16-bit entries past
-// n = 13) pac_deep_wide_kernel
-template <typename T, bool LIST, bool WIDE>
+// the over-warps kernel: pac_deep_kernel<T, LIST, F>, or WIDE (16-bit
+// entries past n = 13, float32) pac_deep_wide_kernel
+template <typename T, bool LIST, bool WIDE, typename F>
 auto deep_kernel() {
   if constexpr (WIDE)
     return pac_deep_wide_kernel<LIST>;
   else
-    return pac_deep_kernel<T, LIST>;
+    return pac_deep_kernel<T, LIST, F>;
 }
 
-template <typename T, bool LIST, bool WIDE>
-int launch_deep_as(const Args& a, T* trace_idx, cudaStream_t stream) {
-  const DeepLayout lay = deep_layout(a.N, a.n, a.L, a.G, sizeof(T), 3);
+template <typename T, bool LIST, bool WIDE, typename F>
+int launch_deep_as(const ArgsOf<F>& a, T* trace_idx, cudaStream_t stream) {
+  const DeepLayout lay = deep_layout(a.N, a.n, a.L, a.G, sizeof(T), 3, sizeof(F));
   if (!trace_idx || a.n > MAX_LEVELS ||
       lay.sig_row > 4 * (WIDE ? DEEP_WIDE_SIGMA_WORDS : DEEP_SIGMA_WORDS) || lay.total != a.frame_bytes ||
       a.frames_per_block != 1)
     return (int)cudaErrorInvalidValue;
-  const auto kernel = deep_kernel<T, LIST, WIDE>();
+  const auto kernel = deep_kernel<T, LIST, WIDE, F>();
   cudaError_t err = set_smem(kernel, lay.total);
   if (err != cudaSuccess) return (int)err;
   kernel<<<a.B, deep_threads(a.L), lay.total, stream>>>(
@@ -1240,17 +1249,36 @@ int launch_deep_as(const Args& a, T* trace_idx, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// byte trace entries while 2L <= 256, else 16-bit ones (wide past n = 13)
-int launch_deep(const Args& a, void* trace_idx, cudaStream_t stream) {
+// byte trace entries while 2L <= 256, else 16-bit ones (wide past n = 13,
+// float32 only: the float64 entry points take n <= 13)
+template <typename F>
+int launch_deep(const ArgsOf<F>& a, void* trace_idx, cudaStream_t stream) {
   if (a.L <= 128)
     return a.list_v ? launch_deep_as<uint8_t, true, false>(a, static_cast<uint8_t*>(trace_idx), stream)
                     : launch_deep_as<uint8_t, false, false>(a, static_cast<uint8_t*>(trace_idx), stream);
   uint16_t* ti = static_cast<uint16_t*>(trace_idx);
-  if (deep_wide<uint16_t>(a.n))
-    return a.list_v ? launch_deep_as<uint16_t, true, true>(a, ti, stream)
-                    : launch_deep_as<uint16_t, false, true>(a, ti, stream);
+  if constexpr (std::is_same<F, float>::value)
+    if (deep_wide<uint16_t>(a.n))
+      return a.list_v ? launch_deep_as<uint16_t, true, true>(a, ti, stream)
+                      : launch_deep_as<uint16_t, false, true>(a, ti, stream);
   return a.list_v ? launch_deep_as<uint16_t, true, false>(a, ti, stream)
                   : launch_deep_as<uint16_t, false, false>(a, ti, stream);
+}
+
+// the plan of launch_deep's instantiation (best-only: the list one has the
+// same launch bounds)
+template <typename F>
+int plan_deep_of(int L, int n, int frame_bytes, int max_block_smem, int* frames_per_block, int* frames_per_sm) {
+  if (L > 128) {
+    if constexpr (std::is_same<F, float>::value)
+      if (deep_wide<uint16_t>(n))
+        return plan_deep(pac_deep_wide_kernel<false>, L, frame_bytes, max_block_smem, frames_per_block,
+                         frames_per_sm);
+    return plan_deep(pac_deep_kernel<uint16_t, false, F>, L, frame_bytes, max_block_smem, frames_per_block,
+                     frames_per_sm);
+  }
+  return plan_deep(pac_deep_kernel<uint8_t, false, F>, L, frame_bytes, max_block_smem, frames_per_block,
+                   frames_per_sm);
 }
 
 template <bool LIST, int PPT>
@@ -1380,12 +1408,13 @@ extern "C" int pac_decode_launch(const void* llr, const void* hcols, const void*
                                  int L, int G, unsigned mem_mask, unsigned tap_mask, int use_crc,
                                  int frame_bytes, int frames_per_block, int f64, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (f64) {  // float64: one path a lane, L 1..32 at n <= 13
-    if (L < 1 || L > 32) return (int)cudaErrorInvalidValue;
-    return launch_lane(args_of<double>(llr, hcols, sched, phase_of, glob_llr, glob_bits, out_bits, out_pass,
-                                       out_pos, u_pos, list_v, list_bits, list_metrics, list_best, B, N, n, Kp,
-                                       L, G, mem_mask, tap_mask, use_crc, frame_bytes, frames_per_block),
-                       trace_idx, st);
+  if (f64) {  // float64 at n <= 13: one path a lane, L 1..32; over warps, L 33..1024
+    if (L < 1 || L > DEEP_MAX_M || n > 13) return (int)cudaErrorInvalidValue;
+    const ArgsOf<double> d = args_of<double>(llr, hcols, sched, phase_of, glob_llr, glob_bits, out_bits, out_pass,
+                                             out_pos, u_pos, list_v, list_bits, list_metrics, list_best, B, N, n,
+                                             Kp, L, G, mem_mask, tap_mask, use_crc, frame_bytes, frames_per_block);
+    if (L >= DEEP_MIN_M) return launch_deep(d, trace_idx, st);
+    return launch_lane(d, trace_idx, st);
   }
   const Args a = args_of<float>(llr, hcols, sched, phase_of, glob_llr, glob_bits, out_bits, out_pass, out_pos,
                                 u_pos, list_v, list_bits, list_metrics, list_best, B, N, n, Kp, L, G, mem_mask,
@@ -1399,7 +1428,9 @@ extern "C" int pac_decode_launch(const void* llr, const void* hcols, const void*
 extern "C" int pac_launch_plan(int L, int n, int frame_bytes, int max_block_smem, int f64, int* frames_per_block,
                                int* frames_per_sm) {
   if (f64) {
-    if (L < 1 || L > 32 || n > 13) return (int)cudaErrorInvalidValue;
+    if (L < 1 || L > DEEP_MAX_M || n > 13) return (int)cudaErrorInvalidValue;
+    if (L >= DEEP_MIN_M)
+      return plan_deep_of<double>(L, n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
     return plan_lane<double>(L, n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
   }
   if (L < 1 || L > CLUSTER_MAX_M) return (int)cudaErrorInvalidValue;
@@ -1411,15 +1442,8 @@ extern "C" int pac_launch_plan(int L, int n, int frame_bytes, int max_block_smem
     }
     return plan_cluster(pac_cluster_kernel<false>, L, frame_bytes, max_block_smem, frames_per_sm);
   }
-  if (L > 128)
-    return deep_wide<uint16_t>(n)
-               ? plan_deep(pac_deep_wide_kernel<false>, L, frame_bytes, max_block_smem, frames_per_block,
-                           frames_per_sm)
-               : plan_deep(pac_deep_kernel<uint16_t, false>, L, frame_bytes, max_block_smem,
-                           frames_per_block, frames_per_sm);
   if (L >= DEEP_MIN_M)
-    return plan_deep(pac_deep_kernel<uint8_t, false>, L, frame_bytes, max_block_smem,
-                     frames_per_block, frames_per_sm);
+    return plan_deep_of<float>(L, n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
   return plan_lane<float>(L, n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
 }
 

@@ -243,8 +243,14 @@
 // (`tools/compare_sass.py`).  A double takes two registers: the float64
 // instantiations' launch bounds ask for F64_MIN_BLOCKS = 4 blocks an SM
 // (128 registers), and a frame's LLR rows twice the bytes, for which the
-// host plans G (`launch_plan(..., 8)`).  Over warps, on a cluster and past
-// N = 8192 the kernel is float32 only (the wrapper raises).
+// host plans G (`launch_plan(..., 8)`).  Over warps the body is templated
+// the same way: scl_deep_kernel<T, LIST, double> (M 33..1024 at N <= 8192)
+// sorts the 2M pair keys with the block-wide network (`block_sort_keys<DKey>`,
+// its cross-warp exchange through the metrics double[P] and the indices
+// uint32[P] side by side), publishes a double leaf, and ranks the final
+// double metrics; its frame (`deep_layout(..., 8)`) holds 12-byte keys and
+// 8-byte rows and leaf.  On a cluster and past N = 8192 the kernel is
+// float32 only (the wrapper raises).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -863,45 +869,47 @@ __global__ void __launch_bounds__(32 * MAX_FRAMES_PER_BLOCK, PATH_MIN_BLOCKS)
 // thread m < M holds path m's metric and syndrome and its two candidates 2m
 // and 2m+1; σ is a table in shared memory (`DeepSigma`), and each exchange
 // between paths is a shared-memory write, a block barrier and a read.  T is
-// the width of a trace entry and a σ field.  It computes what
-// scl_decode_kernel computes.  The body of scl_deep_kernel (σ rows of
+// the width of a trace entry and a σ field, F the LLRs' float type (float,
+// or double at N <= 8192: the sort then runs on the pair keys).  It
+// computes what scl_decode_kernel computes.  The body of scl_deep_kernel (σ rows of
 // DEEP_SIGMA_WORDS words at most: n <= 13 at 16-bit fields) and of
 // scl_deep_wide_kernel (WORDS = DEEP_WIDE_SIGMA_WORDS: n 14..16).
-template <typename T, bool LIST, int WORDS>
+template <typename T, bool LIST, int WORDS, typename F>
 __device__ __forceinline__ void scl_deep_decode(
-    const float* llr, const int8_t* forced, const uint32_t* hcols, const int* sched,
-    float* glob_llr, uint8_t* glob_bits, float* trace_llr,
+    const F* llr, const int8_t* forced, const uint32_t* hcols, const int* sched,
+    F* glob_llr, uint8_t* glob_bits, F* trace_llr,
     T* trace_idx,  // [B, K, M]: the trace indices, in global scratch
-    int8_t* out_bits, float* out_llrs, uint8_t* out_pass, int8_t* list_bits, float* list_llrs,
-    float* list_metrics, int* list_best, int N, int n, int K, int M, int G, int use_crc) {
+    int8_t* out_bits, F* out_llrs, uint8_t* out_pass, int8_t* list_bits, F* list_llrs,
+    F* list_metrics, int* list_best, int N, int n, int K, int M, int G, int use_crc) {
+  using Key = KeyOf<F>;
   extern __shared__ __align__(16) unsigned char smem[];
   const long long frame = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
   const bool act = tid < M;  // thread m < M: path m
 
-  const DeepLayout lay = deep_layout(N, n, M, G, sizeof(T), 2);
+  const DeepLayout lay = deep_layout(N, n, M, G, sizeof(T), 2, sizeof(F));
   const int SS = (N >> G) - 1;
   const int SG = N - (N >> G);
   DeepSigma<T, WORDS> sig{reinterpret_cast<T*>(smem + lay.sig), lay.sig_row / (int)sizeof(T),
                    lay.sig_row / 4};
-  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem + lay.keys);
-  float* Ls = reinterpret_cast<float*>(smem + lay.ls);
-  float* leafS = reinterpret_cast<float*>(smem + lay.words);
-  uint32_t* synS = reinterpret_cast<uint32_t*>(smem + lay.words + round16(4 * M));
+  unsigned char* keys = smem + lay.keys;
+  F* Ls = reinterpret_cast<F*>(smem + lay.ls);
+  F* leafS = reinterpret_cast<F*>(smem + lay.words);
+  uint32_t* synS = reinterpret_cast<uint32_t*>(smem + lay.words + round16((int)sizeof(F) * M));
   uint8_t* Bs = smem + lay.bs;
   T* TI = trace_idx + frame * K * M;
   int* selS = reinterpret_cast<int*>(smem + lay.sel);
-  float* Lg = glob_llr + frame * M * SG;  // unused when G == 0
+  F* Lg = glob_llr + frame * M * SG;  // unused when G == 0
   uint8_t* Bg = glob_bits + frame * M * SG;
-  float* TL = trace_llr + frame * K * M;
-  const float* ch = llr + frame * N;
+  F* TL = trace_llr + frame * K * M;
+  const F* ch = llr + frame * N;
   const int8_t* plan = forced ? forced + frame * K : nullptr;
   auto so = [&](int l) { return (N >> G) - (N >> (l - 1)); };
   auto go = [&](int l) { return N - (N >> (l - 1)); };
 
   if (act) sig.init(tid, tid, 2 * n - 2);
   __syncthreads();
-  float pm = (tid == 0) ? 0.f : SCL_BIG;  // thread m < M: metric of path m
+  F pm = (tid == 0) ? F(0) : big<F>();  // thread m < M: metric of path m
   uint32_t syn = 0;                        // thread m < M: CRC syndrome of path m
   int info_i = 0;
   int word = sched[0];
@@ -939,10 +947,10 @@ __device__ __forceinline__ void scl_deep_decode(
     }
     // the leaf (level n): thread m computes it from its parent row
     const bool g_leaf = gl == n;
-    float leaf = 0.f;
+    F leaf = 0;
     if (act) {
       const int r = (g_leaf && n > 1 && (word >> 11 & 1)) ? sig.get(tid, n - 2) : tid;
-      const float* row = n == 1 ? ch : n - 1 > G ? Ls + so(n - 1) + r * SS : Lg + go(n - 1) + r * SG;
+      const F* row = n == 1 ? ch : n - 1 > G ? Ls + so(n - 1) + r * SS : Lg + go(n - 1) + r * SG;
       leaf = g_leaf ? g_update(row[0], row[1], Bs[tid * SS + so(n)]) : f_minsum(row[0], row[1]);
     }
 
@@ -951,21 +959,21 @@ __device__ __forceinline__ void scl_deep_decode(
     if (is_frozen) {
       if (act) pm = pm + softplus(-leaf);
     } else {
-      float c0 = pm + softplus(-leaf), c1 = pm + softplus(leaf);
-      if (fb == 1) c0 = SCL_BIG;
-      if (fb == 0) c1 = SCL_BIG;
+      F c0 = pm + softplus(-leaf), c1 = pm + softplus(leaf);
+      if (fb == 1) c0 = big<F>();
+      if (fb == 0) c1 = big<F>();
       if (act) {
         leafS[tid] = leaf;
         synS[tid] = syn;
       }
       // thread m's keys: candidates 2m and 2m+1 (pads from M on)
-      block_sort_keys(keys, act ? cand_key(c0, 2 * tid) : ~0ull,
-                      act ? cand_key(c1, 2 * tid + 1) : ~0ull, sort_keys(M), tid);
+      block_sort_keys(keys, act ? cand_key(c0, 2 * tid) : pad_key(c0),
+                      act ? cand_key(c1, 2 * tid + 1) : pad_key(c0), sort_keys(M), tid);
       __syncthreads();
       // survivor m: the candidate of rank m, into trace slot m
       int parent = 0;
       if (act) {
-        const unsigned long long key = keys[tid];
+        const Key key = key_at<Key>(keys, sort_keys(M), tid);
         const int w = key_index(key);
         TI[info_i * M + tid] = (T)w;
         parent = w >> 1;
@@ -1009,12 +1017,12 @@ __device__ __forceinline__ void scl_deep_decode(
   }
 
   // ---- final stable sort of the list, CRC selection, backtrack ----
-  float* metric = reinterpret_cast<float*>(keys);
+  F* metric = reinterpret_cast<F*>(keys);
   if (act) metric[tid] = pm;
   if (tid == 0) *selS = M;
   __syncthreads();
   int least;
-  const bool ok = use_crc && act && syn == 0u && pm < SCL_BIG;
+  const bool ok = use_crc && act && syn == 0u && pm < big<F>();
   const int frank = final_rank(metric, M, tid, pm, ok, selS, &least);
   const int sel_rank = least < M ? least : 0;
   if (LIST) {
@@ -1027,7 +1035,7 @@ __device__ __forceinline__ void scl_deep_decode(
         list_llrs[o + i] = TL[i * M + slot];
         slot = w >> 1;
       }
-      list_metrics[frame * M + frank] = pm < SCL_BIG ? pm : __int_as_float(0x7f800000);
+      list_metrics[frame * M + frank] = pm < big<F>() ? pm : inf_of(pm);
     }
     if (tid == 0) list_best[frame] = sel_rank;
     __syncthreads();
@@ -1050,27 +1058,29 @@ __device__ __forceinline__ void scl_deep_decode(
   }
 }
 
-#define SCL_DEEP_PARAMS(T)                                                                       \
-  const float* __restrict__ llr, const int8_t* __restrict__ forced,                              \
-      const uint32_t* __restrict__ hcols, const int* __restrict__ sched, float* glob_llr,        \
-      uint8_t* glob_bits, float* trace_llr, T* trace_idx, int8_t* __restrict__ out_bits,         \
-      float* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,                              \
-      int8_t* __restrict__ list_bits, float* __restrict__ list_llrs,                             \
-      float* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int K, int M, \
+#define SCL_DEEP_PARAMS(T, F)                                                                    \
+  const F* __restrict__ llr, const int8_t* __restrict__ forced,                                  \
+      const uint32_t* __restrict__ hcols, const int* __restrict__ sched, F* glob_llr,            \
+      uint8_t* glob_bits, F* trace_llr, T* trace_idx, int8_t* __restrict__ out_bits,             \
+      F* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,                                  \
+      int8_t* __restrict__ list_bits, F* __restrict__ list_llrs,                                 \
+      F* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int K, int M, \
       int G, int use_crc
 #define SCL_DEEP_ARGS                                                                            \
   llr, forced, hcols, sched, glob_llr, glob_bits, trace_llr, trace_idx, out_bits, out_llrs,      \
       out_pass, list_bits, list_llrs, list_metrics, list_best, N, n, K, M, G, use_crc
 
-template <typename T, bool LIST>
-__global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_kernel(SCL_DEEP_PARAMS(T)) {
-  scl_deep_decode<T, LIST, DEEP_SIGMA_WORDS>(SCL_DEEP_ARGS);
+// F: float, or double (the float64 instantiations, N <= 8192)
+template <typename T, bool LIST, typename F>
+__global__ void __launch_bounds__(DEEP_MAX_M)
+    scl_deep_kernel(SCL_DEEP_PARAMS(T, F)) {
+  scl_deep_decode<T, LIST, DEEP_SIGMA_WORDS, F>(SCL_DEEP_ARGS);
 }
 
-// 16-bit entries (M 129..1024) at N 16384..65536: σ rows of up to 15 words
+// 16-bit entries (M 129..1024) at N 16384..65536: σ rows of up to 15 words (float32)
 template <bool LIST>
-__global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_wide_kernel(SCL_DEEP_PARAMS(uint16_t)) {
-  scl_deep_decode<uint16_t, LIST, DEEP_WIDE_SIGMA_WORDS>(SCL_DEEP_ARGS);
+__global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_wide_kernel(SCL_DEEP_PARAMS(uint16_t, float)) {
+  scl_deep_decode<uint16_t, LIST, DEEP_WIDE_SIGMA_WORDS, float>(SCL_DEEP_ARGS);
 }
 
 // ---------------------------------------------------------------------------
@@ -1555,24 +1565,24 @@ int launch_path(const ArgsOf<F>& a, int M, void* trace_idx, cudaStream_t stream)
                      : launch_path_as<LM, false, false>(a, M, ti, stream);
 }
 
-// the over-warps kernel: scl_deep_kernel<T>, or WIDE (16-bit entries past
-// n = 13) scl_deep_wide_kernel
-template <typename T, bool LIST, bool WIDE>
+// the over-warps kernel: scl_deep_kernel<T, LIST, F>, or WIDE (16-bit
+// entries past n = 13, float32) scl_deep_wide_kernel
+template <typename T, bool LIST, bool WIDE, typename F>
 auto deep_kernel() {
   if constexpr (WIDE)
     return scl_deep_wide_kernel<LIST>;
   else
-    return scl_deep_kernel<T, LIST>;
+    return scl_deep_kernel<T, LIST, F>;
 }
 
-template <typename T, bool LIST, bool WIDE>
-int launch_deep_as(const Args& a, int M, T* trace_idx, cudaStream_t stream) {
-  const DeepLayout lay = deep_layout(a.N, a.n, M, a.G, sizeof(T), 2);
+template <typename T, bool LIST, bool WIDE, typename F>
+int launch_deep_as(const ArgsOf<F>& a, int M, T* trace_idx, cudaStream_t stream) {
+  const DeepLayout lay = deep_layout(a.N, a.n, M, a.G, sizeof(T), 2, sizeof(F));
   if (!trace_idx || a.n > MAX_LEVELS ||
       lay.sig_row > 4 * (WIDE ? DEEP_WIDE_SIGMA_WORDS : DEEP_SIGMA_WORDS) || lay.total != a.frame_bytes ||
       a.frames_per_block != 1)
     return (int)cudaErrorInvalidValue;
-  const auto kernel = deep_kernel<T, LIST, WIDE>();
+  const auto kernel = deep_kernel<T, LIST, WIDE, F>();
   cudaError_t err = set_smem(kernel, lay.total);
   if (err != cudaSuccess) return (int)err;
   kernel<<<a.B, deep_threads(M), lay.total, stream>>>(
@@ -1582,17 +1592,36 @@ int launch_deep_as(const Args& a, int M, T* trace_idx, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// byte trace entries while 2M <= 256, else 16-bit ones (wide past n = 13)
-int launch_deep(const Args& a, int M, void* trace_idx, cudaStream_t stream) {
+// byte trace entries while 2M <= 256, else 16-bit ones (wide past n = 13,
+// float32 only: the float64 entry points take n <= 13)
+template <typename F>
+int launch_deep(const ArgsOf<F>& a, int M, void* trace_idx, cudaStream_t stream) {
   if (M <= 128)
     return a.list_bits ? launch_deep_as<uint8_t, true, false>(a, M, static_cast<uint8_t*>(trace_idx), stream)
                        : launch_deep_as<uint8_t, false, false>(a, M, static_cast<uint8_t*>(trace_idx), stream);
   uint16_t* ti = static_cast<uint16_t*>(trace_idx);
-  if (deep_wide<uint16_t>(a.n))
-    return a.list_bits ? launch_deep_as<uint16_t, true, true>(a, M, ti, stream)
-                       : launch_deep_as<uint16_t, false, true>(a, M, ti, stream);
+  if constexpr (std::is_same<F, float>::value)
+    if (deep_wide<uint16_t>(a.n))
+      return a.list_bits ? launch_deep_as<uint16_t, true, true>(a, M, ti, stream)
+                         : launch_deep_as<uint16_t, false, true>(a, M, ti, stream);
   return a.list_bits ? launch_deep_as<uint16_t, true, false>(a, M, ti, stream)
                      : launch_deep_as<uint16_t, false, false>(a, M, ti, stream);
+}
+
+// the plan of launch_deep's instantiation (best-only: the list one has the
+// same launch bounds)
+template <typename F>
+int plan_deep_of(int M, int n, int frame_bytes, int max_block_smem, int* frames_per_block, int* frames_per_sm) {
+  if (M > 128) {
+    if constexpr (std::is_same<F, float>::value)
+      if (deep_wide<uint16_t>(n))
+        return plan_deep(scl_deep_wide_kernel<false>, M, frame_bytes, max_block_smem, frames_per_block,
+                         frames_per_sm);
+    return plan_deep(scl_deep_kernel<uint16_t, false, F>, M, frame_bytes, max_block_smem, frames_per_block,
+                     frames_per_sm);
+  }
+  return plan_deep(scl_deep_kernel<uint8_t, false, F>, M, frame_bytes, max_block_smem, frames_per_block,
+                   frames_per_sm);
 }
 
 template <bool LIST, int PPT>
@@ -1738,12 +1767,13 @@ extern "C" int scl_decode_launch(const void* llr, const void* forced, const void
                                  int M, int G, int use_crc, int frame_bytes, int frames_per_block,
                                  int f64, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (f64) {  // M 1..32 at n <= 13
-    if (M < 1 || M > 32 || n > BYTE_WORD_MAX_LEVELS) return (int)cudaErrorInvalidValue;
-    return launch_warp(args_of<double>(llr, forced, hcols, sched, glob_llr, glob_bits, trace_llr, out_bits,
-                                       out_llrs, out_pass, list_bits, list_llrs, list_metrics, list_best, B, N,
-                                       n, K, G, use_crc, frame_bytes, frames_per_block),
-                       M, trace_idx, st);
+  if (f64) {  // M 1..1024 at n <= 13: one path a lane up to 32, over warps above
+    if (M < 1 || M > DEEP_MAX_M || n > BYTE_WORD_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+    const ArgsOf<double> d = args_of<double>(llr, forced, hcols, sched, glob_llr, glob_bits, trace_llr, out_bits,
+                                             out_llrs, out_pass, list_bits, list_llrs, list_metrics, list_best, B,
+                                             N, n, K, G, use_crc, frame_bytes, frames_per_block);
+    if (M >= DEEP_MIN_M) return launch_deep(d, M, trace_idx, st);
+    return launch_warp(d, M, trace_idx, st);
   }
   const Args a = args_of<float>(llr, forced, hcols, sched, glob_llr, glob_bits, trace_llr, out_bits, out_llrs,
                                 out_pass, list_bits, list_llrs, list_metrics, list_best, B, N, n, K, G, use_crc,
@@ -1756,8 +1786,10 @@ extern "C" int scl_decode_launch(const void* llr, const void* forced, const void
 
 extern "C" int scl_launch_plan(int M, int n, int frame_bytes, int max_block_smem, int f64,
                                int* frames_per_block, int* frames_per_sm) {
-  if (f64) {  // the float64 instantiations: M 1..32 at n <= 13
-    if (M < 1 || M > 32 || n > BYTE_WORD_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  if (f64) {  // the float64 instantiations: M 1..1024 at n <= 13
+    if (M < 1 || M > DEEP_MAX_M || n > BYTE_WORD_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+    if (M >= DEEP_MIN_M)
+      return plan_deep_of<double>(M, n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
     return plan_warp<double>(M, n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
   }
   if (M < 1 || M > CLUSTER_MAX_M) return (int)cudaErrorInvalidValue;
@@ -1769,15 +1801,8 @@ extern "C" int scl_launch_plan(int M, int n, int frame_bytes, int max_block_smem
     }
     return plan_cluster(scl_cluster_kernel<false>, M, frame_bytes, max_block_smem, frames_per_sm);
   }
-  if (M > 128)
-    return deep_wide<uint16_t>(n)
-               ? plan_deep(scl_deep_wide_kernel<false>, M, frame_bytes, max_block_smem, frames_per_block,
-                           frames_per_sm)
-               : plan_deep(scl_deep_kernel<uint16_t, false>, M, frame_bytes, max_block_smem,
-                           frames_per_block, frames_per_sm);
   if (M >= DEEP_MIN_M)
-    return plan_deep(scl_deep_kernel<uint8_t, false>, M, frame_bytes, max_block_smem,
-                     frames_per_block, frames_per_sm);
+    return plan_deep_of<float>(M, n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
   return plan_warp<float>(M, n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
 }
 

@@ -14,9 +14,10 @@ instantiation writes them (the systematic scalar decoder,
 
 On a CUDA tensor it launches the kernel, or raises for a shape the kernel
 does not take; it runs the plain version (`legacy/pac.py`) only for a tensor
-on the CPU.  The LLRs are float32, or float64 one path a lane (L 1..32) at N
-up to 8192 (`ops/scl_cuda.py::F64_MAX_M`, `F64_MAX_N`), where "metrics" is
-float64 too; a float64 decode outside that raises, naming the envelope.  The kernel takes every list size from 1 to 65536 (the TPU
+on the CPU.  The LLRs are float32, or float64 one path a lane (L 1..32) and
+over warps (L 33..1024) at N up to 8192 (`ops/scl_cuda.py::F64_MAX_M`,
+`F64_MAX_N`), where "metrics" is float64 too; a float64 decode outside that
+(on a cluster, past N=8192) raises, naming the envelope.  The kernel takes every list size from 1 to 65536 (the TPU
 kernel took power-of-two L <= 8 and N up to 8192, and the JAX package's XLA
 decoder takes the rest), N up to 65536 (the phase words' limit), and any
 batch size: the last block is masked, since the adaptive second stage
@@ -100,13 +101,14 @@ def frame_bytes(N: int, Kp: int, L: int, global_levels: int = 0, elem: int = 4) 
     float64) and edge-bit rows (bytes) of levels global_levels+1..n, and
     above L=1 a ring of `TRACE_RING` trace rows of round16(L) bytes (the
     trace is in global scratch, whatever Kp); over warps
-    `ops/scl_cuda.py::deep_frame_bytes`; on a cluster what each of its
-    blocks takes, `ops/scl_cuda.py::cluster_block_bytes` (both float32)."""
+    `ops/scl_cuda.py::deep_frame_bytes` (at `elem`); on a cluster what
+    each of its blocks takes, `ops/scl_cuda.py::cluster_block_bytes`
+    (float32)."""
 
     if L > DEEP_MAX_M:
         return cluster_block_bytes(N, global_levels, DEEP_WORDS, cluster_ppt(L))
     if L > PATH_MAX_M:
-        return deep_frame_bytes(N, L, global_levels, DEEP_WORDS)
+        return deep_frame_bytes(N, L, global_levels, DEEP_WORDS, elem)
     row = (N >> global_levels) - 1
     return ((elem + 1) * L * row + 15) // 16 * 16 + TRACE_RING * _trace_row(L)
 
@@ -140,8 +142,9 @@ def check_shape(N: int, Kp: int, L: int, gen, crc_len: int, dtype: torch.dtype) 
         raise ValueError(f"the PAC kernel decodes float32 or float64 LLRs, not {dtype}")
     if dtype == torch.float64 and not (1 <= L <= F64_MAX_M and N <= F64_MAX_N):
         raise ValueError(f"the PAC kernel decodes float64 at list sizes 1..{F64_MAX_M} and N up to "
-                         f"{F64_MAX_N} (one path a lane of a warp), not L={L} N={N}; float32 takes "
-                         f"L up to {MAX_L} and N up to {MAX_N}")
+                         f"{F64_MAX_N} (one path a lane of a warp up to L={PATH_MAX_M}, over the warps of "
+                         f"one block above), not L={L} N={N}; float32 takes L up to {MAX_L} and N up to "
+                         f"{MAX_N}")
     if not 1 <= L <= MAX_L:
         raise ValueError(f"the PAC kernel supports list sizes 1..{MAX_L} (one frame a cluster of at "
                          f"most {CLUSTER_MAX_BLOCKS} blocks of {CLUSTER_THREADS} threads, four paths a "

@@ -14,10 +14,11 @@ stable (metric, slot) order; the kernel's LIST instantiation writes them.
 On a CUDA tensor it launches the kernel, or raises for a shape the kernel
 does not take; it runs the plain version (`ops/scl.py`) only for a tensor on
 the CPU.  The LLRs are float32, or float64 inside the float64 envelope
-(`F64_MAX_M`, `F64_MAX_N`: M 1..32 at N up to 8192, the byte-word and
-by-path instantiations, as the JAX package's float64 decodes run through
-its XLA decoder); the LLR and metric outputs then are float64 too.  A
-float64 decode outside it raises, naming the envelope: no path casts to
+(`F64_MAX_M`, `F64_MAX_N`: M 1..1024 at N up to 8192, the byte-word and
+by-path instantiations up to M=32 and the over-warps one above, as the
+JAX package's float64 decodes run through its XLA decoder); the LLR and
+metric outputs then are float64 too.  A float64 decode outside it (on a
+cluster, past N=8192) raises, naming the envelope: no path casts to
 float32.  Any batch size is taken: the last block is masked, since the retry
 batches after compaction are data-dependent.  `decode_scl_cuda.launches`
 counts kernel launches, `decode_scl_cuda.path_launches` those of them that
@@ -117,9 +118,10 @@ MAX_N = 65536
 BYTE_WORD_MAX_N = 8192
 MAX_BLOCK_SMEM = 227 * 1024  # dynamic shared memory one block may use on an H100
 # the float64 envelope: the byte-word and by-path instantiations (one path a
-# lane of a warp) at N up to 8192, whose σ registers hold n <= 13 at every
-# width; over warps, on a cluster and past N=8192 the kernels are float32
-F64_MAX_M = PATH_MAX_M
+# lane of a warp) and the over-warps one (one frame a block) at N up to
+# 8192, whose σ registers and rows hold n <= 13 at every width; on a
+# cluster and past N=8192 the kernels are float32
+F64_MAX_M = DEEP_MAX_M
 F64_MAX_N = BYTE_WORD_MAX_N
 DTYPES = (torch.float32, torch.float64)
 FRAMES_PER_SM_TARGET = 16
@@ -157,19 +159,23 @@ def sort_keys(M: int) -> int:
     return 1 << (2 * M - 1).bit_length()
 
 
-def deep_frame_bytes(N: int, M: int, global_levels: int, words: int = 2) -> int:
+def deep_frame_bytes(N: int, M: int, global_levels: int, words: int = 2, elem: int = 4) -> int:
     """Shared memory one frame takes over warps (`deep_layout` in
     `csrc/list_decode.cuh`), each region rounded to 16 bytes: the σ table
     (2n−2 fields a path, a row rounded to 4 bytes), the sort keys
-    (`sort_keys(M)` of 8 bytes), the LLR rows (float32) of levels
-    global_levels+1..n, `words` published 32-bit values a path (SCL 2, PAC
-    3), the partial-sum rows (bytes) and the selected rank."""
+    (`sort_keys(M)` of 8 bytes in float32; in float64 the pair keys, a
+    double metric and a 32-bit index, 12 bytes), the LLR rows (`elem` bytes
+    an entry: 4 in float32, 8 in float64) of levels global_levels+1..n,
+    `words` published values a path (SCL 2, PAC 3: the leaf of `elem`
+    bytes, then 32-bit ones), the partial-sum rows (bytes) and the
+    selected rank."""
 
     n = int(math.log2(N))
     row = (N >> global_levels) - 1
     sig_row = max(4, ((2 * n - 2) * trace_entry_bytes(M) + 3) // 4 * 4)
-    return (_round16(M * sig_row) + 8 * sort_keys(M) + _round16(4 * M * row)
-            + words * _round16(4 * M) + _round16(M * row) + 16)
+    keys = (12 if elem == 8 else 8) * sort_keys(M)
+    return (_round16(M * sig_row) + keys + _round16(elem * M * row)
+            + _round16(elem * M) + (words - 1) * _round16(4 * M) + _round16(M * row) + 16)
 
 
 def cluster_ppt(M: int) -> int:
@@ -300,13 +306,13 @@ def frame_bytes(N: int, K: int, M: int, global_levels: int = 0, elem: int = 4) -
     to M=32 the LLR rows (`elem` bytes an entry: 4 in float32, 8 in
     float64) and partial-sum rows (bytes) of levels global_levels+1..n, and
     in the byte-word layout the trace indices (bytes); over warps
-    `deep_frame_bytes`; on a cluster what each of its blocks takes,
-    `cluster_block_bytes` (both float32)."""
+    `deep_frame_bytes` (at `elem`); on a cluster what each of its blocks
+    takes, `cluster_block_bytes` (float32)."""
 
     if M > DEEP_MAX_M:
         return cluster_block_bytes(N, global_levels, 2, cluster_ppt(M))
     if M > PATH_MAX_M:
-        return deep_frame_bytes(N, M, global_levels)
+        return deep_frame_bytes(N, M, global_levels, 2, elem)
     row = (N >> global_levels) - 1
     raw = elem * M * row + M * row + (0 if path_layout(M, N) else K * M)
     return _round16(raw)
@@ -350,8 +356,9 @@ def check_shape(N: int, K: int, M: int, crc: Optional[str], dtype: torch.dtype) 
         raise ValueError(f"the SCL kernel decodes float32 or float64 LLRs, not {dtype}")
     if dtype == torch.float64 and not (1 <= M <= F64_MAX_M and N <= F64_MAX_N):
         raise ValueError(f"the SCL kernel decodes float64 at list sizes 1..{F64_MAX_M} and N up to "
-                         f"{F64_MAX_N} (one path a lane of a warp), not M={M} N={N}; float32 takes "
-                         f"M up to {MAX_M} and N up to {MAX_N}")
+                         f"{F64_MAX_N} (one path a lane of a warp up to M={PATH_MAX_M}, over the warps of "
+                         f"one block above), not M={M} N={N}; float32 takes M up to {MAX_M} and N up to "
+                         f"{MAX_N}")
     if not 1 <= M <= MAX_M:
         raise ValueError(f"the SCL kernel supports list sizes 1..{MAX_M} (one frame a cluster of at "
                          f"most {CLUSTER_MAX_BLOCKS} blocks of {CLUSTER_THREADS} threads, four paths a "

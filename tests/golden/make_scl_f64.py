@@ -102,10 +102,11 @@ def code_inputs(N, K, method, frames, snrs, seed):
     return info, llr, plan
 
 
-def pac_inputs():
-    """(mask, float64 LLRs [frames, N]) of CRC'd PAC codewords."""
+def pac_inputs(pac=PAC):
+    """(mask, float64 LLRs [frames, N]) of CRC'd PAC codewords of `pac`
+    (`PAC`'s fields)."""
 
-    N, K, (crc_len, crc_poly), gen, profile, frames, snrs, seed = PAC
+    N, K, (crc_len, crc_poly), gen, profile, frames, snrs, seed = pac
     rp = rateprofile(N, K + crc_len, 2.0, 0)
     rp.build_mask(profile)
     mask = np.asarray(rp.modify_profile(), np.int8)

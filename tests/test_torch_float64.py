@@ -12,8 +12,8 @@ run only on the card.  Here, with no card and no JAX compile:
   selected rank and every PAC list field exactly, metrics and info LLRs
   within 1e-12 relative (the LLRs are not float32 numbers: a hidden cast
   would move them by about 1e-8);
-* the shape gates: float64 inside the envelope (M and L 1–32, N up to 8192,
-  with and without CRC) is taken, outside it a ValueError names the
+* the shape gates: float64 inside the envelope (M and L 1–1024, N up to
+  8192, with and without CRC) is taken, outside it a ValueError names the
   envelope, and K2 refuses float64;
 * the frame and scratch bytes at 8-byte LLRs against a written model;
 * a numpy model of the by-path fork's float64 key, the (metric, index) pair,
@@ -121,30 +121,34 @@ def test_golden_llrs_are_not_float32_numbers():
     assert GOLDEN.stat().st_size < 1_000_000
 
 
-@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 9, 16, 17, 31, 32])
+# M 33, 64 and 1024 refused float64 before the over-warps float64
+# instantiations; they are taken now
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 9, 16, 17, 31, 32, 33, 64, 1024])
 def test_k1_float64_envelope(M):
     for N, K in ((16, 8), (128, 64), (1024, 512), (8192, 4096), (8192, 8192)):
         for crc in (CRC, None):
             scl_cuda.check_shape(N, K, M, crc, F64)
             assert resolve_backend("cuda", M=M, dtype=F64, N=N, K=K, crc=crc) == "cuda"
-    with pytest.raises(ValueError, match="float64 at list sizes 1..32 and N up to 8192"):
+    with pytest.raises(ValueError, match="float64 at list sizes 1..1024 and N up to 8192"):
         scl_cuda.check_shape(16384, 8192, M, CRC, F64)
 
 
-@pytest.mark.parametrize("M,N", [(33, 128), (64, 128), (1024, 128), (65536, 128), (4, 16384), (1, 65536)])
+@pytest.mark.parametrize("M,N", [(1025, 128), (2048, 128), (64, 16384), (65536, 128), (4, 16384), (1, 65536)])
 def test_k1_float64_outside_the_envelope_raises(M, N):
     scl_cuda.check_shape(N, N // 2, M, CRC, torch.float32)  # float32 takes it
     for call in (lambda: scl_cuda.check_shape(N, N // 2, M, CRC, F64),
                  lambda: resolve_backend("cuda", M=M, dtype=F64, N=N, K=N // 2, crc=CRC)):
-        with pytest.raises(ValueError, match="float64 at list sizes 1..32 and N up to 8192"):
+        with pytest.raises(ValueError, match="float64 at list sizes 1..1024 and N up to 8192"):
             call()
     with pytest.raises(ValueError, match="float32 or float64"):
         scl_cuda.check_shape(N, N // 2, M, CRC, torch.float16)
 
 
+# L 33 and 256 were refused before the over-warps float64 instantiations
 @pytest.mark.parametrize("L,N,ok", [(1, 128, True), (4, 128, True), (8, 1024, True), (32, 8192, True),
-                                    (5, 64, True), (33, 128, False), (256, 128, False), (4, 16384, False),
-                                    (32, 65536, False)])
+                                    (5, 64, True), (33, 128, True), (256, 128, True), (4, 16384, False),
+                                    (32, 65536, False), (1025, 128, False), (2048, 128, False),
+                                    (64, 16384, False)])
 def test_k3_float64_envelope(L, N, ok):
     gen = [1, 0, 1, 1, 0, 1, 1]
     pac_cuda.check_shape(N, N // 2, L, gen, 16, torch.float32)
@@ -152,7 +156,7 @@ def test_k3_float64_envelope(L, N, ok):
         pac_cuda.check_shape(N, N // 2, L, gen, 16, F64)
         pac_cuda.check_shape(N, N // 2, L, [1], 0, F64)
     else:
-        with pytest.raises(ValueError, match="float64 at list sizes 1..32 and N up to 8192"):
+        with pytest.raises(ValueError, match="float64 at list sizes 1..1024 and N up to 8192"):
             pac_cuda.check_shape(N, N // 2, L, gen, 16, F64)
 
 

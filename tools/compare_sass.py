@@ -3,9 +3,10 @@
 
     python tools/compare_sass.py --repo DIR [--sources scl_decode.cu,pac_decode.cu]
 
-Builds each source of this checkout's `csrc/` and of DIR's
-`polar_code_tpu_torch/csrc/` with this checkout's flags (`_build.build`,
-into this checkout's build directory), dumps both libraries' SASS with
+Builds each source of this checkout's `csrc/` with this checkout's flags
+and of DIR's `polar_code_tpu_torch/csrc/` with the `NVCC_FLAGS` of DIR's
+own `_build.py`, as each checkout builds them (into this checkout's build
+directory), dumps both libraries' SASS with
 `cuobjdump -sass`, and prints, for every kernel function, "same" or the
 count of SASS lines that differ position by position (each line carries
 its address, so an instruction added early moves every line after it),
@@ -18,6 +19,7 @@ source fails to build or `cuobjdump` fails.
 """
 
 import argparse
+import ast
 import re
 import shutil
 import subprocess
@@ -63,6 +65,16 @@ def demangle(names):
     return shown
 
 
+def their_flags(repo: Path) -> tuple:
+    """The `NVCC_FLAGS` tuple of `repo`'s `polar_code_tpu_torch/_build.py`."""
+
+    tree = ast.parse((repo / "polar_code_tpu_torch" / "_build.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "NVCC_FLAGS" for t in node.targets):
+            return tuple(ast.literal_eval(node.value))
+    raise RuntimeError(f"no NVCC_FLAGS in {repo}'s _build.py")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repo", required=True, help="the other checkout")
@@ -71,11 +83,25 @@ def main():
     sys.path.insert(0, str(HERE))
     from polar_code_tpu_torch import _build
 
-    other = Path(args.repo).resolve() / "polar_code_tpu_torch" / "csrc"
+    repo = Path(args.repo).resolve()
+    other = repo / "polar_code_tpu_torch" / "csrc"
     sources = args.sources.split(",")
+    flags = their_flags(repo)
+    print(f"{args.repo} built with {' '.join(flags)}", flush=True)
     jobs = [(s, c) for s in sources for c in (_build.CSRC, other)]
+
+    def build(job):
+        source, csrc = job
+        if csrc == other and flags != _build.NVCC_FLAGS:
+            lib = Path(_build.BUILD_DIR) / f"theirs_{Path(source).stem}.so"
+            lib.parent.mkdir(parents=True, exist_ok=True)
+            subprocess.run([_build._nvcc(), *flags, "-o", str(lib), str(csrc / source)], capture_output=True,
+                           text=True, check=True)
+            return lib
+        return _build.build(source, csrc=csrc).path
+
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:  # every nvcc at once
-        libs = dict(zip(jobs, pool.map(lambda j: _build.build(j[0], csrc=j[1]).path, jobs)))
+        libs = dict(zip(jobs, pool.map(build, jobs)))
     for source in sources:
         mine = functions(libs[source, _build.CSRC])
         theirs = functions(libs[source, other])

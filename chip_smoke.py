@@ -147,7 +147,7 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    and K3 launched once a decode and the plain decoders never on CUDA; the
    systematic PolarCode decoder and `decode_ldpc_nms(early_stop=False)` on
    one frame each equal to the plain version, and float64 past its
-   envelope (M=33) raising on the card; (e) `decode_scl`'s time a call and K1's full-list launch beside
+   envelope (M=16385) raising on the card; (e) `decode_scl`'s time a call and K1's full-list launch beside
    its best-only launch;
 13. the wide envelope (`wide_envelope`): the `-Xptxas -v` registers and
    spills of the six by-path instantiations (one that spills fails the
@@ -365,8 +365,32 @@ Phases (each ends with one flushed line carrying the elapsed seconds):
    the data sheet's float64 rate, registers, spills, shared bytes a
    frame, G and frames an SM; (f) with a parent checkout unpacked, no
    float32 kernel's SASS moved (phase 16 (e)'s report);
-21. a `kernels` JSON line (one entry a kernel, and one for each new
-   instantiation with its launches on phases 13's to 20's paths;
+21. float64 over warps (`float64_over_warps`): K1 and K3 at M and L
+   33-1024 against the plain float64 versions and
+   `tests/golden/scl_f64_deep.npz`, the scalar surface, times beside
+   float32, the SASS (its P(8192,4096) plain calls run in a worker beside
+   phase 17, `start_f64_deep_plain`);
+22. float64 on a cluster (`float64_on_cluster`): the registers and spills
+   of the 4 float64 cluster instantiations; (a) K1 in float64 at one path a
+   thread against the plain float64 version on the card, every field,
+   best-only and list: P(128,64) CRC-24A M 1025, 2048, 4096, 8192, 8193,
+   16384 (16 frames, 8 past 8192), plans on and off at 1025 and 16384,
+   the CRC off at 2048, P(1024,512) M=2048 (2 frames) and P(8192,4096)
+   M=2048 (one frame; its plain call in phase 21's worker); (b) K3 at
+   PAC(128,64)+CRC-16 L 1025, 2048, 8192, 16384 (16 frames), every field;
+   (c) both against `tests/golden/scl_f64_cluster.npz` (JAX float64), a
+   differing frame allowed only at a near-tie (1e-9), metrics and info
+   LLRs within 1e-12 relative; (d) `decode_scl` M=2048 on the 12 golden
+   frames and `PolarCode(64, 48, "dega", 2048)` in float64, one float64
+   cluster launch a decode and the plain decoders 0 times on CUDA; (e)
+   CUDA-event times at M and L 2048 (B=1024) and 16384 (B=256) beside
+   the float32 twins' times of phases 15 and 17, with the float64 bound,
+   registers, spills, bytes a block, G and clusters at once, and each
+   timed batch's edges against 16-frame launches; (f) with a parent
+   checkout unpacked, no float32 kernel's SASS moved and the 4 `double`
+   cluster kernels new;
+23. a `kernels` JSON line (one entry a kernel, and one for each new
+   instantiation with its launches on phases 13's to 22's paths;
    each `max_abs_err` the largest difference from the plain version that
    the run measured), the `nvidia-smi` line, and the device JSON line last.
 
@@ -501,7 +525,7 @@ def ptxas_report(log):
             tn = re.search(r"nms_kernel_(warp|block|1024)ILi(\d+)ELb([01])E", m.group(1))
             td = re.search(r"(scl|pac)_deep_kernelI([ht])Lb([01])E([fd]?)", m.group(1))
             tdw = re.search(r"(scl|pac)_deep_wide_kernelILb([01])E", m.group(1))
-            tc = re.search(r"(scl|pac)_cluster(_pair|_quad)?_kernelILb([01])E", m.group(1))
+            tc = re.search(r"(scl|pac)_cluster(_pair|_quad)?_kernelILb([01])E([fd]?)", m.group(1))
             f64 = {"d": ", f64"}
             entry = (f"scl_decode_kernel<M={tm.group(1)}{', list' if tm.group(2) == '1' else ''}"
                      f"{f64.get(tm.group(3), '')}>" if tm
@@ -516,7 +540,8 @@ def ptxas_report(log):
                      else f"{td.group(1)}_deep_kernel<{'u8' if td.group(2) == 'h' else 'u16'} trace"
                           f"{', list' if td.group(3) == '1' else ''}{f64.get(td.group(4), '')}>" if td
                      else f"{tc.group(1)}_cluster{tc.group(2) or ''}_kernel<"
-                          f"{'list' if tc.group(3) == '1' else 'best-only'}>" if tc else m.group(1))
+                          f"{'list' if tc.group(3) == '1' else 'best-only'}{f64.get(tc.group(4), '')}>" if tc
+                     else m.group(1))
             cur = {"entry": entry, "regs": None, "spill_stores": None, "spill_loads": None,
                    "smem": 0}
             rows.append(cur)
@@ -1521,7 +1546,7 @@ def scalar_surface(dev, smi):
 
     # the systematic decoder and decode without early stop, on one frame each,
     # against the plain version on the card; float64 outside its envelope
-    # (M <= 1024, N <= 8192) raises on the card (phases 20 and 21 decode
+    # (M <= 16384, N <= 8192) raises on the card (phases 20-22 decode
     # inside it)
     got = pc[4].pac_list_crc_decoder(pc_llr[0], True, True, crc16, 4)
     want = systematic_reference(pc[4], pc_llr[:1], True, crc16, 4, dev)[0]
@@ -1535,12 +1560,12 @@ def scalar_surface(dev, smi):
     print("  PolarCode(64, 48, dega, L=4) systematic CRC-16 and decode_ldpc_nms(early_stop=False) on "
           "the card: one frame each, equal to the plain version")
     try:
-        decode_scl(golden["llrs"][0], g_info, 1025, CRC, dtype=torch.float64)
+        decode_scl(golden["llrs"][0], g_info, 16385, CRC, dtype=torch.float64)
     except ValueError as exc:
-        print(f"  decode_scl(M=1025, dtype=float64) on the card raises: {exc}")
-        check("float64 at list sizes 1..1024 and N up to 8192" in str(exc), "the raise does not name the envelope")
+        print(f"  decode_scl(M=16385, dtype=float64) on the card raises: {exc}")
+        check("float64 at list sizes 1..16384 and N up to 8192" in str(exc), "the raise does not name the envelope")
     else:
-        check(False, "decode_scl(M=1025, dtype=float64) on the card did not raise")
+        check(False, "decode_scl(M=16385, dtype=float64) on the card did not raise")
 
     k1_before, k2_before = decode_scl_cuda.launches, decode_ldpc_nms_cuda.launches
     k3_before = pac_list_decode_cuda.launches
@@ -2830,12 +2855,12 @@ LONG_SPLIT = (64, 65536)
 
 
 def plain_reference(kind, args, device="cuda"):
-    """One plain decode on `device`, in a worker process of phases 16-19
-    and 21: `plain_fields` of the SCL decoder (kind "scl": LLRs, info set,
+    """One plain decode on `device`, in a worker process of phases 16-19,
+    21 and 22: `plain_fields` of the SCL decoder (kind "scl": LLRs, info set,
     M, CRC, plan) or the PAC decoder's list fields (kind "pac": LLRs, mask,
     gen, L, CRC length and polynomial), as numpy arrays, and the call's
     seconds on the host clock; in the LLRs' float type (float32, or
-    float64 in phase 21).  The worker's allocator grows its segments in
+    float64 in phases 21 and 22).  The worker's allocator grows its segments in
     place, so that the plain calls that hold tens of gigabytes leave no
     reserved gaps."""
 
@@ -4290,7 +4315,8 @@ def float64_on_card(dev, smi):
     regs = {}
     for source in (scl_cuda.SOURCE, pac_cuda.SOURCE):
         for row in ptxas_report(_build.build(source).log):
-            if row["entry"].endswith(", f64>") and "_deep_" not in row["entry"]:  # phase 21: over warps
+            # phases 21 and 22: over warps and on a cluster
+            if row["entry"].endswith(", f64>") and "_deep_" not in row["entry"] and "_cluster_" not in row["entry"]:
                 regs[row["entry"]] = (row["regs"], row["spill_stores"], row["spill_loads"])
     check(len(regs) == 26, f"the build log holds {len(regs)} float64 one-lane instantiations, not 26: {sorted(regs)}")
 
@@ -4608,12 +4634,14 @@ F64D_TIME_B = 4096
 
 
 def start_f64_deep_plain(dev):
-    """Phase 21's plain float64 calls at P(8192,4096) (`F64D_LONG`), started
-    in a worker process before phase 17: (pool, collect).  `collect()`
-    waits for them, shuts the worker down, so that its memory on the card
-    is free again, and returns {(N, K, M): (LLRs, info set, (plain fields,
-    seconds))}; phase 17 calls it where it has waited for its own workers,
-    before its FER CLI and its times."""
+    """Phase 21's plain float64 calls at P(8192,4096) (`F64D_LONG`) and
+    phase 22's (`f64_cluster_cases`), started in a worker process before
+    phase 17: (pool, collect).  `collect()` waits for them, shuts the
+    worker down, so that its memory on the card is free again, and returns
+    ({(N, K, M): (LLRs, info set, (plain fields, seconds))} for phase 21,
+    [(tag, kind, args, (plain fields, seconds))] for phase 22); phase 17
+    calls it where it has waited for its own workers, before its FER CLI
+    and its times."""
 
     from polar_code_tpu_torch.polar.construct import construct_info_set
 
@@ -4625,11 +4653,14 @@ def start_f64_deep_plain(dev):
         llr_np, _ = make_llrs(rng, F64D_LONG_B, 1.5, info_c, n=n_c, dtype=np.float64)
         calls[n_c, k_c, M] = (llr_np, info_c, pool.submit(plain_reference, "scl", (llr_np, info_c, M, CRC, None),
                                                             str(dev)))
+    cluster = [(tag, kind, args, pool.submit(plain_reference, kind, args, str(dev)))
+               for tag, kind, args in f64_cluster_cases(dev)]
 
     def collect():
         refs = {key: (llr_np, info_c, fut.result()) for key, (llr_np, info_c, fut) in calls.items()}
+        cluster_refs = [(tag, kind, args, fut.result()) for tag, kind, args, fut in cluster]
         pool.shutdown(wait=True)
-        return refs
+        return refs, cluster_refs
 
     return pool, collect
 
@@ -4925,6 +4956,315 @@ def float64_over_warps(dev, smi, long_refs):
                      "polar_code_tpu/ops/scl_pallas.py:293"),
              "pac": ("pac_decode (float64, over warps: L 33-1024)", "polar_code_tpu_torch/csrc/pac_decode.cu",
                      "polar_code_tpu/legacy/pac_pallas.py:59")}
+    errors = {"scl": k1_err, "pac": k3_err}
+    return [{"name": names[k][0], "route": "cuda", "source": names[k][1], "replaces": names[k][2],
+             "launches": launches[k], "max_abs_err": errors[k], "ms": entries[k][0], "plain_ms": entries[k][1],
+             "bound_ms": entries[k][2], "bound_by": entries[k][3], "library_ms": None}
+            for k in ("scl", "pac")]
+
+
+# phase 22, float64 on a cluster: K1 and K3 at list sizes 1025-16384 and N
+# up to 8192 in double, their cluster instantiations at one path a thread
+F64C_SEED = 20261025
+F64C_B = 16  # frames of a P(128,64) and PAC(128,64) vs-plain case; 8 at M >= 8193
+F64C_MS = (1025, 2048, 4096, 8192, 8193, 16384)  # (a): K1 at P(128,64) CRC-24A
+F64C_PLANS = (1025, 16384)  # (a): the list sizes also run with a forced plan
+F64C_CRC_OFF = 2048  # (a): the list size also run with the CRC off
+F64C_N = (1024, 512, 2048, 2)  # (a): K1 at P(1024,512) M=2048, frames
+# (a): K1 at P(8192,4096) M=2048, one frame: its plain call runs in phase
+# 21's worker beside phase 17 (`start_f64_deep_plain`)
+F64C_LONG = (8192, 4096, 2048)
+F64C_LONG_B = 1
+F64C_LS = (1025, 2048, 8192, 16384)  # (b): K3 at PAC(128,64)+CRC-16
+F64C_SCALAR_M = 2048  # (d): decode_scl's M on the golden frames, and PolarCode's L
+F64C_TIME = ((2048, 1024), (16384, 256))  # (e): (M and L, frames) of the times: phases 15's and 17's
+
+
+def f64_cluster_cases(dev):
+    """Phase 22's cases against the plain float64 versions, (a) K1 and (b)
+    K3, drawn from `F64C_SEED`: [(tag, kind, args)], `args` as
+    `plain_reference` takes them (numpy LLRs; K3's LLRs encoded on `dev`).
+    Their plain calls run in phase 21's worker beside phase 17
+    (`start_f64_deep_plain`)."""
+
+    from polar_code_tpu_torch.polar.construct import construct_info_set
+
+    rng = np.random.default_rng(F64C_SEED)
+    info = construct_info_set(N, K)
+    cases = []
+    for M in F64C_MS:
+        B = F64C_B if M <= 8192 else F64C_B // 2
+        llr_np, msg = make_llrs(rng, B, np.where(np.arange(B) % 2, 1.5, 3.0)[:, None], info, dtype=np.float64)
+        for use_plan in ((False, True) if M in F64C_PLANS else (False,)):
+            plan = random_plan(rng, msg) if use_plan else None
+            cases.append((f"K1 float64 M={M} plan={use_plan}", "scl", (llr_np, info, M, CRC, plan)))
+        if M == F64C_CRC_OFF:
+            cases.append((f"K1 float64 M={M} CRC off", "scl", (llr_np, info, M, None, None)))
+    for (n_c, k_c, M), B, snr in ((F64C_N[:3], F64C_N[3], 1.75), (F64C_LONG, F64C_LONG_B, 1.5)):
+        info_c = construct_info_set(n_c, k_c)
+        llr_np = make_llrs(rng, B, snr, info_c, n=n_c, dtype=np.float64)[0]
+        cases.append((f"K1 float64 P({n_c},{k_c}) M={M} B={B}", "scl", (llr_np, info_c, M, CRC, None)))
+    n_p, k_p, crc_p = PAC_CODES[128]
+    p_mask = pac_mask(n_p, k_p + crc_p[0])
+    for L in F64C_LS:
+        x = pac_llrs(rng, F64C_B, 2.0, PAC_CODES[128], PAC_GEN, p_mask, dev, dtype=np.float64).cpu().numpy()
+        cases.append((f"K3 float64 L={L}", "pac", (x, p_mask, PAC_GEN, L, *crc_p)))
+    return cases
+
+
+def float64_on_cluster(dev, smi, cluster_refs, f32_ms):
+    """Phase 22: K1 and K3 on a cluster in float64 (M and L 1025-16384, one
+    path a thread) against the plain float64 versions on the card, every
+    field, and the JAX float64 golden file; the float64 scalar surface at
+    M and L 2048, one cluster launch a decode; each float64 kernel's time
+    beside its float32 twin's, taken from phases 15 and 17 of this run
+    (`f32_ms`: {"scl": {M: ms}, "pac": {L: ms}} at `F64C_TIME`'s shapes);
+    the float32 kernels' SASS against a parent checkout's where one is
+    unpacked.  `cluster_refs`: [(tag, kind, args, (plain fields,
+    seconds))] of `f64_cluster_cases`, from `start_f64_deep_plain`'s
+    worker.  Returns the `kernels` entries of the float64 cluster
+    instantiations."""
+
+    import torch
+
+    from polar_code_tpu_torch import _build
+    from polar_code_tpu_torch.legacy import pac_cuda
+    from polar_code_tpu_torch.legacy.crclib import crc as legacy_crc
+    from polar_code_tpu_torch.legacy.pac import pac_list_decode_batch
+    from polar_code_tpu_torch.legacy.pac_cuda import pac_list_decode_cuda
+    from polar_code_tpu_torch.legacy.polar_code import PolarCode
+    from polar_code_tpu_torch.legacy.rate_profile import rateprofile
+    from polar_code_tpu_torch.ops import scl_cuda
+    from polar_code_tpu_torch.ops.scl import decode_scl_batch
+    from polar_code_tpu_torch.polar.api import decode_scl
+    from polar_code_tpu_torch.polar.construct import construct_info_set
+
+    f64 = torch.float64
+    decode_scl_cuda = scl_cuda.decode_scl_cuda
+    wrappers = (decode_scl_cuda, pac_list_decode_cuda)
+    plains = (decode_scl_batch, pac_list_decode_batch)
+    info = construct_info_set(N, K)
+    rng = np.random.default_rng(F64C_SEED + 1)
+    t_phase = time.perf_counter()
+
+    def reset_counts():
+        for f in wrappers:
+            f.launches = f.f64_launches = f.cluster_launches = 0
+        for f in plains:
+            f.cuda_calls = 0
+
+    def lap(part):
+        print(f"  [phase 22 at {time.perf_counter() - t_phase:.1f} s] {part}", flush=True)
+
+    # ---- the float64 cluster instantiations' registers and spills (the kept build log) ----
+    regs = {}
+    for source in (scl_cuda.SOURCE, pac_cuda.SOURCE):
+        for row in ptxas_report(_build.build(source).log):
+            if row["entry"].endswith(", f64>") and "_cluster_" in row["entry"]:
+                regs[row["entry"]] = (row["regs"], row["spill_stores"], row["spill_loads"])
+    check(len(regs) == 4, f"the build log holds {len(regs)} float64 cluster instantiations, not 4: {sorted(regs)}")
+
+    # ---- (a), (b) K1 and K3 in float64 on a cluster against the plain float64 versions ----
+    lap("(a), (b)")
+    list_fields = scl_cuda.BEST_FIELDS + scl_cuda.LIST_FIELDS
+    k1_err, k3_err, k1_cases, k3_cases, plain_s = 0.0, 0.0, 0, 0, 0.0
+    for tag, kind, args, (ref, secs) in cluster_refs:
+        plain_s += secs
+        x = torch.from_numpy(args[0]).to(dev)
+        for full in (False, True):
+            if kind == "scl":
+                _, info_c, M, crc, plan = args
+                out = decode_scl_cuda(x, info_c, M, crc, full=full,
+                                      force_info_bits=None if plan is None else torch.from_numpy(plan).to(dev))
+                fields = list_fields if full else scl_cuda.BEST_FIELDS
+            else:
+                out = pac_list_decode_cuda(x, *args[1:], full=full)
+                fields = tuple(out)
+            torch.cuda.synchronize()
+            for f in fields:
+                want = torch.as_tensor(ref[f]).to(out[f].device)
+                check(out[f].dtype == want.dtype or f == "best_index",
+                      f"{tag} full={full}: {f} is {out[f].dtype}, not {want.dtype}")
+                check(torch.equal(out[f], want.to(out[f].dtype)), f"{tag} full={full}: {f} differs from the plain "
+                      f"float64 version")
+            if kind == "scl":
+                k1_err = max(k1_err, float((out["best_path_info_llrs"] - torch.as_tensor(
+                    ref["best_path_info_llrs"]).to(dev)).abs().max()))
+                k1_cases += 1
+            elif full:
+                fin = np.isfinite(ref["metrics"])
+                k3_err = max(k3_err, float(np.abs(out["metrics"].cpu().numpy()[fin] - ref["metrics"][fin]).max()))
+                k3_cases += 1
+    n_l, k_l, m_l = F64C_LONG
+    g, _, at_once = scl_cuda.launch_plan(n_l, k_l, m_l, F64C_LONG_B, 8)
+    print(f"(a) K1 float64 on a cluster vs the plain float64 version on the card: {k1_cases} launches, every field "
+          f"equal: P(128,64) CRC-24A B={F64C_B} ({F64C_B // 2} past 8192) M {', '.join(map(str, F64C_MS))}, plans on "
+          f"and off "
+          f"at {' and '.join(map(str, F64C_PLANS))}, the CRC off at {F64C_CRC_OFF}, best-only and list; "
+          f"P({F64C_N[0]},{F64C_N[1]}) M={F64C_N[2]} B={F64C_N[3]}; P({n_l},{k_l}) M={m_l} B={F64C_LONG_B} (G={g}, "
+          f"{at_once} clusters at once); max |info LLR diff| {k1_err:.3e}", flush=True)
+    print(f"(b) K3 float64 on a cluster vs plain float64: PAC(128,64)+CRC-16 B={F64C_B} L "
+          f"{', '.join(map(str, F64C_LS))}, best-only and list, every field equal ({k3_cases} list launches); max "
+          f"|metric diff| {k3_err:.3e}; the {len(cluster_refs)} plain calls {plain_s:.1f} s in a worker beside phase "
+          f"17", flush=True)
+
+    # ---- (c) K1 and K3 against the JAX float64 golden file ----
+    lap("(c)")
+    near, golden_cases, golden_err = [], 0, 0.0
+    with np.load(GOLDEN / "scl_f64_cluster.npz") as gold:
+        for case in json.loads(str(gold["cases"])):
+            tag, code = case["name"], case["code"]
+            x = torch.from_numpy(gold[f"{code}/llr"]).to(dev)
+            if code == "pac128":
+                out = pac_list_decode_cuda(x, gold["pac128/mask"], case["gen"], case["L"], case["crc_len"],
+                                           case["crc_poly"], full=True)
+                fields = [f for f in ("extracted", "crc_pass", "candidates", "v_full", "valid") if f in case["fields"]]
+            else:
+                plan = torch.from_numpy(gold[f"{code}/plan"]).to(dev) if case["plan"] else None
+                out = decode_scl_cuda(x, gold[f"{code}/info"], case["M"], case["crc"], force_info_bits=plan,
+                                      full=True)
+                out["bits"], out["llrs"] = out["best_path_bits"], out["best_path_info_llrs"]
+                fields = ("bits", "crc_pass") + (("candidates", "best_index") if case["full"] else ())
+            torch.cuda.synchronize()
+            bad = np.zeros(int(x.shape[0]), bool)
+            for f in fields:
+                got, want = out[f].cpu().numpy(), gold[f"{tag}/{f}"]
+                bad |= (got != want).reshape(len(bad), -1).any(axis=1)
+            same = ~bad  # the values of the frames whose decisions agree
+            errs = [rel_err(out["metrics"].cpu().numpy()[same], gold[f"{tag}/metrics"][same])]
+            if code != "pac128":
+                errs.append(rel_err(out["llrs"].cpu().numpy()[same], gold[f"{tag}/llrs"][same]))
+            ties = near_tie_frames(gold[f"{tag}/metrics"], rel=1e-9)
+            for f in np.flatnonzero(bad):
+                near.append(f"{tag} frame {f}{' (near-tie)' if ties[f] else ''}")
+            check(not (bad & ~ties).any(), f"K1/K3 float64 {tag}: frames {np.flatnonzero(bad & ~ties).tolist()} "
+                  f"differ from JAX float64 outside a near-tie")
+            check(max(errs) <= F64_REL, f"K1/K3 float64 {tag}: metrics or info LLRs off JAX float64 by "
+                  f"{max(errs):.3e} relative")
+            golden_err = max(golden_err, *errs)
+            golden_cases += 1
+    print(f"(c) K1 and K3 float64 on a cluster vs tests/golden/scl_f64_cluster.npz (JAX float64): {golden_cases} "
+          f"cases, {len(near)} frames differ{': ' + '; '.join(near) if near else ''}; metrics and info LLRs within "
+          f"{golden_err:.3e} relative (limit {F64_REL:g})", flush=True)
+
+    # ---- (d) the float64 scalar surface on a cluster, counted ----
+    lap("(d)")
+    golden = np.load(GOLDEN / "ref_p128_k64.npz")
+    g_info = golden["info_set"]
+    crc16 = legacy_crc(*PAC_CRC)
+    M = F64C_SCALAR_M
+    pc = PolarCode(64, 48, "dega", M, rateprofile(64, 48, 2.0, 0), dtype=f64)
+    msgs = rng.integers(0, 2, (SCALAR_FRAMES, 32)).astype(np.int8)
+    msgs = np.concatenate([msgs, crc16.crcCalc_batch(msgs)], axis=1)
+    codewords = np.stack([pc.encode(m, False) for m in msgs])
+    nv = 1.0 / (2.0 * 0.5 * 10 ** 0.2)
+    pc_llr = 2.0 * (1.0 - 2.0 * codewords + rng.normal(0.0, math.sqrt(nv), codewords.shape)) / nv
+    reset_counts()
+    t = time.perf_counter()
+    scl = [decode_scl(llr, g_info, M, CRC, dtype=f64) for llr in golden["llrs"]]
+    pac = [pc.pac_list_crc_decoder(row, False, True, crc16, M) for row in pc_llr]
+    torch.cuda.synchronize()
+    scalar_s = time.perf_counter() - t
+    f64_calls = (decode_scl_cuda.f64_launches, pac_list_decode_cuda.f64_launches)
+    cluster_calls = (decode_scl_cuda.cluster_launches, pac_list_decode_cuda.cluster_launches)
+    all_calls = (decode_scl_cuda.launches, pac_list_decode_cuda.launches)
+    plain = sum(f.cuda_calls for f in plains)
+    calls = (len(golden["llrs"]), SCALAR_FRAMES)
+    print(f"(d) the float64 scalar surface on a cluster: decode_scl M={M} on {len(golden['llrs'])} golden frames, "
+          f"PolarCode(64, 48, dega, L={M}) on {SCALAR_FRAMES} frames: {scalar_s:.3f} s (host clock); float64 K1/K3 "
+          f"launches {f64_calls}, on a cluster {cluster_calls}, in all {all_calls}, for {calls} decodes; plain "
+          f"decoders on CUDA {plain} times", flush=True)
+    check(f64_calls == cluster_calls == all_calls == calls,
+          f"the float64 scalar entry points launched {f64_calls} float64, {cluster_calls} cluster and {all_calls} "
+          f"kernels for {calls} decodes, not one float64 cluster launch a decode")
+    check(plain == 0, "a plain decoder ran on CUDA in the float64 scalar surface")
+    ref = decode_scl_batch(torch.from_numpy(golden["llrs"]).to(dev), g_info, M, CRC, dtype=f64)
+    for b, r in enumerate(scl):
+        want = ref.metrics[b].cpu().numpy()
+        check(np.array_equal(r["best_path_bits"], ref.best_path_bits[b].cpu().numpy())
+              and np.array_equal(r["best_path_info_llrs"], ref.best_path_info_llrs[b].cpu().numpy())
+              and np.array_equal(np.asarray(r["metrics"]), want[np.isfinite(want)]),
+              f"decode_scl float64 M={M} frame {b} differs from the plain float64 decoder")
+    want = pac_list_decode_batch(torch.from_numpy(pc_llr).to(dev), pc.polarcode_mask, [1], M,
+                                 crc_len=PAC_CRC[0], crc_poly=PAC_CRC[1], dtype=f64)["extracted"].cpu().numpy()
+    check(np.array_equal(np.stack(pac), want), f"PolarCode float64 L={M} differs from the plain float64 batch")
+    print(f"  decode_scl float64 M={M} equal to the plain float64 decoder (bits, info LLRs, metrics); PolarCode "
+          f"L={M} on {SCALAR_FRAMES} frames equal to the plain float64 batch; "
+          f"{int(sum(np.array_equal(p, m) for p, m in zip(pac, msgs)))} of {SCALAR_FRAMES} PolarCode frames decoded "
+          f"the sent message", flush=True)
+
+    # ---- (e) times with CUDA events, each float64 kernel beside its float32 twin ----
+    lap("(e)")
+    print(f"float64 cluster times on {smi}:")
+    n_p, k_p, crc_p = PAC_CODES[128]
+    p_mask = pac_mask(n_p, k_p + crc_p[0])
+    entries = {}
+    for M, B in F64C_TIME:
+        llr64 = torch.from_numpy(make_llrs(np.random.default_rng(5), B, 5.0, info, dtype=np.float64)[0]).to(dev)
+        big = []
+        ms64 = cuda_time_ms(lambda: decode_scl_cuda(llr64, info, M, CRC), reps=2, warmup=1, keep=big)
+        ms32 = f32_ms["scl"][M]
+        g, _, at_once = scl_cuda.launch_plan(N, K, M, B, 8)
+        g32, _, at32 = scl_cuda.launch_plan(N, K, M, B)
+        r, st, ld = regs["scl_cluster_kernel<best-only, f64>"]
+        b_ms, b_by = bound(*scl_work(info, M, B, elem=8), FP64_OPS_PER_S)
+        line = (f"  K1 on a cluster P(128,64) M={M} CRC B={B} 5.0 dB: float64 {ms64:.4f} ms, float32 {ms32:.4f} ms "
+                f"(phase {15 if M <= 8192 else 17}, {ms64 / ms32:.2f}x); bound {b_ms:.6f} ms ({b_by}, float64 at "
+                f"{FP64_OPS_PER_S / 1e12:g} TFLOP/s); {r} registers, spills {st} B stores / {ld} B loads; "
+                f"{scl_cuda.frame_bytes(N, K, M, g, 8)} B shared a block at G={g}, {at_once} clusters at once "
+                f"(float32 {scl_cuda.frame_bytes(N, K, M, g32)} B at G={g32}, {at32})")
+        if M == F64C_TIME[0][0]:
+            plain_ms = cuda_time_ms(lambda: decode_scl_batch(llr64, info, M, CRC, dtype=f64), reps=1, warmup=0)
+            entries["scl"] = (ms64, plain_ms, b_ms, b_by)
+            line += f"; plain float64 {plain_ms:.4f} ms"
+        print(line, flush=True)
+        timed_batch_check(lambda x: decode_scl_cuda(x, info, M, CRC), llr64, scl_cuda.BEST_FIELDS,
+                          f"(e) K1 float64 M={M}", big[0])
+    for L, B in F64C_TIME:
+        x64 = pac_llrs(np.random.default_rng(6), B, 2.5, PAC_CODES[128], PAC_GEN, p_mask, dev, dtype=np.float64)
+        big = []
+        ms64 = cuda_time_ms(lambda: pac_list_decode_cuda(x64, p_mask, PAC_GEN, L, *crc_p), reps=2, warmup=1,
+                            keep=big)
+        ms32 = f32_ms["pac"][L]
+        g, _, at_once = pac_cuda.launch_plan(n_p, k_p + crc_p[0], L, 8)
+        g32, _, at32 = pac_cuda.launch_plan(n_p, k_p + crc_p[0], L)
+        r, st, ld = regs["pac_cluster_kernel<best-only, f64>"]
+        b_ms, b_by = bound(*pac_work(p_mask, L, B, elem=8), FP64_OPS_PER_S)
+        line = (f"  K3 on a cluster PAC(128,64)+CRC-16 L={L} B={B} 2.5 dB: float64 {ms64:.4f} ms, float32 "
+                f"{ms32:.4f} ms (phase {15 if L <= 8192 else 17}, {ms64 / ms32:.2f}x); bound {b_ms:.6f} ms ({b_by}); "
+                f"{r} registers, spills {st} B stores / {ld} B loads; "
+                f"{pac_cuda.frame_bytes(n_p, k_p + crc_p[0], L, g, 8)} B shared a block at G={g}, {at_once} clusters "
+                f"at once (float32 G={g32}, {at32})")
+        if L == F64C_TIME[0][0]:
+            plain_ms = cuda_time_ms(lambda: pac_list_decode_batch(x64, p_mask, PAC_GEN, L, crc_len=crc_p[0],
+                                                                  crc_poly=crc_p[1], dtype=f64), reps=1, warmup=0)
+            entries["pac"] = (ms64, plain_ms, b_ms, b_by)
+            line += f"; plain float64 {plain_ms:.4f} ms"
+        print(line, flush=True)
+        timed_batch_check(lambda x: pac_list_decode_cuda(x, p_mask, PAC_GEN, L, *crc_p), x64,
+                          ("extracted", "crc_pass"), f"(e) K3 float64 L={L}", big[0])
+    for entry, (r, st, ld) in sorted(regs.items()):
+        print(f"  ptxas {entry}: {r} registers, {st} B spill stores, {ld} B spill loads")
+
+    # ---- (f) the float32 kernels' SASS against the parent's ----
+    if "out" in SASS_OUT:
+        rows = [ln.strip() for ln in SASS_OUT["out"].splitlines() if ln.startswith("  ") and ": " in ln]
+        moved = [ln for ln in rows if "SASS lines differ" in ln]
+        new = [ln for ln in rows if "only in this checkout" in ln and "_cluster_kernel<" in ln and "double" in ln]
+        print(f"(f) SASS against the parent: {len(moved)} kernels moved; the {len(new)} float64 cluster kernels "
+              f"only in this checkout")
+        check(not moved, f"kernels whose SASS moved: {moved[:6]}")
+        check(len(new) == 4, f"float64 cluster kernels only in this checkout: {new}")
+    else:
+        print("(f) SASS: no parent checkout in smoke_checkout/parent here; `tools/compare_sass.py --repo <parent>` "
+              "holds the float32 kernels to the parent's in a call of their own (PERF.md, §6)")
+    print(f"phase float64_on_cluster: {time.perf_counter() - t_phase:.1f} s")
+
+    names = {"scl": ("scl_decode (float64, on a cluster: M 1025-16384)", "polar_code_tpu_torch/csrc/scl_decode.cu",
+                     "polar_code_tpu/ops/scl_pallas.py:293"),
+             "pac": ("pac_decode (float64, on a cluster: L 1025-16384)", "polar_code_tpu_torch/csrc/pac_decode.cu",
+                     "polar_code_tpu/legacy/pac_pallas.py:59")}
+    launches = {"scl": cluster_calls[0], "pac": cluster_calls[1]}
     errors = {"scl": k1_err, "pac": k3_err}
     return [{"name": names[k][0], "route": "cuda", "source": names[k][1], "replaces": names[k][2],
              "launches": launches[k], "max_abs_err": errors[k], "ms": entries[k][0], "plain_ms": entries[k][1],
@@ -5679,10 +6019,10 @@ def main():
             sass.wait()
 
     # ---- 17. list sizes past 8192 ----
-    f64_pool, collect_f64 = start_f64_deep_plain(dev)  # phase 21's plain calls at N=8192, beside phase 17
+    f64_pool, collect_f64 = start_f64_deep_plain(dev)  # phases 21's and 22's plain calls, beside phase 17
     f64_long = {}
     try:
-        list16_entries, fer16 = list_sizes_16k(dev, smi, beside=lambda: f64_long.update(collect_f64()))
+        list16_entries, fer16 = list_sizes_16k(dev, smi, beside=lambda: f64_long.update(refs=collect_f64()))
         phase_done("17 list_sizes_16k")
     finally:
         f64_pool.shutdown(wait=True, cancel_futures=True)
@@ -5702,10 +6042,17 @@ def main():
     phase_done("20 float64_on_card")
 
     # ---- 21. float64 over warps ----
-    f64_deep_entries = float64_over_warps(dev, smi, f64_long)
+    f64_deep_entries = float64_over_warps(dev, smi, f64_long["refs"][0])
     phase_done("21 float64_over_warps")
 
-    # ---- 22. result lines ----
+    # ---- 22. float64 on a cluster ----
+    f64_cluster_entries = float64_on_cluster(
+        dev, smi, f64_long["refs"][1],
+        {"scl": {2048: cluster_entries[0]["ms"], 16384: list16_entries[0]["ms"]},
+         "pac": {2048: cluster_entries[1]["ms"], 16384: list16_entries[1]["ms"]}})
+    phase_done("22 float64_on_cluster")
+
+    # ---- 23. result lines ----
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by = nms_times[f"{IRA[0]} two-min 2.5 dB B=4096"]
     print(json.dumps({"kernels": [{
         "name": "scl_decode",
@@ -5745,7 +6092,8 @@ def main():
         "bound_by": pac_bound_by,
         "library_ms": None,
     }] + wide_entries + deep_entries + cluster_entries + long_entries + list16_entries
-                      + list32_entries + list64_entries + f64_entries + f64_deep_entries}))
+                      + list32_entries + list64_entries + f64_entries + f64_deep_entries
+                      + f64_cluster_entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind, "count": count}}))
     return 0

@@ -625,6 +625,14 @@ __device__ __forceinline__ void block_sort_keys(void* keys, Key k0, Key k1, int 
 // before a fork's sort and read after its barriers with ld.global.cg), and
 // only level n stays in shared memory (G = n − 1 at every N).
 //
+// Float64 (one path a thread only: M 1025..16384 at N <= 8192).  The same
+// body with the LLRs' float type F double: rows, leaf and metrics in
+// double, and the sort on the pair keys (metric, index), `DKey`, three
+// buffers of the metrics double[2048] with the indices uint32[2048] beside
+// them (24 KB a buffer, 72 KB for three, where float32's take 48 KB), and
+// each published word set an 8-byte leaf before the 32-bit words
+// (`cluster_layout(..., elem)`).
+//
 // The cluster barriers (barrier.cluster arrive.release / wait.acquire):
 // one a cross-block sort stage and one for the sorted keys (so 2, 4, 7 and
 // 11 an info phase at P = 4096, 8192, 16384 and 32768, and 11 at 65536 and
@@ -654,6 +662,8 @@ __device__ __forceinline__ void block_sort_keys(void* keys, Key k0, Key k1, int 
 #define CLUSTER_MAX_BLOCKS 16  // past the portable 8, where the kernel allows it (`allow_cluster`)
 #define CLUSTER_MAX_PPT 4      // paths a thread at most: two past M = 16384, four past 32768
 #define CLUSTER_MAX_M (CLUSTER_THREADS * CLUSTER_MAX_BLOCKS * CLUSTER_MAX_PPT)
+// the float64 instantiations' list sizes: one path a thread of a cluster at most
+#define F64_MAX_M (CLUSTER_THREADS * CLUSTER_MAX_BLOCKS)
 
 // Paths a thread of a cluster frame: the least power of two at which 16
 // blocks of 1024 threads hold M paths (one up to 16384, two up to 32768,
@@ -703,16 +713,25 @@ __host__ __device__ __forceinline__ int cluster_exchanges(int P) {
   return x;
 }
 
+// 64-bit words of a key buffer of `keys` sort keys: 8 bytes a key, or 12
+// a float64 pair key (its metric double, and its index uint32 in the
+// buffer's second part, `store_key_pair`).
+template <typename Key>
+__host__ __device__ constexpr int key_buffer_words(int keys) {
+  return std::is_same<Key, DKey>::value ? keys * 3 / 2 : keys;
+}
+
 // Byte offsets of one block's regions in its dynamic shared memory, each
 // 16-byte aligned, for its PATHS = 1024·PPT paths: two σ tables
 // [PATHS][row] (2n−2 fields of `ClusterEntry<PPT>` a path, a row rounded to
 // 4 bytes; none past one path a thread, whose σ is in global scratch),
-// three buffers of 2·PATHS sort keys u64, two sets of `words` 32-bit values
-// a path (the published leaf, syndrome and, in PAC, shift register; none at
-// four paths a thread, `words_global`), the LLR rows float
-// [PATHS][(N>>G)−1] and partial-sum rows u8 [PATHS][(N>>G)−1] of levels
-// G+1..n, and the selected rank.  `ops/scl_cuda.py::cluster_block_bytes`
-// is the same reckoning.
+// three buffers of 2·PATHS sort keys (u64; float64 pair keys, 12 bytes),
+// two sets of `words` published values a path (the leaf of `elem` bytes,
+// then the 32-bit syndrome and, in PAC, shift register; none at four paths
+// a thread, `words_global`), the LLR rows [PATHS][(N>>G)−1] of `elem`-byte
+// entries and partial-sum rows u8 [PATHS][(N>>G)−1] of levels G+1..n, and
+// the selected rank.  `elem`: 4 (float32) or 8 (float64, one path a thread
+// only).  `ops/scl_cuda.py::cluster_block_bytes` is the same reckoning.
 struct ClusterLayout {
   int sig, sig2, keys, words, ls, bs, sel, total;
   int sig_row;  // bytes of a path's σ row: 4..60 (16-bit fields), 8..120 (32-bit), a multiple of 4
@@ -720,7 +739,7 @@ struct ClusterLayout {
 };
 
 template <int PPT = 1>
-__host__ __device__ __forceinline__ ClusterLayout cluster_layout(int N, int n, int G, int words) {
+__host__ __device__ __forceinline__ ClusterLayout cluster_layout(int N, int n, int G, int words, int elem = 4) {
   constexpr int PATHS = CLUSTER_THREADS * PPT;
   ClusterLayout c;
   const int ss = (N >> G) - 1;
@@ -729,10 +748,10 @@ __host__ __device__ __forceinline__ ClusterLayout cluster_layout(int N, int n, i
   c.sig = 0;
   c.sig2 = PPT == 1 ? round16(CLUSTER_THREADS * c.sig_row) : 0;
   c.keys = 2 * c.sig2;
-  c.words = c.keys + 3 * 8 * CLUSTER_KEYS * PPT;
-  c.word_set = words_global<PPT>() ? 0 : words * 4 * PATHS;
+  c.words = c.keys + 3 * (elem == 8 ? 12 : 8) * CLUSTER_KEYS * PPT;
+  c.word_set = words_global<PPT>() ? 0 : (elem + 4 * (words - 1)) * PATHS;
   c.ls = c.words + 2 * c.word_set;
-  c.bs = c.ls + round16(4 * PATHS * ss);
+  c.bs = c.ls + round16(elem * PATHS * ss);
   c.sel = c.bs + round16(PATHS * ss);
   c.total = c.sel + 16;
   return c;
@@ -816,10 +835,11 @@ __device__ __forceinline__ void global_sigma_fork(const DeepSigma<T>& sig, T* ne
 // row, rows `sstride` apart; another block's row through DSMEM); else in
 // global scratch (`src` path 0's row, rows `sstride` apart, 0 for the
 // channel), read from L2.  A g takes dst's own partial sums as its left
-// bits.  PPT paths a thread: the block's Mr <= 1024·PPT paths.
-template <bool SHARED, int PPT = 1, typename E>
-__device__ __forceinline__ void cluster_fg_pass(float* dst, const uint8_t* dbits, int dstride,
-                                                const float* src, int sstride, const E* via,
+// bits.  PPT paths a thread: the block's Mr <= 1024·PPT paths; F the LLRs'
+// float type.
+template <bool SHARED, int PPT = 1, typename E, typename F>
+__device__ __forceinline__ void cluster_fg_pass(F* dst, const uint8_t* dbits, int dstride,
+                                                const F* src, int sstride, const E* via,
                                                 int vrow, bool is_g, int lh, int base, int rank,
                                                 int Mr, int tid) {
   const int half = 1 << lh;
@@ -830,13 +850,13 @@ __device__ __forceinline__ void cluster_fg_pass(float* dst, const uint8_t* dbits
   for (int t = tid; t < total; t += CLUSTER_THREADS) {
     const int lm = t >> lh;
     const int e = t & (half - 1);
-    float a, b;
+    F a, b;
     if (SHARED) {
-      const float* row = via ? cluster_row<PPT>(src, (int)via[lm * vrow], sstride, rank) : src + lm * sstride;
+      const F* row = via ? cluster_row<PPT>(src, (int)via[lm * vrow], sstride, rank) : src + lm * sstride;
       a = row[e];
       b = row[e + half];
     } else {
-      const float* row = src + (ClusterOff<PPT>)(via ? (int)via[lm * vrow] : base + lm) * sstride;
+      const F* row = src + (ClusterOff<PPT>)(via ? (int)via[lm * vrow] : base + lm) * sstride;
       a = __ldcg(row + e);
       b = __ldcg(row + e + half);
     }
@@ -872,6 +892,39 @@ __device__ __forceinline__ void cluster_chain_pass(uint8_t* st, int ststride, co
   }
 }
 
+// A thread's keys `at` and `at` + 1 of a key buffer `keys` of P keys
+// (`store_key_pair`'s layout): `store` writes them, `load_of(r)` reads
+// rank r's through DSMEM.  Of 64-bit keys the slot is one 16-byte pointer,
+// taken once; of pair keys the buffer, mapped to rank r as a whole.
+template <typename Key>
+struct KeySlot;
+
+template <>
+struct KeySlot<unsigned long long> {
+  ulonglong2* p;
+  __device__ __forceinline__ KeySlot(unsigned long long* keys, int P, int at)
+      : p(reinterpret_cast<ulonglong2*>(keys + at)) {}
+  __device__ __forceinline__ void store(unsigned long long k0, unsigned long long k1) const {
+    *p = make_ulonglong2(k0, k1);
+  }
+  __device__ __forceinline__ void load_of(int r, unsigned long long& k0, unsigned long long& k1) const {
+    const ulonglong2 o = *cooperative_groups::this_cluster().map_shared_rank(p, r);
+    k0 = o.x;
+    k1 = o.y;
+  }
+};
+
+template <>
+struct KeySlot<DKey> {
+  unsigned long long* keys;
+  int P, at;
+  __device__ __forceinline__ KeySlot(unsigned long long* keys, int P, int at) : keys(keys), P(P), at(at) {}
+  __device__ __forceinline__ void store(DKey k0, DKey k1) const { store_key_pair(keys, P, at, k0, k1); }
+  __device__ __forceinline__ void load_of(int r, DKey& k0, DKey& k1) const {
+    load_key_pair(cooperative_groups::this_cluster().map_shared_rank(keys, r), P, at, k0, k1);
+  }
+};
+
 // block_sort_keys over a cluster: the P = sort_keys(M) keys (P >= 4096),
 // thread tid of rank r holding keys 2(r·1024 + tid) and +1 in registers.
 // A stage of distance j >= 2048 pairs keys of two blocks: each stores its
@@ -887,34 +940,38 @@ __device__ __forceinline__ void cluster_chain_pass(uint8_t* st, int ststride, co
 // block_sort_keys.  After the last merge's first stage the upper half's
 // blocks stop, and the lower half is stored to the next exchange buffer
 // behind a cluster barrier: the key of rank q is then rank q >> 11's entry
-// q & 2047 of the buffer returned (`cluster_key`).  Every thread of the
+// q & 2047 of the buffer returned (`cluster_key`).  Key: a 64-bit key, or a
+// float64 pair key (`DKey`: buffers of 2048 metrics and 2048 indices,
+// `store_key_pair`, `key_buffer_words`); a cross-block stage takes the
+// thread's slot of the exchange buffer (`KeySlot`) once, before the cluster
+// barrier, for its store and for its partner's read.  Every thread of the
 // cluster calls it, with the same xc: the launch's exchanges before it.
-__device__ __forceinline__ unsigned long long* cluster_sort_keys(unsigned long long* keys,
-                                                                 unsigned long long k0,
-                                                                 unsigned long long k1, int P,
-                                                                 int rank, int tid, int xc) {
-  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+template <typename Key>
+__device__ __forceinline__ unsigned long long* cluster_sort_keys(unsigned long long* keys, Key k0, Key k1,
+                                                                 int P, int rank, int tid, int xc) {
+  constexpr int KB = key_buffer_words<Key>(CLUSTER_KEYS);  // 64-bit words a buffer
   const int base = 2 * (rank * CLUSTER_THREADS + tid);
   const int lbase = 2 * tid;
-  unsigned long long* const Y = keys + 2 * CLUSTER_KEYS;
+  unsigned long long* const Y = keys + 2 * KB;
   bool on = true;
   int ib = 0;  // in-block stages since the last cross-block one: Y at even counts
-  auto X = [&](int c) { return keys + (c & 1) * CLUSTER_KEYS; };
-  auto exchange = [](unsigned long long& k, unsigned long long o, bool keep_min) {
+  auto X = [&](int c) { return keys + (c & 1) * KB; };
+  auto exchange = [](Key& k, Key o, bool keep_min) {
     k = (o < k) == keep_min ? o : k;
   };
   for (int size = 2; size <= P; size <<= 1) {
     const bool up = (base & size) == 0;
     int j = size >> 1;
     for (; j >= CLUSTER_KEYS; j >>= 1) {  // across blocks
-      ulonglong2* buf = reinterpret_cast<ulonglong2*>(X(xc) + lbase);
-      if (on) *buf = make_ulonglong2(k0, k1);
+      const KeySlot<Key> slot(X(xc), CLUSTER_KEYS, lbase);
+      if (on) slot.store(k0, k1);
       cluster_barrier();
       if (on) {
         const bool keep_min = ((base & j) == 0) == up;
-        const ulonglong2 o = *cluster.map_shared_rank(buf, rank ^ (j / CLUSTER_KEYS));
-        exchange(k0, o.x, keep_min);
-        exchange(k1, o.y, keep_min);
+        Key o0, o1;
+        slot.load_of(rank ^ (j / CLUSTER_KEYS), o0, o1);
+        exchange(k0, o0, keep_min);
+        exchange(k1, o1, keep_min);
       }
       ++xc;
       ib = 0;
@@ -922,13 +979,14 @@ __device__ __forceinline__ unsigned long long* cluster_sort_keys(unsigned long l
     }
     for (; j >= 64; j >>= 1) {  // across warps of the block
       unsigned long long* buf = (ib++ & 1) ? X(xc) : Y;
-      if (on) *reinterpret_cast<ulonglong2*>(buf + lbase) = make_ulonglong2(k0, k1);
+      if (on) store_key_pair(buf, CLUSTER_KEYS, lbase, k0, k1);
       __syncthreads();
       if (on) {
         const bool keep_min = ((base & j) == 0) == up;
-        const ulonglong2 o = *reinterpret_cast<const ulonglong2*>(buf + (lbase ^ j));
-        exchange(k0, o.x, keep_min);
-        exchange(k1, o.y, keep_min);
+        Key o0, o1;
+        load_key_pair(buf, CLUSTER_KEYS, lbase ^ j, o0, o1);
+        exchange(k0, o0, keep_min);
+        exchange(k1, o1, keep_min);
       }
       if (size == P) on = on && base < P / 2;
     }
@@ -937,18 +995,18 @@ __device__ __forceinline__ unsigned long long* cluster_sort_keys(unsigned long l
       for (int jj = 32; jj >= 2; jj >>= 1) {  // within the warp
         if (jj < size) {
           const bool keep_min = ((base & jj) == 0) == up;
-          exchange(k0, __shfl_xor_sync(FULL_MASK, k0, jj / 2), keep_min);
-          exchange(k1, __shfl_xor_sync(FULL_MASK, k1, jj / 2), keep_min);
+          exchange(k0, shfl_xor_key(k0, jj / 2), keep_min);
+          exchange(k1, shfl_xor_key(k1, jj / 2), keep_min);
         }
       }
       const bool swap = (k0 > k1) == up;  // j = 1, in registers
-      const unsigned long long lo = swap ? k1 : k0;
+      const Key lo = swap ? k1 : k0;
       k1 = swap ? k0 : k1;
       k0 = lo;
     }
   }
   unsigned long long* sorted = X(xc);  // Y and this one's stage reads are behind a barrier
-  if (on) *reinterpret_cast<ulonglong2*>(sorted + lbase) = make_ulonglong2(k0, k1);
+  if (on) store_key_pair(sorted, CLUSTER_KEYS, lbase, k0, k1);
   cluster_barrier();
   return sorted;
 }
@@ -1058,10 +1116,10 @@ __device__ __forceinline__ unsigned long long* cluster_sort_keysn(unsigned long 
 }
 
 // The sort of a fork's or the final rank's keys at PPT paths a thread,
-// k[0..2PPT−1] the thread's: cluster_sort_keys, or cluster_sort_keysn.
-template <int PPT>
-__device__ __forceinline__ unsigned long long* cluster_sort(unsigned long long* keys,
-                                                            unsigned long long (&k)[2 * PPT], int P,
+// k[0..2PPT−1] the thread's: cluster_sort_keys, or cluster_sort_keysn
+// (64-bit keys only: float64 runs one path a thread).
+template <int PPT, typename Key>
+__device__ __forceinline__ unsigned long long* cluster_sort(unsigned long long* keys, Key (&k)[2 * PPT], int P,
                                                             int rank, int tid, int xc) {
   if constexpr (PPT == 1)
     return cluster_sort_keys(keys, k[0], k[1], P, rank, tid, xc);
@@ -1070,11 +1128,16 @@ __device__ __forceinline__ unsigned long long* cluster_sort(unsigned long long* 
 }
 
 // The key of rank q after cluster_sort: rank q / (2048·PPT)'s
-// sorted[q % (2048·PPT)].
-template <int PPT = 1>
-__device__ __forceinline__ unsigned long long cluster_key(unsigned long long* sorted, int q) {
-  return *cooperative_groups::this_cluster().map_shared_rank(
-      sorted + (q & (CLUSTER_KEYS * PPT - 1)), q >> (CLUSTER_SHIFT + 1 + ppt_shift(PPT)));
+// sorted[q % (2048·PPT)]; a pair key's metric and index from that rank's
+// buffer (`key_at`).
+template <int PPT = 1, typename Key = unsigned long long>
+__device__ __forceinline__ Key cluster_key(unsigned long long* sorted, int q) {
+  const int owner = q >> (CLUSTER_SHIFT + 1 + ppt_shift(PPT));
+  if constexpr (std::is_same<Key, DKey>::value)
+    return key_at<DKey>(cooperative_groups::this_cluster().map_shared_rank(sorted, owner), CLUSTER_KEYS * PPT,
+                        q & (CLUSTER_KEYS * PPT - 1));
+  else
+    return *cooperative_groups::this_cluster().map_shared_rank(sorted + (q & (CLUSTER_KEYS * PPT - 1)), owner);
 }
 
 // ---- host side ----

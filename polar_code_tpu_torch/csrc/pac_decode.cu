@@ -85,7 +85,7 @@
 // shared memory holds tree levels.  Past n = 13 a 16-bit σ row outgrows the
 // fork's 12 registers, and pac_deep_wide_kernel copies it in two halves.
 //
-// On a cluster, the instantiations pac_cluster_kernel<LIST> (L 1025..16384):
+// On a cluster, the instantiations pac_cluster_kernel<LIST, F> (L 1025..16384):
 // the SCL kernel's cluster layout (`scl_decode.cu`, `list_decode.cuh`), a
 // frame over a thread-block cluster of 2, 4, 8 or 16 blocks of 1024 threads,
 // levels G+1..n of a block's slots in its shared memory and levels 1..G in
@@ -169,8 +169,12 @@
 // pac_deep_kernel<T, LIST, double> (L 33..1024 at N <= 8192) is K1's
 // over-warps float64 body's counterpart: the pair keys through
 // `block_sort_keys<DKey>`, a double leaf published, double metrics ranked.
-// On a cluster and past N = 8192 the kernel is float32 only (the wrapper
-// raises).
+// On a cluster at one slot a thread pac_cluster_kernel<LIST, double> (L
+// 1025..16384 at N <= 8192) is K1's float64 cluster body's counterpart:
+// the pair keys through `cluster_sort_keys<DKey>`, each published set an
+// 8-byte leaf (read for its sign) before the syndrome and shift register
+// (214,032 B a block at N = 8192, G = n − 1).  Past L = 16384 and past N =
+// 8192 the kernel is float32 only (the wrapper raises).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -783,22 +787,24 @@ __global__ void __launch_bounds__(DEEP_MAX_M) pac_deep_wide_kernel(PAC_DEEP_PARA
 // memory (in global scratch at four slots a thread, `words_g`), and σ
 // there too at one slot a thread (in global scratch past it, `sigma_g`);
 // the fork's parent values through DSMEM (or L2).  It computes what
-// pac_decode_kernel computes.
-template <bool LIST, int PPT>
+// pac_decode_kernel computes.  F: the LLRs' float type (double at one slot
+// a thread: rows, leaf and metrics in double, the sort on the pair keys).
+template <bool LIST, int PPT, typename F>
 __device__ __forceinline__ void pac_cluster_decode(
-    const float* __restrict__ llr, const uint32_t* __restrict__ hcols,
+    const F* __restrict__ llr, const uint32_t* __restrict__ hcols,
     const int* __restrict__ sched, const int* __restrict__ phase_of,
-    float* glob_llr,     // [B, L, N-(N>>G)]: LLR levels 1..G, null when G == 0
+    F* glob_llr,         // [B, L, N-(N>>G)]: LLR levels 1..G, null when G == 0
     uint8_t* glob_bits,  // [B, L, N-(N>>G)]: edge-bit levels 1..G
     ClusterEntry<PPT>* trace_idx,  // [B, Kp, L]: the trace, in global scratch
     int8_t* __restrict__ out_bits, uint8_t* __restrict__ out_pass, const int* __restrict__ out_pos,
     const int* __restrict__ u_pos, int8_t* __restrict__ list_v, int8_t* __restrict__ list_bits,
-    float* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int Kp, int L,
+    F* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int Kp, int L,
     int G, unsigned mem_mask, unsigned tap_mask, int use_crc,
     ClusterEntry<PPT>* sigma_g,  // [B, 2, L, row]: σ's two tables past one slot a thread, else null
     uint32_t* words_g) {  // [B, 2, 3, L]: the published word sets at four slots a thread, else null
   using Off = ClusterOff<PPT>;
   using E = ClusterEntry<PPT>;  // a σ field and a trace entry
+  using Key = KeyOf<F>;
   constexpr int PATHS = CLUSTER_THREADS * PPT;  // slots a block
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
@@ -818,7 +824,7 @@ __device__ __forceinline__ void pac_cluster_decode(
   const int Lr = L - base < 0 ? 0 : L - base < PATHS ? L - base : PATHS;
   const int P = sort_keys(L);
 
-  const ClusterLayout lay = cluster_layout<PPT>(N, n, G, 3);
+  const ClusterLayout lay = cluster_layout<PPT>(N, n, G, 3, sizeof(F));
   const int SS = (N >> G) - 1;  // entries of a slot's shared row: levels G+1..n
   const int SG = N - (N >> G);  // entries of a slot's global row: levels 1..G
   // σ after i forks: table i & 1 (the other is the next fork's target),
@@ -831,13 +837,13 @@ __device__ __forceinline__ void pac_cluster_decode(
                           lay.sig_row / (int)sizeof(E), lay.sig_row / 4};
   };
   unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem + lay.keys);
-  float* Ls = reinterpret_cast<float*>(smem + lay.ls);
+  F* Ls = reinterpret_cast<F*>(smem + lay.ls);
   uint8_t* Bs = smem + lay.bs;
   int* selS = reinterpret_cast<int*>(smem + lay.sel);
-  float* Lg = glob_llr + frame * L * SG;  // unused when G == 0
+  F* Lg = glob_llr + frame * L * SG;  // unused when G == 0
   uint8_t* Bg = glob_bits + frame * L * SG;
   E* TI = trace_idx + frame * Kp * L;
-  const float* ch = llr + frame * N;
+  const F* ch = llr + frame * N;
   auto so = [&](int l) { return (N >> G) - (N >> (l - 1)); };
   auto go = [&](int l) { return N - (N >> (l - 1)); };
   // levels 1..G in global scratch: a path's row of SG entries up to two
@@ -848,19 +854,27 @@ __device__ __forceinline__ void pac_cluster_decode(
   constexpr bool BY_LEVEL = PPT >= 4;
   auto glev = [&](auto* g, int l) { return g + (Off)L * go(l); };
   auto gw = [&](int l) { return BY_LEVEL ? N >> l : SG; };
-  // word k (leaf, syndrome, shift register) of published set i (an info
-  // phase's parity), from the block's first slot: in shared memory, or at
-  // four slots a thread in global scratch
+  // the published leaf (k = 0, of F) and 32-bit word k = 1, 2 (syndrome,
+  // shift register) of set i (an info phase's parity), from the block's
+  // first slot: in shared memory, the leaves first, or at four slots a
+  // thread in global scratch
+  auto leafS = [&](int i) {
+    if constexpr (words_global<PPT>())
+      return reinterpret_cast<F*>(words_g + (frame * 2 + i) * 3 * L + base);
+    else
+      return reinterpret_cast<F*>(smem + lay.words + i * lay.word_set);
+  };
   auto wordS = [&](int i, int k) {
     if constexpr (words_global<PPT>())
       return words_g + ((frame * 2 + i) * 3 + k) * L + base;
     else
-      return reinterpret_cast<unsigned*>(smem + lay.words + i * lay.word_set + k * 4 * PATHS);
+      return reinterpret_cast<unsigned*>(smem + lay.words + i * lay.word_set +
+                                         ((int)sizeof(F) + 4 * (k - 1)) * PATHS);
   };
   // slot p's entry of a published word whose block-local start is `own`:
   // another block's through DSMEM, or from L2 (written before the sort's
   // cluster barriers)
-  auto published = [&](unsigned* own, int p) {
+  auto published = [&](auto* own, int p) {
     if constexpr (words_global<PPT>())
       return __ldcg(own - base + p);
     else
@@ -872,12 +886,12 @@ __device__ __forceinline__ void pac_cluster_decode(
     if (act[k]) sigma(0).init(k * CLUSTER_THREADS + tid, m[k], 2 * n - 2);
   if (m[0] == 0) *selS = L;
   __syncthreads();
-  float pm[PPT];      // metric of slot m[k]
+  F pm[PPT];          // metric of slot m[k]
   unsigned reg[PPT];  // shift register of slot m[k]
   uint32_t syn[PPT];  // CRC syndrome of slot m[k]
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    pm[k] = (m[k] == 0) ? 0.f : PAC_BIG;
+    pm[k] = (m[k] == 0) ? F(0) : big<F>();
     reg[k] = 0;
     syn[k] = 0;
   }
@@ -902,7 +916,7 @@ __device__ __forceinline__ void pac_cluster_decode(
     // ---- f/g updates down to level n−1, this block's slots ----
     for (int l = l0; l < n; ++l) {
       const bool is_g = (p != 0) && (l == gl);
-      float* dst = l > G ? Ls + so(l) : BY_LEVEL ? glev(Lg, l) + (Off)base * gw(l) : Lg + (Off)base * SG + go(l);
+      F* dst = l > G ? Ls + so(l) : BY_LEVEL ? glev(Lg, l) + (Off)base * gw(l) : Lg + (Off)base * SG + go(l);
       const uint8_t* dbits = l > G ? Bs + so(l)
                                    : BY_LEVEL ? glev(Bg, l) + (Off)base * gw(l) : Bg + (Off)base * SG + go(l);
       const int ds = l > G ? SS : gw(l);
@@ -922,24 +936,24 @@ __device__ __forceinline__ void pac_cluster_decode(
     }
     // the leaf (level n) from the parent row
     const bool g_leaf = gl == n;
-    float leaf[PPT];
+    F leaf[PPT];
 #pragma unroll
     for (int k = 0; k < PPT; ++k) {
       const int lm = k * CLUSTER_THREADS + tid;
-      leaf[k] = 0.f;
+      leaf[k] = 0;
       if (act[k]) {
-        float a, b;
+        F a, b;
         if (n == 1) {
           a = ch[0];
           b = ch[1];
         } else {
           const int r = (g_leaf && (word >> 11 & 1)) ? sig.get(lm, n - 2) : m[k];
           if (n - 1 > G) {
-            const float* row = cluster_row<PPT>(Ls + so(n - 1), r, SS, rank);
+            const F* row = cluster_row<PPT>(Ls + so(n - 1), r, SS, rank);
             a = row[0];
             b = row[1];
           } else {
-            const float* row = BY_LEVEL ? glev(Lg, n - 1) + (Off)r * 2 : Lg + go(n - 1) + (Off)r * SG;
+            const F* row = BY_LEVEL ? glev(Lg, n - 1) + (Off)r * 2 : Lg + go(n - 1) + (Off)r * SG;
             a = __ldcg(row);
             b = __ldcg(row + 1);
           }
@@ -953,29 +967,29 @@ __device__ __forceinline__ void pac_cluster_decode(
     if (is_frozen) {
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        const int hard = leaf[k] < 0.f;
+        const int hard = leaf[k] < F(0);
         const int base_bit = __popc(reg[k] & tap_mask) & 1;  // edge bit for v = 0
         edge[k] = 0;
         if (act[k]) {
-          if (pm[k] < PAC_BIG && base_bit != hard) pm[k] = pm[k] + fabsf(leaf[k]);
+          if (pm[k] < big<F>() && base_bit != hard) pm[k] = pm[k] + abs_of(leaf[k]);
           reg[k] = (reg[k] << 1) & mem_mask;
           edge[k] = base_bit;
         }
       }
     } else {
       const int set = info_i & 1;
-      unsigned long long kk[2 * PPT];
+      Key kk[2 * PPT];
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        const float cg_ = pm[k];                                              // index m
-        const float cb = (pm[k] < PAC_BIG) ? pm[k] + fabsf(leaf[k]) : PAC_BIG;  // index L + m
+        const F cg_ = pm[k];                                                    // index m
+        const F cb = (pm[k] < big<F>()) ? pm[k] + abs_of(leaf[k]) : big<F>();  // index L + m
         if (act[k]) {
-          wordS(set, 0)[k * CLUSTER_THREADS + tid] = __float_as_uint(leaf[k]);
+          leafS(set)[k * CLUSTER_THREADS + tid] = leaf[k];
           wordS(set, 1)[k * CLUSTER_THREADS + tid] = syn[k];
           wordS(set, 2)[k * CLUSTER_THREADS + tid] = reg[k];
         }
-        kk[2 * k] = act[k] ? cand_key(cg_, m[k]) : ~0ull;
-        kk[2 * k + 1] = act[k] ? cand_key(cb, L + m[k]) : ~0ull;
+        kk[2 * k] = act[k] ? cand_key(cg_, m[k]) : pad_key(cg_);
+        kk[2 * k + 1] = act[k] ? cand_key(cb, L + m[k]) : pad_key(cg_);
       }
       unsigned long long* sorted =
           cluster_sort<PPT>(keys, kk, P, rank, tid, info_i * cluster_exchanges<PPT>(P));
@@ -985,11 +999,11 @@ __device__ __forceinline__ void pac_cluster_decode(
       int parent[PPT];
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        const unsigned long long key = cluster_key<PPT>(sorted, act[k] ? m[k] : 0);
+        const Key key = cluster_key<PPT, Key>(sorted, act[k] ? m[k] : 0);
         const int w = act[k] ? key_index(key) : 0;
         const int is_bad = w >= L;
         parent[k] = is_bad ? w - L : w;
-        const int hp = __uint_as_float(published(wordS(set, 0), parent[k])) < 0.f;
+        const int hp = published(leafS(set), parent[k]) < F(0);
         const unsigned rp = published(wordS(set, 2), parent[k]);
         const int bp = __popc(rp & tap_mask) & 1;
         const uint32_t sp = published(wordS(set, 1), parent[k]);
@@ -1056,20 +1070,20 @@ __device__ __forceinline__ void pac_cluster_decode(
 
   // ---- final stable sort of the list, CRC selection, backtrack ----
   unsigned* passS = wordS(info_i & 1, 1);
-  unsigned long long kk[2 * PPT];
+  Key kk[2 * PPT];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    if (act[k]) passS[k * CLUSTER_THREADS + tid] = use_crc && syn[k] == 0u && pm[k] < PAC_BIG;  // slot m passes
-    kk[2 * k] = act[k] ? cand_key(pm[k], m[k]) : ~0ull;
-    kk[2 * k + 1] = ~0ull;
+    if (act[k]) passS[k * CLUSTER_THREADS + tid] = use_crc && syn[k] == 0u && pm[k] < big<F>();  // slot m passes
+    kk[2 * k] = act[k] ? cand_key(pm[k], m[k]) : pad_key(pm[k]);
+    kk[2 * k + 1] = pad_key(pm[k]);
   }
   unsigned long long* sorted = cluster_sort<PPT>(keys, kk, P, rank, tid, info_i * cluster_exchanges<PPT>(P));
   // the thread of slot m < L: the key (metric, slot) of final rank m
-  unsigned long long fkey[PPT];
+  Key fkey[PPT];
   int slot_r[PPT];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    fkey[k] = act[k] ? cluster_key<PPT>(sorted, m[k]) : ~0ull;
+    fkey[k] = act[k] ? cluster_key<PPT, Key>(sorted, m[k]) : pad_key(pm[k]);
     slot_r[k] = act[k] ? key_index(fkey[k]) : 0;
     if (act[k] && published(passS, slot_r[k])) atomicMin(cluster.map_shared_rank(selS, 0), m[k]);
   }
@@ -1085,8 +1099,8 @@ __device__ __forceinline__ void pac_cluster_decode(
 #pragma unroll
     for (int k = 0; k < PPT; ++k) {
       if (act[k]) {
-        const float mr = key_metric(fkey[k]);
-        list_metrics[frame * L + m[k]] = mr < PAC_BIG ? mr : __int_as_float(0x7f800000);
+        const F mr = key_metric(fkey[k]);
+        list_metrics[frame * L + m[k]] = mr < big<F>() ? mr : inf_of(mr);
         int8_t* vrow = v + (Off)m[k] * N;
         int8_t* brow = list_bits + (frame * L + m[k]) * Kp;
         int slot = slot_r[k];
@@ -1119,43 +1133,44 @@ __device__ __forceinline__ void pac_cluster_decode(
     out_bits[frame * Kp + j] = (int8_t)__ldcg(TI + (Off)phase_of[j] * L);
 }
 
-#define PAC_CLUSTER_PARAMS(E)                                                                      \
-  const float* __restrict__ llr, const uint32_t* __restrict__ hcols,                               \
-      const int* __restrict__ sched, const int* __restrict__ phase_of, float* glob_llr,            \
+#define PAC_CLUSTER_PARAMS(E, F)                                                                   \
+  const F* __restrict__ llr, const uint32_t* __restrict__ hcols,                                   \
+      const int* __restrict__ sched, const int* __restrict__ phase_of, F* glob_llr,                \
       uint8_t* glob_bits, E* trace_idx, int8_t* __restrict__ out_bits,                             \
       uint8_t* __restrict__ out_pass, const int* __restrict__ out_pos,                             \
       const int* __restrict__ u_pos, int8_t* __restrict__ list_v, int8_t* __restrict__ list_bits,  \
-      float* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int Kp, int L,  \
+      F* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int Kp, int L,      \
       int G, unsigned mem_mask, unsigned tap_mask, int use_crc
 #define PAC_CLUSTER_ARGS                                                                           \
   llr, hcols, sched, phase_of, glob_llr, glob_bits, trace_idx, out_bits, out_pass, out_pos,        \
       u_pos, list_v, list_bits, list_metrics, list_best, N, n, Kp, L, G, mem_mask, tap_mask,       \
       use_crc
 
-// L 1025..16384: one slot a thread, σ in the blocks' shared memory
-template <bool LIST>
-__global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(PAC_CLUSTER_PARAMS(uint16_t)) {
-  pac_cluster_decode<LIST, 1>(PAC_CLUSTER_ARGS, nullptr, nullptr);
+// L 1025..16384: one slot a thread, σ in the blocks' shared memory; F:
+// float, or double (the float64 instantiation, N <= 8192)
+template <bool LIST, typename F>
+__global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_kernel(PAC_CLUSTER_PARAMS(uint16_t, F)) {
+  pac_cluster_decode<LIST, 1, F>(PAC_CLUSTER_ARGS, nullptr, nullptr);
 }
 
 // L 16385..32768: two slots a thread on a cluster of 16, σ in global scratch
 template <bool LIST>
-__global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_pair_kernel(PAC_CLUSTER_PARAMS(uint16_t),
+__global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_pair_kernel(PAC_CLUSTER_PARAMS(uint16_t, float),
                                                                            uint16_t* sigma_g) {
-  pac_cluster_decode<LIST, 2>(PAC_CLUSTER_ARGS, sigma_g, nullptr);
+  pac_cluster_decode<LIST, 2, float>(PAC_CLUSTER_ARGS, sigma_g, nullptr);
 }
 
 // L 32769..65536: four slots a thread on a cluster of 16, 32-bit trace
 // entries and σ fields, σ and the published words in global scratch
 template <bool LIST>
-__global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_quad_kernel(PAC_CLUSTER_PARAMS(uint32_t),
+__global__ void __launch_bounds__(CLUSTER_THREADS) pac_cluster_quad_kernel(PAC_CLUSTER_PARAMS(uint32_t, float),
                                                                            uint32_t* sigma_g,
                                                                            uint32_t* words_g) {
-  pac_cluster_decode<LIST, 4>(PAC_CLUSTER_ARGS, sigma_g, words_g);
+  pac_cluster_decode<LIST, 4, float>(PAC_CLUSTER_ARGS, sigma_g, words_g);
 }
 
 // every kernel argument but the σ masks, and the stream; F the LLRs' float
-// type (double only one path a lane at N <= 8192)
+// type (double at L <= 16384 and N <= 8192)
 template <typename F>
 struct ArgsOf {
   const F* llr;
@@ -1281,10 +1296,11 @@ int plan_deep_of(int L, int n, int frame_bytes, int max_block_smem, int* frames_
                    frames_per_sm);
 }
 
-template <bool LIST, int PPT>
-int launch_cluster_as(const Args& a, void* trace_idx, void* sigma, cudaStream_t stream) {
+// F double: one slot a thread only (the float64 instantiation)
+template <bool LIST, int PPT, typename F = float>
+int launch_cluster_as(const ArgsOf<F>& a, void* trace_idx, void* sigma, cudaStream_t stream) {
   using E = ClusterEntry<PPT>;
-  const ClusterLayout lay = cluster_layout<PPT>(a.N, a.n, a.G, 3);
+  const ClusterLayout lay = cluster_layout<PPT>(a.N, a.n, a.G, 3, sizeof(F));
   // levels 1..G in global scratch, G+1..n in each block's shared memory,
   // one frame a cluster; past one slot a thread σ in global scratch
   if (!trace_idx || (PPT > 1 && !sigma) || (a.G > 0 && (!a.glob_llr || !a.glob_bits)) || a.n > MAX_LEVELS ||
@@ -1293,7 +1309,7 @@ int launch_cluster_as(const Args& a, void* trace_idx, void* sigma, cudaStream_t 
   E* ti = static_cast<E*>(trace_idx);
   E* sg = static_cast<E*>(sigma);
   if constexpr (PPT == 1)
-    return launch_cluster_kernel(pac_cluster_kernel<LIST>, a.B, a.L, lay.total, stream, a.llr, a.hcols,
+    return launch_cluster_kernel(pac_cluster_kernel<LIST, F>, a.B, a.L, lay.total, stream, a.llr, a.hcols,
                                  a.sched, a.phase_of, a.glob_llr, a.glob_bits, ti, a.out_bits,
                                  a.out_pass, a.out_pos, a.u_pos, a.list_v, a.list_bits,
                                  a.list_metrics, a.list_best, a.N, a.n, a.Kp, a.L, a.G, a.mem_mask,
@@ -1408,11 +1424,14 @@ extern "C" int pac_decode_launch(const void* llr, const void* hcols, const void*
                                  int L, int G, unsigned mem_mask, unsigned tap_mask, int use_crc,
                                  int frame_bytes, int frames_per_block, int f64, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (f64) {  // float64 at n <= 13: one path a lane, L 1..32; over warps, L 33..1024
-    if (L < 1 || L > DEEP_MAX_M || n > 13) return (int)cudaErrorInvalidValue;
+  if (f64) {  // float64 at n <= 13: one path a lane, L 1..32; over warps, 33..1024; one a thread, 1025..16384
+    if (L < 1 || L > F64_MAX_M || n > 13) return (int)cudaErrorInvalidValue;
     const ArgsOf<double> d = args_of<double>(llr, hcols, sched, phase_of, glob_llr, glob_bits, out_bits, out_pass,
                                              out_pos, u_pos, list_v, list_bits, list_metrics, list_best, B, N, n,
                                              Kp, L, G, mem_mask, tap_mask, use_crc, frame_bytes, frames_per_block);
+    if (L > DEEP_MAX_M)
+      return d.list_v ? launch_cluster_as<true, 1>(d, trace_idx, sigma, st)
+                      : launch_cluster_as<false, 1>(d, trace_idx, sigma, st);
     if (L >= DEEP_MIN_M) return launch_deep(d, trace_idx, st);
     return launch_lane(d, trace_idx, st);
   }
@@ -1428,7 +1447,11 @@ extern "C" int pac_decode_launch(const void* llr, const void* hcols, const void*
 extern "C" int pac_launch_plan(int L, int n, int frame_bytes, int max_block_smem, int f64, int* frames_per_block,
                                int* frames_per_sm) {
   if (f64) {
-    if (L < 1 || L > DEEP_MAX_M || n > 13) return (int)cudaErrorInvalidValue;
+    if (L < 1 || L > F64_MAX_M || n > 13) return (int)cudaErrorInvalidValue;
+    if (L > DEEP_MAX_M) {  // frames_per_sm: the frames (clusters) the card runs at once
+      *frames_per_block = 1;
+      return plan_cluster(pac_cluster_kernel<false, double>, L, frame_bytes, max_block_smem, frames_per_sm);
+    }
     if (L >= DEEP_MIN_M)
       return plan_deep_of<double>(L, n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
     return plan_lane<double>(L, n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
@@ -1440,7 +1463,7 @@ extern "C" int pac_launch_plan(int L, int n, int frame_bytes, int max_block_smem
       case 4: return plan_cluster(pac_cluster_quad_kernel<false>, L, frame_bytes, max_block_smem, frames_per_sm);
       case 2: return plan_cluster(pac_cluster_pair_kernel<false>, L, frame_bytes, max_block_smem, frames_per_sm);
     }
-    return plan_cluster(pac_cluster_kernel<false>, L, frame_bytes, max_block_smem, frames_per_sm);
+    return plan_cluster(pac_cluster_kernel<false, float>, L, frame_bytes, max_block_smem, frames_per_sm);
   }
   if (L >= DEEP_MIN_M)
     return plan_deep_of<float>(L, n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);

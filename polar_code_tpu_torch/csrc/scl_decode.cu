@@ -108,8 +108,9 @@
 //     = 13 (52-60 bytes) is longer than the fork's 12 registers: the twin
 //     scl_deep_wide_kernel copies it in two halves of 8 words, four block
 //     barriers a fork where the others take two.
-//   * On a cluster, the instantiations scl_cluster_kernel<LIST> (M
-//     1025..16384, a runtime argument, as is the cluster's size C).  One
+//   * On a cluster, the instantiations scl_cluster_kernel<LIST, F> (M
+//     1025..16384, a runtime argument, as is the cluster's size C; F the
+//     float type, below).  One
 //     thread a path caps a block at M = 1024 (its threads), and 64
 //     registers a thread at two sort keys; so a frame goes to a
 //     thread-block cluster of cluster_blocks(M) = 2, 4, 8 or 16 blocks of
@@ -249,8 +250,18 @@
 // its cross-warp exchange through the metrics double[P] and the indices
 // uint32[P] side by side), publishes a double leaf, and ranks the final
 // double metrics; its frame (`deep_layout(..., 8)`) holds 12-byte keys and
-// 8-byte rows and leaf.  On a cluster and past N = 8192 the kernel is
-// float32 only (the wrapper raises).
+// 8-byte rows and leaf.  On a cluster at one path a thread,
+// scl_cluster_kernel<LIST, double> (M 1025..16384 at N <= 8192) is the
+// cluster body with F double: the cluster sort on the pair keys
+// (`cluster_sort_keys<DKey>`, three buffers of the metrics double[2048]
+// beside the indices uint32[2048], 72 KB a block where float32's take 48,
+// a partner's keys read through DSMEM as two loads), an 8-byte leaf
+// published before the syndrome, and 8-byte rows (`cluster_layout(...,
+// 8)`: 205,840 B a block at N = 8192, G = n − 1).  Its launch bound is the
+// float32 one's, 1024 threads at 64 registers, so the doubles of the pair
+// keys and metrics may spill (`PERF.md` §6 has its `-Xptxas -v` lines).
+// Past M = 16384 (two and four paths a thread) and past N = 8192 the kernel
+// is float32 only (the wrapper raises).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1107,22 +1118,25 @@ __global__ void __launch_bounds__(DEEP_MAX_M) scl_deep_wide_kernel(SCL_DEEP_PARA
 // rank is the cluster sort of the M keys (metric, m); the thread of path m
 // takes the key of rank m, and the selected rank, the least of those whose
 // path passes the CRC, is an atomicMin on rank 0's shared word through
-// DSMEM.  It computes what scl_decode_kernel computes.
-template <bool LIST, int PPT>
+// DSMEM.  It computes what scl_decode_kernel computes.  F: the LLRs' float
+// type (double at one path a thread: rows, leaf and metrics in double, the
+// sort on the pair keys).
+template <bool LIST, int PPT, typename F>
 __device__ __forceinline__ void scl_cluster_decode(
-    const float* __restrict__ llr, const int8_t* __restrict__ forced,
+    const F* __restrict__ llr, const int8_t* __restrict__ forced,
     const uint32_t* __restrict__ hcols, const int* __restrict__ sched,
-    float* glob_llr,    // [B, M, N-(N>>G)]: LLR levels 1..G, null when G == 0
+    F* glob_llr,        // [B, M, N-(N>>G)]: LLR levels 1..G, null when G == 0
     uint8_t* glob_bits, // [B, M, N-(N>>G)]: partial-sum levels 1..G
-    float* trace_llr,   // [B, K, M]
+    F* trace_llr,       // [B, K, M]
     ClusterEntry<PPT>* trace_idx,  // [B, K, M]
-    int8_t* __restrict__ out_bits, float* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,
-    int8_t* __restrict__ list_bits, float* __restrict__ list_llrs, float* __restrict__ list_metrics,
+    int8_t* __restrict__ out_bits, F* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,
+    int8_t* __restrict__ list_bits, F* __restrict__ list_llrs, F* __restrict__ list_metrics,
     int* __restrict__ list_best, int N, int n, int K, int M, int G, int use_crc,
     ClusterEntry<PPT>* sigma_g,  // [B, 2, M, row]: σ's two tables past one path a thread, else null
     uint32_t* words_g) {  // [B, 2, 2, M]: the published word sets at four paths a thread, else null
   using Off = ClusterOff<PPT>;
   using E = ClusterEntry<PPT>;  // a σ field and a trace entry
+  using Key = KeyOf<F>;
   constexpr int PATHS = CLUSTER_THREADS * PPT;  // paths a block
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
@@ -1142,7 +1156,7 @@ __device__ __forceinline__ void scl_cluster_decode(
   const int Mr = M - base < 0 ? 0 : M - base < PATHS ? M - base : PATHS;
   const int P = sort_keys(M);
 
-  const ClusterLayout lay = cluster_layout<PPT>(N, n, G, 2);
+  const ClusterLayout lay = cluster_layout<PPT>(N, n, G, 2, sizeof(F));
   const int SS = (N >> G) - 1;  // entries of a path's shared row: levels G+1..n
   const int SG = N - (N >> G);  // entries of a path's global row: levels 1..G
   // σ after i forks: table i & 1 (the other is the next fork's target),
@@ -1155,14 +1169,14 @@ __device__ __forceinline__ void scl_cluster_decode(
                           lay.sig_row / (int)sizeof(E), lay.sig_row / 4};
   };
   unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem + lay.keys);
-  float* Ls = reinterpret_cast<float*>(smem + lay.ls);
+  F* Ls = reinterpret_cast<F*>(smem + lay.ls);
   uint8_t* Bs = smem + lay.bs;
   int* selS = reinterpret_cast<int*>(smem + lay.sel);
-  float* Lg = glob_llr + frame * M * SG;  // unused when G == 0
+  F* Lg = glob_llr + frame * M * SG;  // unused when G == 0
   uint8_t* Bg = glob_bits + frame * M * SG;
-  float* TL = trace_llr + frame * K * M;
+  F* TL = trace_llr + frame * K * M;
   E* TI = trace_idx + frame * K * M;
-  const float* ch = llr + frame * N;
+  const F* ch = llr + frame * N;
   const int8_t* plan = forced ? forced + frame * K : nullptr;
   auto so = [&](int l) { return (N >> G) - (N >> (l - 1)); };
   auto go = [&](int l) { return N - (N >> (l - 1)); };
@@ -1175,19 +1189,19 @@ __device__ __forceinline__ void scl_cluster_decode(
   auto glev = [&](auto* g, int l) { return g + (Off)M * go(l); };
   auto gw = [&](int l) { return BY_LEVEL ? N >> l : SG; };
   // the published leaf and syndrome of set i (an info phase's parity), from
-  // the block's first path: in shared memory, or at four paths a thread in
-  // global scratch
+  // the block's first path: in shared memory (the leaves of F, then the
+  // syndromes), or at four paths a thread in global scratch
   auto leafS = [&](int i) {
     if constexpr (words_global<PPT>())
-      return reinterpret_cast<float*>(words_g + (frame * 2 + i) * 2 * M + base);
+      return reinterpret_cast<F*>(words_g + (frame * 2 + i) * 2 * M + base);
     else
-      return reinterpret_cast<float*>(smem + lay.words + i * lay.word_set);
+      return reinterpret_cast<F*>(smem + lay.words + i * lay.word_set);
   };
   auto synS = [&](int i) {
     if constexpr (words_global<PPT>())
       return words_g + ((frame * 2 + i) * 2 + 1) * M + base;
     else
-      return reinterpret_cast<uint32_t*>(smem + lay.words + i * lay.word_set + 4 * PATHS);
+      return reinterpret_cast<uint32_t*>(smem + lay.words + i * lay.word_set + (int)sizeof(F) * PATHS);
   };
   // path p's entry of a published array whose block-local start is `own`:
   // another block's through DSMEM, or from L2 (written before the sort's
@@ -1204,11 +1218,11 @@ __device__ __forceinline__ void scl_cluster_decode(
     if (act[k]) sigma(0).init(k * CLUSTER_THREADS + tid, m[k], 2 * n - 2);
   if (m[0] == 0) *selS = M;
   __syncthreads();
-  float pm[PPT];     // metric of path m[k]
+  F pm[PPT];          // metric of path m[k]
   uint32_t syn[PPT];  // CRC syndrome of path m[k]
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    pm[k] = (m[k] == 0) ? 0.f : SCL_BIG;
+    pm[k] = (m[k] == 0) ? F(0) : big<F>();
     syn[k] = 0;
   }
   int info_i = 0;
@@ -1238,7 +1252,7 @@ __device__ __forceinline__ void scl_cluster_decode(
     for (int l = l0; l < n; ++l) {
       const bool is_g = (p != 0) && (l == gl);
       const E* via = (is_g && l > 1 && (word >> 11 & 1)) ? sig.field(l - 2) : nullptr;
-      float* dst = l > G ? Ls + so(l) : BY_LEVEL ? glev(Lg, l) + (Off)base * gw(l) : Lg + (Off)base * SG + go(l);
+      F* dst = l > G ? Ls + so(l) : BY_LEVEL ? glev(Lg, l) + (Off)base * gw(l) : Lg + (Off)base * SG + go(l);
       const uint8_t* dbits = l > G ? Bs + so(l)
                                    : BY_LEVEL ? glev(Bg, l) + (Off)base * gw(l) : Bg + (Off)base * SG + go(l);
       const int ds = l > G ? SS : gw(l);
@@ -1253,23 +1267,23 @@ __device__ __forceinline__ void scl_cluster_decode(
     }
     // the leaf (level n) from the parent row, level n−1
     const bool g_leaf = gl == n;
-    float leaf[PPT];
+    F leaf[PPT];
 #pragma unroll
     for (int k = 0; k < PPT; ++k) {
       const int lm = k * CLUSTER_THREADS + tid;
-      leaf[k] = 0.f;
+      leaf[k] = 0;
       if (act[k]) {
         const int r = (g_leaf && n > 1 && (word >> 11 & 1)) ? sig.get(lm, n - 2) : m[k];
-        float a, b;
+        F a, b;
         if (n == 1) {
           a = ch[0];
           b = ch[1];
         } else if (n - 1 > G) {
-          const float* row = cluster_row<PPT>(Ls + so(n - 1), r, SS, rank);
+          const F* row = cluster_row<PPT>(Ls + so(n - 1), r, SS, rank);
           a = row[0];
           b = row[1];
         } else {
-          const float* row = BY_LEVEL ? glev(Lg, n - 1) + (Off)r * 2 : Lg + go(n - 1) + (Off)r * SG;
+          const F* row = BY_LEVEL ? glev(Lg, n - 1) + (Off)r * 2 : Lg + go(n - 1) + (Off)r * SG;
           a = __ldcg(row);
           b = __ldcg(row + 1);
         }
@@ -1287,18 +1301,18 @@ __device__ __forceinline__ void scl_cluster_decode(
         if (act[k]) pm[k] = pm[k] + softplus(-leaf[k]);
     } else {
       const int set = info_i & 1;
-      unsigned long long kk[2 * PPT];
+      Key kk[2 * PPT];
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        float c0 = pm[k] + softplus(-leaf[k]), c1 = pm[k] + softplus(leaf[k]);
-        if (fb == 1) c0 = SCL_BIG;
-        if (fb == 0) c1 = SCL_BIG;
+        F c0 = pm[k] + softplus(-leaf[k]), c1 = pm[k] + softplus(leaf[k]);
+        if (fb == 1) c0 = big<F>();
+        if (fb == 0) c1 = big<F>();
         if (act[k]) {
           leafS(set)[k * CLUSTER_THREADS + tid] = leaf[k];
           synS(set)[k * CLUSTER_THREADS + tid] = syn[k];
         }
-        kk[2 * k] = act[k] ? cand_key(c0, 2 * m[k]) : ~0ull;
-        kk[2 * k + 1] = act[k] ? cand_key(c1, 2 * m[k] + 1) : ~0ull;
+        kk[2 * k] = act[k] ? cand_key(c0, 2 * m[k]) : pad_key(c0);
+        kk[2 * k + 1] = act[k] ? cand_key(c1, 2 * m[k] + 1) : pad_key(c0);
       }
       unsigned long long* sorted =
           cluster_sort<PPT>(keys, kk, P, rank, tid, info_i * cluster_exchanges<PPT>(P));
@@ -1308,7 +1322,7 @@ __device__ __forceinline__ void scl_cluster_decode(
       for (int k = 0; k < PPT; ++k) {
         parent[k] = 0;
         if (act[k]) {
-          const unsigned long long key = cluster_key<PPT>(sorted, m[k]);
+          const Key key = cluster_key<PPT, Key>(sorted, m[k]);
           const int w = key_index(key);
           TI[(Off)info_i * M + m[k]] = (E)w;
           parent[k] = w >> 1;
@@ -1378,20 +1392,20 @@ __device__ __forceinline__ void scl_cluster_decode(
 
   // ---- final stable sort of the list, CRC selection, backtrack ----
   uint32_t* passS = synS(info_i & 1);
-  unsigned long long kk[2 * PPT];
+  Key kk[2 * PPT];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    if (act[k]) passS[k * CLUSTER_THREADS + tid] = use_crc && syn[k] == 0u && pm[k] < SCL_BIG;  // path m passes
-    kk[2 * k] = act[k] ? cand_key(pm[k], m[k]) : ~0ull;
-    kk[2 * k + 1] = ~0ull;
+    if (act[k]) passS[k * CLUSTER_THREADS + tid] = use_crc && syn[k] == 0u && pm[k] < big<F>();  // path m passes
+    kk[2 * k] = act[k] ? cand_key(pm[k], m[k]) : pad_key(pm[k]);
+    kk[2 * k + 1] = pad_key(pm[k]);
   }
   unsigned long long* sorted = cluster_sort<PPT>(keys, kk, P, rank, tid, info_i * cluster_exchanges<PPT>(P));
   // the thread of path m < M: the key (metric, path) of final rank m
-  unsigned long long fkey[PPT];
+  Key fkey[PPT];
   int path_r[PPT];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    fkey[k] = act[k] ? cluster_key<PPT>(sorted, m[k]) : ~0ull;
+    fkey[k] = act[k] ? cluster_key<PPT, Key>(sorted, m[k]) : pad_key(pm[k]);
     path_r[k] = act[k] ? key_index(fkey[k]) : 0;
     if (act[k] && published(passS, path_r[k])) atomicMin(cluster.map_shared_rank(selS, 0), m[k]);
   }
@@ -1402,8 +1416,8 @@ __device__ __forceinline__ void scl_cluster_decode(
 #pragma unroll
     for (int k = 0; k < PPT; ++k) {
       if (act[k]) {
-        const float mr = key_metric(fkey[k]);
-        list_metrics[frame * M + m[k]] = mr < SCL_BIG ? mr : __int_as_float(0x7f800000);
+        const F mr = key_metric(fkey[k]);
+        list_metrics[frame * M + m[k]] = mr < big<F>() ? mr : inf_of(mr);
         // the path of rank m into row m of the list, before the trace is rewritten
         const long long o = (frame * M + m[k]) * K;
         int slot = path_r[k];
@@ -1439,38 +1453,39 @@ __device__ __forceinline__ void scl_cluster_decode(
   }
 }
 
-#define SCL_CLUSTER_PARAMS(E)                                                                      \
-  const float* __restrict__ llr, const int8_t* __restrict__ forced,                                \
-      const uint32_t* __restrict__ hcols, const int* __restrict__ sched, float* glob_llr,          \
-      uint8_t* glob_bits, float* trace_llr, E* trace_idx, int8_t* __restrict__ out_bits,           \
-      float* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,                                \
-      int8_t* __restrict__ list_bits, float* __restrict__ list_llrs,                               \
-      float* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int K, int M,   \
+#define SCL_CLUSTER_PARAMS(E, F)                                                                   \
+  const F* __restrict__ llr, const int8_t* __restrict__ forced,                                    \
+      const uint32_t* __restrict__ hcols, const int* __restrict__ sched, F* glob_llr,              \
+      uint8_t* glob_bits, F* trace_llr, E* trace_idx, int8_t* __restrict__ out_bits,               \
+      F* __restrict__ out_llrs, uint8_t* __restrict__ out_pass,                                    \
+      int8_t* __restrict__ list_bits, F* __restrict__ list_llrs,                                   \
+      F* __restrict__ list_metrics, int* __restrict__ list_best, int N, int n, int K, int M,       \
       int G, int use_crc
 #define SCL_CLUSTER_ARGS                                                                           \
   llr, forced, hcols, sched, glob_llr, glob_bits, trace_llr, trace_idx, out_bits, out_llrs,        \
       out_pass, list_bits, list_llrs, list_metrics, list_best, N, n, K, M, G, use_crc
 
-// M 1025..16384: one path a thread, σ in the blocks' shared memory
-template <bool LIST>
-__global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_kernel(SCL_CLUSTER_PARAMS(uint16_t)) {
-  scl_cluster_decode<LIST, 1>(SCL_CLUSTER_ARGS, nullptr, nullptr);
+// M 1025..16384: one path a thread, σ in the blocks' shared memory; F:
+// float, or double (the float64 instantiation, N <= 8192)
+template <bool LIST, typename F>
+__global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_kernel(SCL_CLUSTER_PARAMS(uint16_t, F)) {
+  scl_cluster_decode<LIST, 1, F>(SCL_CLUSTER_ARGS, nullptr, nullptr);
 }
 
 // M 16385..32768: two paths a thread on a cluster of 16, σ in global scratch
 template <bool LIST>
-__global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_pair_kernel(SCL_CLUSTER_PARAMS(uint16_t),
+__global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_pair_kernel(SCL_CLUSTER_PARAMS(uint16_t, float),
                                                                            uint16_t* sigma_g) {
-  scl_cluster_decode<LIST, 2>(SCL_CLUSTER_ARGS, sigma_g, nullptr);
+  scl_cluster_decode<LIST, 2, float>(SCL_CLUSTER_ARGS, sigma_g, nullptr);
 }
 
 // M 32769..65536: four paths a thread on a cluster of 16, 32-bit trace
 // entries and σ fields, σ and the published words in global scratch
 template <bool LIST>
-__global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_quad_kernel(SCL_CLUSTER_PARAMS(uint32_t),
+__global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_quad_kernel(SCL_CLUSTER_PARAMS(uint32_t, float),
                                                                            uint32_t* sigma_g,
                                                                            uint32_t* words_g) {
-  scl_cluster_decode<LIST, 4>(SCL_CLUSTER_ARGS, sigma_g, words_g);
+  scl_cluster_decode<LIST, 4, float>(SCL_CLUSTER_ARGS, sigma_g, words_g);
 }
 
 // ---------------------------------------------------------------------------
@@ -1478,8 +1493,7 @@ __global__ void __launch_bounds__(CLUSTER_THREADS) scl_cluster_quad_kernel(SCL_C
 // ---------------------------------------------------------------------------
 
 // every kernel argument but the list size, the σ masks and the stream; F
-// the LLRs' float type (double only for the byte-word and by-path
-// instantiations at N <= 8192)
+// the LLRs' float type (double at M <= 16384 and N <= 8192)
 template <typename F>
 struct ArgsOf {
   const F* llr;
@@ -1624,10 +1638,11 @@ int plan_deep_of(int M, int n, int frame_bytes, int max_block_smem, int* frames_
                    frames_per_sm);
 }
 
-template <bool LIST, int PPT>
-int launch_cluster_as(const Args& a, int M, void* trace_idx, void* sigma, cudaStream_t stream) {
+// F double: one path a thread only (the float64 instantiation)
+template <bool LIST, int PPT, typename F = float>
+int launch_cluster_as(const ArgsOf<F>& a, int M, void* trace_idx, void* sigma, cudaStream_t stream) {
   using E = ClusterEntry<PPT>;
-  const ClusterLayout lay = cluster_layout<PPT>(a.N, a.n, a.G, 2);
+  const ClusterLayout lay = cluster_layout<PPT>(a.N, a.n, a.G, 2, sizeof(F));
   // levels 1..G in global scratch, G+1..n in each block's shared memory,
   // one frame a cluster; past one path a thread σ in global scratch
   if (!trace_idx || (PPT > 1 && !sigma) || (a.G > 0 && (!a.glob_llr || !a.glob_bits)) || a.n > MAX_LEVELS ||
@@ -1636,7 +1651,7 @@ int launch_cluster_as(const Args& a, int M, void* trace_idx, void* sigma, cudaSt
   E* ti = static_cast<E*>(trace_idx);
   E* sg = static_cast<E*>(sigma);
   if constexpr (PPT == 1)
-    return launch_cluster_kernel(scl_cluster_kernel<LIST>, a.B, M, lay.total, stream, a.llr, a.forced,
+    return launch_cluster_kernel(scl_cluster_kernel<LIST, F>, a.B, M, lay.total, stream, a.llr, a.forced,
                                  a.hcols, a.sched, a.glob_llr, a.glob_bits, a.trace_llr, ti,
                                  a.out_bits, a.out_llrs, a.out_pass, a.list_bits, a.list_llrs,
                                  a.list_metrics, a.list_best, a.N, a.n, a.K, M, a.G, a.use_crc);
@@ -1767,11 +1782,14 @@ extern "C" int scl_decode_launch(const void* llr, const void* forced, const void
                                  int M, int G, int use_crc, int frame_bytes, int frames_per_block,
                                  int f64, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (f64) {  // M 1..1024 at n <= 13: one path a lane up to 32, over warps above
-    if (M < 1 || M > DEEP_MAX_M || n > BYTE_WORD_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  if (f64) {  // M 1..16384 at n <= 13: one path a lane up to 32, over warps up to 1024, one path a thread above
+    if (M < 1 || M > F64_MAX_M || n > BYTE_WORD_MAX_LEVELS) return (int)cudaErrorInvalidValue;
     const ArgsOf<double> d = args_of<double>(llr, forced, hcols, sched, glob_llr, glob_bits, trace_llr, out_bits,
                                              out_llrs, out_pass, list_bits, list_llrs, list_metrics, list_best, B,
                                              N, n, K, G, use_crc, frame_bytes, frames_per_block);
+    if (M > DEEP_MAX_M)
+      return d.list_bits ? launch_cluster_as<true, 1>(d, M, trace_idx, sigma, st)
+                         : launch_cluster_as<false, 1>(d, M, trace_idx, sigma, st);
     if (M >= DEEP_MIN_M) return launch_deep(d, M, trace_idx, st);
     return launch_warp(d, M, trace_idx, st);
   }
@@ -1786,8 +1804,12 @@ extern "C" int scl_decode_launch(const void* llr, const void* forced, const void
 
 extern "C" int scl_launch_plan(int M, int n, int frame_bytes, int max_block_smem, int f64,
                                int* frames_per_block, int* frames_per_sm) {
-  if (f64) {  // the float64 instantiations: M 1..1024 at n <= 13
-    if (M < 1 || M > DEEP_MAX_M || n > BYTE_WORD_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  if (f64) {  // the float64 instantiations: M 1..16384 at n <= 13
+    if (M < 1 || M > F64_MAX_M || n > BYTE_WORD_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+    if (M > DEEP_MAX_M) {  // frames_per_sm: the frames (clusters) the card runs at once
+      *frames_per_block = 1;
+      return plan_cluster(scl_cluster_kernel<false, double>, M, frame_bytes, max_block_smem, frames_per_sm);
+    }
     if (M >= DEEP_MIN_M)
       return plan_deep_of<double>(M, n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
     return plan_warp<double>(M, n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);
@@ -1799,7 +1821,7 @@ extern "C" int scl_launch_plan(int M, int n, int frame_bytes, int max_block_smem
       case 4: return plan_cluster(scl_cluster_quad_kernel<false>, M, frame_bytes, max_block_smem, frames_per_sm);
       case 2: return plan_cluster(scl_cluster_pair_kernel<false>, M, frame_bytes, max_block_smem, frames_per_sm);
     }
-    return plan_cluster(scl_cluster_kernel<false>, M, frame_bytes, max_block_smem, frames_per_sm);
+    return plan_cluster(scl_cluster_kernel<false, float>, M, frame_bytes, max_block_smem, frames_per_sm);
   }
   if (M >= DEEP_MIN_M)
     return plan_deep_of<float>(M, n, frame_bytes, max_block_smem, frames_per_block, frames_per_sm);

@@ -14,10 +14,11 @@ instantiation writes them (the systematic scalar decoder,
 
 On a CUDA tensor it launches the kernel, or raises for a shape the kernel
 does not take; it runs the plain version (`legacy/pac.py`) only for a tensor
-on the CPU.  The LLRs are float32, or float64 one path a lane (L 1..32) and
-over warps (L 33..1024) at N up to 8192 (`ops/scl_cuda.py::F64_MAX_M`,
-`F64_MAX_N`), where "metrics" is float64 too; a float64 decode outside that
-(on a cluster, past N=8192) raises, naming the envelope.  The kernel takes every list size from 1 to 65536 (the TPU
+on the CPU.  The LLRs are float32, or float64 one path a lane (L 1..32),
+over warps (L 33..1024) and one path a thread of a cluster (L
+1025..16384) at N up to 8192 (`ops/scl_cuda.py::F64_MAX_M`, `F64_MAX_N`),
+where "metrics" is float64 too; a float64 decode outside that (two and
+four paths a thread, past N=8192) raises, naming the envelope.  The kernel takes every list size from 1 to 65536 (the TPU
 kernel took power-of-two L <= 8 and N up to 8192, and the JAX package's XLA
 decoder takes the rest), N up to 65536 (the phase words' limit), and any
 batch size: the last block is masked, since the adaptive second stage
@@ -101,12 +102,12 @@ def frame_bytes(N: int, Kp: int, L: int, global_levels: int = 0, elem: int = 4) 
     float64) and edge-bit rows (bytes) of levels global_levels+1..n, and
     above L=1 a ring of `TRACE_RING` trace rows of round16(L) bytes (the
     trace is in global scratch, whatever Kp); over warps
-    `ops/scl_cuda.py::deep_frame_bytes` (at `elem`); on a cluster what
-    each of its blocks takes, `ops/scl_cuda.py::cluster_block_bytes`
-    (float32)."""
+    `ops/scl_cuda.py::deep_frame_bytes` and on a cluster what each of its
+    blocks takes, `ops/scl_cuda.py::cluster_block_bytes` (both at
+    `elem`)."""
 
     if L > DEEP_MAX_M:
-        return cluster_block_bytes(N, global_levels, DEEP_WORDS, cluster_ppt(L))
+        return cluster_block_bytes(N, global_levels, DEEP_WORDS, cluster_ppt(L), elem)
     if L > PATH_MAX_M:
         return deep_frame_bytes(N, L, global_levels, DEEP_WORDS, elem)
     row = (N >> global_levels) - 1
@@ -143,8 +144,8 @@ def check_shape(N: int, Kp: int, L: int, gen, crc_len: int, dtype: torch.dtype) 
     if dtype == torch.float64 and not (1 <= L <= F64_MAX_M and N <= F64_MAX_N):
         raise ValueError(f"the PAC kernel decodes float64 at list sizes 1..{F64_MAX_M} and N up to "
                          f"{F64_MAX_N} (one path a lane of a warp up to L={PATH_MAX_M}, over the warps of "
-                         f"one block above), not L={L} N={N}; float32 takes L up to {MAX_L} and N up to "
-                         f"{MAX_N}")
+                         f"one block up to L={DEEP_MAX_M}, one path a thread of a cluster above), not L={L} "
+                         f"N={N}; float32 takes L up to {MAX_L} and N up to {MAX_N}")
     if not 1 <= L <= MAX_L:
         raise ValueError(f"the PAC kernel supports list sizes 1..{MAX_L} (one frame a cluster of at "
                          f"most {CLUSTER_MAX_BLOCKS} blocks of {CLUSTER_THREADS} threads, four paths a "
@@ -211,19 +212,18 @@ def launch_plan(N: int, Kp: int, L: int, elem: int = 4) -> tuple:
     current card; on a cluster (L > 1024) (G, 1, the frames the card runs at
     once), G as `ops/scl_cuda.py::launch_plan` picks it, raising where the
     card places no cluster (past L=8192 one of 16 blocks).  `elem` 8 plans
-    the float64 instantiation."""
+    the float64 instantiations."""
 
     n = int(math.log2(N))
-    if elem != 4:
-        return smallest_global_levels(n, lambda g: _occupancy(N, Kp, L, g, elem))
+    occupancy = occupancy_of(_occupancy, elem)
     if L > DEEP_MAX_M:
-        at_once = _occupancy(N, Kp, L, n - 1)[1]
+        at_once = occupancy(N, Kp, L, n - 1)[1]
         if at_once < 1:
             raise RuntimeError(f"the card places no cluster of {cluster_blocks(L)} blocks of "
-                               f"{CLUSTER_THREADS} threads and {frame_bytes(N, Kp, L, n - 1)} B of shared "
+                               f"{CLUSTER_THREADS} threads and {frame_bytes(N, Kp, L, n - 1, elem)} B of shared "
                                f"memory each (N={N} L={L})")
-        return smallest_global_levels(n, lambda g: _occupancy(N, Kp, L, g), at_once)
-    return smallest_global_levels(n, lambda g: _occupancy(N, Kp, L, g))
+        return smallest_global_levels(n, lambda g: occupancy(N, Kp, L, g), at_once)
+    return smallest_global_levels(n, lambda g: occupancy(N, Kp, L, g))
 
 
 def host_tables(mask, crc_len: int, crc_poly: int):

@@ -11,8 +11,8 @@ call `legacy.pac` batched functions directly.
 (`pac.pac_decode`), and on the CPU through the plain decoder, in the
 instance's float type: `dtype=None` is float32 on the card and float64 on
 the CPU (`utils/device.py::scalar_dtype`); `dtype=torch.float64` on the card
-decodes in float64, the JAX class's type, at list sizes up to 1024 and N up
-to 8192.  Its systematic branch re-encodes every path's `v_full`: on the card
+decodes in float64, the JAX class's type, at list sizes up to 16384 and N
+up to 8192.  Its systematic branch re-encodes every path's `v_full`: on the card
 the kernel's full-list instantiation returns the list, one launch a call.
 """
 

@@ -4,7 +4,7 @@ The device decides: a CUDA tensor goes through the SCL kernel
 (`ops/scl_cuda.py`), or the call raises for a shape the kernel does not
 take; only a CPU tensor goes through the plain decoder (`ops/scl.py`).
 A float64 decode on the card goes through the kernel's float64
-instantiations (list sizes up to 1024, N up to 8192) or raises.  There is no
+instantiations (list sizes up to 16384, N up to 8192) or raises.  There is no
 fallback from the card to the plain version, and none to float32.
 """
 

@@ -14,12 +14,12 @@ stable (metric, slot) order; the kernel's LIST instantiation writes them.
 On a CUDA tensor it launches the kernel, or raises for a shape the kernel
 does not take; it runs the plain version (`ops/scl.py`) only for a tensor on
 the CPU.  The LLRs are float32, or float64 inside the float64 envelope
-(`F64_MAX_M`, `F64_MAX_N`: M 1..1024 at N up to 8192, the byte-word and
-by-path instantiations up to M=32 and the over-warps one above, as the
-JAX package's float64 decodes run through its XLA decoder); the LLR and
-metric outputs then are float64 too.  A float64 decode outside it (on a
-cluster, past N=8192) raises, naming the envelope: no path casts to
-float32.  Any batch size is taken: the last block is masked, since the retry
+(`F64_MAX_M`, `F64_MAX_N`: M 1..16384 at N up to 8192, the byte-word and
+by-path instantiations up to M=32, the over-warps one up to 1024 and the
+cluster one at one path a thread above, as the JAX package's float64
+decodes run through its XLA decoder); the LLR and metric outputs then are
+float64 too.  A float64 decode outside it (two and four paths a thread,
+past N=8192) raises, naming the envelope: no path casts to float32.  Any batch size is taken: the last block is masked, since the retry
 batches after compaction are data-dependent.  `decode_scl_cuda.launches`
 counts kernel launches, `decode_scl_cuda.path_launches` those of them that
 went to the by-path instantiation, `decode_scl_cuda.deep_launches` those
@@ -118,10 +118,11 @@ MAX_N = 65536
 BYTE_WORD_MAX_N = 8192
 MAX_BLOCK_SMEM = 227 * 1024  # dynamic shared memory one block may use on an H100
 # the float64 envelope: the byte-word and by-path instantiations (one path a
-# lane of a warp) and the over-warps one (one frame a block) at N up to
-# 8192, whose σ registers and rows hold n <= 13 at every width; on a
-# cluster and past N=8192 the kernels are float32
-F64_MAX_M = DEEP_MAX_M
+# lane of a warp), the over-warps one (one frame a block) and the cluster
+# one at one path a thread, at N up to 8192, whose σ registers and rows
+# hold n <= 13 at every width (`F64_MAX_M` in `csrc/list_decode.cuh`); at
+# two and four paths a thread and past N=8192 the kernels are float32
+F64_MAX_M = CLUSTER_PAIR_MIN_M - 1
 F64_MAX_N = BYTE_WORD_MAX_N
 DTYPES = (torch.float32, torch.float64)
 FRAMES_PER_SM_TARGET = 16
@@ -217,26 +218,31 @@ def sigma_row(N: int, M: int = CLUSTER_PAIR_MIN_M) -> int:
     return max(4, ((2 * n - 2) * trace_entry_bytes(M) + 3) // 4 * 4)
 
 
-def cluster_block_bytes(N: int, global_levels: int, words: int = 2, ppt: int = 1) -> int:
+def cluster_block_bytes(N: int, global_levels: int, words: int = 2, ppt: int = 1, elem: int = 4) -> int:
     """Shared memory each block of a cluster frame takes (`cluster_layout`
     in `csrc/list_decode.cuh`) at `ppt` paths a thread, so 1024 · ppt paths
     a block, each region rounded to 16 bytes: at one path a thread two σ
     tables of its paths (`sigma_row` bytes a path; a fork copies from one
     into the other; past one they are in global scratch), three buffers of
-    2048 · ppt sort keys of 8 bytes (two a cross-block stage's exchange, in
-    turns, and one for the stages within the block), up to two paths a
-    thread two sets (an info phase's parity) of `words` published 32-bit
-    values a path (SCL 2, PAC 3; at four in global scratch, `sigma_bytes`),
-    the LLR rows (float32) and partial-sum rows (bytes) of levels
+    2048 · ppt sort keys (two a cross-block stage's exchange, in turns, and
+    one for the stages within the block) of 8 bytes in float32, of 12 in
+    float64 (the pair keys: the metrics double[2048], the indices
+    uint32[2048] beside them), up to two paths a thread two sets (an info
+    phase's parity) of `words` published values a path (SCL 2, PAC 3: the
+    leaf of `elem` bytes, then 32-bit ones; at four in global scratch,
+    `sigma_bytes`), the LLR rows (`elem` bytes an entry: 4 in float32, 8 in
+    float64, one path a thread only) and partial-sum rows (bytes) of levels
     global_levels+1..n of its paths, and the selected rank.  At four paths
     a thread the keys take 196,608 B, and only G = n − 1 fits: 217,104 B at
-    every N."""
+    every N; in float64 at N=8192, G = n − 1, 205,840 B (SCL) and 214,032 B
+    (PAC)."""
 
     paths = CLUSTER_THREADS * ppt
     row = (N >> global_levels) - 1
     sigma = 2 * _round16(CLUSTER_THREADS * sigma_row(N)) if ppt == 1 else 0
-    word_sets = 2 * words * 4 * paths if ppt <= 2 else 0
-    return (sigma + 3 * 8 * 2 * paths + word_sets + _round16(4 * paths * row)
+    keys = 3 * (12 if elem == 8 else 8) * 2 * paths
+    word_sets = 2 * (elem + 4 * (words - 1)) * paths if ppt <= 2 else 0
+    return (sigma + keys + word_sets + _round16(elem * paths * row)
             + _round16(paths * row) + 16)
 
 
@@ -306,11 +312,11 @@ def frame_bytes(N: int, K: int, M: int, global_levels: int = 0, elem: int = 4) -
     to M=32 the LLR rows (`elem` bytes an entry: 4 in float32, 8 in
     float64) and partial-sum rows (bytes) of levels global_levels+1..n, and
     in the byte-word layout the trace indices (bytes); over warps
-    `deep_frame_bytes` (at `elem`); on a cluster what each of its blocks
-    takes, `cluster_block_bytes` (float32)."""
+    `deep_frame_bytes` and on a cluster what each of its blocks takes,
+    `cluster_block_bytes` (both at `elem`)."""
 
     if M > DEEP_MAX_M:
-        return cluster_block_bytes(N, global_levels, 2, cluster_ppt(M))
+        return cluster_block_bytes(N, global_levels, 2, cluster_ppt(M), elem)
     if M > PATH_MAX_M:
         return deep_frame_bytes(N, M, global_levels, 2, elem)
     row = (N >> global_levels) - 1
@@ -357,8 +363,8 @@ def check_shape(N: int, K: int, M: int, crc: Optional[str], dtype: torch.dtype) 
     if dtype == torch.float64 and not (1 <= M <= F64_MAX_M and N <= F64_MAX_N):
         raise ValueError(f"the SCL kernel decodes float64 at list sizes 1..{F64_MAX_M} and N up to "
                          f"{F64_MAX_N} (one path a lane of a warp up to M={PATH_MAX_M}, over the warps of "
-                         f"one block above), not M={M} N={N}; float32 takes M up to {MAX_M} and N up to "
-                         f"{MAX_N}")
+                         f"one block up to M={DEEP_MAX_M}, one path a thread of a cluster above), not M={M} "
+                         f"N={N}; float32 takes M up to {MAX_M} and N up to {MAX_N}")
     if not 1 <= M <= MAX_M:
         raise ValueError(f"the SCL kernel supports list sizes 1..{MAX_M} (one frame a cluster of at "
                          f"most {CLUSTER_MAX_BLOCKS} blocks of {CLUSTER_THREADS} threads, four paths a "
@@ -470,18 +476,19 @@ def launch_plan(N: int, K: int, M: int, B: int, elem: int = 4) -> tuple:
     where the card places no cluster (past M=8192 a cluster of 16 blocks,
     which the kernel allows as a non-portable size: a card whose GPCs hold
     fewer than 16 free SMs places none).  `elem` 8 plans the float64
-    instantiation, whose frames hold 8-byte LLR rows.  The occupancy
+    instantiations, whose frames hold 8-byte LLR rows (and on a cluster
+    12-byte keys and an 8-byte leaf).  The occupancy
     (`_occupancy`) is cached by shape alone: the cards of one host are
     taken to be of one kind."""
 
     n = int(math.log2(N))
     if M > DEEP_MAX_M:
-        at_once = _occupancy(N, K, M, n - 1)[1]
+        at_once = occupancy_of(_occupancy, elem)(N, K, M, n - 1)[1]
         if at_once < 1:
             raise RuntimeError(f"the card places no cluster of {cluster_blocks(M)} blocks of "
-                               f"{CLUSTER_THREADS} threads and {frame_bytes(N, K, M, n - 1)} B of shared "
+                               f"{CLUSTER_THREADS} threads and {frame_bytes(N, K, M, n - 1, elem)} B of shared "
                                f"memory each (N={N} M={M})")
-        return _plan(N, K, M, at_once)
+        return _plan(N, K, M, at_once, elem)
     if not path_layout(M, N):
         return _plan(N, K, M, FRAMES_PER_SM_TARGET, elem)
     most = occupancy_of(_occupancy, elem)(N, K, M, n - 1)[1]

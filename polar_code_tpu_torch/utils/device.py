@@ -48,7 +48,7 @@ def scalar_dtype(device: torch.device, dtype: Optional[torch.dtype] = None) -> t
     on the card (the kernels' default type, the port's stated choice).  An
     explicit float64 on the card is passed on: the SCL and PAC kernels
     decode it through their float64 instantiations at list sizes up to
-    1024 and N up to 8192, and their shape checks raise, naming that envelope,
+    16384 and N up to 8192, and their shape checks raise, naming that envelope,
     outside it."""
 
     if dtype is not None:

@@ -129,26 +129,29 @@ def test_k1_float64_envelope(M):
         for crc in (CRC, None):
             scl_cuda.check_shape(N, K, M, crc, F64)
             assert resolve_backend("cuda", M=M, dtype=F64, N=N, K=K, crc=crc) == "cuda"
-    with pytest.raises(ValueError, match="float64 at list sizes 1..1024 and N up to 8192"):
+    with pytest.raises(ValueError, match="float64 at list sizes 1..16384 and N up to 8192"):
         scl_cuda.check_shape(16384, 8192, M, CRC, F64)
 
 
-@pytest.mark.parametrize("M,N", [(1025, 128), (2048, 128), (64, 16384), (65536, 128), (4, 16384), (1, 65536)])
+# M 1025 and 2048 were refused before the float64 cluster instantiation;
+# the envelope's edge is now past one path a thread of a cluster
+@pytest.mark.parametrize("M,N", [(16385, 128), (32768, 128), (64, 16384), (65536, 128), (4, 16384), (1, 65536)])
 def test_k1_float64_outside_the_envelope_raises(M, N):
     scl_cuda.check_shape(N, N // 2, M, CRC, torch.float32)  # float32 takes it
     for call in (lambda: scl_cuda.check_shape(N, N // 2, M, CRC, F64),
                  lambda: resolve_backend("cuda", M=M, dtype=F64, N=N, K=N // 2, crc=CRC)):
-        with pytest.raises(ValueError, match="float64 at list sizes 1..1024 and N up to 8192"):
+        with pytest.raises(ValueError, match="float64 at list sizes 1..16384 and N up to 8192"):
             call()
     with pytest.raises(ValueError, match="float32 or float64"):
         scl_cuda.check_shape(N, N // 2, M, CRC, torch.float16)
 
 
-# L 33 and 256 were refused before the over-warps float64 instantiations
+# L 33 and 256 were refused before the over-warps float64 instantiations,
+# L 1025 and 2048 before the cluster one
 @pytest.mark.parametrize("L,N,ok", [(1, 128, True), (4, 128, True), (8, 1024, True), (32, 8192, True),
                                     (5, 64, True), (33, 128, True), (256, 128, True), (4, 16384, False),
-                                    (32, 65536, False), (1025, 128, False), (2048, 128, False),
-                                    (64, 16384, False)])
+                                    (32, 65536, False), (1025, 128, True), (2048, 128, True),
+                                    (16385, 128, False), (64, 16384, False)])
 def test_k3_float64_envelope(L, N, ok):
     gen = [1, 0, 1, 1, 0, 1, 1]
     pac_cuda.check_shape(N, N // 2, L, gen, 16, torch.float32)
@@ -156,7 +159,7 @@ def test_k3_float64_envelope(L, N, ok):
         pac_cuda.check_shape(N, N // 2, L, gen, 16, F64)
         pac_cuda.check_shape(N, N // 2, L, [1], 0, F64)
     else:
-        with pytest.raises(ValueError, match="float64 at list sizes 1..1024 and N up to 8192"):
+        with pytest.raises(ValueError, match="float64 at list sizes 1..16384 and N up to 8192"):
             pac_cuda.check_shape(N, N // 2, L, gen, 16, F64)
 
 

@@ -139,12 +139,13 @@ def test_check_shape_bounds_the_kernel():
     for N in (16384, 32768, 65536):  # past the TPU kernel's N=8192
         check_shape(N, N // 2, 32, [1], 0, torch.float32)
     check_shape(64, 32, 33, [1], 0, torch.float64)  # float64 over warps: L <= 1024
+    check_shape(64, 32, 16384, [1], 0, torch.float64)  # float64 on a cluster, one path a thread: L <= 16384
     for args in ((64, 32, 65537, [1], 0, torch.float32),   # L > 65536
                  (64, 32, 0, [1], 0, torch.float32),
                  (64, 32, 8, [0, 1], 0, torch.float32),  # gen[0] != 1
                  (64, 32, 8, [1] * 33, 0, torch.float32),  # memory 32
                  (64, 32, 8, [1], 33, torch.float32),
-                 (64, 32, 1025, [1], 0, torch.float64),  # float64 takes L <= 1024
+                 (64, 32, 16385, [1], 0, torch.float64),  # float64 takes L <= 16384
                  (131072, 8000, 32, [1], 0, torch.float32)):  # N > 65536
         with pytest.raises(ValueError):
             check_shape(*args)

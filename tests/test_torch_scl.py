@@ -178,9 +178,9 @@ def test_wrapper_runs_plain_version_on_cpu():
         (2048, 1024, 4, CRC, torch.float32, True),
         (128, 64, 3, CRC, torch.float32, True),  # M not a power of two: by-path σ
         (128, 64, 16, CRC, torch.float32, True),  # M above 8: by-path σ
-        (128, 64, 8, CRC, torch.float64, True),  # float64: M <= 1024 at N <= 8192
+        (128, 64, 8, CRC, torch.float64, True),  # float64: M <= 16384 at N <= 8192
         (128, 64, 33, CRC, torch.float64, True),  # float64 over warps: M <= 1024
-        (128, 64, 1025, CRC, torch.float64, False),  # float64 past one block
+        (128, 64, 16385, CRC, torch.float64, False),  # float64 past one path a thread of a cluster
         (16384, 8192, 4, CRC, torch.float64, False),  # float64 past N=8192
         (96, 48, 8, CRC, torch.float32, False),  # N not a power of two
         (4096, 2048, 8, CRC, torch.float32, True),  # the TPU kernel's N envelope
@@ -192,6 +192,8 @@ def test_wrapper_runs_plain_version_on_cpu():
         (16384, 8192, 1, CRC, torch.float32, True),  # N above 8192: past the TPU kernel's envelope
         (131072, 65536, 1, CRC, torch.float32, False),  # N above 65536: past the phase words
         (8192, 8192, 32, None, torch.float32, True),  # by path the trace indices are in global scratch
+        (128, 64, 1025, CRC, torch.float64, True),  # float64 on a cluster, one path a thread: M <= 16384
+        (8192, 4096, 16384, CRC, torch.float64, True),
     ],
 )
 def test_kernel_shape_gate(N, K, M, crc, dtype, ok):
